@@ -1,0 +1,119 @@
+"""Sweep engine: where each ALS sweep's two hot loops run, plus the cached
+per-mode schedules of the tensor being decomposed.
+
+Port of ``repro.core.engine``. Both engines run one code path — the
+schedule-ordered unfolding (``kernels.ops``) and the core TTM
+(``kernels.ttm_kernel``) — and differ only in the device of their tensors:
+
+  ``cuda``   the hand-written CUDA kernels, on a CUDA device;
+  ``torch``  their plain PyTorch versions, on the CPU;
+  ``auto``   ``cuda`` on a CUDA device, ``torch`` on the CPU.
+
+Nothing on the card selects the plain versions.
+"""
+from __future__ import annotations
+
+import dataclasses
+import weakref
+from typing import Dict, Optional, Sequence
+
+import torch
+
+from repro_torch.core.coo import SparseCOO
+from repro_torch.kernels import ops
+from repro_torch.kernels.kron_kernel import PRECISIONS
+from repro_torch.sparse.layout import DeviceSchedule, build_mode_layout
+
+ENGINES = ("auto", "cuda", "torch")
+JAX_ENGINES = ("xla", "pallas")
+
+
+def resolve_engine(engine: str, device) -> str:
+    """Map a requested engine and a device to the engine that will run."""
+    if engine in JAX_ENGINES:
+        raise ValueError(
+            f"engine={engine!r} is a JAX engine of the repro package; the "
+            f"PyTorch port's engines are {ENGINES}"
+        )
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+    on_card = torch.device(device).type == "cuda"
+    if engine == "auto":
+        return "cuda" if on_card else "torch"
+    if engine == "cuda" and not on_card:
+        raise ValueError(f"engine='cuda' needs a CUDA device, got {device}")
+    if engine == "torch" and on_card:
+        raise ValueError(
+            "engine='torch' runs the plain versions of the kernels, which the "
+            "port never selects on a CUDA device: use engine='auto' or 'cuda'"
+        )
+    return engine
+
+
+@dataclasses.dataclass
+class SweepEngine:
+    """Sweep executor: resolved engine, device, and the schedule caches of
+    the tensor it is bound to.
+
+    The schedules are the expensive part (three stable sorts of the
+    nonzeros), built once per (tensor, mode) and reused by every sweep and
+    call. Handing the engine a different tensor is safe: the caches rebind
+    when the indices tensor changes identity or the shape changes.
+    """
+
+    name: str  # resolved: "cuda" or "torch"
+    device: torch.device
+    precision: str = "fp32"
+    # per-mode schedule builds, cumulative; the plan reports per-call deltas.
+    schedule_builds: int = 0
+    dev_schedules: Dict[int, DeviceSchedule] = dataclasses.field(default_factory=dict)
+    # weakref to the indices tensor the caches were built from: a live
+    # referent makes the identity check sound without pinning the tensor.
+    _bound_indices: Optional["weakref.ref"] = None
+    _bound_shape: Optional[tuple] = None
+
+    def _bind(self, coo: SparseCOO) -> None:
+        bound = self._bound_indices() if self._bound_indices is not None else None
+        if bound is not coo.indices or self._bound_shape != coo.shape:
+            self.dev_schedules.clear()
+
+            # drop the schedules with the tensor: they are O(nnz) memory.
+            def _release(_ref, cache=self.dev_schedules):
+                cache.clear()
+
+            self._bound_indices = weakref.ref(coo.indices, _release)
+            self._bound_shape = tuple(coo.shape)
+
+    def device_schedule(self, coo: SparseCOO, mode: int) -> DeviceSchedule:
+        """The mode's schedule on the engine's device, built once."""
+        self._bind(coo)
+        if mode not in self.dev_schedules:
+            self.dev_schedules[mode] = DeviceSchedule.from_layout(
+                build_mode_layout(coo, mode), self.device
+            )
+            self.schedule_builds += 1
+        return self.dev_schedules[mode]
+
+    def mode_unfolding(self, coo: SparseCOO, factors: Sequence[torch.Tensor],
+                       mode: int) -> torch.Tensor:
+        """Y_(mode): (I_mode, prod_{t != mode} R_t), f32 (Alg. 2 line 5)."""
+        return ops.sparse_ttm_chain_device(
+            coo.indices, coo.values, factors, mode,
+            self.device_schedule(coo, mode),
+            shape=tuple(coo.shape), precision=self.precision,
+        )
+
+    def core_unfolding(self, y_n: torch.Tensor, u_last: torch.Tensor) -> torch.Tensor:
+        """G_(N) = U_N^T Y_(N) (Eq. 12), through the TTM kernel on the
+        transposed views (no copy of the unfolding)."""
+        return ops.ttm(y_n.T, u_last.T, precision=self.precision).T
+
+
+def make_engine(engine: str = "auto", device="cuda", *,
+                precision: str = "fp32") -> SweepEngine:
+    """Resolve ``engine`` for ``device`` and build a reusable engine."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    device = torch.device(device)
+    return SweepEngine(name=resolve_engine(engine, device), device=device,
+                       precision=precision)

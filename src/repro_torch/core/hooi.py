@@ -1,0 +1,127 @@
+"""HOOI sweeps (paper Alg. 2): one sweep, and the multi-sweep loop.
+
+Port of the single-device sweep machinery of ``repro.core.hooi``.
+:func:`run_sweeps` is the twin of the reference's compiled scan over
+sweeps (``_sweep_scan`` inside ``_scan_sweeps_impl``): the same fit
+formula, the same ``tol`` rule, the same skip sentinel for sweeps that never
+ran, and the fit history copied to the host once per call.
+
+Convergence metric: with orthonormal factors the projection identity
+||X - G x {U}||^2 = ||X||^2 - ||G||^2 gives the relative error without
+densifying X.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.coo import SparseCOO, fold_dense
+from repro_torch.core.engine import SweepEngine
+from repro_torch.core.qrp import factor_update
+
+# fit-history entry of a sweep skipped by the ``tol`` early exit. A real
+# relative error is >= 0 (or NaN on degenerate input, which counts as a ran
+# sweep), so -1 is unambiguous.
+_SKIPPED = -1.0
+
+
+def effective_ranks(shape: Sequence[int], ranks: Sequence[int]) -> List[int]:
+    """Clamp the multilinear rank to what is representable:
+    R_n <= min(I_n, prod_{t != n} R_t), iterated to a fixpoint."""
+    r = [min(int(rr), int(s)) for rr, s in zip(ranks, shape)]
+    for _ in range(len(r)):
+        changed = False
+        for m in range(len(r)):
+            bound = int(np.prod([r[t] for t in range(len(r)) if t != m]))
+            if r[m] > bound:
+                r[m] = bound
+                changed = True
+        if not changed:
+            break
+    return r
+
+
+def init_factors(
+    shape: Sequence[int],
+    ranks: Sequence[int],
+    generator: Optional[torch.Generator] = None,
+    dtype: torch.dtype = torch.float32,
+    device="cpu",
+) -> List[torch.Tensor]:
+    """Alg. 2 line 1: random orthonormal factors. Drawn and orthonormalized
+    on the generator's device (the CPU by default, seed 0), so one seed gives
+    the same factors whatever ``device`` they are then moved to."""
+    g = generator if generator is not None else torch.Generator().manual_seed(0)
+    qdt = torch.promote_types(dtype, torch.float32)
+    factors = []
+    for i, r in zip(shape, ranks):
+        u = torch.randn((int(i), int(r)), generator=g, dtype=qdt, device=g.device)
+        q, _ = torch.linalg.qr(u)
+        factors.append(q.to(dtype=dtype, device=device))
+    return factors
+
+
+def sparse_sweep(
+    coo: SparseCOO,
+    factors: List[torch.Tensor],
+    ranks: Sequence[int],
+    method: str,
+    engine: SweepEngine,
+) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """One ALS sweep of Alg. 2 (lines 3-9). Returns (factors, core)."""
+    n = coo.ndim
+    y_n = None
+    for mode in range(n):
+        y_n = engine.mode_unfolding(coo, factors, mode)
+        # pin each factor to its input dtype, as the reference's scan carry.
+        factors[mode] = factor_update(y_n, ranks[mode], method).to(factors[mode].dtype)
+    # Alg. 2 line 9: G_(N) = U_N^T Y_(N) on the last unfolding (Eq. 12).
+    g_n = engine.core_unfolding(y_n, factors[n - 1])
+    return factors, fold_dense(g_n, n - 1, list(ranks))
+
+
+def run_sweeps(
+    coo: SparseCOO,
+    factors: Sequence[torch.Tensor],
+    xnorm2: torch.Tensor,
+    tol: float,
+    engine: SweepEngine,
+    *,
+    ranks: Sequence[int],
+    method: str,
+    n_iter: int,
+) -> Tuple[List[torch.Tensor], torch.Tensor, np.ndarray]:
+    """Up to ``n_iter`` (>= 1) ALS sweeps with the ``tol`` early exit.
+
+    Returns ``(factors, core, hist)``; ``hist`` is the (n_iter,) numpy fit
+    history, with ``_SKIPPED`` for sweeps the early exit skipped.
+
+    The rule is the reference's: stop once two consecutive sweeps' relative
+    errors differ by less than ``tol`` (never after the first sweep, never on
+    NaN). The reference decides that on the device inside one compiled
+    program; PyTorch cannot branch on a device value without reading it, so
+    with ``tol > 0`` this loop reads one ``done`` flag back per sweep. With
+    ``tol == 0`` nothing is read back until the history, once, at the end.
+    """
+    fs = list(factors)
+    core_dtype = torch.promote_types(coo.values.dtype, torch.float32)
+    errs = []
+    prev_err = None
+    for _ in range(n_iter):
+        fs, g = sparse_sweep(coo, fs, ranks, method, engine)
+        core = g.to(core_dtype)
+        err = (
+            torch.sqrt(torch.clamp(xnorm2 - torch.sum(torch.square(core)), min=0.0))
+            / torch.sqrt(xnorm2)
+        ).to(torch.float32)
+        errs.append(err)
+        if tol > 0 and prev_err is not None:
+            done = torch.isfinite(prev_err) & (torch.abs(prev_err - err) < tol)
+            if bool(done):
+                break
+        prev_err = err
+    hist = np.full((n_iter,), _SKIPPED, dtype=np.float32)
+    hist[: len(errs)] = torch.stack(errs).cpu().numpy()  # the one device->host copy
+    return fs, core, hist

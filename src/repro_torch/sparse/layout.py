@@ -1,0 +1,221 @@
+"""The per-mode sweep schedule: nonzeros grouped by output row block.
+
+Port of ``repro.sparse.layout`` (no Kron reuse yet). The schedule is built
+with torch ops on whatever device the indices live on, so a tensor already
+on the card is scheduled there (three stable sorts of the nonzeros, which on
+the host take minutes at tens of millions of nonzeros). The arrays are
+exactly those of the numpy reference: ``torch.sort(stable=True)`` and
+numpy's stable argsort give the one stable permutation.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core.coo import SparseCOO
+
+
+class SortedCOO(NamedTuple):
+    """Nonzeros of one tensor, permuted into mode-major row-block order and
+    padded to block multiples: the engine's per-mode streaming schedule.
+
+    All tensors live on the device of the indices they were built from.
+    Padding slots carry ``valid == 0`` and a safe gather index of 0.
+    """
+
+    mode: int
+    shape: Tuple[int, ...]
+    order: torch.Tensor  # (nnz_padded,) int32 gather index into the nonzeros
+    valid: torch.Tensor  # (nnz_padded,) f32 1.0 real / 0.0 padding
+    rel_row: torch.Tensor  # (nnz_padded,) int32 row within the target block
+    blkmap: torch.Tensor  # (n_blocks,) int32 target row block of each nnz block
+    first: torch.Tensor  # (n_blocks,) int32 1 iff first block of its target
+    last: torch.Tensor  # (n_blocks,) int32 1 iff last block of its target
+    segments: torch.Tensor  # (I_mode + 1,) int64 row boundaries (sorted order)
+    n_row_blocks: int
+    bn: int  # nonzeros per block
+    bi: int  # output rows per block
+    # keep-mask over output rows; None when every row block is visited.
+    row_mask: Optional[torch.Tensor] = None
+
+    @property
+    def nnz_padded(self) -> int:
+        return int(self.order.shape[0])
+
+
+def build_schedule(rows: torch.Tensor, n_rows: int, bn: int, bi: int):
+    """Stable-sort ``rows``, group into BI-row output blocks, and pad each
+    group to a BN multiple so every nnz block targets exactly one row block.
+
+    Returns ``(order, valid, rel_row, blkmap, first, last, n_row_blocks,
+    perm)`` as in the reference: ``order`` holds safe gather indices
+    (padding slots point at 0 with ``valid == 0``), ``first``/``last`` flag
+    each group's boundary blocks, and ``perm`` is the plain stable sort by
+    row (before padding).
+    """
+    if bn <= 0 or bi <= 0:
+        raise ValueError(f"block sizes must be positive, got bn={bn} bi={bi}")
+    rows = torch.as_tensor(rows).to(torch.int64)
+    dev = rows.device
+    nnz = int(rows.shape[0])
+    n_row_blocks = max(1, -(-n_rows // bi))
+    sorted_rows, perm = torch.sort(rows, stable=True)
+    grp_bounds = torch.searchsorted(
+        sorted_rows, torch.arange(0, n_row_blocks + 1, device=dev) * bi
+    )
+    cnt = torch.diff(grp_bounds)  # nonzeros per row-block group
+    blocks_per_grp = -(-cnt // bn)  # ceil; 0 for empty groups
+    padded_len = blocks_per_grp * bn
+    total = int(padded_len.sum())
+    if total == 0:  # empty tensor: one all-padding block
+        order = torch.full((bn,), -1, dtype=torch.int64, device=dev)
+        blkmap = torch.zeros((1,), dtype=torch.int32, device=dev)
+        first = torch.ones((1,), dtype=torch.int32, device=dev)
+    else:
+        zero = torch.zeros((1,), dtype=torch.int64, device=dev)
+        out_start = torch.cat([zero, torch.cumsum(padded_len, 0)[:-1]])
+        order = torch.full((total,), -1, dtype=torch.int64, device=dev)
+        # destination slot of each sorted nonzero: its group's output offset
+        # plus its position within the group.
+        grp_of = torch.repeat_interleave(
+            torch.arange(n_row_blocks, device=dev), cnt, output_size=nnz
+        )
+        dest = out_start[grp_of] + (
+            torch.arange(nnz, device=dev) - grp_bounds[:-1][grp_of]
+        )
+        order[dest] = perm
+        n_blocks = total // bn
+        blkmap = torch.repeat_interleave(
+            torch.arange(n_row_blocks, dtype=torch.int32, device=dev),
+            blocks_per_grp, output_size=n_blocks,
+        )
+        first = torch.zeros((n_blocks,), dtype=torch.int32, device=dev)
+        blk_start = torch.cat([zero, torch.cumsum(blocks_per_grp, 0)[:-1]])
+        first[blk_start[blocks_per_grp > 0]] = 1
+    # a group's last block sits right before the next group's first.
+    last = torch.empty_like(first)
+    last[:-1] = first[1:]
+    last[-1] = 1
+    valid = (order >= 0).to(torch.float32)
+    safe = torch.where(order >= 0, order, 0)
+    rel = rows[safe] % bi if nnz else torch.zeros_like(safe)
+    rel = torch.where(order >= 0, rel, 0)
+    return (
+        safe.to(torch.int32), valid, rel.to(torch.int32), blkmap, first, last,
+        n_row_blocks, perm,
+    )
+
+
+def visited_row_mask(
+    blkmap: torch.Tensor, n_row_blocks: int, bi: int, n_rows: int
+) -> Optional[torch.Tensor]:
+    """Keep-mask over output rows whose row block no nnz block targets;
+    ``None`` means every row block is visited."""
+    visited = torch.zeros((n_row_blocks,), dtype=torch.bool, device=blkmap.device)
+    visited[blkmap.long()] = True
+    if bool(visited.all()):
+        return None
+    return torch.repeat_interleave(visited, bi)[:n_rows]
+
+
+def build_mode_layout(coo: SparseCOO, mode: int, bn: int = 128,
+                      bi: int = 128) -> SortedCOO:
+    """The mode-``mode`` schedule of one tensor (see :func:`build_schedule`)
+    plus its per-row segment boundaries, on the tensor's device."""
+    rows = coo.indices[:, mode].to(torch.int64)
+    n_rows = int(coo.shape[mode])
+    order, valid, rel, blkmap, first, last, n_row_blocks, perm = build_schedule(
+        rows, n_rows, bn, bi
+    )
+    segments = torch.searchsorted(
+        rows[perm], torch.arange(n_rows + 1, device=rows.device)
+    )
+    return SortedCOO(
+        mode=mode, shape=tuple(coo.shape), order=order, valid=valid,
+        rel_row=rel, blkmap=blkmap, first=first, last=last,
+        segments=segments.to(torch.int64), n_row_blocks=n_row_blocks,
+        bn=bn, bi=bi,
+        row_mask=visited_row_mask(blkmap, n_row_blocks, bi, n_rows),
+    )
+
+
+def slot_rows(sched) -> torch.Tensor:
+    """Absolute output row of every schedule slot (int64); padding slots
+    point at the first row of their block."""
+    return (torch.repeat_interleave(sched.blkmap.long(), sched.bn) * sched.bi
+            + sched.rel_row.long())
+
+
+# Work split of the unfolding kernel: about this many schedule slots per
+# CTA, at most this many CTAs. Ranges snap to row starts, so a tensor whose
+# rows hold more slots than this gets one row per CTA; on the card, many
+# small ranges beat a few waves of large ones (see PERF.md).
+SLOTS_PER_PART = 1024
+MAX_PARTS = 65536
+
+
+def row_parts(layout, n_parts: Optional[int] = None) -> torch.Tensor:
+    """Cut the schedule's slots into about ``n_parts`` ranges of equal size,
+    each starting at the first slot of a row, so that no output row crosses
+    two ranges. Returns the (n_cuts + 1,) int64 range boundaries, the last
+    being ``nnz_padded``.
+
+    The unfolding kernel gives each range to one CTA, which then owns every
+    row that starts in it: it sums them in registers and writes them with
+    plain stores, no atomics. Padding slots sit at the end of their group,
+    after that group's real rows, so they stay in the range of a real row of
+    their group (they carry value 0).
+    """
+    nnzp = int(layout.rel_row.shape[0])
+    dev = layout.rel_row.device
+    if n_parts is None:
+        n_parts = min(MAX_PARTS, max(1, -(-nnzp // SLOTS_PER_PART)))
+    rows = slot_rows(layout)
+    real = layout.valid > 0
+    start = real.clone()
+    start[1:] &= (rows[1:] != rows[:-1]) | ~real[:-1]
+    starts = torch.nonzero(start).flatten()
+    if starts.numel() == 0:  # all padding: one range, nothing to sum
+        return torch.tensor([0, nnzp], dtype=torch.int64, device=dev)
+    targets = torch.arange(n_parts, device=dev, dtype=torch.int64) * nnzp // n_parts
+    pick = torch.searchsorted(starts, targets).clamp_(max=starts.numel() - 1)
+    cuts = torch.unique(starts[pick])  # sorted; starts[0] == 0 for nnz > 0
+    return torch.cat([cuts, torch.tensor([nnzp], dtype=torch.int64, device=dev)])
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceSchedule:
+    """One mode's schedule as the unfolding needs it, its tensors on the
+    sweep's device, moved there once (a no-op when the layout was built
+    there) and reused every sweep. ``parts`` is the unfolding kernel's
+    row-aligned work split (:func:`row_parts`); the kernel needs no
+    ``first``/``last`` block flags, so they stay on the layout."""
+
+    order: torch.Tensor
+    valid: torch.Tensor
+    rel_row: torch.Tensor
+    blkmap: torch.Tensor
+    row_mask: Optional[torch.Tensor]
+    parts: torch.Tensor
+    mode: int
+    shape: Tuple[int, ...]
+    n_row_blocks: int
+    bn: int
+    bi: int
+
+    @classmethod
+    def from_layout(cls, layout: SortedCOO, device=None) -> "DeviceSchedule":
+        dev = torch.device(device) if device is not None else layout.order.device
+
+        def put(t):
+            return None if t is None else t.to(dev)
+
+        return cls(
+            order=put(layout.order), valid=put(layout.valid),
+            rel_row=put(layout.rel_row), blkmap=put(layout.blkmap),
+            row_mask=put(layout.row_mask), parts=put(row_parts(layout)),
+            mode=layout.mode, shape=tuple(layout.shape),
+            n_row_blocks=layout.n_row_blocks, bn=layout.bn, bi=layout.bi,
+        )

@@ -1,0 +1,179 @@
+"""The plan/execute front-end: ``plan(spec) -> TuckerPlan``.
+
+Port of the sparse path of ``repro.tucker.planning``. A plan is bound to
+one device, ``"cuda"`` unless the caller asks for the CPU; without a CUDA
+device the default raises instead of running on the CPU. The plan owns its
+sweep engine, whose schedules are built once per tensor: hand the plan a
+tensor already on its device (``coo.to(device)``) to reuse them across
+calls.
+"""
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+from typing import Any, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core import hooi as _hooi
+from repro_torch.core.coo import SparseCOO
+from repro_torch.core.engine import make_engine
+from repro_torch.core.reconstruct import compression_ratio
+from repro_torch.kernels.kron_kernel import fused_kron_scatter
+from repro_torch.kernels.ttm_kernel import ttm
+from repro_torch.tucker.result import TuckerResult
+from repro_torch.tucker.spec import TuckerSpec, spec_for, unported
+
+__all__ = ["TuckerPlan", "clear_plan_cache", "decompose", "plan"]
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a concrete torch device; a CUDA device must exist."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available: repro_torch runs on the card by "
+                "default; pass device='cpu' to run the plain versions on the CPU"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"device must be a CUDA device or 'cpu', got {device!r}")
+    return dev
+
+
+def _kernel_launches() -> int:
+    return fused_kron_scatter.launches + ttm.launches
+
+
+class TuckerPlan:
+    """A reusable executable for one :class:`TuckerSpec` on one device.
+
+    Calls on one plan serialize: the engine's schedule caches are bound to
+    one tensor at a time.
+    """
+
+    def __init__(self, spec: TuckerSpec, device="cuda") -> None:
+        self.spec = spec
+        self.device = resolve_device(device)
+        if spec.ndim > 3:
+            raise unported("order >= 4", "queue 2, items 3-4: kron_contrib and scatter_rows")
+        if self.device.type == "cuda" and spec.dtype == "float64":
+            raise unported("float64 on the card", "queue 1, item 8: float64 on the card")
+        self.engine = make_engine(spec.engine, self.device, precision=spec.precision)
+        self._lock = threading.Lock()
+
+    def __repr__(self) -> str:  # pragma: no cover - cosmetic
+        return (f"TuckerPlan(shape={self.spec.shape}, ranks={self.spec.ranks}, "
+                f"engine={self.engine.name}, device={self.device})")
+
+    def __call__(self, coo: SparseCOO, generator: Optional[torch.Generator] = None,
+                 factors_init: Any = None, device=None) -> TuckerResult:
+        """Decompose ``coo`` (moved to the plan's device if it is elsewhere).
+
+        ``device`` defaults to the plan's device and must match it.
+        ``factors_init`` (arrays, numpy or torch) warm-starts the sweeps;
+        otherwise :func:`~repro_torch.core.hooi.init_factors` draws them from
+        ``generator`` (a CPU generator seeded with 0 by default).
+        """
+        if device is not None and resolve_device(device) != self.device:
+            raise ValueError(f"this plan runs on {self.device}, not {device}")
+        with self._lock:
+            coo = self._check_sparse_input(coo)
+            factors = self._init_factors(generator, factors_init)
+            return self._run_sparse_scan(coo, factors, torch.square(coo.norm()))
+
+    def batch(self, *args, **kwargs):
+        raise unported("TuckerPlan.batch", "queue 1, item 11: batched dispatch")
+
+    def _check_sparse_input(self, coo: Any) -> SparseCOO:
+        if not isinstance(coo, SparseCOO):
+            raise TypeError(f"expected a repro_torch SparseCOO, got {type(coo).__name__}")
+        if tuple(coo.shape) != self.spec.shape:
+            raise ValueError(
+                f"input shape {tuple(coo.shape)} does not match the planned "
+                f"spec shape {self.spec.shape}"
+            )
+        coo = coo.to(self.device)
+        dt = self.spec.resolved_dtype()
+        if dt is not None and coo.values.dtype != dt:
+            coo = SparseCOO(coo.indices, coo.values.to(dt), coo.shape)
+        if self.device.type == "cuda" and coo.values.dtype != torch.float32:
+            raise unported(f"{coo.values.dtype} values on the card",
+                           "queue 1, item 8: float64 on the card")
+        return coo
+
+    def _init_factors(self, generator, factors_init):
+        if factors_init is None:
+            dt = self.spec.resolved_dtype() or torch.float32
+            return _hooi.init_factors(self.spec.shape, self.spec.ranks, generator,
+                                      dtype=dt, device=self.device)
+        # copies: the sweeps replace factors in a list, and a caller's seed
+        # arrays (numpy, possibly read-only) must stay as they were.
+        factors = [(f.clone() if isinstance(f, torch.Tensor) else torch.tensor(np.asarray(f)))
+                   .to(self.device) for f in factors_init]
+        want = [(i, r) for i, r in zip(self.spec.shape, self.spec.ranks)]
+        if [tuple(f.shape) for f in factors] != want:
+            raise ValueError(
+                f"factors_init shapes {[tuple(f.shape) for f in factors]} do not "
+                f"match the spec's {want}"
+            )
+        if self.device.type == "cuda" and any(f.dtype != torch.float32 for f in factors):
+            raise unported("non-float32 factors on the card",
+                           "queue 1, item 8: float64 on the card")
+        return factors
+
+    def _run_sparse_scan(self, coo: SparseCOO, factors, xnorm2) -> TuckerResult:
+        spec, eng = self.spec, self.engine
+        builds0, launches0 = eng.schedule_builds, _kernel_launches()
+        fs, core, hist = _hooi.run_sweeps(
+            coo, factors, xnorm2, spec.tol, eng,
+            ranks=spec.ranks, method=spec.method, n_iter=spec.n_iter,
+        )
+        n_done = int(np.sum(hist != _hooi._SKIPPED))
+        return TuckerResult.from_history(
+            core, fs, hist[:n_done], engine=eng.name, spec=spec,
+            compression_ratio=compression_ratio(spec.shape, spec.ranks),
+            dispatches=_kernel_launches() - launches0,
+            schedule_builds=eng.schedule_builds - builds0,
+        )
+
+
+_PLAN_CACHE_CAPACITY = 8
+_PLAN_CACHE: "OrderedDict[tuple, TuckerPlan]" = OrderedDict()
+_PLAN_CACHE_LOCK = threading.Lock()
+
+
+def plan(spec: TuckerSpec, *, device="cuda") -> TuckerPlan:
+    """The :class:`TuckerPlan` for ``spec`` on ``device`` (``"cuda"`` by
+    default), from a small LRU cache keyed by (spec, device), so repeated
+    calls share one engine and its schedules."""
+    dev = resolve_device(device)
+    key = (spec, str(dev))
+    with _PLAN_CACHE_LOCK:
+        p = _PLAN_CACHE.get(key)
+        if p is None:
+            p = _PLAN_CACHE[key] = TuckerPlan(spec, device=dev)
+            while len(_PLAN_CACHE) > _PLAN_CACHE_CAPACITY:
+                _PLAN_CACHE.popitem(last=False)
+        _PLAN_CACHE.move_to_end(key)
+        return p
+
+
+def clear_plan_cache() -> None:
+    """Drop every cached plan (and with them their schedules)."""
+    with _PLAN_CACHE_LOCK:
+        _PLAN_CACHE.clear()
+
+
+def decompose(x: SparseCOO, ranks: Sequence[int], *, generator=None,
+              factors_init: Any = None, device="cuda", **spec_kwargs) -> TuckerResult:
+    """One-shot convenience: infer the spec from ``x``, plan (cached), run.
+
+    ``spec_kwargs`` are :class:`TuckerSpec` fields (method, engine, n_iter,
+    tol, dtype, precision).
+    """
+    spec = spec_for(x, ranks, **spec_kwargs)
+    return plan(spec, device=device)(x, generator=generator, factors_init=factors_init)

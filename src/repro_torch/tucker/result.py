@@ -1,0 +1,57 @@
+"""TuckerResult — the result type of the plan/execute API.
+
+Port of ``repro.tucker.result.TuckerResult`` (the fields of the sparse
+path).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import TYPE_CHECKING, List, Optional
+
+import numpy as np
+import torch
+
+if TYPE_CHECKING:
+    from repro_torch.tucker.spec import TuckerSpec
+
+
+@dataclasses.dataclass
+class TuckerResult:
+    """A finished decomposition.
+
+    Attributes:
+      core: (R_1, ..., R_N) core tensor, on the plan's device.
+      factors: U_n (I_n, R_n) with orthonormal columns, on the plan's device.
+      rel_error: ||X - Xhat||_F / ||X||_F after the last sweep (NaN when no
+        sweep ran).
+      fit_history: per-sweep relative error (host numpy, the sweeps that ran).
+      engine: the engine that ran: 'cuda' (the CUDA kernels) or 'torch'
+        (their plain versions, on the CPU).
+      spec: the :class:`~repro_torch.tucker.spec.TuckerSpec` this run executed.
+      compression_ratio: dense storage / Tucker storage, factors included.
+      dispatches: CUDA kernel launches this call made (0 on the CPU).
+      schedule_builds: schedule constructions this call triggered (0 when
+        the engine's caches were warm for this tensor).
+    """
+
+    core: torch.Tensor
+    factors: List[torch.Tensor]
+    rel_error: float
+    fit_history: np.ndarray
+    engine: str
+    spec: Optional["TuckerSpec"] = None
+    compression_ratio: Optional[float] = None
+    dispatches: int = 0
+    schedule_builds: int = 0
+
+    @classmethod
+    def from_history(cls, core, factors, hist, engine: str, **extra) -> "TuckerResult":
+        """Build a result from a (possibly empty) fit history."""
+        hist = np.asarray(hist).reshape(-1)
+        rel = float(hist[-1]) if hist.size else float("nan")
+        return cls(core, list(factors), rel, hist, engine, **extra)
+
+    @property
+    def n_sweeps(self) -> int:
+        """ALS sweeps that actually ran (after any ``tol`` early exit)."""
+        return int(np.asarray(self.fit_history).size)

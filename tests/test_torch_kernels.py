@@ -1,0 +1,136 @@
+"""repro_torch kernel modules on the CPU: the plain versions of the two CUDA
+kernels against the reference's Pallas kernels in interpret mode, the
+schedule-order gather, and the unfolding against the dense oracle."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import kron as jkron
+from repro.core.coo import SparseCOO as JCOO
+from repro.kernels import ops as jops
+from repro.kernels.kron_kernel import fused_kron_scatter_pallas
+from repro.kernels.ttm_kernel import ttm_pallas
+from repro.sparse.layout import build_mode_layout as jbuild
+from repro_torch.core import kron as tkron
+from repro_torch.core.coo import SparseCOO, unfold_dense
+from repro_torch.core.ttm import ttm_chain
+from repro_torch.kernels import kron_kernel, ops, ttm_kernel
+from repro_torch.sparse.layout import DeviceSchedule, build_mode_layout
+
+# fp32: both sides form the same rounded terms and differ only in the order
+# of f32 sums (one-hot MXU dot vs index_add_). bf16_fp32acc: XLA's CPU
+# backend may fuse the bf16 product with its f32 widening and skip the bf16
+# rounding the port applies, one bf16 ulp (2^-8 relative) per term.
+TOL = {"fp32": 1e-5, "bf16_fp32acc": 1e-2}
+
+
+def _inputs(shape, ranks, density=0.02, seed=0, pad=0):
+    rng = np.random.default_rng(seed)
+    nnz = max(1, int(np.prod(shape) * density))
+    idx = np.stack([rng.integers(0, s, nnz) for s in shape], 1).astype(np.int32)
+    vals = rng.standard_normal(nnz).astype(np.float32)
+    if pad:
+        idx = np.concatenate([idx, np.zeros((pad, len(shape)), np.int32)])
+        vals = np.concatenate([vals, np.zeros(pad, np.float32)])
+    fs = [rng.standard_normal((s, r)).astype(np.float32) for s, r in zip(shape, ranks)]
+    return idx, vals, fs
+
+
+def _close(got, want, tol):
+    want = np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol * max(np.abs(want).max(), 1e-30))
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16_fp32acc"])
+@pytest.mark.parametrize("shape,ranks,pad", [
+    ((40, 35, 30), (5, 4, 3), 0),
+    ((33, 9, 300), (3, 5, 2), 19),   # nnz not a BN multiple, zero padding rows
+    ((300, 40), (6, 4), 0),          # 2-way: b is a ones column
+])
+def test_fused_kron_scatter_plain_matches_pallas(shape, ranks, pad, precision):
+    idx, vals, fs = _inputs(shape, ranks, pad=pad)
+    jc = JCOO.from_parts(idx, vals, shape)
+    tc = SparseCOO.from_parts(idx, vals, shape)
+    jfs = [jnp.asarray(f) for f in fs]
+    tfs = [torch.from_numpy(f) for f in fs]
+    for mode in range(len(shape)):
+        jlay = jbuild(jc, mode, bn=16, bi=8)
+        sched = DeviceSchedule.from_layout(build_mode_layout(tc, mode, bn=16, bi=8))
+        jrows, jv = jops._gathered_block_rows(jc.indices, jc.values, jfs, mode, jlay, len(shape))
+        trows, tv = ops._gathered_block_rows(tc.indices, tc.values, tfs, mode, sched, len(shape))
+        for j, t in zip(jrows, trows):
+            np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+        want = fused_kron_scatter_pallas(*jrows, jv, jlay, shape[mode], interpret=True,
+                                         precision=precision)
+        before = kron_kernel.fused_kron_scatter.launches
+        got = kron_kernel.fused_kron_scatter(*trows, tv, sched, shape[mode],
+                                             precision=precision)
+        assert kron_kernel.fused_kron_scatter.launches == before  # CPU: no launch
+        assert got.dtype == torch.float32 and tuple(got.shape) == tuple(want.shape)
+        _close(got.numpy(), want, TOL[precision])
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16_fp32acc"])
+@pytest.mark.parametrize("l,i,r,transposed", [
+    (256, 300, 16, True), (15, 1000, 3, True), (100, 300, 17, False), (8, 8, 8, False)])
+def test_ttm_plain_matches_pallas(l, i, r, transposed, precision):
+    rng = np.random.default_rng(1)
+    if transposed:  # the sweep's views: y = Y_(N)^T, u = U_N^T
+        y_t = torch.from_numpy(rng.standard_normal((i, l)).astype(np.float32)).T
+        u_t = torch.from_numpy(rng.standard_normal((i, r)).astype(np.float32)).T
+    else:
+        y_t = torch.from_numpy(rng.standard_normal((l, i)).astype(np.float32))
+        u_t = torch.from_numpy(rng.standard_normal((r, i)).astype(np.float32))
+    want = ttm_pallas(jnp.asarray(y_t.numpy()), jnp.asarray(u_t.numpy()), interpret=True,
+                      precision=precision)
+    before = ttm_kernel.ttm.launches
+    got = ttm_kernel.ttm(y_t, u_t, precision=precision)
+    assert ttm_kernel.ttm.launches == before and got.dtype == torch.float32
+    _close(got.numpy(), want, TOL[precision])
+    assert ops.ttm is ttm_kernel.ttm
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16_fp32acc"])
+def test_sparse_ttm_chain_matches_reference_and_dense_oracle(precision):
+    shape, ranks = (12, 10, 8), (3, 4, 2)
+    idx, vals, fs = _inputs(shape, ranks, density=0.1, seed=2)
+    jc = JCOO.from_parts(idx, vals, shape)
+    tc = SparseCOO.from_parts(idx, vals, shape)
+    tfs = [torch.from_numpy(f) for f in fs]
+    dense = tc.to_dense()
+    for mode in range(3):
+        want = jkron.sparse_ttm_chain(jc, [jnp.asarray(f) for f in fs], mode,
+                                      precision=precision)
+        got = tkron.sparse_ttm_chain(tc, tfs, mode, precision=precision)
+        _close(got.numpy(), want, TOL[precision])
+        sched = DeviceSchedule.from_layout(build_mode_layout(tc, mode))
+        dev = ops.sparse_ttm_chain_device(tc.indices, tc.values, tfs, mode, sched,
+                                          shape=shape, precision=precision)
+        _close(dev.numpy(), got.numpy(), TOL[precision])
+        if precision == "fp32":
+            oracle = unfold_dense(ttm_chain(dense, tfs, skip=mode), mode)
+            _close(got.numpy(), oracle.numpy(), 1e-5)
+
+
+def test_empty_tensor_unfolding_is_zero():
+    tfs = [torch.randn(s, r) for s, r in zip((5, 6, 7), (2, 3, 4))]
+    tc = SparseCOO.from_parts(np.zeros((0, 3), np.int32), np.zeros(0, np.float32), (5, 6, 7))
+    sched = DeviceSchedule.from_layout(build_mode_layout(tc, 1))
+    y = ops.sparse_ttm_chain_device(tc.indices, tc.values, tfs, 1, sched, shape=(5, 6, 7))
+    assert tuple(y.shape) == (6, 8) and not y.any()
+    assert not tkron.sparse_ttm_chain(tc, tfs, 2).any()
+
+
+def test_order_four_unfolding_raises():
+    tc = SparseCOO.from_parts(np.zeros((1, 4), np.int32), np.ones(1, np.float32), (2, 2, 2, 2))
+    tfs = [torch.randn(2, 1) for _ in range(4)]
+    sched = DeviceSchedule.from_layout(build_mode_layout(tc, 0))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.sparse_ttm_chain_device(tc.indices, tc.values, tfs, 0, sched, shape=tc.shape)
+
+
+def test_precision_is_validated():
+    with pytest.raises(ValueError, match="precision"):
+        kron_kernel._cast_operands("fp16", torch.zeros(1))
