@@ -7,32 +7,58 @@ Phases, each fatal on failure (the script exits nonzero and prints no
 result line):
 
 1. the card's name and power limit, and an ``nvcc`` build of every kernel
-   from ``src/repro_torch/kernels/csrc``;
-2. each kernel against its plain PyTorch version on the card, at odd small
-   shapes and under both precisions;
-3. ``tucker.decompose`` of a NELL-2-like tensor (1000^3, 24,000 nonzeros,
-   ranks 16, 5 sweeps) on the card and on the CPU from the same factors;
-4. the main path at the published size of FROSTT's NELL-2 tensor
+   from ``src/repro_torch/kernels/csrc``, all sources at once;
+2. each of the five kernels against its plain PyTorch version on the card,
+   at odd small shapes and under both precisions (nnz not a multiple of
+   128, duplicates, zero padding, one slice, ranks 5x3 and 33x40, 2-way,
+   an order-5 chain, ``fused=False`` against the fused kernel, and the
+   megakernel with a group's row 0 and its padding in different ranges);
+3. the card against the CPU from the same factors (fit history, factor
+   projectors and core): a NELL-2-like tensor (1000^3, 24,000 nonzeros,
+   ranks 16, 5 sweeps) split and with ``fuse_core``, a 4-way tensor
+   (200x200x200x20, 1,000,000 nonzeros, ranks 8, 5 sweeps), and a small
+   4-way tensor with ``fuse_core`` (which takes the split TTM);
+4. the 3-way main path at the published size of FROSTT's NELL-2 tensor
    (12,092 x 9,184 x 28,818, 76,879,419 nonzeros; synthetic uniform
    coordinates, values uniform in [0.1, 10)), ranks (16, 16, 16), 5 sweeps:
-   launch counts, per-sweep time, each kernel against its plain version at
-   the path's own shapes under both precisions, and their times;
-5. one JSON line per kernel set, then the device line.
+   launch counts, per-sweep time, kernels 1-2 against their plain versions
+   at the path's own shapes under both precisions, and their times;
+5. path B, the same tensor through ``make_engine("cuda", fuse_core=True)``:
+   launch counts, the fit, factors and core against phase 4's, per-sweep
+   time, and the megakernel against its plain version and the split core
+   update;
+6. path A, the 4-way path at the published size of FROSTT's NIPS tensor
+   (2,482 x 2,862 x 14,036 x 17, 3,101,609 nonzeros; synthetic uniform
+   coordinates, counts Poisson(3) + 1), ranks 16, 5 sweeps: launch counts,
+   per-sweep time, peak memory, the chained kernels and the core TTM
+   against their plain versions at the path's shapes, and the core against
+   one built from the returned factors by the plain versions alone;
+7. one JSON line per phase, the kernels line, then the device line.
 
 Needs one CUDA card, ``nvcc`` (on PATH or under /usr/local/cuda), and the
 checkout's ``src/`` beside this file. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
+import os
 import subprocess
 import sys
 import time
 from functools import partial
 from pathlib import Path
 
-import numpy as np
-import torch
+# Path A holds a 51 GB contrib per mode whose size changes from mode to
+# mode; without expandable segments the caching allocator splits the freed
+# 51 GB block for small tensors and cannot hand it out whole again (an
+# out-of-memory error on the second mode with 47 GiB reserved but free).
+# Set before torch is imported, which reads it once.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 
@@ -45,6 +71,9 @@ PEAK_F32_FLOPS = 67e12
 NELL2_SHAPE = (12092, 9184, 28818)
 NELL2_NNZ = 76_879_419
 NELL2_RANKS = (16, 16, 16)
+NIPS_SHAPE = (2482, 2862, 14036, 17)  # frostt.io/tensors/nips
+NIPS_NNZ = 3_101_609
+NIPS_RANKS = (16, 16, 16, 16)
 N_ITER = 5
 SEED = 0
 
@@ -63,6 +92,17 @@ SEED = 0
 #   reference's own kernel tests set for bf16 operands, kept as the stated
 #   limit.
 TOL = {"fp32": 1e-5, "bf16_fp32acc": 2e-2}
+
+# device-side symbols of each wrapper's kernels, for the profiler's sums; the
+# leading "::" keeps "::ttm_reduce_kernel" from matching the megakernel's
+# "kron_scatter_ttm_reduce_kernel"
+KERNEL_SYMBOLS = {
+    "fused_kron_scatter": ("::kron_scatter_kernel",),
+    "ttm": ("::ttm_partial_kernel", "::ttm_reduce_kernel"),
+    "kron_contrib": ("::kron_contrib_kernel",),
+    "scatter_rows": ("::scatter_rows_kernel",),
+    "fused_kron_scatter_ttm": ("::kron_scatter_ttm_kernel", "::kron_scatter_ttm_reduce_kernel"),
+}
 
 
 class Failure(Exception):
@@ -110,10 +150,22 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    phase2_kernels(dev)
-    phase3_mid(dev)
-    kernels = phase4_nell2(dev, card)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timed("2 kernels", phase2_kernels, dev)
+    timed("3 card vs CPU", phase3_mid, dev)
+    kernels, coo, split_res = timed("4 NELL-2", phase4_nell2, dev, card)
+    kernels.update(timed("5 path B", phase5_fused_core, dev, card, coo, split_res))
+    del coo, split_res
+    release_memory()
+    kernels.update(timed("6 path A", phase6_nips, dev, card))
+    order = ("fused_kron_scatter", "ttm", "kron_contrib", "scatter_rows",
+             "fused_kron_scatter_ttm")
+    print(json.dumps({"kernels": [kernels[k] for k in order]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -187,15 +239,77 @@ def profile_run(fn) -> dict:
            "busy_share": busy_ms / wall_ms if wall_ms else None,
            "top": [{"kernel": k[:90], "ms": ms, "count": n} for k, (ms, n) in top],
            "kernel_ms": {
-               "fused_kron_scatter": sum(ms for k, (ms, _) in by_name.items()
-                                         if "kron_scatter_kernel" in k),
-               "ttm": sum(ms for k, (ms, _) in by_name.items()
-                          if "ttm_partial_kernel" in k or "ttm_reduce_kernel" in k)}}
+               name: sum(ms for k, (ms, _) in by_name.items() if any(p in k for p in pats))
+               for name, pats in KERNEL_SYMBOLS.items()}}
     log(f"  profile of a warm run: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms"
         + ("" if by_name else " (the profiler saw no device events)"))
     for row in out["top"]:
         log(f"    {row['ms']:9.3f} ms {row['count']:5d}x  {row['kernel']}")
     return out
+
+
+def bound(nbytes: float, flops: float):
+    """(ms, what bounds it): the least time the card could take to move
+    ``nbytes`` and do ``flops`` f32 operations."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes_of(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def reset_launches() -> None:
+    from repro_torch.kernels import kron_kernel, ttm_kernel
+
+    for fn in (kron_kernel.fused_kron_scatter, kron_kernel.kron_contrib,
+               kron_kernel.scatter_rows, kron_kernel.fused_kron_scatter_ttm, ttm_kernel.ttm):
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels import kron_kernel, ttm_kernel
+
+    return {"fused_kron_scatter": kron_kernel.fused_kron_scatter.launches,
+            "ttm": ttm_kernel.ttm.launches,
+            "kron_contrib": kron_kernel.kron_contrib.launches,
+            "scatter_rows": kron_kernel.scatter_rows.launches,
+            "fused_kron_scatter_ttm": kron_kernel.fused_kron_scatter_ttm.launches}
+
+
+def release_memory() -> None:
+    """Drop cached plans (and their schedules) and return freed blocks."""
+    from repro_torch import tucker
+
+    tucker.clear_plan_cache()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def chain_plain(rows, vals, sched, n_rows: int, precision: str, step: int = 0):
+    """The order >= 4 unfolding through the plain versions alone, on slot
+    chunks of ``step`` slots (all at once for 0), so that the full-size
+    contrib is never formed: the same Kron rows and the same sums as
+    kron_contrib -> kron_contrib -> scatter_rows."""
+    from repro_torch.kernels import kron_kernel
+    from repro_torch.sparse.layout import slot_rows
+
+    k = 1
+    for r in rows:
+        k *= r.shape[1]
+    out = torch.zeros((sched.n_row_blocks * sched.bi, k), dtype=torch.float32,
+                      device=vals.device)
+    slots = slot_rows(sched)
+    step = step or vals.shape[0]
+    for s in range(0, vals.shape[0], step):
+        c = kron_kernel.kron_contrib_plain(rows[0][s:s + step], rows[1][s:s + step],
+                                           vals[s:s + step], precision=precision)
+        for extra in rows[2:]:
+            c = kron_kernel.kron_contrib_plain(c, extra[s:s + step],
+                                               torch.ones_like(vals[s:s + step]))
+        out.index_add_(0, slots[s:s + step], c)
+    return kron_kernel._mask_unvisited(out[:n_rows], sched)
 
 
 def max_row_count(coo, mode) -> int:
@@ -216,6 +330,7 @@ def schedule_of(coo, mode):
 def phase2_kernels(dev) -> None:
     from repro_torch.core.coo import SparseCOO
     from repro_torch.kernels import kron_kernel, ops, ttm_kernel
+    from repro_torch.sparse.layout import row_parts
 
     log("phase 2: kernels against their plain versions, odd shapes")
     rng = np.random.default_rng(SEED)
@@ -241,20 +356,87 @@ def phase2_kernels(dev) -> None:
         shape, idx, rng.standard_normal(1000)), (4, 40, 33)))
     two = np.stack([rng.integers(0, 300, 900), rng.integers(0, 200, 900)], 1)
     cases.append(("2-way tensor", coo_of((300, 200), two, rng.standard_normal(900)), (6, 4)))
+    # row 0 of the first 128-row group gets a range of its own (5,000 slots),
+    # and the group's padding (it aliases row 0) lands in row 5's range.
+    alias_rows = np.concatenate([np.zeros(5000), np.full(300, 3), np.full(301, 5),
+                                 rng.integers(200, 400, 700)])
+    alias = coo_of((400, 30, 20), np.stack(
+        [alias_rows, rng.integers(0, 30, alias_rows.size), rng.integers(0, 20, alias_rows.size)],
+        1), rng.standard_normal(alias_rows.size))
+    cases.append(("row 0 and its group's padding in different ranges", alias, (4, 3, 5)))
     for label, coo, ranks in cases:
         fs = [torch.randn(s, r, device=dev) for s, r in zip(coo.shape, ranks)]
         for mode in range(coo.ndim):
             sched = schedule_of(coo, mode)
+            n_rows = coo.shape[mode]
             rows, vals = ops._gathered_block_rows(coo.indices, coo.values, fs, mode,
                                                   sched, coo.ndim)
             n_terms = max_row_count(coo, mode)
+            tag = f"{label} mode {mode} ({rows[0].shape[1]}x{rows[1].shape[1]})"
             for prec in ("fp32", "bf16_fp32acc"):
                 got = synced(kron_kernel.fused_kron_scatter(
-                    rows[0], rows[1], vals, sched, coo.shape[mode], precision=prec))
+                    rows[0], rows[1], vals, sched, n_rows, precision=prec))
                 want = synced(kron_kernel.fused_kron_scatter_plain(
-                    rows[0], rows[1], vals, sched, coo.shape[mode], precision=prec))
-                compare(f"fused_kron_scatter {label} mode {mode} "
-                        f"({rows[0].shape[1]}x{rows[1].shape[1]})", prec, got, want, n_terms)
+                    rows[0], rows[1], vals, sched, n_rows, precision=prec))
+                compare(f"fused_kron_scatter {tag}", prec, got, want, n_terms)
+                contrib = synced(kron_kernel.kron_contrib(rows[0], rows[1], vals, precision=prec))
+                compare(f"kron_contrib {tag}", prec, contrib, synced(
+                    kron_kernel.kron_contrib_plain(rows[0], rows[1], vals, precision=prec)), 1)
+                compare(f"scatter_rows {tag} of the {prec} contrib", "fp32",
+                        synced(kron_kernel.scatter_rows(contrib, sched, n_rows)),
+                        synced(kron_kernel.scatter_rows_plain(contrib, sched, n_rows)), n_terms)
+                compare(f"fused=False chain against kernel 1, {tag}", prec, synced(
+                    ops.sparse_ttm_chain_device(coo.indices, coo.values, fs, mode, sched,
+                                                shape=coo.shape, fused=False, precision=prec)),
+                    got, n_terms)
+                g_want = synced(kron_kernel.fused_kron_scatter_ttm_plain(
+                    rows[0], rows[1], vals, fs[mode], sched, n_rows, precision=prec))
+                g = synced(kron_kernel.fused_kron_scatter_ttm(
+                    rows[0], rows[1], vals, fs[mode], sched, n_rows, precision=prec))
+                compare(f"fused_kron_scatter_ttm {tag}", prec, g, g_want, coo.nnz)
+                again = synced(kron_kernel.fused_kron_scatter_ttm(
+                    rows[0], rows[1], vals, fs[mode], sched, n_rows, precision=prec))
+                check(torch.equal(g, again), f"fused_kron_scatter_ttm {tag} differs "
+                      f"between two runs")
+                if coo is alias:  # the segmented sums under other row-aligned splits
+                    for n_parts in (1, 2, 3, 7):
+                        sp = dataclasses.replace(sched, parts=row_parts(sched, n_parts))
+                        label2 = f"{tag}, {int(sp.parts.numel()) - 1} ranges"
+                        compare(f"fused_kron_scatter {label2}", prec, synced(
+                            kron_kernel.fused_kron_scatter(rows[0], rows[1], vals, sp, n_rows,
+                                                           precision=prec)), want, n_terms)
+                        compare(f"scatter_rows {label2}", "fp32",
+                                synced(kron_kernel.scatter_rows(contrib, sp, n_rows)),
+                                synced(kron_kernel.scatter_rows_plain(contrib, sp, n_rows)),
+                                n_terms)
+                        compare(f"fused_kron_scatter_ttm {label2}", prec, synced(
+                            kron_kernel.fused_kron_scatter_ttm(rows[0], rows[1], vals, fs[mode],
+                                                               sp, n_rows, precision=prec)),
+                            g_want, coo.nnz)
+            if coo is alias and mode == 0:
+                parts = sched.parts.tolist()
+                first_pad = int(torch.nonzero(sched.valid[:5632] == 0).min())
+                check(parts[1] <= 5000 < first_pad and first_pad not in parts,
+                      f"alias case: ranges {parts[:4]}, first padding slot {first_pad}")
+    # an order-5 tensor: kron_contrib chained three times, then scatter_rows;
+    # its core update is that chain followed by the TTM kernel.
+    shape5, ranks5 = (30, 20, 10, 8, 6), (3, 2, 4, 2, 3)
+    coo5 = coo_of(shape5, np.stack([rng.integers(0, s, 2000) for s in shape5], 1),
+                  rng.standard_normal(2000))
+    fs5 = [torch.randn(s, r, device=dev) for s, r in zip(shape5, ranks5)]
+    for mode in range(5):
+        sched = schedule_of(coo5, mode)
+        rows, vals = ops._gathered_block_rows(coo5.indices, coo5.values, fs5, mode, sched, 5)
+        n_terms = max_row_count(coo5, mode)
+        for prec in ("fp32", "bf16_fp32acc"):
+            y = synced(ops.sparse_ttm_chain_device(coo5.indices, coo5.values, fs5, mode, sched,
+                                                   shape=shape5, precision=prec))
+            y_plain = synced(chain_plain(rows, vals, sched, shape5[mode], prec))
+            compare(f"order-5 chain mode {mode}", prec, y, y_plain, n_terms)
+            compare(f"order-5 core update mode {mode}", prec, synced(ops.sparse_ttm_core_device(
+                coo5.indices, coo5.values, fs5, mode, sched, shape=shape5, precision=prec)),
+                synced(ttm_kernel.ttm_plain(y_plain.T, fs5[mode].T, precision=prec).T),
+                coo5.nnz)
     for l_, i_, r_, transposed in ((15, 1000, 3, True), (256, 28818, 16, True),
                                    (100, 300, 17, False), (8, 8, 8, False)):
         if transposed:  # the path's views: y = Y_(N)^T, u = U_N^T
@@ -273,20 +455,59 @@ def phase2_kernels(dev) -> None:
 
 
 def phase3_mid(dev) -> None:
-    from repro_torch import tucker
+    from repro_torch.core.engine import make_engine
     from repro_torch.sparse.generators import random_sparse_tensor
 
-    log("phase 3: card against CPU, NELL-2-like 1000^3, 24,000 nnz, ranks 16, 5 sweeps")
-    coo = random_sparse_tensor((1000, 1000, 1000), 2.4e-5, seed=11, value_dist="uniform")
+    log("phase 3: card against CPU from the same factors, 5 sweeps")
+    nell = random_sparse_tensor((1000, 1000, 1000), 2.4e-5, seed=11, value_dist="uniform")
+    card_vs_cpu("NELL-2-like 1000^3, 24,000 nnz, ranks 16", nell, (16, 16, 16),
+                expect={"fused_kron_scatter": 3 * N_ITER, "ttm": N_ITER})
+    card_vs_cpu("the same with fuse_core", nell, (16, 16, 16),
+                engine=lambda d: make_engine("auto", d, fuse_core=True),
+                expect={"fused_kron_scatter": 3 * N_ITER, "fused_kron_scatter_ttm": N_ITER})
+    four = random_sparse_tensor((200, 200, 200, 20), 1e6 / (200 * 200 * 200 * 20), seed=12,
+                                value_dist="counts")
+    card_vs_cpu("4-way 200x200x200x20, 1,000,000 nnz, ranks 8", four, (8, 8, 8, 8),
+                expect={"kron_contrib": 8 * N_ITER, "scatter_rows": 4 * N_ITER,
+                        "ttm": N_ITER})
+    # no megakernel above order 3: fuse_core takes the TTM of the Y_(N) the
+    # sweep built, with no second chain
+    small = random_sparse_tensor((60, 50, 40, 10), 2e4 / (60 * 50 * 40 * 10), seed=13,
+                                 value_dist="counts")
+    card_vs_cpu("4-way 60x50x40x10, 20,000 nnz, ranks 4, fuse_core", small, (4, 4, 4, 4),
+                engine=lambda d: make_engine("auto", d, fuse_core=True),
+                expect={"kron_contrib": 8 * N_ITER, "scatter_rows": 4 * N_ITER,
+                        "ttm": N_ITER})
+
+
+def card_vs_cpu(label, coo, ranks, engine=None, expect=None) -> None:
+    """Decompose ``coo`` on the card and on the CPU from the same seeded
+    orthonormal factors (through a prebuilt engine from ``engine(device)``
+    when given); the fit histories must agree within 1e-4, the factor
+    projectors within 1e-3 and the cores, once the factor columns' signs are
+    matched, within 1e-3 x max|CPU core|; the card run must launch
+    ``expect``."""
+    from repro_torch import tucker
+
     rng = np.random.default_rng(SEED)
-    f0 = [np.linalg.qr(rng.standard_normal((1000, 16)))[0].astype(np.float32)
-          for _ in range(3)]
+    f0 = [np.linalg.qr(rng.standard_normal((s, r)))[0].astype(np.float32)
+          for s, r in zip(coo.shape, ranks)]
+    spec = tucker.TuckerSpec(coo.shape, ranks, n_iter=N_ITER)
     res = {}
     for d in ("cuda", "cpu"):
-        res[d] = tucker.decompose(coo, (16, 16, 16), n_iter=N_ITER, device=d,
-                                  factors_init=[torch.from_numpy(f) for f in f0])
+        reset_launches()
+        t0 = time.perf_counter()
+        plan = tucker.plan(spec, device=d, engine=engine(d) if engine else None)
+        res[d] = plan(coo, factors_init=[torch.from_numpy(f) for f in f0])
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in read_launches().items() if v}
+        log(f"  {label} on {d}: {time.perf_counter() - t0:.2f} s, launches {launches}")
+        if d == "cuda":
+            check(launches == (expect or launches), f"{label}: launches {launches}, "
+                  f"want {expect}")
+        else:
+            check(not launches, f"{label}: the CPU run launched {launches}")
     cu, cp = res["cuda"], res["cpu"]
-    torch.cuda.synchronize()
     check(cu.engine == "cuda" and cp.engine == "torch", f"engines {cu.engine}, {cp.engine}")
     hist_err = float(np.abs(cu.fit_history - cp.fit_history).max())
     proj_err = max(
@@ -298,35 +519,56 @@ def phase3_mid(dev) -> None:
     log(f"  fit history max diff {hist_err:.3e} <= 1e-4; projector UU^T max diff "
         f"{proj_err:.3e} <= 1e-3; card launches {cu.dispatches}")
     check(cu.fit_history.shape == cp.fit_history.shape and hist_err <= 1e-4,
-          "card and CPU fit histories disagree")
-    check(proj_err <= 1e-3, "card and CPU factor subspaces disagree")
+          f"{label}: card and CPU fit histories disagree")
+    check(proj_err <= 1e-3, f"{label}: card and CPU factor subspaces disagree")
+    # a factor column is defined up to its sign: flip the core's slices to match
+    core = cu.core.cpu()
+    for n, (a, b) in enumerate(zip(cu.factors, cp.factors)):
+        sign = torch.sign((a.cpu() * b).sum(0))
+        core = core * sign.reshape([-1 if t == n else 1 for t in range(core.dim())])
+    scale = float(cp.core.abs().max())
+    core_err = float((core - cp.core).abs().max())
+    log(f"  core max diff {core_err:.3e} <= {1e-3 * scale:.3e} (1e-3 x max|core| {scale:.3e})")
+    check(bool(torch.isfinite(core).all()) and core_err <= 1e-3 * scale,
+          f"{label}: card and CPU cores disagree")
 
 
 # -- phase 4 -----------------------------------------------------------------
 
 
-def synthetic_nell2(dev, seed: int):
-    """Unique uniform coordinates at NELL-2's shape and nonzero count, values
-    uniform in [0.1, 10) like ``repro.sparse.datasets.nell2_like``, drawn on
-    the card from a seeded generator: sort-based dedup, no loop over the
-    nonzeros. (The same steps in host numpy took 202 s on the shared host
-    CPU of an H100 node.)"""
+def synthetic(dev, shape, nnz: int, seed: int, values: str):
+    """Unique uniform coordinates at a published shape and nonzero count,
+    drawn on the card from a seeded generator: sort-based dedup, no loop over
+    the nonzeros. (The same steps in host numpy took 202 s at NELL-2 size on
+    the shared host CPU of an H100 node.) ``values`` is "uniform" (uniform
+    in [0.1, 10), like ``repro.sparse.datasets.nell2_like``) or "counts"
+    (Poisson(3) + 1, like ``value_dist="counts"``)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     total = 1
-    for s in NELL2_SHAPE:
+    for s in shape:
         total *= s
     lin = torch.empty(0, dtype=torch.int64, device=dev)
-    while lin.numel() < NELL2_NNZ:
-        more = torch.randint(0, total, (NELL2_NNZ - lin.numel() + NELL2_NNZ // 1000 + 1024,),
+    while lin.numel() < nnz:
+        more = torch.randint(0, total, (nnz - lin.numel() + nnz // 1000 + 1024,),
                              generator=g, device=dev, dtype=torch.int64)
         lin = torch.unique(torch.cat([lin, more]))
-    lin = lin[torch.randperm(lin.numel(), generator=g, device=dev)[:NELL2_NNZ]]
-    idx = torch.empty((NELL2_NNZ, 3), dtype=torch.int32, device=dev)
-    for k in (2, 1, 0):
-        idx[:, k] = lin % NELL2_SHAPE[k]
-        lin = lin // NELL2_SHAPE[k]
-    vals = torch.rand(NELL2_NNZ, generator=g, device=dev) * 9.9 + 0.1
+    lin = lin[torch.randperm(lin.numel(), generator=g, device=dev)[:nnz]]
+    idx = torch.empty((nnz, len(shape)), dtype=torch.int32, device=dev)
+    for k in range(len(shape) - 1, -1, -1):
+        idx[:, k] = lin % shape[k]
+        lin = lin // shape[k]
+    if values == "uniform":
+        vals = torch.rand(nnz, generator=g, device=dev) * 9.9 + 0.1
+    else:
+        vals = torch.poisson(torch.full((nnz,), 3.0, device=dev), generator=g) + 1.0
     return idx, vals
+
+
+def unique_coords(coo) -> bool:
+    lin = torch.zeros(coo.nnz, dtype=torch.int64, device=coo.indices.device)
+    for k, s in enumerate(coo.shape):
+        lin = lin * s + coo.indices[:, k].long()
+    return int(torch.unique(lin).numel()) == coo.nnz
 
 
 def phase4_nell2(dev, card: str):
@@ -337,33 +579,30 @@ def phase4_nell2(dev, card: str):
     log(f"phase 4: NELL-2 size {NELL2_SHAPE}, {NELL2_NNZ} nnz, ranks {NELL2_RANKS}, "
         f"{N_ITER} sweeps")
     t0 = time.perf_counter()
-    idx, vals = synthetic_nell2(dev, SEED)
+    idx, vals = synthetic(dev, NELL2_SHAPE, NELL2_NNZ, SEED, "uniform")
     coo = SparseCOO.from_parts(idx, vals, NELL2_SHAPE)
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
-    ix = coo.indices.long()
-    lin = (ix[:, 0] * NELL2_SHAPE[1] + ix[:, 1]) * NELL2_SHAPE[2] + ix[:, 2]
-    check(int(torch.unique(lin).numel()) == NELL2_NNZ, "synthetic coordinates are not unique")
-    del ix, lin, idx, vals
+    check(unique_coords(coo), "synthetic coordinates are not unique")
+    del idx, vals
     spec = tucker.TuckerSpec(shape=NELL2_SHAPE, ranks=NELL2_RANKS, n_iter=N_ITER)
     plan = tucker.plan(spec, device=dev)
 
     # the main path, cold: every count starts at 0 here and is read right after.
     torch.cuda.reset_peak_memory_stats()
-    kron_kernel.fused_kron_scatter.launches = 0
-    ttm_kernel.ttm.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     res = tucker.decompose(coo, NELL2_RANKS, n_iter=N_ITER, device=dev)
     torch.cuda.synchronize()
     t_cold = time.perf_counter() - t0
-    launches = {"fused_kron_scatter": kron_kernel.fused_kron_scatter.launches,
-                "ttm": ttm_kernel.ttm.launches}
+    launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     hist = res.fit_history
     log(f"  cold run: {t_cold:.3f} s, launches {launches}, schedule builds "
         f"{res.schedule_builds}, fit {hist.tolist()}")
     check(res.engine == "cuda", f"engine {res.engine}")
-    check(launches["fused_kron_scatter"] == 3 * N_ITER and launches["ttm"] == N_ITER,
+    check(launches == {"fused_kron_scatter": 3 * N_ITER, "ttm": N_ITER, "kron_contrib": 0,
+                       "scatter_rows": 0, "fused_kron_scatter_ttm": 0},
           f"main path launches {launches}, want {3 * N_ITER} and {N_ITER}")
     check(hist.shape == (N_ITER,) and bool(np.all(np.isfinite(hist)))
           and bool(np.all((hist >= 0) & (hist <= 1))), f"fit history {hist}")
@@ -412,21 +651,20 @@ def phase4_nell2(dev, card: str):
                 y_last = got
             k_ms, p_ms = time_ms(kern), time_ms(plain, reps=1)
             k = a.shape[1] * b.shape[1]
-            nbytes = (ac.numel() * ac.element_size() + bc.numel() * bc.element_size()
-                      + v.numel() * 4 + sched.rel_row.numel() * 4 + sched.blkmap.numel() * 4
-                      + sched.parts.numel() * 8 + n_rows * k * 4)
+            nbytes = (nbytes_of(ac, bc, v, sched.rel_row, sched.blkmap, sched.parts)
+                      + n_rows * k * 4)
             flops = 3 * nnz_real * k
-            bound = max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS) * 1e3
+            mode_bound, _ = bound(nbytes, flops)
             kron_ms[p] += k_ms
             kron_plain_ms[p] += p_ms
-            kron_bound[p] += bound
+            kron_bound[p] += mode_bound
             if p == "fp32":
                 kron_bytes, kron_flops = kron_bytes + nbytes, kron_flops + flops
             per_mode.append({"mode": mode, "precision": p, "ms": k_ms, "plain_ms": p_ms,
-                             "bound_ms": bound, "bytes": nbytes, "flops": flops,
+                             "bound_ms": mode_bound, "bytes": nbytes, "flops": flops,
                              "parts": int(sched.parts.numel()) - 1})
             log(f"    mode {mode} [{p}]: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-                f"bound {bound:.3f} ms ({nbytes / 1e9:.2f} GB, {flops / 1e9:.1f} GFLOP), "
+                f"bound {mode_bound:.3f} ms ({nbytes / 1e9:.2f} GB, {flops / 1e9:.1f} GFLOP), "
                 f"{int(sched.parts.numel()) - 1} CTAs")
         del a, b, rows, v, ac, bc
 
@@ -449,15 +687,13 @@ def phase4_nell2(dev, card: str):
             "ms": time_ms(kern, reps=20, flush_l2=True),
             "plain_ms": time_ms(plain, reps=20, flush_l2=True),
             "library_ms": time_ms(lib, reps=20, flush_l2=True) if lib else None,
-            "bound_ms": max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS) * 1e3,
-            "bound_by": "bytes" if nbytes / PEAK_BYTES_PER_S >= flops / PEAK_F32_FLOPS
-            else "operations",
+            "bound_ms": bound(nbytes, flops)[0], "bound_by": bound(nbytes, flops)[1],
             "max_abs_err": err,
         }
         log(f"    ttm [{p}]: {json.dumps(ttm_row[p])}")
 
     summary = {
-        "card": card,
+        "phase": "4 NELL-2 main path", "card": card,
         "shape": NELL2_SHAPE, "nnz": NELL2_NNZ, "ranks": NELL2_RANKS, "n_iter": N_ITER,
         "setup_s": {"generate_on_card": t_gen,
                     "cold_decompose_incl_schedules": t_cold, "warm_decompose": t_warm},
@@ -471,7 +707,7 @@ def phase4_nell2(dev, card: str):
         "fit_history": hist.tolist(),
     }
     print(json.dumps(summary), flush=True)
-    return [
+    rows = [
         {"name": "fused_kron_scatter", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/kron_scatter.cu",
          "replaces": "src/repro/kernels/kron_kernel.py:306",
@@ -479,8 +715,7 @@ def phase4_nell2(dev, card: str):
          "ms": kron_ms["fp32"], "plain_ms": kron_plain_ms["fp32"],
          "device_ms": profile["kernel_ms"]["fused_kron_scatter"] / N_ITER,
          "bound_ms": kron_bound["fp32"],
-         "bound_by": ("bytes" if kron_bytes / PEAK_BYTES_PER_S >= kron_flops / PEAK_F32_FLOPS
-                      else "operations"),
+         "bound_by": bound(kron_bytes, kron_flops)[1],
          # no single PyTorch call computes it without first forming the
          # (nnz, K) Kron rows, 79 GB at this size
          "library_ms": None},
@@ -492,6 +727,328 @@ def phase4_nell2(dev, card: str):
          "bound_ms": ttm_row["fp32"]["bound_ms"], "bound_by": ttm_row["fp32"]["bound_by"],
          "library_ms": ttm_row["fp32"]["library_ms"]},
     ]
+    return {r["name"]: r for r in rows}, coo, res
+
+
+# -- phase 5: path B, the fused core update at NELL-2 size ---------------------
+
+
+def phase5_fused_core(dev, card: str, coo, split_res):
+    from repro_torch import tucker
+    from repro_torch.core.engine import make_engine
+    from repro_torch.kernels import kron_kernel, ops, ttm_kernel
+
+    log(f"phase 5: path B, make_engine('cuda', fuse_core=True) on the phase 4 tensor, "
+        f"{N_ITER} sweeps")
+    spec = tucker.TuckerSpec(shape=NELL2_SHAPE, ranks=NELL2_RANKS, n_iter=N_ITER)
+    plan = tucker.plan(spec, device=dev, engine=make_engine("cuda", dev, fuse_core=True))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = plan(coo)  # the same seeded initial factors as phase 4's run
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = res.fit_history
+    log(f"  cold run: {t_cold:.3f} s, launches {launches}, fit {hist.tolist()}")
+    check(res.engine == "cuda", f"engine {res.engine}")
+    check(launches == {"fused_kron_scatter": 3 * N_ITER, "ttm": 0, "kron_contrib": 0,
+                       "scatter_rows": 0, "fused_kron_scatter_ttm": N_ITER},
+          f"path B launches {launches}")
+    hist_err = float(np.abs(hist - split_res.fit_history).max())
+    proj_err = max(float((a @ a.T - b @ b.T).abs().max())
+                   for a, b in zip(res.factors, split_res.factors))
+    log(f"  against phase 4 (split core): fit history max diff {hist_err:.3e} <= 1e-4, "
+        f"projector max diff {proj_err:.3e} <= 1e-3")
+    check(hist.shape == (N_ITER,) and bool(np.all(np.isfinite(hist))) and hist_err <= 1e-4,
+          "fused-core fit history disagrees with the split path")
+    check(proj_err <= 1e-3, "fused-core factors disagree with the split path")
+    check(tuple(res.core.shape) == NELL2_RANKS, f"fused-core core shape {tuple(res.core.shape)}")
+    # the core is all that fuse_core changes (the factors never read it)
+    core_err = compare("path B core against phase 4's split core", "fp32", res.core,
+                       split_res.core, NELL2_NNZ)
+
+    # warm runs of the split plan (phase 4's, cached) and of path B in turns
+    split_plan = tucker.plan(spec, device=dev)
+    turns = []
+    for name, p in (("split", split_plan), ("fused", plan), ("fused", plan),
+                    ("split", split_plan)):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        warm = p(coo)
+        end.record()
+        end.synchronize()
+        turns.append((name, start.elapsed_time(end) / N_ITER))
+        check(warm.schedule_builds == 0, f"{name} warm run rebuilt schedules")
+        if name == "fused":
+            check(np.array_equal(warm.fit_history, hist), "path B warm run changed its result")
+    log("  warm ms per sweep, in turns: " + ", ".join(f"{n} {ms:.1f}" for n, ms in turns))
+    sweep_ms = float(np.mean([ms for n, ms in turns if n == "fused"]))
+    split_sweep_ms = float(np.mean([ms for n, ms in turns if n == "split"]))
+    profile = profile_run(lambda: plan(coo))
+
+    # the megakernel at the path's shapes: against its plain version, against
+    # the split core update it replaces (kernel 1's Y, then the TTM kernel).
+    eng, fs, mode = plan.engine, [f.contiguous() for f in res.factors], 2
+    sched = eng.device_schedule(coo, mode)
+    rows, v = ops._gathered_block_rows(coo.indices, coo.values, fs, mode, sched, 3)
+    a, b = rows
+    u = fs[mode]
+    n_rows = NELL2_SHAPE[mode]
+    grid = dict(kron_kernel.mega_grid(dev, a.shape[1], b.shape[1], u.shape[1], False,
+                                      int(sched.parts.numel()) - 1),
+                ranges=int(sched.parts.numel()) - 1)
+    log(f"  megakernel grid (fp32): {grid}")
+    row = {}
+    for p in TOL:
+        kern = partial(kron_kernel.fused_kron_scatter_ttm, a, b, v, u, sched, n_rows,
+                       precision=p)
+        plain = partial(kron_kernel.fused_kron_scatter_ttm_plain, a, b, v, u, sched, n_rows,
+                        precision=p)
+        got = synced(kern())
+        err = compare(f"fused_kron_scatter_ttm NELL-2 mode {mode}", p, got, synced(plain()),
+                      NELL2_NNZ)
+        y = synced(kron_kernel.fused_kron_scatter(a, b, v, sched, n_rows, precision=p))
+        split = synced(ttm_kernel.ttm(y.T, u.T, precision=p).T)
+        compare(f"fused_kron_scatter_ttm NELL-2 against the split core update", p, got,
+                split, NELL2_NNZ)
+        ac, bc, uc = kron_kernel._cast_operands(p, a, b, u)
+        k = a.shape[1] * b.shape[1]
+        visited = int(torch.unique(coo.indices[:, mode]).numel())
+        nbytes = (nbytes_of(ac, bc, v, uc, sched.rel_row, sched.blkmap, sched.parts)
+                  + u.shape[1] * k * 4)
+        flops = 3 * NELL2_NNZ * k + 2 * visited * u.shape[1] * k
+        bound_ms, bound_by = bound(nbytes, flops)
+        row[p] = {"ms": time_ms(kern), "plain_ms": time_ms(plain, reps=1),
+                  "split_ttm_ms": time_ms(partial(ttm_kernel.ttm, y.T, u.T, precision=p),
+                                          reps=20, flush_l2=True),
+                  "split_unfolding_ms": time_ms(partial(
+                      kron_kernel.fused_kron_scatter, a, b, v, sched, n_rows, precision=p)),
+                  "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+                  "flops": flops, "max_abs_err": err}
+        log(f"    fused_kron_scatter_ttm [{p}]: {json.dumps(row[p])}")
+        del y, split, got
+    print(json.dumps({
+        "phase": "5 path B fused core update", "card": card, "shape": NELL2_SHAPE,
+        "nnz": NELL2_NNZ, "ranks": NELL2_RANKS, "n_iter": N_ITER,
+        "setup_s": {"cold_decompose_incl_schedules": t_cold}, "sweep_ms": sweep_ms,
+        "split_sweep_ms_same_call": split_sweep_ms, "turns": turns,
+        "launches_per_sweep": {k: n / N_ITER for k, n in launches.items()},
+        "megakernel": row, "megakernel_grid": grid, "core_max_abs_err_vs_split": core_err,
+        "profile_warm_run": profile, "peak_memory_gb": peak_gb,
+        "fit_history": hist.tolist()}), flush=True)
+    return {"fused_kron_scatter_ttm": {
+        "name": "fused_kron_scatter_ttm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/kron_scatter_ttm.cu",
+        "replaces": "src/repro/kernels/kron_kernel.py:428",
+        "launches": launches["fused_kron_scatter_ttm"], "max_abs_err": row["fp32"]["max_abs_err"],
+        "ms": row["fp32"]["ms"], "plain_ms": row["fp32"]["plain_ms"],
+        "device_ms": profile["kernel_ms"]["fused_kron_scatter_ttm"] / N_ITER,
+        "bound_ms": row["fp32"]["bound_ms"], "bound_by": row["fp32"]["bound_by"],
+        # no single PyTorch call builds Y from the nonzeros and contracts it
+        "library_ms": None}}
+
+
+# -- phase 6: path A, the 4-way path at NIPS size ------------------------------
+
+
+def phase6_nips(dev, card: str):
+    from repro_torch import tucker
+    from repro_torch.core.coo import SparseCOO, fold_dense
+    from repro_torch.core.engine import make_engine
+    from repro_torch.kernels import kron_kernel, ops, ttm_kernel
+    from repro_torch.sparse.layout import slot_rows
+
+    log(f"phase 6: path A, NIPS size {NIPS_SHAPE}, {NIPS_NNZ} nnz, ranks {NIPS_RANKS}, "
+        f"{N_ITER} sweeps")
+    t0 = time.perf_counter()
+    idx, vals = synthetic(dev, NIPS_SHAPE, NIPS_NNZ, SEED, "counts")
+    coo = SparseCOO.from_parts(idx, vals, NIPS_SHAPE)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    check(unique_coords(coo), "synthetic coordinates are not unique")
+    del idx, vals
+    spec = tucker.TuckerSpec(shape=NIPS_SHAPE, ranks=NIPS_RANKS, n_iter=N_ITER)
+    plan = tucker.plan(spec, device=dev)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = tucker.decompose(coo, NIPS_RANKS, n_iter=N_ITER, device=dev)
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = res.fit_history
+    log(f"  cold run: {t_cold:.3f} s, launches {launches}, schedule builds "
+        f"{res.schedule_builds}, peak {peak_gb:.2f} GB, fit {hist.tolist()}")
+    check(res.engine == "cuda", f"engine {res.engine}")
+    check(launches == {"fused_kron_scatter": 0, "ttm": N_ITER, "kron_contrib": 8 * N_ITER,
+                       "scatter_rows": 4 * N_ITER, "fused_kron_scatter_ttm": 0},
+          f"path A launches {launches}")
+    check(hist.shape == (N_ITER,) and bool(np.all(np.isfinite(hist)))
+          and bool(np.all((hist >= 0) & (hist <= 1))), f"fit history {hist}")
+    check(all(bool(torch.isfinite(f).all()) for f in res.factors),
+          "non-finite factors")
+    check(tuple(res.core.shape) == spec.ranks, f"core shape {tuple(res.core.shape)}")
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    warm = plan(coo)
+    end.record()
+    end.synchronize()
+    sweep_ms = start.elapsed_time(end) / N_ITER
+    check(warm.schedule_builds == 0 and np.array_equal(warm.fit_history, hist),
+          "path A warm run rebuilt schedules or changed its result")
+    del warm
+    profile = profile_run(lambda: plan(coo))
+
+    # fuse_core on a 4-way tensor: there is no megakernel above order 3, so
+    # the core update is the TTM of the Y_(3) the sweep built, with no second
+    # chain: the launches, the result and the time are the split path's.
+    fplan = tucker.plan(spec, device=dev, engine=make_engine("cuda", dev, fuse_core=True))
+    fplan(coo)  # builds the new engine's schedules
+    reset_launches()
+    start.record()
+    fres = fplan(coo)
+    end.record()
+    end.synchronize()
+    fused_sweep_ms = start.elapsed_time(end) / N_ITER
+    flaunch = read_launches()
+    log(f"  fuse_core: {fused_sweep_ms:.1f} ms per sweep (split {sweep_ms:.1f}), launches "
+        f"{flaunch}, core bit-identical to the split run: {torch.equal(fres.core, res.core)}")
+    check(flaunch == launches, f"fuse_core on the 4-way path launches {flaunch}, want {launches}")
+    check(np.abs(fres.fit_history - hist).max() <= 1e-4, "fuse_core fit history differs")
+    compare("NIPS core with fuse_core against the split run", "fp32", fres.core, res.core,
+            NIPS_NNZ)
+    del fplan, fres
+
+    # each kernel at the path's shapes against its plain version, mode by
+    # mode; the 51 GB second-link contrib exists once at a time, and the
+    # plain versions run on slot chunks of it.
+    eng, fs = plan.engine, [f.contiguous() for f in res.factors]
+    tot = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "flops": 0,
+                  "bound_ms": 0.0, "max_abs_err": 0.0} for name in ("kron_contrib", "scatter_rows")}
+    per_mode = []
+    for mode in range(4):
+        sched = eng.device_schedule(coo, mode)
+        n_rows = NIPS_SHAPE[mode]
+        rows, v = ops._gathered_block_rows(coo.indices, coo.values, fs, mode, sched, 4)
+        ones = torch.ones_like(v)
+        n_terms = max_row_count(coo, mode)
+        nnzp = v.shape[0]
+        m = {"mode": mode, "slots": nnzp, "ranges": int(sched.parts.numel()) - 1}
+        k1 = rows[0].shape[1] * rows[1].shape[1]
+        step = (1 << 26) // (k1 * rows[2].shape[1])  # slots per plain chunk: 268 MB
+        # link 1: (nnzp, R) x (nnzp, R) -> (nnzp, R^2), written once, read by link 2
+        c1 = synced(kron_kernel.kron_contrib(rows[0], rows[1], v))
+        err1 = compare(f"kron_contrib NIPS mode {mode} link 1", "fp32", c1,
+                       synced(kron_kernel.kron_contrib_plain(rows[0], rows[1], v)), 1)
+        # link 2: (nnzp, R^2) x (nnzp, R) -> (nnzp, R^3), compared by chunks
+        c2 = synced(kron_kernel.kron_contrib(c1, rows[2], ones))
+        err2, scale2, finite = 0.0, 0.0, True
+        for s in range(0, nnzp, step):  # chunks: a full-size temporary would not fit
+            want = kron_kernel.kron_contrib_plain(c1[s:s + step], rows[2][s:s + step],
+                                                  ones[s:s + step])
+            err2 = max(err2, float((c2[s:s + step] - want).abs().max()))
+            scale2 = max(scale2, float(want.abs().max()))
+            finite = finite and bool(torch.isfinite(c2[s:s + step]).all())
+        ok = finite and err2 <= TOL["fp32"] * max(scale2, 1e-30)
+        log(f"  kron_contrib NIPS mode {mode} link 2 [fp32]: max_abs_err {err2:.3e} <= "
+            f"{TOL['fp32'] * scale2:.3e} (by chunks of {step} slots) {'ok' if ok else 'FAIL'}")
+        check(ok, f"kron_contrib NIPS mode {mode} link 2 disagrees with its plain version")
+        y = synced(kron_kernel.scatter_rows(c2, sched, n_rows))
+        err_s = compare(f"scatter_rows NIPS mode {mode}", "fp32", y,
+                        synced(kron_kernel.scatter_rows_plain(c2, sched, n_rows)), n_terms)
+        y_plain = synced(chain_plain(rows, v, sched, n_rows, "fp32", step))
+        compare(f"Y_({mode}) NIPS, kernels against the plain chain by chunks", "fp32", y,
+                y_plain, n_terms)
+        if mode == 3:  # the core update's unfolding, (17, 4096)
+            y3, y3_plain = y, y_plain
+        slots = slot_rows(sched)
+        k = c2.shape[1]
+        # times: scatter_rows while c2 exists, then kron_contrib with c2 freed
+        s_ms = time_ms(partial(kron_kernel.scatter_rows, c2, sched, n_rows))
+        s_plain = time_ms(partial(kron_kernel.scatter_rows_plain, c2, sched, n_rows), reps=1)
+        s_lib = time_ms(lambda: torch.zeros((n_rows, k), device=dev).index_add_(0, slots, c2),
+                        reps=1)
+        s_bytes = nbytes_of(c2, sched.rel_row, sched.blkmap, sched.parts) + n_rows * k * 4
+        s_flops = NIPS_NNZ * k
+        del c2, y
+        torch.cuda.empty_cache()
+        c_ms = time_ms(partial(kron_kernel.kron_contrib, rows[0], rows[1], v))
+        c_ms += time_ms(partial(kron_kernel.kron_contrib, c1, rows[2], ones))
+        c_plain = time_ms(partial(kron_kernel.kron_contrib_plain, rows[0], rows[1], v))
+
+        def link2_plain_chunks():
+            for s in range(0, nnzp, step):
+                kron_kernel.kron_contrib_plain(c1[s:s + step], rows[2][s:s + step],
+                                               ones[s:s + step])
+
+        c_plain += time_ms(link2_plain_chunks, reps=1)
+        c_lib = time_ms(lambda: torch.einsum("ti,tj->tij", rows[0] * v[:, None], rows[1]))
+        c_lib += time_ms(lambda: torch.einsum("ti,tj->tij", c1 * ones[:, None], rows[2]),
+                         reps=3)
+        c_bytes = nbytes_of(rows[0], rows[1], v, c1, c1, rows[2], ones) + nnzp * k * 4
+        c_flops = 2 * nnzp * k1 + 2 * nnzp * k
+        for name, ms, pl, lib, nb, fl, err in (
+                ("kron_contrib", c_ms, c_plain, c_lib, c_bytes, c_flops, max(err1, err2)),
+                ("scatter_rows", s_ms, s_plain, s_lib, s_bytes, s_flops, err_s)):
+            b_ms, _ = bound(nb, fl)
+            t = tot[name]
+            t["ms"] += ms
+            t["plain_ms"] += pl
+            t["library_ms"] += lib
+            t["bytes"] += nb
+            t["flops"] += fl
+            t["bound_ms"] += b_ms
+            t["max_abs_err"] = max(t["max_abs_err"], err)
+            m[name] = {"ms": ms, "plain_ms": pl, "library_ms": lib, "bound_ms": b_ms}
+        log(f"    mode {mode}: {json.dumps(m)}")
+        per_mode.append(m)
+        del c1, rows, v, ones, slots, y_plain
+        torch.cuda.empty_cache()
+
+    # the core update at the path's shapes: the TTM kernel on the transposed
+    # views of Y_(3) (17, 4096) and U_3 (17, 16), against its plain version;
+    # then the returned core against one made by the plain versions alone
+    # (plain chain, plain TTM) from the returned factors, which are the ones
+    # the last sweep's core update used.
+    u3 = fs[3]
+    ttm_row = {}
+    for p in TOL:
+        kern = partial(ttm_kernel.ttm, y3.T, u3.T, precision=p)
+        plain = partial(ttm_kernel.ttm_plain, y3.T, u3.T, precision=p)
+        err = compare(f"ttm NIPS y {tuple(y3.T.shape)} (transposed view) u {tuple(u3.T.shape)}",
+                      p, synced(kern()), synced(plain()), y3.shape[0])
+        ttm_row[p] = {"ms": time_ms(kern, reps=20), "plain_ms": time_ms(plain, reps=20),
+                      "max_abs_err": err}
+    core_plain = fold_dense(ttm_kernel.ttm_plain(y3_plain.T, u3.T).T, 3, NIPS_RANKS)
+    core_err = compare("NIPS core against the plain chain and plain TTM", "fp32", res.core,
+                       core_plain, NIPS_NNZ)
+    del y3, y3_plain, core_plain
+    print(json.dumps({
+        "phase": "6 path A NIPS", "card": card, "shape": NIPS_SHAPE, "nnz": NIPS_NNZ,
+        "ranks": NIPS_RANKS, "n_iter": N_ITER,
+        "setup_s": {"generate_on_card": t_gen, "cold_decompose_incl_schedules": t_cold},
+        "sweep_ms": sweep_ms, "fuse_core_sweep_ms": fused_sweep_ms,
+        "launches_per_sweep": {k: n / N_ITER for k, n in launches.items()},
+        "per_sweep": tot, "per_mode": per_mode, "ttm_core_update": ttm_row,
+        "core_max_abs_err_vs_plain": core_err, "profile_warm_run": profile,
+        "peak_memory_gb": peak_gb, "fit_history": hist.tolist()}), flush=True)
+    out = {}
+    for name, src, line in (("kron_contrib", "kron_contrib.cu", 74),
+                            ("scatter_rows", "scatter_rows.cu", 207)):
+        t = tot[name]
+        out[name] = {
+            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/kron_kernel.py:{line}",
+            "launches": launches[name], "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "device_ms": profile["kernel_ms"][name] / N_ITER,
+            "bound_ms": t["bound_ms"], "bound_by": bound(t["bytes"], t["flops"])[1],
+            "library_ms": t["library_ms"]}
+    return out
 
 
 if __name__ == "__main__":

@@ -2,8 +2,10 @@
 per-mode schedules of the tensor being decomposed.
 
 Port of ``repro.core.engine``. Both engines run one code path — the
-schedule-ordered unfolding (``kernels.ops``) and the core TTM
-(``kernels.ttm_kernel``) — and differ only in the device of their tensors:
+schedule-ordered unfolding (``kernels.ops``) and the core update, either the
+TTM kernel on the materialised last unfolding or, with ``fuse_core``, the
+megakernel that rebuilds it from the nonzeros — and differ only in the
+device of their tensors:
 
   ``cuda``   the hand-written CUDA kernels, on a CUDA device;
   ``torch``  their plain PyTorch versions, on the CPU;
@@ -64,6 +66,8 @@ class SweepEngine:
     name: str  # resolved: "cuda" or "torch"
     device: torch.device
     precision: str = "fp32"
+    # core update through the fused megakernel instead of the split TTM.
+    fuse_core: bool = False
     # per-mode schedule builds, cumulative; the plan reports per-call deltas.
     schedule_builds: int = 0
     dev_schedules: Dict[int, DeviceSchedule] = dataclasses.field(default_factory=dict)
@@ -108,12 +112,32 @@ class SweepEngine:
         transposed views (no copy of the unfolding)."""
         return ops.ttm(y_n.T, u_last.T, precision=self.precision).T
 
+    def core_update(self, coo: SparseCOO, factors: Sequence[torch.Tensor],
+                    y_n: torch.Tensor) -> torch.Tensor:
+        """The core update with the engine's layout applied: with
+        ``fuse_core`` on a 2- or 3-way tensor the megakernel re-streams the
+        nonzeros so Y_(N) is not read back a second time; otherwise the
+        split TTM over the materialised ``y_n``. Higher orders have no
+        megakernel (``ops.sparse_ttm_core_device`` would rebuild ``y_n``
+        through the whole chain and then run the same TTM), so they take
+        the split TTM directly. The reference takes the fused path only on
+        its kernel engine; both engines here are kernel engines (``torch``
+        runs the kernels' plain versions), so both honour the flag."""
+        n = coo.ndim
+        if self.fuse_core and n <= 3:
+            return ops.sparse_ttm_core_device(
+                coo.indices, coo.values, factors, n - 1,
+                self.device_schedule(coo, n - 1),
+                shape=tuple(coo.shape), precision=self.precision,
+            )
+        return self.core_unfolding(y_n, factors[n - 1])
+
 
 def make_engine(engine: str = "auto", device="cuda", *,
-                precision: str = "fp32") -> SweepEngine:
+                precision: str = "fp32", fuse_core: bool = False) -> SweepEngine:
     """Resolve ``engine`` for ``device`` and build a reusable engine."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
     device = torch.device(device)
     return SweepEngine(name=resolve_engine(engine, device), device=device,
-                       precision=precision)
+                       precision=precision, fuse_core=fuse_core)

@@ -77,8 +77,8 @@ def sparse_sweep(
         y_n = engine.mode_unfolding(coo, factors, mode)
         # pin each factor to its input dtype, as the reference's scan carry.
         factors[mode] = factor_update(y_n, ranks[mode], method).to(factors[mode].dtype)
-    # Alg. 2 line 9: G_(N) = U_N^T Y_(N) on the last unfolding (Eq. 12).
-    g_n = engine.core_unfolding(y_n, factors[n - 1])
+    # Alg. 2 line 9: G_(N) = U_N^T Y_(N) (Eq. 12), split or fused.
+    g_n = engine.core_update(coo, factors, y_n)
     return factors, fold_dense(g_n, n - 1, list(ranks))
 
 

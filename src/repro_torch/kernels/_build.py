@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library ``build/kernels/lib<name>-<hash>.so`` in the checkout (git-ignored),
-where ``<hash>`` covers the source and the compiler flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is. All missing
+where ``<hash>`` covers the source, the shared ``csrc/*.cuh`` headers and
+the compiler flags, so an edited source is rebuilt and an unchanged one is loaded as it is. All missing
 libraries are compiled together, one ``nvcc`` process each. ``ptxas``
 prints each kernel's registers, shared memory and spills into
 ``build/kernels/<name>.ptxas.log``.
@@ -22,7 +22,7 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("kron_scatter", "ttm")
+SOURCES = ("kron_scatter", "ttm", "kron_contrib", "scatter_rows", "kron_scatter_ttm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,8 +48,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    # the shared headers count too: an edit to one rebuilds every library.
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+        (CSRC / f"{name}.cu").read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -1,11 +1,21 @@
-"""The fused Kron-scatter unfolding (paper Alg. 4 + Eq. 13) on the card.
+"""The Kronecker module (paper Alg. 4), its scatter into Y_(n) (Eq. 13) and
+the fused core update (Eq. 12) on the card.
 
-Port of the fused kernel of ``repro.kernels.kron_kernel``:
-``Y_(n)[row] += v * (a (x) b)`` (Rb fastest) over the schedule-ordered
-nonzeros of one mode. :func:`fused_kron_scatter` launches the hand-written
-CUDA kernel of ``csrc/kron_scatter.cu`` for CUDA tensors and runs
-:func:`fused_kron_scatter_plain` for CPU tensors; nothing else picks
-between them.
+Port of ``repro.kernels.kron_kernel``, one wrapper per TPU kernel:
+
+  :func:`kron_contrib`            ``contrib[t] = v[t] * (a[t] (x) b[t])``
+                                  (``csrc/kron_contrib.cu``);
+  :func:`scatter_rows`            the slot-ordered contrib rows summed into
+                                  their rows of Y_(n) (``csrc/scatter_rows.cu``);
+  :func:`fused_kron_scatter`      both in one pass, ``Y_(n)[row] += v * (a (x) b)``
+                                  (``csrc/kron_scatter.cu``);
+  :func:`fused_kron_scatter_ttm`  ``G = U^T Y_(n)`` with Y_(n) rebuilt from
+                                  the nonzeros and never stored
+                                  (``csrc/kron_scatter_ttm.cu``).
+
+Rb varies fastest in every Kron row. Each wrapper launches its hand-written
+CUDA kernel for CUDA tensors and runs its ``*_plain`` twin for CPU tensors;
+nothing else picks between them.
 """
 from __future__ import annotations
 
@@ -24,9 +34,6 @@ PRECISIONS = ("fp32", "bf16_fp32acc")
 # the plain version forms at most this many Kron-row entries at once, so
 # that it runs at full size without materialising (nnz, K) in one piece.
 PLAIN_CHUNK_ELEMS = 1 << 26
-
-_MAX_CHUNK = 64  # schedule slots staged in shared memory per step
-_SMEM_LIMIT = 48 * 1024  # static launch limit, no opt-in attribute
 
 
 def _cast_operands(precision: str, *tensors):
@@ -68,14 +75,60 @@ def _lib():
     lib = _build.load("kron_scatter")
     fn = lib.kron_scatter_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _require(cond: bool, msg: str) -> None:
+def _require(cond: bool, msg: str, kernel: str) -> None:
     if not cond:
-        raise ValueError(f"fused_kron_scatter: {msg}")
+        raise ValueError(f"{kernel}: {msg}")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _n_sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _check_schedule(kernel: str, sched, dev: torch.device, nnzp: int):
+    """The schedule tensors a segmented-sum kernel reads, checked against
+    the slot count ``nnzp``; returns the row split ``parts``."""
+    parts = getattr(sched, "parts", None)
+    _require(parts is not None, "sched must be a DeviceSchedule (it carries the row split)",
+             kernel)
+    for name, t in (("rel_row", sched.rel_row), ("blkmap", sched.blkmap), ("parts", parts)):
+        _require(t.device == dev, f"{name} on {t.device}, operands on {dev}", kernel)
+        _require(t.is_contiguous(), f"{name} must be contiguous", kernel)
+    _require(sched.rel_row.shape[0] == nnzp, "operands and rel_row disagree on nnz", kernel)
+    _require(nnzp == sched.blkmap.shape[0] * sched.bn, "blkmap does not cover the slots", kernel)
+    _require(sched.rel_row.dtype == torch.int32 and sched.blkmap.dtype == torch.int32
+             and parts.dtype == torch.int64, "schedule index dtypes must be int32/int64", kernel)
+    _require(int(parts.shape[0]) >= 2, "parts must hold at least one range", kernel)
+    return parts
+
+
+def _check_operands(kernel: str, a, b, v, precision: str):
+    """Cast ``a`` and ``b`` per ``precision`` and check the gathered operands
+    a Kron kernel reads: CUDA, 2-D, one slot count, contiguous, a and b of
+    one dtype (float32 or bfloat16), v float32. Returns (a, b)."""
+    a, b = _cast_operands(precision, a, b)
+    _require(a.is_cuda, f"unsupported device {a.device}", kernel)
+    dev = a.device
+    _require(b.device == dev and v.device == dev,
+             f"b on {b.device}, v on {v.device}, a on {dev}", kernel)
+    _require(a.dim() == 2 and b.dim() == 2 and v.dim() == 1, "a, b must be 2-D and v 1-D",
+             kernel)
+    _require(b.shape[0] == a.shape[0] and v.shape[0] == a.shape[0],
+             "a, b, v disagree on nnz", kernel)
+    _require(a.dtype == b.dtype and a.dtype in (torch.float32, torch.bfloat16),
+             f"a, b must share dtype float32 or bfloat16, got {a.dtype}, {b.dtype}", kernel)
+    _require(v.dtype == torch.float32, f"v must be float32, got {v.dtype}", kernel)
+    for name, t in (("a", a), ("b", b), ("v", v)):
+        _require(t.is_contiguous(), f"{name} must be contiguous", kernel)
+    return a, b
 
 
 def fused_kron_scatter(a, b, v, sched, n_rows: int, *,
@@ -91,48 +144,227 @@ def fused_kron_scatter(a, b, v, sched, n_rows: int, *,
     """
     if a.device.type == "cpu":
         return fused_kron_scatter_plain(a, b, v, sched, n_rows, precision=precision)
-    a, b = _cast_operands(precision, a, b)
-    _require(a.is_cuda, f"unsupported device {a.device}")
-    parts = getattr(sched, "parts", None)
-    _require(parts is not None, "sched must be a DeviceSchedule (it carries the row split)")
+    a, b = _check_operands("fused_kron_scatter", a, b, v, precision)
     dev = a.device
-    for name, t in (("b", b), ("v", v), ("rel_row", sched.rel_row),
-                    ("blkmap", sched.blkmap), ("parts", parts)):
-        _require(t.device == dev, f"{name} on {t.device}, a on {dev}")
-    _require(a.dim() == 2 and b.dim() == 2 and v.dim() == 1, "a, b must be 2-D and v 1-D")
-    nnzp, ra = a.shape
-    rb = b.shape[1]
-    _require(b.shape[0] == nnzp and v.shape[0] == nnzp
-             and sched.rel_row.shape[0] == nnzp, "a, b, v, rel_row disagree on nnz")
-    _require(nnzp == sched.blkmap.shape[0] * sched.bn, "blkmap does not cover the slots")
-    _require(a.dtype == b.dtype and a.dtype in (torch.float32, torch.bfloat16),
-             f"a, b must share dtype float32 or bfloat16, got {a.dtype}, {b.dtype}")
-    _require(v.dtype == torch.float32, f"v must be float32, got {v.dtype}")
-    _require(sched.rel_row.dtype == torch.int32 and sched.blkmap.dtype == torch.int32
-             and parts.dtype == torch.int64, "schedule index dtypes must be int32/int64")
-    for name, t in (("a", a), ("b", b), ("v", v), ("rel_row", sched.rel_row),
-                    ("blkmap", sched.blkmap), ("parts", parts)):
-        _require(t.is_contiguous(), f"{name} must be contiguous")
-    _require(int(parts.shape[0]) >= 2, "parts must hold at least one range")
-    ra4 = -(-ra // 4) * 4
-    chunk = min(_MAX_CHUNK, _SMEM_LIMIT // ((ra4 + rb + 2) * 4))
-    _require(chunk >= 1, f"ranks ({ra}, {rb}) exceed the kernel's shared-memory staging")
-    n_items = (ra4 // 4) * rb
-    threads = min(256, -(-n_items // 32) * 32)
+    (nnzp, ra), rb = a.shape, b.shape[1]
+    parts = _check_schedule("fused_kron_scatter", sched, dev, nnzp)
     out = torch.zeros((n_rows, ra * rb), dtype=torch.float32, device=dev)
     if nnzp == 0:
         return out
     fn = _lib()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(a.data_ptr(), b.data_ptr(), v.data_ptr(), sched.rel_row.data_ptr(),
                 sched.blkmap.data_ptr(), parts.data_ptr(), out.data_ptr(),
                 int(parts.shape[0]) - 1, ra, rb, sched.bn, sched.bi,
-                int(a.dtype == torch.bfloat16), threads, chunk, stream)
+                int(a.dtype == torch.bfloat16), _stream(dev))
     if rc != 0:
-        raise RuntimeError(f"kron_scatter_launch failed: CUDA error {rc}")
+        raise RuntimeError(f"kron_scatter_launch failed at ranks ({ra}, {rb}): CUDA error "
+                           f"{rc} (1: the ranks exceed the shared-memory staging)")
     fused_kron_scatter.launches += 1
     return out
 
 
 fused_kron_scatter.launches = 0  # kernel launches since the last reset
+
+
+# -- kron_contrib: the per-nonzero Kron rows ----------------------------------
+
+_CONTRIB_CTAS_PER_SM = 8  # 256-thread CTAs of the grid-stride loop per SM
+
+
+def kron_contrib_plain(a, b, v, *, precision: str = "fp32") -> torch.Tensor:
+    """Plain PyTorch version of :func:`kron_contrib`: the outer product in
+    the operands' dtype (bf16 under ``bf16_fp32acc``), scaled by the f32
+    value."""
+    a, b = _cast_operands(precision, a, b)
+    kron = (a[:, :, None] * b[:, None, :]).reshape(a.shape[0], -1)
+    return (kron * v.to(torch.float32)[:, None]).to(torch.float32)
+
+
+def _contrib_lib():
+    fn = _build.load("kron_contrib").kron_contrib_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, ctypes.c_longlong, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def kron_contrib(a, b, v, *, precision: str = "fp32") -> torch.Tensor:
+    """contrib (nnz, Ra*Rb) f32 with ``contrib[t] = v[t] * (a[t] (x) b[t])``.
+
+    ``a`` (nnz, Ra), ``b`` (nnz, Rb), ``v`` (nnz,). Under ``bf16_fp32acc``
+    a and b are rounded to bf16 and so is each product a*b before the f32
+    scale. CPU tensors run the plain version; CUDA tensors launch the kernel
+    of ``csrc/kron_contrib.cu`` or raise.
+    """
+    if a.device.type == "cpu":
+        return kron_contrib_plain(a, b, v, precision=precision)
+    a, b = _check_operands("kron_contrib", a, b, v, precision)
+    dev = a.device
+    (nnz, ra), rb = a.shape, b.shape[1]
+    out = torch.empty((nnz, ra * rb), dtype=torch.float32, device=dev)
+    if nnz == 0:
+        return out
+    fn = _contrib_lib()
+    with torch.cuda.device(dev):
+        rc = fn(a.data_ptr(), b.data_ptr(), v.data_ptr(), out.data_ptr(), nnz, ra, rb,
+                int(a.dtype == torch.bfloat16), _CONTRIB_CTAS_PER_SM * _n_sms(dev),
+                _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"kron_contrib_launch failed: CUDA error {rc}")
+    kron_contrib.launches += 1
+    return out
+
+
+kron_contrib.launches = 0  # kernel launches since the last reset
+
+
+# -- scatter_rows: slot-ordered rows summed into Y_(n) ------------------------
+
+_SCATTER_THREADS = 64  # 256-column tiles: four float4 columns per thread
+
+
+def scatter_rows_plain(contrib, sched, n_rows: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`scatter_rows`: ``index_add_`` of the
+    slot rows into their rows, then the row mask."""
+    out = torch.zeros((sched.n_row_blocks * sched.bi, contrib.shape[1]),
+                      dtype=torch.float32, device=contrib.device)
+    out.index_add_(0, slot_rows(sched), contrib.to(torch.float32))
+    return _mask_unvisited(out[:n_rows], sched)
+
+
+def _scatter_lib():
+    fn = _build.load("scatter_rows").scatter_rows_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def scatter_rows(contrib, sched, n_rows: int) -> torch.Tensor:
+    """Y_(n) (n_rows, K) f32: the rows of ``contrib`` (nnzp, K) f32, already
+    in the schedule's slot order with padding rows zeroed, summed into their
+    rows; rows no slot reaches are zero. CPU tensors run the plain version;
+    CUDA tensors launch the kernel of ``csrc/scatter_rows.cu`` or raise.
+    """
+    if contrib.device.type == "cpu":
+        return scatter_rows_plain(contrib, sched, n_rows)
+    kernel = "scatter_rows"
+    _require(contrib.is_cuda, f"unsupported device {contrib.device}", kernel)
+    _require(contrib.dim() == 2 and contrib.dtype == torch.float32
+             and contrib.is_contiguous(), "contrib must be a contiguous 2-D float32 tensor",
+             kernel)
+    dev = contrib.device
+    nnzp, k = contrib.shape
+    parts = _check_schedule(kernel, sched, dev, nnzp)
+    out = torch.zeros((n_rows, k), dtype=torch.float32, device=dev)
+    if nnzp == 0 or k == 0:
+        return out
+    vec = int(k % 4 == 0 and contrib.data_ptr() % 16 == 0)
+    fn = _scatter_lib()
+    with torch.cuda.device(dev):
+        rc = fn(contrib.data_ptr(), sched.rel_row.data_ptr(), sched.blkmap.data_ptr(),
+                parts.data_ptr(), out.data_ptr(), int(parts.shape[0]) - 1, k, sched.bn,
+                sched.bi, vec, _SCATTER_THREADS, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"scatter_rows_launch failed: CUDA error {rc}")
+    scatter_rows.launches += 1
+    return out
+
+
+scatter_rows.launches = 0  # kernel launches since the last reset
+
+
+# -- fused_kron_scatter_ttm: the core update with Y never stored ---------------
+
+
+def fused_kron_scatter_ttm_plain(a, b, v, u, sched, n_rows: int, *,
+                                 precision: str = "fp32") -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_kron_scatter_ttm`: Y_(n) by
+    :func:`fused_kron_scatter_plain`, then an f32 ``U^T Y`` with U rounded
+    to bf16 first under ``bf16_fp32acc``."""
+    y = fused_kron_scatter_plain(a, b, v, sched, n_rows, precision=precision)
+    (uc,) = _cast_operands(precision, u.to(torch.float32))
+    return uc.to(torch.float32).T @ y
+
+
+def _mega_lib():
+    lib = _build.load("kron_scatter_ttm")
+    fn, grid = lib.kron_scatter_ttm_launch, lib.kron_scatter_ttm_grid
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 9 + [i] * 8 + [p]
+        fn.restype = ctypes.c_int
+        grid.argtypes = [i] * 5 + [ctypes.POINTER(i)] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+        grid.restype = ctypes.c_int
+    return fn, grid
+
+
+def mega_grid(dev: torch.device, ra: int, rb: int, r: int, bf16: bool, n_parts: int) -> dict:
+    """The megakernel's first-pass grid for ``n_parts`` row ranges, as
+    ``csrc/kron_scatter_ttm.cu`` computes it: ``threads`` per CTA, the CTAs
+    one SM holds (``ctas_per_sm``), ``n_ctas`` CTAs of ``per_cta`` ranges
+    each, and ``smem_bytes`` per CTA. Raises when no CTA fits an SM."""
+    _, fn = _mega_lib()
+    ints = [ctypes.c_int(0) for _ in range(4)]
+    smem = ctypes.c_longlong(0)
+    with torch.cuda.device(dev):
+        rc = fn(ra, rb, r, int(bf16), n_parts, *(ctypes.byref(x) for x in ints),
+                ctypes.byref(smem))
+    grid = dict(zip(("threads", "ctas_per_sm", "n_ctas", "per_cta"), (x.value for x in ints)),
+                smem_bytes=smem.value)
+    if rc != 0:
+        raise RuntimeError(f"fused_kron_scatter_ttm: no launch for R = {r} at ranks "
+                           f"({ra}, {rb}), {grid}: CUDA error {rc} (1: the staging or the "
+                           f"(R, K) partial does not fit an SM's shared memory)")
+    return grid
+
+
+def fused_kron_scatter_ttm(a, b, v, u, sched, n_rows: int, *,
+                           precision: str = "fp32") -> torch.Tensor:
+    """G (R, Ra*Rb) f32 = U^T Y_(n), where ``Y[row(t)] += v[t] * (a[t] (x) b[t])``
+    is rebuilt row by row from the nonzeros and never stored.
+
+    ``a``, ``b``, ``v`` and ``sched`` as for :func:`fused_kron_scatter`;
+    ``u`` is the (n_rows, R) factor of the schedule's mode, rounded to bf16
+    under ``bf16_fp32acc``. The first pass runs as many CTAs as the card
+    holds at once, each taking a run of the row split's ranges. CPU tensors
+    run the plain version; CUDA tensors launch the kernels of
+    ``csrc/kron_scatter_ttm.cu`` or raise.
+    """
+    if a.device.type == "cpu":
+        return fused_kron_scatter_ttm_plain(a, b, v, u, sched, n_rows, precision=precision)
+    kernel = "fused_kron_scatter_ttm"
+    a, b = _check_operands(kernel, a, b, v, precision)
+    dev = a.device
+    (nnzp, ra), rb = a.shape, b.shape[1]
+    parts = _check_schedule(kernel, sched, dev, nnzp)
+    _require(u.device == dev and u.dim() == 2 and u.shape[0] == n_rows,
+             f"u must be ({n_rows}, R) on {dev}, got {tuple(u.shape)} on {u.device}", kernel)
+    _require(a.dtype == torch.float32 or precision == "bf16_fp32acc",
+             "bf16 operands need precision='bf16_fp32acc' (U is rounded with them)", kernel)
+    (u,) = _cast_operands(precision, u.to(torch.float32))
+    u = u.contiguous()
+    r, k = u.shape[1], ra * rb
+    out = torch.zeros((r, k), dtype=torch.float32, device=dev)
+    if nnzp == 0 or r == 0:
+        return out
+    bf16 = a.dtype == torch.bfloat16
+    n_parts = int(parts.shape[0]) - 1
+    grid = mega_grid(dev, ra, rb, r, bf16, n_parts)
+    part = torch.empty((grid["n_ctas"], r, k), dtype=torch.float32, device=dev)
+    fn, _ = _mega_lib()
+    with torch.cuda.device(dev):
+        rc = fn(a.data_ptr(), b.data_ptr(), v.data_ptr(), sched.rel_row.data_ptr(),
+                sched.blkmap.data_ptr(), parts.data_ptr(), u.data_ptr(), part.data_ptr(),
+                out.data_ptr(), n_parts, grid["per_cta"], ra, rb, r, sched.bn, sched.bi,
+                int(bf16), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"kron_scatter_ttm_launch failed: CUDA error {rc}")
+    fused_kron_scatter_ttm.launches += 1
+    return out
+
+
+fused_kron_scatter_ttm.launches = 0  # kernel launches since the last reset

@@ -1,9 +1,9 @@
 """Host-side wrappers around the sweep's kernels.
 
 Port of the parts of ``repro.kernels.ops`` on the sparse HOOI path: the
-schedule-order gather of factor rows and the mode unfolding of a 2- or
-3-way tensor. Which device runs what is decided by the kernel wrappers
-alone, from the device of the tensors.
+schedule-order gather of factor rows, the mode unfolding of a tensor of any
+order, and the fused core update. Which device runs what is decided by the
+kernel wrappers alone, from the device of the tensors.
 """
 from __future__ import annotations
 
@@ -15,12 +15,19 @@ from repro_torch.core.kron import zero_unfolding
 from repro_torch.kernels import kron_kernel
 from repro_torch.kernels.ttm_kernel import ttm
 
-__all__ = ["ttm", "sparse_ttm_chain_device"]
+__all__ = ["ttm", "kron_contrib", "sparse_ttm_chain_device", "sparse_ttm_core_device"]
+
+
+def kron_contrib(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor, *,
+                 precision: str = "fp32") -> torch.Tensor:
+    """Paper Kronecker module (Alg. 4) over a batch of nonzeros."""
+    return kron_kernel.kron_contrib(a, b, v, precision=precision)
 
 
 def _gathered_block_rows(indices, values, factors, skip_mode, sched, n):
     """The non-mode factor rows of every schedule slot, in descending mode
-    order (padding slots gather row 0 with value 0)."""
+    order (padding slots gather row 0 with value 0). The unfolding and the
+    fused core update gather the same operands."""
     idx = indices.index_select(0, sched.order)
     vals = values.index_select(0, sched.order) * sched.valid
     modes = [t for t in range(n - 1, -1, -1) if t != skip_mode]
@@ -39,19 +46,56 @@ def sparse_ttm_chain_device(
     sched,
     *,
     shape: Sequence[int],
+    fused: bool = True,
     precision: str = "fp32",
 ) -> torch.Tensor:
-    """Y_(skip_mode) of a 2- or 3-way tensor through the fused Kron-scatter
-    kernel, on the device schedule ``sched`` of that mode."""
+    """Y_(skip_mode) on the device schedule ``sched`` of that mode.
+
+    2- and 3-way tensors (the paper's case) take the fused Kron-scatter
+    kernel unless ``fused=False``; higher orders, and ``fused=False``, chain
+    ``kron_contrib`` (``precision`` applies to the first link only, as in
+    the reference) and then sum the rows with ``scatter_rows``.
+    """
     n = len(shape)
-    if n > 3:
-        raise NotImplementedError(
-            "order >= 4 needs the kron_contrib and scatter_rows kernels, not "
-            "ported yet (ROADMAP.md queue 2, items 3-4)"
-        )
+    n_rows = int(shape[skip_mode])
     if indices.shape[0] == 0:
         return zero_unfolding(tuple(shape), factors, skip_mode)
     rows, vals = _gathered_block_rows(indices, values, factors, skip_mode, sched, n)
-    return kron_kernel.fused_kron_scatter(
-        rows[0], rows[1], vals, sched, int(shape[skip_mode]), precision=precision
-    )
+    if len(rows) == 2 and fused:
+        return kron_kernel.fused_kron_scatter(
+            rows[0], rows[1], vals, sched, n_rows, precision=precision
+        )
+    contrib = kron_contrib(rows[0], rows[1], vals, precision=precision)
+    for extra in rows[2:]:
+        contrib = kron_contrib(contrib, extra, torch.ones_like(vals))
+    return kron_kernel.scatter_rows(contrib, sched, n_rows)
+
+
+def sparse_ttm_core_device(
+    indices: torch.Tensor,
+    values: torch.Tensor,
+    factors: Sequence[torch.Tensor],
+    skip_mode: int,
+    sched,
+    *,
+    shape: Sequence[int],
+    precision: str = "fp32",
+) -> torch.Tensor:
+    """Fused core update (Eq. 12): G_(n) = U_n^T Y_(n), (R_n, prod_{t != n}
+    R_t) f32, without materialising Y_(n) for 2- and 3-way tensors: the
+    megakernel re-streams the nonzeros and contracts each finished row.
+    Higher orders take the split path, the chained unfolding and then the
+    TTM kernel, as the reference does."""
+    u = factors[skip_mode]
+    if indices.shape[0] == 0:
+        y0 = zero_unfolding(tuple(shape), factors, skip_mode)
+        return torch.zeros((u.shape[1], y0.shape[1]), dtype=torch.float32, device=u.device)
+    n = len(shape)
+    if n <= 3:  # two operand rows per slot: the megakernel's case
+        rows, vals = _gathered_block_rows(indices, values, factors, skip_mode, sched, n)
+        return kron_kernel.fused_kron_scatter_ttm(
+            rows[0], rows[1], vals, u, sched, int(shape[skip_mode]), precision=precision
+        )
+    y = sparse_ttm_chain_device(indices, values, factors, skip_mode, sched,
+                                shape=shape, precision=precision)
+    return ttm(y.T, u.T, precision=precision).T

@@ -18,9 +18,9 @@ import torch
 
 from repro_torch.core import hooi as _hooi
 from repro_torch.core.coo import SparseCOO
-from repro_torch.core.engine import make_engine
+from repro_torch.core.engine import SweepEngine, make_engine
 from repro_torch.core.reconstruct import compression_ratio
-from repro_torch.kernels.kron_kernel import fused_kron_scatter
+from repro_torch.kernels import kron_kernel
 from repro_torch.kernels.ttm_kernel import ttm
 from repro_torch.tucker.result import TuckerResult
 from repro_torch.tucker.spec import TuckerSpec, spec_for, unported
@@ -45,24 +45,35 @@ def resolve_device(device) -> torch.device:
 
 
 def _kernel_launches() -> int:
-    return fused_kron_scatter.launches + ttm.launches
+    return (kron_kernel.fused_kron_scatter.launches + kron_kernel.kron_contrib.launches
+            + kron_kernel.scatter_rows.launches + kron_kernel.fused_kron_scatter_ttm.launches
+            + ttm.launches)
 
 
 class TuckerPlan:
     """A reusable executable for one :class:`TuckerSpec` on one device.
 
     Calls on one plan serialize: the engine's schedule caches are bound to
-    one tensor at a time.
+    one tensor at a time. A prebuilt ``engine`` (``make_engine``) replaces
+    the one the spec would build, with its own precision and core layout;
+    it must run on the plan's device.
     """
 
-    def __init__(self, spec: TuckerSpec, device="cuda") -> None:
+    def __init__(self, spec: TuckerSpec, device="cuda",
+                 engine: Optional[SweepEngine] = None) -> None:
         self.spec = spec
         self.device = resolve_device(device)
-        if spec.ndim > 3:
-            raise unported("order >= 4", "queue 2, items 3-4: kron_contrib and scatter_rows")
         if self.device.type == "cuda" and spec.dtype == "float64":
             raise unported("float64 on the card", "queue 1, item 8: float64 on the card")
-        self.engine = make_engine(spec.engine, self.device, precision=spec.precision)
+        if engine is None:
+            engine = make_engine(spec.engine, self.device, precision=spec.precision)
+        elif (engine.device.type != self.device.type
+              or resolve_device(engine.device) != self.device):
+            raise ValueError(
+                f"the prebuilt engine runs on {engine.device}, the plan on "
+                f"{self.device}: pass device= to match the engine"
+            )
+        self.engine = engine
         self._lock = threading.Lock()
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
@@ -146,11 +157,19 @@ _PLAN_CACHE: "OrderedDict[tuple, TuckerPlan]" = OrderedDict()
 _PLAN_CACHE_LOCK = threading.Lock()
 
 
-def plan(spec: TuckerSpec, *, device="cuda") -> TuckerPlan:
+def plan(spec: TuckerSpec, *, device="cuda",
+         engine: Optional[SweepEngine] = None) -> TuckerPlan:
     """The :class:`TuckerPlan` for ``spec`` on ``device`` (``"cuda"`` by
     default), from a small LRU cache keyed by (spec, device), so repeated
-    calls share one engine and its schedules."""
+    calls share one engine and its schedules.
+
+    Passing a prebuilt ``engine`` (``make_engine(..., fuse_core=True)``, say)
+    bypasses the cache and wraps that engine directly; its device must be
+    ``device``.
+    """
     dev = resolve_device(device)
+    if engine is not None:
+        return TuckerPlan(spec, device=dev, engine=engine)
     key = (spec, str(dev))
     with _PLAN_CACHE_LOCK:
         p = _PLAN_CACHE.get(key)

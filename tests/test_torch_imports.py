@@ -15,6 +15,8 @@ def test_import_leaves_jax_and_repro_unloaded():
         "import sys\n"
         "import repro_torch, repro_torch.tucker, repro_torch.convert\n"
         "import repro_torch.kernels.ops, repro_torch.kernels._build\n"
+        "import repro_torch.kernels.kron_kernel, repro_torch.kernels.ttm_kernel\n"
+        "import repro_torch.core.engine, repro_torch.core.hooi\n"
         "import repro_torch.sparse.generators, repro_torch.core.reconstruct\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"

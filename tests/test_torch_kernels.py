@@ -124,11 +124,29 @@ def test_empty_tensor_unfolding_is_zero():
 
 
 def test_order_four_unfolding_raises():
-    tc = SparseCOO.from_parts(np.zeros((1, 4), np.int32), np.ones(1, np.float32), (2, 2, 2, 2))
-    tfs = [torch.randn(2, 1) for _ in range(4)]
-    sched = DeviceSchedule.from_layout(build_mode_layout(tc, 0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.sparse_ttm_chain_device(tc.indices, tc.values, tfs, 0, sched, shape=tc.shape)
+    """Order 4 no longer raises: the chained unfolding (kron_contrib twice,
+    then scatter_rows) matches the reference's XLA unfolding on every mode,
+    including a one-nonzero tensor."""
+    shape, ranks = (6, 5, 4, 3), (2, 3, 2, 2)
+    idx, vals, fs = _inputs(shape, ranks, density=0.1, seed=4, pad=3)
+    for i, v in ((idx, vals), (np.zeros((1, 4), np.int32), np.ones(1, np.float32))):
+        jc, tc = JCOO.from_parts(i, v, shape), SparseCOO.from_parts(i, v, shape)
+        tfs = [torch.from_numpy(f) for f in fs]
+        for mode in range(4):
+            sched = DeviceSchedule.from_layout(build_mode_layout(tc, mode))
+            got = ops.sparse_ttm_chain_device(tc.indices, tc.values, tfs, mode, sched,
+                                              shape=shape)
+            want = jkron.sparse_ttm_chain(jc, [jnp.asarray(f) for f in fs], mode)
+            assert got.dtype == torch.float32
+            _close(got.numpy(), want, TOL["fp32"])
+
+
+def test_every_kernel_source_is_built():
+    from repro_torch.kernels import _build
+
+    assert sorted(_build.SOURCES) == sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    for name in _build.SOURCES:  # each source names the TPU kernel it replaces
+        assert "Replaces: src/repro/kernels/" in (_build.CSRC / f"{name}.cu").read_text()
 
 
 def test_precision_is_validated():

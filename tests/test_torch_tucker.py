@@ -127,8 +127,6 @@ def test_unported_spec_values_raise(kwargs):
 
 
 def test_unported_plan_features_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tucker.plan(tucker.TuckerSpec((3, 3, 3, 3), (1, 1, 1, 1)), device="cpu")
     p = tucker.plan(tucker.TuckerSpec((4, 4, 4), (2, 2, 2)), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         p.batch([])
@@ -143,3 +141,63 @@ def test_spec_validation_and_rank_clamp_match_reference():
         with pytest.raises(ValueError):
             tucker.TuckerSpec((4, 4, 4), **kw)
     assert tucker.TuckerSpec((4, 4, 4), (2, 2, 2), dtype=torch.float64).dtype == "float64"
+
+
+@pytest.mark.parametrize("method", ["householder", "svd"])
+def test_four_way_matches_reference(method):
+    coo = jrandom((14, 12, 10, 8), 0.03, seed=8)
+    _assert_parity(*_pair(coo, (3, 3, 2, 2), method=method, n_iter=3))
+
+
+def test_five_way_bf16_matches_reference():
+    coo = jrandom((8, 7, 6, 5, 4), 0.05, seed=9)
+    _assert_parity(*_pair(coo, (2, 2, 2, 2, 2), n_iter=2, precision="bf16_fp32acc"))
+
+
+def _fused_pair(coo, ranks, precision="fp32", **spec):
+    """Both packages through a prebuilt engine with ``fuse_core=True``."""
+    from repro.core.engine import make_engine as jmake_engine
+
+    rng = np.random.default_rng(1)
+    f0 = [np.linalg.qr(rng.standard_normal((s, r)))[0].astype(np.float32)
+          for s, r in zip(coo.shape, ranks)]
+    jspec = jtucker.TuckerSpec(shape=coo.shape, ranks=ranks, **spec)
+    ref = jtucker.plan(jspec, engine=jmake_engine("pallas", fuse_core=True, precision=precision))(
+        coo, factors_init=[jnp.asarray(f) for f in f0])
+    eng = make_engine("torch", "cpu", fuse_core=True, precision=precision)
+    p = tucker.plan(tucker.TuckerSpec(coo.shape, ranks, **spec), device="cpu", engine=eng)
+    assert p.engine is eng and tucker.plan(p.spec, device="cpu", engine=eng) is not p
+    tc = coo_from_numpy(np.asarray(coo.indices), np.asarray(coo.values), coo.shape)
+    return ref, p(tc, factors_init=factors_from_numpy(f0))
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16_fp32acc"])
+def test_fused_core_plan_matches_reference(precision):
+    coo = jrandom((40, 35, 30), 0.01, seed=10)
+    ref, port = _fused_pair(coo, (5, 4, 3), precision, n_iter=3)
+    _assert_parity(ref, port)
+
+
+def test_fused_core_on_four_way_takes_the_split_path(monkeypatch):
+    from repro_torch.kernels import ops
+
+    def rebuild(*args, **kwargs):  # would form Y_(N) a second time through the chain
+        raise AssertionError("the order-4 core update rebuilt Y_(N)")
+
+    monkeypatch.setattr(ops, "sparse_ttm_core_device", rebuild)
+    coo = jrandom((12, 10, 9, 7), 0.04, seed=11)
+    _assert_parity(*_fused_pair(coo, (3, 2, 3, 2), n_iter=2))
+
+
+def test_prebuilt_engine_must_match_the_plan_device():
+    spec = tucker.TuckerSpec((4, 4, 4), (2, 2, 2))
+    eng = make_engine("torch", "cpu", fuse_core=True)
+    assert eng.fuse_core and not make_engine("torch", "cpu").fuse_core
+    if torch.cuda.is_available():
+        with pytest.raises(ValueError, match="prebuilt engine"):
+            tucker.plan(spec, engine=eng)  # the plan defaults to the card
+    else:  # the default device is the card, which is missing here
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tucker.plan(spec, engine=eng)
+    with pytest.raises(ValueError, match="prebuilt engine"):
+        tucker.plan(spec, device="cpu", engine=make_engine("cuda", "cuda"))
