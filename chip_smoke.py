@@ -33,7 +33,23 @@ result line):
    per-sweep time, peak memory, the chained kernels and the core TTM
    against their plain versions at the path's shapes, and the core against
    one built from the returned factors by the plain versions alone;
-7. one JSON line per phase, the kernels line, then the device line.
+7. kernels 6 (flash attention) and 7 (the Mamba-2 SSD chunk) against their
+   plain versions at odd shapes: GQA, MQA, T > S, S not a block multiple,
+   D 16-128 (80 included), non-causal, the model's strided views, in f32
+   and bf16; L 32-256, N and P 16-128, and a decay steep enough that exp
+   above the diagonal overflows, in f32;
+8. zamba2-2.7b SMOKE, card against CPU from the same seeded weights, in
+   float32 and bfloat16: prefill logits, 8 teacher-forced decode steps and
+   the greedy tokens of ``Engine.generate``;
+9. the LM serving path at full width: zamba2-2.7b as registered (54 Mamba-2
+   layers, d 2,560, 2.42 B parameters from a seeded generator on the card),
+   ``Engine.generate`` of 64 new tokens after 4 prompts of 4,096 tokens:
+   launch counts (9 and 54 per prefill), prefill ms, decode ms per step,
+   tokens/s, peak memory and the device's busy share; kernels 6 and 7
+   against their plain versions on one layer's real inputs, with their
+   times and bounds; the last-token prefill logits against a prefill that
+   runs the plain versions on the card;
+10. one JSON line per phase, the kernels line, then the device line.
 
 Needs one CUDA card, ``nvcc`` (on PATH or under /usr/local/cuda), and the
 checkout's ``src/`` beside this file. Imports nothing of JAX.
@@ -62,11 +78,13 @@ import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and f32 CUDA-core rate.
-# Both kernels do their arithmetic in f32 on the CUDA cores, under either
-# precision.
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, the f32 CUDA-core rate
+# and the dense bf16 tensor-core rate. Every kernel does its arithmetic in
+# f32 on the CUDA cores; kernel 6's bound counts its bf16 operands at the
+# bf16 rate, the least time the card could take for them.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 
 NELL2_SHAPE = (12092, 9184, 28818)
 NELL2_NNZ = 76_879_419
@@ -92,6 +110,11 @@ SEED = 0
 #   reference's own kernel tests set for bf16 operands, kept as the stated
 #   limit.
 TOL = {"fp32": 1e-5, "bf16_fp32acc": 2e-2}
+# "bf16" (kernel 6 on bf16 operands): the kernel and its plain version each
+# round their f32 output to bf16, so they can land one bf16 ulp (2^-8
+# relative) apart; 2^-7 x max|plain| leaves room for the f32 differences
+# beneath that rounding.
+BF16_OUT_TOL = 2.0 ** -7
 
 # device-side symbols of each wrapper's kernels, for the profiler's sums; the
 # leading "::" keeps "::ttm_reduce_kernel" from matching the megakernel's
@@ -102,7 +125,10 @@ KERNEL_SYMBOLS = {
     "kron_contrib": ("::kron_contrib_kernel",),
     "scatter_rows": ("::scatter_rows_kernel",),
     "fused_kron_scatter_ttm": ("::kron_scatter_ttm_kernel", "::kron_scatter_ttm_reduce_kernel"),
+    "flash_attention": ("::flash_attention_kernel",),
+    "ssd_chunk": ("::ssd_chunk_kernel",),
 }
+NO_LM_LAUNCHES = {"flash_attention": 0, "ssd_chunk": 0}
 
 
 class Failure(Exception):
@@ -163,9 +189,11 @@ def main() -> int:
     del coo, split_res
     release_memory()
     kernels.update(timed("6 path A", phase6_nips, dev, card))
-    order = ("fused_kron_scatter", "ttm", "kron_contrib", "scatter_rows",
-             "fused_kron_scatter_ttm")
-    print(json.dumps({"kernels": [kernels[k] for k in order]}), flush=True)
+    release_memory()
+    timed("7 LM kernels", phase7_lm_kernels, dev)
+    timed("8 SMOKE card vs CPU", phase8_smoke_card_vs_cpu, dev)
+    kernels.update(timed("9 Zamba2 serving", phase9_zamba2, dev, card))
+    print(json.dumps({"kernels": [kernels[k] for k in wrappers()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -183,12 +211,13 @@ def synced(out):
 
 
 def compare(name: str, precision: str, got, want, n_terms: int) -> float:
-    """Max abs error of ``got`` against ``want``, checked against TOL (see
-    there); ``n_terms`` is the most terms summed into one output."""
+    """Max abs error of ``got`` against ``want``, checked against TOL or,
+    for ``precision="bf16"``, BF16_OUT_TOL (see there); ``n_terms`` is the
+    most terms summed into one output."""
     torch.cuda.synchronize()
     scale = float(want.abs().max()) if want.numel() else 0.0
     err = float((got - want).abs().max()) if want.numel() else 0.0
-    tol = TOL[precision]
+    tol = BF16_OUT_TOL if precision == "bf16" else TOL[precision]
     if precision == "fp32":
         tol = max(tol, 4 * n_terms ** 0.5 * 2.0 ** -24)
     limit = tol * max(scale, 1e-30)
@@ -259,22 +288,23 @@ def nbytes_of(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def reset_launches() -> None:
-    from repro_torch.kernels import kron_kernel, ttm_kernel
+def wrappers() -> dict:
+    """Each kernel's wrapper, by kernel name; each counts its launches."""
+    from repro_torch.kernels import flash_attention, kron_kernel, ssd_scan, ttm_kernel
 
-    for fn in (kron_kernel.fused_kron_scatter, kron_kernel.kron_contrib,
-               kron_kernel.scatter_rows, kron_kernel.fused_kron_scatter_ttm, ttm_kernel.ttm):
+    return {"fused_kron_scatter": kron_kernel.fused_kron_scatter, "ttm": ttm_kernel.ttm,
+            "kron_contrib": kron_kernel.kron_contrib, "scatter_rows": kron_kernel.scatter_rows,
+            "fused_kron_scatter_ttm": kron_kernel.fused_kron_scatter_ttm,
+            "flash_attention": flash_attention.flash_attention, "ssd_chunk": ssd_scan.ssd_chunk}
+
+
+def reset_launches() -> None:
+    for fn in wrappers().values():
         fn.launches = 0
 
 
 def read_launches() -> dict:
-    from repro_torch.kernels import kron_kernel, ttm_kernel
-
-    return {"fused_kron_scatter": kron_kernel.fused_kron_scatter.launches,
-            "ttm": ttm_kernel.ttm.launches,
-            "kron_contrib": kron_kernel.kron_contrib.launches,
-            "scatter_rows": kron_kernel.scatter_rows.launches,
-            "fused_kron_scatter_ttm": kron_kernel.fused_kron_scatter_ttm.launches}
+    return {name: fn.launches for name, fn in wrappers().items()}
 
 
 def release_memory() -> None:
@@ -602,7 +632,7 @@ def phase4_nell2(dev, card: str):
         f"{res.schedule_builds}, fit {hist.tolist()}")
     check(res.engine == "cuda", f"engine {res.engine}")
     check(launches == {"fused_kron_scatter": 3 * N_ITER, "ttm": N_ITER, "kron_contrib": 0,
-                       "scatter_rows": 0, "fused_kron_scatter_ttm": 0},
+                       "scatter_rows": 0, "fused_kron_scatter_ttm": 0, **NO_LM_LAUNCHES},
           f"main path launches {launches}, want {3 * N_ITER} and {N_ITER}")
     check(hist.shape == (N_ITER,) and bool(np.all(np.isfinite(hist)))
           and bool(np.all((hist >= 0) & (hist <= 1))), f"fit history {hist}")
@@ -754,7 +784,7 @@ def phase5_fused_core(dev, card: str, coo, split_res):
     log(f"  cold run: {t_cold:.3f} s, launches {launches}, fit {hist.tolist()}")
     check(res.engine == "cuda", f"engine {res.engine}")
     check(launches == {"fused_kron_scatter": 3 * N_ITER, "ttm": 0, "kron_contrib": 0,
-                       "scatter_rows": 0, "fused_kron_scatter_ttm": N_ITER},
+                       "scatter_rows": 0, "fused_kron_scatter_ttm": N_ITER, **NO_LM_LAUNCHES},
           f"path B launches {launches}")
     hist_err = float(np.abs(hist - split_res.fit_history).max())
     proj_err = max(float((a @ a.T - b @ b.T).abs().max())
@@ -885,7 +915,8 @@ def phase6_nips(dev, card: str):
         f"{res.schedule_builds}, peak {peak_gb:.2f} GB, fit {hist.tolist()}")
     check(res.engine == "cuda", f"engine {res.engine}")
     check(launches == {"fused_kron_scatter": 0, "ttm": N_ITER, "kron_contrib": 8 * N_ITER,
-                       "scatter_rows": 4 * N_ITER, "fused_kron_scatter_ttm": 0},
+                       "scatter_rows": 4 * N_ITER, "fused_kron_scatter_ttm": 0,
+                       **NO_LM_LAUNCHES},
           f"path A launches {launches}")
     check(hist.shape == (N_ITER,) and bool(np.all(np.isfinite(hist)))
           and bool(np.all((hist >= 0) & (hist <= 1))), f"fit history {hist}")
@@ -1049,6 +1080,409 @@ def phase6_nips(dev, card: str):
             "bound_ms": t["bound_ms"], "bound_by": bound(t["bytes"], t["flops"])[1],
             "library_ms": t["library_ms"]}
     return out
+
+
+# -- phase 7: the LM kernels at odd shapes ------------------------------------
+
+# (b, H, KVH, S, T, D, causal, what the case covers)
+FLASH_CASES = [
+    (2, 4, 2, 128, 128, 64, True, "GQA G=2"),
+    (1, 8, 4, 64, 256, 32, True, "T > S"),
+    (2, 2, 2, 100, 100, 64, True, "S not a block multiple"),
+    (1, 4, 1, 128, 128, 128, True, "MQA, D 128"),
+    (2, 3, 3, 77, 77, 80, True, "D 80, S 77"),
+    (1, 6, 2, 33, 200, 16, True, "D 16, G 3, T > S"),
+    (2, 2, 1, 1, 300, 80, True, "one query row, as in decode"),
+    (1, 4, 2, 70, 130, 48, False, "non-causal, T not a block multiple"),
+]
+# (BH, C, L, P, N, decay rate, what the case covers); the log decays are
+# cumulative sums of -rate * |N(0, 1)|
+SSD_CASES = [
+    (2, 3, 64, 32, 16, 0.1, "the reference kernel test's first shape"),
+    (1, 1, 128, 64, 32, 0.1, "the reference kernel test's second shape"),
+    (2, 2, 32, 16, 16, 0.1, "L 32"),
+    (3, 2, 256, 64, 64, 0.1, "L 256, N = P 64 (the Zamba2 path's chunk)"),
+    (1, 3, 100, 48, 80, 0.1, "L, N, P not multiples of 16 or 64"),
+    (2, 1, 200, 128, 128, 0.1, "N = P 128"),
+    (1, 2, 256, 16, 128, 0.1, "P 16, N 128"),
+    (2, 2, 256, 64, 64, 8.0, "steep decay: exp above the diagonal overflows"),
+]
+
+
+def phase7_lm_kernels(dev) -> None:
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan
+
+    log("phase 7: kernels 6 and 7 against their plain versions, odd shapes")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    for b, h, kvh, s, t, d, causal, label in FLASH_CASES:
+        q32, k32, v32 = randn(b, h, s, d), randn(b, kvh, t, d), randn(b, kvh, t, d)
+        for dtype, prec in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            q, k, v = (x.to(dtype) for x in (q32, k32, v32))
+            got = synced(fa.flash_attention(q, k, v, causal=causal))
+            want = synced(fa.flash_attention_plain(q, k, v, causal=causal))
+            check(got.dtype == dtype and got.shape == want.shape, f"flash_attention {label}: "
+                  f"{got.dtype} {tuple(got.shape)}")
+            compare(f"flash_attention {label} {(b, h, kvh, s, t, d)}", prec, got.float(),
+                    want.float(), t * d)
+    # the model's layout: (b, s, heads, hd) projections as transposed views,
+    # read through their strides; the output takes q's layout
+    qm, km, vm = (x.to(torch.bfloat16) for x in (randn(2, 90, 6, 80), randn(2, 90, 3, 80),
+                                                  randn(2, 90, 3, 80)))
+    qv, kv_, vv = qm.transpose(1, 2), km.transpose(1, 2), vm.transpose(1, 2)
+    got = synced(fa.flash_attention(qv, kv_, vv))
+    check(got.stride() == qv.stride(), f"flash_attention output strides {got.stride()}, "
+          f"q's {qv.stride()}")
+    compare("flash_attention on (b, s, heads, hd) views (2, 6, 3, 90, 90, 80)", "bf16",
+            got.float(), fa.flash_attention_plain(qv, kv_, vv).float(), 90 * 80)
+
+    for bh, c, n_l, p, n, rate, label in SSD_CASES:
+        x, bm, cm = randn(bh, c, n_l, p), randn(bh, c, n_l, n), randn(bh, c, n_l, n)
+        acs = torch.cumsum(-rate * randn(bh, c, n_l).abs(), dim=-1)
+        y, st = synced(ssd_scan.ssd_chunk(x, acs, bm, cm))
+        y_want, st_want = synced(ssd_scan.ssd_chunk_plain(x, acs, bm, cm))
+        tag = f"ssd_chunk {label} {(bh, c, n_l, p, n)}"
+        compare(f"{tag} y", "fp32", y, y_want, n_l * n)
+        compare(f"{tag} state", "fp32", st, st_want, n_l)
+
+
+# -- phase 8: Zamba2 SMOKE, card against CPU -----------------------------------
+
+# Card against CPU for the SMOKE model, as a fraction of max|CPU logit|.
+# float32: both devices compute in f32 (no TF32), but the bf16 K/V cache,
+#   conv states and inter-chunk SSD states are rounded from f32 values that
+#   differ in their last bits between the devices, so a rounded entry can
+#   land one bf16 ulp (2^-8 relative) away; on the CPU the port against the
+#   JAX reference shows up to 1.7e-3 from that alone (3 chunks, 8 steps).
+# bfloat16: every activation is rounded to bf16 after each op on both sides,
+#   at places where the two devices' f32 sums differ; on the CPU the port
+#   against the JAX reference differs by up to 5e-2 for that reason.
+LM_TOL = {"float32": 5e-3, "bfloat16": 1e-1}
+SMOKE_B, SMOKE_P, SMOKE_NEW = 3, 40, 8  # batch, prompt (two SSD chunks), new tokens
+
+
+def tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def param_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from param_leaves(v)
+    else:
+        yield tree
+
+
+def greedy_agrees(got, want, ref_logits, tol: float, vocab: int, label: str) -> int:
+    """``got`` and ``want`` (B, P + n) greedy tokens must agree up to a step
+    where the reference's two best logits are within ``tol`` x max|logit|
+    (a near tie, which either side may break); ``ref_logits[i]`` (B, V) are
+    the logits that chose token i of ``want``. Returns the steps that
+    agreed."""
+    n = len(ref_logits)
+    p = want.shape[1] - n
+    for i in range(n):
+        if np.array_equal(got[:, p + i], want[:, p + i]):
+            continue
+        lg = ref_logits[i][:, :vocab].float()
+        top2 = torch.topk(lg, 2, dim=-1).values
+        gap = float((top2[:, 0] - top2[:, 1]).min())
+        limit = tol * float(lg.abs().max())
+        log(f"  {label}: tokens differ at step {i}; the reference's smallest top-2 gap there "
+            f"{gap:.3e}, limit {limit:.3e}")
+        check(gap <= limit, f"{label}: greedy tokens differ at step {i} where the reference's "
+              f"top-2 gap {gap:.3e} exceeds {limit:.3e}")
+        return i
+    return n
+
+
+def teacher_forced(eng, tokens, p: int, n: int):
+    """Prefill ``tokens[:, :p]``, then ``n - 1`` decode steps fed with
+    ``tokens[:, p + i]``: the n logits that choose tokens p .. p + n - 1, and
+    the prefill cache."""
+    dev = eng.device
+    t = torch.as_tensor(tokens, dtype=torch.long, device=dev)
+    logits, cache = eng.prefill(eng.params, {"tokens": t[:, :p]})
+    prefill_cache = cache
+    cache = eng._pad_cache(cache, p)
+    out = [logits]
+    for i in range(n - 1):
+        logits, cache = eng.decode(eng.params, cache, {"token": t[:, p + i:p + i + 1],
+                                                       "pos": p + i})
+        out.append(logits)
+    return out, prefill_cache
+
+
+def phase8_smoke_card_vs_cpu(dev) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    log(f"phase 8: zamba2-2.7b SMOKE, card against CPU from the same weights "
+        f"(batch {SMOKE_B}, prompt {SMOKE_P}, {SMOKE_NEW} new tokens)")
+    rng = np.random.default_rng(SEED)
+    for dtype, tol in LM_TOL.items():
+        cfg = dataclasses.replace(get_config("zamba2-2.7b", smoke=True), dtype=dtype)
+        params = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        scfg = ServeConfig(max_seq_len=SMOKE_P + SMOKE_NEW, batch_size=SMOKE_B)
+        eng = {"cpu": Engine(cfg, params, scfg, device="cpu"),
+               "cuda": Engine(cfg, tree_to(params, dev), scfg, device=dev)}
+        prompts = rng.integers(0, cfg.vocab_size, (SMOKE_B, SMOKE_P))
+        # greedy tokens on each device, then both devices teacher-forced on
+        # the CPU's tokens: prefill logits and every decode step's logits
+        out = {d: e.generate(prompts, SMOKE_NEW) for d, e in eng.items()}
+        reset_launches()
+        logits = {}
+        for d, e in eng.items():
+            logits[d], cache = teacher_forced(e, out["cpu"], SMOKE_P, SMOKE_NEW)
+            if d == "cuda":
+                launches = {k: v for k, v in read_launches().items() if v}
+                n_sb = cfg.n_layers // cfg.hybrid_period
+                check(launches == {"flash_attention": n_sb, "ssd_chunk": cfg.n_layers},
+                      f"SMOKE card prefill launches {launches}")
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(logits["cuda"], logits["cpu"])):
+            a = a.float().cpu()
+            b = b.float()
+            err = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            what = "prefill" if i == 0 else f"decode step {i}"
+            log(f"  {dtype} {what}: max_abs_err {err:.3e} <= {tol * scale:.3e} "
+                f"(tol {tol} x max|cpu logit| {scale:.3e})")
+            check(bool(torch.isfinite(a).all()) and err <= tol * scale,
+                  f"SMOKE {dtype} {what}: card and CPU logits disagree")
+        agreed = greedy_agrees(out["cuda"], out["cpu"], logits["cpu"], tol, cfg.vocab_size,
+                               f"SMOKE {dtype} greedy")
+        log(f"  {dtype} greedy tokens: {agreed} of {SMOKE_NEW} steps equal")
+        check(out["cuda"].shape == (SMOKE_B, SMOKE_P + SMOKE_NEW)
+              and np.array_equal(out["cuda"][:, :SMOKE_P], prompts), "SMOKE generate shape")
+
+
+# -- phase 9: the slice's path, Zamba2-2.7B served at full width ---------------
+
+SERVE_B, SERVE_P, SERVE_NEW, SERVE_MAX = 4, 4096, 64, 4224
+# Last-token prefill logits with the kernels against a prefill that runs the
+# plain versions on the card, as a fraction of max|plain logit|: the two
+# compute the same f32 functions in other orders, and the model rounds their
+# outputs to bf16 (attention out, the mixer's y), so a rounded activation can
+# differ by one bf16 ulp and that difference travels through 54 layers; the
+# first run on an H100 measured 1.6e-2, with the same argmax in every row.
+SERVE_LOGIT_TOL = 5e-2
+
+
+def capture_inputs(fn) -> dict:
+    """Run ``fn`` with ``ops.flash_attention`` and ``ops.ssd_chunk`` wrapped
+    so that the arguments of each one's first call are kept (cloned, strides
+    included): one layer's real inputs at the path's shapes."""
+    from repro_torch.kernels import ops
+
+    kept, orig = {}, {n: getattr(ops, n) for n in ("flash_attention", "ssd_chunk")}
+
+    def keeper(name):
+        def call(*args, **kwargs):
+            kept.setdefault(name, ([a.clone() for a in args], dict(kwargs)))
+            return orig[name](*args, **kwargs)
+        return call
+
+    try:
+        for n in orig:
+            setattr(ops, n, keeper(n))
+        fn()
+    finally:
+        for n, f in orig.items():
+            setattr(ops, n, f)
+    return kept
+
+
+def with_plain_kernels(fn):
+    """``fn()`` with the model's two LM kernel calls sent to their plain
+    versions (the reference prefill on the card)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ssd_scan
+
+    orig = ops.flash_attention, ops.ssd_chunk
+    ops.flash_attention, ops.ssd_chunk = fa.flash_attention_plain, ssd_scan.ssd_chunk_plain
+    try:
+        return fn()
+    finally:
+        ops.flash_attention, ops.ssd_chunk = orig
+
+
+def phase9_zamba2(dev, card: str):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cfg = get_config("zamba2-2.7b")
+    n_sb = cfg.n_layers // cfg.hybrid_period
+    log(f"phase 9: {cfg.name} as registered ({cfg.n_layers} Mamba-2 layers, d {cfg.d_model}, "
+        f"{n_sb} shared-attention calls), batch {SERVE_B}, prompts of {SERVE_P}, "
+        f"{SERVE_NEW} new tokens, max_seq_len {SERVE_MAX}")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in param_leaves(params))
+    eng = Engine(cfg, params, ServeConfig(max_seq_len=SERVE_MAX, batch_size=SERVE_B), device=dev)
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (SERVE_B, SERVE_P))
+
+    # the main path: every count starts at 0 here and is read right after.
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, SERVE_NEW)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  generate (cold): {t_gen:.3f} s, launches {launches}, peak {peak_gb:.2f} GB, "
+        f"{n_params / 1e9:.3f} B parameters (init {t_init:.2f} s)")
+    check(launches == {"fused_kron_scatter": 0, "ttm": 0, "kron_contrib": 0, "scatter_rows": 0,
+                       "fused_kron_scatter_ttm": 0, "flash_attention": n_sb,
+                       "ssd_chunk": cfg.n_layers},
+          f"serving launches {launches}, want {n_sb} and {cfg.n_layers} (one prefill)")
+    check(out.shape == (SERVE_B, SERVE_P + SERVE_NEW) and np.array_equal(out[:, :SERVE_P], prompts)
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()), f"generate output {out.shape}")
+
+    # warm timings: prefill and decode steps by CUDA events, generate by the
+    # host clock; device busy time of one prefill and of 8 decode steps by the
+    # profiler, over the same work's time without the profiler
+    tokens = torch.as_tensor(prompts, dtype=torch.long, device=dev)
+    prefill_ms = time_ms(lambda: eng.prefill(params, {"tokens": tokens}), reps=3)
+    logits, cache = eng.prefill(params, {"tokens": tokens})
+    check(bool(torch.isfinite(logits.float()).all()), "non-finite prefill logits")
+    step = {"cache": eng._pad_cache(cache, SERVE_P), "token": eng._sample(logits)[:, None],
+            "pos": SERVE_P}
+    del cache
+
+    def decode_steps(n):
+        for _ in range(n):
+            lg, step["cache"] = eng.decode(params, step["cache"],
+                                           {"token": step["token"], "pos": step["pos"]})
+            step["token"] = eng._sample(lg)[:, None]
+            step["pos"] += 1
+        return lg
+
+    n_steps = 16
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    step_logits = decode_steps(n_steps)
+    end.record()
+    end.synchronize()
+    decode_ms = start.elapsed_time(end) / n_steps
+    check(bool(torch.isfinite(step_logits.float()).all()), "non-finite decode logits")
+    prof_decode = profile_run(lambda: decode_steps(8))
+    del step, step_logits
+    prof_prefill = profile_run(lambda: eng.prefill(params, {"tokens": tokens}))
+    t0 = time.perf_counter()
+    eng.generate(prompts, SERVE_NEW)
+    torch.cuda.synchronize()
+    t_gen_warm = time.perf_counter() - t0
+    busy = {"prefill": prof_prefill["device_busy_ms"] / prefill_ms,
+            "decode": prof_decode["device_busy_ms"] / (8 * decode_ms),
+            "generate": (prof_prefill["device_busy_ms"] + (SERVE_NEW - 1)
+                         * prof_decode["device_busy_ms"] / 8) / (t_gen_warm * 1e3)}
+    log(f"  warm: prefill {prefill_ms:.1f} ms, decode {decode_ms:.2f} ms per step, generate "
+        f"{t_gen_warm:.3f} s ({SERVE_B * SERVE_NEW / t_gen_warm:.1f} generated tokens/s); "
+        f"device busy share " + ", ".join(f"{k} {v:.3f}" for k, v in busy.items()))
+
+    # last-token logits against a prefill with the plain versions on the card
+    got = logits.float()
+    want = with_plain_kernels(lambda: eng.prefill(params, {"tokens": tokens})[0]).float()
+    scale = float(want.abs().max())
+    logit_err = float((got - want).abs().max())
+    same_top = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    log(f"  last-token logits, kernels against plain versions: max_abs_err {logit_err:.3e} <= "
+        f"{SERVE_LOGIT_TOL * scale:.3e} (tol {SERVE_LOGIT_TOL} x max|plain| {scale:.3e}); "
+        f"argmax equal in {same_top:.2f} of rows")
+    check(logit_err <= SERVE_LOGIT_TOL * scale, "prefill logits with the kernels disagree with "
+          "the plain versions'")
+    del logits, got, want
+
+    # each kernel on one layer's real inputs at the path's shapes
+    kept = capture_inputs(lambda: eng.prefill(params, {"tokens": tokens}))
+    (q, k, v), kw = kept["flash_attention"]
+    fa_kern = partial(fa.flash_attention, q, k, v, **kw)
+    fa_plain = partial(fa.flash_attention_plain, q, k, v, **kw)
+    fa_err = compare(f"flash_attention Zamba2 layer 0 q {tuple(q.shape)} {q.dtype}", "bf16",
+                     synced(fa_kern()).float(), synced(fa_plain()).float(), q.shape[2] * q.shape[3])
+    b_, h_, s_, d_ = q.shape
+    t_ = k.shape[2]
+    fa_flops = 4 * b_ * h_ * d_ * sum(min(t_, i + 1 + t_ - s_) for i in range(s_))
+    fa_bytes = nbytes_of(q, k, v, q)
+    fa_row = {"ms": time_ms(fa_kern), "plain_ms": time_ms(fa_plain, reps=3),
+              "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                  q, k, v, is_causal=True)),
+              "bound_ms": max(fa_bytes / PEAK_BYTES_PER_S, fa_flops / PEAK_BF16_FLOPS) * 1e3,
+              "bound_by": ("bytes" if fa_bytes / PEAK_BYTES_PER_S >= fa_flops / PEAK_BF16_FLOPS
+                           else "operations"),
+              "f32_core_bound_ms": fa_flops / PEAK_F32_FLOPS * 1e3,
+              "flops": fa_flops, "bytes": fa_bytes, "max_abs_err": fa_err}
+    log(f"    flash_attention: {json.dumps(fa_row)}")
+    (x, acs, bm, cm), _ = kept["ssd_chunk"]
+    ssd_kern = partial(ssd_scan.ssd_chunk, x, acs, bm, cm)
+    ssd_plain = partial(ssd_scan.ssd_chunk_plain, x, acs, bm, cm)
+    y, st = synced(ssd_kern())
+    y_want, st_want = synced(ssd_plain())
+    bh_, c_, l_, p_ = x.shape
+    n_ = bm.shape[-1]
+    ssd_err = max(compare(f"ssd_chunk Zamba2 layer 0 y {tuple(x.shape)}", "fp32", y, y_want,
+                          l_ * n_),
+                  compare(f"ssd_chunk Zamba2 layer 0 state {tuple(st.shape)}", "fp32", st, st_want,
+                          l_))
+    del y, st, y_want, st_want
+    ssd_flops = bh_ * c_ * (l_ * (l_ + 1) // 2 * (2 * n_ + 2 * p_) + 2 * l_ * n_ * p_)
+    ssd_bytes = nbytes_of(x, acs, bm, cm, x) + bh_ * c_ * n_ * p_ * 4
+    ssd_bound, ssd_bound_by = bound(ssd_bytes, ssd_flops)
+    ssd_row = {"ms": time_ms(ssd_kern), "plain_ms": time_ms(ssd_plain, reps=3),
+               "bound_ms": ssd_bound, "bound_by": ssd_bound_by,
+               "flops": ssd_flops, "bytes": ssd_bytes, "max_abs_err": ssd_err}
+    log(f"    ssd_chunk: {json.dumps(ssd_row)}")
+
+    kms = prof_prefill["kernel_ms"]
+    summary = {
+        "phase": "9 Zamba2-2.7B serving", "card": card, "config": cfg.name,
+        "params": n_params, "batch": SERVE_B, "prompt": SERVE_P, "new_tokens": SERVE_NEW,
+        "max_seq_len": SERVE_MAX,
+        "setup_s": {"init_params_on_card": t_init, "cold_generate": t_gen},
+        "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+        "generate_s": t_gen_warm, "generated_tokens_per_s": SERVE_B * SERVE_NEW / t_gen_warm,
+        "decode_tokens_per_s": SERVE_B * 1e3 / decode_ms,
+        "launches_per_generate": {k: v for k, v in launches.items() if v},
+        "peak_memory_gb": peak_gb,
+        "last_logit_max_abs_err_vs_plain": logit_err, "last_logit_scale": scale,
+        "flash_attention": fa_row, "ssd_chunk": ssd_row,
+        "device_busy_share": busy, "profile_prefill": prof_prefill,
+        "profile_8_decode_steps": prof_decode,
+    }
+    print(json.dumps(summary), flush=True)
+    return {
+        "flash_attention": {
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:78",
+            "launches": launches["flash_attention"], "max_abs_err": fa_err, "ms": fa_row["ms"],
+            "plain_ms": fa_row["plain_ms"], "device_ms": kms["flash_attention"] / n_sb,
+            "bound_ms": fa_row["bound_ms"], "bound_by": fa_row["bound_by"],
+            "library_ms": fa_row["library_ms"]},
+        "ssd_chunk": {
+            "name": "ssd_chunk", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:48",
+            "launches": launches["ssd_chunk"], "max_abs_err": ssd_err, "ms": ssd_row["ms"],
+            "plain_ms": ssd_row["plain_ms"], "device_ms": kms["ssd_chunk"] / cfg.n_layers,
+            "bound_ms": ssd_row["bound_ms"], "bound_by": ssd_row["bound_by"],
+            # no single PyTorch call builds the masked decay and both products
+            "library_ms": None},
+    }
 
 
 if __name__ == "__main__":

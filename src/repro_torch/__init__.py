@@ -1,4 +1,5 @@
-"""repro_torch — the PyTorch/CUDA port of ``repro`` (sparse Tucker / HOOI).
+"""repro_torch — the PyTorch/CUDA port of ``repro``: sparse Tucker (HOOI)
+and the LM serving path of the ``hybrid`` family (Zamba2).
 
 The same plan/execute front-end as the JAX package, running on an NVIDIA
 card by default:
@@ -8,7 +9,8 @@ card by default:
     res = tucker.decompose(coo, (16, 16, 16), n_iter=5)   # device="cuda"
     res = tucker.decompose(coo, (16, 16, 16), device="cpu")
 
-On a CUDA device the sweep's two hot loops run on hand-written CUDA kernels
-(``kernels/csrc``); on the CPU the same code path runs their plain PyTorch
-versions. The package imports ``torch`` and ``numpy`` only.
+and the same serving engine (``repro_torch.serve.engine.Engine``, greedy
+``generate``). On a CUDA device the hot loops run on hand-written CUDA
+kernels (``kernels/csrc``); on the CPU the same code path runs their plain
+PyTorch versions. The package imports ``torch`` and ``numpy`` only.
 """

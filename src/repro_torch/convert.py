@@ -1,17 +1,21 @@
 """Carry state across from the JAX package as numpy arrays.
 
 ``jax.random`` cannot be replayed in torch, so two runs that must start from
-the same factors hand them over as numpy: ``np.asarray`` of the reference's
-COO arrays and factor matrices goes in, the port's tensors come out.
+the same factors or weights hand them over as numpy: ``np.asarray`` of the
+reference's COO arrays, factor matrices, LM parameters or caches goes in,
+the port's tensors come out.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Any, List, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.coo import SparseCOO
+from repro_torch.models.mamba2 import SsmState
+from repro_torch.models.model import leaf_dtype, param_defs
 
 
 def coo_from_numpy(indices, values, shape: Sequence[int], device="cpu") -> SparseCOO:
@@ -23,3 +27,48 @@ def coo_from_numpy(indices, values, shape: Sequence[int], device="cpu") -> Spars
 def factors_from_numpy(factors: Sequence, device="cpu") -> List[torch.Tensor]:
     """The port's factor matrices from a list of (I_n, R_n) arrays."""
     return [torch.as_tensor(np.array(f), device=torch.device(device)) for f in factors]
+
+
+def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+    """One array as a tensor. bf16 arrives as ``ml_dtypes.bfloat16``, which
+    torch does not take: it becomes ``torch.bfloat16`` with the same bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return bf16_from_bits(a.view(np.uint16), device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def bf16_from_bits(bits, device="cpu") -> torch.Tensor:
+    """``torch.bfloat16`` from ``uint16`` bit patterns, the reference's
+    storage of bf16 in its caches (``pack_bf16``)."""
+    bits = np.asarray(bits)
+    if bits.dtype != np.uint16:
+        raise ValueError(f"bf16 bit patterns must be uint16, got {bits.dtype}")
+    return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+
+
+def lm_params_from_numpy(tree, cfg: ModelConfig, device="cpu"):
+    """The port's LM parameters from the reference's parameter pytree as
+    numpy (``jax.tree_util.tree_map(np.asarray, params)``), checked leaf by
+    leaf against the port's schema for ``cfg`` (keys, shapes, dtypes)."""
+
+    def walk(defs, node, path):
+        if isinstance(defs, dict):
+            return {k: walk(d, node[k], path + (k,)) for k, d in defs.items()}
+        t = tensor_from_numpy(node, device)
+        if tuple(t.shape) != defs.shape or t.dtype != leaf_dtype(cfg, defs):
+            raise ValueError(f"{'/'.join(path)}: {tuple(t.shape)} {t.dtype}, the schema "
+                             f"says {defs.shape} {leaf_dtype(cfg, defs)}")
+        return t
+
+    return walk(param_defs(cfg), tree, ())
+
+
+def lm_cache_from_numpy(cache: Any, device="cpu"):
+    """The port's LM cache from the reference's hybrid cache as numpy:
+    ``{"ssm": SsmState(conv_x, conv_b, conv_c, h), "attn": {"k", "v"}}``
+    with every entry but ``h`` (f32) as ``uint16`` bf16 bit patterns."""
+    conv_x, conv_b, conv_c, h = cache["ssm"]
+    return {"ssm": SsmState(*(bf16_from_bits(a, device) for a in (conv_x, conv_b, conv_c)),
+                            h=tensor_from_numpy(h, device)),
+            "attn": {n: bf16_from_bits(cache["attn"][n], device) for n in ("k", "v")}}

@@ -1,9 +1,10 @@
-"""Host-side wrappers around the sweep's kernels.
+"""Host-side wrappers around the port's kernels.
 
-Port of the parts of ``repro.kernels.ops`` on the sparse HOOI path: the
-schedule-order gather of factor rows, the mode unfolding of a tensor of any
-order, and the fused core update. Which device runs what is decided by the
-kernel wrappers alone, from the device of the tensors.
+Port of ``repro.kernels.ops``: on the sparse HOOI path the schedule-order
+gather of factor rows, the mode unfolding of a tensor of any order and the
+fused core update; on the LM path ``flash_attention`` and ``ssd_chunk``.
+Which device runs what is decided by the kernel wrappers alone, from the
+device of the tensors.
 """
 from __future__ import annotations
 
@@ -13,9 +14,12 @@ import torch
 
 from repro_torch.core.kron import zero_unfolding
 from repro_torch.kernels import kron_kernel
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd_scan import ssd_chunk
 from repro_torch.kernels.ttm_kernel import ttm
 
-__all__ = ["ttm", "kron_contrib", "sparse_ttm_chain_device", "sparse_ttm_core_device"]
+__all__ = ["ttm", "kron_contrib", "sparse_ttm_chain_device", "sparse_ttm_core_device",
+           "flash_attention", "ssd_chunk"]
 
 
 def kron_contrib(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor, *,

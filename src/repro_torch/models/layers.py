@@ -1,0 +1,41 @@
+"""Common NN layers, port of ``repro.models.layers``.
+
+``pack_bf16``/``unpack_bf16`` have no counterpart: torch keeps bf16 as it
+is on both devices, so the caches hold ``torch.bfloat16`` tensors where
+the reference holds ``uint16`` bit patterns.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMS norm over the last axis, in f32 inside; the output has x's dtype."""
+    x32 = x.to(torch.float32)
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * w.to(torch.float32)).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)  # (hd/2,)
+    angles = positions[..., :, None].to(torch.float32) * freqs  # (..., s, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]  # (..., s, 1, hd/2)
+    sin = torch.sin(angles)[..., :, None, :]
+    x32 = x.to(torch.float32)
+    x1, x2 = x32[..., : hd // 2], x32[..., hd // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    h = F.silu(x @ wg) * (x @ wi)
+    return h @ wo

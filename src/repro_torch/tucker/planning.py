@@ -16,6 +16,7 @@ from typing import Any, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.base import resolve_device, unported
 from repro_torch.core import hooi as _hooi
 from repro_torch.core.coo import SparseCOO
 from repro_torch.core.engine import SweepEngine, make_engine
@@ -23,25 +24,9 @@ from repro_torch.core.reconstruct import compression_ratio
 from repro_torch.kernels import kron_kernel
 from repro_torch.kernels.ttm_kernel import ttm
 from repro_torch.tucker.result import TuckerResult
-from repro_torch.tucker.spec import TuckerSpec, spec_for, unported
+from repro_torch.tucker.spec import TuckerSpec, spec_for
 
 __all__ = ["TuckerPlan", "clear_plan_cache", "decompose", "plan"]
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a concrete torch device; a CUDA device must exist."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available: repro_torch runs on the card by "
-                "default; pass device='cpu' to run the plain versions on the CPU"
-            )
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"device must be a CUDA device or 'cpu', got {device!r}")
-    return dev
 
 
 def _kernel_launches() -> int:

@@ -13,18 +13,13 @@ import torch
 
 from repro_torch.core.engine import ENGINES, JAX_ENGINES
 from repro_torch.core.hooi import effective_ranks
+from repro_torch.base import unported
 from repro_torch.kernels.kron_kernel import PRECISIONS
 
 METHODS = ("svd", "householder", "gram")
 ALGORITHMS = ("sparse", "dense", "complete")
 PIPELINES = ("scan", "python")
 DTYPES = ("auto", "float32", "float64")
-
-
-def unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md {item})"
-    )
 
 
 def _canonical_dtype(dtype: Any) -> str:

@@ -1,0 +1,177 @@
+"""Kernel 7 and the Mamba-2 mixer on the CPU: the plain version of the
+port's SSD chunk kernel against the reference's Pallas kernel (interpret
+mode) and its oracle, the bf16 inter-chunk scan against
+``jax.lax.associative_scan``, and ``ssd_mixer``/``ssd_decode_step`` against
+the model's."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.models import mamba2 as jmamba
+from repro.models import model as jmodel
+from repro.models.layers import pack_bf16, unpack_bf16
+from repro_torch.configs import get_config
+from repro_torch.convert import bf16_from_bits, lm_params_from_numpy
+from repro_torch.kernels import ops, ssd_scan
+from repro_torch.models import mamba2 as tmamba
+
+# f32 on both sides; only the order of the f32 sums differs (L terms of N
+# products): 2e-5 x max|reference|.
+TOL = 2e-5
+
+
+def _inputs(bh, c, n_l, p, n, rate=0.1, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((bh, c, n_l, p)).astype(np.float32)
+    acs = np.cumsum(-rate * np.abs(rng.standard_normal((bh, c, n_l))), axis=-1).astype(np.float32)
+    bm = rng.standard_normal((bh, c, n_l, n)).astype(np.float32)
+    cm = rng.standard_normal((bh, c, n_l, n)).astype(np.float32)
+    return x, acs, bm, cm
+
+
+def _close(got, want, tol=TOL):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol * np.abs(want).max())
+
+
+def _ref(a) -> torch.Tensor:
+    """A reference array as a tensor: its uint16 entries are bf16 bit patterns."""
+    a = np.asarray(a)
+    return bf16_from_bits(a) if a.dtype == np.uint16 else torch.from_numpy(np.array(a))
+
+
+# the reference kernel test's shapes (tests/test_kernels.py) and the Zamba2
+# chunk (L 256, N 64, P 64)
+@pytest.mark.parametrize("bh,c,n_l,p,n", [(2, 3, 64, 32, 16), (1, 1, 128, 64, 32),
+                                          (2, 2, 256, 64, 64)])
+def test_plain_matches_pallas_kernel(bh, c, n_l, p, n):
+    x, acs, bm, cm = _inputs(bh, c, n_l, p, n)
+    y_want, s_want = jops.ssd_chunk(*(jnp.asarray(a) for a in (x, acs, bm, cm)))
+    y, s = ssd_scan.ssd_chunk_plain(*(torch.from_numpy(a) for a in (x, acs, bm, cm)))
+    _close(y, y_want)
+    _close(s, s_want)
+
+
+@pytest.mark.parametrize("n_l,p,n", [(32, 16, 16), (100, 48, 80)])
+def test_plain_matches_oracle_per_chunk(n_l, p, n):
+    x, acs, bm, cm = _inputs(2, 2, n_l, p, n, seed=1)
+    y, s = ssd_scan.ssd_chunk_plain(*(torch.from_numpy(a) for a in (x, acs, bm, cm)))
+    for i in range(2):
+        for j in range(2):
+            yr, sr = jref.ssd_chunk_ref(x[i, j], acs[i, j], bm[i, j], cm[i, j])
+            _close(y[i, j], yr)
+            _close(s[i, j], sr)
+
+
+def test_steep_decay_stays_finite():
+    """exp(A_i - A_j) overflows to inf above the diagonal here; like the TPU
+    kernel's ``where``, the plain version never multiplies it in."""
+    x, acs, bm, cm = _inputs(1, 2, 128, 16, 16, rate=20.0, seed=2)
+    with np.errstate(over="ignore"):
+        assert np.isinf(np.exp(acs[0, 0, :, None] - acs[0, 0, None, :])).any()
+    y, s = ssd_scan.ssd_chunk_plain(*(torch.from_numpy(a) for a in (x, acs, bm, cm)))
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    y_want, s_want = jops.ssd_chunk(*(jnp.asarray(a) for a in (x, acs, bm, cm)))
+    _close(y, y_want)
+    _close(s, s_want)
+
+
+def test_cpu_runs_the_plain_version_and_counts_no_launch():
+    args = [torch.from_numpy(a) for a in _inputs(1, 2, 32, 16, 16)]
+    before = ops.ssd_chunk.launches
+    y, s = ops.ssd_chunk(*args)
+    y2, s2 = ssd_scan.ssd_chunk_plain(*args)
+    assert ops.ssd_chunk.launches == before
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+def _jax_combine(e1, e2):  # the reference mixer's combine (models/mamba2.py)
+    d1, s1 = e1
+    d2, s2 = e2
+    s = unpack_bf16(s1).astype(jnp.float32) * d2[..., None, None] + unpack_bf16(s2).astype(
+        jnp.float32)
+    return d1 * d2, pack_bf16(s.astype(jnp.bfloat16))
+
+
+@pytest.mark.parametrize("n_chunks", [1, 2, 3, 5, 8, 13, 16])
+def test_bf16_state_scan_is_the_references_bit_for_bit(n_chunks):
+    rng = np.random.default_rng(n_chunks)
+    d = np.exp(-np.abs(rng.standard_normal((2, n_chunks, 3)))).astype(np.float32)
+    s = rng.standard_normal((2, n_chunks, 3, 8, 4)).astype(np.float32)
+    jd, js = jax.lax.associative_scan(
+        _jax_combine, (jnp.asarray(d), pack_bf16(jnp.asarray(s).astype(jnp.bfloat16))), axis=1)
+    td, ts = tmamba.associative_scan(
+        tmamba._combine_states, [torch.from_numpy(d), torch.from_numpy(s).to(torch.bfloat16)], 1)
+    assert np.array_equal(np.asarray(jd), td.numpy())
+    assert np.array_equal(np.asarray(unpack_bf16(js).astype(jnp.float32)), ts.float().numpy())
+
+
+@pytest.fixture(scope="module")
+def layer():
+    """One Mamba layer of the zamba2 SMOKE config in f32, from the
+    reference's init, on both sides."""
+    jcfg = dataclasses.replace(jget_config("zamba2-2.7b", smoke=True), dtype="float32")
+    tcfg = dataclasses.replace(get_config("zamba2-2.7b", smoke=True), dtype="float32")
+    jp = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = lm_params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), tcfg)
+    return (jcfg, jax.tree_util.tree_map(lambda a: a[0, 1], jp["layers"]),
+            tcfg, {k: v[0, 1] for k, v in tp["layers"].items()})
+
+
+# One chunk (32) keeps the bf16 state out of y; from two chunks on, y reads
+# states rounded to bf16, and the port's chunk states differ from the
+# reference's in their last f32 bits (sums in another order), so a rounded
+# state can land one bf16 ulp (2^-8) away. Through c . h that moves y by
+# well under 1e-3 x max|y| (measured up to 6e-5); the final state is held
+# element by element to one bf16 ulp (at most 2^-7 of the value).
+@pytest.mark.parametrize("s,tol", [(32, 2e-5), (20, 2e-5), (64, 1e-3), (70, 1e-3), (128, 1e-3)])
+def test_ssd_mixer_matches_model(layer, s, tol):
+    jcfg, jp, tcfg, tp = layer
+    x = np.random.default_rng(s).standard_normal((2, s, jcfg.d_model)).astype(np.float32)
+    y_want, st_want = jmamba.ssd_mixer(jcfg, jp, jnp.asarray(x), return_state=True)
+    y, st = tmamba.ssd_mixer(tcfg, tp, torch.from_numpy(x), return_state=True)
+    _close(y, y_want, tol)
+    for name in ("conv_x", "conv_b", "conv_c"):  # bf16 roundings of f32 projections
+        got, want = getattr(st, name).float().numpy(), _ref(getattr(st_want, name)).float().numpy()
+        np.testing.assert_allclose(got, want, rtol=2.0 ** -7, atol=1e-6 * np.abs(want).max())
+    h_want = np.asarray(st_want.h)
+    np.testing.assert_allclose(st.h.numpy(), h_want, rtol=2.0 ** -7,
+                               atol=1e-6 * np.abs(h_want).max())
+
+
+def test_ssd_mixer_without_state_returns_none(layer):
+    jcfg, _, tcfg, tp = layer
+    x = torch.randn(1, 40, tcfg.d_model, generator=torch.Generator().manual_seed(0))
+    y, st = tmamba.ssd_mixer(tcfg, tp, x)
+    assert st is None and y.shape == x.shape
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ssd_decode_step_matches_model(layer, seed):
+    jcfg, jp, tcfg, tp = layer
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((3, 1, jcfg.d_model)).astype(np.float32)
+    km1, din, gn = jcfg.ssm_conv - 1, jcfg.d_inner, jcfg.ssm_ngroups * jcfg.ssm_state
+    conv = [rng.standard_normal((3, km1, c)).astype(np.float32) for c in (din, gn, gn)]
+    h = rng.standard_normal((3, jcfg.ssm_nheads, jcfg.ssm_headdim, jcfg.ssm_state)).astype(
+        np.float32)
+    jstate = jmamba.SsmState(*(pack_bf16(jnp.asarray(c).astype(jnp.bfloat16)) for c in conv),
+                             h=jnp.asarray(h))
+    y_want, st_want = jmamba.ssd_decode_step(jcfg, jp, jnp.asarray(x), jstate)
+    tstate = tmamba.SsmState(*(_ref(a) for a in jstate))
+    y, st = tmamba.ssd_decode_step(tcfg, tp, torch.from_numpy(x), tstate)
+    _close(y, y_want, 1e-5)
+    _close(st.h, st_want.h, 1e-5)
+    for name in ("conv_x", "conv_b", "conv_c"):
+        got, want = getattr(st, name), _ref(getattr(st_want, name))
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), rtol=2.0 ** -7,
+                                   atol=1e-6)
