@@ -13,6 +13,7 @@ result line):
    128, duplicates, zero padding, one slice, ranks 5x3 and 33x40, 2-way,
    an order-5 chain, ``fused=False`` against the fused kernel, and the
    megakernel with a group's row 0 and its padding in different ranges);
+   each ``ttm`` call launches one kernel and gives the same bits twice;
 3. the card against the CPU from the same factors (fit history, factor
    projectors and core): a NELL-2-like tensor (1000^3, 24,000 nonzeros,
    ranks 16, 5 sweeps) split and with ``fuse_core``, a 4-way tensor
@@ -35,16 +36,19 @@ result line):
    one built from the returned factors by the plain versions alone;
 7. kernels 6 (flash attention) and 7 (the Mamba-2 SSD chunk) against their
    plain versions at odd shapes: GQA, MQA, T > S, S not a block multiple,
-   D 16-128 (80 included), non-causal, the model's strided views, in f32
-   and bf16; L 32-256, N and P 16-128, and a decay steep enough that exp
-   above the diagonal overflows, in f32;
+   D 16-128 (80 included), non-causal, the Zamba2 serving shape at S 1,024,
+   the model's strided views (head dim 28 among them), in f32 (the CUDA-core
+   route) and bf16 (the tensor-core route), each call checked to take its
+   dtype's route; L 32-256, N and P 16-128, and a decay steep enough that
+   exp above the diagonal overflows, in f32;
 8. zamba2-2.7b SMOKE, card against CPU from the same seeded weights, in
    float32 and bfloat16: prefill logits, 8 teacher-forced decode steps and
    the greedy tokens of ``Engine.generate``;
 9. the LM serving path at full width: zamba2-2.7b as registered (54 Mamba-2
    layers, d 2,560, 2.42 B parameters from a seeded generator on the card),
    ``Engine.generate`` of 64 new tokens after 4 prompts of 4,096 tokens:
-   launch counts (9 and 54 per prefill), prefill ms, decode ms per step,
+   launch counts (9 and 54 per prefill, the 9 on the tensor-core route),
+   prefill ms, decode ms per step,
    tokens/s, peak memory and the device's busy share; kernels 6 and 7
    against their plain versions on one layer's real inputs, with their
    times and bounds; the last-token prefill logits against a prefill that
@@ -79,9 +83,9 @@ import torch  # noqa: E402
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, the f32 CUDA-core rate
-# and the dense bf16 tensor-core rate. Every kernel does its arithmetic in
-# f32 on the CUDA cores; kernel 6's bound counts its bf16 operands at the
-# bf16 rate, the least time the card could take for them.
+# and the dense bf16 tensor-core rate. Kernel 6 on bf16 operands runs on the
+# tensor cores and its bound counts them at the bf16 rate; every other
+# kernel does its arithmetic in f32 on the CUDA cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
@@ -117,15 +121,15 @@ TOL = {"fp32": 1e-5, "bf16_fp32acc": 2e-2}
 BF16_OUT_TOL = 2.0 ** -7
 
 # device-side symbols of each wrapper's kernels, for the profiler's sums; the
-# leading "::" keeps "::ttm_reduce_kernel" from matching the megakernel's
-# "kron_scatter_ttm_reduce_kernel"
+# leading "::" keeps "::ttm_kernel" from matching the megakernel's
+# "kron_scatter_ttm_kernel"
 KERNEL_SYMBOLS = {
     "fused_kron_scatter": ("::kron_scatter_kernel",),
-    "ttm": ("::ttm_partial_kernel", "::ttm_reduce_kernel"),
+    "ttm": ("::ttm_kernel",),
     "kron_contrib": ("::kron_contrib_kernel",),
     "scatter_rows": ("::scatter_rows_kernel",),
     "fused_kron_scatter_ttm": ("::kron_scatter_ttm_kernel", "::kron_scatter_ttm_reduce_kernel"),
-    "flash_attention": ("::flash_attention_kernel",),
+    "flash_attention": ("::flash_attention_kernel", "::flash_attention_wgmma_kernel"),
     "ssd_chunk": ("::ssd_chunk_kernel",),
 }
 NO_LM_LAUNCHES = {"flash_attention": 0, "ssd_chunk": 0}
@@ -277,6 +281,24 @@ def profile_run(fn) -> dict:
     return out
 
 
+def check_ttm_call(label: str, y, u, precision: str):
+    """``ttm`` on the card: one device kernel per call (counted where the C
+    side launches it), and the same bits from two calls on the same inputs.
+    Returns the first result."""
+    from repro_torch.kernels import kron_kernel, ttm_kernel
+
+    before = ttm_kernel.kernels_launched()
+    first = synced(ttm_kernel.ttm(y, u, precision=precision))
+    n = ttm_kernel.kernels_launched() - before
+    again = synced(ttm_kernel.ttm(y, u, precision=precision))
+    log(f"  ttm {label} [{precision}]: {n} kernel launch per call, bulk copies "
+        f"{ttm_kernel.bulk_copies(*kron_kernel._cast_operands(precision, y, u))}, "
+        f"same bits twice: {torch.equal(first, again)}")
+    check(n == 1, f"ttm {label} [{precision}] launched {n} kernels, want 1")
+    check(torch.equal(first, again), f"ttm {label} [{precision}] differs between two calls")
+    return first
+
+
 def bound(nbytes: float, flops: float):
     """(ms, what bounds it): the least time the card could take to move
     ``nbytes`` and do ``flops`` f32 operations."""
@@ -301,6 +323,8 @@ def wrappers() -> dict:
 def reset_launches() -> None:
     for fn in wrappers().values():
         fn.launches = 0
+        for route in getattr(fn, "launches_by_route", {}):
+            fn.launches_by_route[route] = 0
 
 
 def read_launches() -> dict:
@@ -476,8 +500,8 @@ def phase2_kernels(dev) -> None:
             y = torch.randn(l_, i_, device=dev)
             u = torch.randn(r_, i_, device=dev)
         for prec in ("fp32", "bf16_fp32acc"):
-            compare(f"ttm y ({l_}, {i_}){' transposed' if transposed else ''} "
-                    f"u ({r_}, {i_})", prec, synced(ttm_kernel.ttm(y, u, precision=prec)),
+            label = f"y ({l_}, {i_}){' transposed' if transposed else ''} u ({r_}, {i_})"
+            compare(f"ttm {label}", prec, check_ttm_call(label, y, u, prec),
                     synced(ttm_kernel.ttm_plain(y, u, precision=prec)), i_)
 
 
@@ -705,7 +729,8 @@ def phase4_nell2(dev, card: str):
         kern = partial(ttm_kernel.ttm, yc, uc, precision=p)
         plain = partial(ttm_kernel.ttm_plain, yc, uc, precision=p)
         err = compare(f"ttm NELL-2 y {tuple(yc.shape)} (transposed view) u "
-                      f"{tuple(uc.shape)}", p, synced(kern()), synced(plain()), yc.shape[1])
+                      f"{tuple(uc.shape)}", p, check_ttm_call("NELL-2", yc, uc, p),
+                      synced(plain()), yc.shape[1])
         yb, ub = kron_kernel._cast_operands(p, yc, uc)
         # one PyTorch call of the same function; bf16 matmul would round its
         # output to bf16, a different function, so none under bf16_fp32acc
@@ -1052,7 +1077,7 @@ def phase6_nips(dev, card: str):
         kern = partial(ttm_kernel.ttm, y3.T, u3.T, precision=p)
         plain = partial(ttm_kernel.ttm_plain, y3.T, u3.T, precision=p)
         err = compare(f"ttm NIPS y {tuple(y3.T.shape)} (transposed view) u {tuple(u3.T.shape)}",
-                      p, synced(kern()), synced(plain()), y3.shape[0])
+                      p, check_ttm_call("NIPS", y3.T, u3.T, p), synced(plain()), y3.shape[0])
         ttm_row[p] = {"ms": time_ms(kern, reps=20), "plain_ms": time_ms(plain, reps=20),
                       "max_abs_err": err}
     core_plain = fold_dense(ttm_kernel.ttm_plain(y3_plain.T, u3.T).T, 3, NIPS_RANKS)
@@ -1094,6 +1119,22 @@ FLASH_CASES = [
     (1, 6, 2, 33, 200, 16, True, "D 16, G 3, T > S"),
     (2, 2, 1, 1, 300, 80, True, "one query row, as in decode"),
     (1, 4, 2, 70, 130, 48, False, "non-causal, T not a block multiple"),
+    (4, 32, 32, 1024, 1024, 80, True, "the Zamba2 serving shape at S 1,024"),
+    (1, 4, 2, 300, 300, 80, True, "S 300, not a multiple of the 128-row q block"),
+    (1, 6, 2, 200, 520, 64, True, "T > S, G 3, T not a multiple of the 128-key block"),
+]
+# the model's layout, (b, s, heads, hd) projections passed as (b, heads, s,
+# hd) views: (b, s, t, H, KVH, D, causal, what the case covers); D 28 (the
+# qwen2-7b SMOKE head dim) breaks TMA's 16-byte rules and takes the tensor-core
+# kernel's ordinary-load staging
+VIEW_CASES = [
+    (2, 90, 90, 6, 3, 80, True, "D 80, G 2"),
+    (2, 130, 130, 4, 4, 16, True, "D 16"),
+    (1, 200, 200, 6, 2, 64, True, "D 64, G 3"),
+    (2, 129, 129, 2, 1, 128, True, "D 128, MQA"),
+    (2, 100, 100, 4, 2, 28, True, "D 28: ordinary-load staging"),
+    (1, 64, 192, 4, 2, 80, True, "D 80, T > S"),
+    (2, 77, 150, 4, 2, 80, False, "D 80, non-causal"),
 ]
 # (BH, C, L, P, N, decay rate, what the case covers); the log decays are
 # cumulative sums of -rate * |N(0, 1)|
@@ -1119,26 +1160,41 @@ def phase7_lm_kernels(dev) -> None:
     def randn(*shape):
         return torch.randn(shape, generator=g, device=dev)
 
+    def attend(label, q, k, v, causal, n_terms):
+        """One call against the plain version; bf16 must take the wgmma
+        route and f32 the simt route, once each."""
+        prec = "bf16" if q.dtype == torch.bfloat16 else "fp32"
+        route = "wgmma" if prec == "bf16" else "simt"
+        staging = fa.launch_plan(q.dtype, (q.shape, k.shape, v.shape),
+                                 (q.stride(), k.stride(), v.stride()),
+                                 (q.data_ptr(), k.data_ptr(), v.data_ptr()), causal=causal)[1]
+        before = dict(fa.flash_attention.launches_by_route)
+        got = synced(fa.flash_attention(q, k, v, causal=causal))
+        taken = {r: n - before[r] for r, n in fa.flash_attention.launches_by_route.items()}
+        check(taken == {"wgmma": int(route == "wgmma"), "simt": int(route == "simt")},
+              f"flash_attention {label} [{prec}] took routes {taken}, want {route}")
+        want = synced(fa.flash_attention_plain(q, k, v, causal=causal))
+        check(got.dtype == q.dtype and got.shape == want.shape and got.stride() == q.stride(),
+              f"flash_attention {label}: {got.dtype} {tuple(got.shape)} {got.stride()}")
+        compare(f"flash_attention {label} ({route}{', ' + staging if staging else ''})", prec,
+                got.float(), want.float(), n_terms)
+        return staging
+
     for b, h, kvh, s, t, d, causal, label in FLASH_CASES:
         q32, k32, v32 = randn(b, h, s, d), randn(b, kvh, t, d), randn(b, kvh, t, d)
-        for dtype, prec in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (x.to(dtype) for x in (q32, k32, v32))
-            got = synced(fa.flash_attention(q, k, v, causal=causal))
-            want = synced(fa.flash_attention_plain(q, k, v, causal=causal))
-            check(got.dtype == dtype and got.shape == want.shape, f"flash_attention {label}: "
-                  f"{got.dtype} {tuple(got.shape)}")
-            compare(f"flash_attention {label} {(b, h, kvh, s, t, d)}", prec, got.float(),
-                    want.float(), t * d)
-    # the model's layout: (b, s, heads, hd) projections as transposed views,
-    # read through their strides; the output takes q's layout
-    qm, km, vm = (x.to(torch.bfloat16) for x in (randn(2, 90, 6, 80), randn(2, 90, 3, 80),
-                                                  randn(2, 90, 3, 80)))
-    qv, kv_, vv = qm.transpose(1, 2), km.transpose(1, 2), vm.transpose(1, 2)
-    got = synced(fa.flash_attention(qv, kv_, vv))
-    check(got.stride() == qv.stride(), f"flash_attention output strides {got.stride()}, "
-          f"q's {qv.stride()}")
-    compare("flash_attention on (b, s, heads, hd) views (2, 6, 3, 90, 90, 80)", "bf16",
-            got.float(), fa.flash_attention_plain(qv, kv_, vv).float(), 90 * 80)
+            attend(f"{label} {(b, h, kvh, s, t, d)}", q, k, v, causal, t * d)
+    # the model's layout: views read through their strides, the output in q's
+    for b, s, t, h, kvh, d, causal, label in VIEW_CASES:
+        qm, km, vm = randn(b, s, h, d), randn(b, t, kvh, d), randn(b, t, kvh, d)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (x.to(dtype).transpose(1, 2) for x in (qm, km, vm))
+            staging = attend(f"(b, s, heads, hd) views {label} {(b, h, kvh, s, t, d)}",
+                             q, k, v, causal, t * d)
+            if dtype == torch.bfloat16:
+                check(staging == ("threads" if (2 * d) % 16 else "tma"),
+                      f"flash_attention views {label}: staging {staging}")
 
     for bh, c, n_l, p, n, rate, label in SSD_CASES:
         x, bm, cm = randn(bh, c, n_l, p), randn(bh, c, n_l, n), randn(bh, c, n_l, n)
@@ -1342,13 +1398,17 @@ def phase9_zamba2(dev, card: str):
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
     launches = read_launches()
+    fa_routes = dict(fa.flash_attention.launches_by_route)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"  generate (cold): {t_gen:.3f} s, launches {launches}, peak {peak_gb:.2f} GB, "
-        f"{n_params / 1e9:.3f} B parameters (init {t_init:.2f} s)")
+    log(f"  generate (cold): {t_gen:.3f} s, launches {launches}, flash_attention routes "
+        f"{fa_routes}, peak {peak_gb:.2f} GB, {n_params / 1e9:.3f} B parameters "
+        f"(init {t_init:.2f} s)")
     check(launches == {"fused_kron_scatter": 0, "ttm": 0, "kron_contrib": 0, "scatter_rows": 0,
                        "fused_kron_scatter_ttm": 0, "flash_attention": n_sb,
                        "ssd_chunk": cfg.n_layers},
           f"serving launches {launches}, want {n_sb} and {cfg.n_layers} (one prefill)")
+    check(fa_routes == {"wgmma": n_sb, "simt": 0},
+          f"prefill attention routes {fa_routes}, want all {n_sb} on the tensor-core kernel")
     check(out.shape == (SERVE_B, SERVE_P + SERVE_NEW) and np.array_equal(out[:, :SERVE_P], prompts)
           and bool(((out >= 0) & (out < cfg.vocab_size)).all()), f"generate output {out.shape}")
 
@@ -1418,13 +1478,22 @@ def phase9_zamba2(dev, card: str):
     t_ = k.shape[2]
     fa_flops = 4 * b_ * h_ * d_ * sum(min(t_, i + 1 + t_ - s_) for i in range(s_))
     fa_bytes = nbytes_of(q, k, v, q)
+    # the CUDA-core kernel on f32 operands at the same shape (its earlier
+    # time on this path, when it served bf16 too)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    simt_ms = time_ms(partial(fa.flash_attention, qf, kf, vf, **kw), reps=3)
+    del qf, kf, vf
     fa_row = {"ms": time_ms(fa_kern), "plain_ms": time_ms(fa_plain, reps=3),
               "library_ms": time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                   q, k, v, is_causal=True)),
               "bound_ms": max(fa_bytes / PEAK_BYTES_PER_S, fa_flops / PEAK_BF16_FLOPS) * 1e3,
               "bound_by": ("bytes" if fa_bytes / PEAK_BYTES_PER_S >= fa_flops / PEAK_BF16_FLOPS
                            else "operations"),
+              # p @ v twice (p_hi, p_lo): 1.5x the minimum tensor-core work
+              "bound_split_ms": max(fa_bytes / PEAK_BYTES_PER_S,
+                                    1.5 * fa_flops / PEAK_BF16_FLOPS) * 1e3,
               "f32_core_bound_ms": fa_flops / PEAK_F32_FLOPS * 1e3,
+              "simt_f32_ms": simt_ms,
               "flops": fa_flops, "bytes": fa_bytes, "max_abs_err": fa_err}
     log(f"    flash_attention: {json.dumps(fa_row)}")
     (x, acs, bm, cm), _ = kept["ssd_chunk"]
@@ -1467,11 +1536,12 @@ def phase9_zamba2(dev, card: str):
     return {
         "flash_attention": {
             "name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
             "replaces": "src/repro/kernels/flash_attention.py:78",
             "launches": launches["flash_attention"], "max_abs_err": fa_err, "ms": fa_row["ms"],
             "plain_ms": fa_row["plain_ms"], "device_ms": kms["flash_attention"] / n_sb,
             "bound_ms": fa_row["bound_ms"], "bound_by": fa_row["bound_by"],
+            "bound_split_ms": fa_row["bound_split_ms"], "simt_f32_ms": fa_row["simt_f32_ms"],
             "library_ms": fa_row["library_ms"]},
         "ssd_chunk": {
             "name": "ssd_chunk", "route": "cuda",

@@ -23,11 +23,14 @@ from typing import Dict, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("kron_scatter", "ttm", "kron_contrib", "scatter_rows", "kron_scatter_ttm",
-           "flash_attention", "ssd_chunk")
+           "flash_attention", "flash_attention_wgmma", "ssd_chunk")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# per-source link flags, after the source: the tensor-core attention looks
+# up libcuda's cuTensorMapEncodeTiled with dlopen/dlsym (no -lcuda)
+EXTRA_FLAGS = {"flash_attention_wgmma": ("-ldl",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -51,8 +54,9 @@ def nvcc() -> str:
 def library_path(name: str) -> Path:
     # the shared headers count too: an edit to one rebuilds every library.
     headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    flags = " ".join(NVCC_FLAGS + EXTRA_FLAGS.get(name, ())).encode()
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+        (CSRC / f"{name}.cu").read_bytes() + headers + flags
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
@@ -68,7 +72,8 @@ def build_all(force: bool = False) -> Dict[str, float]:
     for name in todo:
         tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (tmp, subprocess.Popen(
-            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+             *EXTRA_FLAGS.get(name, ())],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
     seconds, failed = {}, {}

@@ -1,4 +1,4 @@
-// Split-K core TTM, G = Y U^T, for sm_90a.
+// Core TTM, G = Y U^T, as one deterministic launch, for sm_90a.
 //
 // Replaces: src/repro/kernels/ttm_kernel.py :: ttm_pallas (_ttm_kernel), the
 // TPU kernel that computes G = Y @ U^T for y (L, I) and u (R, I) with an f32
@@ -6,113 +6,336 @@
 //
 // What bounds it on this card: bytes. On the HOOI path L = prod R_t = 256,
 // R = 16 and I = I_N is up to ~29 K: one pass over a 29.5 MB unfolding for
-// 2*L*R*I = 0.24 GFLOP, about 9 us of reads against 4 us of f32 math.
+// 2*L*R*I = 0.24 GFLOP, about 9 us of reads against 4 us of f32 math on the
+// CUDA cores (tensor cores would need 3xTF32 for an f32 result and buy
+// nothing on a product this byte-bound).
 //
-// Design. The product is skinny (4,096 outputs) with a long contraction, so
-// one CTA per output tile would leave most SMs idle. The contraction is
-// split instead: CTA (x, y, z) reduces slice y of I for a BL x BR output
-// tile into its own slot of a partial buffer, and a second small kernel sums
-// the slots in slice order. No atomics, so the result is the same bit for
-// bit on every run. Operands are read through their strides, so the
-// transposed views the sweep passes (y = Y_(N)^T, u = U_N^T) need no copy;
-// each staging loop walks the operand along its unit-stride axis so global
-// reads coalesce, and the shared tiles are padded by one column against
-// bank conflicts. bf16 operands are widened to f32 on load; accumulation is
-// f32 under both precisions.
+// Design. One launch over a grid sized from the SM count (one CTA per SM):
+// CTA c owns output tile c / n_splits (kBL x kBR, 16 outputs a thread) and
+// the contiguous contraction range split * chunk .. of c % n_splits. On the
+// path's layout each contraction index is one contiguous row of y (1 KB)
+// and of u (64 B); the CTA streams its range through a kStages-deep ring of
+// kBT-row steps filled by bulk copies (cp.async.bulk, completion on an
+// mbarrier), up to ~170 KB in flight per SM. Other layouts take a strided
+// staging path in the same kernel, each loop walking the operand along its
+// unit-stride axis. The partial sums then meet in a fixed order without
+// atomics on the data: each CTA writes its tile partial to its slot; the
+// last CTA of each group of consecutive splits (an atomic ticket per group)
+// sums the group's slots in slot order into a group slot, and the last group
+// to finish sums the group slots in group order into G. Whichever CTA comes
+// last, the sums are the same, so the bits are the same on every run. The
+// last CTA resets the tickets, so the counters stay zero between launches.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kBL = 64;   // output rows per CTA
-constexpr int kBR = 16;   // output columns per CTA
-constexpr int kBT = 32;   // contraction step staged in shared memory
-constexpr int kThreads = 256;  // = kBL * kBR / 4: four outputs per thread
+constexpr int kBL = 256;       // output rows per tile
+constexpr int kBR = 16;        // output columns per tile
+constexpr int kBT = 32;        // contraction indices per staging step
+constexpr int kStages = 6;     // ring depth of the bulk-copy path
+constexpr int kThreads = 256;  // thread t: rows 4 (t % 64) .. + 3, columns 4 (t / 64) .. + 3
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    ttm_partial_kernel(const T* __restrict__ y, long long sy0, long long sy1,
-                       const T* __restrict__ u, long long su0, long long su1,
-                       float* __restrict__ part, int L, int I, int R, int chunk) {
-  __shared__ float ys[kBT][kBL + 1];
-  __shared__ float us[kBT][kBR + 1];
-  const int l0 = blockIdx.x * kBL, r0 = blockIdx.z * kBR;
-  const int tid = threadIdx.x;
-  const int l = tid % kBL, rq = (tid / kBL) * 4;
-  const long long t_begin = (long long)blockIdx.y * chunk;
-  const long long t_end = min((long long)I, t_begin + chunk);
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (long long tb = t_begin; tb < t_end; tb += kBT) {
-    const int nt = (int)min((long long)kBT, t_end - tb);
-    for (int e = tid; e < kBT * kBL; e += kThreads) {
-      int tt, ll;
-      if (sy0 <= sy1) { ll = e % kBL; tt = e / kBL; } else { tt = e % kBT; ll = e / kBT; }
-      float val = 0.f;
-      if (tt < nt && l0 + ll < L) val = to_f32(y[(l0 + ll) * sy0 + (tb + tt) * sy1]);
-      ys[tt][ll] = val;
-    }
-    for (int e = tid; e < kBT * kBR; e += kThreads) {
-      int tt, rr;
-      if (su0 <= su1) { rr = e % kBR; tt = e / kBR; } else { tt = e % kBT; rr = e / kBT; }
-      float val = 0.f;
-      if (tt < nt && r0 + rr < R) val = to_f32(u[(r0 + rr) * su0 + (tb + tt) * su1]);
-      us[tt][rr] = val;
-    }
-    __syncthreads();
-    for (int tt = 0; tt < nt; ++tt) {
-      const float yv = ys[tt][l];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[q] = fmaf(yv, us[tt][rq + q], acc[q]);
-    }
-    __syncthreads();
-  }
-  if (l0 + l < L) {
-    float* p = part + ((long long)blockIdx.y * L + l0 + l) * R;
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      if (r0 + rq + q < R) p[r0 + rq + q] = acc[q];
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__global__ void ttm_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                  int n_chunks, long long lr) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= lr) return;
-  float s = 0.f;
-  for (int c = 0; c < n_chunks; ++c) s += part[c * lr + idx];
-  out[idx] = s;
+__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  x[0] = a.x, x[1] = a.y, x[2] = b.x, x[3] = b.y;
+}
+
+// ticket per group, then the final ticket of the tile; returns whether this
+// CTA drew the last one (the same answer in every thread)
+__device__ __forceinline__ bool last_to_arrive(int* counter, int n) {
+  __shared__ int last;
+  __threadfence();  // this CTA's slot writes before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(counter, 1) == n - 1;
+  __syncthreads();
+  if (last) __threadfence();  // and the other CTAs' slots before our reads
+  return last;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    ttm_kernel(const T* __restrict__ y, long long sy0, long long sy1, const T* __restrict__ u,
+               long long su0, long long su1, float* __restrict__ slots, int* __restrict__ tickets,
+               float* __restrict__ out, int L, int I, int R, int chunk, int n_splits, int group,
+               int bulk) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  T* ys = reinterpret_cast<T*>(smem);  // [kStages][kBT][kBL]
+  T* us = ys + kStages * kBT * kBL;    // [kStages][kBT][kBR]
+  uint64_t* full = reinterpret_cast<uint64_t*>(us + kStages * kBT * kBR);
+
+  const int tid = threadIdx.x;
+  const int n_ltiles = (L + kBL - 1) / kBL;
+  const int tile = blockIdx.x / n_splits, split = blockIdx.x % n_splits;
+  const int l0 = (tile % n_ltiles) * kBL, r0 = (tile / n_ltiles) * kBR;
+  const int nl = min(kBL, L - l0), nr = min(kBR, R - r0);
+  const int i0 = split * chunk, i1 = min(I, i0 + chunk);
+  const int n_steps = (i1 - i0 + kBT - 1) / kBT;
+  const int lq = 4 * (tid % 64), rq = 4 * (tid / 64);
+  float acc[4][4] = {};
+
+  auto compute = [&](const T* yst, const T* ust, int nt) {
+    for (int tt = 0; tt < nt; ++tt) {
+      float a[4], b[4];
+      load4(yst + tt * kBL + lq, a);
+      load4(ust + tt * kBR + rq, b);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  };
+
+  if (bulk) {
+    // y rows of nl and u rows of nr contiguous elements, 16-byte aligned
+    if (tid == 0) {
+      for (int s = 0; s < kStages; ++s)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(&full[s])) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    // a step's rows are one contiguous block where the tile spans whole rows
+    // of a dense operand (the sweep's y and u): a few large copies; else a
+    // copy per row
+    const bool y_block = l0 == 0 && sy1 == nl && nl == kBL;
+    const bool u_block = r0 == 0 && su1 == nr && nr == kBR;
+    // warp 0 fills stage s % kStages with step s: lane 0 posts the bytes,
+    // then the lanes issue the copies
+    auto issue = [&](int s) {
+      const int st = s % kStages, ib = i0 + s * kBT, nt = min(kBT, i1 - ib);
+      const uint32_t bar = smem_u32(&full[st]);
+      const uint32_t yb = nl * sizeof(T), ub = nr * sizeof(T);
+      if (tid == 0) {
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+                     "r"(nt * (yb + ub))
+                     : "memory");
+      }
+      __syncwarp();
+      auto copy = [&](const T* dst, const T* src, uint32_t bytes) {
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+            "[%3];" ::"r"(smem_u32(dst)),
+            "l"(src), "r"(bytes), "r"(bar)
+            : "memory");
+      };
+      const T* ysrc = y + (long long)ib * sy1 + l0;
+      const T* usrc = u + (long long)ib * su1 + r0;
+      if (y_block) {  // 4-row (4 KB) copies, several in flight per step
+        for (int c = 4 * tid; c < nt; c += 4 * 32)
+          copy(ys + (st * kBT + c) * kBL, ysrc + (long long)c * sy1, min(4, nt - c) * yb);
+      } else {
+        for (int tt = tid; tt < nt; tt += 32)
+          copy(ys + (st * kBT + tt) * kBL, ysrc + (long long)tt * sy1, yb);
+      }
+      if (u_block) {
+        if (tid == 1) copy(us + st * kBT * kBR, usrc, nt * ub);
+      } else {
+        for (int tt = tid; tt < nt; tt += 32)
+          copy(us + (st * kBT + tt) * kBR, usrc + (long long)tt * su1, ub);
+      }
+    };
+    if (tid < 32)
+      for (int s = 0; s < min(kStages - 1, n_steps); ++s) issue(s);
+    for (int s = 0; s < n_steps; ++s) {
+      // stage (s - 1) % kStages was released by the barrier ending step s - 1
+      if (tid < 32 && s + kStages - 1 < n_steps) issue(s + kStages - 1);
+      const int st = s % kStages;
+      const uint32_t parity = (s / kStages) & 1;
+      uint32_t done = 0;
+      for (uint32_t polls = 0; !done; ++polls) {
+        if (polls == 0x80000000u) __trap();  // a launch failure, not a hang
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done)
+            : "r"(smem_u32(&full[st])), "r"(parity)
+            : "memory");
+      }
+      compute(ys + st * kBT * kBL, us + st * kBT * kBR, min(kBT, i1 - (i0 + s * kBT)));
+      __syncthreads();
+    }
+  } else {
+    // strided staging into stage 0; zeros past nl and nr
+    for (int s = 0; s < n_steps; ++s) {
+      const int ib = i0 + s * kBT, nt = min(kBT, i1 - ib);
+      for (int e = tid; e < kBT * kBL; e += kThreads) {
+        int tt, ll;
+        if (sy0 <= sy1) { ll = e % kBL; tt = e / kBL; } else { tt = e % kBT; ll = e / kBT; }
+        ys[tt * kBL + ll] =
+            tt < nt && ll < nl ? y[(long long)(l0 + ll) * sy0 + (long long)(ib + tt) * sy1] : T(0.f);
+      }
+      for (int e = tid; e < kBT * kBR; e += kThreads) {
+        int tt, rr;
+        if (su0 <= su1) { rr = e % kBR; tt = e / kBR; } else { tt = e % kBT; rr = e / kBT; }
+        us[tt * kBR + rr] =
+            tt < nt && rr < nr ? u[(long long)(r0 + rr) * su0 + (long long)(ib + tt) * su1] : T(0.f);
+      }
+      __syncthreads();
+      compute(ys, us, nt);
+      __syncthreads();
+    }
+  }
+
+  // The combine works on a flat view of the tile: thread t holds elements
+  // 4 (t + kThreads k) .. + 3 (k < 4) of the row-major (kBL, kBR) tile, so
+  // a warp reads or writes 512 contiguous bytes of a slot at a time. The
+  // partial moves to that view through shared memory (the ring is free).
+  float* tile_s = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    *reinterpret_cast<float4*>(tile_s + (lq + i) * kBR + rq) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  __syncthreads();
+  float flat[4][4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float4 v4 = *reinterpret_cast<const float4*>(tile_s + 4 * (tid + kThreads * k));
+    flat[k][0] = v4.x, flat[k][1] = v4.y, flat[k][2] = v4.z, flat[k][3] = v4.w;
+  }
+  // element 4 (tid + kThreads k) + e is row fl(k), column fc(k) + e of the tile
+  auto fl = [&](int k) { return 4 * (tid + kThreads * k) / kBR; };
+  auto fc = [&](int k) { return 4 * (tid + kThreads * k) % kBR; };
+  const long long lr = (long long)L * R;
+  auto at = [&](int k) { return (long long)(l0 + fl(k)) * R + r0 + fc(k); };
+  // four columns as one 16-byte access where they are whole and aligned
+  auto whole = [&](int k) { return R % 4 == 0 && fc(k) + 4 <= nr; };
+  auto put = [&](float* dst) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (fl(k) >= nl) continue;
+      float* p = dst + at(k);
+      if (whole(k)) {
+        *reinterpret_cast<float4*>(p) = make_float4(flat[k][0], flat[k][1], flat[k][2], flat[k][3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (fc(k) + e < nr) p[e] = flat[k][e];
+      }
+    }
+  };
+  // flat = the sum of slots 0 .. n - 1 of src, in slot order; four slots'
+  // loads are in flight at a time, the adds stay in order
+  auto gather = [&](const float* src, int n) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) flat[k][e] = 0.f;
+    for (int c0 = 0; c0 < n; c0 += 4) {
+      float x[4][4][4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float* p = src + (c0 + c) * lr + at(k);
+          const bool row = c0 + c < n && fl(k) < nl;
+          if (whole(k)) {
+            const float4 v4 = row ? __ldcg(reinterpret_cast<const float4*>(p))
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+            x[c][k][0] = v4.x, x[c][k][1] = v4.y, x[c][k][2] = v4.z, x[c][k][3] = v4.w;
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) x[c][k][e] = row && fc(k) + e < nr ? __ldcg(p + e) : 0.f;
+          }
+        }
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (c0 + c < n) flat[k][e] += x[c][k][e];
+    }
+  };
+  if (n_splits == 1) {
+    put(out);
+    return;
+  }
+  const int n_groups = (n_splits + group - 1) / group;
+  const int grp = split / group, g0 = grp * group, gn = min(group, n_splits - g0);
+  int* tk = tickets + (long long)tile * (n_groups + 1);
+  put(slots + split * lr);
+  if (!last_to_arrive(&tk[grp], gn)) return;
+  gather(slots + g0 * lr, gn);
+  if (tid == 0) tk[grp] = 0;
+  if (n_groups == 1) {
+    put(out);
+    return;
+  }
+  put(slots + (n_splits + grp) * lr);
+  if (!last_to_arrive(&tk[n_groups], n_groups)) return;
+  gather(slots + n_splits * lr, n_groups);
+  if (tid == 0) tk[n_groups] = 0;
+  put(out);
+}
+
+long long n_launched = 0;  // kernels this library has launched
+
+size_t smem_bytes(int esize) {
+  return (size_t)kStages * kBT * (kBL + kBR) * esize + kStages * sizeof(uint64_t);
+}
+
+template <typename T>
+int launch(const void* y, long long sy0, long long sy1, const void* u, long long su0,
+           long long su1, void* slots, void* tickets, void* out, int L, int I, int R, int chunk,
+           int n_splits, int group, int bulk, cudaStream_t st) {
+  auto kernel = ttm_kernel<T>;
+  const size_t smem = smem_bytes(sizeof(T));
+  static bool attr_set[64] = {};  // per device, once: it is a host call of its own
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device >= 64 || !attr_set[device]) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (device < 64) attr_set[device] = true;
+  }
+  const int n_tiles = ((L + kBL - 1) / kBL) * ((R + kBR - 1) / kBR);
+  kernel<<<(unsigned)((long long)n_tiles * n_splits), kThreads, smem, st>>>(
+      static_cast<const T*>(y), sy0, sy1, static_cast<const T*>(u), su0, su1,
+      static_cast<float*>(slots), static_cast<int*>(tickets), static_cast<float*>(out), L, I, R,
+      chunk, n_splits, group, bulk);
+  const cudaError_t err_launch = cudaGetLastError();
+  if (err_launch == cudaSuccess) ++n_launched;
+  return (int)err_launch;
 }
 
 }  // namespace
 
 // out (L, R) f32 contiguous = y (L, I) @ u (R, I)^T, y and u read through
-// their element strides, f32 (bf16 = 0) or bf16 (bf16 = 1). part is an
-// (n_chunks, L, R) f32 scratch buffer; slice c covers contraction indices
-// [c*chunk, min(I, (c+1)*chunk)). Returns cudaGetLastError() after the two
-// launches.
+// their element strides, f32 (bf16 = 0) or bf16 (bf16 = 1). Split s of
+// n_splits covers contraction indices [s*chunk, min(I, (s+1)*chunk)); splits
+// are combined in groups of ``group``. slots holds (n_splits + n_groups) x L
+// x R f32 and tickets n_tiles x (n_groups + 1) ints, all zero on entry (and
+// left zero). bulk = 1 needs sy0 = su0 = 1 and every row start and length
+// 16-byte aligned. Returns cudaGetLastError() after the launch.
+// device kernels launched by ttm_launch so far (one per successful call)
+extern "C" long long ttm_kernels_launched() { return n_launched; }
+
 extern "C" int ttm_launch(const void* y, long long sy0, long long sy1, const void* u,
-                          long long su0, long long su1, void* part, void* out, int L, int I,
-                          int R, int chunk, int n_chunks, int bf16, void* stream) {
-  if (L < 1 || I < 1 || R < 1 || chunk < 1 || n_chunks < 1 || n_chunks > 65535 ||
-      (long long)(n_chunks - 1) * chunk >= I)
+                          long long su0, long long su1, void* slots, void* tickets, void* out,
+                          int L, int I, int R, int chunk, int n_splits, int group, int bulk,
+                          int bf16, void* stream) {
+  if (L < 1 || I < 1 || R < 1 || chunk < 1 || n_splits < 1 || group < 1 ||
+      (long long)(n_splits - 1) * chunk >= I || (long long)n_splits * chunk < I ||
+      (bulk && (sy0 != 1 || su0 != 1)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((L + kBL - 1) / kBL, n_chunks, (R + kBR - 1) / kBR);
-  float* pp = static_cast<float*>(part);
-  if (bf16) {
-    ttm_partial_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(y), sy0, sy1, static_cast<const __nv_bfloat16*>(u),
-        su0, su1, pp, L, I, R, chunk);
-  } else {
-    ttm_partial_kernel<float><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(y), sy0, sy1, static_cast<const float*>(u), su0, su1, pp, L,
-        I, R, chunk);
-  }
-  const long long lr = (long long)L * R;
-  ttm_reduce_kernel<<<(unsigned)((lr + 255) / 256), 256, 0, st>>>(pp, static_cast<float*>(out),
-                                                                  n_chunks, lr);
-  return (int)cudaGetLastError();
+  if (bf16)
+    return launch<__nv_bfloat16>(y, sy0, sy1, u, su0, su1, slots, tickets, out, L, I, R, chunk,
+                                 n_splits, group, bulk, st);
+  return launch<float>(y, sy0, sy1, u, su0, su1, slots, tickets, out, L, I, R, chunk, n_splits,
+                       group, bulk, st);
 }

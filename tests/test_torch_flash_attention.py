@@ -9,6 +9,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import attention as jattn
+from repro_torch.configs import registry
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.models import attention as tattn
@@ -132,3 +133,158 @@ def test_shapes_the_kernel_does_not_take_raise():
         fa.flash_attention(q, k, v)  # causal with fewer keys than queries
     with pytest.raises(ValueError, match="multiple"):
         fa.flash_attention(q[:, :, :20], torch.cat([k, k, k], 1), torch.cat([v, v, v], 1))
+
+
+# -- the tensor-core route (bf16): its numerics and its dispatch --------------
+
+
+def _split_p(p: torch.Tensor):
+    """p = p_hi + p_lo, both bf16, as the wgmma kernel splits it."""
+    hi = p.to(torch.bfloat16)
+    lo = (p - hi.float()).to(torch.bfloat16)
+    return hi, lo
+
+
+def _wgmma_emulation(q, k, v, causal=True, block=128):
+    """The bf16 kernel's arithmetic in plain torch: q k^T of the bf16 inputs
+    summed in f32, the online softmax in base 2 over 128-key blocks, p split
+    into bf16 hi + lo and both products with v summed in f32, the output
+    rounded to bf16."""
+    b, h, s, d = q.shape
+    kvh, t = k.shape[1], k.shape[2]
+    g = h // kvh
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    scale_log2 = 1.0 / np.sqrt(d) * 1.4426950408889634
+    m = torch.full((b, h, s), -1e30)
+    l = torch.zeros((b, h, s))
+    acc = torch.zeros((b, h, s, d))
+    qpos = torch.arange(s) + (t - s)
+    for k0 in range(0, t, block):
+        kpos = torch.arange(k0, min(t, k0 + block))
+        x = (q.float() @ kf[:, :, kpos].transpose(-1, -2)) * scale_log2
+        if causal:
+            x = x.masked_fill(qpos[:, None] < kpos[None, :], -1e30)
+        m_new = torch.maximum(m, x.max(-1).values)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        hi, lo = _split_p(p)
+        acc = acc * alpha[..., None] + hi.float() @ vf[:, :, kpos] + lo.float() @ vf[:, :, kpos]
+        m = m_new
+    return (acc / l[..., None]).to(torch.bfloat16)
+
+
+def test_p_split_recovers_p_to_two_to_the_minus_16():
+    p = torch.from_numpy(np.random.default_rng(5).random(100_000).astype(np.float32))
+    p = torch.cat([p, p * 1e-6, torch.tensor([0.0, 1.0])])
+    hi, lo = _split_p(p)
+    err = (hi.float() + lo.float() - p).abs()
+    assert bool((err <= 2.0 ** -16 * p.abs()).all())
+
+
+@pytest.mark.parametrize("b,h,kvh,s,t,d,causal", [
+    (2, 4, 2, 128, 128, 64, True), (1, 6, 2, 100, 200, 80, True), (1, 3, 3, 77, 77, 28, True),
+    (2, 4, 1, 70, 130, 16, False)])
+def test_wgmma_numerics_keep_the_models_function(b, h, kvh, s, t, d, causal):
+    """The emulated bf16 kernel against the model's gqa_attention (JAX, bf16
+    operands widened to f32, p in f32) and the port's plain version. Each
+    side rounds its f32 output to bf16 once (2^-8 relative), and p_hi + p_lo
+    carries p to 2^-16, far below that: within 2^-7 x max|output|, the
+    tolerance the card's comparison uses."""
+    q, k, v = _inputs(b, h, kvh, s, t, d, seed=7)
+    qb, kb, vb = (_to(x, "bfloat16") for x in (q, k, v))
+    got = _wgmma_emulation(qb, kb, vb, causal=causal)
+    plain = fa.flash_attention_plain(qb, kb, vb, causal=causal)
+    _close(got.float(), plain.float(), 2.0 ** -7)
+    if causal:
+        want = jattn.gqa_attention(*(jnp.asarray(x, jnp.bfloat16).transpose(0, 2, 1, 3)
+                                     for x in (q, k, v)), causal=True, chunk=64)
+        _close(got.float().transpose(1, 2), np.asarray(want.astype(jnp.float32)), 2.0 ** -7)
+    else:  # the model ignores causal=False (ROADMAP queue 3): the kernels' oracle
+        want = jref.flash_attention_ref(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+                                        causal=False)
+        _close(got.float(), np.asarray(want), 2.0 ** -7)
+
+
+def test_rounding_p_once_is_a_different_function():
+    """Why p is split: with p rounded to bf16 once (as SDPA and the TPU
+    kernel do) the output moves by more than the split's, measured against
+    the plain version's f32 p."""
+    q, k, v = (_to(x, "bfloat16") for x in _inputs(1, 2, 2, 128, 128, 64, seed=8))
+    want = fa.flash_attention_plain(q, k, v).float()
+    split = _wgmma_emulation(q, k, v).float()
+    logits = (q.float() @ k.float().transpose(-1, -2)) / 8.0
+    logits = logits.masked_fill(torch.ones(128, 128).triu(1).bool(), -1e30)
+    once = (torch.softmax(logits, -1).to(torch.bfloat16).float() @ v.float()).to(torch.bfloat16)
+    assert float((split - want).abs().max()) < float((once.float() - want).abs().max())
+
+
+def _meta(*xs):
+    return ([tuple(x.shape) for x in xs], [x.stride() for x in xs], [x.data_ptr() for x in xs])
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"), (torch.float32, "simt")])
+def test_dispatch_is_by_dtype(dtype, route):
+    q, k, v = (torch.zeros(shape, dtype=dtype) for shape in ((2, 4, 64, 80), (2, 2, 64, 80),
+                                                             (2, 2, 64, 80)))
+    got, staging = fa.launch_plan(dtype, *_meta(q, k, v))
+    assert got == route
+    assert staging == ("tma" if route == "wgmma" else None)
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.launch_plan(torch.float16, *_meta(q, k, v))
+
+
+def _attention_configs():
+    for name in sorted(registry._MODULES):
+        for smoke in (False, True):
+            cfg = registry.get_config(name, smoke=smoke)
+            if cfg.n_heads:
+                yield cfg
+
+
+@pytest.mark.parametrize("cfg", list(_attention_configs()), ids=lambda c: c.name)
+def test_every_registered_configs_attention_is_taken(cfg):
+    """q, k, v as ``models/attention.py`` passes them: (b, s, heads, hd)
+    projections viewed as (b, heads, s, hd). A head dim whose head stride is
+    not a multiple of 16 bytes (qwen2-7b SMOKE's 28) takes the kernel's
+    ordinary-load staging; every other one the TMA loads."""
+    hd = cfg.resolved_head_dim
+    b, s = 2, 5
+    q = torch.zeros((b, s, cfg.n_heads, hd), dtype=torch.bfloat16).transpose(1, 2)
+    k = torch.zeros((b, s, cfg.n_kv_heads, hd), dtype=torch.bfloat16).transpose(1, 2)
+    v = torch.zeros((b, s, cfg.n_kv_heads, hd), dtype=torch.bfloat16).transpose(1, 2)
+    route, staging = fa.launch_plan(torch.bfloat16, *_meta(q, k, v))
+    assert route == "wgmma"
+    assert staging == ("threads" if (hd * 2) % 16 else "tma")
+    if cfg.name == "qwen2-7b-smoke":
+        assert hd == 28 and staging == "threads"
+    assert fa.launch_plan(torch.float32, *_meta(q.float(), k.float(), v.float()))[0] == "simt"
+
+
+def test_offset_views_take_the_ordinary_load_staging():
+    """A base address off a 16-byte boundary cannot be a TMA base."""
+    buf = torch.zeros((2, 4, 64, 80), dtype=torch.bfloat16)
+    q = buf.view(-1)[4:4 + 2 * 4 * 60 * 80].view(2, 4, 60, 80)  # 8 bytes off
+    assert fa.launch_plan(torch.bfloat16, *_meta(q, q, q))[1] == "threads"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_what_no_kernel_takes_raises_before_a_launch(dtype):
+    def plan(q, k, v, causal=True):
+        return fa.launch_plan(dtype, *_meta(q, k, v), causal=causal)
+
+    z = torch.zeros((1, 2, 8, 144), dtype=dtype)
+    with pytest.raises(ValueError, match="head dim"):
+        plan(z, z, z)
+    z = torch.zeros((1, 2, 8, 16), dtype=dtype)
+    with pytest.raises(ValueError, match="unit-stride"):
+        plan(torch.zeros((1, 2, 16, 8), dtype=dtype).transpose(2, 3), z, z)
+    neg = (z.stride(0), z.stride(1), -16, 1)
+    with pytest.raises(ValueError, match="non-negative"):
+        fa.launch_plan(dtype, [tuple(z.shape)] * 3, [neg, z.stride(), z.stride()], (0, 0, 0))
+    with pytest.raises(ValueError, match="T >= S"):
+        plan(z, z[:, :, :4], z[:, :, :4])
+    with pytest.raises(ValueError, match="multiple"):
+        plan(torch.zeros((1, 3, 8, 16), dtype=dtype), z, z)
+    assert plan(z, z, z)[0] == fa.ROUTES[dtype]

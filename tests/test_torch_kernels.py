@@ -152,3 +152,77 @@ def test_every_kernel_source_is_built():
 def test_precision_is_validated():
     with pytest.raises(ValueError, match="precision"):
         kron_kernel._cast_operands("fp16", torch.zeros(1))
+
+
+# -- kernel 2's work split: one launch, fixed-order combine -------------------
+
+# (I, L, R, SMs): NELL-2's core update (Y_(2)^T is (256, 28,818)), NIPS's
+# ((4,096, 17) by (16, 17)), I below one staging step, L not a tile
+# multiple with R = 17, a long contraction, and a card with few SMs
+SPLIT_CASES = [(28818, 256, 16, 132), (17, 4096, 16, 132), (10, 15, 3, 132),
+               (1000, 300, 17, 132), (300, 100, 17, 132), (500_000, 256, 16, 132),
+               (28818, 256, 16, 7), (1, 1, 1, 132), (33, 8, 8, 132)]
+
+
+@pytest.mark.parametrize("n_i,n_l,n_r,n_sm", SPLIT_CASES)
+def test_ttm_split_covers_the_contraction_once_in_order(n_i, n_l, n_r, n_sm):
+    tiles = ttm_kernel.n_tiles(n_l, n_r)
+    chunk, n_splits, group = ttm_kernel.split(n_i, tiles, n_sm)
+    ranges = ttm_kernel.ranges(n_i, chunk, n_splits)
+    assert ranges[0][0] == 0 and ranges[-1][1] == n_i
+    assert all(a < b for a, b in ranges)  # no empty split
+    assert all(ranges[s][1] == ranges[s + 1][0] for s in range(n_splits - 1))
+    assert all(b - a == chunk and chunk % ttm_kernel._BT == 0 for a, b in ranges[:-1])
+    # about one CTA per SM, and never fewer than one per tile
+    assert tiles * n_splits <= max(n_sm, tiles)
+    assert n_splits == 1 or tiles * n_splits > n_sm // 2 or n_i <= n_sm * ttm_kernel._BT
+    # groups of consecutive splits, the last one possibly short
+    n_groups = -(-n_splits // group)
+    assert 1 <= group <= n_splits and (n_groups - 1) * group < n_splits <= n_groups * group
+    assert group * group >= n_splits
+
+
+def _combine(y, u, n_sm):
+    """The kernel's sums in its order, in f32: each split's partial over its
+    range, each group's partials in split order, the groups in order."""
+    tiles = ttm_kernel.n_tiles(y.shape[0], u.shape[0])
+    chunk, n_splits, group = ttm_kernel.split(y.shape[1], tiles, n_sm)
+    parts = [y[:, a:b] @ u[:, a:b].T for a, b in ttm_kernel.ranges(y.shape[1], chunk, n_splits)]
+    groups = []
+    for g0 in range(0, n_splits, group):
+        acc = torch.zeros_like(parts[0])
+        for p in parts[g0:g0 + group]:
+            acc = acc + p
+        groups.append(acc)
+    out = torch.zeros_like(parts[0])
+    for g in groups:
+        out = out + g
+    return out
+
+
+@pytest.mark.parametrize("n_i,n_l,n_r,n_sm", [(28818, 256, 16, 132), (1000, 300, 17, 132),
+                                              (17, 4096, 16, 132), (5000, 64, 16, 12)])
+def test_ttm_fixed_order_combine_matches_the_product(n_i, n_l, n_r, n_sm):
+    """The split's partial products summed in the kernel's order give the
+    plain product to the fp32 rule (n terms per output, reordered), and the
+    same bits on every evaluation."""
+    rng = np.random.default_rng(3)
+    y = torch.from_numpy(rng.standard_normal((n_i, n_l)).astype(np.float32)).T
+    u = torch.from_numpy(rng.standard_normal((n_i, n_r)).astype(np.float32)).T
+    got = _combine(y, u, n_sm)
+    assert torch.equal(got, _combine(y, u, n_sm))
+    want = ttm_kernel.ttm_plain(y, u)
+    _close(got.numpy(), want.numpy(), max(1e-5, 4 * np.sqrt(n_i) * 2.0 ** -24))
+
+
+def test_ttm_bulk_copies_rule():
+    """Bulk copies on the sweep's views (each contraction index a unit-stride
+    row of y and u, 16-byte rows); the strided staging otherwise."""
+    y = torch.zeros((28818, 256)).T
+    u = torch.zeros((28818, 16)).T
+    assert ttm_kernel.bulk_copies(y, u)
+    assert ttm_kernel.bulk_copies(y.bfloat16(), u.bfloat16())
+    assert ttm_kernel.bulk_copies(torch.zeros((17, 4096)).T, torch.zeros((17, 16)).T)
+    assert not ttm_kernel.bulk_copies(torch.zeros((1000, 15)).T, torch.zeros((1000, 3)).T)
+    assert not ttm_kernel.bulk_copies(torch.zeros((100, 300)), torch.zeros((17, 300)))
+    assert not ttm_kernel.bulk_copies(torch.zeros((300, 100)).T, torch.zeros((300, 17)).T)
