@@ -60,7 +60,11 @@ class SweepEngine:
     The schedules are the expensive part (three stable sorts of the
     nonzeros), built once per (tensor, mode) and reused by every sweep and
     call. Handing the engine a different tensor is safe: the caches rebind
-    when the indices tensor changes identity or the shape changes.
+    when the indices tensor changes identity or the shape changes. The
+    schedules also keep the slot-ordered values; those are taken again, with
+    no new sort, when the values tensor changes identity or is written in
+    place (its version counter moves). Indices written in place are not
+    seen: hand the engine a new indices tensor instead.
     """
 
     name: str  # resolved: "cuda" or "torch"
@@ -75,6 +79,10 @@ class SweepEngine:
     # referent makes the identity check sound without pinning the tensor.
     _bound_indices: Optional["weakref.ref"] = None
     _bound_shape: Optional[tuple] = None
+    # the values the schedules' slot values were taken from, and their
+    # version counter then (in-place writes move it)
+    _bound_values: Optional["weakref.ref"] = None
+    _bound_values_version: int = -1
 
     def _bind(self, coo: SparseCOO) -> None:
         bound = self._bound_indices() if self._bound_indices is not None else None
@@ -87,13 +95,21 @@ class SweepEngine:
 
             self._bound_indices = weakref.ref(coo.indices, _release)
             self._bound_shape = tuple(coo.shape)
+        values = self._bound_values() if self._bound_values is not None else None
+        version = coo.values._version
+        # same coordinates, other values: no new sort
+        if values is not coo.values or self._bound_values_version != version:
+            for mode, sched in self.dev_schedules.items():
+                self.dev_schedules[mode] = sched.with_values(coo.values)
+            self._bound_values = weakref.ref(coo.values)
+            self._bound_values_version = version
 
     def device_schedule(self, coo: SparseCOO, mode: int) -> DeviceSchedule:
         """The mode's schedule on the engine's device, built once."""
         self._bind(coo)
         if mode not in self.dev_schedules:
             self.dev_schedules[mode] = DeviceSchedule.from_layout(
-                build_mode_layout(coo, mode), self.device
+                build_mode_layout(coo, mode), coo, self.device
             )
             self.schedule_builds += 1
         return self.dev_schedules[mode]

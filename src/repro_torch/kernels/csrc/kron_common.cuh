@@ -1,7 +1,8 @@
-// Pieces shared by the Kron-row kernels (kron_scatter.cu, kron_contrib.cu,
-// kron_scatter_ttm.cu), for sm_90a: operand loads, the per-term rounding of
-// the precision axis, the launch shape of the slot staging, and the
-// segmented walk over a range of schedule slots that builds each row of
+// Pieces shared by the Kron-row kernels, for sm_90a: operand loads and the
+// per-term rounding of the precision axis (kron_scatter.cu, kron_contrib.cu,
+// kron_scatter_ttm.cu), and for kron_scatter_ttm.cu the launch shape of the
+// slot staging and the segmented walk over a range of schedule slots that
+// builds each row of
 //     Y_(n)[row(t)] += v[t] * (a[t] (x) b[t])      (Rb fastest, K = Ra*Rb).
 //
 // The walk. A thread owns one column j of b and four consecutive columns

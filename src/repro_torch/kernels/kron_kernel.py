@@ -7,8 +7,9 @@ Port of ``repro.kernels.kron_kernel``, one wrapper per TPU kernel:
                                   (``csrc/kron_contrib.cu``);
   :func:`scatter_rows`            the slot-ordered contrib rows summed into
                                   their rows of Y_(n) (``csrc/scatter_rows.cu``);
-  :func:`fused_kron_scatter`      both in one pass, ``Y_(n)[row] += v * (a (x) b)``
-                                  (``csrc/kron_scatter.cu``);
+  :func:`fused_kron_scatter`      both in one pass, ``Y_(n)[row] += v * (a (x) b)``,
+                                  a and b read from the factor matrices
+                                  through the schedule (``csrc/kron_scatter.cu``);
   :func:`fused_kron_scatter_ttm`  ``G = U^T Y_(n)`` with Y_(n) rebuilt from
                                   the nonzeros and never stored
                                   (``csrc/kron_scatter_ttm.cu``).
@@ -53,11 +54,9 @@ def _mask_unvisited(out: torch.Tensor, sched) -> torch.Tensor:
     return torch.where(sched.row_mask[:, None], out, 0.0)
 
 
-def fused_kron_scatter_plain(a, b, v, sched, n_rows: int, *,
-                             precision: str = "fp32") -> torch.Tensor:
-    """Plain PyTorch version of :func:`fused_kron_scatter`: Kron rows in the
-    schedule's gather order, ``index_add_`` into their rows, then the row
-    mask."""
+def _rows_scatter_plain(a, b, v, sched, n_rows: int, precision: str) -> torch.Tensor:
+    """``Y[row(t)] += v[t] * (a[t] (x) b[t])`` from slot-ordered operand rows:
+    Kron rows ``index_add_``-ed into their rows, then the row mask."""
     a, b = _cast_operands(precision, a, b)
     k = a.shape[1] * b.shape[1]
     rows = slot_rows(sched)
@@ -71,11 +70,24 @@ def fused_kron_scatter_plain(a, b, v, sched, n_rows: int, *,
     return _mask_unvisited(out[:n_rows], sched)
 
 
+def fused_kron_scatter_plain(fa, fb, sched, n_rows: int, *,
+                             precision: str = "fp32") -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_kron_scatter`: the factor rows
+    gathered in the schedule's slot order, then their Kron rows
+    ``index_add_``-ed into their rows and the row mask applied. ``fa`` rows
+    by ``sched.idx[:, 0]``, ``fb`` rows by ``sched.idx[:, 1]`` (a column of
+    ones when ``fb`` is None, the 2-way case)."""
+    a = fa.index_select(0, sched.idx[:, 0])
+    b = (torch.ones((a.shape[0], 1), dtype=a.dtype, device=a.device) if fb is None
+         else fb.index_select(0, sched.idx[:, 1]))
+    return _rows_scatter_plain(a, b, sched.vals, sched, n_rows, precision)
+
+
 def _lib():
     lib = _build.load("kron_scatter")
     fn = lib.kron_scatter_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -131,35 +143,70 @@ def _check_operands(kernel: str, a, b, v, precision: str):
     return a, b
 
 
-def fused_kron_scatter(a, b, v, sched, n_rows: int, *,
+def _padded_factor(f: torch.Tensor) -> torch.Tensor:
+    """``f`` (I, R), contiguous and 16-byte aligned, its rows zero-padded to
+    a multiple of 16 bytes: the kernel gathers them in 16-byte pieces."""
+    per16 = 16 // f.element_size()
+    pad = (-f.shape[1]) % per16
+    if pad:
+        f = torch.nn.functional.pad(f, (0, pad))
+    f = f.contiguous()
+    return f if f.data_ptr() % 16 == 0 else f.clone()
+
+
+def fused_kron_scatter(fa, fb, sched, n_rows: int, *,
                        precision: str = "fp32") -> torch.Tensor:
     """Y_(n) (n_rows, Ra*Rb) f32 with ``Y[row(t)] += v[t] * (a[t] (x) b[t])``.
 
-    ``a`` (nnzp, Ra), ``b`` (nnzp, Rb) and ``v`` (nnzp,) are already in the
-    schedule's slot order with padding values zeroed
-    (``ops._gathered_block_rows``); ``sched`` is a
-    :class:`~repro_torch.sparse.layout.DeviceSchedule` of the same mode.
-    CPU tensors run the plain version; CUDA tensors launch the kernel of
-    ``csrc/kron_scatter.cu`` or raise.
+    ``fa`` (I_a, Ra) and ``fb`` (I_b, Rb) are the two non-mode factor
+    matrices, in :func:`~repro_torch.sparse.layout.operand_modes` order;
+    ``fb`` is None for a 2-way tensor (b is then a column of ones).
+    ``sched`` is a :class:`~repro_torch.sparse.layout.DeviceSchedule` of the
+    mode: slot t reads row ``sched.idx[t, 0]`` of fa, row ``sched.idx[t, 1]``
+    of fb and the value ``sched.vals[t]``. Under ``bf16_fp32acc`` the
+    factor matrices are rounded to bf16 once. CPU tensors run the plain
+    version; CUDA tensors launch the kernel of ``csrc/kron_scatter.cu``,
+    which gathers the rows itself, or raise.
     """
-    if a.device.type == "cpu":
-        return fused_kron_scatter_plain(a, b, v, sched, n_rows, precision=precision)
-    a, b = _check_operands("fused_kron_scatter", a, b, v, precision)
-    dev = a.device
-    (nnzp, ra), rb = a.shape, b.shape[1]
-    parts = _check_schedule("fused_kron_scatter", sched, dev, nnzp)
+    if fa.device.type == "cpu":
+        return fused_kron_scatter_plain(fa, fb, sched, n_rows, precision=precision)
+    kernel = "fused_kron_scatter"
+    _require(fa.is_cuda, f"unsupported device {fa.device}", kernel)
+    dev = fa.device
+    operands = (fa,) if fb is None else (fa, fb)
+    _require(all(f.dim() == 2 and f.dtype == torch.float32 and f.device == dev
+                 for f in operands), "fa, fb must be 2-D float32 factor matrices on one device",
+             kernel)
+    operands = _cast_operands(precision, *operands)
+    fa, fb = operands if fb is not None else (operands[0], None)
+    parts = _check_schedule(kernel, sched, dev, int(sched.rel_row.shape[0]))
+    idx, vals = sched.idx, sched.vals
+    nnzp = int(idx.shape[0])
+    _require(idx.device == dev and vals.device == dev, "sched.idx, sched.vals off the device",
+             kernel)
+    _require(idx.dtype == torch.int32 and idx.dim() == 2 and idx.is_contiguous()
+             and idx.shape[1] == (1 if fb is None else 2),
+             f"sched.idx must be a contiguous (nnzp, {1 if fb is None else 2}) int32 tensor, "
+             f"got {tuple(idx.shape)} {idx.dtype}", kernel)
+    _require(vals.dtype == torch.float32 and vals.is_contiguous() and vals.shape == (nnzp,),
+             "sched.vals must be a contiguous (nnzp,) float32 tensor", kernel)
+    _require(nnzp < 2 ** 31, f"{nnzp} slots: the kernel indexes slots with int32", kernel)
+    ra, rb = fa.shape[1], 1 if fb is None else fb.shape[1]
     out = torch.zeros((n_rows, ra * rb), dtype=torch.float32, device=dev)
     if nnzp == 0:
         return out
+    pa = _padded_factor(fa)
+    pb = None if fb is None else _padded_factor(fb)
     fn = _lib()
     with torch.cuda.device(dev):
-        rc = fn(a.data_ptr(), b.data_ptr(), v.data_ptr(), sched.rel_row.data_ptr(),
-                sched.blkmap.data_ptr(), parts.data_ptr(), out.data_ptr(),
-                int(parts.shape[0]) - 1, ra, rb, sched.bn, sched.bi,
-                int(a.dtype == torch.bfloat16), _stream(dev))
+        rc = fn(pa.data_ptr(), 0 if pb is None else pb.data_ptr(), idx.data_ptr(),
+                vals.data_ptr(), sched.rel_row.data_ptr(), sched.blkmap.data_ptr(),
+                parts.data_ptr(), out.data_ptr(), int(parts.shape[0]) - 1, ra, rb,
+                pa.shape[1], 0 if pb is None else pb.shape[1], int(idx.shape[1]), sched.bn,
+                sched.bi, int(pa.dtype == torch.bfloat16), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"kron_scatter_launch failed at ranks ({ra}, {rb}): CUDA error "
-                           f"{rc} (1: the ranks exceed the shared-memory staging)")
+                           f"{rc} (1: the ranks exceed one warp's shared-memory staging)")
     fused_kron_scatter.launches += 1
     return out
 
@@ -283,9 +330,9 @@ scatter_rows.launches = 0  # kernel launches since the last reset
 def fused_kron_scatter_ttm_plain(a, b, v, u, sched, n_rows: int, *,
                                  precision: str = "fp32") -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_kron_scatter_ttm`: Y_(n) by
-    :func:`fused_kron_scatter_plain`, then an f32 ``U^T Y`` with U rounded
+    :func:`fused_kron_scatter_plain`'s sums, then an f32 ``U^T Y`` with U rounded
     to bf16 first under ``bf16_fp32acc``."""
-    y = fused_kron_scatter_plain(a, b, v, sched, n_rows, precision=precision)
+    y = _rows_scatter_plain(a, b, v, sched, n_rows, precision)
     (uc,) = _cast_operands(precision, u.to(torch.float32))
     return uc.to(torch.float32).T @ y
 

@@ -17,6 +17,7 @@ from repro_torch.kernels import kron_kernel
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ssd_scan import ssd_chunk
 from repro_torch.kernels.ttm_kernel import ttm
+from repro_torch.sparse.layout import operand_modes
 
 __all__ = ["ttm", "kron_contrib", "sparse_ttm_chain_device", "sparse_ttm_core_device",
            "flash_attention", "ssd_chunk"]
@@ -30,16 +31,21 @@ def kron_contrib(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor, *,
 
 def _gathered_block_rows(indices, values, factors, skip_mode, sched, n):
     """The non-mode factor rows of every schedule slot, in descending mode
-    order (padding slots gather row 0 with value 0). The unfolding and the
-    fused core update gather the same operands."""
-    idx = indices.index_select(0, sched.order)
-    vals = values.index_select(0, sched.order) * sched.valid
-    modes = [t for t in range(n - 1, -1, -1) if t != skip_mode]
-    rows = [factors[t].index_select(0, idx[:, t]) for t in modes]
+    order (padding slots gather row 0 with value 0), from the schedule's
+    cached slot coordinates (``sched.idx``, which are ``indices[order]``)
+    and values. The unfused and order >= 4 unfoldings and the fused core
+    update read these (nnz_padded, R) operands; the fused 3-way and 2-way
+    unfolding gathers the rows inside its kernel instead."""
+    _gathered_block_rows.calls += 1
+    modes = operand_modes(n, skip_mode)
+    rows = [factors[t].index_select(0, sched.idx[:, c]) for c, t in enumerate(modes)]
     if len(rows) == 1:  # order-2 tensor: the "Kron row" is a single factor row
         rows.append(torch.ones((rows[0].shape[0], 1), dtype=rows[0].dtype,
                                device=rows[0].device))
-    return rows, vals
+    return rows, sched.vals
+
+
+_gathered_block_rows.calls = 0  # gathers of (nnz_padded, R) operand rows since the last reset
 
 
 def sparse_ttm_chain_device(
@@ -56,7 +62,8 @@ def sparse_ttm_chain_device(
     """Y_(skip_mode) on the device schedule ``sched`` of that mode.
 
     2- and 3-way tensors (the paper's case) take the fused Kron-scatter
-    kernel unless ``fused=False``; higher orders, and ``fused=False``, chain
+    kernel, which reads the factor rows through the schedule's cached slot
+    coordinates, unless ``fused=False``; higher orders, and ``fused=False``, chain
     ``kron_contrib`` (``precision`` applies to the first link only, as in
     the reference) and then sum the rows with ``scatter_rows``.
     """
@@ -64,11 +71,13 @@ def sparse_ttm_chain_device(
     n_rows = int(shape[skip_mode])
     if indices.shape[0] == 0:
         return zero_unfolding(tuple(shape), factors, skip_mode)
-    rows, vals = _gathered_block_rows(indices, values, factors, skip_mode, sched, n)
-    if len(rows) == 2 and fused:
+    if n <= 3 and fused:  # the kernel reads the factor rows through the schedule
+        modes = operand_modes(n, skip_mode)
         return kron_kernel.fused_kron_scatter(
-            rows[0], rows[1], vals, sched, n_rows, precision=precision
+            factors[modes[0]], factors[modes[1]] if n == 3 else None, sched, n_rows,
+            precision=precision,
         )
+    rows, vals = _gathered_block_rows(indices, values, factors, skip_mode, sched, n)
     contrib = kron_contrib(rows[0], rows[1], vals, precision=precision)
     for extra in rows[2:]:
         contrib = kron_contrib(contrib, extra, torch.ones_like(vals))

@@ -26,8 +26,9 @@ MAX_WIDTH = 128  # N and P: the kernel keeps N / 16 x P / 16 sums per thread
 def ssd_chunk_plain(x: torch.Tensor, a_cumsum: torch.Tensor, b_mat: torch.Tensor,
                     c_mat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`ssd_chunk`, in f32, as ``_ssd_kernel``
-    computes it: the decay is taken only on and below the diagonal (above
-    it ``exp`` may overflow, and ``inf * 0`` would be NaN)."""
+    computes it: the operands (B and C may be bf16) are widened to f32 first,
+    and the decay is taken only on and below the diagonal (above it ``exp``
+    may overflow, and ``inf * 0`` would be NaN)."""
     x, a, bm, cm = (t.to(torch.float32) for t in (x, a_cumsum, b_mat, c_mat))
     n = x.shape[2]
     causal = torch.ones((n, n), dtype=torch.bool, device=x.device).tril()
@@ -42,7 +43,7 @@ def _lib():
     fn = _build.load("ssd_chunk").ssd_chunk_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 6 + [ctypes.c_longlong, i, i, i, p]
+        fn.argtypes = [p] * 6 + [ctypes.c_longlong] + [i] * 4 + [p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -58,9 +59,10 @@ def ssd_chunk(x: torch.Tensor, a_cumsum: torch.Tensor, b_mat: torch.Tensor,
       c_mat:    (BH, C, L, N)  output projections C.
 
     Returns ``y`` (BH, C, L, P), the diagonal-block outputs, and ``s``
-    (BH, C, N, P), each chunk's outgoing state, both f32. CPU tensors run
-    the plain version; CUDA tensors (f32, contiguous) launch the kernel of
-    ``csrc/ssd_chunk.cu`` or raise.
+    (BH, C, N, P), each chunk's outgoing state, both f32. B and C are
+    bfloat16 or float32 (the same for both), x and a_cumsum float32. CPU
+    tensors run the plain version; contiguous CUDA tensors launch the kernel
+    of ``csrc/ssd_chunk.cu`` or raise.
     """
     if x.device.type == "cpu":
         return ssd_chunk_plain(x, a_cumsum, b_mat, c_mat)
@@ -72,10 +74,13 @@ def ssd_chunk(x: torch.Tensor, a_cumsum: torch.Tensor, b_mat: torch.Tensor,
             or c_mat.shape != b_mat.shape):
         raise ValueError(f"ssd_chunk: x {tuple(x.shape)}, a_cumsum {tuple(a_cumsum.shape)}, "
                          f"b {tuple(b_mat.shape)}, c {tuple(c_mat.shape)} do not fit")
+    if b_mat.dtype not in (torch.float32, torch.bfloat16) or c_mat.dtype != b_mat.dtype:
+        raise ValueError(f"ssd_chunk: b and c must both be float32 or both bfloat16, got "
+                         f"{b_mat.dtype}, {c_mat.dtype}")
     for name, t in (("x", x), ("a_cumsum", a_cumsum), ("b_mat", b_mat), ("c_mat", c_mat)):
         if t.device != x.device or not t.is_cuda:
             raise ValueError(f"ssd_chunk: {name} on {t.device}, x on {x.device}")
-        if t.dtype != torch.float32:
+        if name in ("x", "a_cumsum") and t.dtype != torch.float32:
             raise ValueError(f"ssd_chunk: {name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"ssd_chunk: {name} must be contiguous")
@@ -90,7 +95,8 @@ def ssd_chunk(x: torch.Tensor, a_cumsum: torch.Tensor, b_mat: torch.Tensor,
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), a_cumsum.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
-                y.data_ptr(), s.data_ptr(), bh * c, n_l, n, p, stream)
+                y.data_ptr(), s.data_ptr(), bh * c, n_l, n, p,
+                int(b_mat.dtype == torch.bfloat16), stream)
     if rc != 0:
         raise RuntimeError(f"ssd_chunk_launch failed at x {tuple(x.shape)}, N {n}: "
                            f"CUDA error {rc}")

@@ -131,8 +131,10 @@ def ssd_mixer(
         return t.reshape(b * n_heads, n_chunks, chunk, *t.shape[4:]).contiguous()
 
     a_cum = torch.cumsum(to_kernel(dta), dim=2)  # (b*h, nc, L) within-chunk log decay
-    y_diag, s_chunk = ops.ssd_chunk(to_kernel(xdt), a_cum, to_kernel(bm.to(torch.float32)),
-                                    to_kernel(cm.to(torch.float32)))
+    # B and C go in bf16 or f32 as they are (the kernel widens them inside)
+    bc = torch.bfloat16 if bm.dtype == torch.bfloat16 else torch.float32
+    y_diag, s_chunk = ops.ssd_chunk(to_kernel(xdt), a_cum, to_kernel(bm.to(bc)),
+                                    to_kernel(cm.to(bc)))
     y_diag = y_diag.reshape(b, n_heads, n_chunks, chunk, h_dim).permute(0, 2, 3, 1, 4)
     s_chunk = s_chunk.reshape(b, n_heads, n_chunks, n_state, h_dim).transpose(1, 2)
     a_cum = a_cum.reshape(b, n_heads, n_chunks, chunk).permute(0, 2, 3, 1)  # (b, nc, L, h)

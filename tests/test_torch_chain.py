@@ -57,7 +57,7 @@ def _alias_case():
 def _gathered(jc, tc, fs, mode, bn, bi):
     n = len(tc.shape)
     jlay = jbuild(jc, mode, bn=bn, bi=bi)
-    sched = DeviceSchedule.from_layout(build_mode_layout(tc, mode, bn=bn, bi=bi))
+    sched = DeviceSchedule.from_layout(build_mode_layout(tc, mode, bn=bn, bi=bi), tc)
     jrows, jv = jops._gathered_block_rows(jc.indices, jc.values, [jnp.asarray(f) for f in fs],
                                           mode, jlay, n)
     trows, tv = ops._gathered_block_rows(tc.indices, tc.values,
@@ -135,7 +135,7 @@ def test_fused_kron_scatter_ttm_plain_matches_pallas(case, precision):
         _close(got.numpy(), want, TOL[precision])
     # the ops entry point, on the last mode as the engine's core update calls it
     n = len(shape)
-    sched = DeviceSchedule.from_layout(build_mode_layout(tc, n - 1))
+    sched = DeviceSchedule.from_layout(build_mode_layout(tc, n - 1), tc)
     g = ops.sparse_ttm_core_device(tc.indices, tc.values, [torch.from_numpy(f) for f in fs],
                                    n - 1, sched, shape=shape, precision=precision)
     want = jops.sparse_ttm_core_device(jc.indices, jc.values, [jnp.asarray(f) for f in fs],
@@ -160,7 +160,7 @@ def test_chain_matches_reference_and_dense_oracle(shape, ranks, precision):
         want = jops.sparse_ttm_chain_device(jc.indices, jc.values, [jnp.asarray(f) for f in fs],
                                             mode, jlay, shape=shape, interpret=True,
                                             precision=precision)
-        sched = DeviceSchedule.from_layout(build_mode_layout(tc, mode))
+        sched = DeviceSchedule.from_layout(build_mode_layout(tc, mode), tc)
         got = ops.sparse_ttm_chain_device(tc.indices, tc.values, tfs, mode, sched, shape=shape,
                                           precision=precision)
         _close(got.numpy(), want, TOL[precision])
@@ -184,7 +184,7 @@ def test_unfused_three_way_chain_matches_fused(precision):
     tfs = [torch.from_numpy(rng.standard_normal((s, 4)).astype(np.float32)) for s in shape]
     jc = JCOO.from_parts(idx, vals, shape)
     for mode in range(3):
-        sched = DeviceSchedule.from_layout(build_mode_layout(tc, mode))
+        sched = DeviceSchedule.from_layout(build_mode_layout(tc, mode), tc)
         kw = dict(shape=shape, precision=precision)
         fused = ops.sparse_ttm_chain_device(tc.indices, tc.values, tfs, mode, sched, **kw)
         split = ops.sparse_ttm_chain_device(tc.indices, tc.values, tfs, mode, sched,

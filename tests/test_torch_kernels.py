@@ -16,7 +16,7 @@ from repro_torch.core import kron as tkron
 from repro_torch.core.coo import SparseCOO, unfold_dense
 from repro_torch.core.ttm import ttm_chain
 from repro_torch.kernels import kron_kernel, ops, ttm_kernel
-from repro_torch.sparse.layout import DeviceSchedule, build_mode_layout
+from repro_torch.sparse.layout import DeviceSchedule, build_mode_layout, operand_modes
 
 # fp32: both sides form the same rounded terms and differ only in the order
 # of f32 sums (one-hot MXU dot vs index_add_). bf16_fp32acc: XLA's CPU
@@ -49,27 +49,97 @@ def _close(got, want, tol):
     ((300, 40), (6, 4), 0),          # 2-way: b is a ones column
 ])
 def test_fused_kron_scatter_plain_matches_pallas(shape, ranks, pad, precision):
+    """Kernel 1 takes the two non-mode factor matrices and the schedule and
+    gathers the rows itself; the reference kernel is fed the rows gathered
+    in numpy from the reference's own schedule."""
     idx, vals, fs = _inputs(shape, ranks, pad=pad)
     jc = JCOO.from_parts(idx, vals, shape)
     tc = SparseCOO.from_parts(idx, vals, shape)
     jfs = [jnp.asarray(f) for f in fs]
     tfs = [torch.from_numpy(f) for f in fs]
-    for mode in range(len(shape)):
+    n = len(shape)
+    for mode in range(n):
         jlay = jbuild(jc, mode, bn=16, bi=8)
-        sched = DeviceSchedule.from_layout(build_mode_layout(tc, mode, bn=16, bi=8))
-        jrows, jv = jops._gathered_block_rows(jc.indices, jc.values, jfs, mode, jlay, len(shape))
-        trows, tv = ops._gathered_block_rows(tc.indices, tc.values, tfs, mode, sched, len(shape))
-        for j, t in zip(jrows, trows):
-            np.testing.assert_array_equal(t.numpy(), np.asarray(j))
-        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
-        want = fused_kron_scatter_pallas(*jrows, jv, jlay, shape[mode], interpret=True,
-                                         precision=precision)
+        sched = DeviceSchedule.from_layout(build_mode_layout(tc, mode, bn=16, bi=8), tc)
+        jrows, jv = jops._gathered_block_rows(jc.indices, jc.values, jfs, mode, jlay, n)
+        order = np.asarray(jlay.order)
+        modes = operand_modes(n, mode)
+        rows = [fs[t][idx[order, t]] for t in modes]  # numpy gather
+        if n == 2:
+            rows.append(np.ones((order.size, 1), np.float32))
+        for r, j in zip(rows, jrows):
+            np.testing.assert_array_equal(r, np.asarray(j))
+        want = fused_kron_scatter_pallas(*(jnp.asarray(r) for r in rows), jv, jlay,
+                                         shape[mode], interpret=True, precision=precision)
         before = kron_kernel.fused_kron_scatter.launches
-        got = kron_kernel.fused_kron_scatter(*trows, tv, sched, shape[mode],
-                                             precision=precision)
+        got = kron_kernel.fused_kron_scatter(tfs[modes[0]], tfs[modes[1]] if n == 3 else None,
+                                             sched, shape[mode], precision=precision)
         assert kron_kernel.fused_kron_scatter.launches == before  # CPU: no launch
         assert got.dtype == torch.float32 and tuple(got.shape) == tuple(want.shape)
         _close(got.numpy(), want, TOL[precision])
+        # the row-gathering operands of the other paths: the reference's rows
+        trows, tv = ops._gathered_block_rows(tc.indices, tc.values, tfs, mode, sched, n)
+        for j, t in zip(jrows, trows):
+            np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+        np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+@pytest.mark.parametrize("shape,pad", [((40, 35, 30), 0), ((33, 9, 300), 19), ((300, 40), 0),
+                                       ((9, 8, 7, 6), 5)])
+def test_device_schedule_caches_slot_coordinates_and_values(shape, pad):
+    """``sched.idx`` is ``indices[order]`` without the mode's column, in
+    descending mode order; ``sched.vals`` is ``values[order] * valid``."""
+    idx, vals, _ = _inputs(shape, (2,) * len(shape), pad=pad)
+    tc = SparseCOO.from_parts(idx, vals, shape)
+    for mode in range(len(shape)):
+        lay = build_mode_layout(tc, mode, bn=16, bi=8)
+        sched = DeviceSchedule.from_layout(lay, tc)
+        order = lay.order.long()
+        want = tc.indices[order][:, list(operand_modes(len(shape), mode))]
+        assert sched.idx.dtype == torch.int32 and sched.idx.is_contiguous()
+        assert torch.equal(sched.idx, want)
+        assert torch.equal(sched.vals, tc.values[order] * lay.valid)
+        assert not sched.vals[lay.valid == 0].any()
+        other = torch.from_numpy(np.arange(tc.nnz, dtype=np.float32))
+        assert torch.equal(sched.with_values(other).vals, other[order] * lay.valid)
+
+
+def test_engine_refreshes_slot_values_for_new_values():
+    """A tensor with the same coordinates and other values keeps the cached
+    schedules (no new sort) and gets its own slot values."""
+    from repro_torch.core.engine import make_engine
+
+    shape = (20, 15, 12)
+    idx, vals, fs = _inputs(shape, (3, 2, 4), density=0.05)
+    tc = SparseCOO.from_parts(idx, vals, shape)
+    tc2 = SparseCOO(tc.indices, tc.values * 2 + 1, shape)
+    tfs = [torch.from_numpy(f) for f in fs]
+    eng = make_engine("torch", "cpu")
+    eng.mode_unfolding(tc, tfs, 1)
+    builds = eng.schedule_builds
+    got = eng.mode_unfolding(tc2, tfs, 1)
+    assert eng.schedule_builds == builds
+    want = make_engine("torch", "cpu").mode_unfolding(tc2, tfs, 1)
+    assert torch.equal(got, want)
+
+
+def test_engine_refreshes_slot_values_written_in_place():
+    """Values written in place (the same tensor object) are seen by the next
+    call, with the cached schedules kept."""
+    from repro_torch.core.engine import make_engine
+
+    shape = (20, 15, 12)
+    idx, vals, fs = _inputs(shape, (3, 2, 4), density=0.05)
+    tc = SparseCOO.from_parts(idx, vals, shape)
+    tfs = [torch.from_numpy(f) for f in fs]
+    eng = make_engine("torch", "cpu")
+    before = eng.mode_unfolding(tc, tfs, 0)
+    builds = eng.schedule_builds
+    tc.values.mul_(3).add_(1)
+    got = eng.mode_unfolding(tc, tfs, 0)
+    assert eng.schedule_builds == builds
+    want = make_engine("torch", "cpu").mode_unfolding(tc, tfs, 0)
+    assert torch.equal(got, want) and not torch.equal(got, before)
 
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16_fp32acc"])
@@ -105,7 +175,7 @@ def test_sparse_ttm_chain_matches_reference_and_dense_oracle(precision):
                                       precision=precision)
         got = tkron.sparse_ttm_chain(tc, tfs, mode, precision=precision)
         _close(got.numpy(), want, TOL[precision])
-        sched = DeviceSchedule.from_layout(build_mode_layout(tc, mode))
+        sched = DeviceSchedule.from_layout(build_mode_layout(tc, mode), tc)
         dev = ops.sparse_ttm_chain_device(tc.indices, tc.values, tfs, mode, sched,
                                           shape=shape, precision=precision)
         _close(dev.numpy(), got.numpy(), TOL[precision])
@@ -117,7 +187,7 @@ def test_sparse_ttm_chain_matches_reference_and_dense_oracle(precision):
 def test_empty_tensor_unfolding_is_zero():
     tfs = [torch.randn(s, r) for s, r in zip((5, 6, 7), (2, 3, 4))]
     tc = SparseCOO.from_parts(np.zeros((0, 3), np.int32), np.zeros(0, np.float32), (5, 6, 7))
-    sched = DeviceSchedule.from_layout(build_mode_layout(tc, 1))
+    sched = DeviceSchedule.from_layout(build_mode_layout(tc, 1), tc)
     y = ops.sparse_ttm_chain_device(tc.indices, tc.values, tfs, 1, sched, shape=(5, 6, 7))
     assert tuple(y.shape) == (6, 8) and not y.any()
     assert not tkron.sparse_ttm_chain(tc, tfs, 2).any()
@@ -133,7 +203,7 @@ def test_order_four_unfolding_raises():
         jc, tc = JCOO.from_parts(i, v, shape), SparseCOO.from_parts(i, v, shape)
         tfs = [torch.from_numpy(f) for f in fs]
         for mode in range(4):
-            sched = DeviceSchedule.from_layout(build_mode_layout(tc, mode))
+            sched = DeviceSchedule.from_layout(build_mode_layout(tc, mode), tc)
             got = ops.sparse_ttm_chain_device(tc.indices, tc.values, tfs, mode, sched,
                                               shape=shape)
             want = jkron.sparse_ttm_chain(jc, [jnp.asarray(f) for f in fs], mode)

@@ -100,7 +100,7 @@ def test_device_schedule_from_layout():
     coo = jrandom((30, 20, 10), 0.02, seed=4)
     tc = SparseCOO.from_parts(np.asarray(coo.indices), np.asarray(coo.values), coo.shape)
     lay = tlayout.build_mode_layout(tc, 1)
-    ds = tlayout.DeviceSchedule.from_layout(lay, "cpu")
+    ds = tlayout.DeviceSchedule.from_layout(lay, tc, "cpu")
     assert ds.order is lay.order  # already on the device: no copy
     assert ds.parts[0] == 0 and ds.parts[-1] == lay.nnz_padded
     assert (ds.n_row_blocks, ds.bn, ds.bi) == (lay.n_row_blocks, 128, 128)

@@ -84,6 +84,61 @@ def test_steep_decay_stays_finite():
     _close(s, s_want)
 
 
+def _bf16_bc(x, acs, bm, cm):
+    """The inputs with B and C rounded to bf16: torch tensors (B, C in
+    bf16) and the same values in f32 numpy."""
+    tb, tc = (torch.from_numpy(a).to(torch.bfloat16) for a in (bm, cm))
+    return (torch.from_numpy(x), torch.from_numpy(acs), tb, tc), (tb.float().numpy(),
+                                                                  tc.float().numpy())
+
+
+@pytest.mark.parametrize("bh,c,n_l,p,n", [(2, 3, 64, 32, 16), (2, 2, 256, 64, 64),
+                                          (1, 2, 100, 48, 80)])
+def test_plain_with_bf16_b_c_is_the_f32_plain_on_widened_values(bh, c, n_l, p, n):
+    """B and C in bf16 are widened to f32 first: bit for bit the f32 plain
+    version on the same values."""
+    (tx, ta, tb, tc), _ = _bf16_bc(*_inputs(bh, c, n_l, p, n, seed=3))
+    y, s = ssd_scan.ssd_chunk_plain(tx, ta, tb, tc)
+    y32, s32 = ssd_scan.ssd_chunk_plain(tx, ta, tb.float(), tc.float())
+    assert y.dtype == s.dtype == torch.float32
+    assert torch.equal(y, y32) and torch.equal(s, s32)
+
+
+@pytest.mark.parametrize("bh,c,n_l,p,n", [(2, 3, 64, 32, 16), (1, 2, 128, 64, 32)])
+def test_plain_with_bf16_b_c_matches_pallas_kernel(bh, c, n_l, p, n):
+    """The reference kernel fed the same bf16 B and C (it widens them
+    inside, as the port's kernel does)."""
+    x, acs, bm, cm = _inputs(bh, c, n_l, p, n, seed=4)
+    targs, (b16, c16) = _bf16_bc(x, acs, bm, cm)
+    y_want, s_want = jops.ssd_chunk(jnp.asarray(x), jnp.asarray(acs),
+                                    jnp.asarray(b16).astype(jnp.bfloat16),
+                                    jnp.asarray(c16).astype(jnp.bfloat16))
+    y, s = ssd_scan.ssd_chunk_plain(*targs)
+    _close(y, y_want)
+    _close(s, s_want)
+
+
+def test_bf16_mixer_hands_the_kernel_bf16_b_and_c(monkeypatch):
+    """In a bf16 model B and C reach ``ops.ssd_chunk`` in bf16 (no f32
+    copies); x and the decays stay f32."""
+    cfg = get_config("zamba2-2.7b", smoke=True)
+    from repro_torch.models.model import init_params
+
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    lp = {k: v[0, 1] for k, v in params["layers"].items()}
+    seen = []
+
+    def spy(x, a, b, c):
+        seen.append((x.dtype, a.dtype, b.dtype, c.dtype))
+        return ssd_scan.ssd_chunk_plain(x, a, b, c)
+
+    monkeypatch.setattr(ops, "ssd_chunk", spy)
+    x = torch.randn(2, 40, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    y, _ = tmamba.ssd_mixer(cfg, lp, x.to(torch.bfloat16))
+    assert seen == [(torch.float32, torch.float32, torch.bfloat16, torch.bfloat16)]
+    assert y.dtype == torch.bfloat16 and torch.isfinite(y.float()).all()
+
+
 def test_cpu_runs_the_plain_version_and_counts_no_launch():
     args = [torch.from_numpy(a) for a in _inputs(1, 2, 32, 16, 16)]
     before = ops.ssd_chunk.launches
