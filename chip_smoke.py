@@ -54,20 +54,16 @@ result line):
    ``Engine.generate`` of 64 new tokens after 4 prompts of 4,096 tokens:
    launch counts (9 and 54 per prefill, the 9 on the tensor-core route),
    prefill ms, decode ms per step,
-   tokens/s, peak memory and the device's busy share; kernels 6 and 7
-   against their plain versions on one layer's real inputs, with their
-   times and bounds, and kernel 7's bits against its plain version's at
-   this shape; the last-token prefill logits against a prefill that runs
-   the plain versions on the card;
+   tokens/s, peak memory and the device's busy share; kernel 6 against its
+   plain version on one layer's real inputs; kernel 7 against its plain
+   version on every one of the 54 calls of a warm prefill, each on the
+   inputs its layer really receives, at the fp32 rule, with two controls
+   on layer 0's inputs (the function in f64 must pass the rule, its
+   products on one TF32 pass must fail it); both kernels' times and
+   bounds; and, as a guard against gross faults, the last-token prefill
+   logits against a prefill that runs the plain versions on the card,
+   within a limit set in the same run from the f64 control's movement;
 10. one JSON line per phase, the kernels line, then the device line.
-
-    python3 chip_smoke.py --logit-sensitivity
-
-builds nothing and runs only a measurement for phase 9's logit gate: the
-full-size Zamba2-2.7B last-token logits of a prefill that runs the plain
-versions, and how far they move when only the SSD chunk's outputs move
-(noise of 1e-8 and 1e-7 on its y, the chunk in f64, or its products on one
-TF32 pass), as a fraction of max|logit|; one JSON line.
 
 Needs one CUDA card, ``nvcc`` (on PATH or under /usr/local/cuda), and the
 checkout's ``src/`` beside this file. Imports nothing of JAX.
@@ -100,8 +96,10 @@ ROOT = Path(__file__).resolve().parent
 # and the dense bf16 and TF32 tensor-core rates. Kernel 6 on bf16 operands
 # runs on the tensor cores and its bound counts them at the bf16 rate;
 # kernel 1's fp32 products run on the tensor cores (3xTF32) and its bound
-# counts them at the TF32 rate; every other kernel does its arithmetic in
-# f32 on the CUDA cores.
+# counts them at the TF32 rate; kernel 7's bound counts C B^T on bf16
+# operands at the bf16 rate and its other products (3xTF32) as three
+# products at the TF32 rate; every other kernel does its arithmetic in f32
+# on the CUDA cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
@@ -188,9 +186,6 @@ def main() -> int:
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    if sys.argv[1:] == ["--logit-sensitivity"]:
-        logit_sensitivity(dev, card)
-        return 0
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -238,18 +233,24 @@ def synced(out):
     return out
 
 
-def compare(name: str, precision: str, got, want, n_terms: int) -> float:
-    """Max abs error of ``got`` against ``want``, checked against TOL or,
-    for ``precision="bf16"``, BF16_OUT_TOL (see there); ``n_terms`` is the
-    most terms summed into one output."""
-    torch.cuda.synchronize()
+def against_plain(got, want, precision: str, n_terms: int):
+    """(max abs error, limit, tol, max|plain|, within) of ``got`` against
+    ``want`` under TOL or, for ``precision="bf16"``, BF16_OUT_TOL (see
+    there); ``n_terms`` is the most terms summed into one output."""
     scale = float(want.abs().max()) if want.numel() else 0.0
     err = float((got - want).abs().max()) if want.numel() else 0.0
     tol = BF16_OUT_TOL if precision == "bf16" else TOL[precision]
     if precision == "fp32":
         tol = max(tol, 4 * n_terms ** 0.5 * 2.0 ** -24)
     limit = tol * max(scale, 1e-30)
-    ok = bool(torch.isfinite(got).all()) and err <= limit
+    return err, limit, tol, scale, bool(torch.isfinite(got).all()) and err <= limit
+
+
+def compare(name: str, precision: str, got, want, n_terms: int) -> float:
+    """Max abs error of ``got`` against ``want``, checked by
+    :func:`against_plain`."""
+    torch.cuda.synchronize()
+    err, limit, tol, scale, ok = against_plain(got, want, precision, n_terms)
     log(f"  {name} [{precision}]: max_abs_err {err:.3e} <= {limit:.3e} "
         f"(tol {tol:.3g} x max|plain| {scale:.3e}, {n_terms} terms) {'ok' if ok else 'FAIL'}")
     check(ok, f"{name} [{precision}] disagrees with its plain version")
@@ -631,7 +632,7 @@ def card_vs_cpu(label, coo, ranks, engine=None, expect=None) -> None:
     log(f"  fit card {cu.fit_history.tolist()}")
     log(f"  fit cpu  {cp.fit_history.tolist()}")
     log(f"  fit history max diff {hist_err:.3e} <= 1e-4; projector UU^T max diff "
-        f"{proj_err:.3e} <= 1e-3; card launches {cu.dispatches}")
+        f"{proj_err:.3e} <= 1e-3; card launches {cu.launches}")
     check(cu.fit_history.shape == cp.fit_history.shape and hist_err <= 1e-4,
           f"{label}: card and CPU fit histories disagree")
     check(proj_err <= 1e-3, f"{label}: card and CPU factor subspaces disagree")
@@ -1422,13 +1423,23 @@ def phase8_smoke_card_vs_cpu(dev) -> None:
 # -- phase 9: the slice's path, Zamba2-2.7B served at full width ---------------
 
 SERVE_B, SERVE_P, SERVE_NEW, SERVE_MAX = 4, 4096, 64, 4224
-# Last-token prefill logits with the kernels against a prefill that runs the
-# plain versions on the card, as a fraction of max|plain logit|: the two
-# compute the same f32 functions in other orders, and the model rounds their
-# outputs to bf16 (attention out, the mixer's y), so a rounded activation can
-# differ by one bf16 ulp and that difference travels through 54 layers; the
-# first run on an H100 measured 1.6e-2, with the same argmax in every row.
-SERVE_LOGIT_TOL = 5e-2
+# The last-token prefill logits with the kernels against a prefill that runs
+# the plain versions on the card: a guard against gross faults (wrong wiring,
+# a lost chunk, NaN), not a check of rounding. The mixer rounds y_diag +
+# y_inter to bf16 (models/mamba2.py), so one f32 ulp of kernel 7's outputs
+# flips bf16 roundings, and random weights carry that chaotically through 54
+# layers to a few % of max|logit| (PERF.md section 6: kernel 7 in f64 and
+# correctly rounded moved them 5.21%, noise of 1e-7 on y 4.81%, one TF32
+# pass 8.13%). So the limit is measured in the same run: the movement the
+# f64 control (a prefill of the plain versions with the SSD chunk in f64)
+# causes, times SERVE_LOGIT_MARGIN. A correctly rounded kernel 7 moves the
+# logits as the f64 control does, and kernel 6 adds its own rounding beside
+# it; 3x leaves room for both, while a gross fault moves the logits by the
+# order of max|logit|. This guard alone does not separate the TF32 control
+# from a correct kernel 7 (8.13% is within 3 x 5.21%): the per-layer fp32
+# check of kernel 7 (``ssd_per_layer_gate``) does, and its TF32 control must
+# fail it in every run.
+SERVE_LOGIT_MARGIN = 3.0
 
 
 def capture_inputs(fn) -> dict:
@@ -1487,55 +1498,74 @@ def serving_setup(dev):
     return cfg, params, eng, prompts, t_init
 
 
-def logit_sensitivity(dev, card: str) -> None:
-    """How far the full-size last-token logits of a plain-version prefill
-    move when only the SSD chunk's outputs move, as a fraction of
-    max|logit|: the plain prefill again (0 if it is deterministic), noise of
-    1e-8 and 1e-7 x N(0, 1) on y (seeded), the chunk in f64 rounded to f32
-    (the function correctly rounded), and its f32 products on one TF32 pass
-    (about 2^-11 relative)."""
+def ssd_chunk_f64(x, a, b, c):
+    """Kernel 7's function in f64 on the card, rounded to f32: the function
+    correctly rounded, the control that the fp32 rule must pass."""
+    x, a, bm, cm = (t.double() for t in (x, a, b, c))
+    causal = torch.ones((x.shape[2], x.shape[2]), dtype=torch.bool, device=x.device).tril()
+    decay = torch.where(causal, torch.exp(a[..., :, None] - a[..., None, :]), 0.0)
+    y = ((cm @ bm.transpose(-1, -2)) * decay) @ x
+    st = (bm * torch.exp(a[..., -1:] - a)[..., None]).transpose(-1, -2) @ x
+    return y.float(), st.float()
+
+
+def ssd_chunk_tf32(x, a, b, c):
+    """``ssd_chunk_plain`` with its f32 products on one TF32 pass (cuBLAS
+    with TF32 allowed): the control that the fp32 rule must fail."""
     from repro_torch.kernels import ssd_scan
 
-    def noisy(rel):
-        def call(x, a, b, c):
-            y, st = ssd_scan.ssd_chunk_plain(x, a, b, c)
-            g = torch.Generator(device=y.device).manual_seed(SEED)
-            return y * (1 + rel * torch.randn(y.shape, generator=g, device=y.device)), st
-        return call
+    allowed = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return ssd_scan.ssd_chunk_plain(x, a, b, c)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allowed
 
-    def f64(x, a, b, c):
-        x, a, bm, cm = (t.double() for t in (x, a, b, c))
-        causal = torch.ones((x.shape[2], x.shape[2]), dtype=torch.bool, device=x.device).tril()
-        decay = torch.where(causal, torch.exp(a[..., :, None] - a[..., None, :]), 0.0)
-        y = ((cm @ bm.transpose(-1, -2)) * decay) @ x
-        st = (bm * torch.exp(a[..., -1:] - a)[..., None]).transpose(-1, -2) @ x
-        return y.float(), st.float()
 
-    def tf32(x, a, b, c):
-        torch.backends.cuda.matmul.allow_tf32 = True
-        try:
-            return ssd_scan.ssd_chunk_plain(x, a, b, c)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = False
+def ssd_rule(got, want, n_l: int, n_state: int) -> dict:
+    """Kernel 7's outputs (y, state) against the plain version's at the fp32
+    rule, n = L N terms for y and L for the state: each one's error over
+    its limit, and whether both are within."""
+    out = {}
+    for what, g, w, n_terms in (("y", got[0], want[0], n_l * n_state),
+                                ("state", got[1], want[1], n_l)):
+        err, limit, _, _, ok = against_plain(g, w, "fp32", n_terms)
+        out[what] = {"max_abs_err": err, "limit": limit, "over_limit": err / limit, "ok": ok}
+    out["ok"] = out["y"]["ok"] and out["state"]["ok"]
+    return out
 
-    cfg, params, eng, prompts, _ = serving_setup(dev)
-    tokens = torch.as_tensor(prompts, dtype=torch.long, device=dev)
 
-    def prefill(ssd=None):
-        return with_plain_kernels(lambda: eng.prefill(params, {"tokens": tokens})[0],
-                                  ssd).float()
+def ssd_per_layer_gate(fn, n_calls: int):
+    """Run ``fn`` (a prefill that runs the kernels) with ``ops.ssd_chunk``
+    wrapped: each call launches kernel 7, runs ``ssd_chunk_plain`` on the
+    same inputs, holds y and the state to the fp32 rule (``ssd_rule``) and
+    passes the kernel's own outputs on, so that each layer is judged on the
+    inputs it really receives and nothing is kept beyond the call. Fails at
+    the first call outside the rule or if there were not ``n_calls`` calls;
+    returns the worst call and ``fn``'s result."""
+    from repro_torch.kernels import ops, ssd_scan
 
-    want = prefill()
-    scale = float(want.abs().max())
-    moved = {name: float((prefill(ssd) - want).abs().max()) / scale
-             for name, ssd in (("plain again", None), ("y noise 1e-8", noisy(1e-8)),
-                               ("y noise 1e-7", noisy(1e-7)), ("f64", f64), ("tf32", tf32))}
-    log(f"last-token logits of {cfg.name} (batch {SERVE_B}, prompts of {SERVE_P}) moved by "
-        f"the SSD chunk's outputs alone, as a fraction of max|logit| {scale:.3e}: "
-        f"{json.dumps(moved)} (phase 9's gate: {SERVE_LOGIT_TOL})")
-    print(json.dumps({"logit_sensitivity": cfg.name, "card": card, "batch": SERVE_B,
-                      "prompt": SERVE_P, "max_abs_logit": scale, "moved": moved,
-                      "gate": SERVE_LOGIT_TOL}), flush=True)
+    orig, worst, calls = ops.ssd_chunk, {"over_limit": -1.0}, [0]
+
+    def gated(x, a, b, c):
+        got = orig(x, a, b, c)
+        layer = calls[0]
+        calls[0] += 1
+        r = ssd_rule(got, ssd_scan.ssd_chunk_plain(x, a, b, c), x.shape[2], b.shape[3])
+        check(r["ok"], f"kernel 7 at layer {layer} is outside the fp32 rule: {json.dumps(r)}")
+        for what in ("y", "state"):
+            if r[what]["over_limit"] > worst["over_limit"]:
+                worst.update(r[what], layer=layer, output=what)
+        return got
+
+    ops.ssd_chunk = gated
+    try:
+        out = fn()
+    finally:
+        ops.ssd_chunk = orig
+    check(calls[0] == n_calls, f"the gated prefill made {calls[0]} SSD chunk calls, want {n_calls}")
+    worst.pop("ok")
+    return dict(worst, calls=calls[0]), out
 
 
 def phase9_zamba2(dev, card: str):
@@ -1643,43 +1673,72 @@ def phase9_zamba2(dev, card: str):
               "flops": fa_flops, "bytes": fa_bytes, "max_abs_err": fa_err}
     log(f"    flash_attention: {json.dumps(fa_row)}")
     (x, acs, bm, cm), _ = kept["ssd_chunk"]
+    del kept
     ssd_kern = partial(ssd_scan.ssd_chunk, x, acs, bm, cm)
     ssd_plain = partial(ssd_scan.ssd_chunk_plain, x, acs, bm, cm)
-    y, st = synced(ssd_kern())
-    y_want, st_want = synced(ssd_plain())
     bh_, c_, l_, p_ = x.shape
     n_ = bm.shape[-1]
-    ssd_err = max(compare(f"ssd_chunk Zamba2 layer 0 y {tuple(x.shape)}", "fp32", y, y_want,
+    # kernel 7 on every call of a warm prefill, each on its layer's inputs
+    per_layer, gated_logits = ssd_per_layer_gate(
+        lambda: eng.prefill(params, {"tokens": tokens})[0], cfg.n_layers)
+    log(f"  ssd_chunk on all {per_layer['calls']} calls of a warm prefill, fp32 rule "
+        f"(y: {l_ * n_} terms, state: {l_}): worst at layer {per_layer['layer']} "
+        f"{per_layer['output']}, max_abs_err {per_layer['max_abs_err']:.3e} <= "
+        f"{per_layer['limit']:.3e} ({per_layer['over_limit']:.4f} of the limit); the gated "
+        f"prefill's logits equal the kernels' prefill's: {torch.equal(gated_logits, logits)}")
+    del gated_logits
+    # the rule's controls on layer 0's inputs: the correctly rounded function
+    # must pass it and one TF32 pass must fail it, or it cannot judge kernel 7
+    want = synced(ssd_plain())
+    controls = {}
+    for name, ctrl, must_pass in (("f64", ssd_chunk_f64, True),
+                                  ("one TF32 pass", ssd_chunk_tf32, False)):
+        r = ssd_rule(synced(ctrl(x, acs, bm, cm)), want, l_, n_)
+        controls[name] = {k: r[k]["over_limit"] for k in ("y", "state")}
+        log(f"  ssd_chunk control on layer 0, {name}: y {r['y']['max_abs_err']:.3e} and state "
+            f"{r['state']['max_abs_err']:.3e}, {controls[name]['y']:.4g} and "
+            f"{controls[name]['state']:.4g} of their limits: "
+            f"{'passes' if r['ok'] else 'fails'} the fp32 rule (must "
+            f"{'pass' if must_pass else 'fail'})")
+        check(r["ok"] == must_pass, f"the {name} control {'fails' if must_pass else 'passes'} "
+              f"the fp32 rule on layer 0: the rule cannot judge kernel 7")
+    y, st = synced(ssd_kern())
+    ssd_err = max(compare(f"ssd_chunk Zamba2 layer 0 y {tuple(x.shape)}", "fp32", y, want[0],
                           l_ * n_),
-                  compare(f"ssd_chunk Zamba2 layer 0 state {tuple(st.shape)}", "fp32", st, st_want,
-                          l_))
-    # Kernel 7 sums in the plain version's order, and at this shape cuBLAS's
-    # f32 GEMMs in the plain version do too: the same bits. The logit gate
-    # below rests on that (a one-ulp change of kernel 7's outputs moves the
-    # logits by a few % of max|logit|; --logit-sensitivity measures it), so
-    # it is checked here by name.
-    ssd_same_bits = bool(torch.equal(y, y_want) and torch.equal(st, st_want))
-    log(f"  ssd_chunk Zamba2 layer 0: the plain version's bits: {ssd_same_bits}")
-    check(ssd_same_bits, "kernel 7 no longer gives the plain version's bits at the serving "
-          "shape (a change of kernel 7's summation order, or of the GEMM algorithm cuBLAS "
-          "picks for ssd_chunk_plain); phase 9's logit gate assumes it")
-    del y, st, y_want, st_want
-    # last-token logits against a prefill with the plain versions on the card
+                  compare(f"ssd_chunk Zamba2 layer 0 state {tuple(st.shape)}", "fp32", st,
+                          want[1], l_))
+    del y, st, want
+    # the guard against gross faults: last-token logits against a prefill
+    # with the plain versions on the card, within SERVE_LOGIT_MARGIN x the
+    # f64 control's movement of them (see SERVE_LOGIT_MARGIN)
     got = logits.float()
     want = with_plain_kernels(lambda: eng.prefill(params, {"tokens": tokens})[0]).float()
+    f64_moved = float((with_plain_kernels(lambda: eng.prefill(params, {"tokens": tokens})[0],
+                                          ssd_chunk_f64).float() - want).abs().max())
     scale = float(want.abs().max())
     logit_err = float((got - want).abs().max())
+    logit_limit = SERVE_LOGIT_MARGIN * f64_moved
     same_top = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-    log(f"  last-token logits, kernels against plain versions: max_abs_err {logit_err:.3e} <= "
-        f"{SERVE_LOGIT_TOL * scale:.3e} (tol {SERVE_LOGIT_TOL} x max|plain| {scale:.3e}); "
-        f"argmax equal in {same_top:.2f} of rows")
-    check(logit_err <= SERVE_LOGIT_TOL * scale, "prefill logits with the kernels disagree with "
-          "the plain versions'")
+    log(f"  last-token logits, kernels against plain versions: max_abs_err {logit_err:.3e} "
+        f"({logit_err / scale:.4f} of max|plain| {scale:.3e}) <= {logit_limit:.3e} "
+        f"({SERVE_LOGIT_MARGIN} x the f64 control's {f64_moved:.3e}, {f64_moved / scale:.4f} "
+        f"of max|plain|); argmax equal in {same_top:.2f} of rows")
+    check(bool(torch.isfinite(got).all()) and logit_err <= logit_limit,
+          "prefill logits with the kernels are further from the plain versions' than the "
+          "guard allows")
     del logits, got, want
-    ssd_flops = bh_ * c_ * (l_ * (l_ + 1) // 2 * (2 * n_ + 2 * p_) + 2 * l_ * n_ * p_)
+    # the least time: the bytes once, or C B^T (bf16 operands) at the bf16
+    # rate and the 3xTF32 products as three TF32 products each; the f32
+    # CUDA-core reckoning of the earlier kernel beside it
+    tri = bh_ * c_ * l_ * (l_ + 1) // 2
+    score_flops, y_flops, st_flops = tri * 2 * n_, tri * 2 * p_, bh_ * c_ * 2 * l_ * n_ * p_
+    ssd_flops = score_flops + y_flops + st_flops
     ssd_bytes = nbytes_of(x, acs, bm, cm, x) + bh_ * c_ * n_ * p_ * 4
-    ssd_bound, ssd_bound_by = bound(ssd_bytes, ssd_flops)
-    # the same call with B and C widened to f32 (the mixer's layout before)
+    t_bytes = ssd_bytes / PEAK_BYTES_PER_S
+    t_ops = score_flops / PEAK_BF16_FLOPS + 3 * (y_flops + st_flops) / PEAK_TF32_FLOPS
+    ssd_bound, ssd_bound_by = max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                                          else "operations")
+    # the same call with B and C widened to f32 (all three products 3xTF32)
     bmf, cmf = bm.float(), cm.float()
     y32, st32 = synced(ssd_scan.ssd_chunk(x, acs, bmf, cmf))
     y_want, st_want = synced(ssd_scan.ssd_chunk_plain(x, acs, bmf, cmf))
@@ -1691,9 +1750,10 @@ def phase9_zamba2(dev, card: str):
     f32_bytes = nbytes_of(x, acs, bmf, cmf, x) + bh_ * c_ * n_ * p_ * 4
     ssd_row = {"ms": time_ms(ssd_kern), "plain_ms": time_ms(ssd_plain, reps=3),
                "bound_ms": ssd_bound, "bound_by": ssd_bound_by,
-               "b_c_dtype": str(bm.dtype), "same_bits_as_plain": ssd_same_bits,
+               "f32_core_bound_ms": bound(ssd_bytes, ssd_flops)[0],
+               "b_c_dtype": str(bm.dtype), "per_layer": per_layer, "controls": controls,
                "f32_b_c_ms": time_ms(partial(ssd_scan.ssd_chunk, x, acs, bmf, cmf)),
-               "f32_b_c_bound_ms": bound(f32_bytes, ssd_flops)[0],
+               "f32_b_c_bound_ms": bound(f32_bytes, 3 * ssd_flops, PEAK_TF32_FLOPS)[0],
                "flops": ssd_flops, "bytes": ssd_bytes, "max_abs_err": ssd_err}
     del bmf, cmf
     log(f"    ssd_chunk: {json.dumps(ssd_row)}")
@@ -1710,6 +1770,7 @@ def phase9_zamba2(dev, card: str):
         "launches_per_generate": {k: v for k, v in launches.items() if v},
         "peak_memory_gb": peak_gb,
         "last_logit_max_abs_err_vs_plain": logit_err, "last_logit_scale": scale,
+        "last_logit_limit": logit_limit, "last_logit_f64_control_moved": f64_moved,
         "flash_attention": fa_row, "ssd_chunk": ssd_row,
         "device_busy_share": busy, "profile_prefill": prof_prefill,
         "profile_8_decode_steps": prof_decode,
@@ -1732,6 +1793,7 @@ def phase9_zamba2(dev, card: str):
             "launches": launches["ssd_chunk"], "max_abs_err": ssd_err, "ms": ssd_row["ms"],
             "plain_ms": ssd_row["plain_ms"], "device_ms": kms["ssd_chunk"] / cfg.n_layers,
             "bound_ms": ssd_row["bound_ms"], "bound_by": ssd_row["bound_by"],
+            "f32_core_bound_ms": ssd_row["f32_core_bound_ms"],
             "b_c_dtype": ssd_row["b_c_dtype"], "f32_b_c_ms": ssd_row["f32_b_c_ms"],
             "f32_b_c_bound_ms": ssd_row["f32_b_c_bound_ms"],
             # no single PyTorch call builds the masked decay and both products

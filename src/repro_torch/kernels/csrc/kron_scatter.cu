@@ -66,8 +66,12 @@
 #include <cstdint>
 
 #include "kron_common.cuh"
+#include "tc_common.cuh"
 
 namespace {
+
+using tc::mma_tf32;
+using tc::split;
 
 constexpr int kSlots = 32;  // slots per staged chunk, one per lane
 constexpr int kStages = 2;  // staged chunks per warp: one in flight while one is summed
@@ -87,19 +91,6 @@ __device__ __forceinline__ void cp_async_wait_ring() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1) : "memory");
 }
 
-// x = hi + lo: hi is x rounded to TF32 (half away from zero, by integer
-// ops), lo the exact rest (|lo| <= 2^-12 |x|), of which the tensor core
-// reads the top 11 bits, so hi + lo carries x to 2^-22 |x|
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 __device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
   const uint2 x = *reinterpret_cast<const uint2*>(p);

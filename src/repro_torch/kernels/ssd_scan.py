@@ -19,8 +19,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_CHUNK = 1024  # the kernel stages the chunk's L cumulative decays in shared memory
-MAX_WIDTH = 128  # N and P: the kernel keeps N / 16 x P / 16 sums per thread
+MAX_CHUNK = 1024  # L: the kernel walks (L / 64)^2 / 2 tile pairs a chunk
+MAX_WIDTH = 128  # N and P: a warp keeps the state of at most two 64-row blocks of N
 
 
 def ssd_chunk_plain(x: torch.Tensor, a_cumsum: torch.Tensor, b_mat: torch.Tensor,

@@ -8,7 +8,7 @@ pre-allocated KV budget. Port of ``repro.serve.engine``.
     cfg = get_config("zamba2-2.7b")
     params = init_params(cfg, torch.Generator("cuda").manual_seed(0))
     eng = Engine(cfg, params, ServeConfig(max_seq_len=4224, batch_size=4))
-    out = eng.generate(prompts, max_new_tokens=64)  # (4, P + 64) int numpy
+    out = eng.generate(prompts, max_new_tokens=64)  # (4, P + 64) int32 numpy
 """
 from __future__ import annotations
 
@@ -72,15 +72,17 @@ class Engine:
 
     def generate(self, prompts: np.ndarray, max_new_tokens: int = 32,
                  eos_id: Optional[int] = None) -> np.ndarray:
-        """prompts: (B, P) ints. Returns (B, P + max_new_tokens) int64: the
-        prompts, then the greedy tokens (after ``eos_id``, a finished row
-        repeats it). The last token needs no decode step after it, so
-        ``max_new_tokens - 1`` decode steps follow the prefill."""
+        """prompts: (B, P) ints. Returns (B, P + max_new_tokens) int32, as the
+        reference does: the prompts, then the greedy tokens (after
+        ``eos_id``, a finished row repeats it). The prefill runs even for
+        ``max_new_tokens=0``, which returns the prompts. The last token needs
+        no decode step after it, so ``max_new_tokens - 1`` decode steps
+        follow the prefill."""
         prompts = np.asarray(prompts)
         b, p = prompts.shape
         if b != self.scfg.batch_size:
             raise ValueError(f"{b} prompts, the engine serves batches of {self.scfg.batch_size}")
-        if max_new_tokens < 1 or p + max_new_tokens > self.scfg.max_seq_len:
+        if max_new_tokens < 0 or p + max_new_tokens > self.scfg.max_seq_len:
             raise ValueError(f"prompt {p} + {max_new_tokens} new tokens outside the budget of "
                              f"{self.scfg.max_seq_len}")
         tokens = torch.as_tensor(prompts, dtype=torch.long, device=self.device)
@@ -99,7 +101,7 @@ class Engine:
                                                              "pos": p + i})
             nxt = self._sample(logits)
             token = torch.where(done, token, nxt) if eos_id is not None else nxt
-        return torch.cat(out, dim=1).cpu().numpy()
+        return torch.cat(out, dim=1).to(torch.int32).cpu().numpy()
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         return torch.argmax(logits[..., : self.cfg.vocab_size], dim=-1)

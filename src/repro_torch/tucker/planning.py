@@ -132,8 +132,10 @@ class TuckerPlan:
         return TuckerResult.from_history(
             core, fs, hist[:n_done], engine=eng.name, spec=spec,
             compression_ratio=compression_ratio(spec.shape, spec.ranks),
-            dispatches=_kernel_launches() - launches0,
+            dispatches=1,
+            launches=_kernel_launches() - launches0,
             schedule_builds=eng.schedule_builds - builds0,
+            precision=eng.precision,
         )
 
 

@@ -29,9 +29,14 @@ class TuckerResult:
         (their plain versions, on the CPU).
       spec: the :class:`~repro_torch.tucker.spec.TuckerSpec` this run executed.
       compression_ratio: dense storage / Tucker storage, factors included.
-      dispatches: CUDA kernel launches this call made (0 on the CPU).
+      dispatches: top-level dispatches this call made, as the reference
+        counts them: 1 for one multi-sweep ``run_sweeps`` call.
+      launches: CUDA kernel launches of the port's kernels this call made
+        (0 on the CPU).
       schedule_builds: schedule constructions this call triggered (0 when
         the engine's caches were warm for this tensor).
+      precision: the precision the sweeps ran at, the engine's ('fp32' or
+        'bf16_fp32acc'; a prebuilt engine may differ from ``spec.precision``).
     """
 
     core: torch.Tensor
@@ -42,7 +47,9 @@ class TuckerResult:
     spec: Optional["TuckerSpec"] = None
     compression_ratio: Optional[float] = None
     dispatches: int = 0
+    launches: int = 0
     schedule_builds: int = 0
+    precision: str = "fp32"
 
     @classmethod
     def from_history(cls, core, factors, hist, engine: str, **extra) -> "TuckerResult":

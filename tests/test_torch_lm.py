@@ -335,10 +335,31 @@ def test_generate_matches_the_reference_engine():
     prompts = np.random.default_rng(11).integers(0, pair.cfg.vocab_size, (b, p)).astype(np.int32)
     want = pair.jeng.generate(prompts, max_new_tokens=n)
     got = pair.eng.generate(prompts, max_new_tokens=n)
-    assert got.shape == want.shape == (b, p + n)
+    assert got.shape == want.shape == (b, p + n) and got.dtype == want.dtype == np.int32
     np.testing.assert_array_equal(got[:, :p], prompts)
     ref_logits, _ = pair.jax_steps(want, p, n)
     assert _check_greedy(got, want, ref_logits, pair.cfg.vocab_size, CACHE_ROUNDING) >= 1
+
+
+def test_generate_zero_new_tokens_matches_the_reference_engine():
+    """``max_new_tokens=0`` runs the prefill and returns the prompts, int32
+    as the reference's; a negative count or one past the budget raises."""
+    b, p = 2, 12
+    pair = Pair("float32", b, p + 4)
+    prompts = np.random.default_rng(14).integers(0, pair.cfg.vocab_size, (b, p))
+    assert prompts.dtype == np.int64
+    want = pair.jeng.generate(prompts, max_new_tokens=0)
+    prefills = []
+    prefill = pair.eng.prefill
+    pair.eng.prefill = lambda *a: prefills.append(1) or prefill(*a)
+    got = pair.eng.generate(prompts, max_new_tokens=0)
+    assert len(prefills) == 1
+    assert got.dtype == want.dtype == np.int32 and got.shape == want.shape == (b, p)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, prompts)
+    for bad in (-1, 5):
+        with pytest.raises(ValueError, match="budget"):
+            pair.eng.generate(prompts, max_new_tokens=bad)
 
 
 def test_generate_with_prompt_length_equal_to_batch():

@@ -139,6 +139,60 @@ def test_bf16_mixer_hands_the_kernel_bf16_b_and_c(monkeypatch):
     assert y.dtype == torch.bfloat16 and torch.isfinite(y.float()).all()
 
 
+def _fp32_limit(n_terms: int, want) -> float:
+    """The fp32 rule of ``chip_smoke.py::compare``: max(1e-5, 4 sqrt(n)
+    2^-24) x max|plain| for n terms summed into one output."""
+    return max(1e-5, 4 * n_terms ** 0.5 * 2.0 ** -24) * float(want.abs().max())
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to TF32 (10 mantissa bits, half away from zero)
+    by integer rounding of their bit patterns."""
+    bits = (t.contiguous().view(torch.int32) + 0x1000) & -0x2000
+    return bits.view(torch.float32)
+
+
+def _plain_one_tf32_pass(x, a, bm, cm):
+    """``ssd_chunk_plain`` with the operands of its three products rounded
+    to TF32 (a tensor-core GEMM on one TF32 pass, f32 sums)."""
+    x, a, bm, cm = (t.to(torch.float32) for t in (x, a, bm, cm))
+    n = x.shape[2]
+    causal = torch.ones((n, n), dtype=torch.bool).tril()
+    decay = torch.where(causal, torch.exp(a[..., :, None] - a[..., None, :]), 0.0)
+    scores = _tf32(cm) @ _tf32(bm).transpose(-1, -2)
+    y = _tf32(scores * decay) @ _tf32(x)
+    s = _tf32(bm * torch.exp(a[..., -1:] - a)[..., None]).transpose(-1, -2) @ _tf32(x)
+    return y, s
+
+
+def _f64_rounded(x, a, bm, cm):
+    """The function in f64, rounded to f32: the correctly rounded kernel."""
+    x, a, bm, cm = (t.double() for t in (x, a, bm, cm))
+    n = x.shape[2]
+    causal = torch.ones((n, n), dtype=torch.bool).tril()
+    decay = torch.where(causal, torch.exp(a[..., :, None] - a[..., None, :]), 0.0)
+    y = ((cm @ bm.transpose(-1, -2)) * decay) @ x
+    s = (bm * torch.exp(a[..., -1:] - a)[..., None]).transpose(-1, -2) @ x
+    return y.float(), s.float()
+
+
+def test_fp32_rule_passes_f64_and_fails_one_tf32_pass():
+    """The premise of the card's per-layer check of kernel 7: at the serving
+    chunk (L 256, N = P 64, B and C bf16-valued) the fp32 rule passes the
+    function correctly rounded and fails it computed on one TF32 pass, for
+    y and for the state, each by a wide margin."""
+    n_l, n = 256, 64
+    (tx, ta, tb, tc), _ = _bf16_bc(*_inputs(2, 2, n_l, 64, n, seed=5))
+    want = ssd_scan.ssd_chunk_plain(tx, ta, tb, tc)
+    assert ta.dtype == torch.float32 and ta.abs().max() > 1.0  # real decays across the chunk
+    limits = (_fp32_limit(n_l * n, want[0]), _fp32_limit(n_l, want[1]))
+    for name, got, (lo, hi) in (("f64", _f64_rounded(tx, ta, tb, tc), (0.0, 0.1)),
+                                ("tf32", _plain_one_tf32_pass(tx, ta, tb, tc), (3.0, 1e3))):
+        for what, g, w, limit in zip(("y", "state"), got, want, limits):
+            ratio = float((g - w).abs().max()) / limit
+            assert lo <= ratio <= hi, (name, what, ratio)
+
+
 def test_cpu_runs_the_plain_version_and_counts_no_launch():
     args = [torch.from_numpy(a) for a in _inputs(1, 2, 32, 16, 16)]
     before = ops.ssd_chunk.launches

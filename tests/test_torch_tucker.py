@@ -32,7 +32,10 @@ def _pair(coo, ranks, **spec):
 def _assert_parity(ref, port):
     # fit: absolute 1e-4 (the f32 fit has a floor near 0, ROADMAP.md queue 3);
     # core and factor subspaces: 1e-3 after up to three sweeps of f32 QRP.
-    assert port.engine == "torch" and port.dispatches == 0
+    assert port.engine == "torch"
+    # one top-level dispatch, as the reference counts it; no kernel launch on the CPU
+    assert port.dispatches == ref.dispatches == 1 and port.launches == 0
+    assert port.precision == ref.precision
     assert port.fit_history.shape == ref.fit_history.shape
     np.testing.assert_allclose(port.fit_history, ref.fit_history, rtol=0, atol=1e-4)
     np.testing.assert_allclose(port.rel_error, float(ref.rel_error), rtol=0, atol=1e-4)
@@ -62,6 +65,30 @@ def test_two_way_matches_reference():
 def test_bf16_precision_matches_reference():
     coo = jrandom((30, 25, 20), 0.02, seed=6)
     _assert_parity(*_pair(coo, (4, 3, 3), n_iter=2, precision="bf16_fp32acc"))
+
+
+def test_prebuilt_bf16_engine_reports_its_precision():
+    """An fp32 spec run through a prebuilt bf16_fp32acc engine reports the
+    engine's precision, as the reference's result does."""
+    from repro.core.engine import make_engine as jmake_engine
+
+    coo = jrandom((30, 25, 20), 0.02, seed=6)
+    ranks = (4, 3, 3)
+    rng = np.random.default_rng(2)
+    f0 = [np.linalg.qr(rng.standard_normal((s, r)))[0].astype(np.float32)
+          for s, r in zip(coo.shape, ranks)]
+    jspec = jtucker.TuckerSpec(shape=coo.shape, ranks=ranks, n_iter=2)
+    ref = jtucker.plan(jspec, engine=jmake_engine("pallas", precision="bf16_fp32acc"))(
+        coo, factors_init=[jnp.asarray(f) for f in f0])
+    spec = tucker.TuckerSpec(coo.shape, ranks, n_iter=2)
+    eng = make_engine("torch", "cpu", precision="bf16_fp32acc")
+    tc = coo_from_numpy(np.asarray(coo.indices), np.asarray(coo.values), coo.shape)
+    port = tucker.plan(spec, device="cpu", engine=eng)(tc, factors_init=factors_from_numpy(f0))
+    assert spec.precision == "fp32"
+    assert port.precision == ref.precision == "bf16_fp32acc"
+    _assert_parity(ref, port)
+    fp32 = tucker.plan(spec, device="cpu")(tc, factors_init=factors_from_numpy(f0))
+    assert fp32.precision == "fp32"
 
 
 def test_tol_early_exit_same_history():
