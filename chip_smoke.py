@@ -13,9 +13,9 @@ result line):
    128, duplicates, zero padding, one slice, ranks 5x3, 13x22x10, 16 and
    33x40, 2-way, an order-5 chain, ``fused=False`` against the fused kernel, and the
    megakernel with a group's row 0 and its padding in different ranges);
-   kernel 1 reads the factor matrices through the schedule and gives the
-   same bits twice; each ``ttm`` call launches one kernel and gives the
-   same bits twice;
+   kernels 1 and 5 read the factor matrices through the schedule and each
+   gives the same bits twice; each ``ttm`` call launches one kernel and
+   gives the same bits twice;
 3. the card against the CPU from the same factors (fit history, factor
    projectors and core): a NELL-2-like tensor (1000^3, 24,000 nonzeros,
    ranks 16, 5 sweeps) split and with ``fuse_core``, a 4-way tensor
@@ -30,8 +30,10 @@ result line):
    kernel 1's same bits from two calls, and their times and bounds;
 5. path B, the same tensor through ``make_engine("cuda", fuse_core=True)``:
    launch counts, the fit, factors and core against phase 4's, per-sweep
-   time, and the megakernel against its plain version and the split core
-   update;
+   time in turns with the split path, no gather of (nnz, R) operand rows in
+   its warm runs, peak memory beside the split path's, and the megakernel
+   against its plain version and the split core update, its same bits from
+   two calls, its time and bound;
 6. path A, the 4-way path at the published size of FROSTT's NIPS tensor
    (2,482 x 2,862 x 14,036 x 17, 3,101,609 nonzeros; synthetic uniform
    coordinates, counts Poisson(3) + 1), ranks 16, 5 sweeps: launch counts,
@@ -207,8 +209,8 @@ def main() -> int:
 
     timed("2 kernels", phase2_kernels, dev)
     timed("3 card vs CPU", phase3_mid, dev)
-    kernels, coo, split_res = timed("4 NELL-2", phase4_nell2, dev, card)
-    kernels.update(timed("5 path B", phase5_fused_core, dev, card, coo, split_res))
+    kernels, coo, split_res, split_peak = timed("4 NELL-2", phase4_nell2, dev, card)
+    kernels.update(timed("5 path B", phase5_fused_core, dev, card, coo, split_res, split_peak))
     del coo, split_res
     release_memory()
     kernels.update(timed("6 path A", phase6_nips, dev, card))
@@ -505,12 +507,12 @@ def phase2_kernels(dev) -> None:
                                                 shape=coo.shape, fused=False, precision=prec)),
                     got, n_terms)
                 g_want = synced(kron_kernel.fused_kron_scatter_ttm_plain(
-                    rows[0], rows[1], vals, fs[mode], sched, n_rows, precision=prec))
+                    fa, fb, fs[mode], sched, n_rows, precision=prec))
                 g = synced(kron_kernel.fused_kron_scatter_ttm(
-                    rows[0], rows[1], vals, fs[mode], sched, n_rows, precision=prec))
+                    fa, fb, fs[mode], sched, n_rows, precision=prec))
                 compare(f"fused_kron_scatter_ttm {tag}", prec, g, g_want, coo.nnz)
                 again = synced(kron_kernel.fused_kron_scatter_ttm(
-                    rows[0], rows[1], vals, fs[mode], sched, n_rows, precision=prec))
+                    fa, fb, fs[mode], sched, n_rows, precision=prec))
                 check(torch.equal(g, again), f"fused_kron_scatter_ttm {tag} differs "
                       f"between two runs")
                 if coo is alias:  # the segmented sums under other row-aligned splits
@@ -525,8 +527,8 @@ def phase2_kernels(dev) -> None:
                                 synced(kron_kernel.scatter_rows_plain(contrib, sp, n_rows)),
                                 n_terms)
                         compare(f"fused_kron_scatter_ttm {label2}", prec, synced(
-                            kron_kernel.fused_kron_scatter_ttm(rows[0], rows[1], vals, fs[mode],
-                                                               sp, n_rows, precision=prec)),
+                            kron_kernel.fused_kron_scatter_ttm(fa, fb, fs[mode], sp, n_rows,
+                                                               precision=prec)),
                             g_want, coo.nnz)
             if coo is alias and mode == 0:
                 parts = sched.parts.tolist()
@@ -705,6 +707,7 @@ def phase4_nell2(dev, card: str):
 
     # the main path, cold: every count starts at 0 here and is read right after.
     torch.cuda.reset_peak_memory_stats()
+    resident_gb = torch.cuda.memory_allocated() / 1e9  # the tensor
     reset_launches()
     t0 = time.perf_counter()
     res = tucker.decompose(coo, NELL2_RANKS, n_iter=N_ITER, device=dev)
@@ -843,7 +846,7 @@ def phase4_nell2(dev, card: str):
         "kron_bound_ms_per_sweep": kron_bound, "kron_per_mode": per_mode,
         "ttm": ttm_row,
         "profile_warm_run": profile,
-        "peak_memory_gb": peak_gb,
+        "peak_memory_gb": peak_gb, "resident_at_start_gb": resident_gb,
         "slot_cache_gb": sum(nbytes_of(eng.device_schedule(coo, m).idx,
                                        eng.device_schedule(coo, m).vals) for m in range(3)) / 1e9,
         "operand_row_gathers_warm_run": gathers,
@@ -871,13 +874,15 @@ def phase4_nell2(dev, card: str):
          "bound_ms": ttm_row["fp32"]["bound_ms"], "bound_by": ttm_row["fp32"]["bound_by"],
          "library_ms": ttm_row["fp32"]["library_ms"]},
     ]
-    return {r["name"]: r for r in rows}, coo, res
+    return {r["name"]: r for r in rows}, coo, res, (peak_gb, resident_gb)
 
 
 # -- phase 5: path B, the fused core update at NELL-2 size ---------------------
 
 
-def phase5_fused_core(dev, card: str, coo, split_res):
+def phase5_fused_core(dev, card: str, coo, split_res, split_peak):
+    """``split_res`` and ``split_peak`` (peak and resident GB) are phase 4's
+    cold run of the split path on ``coo``."""
     from repro_torch import tucker
     from repro_torch.core.engine import make_engine
     from repro_torch.kernels import kron_kernel, ops, ttm_kernel
@@ -887,6 +892,7 @@ def phase5_fused_core(dev, card: str, coo, split_res):
     spec = tucker.TuckerSpec(shape=NELL2_SHAPE, ranks=NELL2_RANKS, n_iter=N_ITER)
     plan = tucker.plan(spec, device=dev, engine=make_engine("cuda", dev, fuse_core=True))
     torch.cuda.reset_peak_memory_stats()
+    resident_gb = torch.cuda.memory_allocated() / 1e9  # the tensor and phase 4's schedules
     reset_launches()
     t0 = time.perf_counter()
     res = plan(coo)  # the same seeded initial factors as phase 4's run
@@ -896,6 +902,11 @@ def phase5_fused_core(dev, card: str, coo, split_res):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     hist = res.fit_history
     log(f"  cold run: {t_cold:.3f} s, launches {launches}, fit {hist.tolist()}")
+    split_peak_gb, split_resident_gb = split_peak
+    log(f"  cold peak memory: path B {peak_gb:.2f} GB, {peak_gb - resident_gb:.2f} above the "
+        f"{resident_gb:.2f} GB resident (the tensor and phase 4's schedules); split path "
+        f"(phase 4) {split_peak_gb:.2f} GB, {split_peak_gb - split_resident_gb:.2f} above the "
+        f"{split_resident_gb:.2f} GB resident (the tensor)")
     check(res.engine == "cuda", f"engine {res.engine}")
     check(launches == {"fused_kron_scatter": 3 * N_ITER, "ttm": 0, "kron_contrib": 0,
                        "scatter_rows": 0, "fused_kron_scatter_ttm": N_ITER, **NO_LM_LAUNCHES},
@@ -913,21 +924,36 @@ def phase5_fused_core(dev, card: str, coo, split_res):
     core_err = compare("path B core against phase 4's split core", "fp32", res.core,
                        split_res.core, NELL2_NNZ)
 
-    # warm runs of the split plan (phase 4's, cached) and of path B in turns
+    # warm runs of the split plan (phase 4's, cached) and of path B in turns,
+    # each with its peak memory above what was allocated before it; path B
+    # makes no (nnz, R) operand-row gather (kernel 5 reads the factors itself)
     split_plan = tucker.plan(spec, device=dev)
-    turns = []
+    turns, warm_peak = [], {"split": 0.0, "fused": 0.0}
+    gathers = ops._gathered_block_rows.calls
     for name, p in (("split", split_plan), ("fused", plan), ("fused", plan),
                     ("split", split_plan)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        calls = ops._gathered_block_rows.calls
         start.record()
         warm = p(coo)
         end.record()
         end.synchronize()
         turns.append((name, start.elapsed_time(end) / N_ITER))
+        warm_peak[name] = max(warm_peak[name],
+                              (torch.cuda.max_memory_allocated() - before) / 1e9)
         check(warm.schedule_builds == 0, f"{name} warm run rebuilt schedules")
         if name == "fused":
             check(np.array_equal(warm.fit_history, hist), "path B warm run changed its result")
-    log("  warm ms per sweep, in turns: " + ", ".join(f"{n} {ms:.1f}" for n, ms in turns))
+            check(ops._gathered_block_rows.calls == calls,
+                  "path B's warm run gathered (nnz, R) operand rows")
+    gathers = ops._gathered_block_rows.calls - gathers
+    log("  warm ms per sweep, in turns: " + ", ".join(f"{n} {ms:.1f}" for n, ms in turns)
+        + f"; operand-row gathers {gathers}; peak above the resident memory: split "
+        f"{warm_peak['split']:.3f} GB, path B {warm_peak['fused']:.3f} GB")
+    check(gathers == 0, f"the warm runs gathered operand rows {gathers} times")
     sweep_ms = float(np.mean([ms for n, ms in turns if n == "fused"]))
     split_sweep_ms = float(np.mean([ms for n, ms in turns if n == "split"]))
     profile = profile_run(lambda: plan(coo))
@@ -936,42 +962,57 @@ def phase5_fused_core(dev, card: str, coo, split_res):
     # the split core update it replaces (kernel 1's Y, then the TTM kernel).
     eng, fs, mode = plan.engine, [f.contiguous() for f in res.factors], 2
     sched = eng.device_schedule(coo, mode)
-    rows, v = ops._gathered_block_rows(coo.indices, coo.values, fs, mode, sched, 3)
-    a, b = rows
     fa, fb = kron_factors(fs, mode)
     u = fs[mode]
     n_rows = NELL2_SHAPE[mode]
-    grid = dict(kron_kernel.mega_grid(dev, a.shape[1], b.shape[1], u.shape[1], False,
+    ra, rb, r, k = fa.shape[1], fb.shape[1], u.shape[1], fa.shape[1] * fb.shape[1]
+    nnzp = int(sched.vals.shape[0])
+    grid = dict(kron_kernel.mega_grid(dev, ra, rb, kron_kernel._padded_factor(fa).shape[1],
+                                      kron_kernel._padded_factor(fb).shape[1], r, False,
                                       int(sched.parts.numel()) - 1),
                 ranges=int(sched.parts.numel()) - 1)
     log(f"  megakernel grid (fp32): {grid}")
+    visited = int(torch.unique(coo.indices[:, mode]).numel())
     row = {}
     for p in TOL:
-        kern = partial(kron_kernel.fused_kron_scatter_ttm, a, b, v, u, sched, n_rows,
+        kern = partial(kron_kernel.fused_kron_scatter_ttm, fa, fb, u, sched, n_rows,
                        precision=p)
-        plain = partial(kron_kernel.fused_kron_scatter_ttm_plain, a, b, v, u, sched, n_rows,
+        plain = partial(kron_kernel.fused_kron_scatter_ttm_plain, fa, fb, u, sched, n_rows,
                         precision=p)
         got = synced(kern())
         err = compare(f"fused_kron_scatter_ttm NELL-2 mode {mode}", p, got, synced(plain()),
                       NELL2_NNZ)
+        check(torch.equal(got, synced(kern())),
+              f"fused_kron_scatter_ttm NELL-2 mode {mode} [{p}] differs between two calls")
         y = synced(kron_kernel.fused_kron_scatter(fa, fb, sched, n_rows, precision=p))
         split = synced(ttm_kernel.ttm(y.T, u.T, precision=p).T)
         compare(f"fused_kron_scatter_ttm NELL-2 against the split core update", p, got,
                 split, NELL2_NNZ)
-        ac, bc, uc = kron_kernel._cast_operands(p, a, b, u)
-        k = a.shape[1] * b.shape[1]
-        visited = int(torch.unique(coo.indices[:, mode]).numel())
-        nbytes = (nbytes_of(ac, bc, v, uc, sched.rel_row, sched.blkmap, sched.parts)
-                  + u.shape[1] * k * 4)
-        flops = 3 * NELL2_NNZ * k + 2 * visited * u.shape[1] * k
-        bound_ms, bound_by = bound(nbytes, flops)
+        # what the kernel must read, as kernel 1's bound counts it: the slot
+        # coordinates and values, the schedule's rows and ranges, the two
+        # factor matrices and U (as cast) once each; and the core written once
+        fac = kron_kernel._cast_operands(p, fa, fb, u)
+        nbytes = (nbytes_of(sched.idx, sched.vals, sched.rel_row, sched.blkmap, sched.parts,
+                            *fac) + r * k * 4)
+        flops = 3 * NELL2_NNZ * k + 2 * visited * r * k
+        # fp32 runs on the tensor cores (3xTF32), bf16_fp32acc's Kron terms
+        # on the CUDA cores
+        bound_ms, bound_by = bound(nbytes, flops,
+                                   PEAK_TF32_FLOPS if p == "fp32" else PEAK_F32_FLOPS)
+        # PR 12's design read the gathered (nnz, R) rows of a and b instead of
+        # the coordinates, at the f32 CUDA-core rate
+        gathered_bytes = (nnzp * (ra + rb) * fac[0].element_size()
+                          + nbytes_of(sched.vals, sched.rel_row, sched.blkmap, sched.parts,
+                                      fac[2]) + r * k * 4)
         row[p] = {"ms": time_ms(kern), "plain_ms": time_ms(plain, reps=1),
                   "split_ttm_ms": time_ms(partial(ttm_kernel.ttm, y.T, u.T, precision=p),
                                           reps=20, flush_l2=True),
                   "split_unfolding_ms": time_ms(partial(
                       kron_kernel.fused_kron_scatter, fa, fb, sched, n_rows, precision=p)),
                   "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-                  "flops": flops, "max_abs_err": err}
+                  "flops": flops, "f32_core_bound_ms": bound(nbytes, flops)[0],
+                  "pr12_design_bound_ms": bound(gathered_bytes, flops)[0],
+                  "max_abs_err": err}
         log(f"    fused_kron_scatter_ttm [{p}]: {json.dumps(row[p])}")
         del y, split, got
     print(json.dumps({
@@ -980,8 +1021,12 @@ def phase5_fused_core(dev, card: str, coo, split_res):
         "setup_s": {"cold_decompose_incl_schedules": t_cold}, "sweep_ms": sweep_ms,
         "split_sweep_ms_same_call": split_sweep_ms, "turns": turns,
         "launches_per_sweep": {k: n / N_ITER for k, n in launches.items()},
+        "operand_row_gathers_warm_runs": gathers,
         "megakernel": row, "megakernel_grid": grid, "core_max_abs_err_vs_split": core_err,
         "profile_warm_run": profile, "peak_memory_gb": peak_gb,
+        "resident_at_start_gb": resident_gb, "split_peak_memory_gb_phase4": split_peak_gb,
+        "split_resident_at_start_gb_phase4": split_resident_gb,
+        "warm_peak_above_resident_gb": warm_peak,
         "fit_history": hist.tolist()}), flush=True)
     return {"fused_kron_scatter_ttm": {
         "name": "fused_kron_scatter_ttm", "route": "cuda",
@@ -991,6 +1036,7 @@ def phase5_fused_core(dev, card: str, coo, split_res):
         "ms": row["fp32"]["ms"], "plain_ms": row["fp32"]["plain_ms"],
         "device_ms": profile["kernel_ms"]["fused_kron_scatter_ttm"] / N_ITER,
         "bound_ms": row["fp32"]["bound_ms"], "bound_by": row["fp32"]["bound_by"],
+        "pr12_design_bound_ms": row["fp32"]["pr12_design_bound_ms"],
         # no single PyTorch call builds Y from the nonzeros and contracts it
         "library_ms": None}}
 

@@ -1,0 +1,403 @@
+// The warp walk shared by the Kron-scatter kernels (kron_scatter.cu and
+// kron_scatter_ttm.cu), for sm_90a. One warp walks one row-aligned range of
+// schedule slots and builds each row of
+//     Y_(n)[row(t)] += v[t] * (a[t] (x) b[t])      (Rb fastest, K = Ra*Rb)
+// in registers, a[t] and b[t] read from the two non-mode factor matrices
+// through the schedule's slot coordinates; when a row ends it hands the
+// row to the caller's row_end(row, acc), which kernel 1 stores and kernel 5
+// contracts. No (nnz, R) operand is ever written to device memory.
+//
+//   * A range starts at a row's first slot (sparse/layout.py::row_parts: a
+//     row never crosses two ranges), so each row is a segmented sum of its
+//     slots in slot order, in registers: no atomics, the same bits on every
+//     call. A slot whose value is 0 (the schedule's padding, which aliases
+//     row 0 of its group, or an explicit zero) adds nothing, so its row is
+//     not looked at and never starts or ends a row.
+//   * Slots go in chunks of 32, lane l holding slot l's coordinates, value
+//     and row (coalesced loads). The chunk's factor rows are copied into the
+//     warp's shared memory with cp.async in 16-byte pieces (the wrappers pad
+//     the factor rows to 16 bytes), neighbouring lanes taking the pieces of
+//     one row, so that an instruction reads whole rows (one lane a row made
+//     each instruction touch 32 cache lines). A ring of two chunks: while
+//     chunk c is summed, the rows of chunk c+1 are in flight and chunk
+//     c+2's coordinates are loading (a third stage cost more in occupancy,
+//     two CTAs of 8 warps an SM against three, than it hid, in turns on an
+//     H100). The walk itself synchronises only its own warp; after each
+//     chunk it calls the caller's chunk_end().
+//   * fp32, on the tensor cores. A row of Y is a product over its slots,
+//     Y_row = (v a)^T b with the slots as the contraction, so the warp runs
+//     it 8 slots at a time with mma.sync m16n8k8 TF32: the A fragment holds
+//     v*a (rows of A are a's columns), the B fragment b. Each operand is
+//     split into a TF32 high part and a TF32 remainder and the three
+//     significant products are summed (3xTF32: ~2^-21 of each term). Each
+//     8-slot product starts from zero and is added to the row's running sum
+//     with f32 adds, so the tensor core's own accumulation covers 8 terms
+//     at a time and the sum over the row is rounded to nearest. The terms
+//     differ from the plain version's round(round(a*b)*v) by ~2^-21 relative;
+//     over n terms that is ~sqrt(n) 2^-21 of a term, far below the fp32 gate
+//     of chip_smoke.py (4 sqrt(n) 2^-24 of max|plain|, where max|plain|
+//     grows with sqrt(n) terms). An 8-slot block that holds the end of a row
+//     is run once per row it touches, each pass masking the other rows'
+//     values to 0. A chunk that lies inside one row (nearly all of them)
+//     skips the row logic and runs its four 8-slot blocks unrolled, so that
+//     they overlap. A warp owns one m16 x 16 block of the row (ranks 16: all
+//     of it), lane (g, t) = (lane / 4, lane % 4) the fragment entries; larger
+//     K is tiled over blockIdx.y. The staged rows are unpadded and swizzled
+//     (8-column groups XORed by slot) so that fragment loads meet no bank
+//     conflict.
+//   * bf16_fp32acc, on the CUDA cores: each product a*b is rounded to bf16,
+//     then scaled by the f32 value and summed in f32 (kron_common.cuh's
+//     kron_term, the plain version's rounding, which the tensor cores cannot
+//     reproduce). A lane owns a 4 x 2 register tile of the row: eight terms
+//     per slot from one 8-byte and one 4-byte shared load.
+#pragma once
+
+#include <algorithm>
+#include <cstdint>
+
+#include "kron_common.cuh"
+#include "tc_common.cuh"
+
+namespace kwalk {
+
+using tc::mma_tf32;
+using tc::split;
+
+constexpr int kSlots = 32;  // slots per staged chunk, one per lane
+constexpr int kStages = 2;  // staged chunks per warp: one in flight while one is summed
+constexpr int kWarps = 8;   // warps per CTA, at most
+constexpr int kNT = 2;      // fp32 route: n8 tiles (b columns) a warp, with one m16 tile
+constexpr int kTA = 4;      // bf16 route: a columns per lane
+constexpr int kTB = 2;      // bf16 route: b columns per lane
+constexpr int kBlockCols = 256;  // columns of Y one block of blockIdx.y holds, either route
+constexpr unsigned kFull = 0xffffffffu;
+
+inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// Staged row strides (elements) of a and b: on the fp32 route whole m16 /
+// kNT n8 tile blocks, in rows of a multiple of 16 words (the swizzle's); on
+// the bf16 route whole 4 x 2 lane tiles, in 16-byte rows. slb = 0 when
+// ldb = 0 (a 2-way tensor).
+inline void staged_strides(int ra, int rb, int lda, int ldb, bool tc, int* sla, int* slb) {
+  *sla = tc ? round_up(std::max(lda, round_up(ra, 16)), 16)
+            : round_up(std::max(lda, round_up(ra, kTA)), 8);
+  *slb = ldb == 0 ? 0
+         : tc     ? round_up(std::max(ldb, round_up(rb, 8 * kNT)), 16)
+                  : round_up(std::max(ldb, round_up(rb, kTB)), 8);
+}
+
+// Blocks of Y's columns, one a blockIdx.y: m16 x (8 kNT) on the fp32 route,
+// 32 lane tiles of 4 x 2 on the bf16 route; each holds at most kBlockCols.
+inline int column_blocks(int ra, int rb, bool tc) {
+  return tc ? ((ra + 15) / 16) * ((rb + 8 * kNT - 1) / (8 * kNT))
+            : (((ra + kTA - 1) / kTA) * ((rb + kTB - 1) / kTB) + 31) / 32;
+}
+
+// Whether the operand sizes are ones the walk takes (per16: elements in 16
+// bytes; ldb = 0 means a 2-way tensor, rb = 1).
+inline bool shapes_ok(int ra, int rb, int lda, int ldb, int idx_cols, int bn, int bi,
+                      int per16) {
+  return ra >= 1 && rb >= 1 && bn >= 1 && bi >= 1 && idx_cols >= 1 && lda >= ra &&
+         lda % per16 == 0 && ldb % per16 == 0 && (ldb == 0 ? rb == 1 : ldb >= rb);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+// all but the newest kStages - 1 groups have landed
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1) : "memory");
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&x.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&x.y);
+  o[0] = __low2float(lo), o[1] = __high2float(lo), o[2] = __low2float(hi),
+  o[3] = __high2float(hi);
+}
+__device__ __forceinline__ void load2(const __nv_bfloat16* p, float* o) {
+  const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(p);
+  o[0] = __low2float(x), o[1] = __high2float(x);
+}
+
+// The fp32 route's shared-memory swizzle: element c of staged slot s sits at
+// column c ^ swz(s), so that the 4 slots x 8 columns of a fragment load fall
+// on 32 different banks with unpadded rows (stride sl, a multiple of 16
+// words). The XOR moves whole 8-column groups, so 16-byte pieces stay whole.
+__device__ __forceinline__ int swz(int s, int sl) {
+  return sl % 32 ? ((s >> 1) & 1) << 3 : (s & 3) << 3;
+}
+
+// One chunk's slot data, lane l holding slot t0 + l (zeros past the range).
+struct Meta {
+  int ia, ib, row;
+  float v;
+};
+
+__device__ __forceinline__ Meta load_meta(const int* __restrict__ idx, int idx_cols,
+                                          const float* __restrict__ vals,
+                                          const int* __restrict__ rel,
+                                          const int* __restrict__ blkmap, long long t0, int n,
+                                          int bn, int bi, int lane) {
+  Meta m{0, 0, 0, 0.f};
+  if (lane < n) {
+    const int t = (int)t0 + lane;  // slot indices fit an int (the wrappers check)
+    m.ia = idx[(long long)t * idx_cols];
+    m.ib = idx_cols > 1 ? idx[(long long)t * idx_cols + 1] : 0;
+    m.v = vals[t];
+    m.row = blkmap[t / bn] * bi + rel[t];
+  }
+  return m;
+}
+
+// Start the cp.async copies of a chunk's rows of one factor into rows s of
+// sf (stride sl): the q 16-byte pieces of a row go to q neighbouring lanes,
+// so one instruction reads 32 / q whole rows. Every lane runs the same trip
+// count (the shuffles need the whole warp). kSwz: the fp32 route's swizzle.
+template <typename T, bool kSwz>
+__device__ __forceinline__ void gather_side(const T* __restrict__ f, int ld, int sl, int q,
+                                            int ix, int n, T* sf, int lane) {
+  constexpr int kPer16 = 16 / sizeof(T);
+  const bool pow2 = (q & (q - 1)) == 0;  // the ranks' usual case: no division
+  const int shift = __ffs(q) - 1;
+  for (int e0 = 0; e0 < kSlots * q; e0 += kSlots) {
+    const int e = e0 + lane, s = pow2 ? e >> shift : e / q, r = e - s * q;
+    const int row = __shfl_sync(kFull, ix, s);
+    const int col = r * kPer16;
+    if (s < n)
+      cp_async16(sf + s * sl + (kSwz ? col ^ swz(s, sl) : col), f + (long long)row * ld + col);
+  }
+}
+
+// The sizes the walk reads its operands with.
+struct Shape {
+  int ra, rb;      // ranks of a and b (rb = 1 for a 2-way tensor)
+  int lda, ldb;    // padded factor row lengths (ldb = 0: 2-way, b is a ones column)
+  int sla, slb;    // staged row strides, staged_strides()
+  int idx_cols;    // columns of the slot coordinates (1 for a 2-way tensor)
+  int bn, bi;      // the schedule's nnz block and row block sizes
+};
+
+// The part of a Kron row that one warp (fp32 route) or one lane (bf16 route)
+// sums, in column block `by`, and its register accumulator `Acc`.
+template <bool kTC>
+struct Tile {
+  static constexpr int kRows = kTC ? kNT : kTA, kCols = kTC ? 4 : kTB;
+  using Acc = float[kRows][kCols];
+  // fp32 route: the warp's m16 tile (a columns a0c .. a0c + 15) by kNT n8
+  // tiles (b columns b0c .. b0c + 8 kNT - 1); acc[q][e] is column
+  // (a0c + g + 8 (e >> 1), b0c + 8 q + 2 t + (e & 1)) of the row
+  int a0c, b0c;
+  // bf16 route: the lane's kTA x kTB register tile at (i0, j0); acc[r][c]
+  // is column (i0 + r, j0 + c); lanes past the row's tiles are not active
+  int i0, j0;
+  bool active;
+
+  __device__ Tile(int ra, int rb, int by, int lane) {
+    const int n_bt = (rb + 8 * kNT - 1) / (8 * kNT);
+    a0c = 16 * (by / n_bt), b0c = 8 * kNT * (by % n_bt);
+    const int tbn = (rb + kTB - 1) / kTB;
+    const int tile = by * 32 + lane;
+    active = tile < ((ra + kTA - 1) / kTA) * tbn;
+    i0 = active ? (tile / tbn) * kTA : 0;
+    j0 = active ? (tile % tbn) * kTB : 0;
+  }
+
+  // The block's local column c (0 .. kBlockCols - 1) as a column (i, j) of
+  // the row: c = 16 (i - a0c) + (j - b0c) on the fp32 route, and on the
+  // bf16 route c = 8 l + 2 r + c' for lane l's acc[r][c']. False when the
+  // local column lies outside the row.
+  __device__ static bool column(int c, int ra, int rb, int by, int& i, int& j) {
+    if constexpr (kTC) {
+      const int n_bt = (rb + 8 * kNT - 1) / (8 * kNT);
+      i = 16 * (by / n_bt) + c / 16;
+      j = 8 * kNT * (by % n_bt) + c % 16;
+      return i < ra && j < rb;
+    } else {
+      const int tbn = (rb + kTB - 1) / kTB;
+      const int tile = by * 32 + c / 8;
+      i = (tile / tbn) * kTA + (c % 8) / 2;
+      j = (tile % tbn) * kTB + c % 2;
+      return tile < ((ra + kTA - 1) / kTA) * tbn && i < ra && j < rb;
+    }
+  }
+};
+
+// Zero a warp's ring once: the staged columns past each factor row stay 0.
+template <typename T>
+__device__ __forceinline__ void zero_ring(T* ring, int elems, int lane) {
+  for (int e = lane; e < elems; e += 32) ring[e] = T(0.f);
+  __syncwarp();
+}
+
+// Walk slots [t_begin, t_end) of one row-aligned range with the whole warp
+// (every lane calls it), staging in `ring` (kStages * kSlots * (sla + slb)
+// elements of the warp's own shared memory, zeroed once by zero_ring).
+// Calls row_end(row, acc) with the warp's (or lane's) part of each finished
+// row, once per row, from the whole warp, and chunk_end() after each chunk.
+// kTC: the fp32 tensor-core route (T = float); otherwise the bf16 CUDA-core
+// route (T = bf16).
+template <typename T, bool kTC, typename RowEnd, typename ChunkEnd>
+__device__ __forceinline__ void walk(const T* __restrict__ fa, const T* __restrict__ fb,
+                                     const int* __restrict__ idx,
+                                     const float* __restrict__ vals,
+                                     const int* __restrict__ rel,
+                                     const int* __restrict__ blkmap, const Shape& sh,
+                                     long long t_begin, long long t_end, T* ring,
+                                     const Tile<kTC>& tile, int lane, RowEnd&& row_end,
+                                     ChunkEnd&& chunk_end) {
+  constexpr int kPer16 = 16 / sizeof(T);
+  const int sla = sh.sla, slb = sh.slb;
+  const int stage_elems = kSlots * (sla + slb);
+  const int g = lane / 4, t = lane % 4;
+  const int a0c = tile.a0c, b0c = tile.b0c, i0 = tile.i0, j0 = tile.j0;
+
+  typename Tile<kTC>::Acc acc;
+  auto zero_acc = [&]() {
+#pragma unroll
+    for (int r = 0; r < Tile<kTC>::kRows; ++r)
+#pragma unroll
+      for (int c = 0; c < Tile<kTC>::kCols; ++c) acc[r][c] = 0.f;
+  };
+  zero_acc();
+  int cur = -1;
+  auto end_row = [&]() {
+    if (cur >= 0) row_end(cur, acc);
+  };
+
+  const int n_chunks = (int)((t_end - t_begin + kSlots - 1) / kSlots);
+  auto chunk_n = [&](int c) {
+    return (int)min((long long)kSlots, t_end - t_begin - (long long)c * kSlots);
+  };
+  auto meta_of = [&](int c) {
+    return c < n_chunks ? load_meta(idx, sh.idx_cols, vals, rel, blkmap,
+                                    t_begin + (long long)c * kSlots, chunk_n(c), sh.bn, sh.bi,
+                                    lane)
+                        : Meta{0, 0, 0, 0.f};
+  };
+  auto stage = [&](int c, const Meta& m) {
+    if (c >= n_chunks) return;
+    T* sa = ring + (c % kStages) * stage_elems;
+    gather_side<T, kTC>(fa, sh.lda, sla, sh.lda / kPer16, m.ia, chunk_n(c), sa, lane);
+    if (sh.ldb > 0)
+      gather_side<T, kTC>(fb, sh.ldb, slb, sh.ldb / kPer16, m.ib, chunk_n(c), sa + kSlots * sla,
+                          lane);
+  };
+
+  // m[i]: the slot data of chunk c + i. Chunk c + kStages - 1's rows are
+  // gathered at iteration c, from slot data loaded one iteration before.
+  Meta m[kStages + 1];
+#pragma unroll
+  for (int i = 0; i < kStages; ++i) m[i] = meta_of(i);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    stage(i, m[i]);
+    cp_async_commit();
+  }
+  for (int c = 0; c < n_chunks; ++c) {
+    stage(c + kStages - 1, m[kStages - 1]);
+    cp_async_commit();  // possibly empty: one group per chunk keeps the count
+    m[kStages] = meta_of(c + kStages);
+    cp_async_wait_ring();  // chunk c's rows have landed (this lane's copies)
+    __syncwarp();          // ... and every lane's
+
+    const T* sa = ring + (c % kStages) * stage_elems;
+    const T* sb = sa + kSlots * sla;
+    const int n = chunk_n(c);
+    // the slot's row where its value is not 0, else -1 (it adds nothing)
+    const int eff = m[0].v != 0.f ? m[0].row : -1;
+    if constexpr (kTC) {
+      // Y_row += (w a)^T b over slots 8 kb .. 8 kb + 7, w the slots' values
+      // (0 where masked)
+      auto block_pass = [&](int kb, float w0, float w1) {
+        const int s0 = 8 * kb + t, s1 = s0 + 4;  // the slots of k = t and k = t + 4
+        const int x0 = swz(s0, sla), x1 = swz(s1, sla);
+        const float* r0 = sa + s0 * sla;
+        const float* r1 = sa + s1 * sla;
+        // A = (w a)^T: rows are a's columns, k the slots
+        uint32_t ah[4], al[4];
+        split(w0 * r0[(a0c + g) ^ x0], ah[0], al[0]);
+        split(w0 * r0[(a0c + g + 8) ^ x0], ah[1], al[1]);
+        split(w1 * r1[(a0c + g) ^ x1], ah[2], al[2]);
+        split(w1 * r1[(a0c + g + 8) ^ x1], ah[3], al[3]);
+#pragma unroll
+        for (int q = 0; q < kNT; ++q) {
+          const int col = b0c + 8 * q + g;
+          uint32_t bh[2], bl[2];
+          if (slb > 0) {
+            split(sb[s0 * slb + (col ^ swz(s0, slb))], bh[0], bl[0]);
+            split(sb[s1 * slb + (col ^ swz(s1, slb))], bh[1], bl[1]);
+          } else {  // 2-way: b is the implicit ones column
+            bh[0] = bh[1] = col == 0 ? 0x3f800000u : 0u;  // 1.f
+            bl[0] = bl[1] = 0u;
+          }
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(d, al, bh);
+          mma_tf32(d, ah, bl);
+          mma_tf32(d, ah, bh);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[q][e] = __fadd_rn(acc[q][e], d[e]);
+        }
+      };
+      if (cur >= 0 && __ballot_sync(kFull, eff > cur) == 0) {
+        // the whole chunk sums into row cur (its zero-valued slots add 0):
+        // the blocks are independent, and unrolled they overlap
+#pragma unroll
+        for (int kb = 0; kb < kSlots / 8; ++kb) {
+          if (8 * kb >= n) break;
+          block_pass(kb, __shfl_sync(kFull, m[0].v, 8 * kb + t),
+                     __shfl_sync(kFull, m[0].v, 8 * kb + t + 4));
+        }
+      } else {
+        for (int kb = 0; 8 * kb < n; ++kb) {
+          const int s0 = 8 * kb + t, s1 = s0 + 4;
+          const int e0 = __shfl_sync(kFull, eff, s0), e1 = __shfl_sync(kFull, eff, s1);
+          const float v0 = __shfl_sync(kFull, m[0].v, s0), v1 = __shfl_sync(kFull, m[0].v, s1);
+          const unsigned block = 0xffu << (8 * kb);
+          unsigned later = __ballot_sync(kFull, eff > cur) & block;
+          while (true) {
+            if (cur >= 0)  // this block's slots of row cur (and the zero-valued ones)
+              block_pass(kb, e0 == cur || e0 < 0 ? v0 : 0.f, e1 == cur || e1 < 0 ? v1 : 0.f);
+            if (!later) break;
+            end_row();  // the row ends in this block: the next row starts
+            zero_acc();
+            cur = __shfl_sync(kFull, eff, __ffs(later) - 1);
+            later = __ballot_sync(kFull, eff > cur) & block;
+          }
+        }
+      }
+    } else {
+      for (int s = 0; s < n; ++s) {
+        const int row = __shfl_sync(kFull, eff, s);
+        const float vs = __shfl_sync(kFull, m[0].v, s);
+        if (row > cur) {
+          end_row();
+          zero_acc();
+          cur = row;
+        }
+        float av[kTA], bv[kTB];
+        load4(reinterpret_cast<const __nv_bfloat16*>(sa) + s * sla + i0, av);
+        if (slb > 0) {
+          load2(reinterpret_cast<const __nv_bfloat16*>(sb) + s * slb + j0, bv);
+        } else {  // 2-way: b is the implicit ones column (padded to two)
+          bv[0] = 1.f, bv[1] = 0.f;
+        }
+#pragma unroll
+        for (int r = 0; r < kTA; ++r)
+#pragma unroll
+          for (int q = 0; q < kTB; ++q)
+            acc[r][q] = __fadd_rn(acc[r][q], kron::kron_term<true>(av[r], bv[q], vs));
+      }
+    }
+    __syncwarp();  // every lane is done with this buffer before it is refilled
+#pragma unroll
+    for (int i = 0; i < kStages; ++i) m[i] = m[i + 1];
+    chunk_end();
+  }
+  end_row();
+}
+
+}  // namespace kwalk

@@ -54,22 +54,6 @@ def _mask_unvisited(out: torch.Tensor, sched) -> torch.Tensor:
     return torch.where(sched.row_mask[:, None], out, 0.0)
 
 
-def _rows_scatter_plain(a, b, v, sched, n_rows: int, precision: str) -> torch.Tensor:
-    """``Y[row(t)] += v[t] * (a[t] (x) b[t])`` from slot-ordered operand rows:
-    Kron rows ``index_add_``-ed into their rows, then the row mask."""
-    a, b = _cast_operands(precision, a, b)
-    k = a.shape[1] * b.shape[1]
-    rows = slot_rows(sched)
-    out = torch.zeros((sched.n_row_blocks * sched.bi, k), dtype=torch.float32,
-                      device=a.device)
-    step = max(1, PLAIN_CHUNK_ELEMS // k)
-    for s in range(0, a.shape[0], step):
-        kron = (a[s:s + step, :, None] * b[s:s + step, None, :]).reshape(-1, k)
-        contrib = kron.to(torch.float32) * v[s:s + step, None].to(torch.float32)
-        out.index_add_(0, rows[s:s + step], contrib)
-    return _mask_unvisited(out[:n_rows], sched)
-
-
 def fused_kron_scatter_plain(fa, fb, sched, n_rows: int, *,
                              precision: str = "fp32") -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_kron_scatter`: the factor rows
@@ -80,7 +64,17 @@ def fused_kron_scatter_plain(fa, fb, sched, n_rows: int, *,
     a = fa.index_select(0, sched.idx[:, 0])
     b = (torch.ones((a.shape[0], 1), dtype=a.dtype, device=a.device) if fb is None
          else fb.index_select(0, sched.idx[:, 1]))
-    return _rows_scatter_plain(a, b, sched.vals, sched, n_rows, precision)
+    a, b = _cast_operands(precision, a, b)
+    v, k = sched.vals, a.shape[1] * b.shape[1]
+    rows = slot_rows(sched)
+    out = torch.zeros((sched.n_row_blocks * sched.bi, k), dtype=torch.float32,
+                      device=a.device)
+    step = max(1, PLAIN_CHUNK_ELEMS // k)
+    for s in range(0, a.shape[0], step):
+        kron = (a[s:s + step, :, None] * b[s:s + step, None, :]).reshape(-1, k)
+        contrib = kron.to(torch.float32) * v[s:s + step, None].to(torch.float32)
+        out.index_add_(0, rows[s:s + step], contrib)
+    return _mask_unvisited(out[:n_rows], sched)
 
 
 def _lib():
@@ -154,6 +148,36 @@ def _padded_factor(f: torch.Tensor) -> torch.Tensor:
     return f if f.data_ptr() % 16 == 0 else f.clone()
 
 
+def _schedule_operands(kernel: str, fa, fb, sched, precision: str):
+    """Check and prepare what kernels 1 and 5 read: the factor matrices
+    ``fa``, ``fb`` (None for a 2-way tensor), 2-D float32 on one CUDA device,
+    cast per ``precision`` and padded by :func:`_padded_factor`, and the
+    schedule's slot coordinates and values and row split. Returns
+    ``(pa, pb, idx, vals, parts)``."""
+    _require(fa.is_cuda, f"unsupported device {fa.device}", kernel)
+    dev = fa.device
+    operands = (fa,) if fb is None else (fa, fb)
+    _require(all(f.dim() == 2 and f.dtype == torch.float32 and f.device == dev
+                 for f in operands), "fa, fb must be 2-D float32 factor matrices on one device",
+             kernel)
+    operands = _cast_operands(precision, *operands)
+    parts = _check_schedule(kernel, sched, dev, int(sched.rel_row.shape[0]))
+    idx, vals = sched.idx, sched.vals
+    nnzp = int(idx.shape[0])
+    _require(idx.device == dev and vals.device == dev, "sched.idx, sched.vals off the device",
+             kernel)
+    _require(idx.dtype == torch.int32 and idx.dim() == 2 and idx.is_contiguous()
+             and idx.shape[1] == len(operands),
+             f"sched.idx must be a contiguous (nnzp, {len(operands)}) int32 tensor, "
+             f"got {tuple(idx.shape)} {idx.dtype}", kernel)
+    _require(vals.dtype == torch.float32 and vals.is_contiguous() and vals.shape == (nnzp,),
+             "sched.vals must be a contiguous (nnzp,) float32 tensor", kernel)
+    _require(nnzp < 2 ** 31, f"{nnzp} slots: the kernel indexes slots with int32", kernel)
+    pa = _padded_factor(operands[0])
+    pb = None if fb is None else _padded_factor(operands[1])
+    return pa, pb, idx, vals, parts
+
+
 def fused_kron_scatter(fa, fb, sched, n_rows: int, *,
                        precision: str = "fp32") -> torch.Tensor:
     """Y_(n) (n_rows, Ra*Rb) f32 with ``Y[row(t)] += v[t] * (a[t] (x) b[t])``.
@@ -171,39 +195,18 @@ def fused_kron_scatter(fa, fb, sched, n_rows: int, *,
     if fa.device.type == "cpu":
         return fused_kron_scatter_plain(fa, fb, sched, n_rows, precision=precision)
     kernel = "fused_kron_scatter"
-    _require(fa.is_cuda, f"unsupported device {fa.device}", kernel)
-    dev = fa.device
-    operands = (fa,) if fb is None else (fa, fb)
-    _require(all(f.dim() == 2 and f.dtype == torch.float32 and f.device == dev
-                 for f in operands), "fa, fb must be 2-D float32 factor matrices on one device",
-             kernel)
-    operands = _cast_operands(precision, *operands)
-    fa, fb = operands if fb is not None else (operands[0], None)
-    parts = _check_schedule(kernel, sched, dev, int(sched.rel_row.shape[0]))
-    idx, vals = sched.idx, sched.vals
-    nnzp = int(idx.shape[0])
-    _require(idx.device == dev and vals.device == dev, "sched.idx, sched.vals off the device",
-             kernel)
-    _require(idx.dtype == torch.int32 and idx.dim() == 2 and idx.is_contiguous()
-             and idx.shape[1] == (1 if fb is None else 2),
-             f"sched.idx must be a contiguous (nnzp, {1 if fb is None else 2}) int32 tensor, "
-             f"got {tuple(idx.shape)} {idx.dtype}", kernel)
-    _require(vals.dtype == torch.float32 and vals.is_contiguous() and vals.shape == (nnzp,),
-             "sched.vals must be a contiguous (nnzp,) float32 tensor", kernel)
-    _require(nnzp < 2 ** 31, f"{nnzp} slots: the kernel indexes slots with int32", kernel)
+    pa, pb, idx, vals, parts = _schedule_operands(kernel, fa, fb, sched, precision)
     ra, rb = fa.shape[1], 1 if fb is None else fb.shape[1]
-    out = torch.zeros((n_rows, ra * rb), dtype=torch.float32, device=dev)
-    if nnzp == 0:
+    out = torch.zeros((n_rows, ra * rb), dtype=torch.float32, device=pa.device)
+    if idx.shape[0] == 0:
         return out
-    pa = _padded_factor(fa)
-    pb = None if fb is None else _padded_factor(fb)
     fn = _lib()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(pa.device):
         rc = fn(pa.data_ptr(), 0 if pb is None else pb.data_ptr(), idx.data_ptr(),
                 vals.data_ptr(), sched.rel_row.data_ptr(), sched.blkmap.data_ptr(),
                 parts.data_ptr(), out.data_ptr(), int(parts.shape[0]) - 1, ra, rb,
                 pa.shape[1], 0 if pb is None else pb.shape[1], int(idx.shape[1]), sched.bn,
-                sched.bi, int(pa.dtype == torch.bfloat16), _stream(dev))
+                sched.bi, int(pa.dtype == torch.bfloat16), _stream(pa.device))
     if rc != 0:
         raise RuntimeError(f"kron_scatter_launch failed at ranks ({ra}, {rb}): CUDA error "
                            f"{rc} (1: the ranks exceed one warp's shared-memory staging)")
@@ -327,12 +330,12 @@ scatter_rows.launches = 0  # kernel launches since the last reset
 # -- fused_kron_scatter_ttm: the core update with Y never stored ---------------
 
 
-def fused_kron_scatter_ttm_plain(a, b, v, u, sched, n_rows: int, *,
+def fused_kron_scatter_ttm_plain(fa, fb, u, sched, n_rows: int, *,
                                  precision: str = "fp32") -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_kron_scatter_ttm`: Y_(n) by
-    :func:`fused_kron_scatter_plain`'s sums, then an f32 ``U^T Y`` with U rounded
+    :func:`fused_kron_scatter_plain`, then an f32 ``U^T Y`` with U rounded
     to bf16 first under ``bf16_fp32acc``."""
-    y = _rows_scatter_plain(a, b, v, sched, n_rows, precision)
+    y = fused_kron_scatter_plain(fa, fb, sched, n_rows, precision=precision)
     (uc,) = _cast_operands(precision, u.to(torch.float32))
     return uc.to(torch.float32).T @ y
 
@@ -342,71 +345,75 @@ def _mega_lib():
     fn, grid = lib.kron_scatter_ttm_launch, lib.kron_scatter_ttm_grid
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 9 + [i] * 8 + [p]
+        fn.argtypes = [p] * 10 + [i] * 11 + [p]
         fn.restype = ctypes.c_int
-        grid.argtypes = [i] * 5 + [ctypes.POINTER(i)] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+        grid.argtypes = [i] * 7 + [ctypes.POINTER(i)] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
         grid.restype = ctypes.c_int
     return fn, grid
 
 
-def mega_grid(dev: torch.device, ra: int, rb: int, r: int, bf16: bool, n_parts: int) -> dict:
+def mega_grid(dev: torch.device, ra: int, rb: int, lda: int, ldb: int, r: int, bf16: bool,
+              n_parts: int) -> dict:
     """The megakernel's first-pass grid for ``n_parts`` row ranges, as
-    ``csrc/kron_scatter_ttm.cu`` computes it: ``threads`` per CTA, the CTAs
-    one SM holds (``ctas_per_sm``), ``n_ctas`` CTAs of ``per_cta`` ranges
-    each, and ``smem_bytes`` per CTA. Raises when no CTA fits an SM."""
+    ``csrc/kron_scatter_ttm.cu`` computes it from the ranks, the padded
+    factor row lengths ``lda`` and ``ldb`` (0 for a 2-way tensor) and R:
+    ``threads`` per CTA, the CTAs one SM holds (``ctas_per_sm``), ``n_ctas``
+    CTAs of ``per_cta`` ranges each, and ``smem_bytes`` per CTA. Raises when
+    no CTA fits an SM."""
     _, fn = _mega_lib()
     ints = [ctypes.c_int(0) for _ in range(4)]
     smem = ctypes.c_longlong(0)
     with torch.cuda.device(dev):
-        rc = fn(ra, rb, r, int(bf16), n_parts, *(ctypes.byref(x) for x in ints),
+        rc = fn(ra, rb, lda, ldb, r, int(bf16), n_parts, *(ctypes.byref(x) for x in ints),
                 ctypes.byref(smem))
     grid = dict(zip(("threads", "ctas_per_sm", "n_ctas", "per_cta"), (x.value for x in ints)),
                 smem_bytes=smem.value)
     if rc != 0:
         raise RuntimeError(f"fused_kron_scatter_ttm: no launch for R = {r} at ranks "
-                           f"({ra}, {rb}), {grid}: CUDA error {rc} (1: the staging or the "
-                           f"(R, K) partial does not fit an SM's shared memory)")
+                           f"({ra}, {rb}), {grid}: CUDA error {rc} (1: the staging, the held "
+                           f"rows and the (R, K) partial do not fit an SM's shared memory)")
     return grid
 
 
-def fused_kron_scatter_ttm(a, b, v, u, sched, n_rows: int, *,
+def fused_kron_scatter_ttm(fa, fb, u, sched, n_rows: int, *,
                            precision: str = "fp32") -> torch.Tensor:
     """G (R, Ra*Rb) f32 = U^T Y_(n), where ``Y[row(t)] += v[t] * (a[t] (x) b[t])``
     is rebuilt row by row from the nonzeros and never stored.
 
-    ``a``, ``b``, ``v`` and ``sched`` as for :func:`fused_kron_scatter`;
-    ``u`` is the (n_rows, R) factor of the schedule's mode, rounded to bf16
+    ``fa``, ``fb`` and ``sched`` as for :func:`fused_kron_scatter` (the
+    factor rows are read through the schedule); ``u`` is the (n_rows, R)
+    factor of the schedule's mode, rounded to bf16 with ``fa`` and ``fb``
     under ``bf16_fp32acc``. The first pass runs as many CTAs as the card
     holds at once, each taking a run of the row split's ranges. CPU tensors
     run the plain version; CUDA tensors launch the kernels of
     ``csrc/kron_scatter_ttm.cu`` or raise.
     """
-    if a.device.type == "cpu":
-        return fused_kron_scatter_ttm_plain(a, b, v, u, sched, n_rows, precision=precision)
+    if fa.device.type == "cpu":
+        return fused_kron_scatter_ttm_plain(fa, fb, u, sched, n_rows, precision=precision)
     kernel = "fused_kron_scatter_ttm"
-    a, b = _check_operands(kernel, a, b, v, precision)
-    dev = a.device
-    (nnzp, ra), rb = a.shape, b.shape[1]
-    parts = _check_schedule(kernel, sched, dev, nnzp)
-    _require(u.device == dev and u.dim() == 2 and u.shape[0] == n_rows,
-             f"u must be ({n_rows}, R) on {dev}, got {tuple(u.shape)} on {u.device}", kernel)
-    _require(a.dtype == torch.float32 or precision == "bf16_fp32acc",
-             "bf16 operands need precision='bf16_fp32acc' (U is rounded with them)", kernel)
-    (u,) = _cast_operands(precision, u.to(torch.float32))
+    pa, pb, idx, vals, parts = _schedule_operands(kernel, fa, fb, sched, precision)
+    dev = pa.device
+    _require(u.device == dev and u.dim() == 2 and u.shape[0] == n_rows
+             and u.dtype == torch.float32,
+             f"u must be ({n_rows}, R) float32 on {dev}, got {tuple(u.shape)} {u.dtype} on "
+             f"{u.device}", kernel)
+    (u,) = _cast_operands(precision, u)
     u = u.contiguous()
-    r, k = u.shape[1], ra * rb
-    out = torch.zeros((r, k), dtype=torch.float32, device=dev)
-    if nnzp == 0 or r == 0:
+    ra, rb, r = fa.shape[1], 1 if fb is None else fb.shape[1], u.shape[1]
+    out = torch.zeros((r, ra * rb), dtype=torch.float32, device=dev)
+    if idx.shape[0] == 0 or r == 0:
         return out
-    bf16 = a.dtype == torch.bfloat16
+    bf16 = pa.dtype == torch.bfloat16
+    lda, ldb = pa.shape[1], 0 if pb is None else pb.shape[1]
     n_parts = int(parts.shape[0]) - 1
-    grid = mega_grid(dev, ra, rb, r, bf16, n_parts)
-    part = torch.empty((grid["n_ctas"], r, k), dtype=torch.float32, device=dev)
+    grid = mega_grid(dev, ra, rb, lda, ldb, r, bf16, n_parts)
+    part = torch.empty((grid["n_ctas"], r, ra * rb), dtype=torch.float32, device=dev)
     fn, _ = _mega_lib()
     with torch.cuda.device(dev):
-        rc = fn(a.data_ptr(), b.data_ptr(), v.data_ptr(), sched.rel_row.data_ptr(),
-                sched.blkmap.data_ptr(), parts.data_ptr(), u.data_ptr(), part.data_ptr(),
-                out.data_ptr(), n_parts, grid["per_cta"], ra, rb, r, sched.bn, sched.bi,
+        rc = fn(pa.data_ptr(), 0 if pb is None else pb.data_ptr(), idx.data_ptr(),
+                vals.data_ptr(), sched.rel_row.data_ptr(), sched.blkmap.data_ptr(),
+                parts.data_ptr(), u.data_ptr(), part.data_ptr(), out.data_ptr(), n_parts,
+                grid["per_cta"], ra, rb, lda, ldb, int(idx.shape[1]), sched.bn, sched.bi, r,
                 int(bf16), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"kron_scatter_ttm_launch failed: CUDA error {rc}")

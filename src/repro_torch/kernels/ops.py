@@ -33,9 +33,9 @@ def _gathered_block_rows(indices, values, factors, skip_mode, sched, n):
     """The non-mode factor rows of every schedule slot, in descending mode
     order (padding slots gather row 0 with value 0), from the schedule's
     cached slot coordinates (``sched.idx``, which are ``indices[order]``)
-    and values. The unfused and order >= 4 unfoldings and the fused core
-    update read these (nnz_padded, R) operands; the fused 3-way and 2-way
-    unfolding gathers the rows inside its kernel instead."""
+    and values. Only the unfused (``fused=False``) and order >= 4
+    unfoldings read these (nnz_padded, R) operands; the fused 3-way and
+    2-way unfolding and core update gather the rows inside their kernels."""
     _gathered_block_rows.calls += 1
     modes = operand_modes(n, skip_mode)
     rows = [factors[t].index_select(0, sched.idx[:, c]) for c, t in enumerate(modes)]
@@ -96,18 +96,20 @@ def sparse_ttm_core_device(
 ) -> torch.Tensor:
     """Fused core update (Eq. 12): G_(n) = U_n^T Y_(n), (R_n, prod_{t != n}
     R_t) f32, without materialising Y_(n) for 2- and 3-way tensors: the
-    megakernel re-streams the nonzeros and contracts each finished row.
-    Higher orders take the split path, the chained unfolding and then the
-    TTM kernel, as the reference does."""
+    megakernel re-streams the nonzeros, reads their factor rows through the
+    schedule and contracts each finished row. Higher orders take the split
+    path, the chained unfolding and then the TTM kernel, as the reference
+    does."""
     u = factors[skip_mode]
     if indices.shape[0] == 0:
         y0 = zero_unfolding(tuple(shape), factors, skip_mode)
         return torch.zeros((u.shape[1], y0.shape[1]), dtype=torch.float32, device=u.device)
     n = len(shape)
-    if n <= 3:  # two operand rows per slot: the megakernel's case
-        rows, vals = _gathered_block_rows(indices, values, factors, skip_mode, sched, n)
+    if n <= 3:  # the megakernel reads the factor rows through the schedule
+        modes = operand_modes(n, skip_mode)
         return kron_kernel.fused_kron_scatter_ttm(
-            rows[0], rows[1], vals, u, sched, int(shape[skip_mode]), precision=precision
+            factors[modes[0]], factors[modes[1]] if n == 3 else None, u, sched,
+            int(shape[skip_mode]), precision=precision,
         )
     y = sparse_ttm_chain_device(indices, values, factors, skip_mode, sched,
                                 shape=shape, precision=precision)

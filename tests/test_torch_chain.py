@@ -16,7 +16,7 @@ from repro_torch.core.coo import SparseCOO, unfold_dense
 from repro_torch.core.engine import make_engine
 from repro_torch.core.ttm import ttm_chain
 from repro_torch.kernels import kron_kernel, ops
-from repro_torch.sparse.layout import DeviceSchedule, build_mode_layout
+from repro_torch.sparse.layout import DeviceSchedule, build_mode_layout, operand_modes
 
 # fp32: both sides form the same rounded terms and differ only in the order
 # of f32 sums (one-hot MXU dot vs index_add_ or a matrix product).
@@ -124,11 +124,15 @@ def test_fused_kron_scatter_ttm_plain_matches_pallas(case, precision):
     fs = [rng.standard_normal((s, r)).astype(np.float32) for s, r in zip(shape, ranks)]
     jc, tc = _coo_pair(idx, vals, shape)
     for mode in range(len(shape)):
-        jlay, sched, jrows, jv, trows, tv = _gathered(jc, tc, fs, mode, 16, 8)
+        jlay, sched, jrows, jv, _, _ = _gathered(jc, tc, fs, mode, 16, 8)
         want = fused_kron_scatter_ttm_pallas(*jrows, jv, jnp.asarray(fs[mode]), jlay,
                                              shape[mode], interpret=True, precision=precision)
+        # the port reads the factor rows through the schedule
+        modes = operand_modes(len(shape), mode)
+        fa = torch.from_numpy(fs[modes[0]])
+        fb = torch.from_numpy(fs[modes[1]]) if len(modes) > 1 else None
         before = kron_kernel.fused_kron_scatter_ttm.launches
-        got = kron_kernel.fused_kron_scatter_ttm(*trows, tv, torch.from_numpy(fs[mode]), sched,
+        got = kron_kernel.fused_kron_scatter_ttm(fa, fb, torch.from_numpy(fs[mode]), sched,
                                                  shape[mode], precision=precision)
         assert kron_kernel.fused_kron_scatter_ttm.launches == before
         assert got.dtype == torch.float32
@@ -142,6 +146,26 @@ def test_fused_kron_scatter_ttm_plain_matches_pallas(case, precision):
                                        n - 1, jbuild(jc, n - 1), shape=shape, interpret=True,
                                        precision=precision)
     _close(g.numpy(), want, TOL[precision])
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16_fp32acc"])
+@pytest.mark.parametrize("shape,ranks", [((60, 25), (6, 4)), ((40, 35, 30), (5, 4, 3))])
+def test_fused_core_update_gathers_no_operand_rows(shape, ranks, precision):
+    """The 2- and 3-way core update hands the megakernel the factor
+    matrices: no (nnz, R) gather, and the reference's core on every mode."""
+    idx, vals, rng = _random(shape, 350, 14)
+    fs = [rng.standard_normal((s, r)).astype(np.float32) for s, r in zip(shape, ranks)]
+    jc, tc = _coo_pair(idx, vals, shape)
+    for mode in range(len(shape)):
+        sched = DeviceSchedule.from_layout(build_mode_layout(tc, mode), tc)
+        before = ops._gathered_block_rows.calls
+        g = ops.sparse_ttm_core_device(tc.indices, tc.values, [torch.from_numpy(f) for f in fs],
+                                       mode, sched, shape=shape, precision=precision)
+        assert ops._gathered_block_rows.calls == before
+        want = jops.sparse_ttm_core_device(jc.indices, jc.values, [jnp.asarray(f) for f in fs],
+                                           mode, jbuild(jc, mode), shape=shape, interpret=True,
+                                           precision=precision)
+        _close(g.numpy(), want, TOL[precision])
 
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16_fp32acc"])
@@ -227,4 +251,4 @@ def test_wrappers_never_fall_back_off_the_cpu(call):
         elif call == "scatter_rows":
             kron_kernel.scatter_rows(torch.zeros(4, 6, device=m), None, 3)
         else:
-            kron_kernel.fused_kron_scatter_ttm(a, b, v, torch.zeros(3, 2, device=m), None, 3)
+            kron_kernel.fused_kron_scatter_ttm(a, b, torch.zeros(3, 2, device=m), None, 3)
