@@ -53,6 +53,21 @@ class SparseCOO:
     def device(self) -> torch.device:
         return self.values.device
 
+    def density(self) -> float:
+        return self.nnz / float(np.prod(self.shape))
+
+    @classmethod
+    def from_dense(cls, dense) -> "SparseCOO":
+        """The nonzeros of a dense array, in row-major order. A numpy array
+        gives a COO on the CPU; a tensor keeps its device."""
+        if isinstance(dense, torch.Tensor):
+            idx = torch.nonzero(dense).to(torch.int32)
+            return cls(idx, dense[tuple(idx.long().T)], tuple(dense.shape))
+        dense = np.asarray(dense)
+        idx = np.argwhere(dense != 0).astype(np.int32)
+        return cls(torch.from_numpy(idx), torch.from_numpy(np.ascontiguousarray(
+            dense[tuple(idx.T)])), tuple(int(s) for s in dense.shape))
+
     @classmethod
     def from_parts(cls, indices, values, shape, device=None) -> "SparseCOO":
         """Build from array-likes (numpy or torch); ``device=None`` keeps a
@@ -87,6 +102,14 @@ class SparseCOO:
         """Frobenius norm (Definition 2), in float32 like the reference."""
         return torch.sqrt(torch.sum(torch.square(self.values.to(torch.float32))))
 
+    def scale(self, s) -> "SparseCOO":
+        return SparseCOO(self.indices, self.values * s, self.shape)
+
+    def sort_by_mode(self, mode: int) -> "SparseCOO":
+        """The nonzeros stably sorted by their coordinate along ``mode``."""
+        order = torch.sort(self.indices[:, mode], stable=True).indices
+        return SparseCOO(self.indices[order], self.values[order], self.shape)
+
     def pad_to(self, target_nnz: int) -> "SparseCOO":
         """Pad with explicit zeros (index 0, value 0) up to ``target_nnz``."""
         cur = self.nnz
@@ -103,6 +126,19 @@ class SparseCOO:
             torch.cat([self.values, pad_val], dim=0),
             self.shape,
         )
+
+    def linearized_index(self, mode: int) -> np.ndarray:
+        """Column of each nonzero in the mode-``mode`` unfolding (Eq. 2,
+        Kolda order), as host int64 (20000^2 overflows int32)."""
+        idx = self.indices.cpu().numpy()
+        col = np.zeros((idx.shape[0],), dtype=np.int64)
+        stride = 1
+        for k in range(self.ndim):
+            if k == mode:
+                continue
+            col = col + idx[:, k].astype(np.int64) * stride
+            stride *= self.shape[k]
+        return col
 
 
 def unfold_dense(x: torch.Tensor, mode: int) -> torch.Tensor:

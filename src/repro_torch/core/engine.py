@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import weakref
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -157,3 +157,18 @@ def make_engine(engine: str = "auto", device="cuda", *,
     device = torch.device(device)
     return SweepEngine(name=resolve_engine(engine, device), device=device,
                        precision=precision, fuse_core=fuse_core)
+
+
+def available_engines() -> List[str]:
+    """Engines that can run here: ``torch`` always; ``cuda`` when a CUDA
+    device is present and every kernel builds (``nvcc`` at first use)."""
+    from repro_torch.kernels import _build
+
+    out = ["torch"]
+    if torch.cuda.is_available():
+        try:
+            _build.build_all()
+        except RuntimeError:  # no nvcc, or a source that does not compile
+            return out
+        out.append("cuda")
+    return out

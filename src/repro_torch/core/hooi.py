@@ -1,6 +1,8 @@
 """HOOI sweeps (paper Alg. 2): one sweep, and the multi-sweep loop.
 
-Port of the single-device sweep machinery of ``repro.core.hooi``.
+Port of the single-device sweep machinery of ``repro.core.hooi``, its
+deprecated entry points (shims over ``repro_torch.tucker``) and the paper's
+call counts.
 :func:`run_sweeps` is the twin of the reference's compiled scan over
 sweeps (``_sweep_scan`` inside ``_scan_sweeps_impl``): the same fit
 formula, the same ``tol`` rule, the same skip sentinel for sweeps that never
@@ -12,7 +14,8 @@ densifying X.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import warnings
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -82,6 +85,13 @@ def sparse_sweep(
     return factors, fold_dense(g_n, n - 1, list(ranks))
 
 
+def projection_error(xnorm2: torch.Tensor, core: torch.Tensor) -> torch.Tensor:
+    """The relative error ||X - Xhat|| / ||X|| from the projection identity
+    (orthonormal factors): sqrt(||X||^2 - ||G||^2) / ||X||."""
+    return (torch.sqrt(torch.clamp(xnorm2 - torch.sum(torch.square(core)), min=0.0))
+            / torch.sqrt(xnorm2))
+
+
 def run_sweeps(
     coo: SparseCOO,
     factors: Sequence[torch.Tensor],
@@ -112,10 +122,7 @@ def run_sweeps(
     for _ in range(n_iter):
         fs, g = sparse_sweep(coo, fs, ranks, method, engine)
         core = g.to(core_dtype)
-        err = (
-            torch.sqrt(torch.clamp(xnorm2 - torch.sum(torch.square(core)), min=0.0))
-            / torch.sqrt(xnorm2)
-        ).to(torch.float32)
+        err = projection_error(xnorm2, core).to(torch.float32)
         errs.append(err)
         if tol > 0 and prev_err is not None:
             done = torch.isfinite(prev_err) & (torch.abs(prev_err - err) < tol)
@@ -125,3 +132,74 @@ def run_sweeps(
     hist = np.full((n_iter,), _SKIPPED, dtype=np.float32)
     hist[: len(errs)] = torch.stack(errs).cpu().numpy()  # the one device->host copy
     return fs, core, hist
+
+
+# -- deprecation shims over repro_torch.tucker, as in the reference ----------
+
+
+def hooi_dense(x, ranks: Sequence[int], n_iter: int = 5, method: str = "svd",
+               generator: Optional[torch.Generator] = None, tol: float = 0.0,
+               factors_init=None, device="cuda"):
+    """Dense HOOI (paper Alg. 1): ``method`` 'svd' (Alg. 1 line 5),
+    'householder' or 'gram' (the paper's QRP, Table II).
+
+    .. deprecated:: use ``repro_torch.tucker`` (``decompose(x, ranks)`` or
+       ``plan(TuckerSpec(..., algorithm="dense"))``); this shim delegates.
+    """
+    from repro_torch import tucker
+
+    warnings.warn("hooi_dense is deprecated; use repro_torch.tucker.decompose / plan "
+                  "(TuckerSpec(algorithm='dense')).", DeprecationWarning, stacklevel=2)
+    spec = tucker.TuckerSpec(shape=tuple(x.shape), ranks=tuple(ranks), method=method,
+                             n_iter=n_iter, tol=tol, algorithm="dense")
+    return tucker.plan(spec, device=device)(x, generator=generator, factors_init=factors_init)
+
+
+def hooi_sparse(coo: SparseCOO, ranks: Sequence[int], n_iter: int = 5,
+                method: str = "householder", generator: Optional[torch.Generator] = None,
+                tol: float = 0.0, engine: Union[str, SweepEngine] = "auto",
+                pipeline: str = "scan", device="cuda"):
+    """The paper's sparse Tucker decomposition (Alg. 2). ``engine`` is an
+    engine name or a prebuilt :class:`SweepEngine` (whose cached schedules
+    it reuses); ``pipeline`` 'scan' or 'python'.
+
+    .. deprecated:: use ``repro_torch.tucker`` (``plan(spec)`` once, then
+       call it on many tensors, or ``decompose``); this shim delegates.
+    """
+    from repro_torch import tucker
+
+    warnings.warn("hooi_sparse is deprecated; use repro_torch.tucker.plan / decompose.",
+                  DeprecationWarning, stacklevel=2)
+    prebuilt = engine if isinstance(engine, SweepEngine) else None
+    spec = tucker.TuckerSpec(shape=tuple(coo.shape), ranks=tuple(ranks), method=method,
+                             engine=prebuilt.name if prebuilt is not None else engine,
+                             pipeline=pipeline, n_iter=n_iter, tol=tol)
+    return tucker.plan(spec, device=device, engine=prebuilt)(coo, generator=generator)
+
+
+def tucker_complete_dense(coo: SparseCOO, ranks: Sequence[int], n_rounds: int = 10,
+                          n_iter: int = 2, method: str = "gram",
+                          generator: Optional[torch.Generator] = None, device="cuda"):
+    """EM Tucker completion: dense HOOI rounds with the missing entries
+    imputed from the last reconstruction (a dense working set, for the
+    small and medium problems of the paper's use cases).
+
+    .. deprecated:: use ``repro_torch.tucker`` with ``algorithm="complete"``;
+       this shim delegates.
+    """
+    from repro_torch import tucker
+
+    warnings.warn("tucker_complete_dense is deprecated; use repro_torch.tucker.decompose("
+                  "..., algorithm='complete') / plan.", DeprecationWarning, stacklevel=2)
+    spec = tucker.TuckerSpec(shape=tuple(coo.shape), ranks=tuple(ranks), method=method,
+                             n_iter=n_iter, n_rounds=n_rounds, algorithm="complete")
+    return tucker.plan(spec, device=device)(coo, generator=generator)
+
+
+def sweep_call_counts(shape: Sequence[int], ranks: Sequence[int], nnz: int,
+                      n_iter: int) -> dict:
+    """The paper's per-dataset totals (Table V): QRP calls, Kron rows and
+    TTMs. A sweep makes N QRP calls, nnz N Kron rows and one TTM."""
+    n = len(shape)
+    return {"qrp_calls": n * n_iter + (n - 1), "kron_calls": nnz * n_iter,
+            "ttm_calls": n_iter}

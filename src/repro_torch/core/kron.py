@@ -80,3 +80,14 @@ def sparse_ttm_chain(
     out = torch.zeros((coo.shape[skip_mode], k.shape[1]), dtype=dt,
                       device=coo.device)
     return out.index_add_(0, coo.indices[:, skip_mode], contrib)
+
+
+def kron_flops(coo: SparseCOO, ranks: Sequence[int], skip_mode: int) -> int:
+    """Multiplies of the sparse chain, nnz x (Kron row build + scale): the
+    paper's O(nnz prod R)."""
+    ks = [r for t, r in enumerate(ranks) if t != skip_mode]
+    build, acc = 0, ks[0]
+    for r in ks[1:]:
+        acc *= r
+        build += acc
+    return coo.nnz * (build + 2 * int(np.prod(ks)))

@@ -21,11 +21,12 @@ nothing else picks between them.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.sparse.layout import slot_rows
+from repro_torch.sparse.layout import build_schedule, slot_rows, visited_row_mask
 
 # mixed-precision axis: "fp32" keeps everything f32; "bf16_fp32acc" loads
 # and multiplies the gathered factor rows in bfloat16 while every sum stays
@@ -35,6 +36,39 @@ PRECISIONS = ("fp32", "bf16_fp32acc")
 # the plain version forms at most this many Kron-row entries at once, so
 # that it runs at full size without materialising (nnz, K) in one piece.
 PLAIN_CHUNK_ELEMS = 1 << 26
+
+DEFAULT_BN = 128  # nonzeros per block
+DEFAULT_BI = 128  # output rows per block
+
+
+class ScatterPlan(NamedTuple):
+    """The nonzeros of one mode grouped by output row block, as tensors on
+    the device of the rows they were built from: ``order`` permutes the
+    nonzeros so that each BN-slot block targets one BI-row block and blocks
+    with one target are consecutive (see ``sparse.layout.build_schedule``)."""
+
+    order: torch.Tensor  # (nnz_padded,) int32 gather index into the nonzeros
+    valid: torch.Tensor  # (nnz_padded,) f32 1.0 real / 0.0 padding
+    rel_row: torch.Tensor  # (nnz_padded,) int32 row within the target block
+    blkmap: torch.Tensor  # (n_blocks,) int32 target row block of each nnz block
+    first: torch.Tensor  # (n_blocks,) int32 1 iff first block of its target
+    last: torch.Tensor  # (n_blocks,) int32 1 iff last block of its target
+    n_row_blocks: int
+    bn: int
+    bi: int
+    # keep-mask over output rows; None when every row block is visited.
+    row_mask: Optional[torch.Tensor] = None
+
+
+def build_scatter_plan(rows, n_rows: int, bn: int = DEFAULT_BN,
+                       bi: int = DEFAULT_BI) -> ScatterPlan:
+    """The :class:`ScatterPlan` of the mode coordinates ``rows`` (numpy or
+    torch) of an ``n_rows``-row mode."""
+    order, valid, rel, blkmap, first, last, n_row_blocks, _ = build_schedule(
+        torch.as_tensor(rows), n_rows, bn, bi)
+    return ScatterPlan(order=order, valid=valid, rel_row=rel, blkmap=blkmap, first=first,
+                       last=last, n_row_blocks=n_row_blocks, bn=bn, bi=bi,
+                       row_mask=visited_row_mask(blkmap, n_row_blocks, bi, n_rows))
 
 
 def _cast_operands(precision: str, *tensors):

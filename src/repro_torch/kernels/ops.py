@@ -12,21 +12,48 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.core.coo import SparseCOO
 from repro_torch.core.kron import zero_unfolding
 from repro_torch.kernels import kron_kernel
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.kron_kernel import ScatterPlan, build_scatter_plan
 from repro_torch.kernels.ssd_scan import ssd_chunk
 from repro_torch.kernels.ttm_kernel import ttm
-from repro_torch.sparse.layout import operand_modes
+from repro_torch.sparse.layout import DeviceSchedule, SortedCOO, operand_modes
 
-__all__ = ["ttm", "kron_contrib", "sparse_ttm_chain_device", "sparse_ttm_core_device",
-           "flash_attention", "ssd_chunk"]
+__all__ = ["ttm", "kron_contrib", "sparse_ttm_chain_kernel", "sparse_ttm_chain_device",
+           "sparse_ttm_core_device", "flash_attention", "ssd_chunk"]
 
 
 def kron_contrib(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor, *,
                  precision: str = "fp32") -> torch.Tensor:
     """Paper Kronecker module (Alg. 4) over a batch of nonzeros."""
     return kron_kernel.kron_contrib(a, b, v, precision=precision)
+
+
+def sparse_ttm_chain_kernel(
+    coo: SparseCOO,
+    factors: Sequence[torch.Tensor],
+    skip_mode: int,
+    plan=None,
+    *,
+    fused: bool = True,
+) -> torch.Tensor:
+    """Alg. 2 line 5 on the kernels, for one COO: Y_(skip_mode), f32.
+
+    3-way tensors take kernel 1 (``fused_kron_scatter``); higher orders, and
+    ``fused=False``, chain ``kron_contrib`` and sum with ``scatter_rows``.
+    ``plan`` is the mode's schedule: a :class:`ScatterPlan`, a
+    :class:`SortedCOO` or a :class:`DeviceSchedule`, built once per (tensor,
+    mode) and reused across sweeps; a missing one is built here. The
+    kernels run on the tensor's device, their plain versions on the CPU.
+    """
+    if plan is None:
+        plan = build_scatter_plan(coo.indices[:, skip_mode], coo.shape[skip_mode])
+    if isinstance(plan, (ScatterPlan, SortedCOO)):
+        plan = DeviceSchedule.from_layout(plan, coo, coo.device, mode=skip_mode)
+    return sparse_ttm_chain_device(coo.indices, coo.values, factors, skip_mode, plan,
+                                   shape=tuple(coo.shape), fused=fused)
 
 
 def _gathered_block_rows(indices, values, factors, skip_mode, sched, n):

@@ -1,1 +1,18 @@
-"""Sparse-tensor generators and the per-mode sweep schedule."""
+"""Sparse-tensor generators, the paper's Table V tensors and the per-mode
+sweep schedule."""
+from repro_torch.sparse.datasets import (
+    PAPER_DATASETS,
+    amazon_like,
+    angiogram_like,
+    matmul_tensor,
+    nell2_like,
+)
+from repro_torch.sparse.generators import low_rank_sparse_tensor, random_sparse_tensor
+from repro_torch.sparse.layout import (
+    DeviceSchedule,
+    SortedCOO,
+    build_mode_layout,
+    build_schedule,
+    layout_padding_fraction,
+    visited_row_mask,
+)

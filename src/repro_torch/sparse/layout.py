@@ -141,6 +141,12 @@ def build_mode_layout(coo: SparseCOO, mode: int, bn: int = 128,
     )
 
 
+def layout_padding_fraction(layout: SortedCOO) -> float:
+    """Share of the schedule's slots that are padding, the price of block
+    alignment."""
+    return 1.0 - float(layout.valid.sum()) / max(1, layout.nnz_padded)
+
+
 def slot_rows(sched) -> torch.Tensor:
     """Absolute output row of every schedule slot (int64); padding slots
     point at the first row of their block."""
@@ -221,24 +227,27 @@ class DeviceSchedule:
     bi: int
 
     @classmethod
-    def from_layout(cls, layout: SortedCOO, coo: SparseCOO, device=None) -> "DeviceSchedule":
-        """The schedule of ``layout``, built from ``coo``, on ``device``
-        (the layout's by default)."""
+    def from_layout(cls, layout, coo: SparseCOO, device=None, *,
+                    mode: Optional[int] = None) -> "DeviceSchedule":
+        """The schedule of ``layout`` (a :class:`SortedCOO`, or a
+        ``kron_kernel.ScatterPlan`` with its ``mode`` given), built from
+        ``coo``, on ``device`` (the layout's by default)."""
         dev = torch.device(device) if device is not None else layout.order.device
+        mode = layout.mode if mode is None else mode
 
         def put(t):
             return None if t is None else t.to(dev)
 
         order = put(layout.order)
         valid = put(layout.valid)
-        cols = list(operand_modes(len(layout.shape), layout.mode))
+        cols = list(operand_modes(coo.ndim, mode))
         idx = _in_slot_order(coo.indices.to(dev)[:, cols], order)
         return cls(
             order=order, valid=valid,
             rel_row=put(layout.rel_row), blkmap=put(layout.blkmap),
             row_mask=put(layout.row_mask), parts=put(row_parts(layout)),
             idx=idx, vals=slot_values(coo.values.to(dev), order, valid),
-            mode=layout.mode, shape=tuple(layout.shape),
+            mode=mode, shape=tuple(coo.shape),
             n_row_blocks=layout.n_row_blocks, bn=layout.bn, bi=layout.bi,
         )
 

@@ -1,7 +1,7 @@
 """TuckerResult — the result type of the plan/execute API.
 
-Port of ``repro.tucker.result.TuckerResult`` (the fields of the sparse
-path).
+Port of ``repro.tucker.result.TuckerResult`` (the fields of the
+single-device paths).
 """
 from __future__ import annotations
 
@@ -26,11 +26,13 @@ class TuckerResult:
         sweep ran).
       fit_history: per-sweep relative error (host numpy, the sweeps that ran).
       engine: the engine that ran: 'cuda' (the CUDA kernels) or 'torch'
-        (their plain versions, on the CPU).
+        (their plain versions, on the CPU; and the dense and completion
+        algorithms, torch products on either device).
       spec: the :class:`~repro_torch.tucker.spec.TuckerSpec` this run executed.
       compression_ratio: dense storage / Tucker storage, factors included.
       dispatches: top-level dispatches this call made, as the reference
-        counts them: 1 for one multi-sweep ``run_sweeps`` call.
+        counts them: 1 for one multi-sweep ``run_sweeps`` call, one a sweep
+        on the per-sweep pipeline, 0 on the dense and completion paths.
       launches: CUDA kernel launches of the port's kernels this call made
         (0 on the CPU).
       schedule_builds: schedule constructions this call triggered (0 when

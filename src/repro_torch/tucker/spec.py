@@ -1,8 +1,9 @@
 """TuckerSpec — the frozen problem description behind the plan/execute API.
 
 Port of ``repro.tucker.spec``: the same fields, validation and rank clamp.
-Values whose code is not ported yet raise ``NotImplementedError`` naming
-their ``ROADMAP.md`` item; the JAX engine names raise ``ValueError``.
+Values whose code is not ported yet (``shard``, ``snapshot``, ``autotune``,
+``use_kron_reuse``) raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item; the JAX engine names raise ``ValueError``.
 """
 from __future__ import annotations
 
@@ -43,16 +44,23 @@ class TuckerSpec:
         representable fixpoint R_n <= min(I_n, prod_{t != n} R_t).
       method: factor update — 'householder' (paper QRP), 'gram' or 'svd'.
       engine: 'auto', 'cuda' or 'torch' (see ``repro_torch.core.engine``).
-      pipeline: 'scan', the multi-sweep loop of ``core.hooi.run_sweeps``.
+      pipeline: 'scan', the multi-sweep loop of ``core.hooi.run_sweeps``
+        (the device's fit history read once), or 'python', the per-sweep
+        loop (one read of the fit a sweep; the reference's benchmark
+        baseline).
       n_iter: max ALS sweeps.
       tol: early-exit threshold on consecutive fit deltas (0 disables).
       dtype: 'auto' (float32 factors, values as given), 'float32' or
         'float64' (the CPU only).
       precision: 'fp32' or 'bf16_fp32acc' (bf16 operand loads and products
         in the two kernels, f32 sums).
-      algorithm: 'sparse' (paper Alg. 2, COO input).
+      algorithm: 'sparse' (paper Alg. 2, COO input), 'dense' (Alg. 1,
+        dense input) or 'complete' (EM completion, COO input).
+      n_rounds: EM rounds for algorithm='complete' (ignored otherwise).
       autotune, use_kron_reuse, shard, snapshot: reference features that
-        are not ported yet; only their defaults are accepted.
+        are not ported yet; only their defaults are accepted. (In the
+        reference, autotune, shard and snapshot also need the sparse scan
+        path.)
     """
 
     shape: Tuple[int, ...]
@@ -67,6 +75,7 @@ class TuckerSpec:
     autotune: bool = False
     use_kron_reuse: bool = False
     algorithm: str = "sparse"
+    n_rounds: int = 10
     shard: Optional[Any] = None
     snapshot: Optional[Any] = None
 
@@ -95,15 +104,12 @@ class TuckerSpec:
             raise ValueError(f"algorithm must be one of {ALGORITHMS}, got {self.algorithm!r}")
         if int(self.n_iter) < 1:
             raise ValueError(f"n_iter must be >= 1, got {self.n_iter}")
+        if int(self.n_rounds) < 1:
+            raise ValueError(f"n_rounds must be >= 1, got {self.n_rounds}")
         if not (float(self.tol) >= 0.0):  # also rejects NaN
             raise ValueError(f"tol must be >= 0, got {self.tol}")
         if self.precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}, got {self.precision!r}")
-        if self.algorithm != "sparse":
-            raise unported(f"algorithm={self.algorithm!r}",
-                           "queue 1, item 10: the dense and completion algorithms")
-        if self.pipeline == "python":
-            raise unported("pipeline='python'", "queue 1, item 9: the per-sweep pipeline")
         if self.shard is not None:
             raise unported("shard", "queue 1, item 15: sharding")
         if self.snapshot is not None:
@@ -115,6 +121,7 @@ class TuckerSpec:
         object.__setattr__(self, "shape", shape)
         object.__setattr__(self, "ranks", ranks)
         object.__setattr__(self, "n_iter", int(self.n_iter))
+        object.__setattr__(self, "n_rounds", int(self.n_rounds))
         object.__setattr__(self, "tol", float(self.tol))
         object.__setattr__(self, "dtype", _canonical_dtype(self.dtype))
 
@@ -129,7 +136,7 @@ class TuckerSpec:
 
 def spec_for(x: Any, ranks: Sequence[int], **kwargs) -> TuckerSpec:
     """A :class:`TuckerSpec` for tensor ``x``: sparse for a ``SparseCOO``,
-    dense (not ported yet) for anything else."""
+    dense for anything else (a numpy array or a tensor)."""
     from repro_torch.core.coo import SparseCOO
 
     if isinstance(x, SparseCOO):

@@ -18,6 +18,7 @@ def test_import_leaves_jax_and_repro_unloaded():
         "import repro_torch.kernels.kron_kernel, repro_torch.kernels.ttm_kernel\n"
         "import repro_torch.core.engine, repro_torch.core.hooi\n"
         "import repro_torch.sparse.generators, repro_torch.core.reconstruct\n"
+        "import repro_torch.sparse, repro_torch.sparse.datasets\n"
         "import repro_torch.models.model, repro_torch.serve.engine, repro_torch.configs\n"
         "import repro_torch.kernels.flash_attention, repro_torch.kernels.ssd_scan\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"

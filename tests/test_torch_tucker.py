@@ -144,7 +144,6 @@ def test_engine_names():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"algorithm": "dense"}, {"algorithm": "complete"}, {"pipeline": "python"},
     {"shard": object()}, {"snapshot": object()}, {"autotune": True},
     {"use_kron_reuse": True},
 ])
