@@ -81,7 +81,19 @@ result line):
     against dense svd at 200^3, three sparsities, warm times); and EM
     completion, card against CPU at 64x64x32 and a 256x256x128 volume
     observed at 20%: the error on the unobserved entries, ms per EM round;
-12. one JSON line per phase, the kernels line, then the device line.
+12. the Tucker decomposition service (``repro_torch.serve.TuckerService``,
+    max_batch 16, max_wait_ms 5, 2 executors) fed by 4 threads: 64 requests
+    at the NELL-2 portion's shape (householder, 5 sweeps), 32 at Amazon's
+    (gram, 2 sweeps) and 16 4-way tensors (200x200x200x20, ranks 8, gram, 3
+    sweeps), nonzeros drawn per request; every result against the same
+    request served alone per-tensor (fit 1e-4, projectors 1e-3, core 1e-3 x
+    max|core| after sign alignment), dispatches per tenant <= ceil(N / 16),
+    each flush's launches (kernel 1 or the kernel 3 + 4 chain as one
+    member's run, kernel 2 once a member a sweep), requests/s, p50 / p99,
+    the sequential loop's requests/s, peak memory, one flush alone and its
+    busy share, and kernels 1-4 at a flush's stacked shapes against their
+    plain versions with times and bounds;
+13. one JSON line per phase, the kernels line, then the device line.
 
 Needs one CUDA card, ``nvcc`` (on PATH or under /usr/local/cuda), and the
 checkout's ``src/`` beside this file. Imports nothing of JAX.
@@ -237,6 +249,7 @@ def main() -> int:
     kernels.update(timed("9 Zamba2 serving", phase9_zamba2, dev, card))
     timed("10 Table V", phase10_table5, dev, card)
     timed("11 dense HOOI and completion", phase11_dense, dev, card)
+    timed("12 Tucker service", phase12_service, dev, card)
     print(json.dumps({"kernels": [kernels[k] for k in wrappers()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2256,6 +2269,346 @@ def phase9_zamba2(dev, card: str):
             "library_ms": None},
     }
 
+
+# -- phase 12: the Tucker decomposition service ------------------------------------
+
+# (name, shape, ranks, method, sweeps, requests, nnz range) of each tenant:
+# the NELL-2 portion of Table V, Amazon's shape of Table V, and a 4-way
+# tensor (kernels 3 and 4); uniform coordinates, values uniform in [0.1, 10)
+SERVICE_TENANTS = (
+    ("A", (1000, 1000, 1000), (16, 16, 16), "householder", 5, 64, (12_000, 36_000)),
+    ("B", (20000, 20000, 20000), (32, 32, 32), "gram", 2, 32, (600, 1_200)),
+    ("C", (200, 200, 200, 20), (8, 8, 8, 8), "gram", 3, 16, (20_000, 80_000)),
+)
+SERVICE_MAX_BATCH = 16
+SERVICE_THREADS = 4
+
+
+def projector_gap(u, v, rows: int = 2048) -> float:
+    """max |U U^T - V V^T| over row blocks, never the whole (I, I) at once."""
+    gap = 0.0
+    for s in range(0, u.shape[0], rows):
+        gap = max(gap, float((u[s:s + rows] @ u.T - v[s:s + rows] @ v.T).abs().max()))
+    return gap
+
+
+def core_gap(got, want):
+    """(max |core difference|, max |want's core|) once ``got``'s factor
+    columns are matched to ``want``'s by sign."""
+    core = got.core
+    for n, (a, b) in enumerate(zip(got.factors, want.factors)):
+        sign = torch.sign((a * b).sum(0))
+        core = core * sign.reshape([-1 if t == n else 1 for t in range(core.dim())])
+    return float((core - want.core).abs().max()), float(want.core.abs().max())
+
+
+def single_run_launches(order: int) -> dict:
+    """Launches of one per-tensor sweep of an ``order``-way tensor: kernel 1
+    a mode, or two kron_contrib links and one scatter_rows a mode above
+    order 3; kernel 2 once."""
+    if order <= 3:
+        return {"fused_kron_scatter": order, "ttm": 1}
+    return {"kron_contrib": 2 * order, "scatter_rows": order, "ttm": 1}
+
+
+def stacked_kernel_checks(name, stacked, fs, k: int, shape) -> dict:
+    """Kernels 1-4 at one flush's stacked shapes against their plain
+    versions (fp32 rule), from the flush's final factors: kernel 1 on every
+    mode (or the kernel 3 + 4 chain for the 4-way tenant) over the stack,
+    kernel 2 on each member's row views of the last unfolding, as the
+    batched sweeps call it. Times and bounds as phases 4, 6 and 10."""
+    from repro_torch.core.engine import make_engine
+    from repro_torch.kernels import kron_kernel, ops, ttm_kernel
+
+    eng = make_engine("cuda", stacked.device)
+    n = stacked.ndim
+    out = {}
+    if n <= 3:
+        rows3 = table5_kernels(f"{name} stacked", stacked, eng, fs)
+        out["fused_kron_scatter"] = rows3["fused_kron_scatter"]
+        out["ttm_whole_stack"] = rows3["ttm"]
+        y_last = kron_kernel.fused_kron_scatter(*kron_factors(fs, n - 1),
+                                                eng.device_schedule(stacked, n - 1),
+                                                stacked.shape[n - 1])
+    else:
+        tot = {nm: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
+                    "bytes": 0, "flops": 0} for nm in ("kron_contrib", "scatter_rows")}
+        for mode in range(n):
+            sched = eng.device_schedule(stacked, mode)
+            n_rows = stacked.shape[mode]
+            rows, v = ops._gathered_block_rows(stacked.indices, stacked.values, fs, mode,
+                                               sched, n)
+            ones = torch.ones_like(v)
+            c1 = synced(kron_kernel.kron_contrib(rows[0], rows[1], v))
+            e1 = compare(f"kron_contrib {name} stacked mode {mode} link 1", "fp32", c1,
+                         synced(kron_kernel.kron_contrib_plain(rows[0], rows[1], v)), 1)
+            c2 = synced(kron_kernel.kron_contrib(c1, rows[2], ones))
+            e2 = compare(f"kron_contrib {name} stacked mode {mode} link 2", "fp32", c2,
+                         synced(kron_kernel.kron_contrib_plain(c1, rows[2], ones)), 1)
+            y = synced(kron_kernel.scatter_rows(c2, sched, n_rows))
+            terms = max_row_count(stacked, mode)
+            es = compare(f"scatter_rows {name} stacked mode {mode}", "fp32", y,
+                         synced(kron_kernel.scatter_rows_plain(c2, sched, n_rows)), terms)
+            compare(f"Y_({mode}) {name} stacked, kernels against the plain chain", "fp32", y,
+                    synced(chain_plain(rows, v, sched, n_rows, "fp32")), terms)
+            kk = c2.shape[1]
+            for nm, ms, pl, nb, fl, err in (
+                    ("kron_contrib",
+                     time_ms(partial(kron_kernel.kron_contrib, rows[0], rows[1], v))
+                     + time_ms(partial(kron_kernel.kron_contrib, c1, rows[2], ones)),
+                     time_ms(partial(kron_kernel.kron_contrib_plain, rows[0], rows[1], v))
+                     + time_ms(partial(kron_kernel.kron_contrib_plain, c1, rows[2], ones)),
+                     nbytes_of(rows[0], rows[1], v, c1, c1, rows[2], ones) + c2.numel() * 4,
+                     2 * v.shape[0] * c1.shape[1] + 2 * v.shape[0] * kk, max(e1, e2)),
+                    ("scatter_rows", time_ms(partial(kron_kernel.scatter_rows, c2, sched, n_rows)),
+                     time_ms(partial(kron_kernel.scatter_rows_plain, c2, sched, n_rows)),
+                     nbytes_of(c2, sched.rel_row, sched.blkmap, sched.parts) + n_rows * kk * 4,
+                     int(stacked.nnz) * kk, es)):
+                t = tot[nm]
+                t["ms"] += ms
+                t["plain_ms"] += pl
+                t["bound_ms"] += bound(nb, fl)[0]
+                t["bytes"] += nb
+                t["flops"] += fl
+                t["max_abs_err"] = max(t["max_abs_err"], err)
+            if mode == n - 1:
+                y_last = y
+            del c1, c2, rows, v, ones
+        for nm, t in tot.items():
+            t["bound_by"] = bound(t["bytes"], t["flops"])[1]
+            out[nm] = t
+    # kernel 2 as the batched sweeps call it: on member i's rows of Y_(N)
+    # and U_N, transposed views (no copy)
+    rows_n = shape[n - 1]
+    err = 0.0
+    for i in range(k):
+        yv, uv = y_last[i * rows_n:(i + 1) * rows_n].T, fs[n - 1][i * rows_n:(i + 1) * rows_n].T
+        err = max(err, compare(f"ttm {name} member {i} view y {tuple(yv.shape)} u "
+                               f"{tuple(uv.shape)}", "fp32", check_ttm_call(name, yv, uv, "fp32"),
+                               synced(ttm_kernel.ttm_plain(yv, uv)), rows_n))
+    yv, uv = y_last[:rows_n].T, fs[n - 1][:rows_n].T
+    l_, i_ = yv.shape
+    nb, fl = (l_ * i_ + uv.shape[0] * i_) * 4 + l_ * uv.shape[0] * 4, 2 * l_ * i_ * uv.shape[0]
+    out["ttm"] = {"ms": time_ms(partial(ttm_kernel.ttm, yv, uv), reps=20, flush_l2=True),
+                  "plain_ms": time_ms(partial(ttm_kernel.ttm_plain, yv, uv), reps=20,
+                                      flush_l2=True),
+                  "library_ms": time_ms(partial(torch.matmul, yv, uv.T), reps=20, flush_l2=True),
+                  "bound_ms": bound(nb, fl)[0], "bound_by": bound(nb, fl)[1],
+                  "max_abs_err": err, "shape": [l_, i_, uv.shape[0]], "calls_per_sweep": k}
+    return out
+
+
+def phase12_service(dev, card: str) -> None:
+    import threading
+
+    import repro_torch.obs as obs
+    from repro_torch import tucker
+    from repro_torch.core.coo import SparseCOO
+    from repro_torch.serve import ServiceConfig, TuckerService
+    from repro_torch.sparse.layout import stack_coo_batch
+
+    tf32_off()
+    release_memory()
+    log(f"phase 12: TuckerService(max_batch {SERVICE_MAX_BATCH}, max_wait_ms 5, 2 executors), "
+        f"{SERVICE_THREADS} submitting threads, tenants "
+        + "; ".join(f"{t[0]} {t[5]} x {t[1]} ranks {t[2]} {t[3]} {t[4]} sweeps nnz {t[6]}"
+                    for t in SERVICE_TENANTS))
+    specs = [tucker.TuckerSpec(shape, ranks, method=method, n_iter=sweeps)
+             for _, shape, ranks, method, sweeps, _, _ in SERVICE_TENANTS]
+    t0 = time.perf_counter()
+    reqs = []  # (tenant, coo, generator seed), tenant by tenant
+    for t, (_, shape, _, _, _, n_req, (lo, hi)) in enumerate(SERVICE_TENANTS):
+        rng = np.random.default_rng(1200 + t)
+        for i in range(n_req):
+            seed = 12_000 + 1000 * t + i
+            idx, vals = synthetic(dev, shape, int(rng.integers(lo, hi + 1)), seed, "uniform")
+            reqs.append((t, SparseCOO.from_parts(idx, vals, shape), seed))
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    # the sequential loop: each request served alone, per-tensor, one after
+    # another (each call ends in its history's read); the reference results
+    seq, seq_s = [], [0.0] * len(SERVICE_TENANTS)
+    for t, coo, seed in reqs:
+        plan = tucker.plan(specs[t], device=dev)
+        t0 = time.perf_counter()
+        seq.append(plan(coo, generator=gen(seed)))
+        seq_s[t] += time.perf_counter() - t0
+    for (t, coo, _), res in zip(reqs, seq):
+        want = sum(single_run_launches(coo.ndim).values()) * specs[t].n_iter
+        check(res.launches == want and res.n_sweeps == specs[t].n_iter,
+              f"tenant {SERVICE_TENANTS[t][0]} per-tensor run: {res.launches} launches, "
+              f"{res.n_sweeps} sweeps; want {want}, {specs[t].n_iter}")
+
+    # the service: every count starts at 0 here and is read right after
+    groups = []  # runs of 16 requests of one tenant, handed to the threads in turn
+    for t in range(len(SERVICE_TENANTS)):
+        mine = [i for i, r in enumerate(reqs) if r[0] == t]
+        groups += [mine[s:s + SERVICE_MAX_BATCH] for s in range(0, len(mine), SERVICE_MAX_BATCH)]
+    per_thread = [[i for g in groups[th::SERVICE_THREADS] for i in g]
+                  for th in range(SERVICE_THREADS)]
+    tickets, sub_t, errors = [None] * len(reqs), [0.0] * len(reqs), []
+    obs.tracer.clear()
+    obs.configure(enabled=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reset_launches()
+    svc = TuckerService(ServiceConfig(max_batch=SERVICE_MAX_BATCH, max_wait_ms=5.0,
+                                      max_inflight_flushes=2))
+    barrier = threading.Barrier(SERVICE_THREADS + 1)
+
+    def submitter(th):
+        barrier.wait(60)
+        try:
+            for i in per_thread[th]:
+                t, coo, seed = reqs[i]
+                sub_t[i] = time.perf_counter()
+                tickets[i] = svc.submit_coo(coo, specs[t], generator=gen(seed))
+        except Exception as exc:  # reported below: the phase fails
+            errors.append(exc)
+
+    threads = [threading.Thread(target=submitter, args=(th,)) for th in range(SERVICE_THREADS)]
+    for th in threads:
+        th.start()
+    barrier.wait(60)
+    t0 = time.perf_counter()
+    for th in threads:
+        th.join(600)
+    try:
+        check(not errors and not any(th.is_alive() for th in threads),
+              f"submitting threads failed: {errors}")
+        failed = [(i, tk.exception(timeout=600)) for i, tk in enumerate(tickets)]
+        failed = [(i, e) for i, e in failed if e is not None]
+        check(not failed, f"{len(failed)} tickets failed, the first: {failed[:1]}")
+        results = [tk.result() for tk in tickets]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        svc.close()
+        obs.configure(enabled=False)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    spans = [e for e in obs.tracer.events()
+             if e.name == "sweep.dispatch" and e.attrs.get("program") == "batched"]
+    snap = svc.metrics.snapshot()
+    log(f"  service: {len(reqs)} requests in {wall:.3f} s, launches {launches}, "
+        f"{len(spans)} batched dispatch spans, metrics dispatches {snap['dispatches']}")
+
+    # every kernel of the path ran, and the flushes' own counts add up to them
+    path_kernels = ("fused_kron_scatter", "kron_contrib", "scatter_rows", "ttm")
+    for name in path_kernels:
+        check(launches[name] > 0, f"phase 12 launched {name} no time")
+    check(launches["fused_kron_scatter_ttm"] == 0 and not any(launches[k] for k in NO_LM_LAUNCHES),
+          f"phase 12 launched kernels off its path: {launches}")
+    from_spans = {name: sum(e.attrs["launches"].get(name, 0) for e in spans)
+                  for name in path_kernels}
+    check(from_spans == {k: launches[k] for k in path_kernels},
+          f"the flushes' launches {from_spans} do not add up to the run's {launches}")
+
+    tenants = []
+    for t, (name, shape, ranks, method, sweeps, n_req, _) in enumerate(SERVICE_TENANTS):
+        ids = [i for i, r in enumerate(reqs) if r[0] == t]
+        res_t = [results[i] for i in ids]
+        dispatches = sum(r.dispatches for r in res_t)
+        t_spans = [e for e in spans if tuple(e.attrs["shape"]) == tuple(shape)]
+        check(dispatches <= -(-n_req // SERVICE_MAX_BATCH),
+              f"tenant {name}: {dispatches} dispatches for {n_req} requests")
+        check(len(t_spans) >= dispatches >= 1,
+              f"tenant {name}: {len(t_spans)} dispatch spans for {dispatches} flushes")
+        per_flush = []
+        for e in t_spans:
+            k, s_run = e.attrs["batch"], e.attrs["sweeps_run"]
+            want = {kk: v * s_run for kk, v in single_run_launches(len(shape)).items()}
+            want["ttm"] = k * s_run
+            check(e.attrs["launches"] == want,
+                  f"tenant {name} flush of {k}: launches {e.attrs['launches']}, want {want}")
+            per_flush.append({"batch": k, "sweeps": s_run, "launches": e.attrs["launches"],
+                              "ms": e.duration_ms})
+        fit_gap = proj = core = core_scale = 0.0
+        for i in ids:
+            got, want = results[i], seq[i]
+            check(got.n_sweeps == want.n_sweeps == sweeps,
+                  f"tenant {name} request {i}: {got.n_sweeps} sweeps, alone {want.n_sweeps}")
+            check(bool(np.all(np.isfinite(got.fit_history))), f"request {i}: {got.fit_history}")
+            fit_gap = max(fit_gap, float(np.abs(got.fit_history - want.fit_history).max()))
+            proj = max(proj, max(projector_gap(a, b) for a, b in zip(got.factors, want.factors)))
+            gap, scale = core_gap(got, want)
+            check(gap <= 1e-3 * scale, f"tenant {name} request {i}: core gap {gap} > 1e-3 x "
+                                       f"{scale}")
+            core, core_scale = max(core, gap / scale), max(core_scale, scale)
+        check(fit_gap <= 1e-4, f"tenant {name}: fit history gap {fit_gap} > 1e-4")
+        check(proj <= 1e-3, f"tenant {name}: projector gap {proj} > 1e-3")
+        lat = np.asarray([r.timing.total_ms for r in res_t])
+        span_s = max(sub_t[i] + results[i].timing.total_ms / 1e3 for i in ids) - min(
+            sub_t[i] for i in ids)
+        row = {"tenant": name, "shape": shape, "ranks": specs[t].ranks, "method": method,
+               "sweeps": sweeps, "requests": n_req,
+               "nnz": [min(reqs[i][1].nnz for i in ids), max(reqs[i][1].nnz for i in ids)],
+               "dispatches": dispatches, "flushes": per_flush,
+               "requests_per_s": n_req / span_s, "p50_ms": float(np.percentile(lat, 50)),
+               "p99_ms": float(np.percentile(lat, 99)),
+               "sequential_requests_per_s": n_req / seq_s[t],
+               "sequential_ms_per_request": seq_s[t] * 1e3 / n_req,
+               "ratio_to_sequential": (n_req / span_s) / (n_req / seq_s[t]),
+               "fit_gap": fit_gap, "projector_gap": proj, "core_gap_over_scale": core}
+        log(f"  tenant {name}: {json.dumps(row)}")
+        tenants.append(row)
+
+    # one flush of each tenant alone: its wall time beside one request served
+    # alone, the device's busy share (tenant A), and kernels 1-4 at the
+    # flush's stacked shapes, from the flush's final factors
+    flush_ms, flush_stages, kernels = {}, {}, {}
+    for t, (name, shape, *_rest) in enumerate(SERVICE_TENANTS):
+        ids = [i for i, r in enumerate(reqs) if r[0] == t][:SERVICE_MAX_BATCH]
+        plan = tucker.plan(specs[t], device=dev)
+        members = [reqs[i][1] for i in ids]
+        flush_ms[name] = []
+        obs.configure(enabled=True)  # the stages: factor draws and stacking, sweeps
+        try:
+            for _ in range(2):  # the first allocates the flush's memory anew
+                t0 = time.perf_counter()
+                batch = plan.batch(members, generators=[gen(reqs[i][2]) for i in ids])
+                flush_ms[name].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            obs.configure(enabled=False)
+        flush_stages[name] = batch[0].trace_summary
+        if t == 0:
+            prof = profile_run(lambda: plan.batch(members,
+                                                  generators=[gen(reqs[i][2]) for i in ids]))
+        stacked, _ = stack_coo_batch(members)
+        fs = [torch.cat([r.factors[m] for r in batch]).contiguous() for m in range(len(shape))]
+        kernels[name] = stacked_kernel_checks(name, stacked, fs, len(members), shape)
+        del stacked, fs, batch
+        release_memory()
+    summary = {
+        "phase": "12 Tucker service", "card": card,
+        "config": {"max_batch": SERVICE_MAX_BATCH, "max_wait_ms": 5.0, "max_inflight_flushes": 2,
+                   "submitting_threads": SERVICE_THREADS},
+        "generate_s": t_gen, "wall_s": wall, "requests": len(reqs),
+        "requests_per_s": len(reqs) / wall, "sequential_s": sum(seq_s),
+        "sequential_requests_per_s": len(reqs) / sum(seq_s),
+        "ratio_to_sequential": sum(seq_s) / wall,
+        "peak_above_resident_gb": (peak - resident) / 1e9, "resident_gb": resident / 1e9,
+        "launches": {k: v for k, v in launches.items() if v},
+        "metrics": {k: snap[k] for k in ("dispatches", "flushes", "requests_per_dispatch",
+                                         "batch_size_mean", "completed", "failed")},
+        "tenants": tenants,
+        "flush_alone_ms": flush_ms, "flush_alone_stages_ms": flush_stages,
+        # a warm flush of 16 alone against its 16 requests served alone
+        "flush_alone_amortization": {
+            row["tenant"]: SERVICE_MAX_BATCH * row["sequential_ms_per_request"]
+            / flush_ms[row["tenant"]][-1] for row in tenants},
+        "flush_a_profile": {k: prof[k] for k in ("wall_ms", "device_busy_ms", "busy_share",
+                                                 "device_kernels", "kernel_ms")},
+        "kernels_at_stacked_shapes": kernels,
+    }
+    print(json.dumps(summary), flush=True)
+    del reqs, seq, results
+    release_memory()
 
 if __name__ == "__main__":
     try:

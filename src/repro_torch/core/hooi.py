@@ -87,9 +87,10 @@ def sparse_sweep(
 
 def projection_error(xnorm2: torch.Tensor, core: torch.Tensor) -> torch.Tensor:
     """The relative error ||X - Xhat|| / ||X|| from the projection identity
-    (orthonormal factors): sqrt(||X||^2 - ||G||^2) / ||X||."""
-    return (torch.sqrt(torch.clamp(xnorm2 - torch.sum(torch.square(core)), min=0.0))
-            / torch.sqrt(xnorm2))
+    (orthonormal factors): sqrt(||X||^2 - ||G||^2) / ||X||. With ``xnorm2``
+    of shape (k,) and ``core`` (k, R_1, ..., R_N), one error per member."""
+    g2 = torch.sum(torch.square(core).reshape(*xnorm2.shape, -1), dim=-1)
+    return torch.sqrt(torch.clamp(xnorm2 - g2, min=0.0)) / torch.sqrt(xnorm2)
 
 
 def run_sweeps(
@@ -132,6 +133,87 @@ def run_sweeps(
     hist = np.full((n_iter,), _SKIPPED, dtype=np.float32)
     hist[: len(errs)] = torch.stack(errs).cpu().numpy()  # the one device->host copy
     return fs, core, hist
+
+
+def run_sweeps_batched(
+    stacked: SparseCOO,
+    factors: Sequence[Sequence[torch.Tensor]],
+    xnorm2: torch.Tensor,
+    tol: float,
+    engine: SweepEngine,
+    *,
+    ranks: Sequence[int],
+    method: str,
+    n_iter: int,
+) -> Tuple[List[List[torch.Tensor]], List[torch.Tensor], np.ndarray]:
+    """:func:`run_sweeps` for k same-shape tensors at once, one set of
+    launches for all of them: the twin of the reference's vmapped program
+    (``_batched_scan_sweeps``).
+
+    ``stacked`` is the block-diagonal stack of the k members, of shape
+    (k I_1, ..., k I_N) (:func:`~repro_torch.sparse.layout.stack_coo_batch`);
+    ``factors`` holds each member's initial factors, stacked here into
+    (k I_m, R_m), and ``xnorm2`` the members' squared norms, (k,). Each
+    mode's unfolding is one call of ``engine`` over the stack: the k
+    members' unfoldings one under the other. The factor update runs on those
+    as one (k, I_n, K) batch; the core update G_i = U_N,i^T Y_(N),i once per
+    member, on row views.
+
+    The ``tol`` rule holds per member, as under the reference's vmap: a
+    member whose fit has settled keeps its factors and core from then on
+    (``torch.where``; it stays in the stack, whose schedules do not
+    change) and its later history entries are ``_SKIPPED``. With ``tol > 0``
+    the loop reads one flag a sweep and stops once every member is done;
+    with ``tol == 0`` nothing is read back until the (k, n_iter) history.
+
+    Returns each member's ``(factors, core)`` as separate tensors, and the
+    history.
+    """
+    k = len(factors)
+    shape = tuple(s // k for s in stacked.shape)
+    n = len(shape)
+    fs = [torch.cat([f[m] for f in factors]) for m in range(n)]  # (k I_m, R_m)
+    core_dtype = torch.promote_types(stacked.values.dtype, torch.float32)
+    skipped = torch.full((k,), _SKIPPED, dtype=torch.float32, device=xnorm2.device)
+    prev_err = torch.full((k,), float("inf"), dtype=torch.float32, device=xnorm2.device)
+    active = None  # every member runs until the tol rule stops one
+    core = None
+    errs = []
+    for _ in range(n_iter):
+        y_n = None
+        for mode in range(n):
+            y_n = engine.mode_unfolding(stacked, fs, mode)
+            u = factor_update(y_n.view(k, shape[mode], -1), ranks[mode], method)
+            u = u.to(fs[mode].dtype)
+            if active is not None:  # settled members keep their factors
+                u = torch.where(active[:, None, None], u, fs[mode].reshape(u.shape))
+            fs[mode] = u.reshape(k * shape[mode], -1)
+        # Alg. 2 line 9 per member: G_(N) = U_N^T Y_(N) on the members' rows
+        rows = shape[n - 1]
+        g = torch.stack([
+            fold_dense(engine.core_unfolding(y_n[i * rows:(i + 1) * rows],
+                                             fs[n - 1][i * rows:(i + 1) * rows]),
+                       n - 1, list(ranks))
+            for i in range(k)
+        ]).to(core_dtype)
+        err = projection_error(xnorm2, g).to(torch.float32)
+        if active is None:
+            core = g
+            errs.append(err)
+        else:
+            core = torch.where(active.view((k,) + (1,) * n), g, core)
+            errs.append(torch.where(active, err, skipped))
+        if tol > 0:
+            ran = active if active is not None else torch.ones_like(prev_err, dtype=torch.bool)
+            done = ran & torch.isfinite(prev_err) & (torch.abs(prev_err - err) < tol)
+            prev_err = torch.where(ran, err, prev_err)
+            active = ran & ~done
+            if not bool(active.any()):  # the one read a sweep
+                break
+    hist = np.full((k, n_iter), _SKIPPED, dtype=np.float32)
+    hist[:, :len(errs)] = torch.stack(errs, 1).cpu().numpy()  # the one copy of the history
+    out = [[f[i * s:(i + 1) * s].clone() for f, s in zip(fs, shape)] for i in range(k)]
+    return out, [core[i].clone() for i in range(k)], hist
 
 
 # -- deprecation shims over repro_torch.tucker, as in the reference ----------

@@ -21,7 +21,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, launch_count
 
 NEG_INF = -1e30
 # the plain version forms (b, H, rows, T) logits for this many query rows at
@@ -163,7 +163,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if rc != 0:
         raise RuntimeError(f"flash_attention ({route}, {staging}) failed at q {tuple(q.shape)}, "
                            f"k {tuple(k.shape)}: CUDA error {rc}")
-    flash_attention.launches += 1
+    launch_count.count(flash_attention)
     flash_attention.launches_by_route[route] += 1
     return out
 

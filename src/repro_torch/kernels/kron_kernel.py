@@ -25,7 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, launch_count
 from repro_torch.sparse.layout import build_schedule, slot_rows, visited_row_mask
 
 # mixed-precision axis: "fp32" keeps everything f32; "bf16_fp32acc" loads
@@ -244,7 +244,7 @@ def fused_kron_scatter(fa, fb, sched, n_rows: int, *,
     if rc != 0:
         raise RuntimeError(f"kron_scatter_launch failed at ranks ({ra}, {rb}): CUDA error "
                            f"{rc} (1: the ranks exceed one warp's shared-memory staging)")
-    fused_kron_scatter.launches += 1
+    launch_count.count(fused_kron_scatter)
     return out
 
 
@@ -297,7 +297,7 @@ def kron_contrib(a, b, v, *, precision: str = "fp32") -> torch.Tensor:
                 _stream(dev))
     if rc != 0:
         raise RuntimeError(f"kron_contrib_launch failed: CUDA error {rc}")
-    kron_contrib.launches += 1
+    launch_count.count(kron_contrib)
     return out
 
 
@@ -354,7 +354,7 @@ def scatter_rows(contrib, sched, n_rows: int) -> torch.Tensor:
                 sched.bi, vec, _SCATTER_THREADS, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"scatter_rows_launch failed: CUDA error {rc}")
-    scatter_rows.launches += 1
+    launch_count.count(scatter_rows)
     return out
 
 
@@ -451,7 +451,7 @@ def fused_kron_scatter_ttm(fa, fb, u, sched, n_rows: int, *,
                 int(bf16), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"kron_scatter_ttm_launch failed: CUDA error {rc}")
-    fused_kron_scatter_ttm.launches += 1
+    launch_count.count(fused_kron_scatter_ttm)
     return out
 
 

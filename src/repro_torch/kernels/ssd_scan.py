@@ -17,7 +17,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, launch_count
 
 MAX_CHUNK = 1024  # L: the kernel walks (L / 64)^2 / 2 tile pairs a chunk
 MAX_WIDTH = 128  # N and P: a warp keeps the state of at most two 64-row blocks of N
@@ -100,7 +100,7 @@ def ssd_chunk(x: torch.Tensor, a_cumsum: torch.Tensor, b_mat: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"ssd_chunk_launch failed at x {tuple(x.shape)}, N {n}: "
                            f"CUDA error {rc}")
-    ssd_chunk.launches += 1
+    launch_count.count(ssd_chunk)
     return y, s
 
 

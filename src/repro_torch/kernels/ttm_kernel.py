@@ -13,7 +13,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, launch_count
 from repro_torch.kernels.kron_kernel import _cast_operands
 
 _BL, _BR, _BT = 256, 16, 32  # output tile and contraction step of the kernel
@@ -146,7 +146,7 @@ def ttm(y: torch.Tensor, u: torch.Tensor, *, precision: str = "fp32") -> torch.T
                 int(y.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ttm_launch failed: CUDA error {rc}")
-    ttm.launches += 1
+    launch_count.count(ttm)
     return out
 
 

@@ -1,6 +1,7 @@
-"""The per-mode sweep schedule: nonzeros grouped by output row block.
+"""The per-mode sweep schedule: nonzeros grouped by output row block, and
+the batch assembly of same-shape tensors.
 
-Port of ``repro.sparse.layout`` (no Kron reuse yet). The schedule is built
+Port of ``repro.sparse.layout`` (no Kron reuse or shard padding yet). The schedule is built
 with torch ops on whatever device the indices live on, so a tensor already
 on the card is scheduled there (three stable sorts of the nonzeros, which on
 the host take minutes at tens of millions of nonzeros). The arrays are
@@ -10,7 +11,8 @@ numpy's stable argsort give the one stable permutation.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+import math
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -269,3 +271,102 @@ def _in_slot_order(t: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
 def slot_values(values: torch.Tensor, order: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """``values`` in slot order, 0 on padding slots."""
     return _in_slot_order(values, order) * valid
+
+
+# -- batches of same-shape tensors ---------------------------------------------
+
+
+def bucket_nnz(nnz: int, base: int = 512, growth: float = 2.0) -> int:
+    """Smallest bucket boundary >= ``nnz`` on the geometric grid
+    ``base, ceil(base*growth), ceil(base*growth^2), ...``.
+
+    ``nnz = 0`` maps to ``base`` (a bucket is a pad *target*, never smaller
+    than one block of real capacity).
+    """
+    if int(base) < 1:
+        raise ValueError(f"bucket base must be >= 1, got {base}")
+    if not growth > 1.0:
+        raise ValueError(f"bucket growth must be > 1, got {growth}")
+    if int(nnz) < 0:
+        raise ValueError(f"nnz must be >= 0, got {nnz}")
+    b = int(base)
+    while b < int(nnz):
+        b = int(math.ceil(b * float(growth)))
+    return b
+
+
+def _batch_members(coos: Sequence[SparseCOO], what: str):
+    """The common (shape, value dtype, device) of a batch, checked."""
+    if not coos:
+        raise ValueError(f"{what} needs at least one tensor")
+    shapes = {tuple(c.shape) for c in coos}
+    if len(shapes) != 1:
+        raise ValueError(f"{what} needs same-shape tensors, got {shapes}")
+    dtypes = {c.values.dtype for c in coos}
+    if len(dtypes) != 1:
+        # silent promotion would run narrow members at a wider dtype and
+        # break batched-vs-sequential parity; make the caller decide
+        raise ValueError(
+            f"{what} needs one common value dtype, got "
+            f"{sorted(str(d) for d in dtypes)}: cast the members, or plan with "
+            f"a concrete spec dtype"
+        )
+    devices = {c.device for c in coos}
+    if len(devices) != 1:
+        raise ValueError(f"{what} needs the members on one device, got {devices}")
+    return shapes.pop(), dtypes.pop(), devices.pop()
+
+
+def pad_coo_batch(coos: Sequence[SparseCOO], target_nnz: Optional[int] = None):
+    """Stack k same-shape COO tensors into batched ``(k, nnz_pad, N)`` int32
+    index and ``(k, nnz_pad)`` value tensors on the members' device, each
+    padded with explicit zeros (the padding convention of
+    ``SparseCOO.pad_to``: index 0, value 0).
+
+    ``target_nnz=None`` pads to the batch max; anything smaller than the
+    batch max is an error: padding never drops nonzeros. (The port's batched
+    sweeps stack the members block-diagonally instead,
+    :func:`stack_coo_batch`, and pad nothing.)
+    """
+    shape, dtype, dev = _batch_members(coos, "pad_coo_batch")
+    nnz_max = max(c.nnz for c in coos)
+    target = nnz_max if target_nnz is None else int(target_nnz)
+    if target < nnz_max:
+        raise ValueError(
+            f"target_nnz={target} would drop nonzeros: batch max nnz is {nnz_max}"
+        )
+    idx = torch.zeros((len(coos), target, len(shape)), dtype=torch.int32, device=dev)
+    val = torch.zeros((len(coos), target), dtype=dtype, device=dev)
+    for b, c in enumerate(coos):
+        idx[b, :c.nnz] = c.indices
+        val[b, :c.nnz] = c.values
+    return idx, val
+
+
+def stack_coo_batch(coos: Sequence[SparseCOO]) -> Tuple[SparseCOO, List[int]]:
+    """The block-diagonal stack of k same-shape tensors: one COO tensor of
+    shape (k I_1, ..., k I_N) in which member i's coordinates are offset by
+    i I_m in every mode m, on the members' device.
+
+    One unfolding of the stack is the k members' unfoldings one under the
+    other: rows i I_n ... (i + 1) I_n - 1 of its mode-n unfolding hold member
+    i's nonzeros contracted with rows i I_m ... of the stacked factors,
+    member i's own, and nothing mixes members. Returns the stack and the
+    (k + 1,) nonzero offsets: member i's nonzeros are the stack's
+    ``offsets[i]:offsets[i + 1]``, in their own order.
+    """
+    shape, _, dev = _batch_members(coos, "stack_coo_batch")
+    k = len(coos)
+    if k * max(shape) >= 2 ** 31:
+        raise ValueError(f"{k} members of shape {shape}: stacked coordinates overflow int32")
+    counts = [c.nnz for c in coos]
+    offsets = [0]
+    for n in counts:
+        offsets.append(offsets[-1] + n)
+    member = torch.repeat_interleave(
+        torch.arange(k, dtype=torch.int32, device=dev),
+        torch.tensor(counts, device=dev), output_size=offsets[-1])
+    base = torch.tensor(shape, dtype=torch.int32, device=dev)
+    idx = torch.cat([c.indices.to(torch.int32) for c in coos]) + member[:, None] * base
+    vals = torch.cat([c.values for c in coos])
+    return SparseCOO(idx, vals, tuple(k * s for s in shape)), offsets

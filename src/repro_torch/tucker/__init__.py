@@ -4,24 +4,41 @@
 
     spec = tucker.TuckerSpec(shape=coo.shape, ranks=(16, 16, 16))
     res = tucker.plan(spec)(coo)                  # on the card
+    results = tucker.plan(spec).batch([coo_a, coo_b])   # one program for k tensors
     res = tucker.decompose(coo, (16, 16, 16), device="cpu")
 
     res = tucker.decompose(dense, (16, 16, 16), method="svd")      # Alg. 1
     res = tucker.decompose(coo, (16, 16, 16), algorithm="complete")
     res = tucker.decompose(coo, (16, 16, 16), pipeline="python")   # per sweep
 """
-from repro_torch.tucker.planning import TuckerPlan, clear_plan_cache, decompose, plan
-from repro_torch.tucker.result import TuckerResult
+from repro_torch.tucker.planning import (
+    PlanCache,
+    PlanStats,
+    TuckerPlan,
+    add_plan_eviction_hook,
+    clear_plan_cache,
+    decompose,
+    plan,
+    plan_cache_info,
+    set_plan_cache_capacity,
+)
+from repro_torch.tucker.result import RequestTiming, TuckerResult
 from repro_torch.tucker.spec import ALGORITHMS, METHODS, TuckerSpec, spec_for
 
 __all__ = [
     "ALGORITHMS",
     "METHODS",
+    "PlanCache",
+    "PlanStats",
+    "RequestTiming",
     "TuckerPlan",
     "TuckerResult",
     "TuckerSpec",
+    "add_plan_eviction_hook",
     "clear_plan_cache",
     "decompose",
     "plan",
+    "plan_cache_info",
+    "set_plan_cache_capacity",
     "spec_for",
 ]

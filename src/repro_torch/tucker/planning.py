@@ -2,19 +2,26 @@
 
 Port of ``repro.tucker.planning`` for one device: the sparse path (paper
 Alg. 2) on the multi-sweep ``scan`` pipeline or the per-sweep ``python``
-one, dense HOOI (Alg. 1) and EM completion over it. A plan is bound to one
-device, ``"cuda"`` unless the caller asks for the CPU; without a CUDA
-device the default raises instead of running on the CPU. A sparse plan
-owns its sweep engine, whose schedules are built once per tensor: hand the
-plan a tensor already on its device (``coo.to(device)``) to reuse them
-across calls. The dense and completion paths run torch products (the
-reference leaves them to XLA): no kernel of the port's and no schedule.
+one, the batched sweeps of ``TuckerPlan.batch`` (k same-shape tensors in
+one program), dense HOOI (Alg. 1) and EM completion over it, and the LRU
+plan cache. A plan is bound to one device, ``"cuda"`` unless the caller
+asks for the CPU; without a CUDA device the default raises instead of
+running on the CPU. A sparse plan owns its sweep engine, whose schedules
+are built once per tensor: hand the plan a tensor already on its device
+(``coo.to(device)``) to reuse them across calls. The dense and completion
+paths run torch products (the reference leaves them to XLA): no kernel of
+the port's and no schedule.
+
+Every call opens ``repro_torch.obs`` spans (``plan.call``, ``plan.batch``,
+``plan.assemble``, ``sweep.dispatch``); with tracing on, each result
+carries the call's per-stage milliseconds in ``trace_summary``.
 """
 from __future__ import annotations
 
+import dataclasses
 import threading
 from collections import OrderedDict
-from typing import Any, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,28 +33,80 @@ from repro_torch.core.engine import SweepEngine, make_engine
 from repro_torch.core.qrp import factor_update
 from repro_torch.core.reconstruct import compression_ratio, reconstruct_dense
 from repro_torch.core.ttm import ttm_chain
-from repro_torch.kernels import kron_kernel
-from repro_torch.kernels.ttm_kernel import ttm
+from repro_torch.kernels import launch_count
+from repro_torch.obs import event as _obs_event
+from repro_torch.obs import registry as _obs_registry
+from repro_torch.obs import span as _obs_span
+from repro_torch.obs import tracer as _obs_tracer
+from repro_torch.sparse.layout import stack_coo_batch
 from repro_torch.tucker.result import TuckerResult
 from repro_torch.tucker.spec import TuckerSpec, spec_for
 
-__all__ = ["TuckerPlan", "clear_plan_cache", "decompose", "plan"]
+__all__ = [
+    "PlanCache",
+    "PlanStats",
+    "TuckerPlan",
+    "add_plan_eviction_hook",
+    "clear_plan_cache",
+    "decompose",
+    "plan",
+    "plan_cache_info",
+    "set_plan_cache_capacity",
+]
+
+# plan-cache counters, registered at their source (every PlanCache reports
+# into the same family; in practice the process-wide one).
+_MX_PLAN_HITS = _obs_registry.counter("repro_plan_cache_hits_total", "plan cache hits")
+_MX_PLAN_MISSES = _obs_registry.counter(
+    "repro_plan_cache_misses_total", "plan cache misses (plan builds)")
+_MX_PLAN_EVICTIONS = _obs_registry.counter(
+    "repro_plan_cache_evictions_total", "plan cache LRU evictions")
 
 
-def _kernel_launches() -> int:
-    return (kron_kernel.fused_kron_scatter.launches + kron_kernel.kron_contrib.launches
-            + kron_kernel.scatter_rows.launches + kron_kernel.fused_kron_scatter_ttm.launches
-            + ttm.launches)
+def _attach_trace_summary(results: Any, root_span: Any) -> None:
+    """Per-stage milliseconds of everything under this call's root span,
+    only when tracing is on (the disabled path must stay free)."""
+    if root_span.span_id < 0:  # the shared no-op span: tracing disabled
+        return
+    summary = _obs_tracer.subtree_summary(root_span.span_id)
+    for res in results if isinstance(results, list) else [results]:
+        res.trace_summary = dict(summary)
+
+
+@dataclasses.dataclass
+class PlanStats:
+    """Cumulative counters over a plan's lifetime (per-call numbers live on
+    each :class:`TuckerResult`): calls (a batch of k counts k), top-level
+    dispatches, kernel launches and schedule builds."""
+
+    calls: int = 0
+    dispatches: int = 0
+    launches: int = 0
+    schedule_builds: int = 0
 
 
 class TuckerPlan:
     """A reusable executable for one :class:`TuckerSpec` on one device.
 
-    Calls on one plan serialize: the engine's schedule caches are bound to
-    one tensor at a time. A prebuilt ``engine`` (``make_engine``) replaces
-    the one the spec would build, with its own precision and core layout;
-    it must run on the plan's device. Dense and completion plans have no
-    engine.
+    Call it on one tensor (``plan(coo)``) or on a batch of same-shape
+    sparse tensors (``plan.batch(coos)``). A prebuilt ``engine``
+    (``make_engine``) replaces the one the spec would build, with its own
+    precision and core layout; it must run on the plan's device. Dense and
+    completion plans have no engine.
+
+    Thread safety, in two locks (the reference's contract):
+
+    * ``_exec_lock`` serializes per-tensor calls: the engine's schedule
+      caches are bound to one tensor at a time.
+    * ``_dispatch_lock`` serializes the device half of :meth:`batch`, which
+      runs on the plan's second engine (the batch engine), so a flush never
+      evicts the per-tensor schedules. The members' stacking and factor
+      draws run outside it: one flush assembles while another runs.
+
+    All launches go to the calling thread's current stream, the device's
+    default stream unless the caller set another; kernel 2's scratch
+    (``ttm_kernel._scratch``) assumes launches on one device are ordered,
+    so concurrent callers must keep to one stream.
     """
 
     def __init__(self, spec: TuckerSpec, device="cuda",
@@ -71,7 +130,16 @@ class TuckerPlan:
                 f"{self.device}: pass device= to match the engine"
             )
         self.engine: Optional[SweepEngine] = engine
-        self._lock = threading.Lock()
+        # the batched sweeps' own engine (fp32, as they run only in fp32):
+        # their schedules are the stacked tensor's, built once a flush, and
+        # must not evict the per-tensor ones
+        self._batch_engine: Optional[SweepEngine] = (
+            make_engine(engine.name, self.device) if engine is not None else None)
+        self.stats = PlanStats()
+        self._exec_lock = threading.RLock()
+        self._dispatch_lock = threading.Lock()
+        # the stats are bumped from concurrent flushes
+        self._stats_lock = threading.Lock()
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         name = self.engine.name if self.engine is not None else "torch"
@@ -92,20 +160,106 @@ class TuckerPlan:
         """
         if device is not None and resolve_device(device) != self.device:
             raise ValueError(f"this plan runs on {self.device}, not {device}")
-        with self._lock:
-            if self.spec.algorithm == "dense":
-                return self._run_dense(x, generator, factors_init)
-            coo = self._check_sparse_input(x)
-            if self.spec.algorithm == "complete":
-                return self._run_complete(coo, generator, factors_init)
-            factors = self._init_factors(generator, factors_init)
-            xnorm2 = torch.square(coo.norm())
-            if self.spec.pipeline == "scan":
-                return self._run_sparse_scan(coo, factors, xnorm2)
-            return self._run_sparse_python(coo, factors, xnorm2)
+        spec = self.spec
+        with self._exec_lock, _obs_span("plan.call", algorithm=spec.algorithm,
+                                        shape=list(spec.shape), ranks=list(spec.ranks)) as sp:
+            with self._stats_lock:
+                self.stats.calls += 1
+            if spec.algorithm == "dense":
+                res = self._run_dense(x, generator, factors_init)
+            else:
+                coo = self._check_sparse_input(x)
+                if spec.algorithm == "complete":
+                    res = self._run_complete(coo, generator, factors_init)
+                else:
+                    factors = self._init_factors(generator, factors_init)
+                    xnorm2 = torch.square(coo.norm())
+                    if spec.pipeline == "scan":
+                        res = self._run_sparse_scan(coo, factors, xnorm2)
+                    else:
+                        res = self._run_sparse_python(coo, factors, xnorm2)
+            _attach_trace_summary(res, sp)
+            return res
 
-    def batch(self, *args, **kwargs):
-        raise unported("TuckerPlan.batch", "queue 1, item 11: batched dispatch")
+    @property
+    def supports_batched_dispatch(self) -> bool:
+        """Whether :meth:`batch` runs its members as one batched sweep
+        program: the spec's property and an engine that can run it (fp32,
+        without ``fuse_core``, whose megakernel would sum the core over all
+        members). The serving plane reads this."""
+        eng = self.engine
+        return (self.spec.supports_batched_dispatch and eng is not None
+                and eng.precision == "fp32" and not eng.fuse_core)
+
+    def batch_is_vmappable(self, generators: Any = None) -> bool:
+        """Whether :meth:`batch` with these generators runs as one batched
+        program, under the reference's name. Every ``torch.Generator`` gives
+        the per-tensor draw inside the batch (the members' factors are drawn
+        one by one), so this is :attr:`supports_batched_dispatch`."""
+        return self.supports_batched_dispatch
+
+    def batch(self, coos: Sequence[SparseCOO], generators: Any = None,
+              pad_nnz_to: Optional[int] = None,
+              factors_init: Any = None) -> List[TuckerResult]:
+        """Decompose k same-shape sparse tensors as one batched program.
+
+        The members are stacked block-diagonally into one tensor and swept
+        together (``core.hooi.run_sweeps_batched``): one kernel-1 launch (or
+        one kernel 3 + 4 chain) per mode per sweep for the whole batch, one
+        batched factor update, and the core update once per member. Each
+        member's result is its per-tensor run's from the same initial
+        factors, to the rounding of other summation orders.
+
+        ``generators`` (one per member, or None) draw each member's initial
+        factors as ``__call__`` does (a CPU generator seeded with 0 by
+        default); ``factors_init`` (one list of arrays per member, or None)
+        warm-starts a member instead. ``pad_nnz_to`` is checked as the
+        reference checks it (below the batch max raises: padding never drops
+        nonzeros) and otherwise unused: the stack has no compiled shape to
+        stabilize, so nothing is padded.
+
+        Plans whose batch cannot share one program (``pipeline="python"``,
+        ``precision="bf16_fp32acc"``, a prebuilt ``fuse_core`` engine) run
+        the members as k sequential calls: the same results, k dispatches.
+        An empty ``coos`` gives ``[]``; a member with no stored nonzeros
+        raises (its relative error is 0/0).
+
+        Counters on the results describe the whole batch: the first
+        result counts its dispatch, launches and schedule builds, the others
+        0.
+        """
+        if self.spec.algorithm != "sparse":
+            raise ValueError(f"batch() requires algorithm='sparse', got {self.spec.algorithm!r}")
+        coos = [self._check_sparse_input(c) for c in coos]
+        generators = [None] * len(coos) if generators is None else list(generators)
+        inits = [None] * len(coos) if factors_init is None else list(factors_init)
+        for what, got in (("generators", generators), ("factors_init lists", inits)):
+            if len(got) != len(coos):
+                raise ValueError(f"got {len(got)} {what} for {len(coos)} tensors")
+        if not coos:
+            return []
+        empty = [i for i, c in enumerate(coos) if c.nnz == 0]
+        if empty:
+            raise ValueError(
+                f"batch() members {empty} have zero stored nonzeros: an all-zero "
+                f"tensor has no defined Tucker fit (relative error is 0/0); filter "
+                f"empties out before submitting"
+            )
+        nnz_max = max(c.nnz for c in coos)
+        if pad_nnz_to is not None and int(pad_nnz_to) < nnz_max:
+            raise ValueError(
+                f"target_nnz={int(pad_nnz_to)} would drop nonzeros: batch max nnz is {nnz_max}")
+        batched = self.batch_is_vmappable(generators)
+        with _obs_span("plan.batch", size=len(coos), vmapped=batched) as sp:
+            if not batched:
+                # k sequential calls, each serialized on _exec_lock
+                return [self(c, generator=g, factors_init=f)
+                        for c, g, f in zip(coos, generators, inits)]
+            with self._stats_lock:
+                self.stats.calls += len(coos)  # as the sequential calls count
+            results = self._run_sparse_batched(coos, generators, inits)
+            _attach_trace_summary(results, sp)
+            return results
 
     def _check_sparse_input(self, coo: Any) -> SparseCOO:
         if not isinstance(coo, SparseCOO):
@@ -146,6 +300,9 @@ class TuckerPlan:
 
     def _result(self, core, factors, hist, **counts) -> TuckerResult:
         eng = self.engine
+        with self._stats_lock:
+            for name in ("dispatches", "launches", "schedule_builds"):
+                setattr(self.stats, name, getattr(self.stats, name) + counts.get(name, 0))
         return TuckerResult.from_history(
             core, factors, hist, engine=eng.name if eng is not None else "torch",
             spec=self.spec,
@@ -155,34 +312,71 @@ class TuckerPlan:
 
     def _run_sparse_scan(self, coo: SparseCOO, factors, xnorm2) -> TuckerResult:
         spec, eng = self.spec, self.engine
-        builds0, launches0 = eng.schedule_builds, _kernel_launches()
-        fs, core, hist = _hooi.run_sweeps(
-            coo, factors, xnorm2, spec.tol, eng,
-            ranks=spec.ranks, method=spec.method, n_iter=spec.n_iter,
-        )
-        n_done = int(np.sum(hist != _hooi._SKIPPED))
+        builds0, launches0 = eng.schedule_builds, launch_count.tally()
+        # the span ends after the history's one read, so its duration is
+        # the device's work and not only its launches
+        with _obs_span("sweep.dispatch", program="scan", engine=eng.name,
+                       nnz=coo.nnz) as dsp:
+            fs, core, hist = _hooi.run_sweeps(
+                coo, factors, xnorm2, spec.tol, eng,
+                ranks=spec.ranks, method=spec.method, n_iter=spec.n_iter,
+            )
+            n_done = int(np.sum(hist != _hooi._SKIPPED))
+            launches = launch_count.since(launches0)
+            dsp.set_attr("sweeps_run", n_done)
+            dsp.set_attr("launches", launches)
         return self._result(core, fs, hist[:n_done], dispatches=1,
-                            launches=_kernel_launches() - launches0,
+                            launches=sum(launches.values()),
                             schedule_builds=eng.schedule_builds - builds0)
+
+    def _run_sparse_batched(self, coos: List[SparseCOO], generators,
+                            inits) -> List[TuckerResult]:
+        spec, eng = self.spec, self._batch_engine
+        k = len(coos)
+        # host-side assembly, outside the dispatch lock: another flush of
+        # this plan may be running its sweeps meanwhile
+        with _obs_span("plan.assemble", batch=k):
+            factors = [self._init_factors(g, f) for g, f in zip(generators, inits)]
+            xnorm2 = torch.stack([torch.square(c.norm()) for c in coos])
+            stacked, _ = stack_coo_batch(coos)
+        with self._dispatch_lock, _obs_span("sweep.dispatch", program="batched",
+                                            engine=eng.name, batch=k, nnz=stacked.nnz,
+                                            shape=list(spec.shape)) as dsp:
+            builds0, launches0 = eng.schedule_builds, launch_count.tally()
+            fs, cores, hists = _hooi.run_sweeps_batched(
+                stacked, factors, xnorm2, spec.tol, eng,
+                ranks=spec.ranks, method=spec.method, n_iter=spec.n_iter,
+            )  # ends in the history's one read
+            n_done = np.sum(hists != _hooi._SKIPPED, axis=1)
+            launches = launch_count.since(launches0)
+            builds = eng.schedule_builds - builds0
+            dsp.set_attr("sweeps_run", int(n_done.max()))
+            dsp.set_attr("launches", launches)
+        return [self._result(cores[i], fs[i], hists[i, :n_done[i]],
+                             dispatches=int(i == 0),
+                             launches=sum(launches.values()) if i == 0 else 0,
+                             schedule_builds=builds if i == 0 else 0)
+                for i in range(k)]
 
     def _run_sparse_python(self, coo: SparseCOO, factors, xnorm2) -> TuckerResult:
         """The per-sweep loop (the reference's benchmark baseline): the
         sweeps of the scan pipeline, with the fit read back after each one
         and the ``tol`` rule decided on the host."""
         spec, eng = self.spec, self.engine
-        builds0, launches0 = eng.schedule_builds, _kernel_launches()
+        builds0, launches0 = eng.schedule_builds, launch_count.tally()
         core_dtype = torch.promote_types(coo.values.dtype, torch.float32)
         hist: List[float] = []
         core = None
         for _ in range(spec.n_iter):
-            factors, g = _hooi.sparse_sweep(coo, factors, spec.ranks, spec.method, eng)
-            core = g.to(core_dtype)
-            err = _hooi.projection_error(xnorm2, core).to(torch.float32)
-            hist.append(float(err))  # the host read, one a sweep
+            with _obs_span("sweep.dispatch", program="python", engine=eng.name):
+                factors, g = _hooi.sparse_sweep(coo, factors, spec.ranks, spec.method, eng)
+                core = g.to(core_dtype)
+                err = _hooi.projection_error(xnorm2, core).to(torch.float32)
+                hist.append(float(err))  # the host read, one a sweep
             if spec.tol and len(hist) > 1 and abs(hist[-2] - hist[-1]) < spec.tol:
                 break
         return self._result(core, factors, np.asarray(hist), dispatches=len(hist),
-                            launches=_kernel_launches() - launches0,
+                            launches=sum(launch_count.since(launches0).values()),
                             schedule_builds=eng.schedule_builds - builds0)
 
     # -- dense (paper Alg. 1) and completion ------------------------------------
@@ -232,16 +426,150 @@ class TuckerPlan:
         return res
 
 
-_PLAN_CACHE_CAPACITY = 8
-_PLAN_CACHE: "OrderedDict[tuple, TuckerPlan]" = OrderedDict()
-_PLAN_CACHE_LOCK = threading.Lock()
+# ---------------------------------------------------------------------------
+# The plan cache: one TuckerPlan (one engine and its schedules) per (spec,
+# device). LRU and thread-safe: concurrent ``submit`` callers of
+# ``repro_torch.serve.TuckerService`` share one plan instead of racing two
+# builds of the same spec.
+# ---------------------------------------------------------------------------
+
+PlanCacheKey = Tuple
+EvictionHook = Callable[[PlanCacheKey, TuckerPlan], None]
+
+# each cached sparse plan keeps its last tensor's schedules on the device
+# (~0.9 GB a mode at NELL-2 size), so the process-wide cache is bounded
+DEFAULT_PLAN_CACHE_CAPACITY = 8
+
+
+class PlanCache:
+    """Thread-safe LRU cache of :class:`TuckerPlan` keyed by (spec, device).
+
+    ``capacity=None`` means unbounded. Eviction hooks (``hook(key, plan)``)
+    observe every plan dropped by the capacity or by :meth:`clear`; they
+    run outside the lock, so a hook may re-enter the cache.
+    """
+
+    def __init__(self, capacity: Optional[int] = None) -> None:
+        self._lock = threading.RLock()
+        self._entries: "OrderedDict[PlanCacheKey, TuckerPlan]" = OrderedDict()
+        self._capacity = capacity
+        self._hooks: List[EvictionHook] = []
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        # bumps on every set_capacity call: lets a scoped capacity holder
+        # (repro_torch.serve) detect a manual override even to the same value
+        self.capacity_version = 0
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    @property
+    def capacity(self) -> Optional[int]:
+        return self._capacity
+
+    def get_or_create(self, key: PlanCacheKey,
+                      factory: Callable[[], TuckerPlan]) -> TuckerPlan:
+        """The cached plan for ``key``. Concurrent callers always share ONE
+        plan: the build runs outside the lock (a cold spec must not stall
+        hits on hot ones), and a racing builder drops its plan for the one
+        inserted first."""
+        with self._lock:
+            cached = self._entries.get(key)
+            if cached is not None:
+                self._entries.move_to_end(key)
+                self.hits += 1
+                _MX_PLAN_HITS.inc()
+                _obs_event("plan.cache.lookup", hit=True)
+                return cached
+        with _obs_span("plan.cache.build"):
+            built = factory()
+        evicted = []
+        with self._lock:
+            cached = self._entries.get(key)
+            if cached is not None:  # lost the build race: share the winner
+                self._entries.move_to_end(key)
+                self.hits += 1
+                _MX_PLAN_HITS.inc()
+                _obs_event("plan.cache.lookup", hit=True, lost_race=True)
+                return cached
+            self.misses += 1
+            _MX_PLAN_MISSES.inc()
+            _obs_event("plan.cache.lookup", hit=False)
+            self._entries[key] = built
+            while self._capacity is not None and len(self._entries) > self._capacity:
+                evicted.append(self._entries.popitem(last=False))
+                self.evictions += 1
+                _MX_PLAN_EVICTIONS.inc()
+        for k, p in evicted:
+            _obs_event("plan.cache.evict")
+            self._fire_hooks(k, p)
+        return built
+
+    def set_capacity(self, capacity: Optional[int]) -> None:
+        """Set (or lift, with ``None``) the LRU capacity, evicting the least
+        recently used plans at once if over the new bound."""
+        if capacity is not None and int(capacity) < 1:
+            raise ValueError(f"plan cache capacity must be >= 1, got {capacity}")
+        evicted = []
+        with self._lock:
+            self._capacity = None if capacity is None else int(capacity)
+            self.capacity_version += 1
+            while self._capacity is not None and len(self._entries) > self._capacity:
+                evicted.append(self._entries.popitem(last=False))
+                self.evictions += 1
+                _MX_PLAN_EVICTIONS.inc()
+        for k, p in evicted:
+            self._fire_hooks(k, p)
+
+    def add_eviction_hook(self, hook: EvictionHook) -> Callable[[], None]:
+        """Register ``hook(key, plan)`` for every eviction (capacity or
+        ``clear``). Returns a zero-argument deregistration callable."""
+        with self._lock:
+            self._hooks.append(hook)
+
+        def remove() -> None:
+            with self._lock:
+                if hook in self._hooks:
+                    self._hooks.remove(hook)
+
+        return remove
+
+    def clear(self) -> None:
+        """Drop all cached plans (and with them their schedules); eviction
+        hooks observe every dropped plan."""
+        with self._lock:
+            dropped = list(self._entries.items())
+            self._entries.clear()
+        for k, p in dropped:
+            self._fire_hooks(k, p)
+
+    def info(self) -> dict:
+        """Counters: size, capacity, capacity_version, hits, misses,
+        evictions."""
+        with self._lock:
+            return {"size": len(self._entries), "capacity": self._capacity,
+                    "capacity_version": self.capacity_version, "hits": self.hits,
+                    "misses": self.misses, "evictions": self.evictions}
+
+    def _fire_hooks(self, key: PlanCacheKey, plan: TuckerPlan) -> None:
+        with self._lock:
+            hooks = list(self._hooks)
+        for hook in hooks:
+            hook(key, plan)
+
+
+_PLAN_CACHE = PlanCache(DEFAULT_PLAN_CACHE_CAPACITY)
 
 
 def plan(spec: TuckerSpec, *, device="cuda",
          engine: Optional[SweepEngine] = None) -> TuckerPlan:
     """The :class:`TuckerPlan` for ``spec`` on ``device`` (``"cuda"`` by
-    default), from a small LRU cache keyed by (spec, device), so repeated
-    calls share one engine and its schedules.
+    default), from the process-wide LRU cache keyed by (spec, device), so
+    every caller asking for the same problem shares one engine and its
+    schedules (:func:`set_plan_cache_capacity` bounds it; 8 plans by
+    default).
 
     Passing a prebuilt ``engine`` (``make_engine(..., fuse_core=True)``, say)
     bypasses the cache and wraps that engine directly; its device must be
@@ -250,21 +578,30 @@ def plan(spec: TuckerSpec, *, device="cuda",
     dev = resolve_device(device)
     if engine is not None:
         return TuckerPlan(spec, device=dev, engine=engine)
-    key = (spec, str(dev))
-    with _PLAN_CACHE_LOCK:
-        p = _PLAN_CACHE.get(key)
-        if p is None:
-            p = _PLAN_CACHE[key] = TuckerPlan(spec, device=dev)
-            while len(_PLAN_CACHE) > _PLAN_CACHE_CAPACITY:
-                _PLAN_CACHE.popitem(last=False)
-        _PLAN_CACHE.move_to_end(key)
-        return p
+    return _PLAN_CACHE.get_or_create((spec, str(dev)), lambda: TuckerPlan(spec, device=dev))
 
 
 def clear_plan_cache() -> None:
     """Drop every cached plan (and with them their schedules)."""
-    with _PLAN_CACHE_LOCK:
-        _PLAN_CACHE.clear()
+    _PLAN_CACHE.clear()
+
+
+def set_plan_cache_capacity(capacity: Optional[int]) -> None:
+    """Bound the process-wide plan cache to ``capacity`` plans (LRU), or
+    lift the bound with ``None``. Takes effect at once."""
+    _PLAN_CACHE.set_capacity(capacity)
+
+
+def plan_cache_info() -> dict:
+    """Size, capacity, hit, miss and eviction counters of the process-wide
+    plan cache."""
+    return _PLAN_CACHE.info()
+
+
+def add_plan_eviction_hook(hook: EvictionHook) -> Callable[[], None]:
+    """Observe the process-wide cache's evictions; returns a deregistration
+    callable (see :meth:`PlanCache.add_eviction_hook`)."""
+    return _PLAN_CACHE.add_eviction_hook(hook)
 
 
 def decompose(x: Any, ranks: Sequence[int], *, generator=None,

@@ -129,6 +129,24 @@ class TuckerSpec:
     def ndim(self) -> int:
         return len(self.shape)
 
+    @property
+    def supports_batched_dispatch(self) -> bool:
+        """True when plans for this spec run ``TuckerPlan.batch`` as one
+        batched sweep program (the micro-batching contract of
+        ``repro_torch.serve.TuckerService``), the reference's rule: the
+        multi-sweep scan pipeline over sparse COO input, fp32 (the batched
+        program is fp32-only), without Kron reuse, sharding or snapshots.
+        A prebuilt engine can still rule it out; that is decided at plan
+        level (``TuckerPlan.supports_batched_dispatch``)."""
+        return (
+            self.algorithm == "sparse"
+            and self.pipeline == "scan"
+            and not self.use_kron_reuse
+            and self.shard is None
+            and self.snapshot is None
+            and self.precision == "fp32"
+        )
+
     def resolved_dtype(self) -> Optional[torch.dtype]:
         """The working dtype, or ``None`` for "auto"."""
         return None if self.dtype == "auto" else getattr(torch, self.dtype)

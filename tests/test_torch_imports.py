@@ -21,6 +21,8 @@ def test_import_leaves_jax_and_repro_unloaded():
         "import repro_torch.sparse, repro_torch.sparse.datasets\n"
         "import repro_torch.models.model, repro_torch.serve.engine, repro_torch.configs\n"
         "import repro_torch.kernels.flash_attention, repro_torch.kernels.ssd_scan\n"
+        "import repro_torch.obs, repro_torch.obs.__main__, repro_torch.serve\n"
+        "import repro_torch.serve.tucker_service, repro_torch.kernels.launch_count\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n"

@@ -153,9 +153,14 @@ def test_unported_spec_values_raise(kwargs):
 
 
 def test_unported_plan_features_raise():
+    # plan.batch is ported: an empty batch is the reference's no-op
     p = tucker.plan(tucker.TuckerSpec((4, 4, 4), (2, 2, 2)), device="cpu")
+    assert p.batch([]) == []
+    # the sharded service (the plan's sharded program, item 15) is not
+    from repro_torch.serve import ServiceConfig
+
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        p.batch([])
+        ServiceConfig(shard=object(), device="cpu")
 
 
 def test_spec_validation_and_rank_clamp_match_reference():
