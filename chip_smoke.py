@@ -93,7 +93,20 @@ result line):
     the sequential loop's requests/s, peak memory, one flush alone and its
     busy share, and kernels 1-4 at a flush's stacked shapes against their
     plain versions with times and bounds;
-13. one JSON line per phase, the kernels line, then the device line.
+13. autotuning and snapshot/resume on phase 4's tensor, drawn anew: a cold
+    ``autotune=True`` plan (one search, ``min(4, candidates)`` trials with
+    the default among them, none raising; each trial's config and ms), its
+    result within phase 3's tolerances of phase 4's (its bits when the pick
+    is the default), kernel 1 (and 5) on the tuned schedules against their
+    plain versions, a warm plan with no search and no trial, a forced
+    ``"fused"`` trial that launches kernel 5, the tuned and the split warm
+    sweep ms in turns; snapshots every 2 sweeps (phase 4's bits, 4 written,
+    3 kept, schedules built in the first segment only, phase 4's launches),
+    a kill at sweep 4 and ``tucker.resume`` (phase 4's bits, no schedule
+    build), a retried segment (phase 4's bits), the overhead at 1 and 5
+    sweeps a segment; and the kill and resume of a 4-way tensor at tenant
+    C's shape (kernels 3, 4, 2), its uninterrupted run's bits and launches;
+14. one JSON line per phase, the kernels line, then the device line.
 
 Needs one CUDA card, ``nvcc`` (on PATH or under /usr/local/cuda), and the
 checkout's ``src/`` beside this file. Imports nothing of JAX.
@@ -239,6 +252,9 @@ def main() -> int:
     timed("2 kernels", phase2_kernels, dev)
     timed("3 card vs CPU", phase3_mid, dev)
     kernels, coo, split_res, split_peak = timed("4 NELL-2", phase4_nell2, dev, card)
+    # phase 13 draws this tensor anew and holds its runs to these bits
+    ref4 = {"checksum": coo_checksum(coo), "fit": split_res.fit_history.copy(),
+            "factors": [f.cpu() for f in split_res.factors], "core": split_res.core.cpu()}
     kernels.update(timed("5 path B", phase5_fused_core, dev, card, coo, split_res, split_peak))
     del coo, split_res
     release_memory()
@@ -250,6 +266,7 @@ def main() -> int:
     timed("10 Table V", phase10_table5, dev, card)
     timed("11 dense HOOI and completion", phase11_dense, dev, card)
     timed("12 Tucker service", phase12_service, dev, card)
+    timed("13 autotuning and snapshots", phase13_autotune_snapshots, dev, card, ref4)
     print(json.dumps({"kernels": [kernels[k] for k in wrappers()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2319,6 +2336,7 @@ def stacked_kernel_checks(name, stacked, fs, k: int, shape) -> dict:
     batched sweeps call it. Times and bounds as phases 4, 6 and 10."""
     from repro_torch.core.engine import make_engine
     from repro_torch.kernels import kron_kernel, ops, ttm_kernel
+    from repro_torch.sparse.layout import slot_rows
 
     eng = make_engine("cuda", stacked.device)
     n = stacked.ndim
@@ -2331,8 +2349,9 @@ def stacked_kernel_checks(name, stacked, fs, k: int, shape) -> dict:
                                                 eng.device_schedule(stacked, n - 1),
                                                 stacked.shape[n - 1])
     else:
-        tot = {nm: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
-                    "bytes": 0, "flops": 0} for nm in ("kron_contrib", "scatter_rows")}
+        tot = {nm: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                    "max_abs_err": 0.0, "bytes": 0, "flops": 0}
+               for nm in ("kron_contrib", "scatter_rows")}
         for mode in range(n):
             sched = eng.device_schedule(stacked, mode)
             n_rows = stacked.shape[mode]
@@ -2352,21 +2371,31 @@ def stacked_kernel_checks(name, stacked, fs, k: int, shape) -> dict:
             compare(f"Y_({mode}) {name} stacked, kernels against the plain chain", "fp32", y,
                     synced(chain_plain(rows, v, sched, n_rows, "fp32")), terms)
             kk = c2.shape[1]
-            for nm, ms, pl, nb, fl, err in (
+            slots = slot_rows(sched)
+            # one PyTorch call each for the same functions (as phase 6):
+            # torch.einsum for both links, index_add_ for the scatter
+            c_lib = (time_ms(lambda: torch.einsum("ti,tj->tij", rows[0] * v[:, None], rows[1]))
+                     + time_ms(lambda: torch.einsum("ti,tj->tij", c1 * ones[:, None], rows[2])))
+            s_lib = time_ms(lambda: torch.zeros((n_rows, kk), device=c2.device)
+                            .index_add_(0, slots, c2))
+            for nm, ms, pl, lib, nb, fl, err in (
                     ("kron_contrib",
                      time_ms(partial(kron_kernel.kron_contrib, rows[0], rows[1], v))
                      + time_ms(partial(kron_kernel.kron_contrib, c1, rows[2], ones)),
                      time_ms(partial(kron_kernel.kron_contrib_plain, rows[0], rows[1], v))
                      + time_ms(partial(kron_kernel.kron_contrib_plain, c1, rows[2], ones)),
+                     c_lib,
                      nbytes_of(rows[0], rows[1], v, c1, c1, rows[2], ones) + c2.numel() * 4,
                      2 * v.shape[0] * c1.shape[1] + 2 * v.shape[0] * kk, max(e1, e2)),
                     ("scatter_rows", time_ms(partial(kron_kernel.scatter_rows, c2, sched, n_rows)),
                      time_ms(partial(kron_kernel.scatter_rows_plain, c2, sched, n_rows)),
+                     s_lib,
                      nbytes_of(c2, sched.rel_row, sched.blkmap, sched.parts) + n_rows * kk * 4,
                      int(stacked.nnz) * kk, es)):
                 t = tot[nm]
                 t["ms"] += ms
                 t["plain_ms"] += pl
+                t["library_ms"] += lib
                 t["bound_ms"] += bound(nb, fl)[0]
                 t["bytes"] += nb
                 t["flops"] += fl
@@ -2609,6 +2638,358 @@ def phase12_service(dev, card: str) -> None:
     print(json.dumps(summary), flush=True)
     del reqs, seq, results
     release_memory()
+
+# -- phase 13: autotuning and snapshot/resume ------------------------------------------
+
+AUTOTUNE_MAX_TRIALS = 4  # autotune()'s default: the default config and three more
+SNAP_EVERY = 2  # sweeps per segment: 5 sweeps write steps 0, 2, 4 and 5
+SNAP_KILL_AT = 4  # the injected kill, at a segment boundary
+SNAP_RETRY_AT = 2  # the injected transient failure, retried in place
+OVERHEAD_TURNS = 7  # turns of (no snapshot, every sweep, every 5 sweeps)
+TENANT_C = ((200, 200, 200, 20), 80_000, (8, 8, 8, 8), "gram")  # phase 12's 4-way tenant
+
+
+def same_bits(res, fit, factors, core) -> bool:
+    """``res``'s fit history, factors and core are exactly the given ones
+    (host copies)."""
+    return (np.array_equal(res.fit_history, fit) and torch.equal(res.core.cpu(), core)
+            and all(torch.equal(a.cpu(), b) for a, b in zip(res.factors, factors)))
+
+
+def host_copy(res):
+    return res.fit_history.copy(), [f.cpu() for f in res.factors], res.core.cpu()
+
+
+def coo_checksum(coo) -> tuple:
+    """Sums of a tensor's coordinates and values (int64 and f64): phase 13
+    draws phase 4's tensor anew and checks it is the same one."""
+    return (int(coo.indices.long().sum()), float(coo.values.double().sum()))
+
+
+def within_phase3_tolerances(label: str, got, fit, factors, core) -> dict:
+    """``got`` against a run held on the host: fit 1e-4, projectors 1e-3,
+    core 1e-3 x max|core| with factor signs matched (phase 3's rule)."""
+    fit_gap = float(np.abs(got.fit_history - fit).max())
+    proj = max(projector_gap(a, b.to(a.device)) for a, b in zip(got.factors, factors))
+    c = got.core.cpu()
+    for n, (a, b) in enumerate(zip(got.factors, factors)):
+        sign = torch.sign((a.cpu() * b).sum(0))
+        c = c * sign.reshape([-1 if t == n else 1 for t in range(c.dim())])
+    scale = float(core.abs().max())
+    core_gap = float((c - core).abs().max())
+    log(f"  {label}: fit {fit_gap:.3e} <= 1e-4, projectors {proj:.3e} <= 1e-3, core "
+        f"{core_gap:.3e} <= {1e-3 * scale:.3e}")
+    check(got.fit_history.shape == fit.shape and fit_gap <= 1e-4 and proj <= 1e-3
+          and core_gap <= 1e-3 * scale, f"{label}: outside phase 3's tolerances")
+    return {"fit_gap": fit_gap, "projector_gap": proj, "core_gap_over_scale": core_gap / scale}
+
+
+def snapshot_bytes(directory: str) -> int:
+    """Bytes of the newest snapshot in ``directory`` (its npz and manifest)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    step = CheckpointManager(directory).latest_step()
+    d = Path(directory) / f"step_{step:08d}"
+    return sum(f.stat().st_size for f in d.iterdir())
+
+
+def phase13_autotune_snapshots(dev, card: str, ref4: dict) -> None:
+    """Autotuning and snapshot/resume on phase 4's tensor (drawn anew from
+    its seed; ``ref4`` holds phase 4's fit history, factors, core and the
+    tensor's checksum), then the 4-way kill and resume at tenant C's
+    shape. The tuning table and the snapshots go to a temporary directory
+    that is removed at the end."""
+    import shutil
+    import tempfile
+
+    import repro_torch.obs as obs
+    from repro_torch.kernels import autotune as at
+
+    tf32_off()
+    release_memory()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase13_")
+    saved_env = os.environ.get(at.TABLE_ENV)
+    os.environ[at.TABLE_ENV] = os.path.join(tmp, "autotune.json")
+    try:
+        _phase13(dev, card, ref4, tmp)
+    finally:
+        obs.configure(enabled=False)
+        if saved_env is None:
+            os.environ.pop(at.TABLE_ENV, None)
+        else:
+            os.environ[at.TABLE_ENV] = saved_env
+        shutil.rmtree(tmp, ignore_errors=True)
+        release_memory()
+
+
+def _phase13(dev, card: str, ref4: dict, tmp: str) -> None:
+    import repro_torch.obs as obs
+    from repro_torch import tucker
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.coo import SparseCOO
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import kron_kernel
+    from repro_torch.runtime.fault_tolerance import FailureInjector
+
+    log(f"phase 13: autotuning and snapshot/resume at NELL-2 size {NELL2_SHAPE}, "
+        f"{NELL2_NNZ} nnz, ranks {NELL2_RANKS}, {N_ITER} sweeps; 4-way kill and resume at "
+        f"{TENANT_C[0]}")
+    t0 = time.perf_counter()
+    idx, vals = synthetic(dev, NELL2_SHAPE, NELL2_NNZ, SEED, "uniform")
+    coo = SparseCOO.from_parts(idx, vals, NELL2_SHAPE)
+    del idx, vals
+    check(coo_checksum(coo) == ref4["checksum"], "phase 13's NELL-2 tensor is not phase 4's")
+    fit4, factors4, core4 = ref4["fit"], ref4["factors"], ref4["core"]
+    log(f"  phase 4's tensor drawn anew in {time.perf_counter() - t0:.2f} s (checksum equal)")
+    out = {"phase": "13 autotuning and snapshot/resume", "card": card}
+
+    # 13a: the cold autotuned plan: every count starts at 0 here
+    spec_t = tucker.TuckerSpec(NELL2_SHAPE, NELL2_RANKS, n_iter=N_ITER, autotune=True)
+    obs.tracer.clear()
+    obs.configure(enabled=True)
+    at.reset_counters()
+    reset_launches()
+    t0 = time.perf_counter()
+    tuned = tucker.plan(spec_t, device=dev)(coo)
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    launches = read_launches()
+    counters = dict(at.COUNTERS)
+    events = obs.tracer.events()
+    obs.configure(enabled=False)
+    search = [e for e in events if e.name == "autotune.search"]
+    trials = [e for e in events if e.name == "autotune.trial"]
+    check(len(search) == 1, f"{len(search)} autotune.search spans")
+    n_cands = search[0].attrs["candidates"]
+    pick = tuned.tuned_blocks
+    rows = [{"config": at.BlockConfig(e.attrs["bn"], e.attrs["bi"], e.attrs["slots_per_part"],
+                                      e.attrs["layout"])._asdict(),
+             "ms": e.attrs.get("best_ms"), "error": e.attrs.get("error"), "nnz": e.attrs["nnz"]}
+            for e in trials]
+    for r in rows:
+        log(f"  trial {r['config']}: {r['ms']} ms on {r['nnz']} nonzeros"
+            + (f", raised {r['error']}" if r["error"] else ""))
+    log(f"  cold autotuned run: {t_cold:.2f} s, counters {counters}, {n_cands} candidates, "
+        f"pick {pick}, launches {launches}")
+    check(counters["searches"] == 1 and counters["table_hits"] == 0
+          and counters["trials"] == min(AUTOTUNE_MAX_TRIALS, n_cands) == len(trials),
+          f"cold search: counters {counters}, {len(trials)} trial spans, {n_cands} candidates")
+    check(any(r["config"] == at.DEFAULT_CONFIG._asdict() for r in rows),
+          "the default config was not among the trials")
+    check(not any(r["error"] for r in rows), f"a trial raised: {rows}")
+    check(pick is not None and pick._asdict() in [r["config"] for r in rows],
+          f"the pick {pick} is not a trial's config")
+    check(launches["fused_kron_scatter"] > 0 and launches["ttm"] + launches[
+        "fused_kron_scatter_ttm"] > 0, f"the tuned run launched {launches}")
+    if pick == at.DEFAULT_CONFIG:
+        check(same_bits(tuned, fit4, factors4, core4),
+              "the default pick differs from phase 4's bits")
+        out["tuned_vs_phase4"] = "same bits"
+    else:
+        out["tuned_vs_phase4"] = within_phase3_tolerances("tuned against phase 4", tuned, fit4,
+                                                          factors4, core4)
+    tuned_bits = host_copy(tuned)
+    # kernel 1 (and kernel 5 for a fused pick) on the tuned schedules,
+    # against their plain versions
+    eng = tucker.plan(spec_t, device=dev).engine
+    fs = [f.contiguous() for f in tuned.factors]
+    for mode in range(3):
+        sched = eng.device_schedule(coo, mode)
+        fa, fb = kron_factors(fs, mode)
+        compare(f"fused_kron_scatter NELL-2 mode {mode}, tuned schedule (bn {sched.bn}, bi "
+                f"{sched.bi}, {int(sched.parts.numel()) - 1} ranges)", "fp32",
+                synced(kron_kernel.fused_kron_scatter(fa, fb, sched, NELL2_SHAPE[mode])),
+                synced(kron_kernel.fused_kron_scatter_plain(fa, fb, sched, NELL2_SHAPE[mode])),
+                max_row_count(coo, mode))
+        if mode == 2 and pick.layout == "fused":
+            compare("fused_kron_scatter_ttm NELL-2, tuned schedule", "fp32",
+                    synced(kron_kernel.fused_kron_scatter_ttm(fa, fb, fs[2], sched,
+                                                              NELL2_SHAPE[2])),
+                    synced(kron_kernel.fused_kron_scatter_ttm_plain(fa, fb, fs[2], sched,
+                                                                    NELL2_SHAPE[2])),
+                    NELL2_NNZ)
+
+    # the warm plan: the table answers, no search
+    tucker.clear_plan_cache()
+    at.reset_counters()
+    reset_launches()
+    warm = tucker.plan(spec_t, device=dev)(coo)
+    counters_warm = dict(at.COUNTERS)
+    log(f"  warm autotuned plan: counters {counters_warm}, pick {warm.tuned_blocks}")
+    check(counters_warm == {"searches": 0, "trials": 0, "table_hits": 1},
+          f"warm plan: counters {counters_warm}")
+    check(warm.tuned_blocks == pick and same_bits(warm, *tuned_bits),
+          "the warm plan differs from the cold one")
+
+    # one forced fused trial: it runs kernel 5 (and no kernel 2)
+    reset_launches()
+    fused_ms = at.trial_time_ms(at.BlockConfig(layout="fused"), NELL2_SHAPE, NELL2_RANKS,
+                                NELL2_NNZ, device=dev)
+    fused_launches = read_launches()
+    log(f"  forced fused trial: {fused_ms:.3f} ms, launches {fused_launches}")
+    check(fused_launches["fused_kron_scatter_ttm"] > 0 and fused_launches["ttm"] == 0,
+          f"the fused trial launched {fused_launches}")
+
+    # warm sweep ms, tuned against the split path of phase 4, in turns
+    plan_t = tucker.plan(spec_t, device=dev)
+    plan_d = tucker.plan(tucker.TuckerSpec(NELL2_SHAPE, NELL2_RANKS, n_iter=N_ITER), device=dev)
+    first_d = plan_d(coo)
+    check(same_bits(first_d, fit4, factors4, core4), "the split path differs from phase 4's")
+    runs_t, runs_d = [], []
+    for _ in range(WARM_RUNS):
+        runs_d += [ms / N_ITER for ms in warm_ms(lambda: plan_d(coo), runs=1)]
+        runs_t += [ms / N_ITER for ms in warm_ms(lambda: plan_t(coo), runs=1)]
+    tuned_ms, default_ms = float(np.median(runs_t)), float(np.median(runs_d))
+    log(f"  warm ms per sweep: tuned {tuned_ms:.2f} (" + ", ".join(f"{m:.2f}" for m in runs_t)
+        + f"), phase 4's split path {default_ms:.2f} ("
+        + ", ".join(f"{m:.2f}" for m in runs_d) + ")")
+    out["autotune"] = {"candidates": n_cands, "trials": rows, "pick": pick._asdict(),
+                       "cold_run_s": t_cold, "counters_cold": counters,
+                       "counters_warm": counters_warm, "forced_fused_trial_ms": fused_ms,
+                       "forced_fused_trial_launches": {k: v for k, v in fused_launches.items()
+                                                       if v},
+                       "tuned_sweep_ms": tuned_ms, "tuned_sweep_ms_runs": runs_t,
+                       "split_sweep_ms": default_ms, "split_sweep_ms_runs": runs_d}
+    del plan_t, warm, tuned, first_d, eng, fs
+    tucker.clear_plan_cache()
+
+    # 13b: snapshots from phase 4's initial factors (the plan's default draw)
+    def snap_spec(name, every=SNAP_EVERY, **kw):
+        return tucker.TuckerSpec(NELL2_SHAPE, NELL2_RANKS, n_iter=N_ITER,
+                                 snapshot=tucker.SnapshotSpec(every_n_sweeps=every,
+                                                              directory=os.path.join(tmp, name),
+                                                              **kw))
+
+    spec_a = snap_spec("uninterrupted")
+    obs.tracer.clear()
+    obs.configure(enabled=True)
+    reset_launches()
+    res_a = tucker.plan(spec_a, device=dev)(coo)
+    torch.cuda.synchronize()
+    launches_a = read_launches()
+    segs = [e for e in obs.tracer.events()
+            if e.name == "sweep.dispatch" and e.attrs.get("program") == "segment"]
+    obs.configure(enabled=False)
+    steps = CheckpointManager(spec_a.snapshot.directory).all_steps()
+    seg_builds = [e.attrs["schedule_builds"] for e in segs]
+    log(f"  uninterrupted snapshot run: {res_a.dispatches} segments, "
+        f"{res_a.snapshots_written} snapshots, steps kept {steps}, builds by segment "
+        f"{seg_builds}, launches {launches_a}")
+    check(same_bits(res_a, fit4, factors4, core4), "the snapshot run differs from phase 4's")
+    check(res_a.snapshots_written == 4 and steps == [2, 4, 5] and res_a.dispatches == 3,
+          f"snapshot run: {res_a.snapshots_written} written, steps {steps}")
+    check(seg_builds == [3, 0, 0], f"schedule builds by segment {seg_builds}")
+    want = {"fused_kron_scatter": 3 * N_ITER, "ttm": N_ITER, "kron_contrib": 0,
+            "scatter_rows": 0, "fused_kron_scatter_ttm": 0, **NO_LM_LAUNCHES}
+    check(launches_a == want, f"snapshot run launches {launches_a}, want {want}")
+
+    spec_k = snap_spec("killed")
+    reset_launches()
+    try:
+        tucker.plan(spec_k, device=dev)(coo, injector=FailureInjector([SNAP_KILL_AT]))
+        killed = False
+    except RuntimeError as exc:
+        killed = "injected failure" in str(exc)
+    check(killed, "the injected kill did not raise")
+    resumed = tucker.resume(spec_k, coo, device=dev)
+    torch.cuda.synchronize()
+    launches_k = read_launches()
+    log(f"  killed at sweep {SNAP_KILL_AT}, resumed from {resumed.resumed_from_sweep}: "
+        f"{resumed.dispatches} segment, {resumed.schedule_builds} builds, launches over both "
+        f"{launches_k}")
+    check(resumed.resumed_from_sweep == SNAP_KILL_AT and resumed.schedule_builds == 0,
+          f"resume: from {resumed.resumed_from_sweep}, {resumed.schedule_builds} builds")
+    check(same_bits(resumed, fit4, factors4, core4), "the resumed run differs from phase 4's")
+    check(launches_k == want, f"kill and resume launched {launches_k}, want {want}")
+
+    # the runs below share the split plan's engine (its schedules of coo)
+    spec_r = snap_spec("retried", max_retries=1, retry_backoff_s=0.0)
+    retried = tucker.plan(spec_r, device=dev, engine=plan_d.engine)(
+        coo, injector=FailureInjector([SNAP_RETRY_AT]))
+    log(f"  retried at sweep {SNAP_RETRY_AT}: retries {retried.retries}")
+    check(retried.retries == 1 and same_bits(retried, fit4, factors4, core4),
+          f"the retried run: {retried.retries} retries, or other bits")
+
+    # the overhead: warm ms per sweep at 1 and 5 sweeps a segment against no
+    # snapshot, in turns, each timed call writing its snapshots; and each
+    # write's own time, from its snapshot.spill span (the sweep time of this
+    # host-bound path moves by more than a write costs from run to run)
+    spec_1, spec_5 = snap_spec("every1", every=1), snap_spec("every5", every=5)
+    plans = {"none": plan_d, "every_1": tucker.plan(spec_1, device=dev, engine=plan_d.engine),
+             "every_5": tucker.plan(spec_5, device=dev, engine=plan_d.engine)}
+    for p in plans.values():
+        p(coo)  # warm: schedules built
+    runs = {k: [] for k in plans}
+    obs.tracer.clear()
+    obs.configure(enabled=True)
+    gc.collect()
+    for _ in range(OVERHEAD_TURNS):
+        for k, p in plans.items():
+            runs[k] += [ms / N_ITER for ms in warm_ms(lambda p=p: p(coo), runs=1)]
+    spills = [e.duration_ms for e in obs.tracer.events() if e.name == "snapshot.spill"]
+    obs.configure(enabled=False)
+    med = {k: float(np.median(v)) for k, v in runs.items()}
+    spill_ms = float(np.median(spills))
+    per_run = {"every_1": N_ITER + 1, "every_5": 2}  # the step-0 snapshot and each boundary
+    check(len(spills) == OVERHEAD_TURNS * sum(per_run.values()),
+          f"{len(spills)} snapshot.spill spans in the overhead runs")
+    spill = snapshot_bytes(spec_1.snapshot.directory)
+    log(f"  overhead, ms per sweep (medians of {OVERHEAD_TURNS} turns): none {med['none']:.2f}, "
+        f"every 1 {med['every_1']:.2f} ({med['every_1'] - med['none']:+.2f}), every 5 "
+        f"{med['every_5']:.2f} ({med['every_5'] - med['none']:+.2f}); a write {spill_ms:.2f} ms "
+        f"(median of {len(spills)}), so +{per_run['every_1'] * spill_ms / N_ITER:.2f} and "
+        f"+{per_run['every_5'] * spill_ms / N_ITER:.2f} ms a sweep; {spill} bytes a snapshot")
+    out["snapshots"] = {"every_n_sweeps": SNAP_EVERY, "written": res_a.snapshots_written,
+                        "steps_kept": steps, "builds_by_segment": seg_builds,
+                        "launches": {k: v for k, v in launches_a.items() if v},
+                        "kill_at": SNAP_KILL_AT, "resumed_from": resumed.resumed_from_sweep,
+                        "retries": retried.retries, "sweep_ms": med, "sweep_ms_runs": runs,
+                        "spill_ms_median": spill_ms, "spills_timed": len(spills),
+                        "spill_ms_range": [min(spills), max(spills)],
+                        "spill_ms_per_sweep": {k: n * spill_ms / N_ITER
+                                               for k, n in per_run.items()},
+                        "bytes_per_snapshot": spill}
+    del plans, plan_d, res_a, resumed, retried
+    del coo
+    release_memory()
+
+    # 13c: the 4-way path (kernels 3, 4, 2) under segments
+    shape_c, nnz_c, ranks_c, method_c = TENANT_C
+    idx, vals = synthetic(dev, shape_c, nnz_c, 13, "uniform")
+    coo_c = SparseCOO.from_parts(idx, vals, shape_c)
+    reset_launches()
+    base_c = tucker.plan(tucker.TuckerSpec(shape_c, ranks_c, method=method_c, n_iter=N_ITER),
+                         device=dev)(coo_c)
+    torch.cuda.synchronize()
+    want_c = read_launches()
+    spec_c = tucker.TuckerSpec(shape_c, ranks_c, method=method_c, n_iter=N_ITER,
+                               snapshot=tucker.SnapshotSpec(
+                                   every_n_sweeps=SNAP_EVERY,
+                                   directory=os.path.join(tmp, "four_way")))
+    reset_launches()
+    try:
+        tucker.plan(spec_c, device=dev)(coo_c, injector=FailureInjector([SNAP_KILL_AT]))
+        killed = False
+    except RuntimeError as exc:
+        killed = "injected failure" in str(exc)
+    resumed_c = tucker.resume(spec_c, coo_c, device=dev)
+    torch.cuda.synchronize()
+    launches_c = read_launches()
+    log(f"  4-way: killed {killed}, resumed from {resumed_c.resumed_from_sweep}, launches over "
+        f"both {launches_c} (uninterrupted {want_c})")
+    check(killed and resumed_c.resumed_from_sweep == SNAP_KILL_AT,
+          "the 4-way kill and resume did not run")
+    check(want_c["kron_contrib"] == 8 * N_ITER and want_c["scatter_rows"] == 4 * N_ITER
+          and launches_c == want_c, f"4-way launches {launches_c}, want {want_c}")
+    check(same_bits(resumed_c, *host_copy(base_c)),
+          "the 4-way resumed run differs from its uninterrupted run")
+    check(bool(np.all(np.isfinite(resumed_c.fit_history))), "4-way fit not finite")
+    out["four_way"] = {"shape": shape_c, "nnz": nnz_c, "ranks": ranks_c, "method": method_c,
+                       "resumed_from": resumed_c.resumed_from_sweep,
+                       "launches": {k: v for k, v in launches_c.items() if v},
+                       "fit_history": resumed_c.fit_history.tolist()}
+    print(json.dumps(out), flush=True)
+
 
 if __name__ == "__main__":
     try:

@@ -23,8 +23,8 @@ import torch
 
 from repro_torch.core.coo import SparseCOO
 from repro_torch.kernels import ops
-from repro_torch.kernels.kron_kernel import PRECISIONS
-from repro_torch.sparse.layout import DeviceSchedule, build_mode_layout
+from repro_torch.kernels.kron_kernel import DEFAULT_BI, DEFAULT_BN, PRECISIONS
+from repro_torch.sparse.layout import SLOTS_PER_PART, DeviceSchedule, build_mode_layout
 
 ENGINES = ("auto", "cuda", "torch")
 JAX_ENGINES = ("xla", "pallas")
@@ -72,6 +72,12 @@ class SweepEngine:
     precision: str = "fp32"
     # core update through the fused megakernel instead of the split TTM.
     fuse_core: bool = False
+    # the schedule's geometry (nonzeros per block, rows per block) and the
+    # unfolding kernel's row split: the launch parameters the autotuner sets
+    # (``apply_blocks``); the defaults are the hand-picked ones.
+    bn: int = DEFAULT_BN
+    bi: int = DEFAULT_BI
+    slots_per_part: int = SLOTS_PER_PART
     # per-mode schedule builds, cumulative; the plan reports per-call deltas.
     schedule_builds: int = 0
     dev_schedules: Dict[int, DeviceSchedule] = dataclasses.field(default_factory=dict)
@@ -109,10 +115,22 @@ class SweepEngine:
         self._bind(coo)
         if mode not in self.dev_schedules:
             self.dev_schedules[mode] = DeviceSchedule.from_layout(
-                build_mode_layout(coo, mode), coo, self.device
+                build_mode_layout(coo, mode, bn=self.bn, bi=self.bi), coo, self.device,
+                slots_per_part=self.slots_per_part,
             )
             self.schedule_builds += 1
         return self.dev_schedules[mode]
+
+    def apply_blocks(self, cfg) -> None:
+        """Adopt an autotuned configuration
+        (:class:`repro_torch.kernels.autotune.BlockConfig`). A new schedule
+        geometry (bn, bi, slots_per_part) drops the cached schedules, which
+        are rebuilt at the next sweep; the layout sets ``fuse_core``."""
+        geometry = (int(cfg.bn), int(cfg.bi), int(cfg.slots_per_part))
+        if geometry != (self.bn, self.bi, self.slots_per_part):
+            self.dev_schedules.clear()
+        self.bn, self.bi, self.slots_per_part = geometry
+        self.fuse_core = cfg.layout == "fused"
 
     def mode_unfolding(self, coo: SparseCOO, factors: Sequence[torch.Tensor],
                        mode: int) -> torch.Tensor:

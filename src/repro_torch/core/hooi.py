@@ -6,7 +6,9 @@ call counts.
 :func:`run_sweeps` is the twin of the reference's compiled scan over
 sweeps (``_sweep_scan`` inside ``_scan_sweeps_impl``): the same fit
 formula, the same ``tol`` rule, the same skip sentinel for sweeps that never
-ran, and the fit history copied to the host once per call.
+ran, and the fit history copied to the host once per call;
+:func:`run_segment`, its loop, also runs a job in resumable segments (the
+snapshot layer's twin of ``_segment_scan_sweeps``).
 
 Convergence metric: with orthonormal factors the projection identity
 ||X - G x {U}||^2 = ||X||^2 - ||G||^2 gives the relative error without
@@ -93,6 +95,70 @@ def projection_error(xnorm2: torch.Tensor, core: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.clamp(xnorm2 - g2, min=0.0)) / torch.sqrt(xnorm2)
 
 
+def fresh_carry(ranks: Sequence[int], core_dtype: torch.dtype, device) -> tuple:
+    """The carry ``(core, prev_err, done, n_done)`` of a job before its first
+    sweep: a zero core, ``prev_err`` +inf (a device f32 scalar, so the
+    ``tol`` rule never fires on the first sweep), not done, no sweep run."""
+    return (torch.zeros(tuple(int(r) for r in ranks), dtype=core_dtype, device=device),
+            torch.tensor(float("inf"), dtype=torch.float32, device=device), False, 0)
+
+
+def run_segment(
+    coo: SparseCOO,
+    factors: Sequence[torch.Tensor],
+    carry: tuple,
+    xnorm2: torch.Tensor,
+    tol: float,
+    engine: SweepEngine,
+    *,
+    ranks: Sequence[int],
+    method: str,
+    segment_len: int,
+    total_sweeps: int,
+) -> Tuple[List[torch.Tensor], torch.Tensor, np.ndarray, tuple]:
+    """Up to ``segment_len`` ALS sweeps continuing from ``carry``, the twin
+    of the reference's ``_sweep_scan`` with ``carry_in`` and
+    ``total_sweeps``: the loop of :func:`run_sweeps` run in pieces.
+
+    ``carry`` is ``(core, prev_err, done, n_done)`` (:func:`fresh_carry` for
+    a new job): the last core, the last sweep's relative error as a device
+    f32 scalar, whether the ``tol`` rule has fired, and the sweeps done. The
+    segment stops early once ``done`` or once ``n_done`` reaches the job's
+    ``total_sweeps`` budget, so its last segment may be short. Returns
+    ``(factors, core, hist, carry)``: ``hist`` the (segment_len,) numpy
+    errors of the sweeps that ran, ``_SKIPPED`` after them.
+
+    Each sweep runs exactly the operations of the unsegmented loop, so a
+    job cut into segments gives its fit history, factors and core bit for
+    bit. The input ``factors`` and carry are never written in place: a
+    failed segment can be run again from them.
+
+    The ``tol`` rule is the reference's: done once two consecutive sweeps'
+    errors differ by less than ``tol`` (never against +inf, never on NaN).
+    The reference decides it on the device inside one compiled program;
+    PyTorch cannot branch on a device value without reading it, so with
+    ``tol > 0`` this loop reads one flag a sweep. With ``tol == 0`` nothing
+    is read until the segment's history, once, at its end.
+    """
+    core, prev_err, done, n_done = carry
+    fs = list(factors)
+    core_dtype = torch.promote_types(coo.values.dtype, torch.float32)
+    errs = []
+    while not done and len(errs) < segment_len and n_done < total_sweeps:
+        fs, g = sparse_sweep(coo, fs, ranks, method, engine)
+        core = g.to(core_dtype)
+        err = projection_error(xnorm2, core).to(torch.float32)
+        errs.append(err)
+        n_done += 1
+        if tol > 0:
+            done = bool(torch.isfinite(prev_err) & (torch.abs(prev_err - err) < tol))
+        prev_err = err
+    hist = np.full((segment_len,), _SKIPPED, dtype=np.float32)
+    if errs:
+        hist[: len(errs)] = torch.stack(errs).cpu().numpy()  # the one device->host copy
+    return fs, core, hist, (core, prev_err, done, n_done)
+
+
 def run_sweeps(
     coo: SparseCOO,
     factors: Sequence[torch.Tensor],
@@ -104,34 +170,16 @@ def run_sweeps(
     method: str,
     n_iter: int,
 ) -> Tuple[List[torch.Tensor], torch.Tensor, np.ndarray]:
-    """Up to ``n_iter`` (>= 1) ALS sweeps with the ``tol`` early exit.
+    """Up to ``n_iter`` (>= 1) ALS sweeps with the ``tol`` early exit: one
+    :func:`run_segment` of the whole budget from a fresh carry.
 
     Returns ``(factors, core, hist)``; ``hist`` is the (n_iter,) numpy fit
     history, with ``_SKIPPED`` for sweeps the early exit skipped.
-
-    The rule is the reference's: stop once two consecutive sweeps' relative
-    errors differ by less than ``tol`` (never after the first sweep, never on
-    NaN). The reference decides that on the device inside one compiled
-    program; PyTorch cannot branch on a device value without reading it, so
-    with ``tol > 0`` this loop reads one ``done`` flag back per sweep. With
-    ``tol == 0`` nothing is read back until the history, once, at the end.
     """
-    fs = list(factors)
-    core_dtype = torch.promote_types(coo.values.dtype, torch.float32)
-    errs = []
-    prev_err = None
-    for _ in range(n_iter):
-        fs, g = sparse_sweep(coo, fs, ranks, method, engine)
-        core = g.to(core_dtype)
-        err = projection_error(xnorm2, core).to(torch.float32)
-        errs.append(err)
-        if tol > 0 and prev_err is not None:
-            done = torch.isfinite(prev_err) & (torch.abs(prev_err - err) < tol)
-            if bool(done):
-                break
-        prev_err = err
-    hist = np.full((n_iter,), _SKIPPED, dtype=np.float32)
-    hist[: len(errs)] = torch.stack(errs).cpu().numpy()  # the one device->host copy
+    carry = fresh_carry(ranks, torch.promote_types(coo.values.dtype, torch.float32),
+                        xnorm2.device)
+    fs, core, hist, _ = run_segment(coo, factors, carry, xnorm2, tol, engine, ranks=ranks,
+                                    method=method, segment_len=n_iter, total_sweeps=n_iter)
     return fs, core, hist
 
 

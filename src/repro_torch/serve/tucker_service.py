@@ -65,6 +65,7 @@ from repro_torch.base import resolve_device, unported
 from repro_torch.core.coo import SparseCOO
 from repro_torch.obs import event as _obs_event
 from repro_torch.obs import span as _obs_span
+from repro_torch.runtime.fault_tolerance import FtConfig, run_with_retries
 from repro_torch.serve.batching import (
     AdaptiveBatchPolicy,
     BatchKey,
@@ -134,26 +135,6 @@ def _uninstall_capacity(svc: "TuckerService") -> None:
             _CAPACITY_VERSION = tucker.plan_cache_info()["capacity_version"]
         else:
             tucker.set_plan_cache_capacity(_CAPACITY_BASELINE)
-
-
-def _with_retries(fn: Any, max_retries: int, backoff_s: float, on_retry: Any) -> Any:
-    """``fn()``, retried in place on ``RuntimeError`` up to ``max_retries``
-    times with exponential backoff. The terminal failure re-raises at once,
-    each earlier attempt's exception chained as ``__context__``."""
-    last: Optional[RuntimeError] = None
-    for attempt in range(max_retries + 1):
-        try:
-            return fn()
-        except RuntimeError as e:
-            if last is not None and e.__context__ is None:
-                e.__context__ = last
-            if attempt >= max_retries:
-                raise
-            last = e
-            _obs_event("retry.attempt", attempt=attempt, error=type(e).__name__)
-            on_retry()
-            time.sleep(backoff_s * (2 ** attempt))
-    raise AssertionError("unreachable")  # pragma: no cover
 
 
 @dataclasses.dataclass(frozen=True)
@@ -694,10 +675,15 @@ class TuckerService:
                         return plan.batch([it.coo for it in items],
                                           generators=generators)
 
-                results = _with_retries(
-                    dispatch, self.config.max_retries,
-                    self.config.retry_backoff_ms / 1e3, self.metrics.on_retry,
-                )
+                if self.config.max_retries > 0:
+                    results = run_with_retries(
+                        dispatch,
+                        FtConfig(max_retries=self.config.max_retries,
+                                 retry_backoff_s=self.config.retry_backoff_ms / 1e3),
+                        on_retry=lambda attempt, exc: self.metrics.on_retry(),
+                    )
+                else:
+                    results = dispatch()
                 if len(results) != len(items):
                     # a short (or long) result list would silently drop
                     # tickets in the zips below — result() would then hang

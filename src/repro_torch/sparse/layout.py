@@ -164,8 +164,10 @@ SLOTS_PER_PART = 1024
 MAX_PARTS = 65536
 
 
-def row_parts(layout, n_parts: Optional[int] = None) -> torch.Tensor:
-    """Cut the schedule's slots into about ``n_parts`` ranges of equal size,
+def row_parts(layout, n_parts: Optional[int] = None,
+              slots_per_part: int = SLOTS_PER_PART) -> torch.Tensor:
+    """Cut the schedule's slots into about ``n_parts`` ranges of equal size
+    (by default one per ``slots_per_part`` slots, at most ``MAX_PARTS``),
     each starting at the first slot of a row, so that no output row crosses
     two ranges. Returns the (n_cuts + 1,) int64 range boundaries, the last
     being ``nnz_padded``.
@@ -178,8 +180,10 @@ def row_parts(layout, n_parts: Optional[int] = None) -> torch.Tensor:
     """
     nnzp = int(layout.rel_row.shape[0])
     dev = layout.rel_row.device
+    if slots_per_part < 1:
+        raise ValueError(f"slots_per_part must be >= 1, got {slots_per_part}")
     if n_parts is None:
-        n_parts = min(MAX_PARTS, max(1, -(-nnzp // SLOTS_PER_PART)))
+        n_parts = min(MAX_PARTS, max(1, -(-nnzp // slots_per_part)))
     rows = slot_rows(layout)
     real = layout.valid > 0
     start = real.clone()
@@ -230,10 +234,12 @@ class DeviceSchedule:
 
     @classmethod
     def from_layout(cls, layout, coo: SparseCOO, device=None, *,
-                    mode: Optional[int] = None) -> "DeviceSchedule":
+                    mode: Optional[int] = None,
+                    slots_per_part: int = SLOTS_PER_PART) -> "DeviceSchedule":
         """The schedule of ``layout`` (a :class:`SortedCOO`, or a
         ``kron_kernel.ScatterPlan`` with its ``mode`` given), built from
-        ``coo``, on ``device`` (the layout's by default)."""
+        ``coo``, on ``device`` (the layout's by default), its row split at
+        about ``slots_per_part`` slots a range (:func:`row_parts`)."""
         dev = torch.device(device) if device is not None else layout.order.device
         mode = layout.mode if mode is None else mode
 
@@ -247,7 +253,8 @@ class DeviceSchedule:
         return cls(
             order=order, valid=valid,
             rel_row=put(layout.rel_row), blkmap=put(layout.blkmap),
-            row_mask=put(layout.row_mask), parts=put(row_parts(layout)),
+            row_mask=put(layout.row_mask),
+            parts=put(row_parts(layout, slots_per_part=slots_per_part)),
             idx=idx, vals=slot_values(coo.values.to(dev), order, valid),
             mode=mode, shape=tuple(coo.shape),
             n_row_blocks=layout.n_row_blocks, bn=layout.bn, bi=layout.bi,

@@ -10,6 +10,17 @@
     res = tucker.decompose(dense, (16, 16, 16), method="svd")      # Alg. 1
     res = tucker.decompose(coo, (16, 16, 16), algorithm="complete")
     res = tucker.decompose(coo, (16, 16, 16), pipeline="python")   # per sweep
+
+    # a long fit that survives its process: snapshot every 5 sweeps, resume
+    ft = tucker.TuckerSpec(shape=coo.shape, ranks=(16, 16, 16),
+                           snapshot=tucker.SnapshotSpec(every_n_sweeps=5,
+                                                        directory="ckpt/job"))
+    res = tucker.plan(ft)(coo)              # snapshots as it sweeps
+    res = tucker.resume(ft, coo)            # picks up from the latest one
+
+    # tuned launch parameters, kept in REPRO_TORCH_AUTOTUNE_TABLE
+    res = tucker.plan(tucker.TuckerSpec(shape=coo.shape, ranks=(16, 16, 16),
+                                        autotune=True))(coo)
 """
 from repro_torch.tucker.planning import (
     PlanCache,
@@ -20,10 +31,12 @@ from repro_torch.tucker.planning import (
     decompose,
     plan,
     plan_cache_info,
+    resume,
     set_plan_cache_capacity,
 )
 from repro_torch.tucker.result import RequestTiming, TuckerResult
-from repro_torch.tucker.spec import ALGORITHMS, METHODS, TuckerSpec, spec_for
+from repro_torch.tucker.snapshot import SnapshotState, load_snapshot
+from repro_torch.tucker.spec import ALGORITHMS, METHODS, SnapshotSpec, TuckerSpec, spec_for
 
 __all__ = [
     "ALGORITHMS",
@@ -31,14 +44,18 @@ __all__ = [
     "PlanCache",
     "PlanStats",
     "RequestTiming",
+    "SnapshotSpec",
+    "SnapshotState",
     "TuckerPlan",
     "TuckerResult",
     "TuckerSpec",
     "add_plan_eviction_hook",
     "clear_plan_cache",
     "decompose",
+    "load_snapshot",
     "plan",
     "plan_cache_info",
+    "resume",
     "set_plan_cache_capacity",
     "spec_for",
 ]

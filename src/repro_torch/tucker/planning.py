@@ -12,14 +12,23 @@ are built once per tensor: hand the plan a tensor already on its device
 paths run torch products (the reference leaves them to XLA): no kernel of
 the port's and no schedule.
 
+A spec with ``snapshot=SnapshotSpec(...)`` runs its sweeps in segments
+(``core.hooi.run_segment``) with the carry written to an atomic checkpoint
+at the spec's cadence, each segment retried on a transient failure;
+:func:`resume` restarts such a job from its latest snapshot. A spec with
+``autotune=True`` applies the tuned kernel launch parameters
+(``kernels.autotune``) to the plan's engine at its first sparse call.
+
 Every call opens ``repro_torch.obs`` spans (``plan.call``, ``plan.batch``,
-``plan.assemble``, ``sweep.dispatch``); with tracing on, each result
+``plan.assemble``, ``sweep.dispatch``; ``snapshot.spill`` and
+``resume.restore`` on snapshot specs); with tracing on, each result
 carries the call's per-stage milliseconds in ``trace_summary``.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from collections import OrderedDict
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
@@ -51,6 +60,7 @@ __all__ = [
     "decompose",
     "plan",
     "plan_cache_info",
+    "resume",
     "set_plan_cache_capacity",
 ]
 
@@ -61,6 +71,8 @@ _MX_PLAN_MISSES = _obs_registry.counter(
     "repro_plan_cache_misses_total", "plan cache misses (plan builds)")
 _MX_PLAN_EVICTIONS = _obs_registry.counter(
     "repro_plan_cache_evictions_total", "plan cache LRU evictions")
+_MX_SNAPSHOTS = _obs_registry.counter(
+    "repro_snapshots_written_total", "sweep-carry snapshots spilled to disk")
 
 
 def _attach_trace_summary(results: Any, root_span: Any) -> None:
@@ -135,6 +147,9 @@ class TuckerPlan:
         # must not evict the per-tensor ones
         self._batch_engine: Optional[SweepEngine] = (
             make_engine(engine.name, self.device) if engine is not None else None)
+        # the autotuned launch parameters, applied once per plan at its first
+        # sparse call (spec.autotune)
+        self._tuned_blocks = None
         self.stats = PlanStats()
         self._exec_lock = threading.RLock()
         self._dispatch_lock = threading.Lock()
@@ -147,7 +162,8 @@ class TuckerPlan:
                 f"algorithm={self.spec.algorithm}, engine={name}, device={self.device})")
 
     def __call__(self, x: Any, generator: Optional[torch.Generator] = None,
-                 factors_init: Any = None, device=None) -> TuckerResult:
+                 factors_init: Any = None, device=None, resume_from: Any = None,
+                 injector: Any = None) -> TuckerResult:
         """Decompose ``x`` (moved to the plan's device if it is elsewhere): a
         ``SparseCOO`` for the sparse and completion algorithms, a dense array
         (numpy or torch) for the dense one.
@@ -157,6 +173,14 @@ class TuckerPlan:
         first EM round of a completion); otherwise
         :func:`~repro_torch.core.hooi.init_factors` draws them from
         ``generator`` (a CPU generator seeded with 0 by default).
+
+        ``resume_from`` (snapshot specs only) restarts the job from a
+        snapshot: a checkpoint directory, or a loaded
+        :class:`~repro_torch.tucker.snapshot.SnapshotState` (as
+        :func:`resume` passes); ``generator`` and ``factors_init`` are then
+        unused. ``injector`` (tests) is a
+        :class:`~repro_torch.runtime.fault_tolerance.FailureInjector`
+        consulted at every segment boundary, inside the retried step.
         """
         if device is not None and resolve_device(device) != self.device:
             raise ValueError(f"this plan runs on {self.device}, not {device}")
@@ -165,6 +189,9 @@ class TuckerPlan:
                                         shape=list(spec.shape), ranks=list(spec.ranks)) as sp:
             with self._stats_lock:
                 self.stats.calls += 1
+            if spec.algorithm != "sparse" and (resume_from is not None or injector is not None):
+                raise ValueError("resume_from/injector require algorithm='sparse' with "
+                                 "snapshot=SnapshotSpec(...)")
             if spec.algorithm == "dense":
                 res = self._run_dense(x, generator, factors_init)
             else:
@@ -172,14 +199,44 @@ class TuckerPlan:
                 if spec.algorithm == "complete":
                     res = self._run_complete(coo, generator, factors_init)
                 else:
-                    factors = self._init_factors(generator, factors_init)
-                    xnorm2 = torch.square(coo.norm())
-                    if spec.pipeline == "scan":
-                        res = self._run_sparse_scan(coo, factors, xnorm2)
-                    else:
-                        res = self._run_sparse_python(coo, factors, xnorm2)
+                    res = self._run_sparse(coo, generator, factors_init, resume_from, injector)
             _attach_trace_summary(res, sp)
             return res
+
+    def _run_sparse(self, coo: SparseCOO, generator, factors_init, resume_from,
+                    injector) -> TuckerResult:
+        spec = self.spec
+        self._maybe_autotune(coo)
+        if spec.snapshot is not None:
+            return self._run_sparse_snapshot(coo, generator, factors_init, resume_from,
+                                             injector)
+        if resume_from is not None or injector is not None:
+            raise ValueError("resume_from/injector require a spec with "
+                             "snapshot=SnapshotSpec(...)")
+        factors = self._init_factors(generator, factors_init)
+        xnorm2 = torch.square(coo.norm())
+        if spec.pipeline == "scan":
+            return self._run_sparse_scan(coo, factors, xnorm2)
+        return self._run_sparse_python(coo, factors, xnorm2)
+
+    def _maybe_autotune(self, coo: SparseCOO) -> None:
+        """Apply the tuned launch parameters once per plan (spec.autotune):
+        the tuning table's entry for this problem's fingerprint (a warm
+        entry costs no trial), else a search, then the engine rebinds its
+        schedule geometry and core layout. On both engines: ``torch`` runs
+        the kernels' plain versions on the same schedules. Runs under the
+        exec lock (callers hold it)."""
+        if not self.spec.autotune or self.engine is None or self._tuned_blocks is not None:
+            return
+        from repro_torch.kernels import autotune as _autotune
+
+        cfg = _autotune.autotune(
+            self.spec.shape, self.spec.ranks, coo.nnz,
+            dtype=str(coo.values.dtype).replace("torch.", ""),
+            precision=self.engine.precision, device=self.device,
+        )
+        self.engine.apply_blocks(cfg)
+        self._tuned_blocks = cfg
 
     @property
     def supports_batched_dispatch(self) -> bool:
@@ -230,6 +287,12 @@ class TuckerPlan:
         """
         if self.spec.algorithm != "sparse":
             raise ValueError(f"batch() requires algorithm='sparse', got {self.spec.algorithm!r}")
+        if self.spec.snapshot is not None:
+            raise ValueError(
+                "batch() does not compose with snapshot=SnapshotSpec(...): the "
+                "members would interleave step sequences in one checkpoint "
+                "directory; run snapshot jobs as single calls"
+            )
         coos = [self._check_sparse_input(c) for c in coos]
         generators = [None] * len(coos) if generators is None else list(generators)
         inits = [None] * len(coos) if factors_init is None else list(factors_init)
@@ -307,7 +370,8 @@ class TuckerPlan:
             core, factors, hist, engine=eng.name if eng is not None else "torch",
             spec=self.spec,
             compression_ratio=compression_ratio(self.spec.shape, self.spec.ranks),
-            precision=eng.precision if eng is not None else "fp32", **counts,
+            precision=eng.precision if eng is not None else "fp32",
+            tuned_blocks=self._tuned_blocks, **counts,
         )
 
     def _run_sparse_scan(self, coo: SparseCOO, factors, xnorm2) -> TuckerResult:
@@ -328,6 +392,114 @@ class TuckerPlan:
         return self._result(core, fs, hist[:n_done], dispatches=1,
                             launches=sum(launches.values()),
                             schedule_builds=eng.schedule_builds - builds0)
+
+    def _run_sparse_snapshot(self, coo: SparseCOO, generator, factors_init, resume_from,
+                             injector) -> TuckerResult:
+        """The resumable segment loop: the job's ``n_iter`` sweeps run as
+        segments of ``snapshot.segment_len`` sweeps (``core.hooi.run_segment``,
+        the unsegmented loop's operations, so the same bits), each under
+        ``run_with_retries``, with one host read of the carry per segment. A
+        fresh job writes a step-0 snapshot first, so a kill at any later
+        boundary finds a resumable job; each boundary then spills its carry
+        ("interval", or "wall-clock" once ``every_seconds`` have passed, else
+        a ``snapshot.skip`` event), and the last one always does ("final")."""
+        from repro_torch.checkpoint.manager import CheckpointManager
+        from repro_torch.runtime.fault_tolerance import FtConfig, run_with_retries
+        from repro_torch.tucker import snapshot as _snap
+
+        spec, eng, snap = self.spec, self.engine, self.spec.snapshot
+        state = None
+        if resume_from is not None:
+            if isinstance(resume_from, _snap.SnapshotState):
+                state = resume_from
+            else:
+                with _obs_span("resume.restore", directory=str(resume_from)) as rsp:
+                    state = _snap.load_snapshot(str(resume_from))
+                    rsp.set_attr("sweeps_done", int(state.sweeps_done))
+            _snap.check_compatible(spec, state)
+        xnorm2 = torch.square(coo.norm())
+        core_dtype = torch.promote_types(coo.values.dtype, torch.float32)
+        if state is not None:
+            factors = self._init_factors(None, state.factors)
+            carry = (torch.as_tensor(state.core, dtype=core_dtype).to(self.device),
+                     torch.tensor(state.prev_err, dtype=torch.float32, device=self.device),
+                     bool(state.done), int(state.sweeps_done))
+            prev_err = float(state.prev_err)  # the host's copy, for the manifest
+            hist: List[float] = list(state.fit_history)
+            resumed_from: Optional[int] = int(state.sweeps_done)
+        else:
+            factors = self._init_factors(generator, factors_init)
+            carry = _hooi.fresh_carry(spec.ranks, core_dtype, self.device)
+            prev_err, hist, resumed_from = float("inf"), [], None
+
+        mgr = CheckpointManager(snap.directory, keep=snap.keep)
+        ft = FtConfig(max_retries=snap.max_retries, retry_backoff_s=snap.retry_backoff_s)
+        retries = dispatches = snapshots_written = 0
+        builds0, launches0 = eng.schedule_builds, launch_count.tally()
+        last_spill = time.monotonic()
+
+        def on_retry(attempt: int, exc: BaseException) -> None:
+            nonlocal retries
+            retries += 1
+
+        def save(step: int, decision: str) -> None:
+            # ``decision`` says why this boundary spilled: "initial",
+            # "interval", "wall-clock" or "final"
+            nonlocal snapshots_written, last_spill
+            with _obs_span("snapshot.spill", step=int(step), decision=decision):
+                _snap.save_snapshot(mgr, spec, factors=factors, core=carry[0],
+                                    prev_err=prev_err, done=carry[2], sweeps_done=step,
+                                    fit_history=hist)
+            _MX_SNAPSHOTS.inc()
+            snapshots_written += 1
+            last_spill = time.monotonic()
+
+        if state is None:
+            save(0, "initial")
+        while carry[3] < spec.n_iter and not carry[2]:
+            n_done = carry[3]
+
+            def step():
+                if injector is not None:
+                    # inside the retried step: a one-shot injected failure
+                    # retries in place; with max_retries=0 it propagates
+                    # after the last snapshot, the kill a resume restarts from
+                    injector.maybe_fail(n_done)
+                return _hooi.run_segment(coo, factors, carry, xnorm2, spec.tol, eng,
+                                         ranks=spec.ranks, method=spec.method,
+                                         segment_len=snap.segment_len,
+                                         total_sweeps=spec.n_iter)
+
+            with _obs_span("sweep.dispatch", program="segment", engine=eng.name,
+                           segment_len=snap.segment_len, sweeps_done=n_done) as dsp:
+                seg_launches0, seg_builds0 = launch_count.tally(), eng.schedule_builds
+                factors, _, seg_hist, carry = run_with_retries(step, ft, on_retry=on_retry)
+                dispatches += 1
+                ran = seg_hist[seg_hist != _hooi._SKIPPED]
+                hist.extend(float(h) for h in ran)
+                if ran.size:  # the carry's prev_err is the last sweep's error
+                    prev_err = float(ran[-1])
+                dsp.set_attr("sweeps_run", carry[3])
+                dsp.set_attr("launches", launch_count.since(seg_launches0))
+                dsp.set_attr("schedule_builds", eng.schedule_builds - seg_builds0)
+            if carry[2] or carry[3] >= spec.n_iter:
+                save(carry[3], "final")
+            elif snap.every_seconds is None:
+                save(carry[3], "interval")
+            elif time.monotonic() - last_spill >= snap.every_seconds:
+                save(carry[3], "wall-clock")
+            else:  # the interval has not passed: no write at this boundary
+                _obs_event("snapshot.skip", step=carry[3], decision="wall-clock",
+                           elapsed_s=time.monotonic() - last_spill)
+
+        res = self._result(carry[0], factors, np.asarray(hist, dtype=np.float32),
+                           dispatches=dispatches,
+                           launches=sum(launch_count.since(launches0).values()),
+                           schedule_builds=eng.schedule_builds - builds0)
+        res.snapshots_written = snapshots_written
+        res.resumed_from_sweep = resumed_from
+        res.retries = retries
+        return res
 
     def _run_sparse_batched(self, coos: List[SparseCOO], generators,
                             inits) -> List[TuckerResult]:
@@ -602,6 +774,34 @@ def add_plan_eviction_hook(hook: EvictionHook) -> Callable[[], None]:
     """Observe the process-wide cache's evictions; returns a deregistration
     callable (see :meth:`PlanCache.add_eviction_hook`)."""
     return _PLAN_CACHE.add_eviction_hook(hook)
+
+
+def resume(spec: TuckerSpec, x: Any, directory: Optional[str] = None, *,
+           generator: Optional[torch.Generator] = None, injector: Any = None,
+           device="cuda") -> TuckerResult:
+    """Restart a snapshotted decomposition from its latest snapshot.
+
+    Loads the newest snapshot in ``directory`` (default: the spec's
+    ``snapshot.directory``), checks that it describes the same problem
+    (shape, ranks, method, algorithm) and runs the remaining sweeps through
+    the cached plan for ``spec`` on ``device``, continuing the convergence
+    state, so the final factors, core and fit history are the bits of a run
+    that was never interrupted. ``generator`` is accepted as ``__call__``
+    takes it and unused: the factors come from the snapshot. (The
+    reference's clamp of a sharded spec to the devices present comes with
+    sharding, ROADMAP.md queue 1, item 15.)
+    """
+    from repro_torch.tucker import snapshot as _snap
+
+    if spec.snapshot is None:
+        raise ValueError("resume() requires a spec with snapshot=SnapshotSpec(...)")
+    directory = directory if directory is not None else spec.snapshot.directory
+    with _obs_span("resume.restore", directory=str(directory)) as rsp:
+        state = _snap.load_snapshot(directory)
+        rsp.set_attr("sweeps_done", int(state.sweeps_done))
+    _snap.check_compatible(spec, state)
+    return plan(spec, device=device)(x, generator=generator, resume_from=state,
+                                     injector=injector)
 
 
 def decompose(x: Any, ranks: Sequence[int], *, generator=None,

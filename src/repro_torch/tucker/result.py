@@ -81,6 +81,15 @@ class TuckerResult:
         'bf16_fp32acc'; a prebuilt engine may differ from ``spec.precision``).
       timing: per-request queue/batch/execute wall-clock when the result was
         produced by ``repro_torch.serve.TuckerService`` (``None`` otherwise).
+      snapshots_written: snapshots this call wrote (snapshot specs only; the
+        step-0 snapshot of a fresh job included).
+      resumed_from_sweep: the sweep count the job restarted from when this
+        call resumed a snapshot; ``None`` on a fresh run.
+      retries: segments that failed with a transient error and were run
+        again by ``run_with_retries`` during this call.
+      tuned_blocks: the autotuned launch parameters
+        (:class:`repro_torch.kernels.autotune.BlockConfig`) the plan applied
+        before this call, or ``None`` when no autotuning ran.
       trace_summary: per-stage milliseconds of this call, span name -> total
         ms over the call's span subtree (``repro_torch.obs``); ``None``
         unless tracing was on when the call ran. A batch attaches the whole
@@ -99,6 +108,10 @@ class TuckerResult:
     schedule_builds: int = 0
     precision: str = "fp32"
     timing: Optional[RequestTiming] = None
+    snapshots_written: int = 0
+    resumed_from_sweep: Optional[int] = None
+    retries: int = 0
+    tuned_blocks: Optional[tuple] = None
     trace_summary: Optional[dict] = None
 
     @classmethod

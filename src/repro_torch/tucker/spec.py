@@ -1,7 +1,7 @@
 """TuckerSpec — the frozen problem description behind the plan/execute API.
 
-Port of ``repro.tucker.spec``: the same fields, validation and rank clamp.
-Values whose code is not ported yet (``shard``, ``snapshot``, ``autotune``,
+Port of ``repro.tucker.spec``: the same fields, validation and rank clamp,
+and :class:`SnapshotSpec`. Values whose code is not ported yet (``shard``,
 ``use_kron_reuse``) raise ``NotImplementedError`` naming their
 ``ROADMAP.md`` item; the JAX engine names raise ``ValueError``.
 """
@@ -21,6 +21,78 @@ METHODS = ("svd", "householder", "gram")
 ALGORITHMS = ("sparse", "dense", "complete")
 PIPELINES = ("scan", "python")
 DTYPES = ("auto", "float32", "float64")
+
+
+@dataclasses.dataclass(frozen=True)
+class SnapshotSpec:
+    """The fault-tolerance axis of a problem: snapshot the sweep carry every
+    ``every_n_sweeps`` ALS sweeps, so that a job that dies resumes from its
+    latest snapshot (``tucker.resume``) instead of starting over.
+
+    The sweeps run in segments of ``segment_len`` sweeps
+    (``core.hooi.run_segment``, the same per-sweep operations as the
+    unsegmented loop); after each segment the carry (factors, core,
+    convergence state) is copied to the host once and may be written
+    atomically through
+    :class:`repro_torch.checkpoint.manager.CheckpointManager`. Hashable, so
+    it rides inside :class:`TuckerSpec` and keys the plan cache.
+
+    The cadence is sweep-count based (``every_n_sweeps``), wall-clock based
+    (``every_seconds``), or both: with ``every_seconds`` the loop still runs
+    segments of ``segment_len`` sweeps but writes a snapshot at a boundary
+    only once the interval has passed since the last write. The initial
+    (step-0) and final snapshots are always written. At least one cadence
+    must be set.
+
+    Attributes:
+      every_n_sweeps: sweeps per segment, or None for a wall-clock cadence.
+      directory: checkpoint root, one job per directory (two jobs in one
+        directory would interleave their steps).
+      every_seconds: least seconds between two writes, or None for a
+        sweep-count cadence; 0.0 writes at every boundary.
+      keep: snapshots kept (older ones are removed).
+      max_retries: retries of a segment that fails with a transient
+        ``RuntimeError`` (``runtime.fault_tolerance.run_with_retries``); 0
+        fails at once and relies on resume.
+      retry_backoff_s: base of the exponential retry backoff.
+    """
+
+    every_n_sweeps: Optional[int] = None
+    directory: str = ""
+    every_seconds: Optional[float] = None
+    keep: int = 3
+    max_retries: int = 0
+    retry_backoff_s: float = 0.05
+
+    @property
+    def segment_len(self) -> int:
+        """Sweeps per segment: ``every_n_sweeps`` when set, else 1 (the
+        wall-clock cadence then decides at each boundary whether to write)."""
+        return self.every_n_sweeps if self.every_n_sweeps is not None else 1
+
+    def __post_init__(self) -> None:
+        if self.every_n_sweeps is None and self.every_seconds is None:
+            raise ValueError(
+                "SnapshotSpec needs a cadence: set every_n_sweeps, every_seconds, or both")
+        if self.every_n_sweeps is not None and int(self.every_n_sweeps) < 1:
+            raise ValueError(f"every_n_sweeps must be >= 1, got {self.every_n_sweeps}")
+        if self.every_seconds is not None and not (float(self.every_seconds) >= 0.0):
+            raise ValueError(f"every_seconds must be >= 0, got {self.every_seconds}")
+        if not self.directory or not isinstance(self.directory, str):
+            raise ValueError(f"directory must be a non-empty string, got {self.directory!r}")
+        if int(self.keep) < 1:
+            raise ValueError(f"keep must be >= 1, got {self.keep}")
+        if int(self.max_retries) < 0:
+            raise ValueError(f"max_retries must be >= 0, got {self.max_retries}")
+        if not (float(self.retry_backoff_s) >= 0.0):  # also rejects NaN
+            raise ValueError(f"retry_backoff_s must be >= 0, got {self.retry_backoff_s}")
+        if self.every_n_sweeps is not None:
+            object.__setattr__(self, "every_n_sweeps", int(self.every_n_sweeps))
+        if self.every_seconds is not None:
+            object.__setattr__(self, "every_seconds", float(self.every_seconds))
+        object.__setattr__(self, "keep", int(self.keep))
+        object.__setattr__(self, "max_retries", int(self.max_retries))
+        object.__setattr__(self, "retry_backoff_s", float(self.retry_backoff_s))
 
 
 def _canonical_dtype(dtype: Any) -> str:
@@ -54,13 +126,19 @@ class TuckerSpec:
         'float64' (the CPU only).
       precision: 'fp32' or 'bf16_fp32acc' (bf16 operand loads and products
         in the two kernels, f32 sums).
+      autotune: search the sweep kernels' launch parameters
+        (``repro_torch.kernels.autotune.BlockConfig``: the schedule's bn and
+        bi, kernels 1 and 5's row split, the split or fused core update) at
+        the plan's first execution, through the on-disk tuning table (a
+        warm entry costs no search). Needs the sparse algorithm.
       algorithm: 'sparse' (paper Alg. 2, COO input), 'dense' (Alg. 1,
         dense input) or 'complete' (EM completion, COO input).
       n_rounds: EM rounds for algorithm='complete' (ignored otherwise).
-      autotune, use_kron_reuse, shard, snapshot: reference features that
-        are not ported yet; only their defaults are accepted. (In the
-        reference, autotune, shard and snapshot also need the sparse scan
-        path.)
+      snapshot: a :class:`SnapshotSpec` to run the sweeps in segments with
+        the carry checkpointed (resumable through ``tucker.resume``), or
+        None. Needs the sparse algorithm on the scan pipeline.
+      use_kron_reuse, shard: reference features that are not ported yet;
+        only their defaults are accepted.
     """
 
     shape: Tuple[int, ...]
@@ -77,7 +155,7 @@ class TuckerSpec:
     algorithm: str = "sparse"
     n_rounds: int = 10
     shard: Optional[Any] = None
-    snapshot: Optional[Any] = None
+    snapshot: Optional[SnapshotSpec] = None
 
     def __post_init__(self) -> None:
         shape = tuple(int(s) for s in self.shape)
@@ -110,12 +188,29 @@ class TuckerSpec:
             raise ValueError(f"tol must be >= 0, got {self.tol}")
         if self.precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}, got {self.precision!r}")
+        if self.autotune and self.algorithm != "sparse":
+            raise ValueError(
+                "autotune requires algorithm='sparse' (only the sparse sweep "
+                "kernels have tunable block shapes)"
+            )
         if self.shard is not None:
             raise unported("shard", "queue 1, item 15: sharding")
         if self.snapshot is not None:
-            raise unported("snapshot", "queue 1, item 12: snapshot and resume")
-        if self.autotune:
-            raise unported("autotune=True", "queue 1, item 14: kernel autotuning")
+            if not isinstance(self.snapshot, SnapshotSpec):
+                raise TypeError(
+                    f"snapshot must be a SnapshotSpec or None, got "
+                    f"{type(self.snapshot).__name__}"
+                )
+            if self.algorithm != "sparse":
+                raise ValueError(
+                    f"snapshot requires algorithm='sparse' (only the sweep loop "
+                    f"has a resumable carry), got {self.algorithm!r}"
+                )
+            if self.pipeline != "scan":
+                raise ValueError(
+                    "snapshot requires pipeline='scan': the snapshot layer runs "
+                    "the multi-sweep loop in resumable segments"
+                )
         if self.use_kron_reuse:
             raise unported("use_kron_reuse=True", "queue 1, item 7: Kron reuse")
         object.__setattr__(self, "shape", shape)

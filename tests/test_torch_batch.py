@@ -149,7 +149,7 @@ def test_batch_rules():
         p.batch([_port(jrandom((5, 5, 5), 0.2, seed=1))])
     with pytest.raises(ValueError, match="algorithm='sparse'"):
         tucker.plan(tucker.TuckerSpec(shape, ranks, algorithm="dense"), device="cpu").batch(coos)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="SnapshotSpec"):
         tucker.TuckerSpec(shape, ranks, snapshot=object())
     # the reference's rules on its side of the same inputs
     jp = jtucker.plan(jtucker.TuckerSpec(shape=shape, ranks=ranks, n_iter=2))

@@ -1,4 +1,5 @@
-"""repro_torch and chip_smoke.py stay free of JAX and of the repro package."""
+"""repro_torch and chip_smoke.py stay free of JAX and of the repro package
+(and of ``ml_dtypes``, which the card machine does not have)."""
 import os
 import re
 import subprocess
@@ -23,8 +24,10 @@ def test_import_leaves_jax_and_repro_unloaded():
         "import repro_torch.kernels.flash_attention, repro_torch.kernels.ssd_scan\n"
         "import repro_torch.obs, repro_torch.obs.__main__, repro_torch.serve\n"
         "import repro_torch.serve.tucker_service, repro_torch.kernels.launch_count\n"
+        "import repro_torch.runtime.fault_tolerance, repro_torch.checkpoint.manager\n"
+        "import repro_torch.tucker.snapshot, repro_torch.kernels.autotune\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "       or m == 'repro' or m.startswith('repro.') or m == 'ml_dtypes']\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
