@@ -106,7 +106,20 @@ result line):
     build), a retried segment (phase 4's bits), the overhead at 1 and 5
     sweeps a segment; and the kill and resume of a 4-way tensor at tenant
     C's shape (kernels 3, 4, 2), its uninterrupted run's bits and launches;
-14. one JSON line per phase, the kernels line, then the device line.
+14. sharded sparse HOOI (``TuckerSpec.shard``) in ranks spawned with
+    ``torch.multiprocessing``: phase 4's tensor (drawn anew in each rank,
+    its checksum held to phase 4's) over NCCL in a world of one (phase 4's
+    bits, kernels 1 and 2 launched as in phase 4, the all-reduce bytes of
+    a sweep worked out here); on 4 ranks over gloo sharing the card (every
+    rank the same bits, phase 3's tolerances of phase 4, the imbalance,
+    kernels 1 and 2 on every rank, warm sweep ms, all-reduce ms a sweep,
+    kernel 1's ms on one rank's slice, peak memory per rank); tenant C's
+    4-way shape on 4 ranks (kernels 3, 4, 2 on every rank, within phase 3's
+    tolerances of its unsharded run); a kill at sweep 4 resumed on 4 ranks
+    (the uninterrupted 4-rank bits, the 4-rank fingerprint in the manifest,
+    rank 0 alone writing) and on 2 (the clamp warning, phase 3's
+    tolerances);
+15. one JSON line per phase, the kernels line, then the device line.
 
 Needs one CUDA card, ``nvcc`` (on PATH or under /usr/local/cuda), and the
 checkout's ``src/`` beside this file. Imports nothing of JAX.
@@ -123,6 +136,7 @@ import sys
 import time
 from functools import partial
 from pathlib import Path
+from typing import Optional
 
 # Path A holds a 51 GB contrib per mode whose size changes from mode to
 # mode; without expandable segments the caching allocator splits the freed
@@ -267,6 +281,7 @@ def main() -> int:
     timed("11 dense HOOI and completion", phase11_dense, dev, card)
     timed("12 Tucker service", phase12_service, dev, card)
     timed("13 autotuning and snapshots", phase13_autotune_snapshots, dev, card, ref4)
+    timed("14 sharded", phase14_sharded, dev, card, ref4)
     print(json.dumps({"kernels": [kernels[k] for k in wrappers()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2988,6 +3003,521 @@ def _phase13(dev, card: str, ref4: dict, tmp: str) -> None:
                        "resumed_from": resumed_c.resumed_from_sweep,
                        "launches": {k: v for k, v in launches_c.items() if v},
                        "fit_history": resumed_c.fit_history.tolist()}
+    print(json.dumps(out), flush=True)
+
+
+# -- phase 14: sharded sparse HOOI over torch.distributed ----------------------------
+
+SHARD_WORLD = 4  # 14b-14d: ranks sharing the one card over gloo
+SHARD_RESUME_WORLD = 2  # 14d: the elastic resume
+SHARD_WARM_RUNS = 3
+SHARD_TIMEOUT_S = 300  # each group's collective timeout, and each spawn's deadline
+
+
+def shard_imbalance_of(nnz: int, world: int) -> float:
+    """``1 - min/max`` of the shards' real nonzeros when ``nnz`` nonzeros
+    are padded to a multiple of ``world`` and cut into contiguous slices,
+    worked out here apart from the port."""
+    per = -(-nnz // world)
+    counts = [min(max(nnz - r * per, 0), per) for r in range(world)]
+    return 1.0 - min(counts) / max(counts)
+
+
+def shard_child(rank: int, world: int, backend: str, store: str, tmp: str, job: str,
+                cfg: dict) -> None:
+    """One rank of phase 14, in a spawned process: joins the group, draws
+    the tensor on its device from phase 4's seed, runs ``job`` and saves
+    its results to ``tmp``. The parent built the kernels; this process
+    loads them."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    on_card = cfg["device"] != "cpu"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if on_card:
+        torch.cuda.set_device(0)  # every rank's card: the one of this machine
+        torch.cuda.reset_peak_memory_stats()
+    # NCCL binds its communicator to the rank's card at once
+    bind = {"device_id": torch.device("cuda", 0)} if backend == "nccl" else {}
+    dist.init_process_group(backend, store=dist.FileStore(store, world), rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S), **bind)
+    try:
+        out = SHARD_JOBS[job](rank, world, torch.device(cfg["device"]), tmp, cfg)
+        if on_card:
+            out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.save(out, os.path.join(tmp, f"{job}-r{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _shard_sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _shard_tensor(dev, cfg: dict, which: str = "nell2"):
+    from repro_torch.core.coo import SparseCOO
+
+    if which == "nell2":
+        idx, vals = synthetic(dev, cfg["shape"], cfg["nnz"], SEED, "uniform")
+        return SparseCOO.from_parts(idx, vals, cfg["shape"])
+    shape_c, nnz_c = cfg["tenant_c"][:2]
+    idx, vals = synthetic(dev, shape_c, nnz_c, 13, "uniform")
+    return SparseCOO.from_parts(idx, vals, shape_c)
+
+
+def _shard_result(res, launches: dict) -> dict:
+    return {"fit": res.fit_history.copy(), "factors": [f.cpu() for f in res.factors],
+            "core": res.core.cpu(), "launches": {k: v for k, v in launches.items() if v},
+            "dispatches": res.dispatches, "collective_bytes": res.collective_bytes_per_sweep,
+            "imbalance": res.shard_imbalance, "resumed_from": res.resumed_from_sweep,
+            "world": res.spec.shard.num_devices if res.spec.shard else None}
+
+
+def _shard_warm(plan, coo, dev, runs: int) -> dict:
+    """Warm sweep ms (host clock around each call, which ends in a
+    synchronize), the ranks lined up at a barrier before each; then the
+    all-reduce ms a sweep, from one more call with each collective timed
+    between two synchronizes."""
+    import torch.distributed as dist
+
+    from repro_torch.core.engine import ShardedSweepEngine
+
+    n_iter = plan.spec.n_iter
+    sweep_ms = []
+    for _ in range(runs):
+        dist.barrier()
+        t0 = time.perf_counter()
+        plan(coo)
+        _shard_sync(dev)
+        sweep_ms.append((time.perf_counter() - t0) * 1e3 / n_iter)
+    spent = []
+    real = ShardedSweepEngine.all_reduce
+
+    def timed(self, y):
+        _shard_sync(dev)
+        t0 = time.perf_counter()
+        out = real(self, y)
+        _shard_sync(dev)
+        spent.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    ShardedSweepEngine.all_reduce = timed
+    try:
+        dist.barrier()
+        plan(coo)
+    finally:
+        ShardedSweepEngine.all_reduce = real
+    return {"sweep_ms": float(np.median(sweep_ms)), "sweep_ms_runs": sweep_ms,
+            "allreduce_ms_per_sweep": sum(spent) / n_iter, "allreduces": len(spent)}
+
+
+def _shard_job_one(rank, world, dev, tmp, cfg) -> dict:
+    """14a: phase 4's tensor and factors on a world of one."""
+    from repro_torch import tucker
+
+    coo = _shard_tensor(dev, cfg)
+    spec = tucker.TuckerSpec(cfg["shape"], cfg["ranks"], n_iter=N_ITER,
+                             shard=tucker.ShardSpec(world))
+    plan = tucker.plan(spec, device=dev)
+    reset_launches()
+    res = plan(coo)
+    _shard_sync(dev)
+    out = _shard_result(res, read_launches())
+    out["checksum"] = coo_checksum(coo)
+    out["fingerprint"] = tucker.mesh_fingerprint(plan.mesh)
+    out.update(_shard_warm(plan, coo, dev, SHARD_WARM_RUNS))
+    return out
+
+
+def _shard_kernel1_on_slice(plan, coo, res, shape) -> dict:
+    """Kernel 1 on this rank's slice, mode by mode, at the schedules the
+    sharded sweep gave it: against its plain version (fp32), both timed,
+    and its bound for the slice's real nonzeros."""
+    from repro_torch.kernels import kron_kernel
+
+    sched = plan.engine.shard_schedule(coo, plan.mesh)
+    local = sched.coo
+    real_nnz = int(sched.shard_counts[sched.rank])
+    fs = [f.contiguous() for f in res.factors]
+    row = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0, "per_mode": []}
+    nbytes_all, flops_all = 0, 0
+    for mode in range(3):
+        ds = plan.engine.device_schedule(local, mode)
+        fa, fb = kron_factors(fs, mode)
+        kern = partial(kron_kernel.fused_kron_scatter, fa, fb, ds, shape[mode])
+        plain = partial(kron_kernel.fused_kron_scatter_plain, fa, fb, ds, shape[mode])
+        err = compare(f"fused_kron_scatter rank 0's slice mode {mode} ({real_nnz} nnz)", "fp32",
+                      synced(kern()), synced(plain()), max_row_count(local, mode))
+        ms, p_ms = time_ms(kern), time_ms(plain, reps=1)
+        k = fa.shape[1] * fb.shape[1]
+        nbytes = (nbytes_of(ds.idx, ds.vals, ds.rel_row, ds.blkmap, ds.parts,
+                            *kron_kernel._cast_operands("fp32", fa, fb)) + shape[mode] * k * 4)
+        flops = 3 * real_nnz * k
+        b_ms, _ = bound(nbytes, flops, PEAK_TF32_FLOPS)
+        nbytes_all, flops_all = nbytes_all + nbytes, flops_all + flops
+        for key, v in (("ms", ms), ("plain_ms", p_ms), ("bound_ms", b_ms)):
+            row[key] += v
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["per_mode"].append({"mode": mode, "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                                "max_abs_err": err})
+    row["bound_by"] = bound(nbytes_all, flops_all, PEAK_TF32_FLOPS)[1]
+    return {"kernel1": row, "kernel1_ms_per_sweep": row["ms"], "slice_nnz": real_nnz}
+
+
+def _shard_kernels34_on_slice(plan, coo, res, shape) -> dict:
+    """Kernels 3 and 4 on this rank's slice of a 4-way tensor, mode by mode,
+    at the schedules the sharded sweep gave them: each against its plain
+    version (fp32), both timed, and each kernel's bound."""
+    from repro_torch.kernels import kron_kernel, ops
+
+    sched = plan.engine.shard_schedule(coo, plan.mesh)
+    local = sched.coo
+    real_nnz = int(sched.shard_counts[sched.rank])
+    fs = [f.contiguous() for f in res.factors]
+    tot = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
+                  "bytes": 0, "flops": 0} for name in ("kron_contrib", "scatter_rows")}
+    for mode in range(4):
+        ds = plan.engine.device_schedule(local, mode)
+        rows, v = ops._gathered_block_rows(local.indices, local.values, fs, mode, ds, 4)
+        ones = torch.ones_like(v)
+        nnzp = v.shape[0]
+        label = f"rank 0's slice mode {mode} ({real_nnz} nnz)"
+        link1 = partial(kron_kernel.kron_contrib, rows[0], rows[1], v)
+        link1_plain = partial(kron_kernel.kron_contrib_plain, rows[0], rows[1], v)
+        c1 = synced(link1())
+        err1 = compare(f"kron_contrib {label} link 1", "fp32", c1, synced(link1_plain()), 1)
+        link2 = partial(kron_kernel.kron_contrib, c1, rows[2], ones)
+        link2_plain = partial(kron_kernel.kron_contrib_plain, c1, rows[2], ones)
+        c2 = synced(link2())
+        err2 = compare(f"kron_contrib {label} link 2", "fp32", c2, synced(link2_plain()), 1)
+        scat = partial(kron_kernel.scatter_rows, c2, ds, shape[mode])
+        scat_plain = partial(kron_kernel.scatter_rows_plain, c2, ds, shape[mode])
+        err_s = compare(f"scatter_rows {label}", "fp32", synced(scat()), synced(scat_plain()),
+                        max_row_count(local, mode))
+        k1, k = c1.shape[1], c2.shape[1]
+        for name, ms, p_ms, nb, fl, err in (
+                ("kron_contrib", time_ms(link1) + time_ms(link2),
+                 time_ms(link1_plain) + time_ms(link2_plain),
+                 # link 1 writes c1 and link 2 reads it; link 2 writes c2
+                 nbytes_of(rows[0], rows[1], v, c1, c1, rows[2], ones) + nnzp * k * 4,
+                 2 * nnzp * k1 + 2 * nnzp * k, max(err1, err2)),
+                ("scatter_rows", time_ms(scat), time_ms(scat_plain),
+                 nbytes_of(c2, ds.rel_row, ds.blkmap, ds.parts) + shape[mode] * k * 4,
+                 real_nnz * k, err_s)):
+            t = tot[name]
+            t["ms"] += ms
+            t["plain_ms"] += p_ms
+            t["bound_ms"] += bound(nb, fl)[0]
+            t["bytes"] += nb
+            t["flops"] += fl
+            t["max_abs_err"] = max(t["max_abs_err"], err)
+    for t in tot.values():
+        t["bound_by"] = bound(t["bytes"], t["flops"])[1]
+    return {"slice_nnz": real_nnz, **tot}
+
+
+def _count_checkpoint_saves() -> list:
+    """Steps this process writes through ``CheckpointManager.save``."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    saves, real = [], CheckpointManager.save
+
+    def save(self, step, state, extra=None):
+        saves.append(int(step))
+        return real(self, step, state, extra=extra)
+
+    CheckpointManager.save = save
+    return saves
+
+
+def _shard_snap_spec(cfg, tmp, name, world):
+    from repro_torch import tucker
+
+    return tucker.TuckerSpec(cfg["shape"], cfg["ranks"], n_iter=N_ITER,
+                             shard=tucker.ShardSpec(world),
+                             snapshot=tucker.SnapshotSpec(every_n_sweeps=SNAP_EVERY,
+                                                          directory=os.path.join(tmp, name)))
+
+
+def _shard_job_four(rank, world, dev, tmp, cfg) -> dict:
+    """14b-14d on ``world`` ranks sharing the card."""
+    import torch.distributed as dist
+
+    from repro_torch import tucker
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.kernels import kron_kernel
+    from repro_torch.runtime.fault_tolerance import FailureInjector
+
+    saves = _count_checkpoint_saves()
+    coo = _shard_tensor(dev, cfg)
+    out = {"checksum": coo_checksum(coo)}
+    # 14b: the main path of this phase; the counts start at 0 here
+    spec = tucker.TuckerSpec(cfg["shape"], cfg["ranks"], n_iter=N_ITER,
+                             shard=tucker.ShardSpec(world))
+    plan = tucker.plan(spec, device=dev)
+    dist.barrier()
+    reset_launches()
+    res = plan(coo)
+    _shard_sync(dev)
+    out["b"] = _shard_result(res, read_launches())
+    out["b"].update(_shard_warm(plan, coo, dev, SHARD_WARM_RUNS))
+    out["fingerprint"] = tucker.mesh_fingerprint(plan.mesh)
+    if dev.type == "cuda":  # kernel 1 on this rank's slice, the other ranks idle
+        dist.barrier()
+        if rank == 0:
+            out["b"].update(_shard_kernel1_on_slice(plan, coo, res, cfg["shape"]))
+        dist.barrier()
+    del plan
+    tucker.clear_plan_cache()
+
+    # 14c: tenant C's 4-way shape, sharded, and unsharded on rank 0
+    coo_c = _shard_tensor(dev, cfg, "tenant_c")
+    shape_c, _, ranks_c, method_c = cfg["tenant_c"]
+    spec_c = tucker.TuckerSpec(shape_c, ranks_c, method=method_c, n_iter=N_ITER,
+                               shard=tucker.ShardSpec(world))
+    plan_c = tucker.plan(spec_c, device=dev)
+    dist.barrier()
+    reset_launches()
+    res_c = plan_c(coo_c)
+    _shard_sync(dev)
+    out["c"] = _shard_result(res_c, read_launches())
+    if rank == 0:
+        base = tucker.plan(tucker.TuckerSpec(shape_c, ranks_c, method=method_c,
+                                             n_iter=N_ITER), device=dev)(coo_c)
+        out["c_unsharded"] = _shard_result(base, {})
+        if dev.type == "cuda":  # kernels 3 and 4 on this rank's slice
+            out["c_kernels"] = _shard_kernels34_on_slice(plan_c, coo_c, res_c, shape_c)
+    dist.barrier()
+    del coo_c, plan_c
+    tucker.clear_plan_cache()
+
+    # 14d: kill at a segment boundary; resume on this world; a second job
+    # is left for fewer ranks
+    killed = []
+    for name in ("same_world", "fewer_ranks"):
+        try:
+            tucker.plan(_shard_snap_spec(cfg, tmp, name, world), device=dev)(
+                coo, injector=FailureInjector([SNAP_KILL_AT]))
+            killed.append(False)
+        except RuntimeError as exc:
+            killed.append("injected failure" in str(exc))
+    dist.barrier()
+    out["killed"] = killed
+    if rank == 0:
+        mgr = CheckpointManager(os.path.join(tmp, "fewer_ranks"))
+        out["manifest_mesh"] = mgr.read_manifest()["extra"]["mesh"]
+        out["steps_on_disk"] = mgr.all_steps()
+    reset_launches()
+    resumed = tucker.resume(_shard_snap_spec(cfg, tmp, "same_world", world), coo, device=dev)
+    _shard_sync(dev)
+    out["d"] = _shard_result(resumed, read_launches())
+    out["saves"] = list(saves)
+    return out
+
+
+def _shard_job_fewer(rank, world, dev, tmp, cfg) -> dict:
+    """14d: the job killed on ``SHARD_WORLD`` ranks, resumed on these."""
+    import warnings
+
+    from repro_torch import tucker
+
+    saves = _count_checkpoint_saves()
+    coo = _shard_tensor(dev, cfg)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res = tucker.resume(_shard_snap_spec(cfg, tmp, "fewer_ranks", SHARD_WORLD), coo,
+                            device=dev)
+    _shard_sync(dev)
+    out = _shard_result(res, {})
+    out["warned"] = [str(w.message) for w in caught if issubclass(w.category, RuntimeWarning)]
+    out["saves"] = list(saves)
+    return out
+
+
+SHARD_JOBS = {"one": _shard_job_one, "four": _shard_job_four, "fewer": _shard_job_fewer}
+
+
+def run_ranks(job: str, world: int, backend: str, tmp: str, cfg: dict) -> list:
+    """Spawn ``world`` ranks of ``job`` and return each rank's saved result;
+    a rank that fails fails the phase, and none outlives it."""
+    import torch.multiprocessing as mp
+
+    store = os.path.join(tmp, f"store-{job}")
+    ctx = mp.start_processes(shard_child, args=(world, backend, store, tmp, job, cfg),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + SHARD_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=1.0):
+            check(time.monotonic() < deadline,
+                  f"phase 14 {job}: ranks still running after {SHARD_TIMEOUT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+    return [torch.load(os.path.join(tmp, f"{job}-r{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _as_run(r: dict, dev):
+    """A rank's saved result as ``within_phase3_tolerances`` reads one."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(fit_history=r["fit"], factors=[f.to(dev) for f in r["factors"]],
+                           core=r["core"])
+
+
+def _same_bits(a: dict, b: dict) -> bool:
+    return (np.array_equal(a["fit"], b["fit"]) and torch.equal(a["core"], b["core"])
+            and all(torch.equal(x, y) for x, y in zip(a["factors"], b["factors"])))
+
+
+def phase14_sharded(dev, card: str, ref4: dict, cfg: Optional[dict] = None) -> None:
+    """Sharded sparse HOOI (``TuckerSpec.shard``) in spawned ranks: 14a
+    phase 4's run over NCCL in a world of one (its bits); 14b the same on 4
+    ranks over gloo sharing the card (every rank the same bits, phase 3's
+    tolerances of phase 4); 14c tenant C's 4-way shape on 4 ranks against
+    its unsharded run; 14d a kill and resume on 4 ranks (14b's bits) and
+    on 2 (the clamp warning, phase 3's tolerances). ``cfg`` shrinks the
+    shapes for a rehearsal on the CPU (``{"device": "cpu", ...}``)."""
+    import shutil
+    import tempfile
+
+    cfg = {"device": "cuda", "shape": NELL2_SHAPE, "nnz": NELL2_NNZ, "ranks": NELL2_RANKS,
+           "tenant_c": TENANT_C, "backend_a": "nccl", **(cfg or {})}
+    on_card = cfg["device"] != "cpu"
+    shape, nnz, ranks = cfg["shape"], cfg["nnz"], cfg["ranks"]
+    log(f"phase 14: sharded sparse HOOI, {shape}, {nnz} nnz, ranks {ranks}, {N_ITER} sweeps: "
+        f"a world of one over {cfg['backend_a']}, {SHARD_WORLD} and {SHARD_RESUME_WORLD} "
+        f"ranks over gloo sharing the card; tenant C {cfg['tenant_c'][0]}")
+    if on_card:
+        release_memory()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase14_")
+    out = {"phase": "14 sharded sparse HOOI", "card": card}
+    # N all-reduces a sweep, of I_n x prod_{t != n} R_t f32 each
+    want_bytes = sum(dim * math.prod(r for t, r in enumerate(ranks) if t != m) * 4
+                     for m, dim in enumerate(shape))
+    launches3 = {"fused_kron_scatter": 3 * N_ITER, "ttm": N_ITER}
+    try:
+        # 14a
+        t0 = time.perf_counter()
+        a = run_ranks("one", 1, cfg["backend_a"], tmp, cfg)[0]
+        t_a = time.perf_counter() - t0
+        log(f"  14a: world of one over {cfg['backend_a']} ({a['fingerprint']}), {t_a:.1f} s: "
+            f"launches {a['launches']}, {a['collective_bytes']} B a sweep, warm "
+            f"{a['sweep_ms']:.2f} ms a sweep (all-reduce {a['allreduce_ms_per_sweep']:.3f})")
+        check(a["checksum"] == ref4["checksum"], "14a: the tensor is not phase 4's")
+        check(_same_bits(a, ref4), "14a: not phase 4's bits")
+        check(a["collective_bytes"] == want_bytes,
+              f"14a: {a['collective_bytes']} B a sweep, want {want_bytes}")
+        check(a["dispatches"] == 1 and a["imbalance"] == 0.0, "14a: dispatches or imbalance")
+        if on_card:
+            check(a["launches"] == launches3, f"14a: launches {a['launches']}")
+        out["14a"] = {key: a.get(key) for key in (
+            "launches", "collective_bytes", "sweep_ms", "sweep_ms_runs",
+            "allreduce_ms_per_sweep", "fingerprint", "peak_gb")}
+        out["14a"]["seconds"] = t_a
+
+        # 14b-14d
+        t0 = time.perf_counter()
+        four = run_ranks("four", SHARD_WORLD, "gloo", tmp, cfg)
+        t_four = time.perf_counter() - t0
+        r0 = four[0]
+        fp4 = r0["fingerprint"]
+        for r, o in enumerate(four):
+            check(o["checksum"] == ref4["checksum"], f"rank {r}: the tensor is not phase 4's")
+            for part in ("b", "c", "d"):
+                check(_same_bits(o[part], r0[part]), f"14{part}: rank {r}'s bits are not rank 0's")
+            if on_card:
+                check(o["b"]["launches"] == launches3, f"14b rank {r}: launches "
+                      f"{o['b']['launches']}")
+                want_c = {"kron_contrib": 8 * N_ITER, "scatter_rows": 4 * N_ITER, "ttm": N_ITER}
+                check(o["c"]["launches"] == want_c, f"14c rank {r}: launches "
+                      f"{o['c']['launches']}")
+            check(o["killed"] == [True, True], f"14d rank {r}: the kills {o['killed']}")
+            check(o["saves"] == ([0, 2, 4] * 2 + [5] if r == 0 else []),
+                  f"14d rank {r} wrote steps {o['saves']}")
+        b = r0["b"]
+        want_imb = shard_imbalance_of(nnz, SHARD_WORLD)
+        log(f"  14b: {SHARD_WORLD} ranks over gloo ({fp4}), {t_four:.1f} s for 14b-14d; "
+            f"imbalance {b['imbalance']!r} (want {want_imb!r}); every rank the same bits")
+        check(b["imbalance"] == want_imb and b["collective_bytes"] == want_bytes,
+              "14b: imbalance or collective bytes")
+        out["14b"] = {"vs_phase4": within_phase3_tolerances(
+            "14b against phase 4", _as_run(b, dev), ref4["fit"], ref4["factors"], ref4["core"])}
+        for r, o in enumerate(four):
+            log(f"  14b rank {r}: warm {o['b']['sweep_ms']:.2f} ms a sweep ("
+                + ", ".join(f"{m:.2f}" for m in o["b"]["sweep_ms_runs"])
+                + f"), all-reduce {o['b']['allreduce_ms_per_sweep']:.2f} ms a sweep over "
+                f"{o['b']['allreduces']} calls, peak {o.get('peak_gb', 0.0):.2f} GB")
+        out["14b"].update(
+            imbalance=b["imbalance"], collective_bytes=b["collective_bytes"],
+            sweep_ms_by_rank=[o["b"]["sweep_ms"] for o in four],
+            sweep_ms_runs_by_rank=[o["b"]["sweep_ms_runs"] for o in four],
+            allreduce_ms_per_sweep_by_rank=[o["b"]["allreduce_ms_per_sweep"] for o in four],
+            peak_gb_by_rank=[o.get("peak_gb") for o in four],
+            kernel1_ms_per_sweep_rank0=b.get("kernel1_ms_per_sweep"),
+            kernel1_rank0=b.get("kernel1"),
+            slice_nnz_rank0=b.get("slice_nnz"), launches_rank0=b["launches"])
+        if on_card:
+            k1 = b["kernel1"]
+            check(math.isfinite(k1["max_abs_err"]) and k1["plain_ms"] > 0,
+                  "14b: kernel 1 was not held to its plain version on rank 0's slice")
+            log(f"  14b kernel 1 on rank 0's slice ({b['slice_nnz']} nnz), 3 modes, CUDA "
+                f"events: {k1['ms']:.3f} ms a sweep, plain {k1['plain_ms']:.3f} ms, bound "
+                f"{k1['bound_ms']:.3f} ms, max_abs_err {k1['max_abs_err']:.3e}")
+        c = r0["c"]
+        out["14c"] = {"vs_unsharded": within_phase3_tolerances(
+            "14c against its unsharded run", _as_run(c, dev), r0["c_unsharded"]["fit"],
+            r0["c_unsharded"]["factors"], r0["c_unsharded"]["core"]),
+            "launches_rank0": c["launches"], "imbalance": c["imbalance"],
+            "kernels_rank0": r0.get("c_kernels")}
+        if on_card:
+            for name in ("kron_contrib", "scatter_rows"):
+                k = r0["c_kernels"][name]
+                check(math.isfinite(k["max_abs_err"]) and k["plain_ms"] > 0,
+                      f"14c: {name} was not held to its plain version on rank 0's slice")
+                log(f"  14c {name} on rank 0's slice ({r0['c_kernels']['slice_nnz']} nnz), 4 "
+                    f"modes: {k['ms']:.3f} ms a sweep, plain {k['plain_ms']:.3f} ms, bound "
+                    f"{k['bound_ms']:.4f} ms, max_abs_err {k['max_abs_err']:.3e}")
+        check(c["imbalance"] == shard_imbalance_of(cfg["tenant_c"][1], SHARD_WORLD),
+              "14c: imbalance")
+        d = r0["d"]
+        log(f"  14d: killed at sweep {SNAP_KILL_AT} on {SHARD_WORLD} ranks, resumed there from "
+            f"{d['resumed_from']}: 14b's bits {_same_bits(d, b)}; manifest mesh "
+            f"{r0['manifest_mesh']}, steps on disk {r0['steps_on_disk']}")
+        check(d["resumed_from"] == SNAP_KILL_AT and _same_bits(d, b),
+              "14d: the resumed run is not the uninterrupted 4-rank run")
+        check(r0["manifest_mesh"] == fp4, f"14d: manifest mesh {r0['manifest_mesh']}")
+
+        t0 = time.perf_counter()
+        fewer = run_ranks("fewer", SHARD_RESUME_WORLD, "gloo", tmp, cfg)
+        t_fewer = time.perf_counter() - t0
+        f0 = fewer[0]
+        for r, o in enumerate(fewer):
+            check(_same_bits(o, f0), f"14d: rank {r} of {SHARD_RESUME_WORLD} differs")
+            check(any(w.startswith(f"resuming a {SHARD_WORLD}-device job on "
+                                   f"{SHARD_RESUME_WORLD} attached device(s): clamping")
+                      for w in o["warned"]), f"14d: rank {r} did not warn: {o['warned']}")
+            check(o["saves"] == ([5] if r == 0 else []), f"14d rank {r} wrote {o['saves']}")
+        check(f0["world"] == SHARD_RESUME_WORLD and f0["resumed_from"] == SNAP_KILL_AT,
+              "14d: the clamp or the resume point")
+        log(f"  14d: resumed on {SHARD_RESUME_WORLD} ranks in {t_fewer:.1f} s, warned: "
+            f"{f0['warned'][0][:60]}...")
+        out["14d"] = {"killed_at": SNAP_KILL_AT, "resumed_same_world": "14b's bits",
+                      "manifest_mesh": r0["manifest_mesh"], "steps_on_disk": r0["steps_on_disk"],
+                      "fewer_ranks_vs_14b": within_phase3_tolerances(
+                          "14d on 2 ranks against 14b", _as_run(f0, dev), b["fit"],
+                          b["factors"], b["core"]),
+                      "seconds_fewer": t_fewer}
+        out["seconds"] = {"14a": t_a, "14b-d": t_four, "14d_fewer": t_fewer}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps(out), flush=True)
 
 

@@ -19,9 +19,17 @@ imports ``torch`` and ``numpy`` only.
 """
 from repro_torch import tucker
 from repro_torch.core.coo import SparseCOO
-from repro_torch.tucker import TuckerPlan, TuckerResult, TuckerSpec, decompose, spec_for
+from repro_torch.tucker import (
+    ShardSpec,
+    TuckerPlan,
+    TuckerResult,
+    TuckerSpec,
+    decompose,
+    spec_for,
+)
 
 __all__ = [
+    "ShardSpec",
     "SparseCOO",
     "TuckerPlan",
     "TuckerResult",

@@ -12,19 +12,30 @@ device of their tensors:
   ``auto``   ``cuda`` on a CUDA device, ``torch`` on the CPU.
 
 Nothing on the card selects the plain versions.
+
+A sharded plan wraps its engine in a :class:`ShardedSweepEngine`: the
+engine runs on the rank's slice of the nonzeros (``shard_schedule``) and
+each partial unfolding is summed over the ranks by one all-reduce.
 """
 from __future__ import annotations
 
 import dataclasses
 import weakref
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.coo import SparseCOO
 from repro_torch.kernels import ops
 from repro_torch.kernels.kron_kernel import DEFAULT_BI, DEFAULT_BN, PRECISIONS
-from repro_torch.sparse.layout import SLOTS_PER_PART, DeviceSchedule, build_mode_layout
+from repro_torch.sparse.layout import (
+    SLOTS_PER_PART,
+    DeviceSchedule,
+    ShardSchedule,
+    build_mode_layout,
+    build_shard_schedule,
+)
 
 ENGINES = ("auto", "cuda", "torch")
 JAX_ENGINES = ("xla", "pallas")
@@ -50,6 +61,42 @@ def resolve_engine(engine: str, device) -> str:
             "port never selects on a CUDA device: use engine='auto' or 'cuda'"
         )
     return engine
+
+
+class _Binding:
+    """Ties a cache of per-tensor entries (each with ``with_values``) to the
+    tensor they were built from. Other indices, or another shape, empty the
+    cache; so does the indices tensor's death (the entries are O(nnz)
+    memory). Other values on the same indices (another values tensor, or
+    one written in place: its version counter moves) are taken into every
+    entry with no rebuild. Indices written in place are not seen."""
+
+    def __init__(self, cache: dict) -> None:
+        self.cache = cache
+        # weakrefs: a live referent makes the identity check sound without
+        # pinning the tensor
+        self._indices: Optional["weakref.ref"] = None
+        self._shape: Optional[tuple] = None
+        self._values: Optional["weakref.ref"] = None
+        self._version = -1
+
+    def bind(self, coo: SparseCOO) -> None:
+        bound = self._indices() if self._indices is not None else None
+        if bound is not coo.indices or self._shape != coo.shape:
+            self.cache.clear()
+
+            def _release(_ref, cache=self.cache):
+                cache.clear()
+
+            self._indices = weakref.ref(coo.indices, _release)
+            self._shape = tuple(coo.shape)
+        values = self._values() if self._values is not None else None
+        version = coo.values._version
+        if values is not coo.values or self._version != version:
+            for key, entry in self.cache.items():
+                self.cache[key] = entry.with_values(coo.values)
+            self._values = weakref.ref(coo.values)
+            self._version = version
 
 
 @dataclasses.dataclass
@@ -81,38 +128,22 @@ class SweepEngine:
     # per-mode schedule builds, cumulative; the plan reports per-call deltas.
     schedule_builds: int = 0
     dev_schedules: Dict[int, DeviceSchedule] = dataclasses.field(default_factory=dict)
-    # weakref to the indices tensor the caches were built from: a live
-    # referent makes the identity check sound without pinning the tensor.
-    _bound_indices: Optional["weakref.ref"] = None
-    _bound_shape: Optional[tuple] = None
-    # the values the schedules' slot values were taken from, and their
-    # version counter then (in-place writes move it)
-    _bound_values: Optional["weakref.ref"] = None
-    _bound_values_version: int = -1
+    # this rank's slices of a whole tensor (sharded plans), by (mesh,
+    # target_nnz)
+    shard_schedules: Dict[tuple, ShardSchedule] = dataclasses.field(default_factory=dict)
+    # what each cache was built from: the mode schedules from the tensor
+    # they sweep (a rank's slice under shard), the slices from the whole
+    # tensor
+    _dev_binding: "_Binding" = dataclasses.field(init=False, repr=False)
+    _shard_binding: "_Binding" = dataclasses.field(init=False, repr=False)
 
-    def _bind(self, coo: SparseCOO) -> None:
-        bound = self._bound_indices() if self._bound_indices is not None else None
-        if bound is not coo.indices or self._bound_shape != coo.shape:
-            self.dev_schedules.clear()
-
-            # drop the schedules with the tensor: they are O(nnz) memory.
-            def _release(_ref, cache=self.dev_schedules):
-                cache.clear()
-
-            self._bound_indices = weakref.ref(coo.indices, _release)
-            self._bound_shape = tuple(coo.shape)
-        values = self._bound_values() if self._bound_values is not None else None
-        version = coo.values._version
-        # same coordinates, other values: no new sort
-        if values is not coo.values or self._bound_values_version != version:
-            for mode, sched in self.dev_schedules.items():
-                self.dev_schedules[mode] = sched.with_values(coo.values)
-            self._bound_values = weakref.ref(coo.values)
-            self._bound_values_version = version
+    def __post_init__(self) -> None:
+        self._dev_binding = _Binding(self.dev_schedules)
+        self._shard_binding = _Binding(self.shard_schedules)
 
     def device_schedule(self, coo: SparseCOO, mode: int) -> DeviceSchedule:
         """The mode's schedule on the engine's device, built once."""
-        self._bind(coo)
+        self._dev_binding.bind(coo)
         if mode not in self.dev_schedules:
             self.dev_schedules[mode] = DeviceSchedule.from_layout(
                 build_mode_layout(coo, mode, bn=self.bn, bi=self.bi), coo, self.device,
@@ -120,6 +151,21 @@ class SweepEngine:
             )
             self.schedule_builds += 1
         return self.dev_schedules[mode]
+
+    def shard_schedule(self, coo: SparseCOO, mesh: Any,
+                       target_nnz: Optional[int] = None) -> ShardSchedule:
+        """This rank's slice of ``coo`` on ``mesh``
+        (:func:`~repro_torch.sparse.layout.build_shard_schedule`), copied to
+        the rank's device once per (tensor, mesh, pad target) and counted as
+        a schedule build. New values on the same coordinates (another
+        values tensor, or one written in place) slice the values again and
+        keep the indices slice, so the mode schedules built on it stay."""
+        self._shard_binding.bind(coo)
+        key = (mesh, None if target_nnz is None else int(target_nnz))
+        if key not in self.shard_schedules:
+            self.shard_schedules[key] = build_shard_schedule(coo, mesh, target_nnz=target_nnz)
+            self.schedule_builds += 1
+        return self.shard_schedules[key]
 
     def apply_blocks(self, cfg) -> None:
         """Adopt an autotuned configuration
@@ -165,6 +211,56 @@ class SweepEngine:
                 shape=tuple(coo.shape), precision=self.precision,
             )
         return self.core_unfolding(y_n, factors[n - 1])
+
+
+@dataclasses.dataclass
+class ShardedSweepEngine:
+    """One rank's sweep engine under a sharded plan: the twin of the
+    reference's ``build_sharded_program`` bodies (a local
+    ``sparse_ttm_chain``, then ``psum`` over the nnz axes).
+
+    ``local`` is the rank's :class:`SweepEngine`, which runs on the rank's
+    slice of the nonzeros (a tensor of the whole shape). Each partial
+    unfolding it returns is summed over ``mesh``'s group by one
+    ``all_reduce`` in place; the core update is the split TTM on the summed
+    Y_(N), on every rank (a fused core update would contract a partial Y).
+    ``core.hooi``'s sweep loop runs on it unchanged. A failed or timed-out
+    collective raises out of the sweep: nothing falls back to an unsharded
+    run.
+    """
+
+    local: SweepEngine
+    mesh: Any  # repro_torch.core.distributed.ShardMesh
+
+    def replicate(self, tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Rank 0's ``tensors`` on every rank, by one broadcast of them
+        flattened (none in a world of one): the initial factors, so that
+        ranks whose generators or ``factors_init`` differ still sweep one
+        set of factors. Same-shape, same-dtype tensors come back."""
+        group = self.mesh.group
+        if group is None or not tensors:
+            return list(tensors)
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.broadcast(flat, src=dist.get_global_rank(group, 0), group=group)
+        return [part.view_as(t) for part, t in zip(flat.split([t.numel() for t in tensors]),
+                                                    tensors)]
+
+    def all_reduce(self, y: torch.Tensor) -> torch.Tensor:
+        """``y`` summed over the ranks, in place (no collective in a world
+        of one)."""
+        if self.mesh.group is not None:
+            dist.all_reduce(y, op=dist.ReduceOp.SUM, group=self.mesh.group)
+        return y
+
+    def mode_unfolding(self, coo: SparseCOO, factors: Sequence[torch.Tensor],
+                       mode: int) -> torch.Tensor:
+        """Y_(mode) of the whole tensor from this rank's slice ``coo``."""
+        return self.all_reduce(self.local.mode_unfolding(coo, factors, mode).contiguous())
+
+    def core_update(self, coo: SparseCOO, factors: Sequence[torch.Tensor],
+                    y_n: torch.Tensor) -> torch.Tensor:
+        """G_(N) = U_N^T Y_(N) on the summed ``y_n``: the split TTM."""
+        return self.local.core_unfolding(y_n, factors[coo.ndim - 1])
 
 
 def make_engine(engine: str = "auto", device="cuda", *,

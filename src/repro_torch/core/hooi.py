@@ -1,6 +1,8 @@
 """HOOI sweeps (paper Alg. 2): one sweep, and the multi-sweep loop.
 
-Port of the single-device sweep machinery of ``repro.core.hooi``, its
+Port of the sweep machinery of ``repro.core.hooi`` (``HooiResult``, the
+sweep, the multi-sweep loop, which a sharded plan runs on its
+``ShardedSweepEngine`` unchanged), its
 deprecated entry points (shims over ``repro_torch.tucker``) and the paper's
 call counts.
 :func:`run_sweeps` is the twin of the reference's compiled scan over
@@ -16,6 +18,7 @@ densifying X.
 """
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -30,6 +33,36 @@ from repro_torch.core.qrp import factor_update
 # relative error is >= 0 (or NaN on degenerate input, which counts as a ran
 # sweep), so -1 is unambiguous.
 _SKIPPED = -1.0
+
+
+@dataclasses.dataclass
+class HooiResult:
+    """A finished decomposition: the reference's result fields, and the base
+    of :class:`repro_torch.tucker.TuckerResult`.
+
+    Attributes:
+      core: (R_1, ..., R_N) core tensor.
+      factors: U_n (I_n, R_n) with orthonormal columns.
+      rel_error: ||X - Xhat||_F / ||X||_F after the last sweep, a host float
+        (the reference's is a device scalar); NaN when no sweep ran.
+      fit_history: per-sweep relative error (host numpy).
+      engine: the engine that ran (``"cuda"``, ``"torch"``).
+    """
+
+    core: torch.Tensor
+    factors: List[torch.Tensor]
+    rel_error: float
+    fit_history: np.ndarray
+    engine: str = "torch"
+
+    @classmethod
+    def from_history(cls, core, factors, hist, engine: str = "torch", **extra):
+        """Build a result from a (possibly empty) fit history: with no
+        sweep run the relative error is NaN, never an ``IndexError`` on
+        ``hist[-1]``. ``extra`` passes through to a subclass's fields."""
+        hist = np.asarray(hist).reshape(-1)
+        rel = float(hist[-1]) if hist.size else float("nan")
+        return cls(core, list(factors), rel, hist, engine=engine, **extra)
 
 
 def effective_ranks(shape: Sequence[int], ranks: Sequence[int]) -> List[int]:

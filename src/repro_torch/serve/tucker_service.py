@@ -74,7 +74,7 @@ from repro_torch.serve.batching import (
 )
 from repro_torch.serve.metrics import ServiceMetrics
 from repro_torch.tucker.result import RequestTiming, TuckerResult
-from repro_torch.tucker.spec import TuckerSpec
+from repro_torch.tucker.spec import ShardSpec, TuckerSpec
 
 __all__ = [
     "ServiceConfig",
@@ -137,6 +137,17 @@ def _uninstall_capacity(svc: "TuckerService") -> None:
             tucker.set_plan_cache_capacity(_CAPACITY_BASELINE)
 
 
+def _check_service_shard(shard: Any) -> None:
+    """A service shards over one device only (see ``ServiceConfig.shard``)."""
+    if not isinstance(shard, ShardSpec):
+        raise TypeError(f"shard must be a ShardSpec or None, got {type(shard).__name__}")
+    if shard.num_devices > 1:
+        raise unported(
+            f"a TuckerService sharded across {shard.num_devices} ranks",
+            "queue 1, item 15b: the sharded service across ranks, by broadcast from rank 0",
+        )
+
+
 @dataclasses.dataclass(frozen=True)
 class ServiceConfig:
     """Tuning knobs of one :class:`TuckerService`.
@@ -156,8 +167,13 @@ class ServiceConfig:
       latency_window: samples retained per latency distribution.
       device: where the service's plans run: ``"cuda"`` (default; raises
         without a card) or ``"cpu"`` (the kernels' plain versions).
-      shard: the reference's sharded service; not ported (only ``None`` is
-        accepted).
+      shard: a :class:`~repro_torch.tucker.spec.ShardSpec` of one device:
+        every submitted spec without its own ``shard`` is planned with it,
+        and each request runs as one sharded dispatch (in a world of one,
+        with no collective). ``num_devices > 1`` is not ported: two executor
+        threads issuing collectives in different orders on different ranks
+        would deadlock, so a service across ranks needs rank 0 to broadcast
+        each dispatch (ROADMAP.md queue 1, item 15b).
       max_retries: transient flush failures (RuntimeError) retried in place,
         on the same path, before the whole batch fails. 0 (default) fails
         fast; the terminal failure always reaches the tickets with no
@@ -186,7 +202,7 @@ class ServiceConfig:
     plan_cache_capacity: Optional[int] = None
     latency_window: int = 8192
     device: str = "cuda"
-    shard: Optional[Any] = None
+    shard: Optional[ShardSpec] = None
     max_retries: int = 0
     retry_backoff_ms: float = 50.0
     max_inflight_flushes: int = 2
@@ -196,7 +212,7 @@ class ServiceConfig:
 
     def __post_init__(self) -> None:
         if self.shard is not None:
-            raise unported("ServiceConfig.shard", "queue 1, item 15: sharding")
+            _check_service_shard(self.shard)
         if int(self.max_inflight_flushes) < 1:
             raise ValueError(
                 f"max_inflight_flushes must be >= 1, got "
@@ -376,6 +392,11 @@ class TuckerService:
                 f"input shape {tuple(coo.shape)} does not match the spec "
                 f"shape {spec.shape}"
             )
+        if spec.shard is not None:
+            _check_service_shard(spec.shard)
+        elif self.config.shard is not None:
+            # the service's shard: plans built here run sharded
+            spec = dataclasses.replace(spec, shard=self.config.shard)
         if coo.nnz == 0:
             raise ValueError(
                 "cannot serve a tensor with zero stored nonzeros: an "
@@ -409,8 +430,9 @@ class TuckerService:
                 with self._lock:
                     self._warned_specs.discard(spec)
                 raise
-            # plan-level check, as batch() decides
-            if not spec_plan.supports_batched_dispatch:
+            # plan-level check, as batch() decides; a sharded request is one
+            # dispatch by design, not a fallback
+            if spec.shard is None and not spec_plan.supports_batched_dispatch:
                 warnings.warn(
                     f"spec {spec.engine=} {spec.pipeline=} "
                     f"{spec.precision=} cannot share one batched "

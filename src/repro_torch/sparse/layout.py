@@ -1,7 +1,8 @@
 """The per-mode sweep schedule: nonzeros grouped by output row block, and
 the batch assembly of same-shape tensors.
 
-Port of ``repro.sparse.layout`` (no Kron reuse or shard padding yet). The schedule is built
+Port of ``repro.sparse.layout`` (no Kron reuse yet), with the shard
+padding of the sharded sweeps (:func:`build_shard_schedule`). The schedule is built
 with torch ops on whatever device the indices live on, so a tensor already
 on the card is scheduled there (three stable sorts of the nonzeros, which on
 the host take minutes at tens of millions of nonzeros). The arrays are
@@ -14,6 +15,7 @@ import dataclasses
 import math
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.coo import SparseCOO
@@ -278,6 +280,113 @@ def _in_slot_order(t: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
 def slot_values(values: torch.Tensor, order: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """``values`` in slot order, 0 on padding slots."""
     return _in_slot_order(values, order) * valid
+
+
+# -- shards of the nonzeros across the ranks of a shard mesh -----------------
+
+
+def shard_pad_nnz(nnz: int, n_shards: int) -> int:
+    """Padded nnz for even sharding: the least multiple of ``n_shards``
+    that is >= ``nnz`` and >= ``n_shards`` (every shard owns at least one
+    slot, even for an empty tensor). The one place the shard padding math
+    lives, as in the reference."""
+    if int(n_shards) < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    if int(nnz) < 0:
+        raise ValueError(f"nnz must be >= 0, got {nnz}")
+    n_shards = int(n_shards)
+    return max(((int(nnz) + n_shards - 1) // n_shards) * n_shards, n_shards)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardSchedule:
+    """One rank's share of a tensor's nonzeros, on the rank's device.
+
+    The nonzeros are padded with explicit zeros (index 0, value 0: they add
+    nothing to any contraction) to a :func:`shard_pad_nnz` multiple, and
+    rank r owns the r-th contiguous slice of that padded stream. Only the
+    slice is copied to the rank's device, once; the whole tensor stays
+    where the caller keeps it (in a world of one, a tensor already on the
+    rank's device is its own slice). ``indices`` and ``values`` are the slice,
+    :attr:`coo` the slice as a tensor of the whole tensor's shape. The
+    counters describe the real nonzeros (``nnz``), not the padding.
+    """
+
+    indices: torch.Tensor  # (nnz_padded / n_shards, N) int32, this rank's slice
+    values: torch.Tensor  # (nnz_padded / n_shards,)
+    shape: Tuple[int, ...]
+    mesh: object  # repro_torch.core.distributed.ShardMesh
+    n_shards: int
+    rank: int
+    nnz: int  # real stored nonzeros of the whole tensor (before padding)
+    nnz_padded: int
+
+    @property
+    def coo(self) -> SparseCOO:
+        """This rank's slice as a COO tensor of the whole tensor's shape."""
+        return SparseCOO(self.indices, self.values, self.shape)
+
+    @property
+    def shard_counts(self) -> np.ndarray:
+        """Real (non-padding) nonzeros owned by each shard. Padding is
+        appended, so shards are contiguous slices of the padded stream."""
+        per = self.nnz_padded // self.n_shards
+        starts = np.arange(self.n_shards) * per
+        return np.clip(self.nnz - starts, 0, per)
+
+    @property
+    def imbalance(self) -> float:
+        """Load imbalance across shards: ``1 - min/max`` of per-shard real
+        nnz (0.0 = perfectly even; 1.0 when some shard is all padding).
+        Reported per call as ``TuckerResult.shard_imbalance``."""
+        counts = self.shard_counts
+        mx = int(counts.max())
+        if mx == 0:
+            return 0.0
+        return 1.0 - int(counts.min()) / mx
+
+    def with_values(self, values: torch.Tensor) -> "ShardSchedule":
+        """The same slice for a tensor with the same coordinates and other
+        ``values`` (the whole tensor's): only the values are sliced again."""
+        per = self.nnz_padded // self.n_shards
+        return dataclasses.replace(self, values=_shard_slice(
+            values, self.rank * per, per, self.values.device))
+
+
+def _shard_slice(t: torch.Tensor, start: int, length: int, device) -> torch.Tensor:
+    """Rows ``start:start + length`` of ``t`` padded with zeros past its
+    end, on ``device``: ``t`` itself when that is all of it and it is
+    already there (a world of one holds the tensor once), else a new
+    tensor (never a view that would keep the whole of ``t`` alive there)."""
+    if start == 0 and length == t.shape[0] and t.device == torch.device(device):
+        return t
+    real = t[min(start, t.shape[0]):min(start + length, t.shape[0])].to(device)
+    pad = real.new_zeros((length - real.shape[0],) + tuple(t.shape[1:]))
+    return torch.cat([real, pad])
+
+
+def build_shard_schedule(coo: SparseCOO, mesh, target_nnz: Optional[int] = None) -> ShardSchedule:
+    """This rank's :class:`ShardSchedule` of ``coo`` on ``mesh`` (a
+    :class:`~repro_torch.core.distributed.ShardMesh`): the nonzeros padded
+    to a :func:`shard_pad_nnz` multiple of the mesh's world size, and the
+    rank's contiguous slice copied to its device.
+
+    ``target_nnz`` raises the pad floor (a serving bucket, as in the
+    reference); the schedule still records the real stored nnz, so
+    ``shard_counts`` and ``imbalance`` tell where the real nonzeros sit.
+    """
+    n_shards, rank = int(mesh.world_size), int(mesh.rank)
+    nnz = coo.nnz
+    floor = max(nnz, int(target_nnz)) if target_nnz is not None else nnz
+    padded = shard_pad_nnz(floor, n_shards)
+    per = padded // n_shards
+    dev = mesh.device
+    return ShardSchedule(
+        indices=_shard_slice(coo.indices, rank * per, per, dev),
+        values=_shard_slice(coo.values, rank * per, per, dev),
+        shape=tuple(coo.shape), mesh=mesh, n_shards=n_shards, rank=rank,
+        nnz=nnz, nnz_padded=padded,
+    )
 
 
 # -- batches of same-shape tensors ---------------------------------------------

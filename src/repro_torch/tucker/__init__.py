@@ -21,6 +21,11 @@
     # tuned launch parameters, kept in REPRO_TORCH_AUTOTUNE_TABLE
     res = tucker.plan(tucker.TuckerSpec(shape=coo.shape, ranks=(16, 16, 16),
                                         autotune=True))(coo)
+
+    # the nonzeros split over 4 ranks (torchrun --nproc-per-node=4; each rank
+    # calls torch.cuda.set_device(LOCAL_RANK) and init_process_group first)
+    res = tucker.plan(tucker.TuckerSpec(shape=coo.shape, ranks=(16, 16, 16),
+                                        shard=tucker.ShardSpec(num_devices=4)))(coo)
 """
 from repro_torch.tucker.planning import (
     PlanCache,
@@ -29,6 +34,8 @@ from repro_torch.tucker.planning import (
     add_plan_eviction_hook,
     clear_plan_cache,
     decompose,
+    mesh_fingerprint,
+    mesh_for_shard,
     plan,
     plan_cache_info,
     resume,
@@ -36,7 +43,14 @@ from repro_torch.tucker.planning import (
 )
 from repro_torch.tucker.result import RequestTiming, TuckerResult
 from repro_torch.tucker.snapshot import SnapshotState, load_snapshot
-from repro_torch.tucker.spec import ALGORITHMS, METHODS, SnapshotSpec, TuckerSpec, spec_for
+from repro_torch.tucker.spec import (
+    ALGORITHMS,
+    METHODS,
+    ShardSpec,
+    SnapshotSpec,
+    TuckerSpec,
+    spec_for,
+)
 
 __all__ = [
     "ALGORITHMS",
@@ -44,6 +58,7 @@ __all__ = [
     "PlanCache",
     "PlanStats",
     "RequestTiming",
+    "ShardSpec",
     "SnapshotSpec",
     "SnapshotState",
     "TuckerPlan",
@@ -53,6 +68,8 @@ __all__ = [
     "clear_plan_cache",
     "decompose",
     "load_snapshot",
+    "mesh_fingerprint",
+    "mesh_for_shard",
     "plan",
     "plan_cache_info",
     "resume",

@@ -12,6 +12,14 @@ are built once per tensor: hand the plan a tensor already on its device
 paths run torch products (the reference leaves them to XLA): no kernel of
 the port's and no schedule.
 
+A spec with ``shard=ShardSpec(num_devices=N)`` runs SPMD over a
+``torch.distributed`` group of N ranks (``core.distributed``): every rank
+calls ``plan(spec)(coo)`` with the same tensor, keeps its slice of the
+nonzeros on its device, and sums each partial unfolding with one
+all-reduce (``core.engine.ShardedSweepEngine``); the factor update runs
+replicated. The library never starts the group: the caller does (torchrun,
+a test), and without one ``num_devices=1`` is a world of one.
+
 A spec with ``snapshot=SnapshotSpec(...)`` runs its sweeps in segments
 (``core.hooi.run_segment``) with the carry written to an atomic checkpoint
 at the spec's cadence, each segment retried on a transient failure;
@@ -29,16 +37,19 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
+import warnings
 from collections import OrderedDict
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.base import resolve_device, unported
 from repro_torch.core import hooi as _hooi
 from repro_torch.core.coo import SparseCOO, fold_dense, unfold_dense
-from repro_torch.core.engine import SweepEngine, make_engine
+from repro_torch.core.distributed import ShardMesh, psum_bytes_per_sweep, world_size
+from repro_torch.core.engine import ShardedSweepEngine, SweepEngine, make_engine
 from repro_torch.core.qrp import factor_update
 from repro_torch.core.reconstruct import compression_ratio, reconstruct_dense
 from repro_torch.core.ttm import ttm_chain
@@ -58,6 +69,8 @@ __all__ = [
     "add_plan_eviction_hook",
     "clear_plan_cache",
     "decompose",
+    "mesh_fingerprint",
+    "mesh_for_shard",
     "plan",
     "plan_cache_info",
     "resume",
@@ -73,6 +86,77 @@ _MX_PLAN_EVICTIONS = _obs_registry.counter(
     "repro_plan_cache_evictions_total", "plan cache LRU evictions")
 _MX_SNAPSHOTS = _obs_registry.counter(
     "repro_snapshots_written_total", "sweep-carry snapshots spilled to disk")
+
+
+def mesh_for_shard(shard: Any, group: Any = None, *, device="cuda") -> ShardMesh:
+    """The ranks a :class:`~repro_torch.tucker.spec.ShardSpec` runs on:
+    ``group``, else the default group when one is initialised, whose world
+    size must be ``shard.num_devices``. With no group, ``num_devices=1`` is
+    a world of one, with no collective; any other count raises.
+
+    ``device`` is this rank's device, the plan's (``"cuda"`` is the card the
+    caller chose with ``torch.cuda.set_device(LOCAL_RANK)``). Every rank's
+    device is gathered once with ``all_gather_object``, so building the
+    mesh is a collective: every rank must build the plan, as every rank
+    runs the same program (the SPMD contract)."""
+    dev = resolve_device(device)
+    n = shard.num_devices
+    if group is None:
+        group = _default_group()
+    recipe = (f"start one rank per shard (torchrun --nproc-per-node={n}, or "
+              f"torch.distributed.init_process_group(..., world_size={n}) on every rank)")
+    if group is None:
+        if n != 1:
+            raise ValueError(
+                f"ShardSpec wants {n} ranks but no process group is initialised: {recipe}")
+        return ShardMesh(group=None, world_size=1, rank=0, axis=shard.axis,
+                         devices=(str(dev),))
+    size = dist.get_world_size(group)
+    if size != n:
+        raise ValueError(f"ShardSpec wants {n} ranks but the process group has {size}: {recipe}")
+    devices: List[Any] = [None] * size
+    dist.all_gather_object(devices, str(dev), group=group)
+    return ShardMesh(group=group, world_size=size, rank=dist.get_rank(group), axis=shard.axis,
+                     devices=tuple(devices))
+
+
+def _check_mesh(spec: TuckerSpec, mesh: ShardMesh, device: torch.device) -> None:
+    """``mesh`` is one that a plan of ``spec`` on ``device`` may run on."""
+    if spec.shard is None:
+        raise ValueError("mesh= only applies to specs with a ShardSpec")
+    if (mesh.world_size, mesh.axis) != (spec.shard.num_devices, spec.shard.axis):
+        raise ValueError(f"the plan's mesh has {mesh.world_size} ranks on axis {mesh.axis!r} "
+                         f"but the spec wants {spec.shard.num_devices} on "
+                         f"{spec.shard.axis!r}")
+    if mesh.device != device:
+        raise ValueError(f"this rank's mesh device is {mesh.device}, the plan's {device}")
+
+
+def _default_group() -> Any:
+    """The default process group, or None when none is initialised."""
+    return dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
+
+
+def mesh_fingerprint(mesh: ShardMesh) -> str:
+    """Stable identity of a mesh for the plan-cache key and the snapshot
+    manifest: backend, every rank's device in rank order, the axis and the
+    world size. Every rank computes the same string."""
+    return f"{mesh.backend}:{','.join(mesh.devices)}/{mesh.axis}={mesh.world_size}"
+
+
+def _xnorm2(coo: SparseCOO, device: torch.device) -> torch.Tensor:
+    """||X||^2 from the whole tensor's values on ``device`` (its indices
+    stay where they are; values already there are not copied): the bits of
+    the unsharded run, which moves the tensor and then takes the norm, and
+    the same bits on every rank."""
+    return torch.square(dataclasses.replace(coo, values=coo.values.to(device)).norm())
+
+
+def _collective_bytes(spec: TuckerSpec, sched: Any) -> int:
+    """All-reduce bytes of one sweep of a sharded plan, at the working
+    precision of its values."""
+    return psum_bytes_per_sweep(spec.shape, spec.ranks, dtype=torch.promote_types(
+        sched.values.dtype, torch.float32))
 
 
 def _attach_trace_summary(results: Any, root_span: Any) -> None:
@@ -106,6 +190,13 @@ class TuckerPlan:
     precision and core layout; it must run on the plan's device. Dense and
     completion plans have no engine.
 
+    A sharded spec runs on ``mesh`` (:func:`mesh_for_shard` by default),
+    whose world size must be the spec's ``num_devices`` and whose rank's
+    device is the plan's. The plan's engine runs on this rank's slice of
+    the nonzeros, wrapped in a :class:`ShardedSweepEngine`; a prebuilt one
+    must not fuse the core update (each rank holds only a partial Y_(N)).
+    Sharded plans do not autotune.
+
     Thread safety, in two locks (the reference's contract):
 
     * ``_exec_lock`` serializes per-tensor calls: the engine's schedule
@@ -122,11 +213,24 @@ class TuckerPlan:
     """
 
     def __init__(self, spec: TuckerSpec, device="cuda",
-                 engine: Optional[SweepEngine] = None) -> None:
+                 engine: Optional[SweepEngine] = None,
+                 mesh: Optional[ShardMesh] = None) -> None:
         self.spec = spec
         self.device = resolve_device(device)
         if self.device.type == "cuda" and spec.dtype == "float64":
             raise unported("float64 on the card", "queue 1, item 8: float64 on the card")
+        self.mesh: Optional[ShardMesh] = None
+        if mesh is not None:
+            _check_mesh(spec, mesh, self.device)
+        if spec.shard is not None:
+            self.mesh = mesh if mesh is not None else mesh_for_shard(spec.shard,
+                                                                     device=self.device)
+            _check_mesh(spec, self.mesh, self.device)
+            if engine is not None and engine.fuse_core:
+                raise ValueError(
+                    "a sharded plan runs the split core update on the summed Y_(N): the "
+                    "prebuilt engine has fuse_core=True, which would contract a rank's "
+                    "partial Y_(N)")
         if spec.algorithm != "sparse":
             if engine is not None:
                 raise ValueError(
@@ -144,9 +248,14 @@ class TuckerPlan:
         self.engine: Optional[SweepEngine] = engine
         # the batched sweeps' own engine (fp32, as they run only in fp32):
         # their schedules are the stacked tensor's, built once a flush, and
-        # must not evict the per-tensor ones
+        # must not evict the per-tensor ones. A sharded plan runs its batch
+        # member by member and has none.
         self._batch_engine: Optional[SweepEngine] = (
-            make_engine(engine.name, self.device) if engine is not None else None)
+            make_engine(engine.name, self.device)
+            if engine is not None and spec.shard is None else None)
+        # the engine the sweeps of a sharded plan run on
+        self._sharded: Optional[ShardedSweepEngine] = (
+            ShardedSweepEngine(engine, self.mesh) if self.mesh is not None else None)
         # the autotuned launch parameters, applied once per plan at its first
         # sparse call (spec.autotune)
         self._tuned_blocks = None
@@ -163,7 +272,7 @@ class TuckerPlan:
 
     def __call__(self, x: Any, generator: Optional[torch.Generator] = None,
                  factors_init: Any = None, device=None, resume_from: Any = None,
-                 injector: Any = None) -> TuckerResult:
+                 injector: Any = None, pad_nnz_to: Optional[int] = None) -> TuckerResult:
         """Decompose ``x`` (moved to the plan's device if it is elsewhere): a
         ``SparseCOO`` for the sparse and completion algorithms, a dense array
         (numpy or torch) for the dense one.
@@ -181,6 +290,18 @@ class TuckerPlan:
         unused. ``injector`` (tests) is a
         :class:`~repro_torch.runtime.fault_tolerance.FailureInjector`
         consulted at every segment boundary, inside the retried step.
+
+        ``pad_nnz_to`` (sparse algorithm only; below the tensor's nnz
+        raises) raises a sharded plan's pad floor, with the imbalance still
+        counted on the real nonzeros, as the reference folds it into the
+        shard padding. Unsharded plans pad nothing: they have no compiled
+        shape to keep stable.
+
+        On a sharded plan, ``x`` stays where the caller keeps it: only this
+        rank's slice of the nonzeros goes to the plan's device (and the
+        values once, for the norm). Every rank sweeps rank 0's initial
+        factors (one broadcast a call), whatever its own ``generator`` or
+        ``factors_init``.
         """
         if device is not None and resolve_device(device) != self.device:
             raise ValueError(f"this plan runs on {self.device}, not {device}")
@@ -192,6 +313,8 @@ class TuckerPlan:
             if spec.algorithm != "sparse" and (resume_from is not None or injector is not None):
                 raise ValueError("resume_from/injector require algorithm='sparse' with "
                                  "snapshot=SnapshotSpec(...)")
+            if spec.algorithm != "sparse" and pad_nnz_to is not None:
+                raise ValueError("pad_nnz_to requires algorithm='sparse'")
             if spec.algorithm == "dense":
                 res = self._run_dense(x, generator, factors_init)
             else:
@@ -199,22 +322,29 @@ class TuckerPlan:
                 if spec.algorithm == "complete":
                     res = self._run_complete(coo, generator, factors_init)
                 else:
-                    res = self._run_sparse(coo, generator, factors_init, resume_from, injector)
+                    res = self._run_sparse(coo, generator, factors_init, resume_from, injector,
+                                           pad_nnz_to)
             _attach_trace_summary(res, sp)
             return res
 
     def _run_sparse(self, coo: SparseCOO, generator, factors_init, resume_from,
-                    injector) -> TuckerResult:
+                    injector, pad_nnz_to: Optional[int] = None) -> TuckerResult:
         spec = self.spec
+        if pad_nnz_to is not None and int(pad_nnz_to) < coo.nnz:
+            raise ValueError(
+                f"pad_nnz_to={int(pad_nnz_to)} would drop nonzeros: the tensor has {coo.nnz}")
         self._maybe_autotune(coo)
         if spec.snapshot is not None:
             return self._run_sparse_snapshot(coo, generator, factors_init, resume_from,
-                                             injector)
+                                             injector, pad_nnz_to)
         if resume_from is not None or injector is not None:
             raise ValueError("resume_from/injector require a spec with "
                              "snapshot=SnapshotSpec(...)")
         factors = self._init_factors(generator, factors_init)
-        xnorm2 = torch.square(coo.norm())
+        xnorm2 = _xnorm2(coo, self.device)
+        if spec.shard is not None:
+            return self._run_sparse_sharded(coo, self._sharded.replicate(factors), xnorm2,
+                                            pad_nnz_to)
         if spec.pipeline == "scan":
             return self._run_sparse_scan(coo, factors, xnorm2)
         return self._run_sparse_python(coo, factors, xnorm2)
@@ -226,7 +356,8 @@ class TuckerPlan:
         schedule geometry and core layout. On both engines: ``torch`` runs
         the kernels' plain versions on the same schedules. Runs under the
         exec lock (callers hold it)."""
-        if not self.spec.autotune or self.engine is None or self._tuned_blocks is not None:
+        if (not self.spec.autotune or self.engine is None or self._tuned_blocks is not None
+                or self.spec.shard is not None):
             return
         from repro_torch.kernels import autotune as _autotune
 
@@ -272,12 +403,13 @@ class TuckerPlan:
         default); ``factors_init`` (one list of arrays per member, or None)
         warm-starts a member instead. ``pad_nnz_to`` is checked as the
         reference checks it (below the batch max raises: padding never drops
-        nonzeros) and otherwise unused: the stack has no compiled shape to
-        stabilize, so nothing is padded.
+        nonzeros) and otherwise unused by the batched program: the stack has
+        no compiled shape to stabilize, so nothing is padded.
 
         Plans whose batch cannot share one program (``pipeline="python"``,
-        ``precision="bf16_fp32acc"``, a prebuilt ``fuse_core`` engine) run
-        the members as k sequential calls: the same results, k dispatches.
+        ``precision="bf16_fp32acc"``, a prebuilt ``fuse_core`` engine, a
+        sharded spec) run the members as k sequential calls: the same
+        results, k dispatches; a sharded plan pads each to ``pad_nnz_to``.
         An empty ``coos`` gives ``[]``; a member with no stored nonzeros
         raises (its relative error is 0/0).
 
@@ -315,8 +447,10 @@ class TuckerPlan:
         batched = self.batch_is_vmappable(generators)
         with _obs_span("plan.batch", size=len(coos), vmapped=batched) as sp:
             if not batched:
-                # k sequential calls, each serialized on _exec_lock
-                return [self(c, generator=g, factors_init=f)
+                # k sequential calls, each serialized on _exec_lock; a
+                # sharded plan's members take the pad floor, as the reference's
+                pad = pad_nnz_to if self.spec.shard is not None else None
+                return [self(c, generator=g, factors_init=f, pad_nnz_to=pad)
                         for c, g, f in zip(coos, generators, inits)]
             with self._stats_lock:
                 self.stats.calls += len(coos)  # as the sequential calls count
@@ -325,6 +459,8 @@ class TuckerPlan:
             return results
 
     def _check_sparse_input(self, coo: Any) -> SparseCOO:
+        """``coo`` checked, at the spec's dtype, on the plan's device; a
+        sharded plan leaves it where it is (it moves only its slice)."""
         if not isinstance(coo, SparseCOO):
             raise TypeError(f"expected a repro_torch SparseCOO, got {type(coo).__name__}")
         if tuple(coo.shape) != self.spec.shape:
@@ -332,7 +468,8 @@ class TuckerPlan:
                 f"input shape {tuple(coo.shape)} does not match the planned "
                 f"spec shape {self.spec.shape}"
             )
-        coo = coo.to(self.device)
+        if self.spec.shard is None:
+            coo = coo.to(self.device)
         dt = self.spec.resolved_dtype()
         if dt is not None and coo.values.dtype != dt:
             coo = SparseCOO(coo.indices, coo.values.to(dt), coo.shape)
@@ -393,8 +530,36 @@ class TuckerPlan:
                             launches=sum(launches.values()),
                             schedule_builds=eng.schedule_builds - builds0)
 
+    def _run_sparse_sharded(self, coo: SparseCOO, factors, xnorm2,
+                            pad_nnz_to: Optional[int] = None) -> TuckerResult:
+        """The sweeps of a sharded plan: the multi-sweep loop of
+        ``run_sweeps`` on this rank's slice (the engine's cached
+        :class:`~repro_torch.sparse.layout.ShardSchedule`) through the
+        :class:`ShardedSweepEngine`, one all-reduce per mode per sweep.
+        One dispatch, as the reference's one shard_map program."""
+        spec, eng = self.spec, self.engine
+        builds0, launches0 = eng.schedule_builds, launch_count.tally()
+        sched = eng.shard_schedule(coo, self.mesh, pad_nnz_to)
+        coll = _collective_bytes(spec, sched)
+        with _obs_span("sweep.dispatch", program="sharded", engine=eng.name,
+                       nnz=sched.indices.shape[0], collective_bytes_per_sweep=coll) as dsp:
+            fs, core, hist = _hooi.run_sweeps(
+                sched.coo, factors, xnorm2, spec.tol, self._sharded,
+                ranks=spec.ranks, method=spec.method, n_iter=spec.n_iter,
+            )
+            n_done = int(np.sum(hist != _hooi._SKIPPED))
+            launches = launch_count.since(launches0)
+            dsp.set_attr("sweeps_run", n_done)
+            dsp.set_attr("launches", launches)
+        res = self._result(core, fs, hist[:n_done], dispatches=1,
+                           launches=sum(launches.values()),
+                           schedule_builds=eng.schedule_builds - builds0)
+        res.collective_bytes_per_sweep = coll
+        res.shard_imbalance = sched.imbalance
+        return res
+
     def _run_sparse_snapshot(self, coo: SparseCOO, generator, factors_init, resume_from,
-                             injector) -> TuckerResult:
+                             injector, pad_nnz_to: Optional[int] = None) -> TuckerResult:
         """The resumable segment loop: the job's ``n_iter`` sweeps run as
         segments of ``snapshot.segment_len`` sweeps (``core.hooi.run_segment``,
         the unsegmented loop's operations, so the same bits), each under
@@ -402,7 +567,13 @@ class TuckerPlan:
         fresh job writes a step-0 snapshot first, so a kill at any later
         boundary finds a resumable job; each boundary then spills its carry
         ("interval", or "wall-clock" once ``every_seconds`` have passed, else
-        a ``snapshot.skip`` event), and the last one always does ("final")."""
+        a ``snapshot.skip`` event), and the last one always does ("final").
+
+        On a sharded plan the segments run on this rank's slice through the
+        :class:`ShardedSweepEngine`; rank 0 alone writes each snapshot, with
+        the mesh's fingerprint in its manifest, and every rank waits at a
+        barrier after the write. The carry is replicated, so rank 0's is
+        every rank's."""
         from repro_torch.checkpoint.manager import CheckpointManager
         from repro_torch.runtime.fault_tolerance import FtConfig, run_with_retries
         from repro_torch.tucker import snapshot as _snap
@@ -417,7 +588,7 @@ class TuckerPlan:
                     state = _snap.load_snapshot(str(resume_from))
                     rsp.set_attr("sweeps_done", int(state.sweeps_done))
             _snap.check_compatible(spec, state)
-        xnorm2 = torch.square(coo.norm())
+        xnorm2 = _xnorm2(coo, self.device)
         core_dtype = torch.promote_types(coo.values.dtype, torch.float32)
         if state is not None:
             factors = self._init_factors(None, state.factors)
@@ -429,13 +600,24 @@ class TuckerPlan:
             resumed_from: Optional[int] = int(state.sweeps_done)
         else:
             factors = self._init_factors(generator, factors_init)
+            if self._sharded is not None:
+                factors = self._sharded.replicate(factors)
             carry = _hooi.fresh_carry(spec.ranks, core_dtype, self.device)
             prev_err, hist, resumed_from = float("inf"), [], None
 
-        mgr = CheckpointManager(snap.directory, keep=snap.keep)
+        mesh = self.mesh
+        # one writer: rank 0 (another rank's manager would sweep rank 0's
+        # half-written step directories)
+        writes = mesh is None or mesh.rank == 0
+        mgr = CheckpointManager(snap.directory, keep=snap.keep) if writes else None
         ft = FtConfig(max_retries=snap.max_retries, retry_backoff_s=snap.retry_backoff_s)
         retries = dispatches = snapshots_written = 0
         builds0, launches0 = eng.schedule_builds, launch_count.tally()
+        sched = None
+        run_coo, sweep_eng = coo, eng
+        if mesh is not None:
+            sched = eng.shard_schedule(coo, mesh, pad_nnz_to)
+            run_coo, sweep_eng = sched.coo, self._sharded
         last_spill = time.monotonic()
 
         def on_retry(attempt: int, exc: BaseException) -> None:
@@ -449,8 +631,11 @@ class TuckerPlan:
             with _obs_span("snapshot.spill", step=int(step), decision=decision):
                 _snap.save_snapshot(mgr, spec, factors=factors, core=carry[0],
                                     prev_err=prev_err, done=carry[2], sweeps_done=step,
-                                    fit_history=hist)
-            _MX_SNAPSHOTS.inc()
+                                    fit_history=hist,
+                                    mesh_fp=mesh_fingerprint(mesh) if mesh else None,
+                                    group=mesh.group if mesh else None)
+            if writes:
+                _MX_SNAPSHOTS.inc()
             snapshots_written += 1
             last_spill = time.monotonic()
 
@@ -465,12 +650,13 @@ class TuckerPlan:
                     # retries in place; with max_retries=0 it propagates
                     # after the last snapshot, the kill a resume restarts from
                     injector.maybe_fail(n_done)
-                return _hooi.run_segment(coo, factors, carry, xnorm2, spec.tol, eng,
+                return _hooi.run_segment(run_coo, factors, carry, xnorm2, spec.tol, sweep_eng,
                                          ranks=spec.ranks, method=spec.method,
                                          segment_len=snap.segment_len,
                                          total_sweeps=spec.n_iter)
 
-            with _obs_span("sweep.dispatch", program="segment", engine=eng.name,
+            with _obs_span("sweep.dispatch", program="segment",
+                           engine="sharded" if mesh is not None else eng.name,
                            segment_len=snap.segment_len, sweeps_done=n_done) as dsp:
                 seg_launches0, seg_builds0 = launch_count.tally(), eng.schedule_builds
                 factors, _, seg_hist, carry = run_with_retries(step, ft, on_retry=on_retry)
@@ -499,6 +685,9 @@ class TuckerPlan:
         res.snapshots_written = snapshots_written
         res.resumed_from_sweep = resumed_from
         res.retries = retries
+        if sched is not None:
+            res.collective_bytes_per_sweep = _collective_bytes(spec, sched)
+            res.shard_imbalance = sched.imbalance
         return res
 
     def _run_sparse_batched(self, coos: List[SparseCOO], generators,
@@ -735,8 +924,8 @@ class PlanCache:
 _PLAN_CACHE = PlanCache(DEFAULT_PLAN_CACHE_CAPACITY)
 
 
-def plan(spec: TuckerSpec, *, device="cuda",
-         engine: Optional[SweepEngine] = None) -> TuckerPlan:
+def plan(spec: TuckerSpec, *, device="cuda", engine: Optional[SweepEngine] = None,
+         mesh: Optional[ShardMesh] = None) -> TuckerPlan:
     """The :class:`TuckerPlan` for ``spec`` on ``device`` (``"cuda"`` by
     default), from the process-wide LRU cache keyed by (spec, device), so
     every caller asking for the same problem shares one engine and its
@@ -746,11 +935,23 @@ def plan(spec: TuckerSpec, *, device="cuda",
     Passing a prebuilt ``engine`` (``make_engine(..., fuse_core=True)``, say)
     bypasses the cache and wraps that engine directly; its device must be
     ``device``.
+
+    ``mesh`` (sharded specs only) pins the plan to a
+    :func:`mesh_for_shard` mesh; by default it is built over the default
+    group. The cache key then carries the group, so a re-plan over the
+    same group is a hit and another group never reuses this one's plan.
+    Only a miss builds the mesh, a collective (every rank plans, in the
+    same order); a hit runs none.
     """
     dev = resolve_device(device)
+    if mesh is not None:  # before the cache: a hit must not take a mesh the spec refuses
+        _check_mesh(spec, mesh, dev)
     if engine is not None:
-        return TuckerPlan(spec, device=dev, engine=engine)
-    return _PLAN_CACHE.get_or_create((spec, str(dev)), lambda: TuckerPlan(spec, device=dev))
+        return TuckerPlan(spec, device=dev, engine=engine, mesh=mesh)
+    key: PlanCacheKey = (spec, str(dev))
+    if spec.shard is not None:
+        key += (mesh.group if mesh is not None else _default_group(),)
+    return _PLAN_CACHE.get_or_create(key, lambda: TuckerPlan(spec, device=dev, mesh=mesh))
 
 
 def clear_plan_cache() -> None:
@@ -778,7 +979,7 @@ def add_plan_eviction_hook(hook: EvictionHook) -> Callable[[], None]:
 
 def resume(spec: TuckerSpec, x: Any, directory: Optional[str] = None, *,
            generator: Optional[torch.Generator] = None, injector: Any = None,
-           device="cuda") -> TuckerResult:
+           device="cuda", group: Any = None) -> TuckerResult:
     """Restart a snapshotted decomposition from its latest snapshot.
 
     Loads the newest snapshot in ``directory`` (default: the spec's
@@ -787,9 +988,13 @@ def resume(spec: TuckerSpec, x: Any, directory: Optional[str] = None, *,
     the cached plan for ``spec`` on ``device``, continuing the convergence
     state, so the final factors, core and fit history are the bits of a run
     that was never interrupted. ``generator`` is accepted as ``__call__``
-    takes it and unused: the factors come from the snapshot. (The
-    reference's clamp of a sharded spec to the devices present comes with
-    sharding, ROADMAP.md queue 1, item 15.)
+    takes it and unused: the factors come from the snapshot.
+
+    Elastic: a sharded spec whose ``num_devices`` exceeds the ranks of
+    ``group`` (else of the default group, else 1) is clamped to them with a
+    ``RuntimeWarning`` instead of failing. The snapshot's carry is
+    replicated, so only the nonzeros re-shard: a job snapshotted on 4 ranks
+    resumes on 2 (or 1), every rank reading the snapshot.
     """
     from repro_torch.tucker import snapshot as _snap
 
@@ -800,8 +1005,22 @@ def resume(spec: TuckerSpec, x: Any, directory: Optional[str] = None, *,
         state = _snap.load_snapshot(directory)
         rsp.set_attr("sweeps_done", int(state.sweeps_done))
     _snap.check_compatible(spec, state)
-    return plan(spec, device=device)(x, generator=generator, resume_from=state,
-                                     injector=injector)
+    mesh = None
+    if spec.shard is not None:
+        n = world_size(group)
+        if spec.shard.num_devices > n:
+            warnings.warn(
+                f"resuming a {spec.shard.num_devices}-device job on {n} attached "
+                f"device(s): clamping ShardSpec.num_devices — the replicated snapshot "
+                f"carry restores unchanged and the nonzeros re-shard over the smaller mesh",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+            spec = dataclasses.replace(
+                spec, shard=dataclasses.replace(spec.shard, num_devices=n))
+        mesh = mesh_for_shard(spec.shard, group, device=device)
+    return plan(spec, device=device, mesh=mesh)(x, generator=generator, resume_from=state,
+                                                injector=injector)
 
 
 def decompose(x: Any, ranks: Sequence[int], *, generator=None,

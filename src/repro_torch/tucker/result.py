@@ -1,15 +1,17 @@
 """TuckerResult — the result type of the plan/execute API, and the
 serving plane's per-request timing.
 
-Port of ``repro.tucker.result`` (the fields of the single-device paths).
+Port of ``repro.tucker.result``: :class:`TuckerResult` subclasses
+:class:`~repro_torch.core.hooi.HooiResult`, as the reference's does.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, List, Optional
+from typing import TYPE_CHECKING, Optional
 
 import numpy as np
-import torch
+
+from repro_torch.core.hooi import HooiResult
 
 if TYPE_CHECKING:
     from repro_torch.tucker.spec import TuckerSpec
@@ -52,18 +54,17 @@ class RequestTiming:
 
 
 @dataclasses.dataclass
-class TuckerResult:
-    """A finished decomposition.
+class TuckerResult(HooiResult):
+    """A :class:`~repro_torch.core.hooi.HooiResult` plus plan and serving
+    metadata.
+
+    Inherited: ``core`` and ``factors`` (on the plan's device),
+    ``rel_error``, ``fit_history`` (host numpy, the sweeps that ran) and
+    ``engine``: 'cuda' (the CUDA kernels) or 'torch' (their plain versions,
+    on the CPU; and the dense and completion algorithms, torch products on
+    either device). Added:
 
     Attributes:
-      core: (R_1, ..., R_N) core tensor, on the plan's device.
-      factors: U_n (I_n, R_n) with orthonormal columns, on the plan's device.
-      rel_error: ||X - Xhat||_F / ||X||_F after the last sweep (NaN when no
-        sweep ran).
-      fit_history: per-sweep relative error (host numpy, the sweeps that ran).
-      engine: the engine that ran: 'cuda' (the CUDA kernels) or 'torch'
-        (their plain versions, on the CPU; and the dense and completion
-        algorithms, torch products on either device).
       spec: the :class:`~repro_torch.tucker.spec.TuckerSpec` this run executed.
       compression_ratio: dense storage / Tucker storage, factors included.
       dispatches: top-level dispatches this call made, as the reference
@@ -81,6 +82,13 @@ class TuckerResult:
         'bf16_fp32acc'; a prebuilt engine may differ from ``spec.precision``).
       timing: per-request queue/batch/execute wall-clock when the result was
         produced by ``repro_torch.serve.TuckerService`` (``None`` otherwise).
+      collective_bytes_per_sweep: all-reduce payload of one ALS sweep on a
+        sharded plan (``core.distributed.psum_bytes_per_sweep``: N
+        all-reduces of I_n x prod R_t f32, whatever the nnz). ``None`` on
+        unsharded runs.
+      shard_imbalance: load imbalance of the nonzeros' sharding this run
+        used (``1 - min/max`` of the shards' real nonzeros; 0.0 is even).
+        ``None`` on unsharded runs.
       snapshots_written: snapshots this call wrote (snapshot specs only; the
         step-0 snapshot of a fresh job included).
       resumed_from_sweep: the sweep count the job restarted from when this
@@ -96,30 +104,21 @@ class TuckerResult:
         batch's summary to every member's result.
     """
 
-    core: torch.Tensor
-    factors: List[torch.Tensor]
-    rel_error: float
-    fit_history: np.ndarray
-    engine: str
     spec: Optional["TuckerSpec"] = None
     compression_ratio: Optional[float] = None
     dispatches: int = 0
+    retraces: int = 0
     launches: int = 0
     schedule_builds: int = 0
-    precision: str = "fp32"
     timing: Optional[RequestTiming] = None
+    collective_bytes_per_sweep: Optional[int] = None
+    shard_imbalance: Optional[float] = None
     snapshots_written: int = 0
     resumed_from_sweep: Optional[int] = None
     retries: int = 0
+    precision: str = "fp32"
     tuned_blocks: Optional[tuple] = None
     trace_summary: Optional[dict] = None
-
-    @classmethod
-    def from_history(cls, core, factors, hist, engine: str, **extra) -> "TuckerResult":
-        """Build a result from a (possibly empty) fit history."""
-        hist = np.asarray(hist).reshape(-1)
-        rel = float(hist[-1]) if hist.size else float("nan")
-        return cls(core, list(factors), rel, hist, engine, **extra)
 
     @property
     def n_sweeps(self) -> int:

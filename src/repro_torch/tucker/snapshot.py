@@ -9,6 +9,11 @@ written atomically through
 records every leaf's shape and dtype, so the ``like`` tree that
 :meth:`CheckpointManager.restore` wants is rebuilt from the checkpoint
 itself. A snapshot written by either package loads in the other.
+
+A sharded job's carry is replicated, so one rank (0) writes it, with the
+mesh's fingerprint in the manifest, and every rank then waits at a barrier,
+so a rank killed after a boundary finds that boundary's snapshot on disk.
+Every rank reads on a resume.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager
 
@@ -93,13 +99,30 @@ def _to_host(tensors: List[Any]) -> List[Any]:
     return out
 
 
-def save_snapshot(mgr: CheckpointManager, spec: Any, *, factors: Any, core: Any,
+def save_snapshot(mgr: Optional[CheckpointManager], spec: Any, *, factors: Any, core: Any,
                   prev_err: Any, done: Any, sweeps_done: int, fit_history: Any,
-                  mesh_fp: Optional[str] = None) -> str:
+                  mesh_fp: Optional[str] = None, group: Any = None) -> Optional[str]:
     """Write one snapshot at checkpoint step ``sweeps_done``: the tensors
     through the manager's atomic npz path (each copied to the host once),
     the sweep count, fit history and spec fields in the manifest's
-    ``extra``. ``mesh_fp`` stays ``None`` until the port shards."""
+    ``extra``, and ``mesh_fp``, the fingerprint of a sharded job's mesh
+    (``tucker.mesh_fingerprint``; ``None`` unsharded).
+
+    On a sharded job only the writing rank passes a manager (the others
+    pass ``None`` and write nothing), and with ``group`` every rank waits
+    at a barrier after the write. Returns the step's directory, or ``None``
+    on a rank that did not write."""
+    out = None
+    if mgr is not None:
+        out = _write(mgr, spec, factors=factors, core=core, prev_err=prev_err, done=done,
+                     sweeps_done=sweeps_done, fit_history=fit_history, mesh_fp=mesh_fp)
+    if group is not None:
+        dist.barrier(group=group)
+    return out
+
+
+def _write(mgr: CheckpointManager, spec: Any, *, factors: Any, core: Any, prev_err: Any,
+           done: Any, sweeps_done: int, fit_history: Any, mesh_fp: Optional[str]) -> str:
     host = _to_host([core] + list(factors))
     state = {
         "core": host[0],

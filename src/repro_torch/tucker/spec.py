@@ -1,9 +1,9 @@
 """TuckerSpec — the frozen problem description behind the plan/execute API.
 
 Port of ``repro.tucker.spec``: the same fields, validation and rank clamp,
-and :class:`SnapshotSpec`. Values whose code is not ported yet (``shard``,
-``use_kron_reuse``) raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item; the JAX engine names raise ``ValueError``.
+:class:`ShardSpec` and :class:`SnapshotSpec`. ``use_kron_reuse``, not ported
+yet, raises ``NotImplementedError`` naming its ``ROADMAP.md`` item; the JAX
+engine names raise ``ValueError``.
 """
 from __future__ import annotations
 
@@ -21,6 +21,47 @@ METHODS = ("svd", "householder", "gram")
 ALGORITHMS = ("sparse", "dense", "complete")
 PIPELINES = ("scan", "python")
 DTYPES = ("auto", "float32", "float64")
+FACTOR_POLICIES = ("replicated",)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardSpec:
+    """The sharded-execution axis of a problem: the nonzeros split across
+    ``num_devices`` ranks of a ``torch.distributed`` group.
+
+    The paper's hybrid split as data parallelism: each rank runs the
+    nnz-scaling Kron accumulation on its contiguous slice of the nonzeros
+    (padded to an even :func:`repro_torch.sparse.layout.shard_pad_nnz`
+    multiple), one all-reduce per mode per sweep sums the partial
+    unfoldings, and the small factor update runs replicated on every rank.
+    Hashable, so it rides inside :class:`TuckerSpec` and keys the plan
+    cache.
+
+    Attributes:
+      num_devices: ranks the nonzeros shard over; it must equal the
+        group's world size (``torchrun --nproc-per-node=N``, or
+        ``init_process_group(..., world_size=N)``). 1 runs without a group.
+      axis: the name of the nonzero axis (it enters the mesh fingerprint).
+      factor_policy: how factors are laid out across the ranks. Only
+        'replicated' exists (they are small: I_n x R_n). Rank 0's initial
+        factors are broadcast once a call; the factor update then gives
+        every rank the same bits, so the sweeps broadcast nothing.
+    """
+
+    num_devices: int
+    axis: str = "nnz"
+    factor_policy: str = "replicated"
+
+    def __post_init__(self) -> None:
+        if int(self.num_devices) < 1:
+            raise ValueError(f"num_devices must be >= 1, got {self.num_devices}")
+        if not self.axis or not isinstance(self.axis, str):
+            raise ValueError(f"axis must be a non-empty string, got {self.axis!r}")
+        if self.factor_policy not in FACTOR_POLICIES:
+            raise ValueError(
+                f"factor_policy must be one of {FACTOR_POLICIES}, got {self.factor_policy!r}"
+            )
+        object.__setattr__(self, "num_devices", int(self.num_devices))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,11 +175,16 @@ class TuckerSpec:
       algorithm: 'sparse' (paper Alg. 2, COO input), 'dense' (Alg. 1,
         dense input) or 'complete' (EM completion, COO input).
       n_rounds: EM rounds for algorithm='complete' (ignored otherwise).
+      shard: a :class:`ShardSpec` to split the nonzeros across the ranks of
+        a process group (one all-reduce per mode per sweep), or None. Needs
+        the sparse algorithm on the scan pipeline in fp32, without Kron
+        reuse. Each rank runs the resolved engine on its slice: the CUDA
+        kernels on the card, their plain versions on the CPU.
       snapshot: a :class:`SnapshotSpec` to run the sweeps in segments with
         the carry checkpointed (resumable through ``tucker.resume``), or
         None. Needs the sparse algorithm on the scan pipeline.
-      use_kron_reuse, shard: reference features that are not ported yet;
-        only their defaults are accepted.
+      use_kron_reuse: the reference's Kron-row dedup, not ported yet; only
+        its default is accepted.
     """
 
     shape: Tuple[int, ...]
@@ -154,7 +200,7 @@ class TuckerSpec:
     use_kron_reuse: bool = False
     algorithm: str = "sparse"
     n_rounds: int = 10
-    shard: Optional[Any] = None
+    shard: Optional[ShardSpec] = None
     snapshot: Optional[SnapshotSpec] = None
 
     def __post_init__(self) -> None:
@@ -194,7 +240,30 @@ class TuckerSpec:
                 "kernels have tunable block shapes)"
             )
         if self.shard is not None:
-            raise unported("shard", "queue 1, item 15: sharding")
+            if not isinstance(self.shard, ShardSpec):
+                raise TypeError(
+                    f"shard must be a ShardSpec or None, got {type(self.shard).__name__}"
+                )
+            if self.algorithm != "sparse":
+                raise ValueError(
+                    f"shard requires algorithm='sparse' (only COO nonzeros have an "
+                    f"nnz axis to shard), got {self.algorithm!r}"
+                )
+            if self.pipeline != "scan":
+                raise ValueError(
+                    "shard requires pipeline='scan': the sharded path is the "
+                    "multi-sweep loop with one all-reduce per mode"
+                )
+            if self.use_kron_reuse:
+                raise ValueError(
+                    "shard is incompatible with use_kron_reuse: the dedup plan is a "
+                    "per-tensor host artifact that cannot shard along the nnz axis"
+                )
+            if self.precision != "fp32":
+                raise ValueError(
+                    "shard requires precision='fp32': the sharded path runs at full "
+                    "working precision (mixed precision is a kernel-engine axis)"
+                )
         if self.snapshot is not None:
             if not isinstance(self.snapshot, SnapshotSpec):
                 raise TypeError(

@@ -10,13 +10,14 @@ import torch
 from repro.sparse import generators as jgen
 from repro_torch.core import coo as tcoo
 from repro_torch.core import reconstruct as trec
-from repro_torch.core import ttm as tttm
 from repro_torch.sparse import generators as tgen
 
 # repro.core re-exports functions named like its submodules (ttm, ...).
 jcoo = importlib.import_module("repro.core.coo")
 jrec = importlib.import_module("repro.core.reconstruct")
 jttm = importlib.import_module("repro.core.ttm")
+# repro_torch.core re-exports the function ttm under the module's name
+tttm = importlib.import_module("repro_torch.core.ttm")
 
 
 @pytest.mark.parametrize("shape", [(4, 5, 6), (3, 7), (2, 3, 4, 5)])

@@ -17,9 +17,7 @@ from repro.sparse import layout as jlayout
 from repro_torch.core import engine as tengine
 from repro_torch.core import hooi as thooi
 from repro_torch.core import kron as tkron
-from repro_torch.core import qrp as tqrp
 from repro_torch.core import reconstruct as trec
-from repro_torch.core import ttm as tttm
 from repro_torch.core.coo import SparseCOO
 from repro_torch.kernels import kron_kernel as tkronk
 from repro_torch.kernels import ops as tops
@@ -27,6 +25,9 @@ from repro_torch.sparse import layout as tlayout
 
 # repro.core re-exports functions named like its submodules (ttm, ...).
 jhooi = importlib.import_module("repro.core.hooi")
+# repro_torch.core re-exports the functions qrp and ttm under their modules' names
+tqrp = importlib.import_module("repro_torch.core.qrp")
+tttm = importlib.import_module("repro_torch.core.ttm")
 jkronm = importlib.import_module("repro.core.kron")
 jqrp = importlib.import_module("repro.core.qrp")
 jrec = importlib.import_module("repro.core.reconstruct")
@@ -178,3 +179,87 @@ def test_available_engines_on_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the answer depends on the kernel build")
     assert tengine.available_engines() == ["torch"]
+
+
+# -- repro_torch.core's exports and the result types -------------------------------
+
+# names repro.core re-exports that belong to Kron reuse (ROADMAP.md queue 1,
+# item 7), not ported yet
+KRON_REUSE_NAMES = {"precompute_kron_reuse", "sparse_ttm_chain_reuse",
+                    "sparse_ttm_chain_reuse_device"}
+
+
+def test_core_reexports_the_reference_names():
+    """Every name ``src/repro/core/__init__.py`` imports resolves on
+    ``repro_torch.core`` to the port's object of that name, but those of
+    Kron reuse."""
+    import ast
+    from pathlib import Path
+
+    import repro_torch.core as tcore
+
+    tree = ast.parse((Path(__file__).resolve().parents[1] / "src" / "repro" / "core"
+                      / "__init__.py").read_text())
+    names = {(node.module, a.asname or a.name) for node in tree.body
+             if isinstance(node, ast.ImportFrom) for a in node.names}
+    assert len(names) > 25
+    for module, name in sorted(names):
+        if name in KRON_REUSE_NAMES:
+            assert not hasattr(tcore, name)
+            continue
+        port_module = importlib.import_module(module.replace("repro.", "repro_torch.", 1))
+        assert getattr(tcore, name) is getattr(port_module, name), name
+    assert tcore.hooi_sparse_distributed is importlib.import_module(
+        "repro_torch.core.distributed").hooi_sparse_distributed
+    from repro_torch.core import HooiResult, SparseCOO, hooi_sparse_distributed, make_engine
+
+    assert SparseCOO and make_engine and HooiResult and hooi_sparse_distributed
+
+
+def _retraces_cases(tmp_path):
+    from repro_torch import tucker
+
+    shape, ranks = (12, 10, 8), (3, 2, 2)
+    coo = tcoo_random(shape)
+    dense = coo.to_dense()
+    snap = tucker.SnapshotSpec(every_n_sweeps=1, directory=str(tmp_path))
+    return [
+        tucker.decompose(coo, ranks, n_iter=2, device="cpu"),
+        tucker.decompose(coo, ranks, n_iter=2, pipeline="python", device="cpu"),
+        tucker.decompose(dense, ranks, n_iter=2, device="cpu"),
+        tucker.decompose(coo, ranks, n_iter=2, algorithm="complete", n_rounds=2, device="cpu"),
+        tucker.plan(tucker.TuckerSpec(shape, ranks, n_iter=2, snapshot=snap),
+                    device="cpu")(coo),
+        tucker.plan(tucker.TuckerSpec(shape, ranks, n_iter=2,
+                                      shard=tucker.ShardSpec(1)), device="cpu")(coo),
+    ] + tucker.plan(tucker.TuckerSpec(shape, ranks, n_iter=2), device="cpu").batch([coo, coo])
+
+
+def tcoo_random(shape):
+    from repro_torch.sparse.generators import random_sparse_tensor
+
+    return random_sparse_tensor(shape, 0.1, seed=5)
+
+
+def test_tucker_result_is_a_hooi_result_with_zero_retraces(tmp_path):
+    """TuckerResult subclasses HooiResult, as the reference's does, with the
+    reference's field order; eager PyTorch never traces, so every path
+    reports 0 retraces."""
+    import dataclasses
+
+    from repro.core.hooi import HooiResult as JHooiResult
+    from repro.tucker.result import TuckerResult as JTuckerResult
+    from repro_torch.core import HooiResult
+    from repro_torch.tucker import TuckerResult
+
+    assert issubclass(TuckerResult, HooiResult)
+    assert [f.name for f in dataclasses.fields(HooiResult)] == [
+        f.name for f in dataclasses.fields(JHooiResult)]
+    # the reference's fields, in its order; the port adds launches
+    port = [f.name for f in dataclasses.fields(TuckerResult) if f.name != "launches"]
+    assert port == [f.name for f in dataclasses.fields(JTuckerResult)]
+    for res in _retraces_cases(tmp_path):
+        assert isinstance(res, HooiResult) and res.retraces == 0
+        assert res.rel_error == float(res.fit_history[-1])
+    empty = HooiResult.from_history(torch.zeros(2, 2), [], np.zeros(0))
+    assert np.isnan(empty.rel_error) and empty.engine == "torch"

@@ -26,6 +26,7 @@ def test_import_leaves_jax_and_repro_unloaded():
         "import repro_torch.serve.tucker_service, repro_torch.kernels.launch_count\n"
         "import repro_torch.runtime.fault_tolerance, repro_torch.checkpoint.manager\n"
         "import repro_torch.tucker.snapshot, repro_torch.kernels.autotune\n"
+        "import repro_torch.core, repro_torch.core.distributed\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.') or m == 'ml_dtypes']\n"
         "print(bad)\n"

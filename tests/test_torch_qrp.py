@@ -6,9 +6,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import qrp as tqrp
 
 jqrp = importlib.import_module("repro.core.qrp")
+# repro_torch.core re-exports the function qrp under the module's name
+tqrp = importlib.import_module("repro_torch.core.qrp")
 
 
 def _draw(m, n, seed):

@@ -12,8 +12,17 @@ max|core| with signs aligned (``test_torch_tucker._assert_parity``'s
 tolerances). Snapshots cross packages: a reference job killed mid-fit is
 finished by the port, and a port snapshot loads in the reference.
 
-Left to ROADMAP.md: the sharded and elastic cases (item 15) and Kron reuse
-with snapshots (item 7).
+Sharded jobs (``TuckerSpec.shard``, gloo ranks on the CPU, run by
+``test_torch_shard.main("resume", ...)``): killed at a boundary and resumed
+on the same 4 ranks, the uninterrupted 4-rank run's bits on every rank;
+resumed on 2 ranks, and in this process on 1, with the spec's stale
+``num_devices=4`` clamped under the reference's warning, within the
+reference's own sharded bounds of it. Only rank 0 writes, and the manifest
+holds the 4-rank mesh's fingerprint. The reference's
+``test_sharded_kill_resume_same_device_count`` fails on this tree
+(ROADMAP.md queue 3), so the port is held to its own runs here.
+
+Left to ROADMAP.md: Kron reuse with snapshots (item 7).
 """
 import dataclasses
 
@@ -34,6 +43,15 @@ from repro_torch.kernels import launch_count
 from repro_torch.runtime.fault_tolerance import FailureInjector
 from repro_torch.serve import ServiceConfig, TuckerService
 from test_torch_batch import count_plain_launches
+from test_torch_shard import (
+    RESUME_KILL_AT,
+    _finish,
+    _resume_spec,
+    _torch_problem,
+    assert_within_own_bounds,
+    start_port,
+    summary,
+)
 
 SHAPE, RANKS, N_ITER, EVERY = (14, 12, 10), (3, 2, 2), 12, 5
 KILL_AT = 5  # a segment boundary: the step-5 snapshot exists when it fires
@@ -152,8 +170,11 @@ def test_tucker_spec_snapshot_constraints(tmp_path):
     assert not tucker.TuckerSpec(SHAPE, RANKS, snapshot=snap).supports_batched_dispatch
     with pytest.raises(TypeError, match="SnapshotSpec"):
         tucker.TuckerSpec(SHAPE, RANKS, snapshot={"every_n_sweeps": 2})
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(TypeError, match="ShardSpec"):
         tucker.TuckerSpec(SHAPE, RANKS, snapshot=snap, shard=object())
+    # a sharded snapshot job is one long fit too
+    sharded = tucker.TuckerSpec(SHAPE, RANKS, snapshot=snap, shard=tucker.ShardSpec(1))
+    assert not sharded.supports_batched_dispatch
 
 
 def test_batch_rejects_snapshot_spec(tmp_path):
@@ -394,3 +415,62 @@ def test_port_snapshot_loads_in_the_reference(tmp_path):
     jres = jtucker.resume(jspec, _jcoo())
     assert jres.resumed_from_sweep == 4
     _assert_parity(_baseline(n_iter=6), jres)
+
+
+# -- sharded jobs -------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def sharded_jobs(tmp_path_factory):
+    """The 4-rank kill/resume and the 2-rank resume, in one subprocess; the
+    job left for this process's own resume sits in ``tmp``."""
+    tmp = str(tmp_path_factory.mktemp("sharded-jobs"))
+    return tmp, _finish(start_port("resume", tmp))
+
+
+def test_sharded_kill_and_resume_on_the_same_world_is_bit_for_bit(sharded_jobs):
+    _, out = sharded_jobs
+    ranks = out["kill"]
+    want = ranks[0]["uninterrupted"]["digest"]
+    for r in ranks:
+        assert r["killed"] == [True, True, True]
+        assert r["uninterrupted"]["digest"] == want
+        res = r["resumed"]
+        assert res["digest"] == want
+        assert res["resumed_from"] == RESUME_KILL_AT and res["n_sweeps"] == 12
+        assert res["dispatches"] == 2  # sweeps 5-10 and 10-12
+        # the killed run's plan kept its slice and schedules: no build on resume
+        assert res["schedule_builds"] == 0
+        assert res["collective_bytes_per_sweep"] == ranks[0]["uninterrupted"][
+            "collective_bytes_per_sweep"]
+    fp = ranks[0]["fingerprint"]
+    assert fp == "gloo:cpu,cpu,cpu,cpu/nnz=4"
+    assert ranks[0]["manifest_mesh"] == fp
+    # rank 0 alone writes: steps 0 and 5 of three killed jobs, then 10 and 12
+    assert ranks[0]["saves"] == [0, 5] * 3 + [10, 12]
+    assert all(r["saves"] == [] for r in ranks[1:])
+
+
+def test_sharded_resume_on_fewer_ranks_clamps_with_the_warning(sharded_jobs):
+    _, out = sharded_jobs
+    want = out["kill"][0]["uninterrupted"]
+    ranks = out["fewer"]
+    assert len({r["resumed"]["digest"] for r in ranks}) == 1
+    for r in ranks:
+        assert r["world"] == 2
+        assert any(w.startswith("resuming a 4-device job on 2 attached device(s): clamping")
+                   for w in r["warned"])
+        assert r["resumed"]["resumed_from"] == RESUME_KILL_AT
+        assert_within_own_bounds(r["resumed"], want)
+    assert ranks[0]["saves"] == [10, 12] and ranks[1]["saves"] == []
+
+
+def test_sharded_resume_in_one_process_clamps_to_a_world_of_one(sharded_jobs):
+    tmp, out = sharded_jobs
+    coo, _ = _torch_problem()
+    with pytest.warns(RuntimeWarning, match="resuming a 4-device job"):
+        res = tucker.resume(_resume_spec(f"{tmp}/job3", 4), coo, **CPU)
+    assert res.spec.shard.num_devices == 1 and res.resumed_from_sweep == RESUME_KILL_AT
+    assert_within_own_bounds(summary(res), out["kill"][0]["uninterrupted"])
+    manifest = jsnapshot.load_snapshot(f"{tmp}/job3").meta
+    assert manifest["mesh"] == "none:cpu/nnz=1"  # the resumed job's last writer

@@ -213,13 +213,52 @@ def test_service_results_equal_sequential_decompose_and_amortize():
         assert t.total_ms >= t.queue_ms >= 0 and t.padding_fraction == 0.0
 
 
+def test_service_over_one_device_plans_sharded():
+    """The reference's test_service_over_mesh_plans_sharded at a world of
+    one: every spec without its own shard plans with the service's, each
+    request is one sharded dispatch, the no-amortization warning stays
+    silent (sequential flushes are the sharded design), and each result is
+    the same request planned sharded alone, and so unsharded, bit for bit."""
+    import warnings
+
+    shard = tucker.ShardSpec(num_devices=1)
+    coos = _coos(2, seed0=500)
+    cfg = ServiceConfig(max_batch=2, max_wait_ms=10_000.0, shard=shard, **CPU)
+    with TuckerService(cfg) as svc:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            tickets = [svc.submit_coo(c, SPEC, generator=_gen(i)) for i, c in enumerate(coos)]
+        results = [t.result(timeout=120) for t in tickets]
+        snap = svc.metrics.snapshot()
+    assert not [w for w in caught if issubclass(w.category, RuntimeWarning)]
+    assert snap["dispatches"] == 2 and snap["padding_overhead"] == 1.0
+    sharded_spec = tucker.TuckerSpec(shape=SPEC.shape, ranks=SPEC.ranks, method=SPEC.method,
+                                     n_iter=SPEC.n_iter, shard=shard)
+    for i, (c, r) in enumerate(zip(coos, results)):
+        assert r.spec.shard == shard
+        assert r.dispatches == 1  # one sharded dispatch per request
+        assert r.collective_bytes_per_sweep is not None
+        assert r.shard_imbalance == 0.0
+        assert r.timing.nnz_padded == c.nnz
+        ref = tucker.plan(sharded_spec, **CPU)(c, generator=_gen(i))
+        np.testing.assert_array_equal(r.fit_history, ref.fit_history)
+        one = tucker.plan(SPEC, **CPU)(c, generator=_gen(i))
+        np.testing.assert_array_equal(r.fit_history, one.fit_history)
+        assert torch.equal(r.core, one.core)
+    # a spec that brings its own shard across ranks is refused at submit
+    with TuckerService(ServiceConfig(**CPU)) as svc:
+        with pytest.raises(NotImplementedError, match="item 15b"):
+            svc.submit_coo(coos[0], tucker.TuckerSpec(SHAPE, (3, 2, 2),
+                                                      shard=tucker.ShardSpec(2)))
+
+
 def test_service_runs_on_the_card_unless_asked():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default does not raise")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TuckerService()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServiceConfig(shard=object(), **CPU)
+        ServiceConfig(shard=tucker.ShardSpec(4), **CPU)
 
 
 def test_service_submit_validation():

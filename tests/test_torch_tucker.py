@@ -143,20 +143,19 @@ def test_engine_names():
         resolve_engine("cuda", "cpu")
 
 
-# shard and use_kron_reuse are not ported: they raise naming their ROADMAP
-# items. snapshot and autotune are ported: a value the reference refuses
-# raises as the reference's spec does.
+# use_kron_reuse is not ported: it raises naming its ROADMAP item. shard,
+# snapshot and autotune are ported: a value the reference refuses raises as
+# the reference's spec does.
 @pytest.mark.parametrize("kwargs", [
     {"shard": object()}, {"snapshot": object()}, {"autotune": True, "algorithm": "dense"},
     {"use_kron_reuse": True},
 ])
 def test_unported_spec_values_raise(kwargs):
-    if "shard" in kwargs or "use_kron_reuse" in kwargs:
-        item = "item 15" if "shard" in kwargs else "item 7"
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1, {item}"):
+    if "use_kron_reuse" in kwargs:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7"):
             tucker.TuckerSpec((4, 4, 4), (2, 2, 2), **kwargs)
         return
-    exc = TypeError if "snapshot" in kwargs else ValueError
+    exc = TypeError if "snapshot" in kwargs or "shard" in kwargs else ValueError
     with pytest.raises(exc) as port_err:
         tucker.TuckerSpec((4, 4, 4), (2, 2, 2), **kwargs)
     with pytest.raises(exc) as ref_err:
@@ -168,11 +167,12 @@ def test_unported_plan_features_raise():
     # plan.batch is ported: an empty batch is the reference's no-op
     p = tucker.plan(tucker.TuckerSpec((4, 4, 4), (2, 2, 2)), device="cpu")
     assert p.batch([]) == []
-    # the sharded service (the plan's sharded program, item 15) is not
+    # the sharded service across ranks (item 15b) is not; a world of one is
     from repro_torch.serve import ServiceConfig
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServiceConfig(shard=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 15b"):
+        ServiceConfig(shard=tucker.ShardSpec(2), device="cpu")
+    assert ServiceConfig(shard=tucker.ShardSpec(1), device="cpu").shard.num_devices == 1
 
 
 def test_spec_validation_and_rank_clamp_match_reference():
