@@ -119,13 +119,34 @@ result line):
     (the uninterrupted 4-rank bits, the 4-rank fingerprint in the manifest,
     rank 0 alone writing) and on 2 (the clamp warning, phase 3's
     tolerances);
-15. one JSON line per phase, the kernels line, then the device line.
+15. float64 through the f64 instantiations of kernels 1-4: each against
+    its f64 plain version at odd shapes, and kernels 1 and 2 on phase 4's
+    tensor (drawn anew, its checksum held to phase 4's) in f64 from phase
+    4's initial factors (3 and 1 launches a sweep, ms a sweep, peak, within
+    phase 3's tolerances of phase 4's f32 run); exact rank-1 tensors (the
+    f64 fit error <= 1e-6), phase 3's mid tensor and tenant C's 4-way shape
+    card against CPU in f64 (the f64 fit 1e-10, projectors 1e-8), Table
+    II's rank-16 tensor at 800^3 in f64 (dense error <= 1e-10), and one
+    service flush of 16 f64 requests against each served alone;
+16. the paper's Kron reuse on the torch engine (torch ops, no launch) for
+    the Table V tensors and tenant C's shape, against the plain torch chain
+    (fit and core within 1e-6), with the share of distinct Kron rows, ms a
+    sweep and peak both ways, and ``engine="cuda"`` ignoring the flag (the
+    bits of the run without);
+17. the service across 4 gloo ranks sharing the card (rank 0 serving
+    phase 12's tenants A and C from 4 threads, the others
+    ``serve_follower``): every result within phase 14b's tolerances of a
+    world-of-one service, every follower back from ``close()``,
+    requests/s, p50 / p99 and the announces' bytes and ms;
+18. one JSON line per phase, the kernels line (the f64 instantiations in
+    rows of their own), then the device line.
 
 Needs one CUDA card, ``nvcc`` (on PATH or under /usr/local/cuda), and the
 checkout's ``src/`` beside this file. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -160,6 +181,11 @@ ROOT = Path(__file__).resolve().parent
 # on the CUDA cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# f64: the card's peak (the DMMA tensor cores), which every f64 bound
+# counts; and the CUDA cores', where the f64 instantiations of kernels 1-4
+# run, for each f64 row's "f64_core_bound_ms" beside its bound
+PEAK_F64_FLOPS = 67e12
+PEAK_F64_CORE_FLOPS = 34e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
 
@@ -188,6 +214,10 @@ SEED = 0
 #   reference's own kernel tests set for bf16 operands, kept as the stated
 #   limit.
 TOL = {"fp32": 1e-5, "bf16_fp32acc": 2e-2}
+# "fp64" (the f64 instantiations of kernels 1-4): the same rounded terms as
+#   the plain version, summed in another order, as fp32; so max(1e-13,
+#   4 sqrt(n) 2^-53) x max|plain| for n terms summed into one output.
+TOL_F64 = 1e-13
 # "bf16" (kernel 6 on bf16 operands): the kernel and its plain version each
 # round their f32 output to bf16, so they can land one bf16 ulp (2^-8
 # relative) apart; 2^-7 x max|plain| leaves room for the f32 differences
@@ -282,7 +312,11 @@ def main() -> int:
     timed("12 Tucker service", phase12_service, dev, card)
     timed("13 autotuning and snapshots", phase13_autotune_snapshots, dev, card, ref4)
     timed("14 sharded", phase14_sharded, dev, card, ref4)
-    print(json.dumps({"kernels": [kernels[k] for k in wrappers()]}), flush=True)
+    kernels.update(timed("15 float64", phase15_float64, dev, card, ref4))
+    timed("16 Kron reuse", phase16_kron_reuse, dev, card)
+    timed("17 sharded service", phase17_sharded_service, dev, card)
+    print(json.dumps({"kernels": [kernels[k] for k in list(wrappers()) + F64_ROWS]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -305,11 +339,17 @@ def against_plain(got, want, precision: str, n_terms: int):
     there); ``n_terms`` is the most terms summed into one output."""
     scale = float(want.abs().max()) if want.numel() else 0.0
     err = float((got - want).abs().max()) if want.numel() else 0.0
-    tol = BF16_OUT_TOL if precision == "bf16" else TOL[precision]
+    if precision == "fp64":  # the f64 instantiations: f64 in, f64 out
+        tol = max(TOL_F64, 4 * n_terms ** 0.5 * 2.0 ** -53)
+        same_dtype = got.dtype == want.dtype == torch.float64
+    else:
+        tol = BF16_OUT_TOL if precision == "bf16" else TOL[precision]
+        same_dtype = True
     if precision == "fp32":
         tol = max(tol, 4 * n_terms ** 0.5 * 2.0 ** -24)
     limit = tol * max(scale, 1e-30)
-    return err, limit, tol, scale, bool(torch.isfinite(got).all()) and err <= limit
+    return (err, limit, tol, scale,
+            same_dtype and bool(torch.isfinite(got).all()) and err <= limit)
 
 
 def compare(name: str, precision: str, got, want, n_terms: int) -> float:
@@ -414,6 +454,19 @@ def bound(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def kron_scatter_flops(nnz: int, ra: int, k: int) -> int:
+    """Operations kernel 1's function needs for ``nnz`` slots of K output
+    columns: Y[row] += v (a (x) b) scales a's ``ra`` entries by v once, then
+    K fused multiply-adds (2-way, ra=0: K products with v and K adds)."""
+    return nnz * (2 * k + ra)
+
+
+def kron_contrib_flops(n: int, ka: int, kb: int, scaled: bool = True) -> int:
+    """Operations of ``n`` Kron rows v (a (x) b): the shorter operand scaled
+    by v once, then ka kb products; no scaling for a link whose v is ones."""
+    return n * ((min(ka, kb) if scaled else 0) + ka * kb)
+
+
 def nbytes_of(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -460,16 +513,16 @@ def chain_plain(rows, vals, sched, n_rows: int, precision: str, step: int = 0):
     k = 1
     for r in rows:
         k *= r.shape[1]
-    out = torch.zeros((sched.n_row_blocks * sched.bi, k), dtype=torch.float32,
-                      device=vals.device)
+    out = torch.zeros((sched.n_row_blocks * sched.bi, k), device=vals.device,
+                      dtype=kron_kernel.result_dtype(rows[0].dtype, precision))
     slots = slot_rows(sched)
     step = step or vals.shape[0]
     for s in range(0, vals.shape[0], step):
         c = kron_kernel.kron_contrib_plain(rows[0][s:s + step], rows[1][s:s + step],
                                            vals[s:s + step], precision=precision)
         for extra in rows[2:]:
-            c = kron_kernel.kron_contrib_plain(c, extra[s:s + step],
-                                               torch.ones_like(vals[s:s + step]))
+            c = kron_kernel.kron_contrib_plain(c, extra[s:s + step].to(c.dtype),
+                                               torch.ones_like(vals[s:s + step], dtype=c.dtype))
         out.index_add_(0, slots[s:s + step], c)
     return kron_kernel._mask_unvisited(out[:n_rows], sched)
 
@@ -662,16 +715,21 @@ def phase3_mid(dev) -> None:
 
 
 def card_vs_cpu(label, x, ranks=None, engine=None, expect=None, spec=None,
-                align: str = "sign", fit_tol: float = 1e-4):
+                align: str = "sign", fit_tol: float = 1e-4, proj_tol: float = 1e-3,
+                core_tol: float = 1e-3):
     """Decompose ``x`` (a COO, or a dense tensor for ``spec``'s dense
     algorithm) on the card and on the CPU from the same seeded orthonormal
     factors, by ``spec`` (``TuckerSpec(x.shape, ranks, n_iter=N_ITER)`` by
     default), through a prebuilt engine from ``engine(device)`` when given;
     the fit histories must agree within ``fit_tol`` (1e-4), the factor
     projectors within 1e-3 and the cores, once the factor columns' signs are
-    matched, within 1e-3 x max|CPU core|; the card run must launch
-    ``expect`` (nothing on the dense paths). Returns the card's and the
-    CPU's results.
+    matched, within 1e-3 x max|CPU core| (``fit_tol``, ``proj_tol`` and
+    ``core_tol`` set other limits; a float64 spec's factors are drawn in
+    f64, and as its fit history is kept in f32, as the reference keeps it,
+    the history is held to two f32 ulps and ``fit_tol`` holds the f64 fit
+    of the last sweep, :func:`fit64`); the card run must launch ``expect``
+    (nothing on the dense paths). Returns the card's and the CPU's
+    results.
 
     ``align="basis"`` compares the card's core in the CPU's factor basis,
     G x_n (U_cpu,n^T U_card,n), for a tensor whose QRP pivots tie exactly
@@ -682,7 +740,8 @@ def card_vs_cpu(label, x, ranks=None, engine=None, expect=None, spec=None,
 
     spec = spec or tucker.TuckerSpec(x.shape, ranks, n_iter=N_ITER)
     rng = np.random.default_rng(SEED)
-    f0 = [np.linalg.qr(rng.standard_normal((s, r)))[0].astype(np.float32)
+    fdt = np.float64 if spec.dtype == "float64" else np.float32
+    f0 = [np.linalg.qr(rng.standard_normal((s, r)))[0].astype(fdt)
           for s, r in zip(spec.shape, spec.ranks)]
     res = {}
     for d in ("cuda", "cpu"):
@@ -707,11 +766,19 @@ def card_vs_cpu(label, x, ranks=None, engine=None, expect=None, spec=None,
     )
     log(f"  fit card {cu.fit_history.tolist()}")
     log(f"  fit cpu  {cp.fit_history.tolist()}")
-    log(f"  fit history max diff {hist_err:.3e} <= {fit_tol:g}; projector UU^T max diff "
-        f"{proj_err:.3e} <= 1e-3; card launches {cu.launches}")
-    check(cu.fit_history.shape == cp.fit_history.shape and hist_err <= fit_tol,
+    hist_tol = fit_tol
+    if spec.dtype == "float64":
+        hist_tol = max(fit_tol, F32_HISTORY_ULPS)
+        x2 = xnorm2_of(x)
+        gap64 = abs(fit64(cu, x2) - fit64(cp, x2))
+        log(f"  f64 fit of the last sweep: card {fit64(cu, x2)!r}, CPU {fit64(cp, x2)!r}, "
+            f"diff {gap64:.3e} <= {fit_tol:g}")
+        check(gap64 <= fit_tol, f"{label}: card and CPU f64 fits disagree")
+    log(f"  fit history max diff {hist_err:.3e} <= {hist_tol:g}; projector UU^T max diff "
+        f"{proj_err:.3e} <= {proj_tol:g}; card launches {cu.launches}")
+    check(cu.fit_history.shape == cp.fit_history.shape and hist_err <= hist_tol,
           f"{label}: card and CPU fit histories disagree")
-    check(proj_err <= 1e-3, f"{label}: card and CPU factor subspaces disagree")
+    check(proj_err <= proj_tol, f"{label}: card and CPU factor subspaces disagree")
     from repro_torch.core.ttm import ttm
 
     core = cu.core.cpu()
@@ -723,9 +790,9 @@ def card_vs_cpu(label, x, ranks=None, engine=None, expect=None, spec=None,
             core = core * sign.reshape([-1 if t == n else 1 for t in range(core.dim())])
     scale = float(cp.core.abs().max())
     core_err = float((core - cp.core).abs().max())
-    log(f"  core max diff ({align} aligned) {core_err:.3e} <= {1e-3 * scale:.3e} "
-        f"(1e-3 x max|core| {scale:.3e})")
-    check(bool(torch.isfinite(core).all()) and core_err <= 1e-3 * scale,
+    log(f"  core max diff ({align} aligned) {core_err:.3e} <= {core_tol * scale:.3e} "
+        f"({core_tol:g} x max|core| {scale:.3e})")
+    check(bool(torch.isfinite(core).all()) and core_err <= core_tol * scale,
           f"{label}: card and CPU cores disagree")
     return cu, cp
 
@@ -873,7 +940,7 @@ def phase4_nell2(dev, card: str):
             # once each; and Y written once
             nbytes = (nbytes_of(sched.idx, sched.vals, sched.rel_row, sched.blkmap, sched.parts,
                                 *kron_kernel._cast_operands(p, fa, fb)) + n_rows * k * 4)
-            flops = 3 * nnz_real * k
+            flops = kron_scatter_flops(nnz_real, fa.shape[1], k)
             # fp32 runs on the tensor cores (3xTF32), bf16_fp32acc on the CUDA cores
             peak = PEAK_TF32_FLOPS if p == "fp32" else PEAK_F32_FLOPS
             mode_bound, _ = bound(nbytes, flops, peak)
@@ -1111,7 +1178,7 @@ def phase5_fused_core(dev, card: str, coo, split_res, split_peak):
         fac = kron_kernel._cast_operands(p, fa, fb, u)
         nbytes = (nbytes_of(sched.idx, sched.vals, sched.rel_row, sched.blkmap, sched.parts,
                             *fac) + r * k * 4)
-        flops = 3 * NELL2_NNZ * k + 2 * visited * r * k
+        flops = kron_scatter_flops(NELL2_NNZ, ra, k) + 2 * visited * r * k
         # fp32 runs on the tensor cores (3xTF32), bf16_fp32acc's Kron terms
         # on the CUDA cores
         bound_ms, bound_by = bound(nbytes, flops,
@@ -1300,7 +1367,8 @@ def phase6_nips(dev, card: str):
         c_lib += time_ms(lambda: torch.einsum("ti,tj->tij", c1 * ones[:, None], rows[2]),
                          reps=3)
         c_bytes = nbytes_of(rows[0], rows[1], v, c1, c1, rows[2], ones) + nnzp * k * 4
-        c_flops = 2 * nnzp * k1 + 2 * nnzp * k
+        c_flops = (kron_contrib_flops(nnzp, rows[0].shape[1], rows[1].shape[1])
+                   + kron_contrib_flops(nnzp, k1, rows[2].shape[1], scaled=False))
         for name, ms, pl, lib, nb, fl, err in (
                 ("kron_contrib", c_ms, c_plain, c_lib, c_bytes, c_flops, max(err1, err2)),
                 ("scatter_rows", s_ms, s_plain, s_lib, s_bytes, s_flops, err_s)):
@@ -1428,7 +1496,7 @@ def table5_kernels(name, coo, eng, fs) -> dict:
               f"differs between two calls")
         nbytes = (nbytes_of(sched.idx, sched.vals, sched.rel_row, sched.blkmap, sched.parts,
                             *[f for f in (fa, fb) if f is not None]) + n_rows * k * 4)
-        flops = (3 if fb is not None else 2) * coo.nnz * k
+        flops = kron_scatter_flops(coo.nnz, fa.shape[1] if fb is not None else 0, k)
         ms, p_ms = time_ms(kern), time_ms(plain, reps=1)
         b_ms = bound(nbytes, flops, PEAK_TF32_FLOPS)[0]
         k1["per_mode"].append({"mode": mode, "K": k, "ms": ms, "plain_ms": p_ms,
@@ -1536,25 +1604,30 @@ TABLE2_RANK = 16
 METHODS = ("svd", "householder", "gram")
 
 
-def table2_tensor(size: int, dev, rank: int = TABLE2_RANK):
+def table2_tensor(size: int, dev, rank: int = TABLE2_RANK, dtype=torch.float32,
+                  noise: bool = True):
     """``benchmarks/table2_accuracy.py``'s tensor in f32: a random
     rank-(16, 16, 16) tensor, factors and core from ``default_rng(size)``,
     the product taken as a TTM chain in f64 on ``dev``, plus noise of 1e-9;
     the noise from that numpy generator on the CPU (as the benchmark and the
     CPU test at 200^3 draw it), from a torch generator seeded with ``size``
-    on the card (512 M numpy draws would take the host ~10 s)."""
+    on the card (512 M numpy draws would take the host ~10 s). ``dtype``
+    float64 keeps it in f64; ``noise=False`` leaves the exact rank-16
+    tensor."""
     from repro_torch.core.reconstruct import reconstruct_dense
 
     rng = np.random.default_rng(size)
     us = [np.linalg.qr(rng.standard_normal((size, rank)))[0] for _ in range(3)]
     g = rng.standard_normal((rank,) * 3)
     x = reconstruct_dense(torch.from_numpy(g).to(dev), [torch.from_numpy(u).to(dev) for u in us])
-    if x.device.type == "cpu":
+    if not noise:
+        pass
+    elif x.device.type == "cpu":
         x += 1e-9 * torch.from_numpy(rng.standard_normal(x.shape))
     else:
         gen = torch.Generator(device=x.device).manual_seed(size)
         x += 1e-9 * torch.randn(x.shape, generator=gen, dtype=x.dtype, device=x.device)
-    return x.to(torch.float32)
+    return x.to(dtype)
 
 
 def phase11_dense(dev, card: str) -> None:
@@ -2401,7 +2474,9 @@ def stacked_kernel_checks(name, stacked, fs, k: int, shape) -> dict:
                      + time_ms(partial(kron_kernel.kron_contrib_plain, c1, rows[2], ones)),
                      c_lib,
                      nbytes_of(rows[0], rows[1], v, c1, c1, rows[2], ones) + c2.numel() * 4,
-                     2 * v.shape[0] * c1.shape[1] + 2 * v.shape[0] * kk, max(e1, e2)),
+                     kron_contrib_flops(v.shape[0], rows[0].shape[1], rows[1].shape[1])
+                     + kron_contrib_flops(v.shape[0], c1.shape[1], rows[2].shape[1],
+                                          scaled=False), max(e1, e2)),
                     ("scatter_rows", time_ms(partial(kron_kernel.scatter_rows, c2, sched, n_rows)),
                      time_ms(partial(kron_kernel.scatter_rows_plain, c2, sched, n_rows)),
                      s_lib,
@@ -3040,6 +3115,8 @@ def shard_child(rank: int, world: int, backend: str, store: str, tmp: str, job: 
     if on_card:
         torch.cuda.set_device(0)  # every rank's card: the one of this machine
         torch.cuda.reset_peak_memory_stats()
+    else:  # a rehearsal: the ranks share the host's cores
+        torch.set_num_threads(1)
     # NCCL binds its communicator to the rank's card at once
     bind = {"device_id": torch.device("cuda", 0)} if backend == "nccl" else {}
     dist.init_process_group(backend, store=dist.FileStore(store, world), rank=rank,
@@ -3157,7 +3234,7 @@ def _shard_kernel1_on_slice(plan, coo, res, shape) -> dict:
         k = fa.shape[1] * fb.shape[1]
         nbytes = (nbytes_of(ds.idx, ds.vals, ds.rel_row, ds.blkmap, ds.parts,
                             *kron_kernel._cast_operands("fp32", fa, fb)) + shape[mode] * k * 4)
-        flops = 3 * real_nnz * k
+        flops = kron_scatter_flops(real_nnz, fa.shape[1], k)
         b_ms, _ = bound(nbytes, flops, PEAK_TF32_FLOPS)
         nbytes_all, flops_all = nbytes_all + nbytes, flops_all + flops
         for key, v in (("ms", ms), ("plain_ms", p_ms), ("bound_ms", b_ms)):
@@ -3205,7 +3282,9 @@ def _shard_kernels34_on_slice(plan, coo, res, shape) -> dict:
                  time_ms(link1_plain) + time_ms(link2_plain),
                  # link 1 writes c1 and link 2 reads it; link 2 writes c2
                  nbytes_of(rows[0], rows[1], v, c1, c1, rows[2], ones) + nnzp * k * 4,
-                 2 * nnzp * k1 + 2 * nnzp * k, max(err1, err2)),
+                 kron_contrib_flops(nnzp, rows[0].shape[1], rows[1].shape[1])
+                 + kron_contrib_flops(nnzp, k1, rows[2].shape[1], scaled=False),
+                 max(err1, err2)),
                 ("scatter_rows", time_ms(scat), time_ms(scat_plain),
                  nbytes_of(c2, ds.rel_row, ds.blkmap, ds.parts) + shape[mode] * k * 4,
                  real_nnz * k, err_s)):
@@ -3518,6 +3597,818 @@ def phase14_sharded(dev, card: str, ref4: dict, cfg: Optional[dict] = None) -> N
         out["seconds"] = {"14a": t_a, "14b-d": t_four, "14d_fewer": t_fewer}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps(out), flush=True)
+
+
+# -- phase 15: float64 through kernels 1-4 --------------------------------------
+
+F64_ROWS = ["fused_kron_scatter_f64", "ttm_f64", "kron_contrib_f64", "scatter_rows_f64"]
+F64_FIT_TOL, F64_PROJ_TOL = 1e-10, 1e-8  # 15c-15f: f64 card against f64 CPU or alone
+# a fit history is kept in f32 in either dtype (the reference's too): two
+# f32 ulps of a value in [0.5, 1)
+F32_HISTORY_ULPS = 2.0 ** -23
+RANK1_SUPPORT = (40, 30, 20)  # 15c: 24,000 nonzeros, phase 3's count
+RANK1_SEEDS = 4  # 15c: rank-1 tensors drawn
+RANK1_FIT_ERR = 1e-6
+
+
+def xnorm2_of(x) -> float:
+    """||X||^2 in f64 of a COO tensor (its values) or a dense one."""
+    vals = x.values if hasattr(x, "values") and not isinstance(x, torch.Tensor) else x
+    return float(vals.double().square().sum())
+
+
+def fit64(res, xnorm2: float) -> float:
+    """The last sweep's relative error in f64, from the projection
+    identity on the result's core: what the f32 fit history rounds."""
+    g2 = float(res.core.double().square().sum())
+    return math.sqrt(max(xnorm2 - g2, 0.0) / xnorm2)
+
+
+def f64_kernel_cases(dev) -> None:
+    """15a: kernels 1-4 in f64 against their f64 plain versions at phase 2's
+    odd shapes (nnz not a multiple of 128, duplicates, 2-way, ranks 5x3,
+    16, 13x22x10, 33x40, a 4-way chain), each kernel 1 and 2 call twice for
+    its bits."""
+    from repro_torch.core.coo import SparseCOO
+    from repro_torch.kernels import kron_kernel, ops, ttm_kernel
+
+    rng = np.random.default_rng(SEED + 15)
+    cases = [((50, 40, 30), (4, 3, 5), 1000), ((300, 200, 100), (16, 16, 16), 20_000),
+             ((100, 80, 60), (13, 22, 10), 5000), ((70, 60, 50), (2, 33, 40), 3000),
+             ((60, 50), (7, 5), 700)]
+    for shape, ranks, nnz in cases:
+        idx = np.stack([rng.integers(0, s, nnz) for s in shape], 1)
+        idx = np.concatenate([idx, idx[:nnz // 5]])  # duplicate coordinates
+        coo = SparseCOO.from_parts(idx.astype(np.int32), rng.standard_normal(idx.shape[0]),
+                                   shape, device=dev)
+        fs = [torch.tensor(np.linalg.qr(rng.standard_normal((s, r)))[0], device=dev)
+              for s, r in zip(shape, ranks)]
+        for mode in range(len(shape)):
+            sched = schedule_of(coo, mode)
+            fa, fb = kron_factors(fs, mode)
+            kern = partial(kron_kernel.fused_kron_scatter, fa, fb, sched, shape[mode])
+            got = synced(kern())
+            compare(f"fused_kron_scatter f64 {shape} ranks {ranks} mode {mode}", "fp64", got,
+                    synced(kron_kernel.fused_kron_scatter_plain(fa, fb, sched, shape[mode])),
+                    max_row_count(coo, mode))
+            check(torch.equal(got, synced(kern())), f"kernel 1 f64 {shape} mode {mode}: "
+                  f"two calls differ")
+        y, u = got.T, fs[len(shape) - 1].T
+        compare(f"ttm f64 y {tuple(y.shape)} u {tuple(u.shape)}", "fp64",
+                check_ttm_call(f"f64 {shape}", y, u, "fp32"),
+                synced(ttm_kernel.ttm_plain(y, u)), y.shape[1])
+    shape, ranks = (40, 30, 20, 7), (5, 4, 3, 2)
+    idx = np.stack([rng.integers(0, s, 3000) for s in shape], 1).astype(np.int32)
+    coo = SparseCOO.from_parts(idx, rng.standard_normal(3000), shape, device=dev)
+    fs = [torch.tensor(rng.standard_normal((s, r)), device=dev) for s, r in zip(shape, ranks)]
+    for mode in range(4):
+        sched = schedule_of(coo, mode)
+        rows, vals = ops._gathered_block_rows(coo.indices, coo.values, fs, mode, sched, 4)
+        c1 = synced(kron_kernel.kron_contrib(rows[0], rows[1], vals))
+        compare(f"kron_contrib f64 4-way mode {mode} link 1", "fp64", c1,
+                kron_kernel.kron_contrib_plain(rows[0], rows[1], vals), 1)
+        ones = torch.ones_like(vals)
+        c2 = synced(kron_kernel.kron_contrib(c1, rows[2], ones))
+        compare(f"kron_contrib f64 4-way mode {mode} link 2", "fp64", c2,
+                kron_kernel.kron_contrib_plain(c1, rows[2], ones), 1)
+        compare(f"scatter_rows f64 4-way mode {mode}", "fp64",
+                synced(kron_kernel.scatter_rows(c2, sched, shape[mode])),
+                kron_kernel.scatter_rows_plain(c2, sched, shape[mode]),
+                max_row_count(coo, mode))
+
+
+def dense_error64(x, core, factors) -> float:
+    """||X - Xhat|| / ||X|| in f64, Xhat densified (``relative_error_dense``
+    takes X in f32, whose rounding would hide an f64 result's accuracy)."""
+    from repro_torch.core.reconstruct import reconstruct_dense
+
+    x = x.double()
+    xhat = reconstruct_dense(core.double(), [f.double() for f in factors])
+    return float(torch.linalg.vector_norm(x - xhat) / torch.linalg.vector_norm(x))
+
+
+def rank1_tensor(dev, cfg: dict, seed: int):
+    """An exact rank-1 tensor at phase 3's shape: a (x) b (x) c over
+    supports of RANK1_SUPPORT rows a mode (24,000 nonzeros), entries
+    uniform in [0.5, 1.5), every product stored."""
+    from repro_torch.core.coo import SparseCOO
+
+    rng = np.random.default_rng(SEED + 151 + seed)
+    shape = cfg["rank1_shape"]
+    sup = [np.sort(rng.choice(s, k, replace=False)) for s, k in zip(shape, cfg["rank1_support"])]
+    vecs = [rng.uniform(0.5, 1.5, k) for k in cfg["rank1_support"]]
+    grid = np.stack(np.meshgrid(*sup, indexing="ij"), -1).reshape(-1, 3)
+    vals = np.einsum("i,j,k->ijk", *vecs).reshape(-1)
+    return SparseCOO.from_parts(grid.astype(np.int32), vals, shape, device=dev)
+
+
+def phase15_float64(dev, card: str, ref4: dict, cfg: Optional[dict] = None) -> dict:
+    """float64 on the card through the f64 instantiations of kernels 1-4:
+    15a the kernels at odd shapes and kernel 1 on NELL-2's three mode
+    schedules against their f64 plain versions; 15b phase 4's tensor (drawn
+    anew, its checksum held to phase 4's) in f64 from phase 4's initial
+    factors, held to phase 4's f32 run; 15c an exact rank-1 tensor's fit
+    error and phase 3's mid tensor card against CPU; 15d tenant C's 4-way
+    shape card against CPU (kernels 3, 4, 2); 15e Table II at 800^3 in
+    f64; 15f one service flush of 16 f64 tenant-A requests against each
+    served alone. Returns the kernels line's four f64 rows. ``cfg`` shrinks
+    the shapes for a rehearsal on the CPU."""
+    from repro_torch import tucker
+    from repro_torch.core.coo import SparseCOO
+    from repro_torch.core.hooi import init_factors
+    from repro_torch.kernels import kron_kernel, ops, ttm_kernel
+    from repro_torch.sparse.generators import random_sparse_tensor
+
+    cfg = {"shape": NELL2_SHAPE, "nnz": NELL2_NNZ, "ranks": NELL2_RANKS,
+           "rank1_shape": (1000, 1000, 1000), "rank1_support": RANK1_SUPPORT,
+           "mid": ((1000, 1000, 1000), 2.4e-5, (16, 16, 16)), "tenant_c": TENANT_C,
+           "table2": TABLE2_SIZE, "service": SERVICE_TENANTS[0], "flush": SERVICE_MAX_BATCH,
+           **(cfg or {})}
+    on_card = dev.type == "cuda"
+    tf32_off()
+    release_memory()
+    log(f"phase 15: float64 through kernels 1-4: odd shapes, NELL-2 {cfg['shape']} "
+        f"{cfg['nnz']} nnz, a rank-1 tensor, phase 3's mid tensor, tenant C, Table II at "
+        f"{cfg['table2']}^3, a service flush")
+    out = {"phase": "15 float64", "card": card}
+    rows = {}
+
+    t0 = time.perf_counter()
+    f64_kernel_cases(dev)
+    out["15a_odd_shapes_s"] = time.perf_counter() - t0
+
+    # 15b: the main path in f64
+    t0 = time.perf_counter()
+    idx, vals = synthetic(dev, cfg["shape"], cfg["nnz"], SEED, "uniform")
+    check(coo_checksum(SparseCOO(idx, vals, cfg["shape"])) == ref4["checksum"],
+          "15b: the NELL-2 tensor is not phase 4's")
+    coo = SparseCOO(idx, vals.double(), cfg["shape"])
+    del idx, vals
+    f0 = [f.double().to(dev) for f in init_factors(cfg["shape"], cfg["ranks"])]  # phase 4's
+    spec = tucker.TuckerSpec(cfg["shape"], cfg["ranks"], n_iter=N_ITER, dtype="float64")
+    plan = tucker.plan(spec, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reset_launches()  # the f64 main path: every count starts at 0 here
+    res = plan(coo, factors_init=f0)
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"fused_kron_scatter": 3 * N_ITER, "ttm": N_ITER, "kron_contrib": 0,
+            "scatter_rows": 0, "fused_kron_scatter_ttm": 0, **NO_LM_LAUNCHES}
+    log(f"  15b NELL-2 in f64: drawn and decomposed cold in {t_cold:.2f} s, launches "
+        f"{launches}, fit {res.fit_history.tolist()}")
+    check(launches == want or not on_card, f"15b: launches {launches}, want {want}")
+    check(res.core.dtype == torch.float64 and all(f.dtype == torch.float64 for f in res.factors),
+          "15b: the result is not float64")
+    vs4 = within_phase3_tolerances("15b f64 against phase 4's f32 run", res, ref4["fit"],
+                                   ref4["factors"], ref4["core"])
+    runs = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        warm = plan(coo, factors_init=f0)
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / N_ITER)
+        check(np.array_equal(warm.fit_history, res.fit_history) and warm.schedule_builds == 0,
+              "15b: a warm run is not the cold run")
+    profile = profile_run(lambda: plan(coo, factors_init=f0))
+    out["15b"] = {"shape": cfg["shape"], "nnz": cfg["nnz"], "cold_s": t_cold,
+                  "profile_warm_run": profile,
+                  "sweep_ms": float(np.median(runs)), "sweep_ms_runs": runs,
+                  "peak_memory_gb": peak / 1e9, "above_resident_gb": (peak - resident) / 1e9,
+                  "launches_per_sweep": {k: v / N_ITER for k, v in launches.items() if v},
+                  "vs_phase4_f32": vs4, "fit_history": res.fit_history.tolist()}
+    log(f"  15b: {out['15b']['sweep_ms']:.2f} ms a sweep (" + ", ".join(f"{m:.2f}" for m in runs)
+        + f"), peak {peak / 1e9:.2f} GB")
+
+    # 15a at the main path's shapes: kernel 1 on the three mode schedules, kernel 2
+    eng, fs = plan.engine, [f.contiguous() for f in res.factors]
+    k1 = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "f64_core_bound_ms": 0.0,
+          "max_abs_err": 0.0, "bytes": 0, "flops": 0}
+    y_last = None
+    for mode in range(3):
+        sched = eng.device_schedule(coo, mode)
+        n_rows = cfg["shape"][mode]
+        fa, fb = kron_factors(fs, mode)
+        kern = partial(kron_kernel.fused_kron_scatter, fa, fb, sched, n_rows)
+        plain = partial(kron_kernel.fused_kron_scatter_plain, fa, fb, sched, n_rows)
+        got = synced(kern())
+        k1["max_abs_err"] = max(k1["max_abs_err"], compare(
+            f"fused_kron_scatter f64 NELL-2 mode {mode}", "fp64", got, synced(plain()),
+            max_row_count(coo, mode)))
+        k = got.shape[1]
+        nbytes = (nbytes_of(sched.idx, sched.vals, sched.rel_row, sched.blkmap, sched.parts,
+                            fa, fb) + n_rows * k * 8)
+        flops = kron_scatter_flops(coo.nnz, fa.shape[1], k)
+        for key, v in (("ms", time_ms(kern)), ("plain_ms", time_ms(plain, reps=1)),
+                       ("bound_ms", bound(nbytes, flops, PEAK_F64_FLOPS)[0]),
+                       ("f64_core_bound_ms", bound(nbytes, flops, PEAK_F64_CORE_FLOPS)[0]),
+                       ("bytes", nbytes), ("flops", flops)):
+            k1[key] += v
+        if mode == 2:
+            y_last = got
+        del got
+    k1["bound_by"] = bound(k1["bytes"], k1["flops"], PEAK_F64_FLOPS)[1]
+    yc, uc = y_last.T, fs[2].T
+    k2_err = compare(f"ttm f64 NELL-2 y {tuple(yc.shape)} u {tuple(uc.shape)}", "fp64",
+                     check_ttm_call("f64 NELL-2", yc, uc, "fp32"),
+                     synced(ttm_kernel.ttm_plain(yc, uc)), yc.shape[1])
+    l_, i_ = yc.shape
+    nbytes = (l_ * i_ + uc.shape[0] * i_) * 8 + l_ * uc.shape[0] * 8
+    flops = 2 * l_ * i_ * uc.shape[0]
+    k2 = {"ms": time_ms(partial(ttm_kernel.ttm, yc, uc), reps=20, flush_l2=True),
+          "plain_ms": time_ms(partial(ttm_kernel.ttm_plain, yc, uc), reps=20, flush_l2=True),
+          "library_ms": time_ms(partial(torch.matmul, yc, uc.T), reps=20, flush_l2=True),
+          "bound_ms": bound(nbytes, flops, PEAK_F64_FLOPS)[0],
+          "bound_by": bound(nbytes, flops, PEAK_F64_FLOPS)[1],
+          "f64_core_bound_ms": bound(nbytes, flops, PEAK_F64_CORE_FLOPS)[0],
+          "max_abs_err": k2_err}
+    log(f"  15a kernel 1 f64 at NELL-2: {k1['ms']:.3f} ms a sweep, plain {k1['plain_ms']:.1f}, "
+        f"bound {k1['bound_ms']:.3f} ({k1['bound_by']}); kernel 2 f64 {k2['ms']:.4f} ms, "
+        f"plain {k2['plain_ms']:.4f}, torch.matmul {k2['library_ms']:.4f}, bound "
+        f"{k2['bound_ms']:.4f}")
+    src = "src/repro_torch/kernels/csrc/"
+    device_ms = {k: v / N_ITER for k, v in profile["kernel_ms"].items()}
+    rows["fused_kron_scatter_f64"] = {
+        "name": "fused_kron_scatter_f64", "route": "cuda", "source": src + "kron_scatter.cu",
+        "replaces": "src/repro/kernels/kron_kernel.py:306",
+        "launches": launches["fused_kron_scatter"], "max_abs_err": k1["max_abs_err"],
+        "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+        "device_ms": device_ms["fused_kron_scatter"], "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"], "f64_core_bound_ms": k1["f64_core_bound_ms"],
+        "library_ms": None}
+    rows["ttm_f64"] = {"name": "ttm_f64", "route": "cuda", "source": src + "ttm.cu",
+                       "replaces": "src/repro/kernels/ttm_kernel.py:62",
+                       "launches": launches["ttm"], "device_ms": device_ms["ttm"], **k2}
+    out["15a"] = {"kernel1_nell2": k1, "kernel2_nell2": k2}
+    del coo, plan, res, warm, eng, fs, y_last, yc, uc, f0
+    release_memory()
+
+    # 15c: the fit's floor: exact rank-1 tensors, whose true error is 0, in
+    # f32 and f64 (the projection identity cancels to 0 or to its dtype's
+    # floor, by the sign of its rounding), and phase 3's mid tensor card
+    # against CPU
+    rank1 = {"float32": [], "float64": []}
+    for seed in range(RANK1_SEEDS):
+        r1 = rank1_tensor(dev, cfg, seed)
+        for dt in rank1:
+            coo1 = SparseCOO(r1.indices, r1.values.to(getattr(torch, dt)), r1.shape)
+            r = tucker.plan(tucker.TuckerSpec(r1.shape, (1, 1, 1), n_iter=N_ITER, dtype=dt),
+                            device=dev)(coo1)
+            rank1[dt].append(float(r.rel_error))
+    log(f"  15c exact rank-1 tensors {r1.shape}, {r1.nnz} nnz each, ranks 1: fit errors f64 "
+        f"{rank1['float64']} (<= {RANK1_FIT_ERR:g}), f32 {rank1['float32']}")
+    check(all(0.0 <= e <= RANK1_FIT_ERR for e in rank1["float64"]),
+          f"15c: f64 fit errors {rank1['float64']}")
+    shape_m, density, ranks_m = cfg["mid"]
+    mid = random_sparse_tensor(shape_m, density, seed=11, value_dist="uniform")
+    mid = SparseCOO(mid.indices, mid.values.double(), mid.shape)
+    card_vs_cpu(f"15c mid tensor {shape_m} in f64", mid, fit_tol=F64_FIT_TOL,
+                proj_tol=F64_PROJ_TOL, core_tol=F64_PROJ_TOL,
+                spec=tucker.TuckerSpec(shape_m, ranks_m, n_iter=N_ITER, dtype="float64"),
+                expect={"fused_kron_scatter": 3 * N_ITER, "ttm": N_ITER} if on_card else None)
+    out["15c"] = {"rank1_fit_errors": rank1, "rank1_nnz": r1.nnz}
+    del r1, mid
+
+    # 15d: tenant C's 4-way shape in f64 (kernels 3, 4, 2)
+    shape_c, nnz_c, ranks_c, method_c = cfg["tenant_c"]
+    idx, vals = synthetic(dev, shape_c, nnz_c, 13, "uniform")
+    coo_c = SparseCOO(idx.cpu(), vals.double().cpu(), shape_c)
+    spec_c = tucker.TuckerSpec(shape_c, ranks_c, method=method_c, n_iter=N_ITER,
+                               dtype="float64")
+    want_c = {"kron_contrib": 8 * N_ITER, "scatter_rows": 4 * N_ITER, "ttm": N_ITER}
+    cu, _ = card_vs_cpu(f"15d tenant C {shape_c} in f64", coo_c, spec=spec_c,
+                        fit_tol=F64_FIT_TOL, proj_tol=F64_PROJ_TOL, core_tol=F64_PROJ_TOL,
+                        expect=want_c if on_card else None)
+    coo_c = coo_c.to(dev)
+    plan_c = tucker.plan(spec_c, device=dev)
+    plan_c(coo_c)  # warm: the schedules
+    device_ms_c = {k: v / N_ITER
+                   for k, v in profile_run(lambda: plan_c(coo_c))["kernel_ms"].items()}
+    fs = [f.contiguous() for f in cu.factors]
+    k3 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+          "f64_core_bound_ms": 0.0, "max_abs_err": 0.0}
+    k4 = dict(k3)
+    for mode in range(4):
+        sched = plan_c.engine.device_schedule(coo_c, mode)
+        r, v = ops._gathered_block_rows(coo_c.indices, coo_c.values, fs, mode, sched, 4)
+        ones = torch.ones_like(v)
+        c1 = synced(kron_kernel.kron_contrib(r[0], r[1], v))
+        c2 = synced(kron_kernel.kron_contrib(c1, r[2], ones))
+        k3["max_abs_err"] = max(k3["max_abs_err"], compare(
+            f"kron_contrib f64 tenant C mode {mode} (both links)", "fp64", c2,
+            kron_kernel.kron_contrib_plain(kron_kernel.kron_contrib_plain(r[0], r[1], v), r[2],
+                                           ones), 1))
+        y = synced(kron_kernel.scatter_rows(c2, sched, shape_c[mode]))
+        k4["max_abs_err"] = max(k4["max_abs_err"], compare(
+            f"scatter_rows f64 tenant C mode {mode}", "fp64", y,
+            kron_kernel.scatter_rows_plain(c2, sched, shape_c[mode]),
+            max_row_count(coo_c, mode)))
+
+        def chain():
+            return kron_kernel.kron_contrib(kron_kernel.kron_contrib(r[0], r[1], v), r[2], ones)
+
+        def chain_plain_():
+            return kron_kernel.kron_contrib_plain(
+                kron_kernel.kron_contrib_plain(r[0], r[1], v), r[2], ones)
+
+        def chain_lib():
+            ab = torch.einsum("ti,tj->tij", r[0], r[1]).reshape(v.shape[0], -1) * v[:, None]
+            return torch.einsum("ti,tj->tij", ab, r[2]).reshape(v.shape[0], -1)
+
+        def scatter_lib():
+            return torch.zeros((sched.n_row_blocks * sched.bi, c2.shape[1]), dtype=c2.dtype,
+                               device=c2.device).index_add_(0, slots, c2)
+
+        from repro_torch.sparse.layout import slot_rows
+
+        slots = slot_rows(sched)
+        n = v.shape[0]
+        kk = [x.shape[1] for x in r]
+        b3 = 8 * n * (sum(kk) + 1 + kk[0] * kk[1] * 2 + kk[0] * kk[1] * kk[2])
+        b4 = 8 * n * c2.shape[1] + 4 * n + 8 * shape_c[mode] * c2.shape[1]
+        for acc, kern, plain, lib, nbytes, flops in (
+                (k3, chain, chain_plain_, chain_lib, b3,
+                 kron_contrib_flops(n, kk[0], kk[1])
+                 + kron_contrib_flops(n, kk[0] * kk[1], kk[2], scaled=False)),
+                (k4, partial(kron_kernel.scatter_rows, c2, sched, shape_c[mode]),
+                 partial(kron_kernel.scatter_rows_plain, c2, sched, shape_c[mode]),
+                 scatter_lib, b4, n * c2.shape[1])):
+            acc["ms"] += time_ms(kern)
+            acc["plain_ms"] += time_ms(plain, reps=3)
+            acc["library_ms"] += time_ms(lib, reps=3)
+            acc["bound_ms"] += bound(nbytes, flops, PEAK_F64_FLOPS)[0]
+            acc["f64_core_bound_ms"] += bound(nbytes, flops, PEAK_F64_CORE_FLOPS)[0]
+            acc["bound_by"] = bound(nbytes, flops, PEAK_F64_FLOPS)[1]
+        del c1, c2, y
+    log(f"  15d kernels 3 (both links) and 4 f64 at tenant C, 4 modes: {k3['ms']:.3f} / "
+        f"{k4['ms']:.3f} ms a sweep, plain {k3['plain_ms']:.3f} / {k4['plain_ms']:.3f}, "
+        f"library {k3['library_ms']:.3f} / {k4['library_ms']:.3f}, bound {k3['bound_ms']:.4f} / "
+        f"{k4['bound_ms']:.4f}")
+    rows["kron_contrib_f64"] = {"name": "kron_contrib_f64", "route": "cuda",
+                                "source": src + "kron_contrib.cu",
+                                "replaces": "src/repro/kernels/kron_kernel.py:74",
+                                "launches": want_c["kron_contrib"],
+                                "device_ms": device_ms_c["kron_contrib"], **k3}
+    rows["scatter_rows_f64"] = {"name": "scatter_rows_f64", "route": "cuda",
+                                "source": src + "scatter_rows.cu",
+                                "replaces": "src/repro/kernels/kron_kernel.py:207",
+                                "launches": want_c["scatter_rows"],
+                                "device_ms": device_ms_c["scatter_rows"], **k4}
+    out["15d"] = {"shape": shape_c, "nnz": nnz_c, "kernel3": k3, "kernel4": k4,
+                  "fit_history": cu.fit_history.tolist()}
+    del coo_c, plan_c, cu, fs
+    release_memory()
+
+    # 15e: Table II's rank-16 tensor in f64 without its 1e-9 noise (which
+    # sets an error floor of ~1e-9 sqrt(800^3) / ||X|| = 3.5e-7 at 800^3):
+    # the error left is the arithmetic's, ~1e-7 in f32, ~1e-15 in f64
+    t0 = time.perf_counter()
+    x = table2_tensor(cfg["table2"], dev, dtype=torch.float64, noise=False)
+    table2 = {"size": cfg["table2"], "build_s": time.perf_counter() - t0, "noise": 0.0}
+    for method in METHODS:
+        plan = tucker.plan(tucker.spec_for(x, (TABLE2_RANK,) * 3, n_iter=3, method=method),
+                           device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        res = plan(x)
+        torch.cuda.synchronize()
+        ms = [m / 3 for m in warm_ms(lambda: plan(x))]
+        err = dense_error64(x, res.core, res.factors)
+        table2[method] = {"rel_error_dense_f64": err, "rel_error": res.rel_error,
+                          "sweep_ms": float(np.median(ms)), "sweep_ms_runs": ms,
+                          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"  15e Table II {cfg['table2']}^3 rank 16 in f64 {method}: dense error "
+            f"{err:.3e} <= 1e-10 (fit {res.rel_error:.3e}); {table2[method]['sweep_ms']:.2f} "
+            f"ms a sweep")
+        check(res.core.dtype == torch.float64 and 0.0 <= err <= 1e-10,
+              f"15e {method}: dense error {err}")
+    out["15e"] = table2
+    del x, plan, res
+    release_memory()
+
+    # 15f: one service flush of f64 tenant-A requests, against each alone
+    import repro_torch.obs as obs
+    from repro_torch.serve import ServiceConfig, TuckerService
+
+    _, shape_a, ranks_a, method_a, sweeps_a, _, (lo, hi) = cfg["service"]
+    spec_a = tucker.TuckerSpec(shape_a, ranks_a, method=method_a, n_iter=sweeps_a,
+                               dtype="float64")
+    rng = np.random.default_rng(1500)
+    reqs = []
+    for i in range(cfg["flush"]):
+        idx, vals = synthetic(dev, shape_a, int(rng.integers(lo, hi + 1)), 15_000 + i, "uniform")
+        reqs.append((SparseCOO(idx, vals.double(), shape_a), 15_000 + i))
+    alone = [tucker.plan(spec_a, device=dev)(c, generator=torch.Generator().manual_seed(s))
+             for c, s in reqs]
+    obs.tracer.clear()
+    obs.configure(enabled=True)
+    try:
+        with TuckerService(ServiceConfig(max_batch=cfg["flush"], max_wait_ms=60_000.0,
+                                         device=str(dev))) as svc:
+            tickets = [svc.submit_coo(c, spec_a, generator=torch.Generator().manual_seed(s))
+                       for c, s in reqs]
+            t0 = time.perf_counter()
+            svc.flush()
+            served = [t.result(timeout=600) for t in tickets]
+            flush_s = time.perf_counter() - t0
+        spans = [e for e in obs.tracer.events()
+                 if e.name == "sweep.dispatch" and e.attrs.get("program") == "batched"]
+    finally:
+        obs.configure(enabled=False)
+    check(len(spans) == 1 and sum(r.dispatches for r in served) == 1,
+          f"15f: {len(spans)} batched dispatches for one flush")
+    gaps = []
+    for (c, _), got, want in zip(reqs, served, alone):
+        x2 = xnorm2_of(c)
+        gaps.append((abs(fit64(got, x2) - fit64(want, x2)),
+                     float(np.abs(got.fit_history - want.fit_history).max()),
+                     max(projector_gap(a, b) for a, b in zip(got.factors, want.factors))))
+    worst = tuple(max(g[i] for g in gaps) for i in range(3))
+    log(f"  15f one flush of {len(reqs)} f64 requests {shape_a}: {flush_s * 1e3:.1f} ms, "
+        f"launches {spans[0].attrs['launches']}; worst against each alone: f64 fit "
+        f"{worst[0]:.3e} <= {F64_FIT_TOL:g} (f32 history {worst[1]:.3e} <= "
+        f"{F32_HISTORY_ULPS:.3g}), projectors {worst[2]:.3e} <= {F64_PROJ_TOL:g}")
+    check(worst[0] <= F64_FIT_TOL and worst[1] <= F32_HISTORY_ULPS
+          and worst[2] <= F64_PROJ_TOL, "15f: a served f64 request is not its run alone")
+    check(all(r.core.dtype == torch.float64 for r in served), "15f: a result is not float64")
+    out["15f"] = {"requests": len(reqs), "flush_ms": flush_s * 1e3,
+                  "launches": spans[0].attrs["launches"], "fit64_gap": worst[0],
+                  "history_gap": worst[1], "projector_gap": worst[2]}
+    del reqs, alone, served
+    release_memory()
+    print(json.dumps(out), flush=True)
+    return rows
+
+
+# -- phase 16: Kron reuse on the torch engine -----------------------------------
+
+REUSE_TOL = 1e-6  # 16: the trick's exactness, one call a mode, x max|plain|
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Every scatter in its deterministic version (``index_add_`` among
+    them), and an error for any operation that has none: the reuse chain
+    and the plain chain then sum the same terms in the same order and agree
+    to their bits; without it the card's atomics reorder each unfolding's
+    sums from run to run."""
+    enabled = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(enabled, warn_only=warn_only)
+
+
+def aligned_core_gap(got, want) -> float:
+    """max |core difference| / max|want's core| after ``got``'s factor
+    columns are matched to ``want``'s: by sign (exact), or where QRP pivots
+    tie and the columns come in another order, by taking ``got``'s core into
+    ``want``'s basis, G x_n (U_want,n^T U_got,n), in f64 (its own rounding
+    is that of the factors' orthonormality, ~1e-7 in f32); the smaller."""
+    from repro_torch.core.ttm import ttm
+
+    sign_gap, scale = core_gap(got, want)
+    core = got.core.double()
+    for n, (a, b) in enumerate(zip(got.factors, want.factors)):
+        core = ttm(core, b.double().T @ a.double(), n)
+    basis_gap = float((core - want.core.double()).abs().max())
+    return min(sign_gap, basis_gap) / scale
+
+
+def reuse_chain_checks(name, coo, plan, res) -> list:
+    """16's one-call checks of the paper's trick, per mode, on a reuse
+    run's factors: the reuse chain against ``core.kron.sparse_ttm_chain``
+    (the reference's XLA chain without reuse, in torch ops) with
+    deterministic scatters within REUSE_TOL x max|plain| (the same terms in
+    the same order: the same bits), and with the card's atomic scatters, as
+    the timed runs sum, within the fp32 rule (sum order); each chain's ms."""
+    from repro_torch.core.kron import sparse_ttm_chain, sparse_ttm_chain_reuse_device
+
+    fs = [f.contiguous() for f in res.factors]
+    rows = []
+    for mode in range(coo.ndim):
+        sched = plan.engine.device_schedule(coo, mode)
+        reuse = partial(sparse_ttm_chain_reuse_device, coo.indices, coo.values, fs, mode,
+                        sched, shape=tuple(coo.shape))
+        plain = partial(sparse_ttm_chain, coo, fs, mode)
+        with deterministic():
+            got, want = synced(reuse()), synced(plain())
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        same_bits = torch.equal(got, want)
+        log(f"  16 {name} mode {mode}: reuse chain against the plain chain, deterministic "
+            f"scatters: max_abs_err {err:.3e} <= {REUSE_TOL:g} x {scale:.3e} (the same bits: "
+            f"{same_bits})")
+        check(err <= REUSE_TOL * scale, f"16 {name} mode {mode}: the reuse chain is not exact")
+        del got, want
+        atomic_err = compare(f"16 {name} mode {mode} reuse chain, atomic scatters", "fp32",
+                             synced(reuse()), synced(plain()), max_row_count(coo, mode))
+        rows.append({"max_abs_err_deterministic": err, "same_bits": same_bits,
+                     "max_abs_err_atomic": atomic_err, "reuse_ms": time_ms(reuse),
+                     "plain_ms": time_ms(plain)})
+    return rows
+
+
+def phase16_kron_reuse(dev, card: str, cfg: Optional[dict] = None) -> None:
+    """The paper's Kron reuse (Sec. III-C) on the torch engine, the twin of
+    the reference's XLA engine, on the card: the four Table V tensors and
+    tenant C's shape, each run with ``use_kron_reuse`` on ``engine="torch"``
+    (torch ops alone: no kernel launches) and on the kernel path
+    (``engine="auto"``: ``cuda`` on the card), from the same initial
+    factors. Per mode: the share of distinct Kron rows and the one-call
+    checks of ``reuse_chain_checks``. Per run: ms a sweep and the peak both
+    ways; one timed reuse run against the kernel path's by phase 3's rule
+    (two implementations that sum in different orders): fit 1e-4, factor
+    projectors and the aligned core (``aligned_core_gap``) 1e-3. ``engine="cuda"`` with
+    reuse ignores it: the bits of the run without. ``cfg`` shrinks tenant C
+    for a rehearsal on the CPU."""
+    import dataclasses
+
+    from repro_torch import tucker
+    from repro_torch.core.coo import SparseCOO
+    from repro_torch.sparse.datasets import PAPER_DATASETS
+
+    cfg = {"tenant_c": TENANT_C, **(cfg or {})}
+    tf32_off()
+    log("phase 16: Kron reuse on the torch engine (Table V, tenant C), against the plain "
+        "torch chain and the kernel path; cuda ignores it")
+    tensors = []
+    for name, ds in PAPER_DATASETS.items():
+        coo = ds.build(device=dev)
+        tensors.append((name, coo, tucker.spec_for(coo, ds.ranks, n_iter=ds.n_iter,
+                                                   method="householder")))
+    shape_c, nnz_c, ranks_c, method_c = cfg["tenant_c"]
+    idx, vals = synthetic(dev, shape_c, nnz_c, 13, "uniform")
+    coo = SparseCOO.from_parts(idx, vals, shape_c)
+    tensors.append(("tenant_c", coo, tucker.TuckerSpec(shape_c, ranks_c, method=method_c,
+                                                       n_iter=3)))
+    out = {"phase": "16 Kron reuse", "card": card, "tensors": {}}
+    for name, coo, spec in tensors:
+        row = {"shape": coo.shape, "nnz": coo.nnz}
+        runs = {}
+        for key, engine, reuse in (("reuse", "torch", True), ("kernels", "auto", False)):
+            release_memory()
+            plan = tucker.plan(dataclasses.replace(spec, engine=engine, use_kron_reuse=reuse),
+                               device=dev)
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            reset_launches()
+            cold = plan(coo)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in read_launches().items() if v}
+            timed = []
+            ms = [m / spec.n_iter for m in warm_ms(lambda: timed.append(plan(coo)))]
+            row[key] = {"sweep_ms": float(np.median(ms)), "sweep_ms_runs": ms,
+                        "peak_above_resident_gb": (torch.cuda.max_memory_allocated()
+                                                   - resident) / 1e9,
+                        "schedule_builds_cold": cold.schedule_builds, "launches": launches}
+            check(reuse or dev.type != "cuda" or launches.get("ttm"),
+                  f"16 {name}: the kernel path launched {launches}")
+            if reuse:
+                check(not launches and cold.engine == "torch", f"16 {name}: the torch engine "
+                      f"launched {launches}")
+                check(sorted(plan.engine.kron_plans) == list(range(coo.ndim)),
+                      f"16 {name}: the reuse path did not run")
+                row["unique_share_by_mode"] = [
+                    int(plan.engine.kron_plans[m].unique_indices.shape[0]) / coo.nnz
+                    for m in range(coo.ndim)]
+                row["modes"] = reuse_chain_checks(name, coo, plan, timed[-1])
+            runs[key] = timed[-1]
+            del cold, timed, plan
+        # phase 3's rule for two implementations that sum in different
+        # orders (an f32 fit near 0.1 moves ~1e-6 with the core's last bits:
+        # the angiogram's read 1.3e-6 on an H100), the core aligned as phase 10 aligns
+        # the matmul tensor's (its QRP pivots tie, so the columns may come in
+        # another order)
+        got, want = runs["reuse"], runs["kernels"]
+        fit_gap = float(np.abs(got.fit_history - want.fit_history).max())
+        proj_gap = max(projector_gap(a, b) for a, b in zip(got.factors, want.factors))
+        core_gap_ = aligned_core_gap(got, want)
+        row.update(fit_gap=fit_gap, projector_gap=proj_gap, core_gap_over_scale=core_gap_)
+        log(f"  16 {name} a timed reuse run against the kernel path: fit {fit_gap:.3e} <= "
+            f"1e-4, projectors {proj_gap:.3e} <= 1e-3, core {core_gap_:.3e} <= 1e-3 "
+            f"x max|core| (aligned)")
+        check(got.fit_history.shape == want.fit_history.shape and fit_gap <= 1e-4
+              and proj_gap <= 1e-3 and core_gap_ <= 1e-3,
+              f"16 {name}: the reuse run disagrees with the kernel path's")
+        # cuda ignores the flag: the bits of the cuda run without it (a
+        # rehearsal on the CPU has no cuda engine)
+        same = None
+        if dev.type == "cuda":
+            cuda = tucker.plan(dataclasses.replace(spec, engine="cuda", use_kron_reuse=True),
+                               device=dev)(coo)
+            want = runs["kernels"]
+            same = (np.array_equal(cuda.fit_history, want.fit_history)
+                    and torch.equal(cuda.core, want.core)
+                    and all(torch.equal(a, b) for a, b in zip(cuda.factors, want.factors)))
+            del cuda
+        row["cuda_reuse_same_bits"] = same
+        log(f"  16 {name} {coo.shape} {coo.nnz} nnz: distinct Kron rows / nnz by mode "
+            + ", ".join(f"{u:.4f}" for u in row["unique_share_by_mode"])
+            + "; one unfolding reuse / plain chain ms by mode "
+            + ", ".join(f"{m['reuse_ms']:.3f} / {m['plain_ms']:.3f}" for m in row["modes"])
+            + f"; ms a sweep reuse {row['reuse']['sweep_ms']:.3f}, kernel path "
+            f"{row['kernels']['sweep_ms']:.3f}; peak above the tensor "
+            f"{row['reuse']['peak_above_resident_gb']:.4f} / "
+            f"{row['kernels']['peak_above_resident_gb']:.4f} GB; cuda with reuse gives its "
+            f"bits without: {same}")
+        check(same is not False, f"16 {name}: engine='cuda' with use_kron_reuse changed the bits")
+        out["tensors"][name] = row
+        del runs
+    del tensors
+    release_memory()
+    print(json.dumps(out), flush=True)
+
+
+# -- phase 17: the sharded service across 4 ranks ------------------------------
+
+SERVICE_SHARD_WORLD = 4
+SERVICE_SHARD_TENANTS = ("A", "C")  # phase 12's tenants A and C
+
+
+def service_shard_requests(dev, cfg: dict) -> list:
+    """Phase 12's requests of tenants A and C (the same seeds), each
+    (tenant index, COO on ``dev``, generator seed)."""
+    from repro_torch.core.coo import SparseCOO
+
+    reqs = []
+    for t, (name, shape, _, _, _, n_req, (lo, hi)) in enumerate(cfg["tenants"]):
+        if name not in SERVICE_SHARD_TENANTS:
+            continue
+        rng = np.random.default_rng(1200 + t)
+        for i in range(n_req):
+            seed = 12_000 + 1000 * t + i
+            idx, vals = synthetic(dev, shape, int(rng.integers(lo, hi + 1)), seed, "uniform")
+            reqs.append((t, SparseCOO.from_parts(idx, vals, shape), seed))
+    return reqs
+
+
+def serve_requests(svc, specs, reqs, threads: int) -> dict:
+    """Submit ``reqs`` from ``threads`` threads (tenant groups in turns, as
+    phase 12) and wait for every result: the results in request order, the
+    burst's seconds and each request's end-to-end ms."""
+    import threading
+
+    per_thread = [list(range(len(reqs)))[th::threads] for th in range(threads)]
+    tickets, errors = [None] * len(reqs), []
+    barrier = threading.Barrier(threads + 1)
+
+    def submitter(th):
+        barrier.wait(60)
+        try:
+            for i in per_thread[th]:
+                t, coo, seed = reqs[i]
+                tickets[i] = svc.submit_coo(coo, specs[t],
+                                            generator=torch.Generator().manual_seed(seed))
+        except Exception as exc:  # reported below: the phase fails
+            errors.append(exc)
+
+    workers = [threading.Thread(target=submitter, args=(th,)) for th in range(threads)]
+    for w in workers:
+        w.start()
+    barrier.wait(60)
+    t0 = time.perf_counter()
+    for w in workers:
+        w.join(600)
+    check(not errors and not any(w.is_alive() for w in workers), f"submitters failed: {errors}")
+    results = [tk.result(timeout=SHARD_TIMEOUT_S) for tk in tickets]
+    return {"results": results, "seconds": time.perf_counter() - t0,
+            "total_ms": [r.timing.total_ms for r in results]}
+
+
+def _service_specs(cfg: dict) -> list:
+    from repro_torch import tucker
+
+    return [tucker.TuckerSpec(shape, ranks, method=method, n_iter=sweeps)
+            for _, shape, ranks, method, sweeps, _, _ in cfg["tenants"]]
+
+
+def _shard_job_service(rank, world, dev, tmp, cfg) -> dict:
+    """17: rank 0 serves phase 12's tenants A and C through
+    ``TuckerService(ServiceConfig(shard=ShardSpec(world)))`` from 4
+    submitting threads; the other ranks follow (``serve_follower``) until
+    rank 0's ``close()``. Each rank's kernel launches, counted from just
+    before it serves or follows to just after the stop."""
+    import repro_torch.obs as obs
+    from repro_torch import tucker
+    from repro_torch.serve import ServiceConfig, TuckerService, serve_follower
+
+    svc_cfg = ServiceConfig(shard=tucker.ShardSpec(world), max_batch=SERVICE_MAX_BATCH,
+                            max_wait_ms=5.0, max_inflight_flushes=2, device=str(dev))
+    if rank != 0:
+        reset_launches()
+        serve_follower(svc_cfg)
+        _shard_sync(dev)
+        return {"returned": True, "launches": read_launches()}
+    reqs = service_shard_requests(dev, cfg)
+    _shard_sync(dev)
+    obs.tracer.clear()
+    obs.configure(enabled=True)
+    try:
+        reset_launches()
+        svc = TuckerService(svc_cfg)
+        served = serve_requests(svc, _service_specs(cfg), reqs, SERVICE_THREADS)
+        svc.close()
+        _shard_sync(dev)
+        launches = read_launches()
+        snap = svc.metrics.snapshot()
+        announces = [(e.attrs["announce_bytes"], e.attrs["announce_ms"], e.attrs["batch_size"])
+                     for e in obs.tracer.events()
+                     if e.name == "serve.dispatch" and "announce_bytes" in e.attrs]
+    finally:
+        obs.configure(enabled=False)
+    return {"returned": True, "launches": launches, "seconds": served["seconds"],
+            "total_ms": served["total_ms"],
+            "results": [_shard_result(r, {}) for r in served["results"]],
+            "dispatches": snap["dispatches"], "announces": announces}
+
+
+SHARD_JOBS["service"] = _shard_job_service
+
+
+def phase17_sharded_service(dev, card: str, cfg: Optional[dict] = None) -> None:
+    """The service across ranks: 4 gloo ranks sharing the card, rank 0
+    serving phase 12's tenants A (64 requests) and C (16) from 4 threads
+    into 2 executors, the others following; every result within phase
+    14b's tolerances of the same request served by a world-of-one service
+    here, every rank back from ``close()``; requests/s, p50 / p99, and the
+    announces' bytes and ms a request. Overhead figures (4 processes time-
+    share one card and gloo stages through the host), not scaling. ``cfg``
+    shrinks the tenants for a rehearsal on the CPU."""
+    import shutil
+    import tempfile
+
+    from repro_torch import tucker
+    from repro_torch.serve import ServiceConfig, TuckerService
+
+    cfg = {"device": str(dev), "tenants": SERVICE_TENANTS, **(cfg or {})}
+    release_memory()
+    log(f"phase 17: TuckerService(shard=ShardSpec({SERVICE_SHARD_WORLD})) across "
+        f"{SERVICE_SHARD_WORLD} gloo ranks sharing the card, tenants {SERVICE_SHARD_TENANTS}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_phase17_")
+    try:
+        t0 = time.perf_counter()
+        ranks = run_ranks("service", SERVICE_SHARD_WORLD, "gloo", tmp, cfg)
+        t_ranks = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(all(r["returned"] for r in ranks), "17: a follower did not return after close()")
+    r0 = ranks[0]
+    # the same requests through a world-of-one service, here
+    reqs = service_shard_requests(dev, cfg)
+    with TuckerService(ServiceConfig(shard=tucker.ShardSpec(1), max_batch=SERVICE_MAX_BATCH,
+                                     max_wait_ms=5.0, device=str(dev))) as svc:
+        one = serve_requests(svc, _service_specs(cfg), reqs, SERVICE_THREADS)
+    check(len(r0["results"]) == len(reqs), f"17: {len(r0['results'])} results for "
+          f"{len(reqs)} requests")
+    worst = {"fit_gap": 0.0, "projector_gap": 0.0, "core_gap_over_scale": 0.0}
+    for got, want in zip(r0["results"], one["results"]):
+        fit, factors, core = host_copy(want)
+        gaps = within_phase3_tolerances("17 a request against the world of one",
+                                        _as_run(got, dev), fit, factors, core)
+        worst = {k: max(worst[k], gaps[k]) for k in worst}
+    n = len(reqs)
+    lat = np.asarray(r0["total_ms"])
+    # one announce a flush, for all its requests; a sharded request is one dispatch
+    ann_bytes = sum(b for b, _, _ in r0["announces"])
+    ann_ms = [m for _, m, _ in r0["announces"]]
+    check(sum(k for _, _, k in r0["announces"]) == r0["dispatches"] == n,
+          f"17: announces for {sum(k for _, _, k in r0['announces'])} requests, "
+          f"{r0['dispatches']} dispatches, {n} requests")
+    # every rank ran each request's sweeps through the kernels on its slice:
+    # kernel 1 a mode (3-way, tenant A) or kernels 3 and 4 (4-way, C), and
+    # kernel 2 once, a sweep (on the card; a rehearsal on the CPU launches none)
+    want = {}
+    for r in r0["results"]:
+        for k, v in single_run_launches(r["core"].dim()).items():
+            want[k] = want.get(k, 0) + v * len(r["fit"])
+    launches = [{k: v for k, v in r["launches"].items() if v} for r in ranks]
+    log(f"  17 launches by rank {launches}, each rank wants {want}")
+    check(dev.type != "cuda" or all(got == want for got in launches),
+          f"17: launches by rank {launches}, want {want} on every rank")
+    out = {"phase": "17 sharded service", "card": card, "world": SERVICE_SHARD_WORLD,
+           "requests": n, "spawn_and_serve_s": t_ranks,
+           "requests_per_s": n / r0["seconds"], "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)),
+           "world_of_one_requests_per_s": n / one["seconds"],
+           "flushes": len(ann_ms), "announce_bytes_per_request": ann_bytes / n,
+           "announce_ms_per_request": sum(ann_ms) / n,
+           "announce_ms_max": float(np.max(ann_ms)), "vs_world_of_one": worst,
+           "launches_by_rank": launches}
+    log(f"  17: {n} requests across {SERVICE_SHARD_WORLD} ranks: {out['requests_per_s']:.2f} "
+        f"requests/s (a world of one {out['world_of_one_requests_per_s']:.2f}), p50 "
+        f"{out['p50_ms']:.1f} ms, p99 {out['p99_ms']:.1f} ms; an announce "
+        f"{out['announce_bytes_per_request'] / 1e3:.1f} KB and "
+        f"{out['announce_ms_per_request']:.2f} ms a request; worst against the world of one "
+        f"{worst}; every follower returned")
+    del reqs, one
+    release_memory()
     print(json.dumps(out), flush=True)
 
 

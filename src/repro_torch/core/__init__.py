@@ -13,10 +13,9 @@ Modules mirror the reference's:
   reconstruct.py  Eq. 7 reconstruction and error metrics
   distributed.py  sharded sparse HOOI over torch.distributed
 
-The names below are the reference's re-exports, as far as the port has
-them (the Kron-reuse functions come with ``use_kron_reuse``). As in the
-reference, ``qrp`` and ``ttm`` here are the functions: reach their modules
-through ``importlib.import_module("repro_torch.core.qrp")``.
+The names below are the reference's re-exports. As in the reference,
+``qrp`` and ``ttm`` here are the functions: reach their modules through
+``importlib.import_module("repro_torch.core.qrp")``.
 """
 from repro_torch.core.coo import SparseCOO, fold_dense, unfold_dense
 from repro_torch.core.distributed import hooi_sparse_distributed
@@ -36,7 +35,13 @@ from repro_torch.core.hooi import (
     sparse_sweep,
     tucker_complete_dense,
 )
-from repro_torch.core.kron import kron_rows, sparse_ttm_chain
+from repro_torch.core.kron import (
+    kron_rows,
+    precompute_kron_reuse,
+    sparse_ttm_chain,
+    sparse_ttm_chain_reuse,
+    sparse_ttm_chain_reuse_device,
+)
 from repro_torch.core.qrp import factor_update, qrp, qrp_gram, qrp_householder, svd_factor
 from repro_torch.core.reconstruct import (
     compression_ratio,
@@ -62,6 +67,7 @@ __all__ = [
     "init_factors",
     "kron_rows",
     "make_engine",
+    "precompute_kron_reuse",
     "qrp",
     "qrp_gram",
     "qrp_householder",
@@ -71,6 +77,8 @@ __all__ = [
     "resolve_engine",
     "sparse_sweep",
     "sparse_ttm_chain",
+    "sparse_ttm_chain_reuse",
+    "sparse_ttm_chain_reuse_device",
     "svd_factor",
     "ttm",
     "ttm_chain",

@@ -1,17 +1,24 @@
 """Sweep engine: where each ALS sweep's two hot loops run, plus the cached
 per-mode schedules of the tensor being decomposed.
 
-Port of ``repro.core.engine``. Both engines run one code path — the
-schedule-ordered unfolding (``kernels.ops``) and the core update, either the
-TTM kernel on the materialised last unfolding or, with ``fuse_core``, the
-megakernel that rebuilds it from the nonzeros — and differ only in the
-device of their tensors:
+Port of ``repro.core.engine``. The kernel path — the schedule-ordered
+unfolding (``kernels.ops``) and the core update, either the TTM kernel on
+the materialised last unfolding or, with ``fuse_core``, the megakernel that
+rebuilds it from the nonzeros — runs the same code on both devices and
+differs only in the device of its tensors:
 
   ``cuda``   the hand-written CUDA kernels, on a CUDA device;
-  ``torch``  their plain PyTorch versions, on the CPU;
+  ``torch``  on the CPU, their plain PyTorch versions on the same schedules;
   ``auto``   ``cuda`` on a CUDA device, ``torch`` on the CPU.
 
-Nothing on the card selects the plain versions.
+``torch`` with ``use_kron_reuse`` is the twin of the reference's XLA engine
+with Kron reuse, on either device: the paper's Kron-reuse chain of
+``core.kron`` in torch ops and the core update as one ``torch.matmul``, no
+kernel of the port's and no plain version of one; ``fuse_core`` is a
+kernel-path layout, which it ignores, as the XLA engine does. That is the
+one way ``torch`` runs on a CUDA device. Kron reuse is honoured on
+``torch`` only: ``cuda``'s kernel 1 reads the factor rows through its
+schedule, as the reference's Pallas engine ignores it.
 
 A sharded plan wraps its engine in a :class:`ShardedSweepEngine`: the
 engine runs on the rank's slice of the nonzeros (``shard_schedule``) and
@@ -27,12 +34,16 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.coo import SparseCOO
+from repro_torch.core.kron import sparse_ttm_chain_reuse_device
+from repro_torch.core.ttm import ttm_unfolded
 from repro_torch.kernels import ops
 from repro_torch.kernels.kron_kernel import DEFAULT_BI, DEFAULT_BN, PRECISIONS
 from repro_torch.sparse.layout import (
     SLOTS_PER_PART,
     DeviceSchedule,
+    KronReusePlan,
     ShardSchedule,
+    build_kron_reuse,
     build_mode_layout,
     build_shard_schedule,
 )
@@ -41,7 +52,7 @@ ENGINES = ("auto", "cuda", "torch")
 JAX_ENGINES = ("xla", "pallas")
 
 
-def resolve_engine(engine: str, device) -> str:
+def resolve_engine(engine: str, device, use_kron_reuse: bool = False) -> str:
     """Map a requested engine and a device to the engine that will run."""
     if engine in JAX_ENGINES:
         raise ValueError(
@@ -55,10 +66,11 @@ def resolve_engine(engine: str, device) -> str:
         return "cuda" if on_card else "torch"
     if engine == "cuda" and not on_card:
         raise ValueError(f"engine='cuda' needs a CUDA device, got {device}")
-    if engine == "torch" and on_card:
+    if engine == "torch" and on_card and not use_kron_reuse:
         raise ValueError(
             "engine='torch' runs the plain versions of the kernels, which the "
-            "port never selects on a CUDA device: use engine='auto' or 'cuda'"
+            "port never selects on a CUDA device: use engine='auto' or 'cuda' "
+            "(or use_kron_reuse=True, the Kron-reuse chain in torch ops)"
         )
     return engine
 
@@ -119,6 +131,8 @@ class SweepEngine:
     precision: str = "fp32"
     # core update through the fused megakernel instead of the split TTM.
     fuse_core: bool = False
+    # the paper's Kron reuse (Sec. III-C), honoured on the torch engine only
+    use_kron_reuse: bool = False
     # the schedule's geometry (nonzeros per block, rows per block) and the
     # unfolding kernel's row split: the launch parameters the autotuner sets
     # (``apply_blocks``); the defaults are the hand-picked ones.
@@ -131,24 +145,51 @@ class SweepEngine:
     # this rank's slices of a whole tensor (sharded plans), by (mesh,
     # target_nnz)
     shard_schedules: Dict[tuple, ShardSchedule] = dataclasses.field(default_factory=dict)
-    # what each cache was built from: the mode schedules from the tensor
-    # they sweep (a rank's slice under shard), the slices from the whole
-    # tensor
+    # the Kron-reuse dedup of each mode (use_kron_reuse on the torch engine)
+    kron_plans: Dict[int, KronReusePlan] = dataclasses.field(default_factory=dict)
+    # what each cache was built from: the mode schedules and dedup plans
+    # from the tensor they sweep (a rank's slice under shard), the slices
+    # from the whole tensor
     _dev_binding: "_Binding" = dataclasses.field(init=False, repr=False)
+    _kron_binding: "_Binding" = dataclasses.field(init=False, repr=False)
     _shard_binding: "_Binding" = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self) -> None:
         self._dev_binding = _Binding(self.dev_schedules)
+        self._kron_binding = _Binding(self.kron_plans)
         self._shard_binding = _Binding(self.shard_schedules)
 
+    @property
+    def reuses_kron(self) -> bool:
+        """Whether the sweeps run the Kron-reuse chain and the core update
+        by ``torch.matmul`` in place of the kernel path: the flag, on the
+        torch engine (the reference's rule: its XLA engine only)."""
+        return self.use_kron_reuse and self.name == "torch"
+
+    def kron_plan(self, coo: SparseCOO, mode: int) -> KronReusePlan:
+        """The mode's Kron-reuse dedup (``sparse.layout.build_kron_reuse``),
+        built once per tensor on the tensor's device and counted as a
+        schedule build."""
+        self._kron_binding.bind(coo)
+        if mode not in self.kron_plans:
+            self.kron_plans[mode] = build_kron_reuse(coo, mode)
+            self.schedule_builds += 1
+        return self.kron_plans[mode]
+
     def device_schedule(self, coo: SparseCOO, mode: int) -> DeviceSchedule:
-        """The mode's schedule on the engine's device, built once."""
+        """The mode's schedule on the engine's device, built once: the
+        kernels' row-block schedule, or with Kron reuse the dedup alone
+        (``DeviceSchedule.from_kron_plan``), as the reference's."""
         self._dev_binding.bind(coo)
         if mode not in self.dev_schedules:
-            self.dev_schedules[mode] = DeviceSchedule.from_layout(
-                build_mode_layout(coo, mode, bn=self.bn, bi=self.bi), coo, self.device,
-                slots_per_part=self.slots_per_part,
-            )
+            if self.reuses_kron:
+                self.dev_schedules[mode] = DeviceSchedule.from_kron_plan(
+                    self.kron_plan(coo, mode), mode, tuple(coo.shape), self.device)
+            else:
+                self.dev_schedules[mode] = DeviceSchedule.from_layout(
+                    build_mode_layout(coo, mode, bn=self.bn, bi=self.bi), coo, self.device,
+                    slots_per_part=self.slots_per_part,
+                )
             self.schedule_builds += 1
         return self.dev_schedules[mode]
 
@@ -180,7 +221,13 @@ class SweepEngine:
 
     def mode_unfolding(self, coo: SparseCOO, factors: Sequence[torch.Tensor],
                        mode: int) -> torch.Tensor:
-        """Y_(mode): (I_mode, prod_{t != mode} R_t), f32 (Alg. 2 line 5)."""
+        """Y_(mode): (I_mode, prod_{t != mode} R_t), f32 or f64 (Alg. 2
+        line 5): the kernel path, or the Kron-reuse chain
+        (:attr:`reuses_kron`)."""
+        if self.reuses_kron:
+            return sparse_ttm_chain_reuse_device(
+                coo.indices, coo.values, factors, mode, self.device_schedule(coo, mode),
+                shape=tuple(coo.shape))
         return ops.sparse_ttm_chain_device(
             coo.indices, coo.values, factors, mode,
             self.device_schedule(coo, mode),
@@ -189,7 +236,10 @@ class SweepEngine:
 
     def core_unfolding(self, y_n: torch.Tensor, u_last: torch.Tensor) -> torch.Tensor:
         """G_(N) = U_N^T Y_(N) (Eq. 12), through the TTM kernel on the
-        transposed views (no copy of the unfolding)."""
+        transposed views (no copy of the unfolding); with Kron reuse one
+        matmul, as the reference's XLA engine."""
+        if self.reuses_kron:
+            return ttm_unfolded(y_n.T, u_last.T).T
         return ops.ttm(y_n.T, u_last.T, precision=self.precision).T
 
     def core_update(self, coo: SparseCOO, factors: Sequence[torch.Tensor],
@@ -202,9 +252,10 @@ class SweepEngine:
         through the whole chain and then run the same TTM), so they take
         the split TTM directly. The reference takes the fused path only on
         its kernel engine; both engines here are kernel engines (``torch``
-        runs the kernels' plain versions), so both honour the flag."""
+        runs the kernels' plain versions), so both honour the flag, unless
+        Kron reuse takes the XLA engine's place."""
         n = coo.ndim
-        if self.fuse_core and n <= 3:
+        if self.fuse_core and n <= 3 and not self.reuses_kron:
             return ops.sparse_ttm_core_device(
                 coo.indices, coo.values, factors, n - 1,
                 self.device_schedule(coo, n - 1),
@@ -264,13 +315,15 @@ class ShardedSweepEngine:
 
 
 def make_engine(engine: str = "auto", device="cuda", *,
-                precision: str = "fp32", fuse_core: bool = False) -> SweepEngine:
+                precision: str = "fp32", fuse_core: bool = False,
+                use_kron_reuse: bool = False) -> SweepEngine:
     """Resolve ``engine`` for ``device`` and build a reusable engine."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
     device = torch.device(device)
-    return SweepEngine(name=resolve_engine(engine, device), device=device,
-                       precision=precision, fuse_core=fuse_core)
+    return SweepEngine(name=resolve_engine(engine, device, use_kron_reuse), device=device,
+                       precision=precision, fuse_core=fuse_core,
+                       use_kron_reuse=use_kron_reuse)
 
 
 def available_engines() -> List[str]:

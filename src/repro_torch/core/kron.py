@@ -4,9 +4,13 @@ Alg. 2 line 5 / Eq. (13): for every nonzero x at (i_1..i_N),
 
     Y_(n)(i_n, :) += x * [ kron_{t != n} U_t(i_t, :) ]
 
-over the nonzeros only. Port of ``repro.core.kron`` (without the Kron-reuse
-dedup). :func:`sparse_ttm_chain` is the plain twin of the unfolding the
-CUDA kernel computes: original nonzero order, one ``index_add_``.
+over the nonzeros only. Port of ``repro.core.kron``. :func:`sparse_ttm_chain`
+is the plain twin of the unfolding the CUDA kernel computes: original
+nonzero order, one ``index_add_``. The paper's reuse trick (Sec. III-C, "a
+Kronecker product can be re-used for all non-zero elements that share the
+same indices"): :func:`sparse_ttm_chain_reuse` computes each distinct
+Kronecker row once (:func:`precompute_kron_reuse`), gathers it for every
+nonzero and scatter-adds, the same result.
 
 Column ordering: the Kronecker product runs over the non-mode factors in
 *descending* mode order, so the first non-mode dimension varies fastest —
@@ -20,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.coo import SparseCOO
+from repro_torch.sparse.layout import KronReusePlan, build_kron_reuse
 
 
 def kron_rows(rows: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -80,6 +85,69 @@ def sparse_ttm_chain(
     out = torch.zeros((coo.shape[skip_mode], k.shape[1]), dtype=dt,
                       device=coo.device)
     return out.index_add_(0, coo.indices[:, skip_mode], contrib)
+
+
+def precompute_kron_reuse(coo: SparseCOO, skip_mode: int) -> KronReusePlan:
+    """The dedup of the non-mode coordinate tuples, so that each distinct
+    Kronecker row is computed once (Sec. III-C): an alias of
+    :func:`repro_torch.sparse.layout.build_kron_reuse`, as in the
+    reference."""
+    return build_kron_reuse(coo, skip_mode)
+
+
+def _reuse_chain(
+    indices: torch.Tensor,
+    values: torch.Tensor,
+    factors: Sequence[torch.Tensor],
+    skip_mode: int,
+    unique_indices: torch.Tensor,
+    inverse: torch.Tensor,
+    modes: Sequence[int],
+    shape: Sequence[int],
+) -> torch.Tensor:
+    """The reuse chain both entry points share: each unique Kronecker row
+    once, gathered for every nonzero, scaled and ``index_add_``-ed into
+    Y_(n), in the dtype the reference promotes to (values and factors, at
+    least f32)."""
+    if indices.shape[0] == 0:
+        return zero_unfolding(tuple(shape), factors, skip_mode)
+    rows = [factors[t].index_select(0, unique_indices[:, c]) for c, t in enumerate(modes)]
+    k = kron_rows(rows).index_select(0, inverse)  # (n_unique, K), then (nnz, K)
+    dt = torch.promote_types(torch.promote_types(values.dtype, k.dtype), torch.float32)
+    contrib = k.to(dt) * values.to(dt)[:, None]
+    out = torch.zeros((shape[skip_mode], k.shape[1]), dtype=dt, device=values.device)
+    return out.index_add_(0, indices[:, skip_mode], contrib)
+
+
+def sparse_ttm_chain_reuse(
+    coo: SparseCOO,
+    factors: Sequence[torch.Tensor],
+    skip_mode: int,
+    plan: KronReusePlan,
+) -> torch.Tensor:
+    """:func:`sparse_ttm_chain` with each unique Kronecker row computed
+    once (``plan``, :func:`precompute_kron_reuse`) and gathered for every
+    nonzero: the same result, fewer multiplies where nonzeros share their
+    non-mode coordinates."""
+    return _reuse_chain(coo.indices, coo.values, factors, skip_mode, plan.unique_indices,
+                        plan.inverse, plan.modes, coo.shape)
+
+
+def sparse_ttm_chain_reuse_device(
+    indices: torch.Tensor,
+    values: torch.Tensor,
+    factors: Sequence[torch.Tensor],
+    skip_mode: int,
+    sched,
+    *,
+    shape: Sequence[int],
+) -> torch.Tensor:
+    """:func:`sparse_ttm_chain_reuse` with the dedup already on the sweep's
+    device (``sched.kron_unique`` / ``kron_inverse`` / ``kron_modes`` of a
+    :class:`~repro_torch.sparse.layout.DeviceSchedule` from
+    ``DeviceSchedule.from_kron_plan``), as the sweep loop calls it."""
+    return _reuse_chain(indices, values, factors, skip_mode, sched.kron_unique,
+                        sched.kron_inverse, sched.kron_modes, shape)
 
 
 def kron_flops(coo: SparseCOO, ranks: Sequence[int], skip_mode: int) -> int:

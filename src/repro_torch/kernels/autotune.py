@@ -160,15 +160,23 @@ def _operand_ranks(ranks: Sequence[int], mode: int):
     return rs[0], (rs[1] if len(rs) > 1 else 0)
 
 
-def _ring_bytes(ra: int, rb: int, precision: str) -> int:
+def _elem_bytes(precision: str, dtype: str) -> int:
+    """Bytes of one staged factor element: bf16 under ``bf16_fp32acc``, else
+    the dtype's (f32 4, f64 8)."""
+    if precision == "bf16_fp32acc":
+        return 2
+    return 8 if str(dtype) == "float64" else 4
+
+
+def _ring_bytes(ra: int, rb: int, precision: str, dtype: str = "float32") -> int:
     """One warp's staging ring, as ``kron_scatter_launch`` and
     ``kron_scatter_ttm.cu::shape_of`` compute it (``staged_strides`` of the
-    factor rows padded to 16 bytes)."""
-    bf16 = precision == "bf16_fp32acc"
-    elem = 2 if bf16 else 4
+    factor rows padded to 16 bytes; the f32 route's tile strides, or the
+    CUDA-core routes' (bf16, f64))."""
+    elem = _elem_bytes(precision, dtype)
     per16 = 16 // elem
     lda, ldb = _round_up(ra, per16), (_round_up(rb, per16) if rb else 0)
-    if bf16:
+    if elem != 4:
         sla = _round_up(max(lda, _round_up(ra, _K_TA)), 8)
         slb = _round_up(max(ldb, _round_up(rb, _K_TB)), 8) if ldb else 0
     else:
@@ -191,7 +199,7 @@ def _mega_cta_bytes(nw: int, r: int, ring: int) -> int:
 
 
 def smem_bytes(cfg: BlockConfig, shape: Sequence[int], ranks: Sequence[int],
-               precision: str = "fp32") -> int:
+               precision: str = "fp32", dtype: str = "float32") -> int:
     """Shared memory of the busiest block this configuration launches: one
     warp's staging ring of kernel 1 (the launcher runs as many warps as fit,
     at least one) and, for the fused layout, kernel 5's CTA of one warp (it
@@ -200,9 +208,9 @@ def smem_bytes(cfg: BlockConfig, shape: Sequence[int], ranks: Sequence[int],
     n = len(shape)
     if n > 3:
         return 0
-    ring = max(_ring_bytes(*_operand_ranks(ranks, m), precision) for m in range(n))
+    ring = max(_ring_bytes(*_operand_ranks(ranks, m), precision, dtype) for m in range(n))
     if cfg.layout == "fused":
-        last = _ring_bytes(*_operand_ranks(ranks, n - 1), precision)
+        last = _ring_bytes(*_operand_ranks(ranks, n - 1), precision, dtype)
         return max(ring, _mega_cta_bytes(1, ranks[n - 1], last))
     return ring
 
@@ -228,32 +236,34 @@ def padded_slots(cfg: BlockConfig, shape: Sequence[int], nnz: int) -> int:
 
 
 def sweep_bytes(cfg: BlockConfig, shape: Sequence[int], ranks: Sequence[int], nnz: int,
-                precision: str = "fp32") -> int:
+                precision: str = "fp32", dtype: str = "float32") -> int:
     """Modeled bytes one sweep's unfoldings and core update move: every
     padded slot's coordinates, value and row read once a mode (order <= 3;
     above, the chained (slots, K) rows written and read as well), each
     unfolding written, the last one read back by kernel 2 on the split
     layout, and the row split's boundaries. The fused layout writes no last
     unfolding; its partials take one (R, K) block per CTA (264 CTAs, an
-    H100's two a SM)."""
+    H100's two a SM). Values and Y entries take 8 bytes in f64 (at
+    ``fp32``), 4 otherwise."""
     n = len(shape)
     slots = padded_slots(cfg, shape, nnz) // n
+    e = 8 if str(dtype) == "float64" and precision == "fp32" else 4
     total = 0
     for m in range(n):
         k = 1
         for t in range(n):
             if t != m:
                 k *= int(ranks[t])
-        per_slot = 4 * (n - 1) + 8  # coordinates, value, row
+        per_slot = 4 * (n - 1) + e + 4  # coordinates, value, row
         total += slots * per_slot + 8 * (slots // max(1, cfg.slots_per_part) + 1)
         if n > 3:  # the chain's rows: written by kron_contrib, read by scatter_rows
-            total += 2 * slots * k * 4
+            total += 2 * slots * k * e
         if m == n - 1 and cfg.layout == "fused" and n <= 3:
             total += 264 * int(ranks[m]) * k * 4
         else:
-            total += int(shape[m]) * k * 4
+            total += int(shape[m]) * k * e
             if m == n - 1:
-                total += int(shape[m]) * k * 4  # kernel 2 reads it back
+                total += int(shape[m]) * k * e  # kernel 2 reads it back
     return total
 
 
@@ -266,26 +276,29 @@ def _smem_limit(device) -> int:
 
 
 def candidate_configs(shape: Sequence[int], ranks: Sequence[int], nnz: int, *,
-                      precision: str = "fp32", device=None) -> List[BlockConfig]:
+                      precision: str = "fp32", device=None,
+                      dtype: str = "float32") -> List[BlockConfig]:
     """The pruned, ranked candidate list, ``DEFAULT_CONFIG`` first. The
     fused layout is a candidate for 3-way tensors only, as in the
     reference (kernel 5 also serves 2-way ones; order >= 4 has no
-    megakernel)."""
+    megakernel), and not in float64 (kernel 5 has no f64 instantiation:
+    ROADMAP.md queue 1, item 8b). Shared memory is sized for the dtype's
+    staged elements (f64: 8 bytes)."""
     n = len(shape)
     limit = _smem_limit(device)
     default_slots = padded_slots(DEFAULT_CONFIG, shape, nnz)
-    layouts = LAYOUTS if n == 3 else ("split",)
+    layouts = LAYOUTS if n == 3 and str(dtype) != "float64" else ("split",)
     cands = [BlockConfig(bn, bi, spp, layout)
              for layout in layouts for bn in (64, 128, 256) for bi in (64, 128, 256)
              for spp in (512, 1024, 2048)]
     kept = [c for c in cands
-            if smem_bytes(c, shape, ranks, precision) <= limit
+            if smem_bytes(c, shape, ranks, precision, dtype) <= limit
             and padded_slots(c, shape, nnz) <= SLOT_CACHE_GROWTH * default_slots]
 
     def rank(c: BlockConfig):
         # modeled bytes to three significant digits, then the fewest fields
         # changed from the default
-        b = sweep_bytes(c, shape, ranks, nnz, precision)
+        b = sweep_bytes(c, shape, ranks, nnz, precision, dtype)
         rounded = float(f"{b:.3g}")
         return rounded, sum(x != y for x, y in zip(c, DEFAULT_CONFIG))
 
@@ -414,7 +427,8 @@ def _trial_time_ms_body(cfg, shape, ranks, nnz, *, dtype, precision, device, rep
     dev = torch.device(device)
     if "coo" not in problem:
         problem["coo"] = _synthetic_coo(shape, trial_nnz(nnz), dtype, dev)
-        problem["factors"] = _hooi.init_factors(shape, ranks, device=dev)
+        problem["factors"] = _hooi.init_factors(shape, ranks, dtype=getattr(torch, dtype),
+                                                device=dev)
     coo, fs = problem["coo"], problem["factors"]
     eng = make_engine("auto", dev, precision=precision)
     eng.apply_blocks(cfg)
@@ -472,7 +486,8 @@ def autotune(shape: Sequence[int], ranks: Sequence[int], nnz: int, *,
     _count("searches")
     problem: dict = {}
     with _obs_span("autotune.search", fingerprint=fp, max_trials=int(max_trials)) as sp:
-        cands = candidate_configs(shape, ranks, nnz, precision=precision, device=dev)
+        cands = candidate_configs(shape, ranks, nnz, precision=precision, device=dev,
+                                  dtype=dtype)
         sp.set_attr("candidates", len(cands))
         cands = cands[: max(1, int(max_trials))]
         best_cfg, best_ms = DEFAULT_CONFIG, float("inf")

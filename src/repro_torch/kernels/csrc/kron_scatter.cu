@@ -22,6 +22,13 @@
 // row products on mma.sync 3xTF32, bf16_fp32acc on the CUDA cores), whose
 // row end stores the finished row. Rows no slot reaches stay as the
 // wrapper's zero fill.
+//
+// float64 (T = V = double): the walk's CUDA-core route with f64 factor
+// rows, values, accumulators and output; the same segmented sums, so no
+// f64 atomics either. Per slot it reads 20 B and does 3*K f64 operations:
+// at NELL-2 size 5.9e10, ~1.7 ms at the card's f64 CUDA-core rate. The
+// ring holds twice the f32 bytes, so fewer warps fit a CTA (and one CTA an
+// SM); DMMA (mma.sync m8n8k4 f64) is later work.
 #include "kron_walk.cuh"
 
 namespace {
@@ -33,12 +40,12 @@ using kwalk::kWarps;
 // Three CTAs an SM, as many as the rings' shared memory allows: left to
 // itself ptxas spends registers on the walk until only two fit, and kernel
 // 1 loses time (chip_smoke.py prints the registers of each build).
-template <typename T, bool kTC>
+template <typename T, bool kTC, typename V>
 __global__ void __launch_bounds__(kWarps * 32, 3)
     kron_scatter_kernel(const T* __restrict__ fa, const T* __restrict__ fb,
-                        const int* __restrict__ idx, const float* __restrict__ vals,
+                        const int* __restrict__ idx, const V* __restrict__ vals,
                         const int* __restrict__ rel, const int* __restrict__ blkmap,
-                        const long long* __restrict__ parts, float* __restrict__ out, int n_parts,
+                        const long long* __restrict__ parts, V* __restrict__ out, int n_parts,
                         const kwalk::Shape sh) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -50,9 +57,9 @@ __global__ void __launch_bounds__(kWarps * 32, 3)
 
   const long long k_cols = (long long)sh.ra * sh.rb;
   const int ra = sh.ra, rb = sh.rb, g = lane / 4, t = lane % 4;
-  const kwalk::Tile<kTC> tile(ra, rb, blockIdx.y, lane);
-  auto store_row = [&](int row, const typename kwalk::Tile<kTC>::Acc& acc) {
-    float* o = out + (long long)row * k_cols;
+  const kwalk::Tile<kTC, V> tile(ra, rb, blockIdx.y, lane);
+  auto store_row = [&](int row, const typename kwalk::Tile<kTC, V>::Acc& acc) {
+    V* o = out + (long long)row * k_cols;
     if constexpr (kTC) {
 #pragma unroll
       for (int q = 0; q < kwalk::kNT; ++q)
@@ -75,28 +82,30 @@ __global__ void __launch_bounds__(kWarps * 32, 3)
                       tile, lane, store_row, [] {});
 }
 
-template <typename T, bool kTC>
-int launch(const void* fa, const void* fb, const int* ip, const float* vp, const int* relp,
-           const int* blk, const long long* pp, float* o, int n_parts, const kwalk::Shape& sh,
+template <typename T, bool kTC, typename V>
+int launch(const void* fa, const void* fb, const int* ip, const void* vp, const int* relp,
+           const int* blk, const long long* pp, void* o, int n_parts, const kwalk::Shape& sh,
            int warps, dim3 grid, size_t smem, cudaStream_t st) {
-  auto kernel = kron_scatter_kernel<T, kTC>;
+  auto kernel = kron_scatter_kernel<T, kTC, V>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, warps * 32, smem, st>>>(static_cast<const T*>(fa), static_cast<const T*>(fb),
-                                         ip, vp, relp, blk, pp, o, n_parts, sh);
+                                         ip, static_cast<const V*>(vp), relp, blk, pp,
+                                         static_cast<V*>(o), n_parts, sh);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Y (n_rows, ra*rb) f32, zero-filled by the caller. fa (I_a, lda) and
-// fb (I_b, ldb) are the factor matrices, f32 (bf16 = 0: the tensor-core
-// route) or bf16 (bf16 = 1), their rows zero-padded to 16 bytes (lda, ldb
-// multiples of 4 in f32, 8 in bf16) and 16-byte aligned; fb is null with
-// rb = 1 and ldb = 0 for a 2-way tensor. idx (nnzp, idx_cols) int32 holds
-// each slot's row of fa (column 0) and of fb (column 1); vals (nnzp,) f32
-// the slot values (0 on padding); rel (nnzp,) and blkmap (nnzp/bn,) int32
+// Y (n_rows, ra*rb), zero-filled by the caller, f32 (f64 for kind = 2).
+// fa (I_a, lda) and fb (I_b, ldb) are the factor matrices, f32 (kind = 0:
+// the tensor-core route), bf16 (kind = 1) or f64 (kind = 2), their rows
+// zero-padded to 16 bytes (lda, ldb multiples of 4 in f32, 8 in bf16, 2 in
+// f64) and 16-byte aligned; fb is null with rb = 1 and ldb = 0 for a 2-way
+// tensor. idx (nnzp, idx_cols) int32 holds each slot's row of fa (column
+// 0) and of fb (column 1); vals (nnzp,) the slot values, f32 (f64 for
+// kind = 2), 0 on padding; rel (nnzp,) and blkmap (nnzp/bn,) int32
 // the rows; parts (n_parts + 1,) int64 row-aligned slot ranges, one per
 // warp. Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue when the arguments are out of range or one warp's
@@ -104,12 +113,13 @@ int launch(const void* fa, const void* fb, const int* ip, const float* vp, const
 extern "C" int kron_scatter_launch(const void* fa, const void* fb, const void* idx,
                                    const void* vals, const void* rel, const void* blkmap,
                                    const void* parts, void* out, int n_parts, int ra, int rb,
-                                   int lda, int ldb, int idx_cols, int bn, int bi, int bf16,
+                                   int lda, int ldb, int idx_cols, int bn, int bi, int kind,
                                    void* stream) {
-  const int elem = bf16 ? 2 : 4;
+  if (kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
+  const int elem = kind == 1 ? 2 : kind == 2 ? 8 : 4;
   if (n_parts < 1 || !kwalk::shapes_ok(ra, rb, lda, ldb, idx_cols, bn, bi, 16 / elem))
     return (int)cudaErrorInvalidValue;
-  const bool tc = !bf16;
+  const bool tc = kind == 0;
   kwalk::Shape sh{ra, rb, lda, ldb, 0, 0, idx_cols, bn, bi};
   kwalk::staged_strides(ra, rb, lda, ldb, tc, &sh.sla, &sh.slb);
   int dev = 0, smem_max = 0;
@@ -122,14 +132,15 @@ extern "C" int kron_scatter_launch(const void* fa, const void* fb, const void* i
   const size_t smem = per_warp * warps;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* ip = static_cast<const int*>(idx);
-  const float* vp = static_cast<const float*>(vals);
   const int* relp = static_cast<const int*>(rel);
   const int* blk = static_cast<const int*>(blkmap);
   const long long* pp = static_cast<const long long*>(parts);
-  float* o = static_cast<float*>(out);
-  if (bf16)
-    return launch<__nv_bfloat16, false>(fa, fb, ip, vp, relp, blk, pp, o, n_parts, sh, warps,
-                                        grid, smem, st);
-  return launch<float, true>(fa, fb, ip, vp, relp, blk, pp, o, n_parts, sh, warps, grid, smem,
-                             st);
+  if (kind == 1)
+    return launch<__nv_bfloat16, false, float>(fa, fb, ip, vals, relp, blk, pp, out, n_parts, sh,
+                                               warps, grid, smem, st);
+  if (kind == 2)
+    return launch<double, false, double>(fa, fb, ip, vals, relp, blk, pp, out, n_parts, sh,
+                                         warps, grid, smem, st);
+  return launch<float, true, float>(fa, fb, ip, vals, relp, blk, pp, out, n_parts, sh, warps,
+                                    grid, smem, st);
 }

@@ -50,6 +50,10 @@
 //     kron_term, the plain version's rounding, which the tensor cores cannot
 //     reproduce). A lane owns a 4 x 2 register tile of the row: eight terms
 //     per slot from one 8-byte and one 4-byte shared load.
+//   * float64, on the CUDA cores too (the same lane tiles; T = V = double):
+//     each term round(round(a*b)*v) in f64, summed in f64 in slot order,
+//     the plain version's arithmetic. The value type V (of vals and of the
+//     accumulators) is float on the other two routes.
 #pragma once
 
 #include <algorithm>
@@ -122,6 +126,28 @@ __device__ __forceinline__ void load2(const __nv_bfloat16* p, float* o) {
   const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(p);
   o[0] = __low2float(x), o[1] = __high2float(x);
 }
+// the f64 route's loads: 32 and 16 bytes of a staged row (16-byte aligned)
+__device__ __forceinline__ void load4(const double* p, double* o) {
+  const double2 x = *reinterpret_cast<const double2*>(p);
+  const double2 y = *reinterpret_cast<const double2*>(p + 2);
+  o[0] = x.x, o[1] = x.y, o[2] = y.x, o[3] = y.y;
+}
+__device__ __forceinline__ void load2(const double* p, double* o) {
+  const double2 x = *reinterpret_cast<const double2*>(p);
+  o[0] = x.x, o[1] = x.y;
+}
+
+// One term of the CUDA-core routes and its add, each rounded as the plain
+// versions round: bf16 (T) operands give kron_term's bf16 product in f32,
+// f64 operands an f64 product.
+__device__ __forceinline__ float cc_term(__nv_bfloat16, float a, float b, float v) {
+  return kron::kron_term<true>(a, b, v);
+}
+__device__ __forceinline__ double cc_term(double, double a, double b, double v) {
+  return __dmul_rn(__dmul_rn(a, b), v);
+}
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
 // The fp32 route's shared-memory swizzle: element c of staged slot s sits at
 // column c ^ swz(s), so that the 4 slots x 8 columns of a fragment load fall
@@ -132,17 +158,19 @@ __device__ __forceinline__ int swz(int s, int sl) {
 }
 
 // One chunk's slot data, lane l holding slot t0 + l (zeros past the range).
+template <typename V>
 struct Meta {
   int ia, ib, row;
-  float v;
+  V v;
 };
 
-__device__ __forceinline__ Meta load_meta(const int* __restrict__ idx, int idx_cols,
-                                          const float* __restrict__ vals,
-                                          const int* __restrict__ rel,
-                                          const int* __restrict__ blkmap, long long t0, int n,
-                                          int bn, int bi, int lane) {
-  Meta m{0, 0, 0, 0.f};
+template <typename V>
+__device__ __forceinline__ Meta<V> load_meta(const int* __restrict__ idx, int idx_cols,
+                                             const V* __restrict__ vals,
+                                             const int* __restrict__ rel,
+                                             const int* __restrict__ blkmap, long long t0,
+                                             int n, int bn, int bi, int lane) {
+  Meta<V> m{0, 0, 0, V(0)};
   if (lane < n) {
     const int t = (int)t0 + lane;  // slot indices fit an int (the wrappers check)
     m.ia = idx[(long long)t * idx_cols];
@@ -181,12 +209,13 @@ struct Shape {
   int bn, bi;      // the schedule's nnz block and row block sizes
 };
 
-// The part of a Kron row that one warp (fp32 route) or one lane (bf16 route)
-// sums, in column block `by`, and its register accumulator `Acc`.
-template <bool kTC>
+// The part of a Kron row that one warp (fp32 route) or one lane (bf16 and
+// f64 routes) sums, in column block `by`, and its register accumulator
+// `Acc` of the value type V.
+template <bool kTC, typename V = float>
 struct Tile {
   static constexpr int kRows = kTC ? kNT : kTA, kCols = kTC ? 4 : kTB;
-  using Acc = float[kRows][kCols];
+  using Acc = V[kRows][kCols];
   // fp32 route: the warp's m16 tile (a columns a0c .. a0c + 15) by kNT n8
   // tiles (b columns b0c .. b0c + 8 kNT - 1); acc[q][e] is column
   // (a0c + g + 8 (e >> 1), b0c + 8 q + 2 t + (e & 1)) of the row
@@ -238,16 +267,16 @@ __device__ __forceinline__ void zero_ring(T* ring, int elems, int lane) {
 // elements of the warp's own shared memory, zeroed once by zero_ring).
 // Calls row_end(row, acc) with the warp's (or lane's) part of each finished
 // row, once per row, from the whole warp, and chunk_end() after each chunk.
-// kTC: the fp32 tensor-core route (T = float); otherwise the bf16 CUDA-core
-// route (T = bf16).
-template <typename T, bool kTC, typename RowEnd, typename ChunkEnd>
+// kTC: the fp32 tensor-core route (T = V = float); otherwise a CUDA-core
+// route: bf16 (T = bf16, V = float) or f64 (T = V = double).
+template <typename T, bool kTC, typename V, typename RowEnd, typename ChunkEnd>
 __device__ __forceinline__ void walk(const T* __restrict__ fa, const T* __restrict__ fb,
                                      const int* __restrict__ idx,
-                                     const float* __restrict__ vals,
+                                     const V* __restrict__ vals,
                                      const int* __restrict__ rel,
                                      const int* __restrict__ blkmap, const Shape& sh,
                                      long long t_begin, long long t_end, T* ring,
-                                     const Tile<kTC>& tile, int lane, RowEnd&& row_end,
+                                     const Tile<kTC, V>& tile, int lane, RowEnd&& row_end,
                                      ChunkEnd&& chunk_end) {
   constexpr int kPer16 = 16 / sizeof(T);
   const int sla = sh.sla, slb = sh.slb;
@@ -255,12 +284,12 @@ __device__ __forceinline__ void walk(const T* __restrict__ fa, const T* __restri
   const int g = lane / 4, t = lane % 4;
   const int a0c = tile.a0c, b0c = tile.b0c, i0 = tile.i0, j0 = tile.j0;
 
-  typename Tile<kTC>::Acc acc;
+  typename Tile<kTC, V>::Acc acc;
   auto zero_acc = [&]() {
 #pragma unroll
-    for (int r = 0; r < Tile<kTC>::kRows; ++r)
+    for (int r = 0; r < Tile<kTC, V>::kRows; ++r)
 #pragma unroll
-      for (int c = 0; c < Tile<kTC>::kCols; ++c) acc[r][c] = 0.f;
+      for (int c = 0; c < Tile<kTC, V>::kCols; ++c) acc[r][c] = V(0);
   };
   zero_acc();
   int cur = -1;
@@ -276,9 +305,9 @@ __device__ __forceinline__ void walk(const T* __restrict__ fa, const T* __restri
     return c < n_chunks ? load_meta(idx, sh.idx_cols, vals, rel, blkmap,
                                     t_begin + (long long)c * kSlots, chunk_n(c), sh.bn, sh.bi,
                                     lane)
-                        : Meta{0, 0, 0, 0.f};
+                        : Meta<V>{0, 0, 0, V(0)};
   };
-  auto stage = [&](int c, const Meta& m) {
+  auto stage = [&](int c, const Meta<V>& m) {
     if (c >= n_chunks) return;
     T* sa = ring + (c % kStages) * stage_elems;
     gather_side<T, kTC>(fa, sh.lda, sla, sh.lda / kPer16, m.ia, chunk_n(c), sa, lane);
@@ -289,7 +318,7 @@ __device__ __forceinline__ void walk(const T* __restrict__ fa, const T* __restri
 
   // m[i]: the slot data of chunk c + i. Chunk c + kStages - 1's rows are
   // gathered at iteration c, from slot data loaded one iteration before.
-  Meta m[kStages + 1];
+  Meta<V> m[kStages + 1];
 #pragma unroll
   for (int i = 0; i < kStages; ++i) m[i] = meta_of(i);
 #pragma unroll
@@ -308,7 +337,7 @@ __device__ __forceinline__ void walk(const T* __restrict__ fa, const T* __restri
     const T* sb = sa + kSlots * sla;
     const int n = chunk_n(c);
     // the slot's row where its value is not 0, else -1 (it adds nothing)
-    const int eff = m[0].v != 0.f ? m[0].row : -1;
+    const int eff = m[0].v != V(0) ? m[0].row : -1;
     if constexpr (kTC) {
       // Y_row += (w a)^T b over slots 8 kb .. 8 kb + 7, w the slots' values
       // (0 where masked)
@@ -372,24 +401,23 @@ __device__ __forceinline__ void walk(const T* __restrict__ fa, const T* __restri
     } else {
       for (int s = 0; s < n; ++s) {
         const int row = __shfl_sync(kFull, eff, s);
-        const float vs = __shfl_sync(kFull, m[0].v, s);
+        const V vs = __shfl_sync(kFull, m[0].v, s);
         if (row > cur) {
           end_row();
           zero_acc();
           cur = row;
         }
-        float av[kTA], bv[kTB];
-        load4(reinterpret_cast<const __nv_bfloat16*>(sa) + s * sla + i0, av);
+        V av[kTA], bv[kTB];
+        load4(sa + s * sla + i0, av);
         if (slb > 0) {
-          load2(reinterpret_cast<const __nv_bfloat16*>(sb) + s * slb + j0, bv);
+          load2(sb + s * slb + j0, bv);
         } else {  // 2-way: b is the implicit ones column (padded to two)
-          bv[0] = 1.f, bv[1] = 0.f;
+          bv[0] = V(1), bv[1] = V(0);
         }
 #pragma unroll
         for (int r = 0; r < kTA; ++r)
 #pragma unroll
-          for (int q = 0; q < kTB; ++q)
-            acc[r][q] = __fadd_rn(acc[r][q], kron::kron_term<true>(av[r], bv[q], vs));
+          for (int q = 0; q < kTB; ++q) acc[r][q] = add_rn(acc[r][q], cc_term(T(), av[r], bv[q], vs));
       }
     }
     __syncwarp();  // every lane is done with this buffer before it is refilled

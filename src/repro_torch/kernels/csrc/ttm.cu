@@ -25,6 +25,11 @@
 // to finish sums the group slots in group order into G. Whichever CTA comes
 // last, the sums are the same, so the bits are the same on every run. The
 // last CTA resets the tickets, so the counters stay zero between launches.
+//
+// float64: the same kernel with f64 operands, accumulators, slots and
+// output (A = double below), the same walk and the same fixed-order
+// combine; the ring has half the stages (kStagesOf<double>), as each holds
+// twice the bytes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,8 +39,20 @@ namespace {
 constexpr int kBL = 256;       // output rows per tile
 constexpr int kBR = 16;        // output columns per tile
 constexpr int kBT = 32;        // contraction indices per staging step
-constexpr int kStages = 6;     // ring depth of the bulk-copy path
 constexpr int kThreads = 256;  // thread t: rows 4 (t % 64) .. + 3, columns 4 (t / 64) .. + 3
+
+// ring depth of the bulk-copy path: ~200 KB of operands in flight per SM
+template <typename T>
+constexpr int kStagesOf = sizeof(T) == 8 ? 3 : 6;
+// the accumulator, slot and output type: f64 for f64 operands, else f32
+template <typename T>
+struct AccOf {
+  using type = float;
+};
+template <>
+struct AccOf<double> {
+  using type = double;
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -49,6 +66,34 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
   const uint2 v = *reinterpret_cast<const uint2*>(p);
   const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
   const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  x[0] = a.x, x[1] = a.y, x[2] = b.x, x[3] = b.y;
+}
+__device__ __forceinline__ void load4(const double* p, double (&x)[4]) {
+  const double2 a = *reinterpret_cast<const double2*>(p);
+  const double2 b = *reinterpret_cast<const double2*>(p + 2);
+  x[0] = a.x, x[1] = a.y, x[2] = b.x, x[3] = b.y;
+}
+
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) { return fma(a, b, c); }
+
+// four consecutive accumulator-type values of global or shared memory as
+// 16-byte accesses (one for f32, two for f64); p 16-byte aligned
+__device__ __forceinline__ void store4(float* p, const float (&x)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void store4(double* p, const double (&x)[4]) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(x[0], x[1]);
+  reinterpret_cast<double2*>(p)[1] = make_double2(x[2], x[3]);
+}
+// the combine's loads of other CTAs' slots, through L2 (cache-global)
+__device__ __forceinline__ void load4_cg(const float* p, float (&x)[4]) {
+  const float4 v = __ldcg(reinterpret_cast<const float4*>(p));
+  x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+}
+__device__ __forceinline__ void load4_cg(const double* p, double (&x)[4]) {
+  const double2 a = __ldcg(reinterpret_cast<const double2*>(p));
+  const double2 b = __ldcg(reinterpret_cast<const double2*>(p) + 1);
   x[0] = a.x, x[1] = a.y, x[2] = b.x, x[3] = b.y;
 }
 
@@ -67,9 +112,11 @@ __device__ __forceinline__ bool last_to_arrive(int* counter, int n) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
     ttm_kernel(const T* __restrict__ y, long long sy0, long long sy1, const T* __restrict__ u,
-               long long su0, long long su1, float* __restrict__ slots, int* __restrict__ tickets,
-               float* __restrict__ out, int L, int I, int R, int chunk, int n_splits, int group,
-               int bulk) {
+               long long su0, long long su1, typename AccOf<T>::type* __restrict__ slots,
+               int* __restrict__ tickets, typename AccOf<T>::type* __restrict__ out, int L, int I,
+               int R, int chunk, int n_splits, int group, int bulk) {
+  using A = typename AccOf<T>::type;
+  constexpr int kStages = kStagesOf<T>;
   extern __shared__ __align__(128) uint8_t smem[];
   T* ys = reinterpret_cast<T*>(smem);  // [kStages][kBT][kBL]
   T* us = ys + kStages * kBT * kBL;    // [kStages][kBT][kBR]
@@ -83,17 +130,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int i0 = split * chunk, i1 = min(I, i0 + chunk);
   const int n_steps = (i1 - i0 + kBT - 1) / kBT;
   const int lq = 4 * (tid % 64), rq = 4 * (tid / 64);
-  float acc[4][4] = {};
+  A acc[4][4] = {};
 
   auto compute = [&](const T* yst, const T* ust, int nt) {
     for (int tt = 0; tt < nt; ++tt) {
-      float a[4], b[4];
+      A a[4], b[4];
       load4(yst + tt * kBL + lq, a);
       load4(ust + tt * kBR + rq, b);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) acc[i][j] = fma_rn(a[i], b[j], acc[i][j]);
     }
   };
 
@@ -193,17 +240,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   // 4 (t + kThreads k) .. + 3 (k < 4) of the row-major (kBL, kBR) tile, so
   // a warp reads or writes 512 contiguous bytes of a slot at a time. The
   // partial moves to that view through shared memory (the ring is free).
-  float* tile_s = reinterpret_cast<float*>(smem);
+  A* tile_s = reinterpret_cast<A*>(smem);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    *reinterpret_cast<float4*>(tile_s + (lq + i) * kBR + rq) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  for (int i = 0; i < 4; ++i) store4(tile_s + (lq + i) * kBR + rq, acc[i]);
   __syncthreads();
-  float flat[4][4];
+  A flat[4][4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const float4 v4 = *reinterpret_cast<const float4*>(tile_s + 4 * (tid + kThreads * k));
-    flat[k][0] = v4.x, flat[k][1] = v4.y, flat[k][2] = v4.z, flat[k][3] = v4.w;
+    const A* p = tile_s + 4 * (tid + kThreads * k);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) flat[k][e] = p[e];
   }
   // element 4 (tid + kThreads k) + e is row fl(k), column fc(k) + e of the tile
   auto fl = [&](int k) { return 4 * (tid + kThreads * k) / kBR; };
@@ -212,13 +258,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto at = [&](int k) { return (long long)(l0 + fl(k)) * R + r0 + fc(k); };
   // four columns as one 16-byte access where they are whole and aligned
   auto whole = [&](int k) { return R % 4 == 0 && fc(k) + 4 <= nr; };
-  auto put = [&](float* dst) {
+  auto put = [&](A* dst) {
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       if (fl(k) >= nl) continue;
-      float* p = dst + at(k);
+      A* p = dst + at(k);
       if (whole(k)) {
-        *reinterpret_cast<float4*>(p) = make_float4(flat[k][0], flat[k][1], flat[k][2], flat[k][3]);
+        store4(p, flat[k]);
       } else {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
@@ -228,26 +274,29 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
   // flat = the sum of slots 0 .. n - 1 of src, in slot order; four slots'
   // loads are in flight at a time, the adds stay in order
-  auto gather = [&](const float* src, int n) {
+  auto gather = [&](const A* src, int n) {
 #pragma unroll
     for (int k = 0; k < 4; ++k)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) flat[k][e] = 0.f;
+      for (int e = 0; e < 4; ++e) flat[k][e] = A(0);
     for (int c0 = 0; c0 < n; c0 += 4) {
-      float x[4][4][4];
+      A x[4][4][4];
 #pragma unroll
       for (int c = 0; c < 4; ++c)
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
-          const float* p = src + (c0 + c) * lr + at(k);
+          const A* p = src + (c0 + c) * lr + at(k);
           const bool row = c0 + c < n && fl(k) < nl;
           if (whole(k)) {
-            const float4 v4 = row ? __ldcg(reinterpret_cast<const float4*>(p))
-                                  : make_float4(0.f, 0.f, 0.f, 0.f);
-            x[c][k][0] = v4.x, x[c][k][1] = v4.y, x[c][k][2] = v4.z, x[c][k][3] = v4.w;
+            if (row) {
+              load4_cg(p, x[c][k]);
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) x[c][k][e] = A(0);
+            }
           } else {
 #pragma unroll
-            for (int e = 0; e < 4; ++e) x[c][k][e] = row && fc(k) + e < nr ? __ldcg(p + e) : 0.f;
+            for (int e = 0; e < 4; ++e) x[c][k][e] = row && fc(k) + e < nr ? __ldcg(p + e) : A(0);
           }
         }
 #pragma unroll
@@ -283,16 +332,18 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 long long n_launched = 0;  // kernels this library has launched
 
-size_t smem_bytes(int esize) {
-  return (size_t)kStages * kBT * (kBL + kBR) * esize + kStages * sizeof(uint64_t);
+template <typename T>
+size_t smem_bytes() {
+  return (size_t)kStagesOf<T> * kBT * (kBL + kBR) * sizeof(T) + kStagesOf<T> * sizeof(uint64_t);
 }
 
 template <typename T>
 int launch(const void* y, long long sy0, long long sy1, const void* u, long long su0,
            long long su1, void* slots, void* tickets, void* out, int L, int I, int R, int chunk,
            int n_splits, int group, int bulk, cudaStream_t st) {
+  using A = typename AccOf<T>::type;
   auto kernel = ttm_kernel<T>;
-  const size_t smem = smem_bytes(sizeof(T));
+  const size_t smem = smem_bytes<T>();
   static bool attr_set[64] = {};  // per device, once: it is a host call of its own
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -305,8 +356,8 @@ int launch(const void* y, long long sy0, long long sy1, const void* u, long long
   const int n_tiles = ((L + kBL - 1) / kBL) * ((R + kBR - 1) / kBR);
   kernel<<<(unsigned)((long long)n_tiles * n_splits), kThreads, smem, st>>>(
       static_cast<const T*>(y), sy0, sy1, static_cast<const T*>(u), su0, su1,
-      static_cast<float*>(slots), static_cast<int*>(tickets), static_cast<float*>(out), L, I, R,
-      chunk, n_splits, group, bulk);
+      static_cast<A*>(slots), static_cast<int*>(tickets), static_cast<A*>(out), L, I, R, chunk,
+      n_splits, group, bulk);
   const cudaError_t err_launch = cudaGetLastError();
   if (err_launch == cudaSuccess) ++n_launched;
   return (int)err_launch;
@@ -314,11 +365,12 @@ int launch(const void* y, long long sy0, long long sy1, const void* u, long long
 
 }  // namespace
 
-// out (L, R) f32 contiguous = y (L, I) @ u (R, I)^T, y and u read through
-// their element strides, f32 (bf16 = 0) or bf16 (bf16 = 1). Split s of
-// n_splits covers contraction indices [s*chunk, min(I, (s+1)*chunk)); splits
-// are combined in groups of ``group``. slots holds (n_splits + n_groups) x L
-// x R f32 and tickets n_tiles x (n_groups + 1) ints, all zero on entry (and
+// out (L, R) contiguous = y (L, I) @ u (R, I)^T, y and u read through
+// their element strides, f32 (kind = 0), bf16 (kind = 1) or f64 (kind =
+// 2); out and slots are f64 for kind = 2, else f32. Split s of n_splits
+// covers contraction indices [s*chunk, min(I, (s+1)*chunk)); splits are
+// combined in groups of ``group``. slots holds (n_splits + n_groups) x L x R
+// values and tickets n_tiles x (n_groups + 1) ints, all zero on entry (and
 // left zero). bulk = 1 needs sy0 = su0 = 1 and every row start and length
 // 16-byte aligned. Returns cudaGetLastError() after the launch.
 // device kernels launched by ttm_launch so far (one per successful call)
@@ -327,15 +379,18 @@ extern "C" long long ttm_kernels_launched() { return n_launched; }
 extern "C" int ttm_launch(const void* y, long long sy0, long long sy1, const void* u,
                           long long su0, long long su1, void* slots, void* tickets, void* out,
                           int L, int I, int R, int chunk, int n_splits, int group, int bulk,
-                          int bf16, void* stream) {
-  if (L < 1 || I < 1 || R < 1 || chunk < 1 || n_splits < 1 || group < 1 ||
+                          int kind, void* stream) {
+  if (kind < 0 || kind > 2 || L < 1 || I < 1 || R < 1 || chunk < 1 || n_splits < 1 || group < 1 ||
       (long long)(n_splits - 1) * chunk >= I || (long long)n_splits * chunk < I ||
       (bulk && (sy0 != 1 || su0 != 1)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
+  if (kind == 1)
     return launch<__nv_bfloat16>(y, sy0, sy1, u, su0, su1, slots, tickets, out, L, I, R, chunk,
                                  n_splits, group, bulk, st);
+  if (kind == 2)
+    return launch<double>(y, sy0, sy1, u, su0, su1, slots, tickets, out, L, I, R, chunk,
+                          n_splits, group, bulk, st);
   return launch<float>(y, sy0, sy1, u, su0, su1, slots, tickets, out, L, I, R, chunk, n_splits,
                        group, bulk, st);
 }

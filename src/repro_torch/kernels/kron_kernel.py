@@ -17,6 +17,14 @@ Port of ``repro.kernels.kron_kernel``, one wrapper per TPU kernel:
 Rb varies fastest in every Kron row. Each wrapper launches its hand-written
 CUDA kernel for CUDA tensors and runs its ``*_plain`` twin for CPU tensors;
 nothing else picks between them.
+
+Working precision: float32 operands give f32 results, as in the reference.
+float64 operands under ``precision="fp32"`` run the kernels' f64
+instantiations and give f64 results (the reference's Pallas kernels compute
+in f32 whatever the dtype; its XLA engine keeps f64, and the port's card
+runs as that engine does); under ``bf16_fp32acc`` they take the bf16 route
+with f32 values and results, as the reference's kernels do. Kernel 5 has no
+f64 instantiation yet.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.base import unported
 from repro_torch.kernels import _build, launch_count
 from repro_torch.sparse.layout import build_schedule, slot_rows, visited_row_mask
 
@@ -80,6 +89,18 @@ def _cast_operands(precision: str, *tensors):
     return tensors
 
 
+def result_dtype(dtype: torch.dtype, precision: str) -> torch.dtype:
+    """The dtype a Kron kernel accumulates and returns for operands of
+    ``dtype`` under ``precision``: float64 for f64 operands at ``fp32``,
+    else float32 (bf16 operands always sum in f32)."""
+    return torch.float64 if dtype == torch.float64 and precision == "fp32" else torch.float32
+
+
+def _kind(dtype: torch.dtype) -> int:
+    """The CUDA sources' operand code: 0 f32, 1 bf16, 2 f64."""
+    return {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}[dtype]
+
+
 def _mask_unvisited(out: torch.Tensor, sched) -> torch.Tensor:
     """Zero the rows of row blocks that no nnz block targets
     (``sched.row_mask``; ``None`` means every block is visited)."""
@@ -95,18 +116,18 @@ def fused_kron_scatter_plain(fa, fb, sched, n_rows: int, *,
     ``index_add_``-ed into their rows and the row mask applied. ``fa`` rows
     by ``sched.idx[:, 0]``, ``fb`` rows by ``sched.idx[:, 1]`` (a column of
     ones when ``fb`` is None, the 2-way case)."""
+    dt = result_dtype(fa.dtype, precision)
     a = fa.index_select(0, sched.idx[:, 0])
     b = (torch.ones((a.shape[0], 1), dtype=a.dtype, device=a.device) if fb is None
          else fb.index_select(0, sched.idx[:, 1]))
     a, b = _cast_operands(precision, a, b)
     v, k = sched.vals, a.shape[1] * b.shape[1]
     rows = slot_rows(sched)
-    out = torch.zeros((sched.n_row_blocks * sched.bi, k), dtype=torch.float32,
-                      device=a.device)
+    out = torch.zeros((sched.n_row_blocks * sched.bi, k), dtype=dt, device=a.device)
     step = max(1, PLAIN_CHUNK_ELEMS // k)
     for s in range(0, a.shape[0], step):
         kron = (a[s:s + step, :, None] * b[s:s + step, None, :]).reshape(-1, k)
-        contrib = kron.to(torch.float32) * v[s:s + step, None].to(torch.float32)
+        contrib = kron.to(dt) * v[s:s + step, None].to(dt)
         out.index_add_(0, rows[s:s + step], contrib)
     return _mask_unvisited(out[:n_rows], sched)
 
@@ -153,7 +174,9 @@ def _check_schedule(kernel: str, sched, dev: torch.device, nnzp: int):
 def _check_operands(kernel: str, a, b, v, precision: str):
     """Cast ``a`` and ``b`` per ``precision`` and check the gathered operands
     a Kron kernel reads: CUDA, 2-D, one slot count, contiguous, a and b of
-    one dtype (float32 or bfloat16), v float32. Returns (a, b)."""
+    one dtype (float32, bfloat16 or float64). Returns (a, b, v), v in the
+    kernel's value dtype (:func:`result_dtype`)."""
+    dt = result_dtype(a.dtype, precision)
     a, b = _cast_operands(precision, a, b)
     _require(a.is_cuda, f"unsupported device {a.device}", kernel)
     dev = a.device
@@ -163,12 +186,15 @@ def _check_operands(kernel: str, a, b, v, precision: str):
              kernel)
     _require(b.shape[0] == a.shape[0] and v.shape[0] == a.shape[0],
              "a, b, v disagree on nnz", kernel)
-    _require(a.dtype == b.dtype and a.dtype in (torch.float32, torch.bfloat16),
-             f"a, b must share dtype float32 or bfloat16, got {a.dtype}, {b.dtype}", kernel)
-    _require(v.dtype == torch.float32, f"v must be float32, got {v.dtype}", kernel)
+    _require(a.dtype == b.dtype and a.dtype in (torch.float32, torch.bfloat16, torch.float64),
+             f"a, b must share dtype float32, bfloat16 or float64, got {a.dtype}, {b.dtype}",
+             kernel)
+    _require(v.dtype in (torch.float32, torch.float64),
+             f"v must be float32 or float64, got {v.dtype}", kernel)
+    v = v.to(dt)  # the values in the kernel's dtype (f32 on the bf16 route)
     for name, t in (("a", a), ("b", b), ("v", v)):
         _require(t.is_contiguous(), f"{name} must be contiguous", kernel)
-    return a, b
+    return a, b, v
 
 
 def _padded_factor(f: torch.Tensor) -> torch.Tensor:
@@ -184,16 +210,19 @@ def _padded_factor(f: torch.Tensor) -> torch.Tensor:
 
 def _schedule_operands(kernel: str, fa, fb, sched, precision: str):
     """Check and prepare what kernels 1 and 5 read: the factor matrices
-    ``fa``, ``fb`` (None for a 2-way tensor), 2-D float32 on one CUDA device,
-    cast per ``precision`` and padded by :func:`_padded_factor`, and the
-    schedule's slot coordinates and values and row split. Returns
+    ``fa``, ``fb`` (None for a 2-way tensor), 2-D float32 or float64 of one
+    dtype on one CUDA device, cast per ``precision`` and padded by
+    :func:`_padded_factor`, and the schedule's slot coordinates and values
+    (in :func:`result_dtype`: f32 on the bf16 route) and row split. Returns
     ``(pa, pb, idx, vals, parts)``."""
     _require(fa.is_cuda, f"unsupported device {fa.device}", kernel)
     dev = fa.device
     operands = (fa,) if fb is None else (fa, fb)
-    _require(all(f.dim() == 2 and f.dtype == torch.float32 and f.device == dev
-                 for f in operands), "fa, fb must be 2-D float32 factor matrices on one device",
+    _require(all(f.dim() == 2 and f.dtype == fa.dtype and f.device == dev
+                 for f in operands) and fa.dtype in (torch.float32, torch.float64),
+             "fa, fb must be 2-D float32 or float64 factor matrices of one dtype on one device",
              kernel)
+    dt = result_dtype(fa.dtype, precision)
     operands = _cast_operands(precision, *operands)
     parts = _check_schedule(kernel, sched, dev, int(sched.rel_row.shape[0]))
     idx, vals = sched.idx, sched.vals
@@ -204,8 +233,12 @@ def _schedule_operands(kernel: str, fa, fb, sched, precision: str):
              and idx.shape[1] == len(operands),
              f"sched.idx must be a contiguous (nnzp, {len(operands)}) int32 tensor, "
              f"got {tuple(idx.shape)} {idx.dtype}", kernel)
-    _require(vals.dtype == torch.float32 and vals.is_contiguous() and vals.shape == (nnzp,),
-             "sched.vals must be a contiguous (nnzp,) float32 tensor", kernel)
+    _require(vals.dtype in (torch.float32, torch.float64) and vals.is_contiguous()
+             and vals.shape == (nnzp,),
+             "sched.vals must be a contiguous (nnzp,) float32 or float64 tensor", kernel)
+    _require(vals.dtype == dt or precision == "bf16_fp32acc",
+             f"sched.vals are {vals.dtype}, the factors {fa.dtype}", kernel)
+    vals = vals.to(dt)  # bf16 route: the f32 values
     _require(nnzp < 2 ** 31, f"{nnzp} slots: the kernel indexes slots with int32", kernel)
     pa = _padded_factor(operands[0])
     pb = None if fb is None else _padded_factor(operands[1])
@@ -224,14 +257,15 @@ def fused_kron_scatter(fa, fb, sched, n_rows: int, *,
     of fb and the value ``sched.vals[t]``. Under ``bf16_fp32acc`` the
     factor matrices are rounded to bf16 once. CPU tensors run the plain
     version; CUDA tensors launch the kernel of ``csrc/kron_scatter.cu``,
-    which gathers the rows itself, or raise.
+    which gathers the rows itself, or raise. f64 factors (``fp32``) give an
+    f64 Y (see the module docstring).
     """
     if fa.device.type == "cpu":
         return fused_kron_scatter_plain(fa, fb, sched, n_rows, precision=precision)
     kernel = "fused_kron_scatter"
     pa, pb, idx, vals, parts = _schedule_operands(kernel, fa, fb, sched, precision)
     ra, rb = fa.shape[1], 1 if fb is None else fb.shape[1]
-    out = torch.zeros((n_rows, ra * rb), dtype=torch.float32, device=pa.device)
+    out = torch.zeros((n_rows, ra * rb), dtype=vals.dtype, device=pa.device)
     if idx.shape[0] == 0:
         return out
     fn = _lib()
@@ -240,7 +274,7 @@ def fused_kron_scatter(fa, fb, sched, n_rows: int, *,
                 vals.data_ptr(), sched.rel_row.data_ptr(), sched.blkmap.data_ptr(),
                 parts.data_ptr(), out.data_ptr(), int(parts.shape[0]) - 1, ra, rb,
                 pa.shape[1], 0 if pb is None else pb.shape[1], int(idx.shape[1]), sched.bn,
-                sched.bi, int(pa.dtype == torch.bfloat16), _stream(pa.device))
+                sched.bi, _kind(pa.dtype), _stream(pa.device))
     if rc != 0:
         raise RuntimeError(f"kron_scatter_launch failed at ranks ({ra}, {rb}): CUDA error "
                            f"{rc} (1: the ranks exceed one warp's shared-memory staging)")
@@ -258,11 +292,12 @@ _CONTRIB_CTAS_PER_SM = 8  # 256-thread CTAs of the grid-stride loop per SM
 
 def kron_contrib_plain(a, b, v, *, precision: str = "fp32") -> torch.Tensor:
     """Plain PyTorch version of :func:`kron_contrib`: the outer product in
-    the operands' dtype (bf16 under ``bf16_fp32acc``), scaled by the f32
-    value."""
+    the operands' dtype (bf16 under ``bf16_fp32acc``), scaled by the value
+    in :func:`result_dtype` (f32, or f64 for f64 operands)."""
+    dt = result_dtype(a.dtype, precision)
     a, b = _cast_operands(precision, a, b)
     kron = (a[:, :, None] * b[:, None, :]).reshape(a.shape[0], -1)
-    return (kron * v.to(torch.float32)[:, None]).to(torch.float32)
+    return (kron * v.to(dt)[:, None]).to(dt)
 
 
 def _contrib_lib():
@@ -275,7 +310,8 @@ def _contrib_lib():
 
 
 def kron_contrib(a, b, v, *, precision: str = "fp32") -> torch.Tensor:
-    """contrib (nnz, Ra*Rb) f32 with ``contrib[t] = v[t] * (a[t] (x) b[t])``.
+    """contrib (nnz, Ra*Rb) f32 with ``contrib[t] = v[t] * (a[t] (x) b[t])``
+    (f64 for f64 operands under ``fp32``).
 
     ``a`` (nnz, Ra), ``b`` (nnz, Rb), ``v`` (nnz,). Under ``bf16_fp32acc``
     a and b are rounded to bf16 and so is each product a*b before the f32
@@ -284,17 +320,16 @@ def kron_contrib(a, b, v, *, precision: str = "fp32") -> torch.Tensor:
     """
     if a.device.type == "cpu":
         return kron_contrib_plain(a, b, v, precision=precision)
-    a, b = _check_operands("kron_contrib", a, b, v, precision)
+    a, b, v = _check_operands("kron_contrib", a, b, v, precision)
     dev = a.device
     (nnz, ra), rb = a.shape, b.shape[1]
-    out = torch.empty((nnz, ra * rb), dtype=torch.float32, device=dev)
+    out = torch.empty((nnz, ra * rb), dtype=v.dtype, device=dev)
     if nnz == 0:
         return out
     fn = _contrib_lib()
     with torch.cuda.device(dev):
         rc = fn(a.data_ptr(), b.data_ptr(), v.data_ptr(), out.data_ptr(), nnz, ra, rb,
-                int(a.dtype == torch.bfloat16), _CONTRIB_CTAS_PER_SM * _n_sms(dev),
-                _stream(dev))
+                _kind(a.dtype), _CONTRIB_CTAS_PER_SM * _n_sms(dev), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"kron_contrib_launch failed: CUDA error {rc}")
     launch_count.count(kron_contrib)
@@ -311,10 +346,12 @@ _SCATTER_THREADS = 64  # 256-column tiles: four float4 columns per thread
 
 def scatter_rows_plain(contrib, sched, n_rows: int) -> torch.Tensor:
     """Plain PyTorch version of :func:`scatter_rows`: ``index_add_`` of the
-    slot rows into their rows, then the row mask."""
+    slot rows into their rows (in f64 for f64 rows, else f32), then the row
+    mask."""
+    dt = result_dtype(contrib.dtype, "fp32")
     out = torch.zeros((sched.n_row_blocks * sched.bi, contrib.shape[1]),
-                      dtype=torch.float32, device=contrib.device)
-    out.index_add_(0, slot_rows(sched), contrib.to(torch.float32))
+                      dtype=dt, device=contrib.device)
+    out.index_add_(0, slot_rows(sched), contrib.to(dt))
     return _mask_unvisited(out[:n_rows], sched)
 
 
@@ -322,28 +359,29 @@ def _scatter_lib():
     fn = _build.load("scatter_rows").scatter_rows_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     return fn
 
 
 def scatter_rows(contrib, sched, n_rows: int) -> torch.Tensor:
-    """Y_(n) (n_rows, K) f32: the rows of ``contrib`` (nnzp, K) f32, already
-    in the schedule's slot order with padding rows zeroed, summed into their
-    rows; rows no slot reaches are zero. CPU tensors run the plain version;
-    CUDA tensors launch the kernel of ``csrc/scatter_rows.cu`` or raise.
+    """Y_(n) (n_rows, K): the rows of ``contrib`` (nnzp, K), f32 or f64,
+    already in the schedule's slot order with padding rows zeroed, summed
+    into their rows in the rows' dtype; rows no slot reaches are zero. CPU
+    tensors run the plain version; CUDA tensors launch the kernel of
+    ``csrc/scatter_rows.cu`` or raise.
     """
     if contrib.device.type == "cpu":
         return scatter_rows_plain(contrib, sched, n_rows)
     kernel = "scatter_rows"
     _require(contrib.is_cuda, f"unsupported device {contrib.device}", kernel)
-    _require(contrib.dim() == 2 and contrib.dtype == torch.float32
-             and contrib.is_contiguous(), "contrib must be a contiguous 2-D float32 tensor",
-             kernel)
+    _require(contrib.dim() == 2 and contrib.dtype in (torch.float32, torch.float64)
+             and contrib.is_contiguous(),
+             "contrib must be a contiguous 2-D float32 or float64 tensor", kernel)
     dev = contrib.device
     nnzp, k = contrib.shape
     parts = _check_schedule(kernel, sched, dev, nnzp)
-    out = torch.zeros((n_rows, k), dtype=torch.float32, device=dev)
+    out = torch.zeros((n_rows, k), dtype=contrib.dtype, device=dev)
     if nnzp == 0 or k == 0:
         return out
     vec = int(k % 4 == 0 and contrib.data_ptr() % 16 == 0)
@@ -351,7 +389,8 @@ def scatter_rows(contrib, sched, n_rows: int) -> torch.Tensor:
     with torch.cuda.device(dev):
         rc = fn(contrib.data_ptr(), sched.rel_row.data_ptr(), sched.blkmap.data_ptr(),
                 parts.data_ptr(), out.data_ptr(), int(parts.shape[0]) - 1, k, sched.bn,
-                sched.bi, vec, _SCATTER_THREADS, _stream(dev))
+                sched.bi, vec, _SCATTER_THREADS, int(contrib.dtype == torch.float64),
+                _stream(dev))
     if rc != 0:
         raise RuntimeError(f"scatter_rows_launch failed: CUDA error {rc}")
     launch_count.count(scatter_rows)
@@ -367,11 +406,12 @@ scatter_rows.launches = 0  # kernel launches since the last reset
 def fused_kron_scatter_ttm_plain(fa, fb, u, sched, n_rows: int, *,
                                  precision: str = "fp32") -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_kron_scatter_ttm`: Y_(n) by
-    :func:`fused_kron_scatter_plain`, then an f32 ``U^T Y`` with U rounded
-    to bf16 first under ``bf16_fp32acc``."""
+    :func:`fused_kron_scatter_plain`, then ``U^T Y`` in Y's dtype (f32, or
+    f64 for f64 operands) with U rounded to bf16 first under
+    ``bf16_fp32acc``."""
     y = fused_kron_scatter_plain(fa, fb, sched, n_rows, precision=precision)
-    (uc,) = _cast_operands(precision, u.to(torch.float32))
-    return uc.to(torch.float32).T @ y
+    (uc,) = _cast_operands(precision, u.to(y.dtype))
+    return uc.to(y.dtype).T @ y
 
 
 def _mega_lib():
@@ -424,6 +464,9 @@ def fused_kron_scatter_ttm(fa, fb, u, sched, n_rows: int, *,
     """
     if fa.device.type == "cpu":
         return fused_kron_scatter_ttm_plain(fa, fb, u, sched, n_rows, precision=precision)
+    if torch.float64 in (fa.dtype, u.dtype):
+        raise unported("float64 in kernel 5 (fused_kron_scatter_ttm, fuse_core=True)",
+                       "queue 1, item 8b: float64 in kernel 5")
     kernel = "fused_kron_scatter_ttm"
     pa, pb, idx, vals, parts = _schedule_operands(kernel, fa, fb, sched, precision)
     dev = pa.device

@@ -39,7 +39,8 @@ def sparse_ttm_chain_kernel(
     *,
     fused: bool = True,
 ) -> torch.Tensor:
-    """Alg. 2 line 5 on the kernels, for one COO: Y_(skip_mode), f32.
+    """Alg. 2 line 5 on the kernels, for one COO: Y_(skip_mode), f32 (f64
+    for f64 factors at ``fp32``).
 
     3-way tensors take kernel 1 (``fused_kron_scatter``); higher orders, and
     ``fused=False``, chain ``kron_contrib`` and sum with ``scatter_rows``.
@@ -106,8 +107,9 @@ def sparse_ttm_chain_device(
         )
     rows, vals = _gathered_block_rows(indices, values, factors, skip_mode, sched, n)
     contrib = kron_contrib(rows[0], rows[1], vals, precision=precision)
-    for extra in rows[2:]:
-        contrib = kron_contrib(contrib, extra, torch.ones_like(vals))
+    for extra in rows[2:]:  # later links in the first link's result dtype
+        contrib = kron_contrib(contrib, extra.to(contrib.dtype),
+                               torch.ones_like(vals, dtype=contrib.dtype))
     return kron_kernel.scatter_rows(contrib, sched, n_rows)
 
 

@@ -2,7 +2,8 @@
 
 Port of ``repro.kernels.ttm_kernel``. :func:`ttm` launches the one-launch
 CUDA kernel of ``csrc/ttm.cu`` for CUDA tensors and runs :func:`ttm_plain`
-for CPU tensors; nothing else picks between them.
+for CPU tensors; nothing else picks between them. f32 and bf16 operands
+give an f32 G, f64 operands an f64 G (the kernel's f64 instantiation).
 """
 from __future__ import annotations
 
@@ -14,17 +15,18 @@ from typing import Dict, List, Tuple
 import torch
 
 from repro_torch.kernels import _build, launch_count
-from repro_torch.kernels.kron_kernel import _cast_operands
+from repro_torch.kernels.kron_kernel import _cast_operands, _kind
 
 _BL, _BR, _BT = 256, 16, 32  # output tile and contraction step of the kernel
-_SCRATCH: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+_SCRATCH: Dict[Tuple[torch.device, torch.dtype], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def ttm_plain(y: torch.Tensor, u: torch.Tensor, *, precision: str = "fp32") -> torch.Tensor:
-    """Plain PyTorch version of :func:`ttm`: cast per ``precision``, then an
-    f32 matrix product."""
+    """Plain PyTorch version of :func:`ttm`: cast per ``precision``, then a
+    matrix product in f32 (f64 for f64 operands)."""
     y, u = _cast_operands(precision, y, u)
-    return y.to(torch.float32) @ u.to(torch.float32).T
+    dt = torch.promote_types(torch.promote_types(y.dtype, u.dtype), torch.float32)
+    return y.to(dt) @ u.to(dt).T
 
 
 def _lib():
@@ -97,21 +99,24 @@ def _launch_args(n_l: int, n_i: int, n_r: int, sy: Tuple[int, int], su: Tuple[in
             tiles * (n_groups + 1))
 
 
-def _scratch(device: torch.device, n_slots: int, n_tickets: int):
-    """The slot buffer and the zeroed ticket counters of ``device``, kept
-    between calls (the kernel leaves the counters at zero) and grown when a
-    call needs more. Calls on one device are ordered by its current stream."""
-    slots, tickets = _SCRATCH.get(device, (None, None))
+def _scratch(device: torch.device, n_slots: int, n_tickets: int,
+             dtype: torch.dtype = torch.float32):
+    """The slot buffer (of the output's ``dtype``) and the zeroed ticket
+    counters of ``device``, kept between calls (the kernel leaves the
+    counters at zero) and grown when a call needs more, one pair per output
+    dtype. Calls on one device are ordered by its current stream."""
+    slots, tickets = _SCRATCH.get((device, dtype), (None, None))
     if slots is None or slots.numel() < n_slots:
-        slots = torch.empty(n_slots, dtype=torch.float32, device=device)
+        slots = torch.empty(n_slots, dtype=dtype, device=device)
     if tickets is None or tickets.numel() < n_tickets:
         tickets = torch.zeros(n_tickets, dtype=torch.int32, device=device)
-    _SCRATCH[device] = (slots, tickets)
+    _SCRATCH[(device, dtype)] = (slots, tickets)
     return slots, tickets
 
 
 def ttm(y: torch.Tensor, u: torch.Tensor, *, precision: str = "fp32") -> torch.Tensor:
-    """``G = Y @ U^T`` (L, R) f32 for y (L, I) and u (R, I).
+    """``G = Y @ U^T`` (L, R) for y (L, I) and u (R, I): f32, or f64 for f64
+    operands under ``fp32``.
 
     Both operands are read through their strides, so transposed views need
     no copy. CPU tensors run the plain version; CUDA tensors launch the
@@ -124,8 +129,9 @@ def ttm(y: torch.Tensor, u: torch.Tensor, *, precision: str = "fp32") -> torch.T
     if y.dim() != 2 or u.dim() != 2 or y.shape[1] != u.shape[1]:
         raise ValueError(f"ttm: y {tuple(y.shape)} and u {tuple(u.shape)} do not contract")
     y, u = _cast_operands(precision, y, u)
-    if y.dtype != u.dtype or y.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"ttm: y, u must share dtype float32 or bfloat16, got {y.dtype}, {u.dtype}")
+    if y.dtype != u.dtype or y.dtype not in (torch.float32, torch.bfloat16, torch.float64):
+        raise ValueError(f"ttm: y, u must share dtype float32, bfloat16 or float64, got "
+                         f"{y.dtype}, {u.dtype}")
     if min(y.stride()) < 0 or min(u.stride()) < 0:
         raise ValueError("ttm: negative strides are not supported")
     dev = y.device  # a CUDA tensor's device always has its index
@@ -133,17 +139,18 @@ def ttm(y: torch.Tensor, u: torch.Tensor, *, precision: str = "fp32") -> torch.T
         with torch.cuda.device(dev):
             return ttm(y, u, precision=precision)
     (n_l, n_i), n_r = y.shape, u.shape[0]
-    out = torch.empty((n_l, n_r), dtype=torch.float32, device=dev)
+    odt = torch.float64 if y.dtype == torch.float64 else torch.float32
+    out = torch.empty((n_l, n_r), dtype=odt, device=dev)
     if n_l == 0 or n_r == 0 or n_i == 0:
         return out.zero_()
     yp, up = y.data_ptr(), u.data_ptr()
     sy, su = y.stride(), u.stride()
     chunk, n_splits, group, bulk, n_slots, n_tickets = _launch_args(
         n_l, n_i, n_r, sy, su, y.element_size(), (yp | up) % 16 == 0, dev.index)
-    slots, tickets = _scratch(dev, n_slots, n_tickets)
+    slots, tickets = _scratch(dev, n_slots, n_tickets, odt)
     rc = _lib()(yp, sy[0], sy[1], up, su[0], su[1], slots.data_ptr(), tickets.data_ptr(),
                 out.data_ptr(), n_l, n_i, n_r, chunk, n_splits, group, bulk,
-                int(y.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+                _kind(y.dtype), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ttm_launch failed: CUDA error {rc}")
     launch_count.count(ttm)

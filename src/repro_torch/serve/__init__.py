@@ -24,6 +24,7 @@ from repro_torch.serve.tucker_service import (
     ServiceOverloadedError,
     TuckerService,
     TuckerTicket,
+    serve_follower,
 )
 
 __all__ = [
@@ -38,4 +39,5 @@ __all__ = [
     "ServiceOverloadedError",
     "TuckerService",
     "TuckerTicket",
+    "serve_follower",
 ]

@@ -51,17 +51,41 @@ wall-clock went (queue wait vs. shared batched execute).
 
 Synchronous API, internally queued: ``submit`` never blocks on device work;
 ``TuckerTicket.result()`` blocks until the request's batch has executed.
+
+Across ranks (``ServiceConfig(shard=ShardSpec(n))``, ``n > 1``): every rank
+of an n-rank ``torch.distributed`` group starts it, rank 0 as
+``TuckerService(config)`` and every other rank as
+:func:`serve_follower(config) <serve_follower>`. Rank 0 alone takes
+requests (``TuckerService`` elsewhere raises) and runs admission, the batcher and
+the executors as above; every flush that reaches dispatch goes through
+rank 0's one dispatcher thread, the only place the service issues
+collectives, so their order is total. Before each dispatch the dispatcher
+announces it (``broadcast_object_list`` of a header: the spec and each
+member's nnz and dtypes; then the members' indices and values as two
+tensors), and every rank runs the same sharded ``plan(spec).batch``
+(``ShardedSweepEngine``: each call broadcasts rank 0's initial factors,
+then one all-reduce per mode a sweep). Results return on rank 0. While
+idle the dispatcher announces a no-op every ``FOLLOWER_HEARTBEAT_S``, so
+that waiting followers stay inside the group's collective timeout;
+``close()`` announces the stop on which every follower returns. A failure
+after an announce breaks the ranks' step: later dispatches fail, and the
+followers' collectives time out and raise.
 """
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import pickle
+import queue
 import threading
 import time
 import warnings
 from typing import Any, List, Optional, Sequence, Set
 
-from repro_torch.base import resolve_device, unported
+import torch
+import torch.distributed as dist
+
+from repro_torch.base import resolve_device
 from repro_torch.core.coo import SparseCOO
 from repro_torch.obs import event as _obs_event
 from repro_torch.obs import span as _obs_span
@@ -81,9 +105,15 @@ __all__ = [
     "ServiceOverloadedError",
     "TuckerService",
     "TuckerTicket",
+    "serve_follower",
 ]
 
 _BACKPRESSURE_POLICIES = ("block", "reject")
+
+# seconds between rank 0's no-op announces while a service across ranks is
+# idle: a waiting follower must hear from rank 0 within the group's
+# collective timeout (gloo's and NCCL's defaults are minutes)
+FOLLOWER_HEARTBEAT_S = 5.0
 
 
 class ServiceOverloadedError(RuntimeError):
@@ -138,14 +168,177 @@ def _uninstall_capacity(svc: "TuckerService") -> None:
 
 
 def _check_service_shard(shard: Any) -> None:
-    """A service shards over one device only (see ``ServiceConfig.shard``)."""
+    """``shard`` is a :class:`~repro_torch.tucker.spec.ShardSpec`."""
     if not isinstance(shard, ShardSpec):
         raise TypeError(f"shard must be a ShardSpec or None, got {type(shard).__name__}")
-    if shard.num_devices > 1:
-        raise unported(
-            f"a TuckerService sharded across {shard.num_devices} ranks",
-            "queue 1, item 15b: the sharded service across ranks, by broadcast from rank 0",
-        )
+
+
+def _across_ranks(shard: Optional[ShardSpec]) -> bool:
+    return shard is not None and shard.num_devices > 1
+
+
+def _service_group(shard: ShardSpec, group: Any, device) -> Any:
+    """The group a service across ranks runs on (``group``, else the
+    default one), checked: its world size must be ``shard.num_devices``,
+    or ``mesh_for_shard``'s message is raised (before any collective)."""
+    from repro_torch.tucker import planning
+
+    if group is None:
+        group = planning._default_group()
+    if group is None or dist.get_world_size(group) != shard.num_devices:
+        planning.mesh_for_shard(shard, group, device=device)  # raises: wrong world
+    return group
+
+
+class _Dispatcher:
+    """Rank 0's one dispatcher thread of a service across ranks: the only
+    thread that issues the service's collectives. Each dispatch is
+    announced to the followers (a header, then the members' indices and
+    values), then run as ``plan.batch`` on this thread while every
+    follower runs the same; while idle, a no-op header every
+    FOLLOWER_HEARTBEAT_S. A failure after an announce breaks the
+    dispatcher: the ranks are out of step, so every later dispatch raises."""
+
+    def __init__(self, mesh: Any) -> None:
+        self.mesh = mesh
+        self._src = dist.get_global_rank(mesh.group, 0)
+        self._jobs: "queue.Queue" = queue.Queue()
+        self._broken: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._loop, name="tucker-service-dispatch",
+                                        daemon=True)
+        self._thread.start()
+
+    def run(self, plan: Any, coos: Sequence[SparseCOO], generators: Sequence[Any]):
+        """``plan.batch(coos, generators)`` on every rank; returns rank 0's
+        results and the announce's ``{"bytes", "ms"}``."""
+        job = {"plan": plan, "coos": list(coos), "generators": list(generators),
+               "done": threading.Event()}
+        self._jobs.put(job)
+        while not job["done"].wait(FOLLOWER_HEARTBEAT_S):
+            if not self._thread.is_alive():  # died outside a dispatch
+                raise RuntimeError("the service's dispatcher thread has died: restart "
+                                   "every rank")
+        if "error" in job:
+            raise job["error"]
+        return job["results"], job["announce"]
+
+    def stop(self) -> None:
+        """Announce the stop (unless broken) and end the thread."""
+        self._jobs.put(None)
+        self._thread.join()
+
+    def _header(self, header: dict) -> int:
+        dist.broadcast_object_list([header], src=self._src, group=self.mesh.group)
+        return len(pickle.dumps(header))
+
+    def _payload(self, coos: List[SparseCOO]):
+        """The members' indices and values, each as one tensor on the
+        mesh's device (the collectives' device)."""
+        dev = self.mesh.device
+        return (torch.cat([c.indices for c in coos]).to(dev).contiguous(),
+                torch.cat([c.values for c in coos]).to(dev).contiguous())
+
+    def _announce(self, plan: Any, coos: List[SparseCOO], idx, vals) -> dict:
+        t0 = time.perf_counter()
+        dev = self.mesh.device
+        nbytes = self._header({"op": "dispatch", "spec": plan.spec,
+                               "nnz": [c.nnz for c in coos], "index_dtype": str(idx.dtype),
+                               "value_dtype": str(vals.dtype)})
+        for t in (idx, vals):
+            dist.broadcast(t, src=self._src, group=self.mesh.group)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return {"bytes": nbytes + idx.numel() * idx.element_size()
+                + vals.numel() * vals.element_size(),
+                "ms": (time.perf_counter() - t0) * 1e3}
+
+    def _loop(self) -> None:
+        while True:
+            try:
+                job = self._jobs.get(timeout=FOLLOWER_HEARTBEAT_S)
+            except queue.Empty:
+                self._tell_followers({"op": "noop"})
+                continue
+            if job is None:
+                self._tell_followers({"op": "stop"})
+                return
+            try:
+                self._dispatch(job)
+            finally:
+                job["done"].set()
+
+    def _tell_followers(self, header: dict) -> None:
+        """A header with no dispatch (a heartbeat, the stop), unless the
+        ranks are out of step; a follower gone breaks the dispatcher."""
+        if self._broken is None:
+            try:
+                self._header(header)
+            except Exception as exc:
+                self._broken = exc
+
+    def _dispatch(self, job: dict) -> None:
+        if self._broken is not None:
+            job["error"] = RuntimeError(
+                f"the service's ranks are out of step after a failed dispatch "
+                f"({self._broken!r}): restart every rank")
+            return
+        try:  # before the announce: fails this dispatch's tickets only
+            payload = self._payload(job["coos"])
+        except Exception as exc:
+            job["error"] = exc
+            return
+        try:
+            job["announce"] = self._announce(job["plan"], job["coos"], *payload)
+            job["results"] = job["plan"].batch(job["coos"], generators=job["generators"])
+        except Exception as exc:  # in or after the announce: fails the run
+            self._broken = exc
+            job["error"] = exc
+
+
+def serve_follower(config: "ServiceConfig", group: Any = None) -> None:
+    """Follow rank 0's :class:`TuckerService` of a service across ranks,
+    on every rank but 0 of ``group`` (the default group by default):
+    receive each announced dispatch, run the same sharded
+    ``plan(spec).batch`` on this rank's device (``config.device``), and
+    repeat until rank 0's ``close()`` announces the stop. Returns nothing:
+    results are rank 0's.
+
+    ``config`` is rank 0's (its ``shard`` of ``num_devices > 1`` ranks).
+    Raises without a group, on a group of another world size
+    (``mesh_for_shard``'s message), on rank 0, and when a collective fails
+    or times out (the group's ``timeout``)."""
+    from repro_torch import tucker
+
+    shard = config.shard
+    if not _across_ranks(shard):
+        raise ValueError("serve_follower follows a service across ranks: "
+                         "ServiceConfig(shard=ShardSpec(num_devices > 1))")
+    device = resolve_device(config.device)
+    group = _service_group(shard, group, device)
+    if dist.get_rank(group) == 0:
+        raise RuntimeError("rank 0 runs the TuckerService; serve_follower is for the other "
+                           "ranks")
+    mesh = tucker.mesh_for_shard(shard, group, device=device)  # rank 0 builds it too
+    src = dist.get_global_rank(group, 0)
+    while True:
+        box: List[Any] = [None]
+        dist.broadcast_object_list(box, src=src, group=group)
+        header = box[0]
+        if header["op"] == "stop":
+            return
+        if header["op"] != "dispatch":
+            continue  # rank 0's heartbeat
+        spec, counts = header["spec"], header["nnz"]
+        total = sum(counts)
+        idx = torch.empty((total, len(spec.shape)), device=mesh.device,
+                          dtype=getattr(torch, header["index_dtype"].replace("torch.", "")))
+        vals = torch.empty((total,), device=mesh.device,
+                           dtype=getattr(torch, header["value_dtype"].replace("torch.", "")))
+        for t in (idx, vals):
+            dist.broadcast(t, src=src, group=group)
+        coos = [SparseCOO(i, v, spec.shape)
+                for i, v in zip(idx.split(counts), vals.split(counts))]
+        tucker.plan(spec, device=device, mesh=mesh).batch(coos)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,13 +360,14 @@ class ServiceConfig:
       latency_window: samples retained per latency distribution.
       device: where the service's plans run: ``"cuda"`` (default; raises
         without a card) or ``"cpu"`` (the kernels' plain versions).
-      shard: a :class:`~repro_torch.tucker.spec.ShardSpec` of one device:
-        every submitted spec without its own ``shard`` is planned with it,
-        and each request runs as one sharded dispatch (in a world of one,
-        with no collective). ``num_devices > 1`` is not ported: two executor
-        threads issuing collectives in different orders on different ranks
-        would deadlock, so a service across ranks needs rank 0 to broadcast
-        each dispatch (ROADMAP.md queue 1, item 15b).
+      shard: a :class:`~repro_torch.tucker.spec.ShardSpec`: every
+        submitted spec without its own ``shard`` is planned with it, and
+        each request runs as one sharded dispatch. One device is a world of
+        one, with no collective; ``num_devices > 1`` serves across the ranks
+        of a process group of that world size (the module docstring: rank 0
+        constructs the service, every other rank runs
+        :func:`serve_follower`). A spec submitted with its own shard of
+        more than one device must carry the service's.
       max_retries: transient flush failures (RuntimeError) retried in place,
         on the same path, before the whole batch fails. 0 (default) fails
         fast; the terminal failure always reaches the tickets with no
@@ -307,9 +501,28 @@ class TuckerService:
     concurrently on the executor pool.
     """
 
-    def __init__(self, config: Optional[ServiceConfig] = None) -> None:
+    def __init__(self, config: Optional[ServiceConfig] = None, *, group: Any = None) -> None:
+        """``group`` (a service across ranks only; the default group by
+        default) is the process group the service shards over. Rank 0 of
+        it builds the shard mesh here, a collective that the followers'
+        :func:`serve_follower` joins; on another rank it raises
+        ``RuntimeError``: that rank runs :func:`serve_follower`."""
         self.config = config or ServiceConfig()
         self.device = resolve_device(self.config.device)
+        # a service across ranks: rank 0's mesh and dispatcher
+        self._mesh = None
+        self._dispatcher: Optional[_Dispatcher] = None
+        if _across_ranks(self.config.shard):
+            from repro_torch import tucker
+
+            group = _service_group(self.config.shard, group, self.device)
+            rank = dist.get_rank(group)
+            if rank != 0:
+                raise RuntimeError(
+                    f"rank {rank} follows rank 0's TuckerService: only rank 0 submits; "
+                    f"run serve_follower(config) on this rank")
+            self._mesh = tucker.mesh_for_shard(self.config.shard, group, device=self.device)
+            self._dispatcher = _Dispatcher(self._mesh)
         self.metrics = ServiceMetrics(latency_window=self.config.latency_window)
         self._lock = threading.Lock()
         self._cv = threading.Condition(self._lock)
@@ -394,6 +607,12 @@ class TuckerService:
             )
         if spec.shard is not None:
             _check_service_shard(spec.shard)
+            if _across_ranks(spec.shard) and spec.shard != self.config.shard:
+                raise ValueError(
+                    f"a spec sharded across {spec.shard.num_devices} ranks needs a "
+                    f"TuckerService(ServiceConfig(shard={spec.shard!r})) on rank 0 of such a "
+                    f"group, with serve_follower on the other ranks; this service's shard "
+                    f"is {self.config.shard!r}")
         elif self.config.shard is not None:
             # the service's shard: plans built here run sharded
             spec = dataclasses.replace(spec, shard=self.config.shard)
@@ -423,7 +642,7 @@ class TuckerService:
             # same spec that lost the claim proceeds without waiting; if the
             # spec is truly broken its ticket fails at flush.)
             try:
-                spec_plan = tucker.plan(spec, device=self.device)
+                spec_plan = tucker.plan(spec, device=self.device, mesh=self._mesh_for(spec))
             except BaseException:
                 # release the claim so the next submit re-validates instead
                 # of silently treating a never-planned spec as known-good
@@ -551,7 +770,8 @@ class TuckerService:
         still queued first; ``drain=False`` fails pending tickets with
         ``RuntimeError``. Idempotent. Joins the whole executor pool, so any
         in-flight flush finishes (and resolves its tickets) before close
-        returns."""
+        returns; across ranks it then announces the stop, on which every
+        follower returns."""
         with self._cv:
             if self._closed:
                 return
@@ -560,6 +780,8 @@ class TuckerService:
             self._cv.notify_all()
         for t in self._executors:
             t.join()
+        if self._dispatcher is not None:
+            self._dispatcher.stop()
         with self._cv:
             self._closed = True
         if self._remove_eviction_hook is not None:
@@ -685,7 +907,8 @@ class TuckerService:
             tickets=tickets, executor=threading.current_thread().name,
         ) as fsp:
             try:
-                plan = tucker.plan(batch.key.spec, device=self.device)
+                spec = batch.key.spec
+                plan = tucker.plan(spec, device=self.device, mesh=self._mesh_for(spec))
                 generators = [it.generator for it in items]
                 fsp.set_attr("vmappable", bool(plan.batch_is_vmappable(generators)))
 
@@ -693,9 +916,16 @@ class TuckerService:
                     with _obs_span(
                         "serve.dispatch", tickets=tickets,
                         batch_size=len(items),
-                    ):
-                        return plan.batch([it.coo for it in items],
-                                          generators=generators)
+                    ) as dsp:
+                        coos = [it.coo for it in items]
+                        if self._dispatcher is None or not _across_ranks(spec.shard):
+                            return plan.batch(coos, generators=generators)
+                        # every rank runs this dispatch: rank 0's dispatcher
+                        # announces it, then runs it
+                        results, announce = self._dispatcher.run(plan, coos, generators)
+                        dsp.set_attr("announce_bytes", announce["bytes"])
+                        dsp.set_attr("announce_ms", announce["ms"])
+                        return results
 
                 if self.config.max_retries > 0:
                     results = run_with_retries(
@@ -781,6 +1011,12 @@ class TuckerService:
                     nnz=int(it.coo.nnz),
                 ):
                     it.ticket._set_result(res)
+
+    def _mesh_for(self, spec: TuckerSpec) -> Any:
+        """The mesh a plan of ``spec`` runs on here: the service's, for a
+        spec sharded across its ranks (no collective at plan time); None
+        otherwise (a world of one builds its own, with none)."""
+        return self._mesh if _across_ranks(spec.shard) else None
 
     # -- plan-cache eviction observation ------------------------------------
 

@@ -1,5 +1,5 @@
-"""Sparse-tensor generators, the paper's Table V tensors and the per-mode
-sweep schedule."""
+"""Sparse-tensor generators, the paper's Table V tensors, the per-mode
+sweep schedule and the Kron-reuse dedup."""
 from repro_torch.sparse.datasets import (
     PAPER_DATASETS,
     amazon_like,
@@ -10,7 +10,9 @@ from repro_torch.sparse.datasets import (
 from repro_torch.sparse.generators import low_rank_sparse_tensor, random_sparse_tensor
 from repro_torch.sparse.layout import (
     DeviceSchedule,
+    KronReusePlan,
     SortedCOO,
+    build_kron_reuse,
     build_mode_layout,
     build_schedule,
     layout_padding_fraction,

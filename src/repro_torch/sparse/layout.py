@@ -1,8 +1,10 @@
-"""The per-mode sweep schedule: nonzeros grouped by output row block, and
-the batch assembly of same-shape tensors.
+"""The per-mode sweep schedule: nonzeros grouped by output row block, the
+Kron-reuse dedup, and the batch assembly of same-shape tensors.
 
-Port of ``repro.sparse.layout`` (no Kron reuse yet), with the shard
-padding of the sharded sweeps (:func:`build_shard_schedule`). The schedule is built
+Port of ``repro.sparse.layout``, with the shard padding of the sharded
+sweeps (:func:`build_shard_schedule`) and the paper's Sec. III-C Kron reuse
+(:func:`build_kron_reuse`: each distinct tuple of non-mode coordinates
+once, built with ``torch.unique`` on the tensor's device). The schedule is built
 with torch ops on whatever device the indices live on, so a tensor already
 on the card is scheduled there (three stable sorts of the nonzeros, which on
 the host take minutes at tens of millions of nonzeros). The arrays are
@@ -19,6 +21,38 @@ import numpy as np
 import torch
 
 from repro_torch.core.coo import SparseCOO
+
+
+class KronReusePlan(NamedTuple):
+    """The dedup of one mode's non-mode coordinate tuples (the paper's Kron
+    reuse, Sec. III-C), on the device of the tensor it was built from.
+    ``modes`` is the descending non-mode order of
+    :func:`repro_torch.core.kron.kron_rows`'s columns."""
+
+    unique_indices: torch.Tensor  # (n_unique, N-1) int32, rows into the non-mode factors
+    inverse: torch.Tensor  # (nnz,) int32: nonzero -> its unique Kron row
+    modes: Tuple[int, ...]
+
+    def with_values(self, values: torch.Tensor) -> "KronReusePlan":
+        """The same plan: it depends on the coordinates only."""
+        return self
+
+
+def build_kron_reuse(coo: SparseCOO, skip_mode: int) -> KronReusePlan:
+    """Deduplicate the (N-1)-tuples of non-mode coordinates so that each
+    distinct Kronecker row is computed once, in the original nonzero order.
+
+    The reference sorts on the host (``np.unique(axis=0,
+    return_inverse=True)``); ``torch.unique(dim=0, return_inverse=True)``
+    sorts the rows lexicographically too, on the tensor's own device, so
+    ``unique_indices`` and ``inverse`` are the reference's arrays."""
+    modes = tuple(t for t in range(coo.ndim - 1, -1, -1) if t != skip_mode)
+    sub = coo.indices[:, list(modes)]
+    if sub.shape[0] == 0:
+        return KronReusePlan(sub.to(torch.int32), sub.new_zeros((0,), dtype=torch.int32),
+                             modes)
+    uniq, inverse = torch.unique(sub, dim=0, return_inverse=True)
+    return KronReusePlan(uniq.to(torch.int32), inverse.reshape(-1).to(torch.int32), modes)
 
 
 class SortedCOO(NamedTuple):
@@ -218,21 +252,28 @@ class DeviceSchedule:
     int32 holds each slot's coordinates in the modes of
     :func:`operand_modes` (``indices[order]`` without the mode's own
     column), ``vals`` (nnz_padded,) ``values[order] * valid`` (0 on
-    padding slots). At NELL-2 size they take ~0.9 GB a mode."""
+    padding slots). At NELL-2 size they take ~0.9 GB a mode.
 
-    order: torch.Tensor
-    valid: torch.Tensor
-    rel_row: torch.Tensor
-    blkmap: torch.Tensor
+    A Kron-reuse schedule (:meth:`from_kron_plan`) holds the dedup alone:
+    ``kron_unique``, ``kron_inverse`` and ``kron_modes``, every scatter
+    field None, as the reference's."""
+
+    order: Optional[torch.Tensor]
+    valid: Optional[torch.Tensor]
+    rel_row: Optional[torch.Tensor]
+    blkmap: Optional[torch.Tensor]
     row_mask: Optional[torch.Tensor]
-    parts: torch.Tensor
-    idx: torch.Tensor
-    vals: torch.Tensor
+    parts: Optional[torch.Tensor]
+    idx: Optional[torch.Tensor]
+    vals: Optional[torch.Tensor]
     mode: int
     shape: Tuple[int, ...]
     n_row_blocks: int
     bn: int
     bi: int
+    kron_unique: Optional[torch.Tensor] = None
+    kron_inverse: Optional[torch.Tensor] = None
+    kron_modes: Optional[Tuple[int, ...]] = None
 
     @classmethod
     def from_layout(cls, layout, coo: SparseCOO, device=None, *,
@@ -262,9 +303,23 @@ class DeviceSchedule:
             n_row_blocks=layout.n_row_blocks, bn=layout.bn, bi=layout.bi,
         )
 
+    @classmethod
+    def from_kron_plan(cls, plan: KronReusePlan, mode: int, shape: Tuple[int, ...],
+                       device=None) -> "DeviceSchedule":
+        """The Kron-reuse dedup alone, on ``device`` (the plan's by default):
+        the reuse chain needs no scatter schedule."""
+        dev = torch.device(device) if device is not None else plan.inverse.device
+        return cls(order=None, valid=None, rel_row=None, blkmap=None, row_mask=None,
+                   parts=None, idx=None, vals=None, mode=mode, shape=tuple(shape),
+                   n_row_blocks=0, bn=0, bi=0,
+                   kron_unique=plan.unique_indices.to(dev),
+                   kron_inverse=plan.inverse.to(dev), kron_modes=tuple(plan.modes))
+
     def with_values(self, values: torch.Tensor) -> "DeviceSchedule":
         """The same schedule for a tensor with the same coordinates and
-        other ``values``."""
+        other ``values`` (a Kron-reuse schedule holds no values)."""
+        if self.order is None:
+            return self
         return dataclasses.replace(
             self, vals=slot_values(values.to(self.order.device), self.order, self.valid))
 

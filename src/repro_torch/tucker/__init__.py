@@ -26,6 +26,13 @@
     # calls torch.cuda.set_device(LOCAL_RANK) and init_process_group first)
     res = tucker.plan(tucker.TuckerSpec(shape=coo.shape, ranks=(16, 16, 16),
                                         shard=tucker.ShardSpec(num_devices=4)))(coo)
+
+    # float64 on the card (kernels 1-4 in f64), and the paper's Kron reuse
+    # on the torch engine (ignored on cuda)
+    res = tucker.plan(tucker.TuckerSpec(shape=coo.shape, ranks=(16, 16, 16),
+                                        dtype="float64"))(coo)
+    res = tucker.plan(tucker.TuckerSpec(shape=coo.shape, ranks=(16, 16, 16),
+                                        engine="torch", use_kron_reuse=True))(coo)
 """
 from repro_torch.tucker.planning import (
     PlanCache,
@@ -34,6 +41,7 @@ from repro_torch.tucker.planning import (
     add_plan_eviction_hook,
     clear_plan_cache,
     decompose,
+    engine_for_spec,
     mesh_fingerprint,
     mesh_for_shard,
     plan,
@@ -67,6 +75,7 @@ __all__ = [
     "add_plan_eviction_hook",
     "clear_plan_cache",
     "decompose",
+    "engine_for_spec",
     "load_snapshot",
     "mesh_fingerprint",
     "mesh_for_shard",

@@ -45,11 +45,16 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.base import resolve_device, unported
+from repro_torch.base import resolve_device
 from repro_torch.core import hooi as _hooi
 from repro_torch.core.coo import SparseCOO, fold_dense, unfold_dense
 from repro_torch.core.distributed import ShardMesh, psum_bytes_per_sweep, world_size
-from repro_torch.core.engine import ShardedSweepEngine, SweepEngine, make_engine
+from repro_torch.core.engine import (
+    ShardedSweepEngine,
+    SweepEngine,
+    make_engine,
+    resolve_engine,
+)
 from repro_torch.core.qrp import factor_update
 from repro_torch.core.reconstruct import compression_ratio, reconstruct_dense
 from repro_torch.core.ttm import ttm_chain
@@ -69,6 +74,7 @@ __all__ = [
     "add_plan_eviction_hook",
     "clear_plan_cache",
     "decompose",
+    "engine_for_spec",
     "mesh_fingerprint",
     "mesh_for_shard",
     "plan",
@@ -120,6 +126,40 @@ def mesh_for_shard(shard: Any, group: Any = None, *, device="cuda") -> ShardMesh
                      devices=tuple(devices))
 
 
+def engine_for_spec(spec: TuckerSpec, prebuilt: Optional[SweepEngine] = None,
+                    resolved: Optional[str] = None, *, device="cuda") -> SweepEngine:
+    """The one place a plan's sweep engine comes from: every run path (the
+    scan and python pipelines, snapshot segments, ``batch``'s per-member
+    calls) sweeps on it, so ``use_kron_reuse`` follows one rule: honoured
+    on the torch engine (the reference's XLA engine's twin), ignored on
+    ``cuda`` (kernel 1 reads the factor rows through its schedule, as the
+    reference ignores it on Pallas), and warned about when a prebuilt
+    engine disagrees with the spec (the engine's setting wins).
+    ``resolved`` is an engine name already resolved for ``device``."""
+    if prebuilt is not None:
+        if spec.use_kron_reuse and not prebuilt.use_kron_reuse:
+            warnings.warn(
+                "use_kron_reuse=True is ignored: the prebuilt SweepEngine was "
+                "made with use_kron_reuse=False (pass make_engine(..., "
+                "use_kron_reuse=True) instead).",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+        elif prebuilt.use_kron_reuse and not spec.use_kron_reuse:
+            warnings.warn(
+                "the prebuilt SweepEngine overrides use_kron_reuse=False: it "
+                "was made with use_kron_reuse=True, so the Kron-reuse path "
+                "will run (the engine's setting wins).",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+        return prebuilt
+    name = (resolved if resolved is not None
+            else resolve_engine(spec.engine, device, spec.use_kron_reuse))
+    return make_engine(name, device, precision=spec.precision,
+                       use_kron_reuse=spec.use_kron_reuse)
+
+
 def _check_mesh(spec: TuckerSpec, mesh: ShardMesh, device: torch.device) -> None:
     """``mesh`` is one that a plan of ``spec`` on ``device`` may run on."""
     if spec.shard is None:
@@ -148,8 +188,13 @@ def _xnorm2(coo: SparseCOO, device: torch.device) -> torch.Tensor:
     """||X||^2 from the whole tensor's values on ``device`` (its indices
     stay where they are; values already there are not copied): the bits of
     the unsharded run, which moves the tensor and then takes the norm, and
-    the same bits on every rank."""
-    return torch.square(dataclasses.replace(coo, values=coo.values.to(device)).norm())
+    the same bits on every rank. In f32, as the reference takes it
+    (``SparseCOO.norm``), unless the values are f64: then in f64, so that an
+    f64 fit has no f32 floor (the reference's has; ROADMAP.md, deviations on
+    purpose)."""
+    v = coo.values.to(device)
+    v = v if v.dtype == torch.float64 else v.to(torch.float32)
+    return torch.square(torch.sqrt(torch.sum(torch.square(v))))
 
 
 def _collective_bytes(spec: TuckerSpec, sched: Any) -> int:
@@ -217,8 +262,6 @@ class TuckerPlan:
                  mesh: Optional[ShardMesh] = None) -> None:
         self.spec = spec
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and spec.dtype == "float64":
-            raise unported("float64 on the card", "queue 1, item 8: float64 on the card")
         self.mesh: Optional[ShardMesh] = None
         if mesh is not None:
             _check_mesh(spec, mesh, self.device)
@@ -231,28 +274,33 @@ class TuckerPlan:
                     "a sharded plan runs the split core update on the summed Y_(N): the "
                     "prebuilt engine has fuse_core=True, which would contract a rank's "
                     "partial Y_(N)")
+            if engine is not None and engine.use_kron_reuse:
+                raise ValueError(
+                    "shard is incompatible with use_kron_reuse: the prebuilt engine "
+                    "dedups per tensor, not per rank's slice")
         if spec.algorithm != "sparse":
             if engine is not None:
                 raise ValueError(
                     f"a SweepEngine only applies to algorithm='sparse' plans, not "
                     f"{spec.algorithm!r} (the dense path runs torch products)"
                 )
-        elif engine is None:
-            engine = make_engine(spec.engine, self.device, precision=spec.precision)
-        elif (engine.device.type != self.device.type
-              or resolve_device(engine.device) != self.device):
+        elif engine is not None and (engine.device.type != self.device.type
+                                     or resolve_device(engine.device) != self.device):
             raise ValueError(
                 f"the prebuilt engine runs on {engine.device}, the plan on "
                 f"{self.device}: pass device= to match the engine"
             )
+        else:
+            engine = engine_for_spec(spec, prebuilt=engine, device=self.device)
         self.engine: Optional[SweepEngine] = engine
-        # the batched sweeps' own engine (fp32, as they run only in fp32):
+        # the batched sweeps' own engine (precision fp32, as they run only at it):
         # their schedules are the stacked tensor's, built once a flush, and
-        # must not evict the per-tensor ones. A sharded plan runs its batch
-        # member by member and has none.
+        # must not evict the per-tensor ones. A sharded plan, or one on a
+        # Kron-reuse engine, runs its batch member by member and has none.
         self._batch_engine: Optional[SweepEngine] = (
             make_engine(engine.name, self.device)
-            if engine is not None and spec.shard is None else None)
+            if engine is not None and spec.shard is None and not engine.use_kron_reuse
+            else None)
         # the engine the sweeps of a sharded plan run on
         self._sharded: Optional[ShardedSweepEngine] = (
             ShardedSweepEngine(engine, self.mesh) if self.mesh is not None else None)
@@ -374,10 +422,12 @@ class TuckerPlan:
         """Whether :meth:`batch` runs its members as one batched sweep
         program: the spec's property and an engine that can run it (fp32,
         without ``fuse_core``, whose megakernel would sum the core over all
-        members). The serving plane reads this."""
+        members, and without a prebuilt engine's Kron reuse, a per-tensor
+        dedup). The serving plane reads this."""
         eng = self.engine
         return (self.spec.supports_batched_dispatch and eng is not None
-                and eng.precision == "fp32" and not eng.fuse_core)
+                and eng.precision == "fp32" and not eng.fuse_core
+                and not eng.use_kron_reuse)
 
     def batch_is_vmappable(self, generators: Any = None) -> bool:
         """Whether :meth:`batch` with these generators runs as one batched
@@ -473,9 +523,9 @@ class TuckerPlan:
         dt = self.spec.resolved_dtype()
         if dt is not None and coo.values.dtype != dt:
             coo = SparseCOO(coo.indices, coo.values.to(dt), coo.shape)
-        if self.device.type == "cuda" and coo.values.dtype != torch.float32:
-            raise unported(f"{coo.values.dtype} values on the card",
-                           "queue 1, item 8: float64 on the card")
+        if self.device.type == "cuda" and coo.values.dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"{coo.values.dtype} values: the card's sweeps run in float32 or "
+                             f"float64 (set TuckerSpec.dtype)")
         return coo
 
     def _init_factors(self, generator, factors_init):
@@ -493,9 +543,10 @@ class TuckerPlan:
                 f"factors_init shapes {[tuple(f.shape) for f in factors]} do not "
                 f"match the spec's {want}"
             )
-        if self.device.type == "cuda" and any(f.dtype != torch.float32 for f in factors):
-            raise unported("non-float32 factors on the card",
-                           "queue 1, item 8: float64 on the card")
+        if self.device.type == "cuda" and any(
+                f.dtype not in (torch.float32, torch.float64) for f in factors):
+            raise ValueError(f"factors_init dtypes {[f.dtype for f in factors]}: the card's "
+                             f"sweeps run in float32 or float64")
         return factors
 
     def _result(self, core, factors, hist, **counts) -> TuckerResult:
@@ -698,7 +749,7 @@ class TuckerPlan:
         # this plan may be running its sweeps meanwhile
         with _obs_span("plan.assemble", batch=k):
             factors = [self._init_factors(g, f) for g, f in zip(generators, inits)]
-            xnorm2 = torch.stack([torch.square(c.norm()) for c in coos])
+            xnorm2 = torch.stack([_xnorm2(c, c.device) for c in coos])
             stacked, _ = stack_coo_batch(coos)
         with self._dispatch_lock, _obs_span("sweep.dispatch", program="batched",
                                             engine=eng.name, batch=k, nnz=stacked.nnz,
@@ -752,8 +803,6 @@ class TuckerPlan:
             )
         x = x.to(self.device)
         x = x.to(spec.resolved_dtype() or torch.promote_types(x.dtype, torch.float32))
-        if self.device.type == "cuda" and x.dtype != torch.float32:
-            raise unported(f"{x.dtype} input on the card", "queue 1, item 8: float64 on the card")
         n, ranks = x.dim(), spec.ranks
         factors = [f.to(x.dtype) for f in self._init_factors(generator, factors_init)]
         # the norm's reduction squares in registers: no temporary of X's size

@@ -1,9 +1,8 @@
 """TuckerSpec — the frozen problem description behind the plan/execute API.
 
 Port of ``repro.tucker.spec``: the same fields, validation and rank clamp,
-:class:`ShardSpec` and :class:`SnapshotSpec`. ``use_kron_reuse``, not ported
-yet, raises ``NotImplementedError`` naming its ``ROADMAP.md`` item; the JAX
-engine names raise ``ValueError``.
+:class:`ShardSpec` and :class:`SnapshotSpec`; the JAX engine names raise
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -14,7 +13,6 @@ import torch
 
 from repro_torch.core.engine import ENGINES, JAX_ENGINES
 from repro_torch.core.hooi import effective_ranks
-from repro_torch.base import unported
 from repro_torch.kernels.kron_kernel import PRECISIONS
 
 METHODS = ("svd", "householder", "gram")
@@ -183,8 +181,11 @@ class TuckerSpec:
       snapshot: a :class:`SnapshotSpec` to run the sweeps in segments with
         the carry checkpointed (resumable through ``tucker.resume``), or
         None. Needs the sparse algorithm on the scan pipeline.
-      use_kron_reuse: the reference's Kron-row dedup, not ported yet; only
-        its default is accepted.
+      use_kron_reuse: the paper's Sec. III-C Kron-row dedup (each distinct
+        non-mode coordinate tuple's Kronecker row computed once), honoured
+        on the torch engine and ignored on ``cuda``, as the reference
+        honours it on XLA and ignores it on Pallas
+        (``tucker.engine_for_spec``). Not with ``shard``.
     """
 
     shape: Tuple[int, ...]
@@ -280,8 +281,6 @@ class TuckerSpec:
                     "snapshot requires pipeline='scan': the snapshot layer runs "
                     "the multi-sweep loop in resumable segments"
                 )
-        if self.use_kron_reuse:
-            raise unported("use_kron_reuse=True", "queue 1, item 7: Kron reuse")
         object.__setattr__(self, "shape", shape)
         object.__setattr__(self, "ranks", ranks)
         object.__setattr__(self, "n_iter", int(self.n_iter))

@@ -1,0 +1,276 @@
+"""float64 in repro_torch on the CPU: the plain versions of kernels 1-4
+computing in f64 against the reference's Pallas kernels in interpret mode,
+and ``plan(TuckerSpec(dtype="float64"), device="cpu")`` against the
+reference's XLA engine in f64 (``jax.enable_x64``), the one the port's
+card is held to (its kernels compute in the spec's dtype; the reference's
+Pallas kernels in f32 whatever the dtype).
+
+Tolerances:
+  * the kernels' f64 plain versions against the reference's f32 Pallas
+    kernels, on inputs that f32 holds exactly: the f32 rule of
+    ``chip_smoke.py`` (max(1e-5, 4 sqrt(n) 2^-24) x max|reference| for n
+    terms summed into one output): the f64 result is the f32 one's exact
+    sum, so the two differ by the f32 side's rounding;
+  * the sparse f64 decomposition against the reference's XLA engine in
+    f64: the last sweep's f64 fit (the projection identity on each core,
+    with ||X|| taken here in f64) 1e-10, factor projectors 1e-8 (f64
+    arithmetic in other summation orders, 3 sweeps of f64 QRP). The fit
+    histories are f32 in both packages, and the reference takes ||X|| in
+    f32 even for f64 values, the port in f64 (a deviation on purpose: an
+    f64 fit near 0 keeps no f32 floor), so the histories agree to 1e-6;
+  * ``bf16_fp32acc`` with f64 tensors against the reference's Pallas engine
+    under x64 (the same bf16 operands, f32 sums): fit 1e-4, projectors and
+    core 1e-3, the port's bf16 parity bounds (``test_torch_tucker.py``).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import tucker as jtucker
+from repro.core.coo import SparseCOO as JCOO
+from repro.kernels import ops as jops
+from repro.kernels.kron_kernel import (fused_kron_scatter_pallas, kron_contrib_pallas,
+                                       scatter_rows_pallas)
+from repro.kernels.ttm_kernel import ttm_pallas
+from repro.sparse.layout import build_mode_layout as jbuild
+from repro_torch import tucker
+from repro_torch.convert import coo_from_numpy, factors_from_numpy
+from repro_torch.core.coo import SparseCOO
+from repro_torch.kernels import autotune as at
+from repro_torch.kernels import kron_kernel, ops, ttm_kernel
+from repro_torch.sparse.layout import DeviceSchedule, build_mode_layout, operand_modes
+
+
+def _f32_rule(got, want, n_terms):
+    want = np.asarray(want, dtype=np.float64)
+    tol = max(1e-5, 4 * n_terms ** 0.5 * 2.0 ** -24)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0,
+                               atol=tol * max(np.abs(want).max(), 1e-30))
+
+
+def _inputs(shape, ranks, nnz, seed):
+    """f32 values and factors (exact in f64 too), coordinates with repeats."""
+    rng = np.random.default_rng(seed)
+    idx = np.stack([rng.integers(0, s, nnz) for s in shape], 1).astype(np.int32)
+    vals = rng.standard_normal(nnz).astype(np.float32)
+    fs = [rng.standard_normal((s, r)).astype(np.float32) for s, r in zip(shape, ranks)]
+    return idx, vals, fs
+
+
+def _most_terms(idx, mode):
+    return int(np.bincount(idx[:, mode]).max())
+
+
+@pytest.mark.parametrize("shape,ranks", [((40, 35, 30), (5, 4, 3)), ((33, 9, 300), (3, 5, 2)),
+                                         ((300, 40), (6, 4))])
+def test_kernel1_plain_f64_matches_pallas(shape, ranks):
+    idx, vals, fs = _inputs(shape, ranks, 700, 1)
+    jc = JCOO.from_parts(idx, vals, shape)
+    tc = SparseCOO.from_parts(idx, vals.astype(np.float64), shape)
+    tfs = [torch.from_numpy(f.astype(np.float64)) for f in fs]
+    n = len(shape)
+    for mode in range(n):
+        jlay = jbuild(jc, mode, bn=16, bi=8)
+        jrows, jv = jops._gathered_block_rows(jc.indices, jc.values,
+                                              [jnp.asarray(f) for f in fs], mode, jlay, n)
+        want = fused_kron_scatter_pallas(*jrows, jv, jlay, shape[mode], interpret=True)
+        sched = DeviceSchedule.from_layout(build_mode_layout(tc, mode, bn=16, bi=8), tc)
+        assert sched.vals.dtype == torch.float64
+        modes = operand_modes(n, mode)
+        got = kron_kernel.fused_kron_scatter(tfs[modes[0]], tfs[modes[1]] if n == 3 else None,
+                                             sched, shape[mode])
+        assert got.dtype == torch.float64 and np.asarray(want).dtype == np.float32
+        _f32_rule(got.numpy(), want, _most_terms(idx, mode))
+
+
+def test_kernels34_plain_f64_match_pallas():
+    """The order >= 4 chain in f64: both links of kron_contrib and the row
+    scatter, each against the reference's kernel on the same rows."""
+    shape, ranks = (9, 8, 7, 6), (3, 2, 4, 2)
+    idx, vals, fs = _inputs(shape, ranks, 400, 2)
+    jc = JCOO.from_parts(idx, vals, shape)
+    tc = SparseCOO.from_parts(idx, vals.astype(np.float64), shape)
+    tfs = [torch.from_numpy(f.astype(np.float64)) for f in fs]
+    for mode in range(4):
+        jlay = jbuild(jc, mode, bn=16, bi=8)
+        jrows, jv = jops._gathered_block_rows(jc.indices, jc.values,
+                                              [jnp.asarray(f) for f in fs], mode, jlay, 4)
+        sched = DeviceSchedule.from_layout(build_mode_layout(tc, mode, bn=16, bi=8), tc)
+        trows, tv = ops._gathered_block_rows(tc.indices, tc.values, tfs, mode, sched, 4)
+        c1 = kron_kernel.kron_contrib(trows[0], trows[1], tv)
+        j1 = kron_contrib_pallas(jrows[0], jrows[1], jv, interpret=True)
+        assert c1.dtype == torch.float64
+        _f32_rule(c1.numpy(), j1, 1)
+        c2 = kron_kernel.kron_contrib(c1, trows[2], torch.ones_like(tv))
+        j2 = kron_contrib_pallas(j1, jrows[2], jnp.ones_like(jv), interpret=True)
+        _f32_rule(c2.numpy(), j2, 1)
+        got = kron_kernel.scatter_rows(c2, sched, shape[mode])
+        want = scatter_rows_pallas(j2, jlay, shape[mode], interpret=True)
+        assert got.dtype == torch.float64
+        _f32_rule(got.numpy(), want, _most_terms(idx, mode))
+        # the unfolding through ops, the path the sweeps take
+        y = ops.sparse_ttm_chain_device(tc.indices, tc.values, tfs, mode, sched, shape=shape)
+        np.testing.assert_array_equal(y.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("l,i,r", [(256, 300, 16), (15, 1000, 3), (100, 37, 17)])
+def test_kernel2_plain_f64_matches_pallas(l, i, r):
+    rng = np.random.default_rng(l + i)
+    y = rng.standard_normal((l, i)).astype(np.float32)
+    u = rng.standard_normal((r, i)).astype(np.float32)
+    got = ttm_kernel.ttm(torch.from_numpy(y.astype(np.float64)),
+                         torch.from_numpy(u.astype(np.float64)))
+    want = ttm_pallas(jnp.asarray(y), jnp.asarray(u), interpret=True)
+    assert got.dtype == torch.float64
+    _f32_rule(got.numpy(), want, i)
+    # f32 operands stay f32, bit for bit the f32 product as before
+    f32 = ttm_kernel.ttm(torch.from_numpy(y), torch.from_numpy(u))
+    assert f32.dtype == torch.float32
+    assert torch.equal(f32, torch.from_numpy(y) @ torch.from_numpy(u).T)
+
+
+def test_bf16_route_of_f64_operands_sums_in_f32():
+    """Under bf16_fp32acc f64 operands take the bf16 route with f32 values
+    and results, as the reference's kernels."""
+    shape, ranks = (20, 15, 12), (3, 4, 2)
+    idx, vals, fs = _inputs(shape, ranks, 200, 3)
+    tc = SparseCOO.from_parts(idx, vals.astype(np.float64), shape)
+    f64 = [torch.from_numpy(f.astype(np.float64)) for f in fs]
+    f32 = [torch.from_numpy(f) for f in fs]
+    sched = DeviceSchedule.from_layout(build_mode_layout(tc, 0), tc)
+    sched32 = DeviceSchedule.from_layout(build_mode_layout(tc, 0), SparseCOO.from_parts(
+        idx, vals, shape))
+    got = kron_kernel.fused_kron_scatter(f64[2], f64[1], sched, shape[0],
+                                         precision="bf16_fp32acc")
+    want = kron_kernel.fused_kron_scatter(f32[2], f32[1], sched32, shape[0],
+                                          precision="bf16_fp32acc")
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want)
+    g2 = ttm_kernel.ttm(got.T, f64[0].T, precision="bf16_fp32acc")
+    assert g2.dtype == torch.float32
+
+
+SPARSE = {2: ((40, 30), (5, 4), 0.05), 3: ((30, 25, 20), (4, 3, 3), 0.02),
+          4: ((12, 10, 9, 8), (3, 2, 3, 2), 0.02)}
+
+
+def _ref_and_port(order, method, **kw):
+    shape, ranks, density = SPARSE[order]
+    rng = np.random.default_rng(order)
+    nnz = int(np.prod(shape) * density)
+    lin = rng.choice(int(np.prod(shape)), nnz, replace=False)
+    idx = np.stack(np.unravel_index(lin, shape), 1).astype(np.int32)
+    vals = rng.uniform(0.1, 1.0, nnz)
+    ranks = tucker.TuckerSpec(shape, ranks).ranks  # the clamped ranks
+    f0 = [np.linalg.qr(rng.standard_normal((s, r)))[0] for s, r in zip(shape, ranks)]
+    engine = kw.pop("ref_engine", "xla")
+    with jax.enable_x64(True):
+        jspec = jtucker.TuckerSpec(shape, ranks, method=method, n_iter=3, dtype="float64",
+                                   engine=engine, **kw)
+        jc = JCOO(jnp.asarray(idx), jnp.asarray(vals), shape)
+        ref = jtucker.plan(jspec)(jc, factors_init=[jnp.asarray(f) for f in f0])
+        ref = (np.asarray(ref.fit_history), [np.asarray(f) for f in ref.factors],
+               np.asarray(ref.core))
+    assert ref[2].dtype == np.float64
+    spec = tucker.TuckerSpec(shape, ranks, method=method, n_iter=3, dtype="float64", **kw)
+    port = tucker.plan(spec, device="cpu")(coo_from_numpy(idx, vals, shape),
+                                           factors_init=factors_from_numpy(f0))
+    assert port.core.dtype == torch.float64
+    assert all(f.dtype == torch.float64 for f in port.factors)
+    return ref + (float(np.sum(vals * vals)),), port
+
+
+def _fit64(core, x2):
+    """The relative error of a core by the projection identity, in f64."""
+    return np.sqrt(max(x2 - float(np.sum(np.square(core))), 0.0) / x2)
+
+
+def _assert_close(ref, port, fit_tol, proj_tol, core_tol=None):
+    fit, fs, core, x2 = ref
+    got64 = _fit64(port.core.numpy(), x2)
+    assert abs(got64 - _fit64(core, x2)) <= fit_tol
+    # the port's f32 history rounds its f64 fit; the reference's rounds a
+    # fit taken with ||X|| in f32
+    assert abs(float(port.fit_history[-1]) - got64) <= 2.0 ** -24
+    np.testing.assert_allclose(port.fit_history, fit, rtol=0, atol=max(fit_tol, 1e-6))
+    got = port.core.numpy()
+    for n, (a, b) in enumerate(zip(port.factors, fs)):
+        a = a.numpy()
+        np.testing.assert_allclose(a @ a.T, b @ b.T, rtol=0, atol=proj_tol)
+        sign = np.sign(np.sum(a * b, axis=0))
+        got = got * sign.reshape([-1 if t == n else 1 for t in range(got.ndim)])
+    if core_tol is not None:
+        np.testing.assert_allclose(got, core, rtol=0, atol=core_tol * np.abs(core).max())
+
+
+@pytest.mark.parametrize("method", ["householder", "gram", "svd"])
+@pytest.mark.parametrize("order", [2, 3, 4])
+def test_f64_plan_matches_the_reference_xla_engine(order, method):
+    ref, port = _ref_and_port(order, method)
+    _assert_close(ref, port, 1e-10, 1e-8)
+
+
+def test_bf16_precision_with_f64_matches_the_reference():
+    ref, port = _ref_and_port(3, "householder", precision="bf16_fp32acc",
+                              ref_engine="pallas")
+    assert port.precision == "bf16_fp32acc"
+    _assert_close(ref, port, 1e-4, 1e-3, 1e-3)
+
+
+@pytest.mark.parametrize("shape,ranks", [((12092, 9184, 28818), (16, 16, 16)),
+                                         ((20000, 20000, 20000), (32, 32, 32)),
+                                         ((500, 400, 300), (64, 64, 48)),
+                                         ((300, 200), (128, 1))])
+def test_autotune_sizes_f64_staging_within_the_limit(shape, ranks):
+    """The shared-memory prune counts 8-byte elements in float64: no
+    candidate goes over the per-block limit, and no f64 candidate takes the
+    fused layout (kernel 5 has no f64 instantiation)."""
+    limit = at.H100_SMEM_PER_BLOCK_OPTIN
+    cands = at.candidate_configs(shape, ranks, 10_000, dtype="float64")
+    assert cands[0] == at.DEFAULT_CONFIG
+    for c in cands[1:]:
+        assert at.smem_bytes(c, shape, ranks, dtype="float64") <= limit
+    assert all(c.layout == "split" for c in cands)
+    ring64 = at._ring_bytes(16, 16, "fp32", "float64")
+    assert ring64 == 2 * at._ring_bytes(16, 16, "fp32") == 16384
+    assert at._ring_bytes(16, 16, "bf16_fp32acc", "float64") == 4096
+    assert (at.sweep_bytes(at.DEFAULT_CONFIG, shape, ranks, 10_000, dtype="float64")
+            > at.sweep_bytes(at.DEFAULT_CONFIG, shape, ranks, 10_000))
+
+
+def test_autotune_prunes_f64_rings_that_do_not_fit():
+    # ranks 512 x 512 at f64: one warp's ring takes 2 x 32 x 1,024 x 8 = 512 KB
+    shape, ranks = (600, 600, 600), (512, 512, 64)
+    assert at._ring_bytes(512, 512, "fp32", "float64") > at.H100_SMEM_PER_BLOCK_OPTIN
+    assert at.candidate_configs(shape, ranks, 1000, dtype="float64") == [at.DEFAULT_CONFIG]
+
+
+def test_kernel5_f64_raises_naming_item_8b():
+    """The megakernel has no f64 instantiation: off the CPU an f64 call
+    raises, naming its ROADMAP item (meta tensors reach the device branch
+    without a card)."""
+    meta = dict(dtype=torch.float64, device="meta")
+    fa, fb, u = torch.empty((4, 2), **meta), torch.empty((3, 2), **meta), torch.empty((5, 2), **meta)
+    with pytest.raises(NotImplementedError, match="queue 1, item 8b: float64 in kernel 5"):
+        kron_kernel.fused_kron_scatter_ttm(fa, fb, u, None, 5)
+
+
+def test_f64_fuse_core_runs_on_the_cpu():
+    """On the CPU the fused core update's plain version computes in f64."""
+    ref, _ = _ref_and_port(3, "gram")
+    shape, ranks, density = SPARSE[3]
+    rng = np.random.default_rng(3)
+    nnz = int(np.prod(shape) * density)
+    lin = rng.choice(int(np.prod(shape)), nnz, replace=False)
+    idx = np.stack(np.unravel_index(lin, shape), 1).astype(np.int32)
+    vals = rng.uniform(0.1, 1.0, nnz)
+    f0 = [np.linalg.qr(rng.standard_normal((s, r)))[0] for s, r in zip(shape, ranks)]
+    from repro_torch.core.engine import make_engine
+
+    spec = tucker.TuckerSpec(shape, ranks, method="gram", n_iter=3, dtype="float64")
+    port = tucker.plan(spec, device="cpu", engine=make_engine("torch", "cpu", fuse_core=True))(
+        coo_from_numpy(idx, vals, shape), factors_init=factors_from_numpy(f0))
+    assert port.core.dtype == torch.float64
+    _assert_close(ref, port, 1e-10, 1e-8)

@@ -183,16 +183,10 @@ def test_available_engines_on_the_cpu():
 
 # -- repro_torch.core's exports and the result types -------------------------------
 
-# names repro.core re-exports that belong to Kron reuse (ROADMAP.md queue 1,
-# item 7), not ported yet
-KRON_REUSE_NAMES = {"precompute_kron_reuse", "sparse_ttm_chain_reuse",
-                    "sparse_ttm_chain_reuse_device"}
-
-
 def test_core_reexports_the_reference_names():
     """Every name ``src/repro/core/__init__.py`` imports resolves on
-    ``repro_torch.core`` to the port's object of that name, but those of
-    Kron reuse."""
+    ``repro_torch.core`` to the port's object of that name, Kron reuse's
+    included."""
     import ast
     from pathlib import Path
 
@@ -204,9 +198,6 @@ def test_core_reexports_the_reference_names():
              if isinstance(node, ast.ImportFrom) for a in node.names}
     assert len(names) > 25
     for module, name in sorted(names):
-        if name in KRON_REUSE_NAMES:
-            assert not hasattr(tcore, name)
-            continue
         port_module = importlib.import_module(module.replace("repro.", "repro_torch.", 1))
         assert getattr(tcore, name) is getattr(port_module, name), name
     assert tcore.hooi_sparse_distributed is importlib.import_module(

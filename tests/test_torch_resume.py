@@ -20,9 +20,8 @@ resumed on 2 ranks, and in this process on 1, with the spec's stale
 reference's own sharded bounds of it. Only rank 0 writes, and the manifest
 holds the 4-rank mesh's fingerprint. The reference's
 ``test_sharded_kill_resume_same_device_count`` fails on this tree
-(ROADMAP.md queue 3), so the port is held to its own runs here.
-
-Left to ROADMAP.md: Kron reuse with snapshots (item 7).
+(ROADMAP.md queue 3), so the port is held to its own runs here. Kron
+reuse with snapshots: ``tests/test_torch_kron_reuse.py``.
 """
 import dataclasses
 

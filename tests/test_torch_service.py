@@ -245,9 +245,10 @@ def test_service_over_one_device_plans_sharded():
         one = tucker.plan(SPEC, **CPU)(c, generator=_gen(i))
         np.testing.assert_array_equal(r.fit_history, one.fit_history)
         assert torch.equal(r.core, one.core)
-    # a spec that brings its own shard across ranks is refused at submit
+    # a spec that brings its own shard across ranks needs a service across
+    # those ranks: refused at submit by a service of one process
     with TuckerService(ServiceConfig(**CPU)) as svc:
-        with pytest.raises(NotImplementedError, match="item 15b"):
+        with pytest.raises(ValueError, match="serve_follower"):
             svc.submit_coo(coos[0], tucker.TuckerSpec(SHAPE, (3, 2, 2),
                                                       shard=tucker.ShardSpec(2)))
 
@@ -257,8 +258,9 @@ def test_service_runs_on_the_card_unless_asked():
         pytest.skip("a CUDA device is present: the default does not raise")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TuckerService()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServiceConfig(shard=tucker.ShardSpec(4), **CPU)
+    # across ranks it needs a process group of its world size
+    with pytest.raises(ValueError, match="ShardSpec wants 4 ranks"):
+        TuckerService(ServiceConfig(shard=tucker.ShardSpec(4), **CPU))
 
 
 def test_service_submit_validation():

@@ -26,6 +26,20 @@ The contract, for 1, 2 and 4 ranks x ``svd``, ``gram`` and
     collective, new values on the same indices (no new slice, and the core
     scales), ``tol`` parity.
 
+The service across ranks (``ServiceConfig(shard=ShardSpec(n))``): the
+"service" scenario spawns worlds of 1, 2 and 4 gloo ranks (the same group
+timeout); rank 0 serves A-like (3-way, householder) and C-like (4-way,
+gram) requests from two submitter threads into two executors while a third
+thread calls ``flush()``, the other ranks run ``serve_follower``. Every
+request's initial factors are numpy arrays both sides take (each side's
+``init_factors`` is patched to hand them out by the request's seed). The
+contract: 2 and 4 ranks within 1e-6 of the world-of-one service (fit,
+factor projectors, core x max|core| after the factor signs are matched);
+4 ranks within 1e-4 / 1e-3 of the reference's service over 4 forced host
+devices; a ``TuckerService`` on a follower raises, so nothing there
+submits; a world size that differs from
+``num_devices`` raises on every rank; ``close()`` ends every follower.
+
 The runners below (``main``, the ``_rank_*`` functions) run in the
 subprocesses; ``tests/test_torch_resume.py`` runs the "resume" scenario.
 """
@@ -36,6 +50,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -286,6 +301,145 @@ def _rank_lost(rank: int, world: int, store: str, tmp: str) -> None:
     os._exit(0)
 
 
+# -- the service across ranks ---------------------------------------------------
+
+SERVICE_WORLDS = (1, 2, 4)
+# (shape, ranks, method, n_iter, nnz, requests): tenant A-like and C-like
+SERVICE_TENANTS = {"A": ((18, 15, 12), (3, 2, 2), "householder", 3, 300, 6),
+                   "C": ((10, 9, 8, 5), (2, 2, 2, 2), "gram", 2, 400, 4)}
+SERVICE_SEED0 = 500  # request i's seed: its generator's, its key's, its factors'
+SERVICE_RESULT_S = 90  # a ticket's deadline
+
+
+def service_requests():
+    """[(tenant, seed, idx, vals, factors)]: each request's numpy tensor and
+    initial factors, both sides' inputs."""
+    out, seed = [], SERVICE_SEED0
+    for tenant, (shape, ranks, _, _, nnz, count) in SERVICE_TENANTS.items():
+        for _ in range(count):
+            rng = np.random.default_rng(seed)
+            lin = rng.choice(int(np.prod(shape)), nnz, replace=False)
+            idx = np.stack(np.unravel_index(lin, shape), axis=1).astype(np.int32)
+            vals = rng.uniform(0.1, 1.0, nnz).astype(np.float32)
+            f0 = [np.linalg.qr(rng.standard_normal((s, r)))[0].astype(np.float32)
+                  for s, r in zip(shape, ranks)]
+            out.append((tenant, seed, idx, vals, f0))
+            seed += 1
+    return out
+
+
+def _service_spec(tenant: str, module):
+    shape, ranks, method, n_iter, _, _ = SERVICE_TENANTS[tenant]
+    return module.TuckerSpec(shape=shape, ranks=ranks, method=method, n_iter=n_iter)
+
+
+def _rank_service(rank: int, world: int, store: str, tmp: str) -> None:
+    """Rank 0 serves every request through ``TuckerService`` sharded over
+    the world (a world of one for 1); the others follow."""
+    import threading
+
+    import torch.distributed as dist
+
+    from repro_torch import tucker
+    from repro_torch.core import hooi
+    from repro_torch.serve import ServiceConfig, TuckerService, serve_follower
+
+    _init(rank, world, store)
+    reqs = service_requests()
+    by_seed = {seed: f0 for _, seed, _, _, f0 in reqs}
+
+    drawn = hooi.init_factors
+
+    def init_factors(shape, ranks, generator=None, dtype=torch.float32, device="cpu"):
+        if generator is None:  # a follower's own draw, replaced by rank 0's
+            return drawn(shape, ranks, generator, dtype=dtype, device=device)
+        return [torch.from_numpy(f).to(dtype=dtype, device=device)
+                for f in by_seed[generator.initial_seed()]]
+
+    hooi.init_factors = init_factors  # the plans look it up at each call
+    out = {"mismatch": []}
+    wrong = ServiceConfig(device="cpu", shard=tucker.ShardSpec(world + 1))
+    for start in (lambda: TuckerService(wrong), lambda: serve_follower(wrong)):
+        try:
+            start()
+            out["mismatch"].append(None)
+        except ValueError as exc:
+            out["mismatch"].append(str(exc))
+    cfg = ServiceConfig(device="cpu", shard=tucker.ShardSpec(world), max_batch=3,
+                        max_wait_ms=2.0, max_inflight_flushes=2)
+    if rank == 0:
+        svc = TuckerService(cfg)
+        tickets = {}
+
+        def submit(tenant):
+            for t, seed, idx, vals, _ in reqs:
+                if t == tenant:
+                    tickets[seed] = svc.submit(idx, vals, _service_spec(t, tucker),
+                                               generator=torch.Generator().manual_seed(seed))
+
+        def flusher():
+            for _ in range(20):
+                svc.flush()
+                time.sleep(0.002)
+
+        threads = [threading.Thread(target=submit, args=(t,)) for t in SERVICE_TENANTS]
+        threads.append(threading.Thread(target=flusher))
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        results = {str(seed): t.result(timeout=SERVICE_RESULT_S)
+                   for seed, t in sorted(tickets.items())}
+        svc.close()
+        out["results"] = {k: summary(r) for k, r in results.items()}
+        out["dispatches"] = sum(r.dispatches for r in results.values())
+    else:
+        try:  # a follower takes no requests: it has no service to submit to
+            TuckerService(cfg)
+            out["follower_submit"] = None
+        except RuntimeError as exc:
+            out["follower_submit"] = str(exc)
+        serve_follower(cfg)  # returns on rank 0's close()
+    out["returned"] = True
+    _write(tmp, f"service-{world}", rank, out)
+    dist.destroy_process_group()
+
+
+def reference_service() -> None:
+    """The reference's side, in a subprocess with 4 forced host devices:
+    ``TuckerService(ServiceConfig(shard=ShardSpec(4)))`` on the same
+    requests, each with its numpy initial factors."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro import tucker as jtucker
+    from repro.core import hooi as jhooi
+    from repro.serve import ServiceConfig as JServiceConfig
+    from repro.serve import TuckerService as JTuckerService
+
+    reqs = service_requests()
+    by_seed = {seed: f0 for _, seed, _, _, f0 in reqs}
+
+    def init_factors(shape, ranks, key, orthonormal=True, dtype=None):
+        seed = int(np.asarray(jax.random.key_data(key)).reshape(-1)[-1])
+        return [jnp.asarray(f) for f in by_seed[seed]]
+
+    jhooi.init_factors = init_factors
+    svc = JTuckerService(JServiceConfig(shard=jtucker.ShardSpec(num_devices=4)))
+    tickets = {seed: svc.submit(idx, vals, _service_spec(t, jtucker),
+                                key=jax.random.PRNGKey(seed))
+               for t, seed, idx, vals, _ in reqs}
+    out = {"n_devices": len(jax.devices()), "results": {}}
+    for seed, t in tickets.items():
+        res = t.result(timeout=300)
+        out["results"][str(seed)] = {
+            "fit": np.asarray(res.fit_history).tolist(),
+            "factors": [np.asarray(f).tolist() for f in res.factors],
+            "core": np.asarray(res.core).tolist()}
+    svc.close()
+    print(json.dumps(out))
+
+
 def _spawn(fn, world: int, tmp: str) -> None:
     import torch.multiprocessing as mp
 
@@ -308,6 +462,11 @@ def main(scenario: str, tmp: str) -> None:
     elif scenario == "fail":
         _spawn(_rank_lost, 2, tmp)
         out = _gather(tmp, "lost", 1)[0]
+    elif scenario == "service":
+        out = {}
+        for world in SERVICE_WORLDS:
+            _spawn(_rank_service, world, tmp)
+            out[str(world)] = _gather(tmp, f"service-{world}", world)
     elif scenario == "resume":
         _spawn(_rank_kill, 4, tmp)
         _spawn(_rank_resume_fewer, 2, tmp)
@@ -500,6 +659,83 @@ def test_tol_early_exit_parity(reports, world):
     t = reports["port"][str(world)][0]["tol"]
     assert t["sharded_sweeps"] == t["unsharded_sweeps"] < TOL_ITER
     assert t["fit_maxdiff"] < 1e-5
+
+
+# -- the service across ranks ---------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def service_reports(tmp_path_factory):
+    """Both sides' services, their subprocesses run side by side."""
+    port = start_port("service", str(tmp_path_factory.mktemp("port-service")))
+    ref = _start("import test_torch_shard as t; t.reference_service()",
+                 {"XLA_FLAGS": "--xla_force_host_platform_device_count=4",
+                  "JAX_PLATFORMS": "cpu"})
+    return {"port": _finish(port), "ref": _finish(ref)}
+
+
+def assert_within(got: dict, want: dict, fit_tol: float, proj_tol: float,
+                  core_tol: float) -> None:
+    """Fit, factor projectors and core (x max|core|, the factor signs
+    matched) within the given absolute tolerances."""
+    fit, fs, core = _as_arrays(got)
+    wfit, wfs, wcore = _as_arrays(want)
+    assert fit.shape == wfit.shape
+    np.testing.assert_allclose(fit, wfit, rtol=0, atol=fit_tol)
+    for n, (a, b) in enumerate(zip(fs, wfs)):
+        np.testing.assert_allclose(a @ a.T, b @ b.T, rtol=0, atol=proj_tol)
+        sign = np.sign(np.sum(a * b, axis=0))
+        core = core * sign.reshape([-1 if t == n else 1 for t in range(core.ndim)])
+    np.testing.assert_allclose(core, wcore, rtol=0, atol=core_tol * np.abs(wcore).max())
+
+
+@pytest.mark.parametrize("world", (2, 4))
+def test_service_across_ranks_matches_a_world_of_one_service(service_reports, world):
+    one = service_reports["port"]["1"][0]["results"]
+    got = service_reports["port"][str(world)][0]["results"]
+    assert sorted(got) == sorted(one) and len(got) == sum(
+        t[-1] for t in SERVICE_TENANTS.values())
+    for seed in one:
+        assert_within(got[seed], one[seed], 1e-6, 1e-6, 1e-6)
+    # a sharded request is one dispatch
+    assert service_reports["port"][str(world)][0]["dispatches"] == len(one)
+
+
+def test_service_across_four_ranks_matches_the_reference_service(service_reports):
+    assert service_reports["ref"]["n_devices"] == 4
+    got = service_reports["port"]["4"][0]["results"]
+    for seed, want in service_reports["ref"]["results"].items():
+        assert_within(got[seed], want, 1e-4, 1e-3, 1e-3)
+
+
+@pytest.mark.parametrize("world", SERVICE_WORLDS)
+def test_service_ranks_refuse_a_wrong_world_and_followers_refuse_submit(service_reports,
+                                                                       world):
+    ranks = service_reports["port"][str(world)]
+    assert len(ranks) == world
+    for rank, r in enumerate(ranks):
+        want = f"ShardSpec wants {world + 1} ranks but the process group has {world}"
+        assert len(r["mismatch"]) == 2 and all(m and want in m for m in r["mismatch"])
+        if rank:
+            assert "only rank 0 submits" in r["follower_submit"]
+
+
+@pytest.mark.parametrize("world", SERVICE_WORLDS)
+def test_service_close_ends_every_follower(service_reports, world):
+    assert [r["returned"] for r in service_reports["port"][str(world)]] == [True] * world
+
+
+def test_service_across_ranks_needs_a_group():
+    from repro_torch import tucker
+    from repro_torch.serve import ServiceConfig, TuckerService, serve_follower
+
+    cfg = ServiceConfig(device="cpu", shard=tucker.ShardSpec(2))
+    with pytest.raises(ValueError, match="no process group is initialised"):
+        TuckerService(cfg)
+    with pytest.raises(ValueError, match="no process group is initialised"):
+        serve_follower(cfg)
+    with pytest.raises(ValueError, match="service across ranks"):
+        serve_follower(ServiceConfig(device="cpu", shard=tucker.ShardSpec(1)))
 
 
 # -- in process ------------------------------------------------------------------

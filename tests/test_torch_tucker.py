@@ -139,21 +139,30 @@ def test_engine_names():
     assert resolve_engine("auto", "cuda") == "cuda"
     with pytest.raises(ValueError, match="never selects"):
         resolve_engine("torch", "cuda")
+    # with Kron reuse, torch is the XLA engine's twin in torch ops on either
+    # device: it runs no kernel, and no plain version of one
+    assert resolve_engine("torch", "cuda", use_kron_reuse=True) == "torch"
+    assert make_engine("torch", "cuda", fuse_core=True, use_kron_reuse=True).reuses_kron
+    assert make_engine("torch", "cpu", use_kron_reuse=True).reuses_kron
+    assert not make_engine("torch", "cpu").reuses_kron
+    assert not make_engine("cuda", "cuda", use_kron_reuse=True).reuses_kron
     with pytest.raises(ValueError, match="needs a CUDA device"):
         resolve_engine("cuda", "cpu")
 
 
-# use_kron_reuse is not ported: it raises naming its ROADMAP item. shard,
-# snapshot and autotune are ported: a value the reference refuses raises as
-# the reference's spec does.
+# shard, snapshot, autotune and use_kron_reuse are ported: a value the
+# reference refuses raises as the reference's spec does, and Kron reuse is
+# accepted as the reference accepts it.
 @pytest.mark.parametrize("kwargs", [
     {"shard": object()}, {"snapshot": object()}, {"autotune": True, "algorithm": "dense"},
     {"use_kron_reuse": True},
 ])
 def test_unported_spec_values_raise(kwargs):
     if "use_kron_reuse" in kwargs:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7"):
-            tucker.TuckerSpec((4, 4, 4), (2, 2, 2), **kwargs)
+        port = tucker.TuckerSpec((4, 4, 4), (2, 2, 2), **kwargs)
+        ref = jtucker.TuckerSpec((4, 4, 4), (2, 2, 2), **kwargs)
+        assert port.use_kron_reuse and ref.use_kron_reuse
+        assert port.supports_batched_dispatch == ref.supports_batched_dispatch is False
         return
     exc = TypeError if "snapshot" in kwargs or "shard" in kwargs else ValueError
     with pytest.raises(exc) as port_err:
@@ -167,11 +176,13 @@ def test_unported_plan_features_raise():
     # plan.batch is ported: an empty batch is the reference's no-op
     p = tucker.plan(tucker.TuckerSpec((4, 4, 4), (2, 2, 2)), device="cpu")
     assert p.batch([]) == []
-    # the sharded service across ranks (item 15b) is not; a world of one is
-    from repro_torch.serve import ServiceConfig
+    # the sharded service across ranks is ported (item 15b): it needs a
+    # process group of its world size; a world of one needs none
+    from repro_torch.serve import ServiceConfig, TuckerService
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 15b"):
-        ServiceConfig(shard=tucker.ShardSpec(2), device="cpu")
+    across = ServiceConfig(shard=tucker.ShardSpec(2), device="cpu")
+    with pytest.raises(ValueError, match="no process group is initialised"):
+        TuckerService(across)
     assert ServiceConfig(shard=tucker.ShardSpec(1), device="cpu").shard.num_devices == 1
 
 
