@@ -138,7 +138,32 @@ result line):
     ``serve_follower``): every result within phase 14b's tolerances of a
     world-of-one service, every follower back from ``close()``,
     requests/s, p50 / p99 and the announces' bytes and ms;
-18. one JSON line per phase, the kernels line (the f64 instantiations in
+18. the contract checks (``repro_torch.analysis``) on the card: the lint
+    matrix (every cell's sweeps under ``torch.cuda.set_sync_debug_mode``,
+    the function mode's host-read and precision checks, the schedules'
+    write disjointness and shared memory), its sharded cells on 2 gloo
+    ranks sharing the card, ``TuckerPlan.lint`` and ``analyze`` on phase
+    4's NELL-2 plan beside its warm sweep ms, and a seeded ``.item()`` in a
+    sweep, which must be flagged; any finding the port's baseline
+    (``repro_torch/analysis/baseline.json``) does not list fails;
+19. the dense, ssm, audio and vlm families at full width: qwen2-7b (28
+    layers, GQA 7), mamba2-1.3b (48 layers, N 128), musicgen-large (48
+    layers, prefill from 4,096 seeded frame embeddings) and internvl2-76b's
+    LM cut to 8 of its 80 layers (GQA 8), seeded bf16 weights made on the
+    card, batch 4, 4,096-token prompts, 64 new tokens: launches per
+    prefill from the counters (kernel 6 once an attention layer on the
+    tensor-core route, kernel 7 once an SSM layer), prefill ms, decode ms a
+    step, tokens/s, peak, busy share; kernel 6 on layer 0's inputs against
+    its plain version (2^-7 x max|plain|) with SDPA's time, kernel 7 on
+    every call of a warm prefill at the fp32 rule and on layer 0's inputs
+    with the f64 and TF32 controls; each family's SMOKE config card
+    against CPU with phase 8's tolerances;
+20. Tucker-factorized layers: ``tuckerize_linear`` on an exact rank-64
+    3,584 x 18,944 weight (qwen2-7b's ``wi``) at ranks (64, 64) applied to
+    4 x 4,096 tokens against x @ W, and ``tuckerize_expert_stack`` on an
+    exact low-rank (32, 1,024, 512) stack at ranks (8, 64, 64); relative
+    errors <= 1e-4, card against CPU, ms, compression ratios;
+21. one JSON line per phase, the kernels line (the f64 instantiations in
     rows of their own), then the device line.
 
 Needs one CUDA card, ``nvcc`` (on PATH or under /usr/local/cuda), and the
@@ -239,6 +264,10 @@ KERNEL_SYMBOLS = {
 NO_LM_LAUNCHES = {"flash_attention": 0, "ssd_chunk": 0}
 
 
+# numbers one phase hands to a later one (phase 4's sweep ms for phase 18)
+RECORDED: dict = {}
+
+
 class Failure(Exception):
     pass
 
@@ -315,6 +344,9 @@ def main() -> int:
     kernels.update(timed("15 float64", phase15_float64, dev, card, ref4))
     timed("16 Kron reuse", phase16_kron_reuse, dev, card)
     timed("17 sharded service", phase17_sharded_service, dev, card)
+    timed("18 contract checks", phase18_contracts, dev, card, ref4)
+    timed("19 LM families", phase19_families, dev, card)
+    timed("20 Tucker layers", phase20_tucker_layers, dev, card)
     print(json.dumps({"kernels": [kernels[k] for k in list(wrappers()) + F64_ROWS]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -895,6 +927,7 @@ def phase4_nell2(dev, card: str):
     t_warm = (time.perf_counter() - t0) / WARM_RUNS
     gathers = ops._gathered_block_rows.calls - gathers
     sweep_ms = float(np.median(warm_runs))
+    RECORDED["phase4_sweep_ms"] = sweep_ms
     launch_us = host_launch_us(dev)
     log(f"  warm runs: " + ", ".join(f"{m:.2f}" for m in warm_runs)
         + f" ms per sweep (median {sweep_ms:.2f}), operand-row gathers {gathers}; "
@@ -4408,6 +4441,588 @@ def phase17_sharded_service(dev, card: str, cfg: Optional[dict] = None) -> None:
         f"{out['announce_ms_per_request']:.2f} ms a request; worst against the world of one "
         f"{worst}; every follower returned")
     del reqs, one
+    release_memory()
+    print(json.dumps(out), flush=True)
+
+
+
+# -- phase 18: the contract checks on the card -------------------------------------
+
+LINT_WORLD = 2  # 18b: the sharded cells, gloo ranks sharing the card
+NELL2_LINT_WARM_RUNS = 3
+
+
+def item_engine(dev):
+    """18d's seeded control: the kernel engine of ``dev`` with one
+    ``.item()`` injected into each unfolding."""
+    from repro_torch.core.engine import SweepEngine
+
+    class ItemEngine(SweepEngine):
+        def mode_unfolding(self, coo, factors, mode):
+            y = super().mode_unfolding(coo, factors, mode)
+            y.abs().max().item()
+            return y
+
+    return ItemEngine(name="cuda" if dev.type == "cuda" else "torch", device=dev)
+
+
+def _lint_cells():
+    from repro_torch.analysis import runner
+
+    return runner.default_matrix()
+
+
+def _shard_job_lint(rank, world, dev, tmp, cfg) -> dict:
+    """18b: the matrix's sharded cells on this rank (every rank runs them,
+    as every rank runs a sharded plan), on the card over gloo."""
+    from repro_torch import analysis
+
+    cells = [c for c in _lint_cells() if c.min_ranks > 1]
+    report = analysis.run_matrix(cells, device=dev, baseline=analysis.Baseline.load(
+        analysis.default_baseline_path()))
+    _shard_sync(dev)
+    return {"report": report.to_json()}
+
+
+SHARD_JOBS["lint"] = _shard_job_lint
+
+
+def _print_cells(label: str, report) -> None:
+    for c in report.cells:
+        if c.skipped is not None:
+            log(f"  {label} SKIP {c.name}: {c.skipped}")
+        else:
+            log(f"  {label} {'ok  ' if not c.findings else 'FAIL'} {c.name} [{c.engine}]"
+                + (f" ({c.suppressed} suppressed)" if c.suppressed else ""))
+            for f in c.findings:
+                log(f"    {f}")
+
+
+def phase18_contracts(dev, card: str, ref4: dict, cfg: Optional[dict] = None) -> None:
+    """The contract checks (``repro_torch.analysis``) on the card: 18a the
+    lint matrix (every cell but the sharded ones, each under
+    ``torch.cuda.set_sync_debug_mode``), 18b the sharded cells on 2 gloo
+    ranks sharing the card, 18c ``TuckerPlan.lint`` and ``analyze`` on
+    phase 4's NELL-2 plan (the tensor drawn anew, its checksum held to
+    phase 4's) beside its warm sweep ms, 18d a seeded ``.item()`` in a
+    sweep, which must be flagged. Any finding the port's baseline does not
+    list fails the phase; the suppressed ones are printed with their
+    reasons."""
+    import shutil
+    import tempfile
+
+    from repro_torch import analysis, tucker
+    from repro_torch.analysis import runner
+    from repro_torch.core.coo import SparseCOO
+
+    cfg = cfg or {"shape": NELL2_SHAPE, "nnz": NELL2_NNZ, "ranks": NELL2_RANKS,
+                  "lint_world": LINT_WORLD}
+    baseline = analysis.Baseline.load(analysis.default_baseline_path())
+    log(f"phase 18: the contract checks on the card (baseline "
+        f"{len(baseline.suppressions)} suppression(s))")
+    for sup in baseline.suppressions:
+        log(f"  suppressed: {sup.check} @ {sup.where} [{sup.match}]: {sup.reason}")
+
+    # 18a: the matrix on the card; the sharded cells skip (a world of one)
+    t0 = time.perf_counter()
+    reset_launches()
+    raw = analysis.run_matrix(device=dev)
+    launches = read_launches()
+    t_matrix = time.perf_counter() - t0
+    kept, suppressed = baseline.filter(raw.findings)
+    _print_cells("18a", raw)
+    for c in raw.cells:
+        if c.skipped is None and c.name != "plan-cache":
+            want = ("torch" if c.name == "torch/scan/kron-reuse" or dev.type != "cuda"
+                    else "cuda")
+            check(c.engine == want, f"18a {c.name} ran on {c.engine}, want {want}")
+    check(dev.type != "cuda" or (launches["fused_kron_scatter"] > 0 and launches["ttm"] > 0
+                                 and launches["fused_kron_scatter_ttm"] > 0),
+          f"18a: the matrix did not run kernels 1, 2 and 5 ({launches})")
+    check(not kept, f"18a: {len(kept)} finding(s) the baseline does not list: "
+          + "; ".join(str(f) for f in kept))
+    skipped = [c.name for c in raw.cells if c.skipped is not None]
+    check(sorted(skipped) == ["sharded/scan/fp32", "sharded/segment/fp32"],
+          f"18a skipped {skipped}")
+
+    # 18b: the sharded cells on gloo ranks sharing the card
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-lint-")
+    try:
+        t0 = time.perf_counter()
+        ranks = run_ranks("lint", cfg["lint_world"], "gloo", tmp, {"device": str(dev)})
+        t_ranks = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    sharded = []
+    for r, out in enumerate(ranks):
+        rep = out["report"]
+        cells = {c["name"]: c for c in rep["cells"]}
+        for name in ("sharded/scan/fp32", "sharded/segment/fp32"):
+            c = cells[name]
+            log(f"  18b rank {r} {name} [{c['engine']}]: {len(c['findings'])} finding(s), "
+                f"{c['suppressed']} suppressed, skipped {c['skipped']}")
+            check(c["skipped"] is None and c["engine"] == ("cuda" if dev.type == "cuda"
+                                                           else "torch"),
+                  f"18b rank {r}: {name} did not run on the card: {c}")
+            sharded.append({"rank": r, "cell": name, "findings": c["findings"],
+                            "suppressed": c["suppressed"]})
+        check(rep["ok"], f"18b rank {r}: findings the baseline does not list: {rep}")
+
+    # 18c: phase 4's plan on phase 4's tensor
+    t0 = time.perf_counter()
+    idx, vals = synthetic(dev, cfg["shape"], cfg["nnz"], SEED, "uniform")
+    coo = SparseCOO.from_parts(idx, vals, cfg["shape"])
+    del idx, vals
+    if ref4 is not None:
+        check(coo_checksum(coo) == ref4["checksum"], "18c: phase 4's tensor drawn anew differs")
+    plan = tucker.plan(tucker.TuckerSpec(shape=cfg["shape"], ranks=cfg["ranks"],
+                                         n_iter=N_ITER), device=dev)
+    plan(coo)  # builds the schedules
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    runs = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(NELL2_LINT_WARM_RUNS):
+        start.record()
+        plan(coo)
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / N_ITER)
+    sweep_ms = float(np.median(runs))
+    t0 = time.perf_counter()
+    nell_raw = plan.lint(coo)
+    t_lint = time.perf_counter() - t0
+    nell_kept, nell_sup = baseline.filter(nell_raw)
+    for f in nell_raw:
+        log(f"  18c {'suppressed' if f in nell_sup else 'FINDING'}: {f}")
+    check(not nell_kept, f"18c: NELL-2's lint has {len(nell_kept)} finding(s) the baseline "
+          "does not list: " + "; ".join(str(f) for f in nell_kept))
+    terms = plan.analyze(coo)
+    achieved = {"modelled_gb_per_s": terms["hbm_bytes_per_sweep"] / (sweep_ms * 1e-3) / 1e9,
+                "modelled_tflop_per_s": terms["dot_flops_per_sweep"] / (sweep_ms * 1e-3) / 1e12}
+    achieved["hbm_share"] = achieved["modelled_gb_per_s"] * 1e9 / PEAK_BYTES_PER_S
+    log(f"  18c NELL-2: lint {t_lint:.2f} s, {len(nell_raw)} finding(s) ({len(nell_sup)} "
+        f"suppressed); analyze {json.dumps(terms)}; warm sweep {sweep_ms:.2f} ms "
+        f"(phase 4: {RECORDED.get('phase4_sweep_ms')}): {json.dumps(achieved)}")
+    check(terms["engine"] == ("cuda" if dev.type == "cuda" else "torch")
+          and terms["program"] == "scan", f"18c analyze {terms}")
+    del coo, plan
+    release_memory()
+
+    # 18d: the seeded control: one .item() in each unfolding of a sweep
+    from repro_torch.sparse.generators import random_sparse_tensor
+
+    small = random_sparse_tensor((120, 100, 80), 0.01, seed=SEED).to(dev)
+    ctrl = tucker.TuckerPlan(tucker.TuckerSpec(shape=(120, 100, 80), ranks=(8, 8, 8),
+                                               n_iter=2), device=dev,
+                             engine=item_engine(dev))
+    control = ctrl.lint(small)
+    for f in control:
+        log(f"  18d control: {f}")
+    reads = [f for f in control if f.check == "transfer" and "item()" in f.message]
+    syncs = [f for f in control if f.check == "transfer" and "host sync at" in f.message]
+    # (a CPU rehearsal has no sync debug mode: the function mode alone)
+    check(reads and (syncs or dev.type != "cuda"),
+          "18d: the seeded .item() was not flagged by both the function mode "
+          f"and the sync debug mode: {[str(f) for f in control]}")
+    check(not baseline.filter(reads + syncs)[1], "18d: the baseline suppresses the control")
+
+    out = {"phase": "18 contract checks", "card": card,
+           "matrix_s": t_matrix, "matrix_launches": {k: v for k, v in launches.items() if v},
+           "cells": [{"name": c.name, "engine": c.engine, "skipped": c.skipped,
+                      "findings": [f.to_json() for f in c.findings]} for c in raw.cells],
+           "suppressed": [f.to_json() for f in suppressed + nell_sup],
+           "sharded_ranks_s": t_ranks, "sharded": sharded,
+           "nell2": {"setup_s": t_setup, "lint_s": t_lint, "sweep_ms": sweep_ms,
+                     "sweep_ms_runs": runs, "phase4_sweep_ms": RECORDED.get("phase4_sweep_ms"),
+                     "analyze": terms, "achieved_from_models": achieved,
+                     "findings": [f.to_json() for f in nell_raw]},
+           "control": [f.to_json() for f in control]}
+    print(json.dumps(out), flush=True)
+
+
+# -- phase 19: the dense, ssm, audio and vlm families at full width -----------------
+
+# (config, layers kept (None: all), prefill input): Qwen2-7B (dense, GQA 7),
+# Mamba2-1.3B (ssm, N 128, chunk 256), MusicGen-large (audio, frame
+# embeddings), InternVL2-76B's LM (vlm, GQA 8) cut to 8 of its 80 layers:
+# its 70.55 B parameters take 141 GB in bf16, past one card's 80 GB.
+FAMILY_SERVING = (
+    ("qwen2-7b", None, "tokens"),
+    ("mamba2-1.3b", None, "tokens"),
+    ("musicgen-large", None, "embeds"),
+    ("internvl2-76b", 8, "tokens"),
+)
+FAMILY_DECODE_STEPS = 8
+
+
+def family_generate(eng, batch: dict, n: int) -> np.ndarray:
+    """``Engine.generate``'s loop from a prefill batch (tokens or
+    ``embeds``): the prefill, then ``n - 1`` greedy decode steps fed with
+    tokens. Returns the (B, n) new tokens."""
+    logits, cache = eng.prefill(eng.params, batch)
+    p = next(iter(batch.values())).shape[1]
+    cache = eng._pad_cache(cache, p)
+    token = eng._sample(logits)
+    out = [token[:, None]]
+    for i in range(n - 1):
+        logits, cache = eng.decode(eng.params, cache, {"token": token[:, None], "pos": p + i})
+        token = eng._sample(logits)
+        out.append(token[:, None])
+    return torch.cat(out, dim=1).cpu().numpy()
+
+
+def flash_row(label: str, q, k, v, kw) -> dict:
+    """Kernel 6 on one layer's inputs: against its plain version (the bf16
+    rule), its ms, the plain version's, SDPA's on the same inputs (GQA
+    through ``enable_gqa``) and the bound."""
+    from repro_torch.kernels import flash_attention as fa
+
+    kern = partial(fa.flash_attention, q, k, v, **kw)
+    plain = partial(fa.flash_attention_plain, q, k, v, **kw)
+    err = compare(f"flash_attention {label} q {tuple(q.shape)} k {tuple(k.shape)} {q.dtype}",
+                  "bf16", synced(kern()).float(), synced(plain()).float(),
+                  q.shape[2] * q.shape[3])
+    b_, h_, s_, d_ = q.shape
+    t_ = k.shape[2]
+    flops = 4 * b_ * h_ * d_ * sum(min(t_, i + 1 + t_ - s_) for i in range(s_))
+    nbytes = nbytes_of(q, k, v, q)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(partial(sdpa, q, k, v, is_causal=True, enable_gqa=h_ != k.shape[1]))
+    t_b, t_o = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    return {"shape": [b_, h_, s_, d_], "kv_heads": int(k.shape[1]), "ms": time_ms(kern),
+            "plain_ms": time_ms(plain, reps=3), "library_ms": lib_ms,
+            "bound_ms": max(t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o else "operations",
+            "flops": flops, "bytes": nbytes, "max_abs_err": err}
+
+
+def ssd_row(label: str, x, acs, bm, cm) -> dict:
+    """Kernel 7 on one layer's inputs: against its plain version (the fp32
+    rule), the f64 control (must pass) and the TF32 control (must fail),
+    its ms, the plain version's and the bound."""
+    from repro_torch.kernels import ssd_scan
+
+    kern = partial(ssd_scan.ssd_chunk, x, acs, bm, cm)
+    plain = partial(ssd_scan.ssd_chunk_plain, x, acs, bm, cm)
+    bh_, c_, l_, p_ = x.shape
+    n_ = bm.shape[-1]
+    want = synced(plain())
+    controls = {}
+    for name, ctrl, must_pass in (("f64", ssd_chunk_f64, True),
+                                  ("one TF32 pass", ssd_chunk_tf32, False)):
+        r = ssd_rule(synced(ctrl(x, acs, bm, cm)), want, l_, n_)
+        controls[name] = {k: r[k]["over_limit"] for k in ("y", "state")}
+        # (a CPU rehearsal has no TF32: there the TF32 control is the plain f32)
+        check(r["ok"] == must_pass or (not x.is_cuda and not must_pass),
+              f"{label}: the {name} control "
+              f"{'fails' if must_pass else 'passes'} the fp32 rule: the rule cannot judge "
+              "kernel 7 here")
+    y, st = synced(kern())
+    err = max(compare(f"ssd_chunk {label} y {tuple(x.shape)} N {n_}", "fp32", y, want[0],
+                      l_ * n_),
+              compare(f"ssd_chunk {label} state {tuple(st.shape)}", "fp32", st, want[1], l_))
+    del y, st, want
+    tri = bh_ * c_ * l_ * (l_ + 1) // 2
+    score, yf, stf = tri * 2 * n_, tri * 2 * p_, bh_ * c_ * 2 * l_ * n_ * p_
+    nbytes = nbytes_of(x, acs, bm, cm, x) + bh_ * c_ * n_ * p_ * 4
+    t_b = nbytes / PEAK_BYTES_PER_S
+    t_o = score / PEAK_BF16_FLOPS + 3 * (yf + stf) / PEAK_TF32_FLOPS
+    return {"shape": [bh_, c_, l_, p_, n_], "b_c_dtype": str(bm.dtype), "ms": time_ms(kern),
+            "plain_ms": time_ms(plain, reps=3), "library_ms": None,
+            "bound_ms": max(t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o else "operations",
+            "controls": controls, "flops": score + yf + stf, "bytes": nbytes,
+            "max_abs_err": err}
+
+
+def smoke_card_vs_cpu(dev, arch: str, embeds: bool) -> dict:
+    """Phase 8's check for ``arch``'s SMOKE config: card against CPU from the
+    same seeded weights, in f32 and bf16 (phase 8's tolerances): prefill
+    logits (from embeds too, for the audio and vision families),
+    teacher-forced decode steps and the greedy tokens of ``generate``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import ATTENTION_FAMILIES, init_params
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for dtype, tol in LM_TOL.items():
+        cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype)
+        params = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        scfg = ServeConfig(max_seq_len=SMOKE_P + SMOKE_NEW, batch_size=SMOKE_B)
+        eng = {"cpu": Engine(cfg, params, scfg, device="cpu"),
+               "cuda": Engine(cfg, tree_to(params, dev), scfg, device=dev)}
+        prompts = rng.integers(0, cfg.vocab_size, (SMOKE_B, SMOKE_P))
+        gen = {d: e.generate(prompts, SMOKE_NEW) for d, e in eng.items()}
+        logits = {}
+        for d, e in eng.items():
+            reset_launches()
+            logits[d], _ = teacher_forced(e, gen["cpu"], SMOKE_P, SMOKE_NEW)
+            if d == "cuda":
+                got = {k: v for k, v in read_launches().items() if v}
+                attn = cfg.n_layers if cfg.family in ATTENTION_FAMILIES else 0
+                want = {"flash_attention": attn} if attn else {"ssd_chunk": cfg.n_layers}
+                check(got == want, f"{arch} SMOKE card prefill launches {got}, want {want}")
+        errs = []
+        for i, (a, b) in enumerate(zip(logits["cuda"], logits["cpu"])):
+            a, b = a.float().cpu(), b.float()
+            err, scale = float((a - b).abs().max()), float(b.abs().max())
+            errs.append(err / scale)
+            check(bool(torch.isfinite(a).all()) and err <= tol * scale,
+                  f"{arch} SMOKE {dtype} step {i}: card and CPU logits disagree "
+                  f"({err:.3e} > {tol} x {scale:.3e})")
+        agreed = greedy_agrees(gen["cuda"], gen["cpu"], logits["cpu"], tol, cfg.vocab_size,
+                               f"{arch} SMOKE {dtype} greedy")
+        row = {"max_rel_err": max(errs), "greedy_steps_equal": agreed}
+        if embeds:
+            emb = torch.randn((SMOKE_B, SMOKE_P, cfg.d_model),
+                              generator=torch.Generator().manual_seed(SEED))
+            a = eng["cuda"].prefill(eng["cuda"].params, {"embeds": emb.to(dev)})[0].float().cpu()
+            b = eng["cpu"].prefill(params, {"embeds": emb})[0].float()
+            err, scale = float((a - b).abs().max()), float(b.abs().max())
+            check(err <= tol * scale, f"{arch} SMOKE {dtype} prefill from embeds: card and CPU "
+                  f"disagree ({err:.3e} > {tol} x {scale:.3e})")
+            row["embeds_prefill_rel_err"] = err / scale
+        log(f"  {arch} SMOKE {dtype}: card against CPU {json.dumps(row)}")
+        out[dtype] = row
+    return out
+
+
+def serve_family(dev, card: str, arch: str, keep_layers, prefill_input: str,
+                 smoke: bool = False) -> dict:
+    """One family at full width: seeded bf16 weights made on the card, batch
+    4, 4,096-token prompts (or frame embeddings), 64 new tokens; the launches
+    per prefill from the counters; prefill ms, decode ms a step, tokens/s,
+    peak and busy share; kernel 6 on layer 0's inputs (and SDPA's time),
+    kernel 7 on every call of a warm prefill (``ssd_per_layer_gate``) and on
+    layer 0's inputs with the two controls."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import ATTENTION_FAMILIES, init_params, param_count_actual
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    full = get_config(arch, smoke=smoke)  # SMOKE: a CPU rehearsal
+    cfg = full if keep_layers is None or smoke else dataclasses.replace(full,
+                                                                        n_layers=keep_layers)
+    attn_layers = cfg.n_layers if cfg.family in ATTENTION_FAMILIES else 0
+    ssd_layers = cfg.n_layers if cfg.family == "ssm" else 0
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in param_leaves(params))
+    eng = Engine(cfg, params, ServeConfig(max_seq_len=SERVE_MAX, batch_size=SERVE_B), device=dev)
+    if prefill_input == "embeds":
+        x = torch.randn((SERVE_B, SERVE_P, cfg.d_model), generator=gen, device=dev)
+        batch = {"embeds": x.to(torch.bfloat16)}
+        del x
+    else:
+        prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (SERVE_B, SERVE_P))
+        batch = {"tokens": torch.as_tensor(prompts, dtype=torch.long, device=dev)}
+    log(f"  {arch}: {cfg.family}, {cfg.n_layers} layers"
+        + (f" (cut from {full.n_layers})" if keep_layers else "")
+        + f", d {cfg.d_model}, {n_params / 1e9:.3f} B parameters (the config's full count "
+        f"{param_count_actual(full) / 1e9:.3f} B), prefill from {prefill_input}")
+
+    # the main path: every count starts at 0 here and is read right after
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    if prefill_input == "embeds":
+        new = family_generate(eng, batch, SERVE_NEW)
+    else:
+        new = eng.generate(prompts, SERVE_NEW)[:, SERVE_P:]
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    launches = read_launches()
+    routes = dict(fa.flash_attention.launches_by_route)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {"fused_kron_scatter": 0, "ttm": 0, "kron_contrib": 0, "scatter_rows": 0,
+            "fused_kron_scatter_ttm": 0, "flash_attention": attn_layers,
+            "ssd_chunk": ssd_layers}
+    log(f"    cold generate {t_cold:.3f} s, launches {launches}, routes {routes}, peak "
+        f"{peak_gb:.2f} GB")
+    check(launches == want, f"{arch}: launches {launches}, want {want} (one prefill)")
+    check(routes.get("wgmma", 0) == attn_layers,
+          f"{arch}: attention routes {routes}, want all {attn_layers} on the tensor cores")
+    check(new.shape == (SERVE_B, SERVE_NEW) and bool(((new >= 0) & (new < cfg.vocab_size)).all()),
+          f"{arch}: generated tokens {new.shape}")
+
+    prefill = partial(eng.prefill, params, batch)
+    prefill_ms = time_ms(prefill, reps=2)
+    logits, cache = prefill()
+    check(bool(torch.isfinite(logits.float()).all()), f"{arch}: non-finite prefill logits")
+    step = {"cache": eng._pad_cache(cache, SERVE_P), "token": eng._sample(logits)[:, None],
+            "pos": SERVE_P}
+    del cache
+
+    def decode_steps(n):
+        for _ in range(n):
+            lg, step["cache"] = eng.decode(params, step["cache"],
+                                           {"token": step["token"], "pos": step["pos"]})
+            step["token"] = eng._sample(lg)[:, None]
+            step["pos"] += 1
+        return lg
+
+    decode_steps(1)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    lg = decode_steps(FAMILY_DECODE_STEPS)
+    end.record()
+    end.synchronize()
+    decode_ms = start.elapsed_time(end) / FAMILY_DECODE_STEPS
+    check(bool(torch.isfinite(lg.float()).all()), f"{arch}: non-finite decode logits")
+    prof_decode = profile_run(lambda: decode_steps(4))
+    del step, lg
+    prof_prefill = profile_run(prefill)
+    gen_s = (prefill_ms + (SERVE_NEW - 1) * decode_ms) / 1e3
+    busy = {"prefill": prof_prefill["device_busy_ms"] / prefill_ms,
+            "decode": prof_decode["device_busy_ms"] / (4 * decode_ms)}
+    log(f"    warm: prefill {prefill_ms:.1f} ms, decode {decode_ms:.2f} ms a step, "
+        f"{SERVE_B * SERVE_NEW / gen_s:.1f} generated tokens/s; busy {busy}")
+
+    rows = {}
+    kept = capture_inputs(prefill)
+    if attn_layers:
+        (q, k, v), kw = kept["flash_attention"]
+        rows["flash_attention"] = flash_row(f"{arch} layer 0", q, k, v, kw)
+        log(f"    flash_attention: {json.dumps(rows['flash_attention'])}")
+        del q, k, v
+    if ssd_layers:
+        per_layer, gated = ssd_per_layer_gate(lambda: prefill()[0], ssd_layers)
+        check(torch.equal(gated, logits), f"{arch}: the gated prefill's logits differ")
+        (x, acs, bm, cm), _ = kept["ssd_chunk"]
+        rows["ssd_chunk"] = dict(ssd_row(f"{arch} layer 0", x, acs, bm, cm),
+                                 per_layer=per_layer)
+        log(f"    ssd_chunk: {json.dumps(rows['ssd_chunk'])}")
+        del x, acs, bm, cm, gated
+    del kept, logits
+    for name, row in rows.items():
+        row["launches"] = launches[name]
+        row["device_ms"] = prof_prefill["kernel_ms"][name] / launches[name]
+    smoke = smoke_card_vs_cpu(dev, arch, prefill_input == "embeds")
+    out = {"config": cfg.name, "family": cfg.family, "layers": cfg.n_layers,
+           "layers_of_config": full.n_layers, "params": n_params, "init_s": t_init,
+           "prefill_input": prefill_input, "cold_generate_s": t_cold,
+           "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+           "generate_s_from_parts": gen_s, "generated_tokens_per_s": SERVE_B * SERVE_NEW / gen_s,
+           "decode_tokens_per_s": SERVE_B * 1e3 / decode_ms, "peak_memory_gb": peak_gb,
+           "launches_per_generate": {k: v for k, v in launches.items() if v},
+           "device_busy_share": busy, "kernels": rows, "smoke_card_vs_cpu": smoke,
+           "profile_prefill_top": prof_prefill["top"][:8],
+           "profile_decode_top": prof_decode["top"][:8]}
+    del eng, params, batch
+    release_memory()
+    return out
+
+
+def phase19_families(dev, card: str, smoke: bool = False) -> None:
+    log(f"phase 19: the dense, ssm, audio and vlm families at full width, batch {SERVE_B}, "
+        f"{SERVE_P}-token prompts, {SERVE_NEW} new tokens, bf16, seeded weights on the card")
+    out = {"phase": "19 LM families", "card": card, "batch": SERVE_B, "prompt": SERVE_P,
+           "new_tokens": SERVE_NEW, "families": {}}
+    for arch, keep, prefill_input in FAMILY_SERVING:
+        t0 = time.perf_counter()
+        out["families"][arch] = serve_family(dev, card, arch, keep, prefill_input, smoke)
+        out["families"][arch]["phase_s"] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+
+
+# -- phase 20: Tucker-factorized layers at full width ---------------------------------
+
+TL_LINEAR = (3584, 18944, 64)  # qwen2-7b's wi (d, ff), its exact rank
+TL_EXPERTS = ((32, 1024, 512), (8, 64, 64))  # granite-moe's expert stack (E, d, ff), ranks
+TL_TOL = 1e-4
+
+
+def exact_low_rank(dev, shape, ranks, seed: int):
+    """A tensor of exact multilinear rank ``ranks``: a seeded core times
+    orthonormal factors, in f32 on ``dev``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(tuple(ranks), generator=g, device=dev)
+    for n, (i, r) in enumerate(zip(shape, ranks)):
+        u, _ = torch.linalg.qr(torch.randn((i, r), generator=g, device=dev))
+        x = torch.movedim(torch.tensordot(u, x, dims=([1], [n])), 0, n)
+    return x.contiguous()
+
+
+def _projector_gap(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a @ a.T - b @ b.T).abs().max())
+
+
+def phase20_tucker_layers(dev, card: str) -> None:
+    """``tuckerize_linear`` on an exact rank-64 3,584 x 18,944 weight at ranks
+    (64, 64), applied to 4 x 4,096 tokens against x @ W; and
+    ``tuckerize_expert_stack`` on an exact low-rank (32, 1,024, 512) stack at
+    ranks (8, 64, 64), each expert applied against x @ W_e. Relative errors
+    <= 1e-4; card against CPU by the factors' projectors; ms; the
+    compression ratios."""
+    from repro_torch.models import tucker_layers as tl
+
+    m, n, r = TL_LINEAR
+    log(f"phase 20: Tucker-factorized layers: a rank-{r} {m} x {n} weight at ranks ({r}, {r}), "
+        f"an expert stack {TL_EXPERTS[0]} at ranks {TL_EXPERTS[1]}")
+    out = {"phase": "20 Tucker layers", "card": card}
+    w = exact_low_rank(dev, (m, n), (r, r), SEED)
+    t0 = time.perf_counter()
+    p = tl.tuckerize_linear(w, (r, r))
+    torch.cuda.synchronize()
+    t_fact = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p = tl.tuckerize_linear(w, (r, r))
+    torch.cuda.synchronize()
+    t_fact_warm = time.perf_counter() - t0
+    check(all(t.device == w.device for t in p.values()), "20: the factors left the card")
+    x = torch.randn((SERVE_B * SERVE_P, m), generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev)
+    y, y_ref = synced(tl.tucker_linear_apply(p, x)), synced(x @ w)
+    lin_err = float((y - y_ref).abs().max() / y_ref.abs().max())
+    w_hat = p["u1"] @ p["core"] @ p["u2"].T
+    w_err = float((w_hat - w).abs().max() / w.abs().max())
+    del y, y_ref, w_hat
+    apply_ms = time_ms(partial(tl.tucker_linear_apply, p, x))
+    dense_ms = time_ms(lambda: x @ w)
+    p_cpu = tl.tuckerize_linear(w.cpu(), (r, r))
+    lin_gap = max(_projector_gap(p["u1"], p_cpu["u1"]), _projector_gap(p["u2"], p_cpu["u2"]))
+    ratio = tl.linear_compression_ratio(m, n, (r, r))
+    out["linear"] = {"shape": [m, n], "ranks": [r, r], "tokens": x.shape[0],
+                     "apply_rel_err": lin_err, "weight_rel_err": w_err,
+                     "card_vs_cpu_projector_gap": lin_gap, "tuckerize_s_cold": t_fact,
+                     "tuckerize_s_warm": t_fact_warm, "apply_ms": apply_ms,
+                     "dense_matmul_ms": dense_ms, "compression_ratio": ratio}
+    log(f"  linear: {json.dumps(out['linear'])}")
+    check(lin_err <= TL_TOL and w_err <= TL_TOL, f"20: the Tucker linear is off: apply "
+          f"{lin_err:.3e}, weight {w_err:.3e} (limit {TL_TOL})")
+    check(lin_gap <= 1e-3, f"20: card and CPU factors differ: projector gap {lin_gap:.3e}")
+    del w, x, p, p_cpu
+    release_memory()
+
+    shape, ranks = TL_EXPERTS
+    experts = exact_low_rank(dev, shape, ranks, SEED + 1)
+    t0 = time.perf_counter()
+    pe = tl.tuckerize_expert_stack(experts, ranks)
+    torch.cuda.synchronize()
+    t_exp = time.perf_counter() - t0
+    xe = torch.randn((SERVE_P, shape[1]), generator=torch.Generator(device=dev).manual_seed(2),
+                     device=dev)
+    exp_err = 0.0
+    for e in range(shape[0]):
+        got, want = tl.tucker_expert_apply(pe, e, xe), xe @ experts[e]
+        exp_err = max(exp_err, float((got - want).abs().max() / want.abs().max()))
+    pe_cpu = tl.tuckerize_expert_stack(experts.cpu(), ranks)
+    exp_gap = max(_projector_gap(pe[k], pe_cpu[k]) for k in ("u_e", "u_d", "u_f"))
+    e_apply_ms = time_ms(partial(tl.tucker_expert_apply, pe, 0, xe))
+    e_dense_ms = time_ms(lambda: xe @ experts[0])
+    out["experts"] = {"shape": list(shape), "ranks": list(ranks), "tokens": SERVE_P,
+                      "apply_rel_err": exp_err, "card_vs_cpu_projector_gap": exp_gap,
+                      "tuckerize_s": t_exp, "apply_ms_one_expert": e_apply_ms,
+                      "dense_matmul_ms_one_expert": e_dense_ms,
+                      "compression_ratio": tl.expert_compression_ratio(*shape, ranks)}
+    log(f"  experts: {json.dumps(out['experts'])}")
+    check(exp_err <= TL_TOL, f"20: the Tucker expert stack is off: {exp_err:.3e}")
+    check(exp_gap <= 1e-3, f"20: card and CPU expert factors differ: {exp_gap:.3e}")
+    del experts, pe, pe_cpu, xe
     release_memory()
     print(json.dumps(out), flush=True)
 

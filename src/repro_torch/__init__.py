@@ -1,5 +1,7 @@
-"""repro_torch — the PyTorch/CUDA port of ``repro``: sparse Tucker (HOOI)
-and the LM serving path of the ``hybrid`` family (Zamba2).
+"""repro_torch — the PyTorch/CUDA port of ``repro``: sparse Tucker (HOOI),
+its contract checks (``repro_torch.analysis``), and the LM serving path of
+the ``dense``, ``ssm``, ``audio``, ``vlm`` and ``hybrid`` families, with
+Tucker-factorized layers (``repro_torch.models.tucker_layers``).
 
 The same plan/execute front-end as the JAX package, running on an NVIDIA
 card by default:

@@ -49,8 +49,9 @@ def bf16_from_bits(bits, device="cpu") -> torch.Tensor:
 
 def lm_params_from_numpy(tree, cfg: ModelConfig, device="cpu"):
     """The port's LM parameters from the reference's parameter pytree as
-    numpy (``jax.tree_util.tree_map(np.asarray, params)``), checked leaf by
-    leaf against the port's schema for ``cfg`` (keys, shapes, dtypes)."""
+    numpy (``jax.tree_util.tree_map(np.asarray, params)``), for any family's
+    tree (``models.model.param_defs``), checked leaf by leaf against the
+    port's schema for ``cfg`` (keys, shapes, dtypes)."""
 
     def walk(defs, node, path):
         if isinstance(defs, dict):
@@ -65,10 +66,22 @@ def lm_params_from_numpy(tree, cfg: ModelConfig, device="cpu"):
 
 
 def lm_cache_from_numpy(cache: Any, device="cpu"):
-    """The port's LM cache from the reference's hybrid cache as numpy:
-    ``{"ssm": SsmState(conv_x, conv_b, conv_c, h), "attn": {"k", "v"}}``
-    with every entry but ``h`` (f32) as ``uint16`` bf16 bit patterns."""
-    conv_x, conv_b, conv_c, h = cache["ssm"]
-    return {"ssm": SsmState(*(bf16_from_bits(a, device) for a in (conv_x, conv_b, conv_c)),
-                            h=tensor_from_numpy(h, device)),
-            "attn": {n: bf16_from_bits(cache["attn"][n], device) for n in ("k", "v")}}
+    """The port's LM cache from the reference's cache as numpy, for every
+    ported family: the attention families' ``{"k", "v"}``, the ``ssm``
+    family's ``SsmState(conv_x, conv_b, conv_c, h)`` stacked over the
+    layers, or the ``hybrid`` family's ``{"ssm": SsmState, "attn": {"k",
+    "v"}}``; every entry but ``h`` (f32) as ``uint16`` bf16 bit patterns."""
+
+    def kv(c):
+        return {n: bf16_from_bits(c[n], device) for n in ("k", "v")}
+
+    def states(c):
+        conv_x, conv_b, conv_c, h = c
+        return SsmState(*(bf16_from_bits(a, device) for a in (conv_x, conv_b, conv_c)),
+                        h=tensor_from_numpy(h, device))
+
+    if isinstance(cache, dict) and "attn" in cache:
+        return {"ssm": states(cache["ssm"]), "attn": kv(cache["attn"])}
+    if isinstance(cache, dict):
+        return kv(cache)
+    return states(cache)

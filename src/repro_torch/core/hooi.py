@@ -216,6 +216,43 @@ def run_sweeps(
     return fs, core, hist
 
 
+def batched_sweep(
+    stacked: SparseCOO,
+    fs: List[torch.Tensor],
+    active: Optional[torch.Tensor],
+    ranks: Sequence[int],
+    method: str,
+    engine: SweepEngine,
+    *,
+    shape: Sequence[int],
+) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """One ALS sweep of :func:`run_sweeps_batched` over the k stacked
+    members: each mode's unfolding in one call of ``engine``, the factor
+    update as one (k, I_n, K) batch, and the core update once per member on
+    its rows. ``fs`` holds the stacked factors (k I_m, R_m), replaced in
+    place in the list; ``active`` (k,) bool or None keeps a settled member's
+    factors. Returns ``(fs, cores)``, the cores (k, R_1, ..., R_N)."""
+    k = stacked.shape[0] // shape[0]
+    n = len(shape)
+    y_n = None
+    for mode in range(n):
+        y_n = engine.mode_unfolding(stacked, fs, mode)
+        u = factor_update(y_n.view(k, shape[mode], -1), ranks[mode], method)
+        u = u.to(fs[mode].dtype)
+        if active is not None:  # settled members keep their factors
+            u = torch.where(active[:, None, None], u, fs[mode].reshape(u.shape))
+        fs[mode] = u.reshape(k * shape[mode], -1)
+    # Alg. 2 line 9 per member: G_(N) = U_N^T Y_(N) on the members' rows
+    rows = shape[n - 1]
+    g = torch.stack([
+        fold_dense(engine.core_unfolding(y_n[i * rows:(i + 1) * rows],
+                                         fs[n - 1][i * rows:(i + 1) * rows]),
+                   n - 1, list(ranks))
+        for i in range(k)
+    ])
+    return fs, g
+
+
 def run_sweeps_batched(
     stacked: SparseCOO,
     factors: Sequence[Sequence[torch.Tensor]],
@@ -261,22 +298,8 @@ def run_sweeps_batched(
     core = None
     errs = []
     for _ in range(n_iter):
-        y_n = None
-        for mode in range(n):
-            y_n = engine.mode_unfolding(stacked, fs, mode)
-            u = factor_update(y_n.view(k, shape[mode], -1), ranks[mode], method)
-            u = u.to(fs[mode].dtype)
-            if active is not None:  # settled members keep their factors
-                u = torch.where(active[:, None, None], u, fs[mode].reshape(u.shape))
-            fs[mode] = u.reshape(k * shape[mode], -1)
-        # Alg. 2 line 9 per member: G_(N) = U_N^T Y_(N) on the members' rows
-        rows = shape[n - 1]
-        g = torch.stack([
-            fold_dense(engine.core_unfolding(y_n[i * rows:(i + 1) * rows],
-                                             fs[n - 1][i * rows:(i + 1) * rows]),
-                       n - 1, list(ranks))
-            for i in range(k)
-        ]).to(core_dtype)
+        fs, g = batched_sweep(stacked, fs, active, ranks, method, engine, shape=shape)
+        g = g.to(core_dtype)
         err = projection_error(xnorm2, g).to(torch.float32)
         if active is None:
             core = g

@@ -1,8 +1,13 @@
 """Common NN layers, port of ``repro.models.layers``.
 
-``pack_bf16``/``unpack_bf16`` have no counterpart: torch keeps bf16 as it
-is on both devices, so the caches hold ``torch.bfloat16`` tensors where
-the reference holds ``uint16`` bit patterns.
+``pack_bf16``/``unpack_bf16`` have no counterpart and are left out: they
+are a storage trick of the reference's compiled scans (bf16 kept as
+``uint16`` bit patterns across scan boundaries, so that the host backend
+does not widen it to f32). Eager PyTorch keeps bf16 as it is on both
+devices, so the caches hold ``torch.bfloat16`` tensors where the reference
+holds ``uint16`` bit patterns (``convert.bf16_from_bits`` reads them).
+``softmax_cross_entropy`` comes with training (ROADMAP.md queue 1, item
+19).
 """
 from __future__ import annotations
 
@@ -39,3 +44,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 def swiglu(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ wg) * (x @ wi)
     return h @ wo
+
+
+def init_normal(generator: torch.Generator, shape, scale: float, dtype,
+                device=None) -> torch.Tensor:
+    """``scale`` x N(0, 1) drawn in f32 from ``generator``, then cast to
+    ``dtype``: the reference's ``init_normal`` with a torch generator in
+    place of a JAX key (on the generator's device unless ``device`` says)."""
+    dev = device if device is not None else generator.device
+    w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32, device=dev)
+    return w.mul_(scale).to(dtype)

@@ -53,26 +53,40 @@ class Engine:
 
     def _pad_cache(self, cache: Any, from_len: int) -> Any:
         """The decode cache: the prefill cache's attention entries, ``k`` and
-        ``v`` (superblock, b, from_len, kv, hd), grown to the serving budget
-        along their sequence axis, and a copy of its SSM states. The entries
-        are chosen by name: the reference picks them by shape
+        ``v`` (layers, b, from_len, kv, hd), grown to the serving budget
+        along their sequence axis, and a copy of its SSM states; for every
+        ported family's layout (``dense``/``audio``/``vlm``: ``{"k",
+        "v"}``; ``ssm``: an ``SsmState``; ``hybrid``: ``{"ssm", "attn"}``).
+        The entries are chosen by name: the reference picks them by shape
         (``shape[-3] == from_len``), which also catches the conv states when
         the prompt length equals the batch size. Decode steps update the
         returned cache in place and leave ``cache`` as it was."""
         target = self.scfg.max_seq_len
-        grown = {}
-        for name in ("k", "v"):
-            t = cache["attn"][name]
+
+        def grow(t: torch.Tensor) -> torch.Tensor:
             shape = list(t.shape)
             shape[-3] = target
             g = t.new_zeros(shape)
             g[..., :from_len, :, :] = t
-            grown[name] = g
-        return {"ssm": SsmState(*(t.clone() for t in cache["ssm"])), "attn": grown}
+            return g
+
+        def kv(c):
+            return {name: grow(c[name]) for name in ("k", "v")}
+
+        def states(c):
+            return SsmState(*(t.clone() for t in c))
+
+        if isinstance(cache, SsmState):  # ssm
+            return states(cache)
+        if "attn" in cache:  # hybrid
+            return {"ssm": states(cache["ssm"]), "attn": kv(cache["attn"])}
+        return kv(cache)  # dense, audio, vlm
 
     def generate(self, prompts: np.ndarray, max_new_tokens: int = 32,
                  eos_id: Optional[int] = None) -> np.ndarray:
-        """prompts: (B, P) ints. Returns (B, P + max_new_tokens) int32, as the
+        """prompts: (B, P) token ids, for every ported family (the audio
+        and vision families' embeds enter through ``self.prefill``, as in
+        the reference). Returns (B, P + max_new_tokens) int32, as the
         reference does: the prompts, then the greedy tokens (after
         ``eos_id``, a finished row repeats it). The prefill runs even for
         ``max_new_tokens=0``, which returns the prompts. The last token needs

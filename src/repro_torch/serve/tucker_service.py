@@ -80,6 +80,7 @@ import queue
 import threading
 import time
 import warnings
+import weakref
 from typing import Any, List, Optional, Sequence, Set
 
 import torch
@@ -105,6 +106,7 @@ __all__ = [
     "ServiceOverloadedError",
     "TuckerService",
     "TuckerTicket",
+    "live_services",
     "serve_follower",
 ]
 
@@ -493,6 +495,16 @@ class _Pending:
     submitted_at: float
 
 
+_LIVE: "weakref.WeakSet[TuckerService]" = weakref.WeakSet()
+
+
+def live_services(device_type: Optional[str] = None) -> int:
+    """How many services of this process are started and not yet closed
+    (on ``device_type`` only, when given)."""
+    return sum(1 for s in list(_LIVE)
+               if device_type is None or s.device.type == device_type)
+
+
 class TuckerService:
     """Synchronous-API, internally queued micro-batching decomposition
     service. See the module docstring for the architecture and the
@@ -564,6 +576,7 @@ class TuckerService:
         ]
         for t in self._executors:
             t.start()
+        _LIVE.add(self)
 
     # -- public API ---------------------------------------------------------
 
@@ -784,6 +797,7 @@ class TuckerService:
             self._dispatcher.stop()
         with self._cv:
             self._closed = True
+        _LIVE.discard(self)
         if self._remove_eviction_hook is not None:
             self._remove_eviction_hook()
         if self.config.plan_cache_capacity is not None:

@@ -33,6 +33,11 @@
                                         dtype="float64"))(coo)
     res = tucker.plan(tucker.TuckerSpec(shape=coo.shape, ranks=(16, 16, 16),
                                         engine="torch", use_kron_reuse=True))(coo)
+
+    # the program contracts (no host sync in a sweep, precision,
+    # collectives, write-disjoint schedules) and the modelled roofline terms
+    findings = tucker.plan(spec).lint(coo)        # [] when every one holds
+    terms = tucker.plan(spec).analyze(coo)        # flops, bytes per sweep
 """
 from repro_torch.tucker.planning import (
     PlanCache,

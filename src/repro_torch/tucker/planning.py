@@ -184,6 +184,15 @@ def mesh_fingerprint(mesh: ShardMesh) -> str:
     return f"{mesh.backend}:{','.join(mesh.devices)}/{mesh.axis}={mesh.world_size}"
 
 
+def program_kind(spec: TuckerSpec) -> str:
+    """The sweep program a sparse spec runs, in the reference's terms:
+    ``"scan"`` or ``"python"`` (the pipeline), ``"segment"`` (snapshots),
+    ``"sharded"`` or ``"sharded-segment"``."""
+    if spec.shard is not None:
+        return "sharded" if spec.snapshot is None else "sharded-segment"
+    return "segment" if spec.snapshot is not None else spec.pipeline
+
+
 def _xnorm2(coo: SparseCOO, device: torch.device) -> torch.Tensor:
     """||X||^2 from the whole tensor's values on ``device`` (its indices
     stay where they are; values already there are not copied): the bits of
@@ -435,6 +444,95 @@ class TuckerPlan:
         the per-tensor draw inside the batch (the members' factors are drawn
         one by one), so this is :attr:`supports_batched_dispatch`."""
         return self.supports_batched_dispatch
+
+    def analyze(self, x: Any) -> dict:
+        """Roofline terms of this plan's sweeps on ``x``: flops, HBM bytes
+        (whole run and per sweep), their arithmetic intensity and, under
+        ``shard``, the all-reduce bytes. The reference parses them from the
+        optimized HLO of its compiled program; the port has none, so these
+        are the port's own MODELS, nothing is run or counted: per sweep and
+        mode the Kron chain's multiplies (``core.kron.kron_flops``) and the
+        factor update on the (I_n, K) unfolding (``core.qrp.qrp_flops``, or
+        ``svd_flops``), then 2 K R_N I_N for the core update; the bytes are
+        the autotuner's model of the kernel path
+        (``kernels.autotune.sweep_bytes``) at the engine's launch parameters.
+        A sharded plan models one rank's share of the nonzeros. The keys are
+        the reference's."""
+        import types
+
+        from repro_torch.core.kron import kron_flops
+        from repro_torch.core.qrp import qrp_flops, svd_flops
+        from repro_torch.kernels.autotune import BlockConfig, sweep_bytes
+
+        spec, eng = self.spec, self.engine
+        if spec.algorithm != "sparse" or eng is None:
+            raise ValueError("analyze() models the sparse sweeps: the plan has none")
+        coo = self._check_sparse_input(x)
+        world = self.mesh.world_size if self.mesh is not None else 1
+        nnz = -(-coo.nnz // world)
+        shape, ranks = spec.shape, spec.ranks
+        n = len(shape)
+        flops = 0
+        for m in range(n):
+            k = int(np.prod([r for t, r in enumerate(ranks) if t != m]))
+            flops += kron_flops(types.SimpleNamespace(nnz=nnz), ranks, m)
+            flops += (svd_flops if spec.method == "svd" else qrp_flops)(int(shape[m]), k)
+        k_last = int(np.prod(ranks[:-1]))
+        flops += 2 * k_last * int(ranks[-1]) * int(shape[-1])
+        fused = bool(eng.fuse_core and n <= 3 and not eng.reuses_kron)
+        cfg = BlockConfig(bn=eng.bn, bi=eng.bi, slots_per_part=eng.slots_per_part,
+                          layout="fused" if fused else "split")
+        nbytes = sweep_bytes(cfg, shape, ranks, nnz, eng.precision,
+                             str(coo.values.dtype).replace("torch.", ""))
+        sweeps = int(spec.n_iter)
+        out = {
+            "dot_flops": flops * sweeps,
+            "dot_flops_per_sweep": flops,
+            "hbm_bytes": nbytes * sweeps,
+            "hbm_bytes_per_sweep": nbytes,
+            "arithmetic_intensity": flops / max(1.0, nbytes),
+            "engine": eng.name,
+            "precision": eng.precision,
+            "fuse_core": fused,
+            "program": program_kind(spec),
+            "n_sweeps_traced": sweeps,
+            "tuned_blocks": (dict(self._tuned_blocks._asdict())
+                             if self._tuned_blocks is not None else None),
+        }
+        if spec.shard is not None:
+            coll = psum_bytes_per_sweep(shape, ranks, dtype=torch.promote_types(
+                coo.values.dtype, torch.float32)) if world > 1 else 0
+            out["collective_bytes"] = coll * sweeps
+            out["collective_bytes_per_sweep"] = coll
+        return out
+
+    def lint(self, x: Any, baseline: Any = None) -> list:
+        """Run the ``repro_torch.analysis`` contract checks on this plan's
+        sweeps over ``x`` (no host sync, the precision contract and the
+        collectives while a call runs, after an unwatched one has built the
+        schedules; scatter-race on the kernel engine's schedules) and
+        return the list of :class:`repro_torch.analysis.Finding`, empty
+        when every contract holds. ``baseline`` (a
+        :class:`repro_torch.analysis.Baseline`) filters the findings. On a
+        sharded plan every rank must call it, as every rank calls the
+        plan. Only this thread's sweeps are watched. On the card the
+        sweeps run under ``torch.cuda.set_sync_debug_mode``, which is
+        process-wide: no other thread may use the card meanwhile, and the
+        lint raises while a ``TuckerService`` on the card is live in the
+        process."""
+        from repro_torch import analysis
+
+        return analysis.lint_plan(self, x, baseline=baseline)
+
+    def lint_batch(self, coos: Sequence[SparseCOO], baseline: Any = None) -> list:
+        """:meth:`lint` for the batched flush :meth:`batch` runs on these
+        members (the sync, precision and collective checks on its batched
+        sweeps), and its inverse donation contract: the flush leaves every
+        member's ``indices`` and ``values`` as they were. The threads and
+        the card's process-wide sync mode as for :meth:`lint`."""
+        from repro_torch import analysis
+
+        return analysis.lint_batch_plan(self, coos, baseline=baseline)
 
     def batch(self, coos: Sequence[SparseCOO], generators: Any = None,
               pad_nnz_to: Optional[int] = None,
@@ -755,6 +853,10 @@ class TuckerPlan:
                                             engine=eng.name, batch=k, nnz=stacked.nnz,
                                             shape=list(spec.shape)) as dsp:
             builds0, launches0 = eng.schedule_builds, launch_count.tally()
+            # the stack's schedules before the first sweep: their build reads
+            # the host, and a sweep must not (analysis.sweep_lints)
+            for m in range(stacked.ndim):
+                eng.device_schedule(stacked, m)
             fs, cores, hists = _hooi.run_sweeps_batched(
                 stacked, factors, xnorm2, spec.tol, eng,
                 ranks=spec.ranks, method=spec.method, n_iter=spec.n_iter,

@@ -27,6 +27,9 @@ def test_import_leaves_jax_and_repro_unloaded():
         "import repro_torch.runtime.fault_tolerance, repro_torch.checkpoint.manager\n"
         "import repro_torch.tucker.snapshot, repro_torch.kernels.autotune\n"
         "import repro_torch.core, repro_torch.core.distributed\n"
+        "import repro_torch.analysis, repro_torch.analysis.__main__\n"
+        "import repro_torch.analysis.sweep_lints, repro_torch.analysis.schedule_lints\n"
+        "import repro_torch.models.tucker_layers, repro_torch.models.transformer\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.') or m == 'ml_dtypes']\n"
         "print(bad)\n"
