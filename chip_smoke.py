@@ -146,10 +146,13 @@ result line):
     4's NELL-2 plan beside its warm sweep ms, and a seeded ``.item()`` in a
     sweep, which must be flagged; any finding the port's baseline
     (``repro_torch/analysis/baseline.json``) does not list fails;
-19. the dense, ssm, audio and vlm families at full width: qwen2-7b (28
-    layers, GQA 7), mamba2-1.3b (48 layers, N 128), musicgen-large (48
-    layers, prefill from 4,096 seeded frame embeddings) and internvl2-76b's
-    LM cut to 8 of its 80 layers (GQA 8), seeded bf16 weights made on the
+19. the dense, ssm, audio, vlm and moe families at full width: qwen2-7b
+    (28 layers, GQA 7), mamba2-1.3b (48 layers, N 128), musicgen-large (48
+    layers, prefill from 4,096 seeded frame embeddings), internvl2-76b's
+    LM cut to 8 of its 80 layers (GQA 8), granite-moe-1b-a400m whole (24
+    layers, 32 experts top-8, GQA 2) and grok-1-314b cut to 6 of its 64
+    layers at full width (8 experts top-2 in two d_ff shards, GQA 6;
+    ``GROK_LAYERS``), seeded bf16 weights made on the
     card, batch 4, 4,096-token prompts, 64 new tokens: launches per
     prefill from the counters (kernel 6 once an attention layer on the
     tensor-core route, kernel 7 once an SSM layer), prefill ms, decode ms a
@@ -163,7 +166,20 @@ result line):
     4 x 4,096 tokens against x @ W, and ``tuckerize_expert_stack`` on an
     exact low-rank (32, 1,024, 512) stack at ranks (8, 64, 64); relative
     errors <= 1e-4, card against CPU, ms, compression ratios;
-21. one JSON line per phase, the kernels line (the f64 instantiations in
+21. the moe family and sampling: 21a layer 0's ``moe_block`` card against
+    CPU in f32 on identical inputs for granite's SMOKE, grok's SMOKE with
+    two expert shards and granite's at capacity factor 0.5 (pairs dropped):
+    the same experts, kept pairs and slots, the output within 1e-5 x
+    max|CPU|, the aux within 1e-6, the forward's logits within phase 8's
+    f32 tolerance; 21b, read during phase 19's warm prefills of granite and
+    grok at full width, each layer's dropped share and aux, each
+    ``moe_block``'s ms and their share of the prefill, and
+    ``flops.cell_cost``'s executed and useful FLOPs over the prefill time
+    against the bf16 peak; 21c granite at full width sampling at T 0.8: a
+    seeded CUDA generator repeats its tokens, another seed does not, every
+    token below the vocabulary; 2^20 draws of one logit row held to
+    softmax(row / T) by a chi-square test (p >= 1e-6);
+22. one JSON line per phase, the kernels line (the f64 instantiations in
     rows of their own), then the device line.
 
 Needs one CUDA card, ``nvcc`` (on PATH or under /usr/local/cuda), and the
@@ -347,6 +363,7 @@ def main() -> int:
     timed("18 contract checks", phase18_contracts, dev, card, ref4)
     timed("19 LM families", phase19_families, dev, card)
     timed("20 Tucker layers", phase20_tucker_layers, dev, card)
+    timed("21 moe and sampling", phase21_moe_sampling, dev, card)
     print(json.dumps({"kernels": [kernels[k] for k in list(wrappers()) + F64_ROWS]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4646,12 +4663,19 @@ def phase18_contracts(dev, card: str, ref4: dict, cfg: Optional[dict] = None) ->
 # (config, layers kept (None: all), prefill input): Qwen2-7B (dense, GQA 7),
 # Mamba2-1.3B (ssm, N 128, chunk 256), MusicGen-large (audio, frame
 # embeddings), InternVL2-76B's LM (vlm, GQA 8) cut to 8 of its 80 layers:
-# its 70.55 B parameters take 141 GB in bf16, past one card's 80 GB.
+# its 70.55 B parameters take 141 GB in bf16, past one card's 80 GB;
+# granite-moe-1b-a400m whole (moe, 32 experts top-8, GQA 2); Grok-1 (moe, 8
+# experts top-2, two expert shards, GQA 6) cut to GROK_LAYERS of its 64
+# layers at full width: each layer holds 9.84 GB in bf16. Grok runs last, on
+# a card the others have left empty.
+GROK_LAYERS = 6
 FAMILY_SERVING = (
     ("qwen2-7b", None, "tokens"),
     ("mamba2-1.3b", None, "tokens"),
     ("musicgen-large", None, "embeds"),
     ("internvl2-76b", 8, "tokens"),
+    ("granite-moe-1b-a400m", None, "tokens"),
+    ("grok-1-314b", GROK_LAYERS, "tokens"),
 )
 FAMILY_DECODE_STEPS = 8
 
@@ -4794,7 +4818,8 @@ def serve_family(dev, card: str, arch: str, keep_layers, prefill_input: str,
     per prefill from the counters; prefill ms, decode ms a step, tokens/s,
     peak and busy share; kernel 6 on layer 0's inputs (and SDPA's time),
     kernel 7 on every call of a warm prefill (``ssd_per_layer_gate``) and on
-    layer 0's inputs with the two controls."""
+    layer 0's inputs with the two controls; for the ``moe`` family, phase
+    21b's report of its blocks (:func:`moe_prefill_report`)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.model import ATTENTION_FAMILIES, init_params, param_count_actual
@@ -4900,6 +4925,8 @@ def serve_family(dev, card: str, arch: str, keep_layers, prefill_input: str,
     for name, row in rows.items():
         row["launches"] = launches[name]
         row["device_ms"] = prof_prefill["kernel_ms"][name] / launches[name]
+    if cfg.family == "moe":
+        RECORDED.setdefault("moe", {})[arch] = moe_prefill_report(cfg, eng, batch, prefill_ms)
     smoke = smoke_card_vs_cpu(dev, arch, prefill_input == "embeds")
     out = {"config": cfg.name, "family": cfg.family, "layers": cfg.n_layers,
            "layers_of_config": full.n_layers, "params": n_params, "init_s": t_init,
@@ -4917,7 +4944,7 @@ def serve_family(dev, card: str, arch: str, keep_layers, prefill_input: str,
 
 
 def phase19_families(dev, card: str, smoke: bool = False) -> None:
-    log(f"phase 19: the dense, ssm, audio and vlm families at full width, batch {SERVE_B}, "
+    log(f"phase 19: the dense, ssm, audio, vlm and moe families at full width, batch {SERVE_B}, "
         f"{SERVE_P}-token prompts, {SERVE_NEW} new tokens, bf16, seeded weights on the card")
     out = {"phase": "19 LM families", "card": card, "batch": SERVE_B, "prompt": SERVE_P,
            "new_tokens": SERVE_NEW, "families": {}}
@@ -5026,6 +5053,224 @@ def phase20_tucker_layers(dev, card: str) -> None:
     release_memory()
     print(json.dumps(out), flush=True)
 
+
+
+# -- phase 21: the moe family and sampling --------------------------------------------
+
+# 21a, card against CPU in f32 on identical inputs: moe_block's output within
+# MOE_TOL x max|CPU| (the same operations, f32 sums in other orders, TF32
+# off), its aux within MOE_AUX_TOL; the forward's logits within phase 8's
+# f32 tolerance. Cases (config, expert_shards, capacity_factor), SMOKE
+# widths: grok's SMOKE has one shard, so the shard sum takes 2 here, and
+# capacity 0.5 drops pairs.
+MOE_TOL, MOE_AUX_TOL = 1e-5, 1e-6
+MOE_CASES = (
+    ("granite-moe-1b-a400m", 1, 1.25),
+    ("grok-1-314b", 2, 1.25),
+    ("granite-moe-1b-a400m", 1, 0.5),
+)
+MOE_WEIGHTS = ("router", "moe_wi", "moe_wg", "moe_wo")
+# 21c: granite at full width sampling at SAMPLE_T from SAMPLE_P-token
+# prompts; SAMPLE_DRAWS draws of one logit row, SAMPLE_BATCH rows a call,
+# held to softmax(row[:V] / T) by a chi-square test at p >= SAMPLE_MIN_P
+SAMPLE_T, SAMPLE_P, SAMPLE_NEW = 0.8, 64, 16
+SAMPLE_DRAWS, SAMPLE_BATCH, SAMPLE_MIN_P = 1 << 20, 1 << 12, 1e-6
+
+
+def moe_prefill_report(cfg, eng, batch: dict, prefill_ms: float) -> dict:
+    """Phase 21b on phase 19's model at full width: one warm prefill with
+    each ``moe_block`` call bracketed by CUDA events and its routing read
+    (the dropped share of routed pairs, the aux); the blocks' ms and their
+    share of ``prefill_ms``; and ``flops.cell_cost``'s executed and useful
+    FLOPs of this prefill over ``prefill_ms`` against the bf16 peak."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import flops, moe
+
+    orig, calls = moe.moe_block, []
+
+    def timed(cfg_, x, wr, wi, wg, wo):
+        r = moe.route(cfg_, x.reshape(-1, x.shape[-1]), wr)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        y, aux = orig(cfg_, x, wr, wi, wg, wo)
+        end.record()
+        calls.append((start, end, r.dropped_share, aux, r.cap))
+        return y, aux
+
+    moe.moe_block = timed
+    try:
+        eng.prefill(eng.params, batch)
+    finally:
+        moe.moe_block = orig
+    torch.cuda.synchronize()
+    check(len(calls) == cfg.n_layers, f"{cfg.name}: {len(calls)} moe_block calls in a prefill, "
+          f"want {cfg.n_layers}")
+    ms = [s.elapsed_time(e) for s, e, *_ in calls]
+    dropped = [float(c[2]) for c in calls]
+    aux = [float(c[3]) for c in calls]
+    check(all(math.isfinite(a) and a > 0 for a in aux) and all(0 <= d < 1 for d in dropped),
+          f"{cfg.name}: moe aux {aux}, dropped shares {dropped}")
+    cost = flops.cell_cost(cfg, ShapeConfig("serve", SERVE_P, SERVE_B, "prefill"))
+    sec = prefill_ms / 1e3
+    out = {"layers": cfg.n_layers, "capacity": calls[0][4], "routed_pairs":
+           SERVE_B * SERVE_P * cfg.top_k, "dropped_share_per_layer": dropped,
+           "aux_per_layer": aux, "moe_block_ms_per_layer": ms,
+           "moe_block_ms_sum": sum(ms), "moe_share_of_prefill": sum(ms) / prefill_ms,
+           "prefill_ms": prefill_ms, "cell_cost_flops": cost.flops,
+           "cell_cost_model_flops": cost.model_flops,
+           "executed_tflops_per_s": cost.flops / sec / 1e12,
+           "model_tflops_per_s": cost.model_flops / sec / 1e12,
+           "executed_share_of_bf16_peak": cost.flops / sec / PEAK_BF16_FLOPS,
+           "model_share_of_bf16_peak": cost.model_flops / sec / PEAK_BF16_FLOPS}
+    log(f"    21b moe blocks: {json.dumps(out)}")
+    return out
+
+
+def moe_card_vs_cpu(dev, arch: str, shards: int, cf: float) -> dict:
+    """Phase 21a for one SMOKE case in f32: layer 0's ``moe_block`` on the
+    card and on the CPU from identical weights and inputs (the same experts,
+    kept pairs and slots; output and aux within their tolerances), and the
+    full forward's logits and aux."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.model import forward, init_params
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32",
+                              expert_shards=shards, capacity_factor=cf)
+    label = f"{arch} SMOKE, {shards} shard(s), capacity {cf}"
+    params = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    cparams = tree_to(params, dev)
+    x = torch.randn((SMOKE_B, SMOKE_P, cfg.d_model),
+                    generator=torch.Generator().manual_seed(SEED + 1))
+    w = [params["layers"][n][0] for n in MOE_WEIGHTS]
+    cw = [cparams["layers"][n][0] for n in MOE_WEIGHTS]
+    r = moe.route(cfg, x.reshape(-1, cfg.d_model), w[0])
+    rc = moe.route(cfg, x.to(dev).reshape(-1, cfg.d_model), cw[0])
+    check(rc.slot.device.type == dev.type, f"21a {label}: routing left {dev}")
+    for name in ("tope", "keep", "slot"):
+        check(torch.equal(getattr(rc, name).cpu(), getattr(r, name)),
+              f"21a {label}: the card's {name} differ from the CPU's")
+    y, aux = moe.moe_block(cfg, x, *w)
+    yc, auxc = moe.moe_block(cfg, x.to(dev), *cw)
+    err = float((yc.cpu() - y).abs().max()) / float(y.abs().max())
+    aux_err = abs(float(auxc) - float(aux))
+    check(yc.device.type == dev.type and err <= MOE_TOL and aux_err <= MOE_AUX_TOL,
+          f"21a {label}: moe_block card against CPU {err:.3e} (limit {MOE_TOL}), aux "
+          f"{aux_err:.3e} (limit {MOE_AUX_TOL})")
+    tokens = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (SMOKE_B, SMOKE_P)), dtype=torch.long)
+    lg, _, faux = forward(cfg, params, tokens)
+    lgc, _, fauxc = forward(cfg, cparams, tokens.to(dev))
+    lg_err = float((lgc.float().cpu() - lg).abs().max()) / float(lg.abs().max())
+    tol = LM_TOL["float32"]
+    check(bool(torch.isfinite(lgc).all()) and lg_err <= tol,
+          f"21a {label}: forward logits card against CPU {lg_err:.3e} (limit {tol})")
+    fa_err = abs(float(fauxc) - float(faux))
+    check(fa_err <= cfg.n_layers * MOE_AUX_TOL,
+          f"21a {label}: forward aux card against CPU {fa_err:.3e}")
+    row = {"config": cfg.name, "expert_shards": shards, "capacity_factor": cf,
+           "capacity": r.cap, "routed_pairs": int(r.keep.numel()),
+           "dropped_share": float(r.dropped_share), "moe_rel_err": err, "aux_err": aux_err,
+           "aux": float(aux), "forward_logit_rel_err": lg_err, "forward_aux_err": fa_err}
+    log(f"  21a {label}: {json.dumps(row)}")
+    return row
+
+
+def chi_square_p(counts: torch.Tensor, probs: torch.Tensor) -> float:
+    """The chi-square test's p-value of ``counts`` against ``probs`` (both on
+    the CPU), the bins whose expected count is below 5 pooled into one:
+    Q(df / 2, stat / 2), the regularized upper incomplete gamma function."""
+    counts, probs = counts.double(), probs.double()
+    expected = counts.sum() * probs
+    small = expected < 5
+    obs = torch.cat([counts[~small], counts[small].sum()[None]])
+    exp = torch.cat([expected[~small], expected[small].sum()[None]])
+    if float(exp[-1]) == 0:
+        obs, exp = obs[:-1], exp[:-1]
+    stat = ((obs - exp) ** 2 / exp).sum()
+    df = torch.tensor(float(len(obs) - 1), dtype=torch.float64)
+    return float(torch.special.gammaincc(df / 2, stat / 2))
+
+
+def sampling_on_card(dev, smoke: bool = False) -> dict:
+    """Phase 21c: granite at full width on the card, ``generate`` at T 0.8
+    with a CUDA generator seeded twice (the same tokens) and with another
+    seed (other tokens), every token below ``vocab_size``; then
+    ``SAMPLE_DRAWS`` draws of ``Engine._sample`` from one prefill logit row
+    against softmax(row[:V] / T) (chi-square, p >= 1e-6; the same counts
+    against T x 1.2 reported as a control), and the ms of one sampled and
+    one greedy ``_sample`` of a decode step's 4 rows. ``smoke``: the SMOKE
+    config, for a CPU rehearsal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cfg = get_config("granite-moe-1b-a400m", smoke=smoke)
+    v = cfg.vocab_size
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    prompts = np.random.default_rng(SEED + 2).integers(0, v, (SERVE_B, SAMPLE_P))
+
+    def engine(temperature: float, seed: int):
+        return Engine(cfg, params, ServeConfig(max_seq_len=SAMPLE_P + SAMPLE_NEW,
+                                               batch_size=SERVE_B, temperature=temperature),
+                      device=dev, generator=torch.Generator(device=dev).manual_seed(seed))
+
+    runs = [engine(SAMPLE_T, seed).generate(prompts, SAMPLE_NEW) for seed in (1, 1, 2)]
+    greedy = engine(0.0, 1).generate(prompts, SAMPLE_NEW)
+    new = [r[:, SAMPLE_P:] for r in runs]
+    check(all(np.array_equal(r[:, :SAMPLE_P], prompts) for r in runs), "21c: prompts changed")
+    check(np.array_equal(new[0], new[1]), "21c: one seed gave two token sequences")
+    check(not np.array_equal(new[0], new[2]), "21c: two seeds gave the same tokens")
+    check(all(int(r.min()) >= 0 and int(r.max()) < v for r in new), "21c: a token >= vocab")
+
+    eng = engine(SAMPLE_T, 3)
+    logits, _ = eng.prefill(params, {"tokens": torch.as_tensor(prompts, device=dev)})
+    row = logits[0]
+    counts = torch.zeros(v, dtype=torch.long, device=dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(SAMPLE_DRAWS // SAMPLE_BATCH):
+        tok = eng._sample(row.expand(SAMPLE_BATCH, -1))
+        counts += torch.bincount(tok, minlength=v)
+    end.record()
+    end.synchronize()
+    check(tok.device.type == dev.type and int(counts.sum()) == SAMPLE_DRAWS
+          and counts.numel() == v,
+          f"21c: {int(counts.sum())} draws over {counts.numel()} tokens, on {tok.device}")
+    scaled = (row[:v].float() / SAMPLE_T).double().cpu()
+    p = chi_square_p(counts.cpu(), torch.softmax(scaled, dim=-1))
+    p_ctrl = chi_square_p(counts.cpu(), torch.softmax(scaled / 1.2, dim=-1))
+    check(p >= SAMPLE_MIN_P, f"21c: draws against softmax(row / T): p {p:.3e} < {SAMPLE_MIN_P}")
+    out = {"config": cfg.name, "temperature": SAMPLE_T, "prompt": SAMPLE_P,
+           "new_tokens": SAMPLE_NEW, "seeded_twice_equal": True, "other_seed_differs": True,
+           "tokens_differing_from_greedy": int((new[0] != greedy[:, SAMPLE_P:]).sum()),
+           "draws": SAMPLE_DRAWS, "chi_square_p": p, "control_p_at_1.2T": p_ctrl,
+           "draw_ms_per_row_batch": start.elapsed_time(end) / (SAMPLE_DRAWS // SAMPLE_BATCH),
+           "sample_ms_decode_step": time_ms(partial(eng._sample, logits)),
+           "greedy_ms_decode_step": time_ms(partial(engine(0.0, 0)._sample, logits))}
+    log(f"  21c sampling: {json.dumps(out)}")
+    del eng, params, logits, row, counts
+    release_memory()
+    return out
+
+
+def phase21_moe_sampling(dev, card: str, smoke: bool = False) -> None:
+    """21a the moe block card against CPU in f32 (SMOKE; two expert shards;
+    dropped pairs), 21b phase 19's report of granite's and grok's blocks at
+    full width, 21c sampling with temperature > 0 on the card (``smoke``:
+    at SMOKE width, a CPU rehearsal)."""
+    from repro_torch.configs import get_config
+
+    log("phase 21: the moe family (card against CPU in f32; the blocks at full width from "
+        "phase 19) and sampling at temperature > 0")
+    cases = [moe_card_vs_cpu(dev, arch, shards, cf) for arch, shards, cf in MOE_CASES]
+    check(any(c["dropped_share"] > 0 for c in cases), "21a: no case dropped a pair")
+    moe_archs = [a for a, _, _ in FAMILY_SERVING if get_config(a).family == "moe"]
+    check(sorted(RECORDED.get("moe", {})) == sorted(moe_archs),
+          f"21b: phase 19 reported {sorted(RECORDED.get('moe', {}))}, want {moe_archs}")
+    out = {"phase": "21 moe and sampling", "card": card, "card_vs_cpu": cases,
+           "prefill": RECORDED["moe"], "sampling": sampling_on_card(dev, smoke)}
+    print(json.dumps(out), flush=True)
 
 if __name__ == "__main__":
     try:

@@ -3,8 +3,7 @@
 Every assigned architecture is a :class:`ModelConfig`; every benchmark cell
 is a (ModelConfig, ShapeConfig) pair. Configs are plain frozen dataclasses,
 hashable and printable. The port keeps its own copy because importing
-``repro.configs`` runs ``repro/__init__.py``, which imports JAX. Only the
-``hybrid`` family runs in the port so far.
+``repro.configs`` runs ``repro/__init__.py``, which imports JAX.
 """
 from __future__ import annotations
 

@@ -1,3 +1,4 @@
-"""The LM stack of the port: layers, attention, Mamba-2, blocks and the model
-(the ``dense``, ``ssm``, ``audio``, ``vlm`` and ``hybrid`` families), and
-the Tucker-factorized layers (``tucker_layers``)."""
+"""The LM stack of the port: layers, attention, Mamba-2, the MoE block,
+blocks and the model (the ``dense``, ``moe``, ``ssm``, ``audio``, ``vlm``
+and ``hybrid`` families), the analytic FLOP counts (``flops``), and the
+Tucker-factorized layers (``tucker_layers``)."""

@@ -46,11 +46,24 @@ def swiglu(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor, wo: torch.Tensor
     return h @ wo
 
 
+INIT_CHUNK = 1 << 28  # elements drawn in f32 at a time (1 GiB)
+
+
 def init_normal(generator: torch.Generator, shape, scale: float, dtype,
                 device=None) -> torch.Tensor:
     """``scale`` x N(0, 1) drawn in f32 from ``generator``, then cast to
     ``dtype``: the reference's ``init_normal`` with a torch generator in
-    place of a JAX key (on the generator's device unless ``device`` says)."""
+    place of a JAX key (on the generator's device unless ``device`` says).
+    The draw goes by blocks of rows of at most ``INIT_CHUNK`` elements, so
+    the f32 draw of a large leaf (grok's (L, 16, 6,144, 16,384) expert
+    stacks) never sits beside the whole cast; a leaf of one block is one
+    draw of its shape."""
     dev = device if device is not None else generator.device
-    w = torch.randn(tuple(shape), generator=generator, dtype=torch.float32, device=dev)
-    return w.mul_(scale).to(dtype)
+    out = torch.empty(tuple(shape), dtype=dtype, device=dev)
+    rows = out.view(-1, out.shape[-1])
+    step = max(1, INIT_CHUNK // rows.shape[1])
+    for i in range(0, rows.shape[0], step):
+        part = rows[i:i + step]
+        w = torch.randn(part.shape, generator=generator, dtype=torch.float32, device=dev)
+        part.copy_(w.mul_(scale))
+    return out

@@ -1,14 +1,14 @@
 """The LM: parameter schema and init, the layer stack, the LM head and the
-prefill and decode steps. Port of ``repro.models.model`` for the families
-``dense``, ``ssm``, ``audio``, ``vlm`` and ``hybrid``.
+prefill and decode steps. Port of ``repro.models.model`` for every family:
+``dense``, ``moe``, ``ssm``, ``audio``, ``vlm`` and ``hybrid``.
 
 The schema is one dict of :class:`ParamDef` leaves, laid out as the
 reference's parameter pytree (the same keys and shapes) for every family,
-``moe`` included, so that ``convert.lm_params_from_numpy`` can take the
-reference's parameters as they are and :func:`param_count_actual` counts
-what the reference counts without allocating anything. The ``moe`` family's
-blocks (``models/moe.py``), training (``mode="train"``, the loss, the
-optimizer) and the data pipeline are not ported yet and raise.
+so that ``convert.lm_params_from_numpy`` can take the reference's
+parameters as they are and :func:`param_count_actual` counts what the
+reference counts without allocating anything. Training (``mode="train"``,
+the loss, the optimizer) and the data pipeline are not ported yet and
+raise.
 """
 from __future__ import annotations
 
@@ -24,16 +24,13 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import init_normal, rmsnorm
 from repro_torch.models.mamba2 import SsmState
 
-MOE_ITEM = tfm.MOE_ITEM
 TRAINING_ITEM = "queue 1, item 19: training, with backward kernels"
-PORTED_FAMILIES = ("dense", "ssm", "hybrid", "audio", "vlm")
-ATTENTION_FAMILIES = ("dense", "audio", "vlm")  # a stack of dense_block
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
+ATTENTION_FAMILIES = ("dense", "moe", "audio", "vlm")  # a stack of dense_block
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg``'s family is ported."""
-    if cfg.family == "moe":
-        raise unported(f"family 'moe' ({cfg.name})", MOE_ITEM)
+    """Raise ``ValueError`` unless ``cfg``'s family is one the port serves."""
     if cfg.family not in PORTED_FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
 
@@ -71,8 +68,8 @@ def _mlp_defs(cfg: ModelConfig, lead: Tuple[int, ...] = ()) -> Dict[str, ParamDe
 
 
 def _moe_defs(cfg: ModelConfig, lead: Tuple[int, ...]) -> Dict[str, ParamDef]:
-    """The ``moe`` family's MLP leaves: a schema only, for counting and for
-    taking the reference's parameters; its blocks are item 18b."""
+    """The ``moe`` family's MLP leaves: the router and the expert stacks,
+    each expert's d_ff split over ``expert_shards``."""
     d, ff = cfg.d_model, cfg.d_ff
     e_eff = cfg.n_experts_eff
     ff_s = ff // cfg.expert_shards
@@ -118,10 +115,10 @@ def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
         "final_norm": ParamDef((d,), "ones"),
     }
     lead = (n_layers,)
-    if cfg.family in ATTENTION_FAMILIES:
-        defs["layers"] = {**_attn_defs(cfg, lead), **_mlp_defs(cfg, lead)}
-    elif cfg.family == "moe":
+    if cfg.family == "moe":
         defs["layers"] = {**_attn_defs(cfg, lead), **_moe_defs(cfg, lead)}
+    elif cfg.family in ATTENTION_FAMILIES:
+        defs["layers"] = {**_attn_defs(cfg, lead), **_mlp_defs(cfg, lead)}
     elif cfg.family == "ssm":
         defs["layers"] = _ssm_defs(cfg, lead)
     elif cfg.family == "hybrid":
@@ -218,10 +215,11 @@ def run_stack(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None,
               embeds: Optional[torch.Tensor] = None, mode: str = "prefill", cache=None,
               pos: Optional[int] = None):
     """Embedding (or ``embeds``) and every block; returns (hidden, cache,
-    aux_loss).
+    aux_loss): the f32 sum of the ``moe`` blocks' load-balance losses, 0
+    for the other families.
 
     ``mode="prefill"`` returns the new cache, the reference's layout: for
-    ``dense``, ``audio`` and ``vlm`` ``{"k", "v"}`` stacked (L, b, s, kv,
+    ``dense``, ``moe``, ``audio`` and ``vlm`` ``{"k", "v"}`` stacked (L, b, s, kv,
     hd) in bf16; for ``ssm`` an :class:`SsmState` of tensors stacked over
     the L layers; for ``hybrid`` ``{"ssm": SsmState`` stacked (superblock,
     period, ...), ``"attn": {"k", "v"}`` stacked (superblock, b, s, kv,
@@ -243,12 +241,14 @@ def run_stack(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None,
     else:
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     layers = params["layers"]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in ATTENTION_FAMILIES:
         ks, vs = [], []
         for i in range(cfg.n_layers):
             p_l = {name: t[i] for name, t in layers.items()}
             cache_l = {n: cache[n][i] for n in ("k", "v")} if decode else None
-            x, new_cache, _ = tfm.dense_block(cfg, p_l, x, positions, mode, cache_l, pos)
+            x, new_cache, aux_l = tfm.dense_block(cfg, p_l, x, positions, mode, cache_l, pos)
+            aux = aux + aux_l
             if not decode:
                 ks.append(new_cache["k"])
                 vs.append(new_cache["v"])
@@ -287,7 +287,7 @@ def run_stack(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None,
         if not decode:
             cache = {"ssm": SsmState(*(torch.stack(t) for t in zip(*states))),
                      "attn": {"k": torch.stack(ks), "v": torch.stack(vs)}}
-    return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, cache, aux
 
 
 @torch.no_grad()

@@ -1,15 +1,14 @@
-"""Decoder blocks of the ported families. Port of
-``repro.models.transformer``: :func:`dense_block` (``dense``, ``audio``,
-``vlm``), :func:`ssm_block` (``ssm``) and :func:`hybrid_superblock`
-(``hybrid``), over the shared :func:`attention_sublayer`.
+"""Decoder blocks of every family. Port of ``repro.models.transformer``:
+:func:`dense_block` (``dense``, ``moe``, ``audio``, ``vlm``),
+:func:`ssm_block` (``ssm``) and :func:`hybrid_superblock` (``hybrid``),
+over the shared :func:`attention_sublayer`.
 
 Block functions are mode-polymorphic:
   mode="prefill" full sequence, returns the layer's KV/SSM cache
   mode="decode"  single token against a pre-allocated cache
 
 One card needs no sharding annotations: the reference's ``constrain``
-calls have no counterpart. The ``moe`` branch of :func:`dense_block`
-(``models/moe.py``) is not ported yet and raises.
+calls have no counterpart.
 """
 from __future__ import annotations
 
@@ -17,13 +16,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.base import unported
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.attention import decode_attention, gqa_attention
 from repro_torch.models.layers import apply_rope, rmsnorm, swiglu
 from repro_torch.models.mamba2 import SsmState, ssd_decode_step, ssd_mixer
-
-MOE_ITEM = "queue 1, item 18b: the moe family"
 
 
 def attention_sublayer(
@@ -78,15 +75,19 @@ def dense_block(
     cache: Optional[Dict[str, torch.Tensor]] = None,
     pos: Optional[int] = None,
 ):
-    """Pre-norm attention then a SwiGLU MLP, each added to the residual.
-    Returns (x, the layer's attention cache or None, aux loss 0)."""
-    if cfg.family == "moe":
-        raise unported(f"the moe block ({cfg.name})", MOE_ITEM)
+    """Pre-norm attention then a SwiGLU MLP (``moe``: the MoE block), each
+    added to the residual. Returns (x, the layer's attention cache or None,
+    the f32 aux loss: the MoE block's, else 0)."""
     attn_out, new_cache = attention_sublayer(cfg, p, x, positions, mode, cache, pos)
     x = x + attn_out
     h = rmsnorm(x, p["ln2"], cfg.norm_eps)
-    x = x + swiglu(h, p["wi"], p["wg"], p["wo_mlp"])
-    return x, new_cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "moe":
+        mlp_out, aux = moe_lib.moe_block(cfg, h, p["router"], p["moe_wi"], p["moe_wg"],
+                                         p["moe_wo"])
+    else:
+        mlp_out = swiglu(h, p["wi"], p["wg"], p["wo_mlp"])
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + mlp_out, new_cache, aux
 
 
 def ssm_block(cfg: ModelConfig, p, x, mode: str, state: Optional[SsmState] = None):

@@ -1,5 +1,6 @@
-"""Batched serving engine: one prefill, then greedy decode steps against a
-pre-allocated KV budget. Port of ``repro.serve.engine``.
+"""Batched serving engine: one prefill, then decode steps against a
+pre-allocated KV budget, greedy or sampled at a temperature. Port of
+``repro.serve.engine``.
 
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
@@ -18,36 +19,41 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.base import resolve_device, unported
+from repro_torch.base import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as model_lib
 from repro_torch.models.mamba2 import SsmState
-
-SAMPLING_ITEM = "queue 1, item 23: sampling with temperature > 0"
 
 
 @dataclasses.dataclass
 class ServeConfig:
     max_seq_len: int = 512
     batch_size: int = 4
-    temperature: float = 0.0  # greedy; sampling is not ported yet
+    temperature: float = 0.0  # <= 0: greedy
 
 
 class Engine:
-    """Greedy generation for one fixed batch of prompts on one device
-    (``"cuda"`` unless the caller asks for the CPU); ``params`` must live
-    there (``model.init_params`` or ``convert.lm_params_from_numpy``)."""
+    """Generation for one fixed batch of prompts on one device (``"cuda"``
+    unless the caller asks for the CPU); ``params`` must live there
+    (``model.init_params`` or ``convert.lm_params_from_numpy``). At
+    ``temperature > 0`` tokens are drawn from ``generator``, a
+    ``torch.Generator`` on that device; without one the engine seeds its
+    own from fresh entropy, as the reference's unseeded draws are."""
 
     def __init__(self, cfg: ModelConfig, params: Any, scfg: ServeConfig = ServeConfig(),
-                 device="cuda") -> None:
+                 device="cuda", generator: Optional[torch.Generator] = None) -> None:
         model_lib.check_ported(cfg)
-        if scfg.temperature > 0:
-            raise unported(f"temperature={scfg.temperature}", SAMPLING_ITEM)
         self.device = resolve_device(device)
         table = params["embed"]["table"]
         if table.device != self.device:
             raise ValueError(f"params on {table.device}, engine on {self.device}")
+        if generator is None:
+            generator = torch.Generator(device=self.device)
+            generator.seed()
+        elif generator.device.type != self.device.type:
+            raise ValueError(f"generator on {generator.device}, engine on {self.device}")
         self.cfg, self.scfg, self.params = cfg, scfg, params
+        self.generator = generator
         self.prefill = model_lib.make_prefill_step(cfg)
         self.decode = model_lib.make_serve_step(cfg)
 
@@ -55,7 +61,7 @@ class Engine:
         """The decode cache: the prefill cache's attention entries, ``k`` and
         ``v`` (layers, b, from_len, kv, hd), grown to the serving budget
         along their sequence axis, and a copy of its SSM states; for every
-        ported family's layout (``dense``/``audio``/``vlm``: ``{"k",
+        ported family's layout (``dense``/``moe``/``audio``/``vlm``: ``{"k",
         "v"}``; ``ssm``: an ``SsmState``; ``hybrid``: ``{"ssm", "attn"}``).
         The entries are chosen by name: the reference picks them by shape
         (``shape[-3] == from_len``), which also catches the conv states when
@@ -80,14 +86,14 @@ class Engine:
             return states(cache)
         if "attn" in cache:  # hybrid
             return {"ssm": states(cache["ssm"]), "attn": kv(cache["attn"])}
-        return kv(cache)  # dense, audio, vlm
+        return kv(cache)  # dense, moe, audio, vlm
 
     def generate(self, prompts: np.ndarray, max_new_tokens: int = 32,
                  eos_id: Optional[int] = None) -> np.ndarray:
         """prompts: (B, P) token ids, for every ported family (the audio
         and vision families' embeds enter through ``self.prefill``, as in
         the reference). Returns (B, P + max_new_tokens) int32, as the
-        reference does: the prompts, then the greedy tokens (after
+        reference does: the prompts, then the new tokens (after
         ``eos_id``, a finished row repeats it). The prefill runs even for
         ``max_new_tokens=0``, which returns the prompts. The last token needs
         no decode step after it, so ``max_new_tokens - 1`` decode steps
@@ -118,4 +124,17 @@ class Engine:
         return torch.cat(out, dim=1).to(torch.int32).cpu().numpy()
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
-        return torch.argmax(logits[..., : self.cfg.vocab_size], dim=-1)
+        """The next token of each row of ``logits`` (..., Vp), from its first
+        ``vocab_size`` columns: the argmax at ``temperature <= 0``, else a
+        draw from softmax(logits / T) by the Gumbel-max rule that
+        ``jax.random.categorical`` uses, argmax(logits / T + G) with G
+        standard Gumbel noise from the engine's generator. Logits and noise
+        are taken in f32, whatever the model's dtype."""
+        logits = logits[..., : self.cfg.vocab_size]
+        temperature = self.scfg.temperature
+        if temperature <= 0:
+            return torch.argmax(logits, dim=-1)
+        u = torch.rand(logits.shape, generator=self.generator, dtype=torch.float32,
+                       device=logits.device)
+        gumbel = -torch.log(-torch.log(u.clamp_(min=torch.finfo(torch.float32).tiny)))
+        return torch.argmax(logits.float() / temperature + gumbel, dim=-1)

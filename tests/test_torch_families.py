@@ -1,11 +1,11 @@
-"""The port's ``dense``, ``ssm``, ``audio`` and ``vlm`` families on the CPU
-against the JAX package: for each family's SMOKE configs (qwen2-7b with its
-qkv bias, yi-6b and smollm-360m for ``dense``; mamba2-1.3b; musicgen-large;
-internvl2-76b), from the reference's weights handed over by
-``convert.lm_params_from_numpy``, the prefill and decode logits, the
-caches and the greedy tokens of ``Engine.generate``; prefill from
-``embeds`` for the audio and vision families; ``param_count_actual`` for
-all 11 configs; and the ``moe`` family's refusal, naming item 18b.
+"""The port's ``dense``, ``moe``, ``ssm``, ``audio`` and ``vlm`` families on
+the CPU against the JAX package: for each family's SMOKE configs (qwen2-7b
+with its qkv bias, yi-6b and smollm-360m for ``dense``; granite-moe-1b-a400m
+and grok-1-314b for ``moe``; mamba2-1.3b; musicgen-large; internvl2-76b),
+from the reference's weights handed over by ``convert.lm_params_from_numpy``,
+the prefill and decode logits, the caches, the forward's aux loss and the
+greedy tokens of ``Engine.generate``; prefill from ``embeds`` for the audio
+and vision families; ``param_count_actual`` for all 11 configs.
 
 Tolerances are ``test_torch_lm.py``'s, as a fraction of max|reference
 logit|: 1e-4 where no bf16 rounding intervenes (a one-chunk prefill, and
@@ -29,11 +29,12 @@ from repro.serve.engine import ServeConfig as JServeConfig
 from repro_torch.configs import get_config
 from repro_torch.convert import bf16_from_bits, lm_cache_from_numpy, lm_params_from_numpy
 from repro_torch.models import model as tmodel
-from repro_torch.models import transformer as ttfm
 from repro_torch.models.mamba2 import SsmState
 from repro_torch.serve.engine import Engine, ServeConfig
 
-ARCHS = ["qwen2-7b", "yi-6b", "smollm-360m", "mamba2-1.3b", "musicgen-large", "internvl2-76b"]
+ARCHS = ["qwen2-7b", "yi-6b", "smollm-360m", "granite-moe-1b-a400m", "grok-1-314b",
+         "mamba2-1.3b", "musicgen-large", "internvl2-76b"]
+MOE_ARCHS = ["granite-moe-1b-a400m", "grok-1-314b"]
 EMBED_ARCHS = ["musicgen-large", "internvl2-76b"]
 B, P, STEPS = 3, 24, 6  # batch, prompt (one 32-token SSD chunk of the ssm SMOKE), decode
 TIGHT, CACHE_ROUNDING, BF16 = 1e-4, 5e-3, 1e-1
@@ -247,22 +248,33 @@ def test_param_count_actual_is_the_references(arch):
         shapes, is_leaf=torch.is_tensor))
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "grok-1-314b"])
-def test_moe_raises_naming_item_18b(arch):
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_params_hand_over(arch):
+    """The ``moe`` schema is the reference's and its parameters convert,
+    the router and the expert stacks bit for bit."""
     cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 18b"):
-        tmodel.check_ported(cfg)
-    with pytest.raises(NotImplementedError, match="item 18b"):
-        tmodel.make_prefill_step(cfg)
-    with pytest.raises(NotImplementedError, match="item 18b"):
-        Engine(cfg, {}, ServeConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 18b"):
-        ttfm.dense_block(cfg, {}, torch.zeros(1, 1, cfg.d_model), torch.zeros(1), "prefill")
-    # the schema is the reference's, and its parameters convert
+    tmodel.check_ported(cfg)
     jp = jax.tree_util.tree_map(np.asarray, jmodel.init_params(jget_config(arch, smoke=True),
                                                                jax.random.PRNGKey(0)))
     tp = lm_params_from_numpy(jp, cfg)
-    assert tuple(tp["layers"]["moe_wi"].shape) == jp["layers"]["moe_wi"].shape
+    for name in ("router", "moe_wi", "moe_wg", "moe_wo"):
+        a = jp["layers"][name]
+        assert tuple(tp["layers"][name].shape) == a.shape
+        assert torch.equal(tp["layers"][name], bf16_from_bits(a.view(np.uint16)))
+
+
+def test_forward_aux_is_the_references(f32_runs, mesh1, rules):
+    """The full-logits forward's aux loss: the sum of the ``moe`` blocks'
+    load-balance losses (within 1e-6 of the reference's), 0 for the other
+    families, as in the reference."""
+    pair = f32_runs["pair"]
+    tokens = _tokens(pair.cfg)[:, :P]
+    _, _, want = jmodel.forward(pair.jcfg, mesh1, rules, pair.jparams, jnp.asarray(tokens),
+                                mode="prefill")
+    _, _, got = tmodel.forward(pair.cfg, pair.params, torch.as_tensor(tokens, dtype=torch.long))
+    assert got.dtype == torch.float32 and got.shape == ()
+    assert abs(float(got) - float(want)) <= 1e-6
+    assert (float(got) > 0.5) == (pair.cfg.family == "moe")  # ~1 for near-uniform routing
 
 
 def test_the_reference_bf16_bits_hand_over_for_every_family():

@@ -1,7 +1,7 @@
 """The port's LM serving path on the CPU against the JAX package: configs,
 layers, the attention sublayer, the hybrid superblock, prefill and decode
 logits and caches of zamba2-2.7b SMOKE, ``Engine.generate``, the parameter
-hand-over, and the refusals of what is not ported."""
+hand-over, every family admitted, and the refusal of training."""
 import dataclasses
 
 import jax
@@ -469,32 +469,29 @@ def test_init_params_follow_the_schema_and_seed():
 @pytest.mark.parametrize("arch", [a for a in sorted(jregistry._MODULES)
                                   if jget_config(a).family != "hybrid"])
 def test_unported_families_raise(arch):
-    """Of the families beside ``hybrid``, only ``moe`` is still unported
-    (ROADMAP.md queue 1, item 18b): it raises at every entry point, while
-    ``dense``, ``ssm``, ``audio`` and ``vlm`` are admitted and their
-    schemas are the reference's."""
+    """No family is left unported: every one beside ``hybrid`` (``dense``,
+    ``moe``, ``ssm``, ``audio`` and ``vlm``) is admitted at every entry
+    point, and its schema is the reference's."""
     cfg = get_config(arch, smoke=True)
     shapes = jax.tree_util.tree_map(lambda s: s.shape, jmodel.param_shapes(
         jget_config(arch, smoke=True)))
     assert jax.tree_util.tree_map(lambda d: d.shape, tmodel.param_defs(cfg),
                                   is_leaf=lambda d: isinstance(d, tmodel.ParamDef)) == shapes
-    if cfg.family != "moe":
-        tmodel.check_ported(cfg)
-        tmodel.make_prefill_step(cfg)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 18b"):
-        tmodel.check_ported(cfg)
-    with pytest.raises(NotImplementedError, match="item 18b"):
-        tmodel.make_prefill_step(cfg)
-    with pytest.raises(NotImplementedError, match="item 18b"):
-        Engine(cfg, {}, ServeConfig(), device="cpu")
+    assert cfg.family in tmodel.PORTED_FAMILIES
+    tmodel.check_ported(cfg)
+    tmodel.make_prefill_step(cfg)
+    tmodel.make_serve_step(cfg)
+    params = tmodel.param_shapes(cfg)  # meta tensors: admitted without allocating
+    with pytest.raises(ValueError, match="params on meta"):
+        Engine(cfg, params, ServeConfig(), device="cpu")
 
 
 def test_sampling_and_training_raise():
+    """Sampling is ported (``tests/test_torch_sampling.py``); training is
+    not yet, and raises naming its item."""
     cfg = get_config(ARCH, smoke=True)
     params = tmodel.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 23"):
-        Engine(cfg, params, ServeConfig(temperature=0.7), device="cpu")
+    Engine(cfg, params, ServeConfig(temperature=0.7), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 19"):
         tmodel.forward(cfg, params, torch.zeros((1, 4), dtype=torch.long), mode="train")
 
