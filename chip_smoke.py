@@ -179,8 +179,32 @@ result line):
     seeded CUDA generator repeats its tokens, another seed does not, every
     token below the vocabulary; 2^20 draws of one logit row held to
     softmax(row / T) by a chi-square test (p >= 1e-6);
-22. one JSON line per phase, the kernels line (the f64 instantiations in
-    rows of their own), then the device line.
+22. training, on an emptied card: 22a the backward kernels of kernels 6
+    and 7 (``csrc/flash_attention_bwd.cu``, ``csrc/ssd_chunk_bwd.cu``)
+    against their plain versions at odd shapes (kernel 6 in bf16 and f32,
+    GQA 1, 3 and 8, D 64, 80 and 128, S != T, the model's strided views;
+    kernel 7 at L 64 to 256, N 16 to 128, bf16 and f32 B and C), bf16
+    gradients within BF16_OUT_TOL and f32 ones at the fp32 rule, each the
+    same bits twice, and kernel 6's forward log-sum-exp; 22b one train step
+    of each family's SMOKE config in f32, card against CPU (loss, grad
+    norm, first moments, parameters; ``TRAIN_SMOKE_TOL``), with its exact
+    launches; 22c Zamba2-2.7B as registered trained by ``Trainer`` for 4
+    steps of 2 x 4,096 tokens (remat "full"): exactly 2 x 9 kernel-6 and
+    2 x 54 kernel-7 forward launches and 9 and 54 backward launches a
+    step, every backward call of step 1 against its plain version, the
+    step-0 loss within 10% of ln(32,000), finite grad norms, moved
+    parameters, ms a step, tokens/s, peak memory, the busy share of a
+    profiled step, executed and useful FLOP/s (``flops.cell_cost``) over
+    the bf16 peak, and each backward kernel's ms beside its plain
+    version's, SDPA backward's (kernel 6) and its bound; 22d repro-100m at
+    full width through ``python -m repro_torch.train``'s code path, 300
+    steps of 8 x 128 with a checkpoint every 50 (the loss falls), then a
+    run killed at step 160 that resumes at 150 with the checkpoint's bits
+    and later losses within ``R100_RESUME_LOSS_TOL`` of the uninterrupted
+    run's;
+23. one JSON line per phase, the kernels line (the f64 instantiations in
+    rows of their own, the two backward kernels after them), then the
+    device line.
 
 Needs one CUDA card, ``nvcc`` (on PATH or under /usr/local/cuda), and the
 checkout's ``src/`` beside this file. Imports nothing of JAX.
@@ -276,6 +300,8 @@ KERNEL_SYMBOLS = {
     "fused_kron_scatter_ttm": ("::kron_scatter_ttm_kernel", "::kron_scatter_ttm_reduce_kernel"),
     "flash_attention": ("::flash_attention_kernel", "::flash_attention_wgmma_kernel"),
     "ssd_chunk": ("::ssd_chunk_kernel",),
+    "flash_attention_bwd": ("::dkdv_kernel", "::dq_kernel"),
+    "ssd_chunk_bwd": ("::ssd_chunk_bwd_kernel",),
 }
 NO_LM_LAUNCHES = {"flash_attention": 0, "ssd_chunk": 0}
 
@@ -364,8 +390,9 @@ def main() -> int:
     timed("19 LM families", phase19_families, dev, card)
     timed("20 Tucker layers", phase20_tucker_layers, dev, card)
     timed("21 moe and sampling", phase21_moe_sampling, dev, card)
-    print(json.dumps({"kernels": [kernels[k] for k in list(wrappers()) + F64_ROWS]}),
-          flush=True)
+    kernels.update(timed("22 training", phase22_training, dev, card))
+    print(json.dumps({"kernels": [kernels[k] for k in list(wrappers()) + F64_ROWS
+                                  + ["flash_attention_bwd", "ssd_chunk_bwd"]]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -5271,6 +5298,625 @@ def phase21_moe_sampling(dev, card: str, smoke: bool = False) -> None:
     out = {"phase": "21 moe and sampling", "card": card, "card_vs_cpu": cases,
            "prefill": RECORDED["moe"], "sampling": sampling_on_card(dev, smoke)}
     print(json.dumps(out), flush=True)
+
+# -- phase 22: training ------------------------------------------------------------
+
+# 22a: kernel 6's backward on the model's layout, (b, s, t, H, KVH, D, causal,
+# what the case covers): GQA 1, 3 and 8, D 64, 80 and 128, S != T (the
+# diagonal at the kv end), S and T off the 64-row tiles, and non-causal
+FLASH_BWD_CASES = [
+    (2, 100, 100, 8, 8, 80, True, "GQA 1, D 80 (Zamba2's head dim)"),
+    (1, 77, 150, 6, 2, 64, True, "GQA 3, D 64, T > S"),
+    (2, 130, 130, 8, 1, 128, True, "GQA 8, D 128"),
+    (2, 128, 128, 12, 4, 64, True, "GQA 3, D 64 (repro-100m's heads)"),
+    (1, 64, 192, 4, 4, 80, True, "GQA 1, D 80, T > S"),
+    (2, 70, 90, 4, 2, 16, False, "non-causal, D 16"),
+]
+# 22a: kernel 7's backward, (BH, C, L, P, N, decay rate, what the case
+# covers); each with B and C in bf16 and in f32
+SSD_BWD_CASES = [
+    (2, 3, 64, 32, 16, 0.1, "L 64, N 16"),
+    (2, 2, 256, 64, 64, 0.1, "L 256, N = P 64 (Zamba2's chunk)"),
+    (1, 2, 256, 64, 128, 0.1, "L 256, N 128"),
+    (2, 1, 64, 80, 128, 8.0, "L 64, P 80, N 128, steep decay"),
+    (1, 2, 100, 17, 64, 0.1, "L 100, P 17, N 64"),
+]
+# 22b: one train step of each family's SMOKE config in f32, card against
+# CPU from the same parameters and batch
+TRAIN_SMOKE = ("repro-100m", "granite-moe-1b-a400m", "mamba2-1.3b", "zamba2-2.7b",
+               "musicgen-large", "internvl2-76b")
+TRAIN_SMOKE_B, TRAIN_SMOKE_S, TRAIN_SMOKE_LR = 2, 64, 1e-3
+# the limits of 22b, each a fraction of the CPU's value: f32 on both
+# devices, the card's kernels summing in other orders than the CPU's plain
+# versions (kernel 7 in 3xTF32); the loss 1e-5, the grad norm 1e-4, each
+# updated first moment (0.1 x the clipped gradient) 1e-3 of its max|CPU|.
+# The first AdamW step moves each entry by lr x m/sqrt(v) = lr x sign(g),
+# so a gradient entry near zero whose sign differs between the devices
+# moves its parameter 2 lr apart: the parameters are held to that.
+TRAIN_SMOKE_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "mu": 1e-3}
+# 22c: Zamba2-2.7B at full width, cut from the reference's train_4k shape
+# (global batch 256 x 4,096 tokens) to 2 x 4,096 tokens, 4 steps
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 4
+TRAIN_GATED_STEP = 1  # the step whose backward kernels run beside their plain versions
+LOSS0_BAND = 0.10  # the step-0 loss within 10% of ln(vocab): random weights
+# 22d: repro-100m through ``python -m repro_torch.train``'s code path
+R100_STEPS, R100_CKPT_EVERY, R100_KILL = 300, 50, 160
+# 22d: the resumed run's losses against the uninterrupted run's, relative.
+# Bits are not the bar: the embedding's backward (``index_put_`` with
+# accumulate) may sum in another order on another run. Measured: the same
+# losses to the bit over steps 150-299 on one H100 at 700 W (PERF.md, phase
+# 22d); 1e-3 leaves room for such sums and no more.
+R100_RESUME_LOSS_TOL = 1e-3
+
+
+def all_wrappers() -> dict:
+    """:func:`wrappers` and the two backward kernels' wrappers."""
+    from repro_torch.kernels import flash_attention, ssd_scan
+
+    return {**wrappers(), "flash_attention_bwd": flash_attention.flash_attention_bwd,
+            "ssd_chunk_bwd": ssd_scan.ssd_chunk_bwd}
+
+
+def reset_all_launches() -> None:
+    reset_launches()
+    for fn in all_wrappers().values():
+        fn.launches = 0
+
+
+def read_all_launches() -> dict:
+    return {name: fn.launches for name, fn in all_wrappers().items()}
+
+
+def judge(name: str, got, want, n_terms: int):
+    """``against_plain`` of one gradient, its rule by its dtype: bf16 outputs
+    BF16_OUT_TOL, f32 outputs the fp32 rule over ``n_terms``; returns (the
+    max abs error, its share of the limit) and fails at once outside it."""
+    prec = "bf16" if got.dtype == torch.bfloat16 else "fp32"
+    err, limit, _, _, ok = against_plain(got.float(), want.float(), prec, n_terms)
+    check(ok and got.dtype == want.dtype,
+          f"{name} [{prec}]: max_abs_err {err:.3e} > {limit:.3e} ({got.dtype}, {want.dtype})")
+    return err, err / limit
+
+
+def worse(acc: dict, name: str, judged) -> None:
+    """Fold one :func:`judge` result into ``acc[name]``'s worst error and
+    worst share of a limit."""
+    err, ratio = judged
+    row = acc.setdefault(name, {"max_abs_err": 0.0, "worst_over_limit": 0.0})
+    row["max_abs_err"] = max(row["max_abs_err"], err)
+    row["worst_over_limit"] = max(row["worst_over_limit"], ratio)
+
+
+def flash_bwd_terms(q, k) -> dict:
+    """The most terms summed into one output of each gradient: dq sums T
+    keys' dS k, dk and dv the G S query rows of their kv head, each term
+    from a D-term product."""
+    g = q.shape[1] // k.shape[1]
+    return {"dq": k.shape[2] * q.shape[3], "dk": g * q.shape[2] * q.shape[3],
+            "dv": g * q.shape[2] * q.shape[3]}
+
+
+def ssd_bwd_terms(x, bm) -> dict:
+    l_, p_, n_ = x.shape[2], x.shape[3], bm.shape[3]
+    w = l_ * max(n_, p_)
+    return {"dx": w, "da": l_ * (n_ + p_), "db": w, "dc": w}
+
+
+def gated_backward(fn):
+    """``fn()`` with ``flash_attention_bwd`` and ``ssd_chunk_bwd`` wrapped
+    where the autograd Functions look them up: each call launches the
+    kernel, runs the plain version on the same inputs, holds every gradient
+    to its rule (:func:`judge`) and passes the kernel's own gradients on;
+    the first call's inputs are kept (cloned, strides included). Returns
+    (fn's result, the calls and worst share of a limit by kernel, the kept
+    inputs)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan
+
+    orig_fa, orig_ssd = fa.flash_attention_bwd, ssd_scan.ssd_chunk_bwd
+    report = {n: {"calls": 0, "max_abs_err": 0.0, "worst_over_limit": 0.0}
+              for n in ("flash_attention_bwd", "ssd_chunk_bwd")}
+    kept = {}
+
+    def note(name, judged, args):
+        report[name]["calls"] += 1
+        for j in judged:
+            worse(report, name, j)
+        kept.setdefault(name, [a.clone() if isinstance(a, torch.Tensor) else a for a in args])
+
+    def attn(q, k, v, out, lse, dout, causal=True, scale=None):
+        got = orig_fa(q, k, v, out, lse, dout, causal, scale)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal, scale)
+        terms = flash_bwd_terms(q, k)
+        layer = report["flash_attention_bwd"]["calls"]
+        judged = [judge(f"flash_attention_bwd call {layer} {n}", g, w, terms[n])
+                  for n, g, w in zip(("dq", "dk", "dv"), got, want)]
+        del want
+        note("flash_attention_bwd", judged, (q, k, v, out, lse, dout, causal, scale))
+        return got
+
+    def ssd(x, a, b, c, dy, ds):
+        got = orig_ssd(x, a, b, c, dy, ds)
+        want = ssd_scan.ssd_chunk_bwd_plain(x, a, b, c, dy, ds)
+        terms = ssd_bwd_terms(x, b)
+        layer = report["ssd_chunk_bwd"]["calls"]
+        judged = [judge(f"ssd_chunk_bwd call {layer} {n}", g, w, terms[n])
+                  for n, g, w in zip(("dx", "da", "db", "dc"), got, want)]
+        del want
+        note("ssd_chunk_bwd", judged, (x, a, b, c, dy, ds))
+        return got
+
+    fa.flash_attention_bwd, ssd_scan.ssd_chunk_bwd = attn, ssd
+    try:
+        out = fn()
+    finally:
+        fa.flash_attention_bwd, ssd_scan.ssd_chunk_bwd = orig_fa, orig_ssd
+    return out, report, kept
+
+
+def same_bits_twice(fn) -> bool:
+    first = synced(fn())
+    again = synced(fn())
+    return all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def phase22a_bwd_kernels(dev) -> dict:
+    """Each backward kernel against its plain version at odd shapes, and the
+    same bits from two calls; kernel 6's forward log-sum-exp against the
+    plain version's."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    worst = {}
+    for b, s, t, h, kvh, d, causal, label in FLASH_BWD_CASES:
+        qm, km, vm, dom = randn(b, s, h, d), randn(b, t, kvh, d), randn(b, t, kvh, d), \
+            randn(b, s, h, d)
+        for dtype in (torch.float32, torch.bfloat16):
+            # the model's layout: (b, s, heads, hd) read through (b, heads, s, hd) views
+            q, k, v, do = (x.to(dtype).transpose(1, 2) for x in (qm, km, vm, dom))
+            tag = f"{label} {(b, h, kvh, s, t, d)} {str(dtype)[6:]}"
+            out, lse = synced(fa._forward(q, k, v, causal, None, want_lse=True))
+            _, lse_want = fa.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+            compare(f"flash_attention lse {tag}", "fp32", lse, lse_want, t * d)
+            run = partial(fa.flash_attention_bwd, q, k, v, out, lse, do, causal)
+            got = synced(run())
+            want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+            terms = flash_bwd_terms(q, k)
+            for n, gg, w in zip(("dq", "dk", "dv"), got, want):
+                # the kernel writes each gradient in its operand's layout
+                like = {"dq": q, "dk": k, "dv": v}[n]
+                check(gg.dtype == dtype and (not gg.is_cuda or gg.stride() == like.stride()),
+                      f"flash_attention_bwd {tag} {n}: {gg.dtype} {gg.stride()}")
+                worse(worst, "flash_attention_bwd",
+                      judge(f"flash_attention_bwd {tag} {n}", gg, w, terms[n]))
+            check(same_bits_twice(run), f"flash_attention_bwd {tag}: two calls differ")
+    for bh, c, n_l, p, n, rate, label in SSD_BWD_CASES:
+        x, bm, cm = randn(bh, c, n_l, p), randn(bh, c, n_l, n), randn(bh, c, n_l, n)
+        acs = torch.cumsum(-rate * randn(bh, c, n_l).abs(), dim=-1)
+        dy, ds = randn(bh, c, n_l, p), randn(bh, c, n, p)
+        for dtype in (torch.bfloat16, torch.float32):
+            b_, c_ = bm.to(dtype), cm.to(dtype)
+            tag = f"{label} {(bh, c, n_l, p, n)} B, C {str(dtype)[6:]}"
+            run = partial(ssd_scan.ssd_chunk_bwd, x, acs, b_, c_, dy, ds)
+            got = synced(run())
+            want = ssd_scan.ssd_chunk_bwd_plain(x, acs, b_, c_, dy, ds)
+            terms = ssd_bwd_terms(x, b_)
+            for name, gg, w in zip(("dx", "da", "db", "dc"), got, want):
+                worse(worst, "ssd_chunk_bwd",
+                      judge(f"ssd_chunk_bwd {tag} {name}", gg, w, terms[name]))
+            check(same_bits_twice(run), f"ssd_chunk_bwd {tag}: two calls differ")
+    log(f"  22a: both backward kernels within their rules at {len(FLASH_BWD_CASES) * 2} and "
+        f"{len(SSD_BWD_CASES) * 2} odd cases, the same bits twice; worst share of a limit "
+        + json.dumps(worst))
+    return worst
+
+
+def train_batch(cfg, shape, step: int, dev, seed: int = 1234) -> dict:
+    from repro_torch.data.pipeline import DataConfig, batch_for_step
+
+    b = batch_for_step(cfg, shape, DataConfig(seed=seed), step, embeds=cfg.frontend != "none")
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def smoke_train_launches(cfg) -> dict:
+    """The kernels one train step of ``cfg`` launches under remat "full": each
+    forward kernel twice (the forward and its recompute), each backward
+    kernel once, per attention or SSD layer."""
+    from repro_torch.models.model import ATTENTION_FAMILIES
+
+    check(cfg.remat == "full", f"{cfg.name}: remat {cfg.remat!r}, want the default 'full'")
+    n_sb = cfg.n_layers // cfg.hybrid_period
+    attn = {"hybrid": n_sb, "ssm": 0}.get(cfg.family, cfg.n_layers)
+    ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    check(cfg.family in ATTENTION_FAMILIES or ssd, f"{cfg.name}: family {cfg.family}")
+    out = {"flash_attention": 2 * attn, "flash_attention_bwd": attn, "ssd_chunk": 2 * ssd,
+           "ssd_chunk_bwd": ssd}
+    return {k: v for k, v in out.items() if v}
+
+
+def phase22b_smoke_card_vs_cpu(dev) -> dict:
+    """One train step of each family's SMOKE config in f32 on the card and on
+    the CPU, from the same parameters and batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+
+    shape = ShapeConfig("smoke", TRAIN_SMOKE_S, TRAIN_SMOKE_B, "train")
+    out = {}
+    for arch in TRAIN_SMOKE:
+        cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+        opt_cfg = adamw.AdamWConfig(lr=TRAIN_SMOKE_LR, warmup_steps=0, total_steps=10)
+        step = make_train_step(cfg, opt_cfg)
+        params = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        res = {}
+        for where in ("cpu", "cuda"):
+            d = torch.device("cpu") if where == "cpu" else dev
+            p = tree_to(params, d)
+            reset_all_launches()
+            new_p, opt, m = step(p, adamw.init(p), train_batch(cfg, shape, 0, d))
+            res[where] = (tree_to(new_p, "cpu"), tree_to(opt.mu, "cpu"),
+                          {k: float(v) for k, v in m.items()})
+            if where == "cuda":
+                got = {k: v for k, v in read_all_launches().items() if v}
+                check(got == smoke_train_launches(cfg),
+                      f"22b {arch}: the card's step launched {got}, want "
+                      f"{smoke_train_launches(cfg)}")
+        (p_cpu, mu_cpu, m_cpu), (p_card, mu_card, m_card) = res["cpu"], res["cuda"]
+        row = {k: abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k]) for k in ("loss", "grad_norm")}
+        for k in ("loss", "grad_norm"):
+            check(math.isfinite(m_card[k]) and row[k] <= TRAIN_SMOKE_TOL[k],
+                  f"22b {arch}: {k} card {m_card[k]} against CPU {m_cpu[k]}")
+        row["mu"] = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                        for a, b in zip(adamw.leaves(mu_card), adamw.leaves(mu_cpu)))
+        check(row["mu"] <= TRAIN_SMOKE_TOL["mu"], f"22b {arch}: first moments {row['mu']}")
+        lr = m_cpu["lr"]
+        row["param_moved_over_2lr"] = max(
+            float((a - b).abs().max()) / (2 * lr + 1e-6 * float(b.abs().max()))
+            for a, b in zip(adamw.leaves(p_card), adamw.leaves(p_cpu)))
+        check(row["param_moved_over_2lr"] <= 1.0 + 1e-3, f"22b {arch}: parameters {row}")
+        log(f"  22b {arch} SMOKE f32, one train step: card against CPU {json.dumps(row)}")
+        out[arch] = row
+    return out
+
+
+def sdpa_bwd_ms(q, k, v, dout, causal: bool) -> float:
+    """Milliseconds of SDPA's backward (``torch.autograd.grad`` of
+    ``F.scaled_dot_product_attention`` with ``enable_gqa``) on the same
+    operands: the library call beside kernel 6's backward."""
+    qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qq, kk, vv, is_causal=causal,
+                                                           enable_gqa=True)
+    return time_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), dout, retain_graph=True))
+
+
+def flash_bwd_row(args, label: str) -> dict:
+    """Kernel 6's backward on ``args`` (q, k, v, out, lse, dout, causal,
+    scale): its ms, the plain version's, SDPA backward's and the bound (five
+    products over the causal half at the bf16 rate, or the bytes)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    q, k, v, out, lse, dout, causal, scale = args
+    kern = partial(fa.flash_attention_bwd, q, k, v, out, lse, dout, causal, scale)
+    plain = partial(fa.flash_attention_bwd_plain, q, k, v, out, lse, dout, causal, scale)
+    b_, h_, s_, d_ = q.shape
+    t_ = k.shape[2]
+    seen = sum(min(t_, i + 1 + t_ - s_) for i in range(s_)) if causal else s_ * t_
+    flops = 5 * 2 * b_ * h_ * d_ * seen
+    nbytes = nbytes_of(q, k, v, out, lse, dout, q, k, v)
+    t_b, t_o = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    row = {"shape": [b_, h_, s_, d_], "kv_heads": int(k.shape[1]), "dtype": str(q.dtype),
+           "ms": time_ms(kern), "plain_ms": time_ms(plain, reps=3),
+           "library_ms": sdpa_bwd_ms(q, k, v, dout, causal),
+           "bound_ms": max(t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o else "operations",
+           "f32_core_bound_ms": flops / PEAK_F32_FLOPS * 1e3, "flops": flops, "bytes": nbytes}
+    log(f"    flash_attention_bwd {label}: {json.dumps(row)}")
+    return row
+
+
+def ssd_bwd_row(args, label: str) -> dict:
+    """Kernel 7's backward on ``args`` (x, a, b, c, dy, ds): its ms, the
+    plain version's and the bound (C B^T on bf16 operands at the bf16 rate,
+    the f32 products as three TF32 products each, or the bytes)."""
+    from repro_torch.kernels import ssd_scan
+
+    x, a, bm, cm, dy, ds = args
+    kern = partial(ssd_scan.ssd_chunk_bwd, *args)
+    plain = partial(ssd_scan.ssd_chunk_bwd_plain, *args)
+    bh_, c_, l_, p_ = x.shape
+    n_ = bm.shape[-1]
+    tri = bh_ * c_ * l_ * (l_ + 1) // 2
+    # G = C B^T; dy x^T; M^T dy; dG B; dG^T C; and the state's B dS, x dS^T
+    score = tri * 2 * n_
+    rest = tri * 2 * (p_ + p_ + n_ + n_) + bh_ * c_ * 2 * 2 * l_ * n_ * p_
+    nbytes = nbytes_of(x, a, bm, cm, dy, ds, x, a, bm, cm)
+    t_b = nbytes / PEAK_BYTES_PER_S
+    score_rate = PEAK_BF16_FLOPS if bm.dtype == torch.bfloat16 else PEAK_TF32_FLOPS / 3
+    t_o = score / score_rate + 3 * rest / PEAK_TF32_FLOPS
+    row = {"shape": [bh_, c_, l_, p_, n_], "b_c_dtype": str(bm.dtype), "ms": time_ms(kern),
+           "plain_ms": time_ms(plain, reps=3), "library_ms": None,
+           "bound_ms": max(t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o else "operations",
+           "f32_core_bound_ms": bound(nbytes, score + rest)[0], "flops": score + rest,
+           "bytes": nbytes}
+    log(f"    ssd_chunk_bwd {label}: {json.dumps(row)}")
+    return row
+
+
+def phase22c_zamba2(dev, card: str) -> dict:
+    """Zamba2-2.7B as registered, trained by ``Trainer`` for TRAIN_STEPS steps
+    of TRAIN_B x TRAIN_S tokens (remat "full", no checkpoint directory); step
+    TRAIN_GATED_STEP under :func:`gated_backward`."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import flops as flops_lib
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("zamba2-2.7b")
+    check(cfg.remat == "full", f"zamba2-2.7b's remat is {cfg.remat!r}, want the default 'full'")
+    n_sb = cfg.n_layers // cfg.hybrid_period
+    shape = ShapeConfig("train_4k_cut", TRAIN_S, TRAIN_B, "train")
+    tcfg = TrainerConfig(total_steps=TRAIN_STEPS, log_every=1,
+                         opt=adamw.AdamWConfig(warmup_steps=2, total_steps=TRAIN_STEPS))
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, shape, tcfg, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in adamw.leaves(trainer.params))
+    log(f"  22c: {cfg.name} ({n_params / 1e9:.3f} B parameters, {n_sb} shared-attention calls, "
+        f"{cfg.n_layers} Mamba-2 layers), {TRAIN_STEPS} steps of {TRAIN_B} x {TRAIN_S} tokens, "
+        f"remat {cfg.remat}; state on the card in {t_init:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    watched = {"embed": lambda p: p["embed"]["table"][:64],
+               "lm_head": lambda p: p["lm_head"]["w"],
+               "mamba wx": lambda p: p["layers"]["wx"][0, 0],
+               "shared wq": lambda p: p["shared"]["wq"], "a_log": lambda p: p["layers"]["a_log"]}
+    before = {k: f(trainer.params).clone() for k, f in watched.items()}
+
+    step_fn, calls, gate = trainer.step_fn, [0], {}
+
+    def step_with_gate(*args):
+        i = calls[0]
+        calls[0] += 1
+        if i != TRAIN_GATED_STEP:
+            return step_fn(*args)
+        out, gate["report"], gate["kept"] = gated_backward(lambda: step_fn(*args))
+        return out
+
+    trainer.step_fn = step_with_gate
+    # the main path: every count starts at 0 here and is read right after
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    hist = trainer.run()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = read_all_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {k: 0 for k in launches}
+    want.update({"flash_attention": 2 * n_sb * TRAIN_STEPS,
+                 "flash_attention_bwd": n_sb * TRAIN_STEPS,
+                 "ssd_chunk": 2 * cfg.n_layers * TRAIN_STEPS,
+                 "ssd_chunk_bwd": cfg.n_layers * TRAIN_STEPS})
+    log(f"  22c: {TRAIN_STEPS} steps in {t_run:.1f} s, launches {launches}, peak {peak_gb:.2f} GB")
+    check(launches == want, f"22c launches {launches}, want {want} (remat 'full': each forward "
+          f"kernel twice a step)")
+    rep = gate["report"]
+    check(rep["flash_attention_bwd"]["calls"] == n_sb
+          and rep["ssd_chunk_bwd"]["calls"] == cfg.n_layers,
+          f"22c: the gated step made {rep} backward calls, want {n_sb} and {cfg.n_layers}")
+    losses = [h["loss"] for h in hist]
+    ln_v = math.log(cfg.vocab_size)
+    check(abs(losses[0] - ln_v) <= LOSS0_BAND * ln_v,
+          f"22c: step-0 loss {losses[0]:.4f}, want within {LOSS0_BAND:.0%} of ln({cfg.vocab_size}) "
+          f"= {ln_v:.4f}")
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]) for h in hist),
+          f"22c: non-finite loss or grad norm in {hist}")
+    moved = {k: float((f(trainer.params).float() - before[k].float()).abs().max())
+             for k, f in watched.items()}
+    check(all(v > 0 for v in moved.values()), f"22c: parameters did not move: {moved}")
+    del before
+    warm = [h["step_time_s"] for i, h in enumerate(hist) if i > TRAIN_GATED_STEP]
+    step_s = sorted(warm)[len(warm) // 2]
+    cost = flops_lib.cell_cost(cfg, shape)
+    # the backward kernels again on the gated step's first inputs: two calls'
+    # bits, their times and the library call's
+    kept = gate.pop("kept")
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan
+    fa_args, ssd_args = kept["flash_attention_bwd"], kept["ssd_chunk_bwd"]
+    check(same_bits_twice(partial(fa.flash_attention_bwd, *fa_args)),
+          "22c: flash_attention_bwd differs between two calls at the path's shape")
+    check(same_bits_twice(partial(ssd_scan.ssd_chunk_bwd, *ssd_args)),
+          "22c: ssd_chunk_bwd differs between two calls at the path's shape")
+    fa_row = flash_bwd_row(fa_args, "Zamba2-2.7B training, layer 0")
+    ssd_row = ssd_bwd_row(ssd_args, "Zamba2-2.7B training, layer 0")
+    # the forward kernels at the same shapes, without and with the LSE
+    q, k, v = fa_args[:3]
+    fwd_ms = {"no_lse": time_ms(partial(fa._forward, q, k, v, True, None, False)),
+              "lse": time_ms(partial(fa._forward, q, k, v, True, None, True))}
+    del kept, fa_args, ssd_args, q, k, v
+    # one more step under the profiler: the device's busy share and each
+    # kernel's device time
+    batch = train_batch(cfg, shape, TRAIN_STEPS, dev)
+    holder = {}
+
+    def one_step():
+        holder["out"] = step_fn(trainer.params, trainer.opt_state, batch)
+        float(holder["out"][2]["loss"])
+
+    prof = profile_run(one_step)
+    trainer.params, trainer.opt_state, _ = holder.pop("out")
+    kms = prof["kernel_ms"]
+    summary = {
+        "phase": "22c Zamba2-2.7B training", "card": card, "config": cfg.name, "params": n_params,
+        "batch": TRAIN_B, "seq": TRAIN_S, "steps": TRAIN_STEPS, "remat": cfg.remat,
+        "cut_from": "train_4k (global batch 256 x 4,096 tokens): batch 2, 4 steps",
+        "init_s": t_init, "run_s": t_run, "losses": losses,
+        "grad_norms": [h["grad_norm"] for h in hist], "step_s": [h["step_time_s"] for h in hist],
+        "ms_per_step": step_s * 1e3, "tokens_per_s": TRAIN_B * TRAIN_S / step_s,
+        "peak_memory_gb": peak_gb, "launches": {k: v for k, v in launches.items() if v},
+        "gated_step": rep, "params_moved": moved,
+        "executed_flops": cost.flops, "useful_flops": cost.model_flops,
+        "executed_share_of_bf16_peak": cost.flops / step_s / PEAK_BF16_FLOPS,
+        "useful_share_of_bf16_peak": cost.model_flops / step_s / PEAK_BF16_FLOPS,
+        "device_busy_share": prof["busy_share"], "profiled_step_ms": prof["wall_ms"],
+        "kernel_device_ms_per_step": kms, "forward_attention_ms": fwd_ms,
+        "flash_attention_bwd": fa_row, "ssd_chunk_bwd": ssd_row,
+        "profile_top": prof["top"],
+    }
+    print(json.dumps(summary), flush=True)
+    return {
+        "flash_attention_bwd": {
+            "name": "flash_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:78",
+            "launches": launches["flash_attention_bwd"],
+            "max_abs_err": rep["flash_attention_bwd"]["max_abs_err"], "ms": fa_row["ms"],
+            "plain_ms": fa_row["plain_ms"],
+            "device_ms": kms["flash_attention_bwd"] / n_sb, "bound_ms": fa_row["bound_ms"],
+            "bound_by": fa_row["bound_by"], "library_ms": fa_row["library_ms"],
+            "worst_over_limit": rep["flash_attention_bwd"]["worst_over_limit"]},
+        "ssd_chunk_bwd": {
+            "name": "ssd_chunk_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:48",
+            "launches": launches["ssd_chunk_bwd"],
+            "max_abs_err": rep["ssd_chunk_bwd"]["max_abs_err"], "ms": ssd_row["ms"],
+            "plain_ms": ssd_row["plain_ms"],
+            "device_ms": kms["ssd_chunk_bwd"] / cfg.n_layers, "bound_ms": ssd_row["bound_ms"],
+            "bound_by": ssd_row["bound_by"],
+            # no single PyTorch call computes the masked-decay block's VJP
+            "library_ms": None,
+            "worst_over_limit": rep["ssd_chunk_bwd"]["worst_over_limit"]},
+    }
+
+
+def phase22d_repro100m(dev, card: str, tmp: str) -> dict:
+    """repro-100m at full width through ``python -m repro_torch.train``'s code
+    path: R100_STEPS steps of 8 x 128 with the example's optimizer settings
+    and a checkpoint every R100_CKPT_EVERY; then a run killed at step
+    R100_KILL, restarted from its latest checkpoint."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.fault_tolerance import FailureInjector
+    from repro_torch.train import __main__ as train_main
+
+    def args(name):
+        return train_main.parse_args(["--steps", str(R100_STEPS), "--full-100m", "--batch", "8",
+                                      "--seq", "128", "--ckpt-dir", os.path.join(tmp, name),
+                                      "--device", str(dev)])
+
+    a = train_main.make_trainer(args("a"))
+    check(a.tcfg.ft.checkpoint_every == R100_CKPT_EVERY and a.start_step == 0,
+          f"22d: checkpoint every {a.tcfg.ft.checkpoint_every}, start {a.start_step}")
+    t0 = time.perf_counter()
+    hist_a = a.run()
+    torch.cuda.synchronize()
+    t_a = time.perf_counter() - t0
+    line = train_main.loss_line(hist_a)
+    log(f"  22d: {a.cfg.name}, {R100_STEPS} steps in {t_a:.1f} s: {line}")
+    first = sum(h["loss"] for h in hist_a[:10]) / 10
+    last = sum(h["loss"] for h in hist_a[-10:]) / 10
+    check(last < first, f"22d: the loss did not fall: {line}")
+
+    class Killed(Exception):
+        pass
+
+    b1 = train_main.make_trainer(args("b"), FailureInjector(fail_at=[R100_KILL], exc=Killed))
+    try:
+        b1.run()
+    except Killed:
+        pass
+    else:
+        check(False, "22d: the injected kill did not stop the run")
+    del b1
+    kill_step = R100_KILL // R100_CKPT_EVERY * R100_CKPT_EVERY
+    b2 = train_main.make_trainer(args("b"))
+    check(b2.start_step == kill_step, f"22d: resumed at {b2.start_step}, want {kill_step}")
+    like = (b2.params, b2.opt_state)
+    (ck_p, ck_o), step, _ = CheckpointManager(os.path.join(tmp, "b")).restore(like, kill_step,
+                                                                               device=dev)
+    restored = adamw.leaves(b2.params) + [t for part in b2.opt_state[:3]
+                                          for t in adamw.leaves(part)] + [b2.opt_state.count]
+    stored = (adamw.leaves(ck_p) + [t for part in ck_o[:3] for t in adamw.leaves(part)]
+              + [ck_o.count])
+    same = len(restored) == len(stored) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(restored, stored))
+    check(same and int(b2.opt_state.count) == kill_step,
+          f"22d: the restored state is not the step-{kill_step} checkpoint bit for bit")
+    del ck_p, ck_o, stored, restored
+    t0 = time.perf_counter()
+    hist_b = b2.run()
+    t_b = time.perf_counter() - t0
+    check([h["step"] for h in hist_b] == list(range(kill_step, R100_STEPS)),
+          f"22d: the resumed run took steps {hist_b[0]['step']}..{hist_b[-1]['step']}")
+    gaps = [abs(hb["loss"] - ha["loss"]) / ha["loss"]
+            for hb, ha in zip(hist_b, hist_a[kill_step:])]
+    out = {"steps": R100_STEPS, "run_s": t_a, "resumed_run_s": t_b,
+           "first10": first, "last10": last, "loss_line": line,
+           "ms_per_step": 1e3 * sorted(h["step_time_s"] for h in hist_a)[R100_STEPS // 2],
+           "resumed_at": b2.start_step, "restored_bits_equal": same,
+           "resumed_loss_rel_gap_max": max(gaps), "resumed_loss_rel_gap_last": gaps[-1],
+           "resumed_final_loss": hist_b[-1]["loss"], "final_loss": hist_a[-1]["loss"]}
+    log(f"  22d: resumed at {b2.start_step} (the restored state is the checkpoint's bits), "
+        f"{len(hist_b)} steps in {t_b:.1f} s; later losses against the uninterrupted run's: "
+        f"max relative gap {max(gaps):.3e}, last {gaps[-1]:.3e}")
+    check(max(gaps) <= R100_RESUME_LOSS_TOL,
+          f"22d: resumed losses {max(gaps):.3e} from the uninterrupted run's, over "
+          f"{R100_RESUME_LOSS_TOL}")
+    return out
+
+
+def phase22_training(dev, card: str) -> dict:
+    """22a the backward kernels at odd shapes, 22b card against CPU at SMOKE
+    size for every family, 22c Zamba2-2.7B trained at full width (the main
+    path), 22d repro-100m through ``python -m repro_torch.train`` with a
+    kill and a resume. Runs on an emptied card; returns the kernels' rows."""
+    import tempfile
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"phase 22: training (the card holds {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"before it)")
+    secs = {}
+    t0 = time.perf_counter()
+    worst = phase22a_bwd_kernels(dev)
+    secs["22a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    smoke = phase22b_smoke_card_vs_cpu(dev)
+    secs["22b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = phase22c_zamba2(dev, card)
+    secs["22c"] = time.perf_counter() - t0
+    release_memory()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        r100 = phase22d_repro100m(dev, card, tmp)
+    secs["22d"] = time.perf_counter() - t0
+    # kernel 6's backward at repro-100m's shape (b 8, 12 heads over 4, 128, 64)
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v, do = (torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+                   .transpose(1, 2) for shape in ((8, 128, 12, 64), (8, 128, 4, 64),
+                                                  (8, 128, 4, 64), (8, 128, 12, 64)))
+    out, lse = fa._forward(q, k, v, True, None, want_lse=True)
+    r100["flash_attention_bwd"] = flash_bwd_row((q, k, v, out, lse, do, True, None),
+                                                "repro-100m training shape")
+    for name, row in rows.items():
+        row["worst_over_limit_22a"] = worst[name]["worst_over_limit"]
+    print(json.dumps({"phase": "22 training", "card": card, "seconds": secs,
+                      "smoke_card_vs_cpu": smoke, "repro_100m": r100,
+                      "bwd_worst_over_limit_22a": worst}), flush=True)
+    return rows
+
 
 if __name__ == "__main__":
     try:

@@ -9,9 +9,10 @@ checkpoint written by either package restores in the other:
                        "extra"}
     shard_00000.npz   the leaves under keys leaf_00000, leaf_00001, ...
 
-Leaf names are the reference's: a tree of dicts (keys sorted), lists and
-tuples flattened depth first, the keys and indices on the path joined by
-"/" ("factors/0"). A bfloat16 leaf is stored as its uint16 bits with the
+Leaf names are the reference's: a tree of dicts (keys sorted), lists,
+tuples and ``NamedTuple``s flattened depth first, the keys, indices and
+field names on the path joined by "/" ("factors/0", "1/master/embed/table"
+for the ``(params, OptState)`` of a trainer). A bfloat16 leaf is stored as its uint16 bits with the
 logical dtype "bfloat16" (npz has no bfloat16). A save goes to
 ``step_X.tmp`` and is renamed into place, so a reader never sees half a
 step; a manager sweeps the stale ``.tmp`` directories a crashed save left,
@@ -38,13 +39,21 @@ def _is_spec(x: Any) -> bool:
             and isinstance(x[0], (tuple, list, torch.Size)))
 
 
+def _is_namedtuple(x: Any) -> bool:
+    return isinstance(x, tuple) and hasattr(type(x), "_fields")
+
+
 def _flatten_with_names(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
     """(name, leaf) pairs of ``tree`` in the reference's order: dict keys
-    sorted, sequence items in order, ``None`` holding no leaf."""
+    sorted, sequence items in order, a ``NamedTuple``'s fields in order
+    under their names (as ``jax.tree_util`` names them), ``None`` holding
+    no leaf."""
     if tree is None:
         return []
     if isinstance(tree, dict):
         items = [(str(k), tree[k]) for k in sorted(tree)]
+    elif _is_namedtuple(tree):
+        items = list(zip(type(tree)._fields, tree))
     elif isinstance(tree, (list, tuple)) and not _is_spec(tree):
         items = [(str(i), v) for i, v in enumerate(tree)]
     else:
@@ -65,6 +74,8 @@ def _unflatten(like: Any, leaves: List[Any]) -> Any:
         return {k: rebuilt[k] for k in like}
     if isinstance(like, (list, tuple)) and not _is_spec(like):
         items = [_unflatten(v, leaves) for v in like]
+        if _is_namedtuple(like):  # its constructor takes the fields one by one
+            return type(like)(*items)
         return type(like)(items) if isinstance(like, tuple) else items
     return leaves.pop(0)
 

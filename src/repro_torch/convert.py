@@ -16,6 +16,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.coo import SparseCOO
 from repro_torch.models.mamba2 import SsmState
 from repro_torch.models.model import leaf_dtype, param_defs
+from repro_torch.optim.adamw import OptState
 
 
 def coo_from_numpy(indices, values, shape: Sequence[int], device="cpu") -> SparseCOO:
@@ -63,6 +64,28 @@ def lm_params_from_numpy(tree, cfg: ModelConfig, device="cpu"):
         return t
 
     return walk(param_defs(cfg), tree, ())
+
+
+def opt_state_from_numpy(tree, cfg: ModelConfig, device="cpu") -> OptState:
+    """The port's :class:`OptState` from the reference's ``OptState`` as numpy
+    (``jax.tree_util.tree_map(np.asarray, opt_state)``): master, mu and nu
+    checked leaf by leaf against the schema's shapes, in f32, and the int32
+    count."""
+    master, mu, nu, count = tree
+
+    def walk(defs, node, path):
+        if isinstance(defs, dict):
+            return {k: walk(d, node[k], path + (k,)) for k, d in defs.items()}
+        t = tensor_from_numpy(node, device)
+        if tuple(t.shape) != defs.shape or t.dtype != torch.float32:
+            raise ValueError(f"{'/'.join(path)}: {tuple(t.shape)} {t.dtype}, want "
+                             f"{defs.shape} torch.float32")
+        return t
+
+    defs = param_defs(cfg)
+    return OptState(*(walk(defs, part, (name,)) for name, part in
+                      (("master", master), ("mu", mu), ("nu", nu))),
+                    count=tensor_from_numpy(np.asarray(count, np.int32), device))
 
 
 def lm_cache_from_numpy(cache: Any, device="cpu"):

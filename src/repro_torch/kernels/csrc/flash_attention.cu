@@ -27,7 +27,9 @@
 // scale. Unlike the TPU kernel, which rounds p to bf16 before p @ v on bf16
 // operands, p stays f32: the model's own attention (gqa_attention) widens
 // q, k and v to f32 and computes p @ v in f32, and this kernel serves that
-// call. The output is written in q's dtype.
+// call. The output is written in q's dtype. When asked (a non-null lse,
+// for the backward pass), the CTA also writes each row's log-sum-exp of
+// the scaled logits, ln 2 (m + log2 l) in f32, (B, H, S) contiguous.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -39,6 +41,7 @@ constexpr int kThreads = 256;  // 16 row groups x 16 key groups
 constexpr int kLd = 68;        // row stride of the transposed tiles: 16-byte aligned
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -58,8 +61,8 @@ template <typename T, int DC>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, Strides sq, const T* __restrict__ k,
                            Strides sk, const T* __restrict__ v, Strides sv, T* __restrict__ o,
-                           Strides so, int BH, int H, int G, int S, int T_len, int D, int causal,
-                           float scale_log2) {
+                           Strides so, float* __restrict__ lse, int BH, int H, int G, int S,
+                           int T_len, int D, int causal, float scale_log2) {
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;            // [D][kLd]: q tile, transposed
   float* ks = qs + D * kLd;    // [D][kLd]: k tile, transposed
@@ -175,6 +178,7 @@ __global__ void __launch_bounds__(kThreads)
     const int row = q0 + ty * 4 + r;
     if (row >= S) continue;
     const float lr = l[r] == 0.f ? 1.f : l[r];
+    if (lse != nullptr && tx == 0) lse[(long long)bh * S + row] = (m[r] + log2f(lr)) * kLn2;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       const int dc = tx + 16 * c;
@@ -185,8 +189,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int DC>
 int launch(const void* q, Strides sq, const void* k, Strides sk, const void* v, Strides sv, void* o,
-           Strides so, int B, int H, int KVH, int S, int T_len, int D, int causal, float scale,
-           cudaStream_t st) {
+           Strides so, float* lse, int B, int H, int KVH, int S, int T_len, int D, int causal,
+           float scale, cudaStream_t st) {
   auto kernel = flash_attention_kernel<T, DC>;
   const size_t smem = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -196,18 +200,19 @@ int launch(const void* q, Strides sq, const void* k, Strides sk, const void* v, 
   const long long n_ctas = BH * ((S + kBQ - 1) / kBQ);
   kernel<<<(unsigned)n_ctas, kThreads, smem, st>>>(
       static_cast<const T*>(q), sq, static_cast<const T*>(k), sk, static_cast<const T*>(v), sv,
-      static_cast<T*>(o), so, (int)BH, H, H / KVH, S, T_len, D, causal, scale * kLog2e);
+      static_cast<T*>(o), so, lse, (int)BH, H, H / KVH, S, T_len, D, causal, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(int dc, const void* q, Strides sq, const void* k, Strides sk, const void* v,
-             Strides sv, void* o, Strides so, int B, int H, int KVH, int S, int T_len, int D,
-             int causal, float scale, cudaStream_t st) {
+             Strides sv, void* o, Strides so, float* lse, int B, int H, int KVH, int S, int T_len,
+             int D, int causal, float scale, cudaStream_t st) {
   switch (dc) {
 #define FA_CASE(N) \
   case N:          \
-    return launch<T, N>(q, sq, k, sk, v, sv, o, so, B, H, KVH, S, T_len, D, causal, scale, st);
+    return launch<T, N>(q, sq, k, sk, v, sv, o, so, lse, B, H, KVH, S, T_len, D, causal, scale, \
+                        st);
     FA_CASE(1) FA_CASE(2) FA_CASE(3) FA_CASE(4) FA_CASE(5) FA_CASE(6) FA_CASE(7) FA_CASE(8)
 #undef FA_CASE
   }
@@ -220,13 +225,14 @@ int dispatch(int dc, const void* q, Strides sq, const void* k, Strides sk, const
 // for q (B, H, S, D) and k, v (B, KVH, T, D), H a multiple of KVH; every
 // tensor is addressed through its batch, head and sequence element strides
 // and a unit-stride last axis. f32 (bf16 = 0) or bf16 (bf16 = 1) operands,
-// the output in the same dtype. Returns cudaGetLastError() after the launch.
+// the output in the same dtype; lse, when not null, takes each row's
+// log-sum-exp (B, H, S) f32. Returns cudaGetLastError() after the launch.
 extern "C" int flash_attention_launch(const void* q, long long sqb, long long sqh, long long sqs,
                                       const void* k, long long skb, long long skh, long long sks,
                                       const void* v, long long svb, long long svh, long long svs,
                                       void* o, long long sob, long long soh, long long sos, int B,
                                       int H, int KVH, int S, int T_len, int D, int causal,
-                                      float scale, int bf16, void* stream) {
+                                      float scale, int bf16, float* lse, void* stream) {
   if (B < 1 || KVH < 1 || H < KVH || H % KVH || S < 1 || T_len < 1 || D < 1 || D > 128 ||
       (causal && T_len < S) || (long long)B * H * ((S + kBQ - 1) / kBQ) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -234,8 +240,8 @@ extern "C" int flash_attention_launch(const void* q, long long sqb, long long sq
   const int dc = (D + 15) / 16;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return dispatch<__nv_bfloat16>(dc, q, sq, k, sk, v, sv, o, so, B, H, KVH, S, T_len, D, causal,
-                                   scale, st);
-  return dispatch<float>(dc, q, sq, k, sk, v, sv, o, so, B, H, KVH, S, T_len, D, causal, scale,
-                         st);
+    return dispatch<__nv_bfloat16>(dc, q, sq, k, sk, v, sv, o, so, lse, B, H, KVH, S, T_len, D,
+                                   causal, scale, st);
+  return dispatch<float>(dc, q, sq, k, sk, v, sv, o, so, lse, B, H, KVH, S, T_len, D, causal,
+                         scale, st);
 }

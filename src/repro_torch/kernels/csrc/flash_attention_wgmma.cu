@@ -43,7 +43,9 @@
 // read MN-major from shared memory. Only blocks on the causal diagonal or
 // the kv end are masked, blocks above the diagonal are never loaded, and a
 // warpgroup skips the last block when it lies wholly above its own rows.
-// The epilogue divides by l and writes bf16 in q's layout.
+// The epilogue divides by l and writes bf16 in q's layout, and, when asked
+// (a non-null lse, for the backward pass), each row's log-sum-exp of the
+// scaled logits, ln 2 (m + log2 l) in f32, (B, H, S) contiguous.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,6 +63,7 @@ constexpr int kThreads = kConsumers + 32;  // and one producer warp
 constexpr int kSlabBytes = 128;   // one swizzled row: 64 bf16 columns
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides {
   long long b, h, s;  // element strides of the batch, head and sequence axes
@@ -323,8 +326,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv, const __nv_bfloat16* __restrict__ q, Strides sq,
     const __nv_bfloat16* __restrict__ k, Strides sk, const __nv_bfloat16* __restrict__ v,
-    Strides sv, __nv_bfloat16* __restrict__ o, Strides so, int BH, int H, int G, int S,
-    int T_len, int D, int causal, float scale_log2, int use_tma, int pair_store) {
+    Strides sv, __nv_bfloat16* __restrict__ o, Strides so, float* __restrict__ lse, int BH, int H,
+    int G, int S, int T_len, int D, int causal, float scale_log2, int use_tma, int pair_store) {
   constexpr int NS = (DP + 63) / 64;  // 64-column slabs
   constexpr int KD = DP / 16;         // K-steps of q k^T
   constexpr int kQBytes = NS * kBQ * kSlabBytes;
@@ -520,6 +523,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_wgmma_kernel(
       const float lr = lt == 0.f ? 1.f : lt;
       const int row = r0 + 8 * h;
       if (row >= S) continue;
+      if (lse != nullptr && lane % 4 == 0)
+        lse[(long long)bh * S + row] = (m[h] + log2f(lr)) * kLn2;
       __nv_bfloat16* orow = og + (long long)row * so.s;
 #pragma unroll
       for (int j = 0; j < DP / 8; ++j) {
@@ -581,8 +586,8 @@ int encode(CUtensorMap* map, const void* base, Strides st, int D, int seq, int h
 
 template <int DP>
 int launch(const void* q, Strides sq, const void* k, Strides sk, const void* v, Strides sv,
-           void* o, Strides so, int B, int H, int KVH, int S, int T_len, int D, int causal,
-           float scale, int use_tma, cudaStream_t st) {
+           void* o, Strides so, float* lse, int B, int H, int KVH, int S, int T_len, int D,
+           int causal, float scale, int use_tma, cudaStream_t st) {
   constexpr int NS = (DP + 63) / 64;
   const size_t smem =
       1024 + (size_t)NS * kSlabBytes * (kBQ + 2 * kStages * kBK) + (1 + 2 * kStages) * 8;
@@ -612,8 +617,8 @@ int launch(const void* q, Strides sq, const void* k, Strides sk, const void* v, 
   const long long n_ctas = BH * ((S + kBQ - 1) / kBQ);
   kernel<<<(unsigned)n_ctas, kThreads, smem, st>>>(
       tq, tk, tv, static_cast<const __nv_bfloat16*>(q), sq, static_cast<const __nv_bfloat16*>(k),
-      sk, static_cast<const __nv_bfloat16*>(v), sv, static_cast<__nv_bfloat16*>(o), so, (int)BH, H,
-      H / KVH, S, T_len, D, causal, scale * kLog2e, use_tma, pair_store);
+      sk, static_cast<const __nv_bfloat16*>(v), sv, static_cast<__nv_bfloat16*>(o), so, lse,
+      (int)BH, H, H / KVH, S, T_len, D, causal, scale * kLog2e, use_tma, pair_store);
   return (int)cudaGetLastError();
 }
 
@@ -625,13 +630,14 @@ int launch(const void* q, Strides sq, const void* k, Strides sk, const void* v, 
 // element strides and a unit-stride last axis. use_tma = 1 loads through
 // tensor maps (every base address 16-byte aligned, every stride of an axis
 // longer than 1 a multiple of 8 elements); 0 stages with ordinary loads.
+// lse, when not null, takes each row's log-sum-exp (B, H, S) f32.
 // Returns a CUDA error code: cudaGetLastError() after the launch, or the
 // failure to encode a tensor map.
 extern "C" int flash_attention_wgmma_launch(
     const void* q, long long sqb, long long sqh, long long sqs, const void* k, long long skb,
     long long skh, long long sks, const void* v, long long svb, long long svh, long long svs,
     void* o, long long sob, long long soh, long long sos, int B, int H, int KVH, int S, int T_len,
-    int D, int causal, float scale, int use_tma, void* stream) {
+    int D, int causal, float scale, int use_tma, float* lse, void* stream) {
   if (B < 1 || KVH < 1 || H < KVH || H % KVH || S < 1 || T_len < 1 || D < 1 || D > 128 ||
       (causal && T_len < S) || (long long)B * H * ((S + kBQ - 1) / kBQ) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -640,8 +646,8 @@ extern "C" int flash_attention_wgmma_launch(
   switch ((D + 15) / 16) {
 #define FA_CASE(N)                                                                           \
   case N:                                                                                    \
-    return launch<16 * N>(q, sq, k, sk, v, sv, o, so, B, H, KVH, S, T_len, D, causal, scale, \
-                          use_tma, st);
+    return launch<16 * N>(q, sq, k, sk, v, sv, o, so, lse, B, H, KVH, S, T_len, D, causal, \
+                          scale, use_tma, st);
     FA_CASE(1) FA_CASE(2) FA_CASE(3) FA_CASE(4) FA_CASE(5) FA_CASE(6) FA_CASE(7) FA_CASE(8)
 #undef FA_CASE
   }

@@ -2,7 +2,9 @@
 
 Port of ``repro.kernels.ops``: on the sparse HOOI path the schedule-order
 gather of factor rows, the mode unfolding of a tensor of any order and the
-fused core update; on the LM path ``flash_attention`` and ``ssd_chunk``.
+fused core update; on the LM path ``flash_attention`` and ``ssd_chunk``, each
+differentiable through its backward kernel (``flash_attention_bwd``,
+``ssd_chunk_bwd``) when grad is on.
 Which device runs what is decided by the kernel wrappers alone, from the
 device of the tensors.
 """
@@ -15,14 +17,15 @@ import torch
 from repro_torch.core.coo import SparseCOO
 from repro_torch.core.kron import zero_unfolding
 from repro_torch.kernels import kron_kernel
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
 from repro_torch.kernels.kron_kernel import ScatterPlan, build_scatter_plan
-from repro_torch.kernels.ssd_scan import ssd_chunk
+from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_bwd
 from repro_torch.kernels.ttm_kernel import ttm
 from repro_torch.sparse.layout import DeviceSchedule, SortedCOO, operand_modes
 
 __all__ = ["ttm", "kron_contrib", "sparse_ttm_chain_kernel", "sparse_ttm_chain_device",
-           "sparse_ttm_core_device", "flash_attention", "ssd_chunk"]
+           "sparse_ttm_core_device", "flash_attention", "ssd_chunk", "flash_attention_bwd",
+           "ssd_chunk_bwd"]
 
 
 def kron_contrib(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor, *,

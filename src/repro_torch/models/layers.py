@@ -6,8 +6,6 @@ are a storage trick of the reference's compiled scans (bf16 kept as
 does not widen it to f32). Eager PyTorch keeps bf16 as it is on both
 devices, so the caches hold ``torch.bfloat16`` tensors where the reference
 holds ``uint16`` bit patterns (``convert.bf16_from_bits`` reads them).
-``softmax_cross_entropy`` comes with training (ROADMAP.md queue 1, item
-19).
 """
 from __future__ import annotations
 
@@ -44,6 +42,25 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 def swiglu(x: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ wg) * (x @ wi)
     return h @ wo
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          vocab_size: int) -> torch.Tensor:
+    """Mean cross-entropy over the tokens, in f32. ``logits`` (..., Vp) may
+    be vocab-padded: the padded ids are masked out by a 1-D additive
+    ``-1e30`` bias before the ``logsumexp``. The reference takes the label
+    logit as the sum of the logits times a materialised one-hot; every
+    term of that sum but the label's is an exact zero, so ``gather`` gives
+    the same value (and the same gradient, the one-hot) without the
+    (..., Vp) f32 one-hot."""
+    vp = logits.shape[-1]
+    logits32 = logits.to(torch.float32)
+    live = torch.arange(vp, device=logits.device) < vocab_size
+    pad_bias = torch.where(live, 0.0, -1e30)
+    logits32 = logits32 + pad_bias
+    lse = torch.logsumexp(logits32, dim=-1)
+    label_logit = torch.gather(logits32, -1, labels[..., None].to(torch.int64))[..., 0]
+    return torch.mean(lse - label_logit)
 
 
 INIT_CHUNK = 1 << 28  # elements drawn in f32 at a time (1 GiB)

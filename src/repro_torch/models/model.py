@@ -1,30 +1,35 @@
-"""The LM: parameter schema and init, the layer stack, the LM head and the
-prefill and decode steps. Port of ``repro.models.model`` for every family:
-``dense``, ``moe``, ``ssm``, ``audio``, ``vlm`` and ``hybrid``.
+"""The LM: parameter schema and init, the layer stack, the LM head, the
+training loss and the prefill and decode steps. Port of
+``repro.models.model`` for every family: ``dense``, ``moe``, ``ssm``,
+``audio``, ``vlm`` and ``hybrid``.
 
 The schema is one dict of :class:`ParamDef` leaves, laid out as the
 reference's parameter pytree (the same keys and shapes) for every family,
 so that ``convert.lm_params_from_numpy`` can take the reference's
 parameters as they are and :func:`param_count_actual` counts what the
-reference counts without allocating anything. Training (``mode="train"``,
-the loss, the optimizer) and the data pipeline are not ported yet and
-raise.
+reference counts without allocating anything. ``mode="train"`` is
+differentiable (the gradient of kernels 6 and 7 is their backward kernels),
+with each layer body (each hybrid superblock) rematerialised as
+``cfg.remat`` says; :func:`make_loss_fn` is the loss that
+``repro_torch.train`` minimises.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint as torch_checkpoint
 
-from repro_torch.base import resolve_device, unported
+from repro_torch.base import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
-from repro_torch.models.layers import init_normal, rmsnorm
+from repro_torch.models.layers import init_normal, rmsnorm, softmax_cross_entropy
 from repro_torch.models.mamba2 import SsmState
 
-TRAINING_ITEM = "queue 1, item 19: training, with backward kernels"
+MODES = ("train", "prefill", "decode")
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 ATTENTION_FAMILIES = ("dense", "moe", "audio", "vlm")  # a stack of dense_block
 
@@ -211,12 +216,80 @@ def _embed(cfg: ModelConfig, params, tokens: Optional[torch.Tensor],
     return params["embed"]["table"][tokens]
 
 
+def _layers(stacked: Dict[str, torch.Tensor], n: int) -> List[Dict[str, torch.Tensor]]:
+    """The ``n`` per-layer parameter dicts of a stacked tree, with one
+    ``unbind(0)`` per leaf: under autograd its backward writes each leaf's
+    gradient once, where indexing layer i (``t[i]``) would write a
+    zero-filled copy of the whole stacked leaf per layer."""
+    per = {name: t.unbind(0) for name, t in stacked.items()}
+    return [{name: ts[i] for name, ts in per.items()} for i in range(n)]
+
+
+# "dots": the matmul outputs are saved, everything else is recomputed (the
+# reference's dots_with_no_batch_dims_saveable: 2-D products, no bmm)
+DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _maybe_remat(cfg: ModelConfig, fn: Callable, *args):
+    """``fn(*args)`` under the rematerialisation that ``cfg.remat`` names,
+    as the reference wraps each scan body in ``jax.checkpoint``: ``"none"``
+    saves every activation; ``"full"`` (the default) saves only the body's
+    inputs and recomputes the rest in the backward pass; ``"dots"`` saves
+    the matmul outputs (:data:`DOTS_SAVED`) and recomputes the rest. The
+    reference's ``"full"`` also keeps values it names ``ssd_scan_state``,
+    whose recomputation would repeat a cross-device collective; one card has
+    none, and here they are recomputed with the rest."""
+    if cfg.remat == "none":
+        return fn(*args)
+    if cfg.remat == "full":
+        return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    if cfg.remat == "dots":
+        context = functools.partial(torch_checkpoint.create_selective_checkpoint_contexts,
+                                    list(DOTS_SAVED))
+        return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False, context_fn=context)
+    raise ValueError(f"remat must be 'none', 'full' or 'dots', got {cfg.remat!r}")
+
+
+def _train_stack(cfg: ModelConfig, params, x: torch.Tensor, positions: torch.Tensor):
+    """The blocks of ``mode="train"``: each layer body (each hybrid
+    superblock body) under :func:`_maybe_remat`. Returns (hidden, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layers = params["layers"]
+    if cfg.family in ATTENTION_FAMILIES:
+        def body(x_, p_l):
+            x_, _, aux_l = tfm.dense_block(cfg, p_l, x_, positions, "train")
+            return x_, aux_l
+
+        for p_l in _layers(layers, cfg.n_layers):
+            x, aux_l = _maybe_remat(cfg, body, x, p_l)
+            aux = aux + aux_l
+    elif cfg.family == "ssm":
+        def body_ssm(x_, p_l):
+            return tfm.ssm_block(cfg, p_l, x_, "train")[0]
+
+        for p_l in _layers(layers, cfg.n_layers):
+            x = _maybe_remat(cfg, body_ssm, x, p_l)
+    else:  # hybrid
+        shared = params["shared"]
+
+        def body_hy(x_, p_sb):
+            return tfm.hybrid_superblock(cfg, p_sb, shared, x_, positions, "train")[0]
+
+        for p_sb in _layers(layers, cfg.n_layers // cfg.hybrid_period):
+            x = _maybe_remat(cfg, body_hy, x, p_sb)
+    return x, aux
+
+
 def run_stack(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None,
               embeds: Optional[torch.Tensor] = None, mode: str = "prefill", cache=None,
               pos: Optional[int] = None):
     """Embedding (or ``embeds``) and every block; returns (hidden, cache,
     aux_loss): the f32 sum of the ``moe`` blocks' load-balance losses, 0
     for the other families.
+
+    ``mode="train"`` runs the full sequence with no cache (returns None for
+    it), differentiably, each layer body rematerialised as ``cfg.remat``
+    says (:func:`_maybe_remat`).
 
     ``mode="prefill"`` returns the new cache, the reference's layout: for
     ``dense``, ``moe``, ``audio`` and ``vlm`` ``{"k", "v"}`` stacked (L, b, s, kv,
@@ -228,10 +301,8 @@ def run_stack(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None,
     The layers run as a Python loop. The LM head is the caller's.
     """
     check_ported(cfg)
-    if mode == "train":
-        raise unported("training (mode='train')", TRAINING_ITEM)
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     decode = mode == "decode"
     if decode and (cache is None or pos is None):
         raise ValueError("decode needs the cache and the position")
@@ -240,12 +311,14 @@ def run_stack(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None,
         positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     else:
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    if mode == "train":
+        x, aux = _train_stack(cfg, params, x, positions)
+        return x, None, aux
     layers = params["layers"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in ATTENTION_FAMILIES:
         ks, vs = [], []
-        for i in range(cfg.n_layers):
-            p_l = {name: t[i] for name, t in layers.items()}
+        for i, p_l in enumerate(_layers(layers, cfg.n_layers)):
             cache_l = {n: cache[n][i] for n in ("k", "v")} if decode else None
             x, new_cache, aux_l = tfm.dense_block(cfg, p_l, x, positions, mode, cache_l, pos)
             aux = aux + aux_l
@@ -256,8 +329,7 @@ def run_stack(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None,
             cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
     elif cfg.family == "ssm":
         states = []
-        for i in range(cfg.n_layers):
-            p_l = {name: t[i] for name, t in layers.items()}
+        for i, p_l in enumerate(_layers(layers, cfg.n_layers)):
             st = SsmState(*(t[i] for t in cache)) if decode else None
             x, new_state = tfm.ssm_block(cfg, p_l, x, mode, st)
             if decode:
@@ -271,8 +343,7 @@ def run_stack(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None,
         shared = params["shared"]
         n_sb = cfg.n_layers // cfg.hybrid_period
         states, ks, vs = [], [], []
-        for i in range(n_sb):
-            p_sb = {name: t[i] for name, t in layers.items()}
+        for i, p_sb in enumerate(_layers(layers, n_sb)):
             ssm_in = SsmState(*(t[i] for t in cache["ssm"])) if decode else None
             attn_in = {n: cache["attn"][n][i] for n in ("k", "v")} if decode else None
             x, new_states, new_attn = tfm.hybrid_superblock(
@@ -290,13 +361,54 @@ def run_stack(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None,
     return x, cache, aux
 
 
-@torch.no_grad()
 def forward(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None,
             embeds: Optional[torch.Tensor] = None, mode: str = "prefill", cache=None,
             pos: Optional[int] = None):
-    """Full-logits forward. Returns (logits, cache, aux)."""
-    x, new_cache, aux = run_stack(cfg, params, tokens, embeds, mode, cache, pos)
-    return _lm_head(cfg, params, x), new_cache, aux
+    """Full-logits forward. Returns (logits, cache, aux). ``mode="train"``
+    is differentiable; prefill and decode run under ``torch.no_grad()``."""
+    if mode == "train":
+        x, new_cache, aux = run_stack(cfg, params, tokens, embeds, mode, cache, pos)
+        return _lm_head(cfg, params, x), new_cache, aux
+    with torch.no_grad():
+        x, new_cache, aux = run_stack(cfg, params, tokens, embeds, mode, cache, pos)
+        return _lm_head(cfg, params, x), new_cache, aux
+
+
+# ---------------------------------------------------------------------------
+# Loss (chunked cross-entropy: bounds live logits to seq/LOSS_CHUNKS)
+# ---------------------------------------------------------------------------
+
+LOSS_CHUNKS = 8
+AUX_WEIGHT = 0.01
+
+
+def loss_from_hidden(cfg: ModelConfig, params, x: torch.Tensor, labels: torch.Tensor,
+                     aux: torch.Tensor) -> torch.Tensor:
+    """The mean cross-entropy of the LM head on ``x`` (b, s, d) against
+    ``labels`` (b, s), over ``LOSS_CHUNKS`` sequence chunks (one when s does
+    not divide), each chunk's (b, s/8, Vp) logits formed alone, plus
+    ``AUX_WEIGHT`` x the MoE aux loss."""
+    s = x.shape[1]
+    chunks = LOSS_CHUNKS if (s % LOSS_CHUNKS == 0 and s >= LOSS_CHUNKS) else 1
+    cs = s // chunks
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(chunks):
+        logits_c = _lm_head(cfg, params, x[:, c * cs:(c + 1) * cs])
+        total = total + softmax_cross_entropy(logits_c, labels[:, c * cs:(c + 1) * cs],
+                                              cfg.vocab_size)
+    return total / chunks + AUX_WEIGHT * aux
+
+
+def make_loss_fn(cfg: ModelConfig):
+    """``loss_fn(params, {"tokens" or "embeds", "labels"}) -> the f32 loss``,
+    differentiable in the params."""
+    check_ported(cfg)
+
+    def loss_fn(params, batch):
+        x, _, aux = run_stack(cfg, params, batch.get("tokens"), batch.get("embeds"), "train")
+        return loss_from_hidden(cfg, params, x, batch["labels"], aux)
+
+    return loss_fn
 
 
 def make_prefill_step(cfg: ModelConfig):

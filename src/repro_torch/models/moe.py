@@ -110,7 +110,12 @@ def experts(recv: torch.Tensor, wi: torch.Tensor, wg: torch.Tensor,
     each step rounded to the model's dtype (bf16: the reference's bits,
     where one f32 SiLU rounded once lands up to a few ulps away). The steps
     run in place, which keeps at most three (E_eff, cap, ff_s) transients
-    alive."""
+    alive; under autograd (training) the same steps run out of place, since
+    their backward needs the intermediates."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (recv, wi, wg, wo)):
+        g = torch.bmm(recv, wg)
+        g = g * torch.reciprocal(torch.exp(torch.neg(g)) + 1)
+        return torch.bmm(torch.bmm(recv, wi) * g, wo)
     g = torch.bmm(recv, wg)
     sig = torch.neg(g).exp_().add_(1).reciprocal_()
     g.mul_(sig)

@@ -4,6 +4,8 @@
 over the shared :func:`attention_sublayer`.
 
 Block functions are mode-polymorphic:
+  mode="train"   full sequence, no cache (differentiable: the gradient
+                 passes through the backward kernels of kernels 6 and 7)
   mode="prefill" full sequence, returns the layer's KV/SSM cache
   mode="decode"  single token against a pre-allocated cache
 
@@ -32,8 +34,9 @@ def attention_sublayer(
     cache: Optional[Dict[str, torch.Tensor]] = None,
     pos: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Pre-norm GQA attention with RoPE. Prefill returns the bf16 K/V of the
-    sequence as the cache; decode writes this token's K/V into ``cache`` at
+    """Pre-norm GQA attention with RoPE. Train returns no cache; prefill
+    returns the bf16 K/V of the sequence as the cache; decode writes this
+    token's K/V into ``cache`` at
     ``pos`` in place (the reference returns an updated copy) and returns it."""
     b, s, _ = x.shape
     h_, kv = cfg.n_heads, cfg.n_kv_heads
@@ -112,10 +115,14 @@ def hybrid_superblock(
 ):
     """``hybrid_period`` mamba layers then one *shared* attention block.
     Returns (x, the new SSM states stacked over the period or None, the
-    attention cache or None)."""
+    attention cache or None). The layers' parameters are taken with one
+    ``unbind(0)`` per leaf: under autograd its backward writes the leaf's
+    gradient once, where indexing each layer would write a zero-filled
+    copy of the whole leaf per layer."""
     new_states = []
+    per_layer = {name: t.unbind(0) for name, t in p_sb.items()}
     for j in range(cfg.hybrid_period):
-        pj = {name: t[j] for name, t in p_sb.items()}
+        pj = {name: ts[j] for name, ts in per_layer.items()}
         st = SsmState(*(t[j] for t in ssm_states)) if ssm_states is not None else None
         x, st_new = ssm_block(cfg, pj, x, mode, st)
         if st_new is not None:

@@ -325,3 +325,73 @@ def test_service_retry_moves_the_retry_counter_as_the_reference_does(monkeypatch
         got[name] = (mod.registry.counter("repro_retries_total").value - before,
                      svc.metrics.snapshot()["retries"], len(calls))
     assert got["port"] == got["reference"] == (1, 1, 2)
+
+
+def _train_state(pkg):
+    """(params, OptState) of step 0 of the repro-100m SMOKE model, as the
+    port's tensors or the reference's arrays, from the same numpy values."""
+    from repro.configs import get_config as jget_config
+    from repro.models import model as jmodel
+    from repro.optim import adamw as jadamw
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.optim import adamw
+
+    jparams = jmodel.init_params(jget_config("repro-100m", smoke=True), jax.random.PRNGKey(0))
+    if pkg == "reference":
+        return jparams, jadamw.init(jparams)
+    params = lm_params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                                  get_config("repro-100m", smoke=True))
+    return params, adamw.init(params)
+
+
+@pytest.mark.parametrize("direction", DIRECTIONS)
+def test_checkpoint_roundtrips_params_and_opt_state(tmp_path, direction):
+    """The trainer's ``(params, OptState)``: the NamedTuple is rebuilt from its
+    fields, its leaves named by field as the reference names them."""
+    from repro_torch.optim.adamw import OptState
+
+    writer, w, reader, r = _managers(direction, tmp_path)
+    w.save(0, _train_state(writer))
+    names = [leaf["name"] for leaf in r.read_manifest(0)["leaves"]]
+    assert "1/master/embed/table" in names and "1/count" in names and "0/lm_head/w" in names
+    like = _train_state(reader)
+    (params, opt), step, _ = r.restore(like)
+    assert step == 0 and type(opt).__name__ == "OptState"
+    if reader == "port":
+        assert isinstance(opt, OptState)
+    got = jax.tree_util.tree_leaves((params, tuple(opt))) if reader == "reference" else [
+        t for t in _flat((params, tuple(opt)))]
+    want = jax.tree_util.tree_leaves((like[0], tuple(like[1]))) if reader == "reference" else [
+        t for t in _flat((like[0], tuple(like[1])))]
+    assert len(got) == len(want)
+    for g, wv in zip(got, want):
+        assert _np(g).dtype == _np(wv).dtype
+        np.testing.assert_array_equal(_np(g), _np(wv))
+
+
+def _flat(tree):
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _flat(tree[k])]
+    if isinstance(tree, tuple):
+        return [t for v in tree for t in _flat(v)]
+    return [tree]
+
+
+def test_checkpoint_roundtrips_ssm_state(tmp_path):
+    from repro_torch.models.mamba2 import SsmState
+
+    g = torch.Generator().manual_seed(0)
+    state = SsmState(*(torch.randn((2, 3, 4), generator=g).to(torch.bfloat16)
+                       for _ in range(3)), h=torch.randn((2, 4, 5, 6), generator=g))
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(3, {"ssm": state})
+    assert [leaf["name"] for leaf in mgr.read_manifest(3)["leaves"]] == [
+        "ssm/conv_x", "ssm/conv_b", "ssm/conv_c", "ssm/h"]
+    restored, _, _ = mgr.restore({"ssm": state})
+    assert isinstance(restored["ssm"], SsmState)
+    for a, b in zip(restored["ssm"], state):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    like = {"ssm": SsmState(*(((2, 3, 4), torch.bfloat16),) * 3, h=((2, 4, 5, 6), torch.float32))}
+    from_specs, _, _ = mgr.restore(like)
+    assert all(torch.equal(a, b) for a, b in zip(from_specs["ssm"], state))

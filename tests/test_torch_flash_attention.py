@@ -1,6 +1,7 @@
 """Kernel 6 on the CPU: the plain version of the port's flash attention
 against the reference's Pallas kernel (interpret mode) and its oracle, and
 the port's ``gqa_attention``/``decode_attention`` against the model's."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -288,3 +289,118 @@ def test_what_no_kernel_takes_raises_before_a_launch(dtype):
     with pytest.raises(ValueError, match="multiple"):
         plan(torch.zeros((1, 3, 8, 16), dtype=dtype), z, z)
     assert plan(z, z, z)[0] == fa.ROUTES[dtype]
+
+
+# -- the backward pass ---------------------------------------------------------
+
+# (b, H, KVH, S, T, D, causal): SHAPES' odd shapes, GQA 1, 2, 3 and 4, S != T
+# (the diagonal aligned to the kv end), and the non-causal case
+BWD_SHAPES = [(2, 4, 2, 40, 40, 16, True), (1, 8, 4, 24, 56, 32, True),
+              (2, 2, 2, 33, 33, 64, True), (1, 4, 1, 20, 20, 80, True),
+              (1, 6, 2, 17, 30, 8, True), (1, 4, 2, 19, 27, 16, False)]
+# f32 on both sides, sums in other orders: 1e-5 of each gradient's max|want|
+# (measured: 4.4e-7 against autograd, 1.0e-6 against jax.vjp)
+BWD_TOL = 1e-5
+
+
+def _bwd_case(b, h, kvh, s, t, d, causal, seed=4):
+    q, k, v = (torch.from_numpy(x) for x in _inputs(b, h, kvh, s, t, d, seed=seed))
+    do = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal((b, h, s, d))
+                          .astype(np.float32))
+    out, lse = fa.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    return q, k, v, do, out, lse
+
+
+@pytest.mark.parametrize("b,h,kvh,s,t,d,causal", BWD_SHAPES)
+def test_plain_backward_matches_autograd_of_plain_forward(b, h, kvh, s, t, d, causal):
+    q, k, v, do, out, lse = _bwd_case(b, h, kvh, s, t, d, causal)
+    got = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+    qr, kr, vr = (x.clone().requires_grad_() for x in (q, k, v))
+    want = torch.autograd.grad(fa.flash_attention_plain(qr, kr, vr, causal=causal), (qr, kr, vr),
+                               do)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        _close(g, w, BWD_TOL)
+
+
+@pytest.mark.parametrize("b,h,kvh,s,t,d,causal", BWD_SHAPES)
+def test_plain_backward_matches_jax_vjp_of_oracle(b, h, kvh, s, t, d, causal):
+    q, k, v, do, out, lse = _bwd_case(b, h, kvh, s, t, d, causal)
+    got = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+    _, vjp = jax.vjp(lambda q_, k_, v_: jref.flash_attention_ref(q_, k_, v_, causal=causal),
+                     *(jnp.asarray(x.numpy()) for x in (q, k, v)))
+    for g, w in zip(got, vjp(jnp.asarray(do.numpy()))):
+        _close(g, w, BWD_TOL)
+
+
+def test_lse_is_the_rows_logsumexp():
+    q, k, v = (torch.from_numpy(x) for x in _inputs(1, 4, 2, 30, 50, 16))
+    _, lse = fa.flash_attention_plain(q, k, v, return_lse=True)
+    logits = (q.reshape(1, 2, 2, 30, 16) @ k[:, :, None].transpose(-1, -2)) / 4.0
+    qpos, kpos = torch.arange(30)[:, None] + 20, torch.arange(50)[None, :]
+    want = torch.logsumexp(logits.masked_fill(qpos < kpos, -torch.inf), -1).reshape(1, 4, 30)
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-5)
+    assert lse.dtype == torch.float32
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_function_passes_gradcheck_in_f64(causal):
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((1, 4, 5, 3), dtype=torch.float64, generator=g, requires_grad=True)
+    k = torch.randn((1, 2, 7, 3), dtype=torch.float64, generator=g, requires_grad=True)
+    v = torch.randn((1, 2, 7, 3), dtype=torch.float64, generator=g, requires_grad=True)
+    assert torch.autograd.gradcheck(lambda *a: ops.flash_attention(*a, causal=causal), (q, k, v))
+
+
+def test_grad_takes_the_function_and_no_grad_asks_for_no_lse(monkeypatch):
+    """Under no_grad (serving) the forward is called as before, without the
+    log-sum-exp; with grad it saves the log-sum-exp and the backward goes
+    through ``flash_attention_bwd``, once a call."""
+    seen, bwd = [], []
+    orig_fwd, orig_bwd = fa._forward, fa.flash_attention_bwd
+
+    def spy_fwd(q, k, v, causal, scale, want_lse):
+        seen.append(want_lse)
+        return orig_fwd(q, k, v, causal, scale, want_lse)
+
+    def spy_bwd(*args):
+        bwd.append(1)
+        return orig_bwd(*args)
+
+    monkeypatch.setattr(fa, "_forward", spy_fwd)
+    monkeypatch.setattr(fa, "flash_attention_bwd", spy_bwd)
+    q, k, v = (torch.from_numpy(x) for x in _inputs(1, 2, 1, 20, 20, 16))
+    with torch.no_grad():
+        out = ops.flash_attention(q.requires_grad_(), k, v)
+    assert seen == [False] and not out.requires_grad
+    out = ops.flash_attention(q, k, v)
+    assert seen == [False, True] and out.requires_grad and bwd == []
+    out.sum().backward()
+    assert bwd == [1] and q.grad is not None
+    assert torch.equal(out.detach(), fa.flash_attention_plain(q.detach(), k, v))
+
+
+def test_gqa_attention_grads_match_model():
+    """The model's attention differentiated by jax against the port's
+    ``gqa_attention`` through ``FlashAttention``, on (b, s, heads, hd)."""
+    rng = np.random.default_rng(6)
+    b, s, h, kvh, d = 2, 37, 6, 2, 16
+    q = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, kvh, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, kvh, d)).astype(np.float32)
+    do = rng.standard_normal((b, s, h, d)).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: jattn.gqa_attention(*a, causal=True, chunk=16),
+                     *(jnp.asarray(x) for x in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    got = torch.autograd.grad(tattn.gqa_attention(tq, tk, tv, causal=True), (tq, tk, tv),
+                              torch.from_numpy(do))
+    for g, w in zip(got, want):
+        _close(g, w, BWD_TOL)
+
+
+def test_backward_on_a_card_tensor_without_a_card_raises():
+    z = torch.zeros((1, 2, 4, 16), device="meta")
+    lse = torch.zeros((1, 2, 4), device="meta")
+    with pytest.raises(ValueError, match="operands on"):
+        fa.flash_attention_bwd(z, z, z, z, lse, z)

@@ -1,7 +1,7 @@
 """The port's LM serving path on the CPU against the JAX package: configs,
 layers, the attention sublayer, the hybrid superblock, prefill and decode
 logits and caches of zamba2-2.7b SMOKE, ``Engine.generate``, the parameter
-hand-over, every family admitted, and the refusal of training."""
+hand-over, every family admitted, and a train forward that carries a grad."""
 import dataclasses
 
 import jax
@@ -487,13 +487,17 @@ def test_unported_families_raise(arch):
 
 
 def test_sampling_and_training_raise():
-    """Sampling is ported (``tests/test_torch_sampling.py``); training is
-    not yet, and raises naming its item."""
+    """Sampling is ported (``tests/test_torch_sampling.py``), and so is
+    training (``tests/test_torch_train.py``): neither raises any more, and
+    ``forward(mode="train")`` returns logits that carry a grad (the name is
+    kept from when both raised)."""
     cfg = get_config(ARCH, smoke=True)
     params = tmodel.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     Engine(cfg, params, ServeConfig(temperature=0.7), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 19"):
-        tmodel.forward(cfg, params, torch.zeros((1, 4), dtype=torch.long), mode="train")
+    params = jax.tree_util.tree_map(lambda t: t.requires_grad_(), params)
+    logits, cache, _ = tmodel.forward(cfg, params, torch.zeros((1, 4), dtype=torch.long),
+                                      mode="train")
+    assert cache is None and logits.requires_grad and logits.grad_fn is not None
 
 
 def test_entry_points_default_to_the_card():

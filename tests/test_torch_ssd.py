@@ -284,3 +284,118 @@ def test_ssd_decode_step_matches_model(layer, seed):
         assert got.dtype == torch.bfloat16
         np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), rtol=2.0 ** -7,
                                    atol=1e-6)
+
+
+# -- the backward pass ---------------------------------------------------------
+
+# (BH, C, L, P, N, rate): the shapes above and odd ones, a steep decay whose
+# exp overflows above the diagonal included
+BWD_SHAPES = [(2, 3, 64, 32, 16, 0.1), (1, 1, 128, 64, 32, 0.1), (2, 2, 32, 16, 16, 0.1),
+              (1, 2, 50, 12, 20, 0.1), (2, 1, 17, 5, 3, 0.1)]
+# f32 on both sides, sums in other orders: 1e-5 of each gradient's max|want|
+BWD_TOL = 1e-5
+
+
+def _bwd_case(bh, c, n_l, p, n, rate, seed=2):
+    args = [torch.from_numpy(a) for a in _inputs(bh, c, n_l, p, n, rate=rate, seed=seed)]
+    rng = np.random.default_rng(seed + 1)
+    dy = torch.from_numpy(rng.standard_normal((bh, c, n_l, p)).astype(np.float32))
+    ds = torch.from_numpy(rng.standard_normal((bh, c, n, p)).astype(np.float32))
+    return args, dy, ds
+
+
+@pytest.mark.parametrize("bh,c,n_l,p,n,rate", BWD_SHAPES + [(2, 2, 64, 16, 16, 8.0)])
+def test_plain_backward_matches_autograd_of_plain_forward(bh, c, n_l, p, n, rate):
+    args, dy, ds = _bwd_case(bh, c, n_l, p, n, rate)
+    got = ssd_scan.ssd_chunk_bwd_plain(*args, dy, ds)
+    leaves = [a.clone().requires_grad_() for a in args]
+    want = torch.autograd.grad(ssd_scan.ssd_chunk_plain(*leaves), leaves, (dy, ds))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.isfinite(g).all()
+        _close(g, w, BWD_TOL)
+
+
+@pytest.mark.parametrize("bh,c,n_l,p,n,rate", BWD_SHAPES)
+def test_plain_backward_matches_jax_vjp_of_oracle(bh, c, n_l, p, n, rate):
+    args, dy, ds = _bwd_case(bh, c, n_l, p, n, rate)
+    got = ssd_scan.ssd_chunk_bwd_plain(*args, dy, ds)
+    for i in range(bh):
+        for j in range(c):
+            _, vjp = jax.vjp(jref.ssd_chunk_ref, *(jnp.asarray(a[i, j].numpy()) for a in args))
+            want = vjp((jnp.asarray(dy[i, j].numpy()), jnp.asarray(ds[i, j].numpy())))
+            for g, w in zip(got, want):
+                _close(g[i, j], w, BWD_TOL)
+
+
+def test_plain_backward_with_bf16_b_c_returns_bf16():
+    args, dy, ds = _bwd_case(2, 2, 32, 16, 16, 0.1)
+    x, a, bm, cm = args
+    dx, da, db, dc = ssd_scan.ssd_chunk_bwd_plain(x, a, bm.bfloat16(), cm.bfloat16(), dy, ds)
+    assert (dx.dtype, da.dtype, db.dtype, dc.dtype) == (torch.float32, torch.float32,
+                                                        torch.bfloat16, torch.bfloat16)
+    want = ssd_scan.ssd_chunk_bwd_plain(x, a, bm.bfloat16().float(), cm.bfloat16().float(),
+                                        dy, ds)
+    assert torch.equal(dx, want[0]) and torch.equal(da, want[1])
+    assert torch.equal(db, want[2].bfloat16()) and torch.equal(dc, want[3].bfloat16())
+
+
+def test_function_passes_gradcheck_in_f64():
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((1, 2, 6, 3), dtype=torch.float64, generator=g, requires_grad=True)
+    a = torch.cumsum(-0.3 * torch.randn((1, 2, 6), dtype=torch.float64, generator=g).abs(), -1)
+    a.requires_grad_()
+    bm = torch.randn((1, 2, 6, 4), dtype=torch.float64, generator=g, requires_grad=True)
+    cm = torch.randn((1, 2, 6, 4), dtype=torch.float64, generator=g, requires_grad=True)
+    assert torch.autograd.gradcheck(ops.ssd_chunk, (x, a, bm, cm))
+
+
+def test_grad_takes_the_function_and_no_grad_launches_as_before(monkeypatch):
+    fwd, bwd = [], []
+    orig_fwd, orig_bwd = ssd_scan._forward, ssd_scan.ssd_chunk_bwd
+
+    def spy_fwd(*args):
+        fwd.append(1)
+        return orig_fwd(*args)
+
+    def spy_bwd(*args):
+        bwd.append(1)
+        return orig_bwd(*args)
+
+    monkeypatch.setattr(ssd_scan, "_forward", spy_fwd)
+    monkeypatch.setattr(ssd_scan, "ssd_chunk_bwd", spy_bwd)
+    args, dy, ds = _bwd_case(1, 2, 32, 16, 16, 0.1)
+    args[0].requires_grad_()
+    with torch.no_grad():
+        y, s = ops.ssd_chunk(*args)
+    assert fwd == [1] and not y.requires_grad
+    y, s = ops.ssd_chunk(*args)
+    assert fwd == [1, 1] and y.requires_grad and s.requires_grad
+    torch.autograd.backward((y, s), (dy, ds))
+    assert bwd == [1] and args[0].grad is not None
+
+
+def test_mixer_grads_match_model():
+    """``ssd_mixer`` over one chunk differentiated by jax (the reference's
+    state scan carries no cotangent, so one chunk, where it has no part)
+    against the port's through ``SsdChunk``, f32."""
+    jcfg = dataclasses.replace(jget_config("zamba2-2.7b", smoke=True), dtype="float32")
+    cfg = dataclasses.replace(get_config("zamba2-2.7b", smoke=True), dtype="float32")
+    jparams = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
+    jp = jax.tree_util.tree_map(lambda t: t[0, 1], jparams["layers"])
+    params = lm_params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), cfg)
+    p = {k: v[0, 1].detach().requires_grad_() for k, v in params["layers"].items()}
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2, 32, cfg.d_model)).astype(np.float32)
+    dout = rng.standard_normal((2, 32, cfg.d_model)).astype(np.float32)
+    _, vjp = jax.vjp(lambda p_, x_: jmamba.ssd_mixer(jcfg, p_, x_)[0], jp,
+                     jnp.asarray(x))
+    jgp, jgx = vjp(jnp.asarray(dout))
+    tx = torch.from_numpy(x).requires_grad_()
+    out, _ = tmamba.ssd_mixer(cfg, p, tx)
+    names = sorted(p)
+    got = torch.autograd.grad(out, [p[n] for n in names] + [tx], torch.from_numpy(dout),
+                              allow_unused=True, materialize_grads=True)  # "ln": the block's
+    for n, g in zip(names + ["x"], got):
+        w = jgx if n == "x" else jgp[n]
+        _close(g, w, 1e-4)
