@@ -180,23 +180,29 @@ result line):
     token below the vocabulary; 2^20 draws of one logit row held to
     softmax(row / T) by a chi-square test (p >= 1e-6);
 22. training, on an emptied card: 22a the backward kernels of kernels 6
-    and 7 (``csrc/flash_attention_bwd.cu``, ``csrc/ssd_chunk_bwd.cu``)
-    against their plain versions at odd shapes (kernel 6 in bf16 and f32,
-    GQA 1, 3 and 8, D 64, 80 and 128, S != T, the model's strided views;
-    kernel 7 at L 64 to 256, N 16 to 128, bf16 and f32 B and C), bf16
-    gradients within BF16_OUT_TOL and f32 ones at the fp32 rule, each the
-    same bits twice, and kernel 6's forward log-sum-exp; 22b one train step
+    and 7 against their plain versions at odd shapes (kernel 6 in bf16 on
+    its ``"wgmma"`` route, ``csrc/flash_attention_bwd_wgmma.cu``, with TMA
+    staging and, at D 28, ordinary-load staging, and in f32 on its
+    ``"simt"`` route, ``csrc/flash_attention_bwd.cu``, each call checked
+    to take its dtype's route; GQA 1, 3 and 8, D 16 to 128, S != T, the
+    model's strided views; kernel 7, ``csrc/ssd_chunk_bwd.cu``, at L 64 to
+    256, N 16 to 128, bf16 and f32 B and C), bf16 gradients within
+    BF16_OUT_TOL and f32 ones at the fp32 rule, each the same bits twice,
+    and kernel 6's forward log-sum-exp; 22b one train step
     of each family's SMOKE config in f32, card against CPU (loss, grad
     norm, first moments, parameters; ``TRAIN_SMOKE_TOL``), with its exact
     launches; 22c Zamba2-2.7B as registered trained by ``Trainer`` for 4
     steps of 2 x 4,096 tokens (remat "full"): exactly 2 x 9 kernel-6 and
     2 x 54 kernel-7 forward launches and 9 and 54 backward launches a
-    step, every backward call of step 1 against its plain version, the
+    step (every kernel-6 backward on the ``"wgmma"`` route), every
+    backward call of step 1 against its plain version, the
     step-0 loss within 10% of ln(32,000), finite grad norms, moved
     parameters, ms a step, tokens/s, peak memory, the busy share of a
     profiled step, executed and useful FLOP/s (``flops.cell_cost``) over
     the bf16 peak, and each backward kernel's ms beside its plain
-    version's, SDPA backward's (kernel 6) and its bound; 22d repro-100m at
+    version's, SDPA backward's (kernel 6) and its bound, kernel 6's
+    device time by pass (delta, dK/dV, dQ) beside its design's bound, and
+    both kernels' registers and spills from ptxas; 22d repro-100m at
     full width through ``python -m repro_torch.train``'s code path, 300
     steps of 8 x 128 with a checkpoint every 50 (the loss falls), then a
     run killed at step 160 that resumes at 150 with the checkpoint's bits
@@ -217,6 +223,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -300,8 +307,13 @@ KERNEL_SYMBOLS = {
     "fused_kron_scatter_ttm": ("::kron_scatter_ttm_kernel", "::kron_scatter_ttm_reduce_kernel"),
     "flash_attention": ("::flash_attention_kernel", "::flash_attention_wgmma_kernel"),
     "ssd_chunk": ("::ssd_chunk_kernel",),
-    "flash_attention_bwd": ("::dkdv_kernel", "::dq_kernel"),
-    "ssd_chunk_bwd": ("::ssd_chunk_bwd_kernel",),
+    "flash_attention_bwd": ("::dkdv_kernel", "::dq_kernel", "::bwd_prep_kernel",
+                            "::dkdv_wgmma_kernel", "::dq_wgmma_kernel"),
+    "ssd_chunk_bwd": ("::ssd_bwd_cols_kernel", "::ssd_bwd_rows_kernel"),
+    # kernel 6's backward by pass, for 22c
+    "flash_attention_bwd dK/dV": ("::dkdv_kernel", "::dkdv_wgmma_kernel"),
+    "flash_attention_bwd dQ": ("::dq_kernel", "::dq_wgmma_kernel"),
+    "flash_attention_bwd delta": ("::bwd_prep_kernel",),
 }
 NO_LM_LAUNCHES = {"flash_attention": 0, "ssd_chunk": 0}
 
@@ -5302,8 +5314,11 @@ def phase21_moe_sampling(dev, card: str, smoke: bool = False) -> None:
 # -- phase 22: training ------------------------------------------------------------
 
 # 22a: kernel 6's backward on the model's layout, (b, s, t, H, KVH, D, causal,
-# what the case covers): GQA 1, 3 and 8, D 64, 80 and 128, S != T (the
-# diagonal at the kv end), S and T off the 64-row tiles, and non-causal
+# what the case covers): GQA 1, 3 and 8, D 28, 64, 80 and 128, S != T (the
+# diagonal at the kv end), S and T off the 64-row tiles, and non-causal. In
+# bf16 each takes the "wgmma" route with TMA staging, except D 28, whose
+# 56-byte head stride takes the ordinary-load staging; in f32 the "simt"
+# route
 FLASH_BWD_CASES = [
     (2, 100, 100, 8, 8, 80, True, "GQA 1, D 80 (Zamba2's head dim)"),
     (1, 77, 150, 6, 2, 64, True, "GQA 3, D 64, T > S"),
@@ -5311,6 +5326,7 @@ FLASH_BWD_CASES = [
     (2, 128, 128, 12, 4, 64, True, "GQA 3, D 64 (repro-100m's heads)"),
     (1, 64, 192, 4, 4, 80, True, "GQA 1, D 80, T > S"),
     (2, 70, 90, 4, 2, 16, False, "non-causal, D 16"),
+    (2, 90, 90, 6, 2, 28, True, "GQA 3, D 28 (ordinary-load staging)"),
 ]
 # 22a: kernel 7's backward, (BH, C, L, P, N, decay rate, what the case
 # covers); each with B and C in bf16 and in f32
@@ -5361,6 +5377,8 @@ def reset_all_launches() -> None:
     reset_launches()
     for fn in all_wrappers().values():
         fn.launches = 0
+        for route in getattr(fn, "launches_by_route", {}):
+            fn.launches_by_route[route] = 0
 
 
 def read_all_launches() -> dict:
@@ -5472,7 +5490,7 @@ def phase22a_bwd_kernels(dev) -> dict:
     def randn(*shape):
         return torch.randn(shape, generator=g, device=dev)
 
-    worst = {}
+    worst, routes = {}, {}
     for b, s, t, h, kvh, d, causal, label in FLASH_BWD_CASES:
         qm, km, vm, dom = randn(b, s, h, d), randn(b, t, kvh, d), randn(b, t, kvh, d), \
             randn(b, s, h, d)
@@ -5484,7 +5502,20 @@ def phase22a_bwd_kernels(dev) -> dict:
             _, lse_want = fa.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
             compare(f"flash_attention lse {tag}", "fp32", lse, lse_want, t * d)
             run = partial(fa.flash_attention_bwd, q, k, v, out, lse, do, causal)
+            before = dict(fa.flash_attention_bwd.launches_by_route)
             got = synced(run())
+            taken = {r: n - before[r] for r, n in fa.flash_attention_bwd.launches_by_route.items()}
+            route, staging = fa.bwd_launch_plan(
+                dtype, (q.shape, k.shape, v.shape, do.shape),
+                (q.stride(), k.stride(), v.stride(), do.stride()),
+                (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr()), causal=causal)
+            want_route = fa.ROUTES[dtype]
+            want_staging = None if dtype == torch.float32 else ("threads" if d == 28 else "tma")
+            check(route == want_route and staging == want_staging
+                  and taken == {r: int(r == want_route) for r in taken},
+                  f"flash_attention_bwd {tag}: took {taken}, planned {route}/{staging}, want "
+                  f"{want_route}/{want_staging}")
+            routes[(want_route, staging)] = routes.get((want_route, staging), 0) + 1
             want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
             terms = flash_bwd_terms(q, k)
             for n, gg, w in zip(("dq", "dk", "dv"), got, want):
@@ -5510,9 +5541,13 @@ def phase22a_bwd_kernels(dev) -> dict:
                 worse(worst, "ssd_chunk_bwd",
                       judge(f"ssd_chunk_bwd {tag} {name}", gg, w, terms[name]))
             check(same_bits_twice(run), f"ssd_chunk_bwd {tag}: two calls differ")
+    check(set(routes) == {("wgmma", "tma"), ("wgmma", "threads"), ("simt", None)},
+          f"22a: kernel 6's backward took {sorted(routes, key=str)}, want both routes and both "
+          f"stagings")
     log(f"  22a: both backward kernels within their rules at {len(FLASH_BWD_CASES) * 2} and "
-        f"{len(SSD_BWD_CASES) * 2} odd cases, the same bits twice; worst share of a limit "
-        + json.dumps(worst))
+        f"{len(SSD_BWD_CASES) * 2} odd cases, the same bits twice; kernel 6's calls by route "
+        f"and staging {json.dumps({f'{r}/{s}': n for (r, s), n in routes.items()})}; worst "
+        f"share of a limit " + json.dumps(worst))
     return worst
 
 
@@ -5611,10 +5646,14 @@ def flash_bwd_row(args, label: str) -> dict:
     flops = 5 * 2 * b_ * h_ * d_ * seen
     nbytes = nbytes_of(q, k, v, out, lse, dout, q, k, v)
     t_b, t_o = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+    route = fa.ROUTES[q.dtype]
     row = {"shape": [b_, h_, s_, d_], "kv_heads": int(k.shape[1]), "dtype": str(q.dtype),
-           "ms": time_ms(kern), "plain_ms": time_ms(plain, reps=3),
+           "route": route, "ms": time_ms(kern), "plain_ms": time_ms(plain, reps=3),
            "library_ms": sdpa_bwd_ms(q, k, v, dout, causal),
            "bound_ms": max(t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o else "operations",
+           # the wgmma design's own tensor-core work: ten product-equivalents
+           # (S^T, dP^T, dV and dK split hi + lo; S, dP and dQ split again)
+           "design_bound_ms": max(t_b, 2 * t_o) * 1e3 if route == "wgmma" else None,
            "f32_core_bound_ms": flops / PEAK_F32_FLOPS * 1e3, "flops": flops, "bytes": nbytes}
     log(f"    flash_attention_bwd {label}: {json.dumps(row)}")
     return row
@@ -5646,6 +5685,23 @@ def ssd_bwd_row(args, label: str) -> dict:
            "bytes": nbytes}
     log(f"    ssd_chunk_bwd {label}: {json.dumps(row)}")
     return row
+
+
+def ptxas_usage(path) -> list:
+    """(kernel, "registers; spills") of each kernel in a ptxas log, the
+    kernel named by its mangled name's kernel and template arguments."""
+    out, kernel = [], None
+    for line in Path(path).read_text().splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            kernel = next((m for m in re.findall(r"\d+([a-z_]+_kernel)", mangled)), mangled)
+            kernel += mangled[mangled.index(kernel) + len(kernel):].split("EEv")[0]
+        elif kernel and "spill" in line:
+            spills = line.strip()
+        elif kernel and "registers" in line:
+            out.append((kernel, f"{line.split(':', 1)[1].strip()}; {spills}"))
+            kernel = None
+    return out
 
 
 def phase22c_zamba2(dev, card: str) -> dict:
@@ -5698,7 +5754,12 @@ def phase22c_zamba2(dev, card: str) -> dict:
     torch.cuda.synchronize()
     t_run = time.perf_counter() - t0
     launches = read_all_launches()
+    from repro_torch.kernels import flash_attention as fa
+    bwd_routes = dict(fa.flash_attention_bwd.launches_by_route)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(bwd_routes == {"wgmma": n_sb * TRAIN_STEPS, "simt": 0},
+          f"22c: kernel 6's backward took the routes {bwd_routes}, want every one of "
+          f"{n_sb * TRAIN_STEPS} calls on 'wgmma'")
     want = {k: 0 for k in launches}
     want.update({"flash_attention": 2 * n_sb * TRAIN_STEPS,
                  "flash_attention_bwd": n_sb * TRAIN_STEPS,
@@ -5728,8 +5789,7 @@ def phase22c_zamba2(dev, card: str) -> dict:
     # the backward kernels again on the gated step's first inputs: two calls'
     # bits, their times and the library call's
     kept = gate.pop("kept")
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels import _build, ssd_scan
     fa_args, ssd_args = kept["flash_attention_bwd"], kept["ssd_chunk_bwd"]
     check(same_bits_twice(partial(fa.flash_attention_bwd, *fa_args)),
           "22c: flash_attention_bwd differs between two calls at the path's shape")
@@ -5754,6 +5814,16 @@ def phase22c_zamba2(dev, card: str) -> dict:
     prof = profile_run(one_step)
     trainer.params, trainer.opt_state, _ = holder.pop("out")
     kms = prof["kernel_ms"]
+    # kernel 6's backward by pass, a call's device time, beside the design's
+    # bound, SDPA's backward and the plain version
+    passes = {name: kms[f"flash_attention_bwd {name}"] / n_sb for name in ("delta", "dK/dV", "dQ")}
+    log(f"  22c: kernel 6's backward a call, device ms by pass {json.dumps(passes)}; design "
+        f"bound {fa_row['design_bound_ms']:.3f} ms, bound {fa_row['bound_ms']:.3f}, SDPA "
+        f"backward {fa_row['library_ms']:.3f}, plain {fa_row['plain_ms']:.3f}")
+    fa_row["device_ms_by_pass"] = passes
+    for name in ("flash_attention_bwd_wgmma", "ssd_chunk_bwd"):
+        for kernel, usage in ptxas_usage(_build.BUILD_DIR / f"{name}.ptxas.log"):
+            log(f"  22c ptxas {name} {kernel}: {usage}")
     summary = {
         "phase": "22c Zamba2-2.7B training", "card": card, "config": cfg.name, "params": n_params,
         "batch": TRAIN_B, "seq": TRAIN_S, "steps": TRAIN_STEPS, "remat": cfg.remat,
@@ -5762,7 +5832,7 @@ def phase22c_zamba2(dev, card: str) -> dict:
         "grad_norms": [h["grad_norm"] for h in hist], "step_s": [h["step_time_s"] for h in hist],
         "ms_per_step": step_s * 1e3, "tokens_per_s": TRAIN_B * TRAIN_S / step_s,
         "peak_memory_gb": peak_gb, "launches": {k: v for k, v in launches.items() if v},
-        "gated_step": rep, "params_moved": moved,
+        "flash_attention_bwd_routes": bwd_routes, "gated_step": rep, "params_moved": moved,
         "executed_flops": cost.flops, "useful_flops": cost.model_flops,
         "executed_share_of_bf16_peak": cost.flops / step_s / PEAK_BF16_FLOPS,
         "useful_share_of_bf16_peak": cost.model_flops / step_s / PEAK_BF16_FLOPS,
@@ -5775,7 +5845,7 @@ def phase22c_zamba2(dev, card: str) -> dict:
     return {
         "flash_attention_bwd": {
             "name": "flash_attention_bwd", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
             "replaces": "src/repro/kernels/flash_attention.py:78",
             "launches": launches["flash_attention_bwd"],
             "max_abs_err": rep["flash_attention_bwd"]["max_abs_err"], "ms": fa_row["ms"],
@@ -5874,6 +5944,27 @@ def phase22d_repro100m(dev, card: str, tmp: str) -> dict:
     return out
 
 
+def repro100m_bwd_row(dev, calls: int = 20) -> dict:
+    """Kernel 6's backward at repro-100m's shape (b 8, 12 heads over 4, 128,
+    64): :func:`flash_bwd_row` and the device ms a call, profiled over
+    ``calls`` calls (the profiler can miss a one-call window)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v, do = (torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
+                   .transpose(1, 2) for shape in ((8, 128, 12, 64), (8, 128, 4, 64),
+                                                  (8, 128, 4, 64), (8, 128, 12, 64)))
+    out, lse = fa._forward(q, k, v, True, None, want_lse=True)
+    row = flash_bwd_row((q, k, v, out, lse, do, True, None), "repro-100m training shape")
+
+    def run():
+        for _ in range(calls):
+            fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+
+    row["device_ms"] = profile_run(run)["kernel_ms"]["flash_attention_bwd"] / calls
+    return row
+
+
 def phase22_training(dev, card: str) -> dict:
     """22a the backward kernels at odd shapes, 22b card against CPU at SMOKE
     size for every family, 22c Zamba2-2.7B trained at full width (the main
@@ -5901,15 +5992,7 @@ def phase22_training(dev, card: str) -> dict:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         r100 = phase22d_repro100m(dev, card, tmp)
     secs["22d"] = time.perf_counter() - t0
-    # kernel 6's backward at repro-100m's shape (b 8, 12 heads over 4, 128, 64)
-    from repro_torch.kernels import flash_attention as fa
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    q, k, v, do = (torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16)
-                   .transpose(1, 2) for shape in ((8, 128, 12, 64), (8, 128, 4, 64),
-                                                  (8, 128, 4, 64), (8, 128, 12, 64)))
-    out, lse = fa._forward(q, k, v, True, None, want_lse=True)
-    r100["flash_attention_bwd"] = flash_bwd_row((q, k, v, out, lse, do, True, None),
-                                                "repro-100m training shape")
+    r100["flash_attention_bwd"] = repro100m_bwd_row(dev)
     for name, row in rows.items():
         row["worst_over_limit_22a"] = worst[name]["worst_over_limit"]
     print(json.dumps({"phase": "22 training", "card": card, "seconds": secs,

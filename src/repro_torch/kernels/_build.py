@@ -24,14 +24,15 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("kron_scatter", "ttm", "kron_contrib", "scatter_rows", "kron_scatter_ttm",
            "flash_attention", "flash_attention_wgmma", "ssd_chunk", "flash_attention_bwd",
-           "ssd_chunk_bwd")
+           "ssd_chunk_bwd", "flash_attention_bwd_wgmma")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# per-source link flags, after the source: the tensor-core attention looks
-# up libcuda's cuTensorMapEncodeTiled with dlopen/dlsym (no -lcuda)
-EXTRA_FLAGS = {"flash_attention_wgmma": ("-ldl",)}
+# per-source link flags, after the source: the tensor-core attention (forward
+# and backward) looks up libcuda's cuTensorMapEncodeTiled with dlopen/dlsym
+# (no -lcuda)
+EXTRA_FLAGS = {"flash_attention_wgmma": ("-ldl",), "flash_attention_bwd_wgmma": ("-ldl",)}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -1,6 +1,7 @@
 // Tensor-core pieces shared by the fp32 kernels that run on mma.sync, for
-// sm_90a (kron_walk.cuh, kron_scatter_ttm.cu, ssd_chunk.cu): the 3xTF32
-// operand split and the m16n8k8 TF32 product.
+// sm_90a (kron_walk.cuh, kron_scatter_ttm.cu, and through ssd_common.cuh
+// ssd_chunk.cu and ssd_chunk_bwd.cu): the 3xTF32 operand split and the
+// m16n8k8 TF32 product.
 //
 // 3xTF32. An f32 operand x is split into hi, x rounded to TF32, and lo, the
 // exact rest; a product a*b is taken as al*bh + ah*bl + ah*bh (al*bl, about

@@ -17,8 +17,11 @@ Training differentiates through :class:`FlashAttention`, an
 ``autograd.Function``: :func:`flash_attention` takes it when grad mode is on
 and an operand requires grad. Its forward launches the same kernel with an
 extra output, each query row's log-sum-exp; its backward is
-:func:`flash_attention_bwd`, the kernels of ``csrc/flash_attention_bwd.cu``
-on the card and :func:`flash_attention_bwd_plain` on the CPU. Under
+:func:`flash_attention_bwd`, which on the card picks its kernels by dtype as
+the forward does (:func:`bwd_launch_plan`): bf16 launches the tensor-core
+kernels of ``csrc/flash_attention_bwd_wgmma.cu`` (route ``"wgmma"``), f32
+the CUDA-core kernels of ``csrc/flash_attention_bwd.cu`` (route ``"simt"``);
+on the CPU it runs :func:`flash_attention_bwd_plain`. Under
 ``torch.no_grad()`` (serving) nothing changes: the same kernel, no
 log-sum-exp, one launch a call.
 """
@@ -39,6 +42,7 @@ PLAIN_Q_ROWS = 1024
 MAX_HEAD_DIM = 128  # both kernels hold an output row's D columns in registers
 ROUTES = {torch.bfloat16: "wgmma", torch.float32: "simt"}
 TMA_ALIGN = 16  # bytes: TMA's rule for base addresses and strides
+BWD_ROW_PAD = 128  # the wgmma backward's scratch rows a (b, head): S rounded up to this
 
 
 def _check_shapes(q_shape, k_shape, v_shape, causal: bool):
@@ -168,11 +172,43 @@ def launch_plan(dtype: torch.dtype, shapes: Sequence[Sequence[int]],
     route = ROUTES[dtype]
     if route == "simt":
         return route, None
+    return route, _staging(shapes, strides, addresses)
+
+
+def _staging(shapes, strides, addresses) -> str:
+    """``"tma"`` when every bf16 operand has a 16-byte aligned base and a
+    stride that is a multiple of 16 bytes on every axis longer than 1 (TMA's
+    rules), else ``"threads"``."""
     aligned = all(  # bf16: 2 bytes an element
         addr % TMA_ALIGN == 0
         and all(n == 1 or (2 * st_) % TMA_ALIGN == 0 for n, st_ in zip(shape[:3], st[:3]))
         for shape, st, addr in zip(shapes, strides, addresses))
-    return route, ("tma" if aligned else "threads")
+    return "tma" if aligned else "threads"
+
+
+def bwd_launch_plan(dtype: torch.dtype, shapes: Sequence[Sequence[int]],
+                    strides: Sequence[Sequence[int]], addresses: Sequence[int] = (0, 0, 0, 0),
+                    *, causal: bool = True) -> Tuple[str, Optional[str]]:
+    """(route, staging) of the backward kernels for q, k, v and dout of
+    ``dtype`` with these shapes, element strides and byte addresses (each
+    given in the order q, k, v, dout); raises ``ValueError`` for what no
+    kernel takes. The route is the dtype's, as the forward's: ``"wgmma"``
+    (``csrc/flash_attention_bwd_wgmma.cu``) for bf16, ``"simt"``
+    (``csrc/flash_attention_bwd.cu``) for f32. Staging (wgmma only) is
+    ``"tma"`` when all four operands meet TMA's rules, else ``"threads"``."""
+    if len(shapes) != 4 or len(strides) != 4:
+        raise ValueError("flash_attention_bwd: q, k, v, dout must be (B, H, S, D), "
+                         "(B, KVH, T, D), (B, KVH, T, D), (B, H, S, D)")
+    route, _ = launch_plan(dtype, shapes[:3], strides[:3], causal=causal)
+    if tuple(shapes[3]) != tuple(shapes[0]):
+        raise ValueError(f"flash_attention_bwd: dout {tuple(shapes[3])}, want {tuple(shapes[0])}")
+    st = strides[3]
+    if len(st) != 4 or st[3] != 1 or min(st) < 0:
+        raise ValueError(f"flash_attention_bwd: dout needs a unit-stride last axis and "
+                         f"non-negative strides, got {tuple(st)}")
+    if route == "simt":
+        return route, None
+    return route, _staging(shapes, strides, addresses)
 
 
 def _lib(route: str):
@@ -187,13 +223,24 @@ def _lib(route: str):
     return fn
 
 
-def _bwd_lib():
-    fn = _build.load("flash_attention_bwd").flash_attention_bwd_launch
+def _bwd_lib(route: str):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if route == "wgmma":
+        fn = _build.load("flash_attention_bwd_wgmma").flash_attention_bwd_wgmma_launch
+        args = [p] * 11 + [i] * 7 + [ctypes.c_float, i, p]
+    else:
+        fn = _build.load("flash_attention_bwd").flash_attention_bwd_launch
+        args = [p] * 10 + [i] * 7 + [ctypes.c_float, i, p]
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 10 + [i] * 7 + [ctypes.c_float, i, p]
+        fn.argtypes = args
         fn.restype = ctypes.c_int
     return fn
+
+
+def bwd_scratch_floats(b: int, h: int, s: int) -> int:
+    """Floats of the wgmma route's scratch: each row's lse log2(e) and
+    delta, ``BWD_ROW_PAD``-padded rows a (b, head)."""
+    return 2 * b * h * (-(-s // BWD_ROW_PAD) * BWD_ROW_PAD)
 
 
 def _check_card(name: str, *tensors: torch.Tensor) -> None:
@@ -271,9 +318,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     ``out``, the rows' log-sum-exp ``lse`` (B, H, S) that its forward saved
     and the output's gradient ``dout``; each in its operand's dtype and
     layout. CPU tensors run :func:`flash_attention_bwd_plain`; CUDA tensors
-    launch ``csrc/flash_attention_bwd.cu`` (dK and dV, then dQ, one count)
-    or raise. Every tensor is read through its strides (unit-stride last
-    axes); q, k, v, out and dout share a dtype, f32 or bf16."""
+    launch the kernels of the route :func:`bwd_launch_plan` names (bf16:
+    ``csrc/flash_attention_bwd_wgmma.cu``, the rows' delta, dK and dV, then
+    dQ; f32: ``csrc/flash_attention_bwd.cu``, dK and dV, then dQ; one count
+    a call) or raise. Every tensor is read through its strides (unit-stride
+    last axes); q, k, v, out and dout share a dtype, f32 or bf16."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal, scale)
     _check_card("flash_attention_bwd", q, k, v, out, lse, dout)
@@ -301,16 +350,27 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
                              f"non-negative strides, got {tuple(x.stride())}")
     if s == 0 or t == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    route, staging = bwd_launch_plan(q.dtype, (q.shape, k.shape, v.shape, dout.shape),
+                                     (q.stride(), k.stride(), v.stride(), dout.stride()),
+                                     (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr()),
+                                     causal=causal)
     strides = (ctypes.c_longlong * 24)(*(st for x in tensors for st in x.stride()[:3]))
     scale_ = float(scale) if scale is not None else 1.0 / math.sqrt(d)
-    rc = _bwd_lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-                    lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides,
-                    b, h, kvh, s, t, d, int(causal), scale_, int(q.dtype == torch.bfloat16),
-                    torch.cuda.current_stream().cuda_stream)
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    if route == "wgmma":
+        scratch = torch.empty(bwd_scratch_floats(b, h, s), dtype=torch.float32, device=q.device)
+        rc = _bwd_lib(route)(*pointers, scratch.data_ptr(), strides, b, h, kvh, s, t, d,
+                             int(causal), scale_, int(staging == "tma"), stream)
+    else:
+        rc = _bwd_lib(route)(*pointers, strides, b, h, kvh, s, t, d, int(causal), scale_, 0,
+                             stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention_bwd failed at q {tuple(q.shape)}, k "
-                           f"{tuple(k.shape)}: CUDA error {rc}")
+        raise RuntimeError(f"flash_attention_bwd ({route}, {staging}) failed at q "
+                           f"{tuple(q.shape)}, k {tuple(k.shape)}: CUDA error {rc}")
     launch_count.count(_FLASH_BWD)  # itself, also while a caller wraps the module's name
+    _FLASH_BWD.launches_by_route[route] += 1
     return dq, dk, dv
 
 
@@ -338,4 +398,5 @@ class FlashAttention(torch.autograd.Function):
 flash_attention.launches = 0
 flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_route = {"wgmma": 0, "simt": 0}
 _FLASH_BWD = flash_attention_bwd

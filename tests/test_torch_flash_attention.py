@@ -404,3 +404,145 @@ def test_backward_on_a_card_tensor_without_a_card_raises():
     lse = torch.zeros((1, 2, 4), device="meta")
     with pytest.raises(ValueError, match="operands on"):
         fa.flash_attention_bwd(z, z, z, z, lse, z)
+
+
+# -- the backward's tensor-core route (bf16): its numerics and its dispatch ------
+
+# (b, H, KVH, S, T, D, causal): D 16, 28, 64, 80 and 128, GQA 1, 3 and 8,
+# S != T, and non-causal cases (T < S among them)
+WGMMA_BWD_SHAPES = [(1, 2, 2, 40, 40, 16, True), (1, 6, 2, 33, 50, 28, True),
+                    (1, 8, 1, 48, 48, 64, True), (2, 4, 4, 70, 70, 80, True),
+                    (1, 3, 1, 30, 45, 128, True), (1, 8, 1, 20, 36, 80, False),
+                    (1, 6, 2, 37, 25, 64, False)]
+
+
+def _wgmma_bwd_emulation(q, k, v, out, lse, do, causal=True, split=True):
+    """The bf16 backward kernels' arithmetic in plain torch, in f32 (before
+    the gradients' bf16 rounding): the products of the bf16 operands summed
+    in f32, P = exp2(scale log2(e) q k^T - lse log2(e)), delta = rowsum(do
+    o), dS = P (dP - delta), and P and dS split into bf16 hi + lo (or, with
+    ``split=False``, rounded to bf16 once) before their products with do, q
+    and k, each summed in f32."""
+    b, h, s, d = q.shape
+    kvh, t = k.shape[1], k.shape[2]
+    g = h // kvh
+    qf, of, dof = q.float(), out.float(), do.float()
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    scale = 1.0 / np.sqrt(d)
+    log2e = 1.4426950408889634
+    x = (qf @ kf.transpose(-1, -2)) * (scale * log2e) - (lse * log2e)[..., None]
+    if causal:
+        qpos, kpos = torch.arange(s)[:, None] + (t - s), torch.arange(t)[None, :]
+        x = x.masked_fill(qpos < kpos, -torch.inf)
+    p = torch.exp2(x)
+    ds = p * (dof @ vf.transpose(-1, -2) - (dof * of).sum(-1, keepdim=True))
+
+    def prod(a, bm):  # a (bf16 hi + lo, or rounded once) @ bm, summed in f32
+        hi, lo = _split_p(a)
+        return hi.float() @ bm + lo.float() @ bm if split else hi.float() @ bm
+
+    dq = prod(ds, kf) * scale
+    dk = (prod(ds.transpose(-1, -2), qf) * scale).reshape(b, kvh, g, t, d).sum(2)
+    dv = prod(p.transpose(-1, -2), dof).reshape(b, kvh, g, t, d).sum(2)
+    return dq, dk, dv
+
+
+def _bf16_bwd_case(b, h, kvh, s, t, d, causal, seed=10):
+    """bf16 q, k, v, do, and the bf16 forward output with its f32 lse, as
+    the forward kernel hands them to the backward."""
+    q, k, v = (_to(x, "bfloat16") for x in _inputs(b, h, kvh, s, t, d, seed=seed))
+    do = _to(np.random.default_rng(seed + 1).standard_normal((b, h, s, d)).astype(np.float32),
+             "bfloat16")
+    out, lse = fa.flash_attention_plain(q, k, v, causal=causal, return_lse=True)
+    return q, k, v, out, lse, do
+
+
+@pytest.mark.parametrize("b,h,kvh,s,t,d,causal", WGMMA_BWD_SHAPES)
+def test_wgmma_backward_numerics_keep_the_function(b, h, kvh, s, t, d, causal):
+    """The emulated bf16 backward, rounded to bf16 as the kernel writes it,
+    against ``jax.vjp`` of the reference's oracle on the same bf16 values
+    and against the port's plain backward. Each gradient rounds to bf16 once
+    (2^-8 relative) and P, dS carried to 2^-16 sit far below that; the
+    oracle forms delta from its own f32 output, the kernels from the bf16
+    one: within 2^-7 x max|gradient|, the card's limit."""
+    q, k, v, out, lse, do = _bf16_bwd_case(b, h, kvh, s, t, d, causal)
+    got = [x.to(torch.bfloat16).float() for x in _wgmma_bwd_emulation(q, k, v, out, lse, do,
+                                                                     causal)]
+    plain = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal)
+    _, vjp = jax.vjp(lambda q_, k_, v_: jref.flash_attention_ref(q_, k_, v_, causal=causal),
+                     *(jnp.asarray(x.float().numpy()) for x in (q, k, v)))
+    want = vjp(jnp.asarray(do.float().numpy()))
+    for g_, p_, w_ in zip(got, plain, want):
+        _close(g_, p_.float(), 2.0 ** -7)
+        _close(g_, w_, 2.0 ** -7)
+
+
+def test_rounding_p_and_ds_once_is_a_different_function():
+    """Why P and dS are split: rounded to bf16 once (as SDPA's backward and a
+    bf16 wgmma on them would), each gradient moves further from the plain
+    version's f32 arithmetic on the same values than with the split."""
+    q, k, v, out, lse, do = _bf16_bwd_case(1, 4, 2, 128, 128, 64, True, seed=12)
+    want = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse,
+                                        do.float(), True)
+    split = _wgmma_bwd_emulation(q, k, v, out, lse, do, True)
+    once = _wgmma_bwd_emulation(q, k, v, out, lse, do, True, split=False)
+    for w_, s_, o_ in zip(want, split, once):
+        err_split, err_once = float((s_ - w_).abs().max()), float((o_ - w_).abs().max())
+        assert err_split < 2.0 ** -14 * float(w_.abs().max()) < err_once, (err_split, err_once)
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"), (torch.float32, "simt")])
+def test_backward_dispatch_is_by_dtype(dtype, route):
+    q, k, v, do = (torch.zeros(shape, dtype=dtype) for shape in ((2, 4, 64, 80), (2, 2, 64, 80),
+                                                                 (2, 2, 64, 80), (2, 4, 64, 80)))
+    got, staging = fa.bwd_launch_plan(dtype, *_meta(q, k, v, do))
+    assert got == route
+    assert staging == ("tma" if route == "wgmma" else None)
+    with pytest.raises(ValueError, match="no kernel"):
+        fa.bwd_launch_plan(torch.float16, *_meta(q, k, v, do))
+    assert sorted(fa.flash_attention_bwd.launches_by_route) == ["simt", "wgmma"]
+
+
+@pytest.mark.parametrize("hd", [28, 80])
+def test_backward_staging_follows_tma_rules(hd):
+    """The model's (b, s, heads, hd) views: a head stride off a 16-byte
+    multiple (head dim 28), or a dout whose base is off a 16-byte boundary,
+    takes the ordinary-load staging; the rest TMA."""
+    def view(heads):
+        return torch.zeros((2, 5, heads, hd), dtype=torch.bfloat16).transpose(1, 2)
+
+    q, k, v, do = view(6), view(2), view(2), view(6)
+    want = "threads" if (hd * 2) % 16 else "tma"
+    assert fa.bwd_launch_plan(torch.bfloat16, *_meta(q, k, v, do)) == ("wgmma", want)
+    buf = torch.zeros(2 * 6 * 5 * hd + 4, dtype=torch.bfloat16)
+    do_off = buf[4:].view(2, 6, 5, hd)  # 8 bytes off
+    assert fa.bwd_launch_plan(torch.bfloat16, *_meta(q, k, v, do_off))[1] == "threads"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_what_no_backward_kernel_takes_raises_before_a_launch(dtype):
+    def plan(q, k, v, do, causal=True):
+        return fa.bwd_launch_plan(dtype, *_meta(q, k, v, do), causal=causal)
+
+    z = torch.zeros((1, 2, 8, 16), dtype=dtype)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros((1, 2, 8, 144), dtype=dtype)
+        plan(big, big, big, big)
+    with pytest.raises(ValueError, match="T >= S"):
+        plan(z, z[:, :, :4], z[:, :, :4], z)
+    with pytest.raises(ValueError, match="dout"):
+        plan(z, z, z, z[:, :, :4])
+    with pytest.raises(ValueError, match="unit-stride"):
+        plan(z, z, z, torch.zeros((1, 2, 16, 8), dtype=dtype).transpose(2, 3))
+    with pytest.raises(ValueError, match="q, k, v, dout"):
+        fa.bwd_launch_plan(dtype, *_meta(z, z, z))
+    assert plan(z, z, z, z)[0] == fa.ROUTES[dtype]
+
+
+def test_backward_scratch_holds_padded_rows():
+    """The wgmma route's scratch: lse and delta for S rounded up to 128 rows
+    a (b, head)."""
+    assert fa.bwd_scratch_floats(2, 32, 4096) == 2 * 2 * 32 * 4096
+    assert fa.bwd_scratch_floats(1, 3, 1) == 2 * 3 * 128
+    assert fa.bwd_scratch_floats(8, 12, 129) == 2 * 8 * 12 * 256

@@ -399,3 +399,106 @@ def test_mixer_grads_match_model():
     for n, g in zip(names + ["x"], got):
         w = jgx if n == "x" else jgp[n]
         _close(g, w, 1e-4)
+
+
+# -- the backward kernel's tensor-core products ----------------------------------
+
+
+def _tf32_read(t: torch.Tensor) -> torch.Tensor:
+    """What the tensor core reads of an f32 operand: its top 19 bits."""
+    return (t.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tc_product(a: torch.Tensor, b: torch.Tensor, a_exact: bool, b_exact: bool) -> torch.Tensor:
+    """a @ b as ``ssd_chunk_bwd.cu`` forms it on TF32 tensor cores: an f32
+    operand split into hi (rounded to TF32) and lo (the rest, as the tensor
+    core reads it), a bf16-valued operand exact; lo x hi products first,
+    lo x lo dropped (3xTF32, or 2xTF32 with one exact operand), sums in f32."""
+    ah, al = (a, None) if a_exact else (_tf32(a), _tf32_read(a - _tf32(a)))
+    bh, bl = (b, None) if b_exact else (_tf32(b), _tf32_read(b - _tf32(b)))
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    if al is not None:
+        out = out + al @ bh
+    if bl is not None:
+        out = out + ah @ bl
+    return out + ah @ bh
+
+
+def _bwd_tc_emulation(x, a, bm, cm, dy, ds, one_pass=False):
+    """``ssd_chunk_bwd``'s arithmetic in plain torch, in f32 (dB and dC before
+    their rounding to B's dtype): C B^T on bf16 B and C exact in its
+    products, every other product through :func:`_tc_product`; or, with
+    ``one_pass``, every product on one TF32 pass."""
+    exact = bm.dtype == torch.bfloat16
+    x, a, bm, cm, dy, ds = (t.float() for t in (x, a, bm, cm, dy, ds))
+
+    def mm(p, q, p_exact=False, q_exact=False):
+        if one_pass:
+            return _tf32(p) @ _tf32(q)
+        if p_exact and q_exact:
+            return p @ q  # bf16 x bf16: exact products, f32 sums
+        return _tc_product(p, q, p_exact, q_exact)
+
+    decay = ssd_scan._decay(a)
+    g = mm(cm, bm.transpose(-1, -2), exact, exact)
+    dg = mm(dy, x.transpose(-1, -2)) * decay
+    w = torch.exp(a[..., -1:] - a)
+    bds = mm(bm, ds, exact)
+    dx = mm((g * decay).transpose(-1, -2), dy) + w[..., None] * bds
+    dc = mm(dg, bm, False, exact)
+    db = mm(dg.transpose(-1, -2), cm, False, exact) + w[..., None] * mm(x, ds.transpose(-1, -2))
+    e = dg * g
+    wdw = w * (x * bds).sum(dim=-1)
+    da = e.sum(dim=-1) - e.sum(dim=-2) - wdw
+    da[..., -1] += wdw.sum(dim=-1)
+    return dx, da, db, dc
+
+
+def _jax_vjp_per_chunk(args, dy, ds):
+    """``jax.vjp`` of the reference's oracle, chunk by chunk, as tensors
+    (dx, da, db, dc) in f32."""
+    out = [np.zeros(t.shape, np.float32) for t in args]
+    for i in range(args[0].shape[0]):
+        for j in range(args[0].shape[1]):
+            _, vjp = jax.vjp(jref.ssd_chunk_ref,
+                             *(jnp.asarray(t[i, j].float().numpy()) for t in args))
+            for o, gr in zip(out, vjp((jnp.asarray(dy[i, j].numpy()),
+                                       jnp.asarray(ds[i, j].numpy())))):
+                o[i, j] = np.asarray(gr)
+    return [torch.from_numpy(o) for o in out]
+
+
+def _bwd_rule_ratios(got, want, n_l, n, p):
+    """Each gradient's max error over its fp32-rule limit, with the rule's
+    term counts as ``chip_smoke.ssd_bwd_terms`` gives them."""
+    terms = (n_l * max(n, p), n_l * (n + p), n_l * max(n, p), n_l * max(n, p))
+    return [float((g - w).abs().max()) / _fp32_limit(nt, w)
+            for g, w, nt in zip(got, want, terms)]
+
+
+@pytest.mark.parametrize("bc_dtype", [torch.bfloat16, torch.float32])
+def test_backward_tc_products_hold_the_fp32_rule(bc_dtype):
+    """The backward kernel's products emulated (3xTF32, 2xTF32 on a bf16
+    operand, C B^T exact on bf16 B and C) at the training chunk (L 256, N =
+    P 64) against ``jax.vjp`` of the reference's oracle on the same values:
+    every gradient within the fp32 rule the card holds the kernel to."""
+    args, dy, ds = _bwd_case(2, 2, 256, 64, 64, 0.1, seed=7)
+    args[2], args[3] = args[2].to(bc_dtype), args[3].to(bc_dtype)
+    want = _jax_vjp_per_chunk(args, dy, ds)
+    ratios = _bwd_rule_ratios(_bwd_tc_emulation(*args, dy, ds), want, 256, 64, 64)
+    assert max(ratios) <= 0.2, ratios
+
+
+def test_backward_fp32_rule_fails_one_tf32_pass():
+    """Why no product of the backward kernel is a single TF32 pass: the same
+    chunk with every product on one pass misses the fp32 rule by a wide
+    margin, where the function in f64 meets it with room to spare."""
+    args, dy, ds = _bwd_case(2, 2, 256, 64, 64, 0.1, seed=7)
+    args[2], args[3] = args[2].bfloat16(), args[3].bfloat16()
+    want = _jax_vjp_per_chunk(args, dy, ds)
+    f64 = ssd_scan.ssd_chunk_bwd_plain(*(t.double() for t in args), dy.double(), ds.double())
+    passing = _bwd_rule_ratios([t.float() for t in f64], want, 256, 64, 64)
+    failing = _bwd_rule_ratios(_bwd_tc_emulation(*args, dy, ds, one_pass=True), want, 256, 64,
+                               64)
+    assert max(passing) <= 0.2, passing
+    assert min(failing) >= 3.0, failing
