@@ -8,19 +8,24 @@ result line):
 
 1. the card's name and power limit, and an ``nvcc`` build of every kernel
    from ``src/repro_torch/kernels/csrc``, all sources at once;
-2. each of the five kernels against its plain PyTorch version on the card,
+2. each of the six kernels against its plain PyTorch version on the card,
    at odd small shapes and under both precisions (nnz not a multiple of
    128, duplicates, zero padding, one slice, ranks 5x3, 13x22x10, 16 and
-   33x40, 2-way, an order-5 chain, ``fused=False`` against the fused kernel, and the
+   33x40, 2-way, an order-5 tensor, ``fused=False`` against the fused kernel, and the
    megakernel with a group's row 0 and its padding in different ranges);
    kernels 1 and 5 read the factor matrices through the schedule and each
    gives the same bits twice; each ``ttm`` call launches one kernel and
-   gives the same bits twice;
+   gives the same bits twice; the order >= 4 chain kernel
+   (``csrc/kron_chain_scatter.cu``) at 4- to 6-way shapes, with rows
+   spanning several of its ranges, in fp32, bf16_fp32acc and f64, against
+   its plain version and against kernels 3 and 4 (``fused=False``), the
+   same bits twice;
 3. the card against the CPU from the same factors (fit history, factor
    projectors and core): a NELL-2-like tensor (1000^3, 24,000 nonzeros,
    ranks 16, 5 sweeps) split and with ``fuse_core``, a 4-way tensor
-   (200x200x200x20, 1,000,000 nonzeros, ranks 8, 5 sweeps), and a small
-   4-way tensor with ``fuse_core`` (which takes the split TTM);
+   (200x200x200x20, 1,000,000 nonzeros, ranks 8, 5 sweeps; the chain
+   kernel once a mode), and a small 4-way tensor with ``fuse_core`` (which
+   takes the split TTM);
 4. the 3-way main path at the published size of FROSTT's NELL-2 tensor
    (12,092 x 9,184 x 28,818, 76,879,419 nonzeros; synthetic uniform
    coordinates, values uniform in [0.1, 10)), ranks (16, 16, 16), 5 sweeps:
@@ -39,10 +44,15 @@ result line):
    two calls, its time and bound;
 6. path A, the 4-way path at the published size of FROSTT's NIPS tensor
    (2,482 x 2,862 x 14,036 x 17, 3,101,609 nonzeros; synthetic uniform
-   coordinates, counts Poisson(3) + 1), ranks 16, 5 sweeps: launch counts,
-   per-sweep time, peak memory, the chained kernels and the core TTM
-   against their plain versions at the path's shapes, and the core against
-   one built from the returned factors by the plain versions alone;
+   coordinates, counts Poisson(3) + 1), ranks 16, 5 sweeps: launch counts
+   (the chain kernel once a mode, no kernel 3 or 4), per-sweep time, peak
+   memory (<= ``PHASE6_PEAK_GB``), no (nnz, R) gather in a warm sweep; per
+   mode the chain kernel against its plain version and against the unfused
+   route (``fused=False``, kernels 3 and 4, whose launches and device time
+   it counts), the same bits twice, its time per slot (mode 3's 17 long
+   rows against the others), kernels 3 and 4 against their plain versions,
+   and the core TTM; the core against one built from the returned factors
+   by the plain versions alone;
 7. kernels 6 (flash attention) and 7 (the Mamba-2 SSD chunk) against their
    plain versions at odd shapes: GQA, MQA, T > S, S not a block multiple,
    D 16-128 (80 included), non-causal, the Zamba2 serving shape at S 1,024,
@@ -88,11 +98,11 @@ result line):
     sweeps), nonzeros drawn per request; every result against the same
     request served alone per-tensor (fit 1e-4, projectors 1e-3, core 1e-3 x
     max|core| after sign alignment), dispatches per tenant <= ceil(N / 16),
-    each flush's launches (kernel 1 or the kernel 3 + 4 chain as one
-    member's run, kernel 2 once a member a sweep), requests/s, p50 / p99,
-    the sequential loop's requests/s, peak memory, one flush alone and its
-    busy share, and kernels 1-4 at a flush's stacked shapes against their
-    plain versions with times and bounds;
+    each flush's launches (kernel 1 or the chain kernel as one member's
+    run, kernel 2 once a member a sweep), requests/s, p50 / p99, the
+    sequential loop's requests/s, peak memory, one flush alone and its busy
+    share, and kernels 1-4 and the chain kernel at a flush's stacked shapes
+    against their plain versions with times and bounds;
 13. autotuning and snapshot/resume on phase 4's tensor, drawn anew: a cold
     ``autotune=True`` plan (one search, ``min(4, candidates)`` trials with
     the default among them, none raising; each trial's config and ms), its
@@ -105,7 +115,8 @@ result line):
     a kill at sweep 4 and ``tucker.resume`` (phase 4's bits, no schedule
     build), a retried segment (phase 4's bits), the overhead at 1 and 5
     sweeps a segment; and the kill and resume of a 4-way tensor at tenant
-    C's shape (kernels 3, 4, 2), its uninterrupted run's bits and launches;
+    C's shape (the chain kernel and kernel 2), its uninterrupted run's bits
+    and launches;
 14. sharded sparse HOOI (``TuckerSpec.shard``) in ranks spawned with
     ``torch.multiprocessing``: phase 4's tensor (drawn anew in each rank,
     its checksum held to phase 4's) over NCCL in a world of one (phase 4's
@@ -114,18 +125,22 @@ result line):
     rank the same bits, phase 3's tolerances of phase 4, the imbalance,
     kernels 1 and 2 on every rank, warm sweep ms, all-reduce ms a sweep,
     kernel 1's ms on one rank's slice, peak memory per rank); tenant C's
-    4-way shape on 4 ranks (kernels 3, 4, 2 on every rank, within phase 3's
-    tolerances of its unsharded run); a kill at sweep 4 resumed on 4 ranks
+    4-way shape on 4 ranks (the chain kernel and kernel 2 on every rank,
+    within phase 3's tolerances of its unsharded run; on rank 0's slice the
+    chain kernel and kernels 3 and 4 against their plain versions and each
+    other); a kill at sweep 4 resumed on 4 ranks
     (the uninterrupted 4-rank bits, the 4-rank fingerprint in the manifest,
     rank 0 alone writing) and on 2 (the clamp warning, phase 3's
     tolerances);
-15. float64 through the f64 instantiations of kernels 1-4: each against
-    its f64 plain version at odd shapes, and kernels 1 and 2 on phase 4's
+15. float64 through the f64 instantiations of kernels 1-4 and the chain
+    kernel: each against its f64 plain version at odd shapes, and kernels 1
+    and 2 on phase 4's
     tensor (drawn anew, its checksum held to phase 4's) in f64 from phase
     4's initial factors (3 and 1 launches a sweep, ms a sweep, peak, within
     phase 3's tolerances of phase 4's f32 run); exact rank-1 tensors (the
     f64 fit error <= 1e-6), phase 3's mid tensor and tenant C's 4-way shape
-    card against CPU in f64 (the f64 fit 1e-10, projectors 1e-8), Table
+    card against CPU in f64 (the f64 fit 1e-10, projectors 1e-8; at tenant
+    C the chain kernel timed beside kernels 3 and 4 in f64), Table
     II's rank-16 tensor at 800^3 in f64 (dense error <= 1e-10), and one
     service flush of 16 f64 requests against each served alone;
 16. the paper's Kron reuse on the torch engine (torch ops, no launch) for
@@ -143,7 +158,8 @@ result line):
     the function mode's host-read and precision checks, the schedules'
     write disjointness and shared memory), its sharded cells on 2 gloo
     ranks sharing the card, ``TuckerPlan.lint`` and ``analyze`` on phase
-    4's NELL-2 plan beside its warm sweep ms, and a seeded ``.item()`` in a
+    4's NELL-2 plan beside its warm sweep ms, ``TuckerPlan.lint`` on tenant
+    C's 4-way shape (the chain kernel's sweeps, its cuts), and a seeded ``.item()`` in a
     sweep, which must be flagged; any finding the port's baseline
     (``repro_torch/analysis/baseline.json``) does not list fails;
 19. the dense, ssm, audio, vlm and moe families at full width: qwen2-7b
@@ -209,8 +225,9 @@ result line):
     and later losses within ``R100_RESUME_LOSS_TOL`` of the uninterrupted
     run's;
 23. one JSON line per phase, the kernels line (the f64 instantiations in
-    rows of their own, the two backward kernels after them), then the
-    device line.
+    rows of their own, the two backward kernels after them; kernels 3 and
+    4's launches are those of the unfused route, ``fused=False``, which the
+    default order >= 4 path no longer takes), then the device line.
 
 Needs one CUDA card, ``nvcc`` (on PATH or under /usr/local/cuda), and the
 checkout's ``src/`` beside this file. Imports nothing of JAX.
@@ -267,6 +284,9 @@ NELL2_RANKS = (16, 16, 16)
 NIPS_SHAPE = (2482, 2862, 14036, 17)  # frostt.io/tensors/nips
 NIPS_NNZ = 3_101_609
 NIPS_RANKS = (16, 16, 16, 16)
+# phase 6's peak: the schedules, factors and unfoldings of the NIPS sweep on
+# the chain kernel (55.28 GB while kernels 3 and 4 wrote a (nnz, K) contrib)
+PHASE6_PEAK_GB = 5.0
 N_ITER = 5
 WARM_RUNS = 5  # warm NELL-2 decompositions timed in phase 4
 SEED = 0
@@ -310,6 +330,7 @@ KERNEL_SYMBOLS = {
     "flash_attention_bwd": ("::dkdv_kernel", "::dq_kernel", "::bwd_prep_kernel",
                             "::dkdv_wgmma_kernel", "::dq_wgmma_kernel"),
     "ssd_chunk_bwd": ("::ssd_bwd_cols_kernel", "::ssd_bwd_rows_kernel"),
+    "fused_kron_chain_scatter": ("::chain_scatter_kernel", "::chain_combine_kernel"),
     # kernel 6's backward by pass, for 22c
     "flash_attention_bwd dK/dV": ("::dkdv_kernel", "::dkdv_wgmma_kernel"),
     "flash_attention_bwd dQ": ("::dq_kernel", "::dq_wgmma_kernel"),
@@ -559,6 +580,22 @@ def nbytes_of(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def chain_scatter_work(sched, factors, n_rows: int, nnz: int, elem: int = 4):
+    """(bytes, operations) the order >= 4 unfolding of one mode must move
+    and do, as the chain kernel reads its inputs: the slot coordinates,
+    values, rows and cuts and the ``factors`` (as cast) once each, Y_(n)
+    written once (``elem`` bytes an entry); for each of the ``nnz`` real
+    slots v f_1 (R_1 products), its B row f_2 (x) ... (K_B (N - 3)
+    products) and K fused multiply-adds."""
+    k = 1
+    for f in factors:
+        k *= f.shape[1]
+    r0 = factors[0].shape[1]
+    nbytes = (nbytes_of(sched.idx, sched.vals, sched.rel_row, sched.blkmap, sched.chain_cuts,
+                        *factors) + n_rows * k * elem)
+    return nbytes, nnz * (2 * k + r0 + (len(factors) - 2) * (k // r0))
+
+
 def wrappers() -> dict:
     """Each kernel's wrapper, by kernel name; each counts its launches."""
     from repro_torch.kernels import flash_attention, kron_kernel, ssd_scan, ttm_kernel
@@ -566,7 +603,8 @@ def wrappers() -> dict:
     return {"fused_kron_scatter": kron_kernel.fused_kron_scatter, "ttm": ttm_kernel.ttm,
             "kron_contrib": kron_kernel.kron_contrib, "scatter_rows": kron_kernel.scatter_rows,
             "fused_kron_scatter_ttm": kron_kernel.fused_kron_scatter_ttm,
-            "flash_attention": flash_attention.flash_attention, "ssd_chunk": ssd_scan.ssd_chunk}
+            "flash_attention": flash_attention.flash_attention, "ssd_chunk": ssd_scan.ssd_chunk,
+            "fused_kron_chain_scatter": kron_kernel.fused_kron_chain_scatter}
 
 
 def reset_launches() -> None:
@@ -759,6 +797,7 @@ def phase2_kernels(dev) -> None:
                 coo5.indices, coo5.values, fs5, mode, sched, shape=shape5, precision=prec)),
                 synced(ttm_kernel.ttm_plain(y_plain.T, fs5[mode].T, precision=prec).T),
                 coo5.nnz)
+    phase2_chain_kernel(dev, rng)
     for l_, i_, r_, transposed in ((15, 1000, 3, True), (256, 28818, 16, True),
                                    (100, 300, 17, False), (8, 8, 8, False)):
         if transposed:  # the path's views: y = Y_(N)^T, u = U_N^T
@@ -771,6 +810,71 @@ def phase2_kernels(dev) -> None:
             label = f"y ({l_}, {i_}){' transposed' if transposed else ''} u ({r_}, {i_})"
             compare(f"ttm {label}", prec, check_ttm_call(label, y, u, prec),
                     synced(ttm_kernel.ttm_plain(y, u, precision=prec)), i_)
+
+
+def phase2_chain_kernel(dev, rng) -> None:
+    """The chain kernel at odd 4- to 6-way shapes: ranks 16 (K 4,096, NIPS's),
+    odd ranks, two m16 tiles, duplicates, explicit zero padding, one slice,
+    a heavy row 0 whose group's padding lies far from it; short ranges
+    (``slots_per_part``) so that rows span several warps. In fp32,
+    bf16_fp32acc and f64, each against its plain version and against the
+    chain of kernels 3 and 4 (``fused=False``), and the same bits twice."""
+    from repro_torch.core.coo import SparseCOO
+    from repro_torch.kernels import kron_kernel, ops
+    from repro_torch.sparse.layout import DeviceSchedule, build_mode_layout, operand_modes
+
+    def coo_of(shape, nnz, idx=None):
+        idx = np.stack([rng.integers(0, s_, nnz) for s_ in shape], 1) if idx is None else idx
+        return SparseCOO.from_parts(idx.astype(np.int32), rng.standard_normal(idx.shape[0]),
+                                    shape, device=dev)
+
+    base = np.stack([rng.integers(0, s_, 2000) for s_ in (40, 30, 20, 7)], 1)
+    one = np.stack([np.full(700, 777), rng.integers(0, 200, 700), rng.integers(0, 90, 700),
+                    rng.integers(0, 5, 700)], 1)
+    alias_rows = np.concatenate([np.zeros(5000), np.full(300, 3), np.full(301, 5),
+                                 rng.integers(200, 400, 700)])
+    alias = np.stack([alias_rows] + [rng.integers(0, s_, alias_rows.size) for s_ in (30, 20, 7)],
+                     1)
+    cases = [
+        ("4-way ranks 5x4x3x2", coo_of((40, 30, 20, 7), 3000), (5, 4, 3, 2), 1024),
+        ("4-way ranks 16 (K 4,096), rows over many ranges", coo_of((60, 50, 40, 10), 20000),
+         (16, 16, 16, 16), 100),
+        ("4-way ranks 33x5x4x3, two m16 tiles", coo_of((70, 60, 50, 40), 4000), (33, 5, 4, 3),
+         256),
+        ("4-way duplicates and explicit zero padding",
+         coo_of((40, 30, 20, 7), 0, np.concatenate([base, base[:500]])).pad_to(2631),
+         (4, 3, 5, 2), 64),
+        ("4-way one slice, most row blocks empty", coo_of((1000, 200, 90, 5), 0, one),
+         (6, 5, 7, 3), 128),
+        ("4-way row 0 heavy, its group's padding in another range",
+         coo_of((400, 30, 20, 7), 0, alias), (4, 3, 5, 2), 128),
+        ("5-way ranks 3x2x4x2x3", coo_of((30, 20, 10, 8, 6), 2000), (3, 2, 4, 2, 3), 37),
+        ("6-way ranks 2-3", coo_of((10, 9, 8, 7, 6, 5), 1500), (2, 3, 2, 2, 3, 2), 50),
+    ]
+    for label, coo32, ranks, spp in cases:
+        for dtype in (torch.float32, torch.float64):
+            coo = SparseCOO(coo32.indices, coo32.values.to(dtype), coo32.shape)
+            fs = [torch.randn(s_, r, device=dev, dtype=dtype) for s_, r in zip(coo.shape, ranks)]
+            for mode in range(coo.ndim):
+                sched = DeviceSchedule.from_layout(build_mode_layout(coo, mode), coo,
+                                                   slots_per_part=spp)
+                opf = [fs[t] for t in operand_modes(coo.ndim, mode)]
+                n_rows, n_terms = coo.shape[mode], max_row_count(coo, mode)
+                for prec in ("fp32",) if dtype == torch.float64 else TOL:
+                    rule = "fp64" if dtype == torch.float64 else prec
+                    tag = (f"fused_kron_chain_scatter {label} mode {mode} "
+                           f"({int(sched.chain_cuts.numel()) - 1} ranges)")
+                    kern = partial(kron_kernel.fused_kron_chain_scatter, opf, sched, n_rows,
+                                   precision=prec)
+                    got = synced(kern())
+                    compare(tag, rule, got, synced(kron_kernel.fused_kron_chain_scatter_plain(
+                        opf, sched, n_rows, precision=prec)), n_terms)
+                    compare(f"{tag} against kernels 3 and 4", rule, got, synced(
+                        ops.sparse_ttm_chain_device(coo.indices, coo.values, fs, mode, sched,
+                                                    shape=coo.shape, fused=False,
+                                                    precision=prec)), n_terms)
+                    check(torch.equal(got, synced(kern())),
+                          f"{tag} [{prec}] differs between two calls")
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -790,16 +894,14 @@ def phase3_mid(dev) -> None:
     four = random_sparse_tensor((200, 200, 200, 20), 1e6 / (200 * 200 * 200 * 20), seed=12,
                                 value_dist="counts")
     card_vs_cpu("4-way 200x200x200x20, 1,000,000 nnz, ranks 8", four, (8, 8, 8, 8),
-                expect={"kron_contrib": 8 * N_ITER, "scatter_rows": 4 * N_ITER,
-                        "ttm": N_ITER})
+                expect={"fused_kron_chain_scatter": 4 * N_ITER, "ttm": N_ITER})
     # no megakernel above order 3: fuse_core takes the TTM of the Y_(N) the
-    # sweep built, with no second chain
+    # sweep built, with no second unfolding
     small = random_sparse_tensor((60, 50, 40, 10), 2e4 / (60 * 50 * 40 * 10), seed=13,
                                  value_dist="counts")
     card_vs_cpu("4-way 60x50x40x10, 20,000 nnz, ranks 4, fuse_core", small, (4, 4, 4, 4),
                 engine=lambda d: make_engine("auto", d, fuse_core=True),
-                expect={"kron_contrib": 8 * N_ITER, "scatter_rows": 4 * N_ITER,
-                        "ttm": N_ITER})
+                expect={"fused_kron_chain_scatter": 4 * N_ITER, "ttm": N_ITER})
 
 
 def card_vs_cpu(label, x, ranks=None, engine=None, expect=None, spec=None,
@@ -955,7 +1057,8 @@ def phase4_nell2(dev, card: str):
         f"{res.schedule_builds}, fit {hist.tolist()}")
     check(res.engine == "cuda", f"engine {res.engine}")
     check(launches == {"fused_kron_scatter": 3 * N_ITER, "ttm": N_ITER, "kron_contrib": 0,
-                       "scatter_rows": 0, "fused_kron_scatter_ttm": 0, **NO_LM_LAUNCHES},
+                       "scatter_rows": 0, "fused_kron_scatter_ttm": 0,
+                       "fused_kron_chain_scatter": 0, **NO_LM_LAUNCHES},
           f"main path launches {launches}, want {3 * N_ITER} and {N_ITER}")
     check(hist.shape == (N_ITER,) and bool(np.all(np.isfinite(hist)))
           and bool(np.all((hist >= 0) & (hist <= 1))), f"fit history {hist}")
@@ -1182,7 +1285,8 @@ def phase5_fused_core(dev, card: str, coo, split_res, split_peak):
         f"{split_resident_gb:.2f} GB resident (the tensor)")
     check(res.engine == "cuda", f"engine {res.engine}")
     check(launches == {"fused_kron_scatter": 3 * N_ITER, "ttm": 0, "kron_contrib": 0,
-                       "scatter_rows": 0, "fused_kron_scatter_ttm": N_ITER, **NO_LM_LAUNCHES},
+                       "scatter_rows": 0, "fused_kron_scatter_ttm": N_ITER,
+                       "fused_kron_chain_scatter": 0, **NO_LM_LAUNCHES},
           f"path B launches {launches}")
     hist_err = float(np.abs(hist - split_res.fit_history).max())
     proj_err = max(float((a @ a.T - b @ b.T).abs().max())
@@ -1322,7 +1426,7 @@ def phase6_nips(dev, card: str):
     from repro_torch.core.coo import SparseCOO, fold_dense
     from repro_torch.core.engine import make_engine
     from repro_torch.kernels import kron_kernel, ops, ttm_kernel
-    from repro_torch.sparse.layout import slot_rows
+    from repro_torch.sparse.layout import operand_modes, slot_rows
 
     log(f"phase 6: path A, NIPS size {NIPS_SHAPE}, {NIPS_NNZ} nnz, ranks {NIPS_RANKS}, "
         f"{N_ITER} sweeps")
@@ -1348,10 +1452,11 @@ def phase6_nips(dev, card: str):
     log(f"  cold run: {t_cold:.3f} s, launches {launches}, schedule builds "
         f"{res.schedule_builds}, peak {peak_gb:.2f} GB, fit {hist.tolist()}")
     check(res.engine == "cuda", f"engine {res.engine}")
-    check(launches == {"fused_kron_scatter": 0, "ttm": N_ITER, "kron_contrib": 8 * N_ITER,
-                       "scatter_rows": 4 * N_ITER, "fused_kron_scatter_ttm": 0,
-                       **NO_LM_LAUNCHES},
+    check(launches == {"fused_kron_scatter": 0, "ttm": N_ITER, "kron_contrib": 0,
+                       "scatter_rows": 0, "fused_kron_scatter_ttm": 0,
+                       "fused_kron_chain_scatter": 4 * N_ITER, **NO_LM_LAUNCHES},
           f"path A launches {launches}")
+    check(peak_gb <= PHASE6_PEAK_GB, f"path A peak {peak_gb:.2f} GB > {PHASE6_PEAK_GB} GB")
     check(hist.shape == (N_ITER,) and bool(np.all(np.isfinite(hist)))
           and bool(np.all((hist >= 0) & (hist <= 1))), f"fit history {hist}")
     check(all(bool(torch.isfinite(f).all()) for f in res.factors),
@@ -1359,19 +1464,23 @@ def phase6_nips(dev, card: str):
     check(tuple(res.core.shape) == spec.ranks, f"core shape {tuple(res.core.shape)}")
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    gathers = ops._gathered_block_rows.calls
     start.record()
     warm = plan(coo)
     end.record()
     end.synchronize()
     sweep_ms = start.elapsed_time(end) / N_ITER
+    warm_gathers = ops._gathered_block_rows.calls - gathers
+    log(f"  warm run: {sweep_ms:.3f} ms a sweep, (nnz, R) operand gathers {warm_gathers}")
     check(warm.schedule_builds == 0 and np.array_equal(warm.fit_history, hist),
           "path A warm run rebuilt schedules or changed its result")
+    check(warm_gathers == 0, f"path A's warm run gathered (nnz, R) rows {warm_gathers} times")
     del warm
     profile = profile_run(lambda: plan(coo))
 
     # fuse_core on a 4-way tensor: there is no megakernel above order 3, so
     # the core update is the TTM of the Y_(3) the sweep built, with no second
-    # chain: the launches, the result and the time are the split path's.
+    # unfolding: the launches, the result and the time are the split path's.
     fplan = tucker.plan(spec, device=dev, engine=make_engine("cuda", dev, fuse_core=True))
     fplan(coo)  # builds the new engine's schedules
     reset_launches()
@@ -1390,20 +1499,62 @@ def phase6_nips(dev, card: str):
     del fplan, fres
 
     # each kernel at the path's shapes against its plain version, mode by
-    # mode; the 51 GB second-link contrib exists once at a time, and the
-    # plain versions run on slot chunks of it.
+    # mode: the chain kernel, then kernels 3 and 4 on the unfused route
+    # (``fused=False``), whose 51 GB second-link contrib exists once at a
+    # time, the plain versions running on slot chunks.
     eng, fs = plan.engine, [f.contiguous() for f in res.factors]
+    names = ("fused_kron_chain_scatter", "kron_contrib", "scatter_rows")
     tot = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "flops": 0,
-                  "bound_ms": 0.0, "max_abs_err": 0.0} for name in ("kron_contrib", "scatter_rows")}
+                  "bound_ms": 0.0, "max_abs_err": 0.0} for name in names}
+    tot["fused_kron_chain_scatter"].update(f32_core_bound_ms=0.0, design_3xtf32_bound_ms=0.0)
+    unfused = {"launches": {}, "device_ms": {}, "gathers": 0}
     per_mode = []
     for mode in range(4):
         sched = eng.device_schedule(coo, mode)
         n_rows = NIPS_SHAPE[mode]
+        opf = [fs[t] for t in operand_modes(4, mode)]
+        n_terms = max_row_count(coo, mode)
+        nnzp = int(sched.vals.shape[0])
+        m = {"mode": mode, "slots": nnzp, "rows": n_rows, "terms_a_row_max": n_terms,
+             "ranges": int(sched.parts.numel()) - 1,
+             "chain_ranges": int(sched.chain_cuts.numel()) - 1}
+        # the chain kernel against its plain version (slot chunks), twice
+        # for its bits
+        fused = partial(kron_kernel.fused_kron_chain_scatter, opf, sched, n_rows)
+        fused_plain = partial(kron_kernel.fused_kron_chain_scatter_plain, opf, sched, n_rows)
+        yf = synced(fused())
+        y_plain = synced(fused_plain())
+        err_f = compare(f"fused_kron_chain_scatter NIPS mode {mode} ({nnzp} slots, "
+                        f"{m['chain_ranges']} ranges)", "fp32", yf, y_plain, n_terms)
+        same = torch.equal(yf, synced(fused()))
+        log(f"  fused_kron_chain_scatter NIPS mode {mode}: the same bits from two calls: {same}")
+        check(same, f"fused_kron_chain_scatter NIPS mode {mode} differs between two calls")
+        # the unfused route, kernels 3 and 4 (sparse_ttm_chain_kernel with
+        # fused=False): its launches and device time, and the chain kernel
+        # against its Y
+        got = {}
+        reset_launches()
+        gathers = ops._gathered_block_rows.calls
+        prof = profile_run(lambda: got.update(y=ops.sparse_ttm_chain_kernel(
+            coo, fs, mode, sched, fused=False)))
+        unfused["gathers"] += ops._gathered_block_rows.calls - gathers
+        for name, n in read_launches().items():
+            if n:
+                unfused["launches"][name] = unfused["launches"].get(name, 0) + n
+        for name in ("kron_contrib", "scatter_rows"):
+            unfused["device_ms"][name] = (unfused["device_ms"].get(name, 0.0)
+                                          + prof["kernel_ms"][name])
+        compare(f"fused_kron_chain_scatter NIPS mode {mode} against fused=False (kernels 3, 4)",
+                "fp32", yf, got["y"], n_terms)
+        del got
+        f_ms = time_ms(fused, reps=10)
+        f_plain = time_ms(fused_plain, reps=1)
+        f_bytes, f_flops = chain_scatter_work(sched, opf, n_rows, NIPS_NNZ)
+        del yf
+        torch.cuda.empty_cache()
+
         rows, v = ops._gathered_block_rows(coo.indices, coo.values, fs, mode, sched, 4)
         ones = torch.ones_like(v)
-        n_terms = max_row_count(coo, mode)
-        nnzp = v.shape[0]
-        m = {"mode": mode, "slots": nnzp, "ranges": int(sched.parts.numel()) - 1}
         k1 = rows[0].shape[1] * rows[1].shape[1]
         step = (1 << 26) // (k1 * rows[2].shape[1])  # slots per plain chunk: 268 MB
         # link 1: (nnzp, R) x (nnzp, R) -> (nnzp, R^2), written once, read by link 2
@@ -1426,9 +1577,9 @@ def phase6_nips(dev, card: str):
         y = synced(kron_kernel.scatter_rows(c2, sched, n_rows))
         err_s = compare(f"scatter_rows NIPS mode {mode}", "fp32", y,
                         synced(kron_kernel.scatter_rows_plain(c2, sched, n_rows)), n_terms)
-        y_plain = synced(chain_plain(rows, v, sched, n_rows, "fp32", step))
-        compare(f"Y_({mode}) NIPS, kernels against the plain chain by chunks", "fp32", y,
-                y_plain, n_terms)
+        # the chain kernel's plain version is the chain of plain versions
+        compare(f"Y_({mode}) NIPS, kernels 3 and 4 against the plain chain by chunks", "fp32",
+                y, y_plain, n_terms)
         if mode == 3:  # the core update's unfolding, (17, 4096)
             y3, y3_plain = y, y_plain
         slots = slot_rows(sched)
@@ -1458,10 +1609,16 @@ def phase6_nips(dev, card: str):
         c_bytes = nbytes_of(rows[0], rows[1], v, c1, c1, rows[2], ones) + nnzp * k * 4
         c_flops = (kron_contrib_flops(nnzp, rows[0].shape[1], rows[1].shape[1])
                    + kron_contrib_flops(nnzp, k1, rows[2].shape[1], scaled=False))
-        for name, ms, pl, lib, nb, fl, err in (
-                ("kron_contrib", c_ms, c_plain, c_lib, c_bytes, c_flops, max(err1, err2)),
-                ("scatter_rows", s_ms, s_plain, s_lib, s_bytes, s_flops, err_s)):
-            b_ms, _ = bound(nb, fl)
+        # the chain kernel's library time: the same function as one einsum a
+        # link and index_add_ (no single call computes it)
+        for name, ms, pl, lib, nb, fl, err, peak in (
+                ("fused_kron_chain_scatter", f_ms, f_plain, c_lib + s_lib, f_bytes, f_flops,
+                 err_f, PEAK_TF32_FLOPS),
+                ("kron_contrib", c_ms, c_plain, c_lib, c_bytes, c_flops, max(err1, err2),
+                 PEAK_F32_FLOPS),
+                ("scatter_rows", s_ms, s_plain, s_lib, s_bytes, s_flops, err_s,
+                 PEAK_F32_FLOPS)):
+            b_ms, _ = bound(nb, fl, peak)
             t = tot[name]
             t["ms"] += ms
             t["plain_ms"] += pl
@@ -1471,10 +1628,24 @@ def phase6_nips(dev, card: str):
             t["bound_ms"] += b_ms
             t["max_abs_err"] = max(t["max_abs_err"], err)
             m[name] = {"ms": ms, "plain_ms": pl, "library_ms": lib, "bound_ms": b_ms}
+        t = tot["fused_kron_chain_scatter"]
+        t["f32_core_bound_ms"] += bound(f_bytes, f_flops)[0]
+        t["design_3xtf32_bound_ms"] += bound(f_bytes, 3 * f_flops, PEAK_TF32_FLOPS)[0]
+        m["fused_kron_chain_scatter"]["us_per_slot"] = f_ms * 1e3 / nnzp
         log(f"    mode {mode}: {json.dumps(m)}")
         per_mode.append(m)
         del c1, rows, v, ones, slots, y_plain
         torch.cuda.empty_cache()
+    check(unfused["launches"] == {"kron_contrib": 8, "scatter_rows": 4}
+          and unfused["gathers"] == 4,
+          f"the unfused unfoldings launched {unfused['launches']} with {unfused['gathers']} "
+          f"gathers, want 8 and 4 launches and 4 gathers")
+    # ms per slot of the mode of 17 long rows against the other modes' mean
+    per_slot = [r["fused_kron_chain_scatter"]["us_per_slot"] for r in per_mode]
+    skew = per_slot[3] / (sum(per_slot[:3]) / 3)
+    log(f"  fused_kron_chain_scatter: {tot['fused_kron_chain_scatter']['ms']:.3f} ms a sweep, "
+        f"us a slot by mode {[round(x, 6) for x in per_slot]}, mode 3 against the others' mean "
+        f"{skew:.3f}x")
 
     # the core update at the path's shapes: the TTM kernel on the transposed
     # views of Y_(3) (17, 4096) and U_3 (17, 16), against its plain version;
@@ -1500,18 +1671,36 @@ def phase6_nips(dev, card: str):
         "setup_s": {"generate_on_card": t_gen, "cold_decompose_incl_schedules": t_cold},
         "sweep_ms": sweep_ms, "fuse_core_sweep_ms": fused_sweep_ms,
         "launches_per_sweep": {k: n / N_ITER for k, n in launches.items()},
-        "per_sweep": tot, "per_mode": per_mode, "ttm_core_update": ttm_row,
+        "operand_row_gathers_warm_run": warm_gathers,
+        "per_sweep": tot, "per_mode": per_mode, "mode3_per_slot_vs_others": skew,
+        "unfused_unfoldings": unfused, "ttm_core_update": ttm_row,
         "core_max_abs_err_vs_plain": core_err, "profile_warm_run": profile,
         "peak_memory_gb": peak_gb, "fit_history": hist.tolist()}), flush=True)
-    out = {}
+    t = tot["fused_kron_chain_scatter"]
+    out = {"fused_kron_chain_scatter": {
+        "name": "fused_kron_chain_scatter", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/kron_chain_scatter.cu",
+        "replaces": "src/repro/kernels/kron_kernel.py:74",
+        "also_replaces": "src/repro/kernels/kron_kernel.py:207",
+        "launches": launches["fused_kron_chain_scatter"], "max_abs_err": t["max_abs_err"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "device_ms": profile["kernel_ms"]["fused_kron_chain_scatter"] / N_ITER,
+        "bound_ms": t["bound_ms"], "bound_by": bound(t["bytes"], t["flops"], PEAK_TF32_FLOPS)[1],
+        "f32_core_bound_ms": t["f32_core_bound_ms"],
+        "design_3xtf32_bound_ms": t["design_3xtf32_bound_ms"],
+        # one einsum a link and index_add_: no single PyTorch call computes it
+        "library_ms": t["library_ms"], "library": "torch.einsum x 2 + index_add_"}}
     for name, src, line in (("kron_contrib", "kron_contrib.cu", 74),
                             ("scatter_rows", "scatter_rows.cu", 207)):
         t = tot[name]
         out[name] = {
             "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": f"src/repro/kernels/kron_kernel.py:{line}",
-            "launches": launches[name], "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "device_ms": profile["kernel_ms"][name] / N_ITER,
+            # the default order >= 4 path runs the chain kernel: these come
+            # from the unfused unfoldings (fused=False), one sweep's worth
+            "launches": unfused["launches"][name], "path": "fused=False",
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "device_ms": unfused["device_ms"][name],
             "bound_ms": t["bound_ms"], "bound_by": bound(t["bytes"], t["flops"])[1],
             "library_ms": t["library_ms"]}
     return out
@@ -2256,7 +2445,8 @@ def phase9_zamba2(dev, card: str):
         f"{fa_routes}, peak {peak_gb:.2f} GB, {n_params / 1e9:.3f} B parameters "
         f"(init {t_init:.2f} s)")
     check(launches == {"fused_kron_scatter": 0, "ttm": 0, "kron_contrib": 0, "scatter_rows": 0,
-                       "fused_kron_scatter_ttm": 0, "flash_attention": n_sb,
+                       "fused_kron_scatter_ttm": 0, "fused_kron_chain_scatter": 0,
+                       "flash_attention": n_sb,
                        "ssd_chunk": cfg.n_layers},
           f"serving launches {launches}, want {n_sb} and {cfg.n_layers} (one prefill)")
     check(fa_routes == {"wgmma": n_sb, "simt": 0},
@@ -2498,22 +2688,22 @@ def core_gap(got, want):
 
 def single_run_launches(order: int) -> dict:
     """Launches of one per-tensor sweep of an ``order``-way tensor: kernel 1
-    a mode, or two kron_contrib links and one scatter_rows a mode above
-    order 3; kernel 2 once."""
+    a mode, or the chain kernel a mode above order 3; kernel 2 once."""
     if order <= 3:
         return {"fused_kron_scatter": order, "ttm": 1}
-    return {"kron_contrib": 2 * order, "scatter_rows": order, "ttm": 1}
+    return {"fused_kron_chain_scatter": order, "ttm": 1}
 
 
 def stacked_kernel_checks(name, stacked, fs, k: int, shape) -> dict:
-    """Kernels 1-4 at one flush's stacked shapes against their plain
-    versions (fp32 rule), from the flush's final factors: kernel 1 on every
-    mode (or the kernel 3 + 4 chain for the 4-way tenant) over the stack,
+    """The unfolding kernels and kernel 2 at one flush's stacked shapes
+    against their plain versions (fp32 rule), from the flush's final
+    factors: kernel 1 on every mode over the stack (for the 4-way tenant the
+    chain kernel, and kernels 3 and 4 as the unfused route runs them),
     kernel 2 on each member's row views of the last unfolding, as the
     batched sweeps call it. Times and bounds as phases 4, 6 and 10."""
     from repro_torch.core.engine import make_engine
     from repro_torch.kernels import kron_kernel, ops, ttm_kernel
-    from repro_torch.sparse.layout import slot_rows
+    from repro_torch.sparse.layout import operand_modes, slot_rows
 
     eng = make_engine("cuda", stacked.device)
     n = stacked.ndim
@@ -2528,7 +2718,7 @@ def stacked_kernel_checks(name, stacked, fs, k: int, shape) -> dict:
     else:
         tot = {nm: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
                     "max_abs_err": 0.0, "bytes": 0, "flops": 0}
-               for nm in ("kron_contrib", "scatter_rows")}
+               for nm in ("fused_kron_chain_scatter", "kron_contrib", "scatter_rows")}
         for mode in range(n):
             sched = eng.device_schedule(stacked, mode)
             n_rows = stacked.shape[mode]
@@ -2547,6 +2737,15 @@ def stacked_kernel_checks(name, stacked, fs, k: int, shape) -> dict:
                          synced(kron_kernel.scatter_rows_plain(c2, sched, n_rows)), terms)
             compare(f"Y_({mode}) {name} stacked, kernels against the plain chain", "fp32", y,
                     synced(chain_plain(rows, v, sched, n_rows, "fp32")), terms)
+            opf = [fs[t] for t in operand_modes(n, mode)]
+            fused = partial(kron_kernel.fused_kron_chain_scatter, opf, sched, n_rows)
+            fused_plain = partial(kron_kernel.fused_kron_chain_scatter_plain, opf, sched, n_rows)
+            yf = synced(fused())
+            ef = compare(f"fused_kron_chain_scatter {name} stacked mode {mode}", "fp32", yf,
+                         synced(fused_plain()), terms)
+            compare(f"fused_kron_chain_scatter {name} stacked mode {mode} against kernels 3 "
+                    f"and 4", "fp32", yf, y, terms)
+            f_bytes, f_flops = chain_scatter_work(sched, opf, n_rows, int(stacked.nnz))
             kk = c2.shape[1]
             slots = slot_rows(sched)
             # one PyTorch call each for the same functions (as phase 6):
@@ -2555,7 +2754,9 @@ def stacked_kernel_checks(name, stacked, fs, k: int, shape) -> dict:
                      + time_ms(lambda: torch.einsum("ti,tj->tij", c1 * ones[:, None], rows[2])))
             s_lib = time_ms(lambda: torch.zeros((n_rows, kk), device=c2.device)
                             .index_add_(0, slots, c2))
-            for nm, ms, pl, lib, nb, fl, err in (
+            for nm, ms, pl, lib, nb, fl, err, peak in (
+                    ("fused_kron_chain_scatter", time_ms(fused), time_ms(fused_plain),
+                     c_lib + s_lib, f_bytes, f_flops, ef, PEAK_TF32_FLOPS),
                     ("kron_contrib",
                      time_ms(partial(kron_kernel.kron_contrib, rows[0], rows[1], v))
                      + time_ms(partial(kron_kernel.kron_contrib, c1, rows[2], ones)),
@@ -2565,25 +2766,26 @@ def stacked_kernel_checks(name, stacked, fs, k: int, shape) -> dict:
                      nbytes_of(rows[0], rows[1], v, c1, c1, rows[2], ones) + c2.numel() * 4,
                      kron_contrib_flops(v.shape[0], rows[0].shape[1], rows[1].shape[1])
                      + kron_contrib_flops(v.shape[0], c1.shape[1], rows[2].shape[1],
-                                          scaled=False), max(e1, e2)),
+                                          scaled=False), max(e1, e2), PEAK_F32_FLOPS),
                     ("scatter_rows", time_ms(partial(kron_kernel.scatter_rows, c2, sched, n_rows)),
                      time_ms(partial(kron_kernel.scatter_rows_plain, c2, sched, n_rows)),
                      s_lib,
                      nbytes_of(c2, sched.rel_row, sched.blkmap, sched.parts) + n_rows * kk * 4,
-                     int(stacked.nnz) * kk, es)):
+                     int(stacked.nnz) * kk, es, PEAK_F32_FLOPS)):
                 t = tot[nm]
                 t["ms"] += ms
                 t["plain_ms"] += pl
                 t["library_ms"] += lib
-                t["bound_ms"] += bound(nb, fl)[0]
+                t["bound_ms"] += bound(nb, fl, peak)[0]
+                t["peak"] = peak
                 t["bytes"] += nb
                 t["flops"] += fl
                 t["max_abs_err"] = max(t["max_abs_err"], err)
             if mode == n - 1:
-                y_last = y
-            del c1, c2, rows, v, ones
+                y_last = yf
+            del c1, c2, rows, v, ones, y
         for nm, t in tot.items():
-            t["bound_by"] = bound(t["bytes"], t["flops"])[1]
+            t["bound_by"] = bound(t["bytes"], t["flops"], t.pop("peak"))[1]
             out[nm] = t
     # kernel 2 as the batched sweeps call it: on member i's rows of Y_(N)
     # and U_N, transposed views (no copy)
@@ -2707,10 +2909,11 @@ def phase12_service(dev, card: str) -> None:
         f"{len(spans)} batched dispatch spans, metrics dispatches {snap['dispatches']}")
 
     # every kernel of the path ran, and the flushes' own counts add up to them
-    path_kernels = ("fused_kron_scatter", "kron_contrib", "scatter_rows", "ttm")
+    path_kernels = ("fused_kron_scatter", "fused_kron_chain_scatter", "ttm")
     for name in path_kernels:
         check(launches[name] > 0, f"phase 12 launched {name} no time")
-    check(launches["fused_kron_scatter_ttm"] == 0 and not any(launches[k] for k in NO_LM_LAUNCHES),
+    off_path = ("fused_kron_scatter_ttm", "kron_contrib", "scatter_rows", *NO_LM_LAUNCHES)
+    check(not any(launches[k] for k in off_path),
           f"phase 12 launched kernels off its path: {launches}")
     from_spans = {name: sum(e.attrs["launches"].get(name, 0) for e in spans)
                   for name in path_kernels}
@@ -3059,7 +3262,8 @@ def _phase13(dev, card: str, ref4: dict, tmp: str) -> None:
           f"snapshot run: {res_a.snapshots_written} written, steps {steps}")
     check(seg_builds == [3, 0, 0], f"schedule builds by segment {seg_builds}")
     want = {"fused_kron_scatter": 3 * N_ITER, "ttm": N_ITER, "kron_contrib": 0,
-            "scatter_rows": 0, "fused_kron_scatter_ttm": 0, **NO_LM_LAUNCHES}
+            "scatter_rows": 0, "fused_kron_scatter_ttm": 0, "fused_kron_chain_scatter": 0,
+            **NO_LM_LAUNCHES}
     check(launches_a == want, f"snapshot run launches {launches_a}, want {want}")
 
     spec_k = snap_spec("killed")
@@ -3132,7 +3336,7 @@ def _phase13(dev, card: str, ref4: dict, tmp: str) -> None:
     del coo
     release_memory()
 
-    # 13c: the 4-way path (kernels 3, 4, 2) under segments
+    # 13c: the 4-way path (the chain kernel and kernel 2) under segments
     shape_c, nnz_c, ranks_c, method_c = TENANT_C
     idx, vals = synthetic(dev, shape_c, nnz_c, 13, "uniform")
     coo_c = SparseCOO.from_parts(idx, vals, shape_c)
@@ -3158,8 +3362,9 @@ def _phase13(dev, card: str, ref4: dict, tmp: str) -> None:
         f"both {launches_c} (uninterrupted {want_c})")
     check(killed and resumed_c.resumed_from_sweep == SNAP_KILL_AT,
           "the 4-way kill and resume did not run")
-    check(want_c["kron_contrib"] == 8 * N_ITER and want_c["scatter_rows"] == 4 * N_ITER
-          and launches_c == want_c, f"4-way launches {launches_c}, want {want_c}")
+    check(want_c["fused_kron_chain_scatter"] == 4 * N_ITER and want_c["kron_contrib"] == 0
+          and want_c["scatter_rows"] == 0 and launches_c == want_c,
+          f"4-way launches {launches_c}, want {want_c}")
     check(same_bits(resumed_c, *host_copy(base_c)),
           "the 4-way resumed run differs from its uninterrupted run")
     check(bool(np.all(np.isfinite(resumed_c.fit_history))), "4-way fit not finite")
@@ -3336,17 +3541,21 @@ def _shard_kernel1_on_slice(plan, coo, res, shape) -> dict:
 
 
 def _shard_kernels34_on_slice(plan, coo, res, shape) -> dict:
-    """Kernels 3 and 4 on this rank's slice of a 4-way tensor, mode by mode,
-    at the schedules the sharded sweep gave them: each against its plain
-    version (fp32), both timed, and each kernel's bound."""
+    """The chain kernel, and kernels 3 and 4 as the unfused route runs them,
+    on this rank's slice of a 4-way tensor, mode by mode, at the schedules
+    the sharded sweep gave them: each against its plain version (fp32), the
+    chain kernel against kernels 3 and 4 too, all timed, and each kernel's
+    bound."""
     from repro_torch.kernels import kron_kernel, ops
+    from repro_torch.sparse.layout import operand_modes
 
     sched = plan.engine.shard_schedule(coo, plan.mesh)
     local = sched.coo
     real_nnz = int(sched.shard_counts[sched.rank])
     fs = [f.contiguous() for f in res.factors]
     tot = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
-                  "bytes": 0, "flops": 0} for name in ("kron_contrib", "scatter_rows")}
+                  "bytes": 0, "flops": 0}
+           for name in ("fused_kron_chain_scatter", "kron_contrib", "scatter_rows")}
     for mode in range(4):
         ds = plan.engine.device_schedule(local, mode)
         rows, v = ops._gathered_block_rows(local.indices, local.values, fs, mode, ds, 4)
@@ -3363,29 +3572,42 @@ def _shard_kernels34_on_slice(plan, coo, res, shape) -> dict:
         err2 = compare(f"kron_contrib {label} link 2", "fp32", c2, synced(link2_plain()), 1)
         scat = partial(kron_kernel.scatter_rows, c2, ds, shape[mode])
         scat_plain = partial(kron_kernel.scatter_rows_plain, c2, ds, shape[mode])
-        err_s = compare(f"scatter_rows {label}", "fp32", synced(scat()), synced(scat_plain()),
-                        max_row_count(local, mode))
+        y = synced(scat())
+        terms = max_row_count(local, mode)
+        err_s = compare(f"scatter_rows {label}", "fp32", y, synced(scat_plain()), terms)
+        opf = [fs[t] for t in operand_modes(4, mode)]
+        fused = partial(kron_kernel.fused_kron_chain_scatter, opf, ds, shape[mode])
+        fused_plain = partial(kron_kernel.fused_kron_chain_scatter_plain, opf, ds, shape[mode])
+        yf = synced(fused())
+        err_f = compare(f"fused_kron_chain_scatter {label}", "fp32", yf, synced(fused_plain()),
+                        terms)
+        compare(f"fused_kron_chain_scatter {label} against kernels 3 and 4", "fp32", yf, y,
+                terms)
+        f_bytes, f_flops = chain_scatter_work(ds, opf, shape[mode], real_nnz)
         k1, k = c1.shape[1], c2.shape[1]
-        for name, ms, p_ms, nb, fl, err in (
+        for name, ms, p_ms, nb, fl, err, peak in (
+                ("fused_kron_chain_scatter", time_ms(fused), time_ms(fused_plain), f_bytes,
+                 f_flops, err_f, PEAK_TF32_FLOPS),
                 ("kron_contrib", time_ms(link1) + time_ms(link2),
                  time_ms(link1_plain) + time_ms(link2_plain),
                  # link 1 writes c1 and link 2 reads it; link 2 writes c2
                  nbytes_of(rows[0], rows[1], v, c1, c1, rows[2], ones) + nnzp * k * 4,
                  kron_contrib_flops(nnzp, rows[0].shape[1], rows[1].shape[1])
                  + kron_contrib_flops(nnzp, k1, rows[2].shape[1], scaled=False),
-                 max(err1, err2)),
+                 max(err1, err2), PEAK_F32_FLOPS),
                 ("scatter_rows", time_ms(scat), time_ms(scat_plain),
                  nbytes_of(c2, ds.rel_row, ds.blkmap, ds.parts) + shape[mode] * k * 4,
-                 real_nnz * k, err_s)):
+                 real_nnz * k, err_s, PEAK_F32_FLOPS)):
             t = tot[name]
             t["ms"] += ms
             t["plain_ms"] += p_ms
-            t["bound_ms"] += bound(nb, fl)[0]
+            t["bound_ms"] += bound(nb, fl, peak)[0]
             t["bytes"] += nb
             t["flops"] += fl
             t["max_abs_err"] = max(t["max_abs_err"], err)
+            t["peak"] = peak
     for t in tot.values():
-        t["bound_by"] = bound(t["bytes"], t["flops"])[1]
+        t["bound_by"] = bound(t["bytes"], t["flops"], t.pop("peak"))[1]
     return {"slice_nnz": real_nnz, **tot}
 
 
@@ -3604,7 +3826,7 @@ def phase14_sharded(dev, card: str, ref4: dict, cfg: Optional[dict] = None) -> N
             if on_card:
                 check(o["b"]["launches"] == launches3, f"14b rank {r}: launches "
                       f"{o['b']['launches']}")
-                want_c = {"kron_contrib": 8 * N_ITER, "scatter_rows": 4 * N_ITER, "ttm": N_ITER}
+                want_c = {"fused_kron_chain_scatter": 4 * N_ITER, "ttm": N_ITER}
                 check(o["c"]["launches"] == want_c, f"14c rank {r}: launches "
                       f"{o['c']['launches']}")
             check(o["killed"] == [True, True], f"14d rank {r}: the kills {o['killed']}")
@@ -3646,7 +3868,7 @@ def phase14_sharded(dev, card: str, ref4: dict, cfg: Optional[dict] = None) -> N
             "launches_rank0": c["launches"], "imbalance": c["imbalance"],
             "kernels_rank0": r0.get("c_kernels")}
         if on_card:
-            for name in ("kron_contrib", "scatter_rows"):
+            for name in ("fused_kron_chain_scatter", "kron_contrib", "scatter_rows"):
                 k = r0["c_kernels"][name]
                 check(math.isfinite(k["max_abs_err"]) and k["plain_ms"] > 0,
                       f"14c: {name} was not held to its plain version on rank 0's slice")
@@ -3691,7 +3913,8 @@ def phase14_sharded(dev, card: str, ref4: dict, cfg: Optional[dict] = None) -> N
 
 # -- phase 15: float64 through kernels 1-4 --------------------------------------
 
-F64_ROWS = ["fused_kron_scatter_f64", "ttm_f64", "kron_contrib_f64", "scatter_rows_f64"]
+F64_ROWS = ["fused_kron_scatter_f64", "ttm_f64", "kron_contrib_f64", "scatter_rows_f64",
+            "fused_kron_chain_scatter_f64"]
 F64_FIT_TOL, F64_PROJ_TOL = 1e-10, 1e-8  # 15c-15f: f64 card against f64 CPU or alone
 # a fit history is kept in f32 in either dtype (the reference's too): two
 # f32 ulps of a value in [0.5, 1)
@@ -3799,15 +4022,17 @@ def phase15_float64(dev, card: str, ref4: dict, cfg: Optional[dict] = None) -> d
     anew, its checksum held to phase 4's) in f64 from phase 4's initial
     factors, held to phase 4's f32 run; 15c an exact rank-1 tensor's fit
     error and phase 3's mid tensor card against CPU; 15d tenant C's 4-way
-    shape card against CPU (kernels 3, 4, 2); 15e Table II at 800^3 in
-    f64; 15f one service flush of 16 f64 tenant-A requests against each
-    served alone. Returns the kernels line's four f64 rows. ``cfg`` shrinks
-    the shapes for a rehearsal on the CPU."""
+    shape card against CPU (the chain kernel and kernel 2), the chain kernel
+    timed beside kernels 3 and 4 on the unfused route; 15e Table II at
+    800^3 in f64; 15f one service flush of 16 f64 tenant-A requests against
+    each served alone. Returns the kernels line's five f64 rows. ``cfg``
+    shrinks the shapes for a rehearsal on the CPU."""
     from repro_torch import tucker
     from repro_torch.core.coo import SparseCOO
     from repro_torch.core.hooi import init_factors
     from repro_torch.kernels import kron_kernel, ops, ttm_kernel
     from repro_torch.sparse.generators import random_sparse_tensor
+    from repro_torch.sparse.layout import operand_modes
 
     cfg = {"shape": NELL2_SHAPE, "nnz": NELL2_NNZ, "ranks": NELL2_RANKS,
            "rank1_shape": (1000, 1000, 1000), "rank1_support": RANK1_SUPPORT,
@@ -3846,7 +4071,8 @@ def phase15_float64(dev, card: str, ref4: dict, cfg: Optional[dict] = None) -> d
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     want = {"fused_kron_scatter": 3 * N_ITER, "ttm": N_ITER, "kron_contrib": 0,
-            "scatter_rows": 0, "fused_kron_scatter_ttm": 0, **NO_LM_LAUNCHES}
+            "scatter_rows": 0, "fused_kron_scatter_ttm": 0, "fused_kron_chain_scatter": 0,
+            **NO_LM_LAUNCHES}
     log(f"  15b NELL-2 in f64: drawn and decomposed cold in {t_cold:.2f} s, launches "
         f"{launches}, fit {res.fit_history.tolist()}")
     check(launches == want or not on_card, f"15b: launches {launches}, want {want}")
@@ -3963,13 +4189,14 @@ def phase15_float64(dev, card: str, ref4: dict, cfg: Optional[dict] = None) -> d
     out["15c"] = {"rank1_fit_errors": rank1, "rank1_nnz": r1.nnz}
     del r1, mid
 
-    # 15d: tenant C's 4-way shape in f64 (kernels 3, 4, 2)
+    # 15d: tenant C's 4-way shape in f64 (the chain kernel and kernel 2;
+    # kernels 3 and 4 on the unfused route)
     shape_c, nnz_c, ranks_c, method_c = cfg["tenant_c"]
     idx, vals = synthetic(dev, shape_c, nnz_c, 13, "uniform")
     coo_c = SparseCOO(idx.cpu(), vals.double().cpu(), shape_c)
     spec_c = tucker.TuckerSpec(shape_c, ranks_c, method=method_c, n_iter=N_ITER,
                                dtype="float64")
-    want_c = {"kron_contrib": 8 * N_ITER, "scatter_rows": 4 * N_ITER, "ttm": N_ITER}
+    want_c = {"fused_kron_chain_scatter": 4 * N_ITER, "ttm": N_ITER}
     cu, _ = card_vs_cpu(f"15d tenant C {shape_c} in f64", coo_c, spec=spec_c,
                         fit_tol=F64_FIT_TOL, proj_tol=F64_PROJ_TOL, core_tol=F64_PROJ_TOL,
                         expect=want_c if on_card else None)
@@ -3981,9 +4208,33 @@ def phase15_float64(dev, card: str, ref4: dict, cfg: Optional[dict] = None) -> d
     fs = [f.contiguous() for f in cu.factors]
     k3 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
           "f64_core_bound_ms": 0.0, "max_abs_err": 0.0}
-    k4 = dict(k3)
+    k4, k34 = dict(k3), dict(k3)
+    # the unfused route (kernels 3 and 4), one sweep's unfoldings in one
+    # profiled window (the profiler can miss a window of one short call):
+    # its launches and device time
+    scheds = [plan_c.engine.device_schedule(coo_c, mode) for mode in range(4)]
+    unfused_y = {}
+    reset_launches()
+    prof = profile_run(lambda: unfused_y.update(
+        {mode: ops.sparse_ttm_chain_kernel(coo_c, fs, mode, scheds[mode], fused=False)
+         for mode in range(4)}))
+    unfused = {"launches": {k: n for k, n in read_launches().items() if n},
+               "device_ms": {k: prof["kernel_ms"][k] for k in ("kron_contrib", "scatter_rows")}}
     for mode in range(4):
-        sched = plan_c.engine.device_schedule(coo_c, mode)
+        sched = scheds[mode]
+        n_terms = max_row_count(coo_c, mode)
+        opf = [fs[t] for t in operand_modes(4, mode)]
+        fused = partial(kron_kernel.fused_kron_chain_scatter, opf, sched, shape_c[mode])
+        fused_plain = partial(kron_kernel.fused_kron_chain_scatter_plain, opf, sched,
+                              shape_c[mode])
+        yf = synced(fused())
+        k34["max_abs_err"] = max(k34["max_abs_err"], compare(
+            f"fused_kron_chain_scatter f64 tenant C mode {mode}", "fp64", yf, fused_plain(),
+            n_terms))
+        compare(f"fused_kron_chain_scatter f64 tenant C mode {mode} against kernels 3 and 4",
+                "fp64", yf, unfused_y.pop(mode), n_terms)
+        check(torch.equal(yf, synced(fused())),
+              f"fused_kron_chain_scatter f64 tenant C mode {mode} differs between two calls")
         r, v = ops._gathered_block_rows(coo_c.indices, coo_c.values, fs, mode, sched, 4)
         ones = torch.ones_like(v)
         c1 = synced(kron_kernel.kron_contrib(r[0], r[1], v))
@@ -3995,8 +4246,7 @@ def phase15_float64(dev, card: str, ref4: dict, cfg: Optional[dict] = None) -> d
         y = synced(kron_kernel.scatter_rows(c2, sched, shape_c[mode]))
         k4["max_abs_err"] = max(k4["max_abs_err"], compare(
             f"scatter_rows f64 tenant C mode {mode}", "fp64", y,
-            kron_kernel.scatter_rows_plain(c2, sched, shape_c[mode]),
-            max_row_count(coo_c, mode)))
+            kron_kernel.scatter_rows_plain(c2, sched, shape_c[mode]), n_terms))
 
         def chain():
             return kron_kernel.kron_contrib(kron_kernel.kron_contrib(r[0], r[1], v), r[2], ones)
@@ -4020,35 +4270,52 @@ def phase15_float64(dev, card: str, ref4: dict, cfg: Optional[dict] = None) -> d
         kk = [x.shape[1] for x in r]
         b3 = 8 * n * (sum(kk) + 1 + kk[0] * kk[1] * 2 + kk[0] * kk[1] * kk[2])
         b4 = 8 * n * c2.shape[1] + 4 * n + 8 * shape_c[mode] * c2.shape[1]
-        for acc, kern, plain, lib, nbytes, flops in (
-                (k3, chain, chain_plain_, chain_lib, b3,
+        b34, f34 = chain_scatter_work(sched, opf, shape_c[mode], nnz_c, elem=8)
+        lib3, lib4 = time_ms(chain_lib, reps=3), time_ms(scatter_lib, reps=3)
+        for acc, kern, plain, lib_ms, nbytes, flops in (
+                (k34, fused, fused_plain, lib3 + lib4, b34, f34),
+                (k3, chain, chain_plain_, lib3, b3,
                  kron_contrib_flops(n, kk[0], kk[1])
                  + kron_contrib_flops(n, kk[0] * kk[1], kk[2], scaled=False)),
                 (k4, partial(kron_kernel.scatter_rows, c2, sched, shape_c[mode]),
                  partial(kron_kernel.scatter_rows_plain, c2, sched, shape_c[mode]),
-                 scatter_lib, b4, n * c2.shape[1])):
+                 lib4, b4, n * c2.shape[1])):
             acc["ms"] += time_ms(kern)
             acc["plain_ms"] += time_ms(plain, reps=3)
-            acc["library_ms"] += time_ms(lib, reps=3)
+            acc["library_ms"] += lib_ms
             acc["bound_ms"] += bound(nbytes, flops, PEAK_F64_FLOPS)[0]
             acc["f64_core_bound_ms"] += bound(nbytes, flops, PEAK_F64_CORE_FLOPS)[0]
             acc["bound_by"] = bound(nbytes, flops, PEAK_F64_FLOPS)[1]
-        del c1, c2, y
-    log(f"  15d kernels 3 (both links) and 4 f64 at tenant C, 4 modes: {k3['ms']:.3f} / "
-        f"{k4['ms']:.3f} ms a sweep, plain {k3['plain_ms']:.3f} / {k4['plain_ms']:.3f}, "
-        f"library {k3['library_ms']:.3f} / {k4['library_ms']:.3f}, bound {k3['bound_ms']:.4f} / "
-        f"{k4['bound_ms']:.4f}")
+        del c1, c2, y, yf
+    check(unfused["launches"] == {"kron_contrib": 8, "scatter_rows": 4},
+          f"15d: the unfused unfoldings launched {unfused['launches']}")
+    log(f"  15d tenant C in f64, 4 modes, ms a sweep: the chain kernel {k34['ms']:.3f} (plain "
+        f"{k34['plain_ms']:.3f}, library {k34['library_ms']:.3f}, bound {k34['bound_ms']:.4f}); "
+        f"kernels 3 (both links) and 4 {k3['ms']:.3f} / {k4['ms']:.3f}, plain "
+        f"{k3['plain_ms']:.3f} / {k4['plain_ms']:.3f}, library {k3['library_ms']:.3f} / "
+        f"{k4['library_ms']:.3f}, bound {k3['bound_ms']:.4f} / {k4['bound_ms']:.4f}")
+    rows["fused_kron_chain_scatter_f64"] = {
+        "name": "fused_kron_chain_scatter_f64", "route": "cuda",
+        "source": src + "kron_chain_scatter.cu",
+        "replaces": "src/repro/kernels/kron_kernel.py:74",
+        "also_replaces": "src/repro/kernels/kron_kernel.py:207",
+        "launches": want_c["fused_kron_chain_scatter"],
+        "device_ms": device_ms_c["fused_kron_chain_scatter"],
+        "library": "torch.einsum x 2 + index_add_", **k34}
     rows["kron_contrib_f64"] = {"name": "kron_contrib_f64", "route": "cuda",
                                 "source": src + "kron_contrib.cu",
                                 "replaces": "src/repro/kernels/kron_kernel.py:74",
-                                "launches": want_c["kron_contrib"],
-                                "device_ms": device_ms_c["kron_contrib"], **k3}
+                                "launches": unfused["launches"]["kron_contrib"],
+                                "path": "fused=False",
+                                "device_ms": unfused["device_ms"]["kron_contrib"], **k3}
     rows["scatter_rows_f64"] = {"name": "scatter_rows_f64", "route": "cuda",
                                 "source": src + "scatter_rows.cu",
                                 "replaces": "src/repro/kernels/kron_kernel.py:207",
-                                "launches": want_c["scatter_rows"],
-                                "device_ms": device_ms_c["scatter_rows"], **k4}
-    out["15d"] = {"shape": shape_c, "nnz": nnz_c, "kernel3": k3, "kernel4": k4,
+                                "launches": unfused["launches"]["scatter_rows"],
+                                "path": "fused=False",
+                                "device_ms": unfused["device_ms"]["scatter_rows"], **k4}
+    out["15d"] = {"shape": shape_c, "nnz": nnz_c, "chain_kernel": k34, "kernel3": k3,
+                  "kernel4": k4, "unfused_unfoldings": unfused,
                   "fit_history": cu.fit_history.tolist()}
     del coo_c, plan_c, cu, fs
     release_memory()
@@ -4560,8 +4827,9 @@ def phase18_contracts(dev, card: str, ref4: dict, cfg: Optional[dict] = None) ->
     ``torch.cuda.set_sync_debug_mode``), 18b the sharded cells on 2 gloo
     ranks sharing the card, 18c ``TuckerPlan.lint`` and ``analyze`` on
     phase 4's NELL-2 plan (the tensor drawn anew, its checksum held to
-    phase 4's) beside its warm sweep ms, 18d a seeded ``.item()`` in a
-    sweep, which must be flagged. Any finding the port's baseline does not
+    phase 4's) beside its warm sweep ms, and ``TuckerPlan.lint`` on tenant
+    C's 4-way shape, whose sweeps run the chain kernel, 18d a seeded
+    ``.item()`` in a sweep, which must be flagged. Any finding the port's baseline does not
     list fails the phase; the suppressed ones are printed with their
     reasons."""
     import shutil
@@ -4664,6 +4932,27 @@ def phase18_contracts(dev, card: str, ref4: dict, cfg: Optional[dict] = None) ->
           and terms["program"] == "scan", f"18c analyze {terms}")
     del coo, plan
     release_memory()
+    # ... and tenant C's 4-way shape: its sweeps on the chain kernel
+    shape_c, nnz_c, ranks_c, method_c = cfg.get("tenant_c", TENANT_C)
+    idx, vals = synthetic(dev, shape_c, nnz_c, 13, "uniform")
+    coo_c = SparseCOO.from_parts(idx, vals, shape_c)
+    del idx, vals
+    plan_c = tucker.plan(tucker.TuckerSpec(shape_c, ranks_c, method=method_c, n_iter=N_ITER),
+                         device=dev)
+    reset_launches()
+    four_raw = plan_c.lint(coo_c)
+    four_launches = {k: v for k, v in read_launches().items() if v}
+    four_kept, four_sup = baseline.filter(four_raw)
+    for f in four_raw:
+        log(f"  18c 4-way {'suppressed' if f in four_sup else 'FINDING'}: {f}")
+    log(f"  18c 4-way {shape_c}: {len(four_raw)} finding(s) ({len(four_sup)} suppressed), "
+        f"launches {four_launches}")
+    check(not four_kept, f"18c: the 4-way lint has {len(four_kept)} finding(s) the baseline "
+          "does not list: " + "; ".join(str(f) for f in four_kept))
+    check(dev.type != "cuda" or four_launches.get("fused_kron_chain_scatter", 0) > 0,
+          f"18c: the 4-way lint launched no chain kernel ({four_launches})")
+    del coo_c, plan_c
+    release_memory()
 
     # 18d: the seeded control: one .item() in each unfolding of a sweep
     from repro_torch.sparse.generators import random_sparse_tensor
@@ -4687,12 +4976,14 @@ def phase18_contracts(dev, card: str, ref4: dict, cfg: Optional[dict] = None) ->
            "matrix_s": t_matrix, "matrix_launches": {k: v for k, v in launches.items() if v},
            "cells": [{"name": c.name, "engine": c.engine, "skipped": c.skipped,
                       "findings": [f.to_json() for f in c.findings]} for c in raw.cells],
-           "suppressed": [f.to_json() for f in suppressed + nell_sup],
+           "suppressed": [f.to_json() for f in suppressed + nell_sup + four_sup],
            "sharded_ranks_s": t_ranks, "sharded": sharded,
            "nell2": {"setup_s": t_setup, "lint_s": t_lint, "sweep_ms": sweep_ms,
                      "sweep_ms_runs": runs, "phase4_sweep_ms": RECORDED.get("phase4_sweep_ms"),
                      "analyze": terms, "achieved_from_models": achieved,
                      "findings": [f.to_json() for f in nell_raw]},
+           "four_way": {"shape": shape_c, "nnz": nnz_c, "launches": four_launches,
+                        "findings": [f.to_json() for f in four_raw]},
            "control": [f.to_json() for f in control]}
     print(json.dumps(out), flush=True)
 
@@ -4902,7 +5193,8 @@ def serve_family(dev, card: str, arch: str, keep_layers, prefill_input: str,
     routes = dict(fa.flash_attention.launches_by_route)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {"fused_kron_scatter": 0, "ttm": 0, "kron_contrib": 0, "scatter_rows": 0,
-            "fused_kron_scatter_ttm": 0, "flash_attention": attn_layers,
+            "fused_kron_scatter_ttm": 0, "fused_kron_chain_scatter": 0,
+            "flash_attention": attn_layers,
             "ssd_chunk": ssd_layers}
     log(f"    cold generate {t_cold:.3f} s, launches {launches}, routes {routes}, peak "
         f"{peak_gb:.2f} GB")

@@ -20,7 +20,12 @@ rests on exactly these properties of the mode's schedule:
     two, or served twice, would be written twice (a lost sum);
   * ``idx`` and ``vals`` are the slot-ordered coordinates and values the
     walk gathers factor rows through, and rows that no slot reaches stay
-    zero (``row_mask``).
+    zero (``row_mask``);
+  * at order >= 4, ``chain_cuts`` (``sparse/layout.py::even_cuts``) cover
+    the slots once, in order: the chain kernel (``csrc/kron_chain_scatter.cu``)
+    gives each range to one warp and sums the rows that ranges share from
+    their partials in range order, so a gap or an overlap would drop or
+    double a slot.
 
 :func:`scatter_race_lint_schedule` re-derives the reference's own
 invariants on a :class:`~repro_torch.sparse.layout.SortedCOO` (the same
@@ -188,11 +193,12 @@ def scatter_race_lint_schedule(
 def scatter_race_lint_device(sched: Any, coo: Any, *,
                              where: str = "schedule") -> List[Finding]:
     """Audit one mode's :class:`~repro_torch.sparse.layout.DeviceSchedule`
-    (the arrays kernels 1 and 5 read) against the tensor ``coo`` it was
-    built from: the slot permutation, each slot's row, neutral padding,
-    contiguous rows, the row split's alignment (``parts``), and the
-    slot-ordered ``idx`` / ``vals``. Torch ops on the schedule's own device
-    (O(slots); only the verdicts are read back)."""
+    (the arrays kernels 1 and 5 and the chain kernel read) against the
+    tensor ``coo`` it was built from: the slot permutation, each slot's row,
+    neutral padding, contiguous rows, the chain kernel's cuts, the row
+    split's alignment (``parts``), and the slot-ordered ``idx`` / ``vals``.
+    Torch ops on the schedule's own device (O(slots); only the verdicts
+    are read back)."""
     import torch
 
     from repro_torch.sparse.layout import operand_modes
@@ -259,6 +265,13 @@ def scatter_race_lint_device(sched: Any, coo: Any, *,
         if torch.unique(runs).numel() != runs.numel():
             err("a row's slots are split into two runs — its two partial sums "
                 "would both be stored, the second over the first")
+    cuts = getattr(sched, "chain_cuts", None)
+    if coo.ndim >= 4 and cuts is None:
+        err("an order >= 4 schedule without chain_cuts — the chain kernel has no ranges")
+    elif cuts is not None and (cuts.numel() < 2 or int(cuts[0]) != 0 or int(cuts[-1]) != nnzp
+                               or bool((torch.diff(cuts) <= 0).any())):
+        err("chain_cuts are not a strictly increasing cover [0, nnz_padded] of the slots "
+            "— a slot would be dropped or summed twice")
     parts = sched.parts.long() if sched.parts is not None else None
     if parts is None:
         err("the schedule has no row split (parts)")

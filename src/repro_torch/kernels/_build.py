@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("kron_scatter", "ttm", "kron_contrib", "scatter_rows", "kron_scatter_ttm",
            "flash_attention", "flash_attention_wgmma", "ssd_chunk", "flash_attention_bwd",
-           "ssd_chunk_bwd", "flash_attention_bwd_wgmma")
+           "ssd_chunk_bwd", "flash_attention_bwd_wgmma", "kron_chain_scatter")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

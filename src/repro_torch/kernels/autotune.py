@@ -4,9 +4,10 @@ Port of ``repro.kernels.autotune``. The paper's FPGA sizes its dataflow
 buffers once per (tensor, rank) problem at synthesis time; on this card the
 analogue is choosing the sweep's launch parameters (:class:`BlockConfig`):
 the schedule's geometry ``bn`` (nonzeros per block) and ``bi`` (output rows
-per block), which decide the padding of the slot cache that kernels 1, 3, 4
-and 5 read (``sparse/layout.py::build_schedule``); ``slots_per_part``, the
-row split of kernels 1 and 5 (one warp a range, ``layout.row_parts``); and
+per block), which decide the padding of the slot cache that the unfolding
+kernels read (``sparse/layout.py::build_schedule``); ``slots_per_part``, the
+row split of kernels 1 and 5 (one warp a range, ``layout.row_parts``) and
+the range length of the order >= 4 chain kernel (``layout.even_cuts``); and
 the core update's ``layout``, "split" (kernel 2 on the last unfolding) or
 "fused" (kernel 5, which rebuilds the unfolding from the nonzeros). The
 reference's TTM tile ``bl``/``bk`` has no counterpart: kernel 2's tile is
@@ -19,19 +20,20 @@ Search = a prune, a ranking and short timed trials:
 
 1. each candidate's shared memory is computed with the launchers' own
    formulas at the problem's ranks (kernel 1's staging per warp,
-   ``csrc/kron_scatter.cu``; kernel 5's CTA, ``csrc/kron_scatter_ttm.cu``)
+   ``csrc/kron_scatter.cu``; kernel 5's CTA, ``csrc/kron_scatter_ttm.cu``;
+   at order >= 4 the chain kernel's, ``csrc/kron_chain_scatter.cu``)
    and held against the card's opt-in limit per block (on the CPU, the
    H100's, so both see one candidate list); a candidate whose modeled
    padded slot cache exceeds ``SLOT_CACHE_GROWTH`` x the default's is
    dropped too;
 2. the survivors are ranked by the bytes a sweep moves under them (the
-   padded slots read, the unfoldings written and read back; the fused
-   layout writes no last unfolding), ties going to the candidate closest
-   to the default;
+   padded slots read, the unfoldings written and read back, at order >= 4
+   the chain kernel's partial rows; the fused layout writes no last
+   unfolding), ties going to the candidate closest to the default;
 3. the first ``max_trials`` (the default always first among them) are
    timed on a synthetic problem of the fingerprint's nnz bucket, at most
    ``TRIAL_NNZ_CAP`` nonzeros: the N unfoldings and the core update of one
-   sweep with fixed factors (kernels 1 + 2, 1 + 5, or the 3 + 4 chain and
+   sweep with fixed factors (kernels 1 + 2, 1 + 5, or the chain kernel and
    2), which is all a configuration changes. The fastest wins.
 
 The table key is a stable fingerprint of shape, ranks, the nnz bucket
@@ -53,6 +55,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 import torch
 
 from repro_torch.obs import event as _obs_event
+from repro_torch.sparse.layout import chain_range_slots
 from repro_torch.obs import registry as _obs_registry
 from repro_torch.obs import span as _obs_span
 
@@ -147,6 +150,9 @@ def fingerprint(shape: Sequence[int], ranks: Sequence[int], nnz: int, *,
 # compile-time constants of csrc/kron_walk.cuh and csrc/kron_scatter_ttm.cu
 _K_SLOTS, _K_STAGES, _K_WARPS, _K_NT, _K_TA, _K_TB = 32, 2, 8, 2, 4, 2
 _K_BLOCK_COLS, _K_DEPTH = 256, 2
+# operand factors csrc/kron_chain_scatter.cu is compiled for (kMaxOps,
+# kron_kernel.MAX_CHAIN_OPERANDS): orders 4 to 6
+_CHAIN_MAX_OPS = 5
 
 
 def _round_up(x: int, m: int) -> int:
@@ -185,6 +191,34 @@ def _ring_bytes(ra: int, rb: int, precision: str, dtype: str = "float32") -> int
     return _K_STAGES * _K_SLOTS * (sla + slb) * elem
 
 
+def _chain_ring_bytes(rs: Sequence[int], precision: str, dtype: str = "float32") -> int:
+    """One warp's staging ring of the order >= 4 chain kernel for operand
+    ranks ``rs`` (``layout.operand_modes`` order), as
+    ``kron_chain_scatter.cu::dims_of`` computes it: each factor's rows
+    padded to 16 bytes; on the fp32 route strides of whole 16-word blocks,
+    on the CUDA-core routes f_1 in whole 4-column lane tiles and every row a
+    multiple of 8 elements. Under ``bf16_fp32acc`` f_1 and f_2 are staged in
+    bf16 and the later factors in f32."""
+    f64 = str(dtype) == "float64" and precision == "fp32"
+    tc = precision == "fp32" and not f64
+    total = 0
+    for f, r in enumerate(rs):
+        elem = 8 if f64 else 2 if precision == "bf16_fp32acc" and f < 2 else 4
+        ld = _round_up(r, 16 // elem)
+        if tc:
+            sl = _round_up(max(ld, _round_up(r, 16)), 16)
+        else:
+            sl = _round_up(max(ld, _round_up(r, _K_TA)), 8) if f == 0 else _round_up(ld, 8)
+        total += _K_SLOTS * sl * elem
+    return _K_STAGES * total
+
+
+def _chain_kernel_runs(n: int) -> bool:
+    """Whether an order-``n`` unfolding runs the chain kernel (orders 4 to
+    6; above, the chain of kernels 3 and 4)."""
+    return 4 <= n <= _CHAIN_MAX_OPS + 1
+
+
 def _mega_cta_bytes(nw: int, r: int, ring: int) -> int:
     """Kernel 5's first-pass CTA of ``nw`` warps (``Smem`` in
     ``kron_scatter_ttm.cu``)."""
@@ -203,11 +237,15 @@ def smem_bytes(cfg: BlockConfig, shape: Sequence[int], ranks: Sequence[int],
     """Shared memory of the busiest block this configuration launches: one
     warp's staging ring of kernel 1 (the launcher runs as many warps as fit,
     at least one) and, for the fused layout, kernel 5's CTA of one warp (it
-    too shrinks its warps to fit). 0 above order 3 (kernels 3 and 4 use
-    none that depends on it)."""
+    too shrinks its warps to fit). At orders 4 to 6 one warp's ring of the
+    chain kernel (it too runs as many warps as fit); 0 above (kernels 3 and
+    4 use none that depends on it)."""
     n = len(shape)
     if n > 3:
-        return 0
+        if not _chain_kernel_runs(n):
+            return 0
+        return max(_chain_ring_bytes([ranks[t] for t in range(n - 1, -1, -1) if t != m],
+                                     precision, dtype) for m in range(n))
     ring = max(_ring_bytes(*_operand_ranks(ranks, m), precision, dtype) for m in range(n))
     if cfg.layout == "fused":
         last = _ring_bytes(*_operand_ranks(ranks, n - 1), precision, dtype)
@@ -238,13 +276,16 @@ def padded_slots(cfg: BlockConfig, shape: Sequence[int], nnz: int) -> int:
 def sweep_bytes(cfg: BlockConfig, shape: Sequence[int], ranks: Sequence[int], nnz: int,
                 precision: str = "fp32", dtype: str = "float32") -> int:
     """Modeled bytes one sweep's unfoldings and core update move: every
-    padded slot's coordinates, value and row read once a mode (order <= 3;
-    above, the chained (slots, K) rows written and read as well), each
+    padded slot's coordinates, value and row read once a mode, each
     unfolding written, the last one read back by kernel 2 on the split
-    layout, and the row split's boundaries. The fused layout writes no last
-    unfolding; its partials take one (R, K) block per CTA (264 CTAs, an
-    H100's two a SM). Values and Y entries take 8 bytes in f64 (at
-    ``fp32``), 4 otherwise."""
+    layout, and the row split's boundaries. At orders 4 to 6 the chain
+    kernel adds its partial rows, two (K,) rows and their row ids a range
+    (``layout.chain_range_slots``: ``slots_per_part`` slots, fewer on a
+    small tensor), written and read once; above order 6 the
+    chained (slots, K) rows of kernels 3 and 4 are written and read. The
+    fused layout writes no last unfolding; its partials take one (R, K)
+    block per CTA (264 CTAs, an H100's two a SM). Values and Y entries take
+    8 bytes in f64 (at ``fp32``), 4 otherwise."""
     n = len(shape)
     slots = padded_slots(cfg, shape, nnz) // n
     e = 8 if str(dtype) == "float64" and precision == "fp32" else 4
@@ -256,7 +297,10 @@ def sweep_bytes(cfg: BlockConfig, shape: Sequence[int], ranks: Sequence[int], nn
                 k *= int(ranks[t])
         per_slot = 4 * (n - 1) + e + 4  # coordinates, value, row
         total += slots * per_slot + 8 * (slots // max(1, cfg.slots_per_part) + 1)
-        if n > 3:  # the chain's rows: written by kron_contrib, read by scatter_rows
+        if _chain_kernel_runs(n):  # the partial rows: written by the ranges, read by the combine
+            n_ranges = max(1, -(-slots // chain_range_slots(slots, max(1, cfg.slots_per_part))))
+            total += 2 * (2 * n_ranges * k * e + 2 * n_ranges * 4)
+        elif n > 3:  # the chain's rows: written by kron_contrib, read by scatter_rows
             total += 2 * slots * k * e
         if m == n - 1 and cfg.layout == "fused" and n <= 3:
             total += 264 * int(ranks[m]) * k * 4

@@ -12,7 +12,11 @@ Port of ``repro.kernels.kron_kernel``, one wrapper per TPU kernel:
                                   through the schedule (``csrc/kron_scatter.cu``);
   :func:`fused_kron_scatter_ttm`  ``G = U^T Y_(n)`` with Y_(n) rebuilt from
                                   the nonzeros and never stored
-                                  (``csrc/kron_scatter_ttm.cu``).
+                                  (``csrc/kron_scatter_ttm.cu``);
+  :func:`fused_kron_chain_scatter`  the order >= 4 unfolding, kernels 3 and
+                                  4's chain in one pass,
+                                  ``Y_(n)[row] += v * (f_1 (x) ... (x) f_{N-1})``
+                                  (``csrc/kron_chain_scatter.cu``).
 
 Rb varies fastest in every Kron row. Each wrapper launches its hand-written
 CUDA kernel for CUDA tensors and runs its ``*_plain`` twin for CPU tensors;
@@ -208,6 +212,32 @@ def _padded_factor(f: torch.Tensor) -> torch.Tensor:
     return f if f.data_ptr() % 16 == 0 else f.clone()
 
 
+def _slot_data(kernel: str, sched, dev: torch.device, n_cols: int, dtype: torch.dtype,
+               precision: str):
+    """The schedule's slot coordinates ``sched.idx`` ((nnzp, ``n_cols``)
+    int32), values ``sched.vals`` and row split that the walk kernels read,
+    checked against the device and the factors' ``dtype``; the values come
+    back in :func:`result_dtype` (f32 on the bf16 route). Returns
+    ``(idx, vals, parts)``."""
+    dt = result_dtype(dtype, precision)
+    parts = _check_schedule(kernel, sched, dev, int(sched.rel_row.shape[0]))
+    idx, vals = sched.idx, sched.vals
+    nnzp = int(idx.shape[0])
+    _require(idx.device == dev and vals.device == dev, "sched.idx, sched.vals off the device",
+             kernel)
+    _require(idx.dtype == torch.int32 and idx.dim() == 2 and idx.is_contiguous()
+             and idx.shape[1] == n_cols,
+             f"sched.idx must be a contiguous (nnzp, {n_cols}) int32 tensor, "
+             f"got {tuple(idx.shape)} {idx.dtype}", kernel)
+    _require(vals.dtype in (torch.float32, torch.float64) and vals.is_contiguous()
+             and vals.shape == (nnzp,),
+             "sched.vals must be a contiguous (nnzp,) float32 or float64 tensor", kernel)
+    _require(vals.dtype == dt or precision == "bf16_fp32acc",
+             f"sched.vals are {vals.dtype}, the factors {dtype}", kernel)
+    _require(nnzp < 2 ** 31, f"{nnzp} slots: the kernel indexes slots with int32", kernel)
+    return idx, vals.to(dt), parts
+
+
 def _schedule_operands(kernel: str, fa, fb, sched, precision: str):
     """Check and prepare what kernels 1 and 5 read: the factor matrices
     ``fa``, ``fb`` (None for a 2-way tensor), 2-D float32 or float64 of one
@@ -222,24 +252,8 @@ def _schedule_operands(kernel: str, fa, fb, sched, precision: str):
                  for f in operands) and fa.dtype in (torch.float32, torch.float64),
              "fa, fb must be 2-D float32 or float64 factor matrices of one dtype on one device",
              kernel)
-    dt = result_dtype(fa.dtype, precision)
     operands = _cast_operands(precision, *operands)
-    parts = _check_schedule(kernel, sched, dev, int(sched.rel_row.shape[0]))
-    idx, vals = sched.idx, sched.vals
-    nnzp = int(idx.shape[0])
-    _require(idx.device == dev and vals.device == dev, "sched.idx, sched.vals off the device",
-             kernel)
-    _require(idx.dtype == torch.int32 and idx.dim() == 2 and idx.is_contiguous()
-             and idx.shape[1] == len(operands),
-             f"sched.idx must be a contiguous (nnzp, {len(operands)}) int32 tensor, "
-             f"got {tuple(idx.shape)} {idx.dtype}", kernel)
-    _require(vals.dtype in (torch.float32, torch.float64) and vals.is_contiguous()
-             and vals.shape == (nnzp,),
-             "sched.vals must be a contiguous (nnzp,) float32 or float64 tensor", kernel)
-    _require(vals.dtype == dt or precision == "bf16_fp32acc",
-             f"sched.vals are {vals.dtype}, the factors {fa.dtype}", kernel)
-    vals = vals.to(dt)  # bf16 route: the f32 values
-    _require(nnzp < 2 ** 31, f"{nnzp} slots: the kernel indexes slots with int32", kernel)
+    idx, vals, parts = _slot_data(kernel, sched, dev, len(operands), fa.dtype, precision)
     pa = _padded_factor(operands[0])
     pb = None if fb is None else _padded_factor(operands[1])
     return pa, pb, idx, vals, parts
@@ -290,14 +304,21 @@ fused_kron_scatter.launches = 0  # kernel launches since the last reset
 _CONTRIB_CTAS_PER_SM = 8  # 256-thread CTAs of the grid-stride loop per SM
 
 
-def kron_contrib_plain(a, b, v, *, precision: str = "fp32") -> torch.Tensor:
-    """Plain PyTorch version of :func:`kron_contrib`: the outer product in
+def _kron_rows(a, b, v, precision: str) -> torch.Tensor:
+    """``v[t] * (a[t] (x) b[t])`` as kernel 3 rounds it: the outer product in
     the operands' dtype (bf16 under ``bf16_fp32acc``), scaled by the value
-    in :func:`result_dtype` (f32, or f64 for f64 operands)."""
+    in :func:`result_dtype`."""
     dt = result_dtype(a.dtype, precision)
     a, b = _cast_operands(precision, a, b)
     kron = (a[:, :, None] * b[:, None, :]).reshape(a.shape[0], -1)
     return (kron * v.to(dt)[:, None]).to(dt)
+
+
+def kron_contrib_plain(a, b, v, *, precision: str = "fp32") -> torch.Tensor:
+    """Plain PyTorch version of :func:`kron_contrib`: the outer product in
+    the operands' dtype (bf16 under ``bf16_fp32acc``), scaled by the value
+    in :func:`result_dtype` (f32, or f64 for f64 operands)."""
+    return _kron_rows(a, b, v, precision)
 
 
 def _contrib_lib():
@@ -499,3 +520,134 @@ def fused_kron_scatter_ttm(fa, fb, u, sched, n_rows: int, *,
 
 
 fused_kron_scatter_ttm.launches = 0  # kernel launches since the last reset
+
+
+# -- fused_kron_chain_scatter: the order >= 4 unfolding in one pass ------------
+
+# operand factors (N - 1) the kernel is compiled for, orders 4 to 6
+# (csrc/kron_chain_scatter.cu, kMaxOps); ops routes higher orders to the
+# chain of kernels 3 and 4
+MAX_CHAIN_OPERANDS = 5
+
+
+def fused_kron_chain_scatter_plain(factors, sched, n_rows: int, *,
+                                   precision: str = "fp32") -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_kron_chain_scatter`: kernels 3
+    and 4's chain of plain versions on slot chunks of at most
+    ``PLAIN_CHUNK_ELEMS`` Kron entries. Each chunk's factor rows are
+    gathered through ``sched.idx``, their Kron rows formed link by link with
+    the chain's roundings (``precision`` on the first link, later links at
+    fp32 in its result dtype) and ``index_add_``-ed into their rows in slot
+    order, then the row mask is applied: on the CPU the bits of
+    ``kron_contrib_plain`` chained into ``scatter_rows_plain``."""
+    dt = result_dtype(factors[0].dtype, precision)
+    k = 1
+    for f in factors:
+        k *= f.shape[1]
+    dev = factors[0].device
+    out = torch.zeros((sched.n_row_blocks * sched.bi, k), dtype=dt, device=dev)
+    rows, nnzp = slot_rows(sched), int(sched.idx.shape[0])
+    step = max(1, PLAIN_CHUNK_ELEMS // k)
+    for s in range(0, nnzp, step):
+        ix, v = sched.idx[s:s + step], sched.vals[s:s + step]
+        got = [f.index_select(0, ix[:, c]) for c, f in enumerate(factors)]
+        contrib = _kron_rows(got[0], got[1], v, precision)
+        for extra in got[2:]:
+            contrib = _kron_rows(contrib, extra.to(contrib.dtype),
+                                 torch.ones_like(v, dtype=contrib.dtype), "fp32")
+        out.index_add_(0, rows[s:s + step], contrib)
+    return _mask_unvisited(out[:n_rows], sched)
+
+
+def _chain_lib():
+    fn = _build.load("kron_chain_scatter").kron_chain_scatter_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(i), ctypes.POINTER(i), i]
+                       + [p] * 5 + [i] + [p] * 3 + [i] * 3 + [p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _chain_operands(kernel: str, factors, sched, precision: str):
+    """Check and prepare what the chain kernel reads: 3 to
+    ``MAX_CHAIN_OPERANDS`` 2-D float32 or float64 factor matrices of one
+    dtype on one CUDA device, cast per ``precision`` (under
+    ``bf16_fp32acc`` the first two to bf16, the later ones to f32, as the
+    chain's later links take them) and padded by :func:`_padded_factor`;
+    the schedule's slot coordinates, values (in :func:`result_dtype`) and
+    cached equal-length cuts. Returns ``(padded, idx, vals, cuts)``."""
+    factors = list(factors)
+    _require(len(factors) > 0 and factors[0].is_cuda,
+             f"unsupported device {factors[0].device if factors else None}", kernel)
+    dev, dtype = factors[0].device, factors[0].dtype
+    _require(3 <= len(factors) <= MAX_CHAIN_OPERANDS,
+             f"{len(factors)} operand factors: the kernel takes 3 to {MAX_CHAIN_OPERANDS} "
+             f"(orders 4 to {MAX_CHAIN_OPERANDS + 1})", kernel)
+    _require(all(f.dim() == 2 and f.dtype == dtype and f.device == dev for f in factors)
+             and dtype in (torch.float32, torch.float64),
+             "factors must be 2-D float32 or float64 matrices of one dtype on one device", kernel)
+    dt = result_dtype(dtype, precision)
+    factors = list(_cast_operands(precision, *factors[:2])) + [f.to(dt) for f in factors[2:]]
+    idx, vals, _ = _slot_data(kernel, sched, dev, len(factors), dtype, precision)
+    cuts = getattr(sched, "chain_cuts", None)
+    _require(cuts is not None and cuts.device == dev and cuts.dtype == torch.int64
+             and cuts.dim() == 1 and cuts.is_contiguous() and cuts.shape[0] >= 2,
+             "sched.chain_cuts must be the schedule's (n_ranges + 1,) int64 cuts on the "
+             "device (DeviceSchedule.from_layout builds them for order >= 4)", kernel)
+    return [_padded_factor(f) for f in factors], idx, vals, cuts
+
+
+def fused_kron_chain_scatter(factors, sched, n_rows: int, *,
+                             precision: str = "fp32") -> torch.Tensor:
+    """Y_(n) (n_rows, K) of an order-N tensor, ``N - 1 = len(factors)`` >= 3,
+    with ``Y[row(t)] += v[t] * (f_1[t] (x) ... (x) f_{N-1}[t])`` (the last
+    factor fastest, K the product of their ranks): kernels 3 and 4's chain
+    in one pass, with no (nnz, R) gather and no (nnz, K) contrib.
+
+    ``factors`` are the non-mode factor matrices in
+    :func:`~repro_torch.sparse.layout.operand_modes` order; ``sched`` is a
+    :class:`~repro_torch.sparse.layout.DeviceSchedule` of the mode: slot t
+    reads row ``sched.idx[t, f]`` of factor f and the value
+    ``sched.vals[t]``, and the kernel splits the slots at
+    ``sched.chain_cuts``. ``precision`` rounds as the chain does: under
+    ``bf16_fp32acc`` f_1 and f_2 in bf16 and their product too, the later
+    factors in f32 (the reference's later links run at fp32); f64 factors
+    at ``fp32`` give an f64 Y. CPU tensors run the plain version; CUDA
+    tensors launch the kernels of ``csrc/kron_chain_scatter.cu`` (the
+    ranges, then the in-order sum of the rows they share) or raise. The
+    kernel is compiled for 3 to ``MAX_CHAIN_OPERANDS`` factors (orders 4 to
+    6); :func:`repro_torch.kernels.ops.sparse_ttm_chain_device` sends higher
+    orders to the chain of kernels 3 and 4.
+    """
+    if factors[0].device.type == "cpu":
+        return fused_kron_chain_scatter_plain(factors, sched, n_rows, precision=precision)
+    kernel = "fused_kron_chain_scatter"
+    padded, idx, vals, cuts = _chain_operands(kernel, factors, sched, precision)
+    ranks = [int(f.shape[1]) for f in factors]
+    k = 1
+    for r in ranks:
+        k *= r
+    dev = padded[0].device
+    out = torch.zeros((n_rows, k), dtype=vals.dtype, device=dev)
+    n_ranges = int(cuts.shape[0]) - 1
+    part = torch.empty((2 * n_ranges, k), dtype=vals.dtype, device=dev)
+    part_rows = torch.empty((2 * n_ranges,), dtype=torch.int32, device=dev)
+    m = len(padded)
+    ptrs = (ctypes.c_void_p * m)(*[f.data_ptr() for f in padded])
+    c_ranks = (ctypes.c_int * m)(*ranks)
+    c_lds = (ctypes.c_int * m)(*[int(f.shape[1]) for f in padded])
+    fn = _chain_lib()
+    with torch.cuda.device(dev):
+        rc = fn(ptrs, c_ranks, c_lds, m, idx.data_ptr(), vals.data_ptr(),
+                sched.rel_row.data_ptr(), sched.blkmap.data_ptr(), cuts.data_ptr(), n_ranges,
+                out.data_ptr(), part.data_ptr(), part_rows.data_ptr(), sched.bn, sched.bi,
+                _kind(padded[0].dtype), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"kron_chain_scatter_launch failed at ranks {ranks}: CUDA error "
+                           f"{rc} (1: the ranks exceed one warp's shared-memory staging)")
+    launch_count.count(fused_kron_chain_scatter)
+    return out
+
+
+fused_kron_chain_scatter.launches = 0  # kernel launches since the last reset

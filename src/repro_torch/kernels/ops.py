@@ -45,8 +45,10 @@ def sparse_ttm_chain_kernel(
     """Alg. 2 line 5 on the kernels, for one COO: Y_(skip_mode), f32 (f64
     for f64 factors at ``fp32``).
 
-    3-way tensors take kernel 1 (``fused_kron_scatter``); higher orders, and
-    ``fused=False``, chain ``kron_contrib`` and sum with ``scatter_rows``.
+    The routes are those of :func:`sparse_ttm_chain_device`: kernel 1 for
+    2- and 3-way tensors, the fused chain kernel for orders 4 to 6, and with
+    ``fused=False`` (or above order 6) ``kron_contrib`` chained and summed
+    with ``scatter_rows``.
     ``plan`` is the mode's schedule: a :class:`ScatterPlan`, a
     :class:`SortedCOO` or a :class:`DeviceSchedule`, built once per (tensor,
     mode) and reused across sweeps; a missing one is built here. The
@@ -64,9 +66,9 @@ def _gathered_block_rows(indices, values, factors, skip_mode, sched, n):
     """The non-mode factor rows of every schedule slot, in descending mode
     order (padding slots gather row 0 with value 0), from the schedule's
     cached slot coordinates (``sched.idx``, which are ``indices[order]``)
-    and values. Only the unfused (``fused=False``) and order >= 4
-    unfoldings read these (nnz_padded, R) operands; the fused 3-way and
-    2-way unfolding and core update gather the rows inside their kernels."""
+    and values. Only the unfused (``fused=False``) unfoldings and those
+    above the chain kernel's order read these (nnz_padded, R) operands; the
+    fused unfoldings and core update gather the rows inside their kernels."""
     _gathered_block_rows.calls += 1
     modes = operand_modes(n, skip_mode)
     rows = [factors[t].index_select(0, sched.idx[:, c]) for c, t in enumerate(modes)]
@@ -92,11 +94,18 @@ def sparse_ttm_chain_device(
 ) -> torch.Tensor:
     """Y_(skip_mode) on the device schedule ``sched`` of that mode.
 
-    2- and 3-way tensors (the paper's case) take the fused Kron-scatter
-    kernel, which reads the factor rows through the schedule's cached slot
-    coordinates, unless ``fused=False``; higher orders, and ``fused=False``, chain
-    ``kron_contrib`` (``precision`` applies to the first link only, as in
-    the reference) and then sum the rows with ``scatter_rows``.
+    Routes, chosen by order alone unless ``fused=False``:
+
+    * 2- and 3-way tensors (the paper's case): the fused Kron-scatter kernel
+      (kernel 1), which reads the factor rows through the schedule's cached
+      slot coordinates;
+    * orders 4 to ``MAX_CHAIN_OPERANDS + 1`` (6): the fused chain kernel
+      (``fused_kron_chain_scatter``), which does the same with every
+      non-mode factor and splits long rows over warps;
+    * ``fused=False``, at any order, and orders above 6 (the chain kernel's
+      compiled-in cap): the reference's unfused chain, ``kron_contrib`` link
+      by link (``precision`` applies to the first link only, as in the
+      reference) on gathered (nnz, R) rows, then ``scatter_rows``.
     """
     n = len(shape)
     n_rows = int(shape[skip_mode])
@@ -108,6 +117,10 @@ def sparse_ttm_chain_device(
             factors[modes[0]], factors[modes[1]] if n == 3 else None, sched, n_rows,
             precision=precision,
         )
+    if fused and n - 1 <= kron_kernel.MAX_CHAIN_OPERANDS:
+        return kron_kernel.fused_kron_chain_scatter(
+            [factors[t] for t in operand_modes(n, skip_mode)], sched, n_rows,
+            precision=precision)
     rows, vals = _gathered_block_rows(indices, values, factors, skip_mode, sched, n)
     contrib = kron_contrib(rows[0], rows[1], vals, precision=precision)
     for extra in rows[2:]:  # later links in the first link's result dtype
@@ -130,8 +143,8 @@ def sparse_ttm_core_device(
     R_t) f32, without materialising Y_(n) for 2- and 3-way tensors: the
     megakernel re-streams the nonzeros, reads their factor rows through the
     schedule and contracts each finished row. Higher orders take the split
-    path, the chained unfolding and then the TTM kernel, as the reference
-    does."""
+    path, the unfolding (the fused chain kernel up to order 6) and then the
+    TTM kernel, as the reference does."""
     u = factors[skip_mode]
     if indices.shape[0] == 0:
         y0 = zero_unfolding(tuple(shape), factors, skip_mode)

@@ -233,6 +233,36 @@ def row_parts(layout, n_parts: Optional[int] = None,
     return torch.cat([cuts, torch.tensor([nnzp], dtype=torch.int64, device=dev)])
 
 
+# the chain kernel's ranges hold at most slots_per_part slots, and fewer on a
+# small tensor, so that it still gives the card about this many warps (an
+# H100 holds 132 SMs x 16 of them)
+CHAIN_MIN_RANGES = 2048
+
+
+def chain_range_slots(nnzp: int, slots_per_part: int = SLOTS_PER_PART) -> int:
+    """Slots a range of the order >= 4 chain kernel holds for ``nnzp``
+    slots: ``slots_per_part``, or fewer when that would give fewer than
+    ``CHAIN_MIN_RANGES`` ranges (then a multiple of 32, the kernel's chunk,
+    and at least 32)."""
+    per = -(-nnzp // CHAIN_MIN_RANGES)
+    return min(slots_per_part, max(32, -(-per // 32) * 32))
+
+
+def even_cuts(nnzp: int, slots_per_range: int = SLOTS_PER_PART, device=None) -> torch.Tensor:
+    """Cut ``nnzp`` slots into ranges of ``slots_per_range`` slots (the last
+    one shorter), wherever the rows fall: the (n_ranges + 1,) int64
+    boundaries, built on ``device``. The order >= 4 unfolding kernel
+    (``csrc/kron_chain_scatter.cu``) gives each range to one warp, so a row
+    longer than a range spreads over several warps and every warp does the
+    same work; the rows a range shares with its neighbours are summed from
+    per-range partials in range order."""
+    if slots_per_range < 1:
+        raise ValueError(f"slots_per_range must be >= 1, got {slots_per_range}")
+    n_ranges = max(1, -(-nnzp // slots_per_range))
+    cuts = torch.arange(n_ranges + 1, dtype=torch.int64, device=device) * slots_per_range
+    return cuts.clamp_(max=nnzp)
+
+
 def operand_modes(n: int, mode: int) -> Tuple[int, ...]:
     """The modes whose factor rows form a mode-``mode`` Kron row, in
     descending order (the last varies fastest)."""
@@ -246,6 +276,9 @@ class DeviceSchedule:
     there) and reused every sweep. ``parts`` is the unfolding kernel's
     row-aligned work split (:func:`row_parts`); the kernel needs no
     ``first``/``last`` block flags, so they stay on the layout.
+    ``chain_cuts`` is the order >= 4 kernel's split, ranges of equal length
+    that ignore row starts (:func:`even_cuts`, :func:`chain_range_slots`);
+    None below order 4.
 
     ``idx`` and ``vals`` are the tensor's nonzeros in slot order, built once
     because they do not change between sweeps: ``idx`` (nnz_padded, N - 1)
@@ -274,6 +307,7 @@ class DeviceSchedule:
     kron_unique: Optional[torch.Tensor] = None
     kron_inverse: Optional[torch.Tensor] = None
     kron_modes: Optional[Tuple[int, ...]] = None
+    chain_cuts: Optional[torch.Tensor] = None
 
     @classmethod
     def from_layout(cls, layout, coo: SparseCOO, device=None, *,
@@ -282,7 +316,10 @@ class DeviceSchedule:
         """The schedule of ``layout`` (a :class:`SortedCOO`, or a
         ``kron_kernel.ScatterPlan`` with its ``mode`` given), built from
         ``coo``, on ``device`` (the layout's by default), its row split at
-        about ``slots_per_part`` slots a range (:func:`row_parts`)."""
+        about ``slots_per_part`` slots a range (:func:`row_parts`) and, for
+        an order >= 4 tensor, the chain kernel's cuts of exactly that many,
+        or fewer on a small tensor (:func:`chain_range_slots`,
+        :func:`even_cuts`)."""
         dev = torch.device(device) if device is not None else layout.order.device
         mode = layout.mode if mode is None else mode
 
@@ -291,6 +328,7 @@ class DeviceSchedule:
 
         order = put(layout.order)
         valid = put(layout.valid)
+        nnzp = int(order.shape[0])
         cols = list(operand_modes(coo.ndim, mode))
         idx = _in_slot_order(coo.indices.to(dev)[:, cols], order)
         return cls(
@@ -301,6 +339,8 @@ class DeviceSchedule:
             idx=idx, vals=slot_values(coo.values.to(dev), order, valid),
             mode=mode, shape=tuple(coo.shape),
             n_row_blocks=layout.n_row_blocks, bn=layout.bn, bi=layout.bi,
+            chain_cuts=(even_cuts(nnzp, chain_range_slots(nnzp, slots_per_part), dev)
+                        if coo.ndim >= 4 else None),
         )
 
     @classmethod

@@ -178,7 +178,8 @@ def test_fallback_specs_run_k_sequential_calls(case):
 def count_plain_launches(monkeypatch):
     """Make every plain unfolding and core update count one launch, as its
     kernel would on the card (the CPU launches none)."""
-    for name in ("fused_kron_scatter", "kron_contrib", "scatter_rows"):
+    for name in ("fused_kron_scatter", "kron_contrib", "scatter_rows",
+                 "fused_kron_chain_scatter"):
         wrapper, plain = getattr(kron_kernel, name), getattr(kron_kernel, f"{name}_plain")
 
         def counted(*a, _plain=plain, _wrapper=wrapper, **kw):
@@ -220,9 +221,10 @@ def test_launches_are_exact_per_call_under_concurrent_batches(monkeypatch):
     # once per member per sweep; the single call: 3 + 1 a sweep
     assert batch3[0].launches == 3 * 3 + 4 * 3 and single3.launches == 4 * 3
     assert [r.launches for r in batch3[1:]] == [0, 0, 0]
-    # 4-way: kron_contrib twice and scatter_rows once per mode, kernel 2 per member
+    # 4-way: the chain kernel once per mode for the whole batch, kernel 2
+    # per member
     batch4, single4 = runs[4]
-    assert batch4[0].launches == 2 * (4 * 3 + 2) and single4.launches == 2 * (4 * 3 + 1)
+    assert batch4[0].launches == 2 * (4 + 2) and single4.launches == 2 * (4 + 1)
 
 
 def test_launch_tally_is_per_thread():

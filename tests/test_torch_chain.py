@@ -239,7 +239,8 @@ def test_engine_fused_core_update_matches_the_split_one(shape, ranks):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("call", ["kron_contrib", "scatter_rows", "fused_kron_scatter_ttm"])
+@pytest.mark.parametrize("call", ["kron_contrib", "scatter_rows", "fused_kron_scatter_ttm",
+                                  "fused_kron_chain_scatter"])
 def test_wrappers_never_fall_back_off_the_cpu(call):
     """A tensor that is not on the CPU goes to the kernel or raises; the
     plain version is never its fallback."""
@@ -250,5 +251,7 @@ def test_wrappers_never_fall_back_off_the_cpu(call):
             kron_kernel.kron_contrib(a, b, v)
         elif call == "scatter_rows":
             kron_kernel.scatter_rows(torch.zeros(4, 6, device=m), None, 3)
+        elif call == "fused_kron_chain_scatter":
+            kron_kernel.fused_kron_chain_scatter([a, b, torch.zeros(5, 2, device=m)], None, 3)
         else:
             kron_kernel.fused_kron_scatter_ttm(a, b, torch.zeros(3, 2, device=m), None, 3)

@@ -463,8 +463,8 @@ def test_launches_exact_per_result_under_two_concurrent_flushes(monkeypatch):
         r4 = [t.result(timeout=120) for t in t4]
     # 3-way, k 4, 2 sweeps: kernel 1 once per mode and sweep, kernel 2 per member and sweep
     assert [r.launches for r in r3] == [3 * 2 + 4 * 2, 0, 0, 0]
-    # 4-way, k 3, 3 sweeps: two kron_contrib and one scatter_rows a mode, kernel 2 per member
-    assert [r.launches for r in r4] == [3 * (4 * 3) + 3 * 3, 0, 0]
+    # 4-way, k 3, 3 sweeps: the chain kernel once a mode, kernel 2 per member
+    assert [r.launches for r in r4] == [3 * 4 + 3 * 3, 0, 0]
     assert svc.metrics.snapshot()["dispatches"] == 2
 
 
