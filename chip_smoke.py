@@ -52,7 +52,9 @@ result line):
    it counts), the same bits twice, its time per slot (mode 3's 17 long
    rows against the others), kernels 3 and 4 against their plain versions,
    and the core TTM; the core against one built from the returned factors
-   by the plain versions alone;
+   by the plain versions alone; the chain kernel's bf16_fp32acc route a
+   mode against its plain version, timed beside the fp32 route, with its
+   device time, bound, plain and library times over one sweep's four calls;
 7. kernels 6 (flash attention) and 7 (the Mamba-2 SSD chunk) against their
    plain versions at odd shapes: GQA, MQA, T > S, S not a block multiple,
    D 16-128 (80 included), non-causal, the Zamba2 serving shape at S 1,024,
@@ -142,7 +144,15 @@ result line):
     card against CPU in f64 (the f64 fit 1e-10, projectors 1e-8; at tenant
     C the chain kernel timed beside kernels 3 and 4 in f64), Table
     II's rank-16 tensor at 800^3 in f64 (dense error <= 1e-10), and one
-    service flush of 16 f64 requests against each served alone;
+    service flush of 16 f64 requests against each served alone; 15g kernel
+    5's f64 instantiation (``fuse_core=True``): at odd 2- and 3-way shapes
+    (ranks 1-17, R not a multiple of 8) against its f64 plain version, at
+    NELL-2's last mode against its plain version and the split f64 core
+    update (kernel 1, then kernel 2, in f64), the same bits twice, timed
+    beside both; phase 4's tensor in f64 with ``fuse_core=True`` (3 + 1
+    launches a sweep) held to 15b's split f64 run (f64 fit 1e-10,
+    projectors and core 1e-8); one f64 autotune search with the fused
+    layout timed beside the split one;
 16. the paper's Kron reuse on the torch engine (torch ops, no launch) for
     the Table V tensors and tenant C's shape, against the plain torch chain
     (fit and core within 1e-6), with the share of distinct Kron rows, ms a
@@ -219,15 +229,34 @@ result line):
     version's, SDPA backward's (kernel 6) and its bound, kernel 6's
     device time by pass (delta, dK/dV, dQ) beside its design's bound, and
     both kernels' registers and spills from ptxas; 22d repro-100m at
-    full width through ``python -m repro_torch.train``'s code path, 300
+    full width through ``python -m repro_torch.train``'s code path, 200
     steps of 8 x 128 with a checkpoint every 50 (the loss falls), then a
-    run killed at step 160 that resumes at 150 with the checkpoint's bits
+    run killed at step 110 that resumes at 100 with the checkpoint's bits
     and later losses within ``R100_RESUME_LOSS_TOL`` of the uninterrupted
     run's;
-23. one JSON line per phase, the kernels line (the f64 instantiations in
-    rows of their own, the two backward kernels after them; kernels 3 and
-    4's launches are those of the unfused route, ``fused=False``, which the
-    default order >= 4 path no longer takes), then the device line.
+23. QRP gradient compression (``repro_torch.optim.compression``): 23a
+    ``compress_matrix`` on the card against the same call on the CPU for
+    each of granite-moe-1b-a400m's 10 layer-stacked gradient shapes at
+    r = 64 (seeded gradients of rank r plus noise; the subspaces within
+    1e-3, sin of the largest principal angle, which bounds the projectors'
+    gap; Q P^T within 1e-3 x max|CPU|); 23b ``python -m
+    repro_torch.launch.compress_bench --rank 64 --arch
+    granite-moe-1b-a400m`` over 2 gloo ranks sharing the card: every output
+    finite, each rank's bytes to ``all_reduce`` exactly the r (m + n) model
+    (r = min(64, m, n)), both ranks the same G_hat bits, both syncs' bytes
+    and ms;
+24. the roofline (``repro_torch.launch.roofline``) under its ``h100-sxm``
+    preset over one record a measured cell: phase 19's prefills (4 x
+    4,096; the depth-cut InternVL2 and Grok cells listed as skipped) and
+    phase 22c's Zamba2-2.7B train step (2 x 4,096), each with
+    ``flops.cell_cost``'s FLOPs, no collective bytes on one card and the
+    measured peak memory; the compute term must be ``cell_cost``'s FLOPs
+    over the preset's bf16 peak, which phases 21b and 22c divide by;
+25. one JSON line per phase, the kernels line (the f64 instantiations in
+    rows of their own, then the chain kernel's bf16 route, then the two
+    backward kernels; kernels 3 and 4's launches are those of the unfused
+    route, ``fused=False``, which the default order >= 4 path no longer
+    takes), then the device line.
 
 Needs one CUDA card, ``nvcc`` (on PATH or under /usr/local/cuda), and the
 checkout's ``src/`` beside this file. Imports nothing of JAX.
@@ -259,23 +288,29 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+try:
+    from repro_torch.launch.roofline import ARCH_PRESETS  # noqa: E402
+except ImportError:
+    sys.exit("chip_smoke: src/repro_torch is not beside this script")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, the f32 CUDA-core rate
-# and the dense bf16 and TF32 tensor-core rates. Kernel 6 on bf16 operands
+# and the dense bf16 and TF32 tensor-core rates; HBM and bf16 are read from
+# repro_torch.launch.roofline's "h100-sxm" preset. Kernel 6 on bf16 operands
 # runs on the tensor cores and its bound counts them at the bf16 rate;
 # kernel 1's fp32 products run on the tensor cores (3xTF32) and its bound
 # counts them at the TF32 rate; kernel 7's bound counts C B^T on bf16
 # operands at the bf16 rate and its other products (3xTF32) as three
 # products at the TF32 rate; every other kernel does its arithmetic in f32
 # on the CUDA cores.
-PEAK_BYTES_PER_S = 3.35e12
+PEAK_BYTES_PER_S = ARCH_PRESETS["h100-sxm"].hbm_bw
 PEAK_F32_FLOPS = 67e12
 # f64: the card's peak (the DMMA tensor cores), which every f64 bound
 # counts; and the CUDA cores', where the f64 instantiations of kernels 1-4
 # run, for each f64 row's "f64_core_bound_ms" beside its bound
 PEAK_F64_FLOPS = 67e12
 PEAK_F64_CORE_FLOPS = 34e12
-PEAK_BF16_FLOPS = 989e12
+PEAK_BF16_FLOPS = ARCH_PRESETS["h100-sxm"].peak_flops
 PEAK_TF32_FLOPS = 495e12
 
 NELL2_SHAPE = (12092, 9184, 28818)
@@ -363,7 +398,6 @@ def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch is not beside this script", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
 
@@ -424,8 +458,11 @@ def main() -> int:
     timed("20 Tucker layers", phase20_tucker_layers, dev, card)
     timed("21 moe and sampling", phase21_moe_sampling, dev, card)
     kernels.update(timed("22 training", phase22_training, dev, card))
+    timed("23 gradient compression", phase23_compression, dev, card)
+    timed("24 roofline", phase24_roofline, dev, card)
     print(json.dumps({"kernels": [kernels[k] for k in list(wrappers()) + F64_ROWS
-                                  + ["flash_attention_bwd", "ssd_chunk_bwd"]]}), flush=True)
+                                  + ["fused_kron_chain_scatter_bf16", "flash_attention_bwd",
+                                     "ssd_chunk_bwd"]]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -1345,7 +1382,7 @@ def phase5_fused_core(dev, card: str, coo, split_res, split_peak):
     ra, rb, r, k = fa.shape[1], fb.shape[1], u.shape[1], fa.shape[1] * fb.shape[1]
     nnzp = int(sched.vals.shape[0])
     grid = dict(kron_kernel.mega_grid(dev, ra, rb, kron_kernel._padded_factor(fa).shape[1],
-                                      kron_kernel._padded_factor(fb).shape[1], r, False,
+                                      kron_kernel._padded_factor(fb).shape[1], r, 0,
                                       int(sched.parts.numel()) - 1),
                 ranges=int(sched.parts.numel()) - 1)
     log(f"  megakernel grid (fp32): {grid}")
@@ -1507,6 +1544,12 @@ def phase6_nips(dev, card: str):
     tot = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "flops": 0,
                   "bound_ms": 0.0, "max_abs_err": 0.0} for name in names}
     tot["fused_kron_chain_scatter"].update(f32_core_bound_ms=0.0, design_3xtf32_bound_ms=0.0)
+    # the chain kernel's bf16_fp32acc route (the CUDA cores), a sweep's four modes
+    # bounded as the fp32 route: the same operations at the TF32 rate, with
+    # the CUDA-core and 3xTF32 yardsticks beside it
+    tot_b = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "flops": 0,
+             "bound_ms": 0.0, "f32_core_bound_ms": 0.0, "design_3xtf32_bound_ms": 0.0,
+             "max_abs_err": 0.0}
     unfused = {"launches": {}, "device_ms": {}, "gathers": 0}
     per_mode = []
     for mode in range(4):
@@ -1551,6 +1594,22 @@ def phase6_nips(dev, card: str):
         f_plain = time_ms(fused_plain, reps=1)
         f_bytes, f_flops = chain_scatter_work(sched, opf, n_rows, NIPS_NNZ)
         del yf
+        # the bf16_fp32acc route against its plain version, twice for its bits
+        b16 = partial(kron_kernel.fused_kron_chain_scatter, opf, sched, n_rows,
+                      precision="bf16_fp32acc")
+        b16_plain = partial(kron_kernel.fused_kron_chain_scatter_plain, opf, sched, n_rows,
+                            precision="bf16_fp32acc")
+        yb = synced(b16())
+        err_bf = compare(f"fused_kron_chain_scatter NIPS mode {mode}", "bf16_fp32acc", yb,
+                        synced(b16_plain()), n_terms)
+        check(torch.equal(yb, synced(b16())),
+              f"fused_kron_chain_scatter bf16 NIPS mode {mode} differs between two calls")
+        del yb
+        bf_ms, bf_plain = time_ms(b16, reps=10), time_ms(b16_plain, reps=1)
+        # f_1 and f_2 staged in bf16, the later factors in f32
+        bf_bytes, bf_flops = chain_scatter_work(
+            sched, list(kron_kernel._cast_operands("bf16_fp32acc", *opf[:2])) + opf[2:], n_rows,
+            NIPS_NNZ)
         torch.cuda.empty_cache()
 
         rows, v = ops._gathered_block_rows(coo.indices, coo.values, fs, mode, sched, 4)
@@ -1603,9 +1662,15 @@ def phase6_nips(dev, card: str):
                                                ones[s:s + step])
 
         c_plain += time_ms(link2_plain_chunks, reps=1)
-        c_lib = time_ms(lambda: torch.einsum("ti,tj->tij", rows[0] * v[:, None], rows[1]))
-        c_lib += time_ms(lambda: torch.einsum("ti,tj->tij", c1 * ones[:, None], rows[2]),
+        c_lib2 = time_ms(lambda: torch.einsum("ti,tj->tij", c1 * ones[:, None], rows[2]),
                          reps=3)
+        c_lib = time_ms(lambda: torch.einsum("ti,tj->tij", rows[0] * v[:, None], rows[1]))
+        c_lib += c_lib2
+        # the bf16 route's first link: products of the bf16 rows rounded to
+        # bf16, then scaled by the f32 values, as the kernel rounds them
+        bf_lib = time_ms(lambda: torch.einsum("ti,tj->tij", rows[0].bfloat16(),
+                                             rows[1].bfloat16()).float() * v[:, None, None])
+        bf_lib += c_lib2 + s_lib
         c_bytes = nbytes_of(rows[0], rows[1], v, c1, c1, rows[2], ones) + nnzp * k * 4
         c_flops = (kron_contrib_flops(nnzp, rows[0].shape[1], rows[1].shape[1])
                    + kron_contrib_flops(nnzp, k1, rows[2].shape[1], scaled=False))
@@ -1628,6 +1693,16 @@ def phase6_nips(dev, card: str):
             t["bound_ms"] += b_ms
             t["max_abs_err"] = max(t["max_abs_err"], err)
             m[name] = {"ms": ms, "plain_ms": pl, "library_ms": lib, "bound_ms": b_ms}
+        bf_bound = bound(bf_bytes, bf_flops, PEAK_TF32_FLOPS)[0]
+        for key, val in (("ms", bf_ms), ("plain_ms", bf_plain), ("library_ms", bf_lib),
+                         ("bytes", bf_bytes), ("flops", bf_flops), ("bound_ms", bf_bound),
+                         ("f32_core_bound_ms", bound(bf_bytes, bf_flops)[0]),
+                         ("design_3xtf32_bound_ms",
+                          bound(bf_bytes, 3 * bf_flops, PEAK_TF32_FLOPS)[0])):
+            tot_b[key] += val
+        tot_b["max_abs_err"] = max(tot_b["max_abs_err"], err_bf)
+        m["fused_kron_chain_scatter_bf16"] = {"ms": bf_ms, "plain_ms": bf_plain,
+                                              "library_ms": bf_lib, "bound_ms": bf_bound}
         t = tot["fused_kron_chain_scatter"]
         t["f32_core_bound_ms"] += bound(f_bytes, f_flops)[0]
         t["design_3xtf32_bound_ms"] += bound(f_bytes, 3 * f_flops, PEAK_TF32_FLOPS)[0]
@@ -1646,6 +1721,17 @@ def phase6_nips(dev, card: str):
     log(f"  fused_kron_chain_scatter: {tot['fused_kron_chain_scatter']['ms']:.3f} ms a sweep, "
         f"us a slot by mode {[round(x, 6) for x in per_slot]}, mode 3 against the others' mean "
         f"{skew:.3f}x")
+    # the bf16 route's launches and device time over one sweep's four calls
+    reset_launches()
+    prof_b = profile_run(lambda: [kron_kernel.fused_kron_chain_scatter(
+        [fs[t] for t in operand_modes(4, md)], eng.device_schedule(coo, md), NIPS_SHAPE[md],
+        precision="bf16_fp32acc") for md in range(4)])
+    b_launches = read_launches()["fused_kron_chain_scatter"]
+    check(b_launches == 4, f"the bf16 route's sweep launched the chain kernel {b_launches} times")
+    log(f"  fused_kron_chain_scatter bf16_fp32acc: {tot_b['ms']:.3f} ms a sweep (fp32 "
+        f"{tot['fused_kron_chain_scatter']['ms']:.3f}), device "
+        f"{prof_b['kernel_ms']['fused_kron_chain_scatter']:.3f}, plain {tot_b['plain_ms']:.1f}, "
+        f"library {tot_b['library_ms']:.3f}, bound {tot_b['bound_ms']:.4f}")
 
     # the core update at the path's shapes: the TTM kernel on the transposed
     # views of Y_(3) (17, 4096) and U_3 (17, 16), against its plain version;
@@ -1672,7 +1758,8 @@ def phase6_nips(dev, card: str):
         "sweep_ms": sweep_ms, "fuse_core_sweep_ms": fused_sweep_ms,
         "launches_per_sweep": {k: n / N_ITER for k, n in launches.items()},
         "operand_row_gathers_warm_run": warm_gathers,
-        "per_sweep": tot, "per_mode": per_mode, "mode3_per_slot_vs_others": skew,
+        "per_sweep": tot, "per_sweep_bf16_route": tot_b, "per_mode": per_mode,
+        "mode3_per_slot_vs_others": skew,
         "unfused_unfoldings": unfused, "ttm_core_update": ttm_row,
         "core_max_abs_err_vs_plain": core_err, "profile_warm_run": profile,
         "peak_memory_gb": peak_gb, "fit_history": hist.tolist()}), flush=True)
@@ -1690,6 +1777,21 @@ def phase6_nips(dev, card: str):
         "design_3xtf32_bound_ms": t["design_3xtf32_bound_ms"],
         # one einsum a link and index_add_: no single PyTorch call computes it
         "library_ms": t["library_ms"], "library": "torch.einsum x 2 + index_add_"}}
+    out["fused_kron_chain_scatter_bf16"] = {
+        "name": "fused_kron_chain_scatter_bf16", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/kron_chain_scatter.cu",
+        "replaces": "src/repro/kernels/kron_kernel.py:74",
+        "also_replaces": "src/repro/kernels/kron_kernel.py:207",
+        # not the main path's precision: one sweep's four unfoldings under
+        # bf16_fp32acc, profiled alone
+        "launches": b_launches, "path": "bf16_fp32acc, one sweep's four unfoldings",
+        "max_abs_err": tot_b["max_abs_err"], "ms": tot_b["ms"], "plain_ms": tot_b["plain_ms"],
+        "device_ms": prof_b["kernel_ms"]["fused_kron_chain_scatter"],
+        "bound_ms": tot_b["bound_ms"],
+        "bound_by": bound(tot_b["bytes"], tot_b["flops"], PEAK_TF32_FLOPS)[1],
+        "f32_core_bound_ms": tot_b["f32_core_bound_ms"],
+        "design_3xtf32_bound_ms": tot_b["design_3xtf32_bound_ms"],
+        "library_ms": tot_b["library_ms"], "library": "torch.einsum x 2 + index_add_"}
     for name, src, line in (("kron_contrib", "kron_contrib.cu", 74),
                             ("scatter_rows", "scatter_rows.cu", 207)):
         t = tot[name]
@@ -3402,7 +3504,6 @@ def shard_child(rank: int, world: int, backend: str, store: str, tmp: str, job: 
 
     import torch.distributed as dist
 
-    sys.path.insert(0, str(ROOT / "src"))
     on_card = cfg["device"] != "cpu"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3914,7 +4015,13 @@ def phase14_sharded(dev, card: str, ref4: dict, cfg: Optional[dict] = None) -> N
 # -- phase 15: float64 through kernels 1-4 --------------------------------------
 
 F64_ROWS = ["fused_kron_scatter_f64", "ttm_f64", "kron_contrib_f64", "scatter_rows_f64",
-            "fused_kron_chain_scatter_f64"]
+            "fused_kron_chain_scatter_f64", "fused_kron_scatter_ttm_f64"]
+# 15g: kernel 5 in f64 at odd shapes, 2- and 3-way, ranks 1-17 and R not a
+# multiple of 8 (shape, ranks, nnz)
+KERNEL5_F64_CASES = [((50, 40, 30), (4, 3, 5), 1000), ((300, 200, 100), (16, 16, 16), 20_000),
+                     ((100, 80, 60), (13, 17, 10), 5000), ((70, 60, 50), (2, 1, 17), 3000),
+                     ((40, 30, 20), (17, 9, 11), 2500), ((60, 50), (7, 5), 700),
+                     ((90, 70), (1, 3), 400)]
 F64_FIT_TOL, F64_PROJ_TOL = 1e-10, 1e-8  # 15c-15f: f64 card against f64 CPU or alone
 # a fit history is kept in f32 in either dtype (the reference's too): two
 # f32 ulps of a value in [0.5, 1)
@@ -4025,8 +4132,9 @@ def phase15_float64(dev, card: str, ref4: dict, cfg: Optional[dict] = None) -> d
     shape card against CPU (the chain kernel and kernel 2), the chain kernel
     timed beside kernels 3 and 4 on the unfused route; 15e Table II at
     800^3 in f64; 15f one service flush of 16 f64 tenant-A requests against
-    each served alone. Returns the kernels line's five f64 rows. ``cfg``
-    shrinks the shapes for a rehearsal on the CPU."""
+    each served alone; 15g kernel 5 in f64 (:func:`phase15g_kernel5_f64`).
+    Returns the kernels line's six f64 rows. ``cfg`` shrinks the shapes for
+    a rehearsal on the CPU."""
     from repro_torch import tucker
     from repro_torch.core.coo import SparseCOO
     from repro_torch.core.hooi import init_factors
@@ -4160,7 +4268,13 @@ def phase15_float64(dev, card: str, ref4: dict, cfg: Optional[dict] = None) -> d
                        "replaces": "src/repro/kernels/ttm_kernel.py:62",
                        "launches": launches["ttm"], "device_ms": device_ms["ttm"], **k2}
     out["15a"] = {"kernel1_nell2": k1, "kernel2_nell2": k2}
-    del coo, plan, res, warm, eng, fs, y_last, yc, uc, f0
+    del warm, eng, fs, y_last, yc, uc
+    release_memory()
+
+    # 15g: kernel 5 in f64 (fuse_core=True)
+    rows["fused_kron_scatter_ttm_f64"], out["15g"] = phase15g_kernel5_f64(
+        dev, cfg, coo, plan, res, f0)
+    del coo, plan, res, f0
     release_memory()
 
     # 15c: the fit's floor: exact rank-1 tensors, whose true error is 0, in
@@ -4398,6 +4512,165 @@ def phase15_float64(dev, card: str, ref4: dict, cfg: Optional[dict] = None) -> d
     release_memory()
     print(json.dumps(out), flush=True)
     return rows
+
+
+def phase15g_kernel5_f64(dev, cfg: dict, coo, split_plan, split_res, f0):
+    """15g, kernel 5 in f64: at odd shapes against its f64 plain version,
+    every mode, the same bits twice; at NELL-2's last mode (``coo``, 15b's
+    f64 tensor, and 15b's factors) against its plain version and the split
+    f64 core update (kernel 1 f64, then kernel 2 f64), the same bits twice,
+    timed beside both; 15b's run again with ``fuse_core=True``
+    (``split_plan``'s spec on a fused engine, from ``f0``), held to 15b's
+    split run ``split_res`` (f64 fit 1e-10, projectors and core 1e-8); one
+    autotune search in f64 that times the fused layout beside the split one.
+    Returns (the kernels line's row, the phase's report)."""
+    from repro_torch import tucker
+    from repro_torch.core.coo import SparseCOO
+    import tempfile
+
+    from repro_torch.core.engine import make_engine
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import kron_kernel, ttm_kernel
+
+    on_card = dev.type == "cuda"
+    rep = {}
+    rng = np.random.default_rng(SEED + 157)
+    t0 = time.perf_counter()
+    for shape, ranks, nnz in cfg.get("kernel5_cases", KERNEL5_F64_CASES):
+        idx = np.stack([rng.integers(0, s, nnz) for s in shape], 1)
+        idx = np.concatenate([idx, idx[:nnz // 5]])  # duplicate coordinates
+        c = SparseCOO.from_parts(idx.astype(np.int32), rng.standard_normal(idx.shape[0]),
+                                 shape, device=dev)
+        fs = [torch.tensor(np.linalg.qr(rng.standard_normal((s, r)))[0], device=dev)
+              for s, r in zip(shape, ranks)]
+        for mode in range(len(shape)):
+            sched = schedule_of(c, mode)
+            fa, fb = kron_factors(fs, mode)
+            kern = partial(kron_kernel.fused_kron_scatter_ttm, fa, fb, fs[mode], sched,
+                           shape[mode])
+            got = synced(kern())
+            compare(f"fused_kron_scatter_ttm f64 {shape} ranks {ranks} mode {mode}", "fp64",
+                    got, synced(kron_kernel.fused_kron_scatter_ttm_plain(
+                        fa, fb, fs[mode], sched, shape[mode])), c.nnz)
+            check(torch.equal(got, synced(kern())),
+                  f"kernel 5 f64 {shape} mode {mode}: two calls differ")
+    rep["odd_shapes_s"] = time.perf_counter() - t0
+
+    # NELL-2's last mode: kernel 5 f64 against its plain version and the
+    # split f64 core update
+    shape, mode = cfg["shape"], len(cfg["shape"]) - 1
+    fs = [f.contiguous() for f in split_res.factors]
+    sched = split_plan.engine.device_schedule(coo, mode)
+    fa, fb = kron_factors(fs, mode)
+    u, n_rows = fs[mode], shape[mode]
+    ra, rb, r = fa.shape[1], fb.shape[1], u.shape[1]
+    k = ra * rb
+    grid = kron_kernel.mega_grid(dev, ra, rb, kron_kernel._padded_factor(fa).shape[1],
+                                 kron_kernel._padded_factor(fb).shape[1], r, 2,
+                                 int(sched.parts.numel()) - 1) if on_card else {}
+    kern = partial(kron_kernel.fused_kron_scatter_ttm, fa, fb, u, sched, n_rows)
+    plain = partial(kron_kernel.fused_kron_scatter_ttm_plain, fa, fb, u, sched, n_rows)
+
+    def split():
+        return ttm_kernel.ttm(kron_kernel.fused_kron_scatter(fa, fb, sched, n_rows).T, u.T).T
+
+    got = synced(kern())
+    check(got.dtype == torch.float64, f"15g: kernel 5 returned {got.dtype}")
+    err = compare(f"fused_kron_scatter_ttm f64 NELL-2 mode {mode}", "fp64", got,
+                  synced(plain()), cfg["nnz"])
+    compare("fused_kron_scatter_ttm f64 NELL-2 against the split f64 core update (kernels "
+            "1 and 2 in f64)", "fp64", got, synced(split()), cfg["nnz"])
+    check(torch.equal(got, synced(kern())), "15g: kernel 5 f64 at NELL-2 differs between two "
+          "calls")
+    visited = int(torch.unique(coo.indices[:, mode]).numel())
+    nbytes = (nbytes_of(sched.idx, sched.vals, sched.rel_row, sched.blkmap, sched.parts, fa, fb,
+                        u) + r * k * 8)
+    flops = kron_scatter_flops(coo.nnz, ra, k) + 2 * visited * r * k
+    k5 = {"ms": time_ms(kern, reps=3), "plain_ms": time_ms(plain, reps=1),
+          "split_ms": time_ms(split, reps=3),
+          "bound_ms": bound(nbytes, flops, PEAK_F64_FLOPS)[0],
+          "bound_by": bound(nbytes, flops, PEAK_F64_FLOPS)[1],
+          "f64_core_bound_ms": bound(nbytes, flops, PEAK_F64_CORE_FLOPS)[0],
+          "bytes": nbytes, "flops": flops, "max_abs_err": err, "grid": grid}
+    log(f"  15g kernel 5 f64 at NELL-2 mode {mode}: {k5['ms']:.3f} ms (split f64 core update "
+        f"{k5['split_ms']:.3f}, plain {k5['plain_ms']:.1f}), bound {k5['bound_ms']:.4f} "
+        f"({k5['bound_by']}), {k5['f64_core_bound_ms']:.4f} at the CUDA-core rate; grid {grid}")
+    del got
+    release_memory()
+
+    # 15b's tensor with fuse_core=True, held to 15b's split f64 run
+    fplan = tucker.plan(split_plan.spec, device=dev,
+                        engine=make_engine("cuda" if on_card else "torch", dev, fuse_core=True))
+    reset_launches()
+    fres = fplan(coo, factors_init=f0)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    n_iter = split_plan.spec.n_iter
+    want = {"fused_kron_scatter": 3 * n_iter, "ttm": 0, "kron_contrib": 0, "scatter_rows": 0,
+            "fused_kron_scatter_ttm": n_iter, "fused_kron_chain_scatter": 0, **NO_LM_LAUNCHES}
+    check(launches == want or not on_card, f"15g: fuse_core f64 launches {launches}, want {want}")
+    check(fres.core.dtype == torch.float64, "15g: the fused core is not float64")
+    x2 = xnorm2_of(coo)
+    fit_gap = abs(fit64(fres, x2) - fit64(split_res, x2))
+    proj = max(projector_gap(a, b) for a, b in zip(fres.factors, split_res.factors))
+    cg, cscale = core_gap(fres, split_res)
+    log(f"  15g NELL-2 in f64 with fuse_core: launches {launches}; against 15b's split run: "
+        f"f64 fit {fit_gap:.3e} <= {F64_FIT_TOL:g}, projectors {proj:.3e} <= "
+        f"{F64_PROJ_TOL:g}, core {cg:.3e} <= {F64_PROJ_TOL:g} x {cscale:.3e}")
+    check(fit_gap <= F64_FIT_TOL and proj <= F64_PROJ_TOL and cg <= F64_PROJ_TOL * cscale,
+          "15g: fuse_core in f64 disagrees with the split f64 run")
+    turns = []
+    for name, p in (("split", split_plan), ("fused", fplan), ("fused", fplan),
+                    ("split", split_plan)):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        p(coo, factors_init=f0)
+        end.record()
+        end.synchronize()
+        turns.append((name, start.elapsed_time(end) / n_iter))
+    prof = profile_run(lambda: fplan(coo, factors_init=f0))
+    k5["device_ms"] = prof["kernel_ms"]["fused_kron_scatter_ttm"] / n_iter
+    log("  15g warm ms a sweep, in turns: " + ", ".join(f"{n} {ms:.2f}" for n, ms in turns))
+    rep.update(kernel5_nell2=k5, launches=launches, turns=turns, fit64_gap=fit_gap,
+               projector_gap=proj, core_gap_over_scale=cg / cscale,
+               profile_warm_run=prof)
+    del fplan, fres
+    release_memory()
+
+    # one autotune search in f64: the fused layout timed beside the split one
+    at.reset_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        cands = at.candidate_configs(shape, cfg["ranks"], cfg["nnz"], dtype="float64",
+                                     device=dev)
+        split_c = next(c for c in cands if c.layout == "split")
+        fused_c = next(c for c in cands if c.layout == "fused")
+        problem = {}
+        trials = {}
+        for c in (split_c, fused_c):
+            trials[c.layout] = {"config": c._asdict(), "ms": at.trial_time_ms(
+                c, shape, cfg["ranks"], cfg["nnz"], dtype="float64", device=dev,
+                problem=problem)}
+        del problem
+        pick = at.autotune(shape, cfg["ranks"], cfg["nnz"], dtype="float64", device=dev,
+                           table=at.TuningTable(os.path.join(tmp, "table.json")))
+    counters = dict(at.COUNTERS)
+    log(f"  15g autotune in f64: {len(cands)} candidates, fused {trials['fused']} against "
+        f"split {trials['split']} ms a trial sweep; the search's pick {pick}, counters "
+        f"{counters}")
+    check(counters["searches"] == 1 and counters["trials"] >= 1, f"15g: counters {counters}")
+    rep.update(autotune={"candidates": len(cands), "trials": trials, "pick": pick._asdict(),
+                         "counters": counters})
+    row = {"name": "fused_kron_scatter_ttm_f64", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/kron_scatter_ttm.cu",
+           "replaces": "src/repro/kernels/kron_kernel.py:428",
+           "launches": launches["fused_kron_scatter_ttm"], "path": "fuse_core=True, f64",
+           "max_abs_err": k5["max_abs_err"], "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+           "device_ms": k5["device_ms"], "bound_ms": k5["bound_ms"],
+           "bound_by": k5["bound_by"], "f64_core_bound_ms": k5["f64_core_bound_ms"],
+           "split_f64_ms": k5["split_ms"],
+           # no single PyTorch call builds Y from the nonzeros and contracts it
+           "library_ms": None}
+    return row, rep
 
 
 # -- phase 16: Kron reuse on the torch engine -----------------------------------
@@ -5258,6 +5531,10 @@ def serve_family(dev, card: str, arch: str, keep_layers, prefill_input: str,
         row["device_ms"] = prof_prefill["kernel_ms"][name] / launches[name]
     if cfg.family == "moe":
         RECORDED.setdefault("moe", {})[arch] = moe_prefill_report(cfg, eng, batch, prefill_ms)
+    RECORDED.setdefault("roofline", []).append(roofline_record(
+        arch, cfg, full, {"name": f"prefill_{SERVE_B}x{SERVE_P}", "seq_len": SERVE_P,
+                          "global_batch": SERVE_B, "kind": "prefill"},
+        prefill_ms, peak_gb * 1e9))
     smoke = smoke_card_vs_cpu(dev, arch, prefill_input == "embeds")
     out = {"config": cfg.name, "family": cfg.family, "layers": cfg.n_layers,
            "layers_of_config": full.n_layers, "params": n_params, "init_s": t_init,
@@ -5648,12 +5925,14 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 4
 TRAIN_GATED_STEP = 1  # the step whose backward kernels run beside their plain versions
 LOSS0_BAND = 0.10  # the step-0 loss within 10% of ln(vocab): random weights
 # 22d: repro-100m through ``python -m repro_torch.train``'s code path
-R100_STEPS, R100_CKPT_EVERY, R100_KILL = 300, 50, 160
+# (cut from 300 steps and a kill at 160 to keep the script within its time
+# limit)
+R100_STEPS, R100_CKPT_EVERY, R100_KILL = 200, 50, 110
 # 22d: the resumed run's losses against the uninterrupted run's, relative.
 # Bits are not the bar: the embedding's backward (``index_put_`` with
 # accumulate) may sum in another order on another run. Measured: the same
-# losses to the bit over steps 150-299 on one H100 at 700 W (PERF.md, phase
-# 22d); 1e-3 leaves room for such sums and no more.
+# losses to the bit over steps 150-299 of a 300-step run on one H100 at
+# 700 W (PERF.md, phase 22d); 1e-3 leaves room for such sums and no more.
 R100_RESUME_LOSS_TOL = 1e-3
 
 
@@ -6078,6 +6357,8 @@ def phase22c_zamba2(dev, card: str) -> dict:
     warm = [h["step_time_s"] for i, h in enumerate(hist) if i > TRAIN_GATED_STEP]
     step_s = sorted(warm)[len(warm) // 2]
     cost = flops_lib.cell_cost(cfg, shape)
+    RECORDED.setdefault("roofline", []).append(roofline_record(
+        "zamba2-2.7b", cfg, cfg, dataclasses.asdict(shape), step_s * 1e3, peak_gb * 1e9))
     # the backward kernels again on the gated step's first inputs: two calls'
     # bits, their times and the library call's
     kept = gate.pop("kept")
@@ -6291,6 +6572,159 @@ def phase22_training(dev, card: str) -> dict:
                       "smoke_card_vs_cpu": smoke, "repro_100m": r100,
                       "bwd_worst_over_limit_22a": worst}), flush=True)
     return rows
+
+
+# -- phase 23: QRP gradient compression ---------------------------------------------
+
+COMPRESS_ARCH, COMPRESS_RANK = "granite-moe-1b-a400m", 64
+COMPRESS_TOL = 1e-3  # 23a: subspace angle, and Q P^T x max|CPU|
+COMPRESS_TIMEOUT_S = 600
+
+
+def principal_sin(q, q_ref) -> float:
+    """sin of the largest principal angle between the column spaces of two
+    matrices with orthonormal columns, ||(I - Q Q^T) Q_ref||_2 in f64: the
+    spectral norm of the difference of their projectors, which bounds its
+    largest entry."""
+    q, q_ref = q.double(), q_ref.double()
+    return float(torch.linalg.matrix_norm(q_ref - q @ (q.T @ q_ref), ord=2))
+
+
+def phase23_compression(dev, card: str, arch: str = COMPRESS_ARCH, smoke: bool = False) -> None:
+    """23a ``compress_matrix`` card against CPU at each of the config's
+    layer-stacked gradient shapes; 23b the compression bench's CLI over 2
+    gloo ranks sharing the card. ``smoke`` takes the config's SMOKE shapes
+    (a CPU rehearsal)."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import compress_bench as cb
+    from repro_torch.optim.compression import compress_matrix, decompress_matrix
+
+    release_memory()
+    mats = cb.grad_matrices(get_config(arch, smoke=smoke))
+    rank = 8 if smoke else COMPRESS_RANK
+    log(f"phase 23: QRP gradient compression at {arch}{' SMOKE' if smoke else ''}'s {len(mats)} "
+        f"gradient matrices, r = {rank}")
+    out = {"phase": "23 gradient compression", "card": card, "arch": arch, "rank": rank,
+           "card_vs_cpu": []}
+    for i, (name, m, n) in enumerate(mats):
+        g = cb.seeded_gradient(m, n, rank, cb.SEED + i, dev)
+        t0 = time.perf_counter()
+        q, p = compress_matrix(g, rank)
+        ghat = decompress_matrix(q, p)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        g_cpu = g.cpu()
+        del g
+        t0 = time.perf_counter()
+        q_cpu, p_cpu = compress_matrix(g_cpu, rank)
+        want = decompress_matrix(q_cpu, p_cpu)
+        cpu_s = time.perf_counter() - t0
+        sin = principal_sin(q.cpu(), q_cpu)
+        scale = float(want.abs().max())
+        err = float((ghat.cpu() - want).abs().max())
+        finite = bool(torch.isfinite(ghat).all() and torch.isfinite(q).all())
+        row = {"name": name, "m": m, "n": n, "r": q.shape[1], "subspace_sin": sin,
+               "qpt_err_over_max": err / scale, "card_s": card_s, "cpu_s": cpu_s}
+        log(f"  23a {name} ({m} x {n}, r {q.shape[1]}): subspace sin {sin:.3e} <= "
+            f"{COMPRESS_TOL:g}, Q P^T {err / scale:.3e} <= {COMPRESS_TOL:g} x max|CPU|; card "
+            f"{card_s:.3f} s, CPU {cpu_s:.3f} s")
+        check(finite and sin <= COMPRESS_TOL and err <= COMPRESS_TOL * scale,
+              f"23a: compress_matrix on the card disagrees with the CPU at {name}")
+        out["card_vs_cpu"].append(row)
+        del q, p, ghat, g_cpu, q_cpu, p_cpu, want
+        release_memory()
+
+    # 23b: the bench as its CLI runs it, 2 gloo ranks sharing the card
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_compress_") as tmp:
+        path = os.path.join(tmp, "compress_bench.json")
+        cmd = [sys.executable, "-m", "repro_torch.launch.compress_bench", "--rank", str(rank),
+               "--arch", arch, "--out", path, "--device", dev.type] + (
+                   ["--smoke"] if smoke else [])
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(ROOT / "src")] + [x for x in [os.environ.get("PYTHONPATH")] if x]))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=COMPRESS_TIMEOUT_S, check=False)
+        bench_s = time.perf_counter() - t0
+        for line in proc.stdout.strip().splitlines():
+            log(f"  23b {line}")
+        check(proc.returncode == 0, f"23b: compress_bench exited {proc.returncode}: "
+              f"{proc.stderr[-3000:]}")
+        res = json.loads(Path(path).read_text())
+    want_bytes = 4 * sum(min(rank, m, n) * (m + n) for _, m, n in mats)
+    check(res["ok"] and res["world"] == 2 and res["checks"]["finite"]
+          and res["checks"]["same_bits_on_every_rank"]
+          and res["qrp_compressed"]["coll_bytes"] == want_bytes
+          and res["raw"]["coll_bytes"] == 4 * sum(m * n for _, m, n in mats),
+          f"23b: the bench's checks {res['checks']}, bytes {res['qrp_compressed']['coll_bytes']}"
+          f" against {want_bytes}")
+    log(f"  23b over 2 {res['backend']} ranks on {res['device_name']}: raw {res['raw']['coll_bytes']} B a "
+        f"rank in {res['raw']['ms']:.1f} ms, compressed {res['qrp_compressed']['coll_bytes']} B "
+        f"in {res['qrp_compressed']['ms']:.1f} ms; reduction {res['reduction']:.4f}x (the "
+        f"reference's r = {rank} model {res['analytic_reduction']:.4f}x); ms the median of "
+        f"{len(res['raw']['ms_runs'])} runs after a warm-up; {bench_s:.1f} s")
+    out["bench"] = dict(res, seconds=bench_s)
+    print(json.dumps(out), flush=True)
+
+
+# -- phase 24: the roofline of the measured cells --------------------------------------
+
+
+def roofline_record(arch: str, cfg, full, shape: dict, ms: float, peak_bytes: float) -> dict:
+    """A record of one measured cell in the roofline's schema: one chip, no
+    collective bytes, ``flops.cell_cost``'s FLOPs of ``cfg`` at ``shape`` (a
+    ShapeConfig as a dict) and the measured peak; a depth-cut ``cfg`` (fewer
+    layers than ``full``) is listed as skipped, since the roofline counts
+    the registered config's layers."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import flops
+
+    rec = {"arch": arch, "shape": shape, "mesh": "1", "chips": 1, "measured_ms": ms}
+    if cfg.n_layers != full.n_layers:
+        return dict(rec, status="skipped",
+                    reason=f"depth cut to {cfg.n_layers} of {full.n_layers} layers")
+    cost = flops.cell_cost(cfg, ShapeConfig(**shape))
+    return dict(rec, status="ok", hlo={"dot_flops": cost.flops, "total_coll_bytes": 0},
+                memory={"peak_tpu_est_bytes": peak_bytes})
+
+
+def phase24_roofline(dev, card: str) -> None:
+    """The roofline under ``h100-sxm`` over phases 19's and 22c's records,
+    through the module's CLI; each compute term held to ``cell_cost``'s
+    FLOPs over the bf16 peak the earlier phases divide by."""
+    import tempfile
+
+    from repro_torch.launch import roofline
+
+    recs = RECORDED.get("roofline", [])
+    kinds = {r["shape"]["kind"] for r in recs if r["status"] == "ok"}
+    check({"prefill", "train"} <= kinds, f"24: phases 19 and 22c recorded {kinds}")
+    h100 = roofline.resolve_arch("h100-sxm")
+    log(f"phase 24: the roofline of {len(recs)} measured cells under h100-sxm ({card})")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_roofline_") as tmp:
+        path = os.path.join(tmp, "records.json")
+        Path(path).write_text(json.dumps(recs))
+        roofline.main([path, "--arch", "h100-sxm", "--md", os.path.join(tmp, "roofline.md")])
+        md = Path(tmp, "roofline.md").read_text()
+    out = {"phase": "24 roofline", "card": card, "arch": "h100-sxm", "cells": []}
+    for rec in recs:
+        if rec["status"] != "ok":
+            out["cells"].append({"arch": rec["arch"], "shape": rec["shape"]["name"],
+                                 "skipped": rec["reason"]})
+            continue
+        t = roofline.roofline_terms(rec, h100)
+        want = rec["hlo"]["dot_flops"] / PEAK_BF16_FLOPS
+        check(t["compute_s"] == want, f"24: {rec['arch']} compute term {t['compute_s']} is not "
+              f"cell_cost's FLOPs over the bf16 peak, {want}")
+        bound_ms = max(t["compute_s"], t["memory_s"], t["collective_s"]) * 1e3
+        out["cells"].append({"arch": rec["arch"], "shape": rec["shape"]["name"],
+                             "measured_ms": rec["measured_ms"], "roofline_ms": bound_ms,
+                             "measured_over_roofline": rec["measured_ms"] / bound_ms,
+                             "peak_gb": rec["memory"]["peak_tpu_est_bytes"] / 1e9, **t})
+    out["table"] = md
+    print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":

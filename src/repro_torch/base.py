@@ -1,5 +1,4 @@
-"""What every part of the port shares: the device rule, and the error for a
-feature of the reference that the port lacks."""
+"""What every part of the port shares: the device rule."""
 from __future__ import annotations
 
 import torch
@@ -19,10 +18,3 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"device must be a CUDA device or 'cpu', got {device!r}")
     return dev
-
-
-def unported(what: str, item: str) -> NotImplementedError:
-    """``NotImplementedError`` for ``what``, naming its ``ROADMAP.md`` item."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md {item})"
-    )

@@ -219,16 +219,22 @@ def _chain_kernel_runs(n: int) -> bool:
     return 4 <= n <= _CHAIN_MAX_OPS + 1
 
 
-def _mega_cta_bytes(nw: int, r: int, ring: int) -> int:
-    """Kernel 5's first-pass CTA of ``nw`` warps (``Smem`` in
+def _sum_bytes(precision: str, dtype: str) -> int:
+    """Bytes of one sum (Y entry, partial, value): 8 in f64 at ``fp32``, else 4."""
+    return 8 if str(dtype) == "float64" and precision == "fp32" else 4
+
+
+def _mega_cta_bytes(nw: int, r: int, ring: int, ev: int = 4) -> int:
+    """Kernel 5's first-pass CTA of ``nw`` warps with ``ev``-byte sums (the
+    partial, the held rows and U: 8 in f64; ``Smem`` in
     ``kron_scatter_ttm.cu``)."""
     rp = _round_up(r, 16)
     col_tiles = _K_BLOCK_COLS // 8
-    g_floats = (rp // 16) * (-(-col_tiles // nw)) * 128
+    g_elems = (rp // 16) * (-(-col_tiles // nw)) * 128
     g = nw * ring
-    y = g + nw * g_floats * 4
-    u = y + nw * _K_DEPTH * (_K_BLOCK_COLS + 8) * 4
-    ctl = u + nw * _K_DEPTH * (rp + 8) * 4
+    y = g + nw * g_elems * ev
+    u = y + nw * _K_DEPTH * (_K_BLOCK_COLS + 8) * ev
+    ctl = u + nw * _K_DEPTH * (rp + 8) * ev
     return ctl + 2 * _K_WARPS * 4
 
 
@@ -249,7 +255,7 @@ def smem_bytes(cfg: BlockConfig, shape: Sequence[int], ranks: Sequence[int],
     ring = max(_ring_bytes(*_operand_ranks(ranks, m), precision, dtype) for m in range(n))
     if cfg.layout == "fused":
         last = _ring_bytes(*_operand_ranks(ranks, n - 1), precision, dtype)
-        return max(ring, _mega_cta_bytes(1, ranks[n - 1], last))
+        return max(ring, _mega_cta_bytes(1, ranks[n - 1], last, _sum_bytes(precision, dtype)))
     return ring
 
 
@@ -284,11 +290,12 @@ def sweep_bytes(cfg: BlockConfig, shape: Sequence[int], ranks: Sequence[int], nn
     small tensor), written and read once; above order 6 the
     chained (slots, K) rows of kernels 3 and 4 are written and read. The
     fused layout writes no last unfolding; its partials take one (R, K)
-    block per CTA (264 CTAs, an H100's two a SM). Values and Y entries take
-    8 bytes in f64 (at ``fp32``), 4 otherwise."""
+    block per CTA (264 CTAs in f32, an H100's two a SM; 132 in f64, one a
+    SM). Values, Y entries and partials take 8 bytes in f64 (at ``fp32``),
+    4 otherwise."""
     n = len(shape)
     slots = padded_slots(cfg, shape, nnz) // n
-    e = 8 if str(dtype) == "float64" and precision == "fp32" else 4
+    e = _sum_bytes(precision, dtype)
     total = 0
     for m in range(n):
         k = 1
@@ -303,7 +310,7 @@ def sweep_bytes(cfg: BlockConfig, shape: Sequence[int], ranks: Sequence[int], nn
         elif n > 3:  # the chain's rows: written by kron_contrib, read by scatter_rows
             total += 2 * slots * k * e
         if m == n - 1 and cfg.layout == "fused" and n <= 3:
-            total += 264 * int(ranks[m]) * k * 4
+            total += (264 if e == 4 else 132) * int(ranks[m]) * k * e
         else:
             total += int(shape[m]) * k * e
             if m == n - 1:
@@ -325,13 +332,13 @@ def candidate_configs(shape: Sequence[int], ranks: Sequence[int], nnz: int, *,
     """The pruned, ranked candidate list, ``DEFAULT_CONFIG`` first. The
     fused layout is a candidate for 3-way tensors only, as in the
     reference (kernel 5 also serves 2-way ones; order >= 4 has no
-    megakernel), and not in float64 (kernel 5 has no f64 instantiation:
-    ROADMAP.md queue 1, item 8b). Shared memory is sized for the dtype's
-    staged elements (f64: 8 bytes)."""
+    megakernel), in every dtype. Shared memory is sized for the dtype's
+    staged elements and sums (f64: 8 bytes), so a fused CTA that does not
+    fit is pruned here and never launched."""
     n = len(shape)
     limit = _smem_limit(device)
     default_slots = padded_slots(DEFAULT_CONFIG, shape, nnz)
-    layouts = LAYOUTS if n == 3 and str(dtype) != "float64" else ("split",)
+    layouts = LAYOUTS if n == 3 else ("split",)
     cands = [BlockConfig(bn, bi, spp, layout)
              for layout in layouts for bn in (64, 128, 256) for bi in (64, 128, 256)
              for spp in (512, 1024, 2048)]

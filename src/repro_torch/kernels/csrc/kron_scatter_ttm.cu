@@ -57,13 +57,25 @@
 // and U arrive as bf16 (the TPU kernel rounds U to bf16 as well); the Kron
 // terms are rounded as kron_common.cuh says, and the contraction is f32
 // arithmetic on bf16 values of U (exact in TF32).
+//
+// float64 (T = V = double): the walk's CUDA-core route with f64 row
+// accumulators (kernel 1's f64 route), the held rows, U and the CTA's
+// partial in f64, and each round taken on the CUDA cores: every lane owns
+// the same four entries of each (m16, n8) tile as on the TF32 route and
+// sums the round's rows into them in warp order with f64 FMAs, then adds
+// that to its partial. The reduce kernel sums the partials in f64, in the
+// same fixed order. At ranks 16 the partial is 16 x 256 x 8 = 32 KB; with
+// the f64 ring (16 KB a warp) and the held rows one CTA of 8 warps fits an
+// SM. Per slot it does the 3*K f64 operations of kernel 1's f64 route: at
+// NELL-2's last mode ~0.6 ms at the card's f64 peak (67 TFLOP/s), 1.2 ms at
+// its CUDA-core rate (34), which is where it runs (DMMA is later work).
 #include <climits>
+#include <type_traits>
 
 #include "kron_walk.cuh"
 
 namespace {
 
-using kron::to_f32;
 using kwalk::kBlockCols;
 using kwalk::kFull;
 using kwalk::kSlots;
@@ -79,40 +91,55 @@ constexpr unsigned kDone = 1u << 31;       // a warp's count with this bit: it h
 constexpr int kReduceWarps = 8;            // warps per CTA of the second pass
 
 // Byte offsets of one first-pass CTA's shared memory, for nw warps and R
-// padded to rp (a multiple of 16): the warps' rings, their partials, their
-// held rows' y (kYS floats) and U (rp + 8 floats, so that a round's A
-// fragment loads fall on 32 banks), and the counters.
+// padded to rp (a multiple of 16), with ev-byte sums (4 f32, 8 f64): the
+// warps' rings, their partials, their held rows' y (kYS elements) and U
+// (rp + 8 elements, so that a round's A fragment loads fall on 32 banks),
+// and the counters.
 struct Smem {
   size_t g, y, u, ctl, total;
-  int g_floats;  // one warp's partial: (rp / 16) m16 tiles x its n8 tiles, 128 floats each
-  __host__ __device__ Smem(int nw, int rp, size_t ring_per_warp) {
-    g_floats = (rp / 16) * ((kColTiles + nw - 1) / nw) * 128;
+  int g_elems;  // one warp's partial: (rp / 16) m16 tiles x its n8 tiles, 128 each
+  __host__ __device__ Smem(int nw, int rp, size_t ring_per_warp, int ev) {
+    g_elems = (rp / 16) * ((kColTiles + nw - 1) / nw) * 128;
     g = (size_t)nw * ring_per_warp;
-    y = g + (size_t)nw * g_floats * 4;
-    u = y + (size_t)nw * kDepth * kYS * 4;
-    ctl = u + (size_t)nw * kDepth * (rp + 8) * 4;
+    y = g + (size_t)nw * g_elems * ev;
+    u = y + (size_t)nw * kDepth * kYS * ev;
+    ctl = u + (size_t)nw * kDepth * (rp + 8) * ev;
     total = ctl + 2 * kWarps * sizeof(int);
   }
 };
 
-template <typename T, bool kTC>
-__global__ void __launch_bounds__(kWarps * 32, 2)
+// U's entries as the rounds read them: f32 (bf16 widened exactly), or f64
+__device__ __forceinline__ float held(float x) { return x; }
+__device__ __forceinline__ float held(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ double held(double x) { return x; }
+
+// The launch variants by operand code: 0 f32 (the TF32 route), 1 bf16, 2
+// f64 (both on the walk's CUDA-core route); the bytes of a staged element
+// and of a sum (V, the values' type and every sum's).
+inline int elem_of(int kind) { return kind == 1 ? 2 : kind == 2 ? 8 : 4; }
+inline int sum_bytes_of(int kind) { return kind == 2 ? 8 : 4; }
+
+// Two CTAs an SM in f32 and bf16; the f64 CTA (196 KB at ranks 16) fits
+// one, so its registers are not capped for a second
+template <typename T, bool kTC, typename V>
+__global__ void __launch_bounds__(kWarps * 32, std::is_same<V, double>::value ? 1 : 2)
     kron_scatter_ttm_kernel(const T* __restrict__ fa, const T* __restrict__ fb,
-                            const int* __restrict__ idx, const float* __restrict__ vals,
+                            const int* __restrict__ idx, const V* __restrict__ vals,
                             const int* __restrict__ rel, const int* __restrict__ blkmap,
                             const long long* __restrict__ parts, const T* __restrict__ u,
-                            float* __restrict__ part, int n_parts, int per_cta, int r,
+                            V* __restrict__ part, int n_parts, int per_cta, int r,
                             const kwalk::Shape sh) {
+  constexpr bool kF64 = std::is_same<V, double>::value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, nw = blockDim.x / 32;
   const int g = lane / 4, t = lane % 4;
   const int rp = (r + 15) / 16 * 16, us = rp + 8, n_mt = rp / 16;
   const int stage_elems = kSlots * (sh.sla + sh.slb);
-  const Smem L(nw, rp, (size_t)kStages * stage_elems * sizeof(T));
+  const Smem L(nw, rp, (size_t)kStages * stage_elems * sizeof(T), (int)sizeof(V));
   T* ring = reinterpret_cast<T*>(smem_raw) + (size_t)warp * kStages * stage_elems;
-  float* gs = reinterpret_cast<float*>(smem_raw + L.g) + (size_t)warp * L.g_floats + lane;
-  float* held_y = reinterpret_cast<float*>(smem_raw + L.y);  // [nw][kDepth][kYS]
-  float* held_u = reinterpret_cast<float*>(smem_raw + L.u);  // [nw][kDepth][us]
+  V* gs = reinterpret_cast<V*>(smem_raw + L.g) + (size_t)warp * L.g_elems + lane;
+  V* held_y = reinterpret_cast<V*>(smem_raw + L.y);  // [nw][kDepth][kYS]
+  V* held_u = reinterpret_cast<V*>(smem_raw + L.u);  // [nw][kDepth][us]
   // state[w]: rows warp w has published, | kDone once it has finished;
   // taken[w]: rounds warp w has taken
   volatile unsigned* state = reinterpret_cast<unsigned*>(smem_raw + L.ctl);
@@ -120,7 +147,7 @@ __global__ void __launch_bounds__(kWarps * 32, 2)
   if (threadIdx.x < kWarps) state[threadIdx.x] = 0u, taken[threadIdx.x] = 0;
   kwalk::zero_ring(ring, kStages * stage_elems, lane);
   const int n_nt = (kColTiles - warp + nw - 1) / nw;  // this warp's column tiles
-  for (int e = 0; e < n_mt * n_nt * 4; ++e) gs[e * 32] = 0.f;
+  for (int e = 0; e < n_mt * n_nt * 4; ++e) gs[e * 32] = V(0);
   __syncthreads();  // the counters are set
 
   // Take every round that all warps have published: G[:, own tiles] +=
@@ -136,37 +163,63 @@ __global__ void __launch_bounds__(kWarps * 32, 2)
     if (took < upto) {
       __threadfence_block();  // the held rows are read after the counts
       __syncwarp();
-      // rows published by the warps whose rows are k = t and k = t + 4 (0
-      // past the CTA's warps, whose slots are then not read: v0, v1 keep
-      // the addresses inside the slots all the same)
-      const int c0 = __shfl_sync(kFull, (int)cnt, t), c1 = __shfl_sync(kFull, (int)cnt, t + 4);
-      const int v0 = min(t, nw - 1), v1 = min(t + 4, nw - 1);
       for (; took < upto; ++took) {
         const int slot = took % kDepth;
-        const bool in0 = took < c0, in1 = took < c1;
-        const float* y0 = held_y + (v0 * kDepth + slot) * kYS;
-        const float* y1 = held_y + (v1 * kDepth + slot) * kYS;
-        const float* u0 = held_u + (v0 * kDepth + slot) * us;
-        const float* u1 = held_u + (v1 * kDepth + slot) * us;
-        for (int mt = 0; mt < n_mt; ++mt) {
-          // A = U_j^T: rows are U's columns, k the warps
-          uint32_t ah[4], al[4];
-          split(in0 ? u0[16 * mt + g] : 0.f, ah[0], al[0]);
-          split(in0 ? u0[16 * mt + g + 8] : 0.f, ah[1], al[1]);
-          split(in1 ? u1[16 * mt + g] : 0.f, ah[2], al[2]);
-          split(in1 ? u1[16 * mt + g + 8] : 0.f, ah[3], al[3]);
-          for (int q = 0; q < n_nt; ++q) {
-            const int col = 8 * (warp + q * nw) + g;
-            uint32_t bh[2], bl[2];
-            split(in0 ? y0[col] : 0.f, bh[0], bl[0]);
-            split(in1 ? y1[col] : 0.f, bh[1], bl[1]);
-            float d[4] = {0.f, 0.f, 0.f, 0.f};
-            mma_tf32(d, al, bh);
-            mma_tf32(d, ah, bl);
-            mma_tf32(d, ah, bh);
-            float* gp = gs + (size_t)(mt * n_nt + q) * 128;
+        if constexpr (kF64) {
+          // f64 on the CUDA cores: lane (g, t) sums the round's rows into
+          // its entries of each tile, in warp order, then adds that to its
+          // partial
+          const unsigned in = __ballot_sync(kFull, lane < nw && took < (int)cnt);
+          for (int mt = 0; mt < n_mt; ++mt)
+            for (int q = 0; q < n_nt; ++q) {
+              const int col = 8 * (warp + q * nw) + 2 * t;
+              V d[4] = {V(0), V(0), V(0), V(0)};
+              for (int w = 0; w < nw; ++w) {
+                if (!((in >> w) & 1u)) continue;
+                const V* yw = held_y + (w * kDepth + slot) * kYS;
+                const V* uw = held_u + (w * kDepth + slot) * us;
+                const V u0 = uw[16 * mt + g], u1 = uw[16 * mt + g + 8];
+                const V y0 = yw[col], y1 = yw[col + 1];
+                d[0] = fma(u0, y0, d[0]);
+                d[1] = fma(u0, y1, d[1]);
+                d[2] = fma(u1, y0, d[2]);
+                d[3] = fma(u1, y1, d[3]);
+              }
+              V* gp = gs + (size_t)(mt * n_nt + q) * 128;
 #pragma unroll
-            for (int e = 0; e < 4; ++e) gp[e * 32] = __fadd_rn(gp[e * 32], d[e]);
+              for (int e = 0; e < 4; ++e) gp[e * 32] = kwalk::add_rn(gp[e * 32], d[e]);
+            }
+        } else {
+          // rows published by the warps whose rows are k = t and k = t + 4
+          // (0 past the CTA's warps, whose slots are then not read: v0, v1
+          // keep the addresses inside the slots all the same)
+          const int c0 = __shfl_sync(kFull, (int)cnt, t), c1 = __shfl_sync(kFull, (int)cnt, t + 4);
+          const int v0 = min(t, nw - 1), v1 = min(t + 4, nw - 1);
+          const bool in0 = took < c0, in1 = took < c1;
+          const float* y0 = held_y + (v0 * kDepth + slot) * kYS;
+          const float* y1 = held_y + (v1 * kDepth + slot) * kYS;
+          const float* u0 = held_u + (v0 * kDepth + slot) * us;
+          const float* u1 = held_u + (v1 * kDepth + slot) * us;
+          for (int mt = 0; mt < n_mt; ++mt) {
+            // A = U_j^T: rows are U's columns, k the warps
+            uint32_t ah[4], al[4];
+            split(in0 ? u0[16 * mt + g] : 0.f, ah[0], al[0]);
+            split(in0 ? u0[16 * mt + g + 8] : 0.f, ah[1], al[1]);
+            split(in1 ? u1[16 * mt + g] : 0.f, ah[2], al[2]);
+            split(in1 ? u1[16 * mt + g + 8] : 0.f, ah[3], al[3]);
+            for (int q = 0; q < n_nt; ++q) {
+              const int col = 8 * (warp + q * nw) + g;
+              uint32_t bh[2], bl[2];
+              split(in0 ? y0[col] : 0.f, bh[0], bl[0]);
+              split(in1 ? y1[col] : 0.f, bh[1], bl[1]);
+              float d[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_tf32(d, al, bh);
+              mma_tf32(d, ah, bl);
+              mma_tf32(d, ah, bh);
+              float* gp = gs + (size_t)(mt * n_nt + q) * 128;
+#pragma unroll
+              for (int e = 0; e < 4; ++e) gp[e * 32] = __fadd_rn(gp[e * 32], d[e]);
+            }
           }
         }
       }
@@ -180,7 +233,7 @@ __global__ void __launch_bounds__(kWarps * 32, 2)
   // Hold a finished row: wait for a free slot (every warp has taken round
   // pub - kDepth), write the warp's y and U[row] into it, publish it.
   const int by = blockIdx.y;
-  auto hold_row = [&](int row, const typename kwalk::Tile<kTC>::Acc& acc) {
+  auto hold_row = [&](int row, const typename kwalk::Tile<kTC, V>::Acc& acc) {
     while (true) {
       if (__reduce_min_sync(kFull, lane < nw ? (int)taken[lane] : INT_MAX) > pub - kDepth) break;
       if (!take()) __nanosleep(64);
@@ -188,9 +241,14 @@ __global__ void __launch_bounds__(kWarps * 32, 2)
     __threadfence_block();
     __syncwarp();
     const int slot = pub % kDepth;
-    float* y = held_y + (warp * kDepth + slot) * kYS;
-    float* uh = held_u + (warp * kDepth + slot) * us;
-    if constexpr (kTC) {
+    V* y = held_y + (warp * kDepth + slot) * kYS;
+    V* uh = held_u + (warp * kDepth + slot) * us;
+    if constexpr (kF64) {
+      // acc[i][j] is local column 8 lane + 2 i + j
+#pragma unroll
+      for (int i = 0; i < kwalk::kTA; ++i)
+        *reinterpret_cast<double2*>(y + 8 * lane + 2 * i) = make_double2(acc[i][0], acc[i][1]);
+    } else if constexpr (kTC) {
       // acc[q][e] is local column 16 (g + 8 (e >> 1)) + 8 q + 2 t + (e & 1)
 #pragma unroll
       for (int q = 0; q < kwalk::kNT; ++q) {
@@ -205,14 +263,14 @@ __global__ void __launch_bounds__(kWarps * 32, 2)
       *reinterpret_cast<float4*>(y + 8 * lane + 4) =
           make_float4(acc[2][0], acc[2][1], acc[3][0], acc[3][1]);
     }
-    for (int q = lane; q < rp; q += 32) uh[q] = q < r ? to_f32(u[(long long)row * r + q]) : 0.f;
+    for (int q = lane; q < rp; q += 32) uh[q] = q < r ? held(u[(long long)row * r + q]) : V(0);
     __threadfence_block();
     __syncwarp();
     ++pub;
     if (lane == 0) state[warp] = (unsigned)pub;
   };
 
-  const kwalk::Tile<kTC> tile(sh.ra, sh.rb, by, lane);
+  const kwalk::Tile<kTC, V> tile(sh.ra, sh.rb, by, lane);
   const int first = blockIdx.x * per_cta, last = min(first + per_cta, n_parts);
   for (int p = first + warp; p < last; p += nw)
     kwalk::walk<T, kTC>(fa, fb, idx, vals, rel, blkmap, sh, parts[p], parts[p + 1], ring, tile,
@@ -222,7 +280,7 @@ __global__ void __launch_bounds__(kWarps * 32, 2)
 
   // this warp's columns of the partial into part[blockIdx.x] (R, K)
   const long long k_cols = (long long)sh.ra * sh.rb;
-  float* out = part + (long long)blockIdx.x * r * k_cols;
+  V* out = part + (long long)blockIdx.x * r * k_cols;
   for (int mt = 0; mt < n_mt; ++mt)
     for (int q = 0; q < n_nt; ++q)
 #pragma unroll
@@ -236,38 +294,40 @@ __global__ void __launch_bounds__(kWarps * 32, 2)
 }
 
 // out[e] = sum over c in order of part[c][e]: warp w sums c = w, w + 8, ...
-// for 32 consecutive outputs, then warp 0 adds the eight warp sums in order.
+// for 32 consecutive outputs, then warp 0 adds the eight warp sums in order
+// (V: f32, or f64 on the f64 route).
+template <typename V>
 __global__ void __launch_bounds__(32 * kReduceWarps)
-    kron_scatter_ttm_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
+    kron_scatter_ttm_reduce_kernel(const V* __restrict__ part, V* __restrict__ out,
                                    int n_ctas, long long n_out) {
-  __shared__ float ws[kReduceWarps][32];
+  __shared__ V ws[kReduceWarps][32];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const long long e = (long long)blockIdx.x * 32 + lane;
-  float s = 0.f;
+  V s = V(0);
   if (e < n_out)
     for (int c = w; c < n_ctas; c += kReduceWarps) s += part[c * n_out + e];
   ws[w][lane] = s;
   __syncthreads();
   if (w == 0 && e < n_out) {
-    float t = ws[0][lane];
+    V t = ws[0][lane];
     for (int q = 1; q < kReduceWarps; ++q) t += ws[q][lane];
     out[e] = t;
   }
 }
 
-// The first pass's launch shape at these sizes: the staged strides in sh,
-// the warps of a CTA (as many as fit, at most kWarps) and its shared memory.
-// Returns false when not one warp fits.
-bool shape_of(int ra, int rb, int lda, int ldb, int r, int bf16, kwalk::Shape* sh, int* warps,
+// The first pass's launch shape at these sizes for operand code kind: the
+// staged strides in sh, the warps of a CTA (as many as fit, at most kWarps)
+// and its shared memory. Returns false when not one warp fits.
+bool shape_of(int ra, int rb, int lda, int ldb, int r, int kind, kwalk::Shape* sh, int* warps,
               size_t* smem) {
-  kwalk::staged_strides(ra, rb, lda, ldb, !bf16, &sh->sla, &sh->slb);
+  kwalk::staged_strides(ra, rb, lda, ldb, kind == 0, &sh->sla, &sh->slb);
   int dev = 0, smem_max = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const size_t ring = (size_t)kStages * kSlots * (sh->sla + sh->slb) * (bf16 ? 2 : 4);
+  const size_t ring = (size_t)kStages * kSlots * (sh->sla + sh->slb) * elem_of(kind);
   const int rp = (r + 15) / 16 * 16;
   for (int nw = kWarps; nw >= 1; --nw) {
-    const Smem L(nw, rp, ring);
+    const Smem L(nw, rp, ring, sum_bytes_of(kind));
     if (L.total <= (size_t)smem_max) {
       *warps = nw;
       *smem = L.total;
@@ -277,18 +337,40 @@ bool shape_of(int ra, int rb, int lda, int ldb, int r, int bf16, kwalk::Shape* s
   return false;
 }
 
-template <typename T, bool kTC>
+template <typename T, bool kTC, typename V>
 int allow_smem(size_t smem) {
-  return (int)cudaFuncSetAttribute(kron_scatter_ttm_kernel<T, kTC>,
+  return (int)cudaFuncSetAttribute(kron_scatter_ttm_kernel<T, kTC, V>,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T, bool kTC>
+template <typename T, bool kTC, typename V>
 int ctas_per_sm(int threads, size_t smem, int* out) {
-  const int rc = allow_smem<T, kTC>(smem);
+  const int rc = allow_smem<T, kTC, V>(smem);
   if (rc != 0) return rc;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, kron_scatter_ttm_kernel<T, kTC>, threads, smem);
+      out, kron_scatter_ttm_kernel<T, kTC, V>, threads, smem);
+}
+
+// Both passes of one variant: the first into part, then the reduce into
+// out. Returns cudaGetLastError() after the launches.
+template <typename T, bool kTC, typename V>
+int launch(const void* fa, const void* fb, const int* ip, const void* vp, const int* relp,
+           const int* blk, const long long* pp, const void* u, void* part, void* out,
+           int n_parts, int per_cta, int r, const kwalk::Shape& sh, int warps, size_t smem,
+           cudaStream_t st) {
+  int rc;
+  if ((rc = allow_smem<T, kTC, V>(smem)) != 0) return rc;
+  const int n_ctas = (n_parts + per_cta - 1) / per_cta;
+  const dim3 grid(n_ctas, kwalk::column_blocks(sh.ra, sh.rb, kTC));
+  V* pt = static_cast<V*>(part);
+  kron_scatter_ttm_kernel<T, kTC, V><<<grid, warps * 32, smem, st>>>(
+      static_cast<const T*>(fa), static_cast<const T*>(fb), ip, static_cast<const V*>(vp),
+      relp, blk, pp, static_cast<const T*>(u), pt, n_parts, per_cta, r, sh);
+  if ((rc = (int)cudaGetLastError()) != 0) return rc;
+  const long long n_out = (long long)r * sh.ra * sh.rb;
+  kron_scatter_ttm_reduce_kernel<V><<<(unsigned)((n_out + 31) / 32), 32 * kReduceWarps, 0,
+                                      st>>>(pt, static_cast<V*>(out), n_ctas, n_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -299,7 +381,7 @@ int ctas_per_sm(int threads, size_t smem, int* out) {
 // the scratch buffer part), the ranges per_cta each takes, and the shared
 // memory smem of one CTA. Returns a CUDA error code: cudaErrorInvalidValue
 // when the sizes are out of range or no CTA fits an SM.
-extern "C" int kron_scatter_ttm_grid(int ra, int rb, int lda, int ldb, int r, int bf16,
+extern "C" int kron_scatter_ttm_grid(int ra, int rb, int lda, int ldb, int r, int kind,
                                      int n_parts, int* threads, int* per_sm, int* n_ctas,
                                      int* per_cta, long long* smem) {
   *threads = *per_sm = *n_ctas = *per_cta = 0;
@@ -307,72 +389,62 @@ extern "C" int kron_scatter_ttm_grid(int ra, int rb, int lda, int ldb, int r, in
   kwalk::Shape sh{ra, rb, lda, ldb, 0, 0, 1, 1, 1};
   int warps;
   size_t bytes;
-  if (r < 1 || n_parts < 1 || !kwalk::shapes_ok(ra, rb, lda, ldb, 1, 1, 1, bf16 ? 8 : 4) ||
-      !shape_of(ra, rb, lda, ldb, r, bf16, &sh, &warps, &bytes))
+  if (kind < 0 || kind > 2 || r < 1 || n_parts < 1 ||
+      !kwalk::shapes_ok(ra, rb, lda, ldb, 1, 1, 1, 16 / elem_of(kind)) ||
+      !shape_of(ra, rb, lda, ldb, r, kind, &sh, &warps, &bytes))
     return (int)cudaErrorInvalidValue;
   *threads = warps * 32;
   *smem = (long long)bytes;
-  int rc = bf16 ? ctas_per_sm<__nv_bfloat16, false>(*threads, bytes, per_sm)
-                : ctas_per_sm<float, true>(*threads, bytes, per_sm);
+  int rc = kind == 1   ? ctas_per_sm<__nv_bfloat16, false, float>(*threads, bytes, per_sm)
+           : kind == 2 ? ctas_per_sm<double, false, double>(*threads, bytes, per_sm)
+                       : ctas_per_sm<float, true, float>(*threads, bytes, per_sm);
   if (rc != 0) return rc;
   if (*per_sm < 1) return (int)cudaErrorInvalidValue;
   int dev, n_sms;
   if ((rc = (int)cudaGetDevice(&dev)) != 0) return rc;
   if ((rc = (int)cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev)) != 0)
     return rc;
-  int ctas = *per_sm * n_sms / kwalk::column_blocks(ra, rb, !bf16);
+  int ctas = *per_sm * n_sms / kwalk::column_blocks(ra, rb, kind == 0);
   ctas = ctas < 1 ? 1 : (ctas > n_parts ? n_parts : ctas);
   *per_cta = (n_parts + ctas - 1) / ctas;
   *n_ctas = (n_parts + *per_cta - 1) / *per_cta;
   return 0;
 }
 
-// out (r, ra*rb) f32 = sum over rows of U[row]^T (x) y[row], y as in
+// out (r, ra*rb) = sum over rows of U[row]^T (x) y[row], y as in
 // kron_scatter_launch and with its operands: fa (I_a, lda), fb (I_b, ldb)
 // the factor matrices (fb null, rb = 1 and ldb = 0 for a 2-way tensor), idx,
-// vals, rel, blkmap and parts the schedule. u (n_rows, r) contiguous, f32
-// (bf16 = 0) or bf16 (bf16 = 1) like fa and fb. CTA x of
+// vals, rel, blkmap and parts the schedule. kind is kron_scatter_launch's
+// operand code (0 f32, 1 bf16, 2 f64); u (n_rows, r) is contiguous and of
+// fa's type; vals, part and out are f32, f64 for kind = 2. CTA x of
 // n_ctas = ceil(n_parts / per_cta) takes ranges
 // [x * per_cta, (x + 1) * per_cta), per_cta as kron_scatter_ttm_grid gives
-// it; part is an (n_ctas, r, ra*rb) f32 scratch buffer. Returns
+// it; part is an (n_ctas, r, ra*rb) scratch buffer. Returns
 // cudaGetLastError() after the two launches.
 extern "C" int kron_scatter_ttm_launch(const void* fa, const void* fb, const void* idx,
                                        const void* vals, const void* rel, const void* blkmap,
                                        const void* parts, const void* u, void* part, void* out,
                                        int n_parts, int per_cta, int ra, int rb, int lda,
-                                       int ldb, int idx_cols, int bn, int bi, int r, int bf16,
+                                       int ldb, int idx_cols, int bn, int bi, int r, int kind,
                                        void* stream) {
   kwalk::Shape sh{ra, rb, lda, ldb, 0, 0, idx_cols, bn, bi};
   int warps;
   size_t smem;
-  if (n_parts < 1 || per_cta < 1 || r < 1 ||
-      !kwalk::shapes_ok(ra, rb, lda, ldb, idx_cols, bn, bi, bf16 ? 8 : 4) ||
-      !shape_of(ra, rb, lda, ldb, r, bf16, &sh, &warps, &smem))
+  if (kind < 0 || kind > 2 || n_parts < 1 || per_cta < 1 || r < 1 ||
+      !kwalk::shapes_ok(ra, rb, lda, ldb, idx_cols, bn, bi, 16 / elem_of(kind)) ||
+      !shape_of(ra, rb, lda, ldb, r, kind, &sh, &warps, &smem))
     return (int)cudaErrorInvalidValue;
-  const int n_ctas = (n_parts + per_cta - 1) / per_cta;
-  const dim3 grid(n_ctas, kwalk::column_blocks(ra, rb, !bf16));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* ip = static_cast<const int*>(idx);
-  const float* vp = static_cast<const float*>(vals);
   const int* relp = static_cast<const int*>(rel);
   const int* blk = static_cast<const int*>(blkmap);
   const long long* pp = static_cast<const long long*>(parts);
-  float* pt = static_cast<float*>(part);
-  int rc;
-  if (bf16) {
-    if ((rc = allow_smem<__nv_bfloat16, false>(smem)) != 0) return rc;
-    kron_scatter_ttm_kernel<__nv_bfloat16, false><<<grid, warps * 32, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(fa), static_cast<const __nv_bfloat16*>(fb), ip, vp,
-        relp, blk, pp, static_cast<const __nv_bfloat16*>(u), pt, n_parts, per_cta, r, sh);
-  } else {
-    if ((rc = allow_smem<float, true>(smem)) != 0) return rc;
-    kron_scatter_ttm_kernel<float, true><<<grid, warps * 32, smem, st>>>(
-        static_cast<const float*>(fa), static_cast<const float*>(fb), ip, vp, relp, blk, pp,
-        static_cast<const float*>(u), pt, n_parts, per_cta, r, sh);
-  }
-  if ((rc = (int)cudaGetLastError()) != 0) return rc;
-  const long long n_out = (long long)r * ra * rb;
-  kron_scatter_ttm_reduce_kernel<<<(unsigned)((n_out + 31) / 32), 32 * kReduceWarps, 0, st>>>(
-      pt, static_cast<float*>(out), n_ctas, n_out);
-  return (int)cudaGetLastError();
+  if (kind == 1)
+    return launch<__nv_bfloat16, false, float>(fa, fb, ip, vals, relp, blk, pp, u, part, out,
+                                               n_parts, per_cta, r, sh, warps, smem, st);
+  if (kind == 2)
+    return launch<double, false, double>(fa, fb, ip, vals, relp, blk, pp, u, part, out,
+                                         n_parts, per_cta, r, sh, warps, smem, st);
+  return launch<float, true, float>(fa, fb, ip, vals, relp, blk, pp, u, part, out, n_parts,
+                                    per_cta, r, sh, warps, smem, st);
 }

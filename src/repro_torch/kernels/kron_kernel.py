@@ -27,8 +27,7 @@ float64 operands under ``precision="fp32"`` run the kernels' f64
 instantiations and give f64 results (the reference's Pallas kernels compute
 in f32 whatever the dtype; its XLA engine keeps f64, and the port's card
 runs as that engine does); under ``bf16_fp32acc`` they take the bf16 route
-with f32 values and results, as the reference's kernels do. Kernel 5 has no
-f64 instantiation yet.
+with f32 values and results, as the reference's kernels do.
 """
 from __future__ import annotations
 
@@ -37,7 +36,6 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.base import unported
 from repro_torch.kernels import _build, launch_count
 from repro_torch.sparse.layout import build_schedule, slot_rows, visited_row_mask
 
@@ -447,11 +445,12 @@ def _mega_lib():
     return fn, grid
 
 
-def mega_grid(dev: torch.device, ra: int, rb: int, lda: int, ldb: int, r: int, bf16: bool,
+def mega_grid(dev: torch.device, ra: int, rb: int, lda: int, ldb: int, r: int, kind: int,
               n_parts: int) -> dict:
     """The megakernel's first-pass grid for ``n_parts`` row ranges, as
     ``csrc/kron_scatter_ttm.cu`` computes it from the ranks, the padded
-    factor row lengths ``lda`` and ``ldb`` (0 for a 2-way tensor) and R:
+    factor row lengths ``lda`` and ``ldb`` (0 for a 2-way tensor), R and
+    the operand code ``kind`` (:func:`_kind`: 0 f32, 1 bf16, 2 f64):
     ``threads`` per CTA, the CTAs one SM holds (``ctas_per_sm``), ``n_ctas``
     CTAs of ``per_cta`` ranges each, and ``smem_bytes`` per CTA. Raises when
     no CTA fits an SM."""
@@ -459,7 +458,7 @@ def mega_grid(dev: torch.device, ra: int, rb: int, lda: int, ldb: int, r: int, b
     ints = [ctypes.c_int(0) for _ in range(4)]
     smem = ctypes.c_longlong(0)
     with torch.cuda.device(dev):
-        rc = fn(ra, rb, lda, ldb, r, int(bf16), n_parts, *(ctypes.byref(x) for x in ints),
+        rc = fn(ra, rb, lda, ldb, r, kind, n_parts, *(ctypes.byref(x) for x in ints),
                 ctypes.byref(smem))
     grid = dict(zip(("threads", "ctas_per_sm", "n_ctas", "per_cta"), (x.value for x in ints)),
                 smem_bytes=smem.value)
@@ -472,47 +471,45 @@ def mega_grid(dev: torch.device, ra: int, rb: int, lda: int, ldb: int, r: int, b
 
 def fused_kron_scatter_ttm(fa, fb, u, sched, n_rows: int, *,
                            precision: str = "fp32") -> torch.Tensor:
-    """G (R, Ra*Rb) f32 = U^T Y_(n), where ``Y[row(t)] += v[t] * (a[t] (x) b[t])``
+    """G (R, Ra*Rb) = U^T Y_(n), where ``Y[row(t)] += v[t] * (a[t] (x) b[t])``
     is rebuilt row by row from the nonzeros and never stored.
 
     ``fa``, ``fb`` and ``sched`` as for :func:`fused_kron_scatter` (the
     factor rows are read through the schedule); ``u`` is the (n_rows, R)
-    factor of the schedule's mode, rounded to bf16 with ``fa`` and ``fb``
-    under ``bf16_fp32acc``. The first pass runs as many CTAs as the card
-    holds at once, each taking a run of the row split's ranges. CPU tensors
-    run the plain version; CUDA tensors launch the kernels of
-    ``csrc/kron_scatter_ttm.cu`` or raise.
+    factor of the schedule's mode, of ``fa``'s dtype, rounded to bf16 with
+    ``fa`` and ``fb`` under ``bf16_fp32acc``. G is f32, or f64 for f64
+    operands at ``fp32`` (:func:`result_dtype`). The first pass runs as many
+    CTAs as the card holds at once, each taking a run of the row split's
+    ranges. CPU tensors run the plain version; CUDA tensors launch the
+    kernels of ``csrc/kron_scatter_ttm.cu`` or raise.
     """
     if fa.device.type == "cpu":
         return fused_kron_scatter_ttm_plain(fa, fb, u, sched, n_rows, precision=precision)
-    if torch.float64 in (fa.dtype, u.dtype):
-        raise unported("float64 in kernel 5 (fused_kron_scatter_ttm, fuse_core=True)",
-                       "queue 1, item 8b: float64 in kernel 5")
     kernel = "fused_kron_scatter_ttm"
     pa, pb, idx, vals, parts = _schedule_operands(kernel, fa, fb, sched, precision)
     dev = pa.device
     _require(u.device == dev and u.dim() == 2 and u.shape[0] == n_rows
-             and u.dtype == torch.float32,
-             f"u must be ({n_rows}, R) float32 on {dev}, got {tuple(u.shape)} {u.dtype} on "
+             and u.dtype == fa.dtype,
+             f"u must be ({n_rows}, R) {fa.dtype} on {dev}, got {tuple(u.shape)} {u.dtype} on "
              f"{u.device}", kernel)
     (u,) = _cast_operands(precision, u)
     u = u.contiguous()
     ra, rb, r = fa.shape[1], 1 if fb is None else fb.shape[1], u.shape[1]
-    out = torch.zeros((r, ra * rb), dtype=torch.float32, device=dev)
+    out = torch.zeros((r, ra * rb), dtype=vals.dtype, device=dev)
     if idx.shape[0] == 0 or r == 0:
         return out
-    bf16 = pa.dtype == torch.bfloat16
+    kind = _kind(pa.dtype)
     lda, ldb = pa.shape[1], 0 if pb is None else pb.shape[1]
     n_parts = int(parts.shape[0]) - 1
-    grid = mega_grid(dev, ra, rb, lda, ldb, r, bf16, n_parts)
-    part = torch.empty((grid["n_ctas"], r, ra * rb), dtype=torch.float32, device=dev)
+    grid = mega_grid(dev, ra, rb, lda, ldb, r, kind, n_parts)
+    part = torch.empty((grid["n_ctas"], r, ra * rb), dtype=vals.dtype, device=dev)
     fn, _ = _mega_lib()
     with torch.cuda.device(dev):
         rc = fn(pa.data_ptr(), 0 if pb is None else pb.data_ptr(), idx.data_ptr(),
                 vals.data_ptr(), sched.rel_row.data_ptr(), sched.blkmap.data_ptr(),
                 parts.data_ptr(), u.data_ptr(), part.data_ptr(), out.data_ptr(), n_parts,
                 grid["per_cta"], ra, rb, lda, ldb, int(idx.shape[1]), sched.bn, sched.bi, r,
-                int(bf16), _stream(dev))
+                kind, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"kron_scatter_ttm_launch failed: CUDA error {rc}")
     launch_count.count(fused_kron_scatter_ttm)

@@ -140,7 +140,8 @@ def sparse_ttm_core_device(
     precision: str = "fp32",
 ) -> torch.Tensor:
     """Fused core update (Eq. 12): G_(n) = U_n^T Y_(n), (R_n, prod_{t != n}
-    R_t) f32, without materialising Y_(n) for 2- and 3-way tensors: the
+    R_t) in ``kron_kernel.result_dtype`` (f32, f64 for f64 factors at
+    ``fp32``), without materialising Y_(n) for 2- and 3-way tensors: the
     megakernel re-streams the nonzeros, reads their factor rows through the
     schedule and contracts each finished row. Higher orders take the split
     path, the unfolding (the fused chain kernel up to order 6) and then the
@@ -148,7 +149,8 @@ def sparse_ttm_core_device(
     u = factors[skip_mode]
     if indices.shape[0] == 0:
         y0 = zero_unfolding(tuple(shape), factors, skip_mode)
-        return torch.zeros((u.shape[1], y0.shape[1]), dtype=torch.float32, device=u.device)
+        return torch.zeros((u.shape[1], y0.shape[1]),
+                           dtype=kron_kernel.result_dtype(u.dtype, precision), device=u.device)
     n = len(shape)
     if n <= 3:  # the megakernel reads the factor rows through the schedule
         modes = operand_modes(n, skip_mode)

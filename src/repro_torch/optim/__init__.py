@@ -1,1 +1,1 @@
-"""Mixed-precision AdamW."""
+"""Mixed-precision AdamW, and QRP gradient compression for the slow group."""

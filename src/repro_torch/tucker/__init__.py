@@ -27,7 +27,7 @@
     res = tucker.plan(tucker.TuckerSpec(shape=coo.shape, ranks=(16, 16, 16),
                                         shard=tucker.ShardSpec(num_devices=4)))(coo)
 
-    # float64 on the card (kernels 1-4 in f64), and the paper's Kron reuse
+    # float64 on the card (kernels 1-5 in f64), and the paper's Kron reuse
     # on the torch engine (ignored on cuda)
     res = tucker.plan(tucker.TuckerSpec(shape=coo.shape, ranks=(16, 16, 16),
                                         dtype="float64"))(coo)

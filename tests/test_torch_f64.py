@@ -225,14 +225,15 @@ def test_bf16_precision_with_f64_matches_the_reference():
                                          ((300, 200), (128, 1))])
 def test_autotune_sizes_f64_staging_within_the_limit(shape, ranks):
     """The shared-memory prune counts 8-byte elements in float64: no
-    candidate goes over the per-block limit, and no f64 candidate takes the
-    fused layout (kernel 5 has no f64 instantiation)."""
+    candidate goes over the per-block limit, and 3-way f64 problems whose
+    kernel 5 CTA fits are offered the fused layout (2-way ones never are,
+    as in f32)."""
     limit = at.H100_SMEM_PER_BLOCK_OPTIN
     cands = at.candidate_configs(shape, ranks, 10_000, dtype="float64")
     assert cands[0] == at.DEFAULT_CONFIG
     for c in cands[1:]:
         assert at.smem_bytes(c, shape, ranks, dtype="float64") <= limit
-    assert all(c.layout == "split" for c in cands)
+    assert any(c.layout == "fused" for c in cands) == (len(shape) == 3)
     ring64 = at._ring_bytes(16, 16, "fp32", "float64")
     assert ring64 == 2 * at._ring_bytes(16, 16, "fp32") == 16384
     assert at._ring_bytes(16, 16, "bf16_fp32acc", "float64") == 4096
@@ -247,14 +248,69 @@ def test_autotune_prunes_f64_rings_that_do_not_fit():
     assert at.candidate_configs(shape, ranks, 1000, dtype="float64") == [at.DEFAULT_CONFIG]
 
 
-def test_kernel5_f64_raises_naming_item_8b():
-    """The megakernel has no f64 instantiation: off the CPU an f64 call
-    raises, naming its ROADMAP item (meta tensors reach the device branch
-    without a card)."""
-    meta = dict(dtype=torch.float64, device="meta")
-    fa, fb, u = torch.empty((4, 2), **meta), torch.empty((3, 2), **meta), torch.empty((5, 2), **meta)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8b: float64 in kernel 5"):
-        kron_kernel.fused_kron_scatter_ttm(fa, fb, u, None, 5)
+def test_autotune_offers_and_prunes_the_fused_f64_layout():
+    """Kernel 5's f64 CTA counts its partial, held rows and U at 8 bytes: at
+    core rank 16 it fits (an 8-warp CTA is the launcher's 196 KB), at core
+    rank 128 the partial of one warp alone is 256 KB, so the fused layout
+    is pruned in f64 but kept in f32, where it is 128 KB."""
+    ring = at._ring_bytes(16, 16, "fp32", "float64")
+    assert at._mega_cta_bytes(8, 16, ring, 8) == 131072 + 32768 + 33792 + 3072 + 64
+    assert at._mega_cta_bytes(8, 16, ring, 8) <= at.H100_SMEM_PER_BLOCK_OPTIN
+    shape = (300, 300, 300)
+    fused = at.BlockConfig(layout="fused")
+    for ranks, fits in (((16, 16, 16), True), ((16, 16, 128), False)):
+        assert (at.smem_bytes(fused, shape, ranks, dtype="float64")
+                <= at.H100_SMEM_PER_BLOCK_OPTIN) == fits
+        cands = at.candidate_configs(shape, ranks, 5000, dtype="float64")
+        assert any(c.layout == "fused" for c in cands) == fits
+    assert any(c.layout == "fused" for c in at.candidate_configs(shape, (16, 16, 128), 5000))
+    # the f64 partials are modeled at 8 bytes, 132 CTAs
+    split = at.sweep_bytes(at.DEFAULT_CONFIG, shape, (16, 16, 16), 5000, dtype="float64")
+    assert (at.sweep_bytes(fused, shape, (16, 16, 16), 5000, dtype="float64")
+            == split - 2 * 300 * 256 * 8 + 132 * 16 * 256 * 8)
+
+
+@pytest.mark.parametrize("shape,ranks", [((40, 35, 30), (5, 4, 3)), ((33, 9, 300), (3, 5, 17)),
+                                         ((300, 40), (6, 4))])
+def test_kernel5_plain_f64_matches_the_reference_xla_engine(shape, ranks):
+    """Kernel 5's plain version in f64 (the fused core update of the last
+    mode) against the reference's XLA engine under ``jax.enable_x64``: the
+    unfolding, then the TTM, in f64. Held to the f64 rule,
+    max(1e-13, 4 sqrt(n) 2^-53) x max|reference| for n terms an output;
+    ``ops.sparse_ttm_core_device`` gives the same bits, and its empty-tensor
+    branch answers in f64."""
+    from repro.core.engine import make_engine as jmake_engine
+
+    rng = np.random.default_rng(sum(shape))
+    nnz = 900
+    idx = np.stack([rng.integers(0, s, nnz) for s in shape], 1).astype(np.int32)
+    vals = rng.standard_normal(nnz)
+    fs = [np.linalg.qr(rng.standard_normal((s, r)))[0] for s, r in zip(shape, ranks)]
+    n = len(shape)
+    with jax.enable_x64(True):
+        jc = JCOO(jnp.asarray(idx), jnp.asarray(vals), shape)
+        jfs = [jnp.asarray(f) for f in fs]
+        eng = jmake_engine("xla")
+        want = np.asarray(eng.core_update(jc, jfs, eng.mode_unfolding(jc, jfs, n - 1)))
+    assert want.dtype == np.float64
+    tc = SparseCOO.from_parts(idx, vals, shape)
+    tfs = [torch.from_numpy(f) for f in fs]
+    sched = DeviceSchedule.from_layout(build_mode_layout(tc, n - 1), tc)
+    modes = operand_modes(n, n - 1)
+    got = kron_kernel.fused_kron_scatter_ttm(tfs[modes[0]], tfs[modes[1]] if n == 3 else None,
+                                             tfs[n - 1], sched, shape[n - 1])
+    assert got.dtype == torch.float64 and got.shape == want.shape
+    n_terms = nnz  # every nonzero reaches each core entry
+    tol = max(1e-13, 4 * n_terms ** 0.5 * 2.0 ** -53) * np.abs(want).max()
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol)
+    via_ops = ops.sparse_ttm_core_device(tc.indices, tc.values, tfs, n - 1, sched, shape=shape)
+    assert torch.equal(via_ops, got)
+    empty = SparseCOO.from_parts(np.zeros((0, n), np.int32), np.zeros(0), shape)
+    zero = ops.sparse_ttm_core_device(empty.indices, empty.values, tfs, n - 1, None,
+                                      shape=shape)
+    assert zero.dtype == torch.float64 and not zero.any()
+    assert ops.sparse_ttm_core_device(empty.indices, empty.values, tfs, n - 1, None, shape=shape,
+                                      precision="bf16_fp32acc").dtype == torch.float32
 
 
 def test_f64_fuse_core_runs_on_the_cpu():

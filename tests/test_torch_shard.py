@@ -26,6 +26,14 @@ The contract, for 1, 2 and 4 ranks x ``svd``, ``gram`` and
     collective, new values on the same indices (no new slice, and the core
     scales), ``tol`` parity.
 
+The world of 2 also runs the QRP gradient compression over its group
+(``optim/compression.py``, ``compress_grads_for_slow_axis``): each rank's
+own numpy gradients, held to the reference's ``compress_matrix`` of each
+rank's gradients with Q and P averaged in numpy (G_hat 1e-4 x max|G_hat|),
+the same bits on both ranks; and one run of the compression bench's rank
+(``launch/compress_bench.run_rank`` at the granite SMOKE shapes: its bytes
+exactly the r (m + n) model, every output finite, the same bits).
+
 The service across ranks (``ServiceConfig(shard=ShardSpec(n))``): the
 "service" scenario spawns worlds of 1, 2 and 4 gloo ranks (the same group
 timeout); rank 0 serves A-like (3-way, householder) and C-like (4-way,
@@ -69,6 +77,8 @@ SCALE = 1.7
 GROUP_TIMEOUT_S = 120
 # the resume scenario: 12 sweeps in segments of 5, killed at the step-5 boundary
 RESUME_ITER, RESUME_EVERY, RESUME_KILL_AT = 12, 5, 5
+# the world of 2's compression: rank, and the smallest leaf compressed
+COMPRESS_RANK, COMPRESS_MIN_ELEMENTS = 4, 64
 
 
 def problem():
@@ -80,6 +90,38 @@ def problem():
     f0 = [np.linalg.qr(rng.standard_normal((s, r)))[0].astype(np.float32)
           for s, r in zip(SHAPE, RANKS)]
     return idx, vals, f0
+
+
+def compression_problem(rank: int) -> dict:
+    """Rank ``rank``'s f32 gradients for the 2-rank compression: two
+    matrices of rank ``COMPRESS_RANK`` plus 1e-3 noise (full rank, as the
+    Gram form of QRP needs; a gap in the spectrum, so that both packages
+    pick the same pivots), one a (3, 8, 6) stack whose leading dims
+    collapse, a matrix under ``COMPRESS_MIN_ELEMENTS`` and a bias."""
+    rng = np.random.default_rng(100 + rank)
+
+    def low(m, n):
+        return (rng.standard_normal((m, COMPRESS_RANK)) @ rng.standard_normal((COMPRESS_RANK, n))
+                + 1e-3 * rng.standard_normal((m, n))).astype(np.float32)
+
+    return {"w": low(40, 24), "stack": low(24, 6).reshape(3, 8, 6),
+            "tiny": rng.standard_normal((3, 3)).astype(np.float32),
+            "b": rng.standard_normal(7).astype(np.float32)}
+
+
+def _compression_over_the_group(rank: int) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.launch import compress_bench
+    from repro_torch.optim.compression import CompressionConfig, compress_grads_for_slow_axis
+
+    grads = {k: torch.from_numpy(v) for k, v in compression_problem(rank).items()}
+    cfg = CompressionConfig(rank=COMPRESS_RANK, min_elements=COMPRESS_MIN_ELEMENTS)
+    red, err = compress_grads_for_slow_axis(grads, cfg)
+    mats = compress_bench.grad_matrices(get_config("granite-moe-1b-a400m", smoke=True))
+    return {"reduced": {k: v.tolist() for k, v in red.items()},
+            "error": {k: v.tolist() for k, v in err.items()},
+            "bits": hashlib.sha256(b"".join(v.numpy().tobytes() for v in red.values())).hexdigest(),
+            "bench": compress_bench.run_rank(mats, 8, "cpu", repeats=1)}
 
 
 def psum_bytes(shape, ranks, itemsize=4):
@@ -182,6 +224,8 @@ def _rank_matrix(rank: int, world: int, store: str, tmp: str) -> None:
         coo, factors_init=f0)
     out["tol"] = {"unsharded_sweeps": a.n_sweeps, "sharded_sweeps": b.n_sweeps,
                   "fit_maxdiff": float(np.abs(a.fit_history - b.fit_history).max())}
+    if world == 2:
+        out["compression"] = _compression_over_the_group(rank)
     _write(tmp, f"matrix-{world}", rank, out)
     dist.destroy_process_group()
 
@@ -590,6 +634,51 @@ def test_sharded_matches_the_port_unsharded(reports, world, method):
 def test_one_rank_gives_the_unsharded_bits(reports, method):
     case = reports["port"]["1"][0]["cases"][method]
     assert case["digest"] == case["unsharded"]["digest"]
+
+
+def test_two_rank_compression_matches_the_reference_averaged(reports):
+    """The port's compression over a gloo group of 2 against the
+    reference's per-rank ``compress_matrix``, Q and P averaged in numpy
+    (the reference's ``pmean`` over its pod axis)."""
+    import jax.numpy as jnp
+
+    from repro.optim.compression import compress_matrix
+
+    ranks = [r["compression"] for r in reports["port"]["2"]]
+    assert ranks[0]["bits"] == ranks[1]["bits"]
+    problems = [compression_problem(r) for r in range(2)]
+    for key, g0 in problems[0].items():
+        gs = [p[key] for p in problems]
+        if g0.ndim >= 2 and g0.size >= COMPRESS_MIN_ELEMENTS:
+            qp = [compress_matrix(jnp.asarray(g.reshape(-1, g.shape[-1])), COMPRESS_RANK)
+                  for g in gs]
+            q = np.mean([np.asarray(q) for q, _ in qp], axis=0)
+            p = np.mean([np.asarray(p) for _, p in qp], axis=0)
+            want = (q @ p.T).reshape(g0.shape)
+        else:
+            want = np.mean(gs, axis=0)
+        for r, rep in enumerate(ranks):
+            got = np.asarray(rep["reduced"][key], dtype=np.float32)
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
+            err = np.asarray(rep["error"][key], dtype=np.float32)
+            if g0.ndim >= 2 and g0.size >= COMPRESS_MIN_ELEMENTS:
+                np.testing.assert_allclose(err, gs[r] - got, rtol=0,
+                                           atol=1e-6 * np.abs(gs[r]).max())
+            else:
+                assert not err.any()
+
+
+def test_two_rank_compression_bench_counts_the_model_bytes(reports):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import compress_bench
+
+    mats = compress_bench.grad_matrices(get_config("granite-moe-1b-a400m", smoke=True))
+    res = compress_bench.summarize([r["compression"]["bench"] for r in reports["port"]["2"]],
+                                   mats, 8)
+    assert res["world"] == 2 and res["ok"], res["checks"]
+    assert res["qrp_compressed"]["coll_bytes"] == 4 * sum(min(8, m, n) * (m + n)
+                                                          for _, m, n in mats)
+    assert res["reduction"] > 1
 
 
 @pytest.mark.parametrize("world", WORLDS)
