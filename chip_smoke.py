@@ -68,7 +68,8 @@ result line):
    the greedy tokens of ``Engine.generate``;
 9. the LM serving path at full width: zamba2-2.7b as registered (54 Mamba-2
    layers, d 2,560, 2.42 B parameters from a seeded generator on the card),
-   ``Engine.generate`` of 64 new tokens after 4 prompts of 4,096 tokens:
+   ``Engine.generate`` of 16 new tokens cold (64 until PR 29) and 64 warm
+   after 4 prompts of 4,096 tokens:
    launch counts (9 and 54 per prefill, the 9 on the tensor-core route),
    prefill ms, decode ms per step,
    tokens/s, peak memory and the device's busy share; kernel 6 against its
@@ -179,7 +180,8 @@ result line):
     layers, 32 experts top-8, GQA 2) and grok-1-314b cut to 6 of its 64
     layers at full width (8 experts top-2 in two d_ff shards, GQA 6;
     ``GROK_LAYERS``), seeded bf16 weights made on the
-    card, batch 4, 4,096-token prompts, 64 new tokens: launches per
+    card, batch 4, 4,096-token prompts, 16 new tokens (64 until PR 29;
+    tokens/s from the warm prefill and decode steps at 64): launches per
     prefill from the counters (kernel 6 once an attention layer on the
     tensor-core route, kernel 7 once an SSM layer), prefill ms, decode ms a
     step, tokens/s, peak, busy share; kernel 6 on layer 0's inputs against
@@ -229,9 +231,9 @@ result line):
     version's, SDPA backward's (kernel 6) and its bound, kernel 6's
     device time by pass (delta, dK/dV, dQ) beside its design's bound, and
     both kernels' registers and spills from ptxas; 22d repro-100m at
-    full width through ``python -m repro_torch.train``'s code path, 200
+    full width through ``python -m repro_torch.train``'s code path, 120
     steps of 8 x 128 with a checkpoint every 50 (the loss falls), then a
-    run killed at step 110 that resumes at 100 with the checkpoint's bits
+    run killed at step 70 that resumes at 50 with the checkpoint's bits
     and later losses within ``R100_RESUME_LOSS_TOL`` of the uninterrupted
     run's;
 23. QRP gradient compression (``repro_torch.optim.compression``): 23a
@@ -252,7 +254,26 @@ result line):
     ``flops.cell_cost``'s FLOPs, no collective bytes on one card and the
     measured peak memory; the compute term must be ``cell_cost``'s FLOPs
     over the preset's bf16 peak, which phases 21b and 22c divide by;
-25. one JSON line per phase, the kernels line (the f64 instantiations in
+25. training across ranks: 25a repro-100m at full width through ``python
+    -m torch.distributed.run --standalone --nproc-per-node 2 -m
+    repro_torch.train --full-100m`` (2 gloo ranks sharing the card, the
+    ``(2, 1)`` host mesh, ZeRO-3 blocks of the parameters, the master copy
+    and the moments) for ``R25_STEPS`` steps of 8 x 128, held to 22d's
+    world-of-one history (the step-0 loss, every loss, the step-0 grad
+    norm, ``R25_TOL``); both ranks the same whole parameters at the end;
+    every kernel-6 launch on each rank on the ``"wgmma"`` route, exactly
+    ``R25_FWD_A_STEP`` forward and ``R25_BWD_A_STEP`` backward launches a
+    step; each step's collective bytes a rank exactly the count from the
+    specs; ms a step, peak a rank, the collective route; 25b 2 ranks
+    again (spawned, the same mesh): the first ``R25_RERUN`` steps again
+    give 25a's losses and grad norms to the bit (each step's loss reads the
+    parameters the step before it wrote), every kernel-6 backward call of
+    those steps against its plain version (22a's rule);
+    22d's last checkpoint restored at world 2 gathers back to its bits;
+    25c a trainer at world 1 resumes from 25a's world-2 checkpoint with its
+    bits and takes ``R25_RESUME_STEPS`` more steps within ``R25_TOL`` of
+    22d's losses;
+26. one JSON line per phase, the kernels line (the f64 instantiations in
     rows of their own, then the chain kernel's bf16 route, then the two
     backward kernels; kernels 3 and 4's launches are those of the unfused
     route, ``fused=False``, which the default order >= 4 path no longer
@@ -272,6 +293,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 from pathlib import Path
@@ -457,9 +479,11 @@ def main() -> int:
     timed("19 LM families", phase19_families, dev, card)
     timed("20 Tucker layers", phase20_tucker_layers, dev, card)
     timed("21 moe and sampling", phase21_moe_sampling, dev, card)
-    kernels.update(timed("22 training", phase22_training, dev, card))
-    timed("23 gradient compression", phase23_compression, dev, card)
-    timed("24 roofline", phase24_roofline, dev, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as train_tmp:
+        kernels.update(timed("22 training", phase22_training, dev, card, train_tmp))
+        timed("23 gradient compression", phase23_compression, dev, card)
+        timed("24 roofline", phase24_roofline, dev, card)
+        timed("25 training across ranks", phase25_train_ranks, dev, card, train_tmp)
     print(json.dumps({"kernels": [kernels[k] for k in list(wrappers()) + F64_ROWS
                                   + ["fused_kron_chain_scatter_bf16", "flash_attention_bwd",
                                      "ssd_chunk_bwd"]]}), flush=True)
@@ -2377,6 +2401,10 @@ def phase8_smoke_card_vs_cpu(dev) -> None:
 # -- phase 9: the slice's path, Zamba2-2.7B served at full width ---------------
 
 SERVE_B, SERVE_P, SERVE_NEW, SERVE_MAX = 4, 4096, 64, 4224
+# the tokens each cold ``generate`` of phases 9 and 19 makes (SERVE_NEW until
+# PR 29, cut to make room for phase 25): it checks the main path's launches
+# and output; tokens/s come from the warm runs at SERVE_NEW, as before
+COLD_NEW = 16
 # The last-token prefill logits with the kernels against a prefill that runs
 # the plain versions on the card: a guard against gross faults (wrong wiring,
 # a lost chunk, NaN), not a check of rounding. The mixer rounds y_diag +
@@ -2537,13 +2565,14 @@ def phase9_zamba2(dev, card: str):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    out = eng.generate(prompts, SERVE_NEW)
+    out = eng.generate(prompts, COLD_NEW)
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
     launches = read_launches()
     fa_routes = dict(fa.flash_attention.launches_by_route)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"  generate (cold): {t_gen:.3f} s, launches {launches}, flash_attention routes "
+    log(f"  generate (cold, {COLD_NEW} new tokens): {t_gen:.3f} s, launches {launches}, "
+        f"flash_attention routes "
         f"{fa_routes}, peak {peak_gb:.2f} GB, {n_params / 1e9:.3f} B parameters "
         f"(init {t_init:.2f} s)")
     check(launches == {"fused_kron_scatter": 0, "ttm": 0, "kron_contrib": 0, "scatter_rows": 0,
@@ -2553,7 +2582,7 @@ def phase9_zamba2(dev, card: str):
           f"serving launches {launches}, want {n_sb} and {cfg.n_layers} (one prefill)")
     check(fa_routes == {"wgmma": n_sb, "simt": 0},
           f"prefill attention routes {fa_routes}, want all {n_sb} on the tensor-core kernel")
-    check(out.shape == (SERVE_B, SERVE_P + SERVE_NEW) and np.array_equal(out[:, :SERVE_P], prompts)
+    check(out.shape == (SERVE_B, SERVE_P + COLD_NEW) and np.array_equal(out[:, :SERVE_P], prompts)
           and bool(((out >= 0) & (out < cfg.vocab_size)).all()), f"generate output {out.shape}")
 
     # warm timings: prefill and decode steps by CUDA events, generate by the
@@ -3831,6 +3860,7 @@ def _shard_job_fewer(rank, world, dev, tmp, cfg) -> dict:
 
 
 SHARD_JOBS = {"one": _shard_job_one, "four": _shard_job_four, "fewer": _shard_job_fewer}
+# phase 25b's ranks (phases 17 and 18 add theirs below)
 
 
 def run_ranks(job: str, world: int, backend: str, tmp: str, cfg: dict) -> list:
@@ -5417,8 +5447,9 @@ def smoke_card_vs_cpu(dev, arch: str, embeds: bool) -> dict:
 def serve_family(dev, card: str, arch: str, keep_layers, prefill_input: str,
                  smoke: bool = False) -> dict:
     """One family at full width: seeded bf16 weights made on the card, batch
-    4, 4,096-token prompts (or frame embeddings), 64 new tokens; the launches
-    per prefill from the counters; prefill ms, decode ms a step, tokens/s,
+    4, 4,096-token prompts (or frame embeddings), a cold ``generate`` of
+    COLD_NEW new tokens; the launches per generate from the counters;
+    prefill ms, decode ms a step, tokens/s,
     peak and busy share; kernel 6 on layer 0's inputs (and SDPA's time),
     kernel 7 on every call of a warm prefill (``ssd_per_layer_gate``) and on
     layer 0's inputs with the two controls; for the ``moe`` family, phase
@@ -5457,9 +5488,9 @@ def serve_family(dev, card: str, arch: str, keep_layers, prefill_input: str,
     reset_launches()
     t0 = time.perf_counter()
     if prefill_input == "embeds":
-        new = family_generate(eng, batch, SERVE_NEW)
+        new = family_generate(eng, batch, COLD_NEW)
     else:
-        new = eng.generate(prompts, SERVE_NEW)[:, SERVE_P:]
+        new = eng.generate(prompts, COLD_NEW)[:, SERVE_P:]
     torch.cuda.synchronize()
     t_cold = time.perf_counter() - t0
     launches = read_launches()
@@ -5474,7 +5505,7 @@ def serve_family(dev, card: str, arch: str, keep_layers, prefill_input: str,
     check(launches == want, f"{arch}: launches {launches}, want {want} (one prefill)")
     check(routes.get("wgmma", 0) == attn_layers,
           f"{arch}: attention routes {routes}, want all {attn_layers} on the tensor cores")
-    check(new.shape == (SERVE_B, SERVE_NEW) and bool(((new >= 0) & (new < cfg.vocab_size)).all()),
+    check(new.shape == (SERVE_B, COLD_NEW) and bool(((new >= 0) & (new < cfg.vocab_size)).all()),
           f"{arch}: generated tokens {new.shape}")
 
     prefill = partial(eng.prefill, params, batch)
@@ -5553,9 +5584,9 @@ def serve_family(dev, card: str, arch: str, keep_layers, prefill_input: str,
 
 def phase19_families(dev, card: str, smoke: bool = False) -> None:
     log(f"phase 19: the dense, ssm, audio, vlm and moe families at full width, batch {SERVE_B}, "
-        f"{SERVE_P}-token prompts, {SERVE_NEW} new tokens, bf16, seeded weights on the card")
+        f"{SERVE_P}-token prompts, {COLD_NEW} new tokens, bf16, seeded weights on the card")
     out = {"phase": "19 LM families", "card": card, "batch": SERVE_B, "prompt": SERVE_P,
-           "new_tokens": SERVE_NEW, "families": {}}
+           "new_tokens": COLD_NEW, "tokens_per_s_at": SERVE_NEW, "families": {}}
     for arch, keep, prefill_input in FAMILY_SERVING:
         t0 = time.perf_counter()
         out["families"][arch] = serve_family(dev, card, arch, keep, prefill_input, smoke)
@@ -5925,9 +5956,9 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 4
 TRAIN_GATED_STEP = 1  # the step whose backward kernels run beside their plain versions
 LOSS0_BAND = 0.10  # the step-0 loss within 10% of ln(vocab): random weights
 # 22d: repro-100m through ``python -m repro_torch.train``'s code path
-# (cut from 300 steps and a kill at 160 to keep the script within its time
-# limit)
-R100_STEPS, R100_CKPT_EVERY, R100_KILL = 200, 50, 110
+# (cut from 300 steps and a kill at 160, then from 200 and a kill at 110 to
+# make room for phase 25, to keep the script within its time limit)
+R100_STEPS, R100_CKPT_EVERY, R100_KILL = 120, 50, 70
 # 22d: the resumed run's losses against the uninterrupted run's, relative.
 # Bits are not the bar: the embedding's backward (``index_put_`` with
 # accumulate) may sum in another order on another run. Measured: the same
@@ -6459,10 +6490,13 @@ def phase22d_repro100m(dev, card: str, tmp: str) -> dict:
     a = train_main.make_trainer(args("a"))
     check(a.tcfg.ft.checkpoint_every == R100_CKPT_EVERY and a.start_step == 0,
           f"22d: checkpoint every {a.tcfg.ft.checkpoint_every}, start {a.start_step}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     hist_a = a.run()
     torch.cuda.synchronize()
     t_a = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     line = train_main.loss_line(hist_a)
     log(f"  22d: {a.cfg.name}, {R100_STEPS} steps in {t_a:.1f} s: {line}")
     first = sum(h["loss"] for h in hist_a[:10]) / 10
@@ -6507,7 +6541,14 @@ def phase22d_repro100m(dev, card: str, tmp: str) -> dict:
            "ms_per_step": 1e3 * sorted(h["step_time_s"] for h in hist_a)[R100_STEPS // 2],
            "resumed_at": b2.start_step, "restored_bits_equal": same,
            "resumed_loss_rel_gap_max": max(gaps), "resumed_loss_rel_gap_last": gaps[-1],
-           "resumed_final_loss": hist_b[-1]["loss"], "final_loss": hist_a[-1]["loss"]}
+           "resumed_final_loss": hist_b[-1]["loss"], "final_loss": hist_a[-1]["loss"],
+           "peak_gb": peak / 1e9}
+    # phase 25 holds training across ranks to this run: its history, its
+    # step time and peak, and its checkpoints
+    RECORDED["r100"] = {"history": [{k: h[k] for k in ("loss", "grad_norm", "step_time_s")}
+                                    for h in hist_a],
+                        "ms_per_step": out["ms_per_step"], "peak_bytes": peak,
+                        "ckpt_dir": os.path.join(tmp, "a"), "last_step": R100_STEPS}
     log(f"  22d: resumed at {b2.start_step} (the restored state is the checkpoint's bits), "
         f"{len(hist_b)} steps in {t_b:.1f} s; later losses against the uninterrupted run's: "
         f"max relative gap {max(gaps):.3e}, last {gaps[-1]:.3e}")
@@ -6538,13 +6579,12 @@ def repro100m_bwd_row(dev, calls: int = 20) -> dict:
     return row
 
 
-def phase22_training(dev, card: str) -> dict:
+def phase22_training(dev, card: str, tmp: str) -> dict:
     """22a the backward kernels at odd shapes, 22b card against CPU at SMOKE
     size for every family, 22c Zamba2-2.7B trained at full width (the main
     path), 22d repro-100m through ``python -m repro_torch.train`` with a
-    kill and a resume. Runs on an emptied card; returns the kernels' rows."""
-    import tempfile
-
+    kill and a resume, its checkpoints under ``tmp`` (phase 25 reads them).
+    Runs on an emptied card; returns the kernels' rows."""
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -6562,8 +6602,7 @@ def phase22_training(dev, card: str) -> dict:
     secs["22c"] = time.perf_counter() - t0
     release_memory()
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        r100 = phase22d_repro100m(dev, card, tmp)
+    r100 = phase22d_repro100m(dev, card, tmp)
     secs["22d"] = time.perf_counter() - t0
     r100["flash_attention_bwd"] = repro100m_bwd_row(dev)
     for name, row in rows.items():
@@ -6726,6 +6765,219 @@ def phase24_roofline(dev, card: str) -> None:
     out["table"] = md
     print(json.dumps(out), flush=True)
 
+
+
+# -- phase 25: training across ranks ------------------------------------------------
+
+R25_WORLD = 2  # gloo ranks sharing the card: the (2, 1) host mesh
+# each world-2 step moves ~0.5 GB a rank through gloo (0.85 s a step on one
+# H100's host), so 12 steps; 22d's first 12 + R25_RESUME_STEPS are the baseline
+R25_STEPS = 12
+R25_RERUN = 3  # 25b: the steps run again at world 2, their backward calls gated
+R25_RESUME_STEPS = 5  # 25c: world-1 steps after 25a's world-2 checkpoint
+# world 2 against 22d's world of one: the batch's two halves run apart and
+# their bf16 gradients are summed in bf16 by the reduce-scatter, so the bits
+# differ from one rank's; the step-0 loss sees only the forward (each rank's
+# mean over half the rows), every later loss the whole drift. Asked for:
+# 1e-3, 2e-2 and 1e-2; measured on one H100 at 700 W (PERF.md, PR 29), the
+# same in two runs: 2.0e-7, 1.06e-3 over 12 steps and 1.13e-3, and 1.22e-3
+# for 25c's resumed losses; held at about 4x those
+R25_TOL = {"loss0": 1e-5, "loss": 5e-3, "grad_norm0": 5e-3}
+R25_FWD_A_STEP, R25_BWD_A_STEP = 24, 12  # 12 attention layers, remat "full"
+R25_TIMEOUT_S = 600
+
+
+def r25_args(tmp: str, name: str, steps: int, dev, report: str = "") -> list:
+    argv = ["--steps", str(steps), "--full-100m", "--batch", "8", "--seq", "128",
+            "--ckpt-dir", os.path.join(tmp, name), "--device", str(dev)]
+    return argv + (["--report", report] if report else [])
+
+
+def _train_job_ranks(rank, world, dev, tmp, cfg) -> dict:
+    """25b, one rank: the first R25_RERUN steps again on the host mesh, no
+    checkpoint, every kernel-6 backward call gated; and 22d's last
+    checkpoint restored on the mesh and gathered whole."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import __main__ as train_main
+    from repro_torch.train.step import train_state_specs
+
+    mesh = make_host_mesh(device=dev)
+    out = {"route": mesh.route, "world": mesh.size}
+    args = train_main.parse_args(r25_args(tmp, "25b", R25_RERUN, dev))
+    args.ckpt_dir = ""  # no checkpoint: the rerun is held to 25a's history
+    t = train_main.make_trainer(args, mesh=mesh)
+    hist, gate, _ = gated_backward(t.run)
+    out["gate"] = gate["flash_attention_bwd"]
+    out["history"] = [(h["loss"], h["grad_norm"]) for h in hist]
+    del t
+    like, shardings = train_state_specs(get_config("repro-100m"), mesh)
+    mgr = CheckpointManager(cfg["ckpt_dir"])
+    (p, o), step, _ = mgr.restore(like, cfg["last_step"], device=dev, shardings=shardings)
+    named = _flat_state(*shardings)[:-1]  # the count is replicated
+    whole = [mesh.gather_full(t, sh.spec).cpu() for t, sh in
+             zip(_flat_state(p, o)[:-1], named)] + [o.count.cpu()]
+    out["restored_step"] = step
+    if rank == 0:
+        (wp, wo), _, _ = mgr.restore(like, cfg["last_step"], device="cpu")
+        want = _flat_state(wp, wo)
+        out["restored_bits_equal"] = len(want) == len(whole) and all(
+            a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(whole, want))
+        out["restored_block_rows"] = int(p["lm_head"]["w"].shape[0])
+    return out
+
+
+def _flat_state(params, opt) -> list:
+    """``(params, OptState)`` as one list: params, master, mu, nu, count."""
+    from repro_torch.optim import adamw
+
+    return (adamw.leaves(params) + [t for part in opt[:3] for t in adamw.leaves(part)]
+            + [opt.count])
+
+
+SHARD_JOBS["train25"] = _train_job_ranks
+
+
+def run_distributed_train(tmp: str, dev) -> tuple:
+    """25a: ``python -m torch.distributed.run --standalone --nproc-per-node
+    R25_WORLD -m repro_torch.train --full-100m ...`` in a subprocess; returns
+    (each rank's report, the command's wall seconds, its output's tail)."""
+    report = os.path.join(tmp, "25a-report")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={R25_WORLD}", "-m", "repro_torch.train"]
+    cmd += r25_args(tmp, "25a", R25_STEPS, dev.type, report)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=R25_TIMEOUT_S)
+    except subprocess.TimeoutExpired as e:
+        raise Failure(f"25a: the distributed run took over {R25_TIMEOUT_S} s: "
+                      f"{(e.stderr or '')[-2000:]}")
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"25a: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    reports = [json.loads(Path(report, f"rank{r}.json").read_text()) for r in range(R25_WORLD)]
+    return reports, wall, proc.stdout.strip().splitlines()[-3:]
+
+
+def phase25_train_ranks(dev, card: str, tmp: str) -> None:
+    """25a-25c (see the module's docstring), against 22d's world-of-one run
+    of the same configuration (``RECORDED["r100"]``)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.train import __main__ as train_main
+
+    base = RECORDED.get("r100")
+    check(base is not None and len(base["history"]) >= R25_STEPS + R25_RESUME_STEPS,
+          "25: phase 22d recorded no world-of-one run to hold world 2 to")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    secs = {}
+    # 25a: the normal entry point over 2 ranks
+    t0 = time.perf_counter()
+    reports, wall, tail = run_distributed_train(tmp, dev)
+    secs["25a"] = time.perf_counter() - t0
+    for line in tail:
+        log(f"  25a: {line}")
+    hist = reports[0]["history"]
+    check(all([(h["loss"], h["grad_norm"]) for h in r["history"]]
+              == [(h["loss"], h["grad_norm"]) for h in hist] for r in reports),
+          "25a: the ranks' losses or grad norms differ")
+    check([h["step"] for h in hist] == list(range(R25_STEPS)),
+          f"25a: steps {hist[0]['step']}..{hist[-1]['step']}")
+    check(reports[0]["params_digest"] == reports[1]["params_digest"],
+          "25a: the ranks gather different parameters after the last step")
+    want = base["history"]
+    gaps = [abs(h["loss"] - w["loss"]) / abs(w["loss"]) for h, w in zip(hist, want)]
+    gnorm0 = abs(hist[0]["grad_norm"] - want[0]["grad_norm"]) / want[0]["grad_norm"]
+    log(f"  25a: world 2 against 22d's world of one: step-0 loss {hist[0]['loss']:.6f} / "
+        f"{want[0]['loss']:.6f} (gap {gaps[0]:.3e}), worst loss gap {max(gaps):.3e} at step "
+        f"{gaps.index(max(gaps))}, step-0 grad norm gap {gnorm0:.3e}")
+    check(gaps[0] <= R25_TOL["loss0"], f"25a: step-0 loss gap {gaps[0]:.3e}")
+    check(max(gaps) <= R25_TOL["loss"], f"25a: loss gap {max(gaps):.3e}")
+    check(gnorm0 <= R25_TOL["grad_norm0"], f"25a: step-0 grad norm gap {gnorm0:.3e}")
+    cfg = get_config("repro-100m")
+    for r in reports:
+        fwd, bwd = r["flash_attention"], r["flash_attention_bwd"]
+        check(r["route"] == "gloo-host-staged" and r["world"] == R25_WORLD,
+              f"25a rank {r['rank']}: route {r['route']}, world {r['world']}")
+        check(fwd == {"wgmma": R25_FWD_A_STEP * R25_STEPS, "simt": 0}
+              and bwd == {"wgmma": R25_BWD_A_STEP * R25_STEPS, "simt": 0},
+              f"25a rank {r['rank']}: kernel 6 launches {fwd}, backward {bwd}")
+        model = r["collective_bytes_per_step_model"]
+        for h in r["history"]:
+            got = {k: int(h[f"{k}_bytes"]) for k in model}
+            check(got == model, f"25a rank {r['rank']} step {h['step']}: bytes {got}, "
+                  f"the specs say {model}")
+    staged = int(hist[0]["host_staged_bytes"])
+    ms2 = 1e3 * sorted(h["step_time_s"] for h in hist)[R25_STEPS // 2]
+    coll_ms = 1e3 * sorted(h["collective_s"] for h in hist)[R25_STEPS // 2]
+    peaks = [r["peak_bytes"] for r in reports]
+    log(f"  25a: {R25_STEPS} steps at world {R25_WORLD} in {wall:.1f} s of wall (start-up "
+        f"included); {ms2:.1f} ms a step ({coll_ms:.1f} of it in collectives, the median) "
+        f"against {base['ms_per_step']:.1f} at world 1; bytes a "
+        f"rank a step {reports[0]['collective_bytes_per_step_model']}, {staged} staged through "
+        f"the host; peak a rank {[round(x / 1e9, 3) for x in peaks]} GB against "
+        f"{base['peak_bytes'] / 1e9:.3f} at world 1")
+    # 25b: 2 ranks again, spawned: the first steps twice, the gate, 22d's restore
+    t0 = time.perf_counter()
+    ranks = run_ranks("train25", R25_WORLD, "gloo", tmp,
+                      {"device": str(dev), "ckpt_dir": base["ckpt_dir"],
+                       "last_step": base["last_step"]})
+    secs["25b"] = time.perf_counter() - t0
+    first = [(h["loss"], h["grad_norm"]) for h in hist[:R25_RERUN]]
+    for r, res in enumerate(ranks):
+        check(res["history"] == first,
+              f"25b rank {r}: losses and grad norms {res['history']} against 25a's {first}")
+        gate = res["gate"]
+        check(gate["calls"] == R25_BWD_A_STEP * R25_RERUN,
+              f"25b rank {r}: {gate['calls']} gated backward calls")
+        check(res["restored_step"] == base["last_step"], f"25b rank {r}: restored "
+              f"{res['restored_step']}")
+    check(ranks[0]["restored_bits_equal"]
+          and ranks[0]["restored_block_rows"] == cfg.d_model // R25_WORLD,
+          "25b: 22d's checkpoint restored at world 2 does not gather back to its bits")
+    log(f"  25b: {R25_RERUN} steps again on each rank: 25a's losses and grad norms to the "
+        f"bit; {ranks[0]['gate']['calls']} backward calls a rank within 22a's rule "
+        f"(worst {max(r['gate']['worst_over_limit'] for r in ranks):.3f} of the limit); "
+        f"22d's step-{base['last_step']} checkpoint restored at world 2 gathers to its bits")
+    # 25c: world 1 resumes from the world-2 checkpoint
+    t0 = time.perf_counter()
+    args = train_main.parse_args(r25_args(tmp, "25a", R25_STEPS + R25_RESUME_STEPS, dev))
+    one = train_main.make_trainer(args)
+    check(one.start_step == R25_STEPS, f"25c: resumed at {one.start_step}")
+    (cp, co), _, _ = CheckpointManager(os.path.join(tmp, "25a")).restore(
+        (one.params, one.opt_state), R25_STEPS, device=dev)
+    same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in
+               zip(_flat_state(one.params, one.opt_state), _flat_state(cp, co)))
+    check(same, "25c: the world-1 trainer did not restore the world-2 checkpoint's bits")
+    del cp, co
+    hist_c = one.run()
+    resumed = [abs(h["loss"] - w["loss"]) / abs(w["loss"])
+               for h, w in zip(hist_c, want[R25_STEPS:])]
+    secs["25c"] = time.perf_counter() - t0
+    log(f"  25c: world 1 resumed at step {one.start_step} from the world-2 checkpoint with its "
+        f"bits; {len(hist_c)} steps, losses against 22d's: worst gap {max(resumed):.3e}")
+    check(len(hist_c) == R25_RESUME_STEPS and max(resumed) <= R25_TOL["loss"],
+          f"25c: resumed losses {max(resumed):.3e} from 22d's")
+    del one
+    model = reports[0]["collective_bytes_per_step_model"]
+    print(json.dumps({
+        "phase": "25 training across ranks", "card": card, "seconds": secs,
+        "world": R25_WORLD, "route": reports[0]["route"], "steps": R25_STEPS,
+        "ms_per_step": {"1": base["ms_per_step"], "2": ms2}, "wall_s_25a": wall,
+        "collective_ms_per_step": coll_ms,
+        "loss_gap": {"step0": gaps[0], "max": max(gaps), "resumed_at_world1_max": max(resumed)},
+        "grad_norm0_gap": gnorm0, "bytes_per_rank_per_step": model,
+        "host_staged_bytes_per_step": staged,
+        "peak_gb": {"world1": base["peak_bytes"] / 1e9, "world2_ranks": [x / 1e9 for x in peaks]},
+        "kernel6_launches_by_rank": [{"fwd": r["flash_attention"], "bwd": r["flash_attention_bwd"]}
+                                     for r in reports],
+        "bwd_gate": [r["gate"] for r in ranks],
+        "losses_world2": [h["loss"] for h in hist]}), flush=True)
 
 if __name__ == "__main__":
     try:

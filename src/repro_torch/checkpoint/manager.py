@@ -170,14 +170,19 @@ class CheckpointManager:
         d = Path(self.directory) / f"step_{step:08d}"
         return json.loads((d / "manifest.json").read_text())
 
-    def restore(self, like: Any, step: Optional[int] = None,
-                device=None) -> Tuple[Any, int, Dict]:
+    def restore(self, like: Any, step: Optional[int] = None, device=None,
+                shardings: Optional[Any] = None) -> Tuple[Any, int, Dict]:
         """Restore checkpoint ``step`` (default: the latest) into the
         structure of ``like``: a tree of tensors, or of ``(shape, dtype)``
         specs. Each leaf comes back as a tensor of the like leaf's dtype
         (converted through float32 when the stored dtype differs), on
         ``device`` (the CPU by default). Returns ``(tree, step, extra)``; a
-        leaf of ``like`` that the checkpoint lacks raises ``KeyError``."""
+        leaf of ``like`` that the checkpoint lacks raises ``KeyError``.
+
+        ``shardings``: a tree of the same structure whose leaves are
+        :class:`~repro_torch.models.sharding.NamedSharding` (or None) on the
+        *current* mesh: each stored leaf, whole whatever world wrote it, is
+        cut to this rank's block of its spec (the elastic reshard)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -188,11 +193,14 @@ class CheckpointManager:
         with np.load(d / "shard_00000.npz") as data:
             for leaf in manifest["leaves"]:
                 by_name[leaf["name"]] = _from_numpy(data[leaf["key"]], leaf["dtype"])
+        cuts = dict(_flatten_with_names(shardings)) if shardings is not None else {}
         leaves = []
         for name, leaf in _flatten_with_names(like):
             if name not in by_name:
                 raise KeyError(f"checkpoint missing leaf {name}")
             t = by_name[name]
+            if cuts.get(name) is not None:
+                t = cuts[name].local(t).clone()
             want = leaf[1] if _is_spec(leaf) else getattr(leaf, "dtype", t.dtype)
             if not isinstance(want, torch.dtype):
                 want = getattr(torch, _dtype_name(want))

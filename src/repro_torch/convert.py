@@ -48,42 +48,56 @@ def bf16_from_bits(bits, device="cpu") -> torch.Tensor:
     return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
 
 
-def lm_params_from_numpy(tree, cfg: ModelConfig, device="cpu"):
+def _block(t: torch.Tensor, sharding, spec) -> torch.Tensor:
+    """``t`` whole, or this rank's block of it when ``sharding = (mesh,
+    specs)`` was given (``spec`` the leaf's own)."""
+    if sharding is None:
+        return t
+    return sharding[0].local_block(t, spec).clone()
+
+
+def lm_params_from_numpy(tree, cfg: ModelConfig, device="cpu", sharding=None):
     """The port's LM parameters from the reference's parameter pytree as
     numpy (``jax.tree_util.tree_map(np.asarray, params)``), for any family's
     tree (``models.model.param_defs``), checked leaf by leaf against the
-    port's schema for ``cfg`` (keys, shapes, dtypes)."""
+    port's schema for ``cfg`` (keys, shapes, dtypes). With ``sharding =
+    (mesh, specs)`` (``models.model.param_pspecs``) each leaf comes back as
+    this rank's block."""
 
-    def walk(defs, node, path):
+    def walk(defs, node, spec, path):
         if isinstance(defs, dict):
-            return {k: walk(d, node[k], path + (k,)) for k, d in defs.items()}
+            return {k: walk(d, node[k], spec and spec[k], path + (k,))
+                    for k, d in defs.items()}
         t = tensor_from_numpy(node, device)
         if tuple(t.shape) != defs.shape or t.dtype != leaf_dtype(cfg, defs):
             raise ValueError(f"{'/'.join(path)}: {tuple(t.shape)} {t.dtype}, the schema "
                              f"says {defs.shape} {leaf_dtype(cfg, defs)}")
-        return t
+        return _block(t, sharding, spec)
 
-    return walk(param_defs(cfg), tree, ())
+    return walk(param_defs(cfg), tree, sharding and sharding[1], ())
 
 
-def opt_state_from_numpy(tree, cfg: ModelConfig, device="cpu") -> OptState:
+def opt_state_from_numpy(tree, cfg: ModelConfig, device="cpu", sharding=None) -> OptState:
     """The port's :class:`OptState` from the reference's ``OptState`` as numpy
     (``jax.tree_util.tree_map(np.asarray, opt_state)``): master, mu and nu
     checked leaf by leaf against the schema's shapes, in f32, and the int32
-    count."""
+    count. With ``sharding = (mesh, specs)`` (the ZeRO specs,
+    ``adamw.opt_pspecs(...).master``) each leaf comes back as this rank's
+    block."""
     master, mu, nu, count = tree
 
-    def walk(defs, node, path):
+    def walk(defs, node, spec, path):
         if isinstance(defs, dict):
-            return {k: walk(d, node[k], path + (k,)) for k, d in defs.items()}
+            return {k: walk(d, node[k], spec and spec[k], path + (k,))
+                    for k, d in defs.items()}
         t = tensor_from_numpy(node, device)
         if tuple(t.shape) != defs.shape or t.dtype != torch.float32:
             raise ValueError(f"{'/'.join(path)}: {tuple(t.shape)} {t.dtype}, want "
                              f"{defs.shape} torch.float32")
-        return t
+        return _block(t, sharding, spec)
 
-    defs = param_defs(cfg)
-    return OptState(*(walk(defs, part, (name,)) for name, part in
+    defs, specs = param_defs(cfg), sharding and sharding[1]
+    return OptState(*(walk(defs, part, specs, (name,)) for name, part in
                       (("master", master), ("mu", mu), ("nu", nu))),
                     count=tensor_from_numpy(np.asarray(count, np.int32), device))
 

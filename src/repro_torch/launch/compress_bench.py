@@ -56,7 +56,7 @@ from repro_torch.optim.compression import all_reduce_mean, compress_matrix, deco
 
 SEED = 20
 WORLD = 2  # ranks of the slow group
-REPEATS = 2  # timed runs of each sync, in turns, after one untimed warm-up
+REPEATS = 1  # timed runs of each sync a rank, after one untimed warm-up
 NOISE = 1e-2  # the full-rank noise beside a gradient's rank-r part, per entry
 GROUP_TIMEOUT_S = 600
 _DIGEST_CHUNK = 1 << 24

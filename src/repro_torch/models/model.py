@@ -28,6 +28,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import init_normal, rmsnorm, softmax_cross_entropy
 from repro_torch.models.mamba2 import SsmState
+from repro_torch.models.sharding import RULES_TRAIN, NamedSharding, ShardingRules, spec_for
+from repro_torch.optim.adamw import map_tree
 
 MODES = ("train", "prefill", "decode")
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
@@ -43,69 +45,78 @@ def check_ported(cfg: ModelConfig) -> None:
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
+    logical: Tuple[str, ...]  # each dim's logical name (``models.sharding``'s rules)
     init: str = "normal"  # normal | zeros | ones | a_log | dt_bias
+    dtype: Optional[str] = None  # overrides the model dtype (e.g. norms in f32)
 
 
-def _attn_defs(cfg: ModelConfig, lead: Tuple[int, ...] = ()) -> Dict[str, ParamDef]:
+def _attn_defs(cfg: ModelConfig, lead: Tuple[int, ...] = (),
+               lead_log: Tuple[str, ...] = ()) -> Dict[str, ParamDef]:
     h, kv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, cfg.d_model
     defs = {
-        "ln1": ParamDef(lead + (d,), "ones"),
-        "wq": ParamDef(lead + (d, h * hd)),
-        "wk": ParamDef(lead + (d, kv * hd)),
-        "wv": ParamDef(lead + (d, kv * hd)),
-        "wo": ParamDef(lead + (h * hd, d)),
+        "ln1": ParamDef(lead + (d,), lead_log + ("none",), "ones"),
+        "wq": ParamDef(lead + (d, h * hd), lead_log + ("fsdp", "tp")),
+        "wk": ParamDef(lead + (d, kv * hd), lead_log + ("fsdp", "tp")),
+        "wv": ParamDef(lead + (d, kv * hd), lead_log + ("fsdp", "tp")),
+        "wo": ParamDef(lead + (h * hd, d), lead_log + ("tp", "fsdp")),
     }
     if cfg.qkv_bias:
-        defs["bq"] = ParamDef(lead + (h * hd,), "zeros")
-        defs["bk"] = ParamDef(lead + (kv * hd,), "zeros")
-        defs["bv"] = ParamDef(lead + (kv * hd,), "zeros")
+        defs["bq"] = ParamDef(lead + (h * hd,), lead_log + ("tp",), "zeros")
+        defs["bk"] = ParamDef(lead + (kv * hd,), lead_log + ("tp",), "zeros")
+        defs["bv"] = ParamDef(lead + (kv * hd,), lead_log + ("tp",), "zeros")
     return defs
 
 
-def _mlp_defs(cfg: ModelConfig, lead: Tuple[int, ...] = ()) -> Dict[str, ParamDef]:
+def _mlp_defs(cfg: ModelConfig, lead: Tuple[int, ...] = (),
+              lead_log: Tuple[str, ...] = ()) -> Dict[str, ParamDef]:
     d, ff = cfg.d_model, cfg.d_ff
     return {
-        "ln2": ParamDef(lead + (d,), "ones"),
-        "wi": ParamDef(lead + (d, ff)),
-        "wg": ParamDef(lead + (d, ff)),
-        "wo_mlp": ParamDef(lead + (ff, d)),
+        "ln2": ParamDef(lead + (d,), lead_log + ("none",), "ones"),
+        "wi": ParamDef(lead + (d, ff), lead_log + ("fsdp", "tp")),
+        "wg": ParamDef(lead + (d, ff), lead_log + ("fsdp", "tp")),
+        "wo_mlp": ParamDef(lead + (ff, d), lead_log + ("tp", "fsdp")),
     }
 
 
-def _moe_defs(cfg: ModelConfig, lead: Tuple[int, ...]) -> Dict[str, ParamDef]:
+def _moe_defs(cfg: ModelConfig, lead: Tuple[int, ...],
+              lead_log: Tuple[str, ...]) -> Dict[str, ParamDef]:
     """The ``moe`` family's MLP leaves: the router and the expert stacks,
     each expert's d_ff split over ``expert_shards``."""
     d, ff = cfg.d_model, cfg.d_ff
     e_eff = cfg.n_experts_eff
     ff_s = ff // cfg.expert_shards
     return {
-        "ln2": ParamDef(lead + (d,), "ones"),
-        "router": ParamDef(lead + (d, cfg.n_experts)),
-        "moe_wi": ParamDef(lead + (e_eff, d, ff_s)),
-        "moe_wg": ParamDef(lead + (e_eff, d, ff_s)),
-        "moe_wo": ParamDef(lead + (e_eff, ff_s, d)),
+        "ln2": ParamDef(lead + (d,), lead_log + ("none",), "ones"),
+        "router": ParamDef(lead + (d, cfg.n_experts), lead_log + ("none", "none")),
+        "moe_wi": ParamDef(lead + (e_eff, d, ff_s),
+                           lead_log + ("experts", "expert_fsdp", "none")),
+        "moe_wg": ParamDef(lead + (e_eff, d, ff_s),
+                           lead_log + ("experts", "expert_fsdp", "none")),
+        "moe_wo": ParamDef(lead + (e_eff, ff_s, d),
+                           lead_log + ("experts", "none", "expert_fsdp")),
     }
 
 
-def _ssm_defs(cfg: ModelConfig, lead: Tuple[int, ...]) -> Dict[str, ParamDef]:
+def _ssm_defs(cfg: ModelConfig, lead: Tuple[int, ...],
+              lead_log: Tuple[str, ...]) -> Dict[str, ParamDef]:
     d, din = cfg.d_model, cfg.d_inner
     gn = cfg.ssm_ngroups * cfg.ssm_state
     nh, k = cfg.ssm_nheads, cfg.ssm_conv
     return {
-        "ln": ParamDef(lead + (d,), "ones"),
-        "wz": ParamDef(lead + (d, din)),
-        "wx": ParamDef(lead + (d, din)),
-        "wb": ParamDef(lead + (d, gn)),
-        "wc": ParamDef(lead + (d, gn)),
-        "wdt": ParamDef(lead + (d, nh)),
-        "dt_bias": ParamDef(lead + (nh,), "dt_bias"),
-        "a_log": ParamDef(lead + (nh,), "a_log"),
-        "d_skip": ParamDef(lead + (nh,), "ones"),
-        "conv_x": ParamDef(lead + (din, k)),
-        "conv_b": ParamDef(lead + (gn, k)),
-        "conv_c": ParamDef(lead + (gn, k)),
-        "norm_w": ParamDef(lead + (din,), "ones"),
-        "wo": ParamDef(lead + (din, d)),
+        "ln": ParamDef(lead + (d,), lead_log + ("none",), "ones"),
+        "wz": ParamDef(lead + (d, din), lead_log + ("fsdp", "tp")),
+        "wx": ParamDef(lead + (d, din), lead_log + ("fsdp", "tp")),
+        "wb": ParamDef(lead + (d, gn), lead_log + ("fsdp", "tp")),
+        "wc": ParamDef(lead + (d, gn), lead_log + ("fsdp", "tp")),
+        "wdt": ParamDef(lead + (d, nh), lead_log + ("fsdp", "tp")),
+        "dt_bias": ParamDef(lead + (nh,), lead_log + ("tp",), "dt_bias"),
+        "a_log": ParamDef(lead + (nh,), lead_log + ("tp",), "a_log"),
+        "d_skip": ParamDef(lead + (nh,), lead_log + ("tp",), "ones"),
+        "conv_x": ParamDef(lead + (din, k), lead_log + ("tp", "none")),
+        "conv_b": ParamDef(lead + (gn, k), lead_log + ("tp", "none")),
+        "conv_c": ParamDef(lead + (gn, k), lead_log + ("tp", "none")),
+        "norm_w": ParamDef(lead + (din,), lead_log + ("tp",), "ones"),
+        "wo": ParamDef(lead + (din, d), lead_log + ("tp", "fsdp")),
     }
 
 
@@ -115,20 +126,22 @@ def param_defs(cfg: ModelConfig) -> Dict[str, Any]:
     (superblock, period), then one shared attention + MLP block)."""
     d, vp, n_layers = cfg.d_model, cfg.padded_vocab, cfg.n_layers
     defs: Dict[str, Any] = {
-        "embed": {"table": ParamDef((vp, d))},
-        "lm_head": {"w": ParamDef((d, vp))},
-        "final_norm": ParamDef((d,), "ones"),
+        # the embedding table is sharded on d (not vocab): token gathers stay
+        # local and its gradient comes out d-sharded
+        "embed": {"table": ParamDef((vp, d), ("none", "tp"))},
+        "lm_head": {"w": ParamDef((d, vp), ("fsdp", "vocab"))},
+        "final_norm": ParamDef((d,), ("none",), "ones"),
     }
-    lead = (n_layers,)
+    lead, lead_log = (n_layers,), ("layers",)
     if cfg.family == "moe":
-        defs["layers"] = {**_attn_defs(cfg, lead), **_moe_defs(cfg, lead)}
+        defs["layers"] = {**_attn_defs(cfg, lead, lead_log), **_moe_defs(cfg, lead, lead_log)}
     elif cfg.family in ATTENTION_FAMILIES:
-        defs["layers"] = {**_attn_defs(cfg, lead), **_mlp_defs(cfg, lead)}
+        defs["layers"] = {**_attn_defs(cfg, lead, lead_log), **_mlp_defs(cfg, lead, lead_log)}
     elif cfg.family == "ssm":
-        defs["layers"] = _ssm_defs(cfg, lead)
+        defs["layers"] = _ssm_defs(cfg, lead, lead_log)
     elif cfg.family == "hybrid":
         n_sb = n_layers // cfg.hybrid_period
-        defs["layers"] = _ssm_defs(cfg, (n_sb, cfg.hybrid_period))
+        defs["layers"] = _ssm_defs(cfg, (n_sb, cfg.hybrid_period), ("layers", "layers"))
         defs["shared"] = {**_attn_defs(cfg), **_mlp_defs(cfg)}
     else:
         raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
@@ -142,6 +155,8 @@ def map_defs(fn: Callable[[ParamDef], Any], defs) -> Any:
 
 
 def leaf_dtype(cfg: ModelConfig, d: ParamDef) -> torch.dtype:
+    if d.dtype is not None:
+        return getattr(torch, d.dtype)
     if d.init in ("ones", "a_log", "dt_bias"):
         return torch.float32  # norms and SSM scalars stay f32
     return getattr(torch, cfg.dtype)
@@ -153,6 +168,24 @@ def param_shapes(cfg: ModelConfig):
     allocated."""
     return map_defs(lambda d: torch.empty(d.shape, dtype=leaf_dtype(cfg, d), device="meta"),
                     param_defs(cfg))
+
+
+def param_pspecs(cfg: ModelConfig, rules: ShardingRules, mesh):
+    """Each leaf's spec on ``mesh``: its logical names through ``rules``,
+    a dim that does not divide replicated (``sharding.spec_for``)."""
+    return map_defs(lambda d: spec_for(d.logical, rules, mesh, d.shape), param_defs(cfg))
+
+
+def param_shardings(cfg: ModelConfig, rules: ShardingRules, mesh):
+    """:func:`param_pspecs` as :class:`~repro_torch.models.sharding.NamedSharding`
+    leaves (what ``CheckpointManager.restore`` takes)."""
+    return map_tree(lambda spec: NamedSharding(mesh, spec), param_pspecs(cfg, rules, mesh))
+
+
+def shard_params(params, specs, mesh):
+    """This rank's block of every leaf of the whole tree ``params`` under
+    ``specs``, each a tensor of its own (the whole leaf is not kept)."""
+    return map_tree(lambda t, spec: mesh.local_block(t, spec).clone(), params, specs)
 
 
 def param_count_actual(cfg: ModelConfig) -> int:
@@ -167,13 +200,16 @@ def param_count_actual(cfg: ModelConfig) -> int:
     return int(total)
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
+def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda", mesh=None,
+                specs=None):
     """Random parameters on ``device`` (``"cuda"`` unless the caller asks for
     the CPU), with the reference's distributions: weights N(0, 1/fan_in) in
     f32 then cast to the model dtype, norms and the skip 1, biases 0,
     ``a_log = log(linspace(1, 16, heads))``, ``dt_bias = -4.6``. Normal
     leaves draw from ``generator`` (which lives on ``device``) in schema
-    order."""
+    order. With a ``mesh`` and the tree's ``specs`` every leaf is drawn
+    whole, as on one rank, and only this rank's block of it is kept: each
+    block holds the bits of the world of one."""
     dev = resolve_device(device)
 
     def init_one(d: ParamDef) -> torch.Tensor:
@@ -191,7 +227,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device="cuda"):
         fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
         return init_normal(generator, d.shape, 1.0 / math.sqrt(max(fan_in, 1)), dt, dev)
 
-    return map_defs(init_one, param_defs(cfg))
+    if mesh is None:
+        return map_defs(init_one, param_defs(cfg))
+    return map_tree(lambda d, spec: mesh.local_block(init_one(d), spec).clone(),
+                    param_defs(cfg), specs)
 
 
 # ---------------------------------------------------------------------------
@@ -225,6 +264,35 @@ def _layers(stacked: Dict[str, torch.Tensor], n: int) -> List[Dict[str, torch.Te
     return [{name: ts[i] for name, ts in per.items()} for i in range(n)]
 
 
+class AllGather(torch.autograd.Function):
+    """A sharded leaf's block all-gathered along ``dim`` over the ranks of
+    ``axes``; the backward reduce-scatters (sums) the whole gradient back
+    to the block, so each rank's block gradient sums every rank's use."""
+
+    @staticmethod
+    def forward(ctx, block, mesh, dim: int, axes):
+        ctx.mesh, ctx.dim, ctx.axes = mesh, dim, axes
+        return mesh.all_gather(block, dim, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.reduce_scatter(grad, ctx.dim, ctx.axes), None, None, None
+
+
+def gather_params(tree, specs, mesh):
+    """Every leaf of ``tree`` (this rank's blocks) whole, through
+    :class:`AllGather` along each dim its spec shards; a replicated leaf
+    passes as it is."""
+
+    def leaf(t, spec):
+        for dim, axes in enumerate(spec):
+            if mesh.live_axes(axes):
+                t = AllGather.apply(t, mesh, dim, axes)
+        return t
+
+    return map_tree(leaf, tree, specs)
+
+
 # "dots": the matmul outputs are saved, everything else is recomputed (the
 # reference's dots_with_no_batch_dims_saveable: 2-D products, no bmm)
 DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -250,14 +318,25 @@ def _maybe_remat(cfg: ModelConfig, fn: Callable, *args):
     raise ValueError(f"remat must be 'none', 'full' or 'dots', got {cfg.remat!r}")
 
 
-def _train_stack(cfg: ModelConfig, params, x: torch.Tensor, positions: torch.Tensor):
+def _train_stack(cfg: ModelConfig, params, x: torch.Tensor, positions: torch.Tensor,
+                 gather: Optional[Callable] = None):
     """The blocks of ``mode="train"``: each layer body (each hybrid
-    superblock body) under :func:`_maybe_remat`. Returns (hidden, aux)."""
+    superblock body) under :func:`_maybe_remat`. Returns (hidden, aux).
+
+    ``gather(tree, key)`` (a sharded step's) makes a layer's leaves whole
+    from this rank's blocks; ``key`` names the leaves' place in the tree
+    (``"layers"``, ``"shared"``). It runs inside the body, so under remat
+    "full" the recomputation gathers again and one layer's whole weights
+    are live at a time, as the reference gathers per layer inside its scan."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = params["layers"]
+
+    def whole(p, key):
+        return p if gather is None else gather(p, key)
+
     if cfg.family in ATTENTION_FAMILIES:
         def body(x_, p_l):
-            x_, _, aux_l = tfm.dense_block(cfg, p_l, x_, positions, "train")
+            x_, _, aux_l = tfm.dense_block(cfg, whole(p_l, "layers"), x_, positions, "train")
             return x_, aux_l
 
         for p_l in _layers(layers, cfg.n_layers):
@@ -265,7 +344,7 @@ def _train_stack(cfg: ModelConfig, params, x: torch.Tensor, positions: torch.Ten
             aux = aux + aux_l
     elif cfg.family == "ssm":
         def body_ssm(x_, p_l):
-            return tfm.ssm_block(cfg, p_l, x_, "train")[0]
+            return tfm.ssm_block(cfg, whole(p_l, "layers"), x_, "train")[0]
 
         for p_l in _layers(layers, cfg.n_layers):
             x = _maybe_remat(cfg, body_ssm, x, p_l)
@@ -273,7 +352,8 @@ def _train_stack(cfg: ModelConfig, params, x: torch.Tensor, positions: torch.Ten
         shared = params["shared"]
 
         def body_hy(x_, p_sb):
-            return tfm.hybrid_superblock(cfg, p_sb, shared, x_, positions, "train")[0]
+            return tfm.hybrid_superblock(cfg, whole(p_sb, "layers"), whole(shared, "shared"),
+                                         x_, positions, "train")[0]
 
         for p_sb in _layers(layers, cfg.n_layers // cfg.hybrid_period):
             x = _maybe_remat(cfg, body_hy, x, p_sb)
@@ -399,13 +479,37 @@ def loss_from_hidden(cfg: ModelConfig, params, x: torch.Tensor, labels: torch.Te
     return total / chunks + AUX_WEIGHT * aux
 
 
-def make_loss_fn(cfg: ModelConfig):
+TOP_LEAVES = ("embed", "lm_head", "final_norm")  # gathered once a step
+
+
+def make_loss_fn(cfg: ModelConfig, mesh=None, rules: ShardingRules = RULES_TRAIN):
     """``loss_fn(params, {"tokens" or "embeds", "labels"}) -> the f32 loss``,
-    differentiable in the params."""
+    differentiable in the params.
+
+    On a ``mesh`` of more than one rank the params are this rank's blocks
+    under :func:`param_pspecs` (``rules``) and the batch this rank's rows:
+    ``embed``, ``lm_head`` and ``final_norm`` are gathered whole once a
+    step, every other leaf inside its layer's body (:func:`_train_stack`),
+    each gradient reduce-scattered back to its block by
+    :class:`AllGather`'s backward. The loss is this rank's rows' mean."""
     check_ported(cfg)
+    specs = None
+    if mesh is not None and mesh.size > 1:
+        specs = param_pspecs(cfg, rules, mesh)
+        # a layer's leaves lose the stacked "layers" dim (hybrid: its first)
+        inner = {"layers": map_tree(lambda spec: spec[1:], specs["layers"]),
+                 "shared": specs.get("shared")}
+
+    def gather(p, key):
+        return gather_params(p, inner[key], mesh)
 
     def loss_fn(params, batch):
-        x, _, aux = run_stack(cfg, params, batch.get("tokens"), batch.get("embeds"), "train")
+        if specs is not None:
+            params = {**params, **{k: gather_params(params[k], specs[k], mesh)
+                                   for k in TOP_LEAVES}}
+        x = _embed(cfg, params, batch.get("tokens"), batch.get("embeds"))
+        positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        x, aux = _train_stack(cfg, params, x, positions, gather if specs is not None else None)
         return loss_from_hidden(cfg, params, x, batch["labels"], aux)
 
     return loss_fn

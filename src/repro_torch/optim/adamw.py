@@ -1,9 +1,13 @@
-"""Mixed-precision AdamW: bf16 compute parameters, an f32 master copy and
-f32 moments.
+"""Mixed-precision AdamW with ZeRO-sharded optimizer state: bf16 compute
+parameters, an f32 master copy and f32 moments. Port of
+``repro.optim.adamw``.
 
-Port of ``repro.optim.adamw`` on one card. The reference shards the master
-copy and both moments over its mesh's ``fsdp`` axes (ZeRO-1, ``zero_spec``
-and ``opt_pspecs``); one card has no mesh, so those two have no twin here.
+On a mesh the master copy and both moments are sharded over the ``fsdp``
+axes as well as the parameters' own layout (:func:`zero_spec`,
+:func:`opt_pspecs`): each rank holds its block of them, and :func:`init`
+and :func:`apply` work on the blocks; the update is elementwise, so it is
+the same on a block. :func:`global_norm` sums over the whole gradient
+across the ranks.
 
 The arithmetic is the reference's, in f32 and in its order: the cosine
 schedule and the bias corrections ``1 - b ** count`` are computed on f32
@@ -23,6 +27,8 @@ import math
 from typing import Any, Dict, List, NamedTuple, Tuple
 
 import torch
+
+from repro_torch.models.sharding import ShardingRules, Spec, _resolve_axes, axes_tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,19 +51,21 @@ class OptState(NamedTuple):
     count: torch.Tensor  # int32, 0-d
 
 
-def leaves(tree) -> List[torch.Tensor]:
-    """The tensors of a tree of dicts, in the reference's order (keys
-    sorted, as ``jax.tree_util`` flattens a dict)."""
+def leaves(tree) -> List[Any]:
+    """The leaves of a tree of dicts (tensors, or a spec tree's tuples), in
+    the reference's order (keys sorted, as ``jax.tree_util`` flattens a
+    dict)."""
     if isinstance(tree, dict):
         return [t for k in sorted(tree) for t in leaves(tree[k])]
     return [tree]
 
 
-def map_tree(fn, tree):
-    """``tree`` with ``fn`` applied to every tensor."""
+def map_tree(fn, tree, *rest):
+    """``tree`` with ``fn`` applied to every leaf (and to the leaves of the
+    trees of the same structure in ``rest`` beside it)."""
     if isinstance(tree, dict):
-        return {k: map_tree(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: map_tree(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def rebuild(tree, flat: List[torch.Tensor]):
@@ -85,10 +93,56 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
-def init(params) -> OptState:
+def zero_spec(spec: Spec, shape: Tuple[int, ...], mesh, rules: ShardingRules) -> Spec:
+    """Add fsdp-axis sharding to the first unsharded, divisible dim (ZeRO)."""
+    fsdp = _resolve_axes(rules.table().get("fsdp"), mesh)
+    if fsdp is None:
+        return spec
+    fsdp_t = axes_tuple(fsdp)
+    size = math.prod(mesh.shape[a] for a in fsdp_t)
+    used = {a for entry in spec for a in axes_tuple(entry)}
+    if any(a in used for a in fsdp_t):
+        return spec
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    for i, (entry, dim) in enumerate(zip(entries, shape)):
+        if entry is None and dim % size == 0 and dim >= size:
+            entries[i] = fsdp if isinstance(fsdp, str) else fsdp_t
+            return tuple(entries)
+    return spec
+
+
+def opt_pspecs(param_specs, param_shapes, mesh, rules: ShardingRules) -> OptState:
+    """The specs of the :class:`OptState` from the parameters' specs and
+    shapes (trees of dicts; a shape leaf is anything with ``.shape``, or a
+    ``(shape, dtype)`` pair)."""
+    def one(spec, shaped):
+        shape = shaped[0] if isinstance(shaped, tuple) else shaped.shape
+        return zero_spec(spec, tuple(shape), mesh, rules)
+
+    z = map_tree(one, param_specs, param_shapes)
+    return OptState(master=z, mu=z, nu=z, count=())
+
+
+def to_zero_block(t: torch.Tensor, spec: Spec, zspec: Spec, mesh) -> torch.Tensor:
+    """``t``, this rank's block under the parameter spec ``spec``, cut to its
+    block under the ZeRO spec ``zspec`` (which shards more dims, never
+    fewer)."""
+    for dim, (a, b) in enumerate(zip(spec, zspec)):
+        if a != b:
+            if a is not None:
+                raise ValueError(f"ZeRO spec {zspec} is no refinement of {spec}")
+            t = mesh.local_block(t, (None,) * dim + (b,))
+    return t
+
+
+def init(params, mesh=None, specs=None, zspecs=None) -> OptState:
     """The master copy (f32) and zero moments of ``params``, on their
-    devices; the count 0."""
+    devices; the count 0. On a ``mesh`` ``params`` are this rank's blocks
+    under ``specs`` and the state is cut to its blocks under ``zspecs``
+    (:func:`opt_pspecs`' master)."""
     dev = leaves(params)[0].device
+    if mesh is not None:
+        params = map_tree(lambda t, a, b: to_zero_block(t, a, b, mesh), params, specs, zspecs)
     return OptState(
         master=map_tree(lambda a: a.to(torch.float32, copy=True), params),
         mu=map_tree(lambda a: torch.zeros(a.shape, dtype=torch.float32, device=a.device),
@@ -99,26 +153,37 @@ def init(params) -> OptState:
     )
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, mesh=None, zspecs=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's f32 sum of squares, leaf by leaf (the
-    f32 copy of one leaf at a time)."""
-    total = 0
-    for g in leaves(tree):
-        total = total + torch.sum(torch.square(g.to(torch.float32)))
+    f32 copy of one leaf at a time). On a ``mesh`` the leaves are this
+    rank's blocks under ``zspecs``: each rank sums the elements it owns (a
+    replicated leaf counts on the ranks ``mesh.owns`` names), one
+    ``all_reduce`` sums the f32 partials, then the square root."""
+    flat = leaves(tree)
+    owned = [True] * len(flat) if mesh is None else [mesh.owns(z) for z in leaves(zspecs)]
+    total = torch.zeros((), dtype=torch.float32, device=flat[0].device)
+    for g, mine in zip(flat, owned):
+        if mine:
+            total = total + torch.sum(torch.square(g.to(torch.float32)))
+    if mesh is not None:
+        total = mesh.all_reduce(total)
     return torch.sqrt(total)
 
 
 @torch.no_grad()
-def apply(cfg: AdamWConfig, grads,
-          opt: OptState) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
+def apply(cfg: AdamWConfig, grads, opt: OptState, mesh=None,
+          zspecs=None) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One AdamW update. Returns (new compute params, the new state,
     metrics ``{"grad_norm", "lr"}``), the params in the grads' dtypes.
 
     The returned state holds ``opt``'s own master, mu and nu tensors,
-    updated in place; ``count`` is a new tensor. (The reference's
-    ``compute_dtype`` argument is unused there and has no twin.)"""
+    updated in place; ``count`` is a new tensor. On a ``mesh`` the grads
+    and the state are this rank's ZeRO blocks under ``zspecs``, the norm is
+    the whole gradient's (:func:`global_norm`) and the params returned are
+    the blocks. (The reference's ``compute_dtype`` argument is unused there
+    and has no twin.)"""
     count = opt.count + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, zspecs)
     if cfg.grad_clip:
         scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     else:

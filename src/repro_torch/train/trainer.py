@@ -1,5 +1,4 @@
-"""Fault-tolerant training loop. Port of ``repro.train.trainer`` on one
-card.
+"""Fault-tolerant training loop. Port of ``repro.train.trainer``.
 
 Wires together: the train step, AdamW, the token pipeline, the checkpoint
 manager (save, auto-resume), straggler detection, bounded retries and
@@ -8,6 +7,13 @@ failure injection. The reference draws its parameters from
 from a ``torch.Generator`` seeded 0 on the device, or takes the caller's
 ``params`` (a test hands the reference's over through
 ``convert.lm_params_from_numpy``).
+
+On a mesh of more than one rank (``launch.mesh.make_host_mesh``) every rank
+runs the trainer: it draws (or takes) the whole parameter tree and keeps
+its blocks, so the blocks hold the world of one's bits; it takes its rows
+of each global batch; saves gather every leaf whole to rank 0, which
+writes the one-file format every world reads; a resume cuts each leaf of
+the checkpoint to this rank's block, whatever world wrote it.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.models import model as model_lib
+from repro_torch.models.sharding import DEFAULT_RULES, ShardingRules, spec_for
 from repro_torch.optim import adamw
 from repro_torch.runtime.fault_tolerance import (
     FailureInjector,
@@ -30,7 +37,7 @@ from repro_torch.runtime.fault_tolerance import (
     StragglerDetector,
     run_with_retries,
 )
-from repro_torch.train.step import make_train_step
+from repro_torch.train.step import make_train_step, train_state_specs
 
 INIT_SEED = 0  # the parameters' generator, as the reference's PRNGKey(0)
 
@@ -54,7 +61,13 @@ class Trainer:
     ``step``, ``straggler``). With a checkpoint directory it saves
     ``(params, OptState)`` every ``tcfg.ft.checkpoint_every`` steps and at
     the end, and with ``resume="auto"`` a new trainer starts from the
-    latest checkpoint there."""
+    latest checkpoint there.
+
+    With a ``mesh`` of more than one rank (see the module's docstring)
+    every rank builds the trainer and runs it; ``params`` and
+    ``opt_state`` are then this rank's blocks, and each history dict also
+    holds the step's collective payload by kind (``*_bytes``) and the
+    host's seconds inside the collectives (``collective_s``)."""
 
     def __init__(
         self,
@@ -64,30 +77,82 @@ class Trainer:
         injector: Optional[FailureInjector] = None,
         device="cuda",
         params=None,
+        mesh=None,
+        rules: ShardingRules = DEFAULT_RULES,
     ):
         self.cfg, self.shape, self.tcfg = cfg, shape, tcfg
         self.injector = injector
         self.device = resolve_device(device)
-        self.step_fn = make_train_step(cfg, tcfg.opt)
-        self.ckpt = (
-            CheckpointManager(tcfg.checkpoint_dir) if tcfg.checkpoint_dir else None
-        )
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.rules = rules
+        self.step_fn = make_train_step(cfg, tcfg.opt, self.mesh, rules)
+        self.ckpt = self._manager() if tcfg.checkpoint_dir else None
         self.detector = StragglerDetector(tcfg.ft)
         self.history: List[Dict[str, float]] = []
         self.start_step = 0
 
+        shardings = self.pspecs = self.zspecs = None
+        if self.mesh is not None:
+            _, shardings = train_state_specs(cfg, self.mesh, rules)
+            self.pspecs = adamw.map_tree(lambda s: s.spec, shardings[0])
+            self.zspecs = adamw.map_tree(lambda s: s.spec, shardings[1].master)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(INIT_SEED)
-            params = model_lib.init_params(cfg, gen, self.device)
-        opt_state = adamw.init(params)
+            params = model_lib.init_params(cfg, gen, self.device, self.mesh, self.pspecs)
+        elif self.mesh is not None:
+            params = model_lib.shard_params(params, self.pspecs, self.mesh)
+        opt_state = adamw.init(params, self.mesh, self.pspecs, self.zspecs)
         if self.ckpt and tcfg.resume == "auto" and self.ckpt.latest_step() is not None:
-            (params, opt_state), step, _ = self.ckpt.restore((params, opt_state),
-                                                             device=self.device)
+            (params, opt_state), step, _ = self.ckpt.restore(
+                (params, opt_state), device=self.device, shardings=shardings)
             self.start_step = step
         self.params, self.opt_state = params, opt_state
 
+    @property
+    def lead(self) -> bool:
+        """Whether this process speaks for the run (prints, writes): rank 0."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _manager(self) -> CheckpointManager:
+        """The manager; across ranks rank 0 builds its own first (the one
+        that sweeps stale ``.tmp`` saves), then the others build theirs to
+        read from."""
+        if self.mesh is None:
+            return CheckpointManager(self.tcfg.checkpoint_dir)
+        mgr = CheckpointManager(self.tcfg.checkpoint_dir) if self.mesh.rank == 0 else None
+        self.mesh.barrier()
+        return mgr or CheckpointManager(self.tcfg.checkpoint_dir)
+
     def _device_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
+        out = {k: torch.from_numpy(v) for k, v in batch.items()}
+        if self.mesh is not None:  # this rank's rows of the global batch
+            rows = spec_for(("batch",), self.rules, self.mesh, (self.shape.global_batch,))
+            out = {k: self.mesh.local_block(v, rows) for k, v in out.items()}
+        return {k: v.to(self.device) for k, v in out.items()}
+
+    def whole_state(self):
+        """``(params, OptState)`` whole: this rank's blocks gathered over the
+        mesh (every rank must call it), or the state itself on one rank."""
+        if self.mesh is None:
+            return self.params, self.opt_state
+        gather = lambda tree, specs: adamw.map_tree(  # noqa: E731
+            lambda t, spec: self.mesh.gather_full(t, spec), tree, specs)
+        o = self.opt_state
+        return gather(self.params, self.pspecs), adamw.OptState(
+            gather(o.master, self.zspecs), gather(o.mu, self.zspecs), gather(o.nu, self.zspecs),
+            o.count)
+
+    def save(self, step: int) -> None:
+        """Checkpoint ``step``: across ranks every leaf is gathered whole,
+        rank 0 writes, and every rank waits for the write."""
+        if self.mesh is None:
+            self.ckpt.save(step, (self.params, self.opt_state))
+            return
+        state = self.whole_state()
+        if self.mesh.rank == 0:
+            self.ckpt.save(step, state)
+        del state
+        self.mesh.barrier()
 
     def run(self) -> List[Dict[str, float]]:
         embeds = self.cfg.frontend != "none"
@@ -102,12 +167,17 @@ class Trainer:
                 def do_step():
                     if self.injector:
                         self.injector.maybe_fail(step)
+                    if self.mesh is not None:
+                        self.mesh.reset_counters()
                     t0 = time.monotonic()
                     params, opt_state, metrics = self.step_fn(
                         self.params, self.opt_state, self._device_batch(batch)
                     )
                     metrics = {k: float(v) for k, v in metrics.items()}
                     metrics["step_time_s"] = time.monotonic() - t0
+                    if self.mesh is not None:
+                        metrics.update({f"{k}_bytes" if k != "seconds" else "collective_s":
+                                        float(v) for k, v in self.mesh.counters.items()})
                     return params, opt_state, metrics
 
                 self.params, self.opt_state, metrics = run_with_retries(
@@ -119,7 +189,7 @@ class Trainer:
                     self.detector.observe(step, metrics["step_time_s"])
                 )
                 self.history.append(metrics)
-                if step % self.tcfg.log_every == 0:
+                if self.lead and step % self.tcfg.log_every == 0:
                     print(
                         f"step {step:5d} loss {metrics['loss']:.4f} "
                         f"gnorm {metrics['grad_norm']:.3f} "
@@ -130,9 +200,9 @@ class Trainer:
                     self.ckpt
                     and (step + 1) % self.tcfg.ft.checkpoint_every == 0
                 ):
-                    self.ckpt.save(step + 1, (self.params, self.opt_state))
+                    self.save(step + 1)
             if self.ckpt:
-                self.ckpt.save(self.tcfg.total_steps, (self.params, self.opt_state))
+                self.save(self.tcfg.total_steps)
         finally:
             pipe.close()
         return self.history

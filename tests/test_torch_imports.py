@@ -35,6 +35,7 @@ def test_import_leaves_jax_and_repro_unloaded():
         "import repro_torch.train.step, repro_torch.train.trainer, repro_torch.train.__main__\n"
         "import repro_torch.optim.compression, repro_torch.launch\n"
         "import repro_torch.launch.compress_bench, repro_torch.launch.roofline\n"
+        "import repro_torch.launch.mesh, repro_torch.models.sharding\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.') or m == 'ml_dtypes']\n"
         "print(bad)\n"
