@@ -273,11 +273,34 @@ result line):
     25c a trainer at world 1 resumes from 25a's world-2 checkpoint with its
     bits and takes ``R25_RESUME_STEPS`` more steps within ``R25_TOL`` of
     22d's losses;
-26. one JSON line per phase, the kernels line (the f64 instantiations in
+26. serving across ranks with a model axis (gloo ranks sharing the card,
+    spawned as phase 14's; every collective staged through the host):
+    26a Qwen2-7B whole (28 layers, bf16, seeded weights, ``RULES_SERVE``,
+    the config's ``"cp"``) on the ``(1, 2)`` mesh, each rank holding its
+    tensor-parallel blocks, 4 prompts of 1,024 tokens, a budget of 2,048
+    and 8 decode steps fed world 1's greedy tokens; world 1 is
+    ``Engine(mesh=None)`` on the same weights in this process, first. Both
+    ranks' last-token prefill logits and every decode step's within
+    ``R26_TOL`` x max|logit| of world 1's, the same bits on every rank, a
+    warm prefill the cold one's bits; every kernel-6 call of each rank's
+    gated prefill (a cp query block against the keys up to its end: S < T
+    on rank 1) against its plain version (the bf16 rule), exactly one
+    launch a layer a prefill and none a decode step; that call's inputs
+    timed alone (the kernels line's ``flash_attention_cp`` row, SDPA with
+    the end-aligned mask as the library call). 26b granite-moe-1b-a400m
+    whole on the ``(2, 2)`` mesh (4 ranks; expert parallel over the model
+    axis, the expert stacks' data blocks gathered a layer), 4 x 256
+    prompts, 4 decode steps, at ``capacity_factor`` 8 (no pair dropped on
+    either mesh) held to world 1 the same way; an ``Engine.generate`` of 4
+    tokens on every rank (the same tokens on all); each rank's dropped
+    share a layer at the registered 1.25. Reported: prefill ms and decode ms
+    a step at world 1 and on the mesh, collective bytes by kind and seconds
+    a rank, peak a rank, the greedy tokens that agree;
+27. one JSON line per phase, the kernels line (the f64 instantiations in
     rows of their own, then the chain kernel's bf16 route, then the two
-    backward kernels; kernels 3 and 4's launches are those of the unfused
-    route, ``fused=False``, which the default order >= 4 path no longer
-    takes), then the device line.
+    backward kernels, then kernel 6 at a cp block's S < T; kernels 3 and
+    4's launches are those of the unfused route, ``fused=False``, which the
+    default order >= 4 path no longer takes), then the device line.
 
 Needs one CUDA card, ``nvcc`` (on PATH or under /usr/local/cuda), and the
 checkout's ``src/`` beside this file. Imports nothing of JAX.
@@ -484,9 +507,10 @@ def main() -> int:
         timed("23 gradient compression", phase23_compression, dev, card)
         timed("24 roofline", phase24_roofline, dev, card)
         timed("25 training across ranks", phase25_train_ranks, dev, card, train_tmp)
+    kernels.update(timed("26 serving across ranks", phase26_serve_ranks, dev, card))
     print(json.dumps({"kernels": [kernels[k] for k in list(wrappers()) + F64_ROWS
                                   + ["fused_kron_chain_scatter_bf16", "flash_attention_bwd",
-                                     "ssd_chunk_bwd"]]}), flush=True)
+                                     "ssd_chunk_bwd", "flash_attention_cp"]]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -5332,7 +5356,8 @@ def family_generate(eng, batch: dict, n: int) -> np.ndarray:
 def flash_row(label: str, q, k, v, kw) -> dict:
     """Kernel 6 on one layer's inputs: against its plain version (the bf16
     rule), its ms, the plain version's, SDPA's on the same inputs (GQA
-    through ``enable_gqa``) and the bound."""
+    through ``enable_gqa``; with more keys than queries, the end-aligned
+    causal mask) and the bound."""
     from repro_torch.kernels import flash_attention as fa
 
     kern = partial(fa.flash_attention, q, k, v, **kw)
@@ -5345,9 +5370,15 @@ def flash_row(label: str, q, k, v, kw) -> dict:
     flops = 4 * b_ * h_ * d_ * sum(min(t_, i + 1 + t_ - s_) for i in range(s_))
     nbytes = nbytes_of(q, k, v, q)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = time_ms(partial(sdpa, q, k, v, is_causal=True, enable_gqa=h_ != k.shape[1]))
+    if t_ > s_:  # SDPA's is_causal aligns the diagonal to the top left: the mask instead
+        mask = torch.ones(s_, t_, dtype=torch.bool, device=q.device).tril(t_ - s_)
+        lib = partial(sdpa, q, k, v, attn_mask=mask, enable_gqa=h_ != k.shape[1])
+    else:
+        lib = partial(sdpa, q, k, v, is_causal=True, enable_gqa=h_ != k.shape[1])
+    lib_ms = time_ms(lib)
     t_b, t_o = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
-    return {"shape": [b_, h_, s_, d_], "kv_heads": int(k.shape[1]), "ms": time_ms(kern),
+    return {"shape": [b_, h_, s_, d_], "kv_heads": int(k.shape[1]), "kv_len": t_,
+            "ms": time_ms(kern),
             "plain_ms": time_ms(plain, reps=3), "library_ms": lib_ms,
             "bound_ms": max(t_b, t_o) * 1e3, "bound_by": "bytes" if t_b >= t_o else "operations",
             "flops": flops, "bytes": nbytes, "max_abs_err": err}
@@ -5727,11 +5758,11 @@ def moe_prefill_report(cfg, eng, batch: dict, prefill_ms: float) -> dict:
 
     orig, calls = moe.moe_block, []
 
-    def timed(cfg_, x, wr, wi, wg, wo):
+    def timed(cfg_, x, wr, wi, wg, wo, **kw):
         r = moe.route(cfg_, x.reshape(-1, x.shape[-1]), wr)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        y, aux = orig(cfg_, x, wr, wi, wg, wo)
+        y, aux = orig(cfg_, x, wr, wi, wg, wo, **kw)
         end.record()
         calls.append((start, end, r.dropped_share, aux, r.cap))
         return y, aux
@@ -6978,6 +7009,295 @@ def phase25_train_ranks(dev, card: str, tmp: str) -> None:
                                      for r in reports],
         "bwd_gate": [r["gate"] for r in ranks],
         "losses_world2": [h["loss"] for h in hist]}), flush=True)
+
+
+# -- phase 26: LM serving across ranks with a model axis ---------------------------
+
+# 26a: Qwen2-7B whole (28 layers, bf16, "cp") on the (1, 2) mesh; 26b:
+# granite-moe-1b-a400m whole on the (2, 2) mesh (4 ranks); gloo ranks sharing
+# the card, collectives staged through the host
+R26_DENSE = {"arch": "qwen2-7b", "mesh": (1, 2), "batch": 4, "prompt": 1024, "budget": 2048,
+             "steps": 8, "rules": "RULES_SERVE"}
+R26_MOE = {"arch": "granite-moe-1b-a400m", "mesh": (2, 2), "batch": 4, "prompt": 256,
+           "budget": 512, "steps": 4, "rules": "RULES_SERVE", "capacity_factor": 8.0,
+           "new": 4}
+R26_TOL = LM_TOL["bfloat16"]  # phase 8's bf16 rule: 1e-1 x max|logit|
+
+
+def _r26_cfg(spec: dict):
+    """The spec's config as registered, at the spec's capacity factor if it
+    names one."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(spec["arch"])
+    cf = spec.get("capacity_factor")
+    return dataclasses.replace(cfg, capacity_factor=cf) if cf else cfg
+
+
+def _r26_inputs(cfg, spec: dict, dev):
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                                   (spec["batch"], spec["prompt"]))
+    return torch.as_tensor(prompts, dtype=torch.long, device=dev)
+
+
+def _r26_world_one(dev, spec: dict) -> dict:
+    """World 1: ``Engine(mesh=None)`` on the seeded weights: the prefill's
+    logits, greedy decode steps (their tokens feed the ranks), prefill ms
+    and decode ms a step, peak."""
+    from repro_torch.models.model import init_params
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    cfg = _r26_cfg(spec)
+    release_memory()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    eng = Engine(cfg, params, ServeConfig(max_seq_len=spec["budget"], batch_size=spec["batch"]),
+                 device=dev)
+    tokens = _r26_inputs(cfg, spec, dev)
+    p = spec["prompt"]
+    prefill_ms = time_ms(partial(eng.prefill, params, {"tokens": tokens}), reps=2)
+    logits, cache = eng.prefill(params, {"tokens": tokens})
+    cache = eng._pad_cache(cache, p)
+    out, fed = [logits.float().cpu()], [eng._sample(logits)]
+    t0 = time.perf_counter()
+    for i in range(spec["steps"]):
+        logits, cache = eng.decode(params, cache, {"token": fed[-1][:, None], "pos": p + i})
+        out.append(logits.float().cpu())
+        fed.append(eng._sample(logits))
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / spec["steps"]
+    res = {"logits": out, "fed": torch.stack(fed[:-1], dim=1).cpu(),
+           "greedy": torch.stack(fed, dim=1).cpu(), "prefill_ms": prefill_ms,
+           "decode_ms": decode_ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del eng, params, cache, logits
+    release_memory()
+    return res
+
+
+def _flash_gate(records: list, keep: dict):
+    """``ops.flash_attention`` wrapped: every call's output held to its plain
+    version on the same inputs by the bf16 rule (``against_plain``), and
+    the first call with more keys than queries (S < T) kept."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    real = ops.flash_attention
+
+    def gate(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        err, limit, _, _, ok = against_plain(out.float(), want.float(), "bf16", q.shape[3])
+        records.append({"s": int(q.shape[2]), "t": int(k.shape[2]), "ok": ok,
+                        "over_limit": err / limit})
+        if k.shape[2] > q.shape[2] and "q" not in keep:
+            keep.update(q=q.cpu(), k=k.cpu(), v=v.cpu(), kw=dict(kw))
+        return out
+
+    return real, gate
+
+
+def _serve26_job(rank, world, dev, tmp, cfg_in) -> dict:
+    """One rank of phase 26: the mesh, this rank's blocks of the seeded
+    weights, a prefill with every kernel-6 call gated, a timed prefill,
+    teacher-forced decode steps fed world 1's tokens, and (``"new"``) an
+    ``Engine.generate``; for the MoE, a prefill at the registered capacity
+    with each layer's dropped share."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import sharding
+    from repro_torch.models.model import init_params, param_pspecs
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    spec = cfg_in["spec"]
+    cfg = _r26_cfg(spec)
+    rules = getattr(sharding, spec["rules"])
+    mesh = make_mesh(spec["mesh"], ("data", "model"), device=dev)
+    specs = param_pspecs(cfg, rules, mesh)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev, mesh=mesh,
+                         specs=specs)
+    torch.cuda.synchronize()
+    out = {"route": mesh.route, "coords": dict(mesh.coords), "init_s": time.perf_counter() - t0,
+           "param_bytes": sum(t.numel() * t.element_size() for t in param_leaves(params))}
+    scfg = ServeConfig(max_seq_len=spec["budget"], batch_size=spec["batch"])
+    eng = Engine(cfg, params, scfg, dev, mesh=mesh, rules=rules)
+    tokens = _r26_inputs(cfg, spec, dev)
+    fed = torch.load(os.path.join(tmp, "26-fed.pt")).to(dev)
+    p = spec["prompt"]
+    # the main path: every count starts at 0 here and is read right after
+    records, keep = [], {}
+    real, gate = _flash_gate(records, keep)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    mesh.reset_counters()
+    ops.flash_attention = gate
+    try:
+        logits, cache = eng.prefill(params, {"tokens": tokens})
+    finally:
+        ops.flash_attention = real
+    out["prefill_launches"] = read_launches()
+    out["gate"] = records
+    cache = eng._pad_cache(cache, p)
+    reset_launches()
+    steps = [logits.float().cpu()]
+    mesh.reset_counters()
+    t0 = time.perf_counter()
+    for i in range(spec["steps"]):
+        logits, cache = eng.decode(params, cache, {"token": fed[:, i:i + 1], "pos": p + i})
+        steps.append(logits.float().cpu())
+    torch.cuda.synchronize()
+    out["decode_ms"] = 1e3 * (time.perf_counter() - t0) / spec["steps"]
+    out["decode_counters"] = {k: v / spec["steps"] for k, v in mesh.counters.items()}
+    out["decode_launches"] = read_launches()
+    del cache
+    if rank == 1 and keep:
+        torch.save(keep, os.path.join(tmp, "26-flash-inputs.pt"))
+    # a warm prefill, timed on the host's clock (the staged collectives block it)
+    mesh.barrier()
+    mesh.reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm, _ = eng.prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    out["prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["prefill_counters"] = dict(mesh.counters)
+    out["warm_same_bits"] = torch.equal(warm.float().cpu(), steps[0])
+    del warm
+    out["digest"] = [float(x.double().sum()) for x in steps]
+    if spec.get("new"):
+        out["generated"] = eng.generate(tokens.cpu().numpy(), spec["new"])[:, p:]
+    if cfg.family == "moe":  # each layer's dropped share at the registered capacity
+        drops = []
+        real_route = moe_lib.route
+
+        def recording(cfg_, xt, wr):
+            r = real_route(cfg_, xt, wr)
+            drops.append(float(r.dropped_share))
+            return r
+
+        eng125 = Engine(_r26_cfg(dict(spec, capacity_factor=None)), params, scfg, dev,
+                        mesh=mesh, rules=rules)
+        moe_lib.route = recording
+        try:
+            eng125.prefill(params, {"tokens": tokens})
+        finally:
+            moe_lib.route = real_route
+        out["dropped_share_registered"] = drops
+    if rank == 0:
+        torch.save(steps, os.path.join(tmp, "26-logits-r0.pt"))
+    return out
+
+
+SHARD_JOBS["serve26"] = _serve26_job
+
+
+def flash_row_cp(inputs: dict) -> dict:
+    """Kernel 6 on a cp query block's inputs (S < T, from a rank's prefill),
+    alone on the card: :func:`flash_row`'s numbers, SDPA with the
+    end-aligned causal mask as the library call."""
+    q, k, v = (inputs[n].cuda() for n in ("q", "k", "v"))
+    return flash_row("cp block, S < T", q, k, v, inputs["kw"])
+
+
+def _phase26_cell(dev, card: str, label: str, spec: dict, tmp: str) -> dict:
+    """26a or 26b: world 1 in this process, then the mesh's ranks; gates
+    and numbers (see the module's docstring)."""
+    world = math.prod(spec["mesh"])
+    t0 = time.perf_counter()
+    one = _r26_world_one(dev, spec)
+    t_one = time.perf_counter() - t0
+    torch.save(one["fed"], os.path.join(tmp, "26-fed.pt"))
+    t0 = time.perf_counter()
+    ranks = run_ranks("serve26", world, "gloo", tmp, {"device": str(dev), "spec": spec})
+    t_ranks = time.perf_counter() - t0
+    cfg = _r26_cfg(spec)
+    got = torch.load(os.path.join(tmp, "26-logits-r0.pt"))
+    gaps = []
+    for i, (a, b) in enumerate(zip(got, one["logits"])):
+        scale = float(b.abs().max())
+        gaps.append(float((a - b).abs().max()) / scale)
+        check(bool(torch.isfinite(a).all()) and gaps[-1] <= R26_TOL,
+              f"26{label} step {i}: logits {gaps[-1]:.3e} of max|logit| from world 1's")
+    check(all(r["digest"] == ranks[0]["digest"] for r in ranks),
+          f"26{label}: the ranks' logits differ")
+    check(all(r["warm_same_bits"] for r in ranks), f"26{label}: a warm prefill gave other bits")
+    agree = [float((g.argmax(-1) == w).float().mean())
+             for g, w in zip(got, one["greedy"].unbind(1))]
+    attn = cfg.n_layers
+    for r, res in enumerate(ranks):
+        check(res["route"] == "gloo-host-staged", f"26{label} rank {r}: route {res['route']}")
+        launches = {k: v for k, v in res["prefill_launches"].items() if v}
+        check(launches == {"flash_attention": attn},
+              f"26{label} rank {r}: prefill launches {launches}, want {attn} of kernel 6")
+        check(not any(res["decode_launches"].values()),
+              f"26{label} rank {r}: decode launched {res['decode_launches']}")
+        gate = res["gate"]
+        check(len(gate) == attn and all(g["ok"] for g in gate),
+              f"26{label} rank {r}: kernel 6 against its plain version: {gate}")
+    shapes = [sorted({(g["s"], g["t"]) for g in r["gate"]}) for r in ranks]
+    row = {}
+    flash_in = os.path.join(tmp, "26-flash-inputs.pt")
+    if os.path.exists(flash_in):
+        row = flash_row_cp(torch.load(flash_in))
+        os.remove(flash_in)
+        log(f"  26{label} kernel 6 at S < T: {json.dumps(row)}")
+    res = {
+        "config": cfg.name, "mesh": list(spec["mesh"]), "rules": spec["rules"],
+        "attn_partitioning": cfg.attn_partitioning, "batch": spec["batch"],
+        "prompt": spec["prompt"], "budget": spec["budget"], "decode_steps": spec["steps"],
+        "seconds": {"world1": t_one, "ranks": t_ranks},
+        "prefill_ms": {"1": one["prefill_ms"], str(world): [r["prefill_ms"] for r in ranks]},
+        "decode_ms_per_step": {"1": one["decode_ms"],
+                               str(world): [r["decode_ms"] for r in ranks]},
+        "logit_gap_of_max": gaps, "greedy_agree": agree,
+        "prefill_collectives_by_rank": [r["prefill_counters"] for r in ranks],
+        "decode_collectives_per_step_by_rank": [r["decode_counters"] for r in ranks],
+        "peak_gb": {"1": one["peak_gb"], str(world): [r.get("peak_gb") for r in ranks]},
+        "param_gb_by_rank": [r["param_bytes"] / 1e9 for r in ranks],
+        "init_s_by_rank": [r["init_s"] for r in ranks],
+        "kernel6_launches_per_rank_per_prefill": [r["prefill_launches"]["flash_attention"]
+                                                  for r in ranks],
+        "kernel6_shapes_by_rank": shapes,
+        "kernel6_worst_over_limit": max(g["over_limit"] for r in ranks for g in r["gate"]),
+        "kernel6_cp_row": row}
+    if spec.get("new"):
+        want = one["greedy"][:, :spec["new"]].numpy()
+        res["generate_greedy_agree"] = [float((r["generated"] == want).mean()) for r in ranks]
+        check(all(np.array_equal(r["generated"], ranks[0]["generated"]) for r in ranks),
+              f"26{label}: the ranks generated different tokens")
+    if "dropped_share_registered" in ranks[0]:
+        res["dropped_share_at_registered_capacity"] = {
+            "capacity_factor": _r26_cfg(dict(spec, capacity_factor=None)).capacity_factor,
+            "by_rank": [r["dropped_share_registered"] for r in ranks]}
+    log(f"  26{label}: {cfg.name} on {spec['mesh']}: logits within {max(gaps):.3e} of world 1's "
+        f"(limit {R26_TOL}); greedy agree {agree}; prefill {one['prefill_ms']:.1f} ms at world 1, "
+        f"{[round(r['prefill_ms'], 1) for r in ranks]} at world {world}; decode "
+        f"{one['decode_ms']:.2f} / {[round(r['decode_ms'], 2) for r in ranks]} ms a step")
+    return res
+
+
+def phase26_serve_ranks(dev, card: str) -> dict:
+    """26a, 26b (see the module's docstring). Returns the kernels line's
+    row for kernel 6 at a cp block's shapes (S < T)."""
+    out = {"phase": "26 serving across ranks", "card": card}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve26_") as tmp:
+        for label, spec in (("a", R26_DENSE), ("b", R26_MOE)):
+            t0 = time.perf_counter()
+            out[f"26{label}"] = _phase26_cell(dev, card, label, spec, tmp)
+            out[f"26{label}"]["phase_s"] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+    row = out["26a"]["kernel6_cp_row"]
+    check(bool(row), "26a: no kernel-6 call with S < T was kept")
+    return {"flash_attention_cp": {
+        "name": "flash_attention (cp block, S < T)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:78",
+        "launches": sum(out["26a"]["kernel6_launches_per_rank_per_prefill"]),
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"], "shape": row["shape"], "kv_len": row["kv_len"]}}
+
 
 if __name__ == "__main__":
     try:

@@ -102,23 +102,34 @@ def opt_state_from_numpy(tree, cfg: ModelConfig, device="cpu", sharding=None) ->
                     count=tensor_from_numpy(np.asarray(count, np.int32), device))
 
 
-def lm_cache_from_numpy(cache: Any, device="cpu"):
+def lm_cache_from_numpy(cache: Any, device="cpu", sharding=None):
     """The port's LM cache from the reference's cache as numpy, for every
     ported family: the attention families' ``{"k", "v"}``, the ``ssm``
     family's ``SsmState(conv_x, conv_b, conv_c, h)`` stacked over the
     layers, or the ``hybrid`` family's ``{"ssm": SsmState, "attn": {"k",
-    "v"}}``; every entry but ``h`` (f32) as ``uint16`` bf16 bit patterns."""
+    "v"}}``; every entry but ``h`` (f32) as ``uint16`` bf16 bit patterns.
+    With ``sharding = (mesh, specs)`` (``specs`` a tree of the cache's
+    structure, a spec a leaf) each leaf comes back as this rank's block: a
+    decode cache on a mesh is cut by rows over the batch axes and by
+    positions over the model axes (``serve.engine.Engine._pad_cache``)."""
+    specs = sharding and sharding[1]
 
-    def kv(c):
-        return {n: bf16_from_bits(c[n], device) for n in ("k", "v")}
+    def leaf(t, spec):
+        return t if spec is None else _block(t, sharding, spec)
 
-    def states(c):
+    def kv(c, sp):
+        return {n: leaf(bf16_from_bits(c[n], device), sp and sp[n]) for n in ("k", "v")}
+
+    def states(c, sp):
         conv_x, conv_b, conv_c, h = c
-        return SsmState(*(bf16_from_bits(a, device) for a in (conv_x, conv_b, conv_c)),
-                        h=tensor_from_numpy(h, device))
+        sp = sp or (None,) * 4
+        return SsmState(*(leaf(bf16_from_bits(a, device), s_) for a, s_ in
+                          zip((conv_x, conv_b, conv_c), sp[:3])),
+                        h=leaf(tensor_from_numpy(h, device), sp[3]))
 
     if isinstance(cache, dict) and "attn" in cache:
-        return {"ssm": states(cache["ssm"]), "attn": kv(cache["attn"])}
+        return {"ssm": states(cache["ssm"], specs and specs["ssm"]),
+                "attn": kv(cache["attn"], specs and specs["attn"])}
     if isinstance(cache, dict):
-        return kv(cache)
-    return states(cache)
+        return kv(cache, specs)
+    return states(cache, specs)

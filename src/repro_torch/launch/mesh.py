@@ -46,6 +46,7 @@ ROUTES = ("none", "nccl", "gloo", "gloo-host-staged")
 _all_gather_single = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 _reduce_scatter_single = (getattr(dist, "reduce_scatter_single", None)
                           or dist.reduce_scatter_tensor)
+_all_to_all_single = dist.all_to_all_single
 
 
 def _default_group() -> Any:
@@ -53,8 +54,8 @@ def _default_group() -> Any:
 
 
 def _new_counters() -> Dict[str, float]:
-    return {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0, "host_staged": 0,
-            "seconds": 0.0}
+    return {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0, "all_to_all": 0,
+            "host_staged": 0, "seconds": 0.0}
 
 
 @dataclasses.dataclass
@@ -73,7 +74,8 @@ class RankMesh:
       route: how collectives run (one of :data:`ROUTES`).
       counters: bytes by collective since :meth:`reset_counters`: the
         payload of each (the whole tensor an all-gather returns, a
-        reduce-scatter takes, an all-reduce reduces) and the bytes copied
+        reduce-scatter takes, an all-reduce reduces, an all-to-all sends)
+        and the bytes copied
         between card and host on the staged route; and ``seconds``, the
         host's time inside the collectives (staging included).
     """
@@ -220,6 +222,36 @@ class RankMesh:
         self.counters["seconds"] += time.perf_counter() - t0
         return out
 
+    def all_to_all(self, t: torch.Tensor, split_dim: int, concat_dim: int,
+                   axes: Axes) -> torch.Tensor:
+        """``jax.lax.all_to_all(t, axes, split_dim, concat_dim, tiled=True)``:
+        ``t`` cut into n equal blocks along ``split_dim`` (n the size of
+        ``axes``), block i sent to the rank of :meth:`block_index` i over
+        ``axes``, and the n blocks received concatenated along ``concat_dim``
+        in the senders' block order."""
+        group = self.group_for(axes)
+        if group is None:
+            return t
+        t0 = time.perf_counter()
+        n = dist.get_world_size(group)
+        split_dim, concat_dim = split_dim % t.dim(), concat_dim % t.dim()
+        if t.shape[split_dim] % n:
+            raise ValueError(f"all_to_all: dim {split_dim} of {tuple(t.shape)} does not divide "
+                             f"over {n} ranks")
+        moved = t.movedim(split_dim, 0)
+        blocks = moved.reshape((n, moved.shape[0] // n) + tuple(moved.shape[1:]))
+        src = self._host(blocks)
+        out = torch.empty(src.shape, dtype=src.dtype, device=src.device,
+                          pin_memory=src.is_pinned())
+        _all_to_all_single(out, src, group=group)
+        self.counters["all_to_all"] += src.numel() * src.element_size()
+        out = self._back(out, t)
+        # each received block back in t's layout, then side by side on concat_dim
+        out = out.movedim(1, split_dim + 1)
+        out = torch.cat(out.unbind(0), dim=concat_dim)
+        self.counters["seconds"] += time.perf_counter() - t0
+        return out
+
     def gather_full(self, t: torch.Tensor, spec: Spec) -> torch.Tensor:
         """The whole tensor from this rank's block under ``spec``."""
         for dim, axes in enumerate(spec):
@@ -232,12 +264,14 @@ class RankMesh:
 
 
 def _axis_sets(axis_names: Sequence[str], shape: Dict[str, int]):
-    """The axis tuples that need a group: every axis alone and every axis
-    tuple of the rules table, each without its size-1 axes, in the mesh's
-    order; deduplicated, in one order on every rank."""
+    """The axis tuples that need a group: every axis alone, every axis
+    tuple of the rules table and all the axes together (the MoE aux loss
+    averages over the batch and sequence axes), each without its size-1
+    axes, in the mesh's order; deduplicated, in one order on every rank."""
     sets = [(a,) for a in axis_names]
     for axes in DEFAULT_RULES.table().values():
         sets.append(tuple(a for a in axis_names if a in axes_tuple(axes)))
+    sets.append(tuple(axis_names))
     out = []
     for s in sets:
         live = tuple(a for a in s if shape[a] > 1)

@@ -33,18 +33,40 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     pos: int, scale: Optional[float] = None) -> torch.Tensor:
+                     pos: int, scale: Optional[float] = None, *,
+                     layout=None) -> torch.Tensor:
     """Single-token attention against a pre-allocated cache, plain torch ops
     as in the reference (no kernel there either). q (b, 1, H, hd); caches
     (b, S, KV, hd); ``pos`` is the number of live cache entries before q,
-    which sits at ``pos``."""
+    which sits at ``pos``.
+
+    With a ``layout`` (:class:`~repro_torch.models.sharding.ServeLayout`)
+    that cuts the model axes, the caches are this rank's block of the
+    serving budget's positions (``kvseq``): each rank takes its block's
+    partial max, sum and weighted values in f32, and every rank combines
+    all the ranks' partials in block order (one all-gather), as the
+    reference's docstring has GSPMD do over a seq-sharded cache."""
     b, _, h, hd = q.shape
     _, smax, kvh, _ = k_cache.shape
     g = h // kvh
     scale_ = scale if scale is not None else 1.0 / math.sqrt(hd)
     qg = q.reshape(b, kvh, g, hd).to(torch.float32)
     logits = torch.einsum("bkgd,btkd->bkgt", qg, k_cache.to(torch.float32)) * scale_
-    live_bias = torch.where(torch.arange(smax, device=q.device) <= pos, 0.0, NEG_INF)
-    p = torch.softmax(logits + live_bias, dim=-1)
-    out = torch.einsum("bkgt,btkd->bkgd", p, v_cache.to(torch.float32))
+    cut = layout is not None and layout.n > 1
+    start = layout.block(smax * layout.n)[0] if cut else 0
+    live_bias = torch.where(torch.arange(start, start + smax, device=q.device) <= pos, 0.0,
+                            NEG_INF)
+    logits = logits + live_bias
+    if not cut:
+        p = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bkgt,btkd->bkgd", p, v_cache.to(torch.float32))
+        return out.reshape(b, 1, h, hd).to(q.dtype)
+    m = logits.amax(dim=-1, keepdim=True)  # (b, kv, g, 1); -1e30 on a block with none live
+    e = torch.exp(logits - m)
+    part = torch.cat([m, e.sum(dim=-1, keepdim=True),
+                      torch.einsum("bkgt,btkd->bkgd", e, v_cache.to(torch.float32))], dim=-1)
+    parts = layout.mesh.all_gather(part[None], 0, layout.model)  # (n, b, kv, g, 2 + hd)
+    weight = torch.exp(parts[..., :1] - parts[..., :1].amax(dim=0))  # a dead block's: 0
+    total = (weight * parts[..., 1:]).sum(dim=0)
+    out = total[..., 1:] / total[..., :1]
     return out.reshape(b, 1, h, hd).to(q.dtype)

@@ -12,6 +12,16 @@ differentiable (the gradient of kernels 6 and 7 is their backward kernels),
 with each layer body (each hybrid superblock) rematerialised as
 ``cfg.remat`` says; :func:`make_loss_fn` is the loss that
 ``repro_torch.train`` minimises.
+
+Serving runs on a mesh of ranks too (``mesh=``, ``rules=`` of
+:func:`run_stack`, :func:`make_prefill_step`, :func:`make_serve_step`):
+every rank is given the whole batch and holds its blocks of the parameters
+under :func:`param_pspecs`; it computes its rows and, over the model axes,
+its positions (a prefill) or its block of the cache (a decode step), with
+the ``"fsdp"`` / ``"expert_fsdp"`` blocks gathered over the data axes
+inside each layer, and every rank ends with the whole logits. The
+``dense``, ``moe``, ``audio`` and ``vlm`` families run on any mesh; ``ssm``
+and ``hybrid`` only where the model axes are of size 1.
 """
 from __future__ import annotations
 
@@ -28,7 +38,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import init_normal, rmsnorm, softmax_cross_entropy
 from repro_torch.models.mamba2 import SsmState
-from repro_torch.models.sharding import RULES_TRAIN, NamedSharding, ShardingRules, spec_for
+from repro_torch.models.sharding import (DEFAULT_RULES, RULES_TRAIN, NamedSharding, ServeLayout,
+                                         ShardingRules, axes_tuple, spec_for)
 from repro_torch.optim.adamw import map_tree
 
 MODES = ("train", "prefill", "decode")
@@ -36,10 +47,34 @@ PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 ATTENTION_FAMILIES = ("dense", "moe", "audio", "vlm")  # a stack of dense_block
 
 
+# what serves the ssm and hybrid families on a model axis above 1
+SSM_TP_ITEM = "ROADMAP item t (tensor parallelism for the ssm and hybrid families)"
+
+
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``ValueError`` unless ``cfg``'s family is one the port serves."""
     if cfg.family not in PORTED_FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
+
+
+def on_mesh(mesh) -> bool:
+    """Whether ``mesh`` has more than one rank (a mesh of one is no mesh:
+    its runs are the unsharded runs, bit for bit)."""
+    return mesh is not None and mesh.size > 1
+
+
+def check_serving_mesh(cfg: ModelConfig, mesh, rules: ShardingRules) -> None:
+    """Raise ``ValueError`` where ``cfg`` cannot be served on ``mesh`` under
+    ``rules``: the ssm and hybrid families on model axes above 1, or a
+    rules table whose model-parallel names do not share their axes."""
+    check_ported(cfg)
+    if not on_mesh(mesh):
+        return
+    n = ServeLayout.build(mesh, rules, 1, 1).n
+    if n > 1 and cfg.family not in ATTENTION_FAMILIES:
+        raise ValueError(f"{cfg.name} ({cfg.family}) on model axes of {n} ranks: the port "
+                         f"serves the {cfg.family} family across ranks only where the model "
+                         f"axes are 1; {SSM_TP_ITEM} is not ported")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -360,9 +395,68 @@ def _train_stack(cfg: ModelConfig, params, x: torch.Tensor, positions: torch.Ten
     return x, aux
 
 
+def _serve_blocks(cfg: ModelConfig, params, x: torch.Tensor, positions: torch.Tensor,
+                  mode: str, cache, pos: Optional[int], whole: Optional[Callable] = None,
+                  layout: Optional[ServeLayout] = None):
+    """The blocks of a prefill or a decode step: (hidden, cache, aux).
+    ``whole(tree, key)`` (a mesh's) gathers a layer's blocks over the data
+    axes; ``layout`` runs each dense block on the mesh."""
+    decode = mode == "decode"
+    layers = params["layers"]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def full(p, key):
+        return p if whole is None else whole(p, key)
+
+    if cfg.family in ATTENTION_FAMILIES:
+        ks, vs = [], []
+        for i, p_l in enumerate(_layers(layers, cfg.n_layers)):
+            cache_l = {n: cache[n][i] for n in ("k", "v")} if decode else None
+            x, new_cache, aux_l = tfm.dense_block(cfg, full(p_l, "layers"), x, positions, mode,
+                                                  cache_l, pos, layout=layout)
+            aux = aux + aux_l
+            if not decode:
+                ks.append(new_cache["k"])
+                vs.append(new_cache["v"])
+        if not decode:
+            cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    elif cfg.family == "ssm":
+        states = []
+        for i, p_l in enumerate(_layers(layers, cfg.n_layers)):
+            st = SsmState(*(t[i] for t in cache)) if decode else None
+            x, new_state = tfm.ssm_block(cfg, full(p_l, "layers"), x, mode, st)
+            if decode:
+                for slot, new in zip(st, new_state):
+                    slot.copy_(new)
+            else:
+                states.append(new_state)
+        if not decode:
+            cache = SsmState(*(torch.stack(t) for t in zip(*states)))
+    else:  # hybrid
+        shared = full(params["shared"], "shared")
+        n_sb = cfg.n_layers // cfg.hybrid_period
+        states, ks, vs = [], [], []
+        for i, p_sb in enumerate(_layers(layers, n_sb)):
+            ssm_in = SsmState(*(t[i] for t in cache["ssm"])) if decode else None
+            attn_in = {n: cache["attn"][n][i] for n in ("k", "v")} if decode else None
+            x, new_states, new_attn = tfm.hybrid_superblock(
+                cfg, full(p_sb, "layers"), shared, x, positions, mode, ssm_in, attn_in, pos)
+            if decode:
+                for slot, new in zip(ssm_in, new_states):
+                    slot.copy_(new)
+            else:
+                states.append(new_states)
+                ks.append(new_attn["k"])
+                vs.append(new_attn["v"])
+        if not decode:
+            cache = {"ssm": SsmState(*(torch.stack(t) for t in zip(*states))),
+                     "attn": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+    return x, cache, aux
+
+
 def run_stack(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None,
               embeds: Optional[torch.Tensor] = None, mode: str = "prefill", cache=None,
-              pos: Optional[int] = None):
+              pos: Optional[int] = None, *, mesh=None, rules: ShardingRules = DEFAULT_RULES):
     """Embedding (or ``embeds``) and every block; returns (hidden, cache,
     aux_loss): the f32 sum of the ``moe`` blocks' load-balance losses, 0
     for the other families.
@@ -379,6 +473,13 @@ def run_stack(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None,
     hd)``}``. ``mode="decode"`` takes such a cache grown to the serving
     length, writes this token's entries into it in place, and returns it.
     The layers run as a Python loop. The LM head is the caller's.
+
+    On a ``mesh`` of more than one rank (a prefill or a decode step; see
+    the module's docstring) ``tokens`` / ``embeds`` are the whole batch,
+    ``params`` this rank's blocks under ``param_pspecs(cfg, rules, mesh)``
+    and ``cache`` this rank's blocks; the hidden state returned is this
+    rank's block of the residual (its rows, and its positions where they
+    are cut over the model axes).
     """
     check_ported(cfg)
     if mode not in MODES:
@@ -386,6 +487,11 @@ def run_stack(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None,
     decode = mode == "decode"
     if decode and (cache is None or pos is None):
         raise ValueError("decode needs the cache and the position")
+    if on_mesh(mesh):
+        if mode == "train":
+            raise ValueError("run_stack on a mesh serves prefill and decode; training across "
+                             "ranks is make_loss_fn(cfg, mesh)")
+        return _stack_on_mesh(cfg, params, tokens, embeds, mode, cache, pos, mesh, rules)[:3]
     x = _embed(cfg, params, tokens, embeds)
     if decode:
         positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
@@ -394,52 +500,74 @@ def run_stack(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None,
     if mode == "train":
         x, aux = _train_stack(cfg, params, x, positions)
         return x, None, aux
-    layers = params["layers"]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if cfg.family in ATTENTION_FAMILIES:
-        ks, vs = [], []
-        for i, p_l in enumerate(_layers(layers, cfg.n_layers)):
-            cache_l = {n: cache[n][i] for n in ("k", "v")} if decode else None
-            x, new_cache, aux_l = tfm.dense_block(cfg, p_l, x, positions, mode, cache_l, pos)
-            aux = aux + aux_l
-            if not decode:
-                ks.append(new_cache["k"])
-                vs.append(new_cache["v"])
-        if not decode:
-            cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
-    elif cfg.family == "ssm":
-        states = []
-        for i, p_l in enumerate(_layers(layers, cfg.n_layers)):
-            st = SsmState(*(t[i] for t in cache)) if decode else None
-            x, new_state = tfm.ssm_block(cfg, p_l, x, mode, st)
-            if decode:
-                for slot, new in zip(st, new_state):
-                    slot.copy_(new)
-            else:
-                states.append(new_state)
-        if not decode:
-            cache = SsmState(*(torch.stack(t) for t in zip(*states)))
-    else:  # hybrid
-        shared = params["shared"]
-        n_sb = cfg.n_layers // cfg.hybrid_period
-        states, ks, vs = [], [], []
-        for i, p_sb in enumerate(_layers(layers, n_sb)):
-            ssm_in = SsmState(*(t[i] for t in cache["ssm"])) if decode else None
-            attn_in = {n: cache["attn"][n][i] for n in ("k", "v")} if decode else None
-            x, new_states, new_attn = tfm.hybrid_superblock(
-                cfg, p_sb, shared, x, positions, mode, ssm_in, attn_in, pos)
-            if decode:
-                for slot, new in zip(ssm_in, new_states):
-                    slot.copy_(new)
-            else:
-                states.append(new_states)
-                ks.append(new_attn["k"])
-                vs.append(new_attn["v"])
-        if not decode:
-            cache = {"ssm": SsmState(*(torch.stack(t) for t in zip(*states))),
-                     "attn": {"k": torch.stack(ks), "v": torch.stack(vs)}}
-    return x, cache, aux
+    return _serve_blocks(cfg, params, x, positions, mode, cache, pos)
 
+
+def _data_only(spec, model: Tuple[str, ...]):
+    """``spec`` without the model axes: what a layer gathers over the data
+    axes, leaving its model-parallel blocks cut."""
+    out = []
+    for axes in spec:
+        kept = tuple(a for a in axes_tuple(axes) if a not in model)
+        out.append(None if not kept else kept[0] if len(kept) == 1 else kept)
+    return tuple(out)
+
+
+def _stack_on_mesh(cfg: ModelConfig, params, tokens, embeds, mode: str, cache, pos, mesh,
+                   rules: ShardingRules):
+    """:func:`run_stack` on a mesh: (hidden block, cache blocks, aux, the
+    call's :class:`ServeLayout`, the top leaves gathered over the data
+    axes)."""
+    check_serving_mesh(cfg, mesh, rules)
+    src = embeds if embeds is not None else tokens
+    if src is None:
+        raise ValueError("run_stack needs tokens or embeds")
+    b, s = src.shape[0], src.shape[1]
+    lay = ServeLayout.build(mesh, rules, b, s)
+    specs = map_tree(lambda spec: _data_only(spec, lay.model), param_pspecs(cfg, rules, mesh))
+    top = {k: gather_params(params[k], specs[k], mesh) for k in TOP_LEAVES}
+    # a layer's leaves lose the stacked "layers" dim (hybrid: its first)
+    inner = {"layers": map_tree(lambda spec: spec[1:], specs["layers"]),
+             "shared": specs.get("shared")}
+    x = _embed_on_mesh(cfg, lay, top, tokens, embeds)
+    dev = x.device
+    if mode == "decode":
+        positions = torch.full((1,), pos, dtype=torch.int32, device=dev)
+    else:
+        positions = torch.arange(s, dtype=torch.int32, device=dev)
+    x, cache, aux = _serve_blocks(
+        cfg, params, x, positions, mode, cache, pos,
+        whole=lambda p, key: gather_params(p, inner[key], mesh),
+        layout=lay if cfg.family in ATTENTION_FAMILIES else None)
+    return x, cache, aux, lay, top
+
+
+def _embed_on_mesh(cfg: ModelConfig, lay: ServeLayout, top, tokens, embeds) -> torch.Tensor:
+    """The residual's block from the whole batch: ``embeds`` cut to this
+    rank's rows and positions, or the tokens looked up in this rank's
+    ``("none", "tp")`` block of the table (its columns of d, at every
+    position) and turned into the residual's layout by an all-to-all
+    (positions cut) or an all-gather (not cut)."""
+    src = embeds if embeds is not None else tokens
+    r0, r1 = lay.rows(src.shape[0])
+    p0, p1 = lay.positions()
+    if embeds is not None:
+        return embeds[r0:r1, p0:p1].to(getattr(torch, cfg.dtype))
+    table = top["embed"]["table"]
+    if not lay.cut(cfg.d_model):
+        return table[tokens[r0:r1, p0:p1]]
+    cols = table[tokens[r0:r1]]  # (b, s, d / n)
+    if lay.seq:
+        return lay.mesh.all_to_all(cols, 1, 2, lay.model)
+    return lay.mesh.all_gather(cols, 2, lay.model)
+
+
+def _logits_on_mesh(cfg: ModelConfig, lay: ServeLayout, top, x: torch.Tensor) -> torch.Tensor:
+    """The whole logits (b, s_x, Vp) on every rank from this rank's rows
+    ``x`` (b_rows, s_x, d): its ``("fsdp", "vocab")`` block of the head
+    (vocab-parallel), then the vocabulary's blocks and the rows gathered."""
+    logits = lay.whole_cols(_lm_head(cfg, top, x), cfg.padded_vocab)
+    return lay.whole_rows(logits)
 
 def forward(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None,
             embeds: Optional[torch.Tensor] = None, mode: str = "prefill", cache=None,
@@ -515,30 +643,50 @@ def make_loss_fn(cfg: ModelConfig, mesh=None, rules: ShardingRules = RULES_TRAIN
     return loss_fn
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, mesh=None, rules: ShardingRules = DEFAULT_RULES):
     """``prefill_step(params, {"tokens": (b, s)} or {"embeds": (b, s, d)})
-    -> (last-token logits (b, Vp), cache)``."""
-    check_ported(cfg)
+    -> (last-token logits (b, Vp), cache)``. On a ``mesh`` of more than one
+    rank (see :func:`run_stack`): the whole batch in, the whole last-token
+    logits on every rank, this rank's blocks of the cache (its rows and its
+    positions)."""
+    check_serving_mesh(cfg, mesh, rules)
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        x, cache, _ = run_stack(cfg, params, batch.get("tokens"), batch.get("embeds"),
-                                "prefill")
-        return _lm_head(cfg, params, x[:, -1:, :])[:, 0, :], cache
+        if not on_mesh(mesh):
+            x, cache, _ = run_stack(cfg, params, batch.get("tokens"), batch.get("embeds"),
+                                    "prefill")
+            return _lm_head(cfg, params, x[:, -1:, :])[:, 0, :], cache
+        x, cache, _, lay, top = _stack_on_mesh(cfg, params, batch.get("tokens"),
+                                               batch.get("embeds"), "prefill", None, None,
+                                               mesh, rules)
+        last = x[:, -1:, :]
+        if lay.seq:  # the last position is the last block's
+            last = lay.mesh.all_gather(last, 1, lay.model)[:, -1:, :]
+        return _logits_on_mesh(cfg, lay, top, last)[:, 0, :], cache
 
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, mesh=None, rules: ShardingRules = DEFAULT_RULES):
     """``serve_step(params, cache, {"token": (b, 1) or "embed": (b, 1, d),
     "pos": int}) -> (logits (b, Vp), cache)``; the cache is updated in
-    place."""
-    check_ported(cfg)
+    place. On a ``mesh`` of more than one rank (see :func:`run_stack`): the
+    whole batch in, the whole logits on every rank; ``cache`` is this
+    rank's rows and, over the model axes, its block of the budget's
+    positions (``Engine._pad_cache`` lays it out)."""
+    check_serving_mesh(cfg, mesh, rules)
 
     @torch.no_grad()
     def serve_step(params, cache, batch):
-        x, cache, _ = run_stack(cfg, params, batch.get("token"), batch.get("embed"), "decode",
-                                cache, int(batch["pos"]))
-        return _lm_head(cfg, params, x)[:, -1, :], cache
+        pos = int(batch["pos"])
+        if not on_mesh(mesh):
+            x, cache, _ = run_stack(cfg, params, batch.get("token"), batch.get("embed"),
+                                    "decode", cache, pos)
+            return _lm_head(cfg, params, x)[:, -1, :], cache
+        x, cache, _, lay, top = _stack_on_mesh(cfg, params, batch.get("token"),
+                                               batch.get("embed"), "decode", cache, pos, mesh,
+                                               rules)
+        return _logits_on_mesh(cfg, lay, top, x)[:, -1, :], cache
 
     return serve_step

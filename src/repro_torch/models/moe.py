@@ -1,12 +1,18 @@
 """The MoE block: a top-k router, capacity-factor slotting and dense expert
-SwiGLUs. Port of ``repro.models.moe.moe_block`` as a mesh of one device
-computes it: no FSDP gather of the expert weights and no ``all_to_all``.
+SwiGLUs. Port of ``repro.models.moe.moe_block``: on one device, and across
+the ranks of a mesh as the reference's ``local_fn`` runs on each device of
+its ``shard_map`` (expert parallel).
 
 Routing is gather/scatter, as in the reference: every kept (token, rank)
 pair is copied into its own slot of an (E, cap, d) buffer, and no one-hot
 einsum dispatches tokens. The capacity is the reference's per-device
-capacity (``t = b_loc * s_loc`` local tokens); one card is the mesh of one,
-so every token of the batch is local.
+capacity (``t = b_loc * s_loc`` local tokens): on one card every token of
+the batch is local; on a mesh each rank routes its own rows and positions
+(the residual's block), so which pairs drop depends on the mesh, as in the
+reference. There the expert shards are cut over the model axes: one
+``all_to_all`` sends each rank's slots to the experts' ranks and one brings
+their outputs back, and the load-balance loss is averaged over the ranks
+that hold different tokens (the reference's ``pmean``).
 
 ``expert_shards`` (grok: 2) splits each expert's d_ff in two: every slot is
 sent to both shards of its expert and their outputs are summed.
@@ -138,13 +144,37 @@ def combine(cfg: ModelConfig, y: torch.Tensor, r: Routing, t: int) -> torch.Tens
 
 
 def moe_block(cfg: ModelConfig, x: torch.Tensor, wr: torch.Tensor, wi: torch.Tensor,
-              wg: torch.Tensor, wo: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+              wg: torch.Tensor, wo: torch.Tensor, *,
+              layout=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (b, s, d), the router ``wr`` (d, E), the expert weights ``wi``,
     ``wg`` (E_eff, d, ff_s) and ``wo`` (E_eff, ff_s, d). Returns (y (b, s,
-    d) in x's dtype, the f32 aux loss)."""
+    d) in x's dtype, the f32 aux loss).
+
+    With a ``layout`` (:class:`~repro_torch.models.sharding.ServeLayout`),
+    ``x`` is this rank's block of the residual and the expert weights this
+    rank's ``E_eff / |model axes|`` expert shards, whole in d (the caller
+    gathers the ``"expert_fsdp"`` blocks over the data axes): the
+    reference's ``local_fn``."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     r = route(cfg, xt, wr)
-    y = experts(dispatch(cfg, xt, r), wi, wg, wo)
+    buf = dispatch(cfg, xt, r)
+    aux = r.aux
+    ep = layout is not None and layout.n > 1
+    if layout is not None:
+        mesh = layout.mesh
+        # the ranks that hold different tokens average their losses
+        axes = tuple(a for a in mesh.axis_names
+                     if a in layout.batch or (layout.seq and a in layout.model))
+        if axes:
+            aux = mesh.all_reduce(aux, axes) / mesh.axes_size(axes)
+    if ep:
+        if cfg.n_experts_eff % layout.n:
+            raise ValueError(f"{cfg.n_experts_eff} expert shards do not divide over the "
+                             f"model axes {layout.model} ({layout.n} ranks)")
+        buf = layout.mesh.all_to_all(buf, 0, 1, layout.model)  # (E_eff / n, n cap, d)
+    y = experts(buf, wi, wg, wo)
+    if ep:
+        y = layout.mesh.all_to_all(y, 1, 0, layout.model)  # (E_eff, cap, d)
     out = combine(cfg, y, r, b * s)
-    return out.reshape(b, s, d).to(x.dtype), r.aux
+    return out.reshape(b, s, d).to(x.dtype), aux
