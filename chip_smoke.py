@@ -293,14 +293,30 @@ result line):
     prompts, 4 decode steps, at ``capacity_factor`` 8 (no pair dropped on
     either mesh) held to world 1 the same way; an ``Engine.generate`` of 4
     tokens on every rank (the same tokens on all); each rank's dropped
-    share a layer at the registered 1.25. Reported: prefill ms and decode ms
+    share a layer at the registered 1.25. 26c Zamba2-2.7B whole (54 Mamba
+    layers and 9 shared blocks, bf16, seeded weights, ``RULES_SERVE``, its
+    ``"cp"``) on the ``(1, 2)`` mesh, each rank its 40 of the 80 SSM heads
+    (its column blocks of ``wz``, ``wx``, ``wb``, ``wc``, ``wdt``, its
+    channels of the conv, the gated RMSNorm over a cut ``d_inner``, ``wo``'s
+    row block) and the shared block's attention through kernel 6 at D 80,
+    4 x 1,024 prompts (4 SSD chunks of 256), a budget of 1,280 and 4 decode
+    steps fed world 1's greedy tokens; 26d Mamba2-1.3B whole (48 layers) on
+    ``(1, 2)``, 4 x 512 prompts, 4 decode steps. Each is held to world 1
+    as 26a is; every kernel-7 call of each rank's gated prefill
+    (``(4 x heads / 2, chunks, 256, 64)``) against its plain version (the
+    fp32 rule), exactly one launch a Mamba layer a prefill and none in a
+    decode step; 26c's kernel-6 calls against their plain version (the
+    bf16 rule); 26c rank 1's first kernel-7 call and first S < T kernel-6
+    call timed alone (the kernels line's ``ssd_chunk_tp`` and
+    ``flash_attention_cp_d80`` rows). Reported: prefill ms and decode ms
     a step at world 1 and on the mesh, collective bytes by kind and seconds
     a rank, peak a rank, the greedy tokens that agree;
 27. one JSON line per phase, the kernels line (the f64 instantiations in
     rows of their own, then the chain kernel's bf16 route, then the two
-    backward kernels, then kernel 6 at a cp block's S < T; kernels 3 and
-    4's launches are those of the unfused route, ``fused=False``, which the
-    default order >= 4 path no longer takes), then the device line.
+    backward kernels, then kernel 6 at 26a's cp block's S < T, kernel 6 at
+    26c's, kernel 7 on 26c's rank's heads; kernels 3 and 4's launches are
+    those of the unfused route, ``fused=False``, which the default order
+    >= 4 path no longer takes), then the device line.
 
 Needs one CUDA card, ``nvcc`` (on PATH or under /usr/local/cuda), and the
 checkout's ``src/`` beside this file. Imports nothing of JAX.
@@ -510,7 +526,8 @@ def main() -> int:
     kernels.update(timed("26 serving across ranks", phase26_serve_ranks, dev, card))
     print(json.dumps({"kernels": [kernels[k] for k in list(wrappers()) + F64_ROWS
                                   + ["fused_kron_chain_scatter_bf16", "flash_attention_bwd",
-                                     "ssd_chunk_bwd", "flash_attention_cp"]]}), flush=True)
+                                     "ssd_chunk_bwd", "flash_attention_cp",
+                                     "flash_attention_cp_d80", "ssd_chunk_tp"]]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -7021,17 +7038,35 @@ R26_DENSE = {"arch": "qwen2-7b", "mesh": (1, 2), "batch": 4, "prompt": 1024, "bu
 R26_MOE = {"arch": "granite-moe-1b-a400m", "mesh": (2, 2), "batch": 4, "prompt": 256,
            "budget": 512, "steps": 4, "rules": "RULES_SERVE", "capacity_factor": 8.0,
            "new": 4}
+# 26c: Zamba2-2.7B whole (54 Mamba layers, 9 shared blocks) on (1, 2): each
+# rank its 40 of the 80 heads, the shared block's attention "cp" at hd 80;
+# 26d: Mamba2-1.3B whole (48 layers, 64 heads, N 128) on (1, 2)
+R26_HYBRID = {"arch": "zamba2-2.7b", "mesh": (1, 2), "batch": 4, "prompt": 1024,
+              "budget": 1280, "steps": 4, "rules": "RULES_SERVE"}
+R26_SSM = {"arch": "mamba2-1.3b", "mesh": (1, 2), "batch": 4, "prompt": 512, "budget": 640,
+           "steps": 4, "rules": "RULES_SERVE"}
 R26_TOL = LM_TOL["bfloat16"]  # phase 8's bf16 rule: 1e-1 x max|logit|
+# The ssm and hybrid cells' logits: random weights carry a rounding-level
+# change through their Mamba layers chaotically (SERVE_LOGIT_MARGIN's
+# finding), so a mesh's other roundings move the last logits by more than
+# the attention families' 1e-1 allows. Their limit is also measured in the
+# same run: the movement of world 1's logits when its Mamba layers' ``wo``
+# products are rounded as the mesh rounds them (the control), times
+# R26_SSM_MARGIN, never below R26_TOL. The first Mamba layer's output, on
+# the same inputs and before any chaos, is held to the control's by kernel
+# 6's bf16 rule (against world 1's own it is reported: the two partial
+# products' roundings alone come near 2^-7 of max|y|).
+R26_SSM_MARGIN = SERVE_LOGIT_MARGIN
 
 
 def _r26_cfg(spec: dict):
-    """The spec's config as registered, at the spec's capacity factor if it
-    names one."""
+    """The spec's config as registered, at the spec's capacity factor and
+    dtype if it names them."""
     from repro_torch.configs import get_config
 
     cfg = get_config(spec["arch"])
-    cf = spec.get("capacity_factor")
-    return dataclasses.replace(cfg, capacity_factor=cf) if cf else cfg
+    extra = {k: spec[k] for k in ("capacity_factor", "dtype") if spec.get(k)}
+    return dataclasses.replace(cfg, **extra)
 
 
 def _r26_inputs(cfg, spec: dict, dev):
@@ -7056,7 +7091,9 @@ def _r26_world_one(dev, spec: dict) -> dict:
     tokens = _r26_inputs(cfg, spec, dev)
     p = spec["prompt"]
     prefill_ms = time_ms(partial(eng.prefill, params, {"tokens": tokens}), reps=2)
-    logits, cache = eng.prefill(params, {"tokens": tokens})
+    mixer0 = {}
+    with _first_mixer_output(mixer0):
+        logits, cache = eng.prefill(params, {"tokens": tokens})
     cache = eng._pad_cache(cache, p)
     out, fed = [logits.float().cpu()], [eng._sample(logits)]
     t0 = time.perf_counter()
@@ -7068,7 +7105,21 @@ def _r26_world_one(dev, spec: dict) -> dict:
     decode_ms = 1e3 * (time.perf_counter() - t0) / spec["steps"]
     res = {"logits": out, "fed": torch.stack(fed[:-1], dim=1).cpu(),
            "greedy": torch.stack(fed, dim=1).cpu(), "prefill_ms": prefill_ms,
-           "decode_ms": decode_ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+           "decode_ms": decode_ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "mixer0": mixer0.get("y")}
+    if cfg.family in ("ssm", "hybrid"):
+        # the control: world 1 again with its Mamba layers' wo products
+        # rounded as the mesh rounds them, fed the same tokens
+        control0 = {}
+        with _mesh_rounding_at_world_one(spec["mesh"][1]), _first_mixer_output(control0):
+            logits, cache = eng.prefill(params, {"tokens": tokens})
+            cache = eng._pad_cache(cache, p)
+            control = [logits.float().cpu()]
+            for i in range(spec["steps"]):
+                logits, cache = eng.decode(params, cache, {"token": fed[i][:, None],
+                                                           "pos": p + i})
+                control.append(logits.float().cpu())
+        res["control"], res["control_mixer0"] = control, control0["y"]
     del eng, params, cache, logits
     release_memory()
     return res
@@ -7096,9 +7147,87 @@ def _flash_gate(records: list, keep: dict):
     return real, gate
 
 
+@contextlib.contextmanager
+def _first_mixer_output(keep: dict):
+    """The first Mamba layer's mixer output of a prefill inside, kept in
+    ``keep["y"]`` (f32, on the host): world 1's whole, a rank's block of
+    the residual's positions. Nothing for the attention families."""
+    from repro_torch.models import transformer as tfm
+
+    real = tfm.ssd_mixer
+
+    def record(*args, **kw):
+        out = real(*args, **kw)
+        if "y" not in keep:
+            keep["y"] = out[0].float().cpu()
+        return out
+
+    tfm.ssd_mixer = record
+    try:
+        yield keep
+    finally:
+        tfm.ssd_mixer = real
+
+
+@contextlib.contextmanager
+def _mesh_rounding_at_world_one(n: int):
+    """World 1's Mamba layers with ``wo``'s product taken as a mesh of ``n``
+    model ranks takes it: the products of ``n`` row blocks, each rounded
+    to the model's dtype, summed in block order (the reduce-scatter's sum,
+    or a decode step's all-reduce). The rest of world 1's path is as it
+    is: the movement of the logits this causes is the scale of a
+    rounding-level change carried through the random weights' layers."""
+    from repro_torch.models import mamba2
+    from repro_torch.models import transformer as tfm
+
+    def blocked(g, w):
+        rows = w.shape[0] // n
+        out = g[..., :rows] @ w[:rows]
+        for i in range(1, n):
+            out = out + g[..., i * rows:(i + 1) * rows] @ w[i * rows:(i + 1) * rows]
+        return out
+
+    def mixer(cfg, p, x, return_state=False, *, layout=None):
+        y, z, streams, h_last = mamba2._ssd_heads(cfg, p, x, (0, cfg.ssm_nheads))
+        out = blocked(mamba2._gated_norm(cfg, p, y, z), p["wo"])
+        return out, mamba2._final_state(cfg, streams, h_last, x.shape[1]) if return_state else None
+
+    def step(cfg, p, x, state, *, layout=None):
+        y, z, new = mamba2._decode_heads(cfg, p, x, state, (0, cfg.ssm_nheads))
+        return blocked(mamba2._gated_norm(cfg, p, y, z), p["wo"])[:, None, :], new
+
+    real = tfm.ssd_mixer, tfm.ssd_decode_step
+    tfm.ssd_mixer, tfm.ssd_decode_step = mixer, step
+    try:
+        yield
+    finally:
+        tfm.ssd_mixer, tfm.ssd_decode_step = real
+
+
+def _ssd_gate(records: list, keep: dict):
+    """``ops.ssd_chunk`` wrapped: every call's outputs held to its plain
+    version on the same inputs by the fp32 rule (``ssd_rule``), the
+    kernel's own outputs passed on, and the first call's inputs kept."""
+    from repro_torch.kernels import ops, ssd_scan
+
+    real = ops.ssd_chunk
+
+    def gate(x, a, b, c):
+        got = real(x, a, b, c)
+        r = ssd_rule(got, ssd_scan.ssd_chunk_plain(x, a, b, c), x.shape[2], b.shape[3])
+        records.append({"shape": list(x.shape) + [int(b.shape[3])], "ok": r["ok"],
+                        "over_limit": max(r["y"]["over_limit"], r["state"]["over_limit"])})
+        if "x" not in keep:
+            keep.update(x=x.cpu(), a=a.cpu(), b=b.cpu(), c=c.cpu())
+        return got
+
+    return real, gate
+
+
 def _serve26_job(rank, world, dev, tmp, cfg_in) -> dict:
     """One rank of phase 26: the mesh, this rank's blocks of the seeded
-    weights, a prefill with every kernel-6 call gated, a timed prefill,
+    weights, a prefill with every kernel-6 and kernel-7 call gated, a timed
+    prefill,
     teacher-forced decode steps fed world 1's tokens, and (``"new"``) an
     ``Engine.generate``; for the MoE, a prefill at the registered capacity
     with each layer's dropped share."""
@@ -7126,18 +7255,24 @@ def _serve26_job(rank, world, dev, tmp, cfg_in) -> dict:
     fed = torch.load(os.path.join(tmp, "26-fed.pt")).to(dev)
     p = spec["prompt"]
     # the main path: every count starts at 0 here and is read right after
-    records, keep = [], {}
+    records, keep, records7, keep7 = [], {}, [], {}
     real, gate = _flash_gate(records, keep)
+    real7, gate7 = _ssd_gate(records7, keep7)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     mesh.reset_counters()
-    ops.flash_attention = gate
+    mixer0 = {}
+    ops.flash_attention, ops.ssd_chunk = gate, gate7
     try:
-        logits, cache = eng.prefill(params, {"tokens": tokens})
+        with _first_mixer_output(mixer0):
+            logits, cache = eng.prefill(params, {"tokens": tokens})
     finally:
-        ops.flash_attention = real
+        ops.flash_attention, ops.ssd_chunk = real, real7
     out["prefill_launches"] = read_launches()
-    out["gate"] = records
+    out["gate"], out["gate7"] = records, records7
+    out["mixer0"] = mixer0.get("y")
+    out["positions"] = sharding.ServeLayout.build(mesh, rules, spec["batch"],
+                                                  spec["prompt"]).positions()
     cache = eng._pad_cache(cache, p)
     reset_launches()
     steps = [logits.float().cpu()]
@@ -7153,6 +7288,8 @@ def _serve26_job(rank, world, dev, tmp, cfg_in) -> dict:
     del cache
     if rank == 1 and keep:
         torch.save(keep, os.path.join(tmp, "26-flash-inputs.pt"))
+    if rank == 1 and keep7:
+        torch.save(keep7, os.path.join(tmp, "26-ssd-inputs.pt"))
     # a warm prefill, timed on the host's clock (the staged collectives block it)
     mesh.barrier()
     mesh.reset_counters()
@@ -7192,17 +7329,17 @@ def _serve26_job(rank, world, dev, tmp, cfg_in) -> dict:
 SHARD_JOBS["serve26"] = _serve26_job
 
 
-def flash_row_cp(inputs: dict) -> dict:
+def flash_row_cp(inputs: dict, dev) -> dict:
     """Kernel 6 on a cp query block's inputs (S < T, from a rank's prefill),
-    alone on the card: :func:`flash_row`'s numbers, SDPA with the
+    alone on ``dev``: :func:`flash_row`'s numbers, SDPA with the
     end-aligned causal mask as the library call."""
-    q, k, v = (inputs[n].cuda() for n in ("q", "k", "v"))
+    q, k, v = (inputs[n].to(dev) for n in ("q", "k", "v"))
     return flash_row("cp block, S < T", q, k, v, inputs["kw"])
 
 
 def _phase26_cell(dev, card: str, label: str, spec: dict, tmp: str) -> dict:
-    """26a or 26b: world 1 in this process, then the mesh's ranks; gates
-    and numbers (see the module's docstring)."""
+    """26a-26d: world 1 in this process, then the mesh's ranks; gates and
+    numbers (see the module's docstring)."""
     world = math.prod(spec["mesh"])
     t0 = time.perf_counter()
     one = _r26_world_one(dev, spec)
@@ -7212,36 +7349,72 @@ def _phase26_cell(dev, card: str, label: str, spec: dict, tmp: str) -> dict:
     ranks = run_ranks("serve26", world, "gloo", tmp, {"device": str(dev), "spec": spec})
     t_ranks = time.perf_counter() - t0
     cfg = _r26_cfg(spec)
+    ssm_family = cfg.family in ("ssm", "hybrid")
     got = torch.load(os.path.join(tmp, "26-logits-r0.pt"))
-    gaps = []
+    gaps, limits, control = [], [], []
     for i, (a, b) in enumerate(zip(got, one["logits"])):
         scale = float(b.abs().max())
         gaps.append(float((a - b).abs().max()) / scale)
-        check(bool(torch.isfinite(a).all()) and gaps[-1] <= R26_TOL,
-              f"26{label} step {i}: logits {gaps[-1]:.3e} of max|logit| from world 1's")
+        if ssm_family:  # the limit from the same run's control (see R26_SSM_MARGIN)
+            control.append(float((one["control"][i] - b).abs().max()) / scale)
+        limits.append(max(R26_TOL, R26_SSM_MARGIN * control[-1]) if ssm_family else R26_TOL)
+        check(bool(torch.isfinite(a).all()) and gaps[-1] <= limits[-1],
+              f"26{label} step {i}: logits {gaps[-1]:.3e} of max|logit| from world 1's, "
+              f"limit {limits[-1]:.3e}")
+    layer0, layer0_world1 = [], []
+    for r, res in enumerate(ranks) if ssm_family else ():
+        # the first Mamba layer on the same inputs, before any chaos: against
+        # the control's (the mesh's rounding of wo at world 1) by the bf16 rule
+        p0, p1 = res["positions"]
+        err, lim, _, _, ok = against_plain(res["mixer0"], one["control_mixer0"][:, p0:p1],
+                                           "bf16", cfg.d_inner)
+        layer0.append(err / lim)
+        check(ok, f"26{label} rank {r}: the first Mamba layer's output {err:.3e} from the "
+                  f"control's, limit {lim:.3e}")
+        err1, lim1, _, _, _ = against_plain(res["mixer0"], one["mixer0"][:, p0:p1], "bf16",
+                                            cfg.d_inner)
+        layer0_world1.append(err1 / lim1)
     check(all(r["digest"] == ranks[0]["digest"] for r in ranks),
           f"26{label}: the ranks' logits differ")
     check(all(r["warm_same_bits"] for r in ranks), f"26{label}: a warm prefill gave other bits")
     agree = [float((g.argmax(-1) == w).float().mean())
              for g, w in zip(got, one["greedy"].unbind(1))]
-    attn = cfg.n_layers
+    # one kernel-6 launch an attention layer (the hybrid: a shared block) and
+    # one kernel-7 launch a Mamba layer, on the rank's heads, a prefill
+    ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    attn = (cfg.n_layers // cfg.hybrid_period if cfg.family == "hybrid"
+            else 0 if cfg.family == "ssm" else cfg.n_layers)
+    want = {k: v for k, v in (("flash_attention", attn), ("ssd_chunk", ssd)) if v}
+    n = spec["mesh"][1]
+    heads = cfg.ssm_nheads // n if cfg.ssm_nheads % n == 0 else cfg.ssm_nheads
+    chunk = min(cfg.ssm_chunk, spec["prompt"])
+    ssd_shape = [spec["batch"] // spec["mesh"][0] * heads, -(-spec["prompt"] // chunk), chunk,
+                 cfg.ssm_headdim, cfg.ssm_state]
     for r, res in enumerate(ranks):
         check(res["route"] == "gloo-host-staged", f"26{label} rank {r}: route {res['route']}")
         launches = {k: v for k, v in res["prefill_launches"].items() if v}
-        check(launches == {"flash_attention": attn},
-              f"26{label} rank {r}: prefill launches {launches}, want {attn} of kernel 6")
+        check(launches == want, f"26{label} rank {r}: prefill launches {launches}, want {want}")
         check(not any(res["decode_launches"].values()),
               f"26{label} rank {r}: decode launched {res['decode_launches']}")
-        gate = res["gate"]
+        gate, gate7 = res["gate"], res["gate7"]
         check(len(gate) == attn and all(g["ok"] for g in gate),
               f"26{label} rank {r}: kernel 6 against its plain version: {gate}")
+        check(len(gate7) == ssd and all(g["ok"] and g["shape"] == ssd_shape for g in gate7),
+              f"26{label} rank {r}: kernel 7 against its plain version at {ssd_shape}: {gate7}")
     shapes = [sorted({(g["s"], g["t"]) for g in r["gate"]}) for r in ranks]
-    row = {}
+    row, row7 = {}, {}
     flash_in = os.path.join(tmp, "26-flash-inputs.pt")
     if os.path.exists(flash_in):
-        row = flash_row_cp(torch.load(flash_in))
+        row = flash_row_cp(torch.load(flash_in), dev)
         os.remove(flash_in)
         log(f"  26{label} kernel 6 at S < T: {json.dumps(row)}")
+    ssd_in = os.path.join(tmp, "26-ssd-inputs.pt")
+    if os.path.exists(ssd_in):
+        k7 = torch.load(ssd_in)
+        os.remove(ssd_in)
+        row7 = ssd_row(f"26{label} rank 1's heads",
+                       *(k7[name].to(dev) for name in ("x", "a", "b", "c")))
+        log(f"  26{label} kernel 7 on a rank's heads: {json.dumps(row7)}")
     res = {
         "config": cfg.name, "mesh": list(spec["mesh"]), "rules": spec["rules"],
         "attn_partitioning": cfg.attn_partitioning, "batch": spec["batch"],
@@ -7250,7 +7423,10 @@ def _phase26_cell(dev, card: str, label: str, spec: dict, tmp: str) -> dict:
         "prefill_ms": {"1": one["prefill_ms"], str(world): [r["prefill_ms"] for r in ranks]},
         "decode_ms_per_step": {"1": one["decode_ms"],
                                str(world): [r["decode_ms"] for r in ranks]},
-        "logit_gap_of_max": gaps, "greedy_agree": agree,
+        "logit_gap_of_max": gaps, "logit_limit_of_max": limits,
+        "control_gap_of_max": control or None, "layer0_over_limit_by_rank": layer0 or None,
+        "layer0_against_world1_over_limit_by_rank": layer0_world1 or None,
+        "greedy_agree": agree,
         "prefill_collectives_by_rank": [r["prefill_counters"] for r in ranks],
         "decode_collectives_per_step_by_rank": [r["decode_counters"] for r in ranks],
         "peak_gb": {"1": one["peak_gb"], str(world): [r.get("peak_gb") for r in ranks]},
@@ -7259,8 +7435,15 @@ def _phase26_cell(dev, card: str, label: str, spec: dict, tmp: str) -> dict:
         "kernel6_launches_per_rank_per_prefill": [r["prefill_launches"]["flash_attention"]
                                                   for r in ranks],
         "kernel6_shapes_by_rank": shapes,
-        "kernel6_worst_over_limit": max(g["over_limit"] for r in ranks for g in r["gate"]),
-        "kernel6_cp_row": row}
+        "kernel6_worst_over_limit": max((g["over_limit"] for r in ranks for g in r["gate"]),
+                                        default=None),
+        "kernel6_cp_row": row,
+        "kernel7_launches_per_rank_per_prefill": [r["prefill_launches"]["ssd_chunk"]
+                                                  for r in ranks],
+        "kernel7_shape": ssd_shape if ssd else None,
+        "kernel7_worst_over_limit": max((g["over_limit"] for r in ranks for g in r["gate7"]),
+                                        default=None),
+        "kernel7_tp_row": row7}
     if spec.get("new"):
         want = one["greedy"][:, :spec["new"]].numpy()
         res["generate_greedy_agree"] = [float((r["generated"] == want).mean()) for r in ranks]
@@ -7271,32 +7454,48 @@ def _phase26_cell(dev, card: str, label: str, spec: dict, tmp: str) -> dict:
             "capacity_factor": _r26_cfg(dict(spec, capacity_factor=None)).capacity_factor,
             "by_rank": [r["dropped_share_registered"] for r in ranks]}
     log(f"  26{label}: {cfg.name} on {spec['mesh']}: logits within {max(gaps):.3e} of world 1's "
-        f"(limit {R26_TOL}); greedy agree {agree}; prefill {one['prefill_ms']:.1f} ms at world 1, "
-        f"{[round(r['prefill_ms'], 1) for r in ranks]} at world {world}; decode "
+        f"(limit {min(limits):.3g}); greedy agree {agree}; prefill {one['prefill_ms']:.1f} ms "
+        f"at world 1, {[round(r['prefill_ms'], 1) for r in ranks]} at world {world}; decode "
         f"{one['decode_ms']:.2f} / {[round(r['decode_ms'], 2) for r in ranks]} ms a step")
     return res
 
 
+def _r26_row(name: str, source: str, replaces: str, launches: int, row: dict) -> dict:
+    """A kernels-line row from a cell's timed call."""
+    return {"name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}", "launches": launches,
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "shape")},
+            **({"kv_len": row["kv_len"]} if "kv_len" in row else {})}
+
+
 def phase26_serve_ranks(dev, card: str) -> dict:
-    """26a, 26b (see the module's docstring). Returns the kernels line's
-    row for kernel 6 at a cp block's shapes (S < T)."""
+    """26a-26d (see the module's docstring). Returns the kernels line's
+    rows: kernel 6 at a cp block's shapes (S < T) of 26a and of 26c (D 80,
+    no GQA), kernel 7 on a rank's heads of 26c."""
     out = {"phase": "26 serving across ranks", "card": card}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve26_") as tmp:
-        for label, spec in (("a", R26_DENSE), ("b", R26_MOE)):
+        for label, spec in (("a", R26_DENSE), ("b", R26_MOE), ("c", R26_HYBRID),
+                            ("d", R26_SSM)):
             t0 = time.perf_counter()
             out[f"26{label}"] = _phase26_cell(dev, card, label, spec, tmp)
             out[f"26{label}"]["phase_s"] = time.perf_counter() - t0
+            log(f"  26{label}: {out[f'26{label}']['phase_s']:.1f} s")
     print(json.dumps(out), flush=True)
-    row = out["26a"]["kernel6_cp_row"]
-    check(bool(row), "26a: no kernel-6 call with S < T was kept")
-    return {"flash_attention_cp": {
-        "name": "flash_attention (cp block, S < T)", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:78",
-        "launches": sum(out["26a"]["kernel6_launches_per_rank_per_prefill"]),
-        "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-        "library_ms": row["library_ms"], "shape": row["shape"], "kv_len": row["kv_len"]}}
+    rows = {}
+    for key, cell, which, name, source, replaces, count in (
+            ("flash_attention_cp", "26a", "kernel6_cp_row", "flash_attention (cp block, S < T)",
+             "flash_attention_wgmma.cu", "flash_attention.py:78", "kernel6"),
+            ("flash_attention_cp_d80", "26c", "kernel6_cp_row",
+             "flash_attention (Zamba2's cp block, D 80, S < T)", "flash_attention_wgmma.cu",
+             "flash_attention.py:78", "kernel6"),
+            ("ssd_chunk_tp", "26c", "kernel7_tp_row", "ssd_chunk (a rank's heads, Zamba2)",
+             "ssd_chunk.cu", "ssd_scan.py:48", "kernel7")):
+        row = out[cell][which]
+        check(bool(row), f"{cell}: no {name} call was kept")
+        rows[key] = _r26_row(name, source, replaces,
+                             sum(out[cell][f"{count}_launches_per_rank_per_prefill"]), row)
+    return rows
 
 
 if __name__ == "__main__":

@@ -109,9 +109,11 @@ def lm_cache_from_numpy(cache: Any, device="cpu", sharding=None):
     layers, or the ``hybrid`` family's ``{"ssm": SsmState, "attn": {"k",
     "v"}}``; every entry but ``h`` (f32) as ``uint16`` bf16 bit patterns.
     With ``sharding = (mesh, specs)`` (``specs`` a tree of the cache's
-    structure, a spec a leaf) each leaf comes back as this rank's block: a
-    decode cache on a mesh is cut by rows over the batch axes and by
-    positions over the model axes (``serve.engine.Engine._pad_cache``)."""
+    structure, a spec a leaf: ``models.model.cache_pspecs``) each leaf comes
+    back as this rank's block: a decode cache on a mesh is cut by rows over
+    the batch axes, its attention entries by positions over the model axes
+    (``serve.engine.Engine._pad_cache``), an ``SsmState`` (stacked, or the
+    hybrid's ``"ssm"``) by channels and heads over them."""
     specs = sharding and sharding[1]
 
     def leaf(t, spec):

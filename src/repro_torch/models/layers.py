@@ -9,6 +9,8 @@ holds ``uint16`` bit patterns (``convert.bf16_from_bits`` reads them).
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 import torch.nn.functional as F
 
@@ -17,6 +19,19 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     """RMS norm over the last axis, in f32 inside; the output has x's dtype."""
     x32 = x.to(torch.float32)
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * w.to(torch.float32)).to(x.dtype)
+
+
+def rmsnorm_cut(x: torch.Tensor, w: torch.Tensor, eps: float, width: int,
+                total: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """:func:`rmsnorm` of a tensor whose last axis, of ``width``, is cut in
+    blocks across ranks: ``x`` and ``w`` are this rank's blocks, and
+    ``total`` sums each rank's (..., 1) f32 sum of squares over the ranks
+    (``ServeLayout.model_sum``). The output is this rank's block of the
+    whole's."""
+    x32 = x.to(torch.float32)
+    var = total(torch.sum(torch.square(x32), dim=-1, keepdim=True)) / width
     out = x32 * torch.rsqrt(var + eps)
     return (out * w.to(torch.float32)).to(x.dtype)
 

@@ -19,9 +19,11 @@ every rank is given the whole batch and holds its blocks of the parameters
 under :func:`param_pspecs`; it computes its rows and, over the model axes,
 its positions (a prefill) or its block of the cache (a decode step), with
 the ``"fsdp"`` / ``"expert_fsdp"`` blocks gathered over the data axes
-inside each layer, and every rank ends with the whole logits. The
-``dense``, ``moe``, ``audio`` and ``vlm`` families run on any mesh; ``ssm``
-and ``hybrid`` only where the model axes are of size 1.
+inside each layer, and every rank ends with the whole logits. Every
+family runs on any mesh: the attention families' blocks as sequence-,
+tensor- and expert-parallel layers, the ``ssm`` and ``hybrid`` families'
+Mamba-2 layers tensor-parallel over their heads (``models.mamba2``). The
+decode cache's blocks are :func:`cache_pspecs`'.
 """
 from __future__ import annotations
 
@@ -47,10 +49,6 @@ PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 ATTENTION_FAMILIES = ("dense", "moe", "audio", "vlm")  # a stack of dense_block
 
 
-# what serves the ssm and hybrid families on a model axis above 1
-SSM_TP_ITEM = "ROADMAP item t (tensor parallelism for the ssm and hybrid families)"
-
-
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``ValueError`` unless ``cfg``'s family is one the port serves."""
     if cfg.family not in PORTED_FAMILIES:
@@ -65,16 +63,11 @@ def on_mesh(mesh) -> bool:
 
 def check_serving_mesh(cfg: ModelConfig, mesh, rules: ShardingRules) -> None:
     """Raise ``ValueError`` where ``cfg`` cannot be served on ``mesh`` under
-    ``rules``: the ssm and hybrid families on model axes above 1, or a
-    rules table whose model-parallel names do not share their axes."""
+    ``rules``: a rules table whose model-parallel names do not share their
+    axes (``ServeLayout.build``)."""
     check_ported(cfg)
-    if not on_mesh(mesh):
-        return
-    n = ServeLayout.build(mesh, rules, 1, 1).n
-    if n > 1 and cfg.family not in ATTENTION_FAMILIES:
-        raise ValueError(f"{cfg.name} ({cfg.family}) on model axes of {n} ranks: the port "
-                         f"serves the {cfg.family} family across ranks only where the model "
-                         f"axes are 1; {SSM_TP_ITEM} is not ported")
+    if on_mesh(mesh):
+        ServeLayout.build(mesh, rules, 1, 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -215,6 +208,43 @@ def param_shardings(cfg: ModelConfig, rules: ShardingRules, mesh):
     """:func:`param_pspecs` as :class:`~repro_torch.models.sharding.NamedSharding`
     leaves (what ``CheckpointManager.restore`` takes)."""
     return map_tree(lambda spec: NamedSharding(mesh, spec), param_pspecs(cfg, rules, mesh))
+
+
+def cache_pspecs(cfg: ModelConfig, rules: ShardingRules, mesh, b: int, s: int):
+    """The specs of the decode cache of ``b`` rows and a budget of ``s``
+    positions, in the cache's structure (``{"k", "v"}``, an
+    :class:`SsmState`, or the hybrid's ``{"ssm", "attn"}``): the
+    reference's ``launch.inputs.cache_specs``, a dim that does not divide
+    replicated (``sharding.spec_for``). The attention entries are cut by
+    rows over the batch axes and by position over ``"kvseq"``; the SSM
+    state's conv entries by channel and ``h`` by head over ``"tp"``."""
+    hd = cfg.resolved_head_dim
+
+    def attn(lead, lead_log):
+        spec = spec_for(lead_log + ("batch", "kvseq", "none", "none"), rules, mesh,
+                        lead + (b, s, cfg.n_kv_heads, hd))
+        return {"k": spec, "v": spec}
+
+    def ssm(lead, lead_log):
+        km1, gn = cfg.ssm_conv - 1, cfg.ssm_ngroups * cfg.ssm_state
+
+        def conv(width):
+            return spec_for(lead_log + ("batch", "none", "tp"), rules, mesh,
+                            lead + (b, km1, width))
+
+        return SsmState(conv(cfg.d_inner), conv(gn), conv(gn),
+                        spec_for(lead_log + ("batch", "tp", "none", "none"), rules, mesh,
+                                 lead + (b, cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state)))
+
+    if cfg.family in ATTENTION_FAMILIES:
+        return attn((cfg.n_layers,), ("layers",))
+    if cfg.family == "ssm":
+        return ssm((cfg.n_layers,), ("layers",))
+    if cfg.family == "hybrid":
+        n_sb = cfg.n_layers // cfg.hybrid_period
+        return {"ssm": ssm((n_sb, cfg.hybrid_period), ("layers", "layers")),
+                "attn": attn((n_sb,), ("layers",))}
+    raise ValueError(f"unknown family {cfg.family!r} ({cfg.name})")
 
 
 def shard_params(params, specs, mesh):
@@ -400,7 +430,7 @@ def _serve_blocks(cfg: ModelConfig, params, x: torch.Tensor, positions: torch.Te
                   layout: Optional[ServeLayout] = None):
     """The blocks of a prefill or a decode step: (hidden, cache, aux).
     ``whole(tree, key)`` (a mesh's) gathers a layer's blocks over the data
-    axes; ``layout`` runs each dense block on the mesh."""
+    axes; ``layout`` runs each block on the mesh."""
     decode = mode == "decode"
     layers = params["layers"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -424,7 +454,8 @@ def _serve_blocks(cfg: ModelConfig, params, x: torch.Tensor, positions: torch.Te
         states = []
         for i, p_l in enumerate(_layers(layers, cfg.n_layers)):
             st = SsmState(*(t[i] for t in cache)) if decode else None
-            x, new_state = tfm.ssm_block(cfg, full(p_l, "layers"), x, mode, st)
+            x, new_state = tfm.ssm_block(cfg, full(p_l, "layers"), x, mode, st,
+                                         layout=layout)
             if decode:
                 for slot, new in zip(st, new_state):
                     slot.copy_(new)
@@ -440,7 +471,8 @@ def _serve_blocks(cfg: ModelConfig, params, x: torch.Tensor, positions: torch.Te
             ssm_in = SsmState(*(t[i] for t in cache["ssm"])) if decode else None
             attn_in = {n: cache["attn"][n][i] for n in ("k", "v")} if decode else None
             x, new_states, new_attn = tfm.hybrid_superblock(
-                cfg, full(p_sb, "layers"), shared, x, positions, mode, ssm_in, attn_in, pos)
+                cfg, full(p_sb, "layers"), shared, x, positions, mode, ssm_in, attn_in, pos,
+                layout=layout)
             if decode:
                 for slot, new in zip(ssm_in, new_states):
                     slot.copy_(new)
@@ -537,8 +569,7 @@ def _stack_on_mesh(cfg: ModelConfig, params, tokens, embeds, mode: str, cache, p
         positions = torch.arange(s, dtype=torch.int32, device=dev)
     x, cache, aux = _serve_blocks(
         cfg, params, x, positions, mode, cache, pos,
-        whole=lambda p, key: gather_params(p, inner[key], mesh),
-        layout=lay if cfg.family in ATTENTION_FAMILIES else None)
+        whole=lambda p, key: gather_params(p, inner[key], mesh), layout=lay)
     return x, cache, aux, lay, top
 
 

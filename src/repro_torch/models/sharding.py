@@ -243,6 +243,11 @@ class ServeLayout:
             return self.mesh.reduce_scatter(t, 1, self.model)
         return self.mesh.all_reduce(t, self.model)
 
+    def model_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum over the model axes of ``t``, each rank's partial sum over
+        its block of a cut dim (a (b, s, 1) f32 sum of squares)."""
+        return self.mesh.all_reduce(t, self.model) if self.n > 1 else t
+
     def row_product(self, a: torch.Tensor, w: torch.Tensor, size: int) -> torch.Tensor:
         """``a @ W`` in the residual's layout, for ``a`` (b, s, size) at every
         position with every column, and ``w`` this rank's row block of

@@ -11,12 +11,15 @@ Block functions are mode-polymorphic:
 
 One card needs no sharding annotations: the reference's ``constrain``
 calls have no counterpart. On a mesh of ranks (serving; ``layout``, a
-:class:`~repro_torch.models.sharding.ServeLayout`) the attention and dense
-blocks take this rank's blocks of the weights and move their activations
+:class:`~repro_torch.models.sharding.ServeLayout`) every block of every
+family takes this rank's blocks of the weights and moves its activations
 with the mesh's collectives, as sequence- and tensor-parallel layers
-(Megatron's): the residual ``("batch", "seq", "none")`` is cut by position
-over the model axes in a prefill and replicated over them in a decode step;
-each sublayer gathers its normed input at every position, multiplies it by
+(Megatron's); the Mamba-2 layers of ``ssm_block`` and
+``hybrid_superblock`` are tensor-parallel over their heads
+(``models.mamba2``), and the hybrid's shared block is the attention
+sublayer and SwiGLU below. The residual ``("batch", "seq", "none")`` is
+cut by position over the model axes in a prefill and replicated over them
+in a decode step; each sublayer gathers its normed input at every position, multiplies it by
 its column blocks (``wq``, ``wk``, ``wv``, the biases, ``wi``, ``wg``) and
 sums the row blocks' partial products (``wo``, ``wo_mlp``) back into the
 residual's layout (a reduce-scatter over the positions, or an all-reduce
@@ -191,12 +194,15 @@ def dense_block(
     return x + mlp_out, new_cache, aux
 
 
-def ssm_block(cfg: ModelConfig, p, x, mode: str, state: Optional[SsmState] = None):
+def ssm_block(cfg: ModelConfig, p, x, mode: str, state: Optional[SsmState] = None, *,
+              layout: Optional[ServeLayout] = None):
+    """Pre-norm Mamba-2 mixer added to the residual; returns (x, the new
+    state or None). With a ``layout`` the mixer runs on the mesh."""
     h = rmsnorm(x, p["ln"], cfg.norm_eps)
     if mode == "decode":
-        y, new_state = ssd_decode_step(cfg, p, h, state)
+        y, new_state = ssd_decode_step(cfg, p, h, state, layout=layout)
     else:
-        y, new_state = ssd_mixer(cfg, p, h, return_state=(mode == "prefill"))
+        y, new_state = ssd_mixer(cfg, p, h, return_state=(mode == "prefill"), layout=layout)
     return x + y, new_state
 
 
@@ -210,25 +216,31 @@ def hybrid_superblock(
     ssm_states: Optional[SsmState] = None,  # leading period dim (decode) or None
     attn_cache: Optional[Dict[str, torch.Tensor]] = None,
     pos: Optional[int] = None,
+    *,
+    layout: Optional[ServeLayout] = None,
 ):
     """``hybrid_period`` mamba layers then one *shared* attention block.
     Returns (x, the new SSM states stacked over the period or None, the
     attention cache or None). The layers' parameters are taken with one
     ``unbind(0)`` per leaf: under autograd its backward writes the leaf's
     gradient once, where indexing each layer would write a zero-filled
-    copy of the whole leaf per layer."""
+    copy of the whole leaf per layer. With a ``layout`` the Mamba layers,
+    the shared attention and its MLP run on the mesh."""
     new_states = []
     per_layer = {name: t.unbind(0) for name, t in p_sb.items()}
     for j in range(cfg.hybrid_period):
         pj = {name: ts[j] for name, ts in per_layer.items()}
         st = SsmState(*(t[j] for t in ssm_states)) if ssm_states is not None else None
-        x, st_new = ssm_block(cfg, pj, x, mode, st)
+        x, st_new = ssm_block(cfg, pj, x, mode, st, layout=layout)
         if st_new is not None:
             new_states.append(st_new)
     attn_out, new_attn_cache = attention_sublayer(cfg, shared, x, positions, mode, attn_cache,
-                                                  pos)
+                                                  pos, layout=layout)
     x = x + attn_out
     h = rmsnorm(x, shared["ln2"], cfg.norm_eps)
-    x = x + swiglu(h, shared["wi"], shared["wg"], shared["wo_mlp"])
+    if layout is not None:
+        x = x + _swiglu_on_mesh(cfg, layout, shared, h)
+    else:
+        x = x + swiglu(h, shared["wi"], shared["wg"], shared["wo_mlp"])
     stacked = SsmState(*(torch.stack(t) for t in zip(*new_states))) if new_states else None
     return x, stacked, new_attn_cache

@@ -14,8 +14,8 @@ pre-allocated KV budget, greedy or sampled at a temperature. Port of
 Across the ranks of a mesh (``Engine(..., mesh=make_mesh((1, 2), ("data",
 "model")), rules=RULES_SERVE)``, on every rank, with the same prompts and
 this rank's blocks of the parameters) every rank computes its part of each
-step (``models.model``'s serving on a mesh) and ends with the whole logits,
-samples the same tokens and returns the same output.
+step (``models.model``'s serving on a mesh, every family) and ends with the
+whole logits, samples the same tokens and returns the same output.
 """
 from __future__ import annotations
 
@@ -105,7 +105,10 @@ class Engine:
         them, where they do not divide over the model axes), the decode
         cache this rank's block of the budget's, the budget rounded up to a
         multiple of the model axes' ranks (the positions past it are never
-        written and never live)."""
+        written and never live). The SSM states are this rank's blocks (its
+        rows, its channels of the conv entries, its heads of ``h``:
+        ``model.cache_pspecs``) and have no position dim: each is copied as
+        it is."""
         grow = self._grow_on_mesh(from_len) if self.mesh is not None else None
         if grow is None:
             target = self.scfg.max_seq_len

@@ -40,9 +40,9 @@ reference's run on the same mesh, in a subprocess with 4 forced host devices.
 Also: ``RankMesh.all_to_all`` against the tiled definition and against
 ``jax.lax.all_to_all(tiled=True)`` run on the forced devices; a mesh of one
 gives the unsharded bits; at T > 0 every rank draws the same tokens; the
-ssm and hybrid families raise on a model axis above 1 and serve on a
-(2, 1) mesh; each collective's counted bytes equal a count derived here
-from the shapes.
+hybrid family serves on a (2, 1) mesh, whose model axes are 1 (the ssm and
+hybrid families on a model axis above 1: ``test_torch_serve_ranks_ssm.py``);
+each collective's counted bytes equal a count derived here from the shapes.
 """
 import contextlib
 import dataclasses
@@ -717,24 +717,6 @@ def _duck_mesh(shape, rank: int = 0):
     coords = dict(zip(axes, (int(c) for c in np.unravel_index(rank, shape))))
     return tmesh.RankMesh(axes, dict(zip(axes, shape)), rank, coords,
                           ("cpu",) * math.prod(shape))
-
-
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-2.7b"])
-@pytest.mark.parametrize("rules_name", RULES)
-def test_ssm_and_hybrid_raise_on_a_model_axis_above_one(arch, rules_name):
-    cfg = port_cfg(arch)
-    rules = getattr(tsharding, rules_name)
-    for shape in MESHES:
-        mesh = _duck_mesh(shape)
-        for build in (lambda: tmodel.make_prefill_step(cfg, mesh, rules),
-                      lambda: tmodel.make_serve_step(cfg, mesh, rules),
-                      lambda: tmodel.run_stack(cfg, {}, torch.zeros((B, P), dtype=torch.long),
-                                               mesh=mesh, rules=rules),
-                      lambda: Engine(cfg, {"embed": {"table": torch.zeros(1)}}, device="cpu",
-                                     mesh=mesh, rules=rules)):
-            with pytest.raises(ValueError, match="ROADMAP item t"):
-                build()
-    tmodel.make_prefill_step(cfg, _duck_mesh((2, 1)), rules)  # model axes of 1: served
 
 
 def test_a_mesh_of_one_gives_the_unsharded_bits():
