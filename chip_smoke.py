@@ -160,7 +160,8 @@ result line):
     sweep and peak both ways, and ``engine="cuda"`` ignoring the flag (the
     bits of the run without);
 17. the service across 4 gloo ranks sharing the card (rank 0 serving
-    phase 12's tenants A and C from 4 threads, the others
+    phase 12's tenants A and C, their first 32 and 8 requests, from 4
+    threads, the others
     ``serve_follower``): every result within phase 14b's tolerances of a
     world-of-one service, every follower back from ``close()``,
     requests/s, p50 / p99 and the announces' bytes and ms;
@@ -231,9 +232,9 @@ result line):
     version's, SDPA backward's (kernel 6) and its bound, kernel 6's
     device time by pass (delta, dK/dV, dQ) beside its design's bound, and
     both kernels' registers and spills from ptxas; 22d repro-100m at
-    full width through ``python -m repro_torch.train``'s code path, 120
+    full width through ``python -m repro_torch.train``'s code path, 60
     steps of 8 x 128 with a checkpoint every 50 (the loss falls), then a
-    run killed at step 70 that resumes at 50 with the checkpoint's bits
+    run killed at step 55 that resumes at 50 with the checkpoint's bits
     and later losses within ``R100_RESUME_LOSS_TOL`` of the uninterrupted
     run's;
 23. QRP gradient compression (``repro_torch.optim.compression``): 23a
@@ -278,7 +279,7 @@ result line):
     26a Qwen2-7B whole (28 layers, bf16, seeded weights, ``RULES_SERVE``,
     the config's ``"cp"``) on the ``(1, 2)`` mesh, each rank holding its
     tensor-parallel blocks, 4 prompts of 1,024 tokens, a budget of 2,048
-    and 8 decode steps fed world 1's greedy tokens; world 1 is
+    and 4 decode steps fed world 1's greedy tokens; world 1 is
     ``Engine(mesh=None)`` on the same weights in this process, first. Both
     ranks' last-token prefill logits and every decode step's within
     ``R26_TOL`` x max|logit| of world 1's, the same bits on every rank, a
@@ -290,8 +291,8 @@ result line):
     the end-aligned mask as the library call). 26b granite-moe-1b-a400m
     whole on the ``(2, 2)`` mesh (4 ranks; expert parallel over the model
     axis, the expert stacks' data blocks gathered a layer), 4 x 256
-    prompts, 4 decode steps, at ``capacity_factor`` 8 (no pair dropped on
-    either mesh) held to world 1 the same way; an ``Engine.generate`` of 4
+    prompts, 2 decode steps, at ``capacity_factor`` 8 (no pair dropped on
+    either mesh) held to world 1 the same way; an ``Engine.generate`` of 2
     tokens on every rank (the same tokens on all); each rank's dropped
     share a layer at the registered 1.25. 26c Zamba2-2.7B whole (54 Mamba
     layers and 9 shared blocks, bf16, seeded weights, ``RULES_SERVE``, its
@@ -299,10 +300,18 @@ result line):
     (its column blocks of ``wz``, ``wx``, ``wb``, ``wc``, ``wdt``, its
     channels of the conv, the gated RMSNorm over a cut ``d_inner``, ``wo``'s
     row block) and the shared block's attention through kernel 6 at D 80,
-    4 x 1,024 prompts (4 SSD chunks of 256), a budget of 1,280 and 4 decode
-    steps fed world 1's greedy tokens; 26d Mamba2-1.3B whole (48 layers) on
-    ``(1, 2)``, 4 x 512 prompts, 4 decode steps. Each is held to world 1
-    as 26a is; every kernel-7 call of each rank's gated prefill
+    4 x 1,024 prompts (4 SSD chunks of 256), a budget of 1,280 and 2 decode
+    steps fed world 1's greedy tokens; 26d Mamba2-1.3B at full width cut to
+    12 of its 48 layers on ``(1, 2)``, 4 x 512 prompts, 4 decode steps, in
+    bf16 and again in f32 (26d-f32). 26c and 26d-f32 are held to world 1 as 26a is; 26d's bf16
+    logits are reported, not gated: the random weights carry a rounding's
+    change through 48 Mamba layers chaotically (world 1 moves as far under
+    the control below). In all three the first Mamba layer's output of the
+    prefill and of every decode step, on the same inputs and before any
+    chaos, is held to the control's (the bf16 rule; a bf16 decode step the
+    bf16-operand rule, ``R26_DECODE_PRECISION``): world 1 with its ``wo``
+    products rounded as the mesh rounds them
+    (``_mesh_rounding_at_world_one``); every kernel-7 call of each rank's gated prefill
     (``(4 x heads / 2, chunks, 256, 64)``) against its plain version (the
     fp32 rule), exactly one launch a Mamba layer a prefill and none in a
     decode step; 26c's kernel-6 calls against their plain version (the
@@ -4930,6 +4939,8 @@ def phase16_kron_reuse(dev, card: str, cfg: Optional[dict] = None) -> None:
 
 SERVICE_SHARD_WORLD = 4
 SERVICE_SHARD_TENANTS = ("A", "C")  # phase 12's tenants A and C
+# their first 32 and 8 requests (cut from 64 and 16: the time limit)
+SERVICE_SHARD_REQUESTS = {"A": 32, "C": 8}
 
 
 def service_shard_requests(dev, cfg: dict) -> list:
@@ -5034,7 +5045,8 @@ SHARD_JOBS["service"] = _shard_job_service
 
 def phase17_sharded_service(dev, card: str, cfg: Optional[dict] = None) -> None:
     """The service across ranks: 4 gloo ranks sharing the card, rank 0
-    serving phase 12's tenants A (64 requests) and C (16) from 4 threads
+    serving phase 12's tenants A and C (their first 32 and 8 requests,
+    ``SERVICE_SHARD_REQUESTS``) from 4 threads
     into 2 executors, the others following; every result within phase
     14b's tolerances of the same request served by a world-of-one service
     here, every rank back from ``close()``; requests/s, p50 / p99, and the
@@ -5047,7 +5059,9 @@ def phase17_sharded_service(dev, card: str, cfg: Optional[dict] = None) -> None:
     from repro_torch import tucker
     from repro_torch.serve import ServiceConfig, TuckerService
 
-    cfg = {"device": str(dev), "tenants": SERVICE_TENANTS, **(cfg or {})}
+    tenants = tuple(t[:5] + (SERVICE_SHARD_REQUESTS.get(t[0], t[5]),) + t[6:]
+                    for t in SERVICE_TENANTS)
+    cfg = {"device": str(dev), "tenants": tenants, **(cfg or {})}
     release_memory()
     log(f"phase 17: TuckerService(shard=ShardSpec({SERVICE_SHARD_WORLD})) across "
         f"{SERVICE_SHARD_WORLD} gloo ranks sharing the card, tenants {SERVICE_SHARD_TENANTS}")
@@ -6005,8 +6019,9 @@ TRAIN_GATED_STEP = 1  # the step whose backward kernels run beside their plain v
 LOSS0_BAND = 0.10  # the step-0 loss within 10% of ln(vocab): random weights
 # 22d: repro-100m through ``python -m repro_torch.train``'s code path
 # (cut from 300 steps and a kill at 160, then from 200 and a kill at 110 to
-# make room for phase 25, to keep the script within its time limit)
-R100_STEPS, R100_CKPT_EVERY, R100_KILL = 120, 50, 70
+# make room for phase 25, then from 120 and a kill at 70 for phase 26's
+# ssm cells, to keep the script within its time limit)
+R100_STEPS, R100_CKPT_EVERY, R100_KILL = 60, 50, 55
 # 22d: the resumed run's losses against the uninterrupted run's, relative.
 # Bits are not the bar: the embedding's backward (``index_put_`` with
 # accumulate) may sum in another order on another run. Measured: the same
@@ -7033,39 +7048,55 @@ def phase25_train_ranks(dev, card: str, tmp: str) -> None:
 # 26a: Qwen2-7B whole (28 layers, bf16, "cp") on the (1, 2) mesh; 26b:
 # granite-moe-1b-a400m whole on the (2, 2) mesh (4 ranks); gloo ranks sharing
 # the card, collectives staged through the host
+# (cut from 8 and 4 decode steps and 4 generated tokens: the time limit)
 R26_DENSE = {"arch": "qwen2-7b", "mesh": (1, 2), "batch": 4, "prompt": 1024, "budget": 2048,
-             "steps": 8, "rules": "RULES_SERVE"}
+             "steps": 4, "rules": "RULES_SERVE"}
 R26_MOE = {"arch": "granite-moe-1b-a400m", "mesh": (2, 2), "batch": 4, "prompt": 256,
-           "budget": 512, "steps": 4, "rules": "RULES_SERVE", "capacity_factor": 8.0,
-           "new": 4}
+           "budget": 512, "steps": 2, "rules": "RULES_SERVE", "capacity_factor": 8.0,
+           "new": 2}
 # 26c: Zamba2-2.7B whole (54 Mamba layers, 9 shared blocks) on (1, 2): each
 # rank its 40 of the 80 heads, the shared block's attention "cp" at hd 80;
-# 26d: Mamba2-1.3B whole (48 layers, 64 heads, N 128) on (1, 2)
+# 26d: Mamba2-1.3B (64 heads, N 128) on (1, 2)
 R26_HYBRID = {"arch": "zamba2-2.7b", "mesh": (1, 2), "batch": 4, "prompt": 1024,
-              "budget": 1280, "steps": 4, "rules": "RULES_SERVE"}
+              "budget": 1280, "steps": 2, "rules": "RULES_SERVE"}
+# Mamba2-1.3B's bf16 logits are reported, not gated ("logits": "reported"):
+# random weights carry a rounding-level change through its 48 Mamba layers
+# chaotically (SERVE_LOGIT_MARGIN's finding), so the mesh's other roundings
+# move its last logits by about what the control (world 1 with its ``wo``
+# products rounded as the mesh rounds them) moves world 1's own, more than
+# R26_TOL. The same cell in f32, where no bf16 rounding feeds the chaos, is
+# gated by R26_TOL. In every ssm and hybrid cell the first Mamba layer's
+# output of the prefill and of each decode step, on the same inputs and
+# before any chaos, is held to the control's: the prefill's by kernel 6's
+# bf16 rule, a decode step's as R26_DECODE_PRECISION says (against world
+# 1's own it is reported: the two partial products' roundings alone come
+# near 2^-7 of max|y|).
+# Both Mamba2-1.3B cells are cut to 12 of the 48 layers at full width: the
+# script passed 1,100 s with them whole (1,154.5 s on one H100 80GB HBM3 at
+# 700 W whose host ran slow).
 R26_SSM = {"arch": "mamba2-1.3b", "mesh": (1, 2), "batch": 4, "prompt": 512, "budget": 640,
-           "steps": 4, "rules": "RULES_SERVE"}
+           "steps": 4, "rules": "RULES_SERVE", "logits": "reported", "n_layers": 12}
+R26_SSM_F32 = {**R26_SSM, "dtype": "float32", "logits": "gated"}
 R26_TOL = LM_TOL["bfloat16"]  # phase 8's bf16 rule: 1e-1 x max|logit|
-# The ssm and hybrid cells' logits: random weights carry a rounding-level
-# change through their Mamba layers chaotically (SERVE_LOGIT_MARGIN's
-# finding), so a mesh's other roundings move the last logits by more than
-# the attention families' 1e-1 allows. Their limit is also measured in the
-# same run: the movement of world 1's logits when its Mamba layers' ``wo``
-# products are rounded as the mesh rounds them (the control), times
-# R26_SSM_MARGIN, never below R26_TOL. The first Mamba layer's output, on
-# the same inputs and before any chaos, is held to the control's by kernel
-# 6's bf16 rule (against world 1's own it is reported: the two partial
-# products' roundings alone come near 2^-7 of max|y|).
-R26_SSM_MARGIN = SERVE_LOGIT_MARGIN
+# A bf16 decode step's first Mamba layer against the control's: unlike the
+# prefill's products over thousands of rows, a step's 4-row products take
+# cuBLAS kernels whose f32 sum order follows the operands' widths, so the
+# mesh's bf16 roundings (a rank's partial product of ``wo`` among them,
+# which can exceed the sum it enters) land an ulp from the control's.
+# Measured 1.30 x 2^-7 of max|y| (26c) on one H100 80GB HBM3 at 700 W, 0 on
+# the CPU. Held to the bf16-operand rule, TOL["bf16_fp32acc"] = 2e-2; a
+# gated norm over the rank's block alone lands 1.7-10x over it (a CPU
+# rehearsal with that fault). f32 cells keep 2^-7.
+R26_DECODE_PRECISION = {"bfloat16": "bf16_fp32acc", "float32": "bf16"}
 
 
 def _r26_cfg(spec: dict):
-    """The spec's config as registered, at the spec's capacity factor and
-    dtype if it names them."""
+    """The spec's config as registered, at the spec's capacity factor, dtype
+    and depth if it names them."""
     from repro_torch.configs import get_config
 
     cfg = get_config(spec["arch"])
-    extra = {k: spec[k] for k in ("capacity_factor", "dtype") if spec.get(k)}
+    extra = {k: spec[k] for k in ("capacity_factor", "dtype", "n_layers") if spec.get(k)}
     return dataclasses.replace(cfg, **extra)
 
 
@@ -7111,7 +7142,8 @@ def _r26_world_one(dev, spec: dict) -> dict:
         # the control: world 1 again with its Mamba layers' wo products
         # rounded as the mesh rounds them, fed the same tokens
         control0 = {}
-        with _mesh_rounding_at_world_one(spec["mesh"][1]), _first_mixer_output(control0):
+        with (_mesh_rounding_at_world_one(spec["mesh"][1]),
+              _first_mixer_output(control0, cfg.n_layers)):
             logits, cache = eng.prefill(params, {"tokens": tokens})
             cache = eng._pad_cache(cache, p)
             control = [logits.float().cpu()]
@@ -7120,6 +7152,7 @@ def _r26_world_one(dev, spec: dict) -> dict:
                                                            "pos": p + i})
                 control.append(logits.float().cpu())
         res["control"], res["control_mixer0"] = control, control0["y"]
+        res["control_mixer0_steps"] = [y.cpu() for y in control0["steps"]]
     del eng, params, cache, logits
     release_memory()
     return res
@@ -7148,13 +7181,17 @@ def _flash_gate(records: list, keep: dict):
 
 
 @contextlib.contextmanager
-def _first_mixer_output(keep: dict):
-    """The first Mamba layer's mixer output of a prefill inside, kept in
-    ``keep["y"]`` (f32, on the host): world 1's whole, a rank's block of
-    the residual's positions. Nothing for the attention families."""
+def _first_mixer_output(keep: dict, per_step: int = 1):
+    """The first Mamba layer's mixer output inside, f32: of a prefill in
+    ``keep["y"]`` (on the host; world 1's whole, a rank's block of the
+    residual's positions), and of each decode step in ``keep["steps"]`` (on
+    the device, uncopied until read: a step's every ``per_step``-th call,
+    its Mamba layers' count; the whole (b, 1, d) on every rank). Nothing for
+    the attention families."""
     from repro_torch.models import transformer as tfm
 
-    real = tfm.ssd_mixer
+    real, real_step = tfm.ssd_mixer, tfm.ssd_decode_step
+    keep["steps"], calls = [], [0]
 
     def record(*args, **kw):
         out = real(*args, **kw)
@@ -7162,23 +7199,30 @@ def _first_mixer_output(keep: dict):
             keep["y"] = out[0].float().cpu()
         return out
 
-    tfm.ssd_mixer = record
+    def record_step(*args, **kw):
+        out = real_step(*args, **kw)
+        if calls[0] % per_step == 0:
+            keep["steps"].append(out[0].to(torch.float32, copy=True))
+        calls[0] += 1
+        return out
+
+    tfm.ssd_mixer, tfm.ssd_decode_step = record, record_step
     try:
         yield keep
     finally:
-        tfm.ssd_mixer = real
+        tfm.ssd_mixer, tfm.ssd_decode_step = real, real_step
 
 
 @contextlib.contextmanager
 def _mesh_rounding_at_world_one(n: int):
-    """World 1's Mamba layers with ``wo``'s product taken as a mesh of ``n``
-    model ranks takes it: the products of ``n`` row blocks, each rounded
-    to the model's dtype, summed in block order (the reduce-scatter's sum,
-    or a decode step's all-reduce). The rest of world 1's path is as it
-    is: the movement of the logits this causes is the scale of a
-    rounding-level change carried through the random weights' layers."""
+    """World 1's Mamba layers with ``wo``'s product (``mamba2._out_product``)
+    taken as a mesh of ``n`` model ranks takes it: the products of ``n`` row
+    blocks, each rounded to the model's dtype, summed in block order (the
+    reduce-scatter's sum, or a decode step's all-reduce). The rest of world
+    1's path is as it is: the movement of the logits this causes is the
+    scale of a rounding-level change carried through the random weights'
+    layers."""
     from repro_torch.models import mamba2
-    from repro_torch.models import transformer as tfm
 
     def blocked(g, w):
         rows = w.shape[0] // n
@@ -7187,21 +7231,12 @@ def _mesh_rounding_at_world_one(n: int):
             out = out + g[..., i * rows:(i + 1) * rows] @ w[i * rows:(i + 1) * rows]
         return out
 
-    def mixer(cfg, p, x, return_state=False, *, layout=None):
-        y, z, streams, h_last = mamba2._ssd_heads(cfg, p, x, (0, cfg.ssm_nheads))
-        out = blocked(mamba2._gated_norm(cfg, p, y, z), p["wo"])
-        return out, mamba2._final_state(cfg, streams, h_last, x.shape[1]) if return_state else None
-
-    def step(cfg, p, x, state, *, layout=None):
-        y, z, new = mamba2._decode_heads(cfg, p, x, state, (0, cfg.ssm_nheads))
-        return blocked(mamba2._gated_norm(cfg, p, y, z), p["wo"])[:, None, :], new
-
-    real = tfm.ssd_mixer, tfm.ssd_decode_step
-    tfm.ssd_mixer, tfm.ssd_decode_step = mixer, step
+    real = mamba2._out_product
+    mamba2._out_product = blocked
     try:
         yield
     finally:
-        tfm.ssd_mixer, tfm.ssd_decode_step = real
+        mamba2._out_product = real
 
 
 def _ssd_gate(records: list, keep: dict):
@@ -7225,12 +7260,28 @@ def _ssd_gate(records: list, keep: dict):
 
 
 def _serve26_job(rank, world, dev, tmp, cfg_in) -> dict:
-    """One rank of phase 26: the mesh, this rank's blocks of the seeded
-    weights, a prefill with every kernel-6 and kernel-7 call gated, a timed
-    prefill,
-    teacher-forced decode steps fed world 1's tokens, and (``"new"``) an
-    ``Engine.generate``; for the MoE, a prefill at the registered capacity
-    with each layer's dropped share."""
+    """One rank of phase 26: every cell of ``cfg_in["cells"]`` (one mesh
+    shape) in turn, in one spawn of the ranks; each cell's results by its
+    label, with its seconds and peak on this rank."""
+    out = {}
+    for label, spec in cfg_in["cells"]:
+        t0 = time.perf_counter()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        out[label] = _serve26_cell(rank, dev, tmp, label, spec)
+        out[label]["seconds"] = time.perf_counter() - t0
+        if dev.type == "cuda":
+            out[label]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        release_memory()
+    return {"cells": out}
+
+
+def _serve26_cell(rank, dev, tmp, label: str, spec: dict) -> dict:
+    """One cell of phase 26 on this rank: the mesh, this rank's blocks of
+    the seeded weights, a prefill with every kernel-6 and kernel-7 call
+    gated, a timed prefill, teacher-forced decode steps fed world 1's
+    tokens, and (``"new"``) an ``Engine.generate``; for the MoE, a prefill
+    at the registered capacity with each layer's dropped share."""
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import moe as moe_lib
@@ -7238,7 +7289,6 @@ def _serve26_job(rank, world, dev, tmp, cfg_in) -> dict:
     from repro_torch.models.model import init_params, param_pspecs
     from repro_torch.serve.engine import Engine, ServeConfig
 
-    spec = cfg_in["spec"]
     cfg = _r26_cfg(spec)
     rules = getattr(sharding, spec["rules"])
     mesh = make_mesh(spec["mesh"], ("data", "model"), device=dev)
@@ -7252,7 +7302,7 @@ def _serve26_job(rank, world, dev, tmp, cfg_in) -> dict:
     scfg = ServeConfig(max_seq_len=spec["budget"], batch_size=spec["batch"])
     eng = Engine(cfg, params, scfg, dev, mesh=mesh, rules=rules)
     tokens = _r26_inputs(cfg, spec, dev)
-    fed = torch.load(os.path.join(tmp, "26-fed.pt")).to(dev)
+    fed = torch.load(os.path.join(tmp, f"26{label}-fed.pt")).to(dev)
     p = spec["prompt"]
     # the main path: every count starts at 0 here and is read right after
     records, keep, records7, keep7 = [], {}, [], {}
@@ -7277,19 +7327,22 @@ def _serve26_job(rank, world, dev, tmp, cfg_in) -> dict:
     reset_launches()
     steps = [logits.float().cpu()]
     mesh.reset_counters()
+    mixer0_steps = {}
     t0 = time.perf_counter()
-    for i in range(spec["steps"]):
-        logits, cache = eng.decode(params, cache, {"token": fed[:, i:i + 1], "pos": p + i})
-        steps.append(logits.float().cpu())
+    with _first_mixer_output(mixer0_steps, cfg.n_layers):
+        for i in range(spec["steps"]):
+            logits, cache = eng.decode(params, cache, {"token": fed[:, i:i + 1], "pos": p + i})
+            steps.append(logits.float().cpu())
     torch.cuda.synchronize()
     out["decode_ms"] = 1e3 * (time.perf_counter() - t0) / spec["steps"]
+    out["mixer0_steps"] = [y.cpu() for y in mixer0_steps["steps"]]
     out["decode_counters"] = {k: v / spec["steps"] for k, v in mesh.counters.items()}
     out["decode_launches"] = read_launches()
     del cache
     if rank == 1 and keep:
-        torch.save(keep, os.path.join(tmp, "26-flash-inputs.pt"))
+        torch.save(keep, os.path.join(tmp, f"26{label}-flash-inputs.pt"))
     if rank == 1 and keep7:
-        torch.save(keep7, os.path.join(tmp, "26-ssd-inputs.pt"))
+        torch.save(keep7, os.path.join(tmp, f"26{label}-ssd-inputs.pt"))
     # a warm prefill, timed on the host's clock (the staged collectives block it)
     mesh.barrier()
     mesh.reset_counters()
@@ -7322,7 +7375,7 @@ def _serve26_job(rank, world, dev, tmp, cfg_in) -> dict:
             moe_lib.route = real_route
         out["dropped_share_registered"] = drops
     if rank == 0:
-        torch.save(steps, os.path.join(tmp, "26-logits-r0.pt"))
+        torch.save(steps, os.path.join(tmp, f"26{label}-logits-r0.pt"))
     return out
 
 
@@ -7337,31 +7390,25 @@ def flash_row_cp(inputs: dict, dev) -> dict:
     return flash_row("cp block, S < T", q, k, v, inputs["kw"])
 
 
-def _phase26_cell(dev, card: str, label: str, spec: dict, tmp: str) -> dict:
-    """26a-26d: world 1 in this process, then the mesh's ranks; gates and
-    numbers (see the module's docstring)."""
+def _phase26_cell(dev, card: str, label: str, spec: dict, tmp: str, one: dict,
+                  ranks: list) -> dict:
+    """26a-26d-f32's gates and numbers from world 1's run ``one`` and the
+    ranks' results ``ranks`` (see the module's docstring)."""
     world = math.prod(spec["mesh"])
-    t0 = time.perf_counter()
-    one = _r26_world_one(dev, spec)
-    t_one = time.perf_counter() - t0
-    torch.save(one["fed"], os.path.join(tmp, "26-fed.pt"))
-    t0 = time.perf_counter()
-    ranks = run_ranks("serve26", world, "gloo", tmp, {"device": str(dev), "spec": spec})
-    t_ranks = time.perf_counter() - t0
     cfg = _r26_cfg(spec)
     ssm_family = cfg.family in ("ssm", "hybrid")
-    got = torch.load(os.path.join(tmp, "26-logits-r0.pt"))
-    gaps, limits, control = [], [], []
+    got = torch.load(os.path.join(tmp, f"26{label}-logits-r0.pt"))
+    gated = spec.get("logits") != "reported"  # see R26_SSM
+    gaps, control = [], []
     for i, (a, b) in enumerate(zip(got, one["logits"])):
         scale = float(b.abs().max())
         gaps.append(float((a - b).abs().max()) / scale)
-        if ssm_family:  # the limit from the same run's control (see R26_SSM_MARGIN)
+        if ssm_family:  # world 1's own movement under the control (see R26_SSM)
             control.append(float((one["control"][i] - b).abs().max()) / scale)
-        limits.append(max(R26_TOL, R26_SSM_MARGIN * control[-1]) if ssm_family else R26_TOL)
-        check(bool(torch.isfinite(a).all()) and gaps[-1] <= limits[-1],
+        check(bool(torch.isfinite(a).all()) and (gaps[-1] <= R26_TOL or not gated),
               f"26{label} step {i}: logits {gaps[-1]:.3e} of max|logit| from world 1's, "
-              f"limit {limits[-1]:.3e}")
-    layer0, layer0_world1 = [], []
+              f"limit {R26_TOL:.3e}")
+    layer0, layer0_world1, layer0_steps = [], [], []
     for r, res in enumerate(ranks) if ssm_family else ():
         # the first Mamba layer on the same inputs, before any chaos: against
         # the control's (the mesh's rounding of wo at world 1) by the bf16 rule
@@ -7374,6 +7421,17 @@ def _phase26_cell(dev, card: str, label: str, spec: dict, tmp: str) -> dict:
         err1, lim1, _, _, _ = against_plain(res["mixer0"], one["mixer0"][:, p0:p1], "bf16",
                                             cfg.d_inner)
         layer0_world1.append(err1 / lim1)
+        # and in every decode step: the cut state, the conv on the rank's
+        # channels, h on its heads, wo's all-reduced row blocks
+        check(len(res["mixer0_steps"]) == spec["steps"] == len(one["control_mixer0_steps"]),
+              f"26{label} rank {r}: {len(res['mixer0_steps'])} decode steps' first Mamba "
+              f"layer kept")
+        for i, (y, want) in enumerate(zip(res["mixer0_steps"], one["control_mixer0_steps"])):
+            err, lim, _, _, ok = against_plain(y, want, R26_DECODE_PRECISION[cfg.dtype],
+                                               cfg.d_inner)
+            layer0_steps.append(err / lim)
+            check(ok, f"26{label} rank {r} decode step {i}: the first Mamba layer's output "
+                      f"{err:.3e} from the control's, limit {lim:.3e}")
     check(all(r["digest"] == ranks[0]["digest"] for r in ranks),
           f"26{label}: the ranks' logits differ")
     check(all(r["warm_same_bits"] for r in ranks), f"26{label}: a warm prefill gave other bits")
@@ -7403,12 +7461,12 @@ def _phase26_cell(dev, card: str, label: str, spec: dict, tmp: str) -> dict:
               f"26{label} rank {r}: kernel 7 against its plain version at {ssd_shape}: {gate7}")
     shapes = [sorted({(g["s"], g["t"]) for g in r["gate"]}) for r in ranks]
     row, row7 = {}, {}
-    flash_in = os.path.join(tmp, "26-flash-inputs.pt")
+    flash_in = os.path.join(tmp, f"26{label}-flash-inputs.pt")
     if os.path.exists(flash_in):
         row = flash_row_cp(torch.load(flash_in), dev)
         os.remove(flash_in)
         log(f"  26{label} kernel 6 at S < T: {json.dumps(row)}")
-    ssd_in = os.path.join(tmp, "26-ssd-inputs.pt")
+    ssd_in = os.path.join(tmp, f"26{label}-ssd-inputs.pt")
     if os.path.exists(ssd_in):
         k7 = torch.load(ssd_in)
         os.remove(ssd_in)
@@ -7416,16 +7474,18 @@ def _phase26_cell(dev, card: str, label: str, spec: dict, tmp: str) -> dict:
                        *(k7[name].to(dev) for name in ("x", "a", "b", "c")))
         log(f"  26{label} kernel 7 on a rank's heads: {json.dumps(row7)}")
     res = {
-        "config": cfg.name, "mesh": list(spec["mesh"]), "rules": spec["rules"],
+        "config": cfg.name, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+        "mesh": list(spec["mesh"]), "rules": spec["rules"],
         "attn_partitioning": cfg.attn_partitioning, "batch": spec["batch"],
         "prompt": spec["prompt"], "budget": spec["budget"], "decode_steps": spec["steps"],
-        "seconds": {"world1": t_one, "ranks": t_ranks},
+        "seconds": {"world1": one["seconds"], "ranks": [r["seconds"] for r in ranks]},
         "prefill_ms": {"1": one["prefill_ms"], str(world): [r["prefill_ms"] for r in ranks]},
         "decode_ms_per_step": {"1": one["decode_ms"],
                                str(world): [r["decode_ms"] for r in ranks]},
-        "logit_gap_of_max": gaps, "logit_limit_of_max": limits,
+        "logit_gap_of_max": gaps, "logit_limit_of_max": R26_TOL if gated else None,
         "control_gap_of_max": control or None, "layer0_over_limit_by_rank": layer0 or None,
         "layer0_against_world1_over_limit_by_rank": layer0_world1 or None,
+        "layer0_decode_over_limit_worst": max(layer0_steps, default=None),
         "greedy_agree": agree,
         "prefill_collectives_by_rank": [r["prefill_counters"] for r in ranks],
         "decode_collectives_per_step_by_rank": [r["decode_counters"] for r in ranks],
@@ -7453,8 +7513,10 @@ def _phase26_cell(dev, card: str, label: str, spec: dict, tmp: str) -> dict:
         res["dropped_share_at_registered_capacity"] = {
             "capacity_factor": _r26_cfg(dict(spec, capacity_factor=None)).capacity_factor,
             "by_rank": [r["dropped_share_registered"] for r in ranks]}
-    log(f"  26{label}: {cfg.name} on {spec['mesh']}: logits within {max(gaps):.3e} of world 1's "
-        f"(limit {min(limits):.3g}); greedy agree {agree}; prefill {one['prefill_ms']:.1f} ms "
+    limit = f"limit {R26_TOL:.3g}" if gated else "reported"
+    log(f"  26{label}: {cfg.name} ({cfg.n_layers} layers, {cfg.dtype}) on {spec['mesh']}: "
+        f"logits within {max(gaps):.3e} of world 1's ({limit}); "
+        f"greedy agree {agree}; prefill {one['prefill_ms']:.1f} ms "
         f"at world 1, {[round(r['prefill_ms'], 1) for r in ranks]} at world {world}; decode "
         f"{one['decode_ms']:.2f} / {[round(r['decode_ms'], 2) for r in ranks]} ms a step")
     return res
@@ -7470,17 +7532,33 @@ def _r26_row(name: str, source: str, replaces: str, launches: int, row: dict) ->
 
 
 def phase26_serve_ranks(dev, card: str) -> dict:
-    """26a-26d (see the module's docstring). Returns the kernels line's
+    """26a-26d-f32 (see the module's docstring). Returns the kernels line's
     rows: kernel 6 at a cp block's shapes (S < T) of 26a and of 26c (D 80,
     no GQA), kernel 7 on a rank's heads of 26c."""
-    out = {"phase": "26 serving across ranks", "card": card}
+    out = {"phase": "26 serving across ranks", "card": card, "spawn_s": {}}
+    cells = (("a", R26_DENSE), ("b", R26_MOE), ("c", R26_HYBRID), ("d", R26_SSM),
+             ("d-f32", R26_SSM_F32))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve26_") as tmp:
-        for label, spec in (("a", R26_DENSE), ("b", R26_MOE), ("c", R26_HYBRID),
-                            ("d", R26_SSM)):
+        ones, by_rank = {}, {}
+        for label, spec in cells:  # world 1 of every cell first: its tokens feed the ranks
             t0 = time.perf_counter()
-            out[f"26{label}"] = _phase26_cell(dev, card, label, spec, tmp)
-            out[f"26{label}"]["phase_s"] = time.perf_counter() - t0
-            log(f"  26{label}: {out[f'26{label}']['phase_s']:.1f} s")
+            ones[label] = _r26_world_one(dev, spec)
+            ones[label]["seconds"] = time.perf_counter() - t0
+            torch.save(ones[label]["fed"], os.path.join(tmp, f"26{label}-fed.pt"))
+        # one spawn of the ranks a mesh shape runs all its cells in turn
+        for shape in dict.fromkeys(spec["mesh"] for _, spec in cells):
+            group = [(label, spec) for label, spec in cells if spec["mesh"] == shape]
+            t0 = time.perf_counter()
+            ranks = run_ranks("serve26", math.prod(shape), "gloo", tmp,
+                              {"device": str(dev), "cells": group})
+            out["spawn_s"][str(shape)] = time.perf_counter() - t0
+            for label, _ in group:
+                by_rank[label] = [r["cells"][label] for r in ranks]
+        for label, spec in cells:
+            res = _phase26_cell(dev, card, label, spec, tmp, ones[label], by_rank[label])
+            res["phase_s"] = ones[label]["seconds"] + max(r["seconds"] for r in by_rank[label])
+            out[f"26{label}"] = res
+            log(f"  26{label}: {res['phase_s']:.1f} s (world 1 and the ranks' own time)")
     print(json.dumps(out), flush=True)
     rows = {}
     for key, cell, which, name, source, replaces, count in (

@@ -251,6 +251,12 @@ def _gated_norm(cfg: ModelConfig, p: dict, y: torch.Tensor, z: torch.Tensor,
     return rmsnorm_cut(y * F.silu(z), p["norm_w"], cfg.norm_eps, cfg.d_inner, lay.model_sum)
 
 
+def _out_product(g: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """The block's out projection, ``g @ wo``: the whole product, or on a
+    mesh this rank's row block's partial one."""
+    return g @ wo
+
+
 def ssd_mixer(
     cfg: ModelConfig,
     p: dict,
@@ -267,7 +273,7 @@ def ssd_mixer(
         return _mixer_on_mesh(cfg, layout, p, x, return_state)
     y, z, streams, h_last = _ssd_heads(cfg, p, x, (0, cfg.ssm_nheads))
     # gated RMSNorm then out projection (Mamba-2 block tail).
-    out = _gated_norm(cfg, p, y, z) @ p["wo"]
+    out = _out_product(_gated_norm(cfg, p, y, z), p["wo"])
     return out, _final_state(cfg, streams, h_last, x.shape[1]) if return_state else None
 
 
@@ -281,7 +287,7 @@ def _mixer_on_mesh(cfg: ModelConfig, lay: ServeLayout, p: dict, x: torch.Tensor,
     s = x.shape[1]
     if lay.cut(cfg.ssm_nheads):
         y, z, streams, h_last = _ssd_heads(cfg, p, x, lay.block(cfg.ssm_nheads), lay.whole_cols)
-        out = lay.reduce_partial(_gated_norm(cfg, p, y, z, lay) @ p["wo"])
+        out = lay.reduce_partial(_out_product(_gated_norm(cfg, p, y, z, lay), p["wo"]))
         return out, _final_state(cfg, streams, h_last, s) if return_state else None
     # the heads do not divide: every head on every rank, from whole leaves
     whole = _whole_layer(cfg, lay, p)
@@ -347,11 +353,12 @@ def ssd_decode_step(
     nh = cfg.ssm_nheads
     if not _on_mesh(layout):
         y, z, new = _decode_heads(cfg, p, x, state, (0, nh))
-        return (_gated_norm(cfg, p, y, z) @ p["wo"])[:, None, :], new
+        return _out_product(_gated_norm(cfg, p, y, z), p["wo"])[:, None, :], new
     lay = layout
     if lay.cut(nh):
         y, z, new = _decode_heads(cfg, p, x, state, lay.block(nh), lay.whole_cols)
-        return lay.reduce_partial((_gated_norm(cfg, p, y, z, lay) @ p["wo"])[:, None, :]), new
+        out = _out_product(_gated_norm(cfg, p, y, z, lay), p["wo"])
+        return lay.reduce_partial(out[:, None, :]), new
     whole = _whole_layer(cfg, lay, p)
     y, z, new = _decode_heads(cfg, whole, x, _state_cols(cfg, lay, state, whole=True), (0, nh))
     out = lay.row_product(_gated_norm(cfg, whole, y, z)[:, None, :], p["wo"], cfg.d_inner)

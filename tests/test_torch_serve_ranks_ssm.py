@@ -13,7 +13,9 @@ zamba2-2.7b (``"cp"`` and ``"hp"``). Extra cases: mamba2-1.3b with
 ``ssm_chunk=8`` (three SSD chunks) on (1, 4), mamba2-1.3b at ``d_model=96``
 on (1, 4) (``d_inner`` 192 divides over 4 ranks, its 6 heads do not: every
 leaf that arrived cut is gathered and every rank runs every head), and a
-batch and prompt that divide over no axis (``ODD_B``, ``ODD_P``).
+batch and prompt that divide over no axis (``ODD_B``, ``ODD_P``), whose
+prefill logits are held to the reference's one-device prefill of the same
+prompts and whose greedy tokens to the port's world of one.
 
 What each case is held to, as a fraction of max|reference|, against the
 reference's one-device run (the function does not depend on the mesh):
@@ -258,8 +260,8 @@ def ref_cfg(name: str):
 
 def reference_run(tmp: Path, name: str) -> dict:
     """The reference's Engine of ``name`` on one device: prefill logits and
-    cache, the cache padded to the budget, four teacher-forced decode steps,
-    generate."""
+    cache, the cache padded to the budget, four teacher-forced decode steps;
+    for the odd cases' models, the prefill logits of ``ODD_B`` x ``ODD_P``."""
     from repro.utils.compat import make_mesh
 
     jcfg = ref_cfg(name)
@@ -279,6 +281,11 @@ def reference_run(tmp: Path, name: str) -> dict:
             "token": jnp.asarray(tokens[:, P + i:P + i + 1]), "pos": jnp.int32(P + i)})
         steps.append(np.asarray(logits, np.float32))
     out["decode"] = np.stack(steps)
+    if name in PARTS:  # the odd cases' models: ODD_B prompts of ODD_P tokens
+        odd = JEngine(jcfg, make_mesh((1, 1), ("data", "model")), params,
+                      JServeConfig(max_seq_len=ODD_BUDGET, batch_size=ODD_B))
+        logits, _ = odd.prefill(params, {"tokens": jnp.asarray(tokens[:ODD_B, :ODD_P])})
+        out["odd-prefill"] = np.asarray(logits, np.float32)
     return out
 
 
@@ -452,6 +459,13 @@ def test_every_kernel6_call_is_one_the_card_takes(runs, case_id):
         p0, p1 = r["layout"]["positions"]
         want = [p1 - p0, p1] if part == "cp" else [P, P]
         assert r["kernel6"] == [want + [True]] * (cfg.n_layers // cfg.hybrid_period)
+
+
+@pytest.mark.parametrize("case_id", ODD_IDS)
+def test_a_batch_and_prompt_that_divide_over_no_axis_match_the_reference(runs, case_id):
+    name = _case_of(case_id)[3]
+    assert _rel(_port(runs, case_id, "odd-prefill"), runs["ref"][name]["odd-prefill"]) \
+        <= LOGIT_TOL
 
 
 @pytest.mark.parametrize("case_id", ODD_IDS)
