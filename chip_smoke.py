@@ -160,7 +160,7 @@ result line):
     sweep and peak both ways, and ``engine="cuda"`` ignoring the flag (the
     bits of the run without);
 17. the service across 4 gloo ranks sharing the card (rank 0 serving
-    phase 12's tenants A and C, their first 32 and 8 requests, from 4
+    phase 12's tenants A and C, their first 16 and 4 requests, from 4
     threads, the others
     ``serve_follower``): every result within phase 14b's tolerances of a
     world-of-one service, every follower back from ``close()``,
@@ -274,6 +274,30 @@ result line):
     25c a trainer at world 1 resumes from 25a's world-2 checkpoint with its
     bits and takes ``R25_RESUME_STEPS`` more steps within ``R25_TOL`` of
     22d's losses;
+    25d repro-100m whole (12 layers, d 768, ``"cp"``, bf16) on the
+    ``(2, 2)`` mesh, 4 gloo ranks sharing the card under ``RULES_TRAIN``
+    (ZeRO over the data axis and TP / SP / CP over the model axis at once),
+    ``R25D``'s 6 steps of 8 x 128 through the example's trainer, held to
+    22d's world-1 history (the step-0 loss within ``R25DE_LOSS0_TOL``,
+    every loss within ``R25_TOL``), every rank the same losses and grad
+    norms, each step's bytes by kind a rank the count of
+    ``collective_bytes_per_step``, every kernel-6 launch on ``"wgmma"``
+    (24 forward and 12 backward a step a rank: the cp blocks, S < T on the
+    ranks of model coordinate 1), 22d's last checkpoint restored on the
+    mesh (two-dim specs) gathering back to its bits; 25e Zamba2-2.7B
+    whole (54 Mamba-2 layers, 9 shared blocks, bf16, remat "full") on the
+    ``(1, 2)`` mesh, ``R25E``'s 2 steps of 2 x 1,024, held to a world-1
+    run of the same weights and batch in this process (run first and
+    freed before the ranks spawn; the step-0 loss within
+    ``R25DE_LOSS0_TOL``, the grad norms reported), every kernel-6 backward
+    call (rank 1's cp block (2, 32, 512, 80) against 1,024 keys) and every
+    kernel-7 backward call on the rank's 40 heads against its plain
+    version (22a's rules, :func:`gated_backward`), the launches of each
+    kernel exact, the bytes the count; both cells report ms a step by
+    world, seconds in collectives, bytes staged and the peak a rank, and
+    the first gated calls' inputs give the kernels line's
+    ``flash_attention_bwd_cp`` and ``ssd_chunk_bwd_tp`` rows (SDPA's
+    backward with the end-aligned bool mask as the library call);
 26. serving across ranks with a model axis (gloo ranks sharing the card,
     spawned as phase 14's; every collective staged through the host):
     26a Qwen2-7B whole (28 layers, bf16, seeded weights, ``RULES_SERVE``,
@@ -532,11 +556,14 @@ def main() -> int:
         timed("23 gradient compression", phase23_compression, dev, card)
         timed("24 roofline", phase24_roofline, dev, card)
         timed("25 training across ranks", phase25_train_ranks, dev, card, train_tmp)
+        kernels.update(timed("25d/25e training with a model axis", phase25_model_axis, dev,
+                             card, train_tmp))
     kernels.update(timed("26 serving across ranks", phase26_serve_ranks, dev, card))
     print(json.dumps({"kernels": [kernels[k] for k in list(wrappers()) + F64_ROWS
                                   + ["fused_kron_chain_scatter_bf16", "flash_attention_bwd",
                                      "ssd_chunk_bwd", "flash_attention_cp",
-                                     "flash_attention_cp_d80", "ssd_chunk_tp"]]}), flush=True)
+                                     "flash_attention_cp_d80", "ssd_chunk_tp",
+                                     "flash_attention_bwd_cp", "ssd_chunk_bwd_tp"]]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -3560,7 +3587,7 @@ def _phase13(dev, card: str, ref4: dict, tmp: str) -> None:
 
 SHARD_WORLD = 4  # 14b-14d: ranks sharing the one card over gloo
 SHARD_RESUME_WORLD = 2  # 14d: the elastic resume
-SHARD_WARM_RUNS = 3
+SHARD_WARM_RUNS = 2  # 3 until the time limit cut it
 SHARD_TIMEOUT_S = 300  # each group's collective timeout, and each spawn's deadline
 
 
@@ -4939,8 +4966,9 @@ def phase16_kron_reuse(dev, card: str, cfg: Optional[dict] = None) -> None:
 
 SERVICE_SHARD_WORLD = 4
 SERVICE_SHARD_TENANTS = ("A", "C")  # phase 12's tenants A and C
-# their first 32 and 8 requests (cut from 64 and 16: the time limit)
-SERVICE_SHARD_REQUESTS = {"A": 32, "C": 8}
+# their first 16 and 4 requests (cut from 64 and 16, then from 32 and 8: the
+# time limit)
+SERVICE_SHARD_REQUESTS = {"A": 16, "C": 4}
 
 
 def service_shard_requests(dev, cfg: dict) -> list:
@@ -5045,7 +5073,7 @@ SHARD_JOBS["service"] = _shard_job_service
 
 def phase17_sharded_service(dev, card: str, cfg: Optional[dict] = None) -> None:
     """The service across ranks: 4 gloo ranks sharing the card, rank 0
-    serving phase 12's tenants A and C (their first 32 and 8 requests,
+    serving phase 12's tenants A and C (their first 16 and 4 requests,
     ``SERVICE_SHARD_REQUESTS``) from 4 threads
     into 2 executors, the others following; every result within phase
     14b's tolerances of the same request served by a world-of-one service
@@ -6013,8 +6041,8 @@ TRAIN_SMOKE_B, TRAIN_SMOKE_S, TRAIN_SMOKE_LR = 2, 64, 1e-3
 # moves its parameter 2 lr apart: the parameters are held to that.
 TRAIN_SMOKE_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "mu": 1e-3}
 # 22c: Zamba2-2.7B at full width, cut from the reference's train_4k shape
-# (global batch 256 x 4,096 tokens) to 2 x 4,096 tokens, 4 steps
-TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 4
+# (global batch 256 x 4,096 tokens) to 2 x 4,096 tokens, 3 steps
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 3  # 4 steps until the time limit cut one
 TRAIN_GATED_STEP = 1  # the step whose backward kernels run beside their plain versions
 LOSS0_BAND = 0.10  # the step-0 loss within 10% of ln(vocab): random weights
 # 22d: repro-100m through ``python -m repro_torch.train``'s code path
@@ -6289,10 +6317,17 @@ def phase22b_smoke_card_vs_cpu(dev) -> dict:
 def sdpa_bwd_ms(q, k, v, dout, causal: bool) -> float:
     """Milliseconds of SDPA's backward (``torch.autograd.grad`` of
     ``F.scaled_dot_product_attention`` with ``enable_gqa``) on the same
-    operands: the library call beside kernel 6's backward."""
+    operands: the library call beside kernel 6's backward. With more keys
+    than queries the causal rule is the end-aligned bool mask (SDPA's
+    ``is_causal`` aligns the diagonal to the top left)."""
     qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    out = torch.nn.functional.scaled_dot_product_attention(qq, kk, vv, is_causal=causal,
-                                                           enable_gqa=True)
+    s_, t_ = q.shape[2], k.shape[2]
+    if causal and t_ > s_:
+        mask = torch.ones(s_, t_, dtype=torch.bool, device=q.device).tril(t_ - s_)
+        kw = {"attn_mask": mask}
+    else:
+        kw = {"is_causal": causal}
+    out = torch.nn.functional.scaled_dot_product_attention(qq, kk, vv, enable_gqa=True, **kw)
     return time_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), dout, retain_graph=True))
 
 
@@ -6494,7 +6529,7 @@ def phase22c_zamba2(dev, card: str) -> dict:
     summary = {
         "phase": "22c Zamba2-2.7B training", "card": card, "config": cfg.name, "params": n_params,
         "batch": TRAIN_B, "seq": TRAIN_S, "steps": TRAIN_STEPS, "remat": cfg.remat,
-        "cut_from": "train_4k (global batch 256 x 4,096 tokens): batch 2, 4 steps",
+        "cut_from": "train_4k (global batch 256 x 4,096 tokens): batch 2, 3 steps",
         "init_s": t_init, "run_s": t_run, "losses": losses,
         "grad_norms": [h["grad_norm"] for h in hist], "step_s": [h["step_time_s"] for h in hist],
         "ms_per_step": step_s * 1e3, "tokens_per_s": TRAIN_B * TRAIN_S / step_s,
@@ -6833,11 +6868,12 @@ def phase24_roofline(dev, card: str) -> None:
 # -- phase 25: training across ranks ------------------------------------------------
 
 R25_WORLD = 2  # gloo ranks sharing the card: the (2, 1) host mesh
-# each world-2 step moves ~0.5 GB a rank through gloo (0.85 s a step on one
-# H100's host), so 12 steps; 22d's first 12 + R25_RESUME_STEPS are the baseline
-R25_STEPS = 12
-R25_RERUN = 3  # 25b: the steps run again at world 2, their backward calls gated
-R25_RESUME_STEPS = 5  # 25c: world-1 steps after 25a's world-2 checkpoint
+# each world-2 step moves ~0.5 GB a rank through gloo (1-2 s a step on one
+# H100's host), so 4 steps (12 until 25d took the data axis up again on the
+# (2, 2) mesh); 22d's first 4 + R25_RESUME_STEPS are the baseline
+R25_STEPS = 4
+R25_RERUN = 2  # 25b: the steps run again at world 2, their backward calls gated (3 until 25d)
+R25_RESUME_STEPS = 3  # 25c: world-1 steps after 25a's world-2 checkpoint (5 until 25d)
 # world 2 against 22d's world of one: the batch's two halves run apart and
 # their bf16 gradients are summed in bf16 by the reduce-scatter, so the bits
 # differ from one rank's; the step-0 loss sees only the forward (each rank's
@@ -7041,6 +7077,287 @@ def phase25_train_ranks(dev, card: str, tmp: str) -> None:
                                      for r in reports],
         "bwd_gate": [r["gate"] for r in ranks],
         "losses_world2": [h["loss"] for h in hist]}), flush=True)
+
+
+# -- phase 25d, 25e: LM training with a model axis -----------------------------------
+
+# 25d: repro-100m whole ("cp", bf16) on the (2, 2) mesh, 4 gloo ranks sharing
+# the card, RULES_TRAIN: ZeRO over the data axis and TP / SP / CP over the
+# model axis together, 22d's 8 x 128 tokens and optimizer, held to 22d's
+# world-1 history. 25e: Zamba2-2.7B whole (54 Mamba-2 layers, 9 shared
+# blocks, bf16, remat "full") on the (1, 2) mesh, each rank its 40 of the 80
+# SSM heads, 2 x 1,024 tokens, 2 steps, held to a world-1 run of the same
+# weights and batch in this process; every backward call of kernels 6 and 7
+# gated against its plain version.
+R25D = {"arch": "repro-100m", "mesh": (2, 2), "batch": 8, "seq": 128, "steps": 6}
+R25E = {"arch": "zamba2-2.7b", "mesh": (1, 2), "batch": 2, "seq": 1024, "steps": 2}
+# the step-0 loss sees only the forward: the mesh's bf16 partial products
+# summed in another order than one rank's products
+R25DE_LOSS0_TOL = 1e-3
+
+
+def _model_axis_report(t, hist, mesh, batch: int, seq: int) -> dict:
+    """What a 25d / 25e rank reports of its run: the history, the count of
+    the step's collective bytes from the specs, kernel 6's launches by
+    route, the mesh's coordinates and route."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train.step import collective_bytes_per_step
+
+    return {"history": [{k: h[k] for k in ("loss", "grad_norm", "step_time_s", "collective_s",
+                                           "all_gather_bytes", "reduce_scatter_bytes",
+                                           "all_reduce_bytes", "all_to_all_bytes",
+                                           "host_staged_bytes")} for h in hist],
+            "model": collective_bytes_per_step(t.cfg, mesh, t.rules, batch, seq),
+            "launches": read_all_launches(),
+            "fwd_routes": dict(fa.flash_attention.launches_by_route),
+            "bwd_routes": dict(fa.flash_attention_bwd.launches_by_route),
+            "coords": dict(mesh.coords), "route": mesh.route}
+
+
+def _train25d_job(rank, world, dev, tmp, cfg) -> dict:
+    """25d, one rank: repro-100m on the (2, 2) mesh through the example's
+    trainer, no checkpoint (the main path, counts reset right before it);
+    then 22d's last checkpoint restored on the mesh (two-dim specs) and
+    gathered whole."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import __main__ as train_main
+    from repro_torch.train.step import train_state_specs
+
+    mesh = make_mesh(R25D["mesh"], ("data", "model"), device=dev)
+    args = train_main.parse_args(r25_args(tmp, "25d", R25D["steps"], dev))
+    args.ckpt_dir = ""
+    t = train_main.make_trainer(args, mesh=mesh)
+    _shard_sync(dev)
+    reset_all_launches()
+    hist = t.run()
+    _shard_sync(dev)
+    out = _model_axis_report(t, hist, mesh, args.batch, args.seq)
+    del t
+    like, shardings = train_state_specs(get_config("repro-100m"), mesh)
+    mgr = CheckpointManager(cfg["ckpt_dir"])
+    (p, o), step, _ = mgr.restore(like, cfg["last_step"], device=dev, shardings=shardings)
+    named = _flat_state(*shardings)[:-1]
+    whole = [mesh.gather_full(x, sh.spec).cpu() for x, sh in
+             zip(_flat_state(p, o)[:-1], named)] + [o.count.cpu()]
+    out["restored_step"] = step
+    out["restored_blocks"] = [int(p["lm_head"]["w"].shape[0]), int(p["lm_head"]["w"].shape[1])]
+    if rank == 0:
+        (wp, wo), _, _ = mgr.restore(like, cfg["last_step"], device="cpu")
+        want = _flat_state(wp, wo)
+        out["restored_bits_equal"] = len(want) == len(whole) and all(
+            a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(whole, want))
+    return out
+
+
+def _r25e_trainer(dev, mesh=None):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_config(R25E["arch"])
+    shape = ShapeConfig("25e", R25E["seq"], R25E["batch"], "train")
+    tcfg = TrainerConfig(total_steps=R25E["steps"], log_every=1000,
+                         opt=adamw.AdamWConfig(warmup_steps=2, total_steps=R25E["steps"]))
+    return Trainer(cfg, shape, tcfg, device=dev, mesh=mesh)
+
+
+def _train25e_job(rank, world, dev, tmp, cfg) -> dict:
+    """25e, one rank: Zamba2-2.7B on the (1, 2) mesh, every backward call of
+    kernels 6 and 7 gated (:func:`gated_backward`); the first calls' inputs
+    kept for the kernels line."""
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh(R25E["mesh"], ("data", "model"), device=dev)
+    t0 = time.perf_counter()
+    t = _r25e_trainer(dev, mesh)
+    _shard_sync(dev)
+    init_s = time.perf_counter() - t0
+    reset_all_launches()
+    hist, gate, kept = gated_backward(t.run)
+    _shard_sync(dev)
+    out = _model_axis_report(t, hist, mesh, R25E["batch"], R25E["seq"])
+    out.update(gate=gate, init_s=init_s, kept={
+        name: [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+        for name, args in kept.items()})
+    return out
+
+
+SHARD_JOBS["train25d"] = _train25d_job
+SHARD_JOBS["train25e"] = _train25e_job
+
+
+def _check_model_axis_ranks(label: str, ranks: list, launches: dict, routes: dict) -> dict:
+    """The checks every 25d / 25e rank passes: the same losses and grad
+    norms on all, each step's bytes the count, the launches and kernel 6's
+    routes; returns the cell's numbers a rank."""
+    hist = ranks[0]["history"]
+    for r, res in enumerate(ranks):
+        check([(h["loss"], h["grad_norm"]) for h in res["history"]]
+              == [(h["loss"], h["grad_norm"]) for h in hist],
+              f"{label} rank {r}: losses or grad norms differ from rank 0's")
+        check(res["route"] == "gloo-host-staged", f"{label} rank {r}: route {res['route']}")
+        got = {k: v for k, v in res["launches"].items() if v}
+        check(got == launches, f"{label} rank {r}: launches {got}, want {launches}")
+        check(res["fwd_routes"] == routes["fwd"] and res["bwd_routes"] == routes["bwd"],
+              f"{label} rank {r}: kernel 6 routes {res['fwd_routes']}, {res['bwd_routes']}")
+        for h in res["history"]:
+            kinds = {k: int(h[f"{k}_bytes"]) for k in res["model"]}
+            check(kinds == res["model"], f"{label} rank {r}: bytes {kinds}, the specs say "
+                  f"{res['model']}")
+    n = len(hist)
+    return {"ms_per_step": [1e3 * sorted(h["step_time_s"] for h in res["history"])[n // 2]
+                            for res in ranks],
+            "collective_s_per_step": [sorted(h["collective_s"] for h in res["history"])[n // 2]
+                                      for res in ranks],
+            "bytes_per_rank_per_step": ranks[0]["model"],
+            "host_staged_bytes_per_step": int(hist[0]["host_staged_bytes"]),
+            "peak_gb": [res.get("peak_gb", 0.0) for res in ranks],
+            "losses": [h["loss"] for h in hist], "grad_norms": [h["grad_norm"] for h in hist]}
+
+
+def kept_bwd_row(name: str, args, dev, label: str, calls: int = 50) -> dict:
+    """A backward kernel (``name``: ``"flash_attention_bwd"`` or
+    ``"ssd_chunk_bwd"``) on a rank's kept inputs, moved to ``dev``:
+    :func:`flash_bwd_row`'s or :func:`ssd_bwd_row`'s numbers (kernel 6's
+    library call SDPA's backward, with the end-aligned bool mask where
+    S < T) and the device ms a call over ``calls`` profiled calls (None
+    where the profiler saw no device event: a short window can be lost)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan
+
+    args = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
+    kernel, row_fn = ((fa.flash_attention_bwd, flash_bwd_row) if name == "flash_attention_bwd"
+                      else (ssd_scan.ssd_chunk_bwd, ssd_bwd_row))
+    row = row_fn(args, label)
+
+    def run():
+        for _ in range(calls):
+            kernel(*args)
+
+    prof = profile_run(run)
+    row["device_ms"] = prof["kernel_ms"][name] / calls if prof["device_busy_ms"] else None
+    return row
+
+
+def phase25_model_axis(dev, card: str, tmp: str) -> dict:
+    """25d and 25e (see the module's docstring). Returns the kernels line's
+    rows: kernel 6's backward at 25e's cp block (S < T) and kernel 7's on a
+    rank's heads."""
+    from repro_torch.configs import get_config
+
+    base = RECORDED.get("r100")
+    check(base is not None and len(base["history"]) >= R25D["steps"],
+          "25d: phase 22d recorded no world-of-one run to hold the mesh to")
+    release_memory()
+    secs, out = {}, {"phase": "25d/25e training with a model axis", "card": card}
+    # 25d
+    t0 = time.perf_counter()
+    ranks = run_ranks("train25d", math.prod(R25D["mesh"]), "gloo", tmp,
+                      {"device": str(dev), "ckpt_dir": base["ckpt_dir"],
+                       "last_step": base["last_step"]})
+    secs["25d"] = time.perf_counter() - t0
+    cfg = get_config("repro-100m")
+    steps = R25D["steps"]
+    fwd, bwd = R25_FWD_A_STEP * steps, R25_BWD_A_STEP * steps
+    d = _check_model_axis_ranks("25d", ranks, {"flash_attention": fwd,
+                                               "flash_attention_bwd": bwd},
+                                {"fwd": {"wgmma": fwd, "simt": 0},
+                                 "bwd": {"wgmma": bwd, "simt": 0}})
+    want = base["history"]
+    gaps = [abs(l - w["loss"]) / abs(w["loss"]) for l, w in zip(d["losses"], want)]
+    gn_gaps = [abs(g - w["grad_norm"]) / w["grad_norm"] for g, w in zip(d["grad_norms"], want)]
+    log(f"  25d: {cfg.name} on {R25D['mesh']}, {steps} steps: step-0 loss {d['losses'][0]:.6f} "
+        f"/ {want[0]['loss']:.6f} (gap {gaps[0]:.3e}), worst loss gap {max(gaps):.3e}, grad "
+        f"norm gaps {[f'{g:.2e}' for g in gn_gaps]}; {[round(x, 1) for x in d['ms_per_step']]} "
+        f"ms a step against {base['ms_per_step']:.1f} at world 1, "
+        f"{[round(x, 3) for x in d['collective_s_per_step']]} s in collectives; bytes a rank a "
+        f"step {d['bytes_per_rank_per_step']}, {d['host_staged_bytes_per_step']} staged; peak "
+        f"{[round(x, 3) for x in d['peak_gb']]} GB against {base['peak_bytes'] / 1e9:.3f}")
+    check(gaps[0] <= R25DE_LOSS0_TOL, f"25d: step-0 loss gap {gaps[0]:.3e}")
+    check(max(gaps) <= R25_TOL["loss"], f"25d: loss gap {max(gaps):.3e}")
+    check(all(r["restored_step"] == base["last_step"] for r in ranks)
+          and ranks[0]["restored_bits_equal"]
+          and ranks[0]["restored_blocks"] == [cfg.d_model // 2, cfg.padded_vocab // 2],
+          f"25d: 22d's checkpoint restored on {R25D['mesh']} does not gather back to its bits "
+          f"({[r['restored_step'] for r in ranks]}, {ranks[0]['restored_blocks']})")
+    out["25d"] = {**d, "world1_ms_per_step": base["ms_per_step"],
+                  "world1_peak_gb": base["peak_bytes"] / 1e9, "loss_gaps": gaps,
+                  "grad_norm_gaps": gn_gaps, "restored_checkpoint_bits_equal": True}
+    del ranks
+    # 25e: world 1 first, freed before the ranks spawn
+    t0 = time.perf_counter()
+    one = _r25e_trainer(dev)
+    torch.cuda.reset_peak_memory_stats()
+    hist1 = one.run()
+    torch.cuda.synchronize()
+    one_peak = torch.cuda.max_memory_allocated() / 1e9
+    one_ms = 1e3 * min(h["step_time_s"] for h in hist1)
+    del one
+    release_memory()
+    secs["25e world 1"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = run_ranks("train25e", math.prod(R25E["mesh"]), "gloo", tmp, {"device": str(dev)})
+    secs["25e"] = time.perf_counter() - t0
+    cfg = get_config(R25E["arch"])
+    n_sb, steps = cfg.n_layers // cfg.hybrid_period, R25E["steps"]
+    e = _check_model_axis_ranks("25e", ranks, {
+        "flash_attention": 2 * n_sb * steps, "flash_attention_bwd": n_sb * steps,
+        "ssd_chunk": 2 * cfg.n_layers * steps, "ssd_chunk_bwd": cfg.n_layers * steps},
+        {"fwd": {"wgmma": 2 * n_sb * steps, "simt": 0},
+         "bwd": {"wgmma": n_sb * steps, "simt": 0}})
+    for r, res in enumerate(ranks):
+        gate = res["gate"]
+        check(gate["flash_attention_bwd"]["calls"] == n_sb * steps
+              and gate["ssd_chunk_bwd"]["calls"] == cfg.n_layers * steps,
+              f"25e rank {r}: gated calls {gate}")
+    gap0 = abs(e["losses"][0] - hist1[0]["loss"]) / abs(hist1[0]["loss"])
+    gn = [(h["grad_norm"], g) for h, g in zip(hist1, e["grad_norms"])]
+    kept = ranks[1]["kept"]  # rank 1: its query block ends at the keys' end, S < T
+    fq, fk = kept["flash_attention_bwd"][0], kept["flash_attention_bwd"][1]
+    check(fk.shape[2] > fq.shape[2], f"25e: rank 1's first kernel-6 backward call has q "
+          f"{tuple(fq.shape)}, k {tuple(fk.shape)}: not a cp block")
+    log(f"  25e: {cfg.name} on {R25E['mesh']}, {steps} steps of {R25E['batch']} x "
+        f"{R25E['seq']}: step-0 loss {e['losses'][0]:.6f} / {hist1[0]['loss']:.6f} at world 1 "
+        f"(gap {gap0:.3e}); grad norms (world 1, mesh) {gn}; "
+        f"{[round(x, 1) for x in e['ms_per_step']]} ms a step against {one_ms:.1f} at world 1, "
+        f"{[round(x, 3) for x in e['collective_s_per_step']]} s in collectives; bytes a rank a "
+        f"step {e['bytes_per_rank_per_step']}, {e['host_staged_bytes_per_step']} staged; peak "
+        f"{[round(x, 2) for x in e['peak_gb']]} GB against {one_peak:.2f}; gated backward "
+        f"calls a rank {[r['gate'] for r in ranks]}; rank 1's cp block q {tuple(fq.shape)} "
+        f"against {fk.shape[2]} keys")
+    check(gap0 <= R25DE_LOSS0_TOL, f"25e: step-0 loss gap {gap0:.3e}")
+    rows = {"flash_attention_bwd_cp": kept_bwd_row("flash_attention_bwd",
+                                                   kept["flash_attention_bwd"], dev,
+                                                   "cp block, S < T"),
+            "ssd_chunk_bwd_tp": kept_bwd_row("ssd_chunk_bwd", kept["ssd_chunk_bwd"], dev,
+                                             "a rank's heads")}
+    out["25e"] = {**e, "world1_ms_per_step": one_ms, "world1_peak_gb": one_peak,
+                  "world1_losses": [h["loss"] for h in hist1],
+                  "world1_grad_norms": [h["grad_norm"] for h in hist1], "loss0_gap": gap0,
+                  "init_s": [r["init_s"] for r in ranks], "gate": [r["gate"] for r in ranks],
+                  "kernel_rows": rows}
+    out["seconds"] = secs
+    print(json.dumps(out), flush=True)
+    launches = {"flash_attention_bwd": sum(r["launches"]["flash_attention_bwd"] for r in ranks),
+                "ssd_chunk_bwd": sum(r["launches"]["ssd_chunk_bwd"] for r in ranks)}
+    worst = {n: max(r["gate"][n]["max_abs_err"] for r in ranks) for n in launches}
+    result = {}
+    for key, name, kernel, source, replaces in (
+            ("flash_attention_bwd_cp", "flash_attention_bwd (cp block, S < T)",
+             "flash_attention_bwd", "flash_attention_bwd_wgmma.cu", "flash_attention.py:78"),
+            ("ssd_chunk_bwd_tp", "ssd_chunk_bwd (a rank's heads, Zamba2)", "ssd_chunk_bwd",
+             "ssd_chunk_bwd.cu", "ssd_scan.py:48")):
+        row = rows[key]
+        result[key] = {"name": name, "route": "cuda",
+                       "source": f"src/repro_torch/kernels/csrc/{source}",
+                       "replaces": f"src/repro/kernels/{replaces}",
+                       "launches": launches[kernel], "max_abs_err": worst[kernel],
+                       **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                              "library_ms", "device_ms", "shape")}}
+    return result
 
 
 # -- phase 26: LM serving across ranks with a model axis ---------------------------

@@ -182,7 +182,8 @@ class CheckpointManager:
         ``shardings``: a tree of the same structure whose leaves are
         :class:`~repro_torch.models.sharding.NamedSharding` (or None) on the
         *current* mesh: each stored leaf, whole whatever world wrote it, is
-        cut to this rank's block of its spec (the elastic reshard)."""
+        cut to this rank's block of its spec along every dim the spec cuts
+        (a ``("data", "model")`` spec on both; the elastic reshard)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")

@@ -20,6 +20,17 @@ card tensors, every collective copies its input to the host, runs there and
 copies the result back. The route (:attr:`RankMesh.route`) is fixed when the
 mesh is built and never changes; :attr:`RankMesh.counters` counts each
 collective's payload and the bytes staged through the host.
+
+Gradients. Under grad mode a collective of a tensor that requires grad
+goes through its ``torch.autograd.Function`` (:class:`AllGather`,
+:class:`ReduceScatter`, :class:`AllReduce`, :class:`AllToAll`), whose
+backward is its adjoint: all-gather and reduce-scatter are each other's,
+all-reduce is its own, an all-to-all's is the reverse all-to-all. The
+gradient of every rank's input is then that of the sum of every rank's
+output, which is what the sharded train step differentiates (the
+backward's payloads count in ``counters`` like any other). Elsewhere
+(serving, the Tucker paths, the step's own gradient moves) the same
+collective runs directly, with the same bits.
 """
 from __future__ import annotations
 
@@ -36,7 +47,8 @@ import torch.distributed as dist
 from repro_torch.base import resolve_device
 from repro_torch.models.sharding import DEFAULT_RULES, Axes, Spec, axes_tuple
 
-__all__ = ["RankMesh", "make_host_mesh", "make_mesh", "make_production_mesh"]
+__all__ = ["AllGather", "AllReduce", "AllToAll", "RankMesh", "ReduceScatter", "make_host_mesh",
+           "make_mesh", "make_production_mesh"]
 
 GROUP_TIMEOUT_S = 120  # every group a mesh builds: a lost rank fails the run, never hangs it
 ROUTES = ("none", "nccl", "gloo", "gloo-host-staged")
@@ -174,10 +186,16 @@ class RankMesh:
 
     def all_gather(self, t: torch.Tensor, dim: int, axes: Axes) -> torch.Tensor:
         """The whole tensor from every rank's block along ``dim``, the
-        blocks in the order of :meth:`block_index` over ``axes``."""
-        group = self.group_for(axes)
-        if group is None:
+        blocks in the order of :meth:`block_index` over ``axes``; under
+        grad, :class:`AllGather`."""
+        if self.group_for(axes) is None:
             return t
+        if _tracked(t):
+            return AllGather.apply(t, self, dim, axes)
+        return self._all_gather(t, dim, axes)
+
+    def _all_gather(self, t: torch.Tensor, dim: int, axes: Axes) -> torch.Tensor:
+        group = self.group_for(axes)
         t0 = time.perf_counter()
         n = dist.get_world_size(group)
         src = self._host(t.movedim(dim, 0))
@@ -191,10 +209,16 @@ class RankMesh:
 
     def reduce_scatter(self, t: torch.Tensor, dim: int, axes: Axes) -> torch.Tensor:
         """The sum over the ranks of ``axes`` of the whole tensor ``t``,
-        cut to this rank's block along ``dim``; summed in ``t``'s dtype."""
-        group = self.group_for(axes)
-        if group is None:
+        cut to this rank's block along ``dim``; summed in ``t``'s dtype;
+        under grad, :class:`ReduceScatter`."""
+        if self.group_for(axes) is None:
             return t
+        if _tracked(t):
+            return ReduceScatter.apply(t, self, dim, axes)
+        return self._reduce_scatter(t, dim, axes)
+
+    def _reduce_scatter(self, t: torch.Tensor, dim: int, axes: Axes) -> torch.Tensor:
+        group = self.group_for(axes)
         t0 = time.perf_counter()
         n = dist.get_world_size(group)
         src = self._host(t.movedim(dim, 0))
@@ -208,10 +232,17 @@ class RankMesh:
 
     def all_reduce(self, t: torch.Tensor, axes: Axes = None) -> torch.Tensor:
         """The sum of ``t`` over the ranks of ``axes`` (every axis when
-        None), a new tensor on ``t``'s device."""
-        group = self.group_for(self.axis_names if axes is None else axes)
-        if group is None:
+        None), a new tensor on ``t``'s device; under grad,
+        :class:`AllReduce`."""
+        axes = self.axis_names if axes is None else axes
+        if self.group_for(axes) is None:
             return t
+        if _tracked(t):
+            return AllReduce.apply(t, self, axes)
+        return self._all_reduce(t, axes)
+
+    def _all_reduce(self, t: torch.Tensor, axes: Axes) -> torch.Tensor:
+        group = self.group_for(axes)
         t0 = time.perf_counter()
         src = self._host(t)
         if src is t:
@@ -228,10 +259,16 @@ class RankMesh:
         ``t`` cut into n equal blocks along ``split_dim`` (n the size of
         ``axes``), block i sent to the rank of :meth:`block_index` i over
         ``axes``, and the n blocks received concatenated along ``concat_dim``
-        in the senders' block order."""
-        group = self.group_for(axes)
-        if group is None:
+        in the senders' block order; under grad, :class:`AllToAll`."""
+        if self.group_for(axes) is None:
             return t
+        if _tracked(t):
+            return AllToAll.apply(t, self, split_dim, concat_dim, axes)
+        return self._all_to_all(t, split_dim, concat_dim, axes)
+
+    def _all_to_all(self, t: torch.Tensor, split_dim: int, concat_dim: int,
+                    axes: Axes) -> torch.Tensor:
+        group = self.group_for(axes)
         t0 = time.perf_counter()
         n = dist.get_world_size(group)
         split_dim, concat_dim = split_dim % t.dim(), concat_dim % t.dim()
@@ -261,6 +298,72 @@ class RankMesh:
     def barrier(self) -> None:
         if self.group is not None:
             dist.barrier(group=self.group)
+
+
+def _tracked(t: torch.Tensor) -> bool:
+    """Whether autograd records a collective of ``t``."""
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+class AllGather(torch.autograd.Function):
+    """:meth:`RankMesh.all_gather` under autograd; the backward
+    reduce-scatters (sums) the whole gradient back to each rank's block."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dim: int, axes):
+        ctx.mesh, ctx.dim, ctx.axes = mesh, dim, axes
+        return mesh._all_gather(t, dim, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh._reduce_scatter(grad, ctx.dim, ctx.axes), None, None, None
+
+
+class ReduceScatter(torch.autograd.Function):
+    """:meth:`RankMesh.reduce_scatter` under autograd; the backward
+    all-gathers the blocks' gradients (every rank's input fed every
+    block)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dim: int, axes):
+        ctx.mesh, ctx.dim, ctx.axes = mesh, dim, axes
+        return mesh._reduce_scatter(t, dim, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh._all_gather(grad, ctx.dim, ctx.axes), None, None, None
+
+
+class AllReduce(torch.autograd.Function):
+    """:meth:`RankMesh.all_reduce` under autograd; the backward all-reduces
+    the gradients (each rank's input fed every rank's sum)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return mesh._all_reduce(t, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh._all_reduce(grad, ctx.axes), None, None
+
+
+class AllToAll(torch.autograd.Function):
+    """:meth:`RankMesh.all_to_all` under autograd; the backward is the
+    reverse all-to-all (split along the forward's ``concat_dim``, joined
+    along its ``split_dim``), which sends each block's gradient back to the
+    rank it came from."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, split_dim: int, concat_dim: int, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        ctx.split_dim, ctx.concat_dim = split_dim % t.dim(), concat_dim % t.dim()
+        return mesh._all_to_all(t, split_dim, concat_dim, axes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (ctx.mesh._all_to_all(grad, ctx.concat_dim, ctx.split_dim, ctx.axes),
+                None, None, None, None)
 
 
 def _axis_sets(axis_names: Sequence[str], shape: Dict[str, int]):

@@ -28,8 +28,11 @@ def rmsnorm_cut(x: torch.Tensor, w: torch.Tensor, eps: float, width: int,
     """:func:`rmsnorm` of a tensor whose last axis, of ``width``, is cut in
     blocks across ranks: ``x`` and ``w`` are this rank's blocks, and
     ``total`` sums each rank's (..., 1) f32 sum of squares over the ranks
-    (``ServeLayout.model_sum``). The output is this rank's block of the
-    whole's."""
+    (``ServeLayout.model_sum``, an all-reduce whose backward all-reduces
+    the squares' gradient: each rank's block feeds every rank's norm). The
+    output is this rank's block of the whole's. The reference's twin is
+    the gated norm of ``repro.models.mamba2`` over a ``"tp"``-sharded
+    ``d_inner``, which GSPMD sums the same way."""
     x32 = x.to(torch.float32)
     var = total(torch.sum(torch.square(x32), dim=-1, keepdim=True)) / width
     out = x32 * torch.rsqrt(var + eps)

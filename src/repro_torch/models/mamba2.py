@@ -8,7 +8,7 @@ the inter-chunk recurrence  h_{c+1} = decay_c * h_c + S_c  is
 :func:`associative_scan`, the reference's ``jax.lax.associative_scan`` with
 the states carried in bf16 as it carries them.
 
-On a mesh of ranks (serving; ``layout``, a
+On a mesh of ranks (serving, and training under autograd; ``layout``, a
 :class:`~repro_torch.models.sharding.ServeLayout` whose model axes are above
 1) the mixer is tensor-parallel over the heads, in the layout the
 reference's ``_ssm_defs`` and ``cache_specs`` give GSPMD: the normed
@@ -25,6 +25,10 @@ rank's block: its channels of the pre-conv streams, its heads of ``h``.
 Where the heads do not divide over the model axes, every leaf that arrived
 cut is gathered whole and every rank runs every head; ``wo`` then goes
 through :meth:`~repro_torch.models.sharding.ServeLayout.row_product`.
+Under autograd (a train step) kernel 7 runs forward and backward
+(``SsdChunk``) on the rank's heads, the gradients of the whole B and C are
+summed back to each rank's columns by the gather's backward, and ``wo``'s
+partial products' gradient is all-gathered back by the reduce-scatter's.
 """
 from __future__ import annotations
 

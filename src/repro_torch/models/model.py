@@ -13,8 +13,10 @@ with each layer body (each hybrid superblock) rematerialised as
 ``cfg.remat`` says; :func:`make_loss_fn` is the loss that
 ``repro_torch.train`` minimises.
 
-Serving runs on a mesh of ranks too (``mesh=``, ``rules=`` of
-:func:`run_stack`, :func:`make_prefill_step`, :func:`make_serve_step`):
+Serving and training run on a mesh of ranks too (``mesh=``, ``rules=`` of
+:func:`run_stack`, :func:`make_prefill_step`, :func:`make_serve_step`,
+:func:`make_loss_fn`; a train step takes this rank's rows and runs the
+same mesh layers under autograd, see :func:`make_loss_fn`):
 every rank is given the whole batch and holds its blocks of the parameters
 under :func:`param_pspecs`; it computes its rows and, over the model axes,
 its positions (a prefill) or its block of the cache (a decode step), with
@@ -41,7 +43,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import init_normal, rmsnorm, softmax_cross_entropy
 from repro_torch.models.mamba2 import SsmState
 from repro_torch.models.sharding import (DEFAULT_RULES, RULES_TRAIN, NamedSharding, ServeLayout,
-                                         ShardingRules, axes_tuple, spec_for)
+                                         ShardingRules, _resolve_axes, axes_tuple, spec_for)
 from repro_torch.optim.adamw import map_tree
 
 MODES = ("train", "prefill", "decode")
@@ -329,30 +331,17 @@ def _layers(stacked: Dict[str, torch.Tensor], n: int) -> List[Dict[str, torch.Te
     return [{name: ts[i] for name, ts in per.items()} for i in range(n)]
 
 
-class AllGather(torch.autograd.Function):
-    """A sharded leaf's block all-gathered along ``dim`` over the ranks of
-    ``axes``; the backward reduce-scatters (sums) the whole gradient back
-    to the block, so each rank's block gradient sums every rank's use."""
-
-    @staticmethod
-    def forward(ctx, block, mesh, dim: int, axes):
-        ctx.mesh, ctx.dim, ctx.axes = mesh, dim, axes
-        return mesh.all_gather(block, dim, axes)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return ctx.mesh.reduce_scatter(grad, ctx.dim, ctx.axes), None, None, None
-
-
 def gather_params(tree, specs, mesh):
-    """Every leaf of ``tree`` (this rank's blocks) whole, through
-    :class:`AllGather` along each dim its spec shards; a replicated leaf
-    passes as it is."""
+    """Every leaf of ``tree`` (this rank's blocks) whole along each dim its
+    spec shards, through :meth:`RankMesh.all_gather
+    <repro_torch.launch.mesh.RankMesh.all_gather>` (under grad its backward
+    reduce-scatters the gradient back to the block, so each rank's block
+    gradient sums every rank's use); a replicated leaf passes as it is."""
 
     def leaf(t, spec):
         for dim, axes in enumerate(spec):
             if mesh.live_axes(axes):
-                t = AllGather.apply(t, mesh, dim, axes)
+                t = mesh.all_gather(t, dim, axes)
         return t
 
     return map_tree(leaf, tree, specs)
@@ -369,30 +358,39 @@ def _maybe_remat(cfg: ModelConfig, fn: Callable, *args):
     saves every activation; ``"full"`` (the default) saves only the body's
     inputs and recomputes the rest in the backward pass; ``"dots"`` saves
     the matmul outputs (:data:`DOTS_SAVED`) and recomputes the rest. The
-    reference's ``"full"`` also keeps values it names ``ssd_scan_state``,
-    whose recomputation would repeat a cross-device collective; one card has
-    none, and here they are recomputed with the rest."""
+    recomputation reruns the whole body (no early stop): on a mesh it
+    reruns each layer's collectives, the data-axes gathers and the model
+    axes' activation moves, in the same order on every rank, and
+    ``train.step.collective_bytes_per_step`` counts them twice. The
+    reference's ``"full"`` keeps the values it names ``ssd_scan_state``
+    instead of recomputing them; here they are recomputed with the rest
+    (the port's scan sends nothing across ranks: its heads are local)."""
     if cfg.remat == "none":
         return fn(*args)
     if cfg.remat == "full":
-        return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False)
+        with torch_checkpoint.set_checkpoint_early_stop(False):
+            return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False)
     if cfg.remat == "dots":
         context = functools.partial(torch_checkpoint.create_selective_checkpoint_contexts,
                                     list(DOTS_SAVED))
-        return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False, context_fn=context)
+        with torch_checkpoint.set_checkpoint_early_stop(False):
+            return torch_checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                               context_fn=context)
     raise ValueError(f"remat must be 'none', 'full' or 'dots', got {cfg.remat!r}")
 
 
 def _train_stack(cfg: ModelConfig, params, x: torch.Tensor, positions: torch.Tensor,
-                 gather: Optional[Callable] = None):
+                 gather: Optional[Callable] = None, layout: Optional[ServeLayout] = None):
     """The blocks of ``mode="train"``: each layer body (each hybrid
     superblock body) under :func:`_maybe_remat`. Returns (hidden, aux).
 
-    ``gather(tree, key)`` (a sharded step's) makes a layer's leaves whole
-    from this rank's blocks; ``key`` names the leaves' place in the tree
-    (``"layers"``, ``"shared"``). It runs inside the body, so under remat
-    "full" the recomputation gathers again and one layer's whole weights
-    are live at a time, as the reference gathers per layer inside its scan."""
+    ``gather(tree, key)`` (a sharded step's) gathers a layer's leaves over
+    the data axes from this rank's blocks; ``key`` names the leaves' place
+    in the tree (``"layers"``, ``"shared"``). It runs inside the body, so
+    under remat "full" the recomputation gathers again and one layer's
+    weights are live at a time, as the reference gathers per layer inside
+    its scan. ``layout`` (a model axis above 1) runs each block on the
+    mesh, as a prefill does, under autograd."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     layers = params["layers"]
 
@@ -401,7 +399,8 @@ def _train_stack(cfg: ModelConfig, params, x: torch.Tensor, positions: torch.Ten
 
     if cfg.family in ATTENTION_FAMILIES:
         def body(x_, p_l):
-            x_, _, aux_l = tfm.dense_block(cfg, whole(p_l, "layers"), x_, positions, "train")
+            x_, _, aux_l = tfm.dense_block(cfg, whole(p_l, "layers"), x_, positions, "train",
+                                           layout=layout)
             return x_, aux_l
 
         for p_l in _layers(layers, cfg.n_layers):
@@ -409,7 +408,7 @@ def _train_stack(cfg: ModelConfig, params, x: torch.Tensor, positions: torch.Ten
             aux = aux + aux_l
     elif cfg.family == "ssm":
         def body_ssm(x_, p_l):
-            return tfm.ssm_block(cfg, whole(p_l, "layers"), x_, "train")[0]
+            return tfm.ssm_block(cfg, whole(p_l, "layers"), x_, "train", layout=layout)[0]
 
         for p_l in _layers(layers, cfg.n_layers):
             x = _maybe_remat(cfg, body_ssm, x, p_l)
@@ -418,7 +417,7 @@ def _train_stack(cfg: ModelConfig, params, x: torch.Tensor, positions: torch.Ten
 
         def body_hy(x_, p_sb):
             return tfm.hybrid_superblock(cfg, whole(p_sb, "layers"), whole(shared, "shared"),
-                                         x_, positions, "train")[0]
+                                         x_, positions, "train", layout=layout)[0]
 
         for p_sb in _layers(layers, cfg.n_layers // cfg.hybrid_period):
             x = _maybe_remat(cfg, body_hy, x, p_sb)
@@ -521,8 +520,9 @@ def run_stack(cfg: ModelConfig, params, tokens: Optional[torch.Tensor] = None,
         raise ValueError("decode needs the cache and the position")
     if on_mesh(mesh):
         if mode == "train":
-            raise ValueError("run_stack on a mesh serves prefill and decode; training across "
-                             "ranks is make_loss_fn(cfg, mesh)")
+            raise ValueError("run_stack on a mesh takes the whole batch (prefill, decode); a "
+                             "train step on a mesh takes this rank's rows through "
+                             "make_loss_fn(cfg, mesh, rules), which runs the same blocks")
         return _stack_on_mesh(cfg, params, tokens, embeds, mode, cache, pos, mesh, rules)[:3]
     x = _embed(cfg, params, tokens, embeds)
     if decode:
@@ -573,14 +573,16 @@ def _stack_on_mesh(cfg: ModelConfig, params, tokens, embeds, mode: str, cache, p
     return x, cache, aux, lay, top
 
 
-def _embed_on_mesh(cfg: ModelConfig, lay: ServeLayout, top, tokens, embeds) -> torch.Tensor:
-    """The residual's block from the whole batch: ``embeds`` cut to this
-    rank's rows and positions, or the tokens looked up in this rank's
-    ``("none", "tp")`` block of the table (its columns of d, at every
-    position) and turned into the residual's layout by an all-to-all
-    (positions cut) or an all-gather (not cut)."""
+def _embed_on_mesh(cfg: ModelConfig, lay: ServeLayout, top, tokens, embeds,
+                   own_rows: bool = False) -> torch.Tensor:
+    """The residual's block from the whole batch (``own_rows``: from this
+    rank's rows, a train step's): ``embeds`` cut to this rank's rows and
+    positions, or the tokens looked up in this rank's ``("none", "tp")``
+    block of the table (its columns of d, at every position) and turned
+    into the residual's layout by an all-to-all (positions cut) or an
+    all-gather (not cut)."""
     src = embeds if embeds is not None else tokens
-    r0, r1 = lay.rows(src.shape[0])
+    r0, r1 = (0, src.shape[0]) if own_rows else lay.rows(src.shape[0])
     p0, p1 = lay.positions()
     if embeds is not None:
         return embeds[r0:r1, p0:p1].to(getattr(torch, cfg.dtype))
@@ -646,30 +648,55 @@ def make_loss_fn(cfg: ModelConfig, mesh=None, rules: ShardingRules = RULES_TRAIN
     differentiable in the params.
 
     On a ``mesh`` of more than one rank the params are this rank's blocks
-    under :func:`param_pspecs` (``rules``) and the batch this rank's rows:
-    ``embed``, ``lm_head`` and ``final_norm`` are gathered whole once a
-    step, every other leaf inside its layer's body (:func:`_train_stack`),
-    each gradient reduce-scattered back to its block by
-    :class:`AllGather`'s backward. The loss is this rank's rows' mean."""
+    under :func:`param_pspecs` (``rules``) and the batch this rank's rows
+    (cut over the batch axes, the same rows on every model coordinate). A
+    call lays itself out as a prefill of its (b, s) does
+    (:class:`ServeLayout`, the rows counted over the batch axes): every
+    leaf is gathered over the data axes only, ``embed`` and ``final_norm``
+    once a step and the layers' leaves inside each layer's body
+    (:func:`_train_stack`), and ``lm_head`` is gathered whole, over the
+    model axes too; each gradient goes back to its block through the
+    gathers' backward. With a model axis above 1 the blocks run on the mesh
+    as a prefill's do (tensor-, sequence-, context- and expert-parallel,
+    the Mamba-2 layers over their heads), under autograd, the embedding
+    through :func:`_embed_on_mesh`, and the loss is the mean over this
+    rank's rows and its positions of the residual. Each rank's loss is its
+    own mean: ``train.step`` scales it by 1 / ``mesh.size``, so that the
+    ranks' scaled losses sum to the global mean (a cut row or position
+    counts on one rank; a replicated one 1 / n on each of n)."""
     check_ported(cfg)
-    specs = None
-    if mesh is not None and mesh.size > 1:
-        specs = param_pspecs(cfg, rules, mesh)
-        # a layer's leaves lose the stacked "layers" dim (hybrid: its first)
-        inner = {"layers": map_tree(lambda spec: spec[1:], specs["layers"]),
-                 "shared": specs.get("shared")}
+    if not on_mesh(mesh):
+        def loss_fn(params, batch):
+            x = _embed(cfg, params, batch.get("tokens"), batch.get("embeds"))
+            positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+            x, aux = _train_stack(cfg, params, x, positions)
+            return loss_from_hidden(cfg, params, x, batch["labels"], aux)
 
-    def gather(p, key):
-        return gather_params(p, inner[key], mesh)
+        return loss_fn
+    specs = param_pspecs(cfg, rules, mesh)
+    batch_axes = mesh.live_axes(_resolve_axes(rules.table().get("batch"), mesh))
 
     def loss_fn(params, batch):
-        if specs is not None:
-            params = {**params, **{k: gather_params(params[k], specs[k], mesh)
-                                   for k in TOP_LEAVES}}
-        x = _embed(cfg, params, batch.get("tokens"), batch.get("embeds"))
-        positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-        x, aux = _train_stack(cfg, params, x, positions, gather if specs is not None else None)
-        return loss_from_hidden(cfg, params, x, batch["labels"], aux)
+        tokens, embeds = batch.get("tokens"), batch.get("embeds")
+        src = embeds if embeds is not None else tokens
+        b, s = src.shape[0], src.shape[1]
+        lay = ServeLayout.build(mesh, rules, b * mesh.axes_size(batch_axes), s)
+        data = map_tree(lambda spec: _data_only(spec, lay.model), specs)
+        top = {k: gather_params(params[k], (specs if k == "lm_head" else data)[k], mesh)
+               for k in TOP_LEAVES}
+        # a layer's leaves lose the stacked "layers" dim (hybrid: its first)
+        inner = {"layers": map_tree(lambda spec: spec[1:], data["layers"]),
+                 "shared": data.get("shared")}
+        tp = lay if lay.n > 1 else None
+        if tp is None:
+            x = _embed(cfg, top, tokens, embeds)
+        else:
+            x = _embed_on_mesh(cfg, lay, top, tokens, embeds, own_rows=True)
+        positions = torch.arange(s, dtype=torch.int32, device=x.device)
+        x, aux = _train_stack(cfg, params, x, positions,
+                              lambda p, key: gather_params(p, inner[key], mesh), tp)
+        p0, p1 = lay.positions()
+        return loss_from_hidden(cfg, top, x, batch["labels"][:, p0:p1], aux)
 
     return loss_fn
 

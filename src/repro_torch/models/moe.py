@@ -12,7 +12,9 @@ the batch is local; on a mesh each rank routes its own rows and positions
 reference. There the expert shards are cut over the model axes: one
 ``all_to_all`` sends each rank's slots to the experts' ranks and one brings
 their outputs back, and the load-balance loss is averaged over the ranks
-that hold different tokens (the reference's ``pmean``).
+that hold different tokens (the reference's ``pmean``). Under autograd (a
+train step) both all-to-alls' backward is the reverse all-to-all, and the
+aux loss's all-reduce all-reduces its gradient.
 
 ``expert_shards`` (grok: 2) splits each expert's d_ff in two: every slot is
 sent to both shards of its expert and their outputs are summed.

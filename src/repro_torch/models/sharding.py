@@ -21,10 +21,12 @@ a tuple of names; it is exactly ``tuple(jax.sharding.PartitionSpec(...))``
 of the reference's spec. The mesh is any object with ``axis_names`` and a
 ``shape`` dict (:class:`repro_torch.launch.mesh.RankMesh`).
 
-:class:`ServeLayout` is what serving on a mesh shares between its layers:
-where one forward call's rows, positions and weight blocks lie, and the
-collectives that move a tensor from one of those layouts to another (the
-reference leaves those moves to GSPMD, after its ``constrain`` hints).
+:class:`ServeLayout` is what a call on a mesh shares between its layers (a
+prefill, a decode step, or a train step's forward): where one call's rows,
+positions and weight blocks lie, and the collectives that move a tensor
+from one of those layouts to another (the reference leaves those moves to
+GSPMD, after its ``constrain`` hints). The moves are ``RankMesh``'s
+collectives, differentiable under grad (each one's backward its adjoint).
 """
 from __future__ import annotations
 
@@ -164,8 +166,9 @@ MODEL_NAMES = ("seq", "kvseq", "vocab", "tp", "heads", "experts")
 
 @dataclasses.dataclass(frozen=True)
 class ServeLayout:
-    """Where one serving call (a prefill of ``s`` positions, or a decode
-    step, ``s = 1``) lays its tensors on the mesh, under ``rules``:
+    """Where one call (a prefill of ``s`` positions, a train step's
+    forward of ``s``, built as a prefill's, or a decode step, ``s = 1``)
+    lays its tensors on the mesh, under ``rules``:
 
       * rows: the batch is cut over the live ``"batch"`` axes when it
         divides (``rows``), else every rank holds every row;

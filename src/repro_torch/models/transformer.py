@@ -10,7 +10,8 @@ Block functions are mode-polymorphic:
   mode="decode"  single token against a pre-allocated cache
 
 One card needs no sharding annotations: the reference's ``constrain``
-calls have no counterpart. On a mesh of ranks (serving; ``layout``, a
+calls have no counterpart. On a mesh of ranks (serving, and training
+with a model axis; ``layout``, a
 :class:`~repro_torch.models.sharding.ServeLayout`) every block of every
 family takes this rank's blocks of the weights and moves its activations
 with the mesh's collectives, as sequence- and tensor-parallel layers
@@ -23,7 +24,8 @@ in a decode step; each sublayer gathers its normed input at every position, mult
 its column blocks (``wq``, ``wk``, ``wv``, the biases, ``wi``, ``wg``) and
 sums the row blocks' partial products (``wo``, ``wo_mlp``) back into the
 residual's layout (a reduce-scatter over the positions, or an all-reduce
-where they are not cut). ``attn_partitioning="cp"`` has each rank attend
+where they are not cut); under autograd each collective's backward is its
+adjoint (``launch.mesh``). ``attn_partitioning="cp"`` has each rank attend
 with every head for its block of queries against the keys up to the
 block's end (an all-to-all turns the query columns into query rows and the
 output back); ``"hp"`` has it attend with its own heads over every
@@ -100,12 +102,11 @@ def _attention_on_mesh(cfg: ModelConfig, lay: ServeLayout, p, x, positions, mode
     ``x`` is the residual's block (b_rows, positions, d), ``positions``
     every position of the call (a decode step: its one), ``p`` this rank's
     column and row blocks. A prefill returns this rank's positions of the
-    bf16 K/V as the cache; a decode step writes its token's K/V into this
-    rank's block of the budget (``cache``, the ``kvseq`` block), where the
-    position falls there, and attends over the cut cache
+    bf16 K/V as the cache; a train call runs the prefill's arithmetic under
+    autograd and returns no cache; a decode step writes its token's K/V
+    into this rank's block of the budget (``cache``, the ``kvseq`` block),
+    where the position falls there, and attends over the cut cache
     (:func:`decode_attention` with the layout)."""
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"attention on a mesh serves prefill and decode, not {mode!r}")
     h_, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     qn, kvn = h_ * hd, kv * hd
     h = lay.all_positions(rmsnorm(x, p["ln1"], cfg.norm_eps))  # (b, s, d)
@@ -126,7 +127,8 @@ def _attention_on_mesh(cfg: ModelConfig, lay: ServeLayout, p, x, positions, mode
         attn = decode_attention(q, cache["k"], cache["v"], pos, layout=lay)
         return lay.row_product(attn.reshape(b, s, qn), p["wo"], qn), cache
     p0, p1 = lay.positions()
-    new_cache = {"k": k[:, p0:p1].to(torch.bfloat16), "v": v[:, p0:p1].to(torch.bfloat16)}
+    new_cache = None if mode == "train" else {"k": k[:, p0:p1].to(torch.bfloat16),
+                                              "v": v[:, p0:p1].to(torch.bfloat16)}
     if cfg.attn_partitioning == "hp" and lay.cut(h_):
         # this rank's heads over every position; its columns of wq are whole heads
         h0, h1 = lay.block(h_)

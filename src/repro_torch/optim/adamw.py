@@ -4,10 +4,12 @@ parameters, an f32 master copy and f32 moments. Port of
 
 On a mesh the master copy and both moments are sharded over the ``fsdp``
 axes as well as the parameters' own layout (:func:`zero_spec`,
-:func:`opt_pspecs`): each rank holds its block of them, and :func:`init`
-and :func:`apply` work on the blocks; the update is elementwise, so it is
-the same on a block. :func:`global_norm` sums over the whole gradient
-across the ranks.
+:func:`opt_pspecs`): each rank holds its block of them, beside its
+model-axis block where the parameter's spec cuts one (a ``("data",
+"model")`` spec stays as it is), and :func:`init` and :func:`apply` work
+on the blocks; the update is elementwise, so it is the same on a block.
+:func:`global_norm` sums over the whole gradient across the ranks, a leaf
+replicated over an axis counted once.
 
 The arithmetic is the reference's, in f32 and in its order: the cosine
 schedule and the bias corrections ``1 - b ** count`` are computed on f32
@@ -126,7 +128,8 @@ def opt_pspecs(param_specs, param_shapes, mesh, rules: ShardingRules) -> OptStat
 def to_zero_block(t: torch.Tensor, spec: Spec, zspec: Spec, mesh) -> torch.Tensor:
     """``t``, this rank's block under the parameter spec ``spec``, cut to its
     block under the ZeRO spec ``zspec`` (which shards more dims, never
-    fewer)."""
+    fewer; a dim either spec cuts over the model axis stays this rank's
+    block of it)."""
     for dim, (a, b) in enumerate(zip(spec, zspec)):
         if a != b:
             if a is not None:
@@ -157,8 +160,10 @@ def global_norm(tree, mesh=None, zspecs=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's f32 sum of squares, leaf by leaf (the
     f32 copy of one leaf at a time). On a ``mesh`` the leaves are this
     rank's blocks under ``zspecs``: each rank sums the elements it owns (a
-    replicated leaf counts on the ranks ``mesh.owns`` names), one
-    ``all_reduce`` sums the f32 partials, then the square root."""
+    leaf replicated over an axis, the model axis of a leaf whose ``tp`` dim
+    did not divide among them, counts on the ranks ``mesh.owns`` names:
+    coordinate 0 on that axis), one ``all_reduce`` sums the f32 partials,
+    then the square root."""
     flat = leaves(tree)
     owned = [True] * len(flat) if mesh is None else [mesh.owns(z) for z in leaves(zspecs)]
     total = torch.zeros((), dtype=torch.float32, device=flat[0].device)

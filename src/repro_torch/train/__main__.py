@@ -134,7 +134,8 @@ def write_report(trainer: Trainer, hist, directory: str) -> None:
         "flash_attention_bwd": dict(fa.flash_attention_bwd.launches_by_route),
         "peak_bytes": torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0,
         "collective_bytes_per_step_model": (
-            collective_bytes_per_step(trainer.cfg, mesh, trainer.rules)
+            collective_bytes_per_step(trainer.cfg, mesh, trainer.rules, trainer.shape.global_batch,
+                                      trainer.shape.seq_len)
             if mesh is not None else {}),
         "params_digest": params_digest(whole),
     }

@@ -8,12 +8,16 @@ from a ``torch.Generator`` seeded 0 on the device, or takes the caller's
 ``params`` (a test hands the reference's over through
 ``convert.lm_params_from_numpy``).
 
-On a mesh of more than one rank (``launch.mesh.make_host_mesh``) every rank
-runs the trainer: it draws (or takes) the whole parameter tree and keeps
-its blocks, so the blocks hold the world of one's bits; it takes its rows
-of each global batch; saves gather every leaf whole to rank 0, which
-writes the one-file format every world reads; a resume cuts each leaf of
-the checkpoint to this rank's block, whatever world wrote it.
+On a mesh of more than one rank (``launch.mesh.make_host_mesh``'s ``(n,
+1)``, or any ``("data", "model")`` / ``("pod", "data", "model")`` mesh of
+``launch.mesh.make_mesh``) every rank runs the trainer: it draws (or takes)
+the whole parameter tree and keeps its blocks under the two-dim specs of
+``rules`` (ZeRO over the data axes, tensor-parallel over the model axis),
+so the blocks hold the world of one's bits; it takes its rows of each
+global batch by its data coordinate (the ranks of one data coordinate take
+the same rows); saves gather every leaf whole to rank 0, which writes the
+one-file format every world reads; a resume cuts each leaf of the
+checkpoint to this rank's block, whatever mesh wrote it.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.data.pipeline import DataConfig, TokenPipeline
 from repro_torch.models import model as model_lib
-from repro_torch.models.sharding import DEFAULT_RULES, ShardingRules, spec_for
+from repro_torch.models.sharding import RULES_TRAIN, ShardingRules, spec_for
 from repro_torch.optim import adamw
 from repro_torch.runtime.fault_tolerance import (
     FailureInjector,
@@ -78,7 +82,7 @@ class Trainer:
         device="cuda",
         params=None,
         mesh=None,
-        rules: ShardingRules = DEFAULT_RULES,
+        rules: ShardingRules = RULES_TRAIN,
     ):
         self.cfg, self.shape, self.tcfg = cfg, shape, tcfg
         self.injector = injector
@@ -125,7 +129,7 @@ class Trainer:
 
     def _device_batch(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         out = {k: torch.from_numpy(v) for k, v in batch.items()}
-        if self.mesh is not None:  # this rank's rows of the global batch
+        if self.mesh is not None:  # this rank's rows of the global batch, by its data coordinate
             rows = spec_for(("batch",), self.rules, self.mesh, (self.shape.global_batch,))
             out = {k: self.mesh.local_block(v, rows) for k, v in out.items()}
         return {k: v.to(self.device) for k, v in out.items()}
