@@ -136,8 +136,11 @@ result line):
     rank 0 alone writing) and on 2 (the clamp warning, phase 3's
     tolerances);
 15. float64 through the f64 instantiations of kernels 1-4 and the chain
-    kernel: each against its f64 plain version at odd shapes, and kernels 1
-    and 2 on phase 4's
+    kernel (kernels 1 and 2 on the f64 tensor cores, DMMA: the route
+    ``kron_kernel.launch_route`` names, the DMMA instructions counted in
+    each instantiation's SASS by ``cuobjdump``, and the registers and CTAs
+    an SM of each): each against its f64 plain version at odd shapes, and
+    kernels 1 and 2 on phase 4's
     tensor (drawn anew, its checksum held to phase 4's) in f64 from phase
     4's initial factors (3 and 1 launches a sweep, ms a sweep, peak, within
     phase 3's tolerances of phase 4's f32 run); exact rank-1 tensors (the
@@ -399,9 +402,10 @@ except ImportError:
 # on the CUDA cores.
 PEAK_BYTES_PER_S = ARCH_PRESETS["h100-sxm"].hbm_bw
 PEAK_F32_FLOPS = 67e12
-# f64: the card's peak (the DMMA tensor cores), which every f64 bound
-# counts; and the CUDA cores', where the f64 instantiations of kernels 1-4
-# run, for each f64 row's "f64_core_bound_ms" beside its bound
+# f64: the card's peak (the DMMA tensor cores, where kernels 1 and 2 run
+# their f64 products), which every f64 bound counts; and the CUDA cores',
+# where kernels 3 and 4, kernel 5 and the chain kernel run theirs, for each
+# f64 row's "f64_core_bound_ms" beside its bound
 PEAK_F64_FLOPS = 67e12
 PEAK_F64_CORE_FLOPS = 34e12
 PEAK_BF16_FLOPS = ARCH_PRESETS["h100-sxm"].peak_flops
@@ -435,9 +439,15 @@ SEED = 0
 #   reference's own kernel tests set for bf16 operands, kept as the stated
 #   limit.
 TOL = {"fp32": 1e-5, "bf16_fp32acc": 2e-2}
-# "fp64" (the f64 instantiations of kernels 1-4): the same rounded terms as
-#   the plain version, summed in another order, as fp32; so max(1e-13,
-#   4 sqrt(n) 2^-53) x max|plain| for n terms summed into one output.
+# "fp64" (the f64 instantiations): on the CUDA cores the same rounded terms
+#   as the plain version, summed in another order, as fp32; kernel 1 on
+#   DMMA forms fma(round(v a), b, acc) where the plain version rounds
+#   round(round(a b) v), one f64 ulp of each term apart, which over n
+#   terms is at most ~n 2^-52 |term| (<= 2^-52 max|plain| when the terms
+#   share a sign) and ~sqrt(n) 2^-52 |term| when they do not, as the fp32
+#   route's 3xTF32 terms meet the fp32 rule; kernel 2 on DMMA sums the same
+#   exact products in its own order. So max(1e-13, 4 sqrt(n) 2^-53) x
+#   max|plain| for n terms summed into one output.
 TOL_F64 = 1e-13
 # "bf16" (kernel 6 on bf16 operands): the kernel and its plain version each
 # round their f32 output to bf16, so they can land one bf16 ulp (2^-8
@@ -518,6 +528,8 @@ def main() -> int:
         for line in (_build.BUILD_DIR / f"{name}.ptxas.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    log_occupancy(dev)
+    start_sass_dumps()  # read by phase 15
 
     def timed(name, fn, *args):
         t0 = time.perf_counter()
@@ -4121,6 +4133,101 @@ def phase14_sharded(dev, card: str, ref4: dict, cfg: Optional[dict] = None) -> N
 
 # -- phase 15: float64 through kernels 1-4 --------------------------------------
 
+# the kernel symbols' first template argument in a mangled name, by dtype
+_MANGLED_DTYPE = {"d": "float64", "f": "float32", "13__nv_bfloat16": "bfloat16"}
+# (library, kernel symbol, wrapper) of the kernels whose datapath
+# kron_kernel.launch_route names and the SASS shows
+ROUTED_SYMBOLS = (("kron_scatter", "kron_scatter_kernel", "fused_kron_scatter"),
+                  ("ttm", "ttm_kernel", "ttm"),
+                  ("kron_scatter_ttm", "kron_scatter_ttm_kernel", "fused_kron_scatter_ttm"),
+                  ("kron_chain_scatter", "chain_scatter_kernel", "fused_kron_chain_scatter"))
+
+
+_SASS_DUMPS = {}  # library name -> (its SASS file, the cuobjdump process writing it)
+
+
+def start_sass_dumps() -> None:
+    """Start ``cuobjdump -sass`` (beside ``nvcc``) of each library of
+    ROUTED_SYMBOLS in the background, each into ``build/kernels/<name>.sass``
+    (phase 1 starts them after the build; :func:`sass_mma_counts` waits)."""
+    from repro_torch.kernels import _build
+
+    for name, _, _ in ROUTED_SYMBOLS:
+        if name not in _SASS_DUMPS:
+            tool = Path(_build.nvcc()).parent / "cuobjdump"
+            path = _build.BUILD_DIR / f"{name}.sass"
+            with open(path, "w") as out:
+                _SASS_DUMPS[name] = (path, subprocess.Popen(
+                    [str(tool), "-sass", str(_build.library_path(name))], stdout=out,
+                    stderr=subprocess.STDOUT))
+
+
+def sass_mma_counts(name: str) -> dict:
+    """Tensor-core instructions in the SASS of each kernel of the built
+    library of ``csrc/<name>.cu``: ``{"<kernel> <dtype>": {"DMMA": n, "HMMA":
+    n}}``, the dtype that of the kernel's first template argument,
+    instantiations summed."""
+    start_sass_dumps()
+    path, proc = _SASS_DUMPS[name]
+    check(proc.wait() == 0, f"cuobjdump -sass of lib{name} failed: {path.read_text()[-2000:]}")
+    counts, key = {}, None
+    for line in path.read_text().splitlines():
+        if "Function :" in line:
+            m = re.search(r"\d([a-z][a-z_]*_kernel)I(d|f|13__nv_bfloat16)", line)
+            key = f"{m.group(1)} {_MANGLED_DTYPE[m.group(2)]}" if m else None
+            if key:
+                counts.setdefault(key, {"DMMA": 0, "HMMA": 0})
+        elif key:
+            op = re.search(r"\s(DMMA|HMMA)[.\s]", line)
+            if op:
+                counts[key][op.group(1)] += 1
+    return counts
+
+
+def check_routes_in_sass() -> dict:
+    """Each routed kernel's f32 and f64 instantiation holds DMMA
+    instructions exactly where ``kron_kernel.launch_route`` says ``"dmma"``
+    and HMMA (TF32) exactly where it says ``"3xtf32"``. Returns the counts
+    by wrapper and dtype."""
+    from repro_torch.kernels import kron_kernel
+
+    out = {}
+    for lib, symbol, wrapper in ROUTED_SYMBOLS:
+        counts = sass_mma_counts(lib)
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).split(".")[1]
+            route = kron_kernel.launch_route(wrapper, dtype)
+            got = counts.get(f"{symbol} {name}")
+            check(got is not None, f"no {symbol} {name} in the SASS of lib{lib}")
+            out[f"{wrapper} {name}"] = {"route": route, **got}
+            log(f"  SASS {symbol} {name}: {got['DMMA']} DMMA, {got['HMMA']} HMMA; route {route}")
+            check((got["DMMA"] > 0) == (route == "dmma") and (got["HMMA"] > 0) == (route == "3xtf32"),
+                  f"{symbol} {name}: the SASS ({got}) is not the route {route!r}")
+    return out
+
+
+def log_occupancy(dev) -> dict:
+    """Registers a thread and CTAs an SM of kernel 1 (at ranks 16 x 16) and
+    kernel 2, by operand type, as their launchers size them; logged."""
+    from repro_torch.kernels import kron_kernel, ttm_kernel
+
+    out = {}
+    for label, dtype, precision in (("f32", torch.float32, "fp32"),
+                                    ("bf16", torch.float32, "bf16_fp32acc"),
+                                    ("f64", torch.float64, "fp32")):
+        for kernel, occ in (
+                ("fused_kron_scatter", kron_kernel.occupancy(dev, 16, 16, dtype, precision)),
+                ("ttm", ttm_kernel.occupancy(
+                    dev, torch.bfloat16 if precision == "bf16_fp32acc" else dtype))):
+            route = kron_kernel.launch_route(kernel, dtype, precision)
+            out[f"{kernel} {label}"] = {"route": route, **occ}
+            log(f"  occupancy {kernel} {label} ({route}): {occ['threads']} threads, "
+                f"{occ['smem_bytes']} B shared, {occ['registers']} registers, "
+                f"{occ['ctas_per_sm']} CTAs an SM")
+    return out
+
+
+
 F64_ROWS = ["fused_kron_scatter_f64", "ttm_f64", "kron_contrib_f64", "scatter_rows_f64",
             "fused_kron_chain_scatter_f64", "fused_kron_scatter_ttm_f64"]
 # 15g: kernel 5 in f64 at odd shapes, 2- and 3-way, ranks 1-17 and R not a
@@ -4363,6 +4470,20 @@ def phase15_float64(dev, card: str, ref4: dict, cfg: Optional[dict] = None) -> d
         f"{k2['bound_ms']:.4f}")
     src = "src/repro_torch/kernels/csrc/"
     device_ms = {k: v / N_ITER for k, v in profile["kernel_ms"].items()}
+    # the datapath of each, its SASS and its launch (kernel 1 at NELL-2's ranks)
+    sass = check_routes_in_sass() if on_card else {}
+    design = {}
+    for name, occ in (("fused_kron_scatter", kron_kernel.occupancy(dev, *cfg["ranks"][:2],
+                                                                   torch.float64)
+                       if on_card else {}),
+                      ("ttm", ttm_kernel.occupancy(dev, torch.float64) if on_card else {})):
+        design[name] = {"datapath": kron_kernel.launch_route(name, torch.float64),
+                        "sass_dmma": sass.get(f"{name} float64", {}).get("DMMA"),
+                        "registers": occ.get("registers"), "ctas_per_sm": occ.get("ctas_per_sm"),
+                        "threads": occ.get("threads")}
+        log(f"  15a {name} f64: {design[name]}")
+    check(all(d["datapath"] == "dmma" for d in design.values()),
+          f"15a: kernels 1 and 2 in f64 are not on the DMMA route: {design}")
     rows["fused_kron_scatter_f64"] = {
         "name": "fused_kron_scatter_f64", "route": "cuda", "source": src + "kron_scatter.cu",
         "replaces": "src/repro/kernels/kron_kernel.py:306",
@@ -4370,10 +4491,11 @@ def phase15_float64(dev, card: str, ref4: dict, cfg: Optional[dict] = None) -> d
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
         "device_ms": device_ms["fused_kron_scatter"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "f64_core_bound_ms": k1["f64_core_bound_ms"],
-        "library_ms": None}
+        "library_ms": None, **design["fused_kron_scatter"]}
     rows["ttm_f64"] = {"name": "ttm_f64", "route": "cuda", "source": src + "ttm.cu",
                        "replaces": "src/repro/kernels/ttm_kernel.py:62",
-                       "launches": launches["ttm"], "device_ms": device_ms["ttm"], **k2}
+                       "launches": launches["ttm"], "device_ms": device_ms["ttm"], **k2,
+                       **design["ttm"]}
     out["15a"] = {"kernel1_nell2": k1, "kernel2_nell2": k2}
     del warm, eng, fs, y_last, yc, uc
     release_memory()

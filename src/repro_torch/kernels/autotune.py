@@ -54,6 +54,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 
+from repro_torch.kernels.kron_kernel import launch_route
 from repro_torch.obs import event as _obs_event
 from repro_torch.sparse.layout import chain_range_slots
 from repro_torch.obs import registry as _obs_registry
@@ -174,15 +175,20 @@ def _elem_bytes(precision: str, dtype: str) -> int:
     return 8 if str(dtype) == "float64" else 4
 
 
-def _ring_bytes(ra: int, rb: int, precision: str, dtype: str = "float32") -> int:
-    """One warp's staging ring, as ``kron_scatter_launch`` and
+def _ring_bytes(ra: int, rb: int, precision: str, dtype: str = "float32",
+                kernel: str = "fused_kron_scatter") -> int:
+    """One warp's staging ring of the walk kernel ``kernel`` (kernel 1, or
+    kernel 5 ``"fused_kron_scatter_ttm"``), as ``kron_scatter_launch`` and
     ``kron_scatter_ttm.cu::shape_of`` compute it (``staged_strides`` of the
-    factor rows padded to 16 bytes; the f32 route's tile strides, or the
-    CUDA-core routes' (bf16, f64))."""
+    factor rows padded to 16 bytes): on the tensor-core routes of
+    ``kron_kernel.launch_route`` (f32's 3xTF32, kernel 1's f64 DMMA) strides
+    of whole 16-element blocks, on the CUDA-core routes (bf16, kernel 5's
+    f64) whole 4 x 2 lane tiles in 16-byte rows."""
     elem = _elem_bytes(precision, dtype)
     per16 = 16 // elem
     lda, ldb = _round_up(ra, per16), (_round_up(rb, per16) if rb else 0)
-    if elem != 4:
+    dt = torch.float64 if str(dtype) == "float64" else torch.float32
+    if launch_route(kernel, dt, precision) == "cuda_cores":
         sla = _round_up(max(lda, _round_up(ra, _K_TA)), 8)
         slb = _round_up(max(ldb, _round_up(rb, _K_TB)), 8) if ldb else 0
     else:
@@ -254,7 +260,8 @@ def smem_bytes(cfg: BlockConfig, shape: Sequence[int], ranks: Sequence[int],
                                      precision, dtype) for m in range(n))
     ring = max(_ring_bytes(*_operand_ranks(ranks, m), precision, dtype) for m in range(n))
     if cfg.layout == "fused":
-        last = _ring_bytes(*_operand_ranks(ranks, n - 1), precision, dtype)
+        last = _ring_bytes(*_operand_ranks(ranks, n - 1), precision, dtype,
+                           "fused_kron_scatter_ttm")
         return max(ring, _mega_cta_bytes(1, ranks[n - 1], last, _sum_bytes(precision, dtype)))
     return ring
 

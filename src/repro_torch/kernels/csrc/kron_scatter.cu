@@ -23,12 +23,18 @@
 // row end stores the finished row. Rows no slot reaches stay as the
 // wrapper's zero fill.
 //
-// float64 (T = V = double): the walk's CUDA-core route with f64 factor
-// rows, values, accumulators and output; the same segmented sums, so no
-// f64 atomics either. Per slot it reads 20 B and does 3*K f64 operations:
-// at NELL-2 size 5.9e10, ~1.7 ms at the card's f64 CUDA-core rate. The
-// ring holds twice the f32 bytes, so fewer warps fit a CTA (and one CTA an
-// SM); DMMA (mma.sync m8n8k4 f64) is later work.
+// float64 (T = V = double): the walk's f64 tensor-core route (DMMA,
+// mma.sync m16n8k8 .f64), with f64 factor rows, values, accumulators and
+// output; the fp32 route's row logic and segmented sums, so no f64 atomics
+// either, and one product a block where fp32 takes three. Per slot it reads
+// 20 B from device memory, gathers 256 B of factor rows from L2 at ranks 16
+// (twice the f32 bytes) and does 2K + Ra f64 operations: at NELL-2 size
+// 1.2e11 a sweep, 1.8 ms at the f64 tensor-core peak (67 TFLOP/s). The ring
+// holds twice the f32 bytes a warp (16 KB at ranks 16), so its CTAs have 4
+// warps (kDmmaWarps) and three fit an SM: 12 warps resident, where 8-warp
+// CTAs of the CUDA-core route left one CTA, 8 warps.
+#include <type_traits>
+
 #include "kron_walk.cuh"
 
 namespace {
@@ -37,11 +43,15 @@ using kwalk::kStages;
 using kwalk::kSlots;
 using kwalk::kWarps;
 
+// warps a CTA: kDmmaWarps on the f64 tensor-core route, else kWarps
+template <typename T>
+constexpr int kWarpsOf = std::is_same<T, double>::value ? kwalk::kDmmaWarps : kWarps;
+
 // Three CTAs an SM, as many as the rings' shared memory allows: left to
 // itself ptxas spends registers on the walk until only two fit, and kernel
 // 1 loses time (chip_smoke.py prints the registers of each build).
 template <typename T, bool kTC, typename V>
-__global__ void __launch_bounds__(kWarps * 32, 3)
+__global__ void __launch_bounds__(kWarpsOf<T> * 32, 3)
     kron_scatter_kernel(const T* __restrict__ fa, const T* __restrict__ fb,
                         const int* __restrict__ idx, const V* __restrict__ vals,
                         const int* __restrict__ rel, const int* __restrict__ blkmap,
@@ -96,6 +106,37 @@ int launch(const void* fa, const void* fb, const int* ip, const void* vp, const 
   return (int)cudaGetLastError();
 }
 
+// The registers a thread and the CTAs an SM of the kernel of one kind at a
+// CTA of `warps` warps and `smem` bytes of dynamic shared memory.
+template <typename T, bool kTC, typename V>
+int occupancy(int warps, size_t smem, int* regs, int* per_sm) {
+  auto kernel = kron_scatter_kernel<T, kTC, V>;
+  cudaFuncAttributes attr{};
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, warps * 32, smem);
+  *regs = attr.numRegs;
+  return (int)err;
+}
+
+// The staged strides, warps a CTA and shared memory a CTA of one kind at
+// these ranks: as many warps as fit, up to the kind's CTA size (kWarpsOf).
+bool config_of(int ra, int rb, int lda, int ldb, int kind, kwalk::Shape* sh, int* warps,
+               size_t* smem) {
+  const int elem = kind == 1 ? 2 : kind == 2 ? 8 : 4;
+  kwalk::staged_strides(ra, rb, lda, ldb, kind != 1, &sh->sla, &sh->slb);
+  int dev = 0, smem_max = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const size_t per_warp = (size_t)kStages * kSlots * (sh->sla + sh->slb) * elem;
+  const int most = kind == 2 ? kWarpsOf<double> : kWarps;
+  *warps = (int)std::min<size_t>(most, (size_t)smem_max / per_warp);
+  *smem = per_warp * *warps;
+  return *warps >= 1;
+}
+
 }  // namespace
 
 // Y (n_rows, ra*rb), zero-filled by the caller, f32 (f64 for kind = 2).
@@ -119,17 +160,11 @@ extern "C" int kron_scatter_launch(const void* fa, const void* fb, const void* i
   const int elem = kind == 1 ? 2 : kind == 2 ? 8 : 4;
   if (n_parts < 1 || !kwalk::shapes_ok(ra, rb, lda, ldb, idx_cols, bn, bi, 16 / elem))
     return (int)cudaErrorInvalidValue;
-  const bool tc = kind == 0;
   kwalk::Shape sh{ra, rb, lda, ldb, 0, 0, idx_cols, bn, bi};
-  kwalk::staged_strides(ra, rb, lda, ldb, tc, &sh.sla, &sh.slb);
-  int dev = 0, smem_max = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  const size_t per_warp = (size_t)kStages * kSlots * (sh.sla + sh.slb) * elem;
-  const int warps = (int)std::min<size_t>(kWarps, (size_t)smem_max / per_warp);
-  if (warps < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n_parts + warps - 1) / warps, kwalk::column_blocks(ra, rb, tc));
-  const size_t smem = per_warp * warps;
+  int warps;
+  size_t smem;
+  if (!config_of(ra, rb, lda, ldb, kind, &sh, &warps, &smem)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n_parts + warps - 1) / warps, kwalk::column_blocks(ra, rb, kind != 1));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* ip = static_cast<const int*>(idx);
   const int* relp = static_cast<const int*>(rel);
@@ -139,8 +174,31 @@ extern "C" int kron_scatter_launch(const void* fa, const void* fb, const void* i
     return launch<__nv_bfloat16, false, float>(fa, fb, ip, vals, relp, blk, pp, out, n_parts, sh,
                                                warps, grid, smem, st);
   if (kind == 2)
-    return launch<double, false, double>(fa, fb, ip, vals, relp, blk, pp, out, n_parts, sh,
-                                         warps, grid, smem, st);
+    return launch<double, true, double>(fa, fb, ip, vals, relp, blk, pp, out, n_parts, sh,
+                                        warps, grid, smem, st);
   return launch<float, true, float>(fa, fb, ip, vals, relp, blk, pp, out, n_parts, sh, warps,
                                     grid, smem, st);
+}
+
+// The launch kron_scatter_launch makes for one kind at these ranks (its
+// arguments' meaning): threads a CTA, dynamic shared memory a CTA, the
+// kernel's registers a thread and the CTAs one SM holds. Returns a CUDA
+// error code, cudaErrorInvalidValue when the launch would refuse the sizes.
+extern "C" int kron_scatter_occupancy(int ra, int rb, int lda, int ldb, int kind, int* threads,
+                                      long long* smem, int* regs, int* per_sm) {
+  *threads = *regs = *per_sm = 0;
+  *smem = 0;
+  if (kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
+  const int elem = kind == 1 ? 2 : kind == 2 ? 8 : 4;
+  kwalk::Shape sh{ra, rb, lda, ldb, 0, 0, 1, 1, 1};
+  int warps;
+  size_t bytes;
+  if (!kwalk::shapes_ok(ra, rb, lda, ldb, 1, 1, 1, 16 / elem) ||
+      !config_of(ra, rb, lda, ldb, kind, &sh, &warps, &bytes))
+    return (int)cudaErrorInvalidValue;
+  *threads = warps * 32;
+  *smem = (long long)bytes;
+  if (kind == 1) return occupancy<__nv_bfloat16, false, float>(warps, bytes, regs, per_sm);
+  if (kind == 2) return occupancy<double, true, double>(warps, bytes, regs, per_sm);
+  return occupancy<float, true, float>(warps, bytes, regs, per_sm);
 }

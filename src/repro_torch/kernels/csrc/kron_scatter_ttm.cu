@@ -58,17 +58,19 @@
 // terms are rounded as kron_common.cuh says, and the contraction is f32
 // arithmetic on bf16 values of U (exact in TF32).
 //
-// float64 (T = V = double): the walk's CUDA-core route with f64 row
-// accumulators (kernel 1's f64 route), the held rows, U and the CTA's
-// partial in f64, and each round taken on the CUDA cores: every lane owns
+// float64 (T = V = double): the walk's CUDA-core f64 route (kept for this
+// kernel, whose rounds contract that route's lane tiles; kernel 1's f64
+// route runs on DMMA) with f64 row accumulators, the held rows, U and the
+// CTA's partial in f64, and each round taken on the CUDA cores: every lane owns
 // the same four entries of each (m16, n8) tile as on the TF32 route and
 // sums the round's rows into them in warp order with f64 FMAs, then adds
 // that to its partial. The reduce kernel sums the partials in f64, in the
 // same fixed order. At ranks 16 the partial is 16 x 256 x 8 = 32 KB; with
 // the f64 ring (16 KB a warp) and the held rows one CTA of 8 warps fits an
-// SM. Per slot it does the 3*K f64 operations of kernel 1's f64 route: at
+// SM. Per slot it does the 3*K f64 operations of that route: at
 // NELL-2's last mode ~0.6 ms at the card's f64 peak (67 TFLOP/s), 1.2 ms at
-// its CUDA-core rate (34), which is where it runs (DMMA is later work).
+// its CUDA-core rate (34), which is where it runs (its rounds on DMMA
+// fragments are later work).
 #include <climits>
 #include <type_traits>
 

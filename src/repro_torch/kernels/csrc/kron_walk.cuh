@@ -7,6 +7,11 @@
 // row to the caller's row_end(row, acc), which kernel 1 stores and kernel 5
 // contracts. No (nnz, R) operand is ever written to device memory.
 //
+// Three routes, by the template arguments (T, kTC): fp32 (float, true) and
+// f64 (double, true) on the tensor cores, bf16_fp32acc and the CUDA-core
+// f64 (bf16 or double, false) on the CUDA cores; kron_kernel.py::
+// launch_route names the one each kernel, dtype and precision takes.
+//
 //   * A range starts at a row's first slot (sparse/layout.py::row_parts: a
 //     row never crosses two ranges), so each row is a segmented sum of its
 //     slots in slot order, in registers: no atomics, the same bits on every
@@ -45,15 +50,33 @@
 //     K is tiled over blockIdx.y. The staged rows are unpadded and swizzled
 //     (8-column groups XORed by slot) so that fragment loads meet no bank
 //     conflict.
+//   * float64 on the f64 tensor cores (DMMA; kernel 1's f64 route): the
+//     same framing, row logic, tiles and fragments, with mma.sync m16n8k8
+//     .f64 (tc::mma_f64) on f64 operands and one product a block, since
+//     nothing is split: the A fragment holds round(v*a), the B fragment b,
+//     and the block's products accumulate straight into the row's f64 sums
+//     (the MMA's C operand), in slot order block by block. Each term is
+//     fma(round(v*a), b, acc) where the plain version rounds round(a*b)*v:
+//     about one f64 ulp of the term apart, ~sqrt(n) 2^-52 of a term over n
+//     terms, far below chip_smoke.py's fp64 gate (max(1e-13, 4 sqrt(n)
+//     2^-53) of max|plain|). The staged rows (strides of whole 16-element
+//     blocks, as on the fp32 route) are swizzled by swz64: a fragment load
+//     reads 4 slots x 8 columns of 8 bytes, served as two half-warps of 4
+//     slots x 4 columns; XORing 4-column groups by slot % 4 puts each
+//     half-warp's 16 doubles on 16 different bank pairs, and keeps 16-byte
+//     pieces whole for cp.async.
 //   * bf16_fp32acc, on the CUDA cores: each product a*b is rounded to bf16,
 //     then scaled by the f32 value and summed in f32 (kron_common.cuh's
 //     kron_term, the plain version's rounding, which the tensor cores cannot
 //     reproduce). A lane owns a 4 x 2 register tile of the row: eight terms
 //     per slot from one 8-byte and one 4-byte shared load.
-//   * float64, on the CUDA cores too (the same lane tiles; T = V = double):
-//     each term round(round(a*b)*v) in f64, summed in f64 in slot order,
-//     the plain version's arithmetic. The value type V (of vals and of the
-//     accumulators) is float on the other two routes.
+//   * float64 on the CUDA cores (the same lane tiles; T = V = double, kTC
+//     false), kept for kernel 5's f64 instantiation, whose row end
+//     contracts lane tiles (the chain kernel's f64 route loads its rows with
+//     this route's load4): each term round(round(a*b)*v) in f64, summed in f64 in
+//     slot order, the plain version's arithmetic. The value type V
+//     (of vals and of the accumulators) is float on the fp32 and bf16
+//     routes.
 #pragma once
 
 #include <algorithm>
@@ -64,12 +87,14 @@
 
 namespace kwalk {
 
+using tc::mma_f64;
 using tc::mma_tf32;
 using tc::split;
 
 constexpr int kSlots = 32;  // slots per staged chunk, one per lane
 constexpr int kStages = 2;  // staged chunks per warp: one in flight while one is summed
-constexpr int kWarps = 8;   // warps per CTA, at most
+constexpr int kWarps = 8;   // warps per CTA, at most (the f64 tensor-core route: kDmmaWarps)
+constexpr int kDmmaWarps = 4;  // kernel 1's f64 route: CTAs of 4 warps, three an SM
 constexpr int kNT = 2;      // fp32 route: n8 tiles (b columns) a warp, with one m16 tile
 constexpr int kTA = 4;      // bf16 route: a columns per lane
 constexpr int kTB = 2;      // bf16 route: b columns per lane
@@ -78,10 +103,10 @@ constexpr unsigned kFull = 0xffffffffu;
 
 inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-// Staged row strides (elements) of a and b: on the fp32 route whole m16 /
-// kNT n8 tile blocks, in rows of a multiple of 16 words (the swizzle's); on
-// the bf16 route whole 4 x 2 lane tiles, in 16-byte rows. slb = 0 when
-// ldb = 0 (a 2-way tensor).
+// Staged row strides (elements) of a and b: on the tensor-core routes whole
+// m16 / kNT n8 tile blocks, in rows of a multiple of 16 elements (the
+// swizzles'); on the CUDA-core routes whole 4 x 2 lane tiles, in 16-byte
+// rows. slb = 0 when ldb = 0 (a 2-way tensor).
 inline void staged_strides(int ra, int rb, int lda, int ldb, bool tc, int* sla, int* slb) {
   *sla = tc ? round_up(std::max(lda, round_up(ra, 16)), 16)
             : round_up(std::max(lda, round_up(ra, kTA)), 8);
@@ -90,8 +115,9 @@ inline void staged_strides(int ra, int rb, int lda, int ldb, bool tc, int* sla, 
                   : round_up(std::max(ldb, round_up(rb, kTB)), 8);
 }
 
-// Blocks of Y's columns, one a blockIdx.y: m16 x (8 kNT) on the fp32 route,
-// 32 lane tiles of 4 x 2 on the bf16 route; each holds at most kBlockCols.
+// Blocks of Y's columns, one a blockIdx.y: m16 x (8 kNT) on the tensor-core
+// routes, 32 lane tiles of 4 x 2 on the CUDA-core routes; each holds at most
+// kBlockCols.
 inline int column_blocks(int ra, int rb, bool tc) {
   return tc ? ((ra + 15) / 16) * ((rb + 8 * kNT - 1) / (8 * kNT))
             : (((ra + kTA - 1) / kTA) * ((rb + kTB - 1) / kTB) + 31) / 32;
@@ -156,6 +182,17 @@ __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(
 __device__ __forceinline__ int swz(int s, int sl) {
   return sl % 32 ? ((s >> 1) & 1) << 3 : (s & 3) << 3;
 }
+// The f64 tensor-core route's: element c of staged slot s sits at column
+// c ^ swz64(s) (strides of whole 16-double blocks, so a slot's row starts on
+// bank pair 0). A fragment load is 4 slots (t) x 8 columns (g) of 8 bytes,
+// served as two half-warps (g < 4, g >= 4); in each, column g of slot t
+// lands on bank pair g ^ 4t (mod 16): 16 different pairs, no conflict.
+__device__ __forceinline__ int swz64(int s) { return (s & 3) << 2; }
+// The swizzle of the tensor-core route of element type T.
+template <typename T>
+__device__ __forceinline__ int swz_of(int s, int sl) {
+  return sizeof(T) == 8 ? swz64(s) : swz(s, sl);
+}
 
 // One chunk's slot data, lane l holding slot t0 + l (zeros past the range).
 template <typename V>
@@ -184,7 +221,8 @@ __device__ __forceinline__ Meta<V> load_meta(const int* __restrict__ idx, int id
 // Start the cp.async copies of a chunk's rows of one factor into rows s of
 // sf (stride sl): the q 16-byte pieces of a row go to q neighbouring lanes,
 // so one instruction reads 32 / q whole rows. Every lane runs the same trip
-// count (the shuffles need the whole warp). kSwz: the fp32 route's swizzle.
+// count (the shuffles need the whole warp). kSwz: the tensor-core routes'
+// swizzle (swz_of<T>).
 template <typename T, bool kSwz>
 __device__ __forceinline__ void gather_side(const T* __restrict__ f, int ld, int sl, int q,
                                             int ix, int n, T* sf, int lane) {
@@ -196,7 +234,8 @@ __device__ __forceinline__ void gather_side(const T* __restrict__ f, int ld, int
     const int row = __shfl_sync(kFull, ix, s);
     const int col = r * kPer16;
     if (s < n)
-      cp_async16(sf + s * sl + (kSwz ? col ^ swz(s, sl) : col), f + (long long)row * ld + col);
+      cp_async16(sf + s * sl + (kSwz ? col ^ swz_of<T>(s, sl) : col),
+                 f + (long long)row * ld + col);
   }
 }
 
@@ -209,14 +248,14 @@ struct Shape {
   int bn, bi;      // the schedule's nnz block and row block sizes
 };
 
-// The part of a Kron row that one warp (fp32 route) or one lane (bf16 and
-// f64 routes) sums, in column block `by`, and its register accumulator
-// `Acc` of the value type V.
+// The part of a Kron row that one warp (tensor-core routes) or one lane
+// (CUDA-core routes) sums, in column block `by`, and its register
+// accumulator `Acc` of the value type V.
 template <bool kTC, typename V = float>
 struct Tile {
   static constexpr int kRows = kTC ? kNT : kTA, kCols = kTC ? 4 : kTB;
   using Acc = V[kRows][kCols];
-  // fp32 route: the warp's m16 tile (a columns a0c .. a0c + 15) by kNT n8
+  // tensor-core routes: the warp's m16 tile (a columns a0c .. a0c + 15) by kNT n8
   // tiles (b columns b0c .. b0c + 8 kNT - 1); acc[q][e] is column
   // (a0c + g + 8 (e >> 1), b0c + 8 q + 2 t + (e & 1)) of the row
   int a0c, b0c;
@@ -267,8 +306,9 @@ __device__ __forceinline__ void zero_ring(T* ring, int elems, int lane) {
 // elements of the warp's own shared memory, zeroed once by zero_ring).
 // Calls row_end(row, acc) with the warp's (or lane's) part of each finished
 // row, once per row, from the whole warp, and chunk_end() after each chunk.
-// kTC: the fp32 tensor-core route (T = V = float); otherwise a CUDA-core
-// route: bf16 (T = bf16, V = float) or f64 (T = V = double).
+// kTC: a tensor-core route, fp32 (T = V = float, 3xTF32) or f64 (T = V =
+// double, DMMA); otherwise a CUDA-core route: bf16 (T = bf16, V = float) or
+// f64 (T = V = double).
 template <typename T, bool kTC, typename V, typename RowEnd, typename ChunkEnd>
 __device__ __forceinline__ void walk(const T* __restrict__ fa, const T* __restrict__ fb,
                                      const int* __restrict__ idx,
@@ -341,34 +381,54 @@ __device__ __forceinline__ void walk(const T* __restrict__ fa, const T* __restri
     if constexpr (kTC) {
       // Y_row += (w a)^T b over slots 8 kb .. 8 kb + 7, w the slots' values
       // (0 where masked)
-      auto block_pass = [&](int kb, float w0, float w1) {
+      auto block_pass = [&](int kb, V w0, V w1) {
         const int s0 = 8 * kb + t, s1 = s0 + 4;  // the slots of k = t and k = t + 4
-        const int x0 = swz(s0, sla), x1 = swz(s1, sla);
-        const float* r0 = sa + s0 * sla;
-        const float* r1 = sa + s1 * sla;
-        // A = (w a)^T: rows are a's columns, k the slots
-        uint32_t ah[4], al[4];
-        split(w0 * r0[(a0c + g) ^ x0], ah[0], al[0]);
-        split(w0 * r0[(a0c + g + 8) ^ x0], ah[1], al[1]);
-        split(w1 * r1[(a0c + g) ^ x1], ah[2], al[2]);
-        split(w1 * r1[(a0c + g + 8) ^ x1], ah[3], al[3]);
+        const int x0 = swz_of<T>(s0, sla), x1 = swz_of<T>(s1, sla);
+        const T* r0 = sa + s0 * sla;
+        const T* r1 = sa + s1 * sla;
+        if constexpr (sizeof(T) == 8) {
+          // A = (w a)^T rounded once; the products accumulate into the row
+          const double a[4] = {__dmul_rn(w0, r0[(a0c + g) ^ x0]),
+                               __dmul_rn(w0, r0[(a0c + g + 8) ^ x0]),
+                               __dmul_rn(w1, r1[(a0c + g) ^ x1]),
+                               __dmul_rn(w1, r1[(a0c + g + 8) ^ x1])};
 #pragma unroll
-        for (int q = 0; q < kNT; ++q) {
-          const int col = b0c + 8 * q + g;
-          uint32_t bh[2], bl[2];
-          if (slb > 0) {
-            split(sb[s0 * slb + (col ^ swz(s0, slb))], bh[0], bl[0]);
-            split(sb[s1 * slb + (col ^ swz(s1, slb))], bh[1], bl[1]);
-          } else {  // 2-way: b is the implicit ones column
-            bh[0] = bh[1] = col == 0 ? 0x3f800000u : 0u;  // 1.f
-            bl[0] = bl[1] = 0u;
+          for (int q = 0; q < kNT; ++q) {
+            const int col = b0c + 8 * q + g;
+            double b[2];
+            if (slb > 0) {
+              b[0] = sb[s0 * slb + (col ^ swz64(s0))];
+              b[1] = sb[s1 * slb + (col ^ swz64(s1))];
+            } else {  // 2-way: b is the implicit ones column
+              b[0] = b[1] = col == 0 ? 1.0 : 0.0;
+            }
+            mma_f64(acc[q], a, b);
           }
-          float d[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_tf32(d, al, bh);
-          mma_tf32(d, ah, bl);
-          mma_tf32(d, ah, bh);
+        } else {
+          // A = (w a)^T: rows are a's columns, k the slots
+          uint32_t ah[4], al[4];
+          split(w0 * r0[(a0c + g) ^ x0], ah[0], al[0]);
+          split(w0 * r0[(a0c + g + 8) ^ x0], ah[1], al[1]);
+          split(w1 * r1[(a0c + g) ^ x1], ah[2], al[2]);
+          split(w1 * r1[(a0c + g + 8) ^ x1], ah[3], al[3]);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[q][e] = __fadd_rn(acc[q][e], d[e]);
+          for (int q = 0; q < kNT; ++q) {
+            const int col = b0c + 8 * q + g;
+            uint32_t bh[2], bl[2];
+            if (slb > 0) {
+              split(sb[s0 * slb + (col ^ swz(s0, slb))], bh[0], bl[0]);
+              split(sb[s1 * slb + (col ^ swz(s1, slb))], bh[1], bl[1]);
+            } else {  // 2-way: b is the implicit ones column
+              bh[0] = bh[1] = col == 0 ? 0x3f800000u : 0u;  // 1.f
+              bl[0] = bl[1] = 0u;
+            }
+            float d[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_tf32(d, al, bh);
+            mma_tf32(d, ah, bl);
+            mma_tf32(d, ah, bh);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[q][e] = __fadd_rn(acc[q][e], d[e]);
+          }
         }
       };
       if (cur >= 0 && __ballot_sync(kFull, eff > cur) == 0) {
@@ -384,12 +444,12 @@ __device__ __forceinline__ void walk(const T* __restrict__ fa, const T* __restri
         for (int kb = 0; 8 * kb < n; ++kb) {
           const int s0 = 8 * kb + t, s1 = s0 + 4;
           const int e0 = __shfl_sync(kFull, eff, s0), e1 = __shfl_sync(kFull, eff, s1);
-          const float v0 = __shfl_sync(kFull, m[0].v, s0), v1 = __shfl_sync(kFull, m[0].v, s1);
+          const V v0 = __shfl_sync(kFull, m[0].v, s0), v1 = __shfl_sync(kFull, m[0].v, s1);
           const unsigned block = 0xffu << (8 * kb);
           unsigned later = __ballot_sync(kFull, eff > cur) & block;
           while (true) {
             if (cur >= 0)  // this block's slots of row cur (and the zero-valued ones)
-              block_pass(kb, e0 == cur || e0 < 0 ? v0 : 0.f, e1 == cur || e1 < 0 ? v1 : 0.f);
+              block_pass(kb, e0 == cur || e0 < 0 ? v0 : V(0), e1 == cur || e1 < 0 ? v1 : V(0));
             if (!later) break;
             end_row();  // the row ends in this block: the next row starts
             zero_acc();

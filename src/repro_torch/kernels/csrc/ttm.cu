@@ -26,13 +26,48 @@
 // last, the sums are the same, so the bits are the same on every run. The
 // last CTA resets the tickets, so the counters stay zero between launches.
 //
-// float64: the same kernel with f64 operands, accumulators, slots and
-// output (A = double below), the same walk and the same fixed-order
-// combine; the ring has half the stages (kStagesOf<double>), as each holds
-// twice the bytes.
+// float64: the same launch and ring, with f64 operands, slots and output
+// (A = double below), the products on the f64 tensor cores and the splits
+// combined through thread-block clusters.
+//   * Products: DMMA, mma.sync m16n8k8 .f64 (tc::mma_f64). Warp w owns rows
+//     32 w .. 32 w + 31 of the tile (two m16 tiles) by its 16 columns (two
+//     n8 tiles), A = y (rows l, k the contraction), B = u^T, accumulated in
+//     contraction order into f64 fragments (32 registers a thread; the
+//     CUDA-core tile of 4 x 4 outputs a thread made 8 shared loads for every
+//     16 FMAs). The staged rows are padded by kRowPad = 4 doubles, so that a
+//     fragment load, 4 contraction rows x 8 columns of 8 bytes served as two
+//     half-warps, meets no bank conflict: row stride 260 = 4 (mod 16) bank
+//     pairs puts column g of row t on pair 4t + g. The padding rules out the
+//     4-row bulk copies: each staged row is a copy of its own. Contraction
+//     indices past a step's end are masked to 0 in both fragments. The ring
+//     keeps 3 stages of 32 rows (kStagesOf<double>, 210 KB).
+//   * Combine. Measured on an H100 (tools/probe_f64.py --ttm-anatomy), the
+//     f32 path's combine left ~25 us a call besides streaming the bytes,
+//     most of it the two serial gathers of whole 32 KB tile partials by one CTA each
+//     (a group of ~12 splits, then ~11 groups). Here kCluster = 8
+//     consecutive splits form a cluster (n_splits a multiple of 8, the
+//     splits past I empty): each CTA puts its partial in its shared memory,
+//     CTA `rank` of the cluster sums part `rank` of the tile (kTile / 8
+//     elements) over the 8 shared memories in rank order (distributed
+//     shared memory) and writes it to the cluster's slot; the last CTA to
+//     write part `rank` (a ticket a part) sums that part of the n_splits / 8
+//     cluster slots in cluster order into G. The final level so runs on 8
+//     SMs at once and reads 1/8 of a tile each; the order of every sum is
+//     fixed, so the bits are the same on every run, and no CTA waits on
+//     another outside its cluster. ttm_cluster_capacity gives the clusters
+//     a card holds at once (one CTA an SM), from which ttm_kernel.py sizes
+//     the split.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cooperative_groups.h>
+
+#include <type_traits>
+
+#include "tc_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -40,10 +75,21 @@ constexpr int kBL = 256;       // output rows per tile
 constexpr int kBR = 16;        // output columns per tile
 constexpr int kBT = 32;        // contraction indices per staging step
 constexpr int kThreads = 256;  // thread t: rows 4 (t % 64) .. + 3, columns 4 (t / 64) .. + 3
+constexpr int kTile = kBL * kBR;
+constexpr int kCluster = 8;  // f64: the CTAs of a cluster, whose partials meet in shared memory
 
 // ring depth of the bulk-copy path: ~200 KB of operands in flight per SM
 template <typename T>
 constexpr int kStagesOf = sizeof(T) == 8 ? 3 : 6;
+// f64 runs its products on the tensor cores (DMMA), with staged rows padded
+// by kRowPad elements; the other types on the CUDA cores, unpadded
+template <typename T>
+constexpr bool kDmmaOf = std::is_same<T, double>::value;
+constexpr int kRowPad = 4;
+template <typename T>
+constexpr int kYsOf = kDmmaOf<T> ? kBL + kRowPad : kBL;  // staged y row stride
+template <typename T>
+constexpr int kUsOf = kDmmaOf<T> ? kBR + kRowPad : kBR;  // staged u row stride
 // the accumulator, slot and output type: f64 for f64 operands, else f32
 template <typename T>
 struct AccOf {
@@ -117,10 +163,11 @@ __global__ void __launch_bounds__(kThreads, 1)
                int R, int chunk, int n_splits, int group, int bulk) {
   using A = typename AccOf<T>::type;
   constexpr int kStages = kStagesOf<T>;
+  constexpr int YS = kYsOf<T>, US = kUsOf<T>;
   extern __shared__ __align__(128) uint8_t smem[];
-  T* ys = reinterpret_cast<T*>(smem);  // [kStages][kBT][kBL]
-  T* us = ys + kStages * kBT * kBL;    // [kStages][kBT][kBR]
-  uint64_t* full = reinterpret_cast<uint64_t*>(us + kStages * kBT * kBR);
+  T* ys = reinterpret_cast<T*>(smem);  // [kStages][kBT][YS]
+  T* us = ys + kStages * kBT * YS;     // [kStages][kBT][US]
+  uint64_t* full = reinterpret_cast<uint64_t*>(us + kStages * kBT * US);
 
   const int tid = threadIdx.x;
   const int n_ltiles = (L + kBL - 1) / kBL;
@@ -131,16 +178,47 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n_steps = (i1 - i0 + kBT - 1) / kBT;
   const int lq = 4 * (tid % 64), rq = 4 * (tid / 64);
   A acc[4][4] = {};
+  // DMMA: warp w's rows lw .. lw + 31, lane (g, t); dacc[m][n] is the
+  // m16n8k8 fragment of rows lw + 16 m, columns 8 n
+  const int g = (tid % 32) / 4, t = tid % 4, lw = 32 * (tid / 32);
+  double dacc[2][2][4] = {};
 
   auto compute = [&](const T* yst, const T* ust, int nt) {
-    for (int tt = 0; tt < nt; ++tt) {
-      A a[4], b[4];
-      load4(yst + tt * kBL + lq, a);
-      load4(ust + tt * kBR + rq, b);
+    if constexpr (kDmmaOf<T>) {
+      for (int k0 = 0; k0 < nt; k0 += 8) {
+        // contraction rows k0 + t and k0 + t + 4; those at or past nt are 0
+        const int k1 = k0 + t, k2 = k1 + 4;
+        const bool in1 = k1 < nt, in2 = k2 < nt;
+        const T* y1 = yst + k1 * YS + lw + g;
+        const T* y2 = yst + k2 * YS + lw + g;
+        double a[2][4], b[2][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int m = 0; m < 2; ++m) {
+          a[m][0] = in1 ? y1[16 * m] : 0.0;
+          a[m][1] = in1 ? y1[16 * m + 8] : 0.0;
+          a[m][2] = in2 ? y2[16 * m] : 0.0;
+          a[m][3] = in2 ? y2[16 * m + 8] : 0.0;
+        }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fma_rn(a[i], b[j], acc[i][j]);
+        for (int n = 0; n < 2; ++n) {
+          b[n][0] = in1 ? ust[k1 * US + 8 * n + g] : 0.0;
+          b[n][1] = in2 ? ust[k2 * US + 8 * n + g] : 0.0;
+        }
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int n = 0; n < 2; ++n) tc::mma_f64(dacc[m][n], a[m], b[n]);
+      }
+    } else {
+      for (int tt = 0; tt < nt; ++tt) {
+        A a[4], b[4];
+        load4(yst + tt * kBL + lq, a);
+        load4(ust + tt * kBR + rq, b);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fma_rn(a[i], b[j], acc[i][j]);
+      }
     }
   };
 
@@ -153,10 +231,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();
     // a step's rows are one contiguous block where the tile spans whole rows
-    // of a dense operand (the sweep's y and u): a few large copies; else a
-    // copy per row
-    const bool y_block = l0 == 0 && sy1 == nl && nl == kBL;
-    const bool u_block = r0 == 0 && su1 == nr && nr == kBR;
+    // of a dense operand (the sweep's y and u) and the staged rows are not
+    // padded: a few large copies; else a copy per row
+    const bool y_block = !kDmmaOf<T> && l0 == 0 && sy1 == nl && nl == kBL;
+    const bool u_block = !kDmmaOf<T> && r0 == 0 && su1 == nr && nr == kBR;
     // warp 0 fills stage s % kStages with step s: lane 0 posts the bytes,
     // then the lanes issue the copies
     auto issue = [&](int s) {
@@ -181,16 +259,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       const T* usrc = u + (long long)ib * su1 + r0;
       if (y_block) {  // 4-row (4 KB) copies, several in flight per step
         for (int c = 4 * tid; c < nt; c += 4 * 32)
-          copy(ys + (st * kBT + c) * kBL, ysrc + (long long)c * sy1, min(4, nt - c) * yb);
+          copy(ys + (st * kBT + c) * YS, ysrc + (long long)c * sy1, min(4, nt - c) * yb);
       } else {
         for (int tt = tid; tt < nt; tt += 32)
-          copy(ys + (st * kBT + tt) * kBL, ysrc + (long long)tt * sy1, yb);
+          copy(ys + (st * kBT + tt) * YS, ysrc + (long long)tt * sy1, yb);
       }
       if (u_block) {
-        if (tid == 1) copy(us + st * kBT * kBR, usrc, nt * ub);
+        if (tid == 1) copy(us + st * kBT * US, usrc, nt * ub);
       } else {
         for (int tt = tid; tt < nt; tt += 32)
-          copy(us + (st * kBT + tt) * kBR, usrc + (long long)tt * su1, ub);
+          copy(us + (st * kBT + tt) * US, usrc + (long long)tt * su1, ub);
       }
     };
     if (tid < 32)
@@ -211,7 +289,7 @@ __global__ void __launch_bounds__(kThreads, 1)
             : "r"(smem_u32(&full[st])), "r"(parity)
             : "memory");
       }
-      compute(ys + st * kBT * kBL, us + st * kBT * kBR, min(kBT, i1 - (i0 + s * kBT)));
+      compute(ys + st * kBT * YS, us + st * kBT * US, min(kBT, i1 - (i0 + s * kBT)));
       __syncthreads();
     }
   } else {
@@ -221,13 +299,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int e = tid; e < kBT * kBL; e += kThreads) {
         int tt, ll;
         if (sy0 <= sy1) { ll = e % kBL; tt = e / kBL; } else { tt = e % kBT; ll = e / kBT; }
-        ys[tt * kBL + ll] =
+        ys[tt * YS + ll] =
             tt < nt && ll < nl ? y[(long long)(l0 + ll) * sy0 + (long long)(ib + tt) * sy1] : T(0.f);
       }
       for (int e = tid; e < kBT * kBR; e += kThreads) {
         int tt, rr;
         if (su0 <= su1) { rr = e % kBR; tt = e / kBR; } else { tt = e % kBT; rr = e / kBT; }
-        us[tt * kBR + rr] =
+        us[tt * US + rr] =
             tt < nt && rr < nr ? u[(long long)(r0 + rr) * su0 + (long long)(ib + tt) * su1] : T(0.f);
       }
       __syncthreads();
@@ -236,105 +314,163 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
 
-  // The combine works on a flat view of the tile: thread t holds elements
-  // 4 (t + kThreads k) .. + 3 (k < 4) of the row-major (kBL, kBR) tile, so
-  // a warp reads or writes 512 contiguous bytes of a slot at a time. The
-  // partial moves to that view through shared memory (the ring is free).
   A* tile_s = reinterpret_cast<A*>(smem);
+  if constexpr (kDmmaOf<T>) {
+    // f64: the partial goes to shared memory, row-major (kBL, kBR); the
+    // cluster's kCluster partials are summed there, each CTA summing part
+    // `rank` of the tile (kTile / kCluster elements) over the cluster's
+    // shared memories in rank order; the cluster writes its sum to its slot,
+    // one part a CTA, and the last CTA of each part to arrive (a ticket a
+    // part) sums that part of the slots in cluster order into G. No CTA
+    // waits on another outside its cluster, so the last level runs on
+    // kCluster SMs at once where one CTA summed whole tiles.
 #pragma unroll
-  for (int i = 0; i < 4; ++i) store4(tile_s + (lq + i) * kBR + rq, acc[i]);
-  __syncthreads();
-  A flat[4][4];
+    for (int m = 0; m < 2; ++m)
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const A* p = tile_s + 4 * (tid + kThreads * k);
+      for (int n = 0; n < 2; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) flat[k][e] = p[e];
-  }
-  // element 4 (tid + kThreads k) + e is row fl(k), column fc(k) + e of the tile
-  auto fl = [&](int k) { return 4 * (tid + kThreads * k) / kBR; };
-  auto fc = [&](int k) { return 4 * (tid + kThreads * k) % kBR; };
-  const long long lr = (long long)L * R;
-  auto at = [&](int k) { return (long long)(l0 + fl(k)) * R + r0 + fc(k); };
-  // four columns as one 16-byte access where they are whole and aligned
-  auto whole = [&](int k) { return R % 4 == 0 && fc(k) + 4 <= nr; };
-  auto put = [&](A* dst) {
+        for (int h = 0; h < 2; ++h)  // rows g, g + 8: columns 2t, 2t + 1
+          *reinterpret_cast<double2*>(tile_s + (lw + 16 * m + g + 8 * h) * kBR + 8 * n + 2 * t) =
+              make_double2(dacc[m][n][2 * h], dacc[m][n][2 * h + 1]);
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank();
+    cluster.sync();  // every partial of the cluster is in its CTA's shared memory
+    constexpr int kPer = kTile / kCluster, kEach = kPer / kThreads;
+    double part[kEach];
+#pragma unroll
+    for (int k = 0; k < kEach; ++k) {
+      const int e = rank * kPer + k * kThreads + tid;
+      double sum = 0.0;
+#pragma unroll
+      for (int j = 0; j < kCluster; ++j) sum += cluster.map_shared_rank(tile_s, j)[e];
+      part[k] = sum;
+    }
+    cluster.sync();  // no CTA leaves while another reads its shared memory
+    // flat element e is row e / kBR, column e % kBR of the tile
+    const long long lr = (long long)L * R;
+    auto at = [&](int e) { return (long long)(l0 + e / kBR) * R + r0 + e % kBR; };
+    auto inside = [&](int e) { return e / kBR < nl && e % kBR < nr; };
+    const int n_clusters = n_splits / kCluster;
+    A* dst = n_clusters == 1 ? out : slots + (long long)(split / kCluster) * lr;
+#pragma unroll
+    for (int k = 0; k < kEach; ++k) {
+      const int e = rank * kPer + k * kThreads + tid;
+      if (inside(e)) dst[at(e)] = part[k];
+    }
+    if (n_clusters == 1) return;
+    int* tk = tickets + (long long)tile * kCluster;
+    if (!last_to_arrive(&tk[rank], n_clusters)) return;
+#pragma unroll
+    for (int k = 0; k < kEach; ++k) {
+      const int e = rank * kPer + k * kThreads + tid;
+      if (!inside(e)) continue;
+      double sum = 0.0;
+      for (int c = 0; c < n_clusters; ++c) sum += __ldcg(slots + c * lr + at(e));
+      out[at(e)] = sum;
+    }
+    if (tid == 0) tk[rank] = 0;
+  } else {
+    // The combine works on a flat view of the tile: thread t holds elements
+    // 4 (t + kThreads k) .. + 3 (k < 4) of the row-major (kBL, kBR) tile,
+    // so a warp reads or writes 512 contiguous bytes of a slot at a time.
+    // The partial moves to that view through shared memory (the ring is
+    // free).
+#pragma unroll
+    for (int i = 0; i < 4; ++i) store4(tile_s + (lq + i) * kBR + rq, acc[i]);
+    __syncthreads();
+    A flat[4][4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      if (fl(k) >= nl) continue;
-      A* p = dst + at(k);
-      if (whole(k)) {
-        store4(p, flat[k]);
-      } else {
+      const A* p = tile_s + 4 * (tid + kThreads * k);
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (fc(k) + e < nr) p[e] = flat[k][e];
-      }
+      for (int e = 0; e < 4; ++e) flat[k][e] = p[e];
     }
-  };
-  // flat = the sum of slots 0 .. n - 1 of src, in slot order; four slots'
-  // loads are in flight at a time, the adds stay in order
-  auto gather = [&](const A* src, int n) {
+    // element 4 (tid + kThreads k) + e is row fl(k), column fc(k) + e of the tile
+    auto fl = [&](int k) { return 4 * (tid + kThreads * k) / kBR; };
+    auto fc = [&](int k) { return 4 * (tid + kThreads * k) % kBR; };
+    const long long lr = (long long)L * R;
+    auto at = [&](int k) { return (long long)(l0 + fl(k)) * R + r0 + fc(k); };
+    // four columns as one 16-byte access where they are whole and aligned
+    auto whole = [&](int k) { return R % 4 == 0 && fc(k) + 4 <= nr; };
+    auto put = [&](A* dst) {
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) flat[k][e] = A(0);
-    for (int c0 = 0; c0 < n; c0 += 4) {
-      A x[4][4][4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const A* p = src + (c0 + c) * lr + at(k);
-          const bool row = c0 + c < n && fl(k) < nl;
-          if (whole(k)) {
-            if (row) {
-              load4_cg(p, x[c][k]);
-            } else {
-#pragma unroll
-              for (int e = 0; e < 4; ++e) x[c][k][e] = A(0);
-            }
-          } else {
-#pragma unroll
-            for (int e = 0; e < 4; ++e) x[c][k][e] = row && fc(k) + e < nr ? __ldcg(p + e) : A(0);
-          }
-        }
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
+      for (int k = 0; k < 4; ++k) {
+        if (fl(k) >= nl) continue;
+        A* p = dst + at(k);
+        if (whole(k)) {
+          store4(p, flat[k]);
+        } else {
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            if (c0 + c < n) flat[k][e] += x[c][k][e];
+            if (fc(k) + e < nr) p[e] = flat[k][e];
+        }
+      }
+    };
+    // flat = the sum of slots 0 .. n - 1 of src, in slot order; four slots'
+    // loads are in flight at a time, the adds stay in order
+    auto gather = [&](const A* src, int n) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) flat[k][e] = A(0);
+      for (int c0 = 0; c0 < n; c0 += 4) {
+        A x[4][4][4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const A* p = src + (c0 + c) * lr + at(k);
+            const bool row = c0 + c < n && fl(k) < nl;
+            if (whole(k)) {
+              if (row) {
+                load4_cg(p, x[c][k]);
+              } else {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) x[c][k][e] = A(0);
+              }
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) x[c][k][e] = row && fc(k) + e < nr ? __ldcg(p + e) : A(0);
+            }
+          }
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (c0 + c < n) flat[k][e] += x[c][k][e];
+      }
+    };
+    if (n_splits == 1) {
+      put(out);
+      return;
     }
-  };
-  if (n_splits == 1) {
+    const int n_groups = (n_splits + group - 1) / group;
+    const int grp = split / group, g0 = grp * group, gn = min(group, n_splits - g0);
+    int* tk = tickets + (long long)tile * (n_groups + 1);
+    put(slots + split * lr);
+    if (!last_to_arrive(&tk[grp], gn)) return;
+    gather(slots + g0 * lr, gn);
+    if (tid == 0) tk[grp] = 0;
+    if (n_groups == 1) {
+      put(out);
+      return;
+    }
+    put(slots + (n_splits + grp) * lr);
+    if (!last_to_arrive(&tk[n_groups], n_groups)) return;
+    gather(slots + n_splits * lr, n_groups);
+    if (tid == 0) tk[n_groups] = 0;
     put(out);
-    return;
   }
-  const int n_groups = (n_splits + group - 1) / group;
-  const int grp = split / group, g0 = grp * group, gn = min(group, n_splits - g0);
-  int* tk = tickets + (long long)tile * (n_groups + 1);
-  put(slots + split * lr);
-  if (!last_to_arrive(&tk[grp], gn)) return;
-  gather(slots + g0 * lr, gn);
-  if (tid == 0) tk[grp] = 0;
-  if (n_groups == 1) {
-    put(out);
-    return;
-  }
-  put(slots + (n_splits + grp) * lr);
-  if (!last_to_arrive(&tk[n_groups], n_groups)) return;
-  gather(slots + n_splits * lr, n_groups);
-  if (tid == 0) tk[n_groups] = 0;
-  put(out);
 }
 
 long long n_launched = 0;  // kernels this library has launched
 
 template <typename T>
 size_t smem_bytes() {
-  return (size_t)kStagesOf<T> * kBT * (kBL + kBR) * sizeof(T) + kStagesOf<T> * sizeof(uint64_t);
+  return (size_t)kStagesOf<T> * kBT * (kYsOf<T> + kUsOf<T>) * sizeof(T) +
+         kStagesOf<T> * sizeof(uint64_t);
 }
 
 template <typename T>
@@ -354,10 +490,26 @@ int launch(const void* y, long long sy0, long long sy1, const void* u, long long
     if (device < 64) attr_set[device] = true;
   }
   const int n_tiles = ((L + kBL - 1) / kBL) * ((R + kBR - 1) / kBR);
-  kernel<<<(unsigned)((long long)n_tiles * n_splits), kThreads, smem, st>>>(
-      static_cast<const T*>(y), sy0, sy1, static_cast<const T*>(u), su0, su1,
-      static_cast<A*>(slots), static_cast<int*>(tickets), static_cast<A*>(out), L, I, R, chunk,
-      n_splits, group, bulk);
+  const unsigned n_ctas = (unsigned)((long long)n_tiles * n_splits);
+  if constexpr (kDmmaOf<T>) {  // clusters of kCluster consecutive splits
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kCluster;
+    attr[0].val.clusterDim.y = attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(n_ctas), cfg.blockDim = dim3(kThreads), cfg.dynamicSmemBytes = smem;
+    cfg.stream = st, cfg.attrs = attr, cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(y), sy0, sy1,
+                             static_cast<const T*>(u), su0, su1, static_cast<A*>(slots),
+                             static_cast<int*>(tickets), static_cast<A*>(out), L, I, R, chunk,
+                             n_splits, group, bulk);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    kernel<<<n_ctas, kThreads, smem, st>>>(
+        static_cast<const T*>(y), sy0, sy1, static_cast<const T*>(u), su0, su1,
+        static_cast<A*>(slots), static_cast<int*>(tickets), static_cast<A*>(out), L, I, R, chunk,
+        n_splits, group, bulk);
+  }
   const cudaError_t err_launch = cudaGetLastError();
   if (err_launch == cudaSuccess) ++n_launched;
   return (int)err_launch;
@@ -365,24 +517,54 @@ int launch(const void* y, long long sy0, long long sy1, const void* u, long long
 
 }  // namespace
 
-// out (L, R) contiguous = y (L, I) @ u (R, I)^T, y and u read through
-// their element strides, f32 (kind = 0), bf16 (kind = 1) or f64 (kind =
-// 2); out and slots are f64 for kind = 2, else f32. Split s of n_splits
-// covers contraction indices [s*chunk, min(I, (s+1)*chunk)); splits are
-// combined in groups of ``group``. slots holds (n_splits + n_groups) x L x R
-// values and tickets n_tiles x (n_groups + 1) ints, all zero on entry (and
-// left zero). bulk = 1 needs sy0 = su0 = 1 and every row start and length
-// 16-byte aligned. Returns cudaGetLastError() after the launch.
 // device kernels launched by ttm_launch so far (one per successful call)
 extern "C" long long ttm_kernels_launched() { return n_launched; }
 
+// The clusters of the f64 kernel (kind = 2) that one card holds at once
+// (cudaOccupancyMaxActiveClusters: clusters of *cluster = kCluster CTAs, one
+// CTA an SM), from which the wrapper sizes its split. Returns a CUDA error
+// code.
+extern "C" int ttm_cluster_capacity(int* cluster, int* max_clusters) {
+  *cluster = kCluster;
+  *max_clusters = 0;
+  auto kernel = ttm_kernel<double>;
+  const size_t smem = smem_bytes<double>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(kCluster), cfg.blockDim = dim3(kThreads), cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr, cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cfg);
+}
+
+// out (L, R) contiguous = y (L, I) @ u (R, I)^T, y and u read through
+// their element strides, f32 (kind = 0), bf16 (kind = 1) or f64 (kind =
+// 2); out and slots are f64 for kind = 2, else f32. Split s of n_splits
+// covers contraction indices [s*chunk, min(I, (s+1)*chunk)). f32 and bf16:
+// splits are combined in groups of ``group``; slots holds (n_splits +
+// n_groups) x L x R values and tickets n_tiles x (n_groups + 1) ints. f64:
+// group = kCluster (ttm_cluster_capacity), n_splits a multiple of it (the
+// splits past I empty), splits combined in clusters of group; slots holds
+// (n_splits / group) x L x R values (none for one cluster) and tickets
+// n_tiles x group ints. Tickets are all zero on entry (and left zero). bulk
+// = 1 needs sy0 = su0 = 1 and every row start and length 16-byte aligned.
+// Returns cudaGetLastError() after the launch.
 extern "C" int ttm_launch(const void* y, long long sy0, long long sy1, const void* u,
                           long long su0, long long su1, void* slots, void* tickets, void* out,
                           int L, int I, int R, int chunk, int n_splits, int group, int bulk,
                           int kind, void* stream) {
-  if (kind < 0 || kind > 2 || L < 1 || I < 1 || R < 1 || chunk < 1 || n_splits < 1 || group < 1 ||
-      (long long)(n_splits - 1) * chunk >= I || (long long)n_splits * chunk < I ||
-      (bulk && (sy0 != 1 || su0 != 1)))
+  if (kind < 0 || kind > 2 || L < 1 || I < 1 || R < 1 || chunk < 1 || n_splits < 1 ||
+      group < 1 || (bulk && (sy0 != 1 || su0 != 1)))
+    return (int)cudaErrorInvalidValue;
+  const long long need = (I + (long long)chunk - 1) / chunk;  // splits that hold indices
+  if (kind == 2 ? group != kCluster || n_splits % kCluster || n_splits < need ||
+                      n_splits >= need + kCluster
+                : n_splits != need)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (kind == 1)
@@ -393,4 +575,28 @@ extern "C" int ttm_launch(const void* y, long long sy0, long long sy1, const voi
                           n_splits, group, bulk, st);
   return launch<float>(y, sy0, sy1, u, su0, su1, slots, tickets, out, L, I, R, chunk, n_splits,
                        group, bulk, st);
+}
+
+// The launch ttm_launch makes for one kind (its codes): threads a CTA,
+// dynamic shared memory a CTA, the kernel's registers a thread and the CTAs
+// one SM holds. Returns a CUDA error code.
+extern "C" int ttm_occupancy(int kind, int* threads, long long* smem, int* regs, int* per_sm) {
+  *threads = *regs = *per_sm = 0;
+  *smem = 0;
+  if (kind < 0 || kind > 2) return (int)cudaErrorInvalidValue;
+  auto query = [&](auto kernel, size_t bytes) {
+    cudaFuncAttributes attr{};
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, kThreads, bytes);
+    *threads = kThreads;
+    *smem = (long long)bytes;
+    *regs = attr.numRegs;
+    return (int)err;
+  };
+  if (kind == 1) return query(ttm_kernel<__nv_bfloat16>, smem_bytes<__nv_bfloat16>());
+  if (kind == 2) return query(ttm_kernel<double>, smem_bytes<double>());
+  return query(ttm_kernel<float>, smem_bytes<float>());
 }

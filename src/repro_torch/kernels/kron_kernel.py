@@ -27,7 +27,10 @@ float64 operands under ``precision="fp32"`` run the kernels' f64
 instantiations and give f64 results (the reference's Pallas kernels compute
 in f32 whatever the dtype; its XLA engine keeps f64, and the port's card
 runs as that engine does); under ``bf16_fp32acc`` they take the bf16 route
-with f32 values and results, as the reference's kernels do.
+with f32 values and results, as the reference's kernels do. Where each
+kernel's products run, by dtype and precision (the f64 tensor cores for
+kernel 1 in f64, the CUDA cores for kernel 5 and the chain kernel in f64),
+is :func:`launch_route`'s answer.
 """
 from __future__ import annotations
 
@@ -103,6 +106,45 @@ def _kind(dtype: torch.dtype) -> int:
     return {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}[dtype]
 
 
+# the datapaths a kernel's products run on (launch_route): the tensor cores
+# with each f32 operand split into two TF32 parts, the f64 tensor cores
+# (DMMA), and the CUDA cores
+ROUTES = ("3xtf32", "dmma", "cuda_cores")
+# the walk kernels (kron_walk.cuh and the chain kernel's walk), whose f32
+# products run on 3xTF32
+_WALK_KERNELS = ("fused_kron_scatter", "fused_kron_scatter_ttm", "fused_kron_chain_scatter")
+_ROUTED_KERNELS = _WALK_KERNELS + ("ttm", "kron_contrib", "scatter_rows")
+
+
+def launch_route(kernel: str, dtype: torch.dtype, precision: str = "fp32") -> str:
+    """The datapath (one of :data:`ROUTES`) on which the CUDA kernel of the
+    wrapper named ``kernel`` runs its products for operands of ``dtype``
+    under ``precision``, as its source picks it by the operand code:
+
+    * float64 at ``fp32``: ``"dmma"`` for kernel 1 (``fused_kron_scatter``,
+      the walk's f64 tensor-core route) and kernel 2 (``ttm``);
+      ``"cuda_cores"`` for kernel 5 (``fused_kron_scatter_ttm``, whose row
+      end contracts the walk's lane tiles) and the chain kernel
+      (``fused_kron_chain_scatter``);
+    * float32 at ``fp32``: ``"3xtf32"`` for the three walk kernels,
+      ``"cuda_cores"`` for kernel 2;
+    * ``bf16_fp32acc`` (either dtype): ``"cuda_cores"``, each product
+      rounded to bf16 as the plain versions round it;
+    * kernels 3 and 4 (``kron_contrib``, ``scatter_rows``): ``"cuda_cores"``.
+    """
+    if kernel not in _ROUTED_KERNELS:
+        raise ValueError(f"launch_route: unknown kernel {kernel!r}, one of {_ROUTED_KERNELS}")
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"launch_route: operands must be float32 or float64, got {dtype}")
+    if precision == "bf16_fp32acc" or kernel in ("kron_contrib", "scatter_rows"):
+        return "cuda_cores"
+    if dtype == torch.float64:
+        return "dmma" if kernel in ("fused_kron_scatter", "ttm") else "cuda_cores"
+    return "3xtf32" if kernel in _WALK_KERNELS else "cuda_cores"
+
+
 def _mask_unvisited(out: torch.Tensor, sched) -> torch.Tensor:
     """Zero the rows of row blocks that no nnz block targets
     (``sched.row_mask``; ``None`` means every block is visited)."""
@@ -141,6 +183,32 @@ def _lib():
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def occupancy(dev: torch.device, ra: int, rb: int, dtype: torch.dtype,
+              precision: str = "fp32") -> dict:
+    """The launch :func:`fused_kron_scatter` makes on ``dev`` at ranks
+    (``ra``, ``rb``) (``rb`` = 0: a 2-way tensor) for factors of ``dtype``
+    under ``precision``, as ``csrc/kron_scatter.cu`` sizes it: ``threads``
+    a CTA, dynamic ``smem_bytes`` a CTA, the kernel's ``registers`` a
+    thread and the CTAs one SM holds (``ctas_per_sm``). Raises when the
+    ranks exceed one warp's staging."""
+    kind = _kind(torch.bfloat16 if precision == "bf16_fp32acc" else dtype)
+    per16 = 16 // {0: 4, 1: 2, 2: 8}[kind]
+    lda, ldb = -(-ra // per16) * per16, -(-rb // per16) * per16
+    fn = _build.load("kron_scatter").kron_scatter_occupancy
+    i = ctypes.c_int
+    fn.argtypes = [i] * 5 + [ctypes.POINTER(i), ctypes.POINTER(ctypes.c_longlong)] + [
+        ctypes.POINTER(i)] * 2
+    fn.restype = i
+    threads, regs, per_sm, smem = i(0), i(0), i(0), ctypes.c_longlong(0)
+    with torch.cuda.device(dev):
+        rc = fn(ra, max(rb, 1), lda, ldb, kind, ctypes.byref(threads), ctypes.byref(smem),
+                ctypes.byref(regs), ctypes.byref(per_sm))
+    if rc != 0:
+        raise RuntimeError(f"kron_scatter_occupancy at ranks ({ra}, {rb}): CUDA error {rc}")
+    return {"threads": threads.value, "smem_bytes": smem.value, "registers": regs.value,
+            "ctas_per_sm": per_sm.value}
 
 
 def _require(cond: bool, msg: str, kernel: str) -> None:
@@ -270,7 +338,9 @@ def fused_kron_scatter(fa, fb, sched, n_rows: int, *,
     factor matrices are rounded to bf16 once. CPU tensors run the plain
     version; CUDA tensors launch the kernel of ``csrc/kron_scatter.cu``,
     which gathers the rows itself, or raise. f64 factors (``fp32``) give an
-    f64 Y (see the module docstring).
+    f64 Y, its products on the f64 tensor cores (DMMA, :func:`launch_route`)
+    with each term fma(round(v a), b, acc), where the plain version rounds
+    round(a b) v: about one f64 ulp of a term apart.
     """
     if fa.device.type == "cpu":
         return fused_kron_scatter_plain(fa, fb, sched, n_rows, precision=precision)
@@ -478,7 +548,8 @@ def fused_kron_scatter_ttm(fa, fb, u, sched, n_rows: int, *,
     factor rows are read through the schedule); ``u`` is the (n_rows, R)
     factor of the schedule's mode, of ``fa``'s dtype, rounded to bf16 with
     ``fa`` and ``fb`` under ``bf16_fp32acc``. G is f32, or f64 for f64
-    operands at ``fp32`` (:func:`result_dtype`). The first pass runs as many
+    operands at ``fp32`` (:func:`result_dtype`), whose walk and contraction
+    run on the CUDA cores (:func:`launch_route`). The first pass runs as many
     CTAs as the card holds at once, each taking a run of the row split's
     ranges. CPU tensors run the plain version; CUDA tensors launch the
     kernels of ``csrc/kron_scatter_ttm.cu`` or raise.
@@ -610,9 +681,10 @@ def fused_kron_chain_scatter(factors, sched, n_rows: int, *,
     ``sched.chain_cuts``. ``precision`` rounds as the chain does: under
     ``bf16_fp32acc`` f_1 and f_2 in bf16 and their product too, the later
     factors in f32 (the reference's later links run at fp32); f64 factors
-    at ``fp32`` give an f64 Y. CPU tensors run the plain version; CUDA
-    tensors launch the kernels of ``csrc/kron_chain_scatter.cu`` (the
-    ranges, then the in-order sum of the rows they share) or raise. The
+    at ``fp32`` give an f64 Y, summed on the CUDA cores
+    (:func:`launch_route`). CPU tensors run the plain version; CUDA tensors
+    launch the kernels of ``csrc/kron_chain_scatter.cu`` (the ranges, then
+    the in-order sum of the rows they share) or raise. The
     kernel is compiled for 3 to ``MAX_CHAIN_OPERANDS`` factors (orders 4 to
     6); :func:`repro_torch.kernels.ops.sparse_ttm_chain_device` sends higher
     orders to the chain of kernels 3 and 4.

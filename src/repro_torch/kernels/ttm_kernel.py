@@ -3,7 +3,9 @@
 Port of ``repro.kernels.ttm_kernel``. :func:`ttm` launches the one-launch
 CUDA kernel of ``csrc/ttm.cu`` for CUDA tensors and runs :func:`ttm_plain`
 for CPU tensors; nothing else picks between them. f32 and bf16 operands
-give an f32 G, f64 operands an f64 G (the kernel's f64 instantiation).
+give an f32 G, summed on the CUDA cores; f64 operands an f64 G, the
+kernel's f64 instantiation, whose products run on the f64 tensor cores
+(DMMA; ``kron_kernel.launch_route``).
 """
 from __future__ import annotations
 
@@ -29,13 +31,49 @@ def ttm_plain(y: torch.Tensor, u: torch.Tensor, *, precision: str = "fp32") -> t
     return y.to(dt) @ u.to(dt).T
 
 
+_LAUNCH = None  # the library's ttm_launch, its argument types set
+
+
 def _lib():
-    fn = _build.load("ttm").ttm_launch
-    if fn.argtypes is None:
+    global _LAUNCH
+    if _LAUNCH is None:
+        fn = _build.load("ttm").ttm_launch
         ll, i, p = ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
         fn.argtypes = [p, ll, ll, p, ll, ll, p, p, p, i, i, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
-    return fn
+        _LAUNCH = fn
+    return _LAUNCH
+
+
+# the current stream of a card as an int, from its index: one C call
+# (``torch.cuda.current_stream`` builds a Stream object and resolves the
+# device in Python, ~1/3 of the wrapper's host time on an H100's host)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(index: int) -> int:
+    if _raw_stream is not None:
+        return _raw_stream(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def occupancy(dev: torch.device, dtype: torch.dtype) -> dict:
+    """The launch :func:`ttm` makes on ``dev`` for operands of ``dtype`` (after
+    the precision cast), as ``csrc/ttm.cu`` sizes it: ``threads`` a CTA,
+    dynamic ``smem_bytes`` a CTA, the kernel's ``registers`` a thread and the
+    CTAs one SM holds (``ctas_per_sm``)."""
+    fn = _build.load("ttm").ttm_occupancy
+    i, pi = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    fn.argtypes = [i, pi, ctypes.POINTER(ctypes.c_longlong), pi, pi]
+    fn.restype = i
+    threads, regs, per_sm, smem = i(0), i(0), i(0), ctypes.c_longlong(0)
+    with torch.cuda.device(dev):
+        rc = fn(_kind(dtype), ctypes.byref(threads), ctypes.byref(smem), ctypes.byref(regs),
+                ctypes.byref(per_sm))
+    if rc != 0:
+        raise RuntimeError(f"ttm_occupancy for {dtype}: CUDA error {rc}")
+    return {"threads": threads.value, "smem_bytes": smem.value, "registers": regs.value,
+            "ctas_per_sm": per_sm.value}
 
 
 def kernels_launched() -> int:
@@ -65,6 +103,35 @@ def split(n_contract: int, tiles: int, n_sm: int) -> Tuple[int, int, int]:
     return chunk, n_splits, group
 
 
+def split_clusters(n_contract: int, tiles: int, cluster: int,
+                   max_clusters: int) -> Tuple[int, int, int]:
+    """(chunk, n_splits, group) of the f64 instantiation, whose splits are
+    combined in clusters of ``cluster`` CTAs (``group`` = ``cluster``): as
+    many clusters a tile as the card holds at once (``max_clusters`` over
+    the ``tiles``), ``n_splits`` a multiple of ``cluster``, each split's
+    range a multiple of 8 contraction indices (one m16n8k8 k-step); the
+    splits past I are empty."""
+    n = min(cluster * max(1, max_clusters // tiles), -(-n_contract // 8))
+    chunk = -(-(-(-n_contract // n)) // 8) * 8
+    need = -(-n_contract // chunk)
+    return chunk, -(-need // cluster) * cluster, cluster
+
+
+def _cluster_capacity(index: int) -> Tuple[int, int]:
+    """(CTAs a cluster, clusters card ``index`` holds at once) of the f64
+    instantiation (``ttm_cluster_capacity``)."""
+    fn = _build.load("ttm").ttm_cluster_capacity
+    pi = ctypes.POINTER(ctypes.c_int)
+    fn.argtypes, fn.restype = [pi, pi], ctypes.c_int
+    cluster, most = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = fn(ctypes.byref(cluster), ctypes.byref(most))
+    if rc != 0 or most.value < 1:
+        raise RuntimeError(f"ttm: no cluster of {cluster.value} f64 CTAs fits card {index} "
+                           f"(CUDA error {rc}, {most.value} clusters)")
+    return cluster.value, most.value
+
+
 def ranges(n_contract: int, chunk: int, n_splits: int) -> List[Tuple[int, int]]:
     """The contraction range [begin, end) of each split, in split order."""
     return [(s * chunk, min(n_contract, (s + 1) * chunk)) for s in range(n_splits)]
@@ -89,14 +156,22 @@ def _bulk(n_l: int, n_r: int, sy: Tuple[int, int], su: Tuple[int, int], esize: i
 def _launch_args(n_l: int, n_i: int, n_r: int, sy: Tuple[int, int], su: Tuple[int, int],
                  esize: int, aligned: bool, index: int) -> Tuple[int, ...]:
     """(chunk, n_splits, group, bulk, slot floats, tickets) for one call's
-    shapes and layout on card ``index``: host work done once per layout."""
+    shapes and layout on card ``index``: host work done once per layout.
+    f64 (``esize`` 8) splits by clusters (:func:`split_clusters`), the
+    other types by groups (:func:`split`)."""
     tiles = n_tiles(n_l, n_r)
-    chunk, n_splits, group = split(
-        n_i, tiles, torch.cuda.get_device_properties(index).multi_processor_count)
-    n_groups = -(-n_splits // group)
-    n_slots = (n_splits + n_groups) * n_l * n_r if n_splits > 1 else 1
+    if esize == 8:
+        chunk, n_splits, group = split_clusters(n_i, tiles, *_cluster_capacity(index))
+        n_slots = (n_splits // group) * n_l * n_r if n_splits > group else 1
+        n_tickets = tiles * group
+    else:
+        chunk, n_splits, group = split(
+            n_i, tiles, torch.cuda.get_device_properties(index).multi_processor_count)
+        n_groups = -(-n_splits // group)
+        n_slots = (n_splits + n_groups) * n_l * n_r if n_splits > 1 else 1
+        n_tickets = tiles * (n_groups + 1)
     return (chunk, n_splits, group, int(_bulk(n_l, n_r, sy, su, esize, aligned)), n_slots,
-            tiles * (n_groups + 1))
+            n_tickets)
 
 
 def _scratch(device: torch.device, n_slots: int, n_tickets: int,
@@ -150,7 +225,7 @@ def ttm(y: torch.Tensor, u: torch.Tensor, *, precision: str = "fp32") -> torch.T
     slots, tickets = _scratch(dev, n_slots, n_tickets, odt)
     rc = _lib()(yp, sy[0], sy[1], up, su[0], su[1], slots.data_ptr(), tickets.data_ptr(),
                 out.data_ptr(), n_l, n_i, n_r, chunk, n_splits, group, bulk,
-                _kind(y.dtype), torch.cuda.current_stream().cuda_stream)
+                _kind(y.dtype), _stream(dev.index))
     if rc != 0:
         raise RuntimeError(f"ttm_launch failed: CUDA error {rc}")
     launch_count.count(ttm)

@@ -140,6 +140,39 @@ def test_shared_memory_model_is_the_launchers():
     assert all(c.layout == "split" for c in at.candidate_configs(*big, 5000))
 
 
+@pytest.mark.parametrize("ra,rb,dmma,cuda_cores", [(16, 16, 16384, 16384),
+                                                   (13, 22, 24576, 20480),
+                                                   (33, 40, 49152, 40960),
+                                                   (7, 0, 8192, 4096)])
+def test_ring_model_follows_each_f64_route(ra, rb, dmma, cuda_cores):
+    """Kernel 1's f64 ring (DMMA route) is staged in whole 16-double blocks
+    as the fp32 route's, kernel 5's f64 ring (CUDA cores) in 8-element rows
+    of whole 4 x 2 lane tiles (csrc/kron_walk.cuh staged_strides): at ranks
+    (13, 22) 2 x 32 x (16 + 32) x 8 bytes against 2 x 32 x (16 + 24) x 8; a
+    2-way tensor (rb = 0) stages a alone."""
+    assert at._ring_bytes(ra, rb, "fp32", "float64") == dmma
+    assert at._ring_bytes(ra, rb, "fp32", "float64", "fused_kron_scatter_ttm") == cuda_cores
+    # f32 and bf16 rings are the same for both kernels
+    for precision in ("fp32", "bf16_fp32acc"):
+        assert (at._ring_bytes(ra, rb, precision)
+                == at._ring_bytes(ra, rb, precision, kernel="fused_kron_scatter_ttm"))
+
+
+def test_smem_model_keeps_kernel5s_f64_ring_on_the_fused_layout():
+    """In f64 the split layout's prune counts kernel 1's DMMA rings; the
+    fused layout's counts kernel 5's CTA on its own, CUDA-core ring."""
+    shape, ranks = (300, 200, 100), (13, 22, 10)
+    split, fused = at.BlockConfig(), at.BlockConfig(layout="fused")
+    dmma = [at._ring_bytes(*at._operand_ranks(ranks, m), "fp32", "float64") for m in range(3)]
+    assert dmma == [24576, 16384, 24576]
+    assert at.smem_bytes(split, shape, ranks, dtype="float64") == 24576
+    k5_ring = at._ring_bytes(22, 13, "fp32", "float64", "fused_kron_scatter_ttm")
+    assert k5_ring == 2 * 32 * (24 + 16) * 8
+    want = max(24576, at._mega_cta_bytes(1, 10, k5_ring, 8))
+    assert at.smem_bytes(fused, shape, ranks, dtype="float64") == want
+    assert want != max(24576, at._mega_cta_bytes(1, 10, dmma[2], 8))
+
+
 # -- the table ------------------------------------------------------------------------
 
 

@@ -20,7 +20,12 @@ Tolerances:
     f64 fit near 0 keeps no f32 floor), so the histories agree to 1e-6;
   * ``bf16_fp32acc`` with f64 tensors against the reference's Pallas engine
     under x64 (the same bf16 operands, f32 sums): fit 1e-4, projectors and
-    core 1e-3, the port's bf16 parity bounds (``test_torch_tucker.py``).
+    core 1e-3, the port's bf16 parity bounds (``test_torch_tucker.py``);
+  * a numpy model of kernel 1's f64 route on the tensor cores (DMMA: v a
+    rounded once, its products with b summed in blocks of k slots, each
+    block added to the row's f64 sum) against the f64 plain version at
+    NELL-2's longest rows (~8.4 K terms): ``chip_smoke.py``'s fp64 rule,
+    max(1e-13, 4 sqrt(n) 2^-53) x max|plain|, the one the card is held to.
 """
 import jax
 import jax.numpy as jnp
@@ -40,7 +45,8 @@ from repro_torch.convert import coo_from_numpy, factors_from_numpy
 from repro_torch.core.coo import SparseCOO
 from repro_torch.kernels import autotune as at
 from repro_torch.kernels import kron_kernel, ops, ttm_kernel
-from repro_torch.sparse.layout import DeviceSchedule, build_mode_layout, operand_modes
+from repro_torch.sparse.layout import (DeviceSchedule, build_mode_layout, operand_modes,
+                                       slot_rows)
 
 
 def _f32_rule(got, want, n_terms):
@@ -330,3 +336,152 @@ def test_f64_fuse_core_runs_on_the_cpu():
         coo_from_numpy(idx, vals, shape), factors_init=factors_from_numpy(f0))
     assert port.core.dtype == torch.float64
     _assert_close(ref, port, 1e-10, 1e-8)
+
+
+# -- kernel 1's f64 route on the tensor cores (DMMA) ------------------------------
+
+_ROUTES = {  # (kernel, dtype, precision) -> the datapath its CUDA source takes
+    ("fused_kron_scatter", "float64", "fp32"): "dmma",
+    ("ttm", "float64", "fp32"): "dmma",
+    ("fused_kron_scatter_ttm", "float64", "fp32"): "cuda_cores",
+    ("fused_kron_chain_scatter", "float64", "fp32"): "cuda_cores",
+    ("kron_contrib", "float64", "fp32"): "cuda_cores",
+    ("scatter_rows", "float64", "fp32"): "cuda_cores",
+    ("fused_kron_scatter", "float32", "fp32"): "3xtf32",
+    ("fused_kron_scatter_ttm", "float32", "fp32"): "3xtf32",
+    ("fused_kron_chain_scatter", "float32", "fp32"): "3xtf32",
+    ("ttm", "float32", "fp32"): "cuda_cores",
+    ("kron_contrib", "float32", "fp32"): "cuda_cores",
+    ("scatter_rows", "float32", "fp32"): "cuda_cores",
+    **{(k, d, "bf16_fp32acc"): "cuda_cores"
+       for k in ("fused_kron_scatter", "fused_kron_scatter_ttm", "fused_kron_chain_scatter",
+                 "ttm", "kron_contrib", "scatter_rows") for d in ("float32", "float64")},
+}
+
+
+@pytest.mark.parametrize("kernel,dtype,precision", sorted(_ROUTES))
+def test_launch_route_names_each_kernels_datapath(kernel, dtype, precision):
+    """Kernel 1 and kernel 2 in f64 at fp32 run on DMMA; kernel 5 and the
+    chain kernel in f64, every kernel under bf16_fp32acc and kernels 2-4 in
+    f32 on the CUDA cores; the walk kernels in f32 on 3xTF32."""
+    route = kron_kernel.launch_route(kernel, getattr(torch, dtype), precision)
+    assert route == _ROUTES[(kernel, dtype, precision)] and route in kron_kernel.ROUTES
+
+
+@pytest.mark.parametrize("args", [("flash_attention", torch.float32, "fp32"),
+                                  ("fused_kron_scatter", torch.bfloat16, "fp32"),
+                                  ("fused_kron_scatter", torch.float64, "tf32")])
+def test_launch_route_refuses_what_no_kernel_takes(args):
+    with pytest.raises(ValueError):
+        kron_kernel.launch_route(*args)
+
+
+def _dmma_model(sched, fa, fb, n_rows, k):
+    """Kernel 1's f64 tensor-core arithmetic in numpy: slots in schedule
+    order, each row's slots in blocks of ``k`` from the row's first slot;
+    A = round(v a), each block's products with b summed in f64, then added
+    to the row's f64 sum."""
+    idx, v = sched.idx.numpy(), sched.vals.numpy()
+    rows = slot_rows(sched).numpy()
+    va = v[:, None] * fa.numpy()[idx[:, 0]]
+    b = fb.numpy()[idx[:, 1]]
+    out = np.zeros((n_rows, fa.shape[1] * fb.shape[1]))
+    live = np.flatnonzero(v != 0)  # padding adds nothing, as in the walk
+    starts = np.flatnonzero(np.diff(rows[live], prepend=-1))
+    for s, e in zip(starts, list(starts[1:]) + [live.size]):
+        sl = live[s:e]
+        terms = (va[sl, :, None] * b[sl, None, :]).reshape(sl.size, -1)
+        acc = np.zeros(terms.shape[1])
+        for j in range(0, sl.size, k):
+            acc = acc + terms[j:j + k].sum(axis=0)
+        out[rows[sl[0]]] = acc
+    return out
+
+
+@pytest.mark.parametrize("signs", ["shared", "mixed"])
+@pytest.mark.parametrize("k", [4, 8])
+def test_dmma_term_order_within_the_fp64_rule(signs, k):
+    """At NELL-2's longest rows (~8.4 K terms a row, ranks 16 x 16) kernel
+    1's DMMA arithmetic (one f64 rounding of v a, blocks of k = 8 slots on
+    m16n8k8, 4 on m8n8k4) stays within the fp64 rule of the f64 plain
+    version, whose terms round round(a b) v: terms of one sign (NELL-2's
+    positive values, positive factors) and of both."""
+    rng = np.random.default_rng(33 + k)
+    shape, per_row = (3, 3000, 3000), 8400
+    lin = np.concatenate([r * 9_000_000 + rng.choice(9_000_000, per_row, replace=False)
+                          for r in range(shape[0])])
+    idx = np.stack(np.unravel_index(lin, shape), 1).astype(np.int32)
+    if signs == "shared":
+        vals = rng.uniform(0.1, 10.0, lin.size)
+        fs = [np.abs(np.linalg.qr(rng.standard_normal((s, 16)))[0]) for s in shape]
+    else:
+        vals = rng.standard_normal(lin.size)
+        fs = [np.linalg.qr(rng.standard_normal((s, 16)))[0] for s in shape]
+    coo = SparseCOO.from_parts(idx, vals, shape)
+    sched = DeviceSchedule.from_layout(build_mode_layout(coo, 0), coo)
+    ma, mb = operand_modes(3, 0)
+    fa, fb = torch.from_numpy(fs[ma]), torch.from_numpy(fs[mb])
+    want = kron_kernel.fused_kron_scatter_plain(fa, fb, sched, shape[0]).numpy()
+    got = _dmma_model(sched, fa, fb, shape[0], k)
+    n_terms = per_row
+    tol = max(1e-13, 4 * n_terms ** 0.5 * 2.0 ** -53) * np.abs(want).max()
+    assert np.abs(got - want).max() <= tol
+    assert not np.array_equal(got, want)  # the term order and rounding do differ
+
+
+# -- kernel 2's f64 split: clusters of 8 CTAs, fixed-order combine ---------------
+
+# (I, L, R, clusters the card holds): NELL-2's core update, NIPS's, I below
+# one k-step, two tiles by two with R = 17, a long contraction, a card that
+# holds one cluster, one nonzero, and a card with more clusters than needed
+CLUSTER_CASES = [(28818, 256, 16, 16), (17, 4096, 16, 16), (10, 15, 3, 16),
+                 (1000, 300, 17, 16), (500_000, 256, 16, 16), (28818, 256, 16, 1),
+                 (1, 1, 1, 16), (5000, 256, 16, 33)]
+
+
+@pytest.mark.parametrize("n_i,n_l,n_r,most", CLUSTER_CASES)
+def test_ttm_cluster_split_covers_the_contraction_once_in_order(n_i, n_l, n_r, most):
+    """Every contraction index in exactly one split, in order; n_splits a
+    multiple of the cluster, fewer than a cluster's worth of them empty;
+    ranges of whole k-steps (8), about even over the clusters the card
+    holds (split over the tiles)."""
+    tiles = ttm_kernel.n_tiles(n_l, n_r)
+    chunk, n_splits, group = ttm_kernel.split_clusters(n_i, tiles, 8, most)
+    assert group == 8 and n_splits % 8 == 0 and chunk % 8 == 0
+    ranges = [(a, min(b, n_i)) for a, b in ttm_kernel.ranges(n_i, chunk, n_splits)]
+    full = [(a, b) for a, b in ranges if a < b]
+    assert full[0][0] == 0 and full[-1][1] == n_i
+    assert all(full[s][1] == full[s + 1][0] for s in range(len(full) - 1))
+    assert ranges[:len(full)] == full and n_splits - len(full) < 8
+    # no more clusters than the card holds; ranges within a k-step of an
+    # even share of the contraction over that many CTAs
+    n = min(8 * max(1, most // tiles), -(-n_i // 8))
+    assert n_splits // 8 <= max(1, most // tiles) and chunk < n_i / n + 8
+
+
+def _cluster_combine(y, u, most):
+    """The f64 kernel's sums in its order: each split's partial over its
+    range (zero where empty), each cluster's 8 partials in rank order, the
+    clusters in order."""
+    tiles = ttm_kernel.n_tiles(y.shape[0], u.shape[0])
+    chunk, n_splits, group = ttm_kernel.split_clusters(y.shape[1], tiles, 8, most)
+    parts = [y[:, a:b] @ u[:, a:b].T for a, b in ttm_kernel.ranges(y.shape[1], chunk, n_splits)]
+    out = torch.zeros_like(parts[0])
+    for c0 in range(0, n_splits, group):
+        acc = torch.zeros_like(parts[0])
+        for p in parts[c0:c0 + group]:
+            acc = acc + p
+        out = out + acc
+    return out
+
+
+@pytest.mark.parametrize("n_i,n_l,n_r,most", [(28818, 256, 16, 16), (1000, 300, 17, 16),
+                                              (17, 64, 16, 16), (5000, 64, 16, 2)])
+def test_ttm_cluster_combine_matches_the_product_within_the_fp64_rule(n_i, n_l, n_r, most):
+    rng = np.random.default_rng(n_i)
+    y = torch.tensor(rng.standard_normal((n_l, n_i)))
+    u = torch.tensor(rng.standard_normal((n_r, n_i)))
+    want = ttm_kernel.ttm_plain(y, u)
+    got = _cluster_combine(y, u, most)
+    tol = max(1e-13, 4 * n_i ** 0.5 * 2.0 ** -53) * float(want.abs().max())
+    assert float((got - want).abs().max()) <= tol
