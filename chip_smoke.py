@@ -396,7 +396,9 @@ except ImportError:
 # repro_torch.launch.roofline's "h100-sxm" preset. Kernel 6 on bf16 operands
 # runs on the tensor cores and its bound counts them at the bf16 rate;
 # kernel 1's fp32 products run on the tensor cores (3xTF32) and its bound
-# counts them at the TF32 rate; kernel 7's bound counts C B^T on bf16
+# counts them at the TF32 rate, its bf16_fp32acc products (bf16 m16n8k16)
+# at the bf16 rate; the chain kernel's products run on TF32 under both
+# precisions (3xTF32, 2xTF32); kernel 7's bound counts C B^T on bf16
 # operands at the bf16 rate and its other products (3xTF32) as three
 # products at the TF32 rate; every other kernel does its arithmetic in f32
 # on the CUDA cores.
@@ -434,10 +436,18 @@ SEED = 0
 #   terms per row) it reached 6.6e-6 x max|plain|. So the limit is
 #   1e-5, raised to 4 sqrt(n) 2^-24 where n, the most terms summed into one
 #   output, makes that larger (2.2e-5 at 8.4 K terms).
-# bf16_fp32acc: both round each product to bf16 the same way and sum in
-#   f32, so they agree as closely as fp32 does; 2e-2 is the bound the
+# bf16_fp32acc: the plain versions keep the reference's roundings: each
+#   product a*b of the bf16 operands rounded to bf16, then scaled by the f32
+#   value and summed in f32. Kernels 3 and 5 round as they do (the CUDA
+#   cores) and agree as closely as fp32 does. Kernel 1 (bf16 m16n8k16:
+#   a * (v b split into bf16 hi + lo)) and the chain kernel (2xTF32: f_1 *
+#   (v f_2 ... split into two TF32 parts)) give that rounding up on
+#   purpose: their terms are a*b*v to ~2^-16 and ~2^-21, up to 2^-8 (one
+#   bf16 rounding) of a term from the plain version's, unbiased, so over n
+#   terms of one sign the sums differ by far less than 2^-8 of max|plain|
+#   and with cancellation by ~sqrt(n) 2^-8 of a term. 2e-2 is the bound the
 #   reference's own kernel tests set for bf16 operands, kept as the stated
-#   limit.
+#   limit; each phase reports the worst error as a share of it (WORST).
 TOL = {"fp32": 1e-5, "bf16_fp32acc": 2e-2}
 # "fp64" (the f64 instantiations): on the CUDA cores the same rounded terms
 #   as the plain version, summed in another order, as fp32; kernel 1 on
@@ -525,9 +535,13 @@ def main() -> int:
     log(f"phase 1: built {sorted(secs)} in {time.perf_counter() - t0:.2f} s "
         f"(nvcc in parallel: " + ", ".join(f"{k} {v:.2f} s" for k, v in sorted(secs.items())) + ")")
     for name in _build.SOURCES:
+        kernel = ""  # the kernel and template arguments the next lines are of
         for line in (_build.BUILD_DIR / f"{name}.ptxas.log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            m = re.search(r"Function properties for \S*?\d([a-z][a-z_]*_kernel)(I\S{0,40})?", line)
+            if m:
+                kernel = m.group(1) + (m.group(2) or "")
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {name} {kernel}: {line.strip()}")
     log_occupancy(dev)
     start_sass_dumps()  # read by phase 15
 
@@ -572,7 +586,8 @@ def main() -> int:
                              card, train_tmp))
     kernels.update(timed("26 serving across ranks", phase26_serve_ranks, dev, card))
     print(json.dumps({"kernels": [kernels[k] for k in list(wrappers()) + F64_ROWS
-                                  + ["fused_kron_chain_scatter_bf16", "flash_attention_bwd",
+                                  + ["fused_kron_scatter_bf16",
+                                     "fused_kron_chain_scatter_bf16", "flash_attention_bwd",
                                      "ssd_chunk_bwd", "flash_attention_cp",
                                      "flash_attention_cp_d80", "ssd_chunk_tp",
                                      "flash_attention_bwd_cp", "ssd_chunk_bwd_tp"]]}), flush=True)
@@ -611,11 +626,22 @@ def against_plain(got, want, precision: str, n_terms: int):
             same_dtype and bool(torch.isfinite(got).all()) and err <= limit)
 
 
+# the worst error over its limit that compare() saw, by (the name's first
+# word, precision) since the last clear: a phase's worst share of the limit
+WORST: dict = {}
+
+
+def worst_share(name: str, precision: str) -> float:
+    return WORST.get((name, precision), 0.0)
+
+
 def compare(name: str, precision: str, got, want, n_terms: int) -> float:
     """Max abs error of ``got`` against ``want``, checked by
-    :func:`against_plain`."""
+    :func:`against_plain` (its share of the limit kept in WORST)."""
     torch.cuda.synchronize()
     err, limit, tol, scale, ok = against_plain(got, want, precision, n_terms)
+    key = (name.split()[0], precision)
+    WORST[key] = max(WORST.get(key, 0.0), err / limit if limit else 0.0)
     log(f"  {name} [{precision}]: max_abs_err {err:.3e} <= {limit:.3e} "
         f"(tol {tol:.3g} x max|plain| {scale:.3e}, {n_terms} terms) {'ok' if ok else 'FAIL'}")
     check(ok, f"{name} [{precision}] disagrees with its plain version")
@@ -834,6 +860,7 @@ def phase2_kernels(dev) -> None:
 
     log("phase 2: kernels against their plain versions, odd shapes")
     rng = np.random.default_rng(SEED)
+    WORST.clear()
 
     def coo_of(shape, idx, vals):
         return SparseCOO.from_parts(idx.astype(np.int32), vals.astype(np.float32),
@@ -860,6 +887,12 @@ def phase2_kernels(dev) -> None:
         rng.standard_normal(20000)), (16, 16, 16)))
     cases.append(("ranks 13x22x10, factor rows padded to 16 bytes", coo_of(
         shape, idx, rng.standard_normal(1000)), (13, 22, 10)))
+    # ranks 1 and 17 (R not a multiple of 8): the m16 tiles' and the k16
+    # blocks' tails of the bf16 tensor-core route
+    cases.append(("ranks 17x1x9, m16 and k16 tails", coo_of(
+        shape, idx, rng.standard_normal(1000)), (17, 1, 9)))
+    cases.append(("ranks 2x7x17, m16 and k16 tails", coo_of(
+        shape, idx, rng.standard_normal(1000)), (2, 7, 17)))
     two = np.stack([rng.integers(0, 300, 900), rng.integers(0, 200, 900)], 1)
     cases.append(("2-way tensor", coo_of((300, 200), two, rng.standard_normal(900)), (6, 4)))
     # row 0 of the first 128-row group gets a range of its own (5,000 slots),
@@ -960,6 +993,9 @@ def phase2_kernels(dev) -> None:
             label = f"y ({l_}, {i_}){' transposed' if transposed else ''} u ({r_}, {i_})"
             compare(f"ttm {label}", prec, check_ttm_call(label, y, u, prec),
                     synced(ttm_kernel.ttm_plain(y, u, precision=prec)), i_)
+    log("  worst error as a share of its limit: " + ", ".join(
+        f"{name} [{prec}] {worst_share(name, prec):.3g}"
+        for name in ("fused_kron_scatter", "fused_kron_chain_scatter") for prec in TOL))
 
 
 def phase2_chain_kernel(dev, rng) -> None:
@@ -991,6 +1027,8 @@ def phase2_chain_kernel(dev, rng) -> None:
          (16, 16, 16, 16), 100),
         ("4-way ranks 33x5x4x3, two m16 tiles", coo_of((70, 60, 50, 40), 4000), (33, 5, 4, 3),
          256),
+        ("4-way ranks 1x17x3x7, m16 and n8 tails", coo_of((50, 40, 30, 20), 3000),
+         (1, 17, 3, 7), 64),
         ("4-way duplicates and explicit zero padding",
          coo_of((40, 30, 20, 7), 0, np.concatenate([base, base[:500]])).pad_to(2631),
          (4, 3, 5, 2), 64),
@@ -1052,6 +1090,33 @@ def phase3_mid(dev) -> None:
     card_vs_cpu("4-way 60x50x40x10, 20,000 nnz, ranks 4, fuse_core", small, (4, 4, 4, 4),
                 engine=lambda d: make_engine("auto", d, fuse_core=True),
                 expect={"fused_kron_chain_scatter": 4 * N_ITER, "ttm": N_ITER})
+    # bf16_fp32acc: the card's kernel 1 and chain kernel give up the plain
+    # versions' bf16 rounding of each product (see TOL), so the CPU is held
+    # within BF16_CARD_VS_CPU
+    bf16 = lambda d: make_engine("auto", d, precision="bf16_fp32acc")  # noqa: E731
+    card_vs_cpu("NELL-2-like 1000^3, ranks 16, bf16_fp32acc", nell, (16, 16, 16), engine=bf16,
+                expect={"fused_kron_scatter": 3 * N_ITER, "ttm": N_ITER}, **BF16_CARD_VS_CPU)
+    card_vs_cpu("4-way 60x50x40x10, ranks 4, bf16_fp32acc", small, (4, 4, 4, 4), engine=bf16,
+                expect={"fused_kron_chain_scatter": 4 * N_ITER, "ttm": N_ITER},
+                **BF16_CARD_VS_CPU)
+
+
+# Phase 3's bf16_fp32acc tolerances. Each term of Y departs from the CPU's
+# by at most one bf16 rounding, 2^-8 of itself, so ||Y|| and the fit (first
+# order in Y) move by at most 2^-8: fit_tol 2^-8. The factors move by
+# ||dY|| over the gap between the R-th and (R+1)-th singular values of the
+# unfolding; these random tensors' leading singular values lie within
+# 1/16 of each other, so the projectors within 16 x 2^-8 = 2^-4. Columns of
+# nearly equal singular values may swap or rotate between the two runs,
+# which matching signs cannot undo (a D1 run saw the 3-way core off by
+# max|core| so), so the cores are compared in the CPU's factor basis
+# (align="basis"), within 4 x 2^-8 = 2^-6 x max|core|: Y's move, and the
+# part of the card's subspace outside the CPU's. tests/
+# test_torch_bf16_route.py runs both cases on the CPU with the card's terms
+# (the products of the bf16 operands unrounded) and holds them within these
+# limits with room.
+BF16_CARD_VS_CPU = {"fit_tol": 2.0 ** -8, "proj_tol": 2.0 ** -4, "core_tol": 2.0 ** -6,
+                    "align": "basis"}
 
 
 def card_vs_cpu(label, x, ranks=None, engine=None, expect=None, spec=None,
@@ -1253,8 +1318,9 @@ def phase4_nell2(dev, card: str):
     kron_ms = {p: 0.0 for p in TOL}
     kron_plain_ms = {p: 0.0 for p in TOL}
     kron_bound, kron_err, per_mode = {p: 0.0 for p in TOL}, {p: 0.0 for p in TOL}, []
-    kron_bytes, kron_flops = 0, 0
+    kron_bytes, kron_flops = {p: 0 for p in TOL}, {p: 0 for p in TOL}
     y_last = None
+    WORST.clear()
     for mode in range(3):
         sched = eng.device_schedule(coo, mode)
         n_rows = NELL2_SHAPE[mode]
@@ -1283,14 +1349,15 @@ def phase4_nell2(dev, card: str):
             nbytes = (nbytes_of(sched.idx, sched.vals, sched.rel_row, sched.blkmap, sched.parts,
                                 *kron_kernel._cast_operands(p, fa, fb)) + n_rows * k * 4)
             flops = kron_scatter_flops(nnz_real, fa.shape[1], k)
-            # fp32 runs on the tensor cores (3xTF32), bf16_fp32acc on the CUDA cores
-            peak = PEAK_TF32_FLOPS if p == "fp32" else PEAK_F32_FLOPS
+            # fp32 runs on the tensor cores in 3xTF32, bf16_fp32acc on the
+            # bf16 tensor cores (m16n8k16)
+            peak = PEAK_TF32_FLOPS if p == "fp32" else PEAK_BF16_FLOPS
             mode_bound, _ = bound(nbytes, flops, peak)
             kron_ms[p] += k_ms
             kron_plain_ms[p] += p_ms
             kron_bound[p] += mode_bound
-            if p == "fp32":
-                kron_bytes, kron_flops = kron_bytes + nbytes, kron_flops + flops
+            kron_bytes[p] += nbytes
+            kron_flops[p] += flops
             per_mode.append({"mode": mode, "precision": p, "ms": k_ms, "plain_ms": p_ms,
                              "bound_ms": mode_bound, "bytes": nbytes, "flops": flops,
                              "parts": int(sched.parts.numel()) - 1})
@@ -1298,6 +1365,15 @@ def phase4_nell2(dev, card: str):
                 f"bound {mode_bound:.3f} ms ({nbytes / 1e9:.2f} GB, {flops / 1e9:.1f} GFLOP), "
                 f"{int(sched.parts.numel()) - 1} ranges (one a warp)")
             del got
+    kron_worst = {p: worst_share("fused_kron_scatter", p) for p in TOL}
+    routes = {p: kron_kernel.launch_route("fused_kron_scatter", torch.float32, p) for p in TOL}
+    log(f"  fused_kron_scatter a sweep: bf16_fp32acc ({routes['bf16_fp32acc']}) "
+        f"{kron_ms['bf16_fp32acc']:.3f} ms beside fp32 ({routes['fp32']}) "
+        f"{kron_ms['fp32']:.3f} ms; bounds {kron_bound['bf16_fp32acc']:.3f} / "
+        f"{kron_bound['fp32']:.3f} ms; worst error as a share of the limit "
+        + ", ".join(f"[{p}] {kron_worst[p]:.3g}" for p in TOL) + "; the same bits twice")
+    bf16_run = bf16_sweeps(dev, spec, coo, plan, hist, profile,
+                           {"fused_kron_scatter": 3 * N_ITER, "ttm": N_ITER})
 
     u = fs[2]
     ttm_row = {}
@@ -1334,6 +1410,7 @@ def phase4_nell2(dev, card: str):
         "launches_per_sweep": {k: v / N_ITER for k, v in launches.items()},
         "kron_ms_per_sweep": kron_ms, "kron_plain_ms_per_sweep": kron_plain_ms,
         "kron_bound_ms_per_sweep": kron_bound, "kron_per_mode": per_mode,
+        "kron_worst_share_of_limit": kron_worst, "bf16_fp32acc_sweeps": bf16_run,
         "ttm": ttm_row,
         "profile_warm_run": profile,
         "peak_memory_gb": peak_gb, "resident_at_start_gb": resident_gb,
@@ -1352,10 +1429,25 @@ def phase4_nell2(dev, card: str):
          "ms": kron_ms["fp32"], "plain_ms": kron_plain_ms["fp32"],
          "device_ms": profile["kernel_ms"]["fused_kron_scatter"] / N_ITER,
          "bound_ms": kron_bound["fp32"],
-         "bound_by": bound(kron_bytes, kron_flops, PEAK_TF32_FLOPS)[1],
-         "f32_core_bound_ms": bound(kron_bytes, kron_flops)[0],
+         "bound_by": bound(kron_bytes["fp32"], kron_flops["fp32"], PEAK_TF32_FLOPS)[1],
+         "f32_core_bound_ms": bound(kron_bytes["fp32"], kron_flops["fp32"])[0],
          # no single PyTorch call computes it without first forming the
          # (nnz, K) Kron rows, 79 GB at this size
+         "library_ms": None},
+        {"name": "fused_kron_scatter_bf16", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/kron_scatter.cu",
+         "replaces": "src/repro/kernels/kron_kernel.py:306",
+         # the bf16_fp32acc main path's run (bf16_sweeps), on the bf16
+         # tensor cores
+         "launches": bf16_run["launches"]["fused_kron_scatter"],
+         "path": "bf16_fp32acc, a warm plan of 5 sweeps",
+         "max_abs_err": kron_err["bf16_fp32acc"],
+         "worst_share_of_limit": kron_worst["bf16_fp32acc"],
+         "ms": kron_ms["bf16_fp32acc"], "plain_ms": kron_plain_ms["bf16_fp32acc"],
+         "device_ms": bf16_run["profile"]["kernel_ms"]["fused_kron_scatter"] / N_ITER,
+         "bound_ms": kron_bound["bf16_fp32acc"],
+         "bound_by": bound(kron_bytes["bf16_fp32acc"], kron_flops["bf16_fp32acc"],
+                           PEAK_BF16_FLOPS)[1],
          "library_ms": None},
         {"name": "ttm", "route": "cuda", "source": "src/repro_torch/kernels/csrc/ttm.cu",
          "replaces": "src/repro/kernels/ttm_kernel.py:62",
@@ -1366,6 +1458,59 @@ def phase4_nell2(dev, card: str):
          "library_ms": ttm_row["fp32"]["library_ms"]},
     ]
     return {r["name"]: r for r in rows}, coo, res, (peak_gb, resident_gb)
+
+
+def bf16_sweeps(dev, spec, coo, plan32, fit32, profile32: dict, expect: dict):
+    """The main path under ``precision="bf16_fp32acc"``: a plan of the same
+    spec at that precision, built and run once cold (its schedules), then
+    warm runs of ``N_ITER`` sweeps in turns with the fp32 plan ``plan32``
+    (bf16, fp32, fp32, bf16), every count at 0 before the first bf16 turn
+    and read after it (its launches, ``expect``); the ms a sweep of each
+    (the mean of its two turns) and, from a profiled warm run, the device's
+    busy share and time beside the fp32 run's (``profile32``); its fit
+    finite and within BF16_FIT_TOL of the fp32 run's (``fit32``). The plan
+    stays cached (with its schedules) until the next ``release_memory``:
+    clearing the cache here would drop the fp32 plan that phase 5 reuses."""
+    from repro_torch import tucker
+
+    plan = tucker.plan(dataclasses.replace(spec, precision="bf16_fp32acc"), device=dev)
+    plan(coo)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    turns, launches, res = {"bf16_fp32acc": [], "fp32": []}, None, None
+    for name in ("bf16_fp32acc", "fp32", "fp32", "bf16_fp32acc"):
+        if launches is None:
+            reset_launches()
+        start.record()
+        got = (plan if name == "bf16_fp32acc" else plan32)(coo)
+        end.record()
+        end.synchronize()
+        turns[name].append(start.elapsed_time(end) / N_ITER)
+        if launches is None:
+            launches, res = {k: v for k, v in read_launches().items() if v}, got
+    ms = {k: sum(v) / len(v) for k, v in turns.items()}
+    prof = profile_run(lambda: plan(coo))
+    gap = float(np.abs(res.fit_history - fit32).max())
+    out = {"launches": launches, "sweep_ms": ms["bf16_fp32acc"], "sweep_ms_fp32": ms["fp32"],
+           "sweep_ms_turns": turns, "busy_share": prof["busy_share"],
+           "busy_share_fp32": profile32["busy_share"],
+           "device_busy_ms_per_sweep": prof["device_busy_ms"] / N_ITER,
+           "device_busy_ms_per_sweep_fp32": profile32["device_busy_ms"] / N_ITER,
+           "fit_history": res.fit_history.tolist(), "fit_gap_to_fp32": gap, "profile": prof}
+    log(f"  bf16_fp32acc plan: {ms['bf16_fp32acc']:.3f} ms a sweep (fp32 {ms['fp32']:.3f}, in "
+        f"turns), busy share {prof['busy_share']:.3f} (fp32 {profile32['busy_share']:.3f}), "
+        f"device {out['device_busy_ms_per_sweep']:.3f} ms a sweep (fp32 "
+        f"{out['device_busy_ms_per_sweep_fp32']:.3f}), launches {launches}, fit "
+        f"{res.fit_history.tolist()}, max gap to fp32's {gap:.3e} <= {BF16_FIT_TOL:g}")
+    check(res.engine == "cuda" and res.precision == "bf16_fp32acc",
+          f"bf16 plan ran {res.engine} at {res.precision}")
+    check(launches == expect, f"bf16_fp32acc plan launches {launches}, want {expect}")
+    check(bool(np.all(np.isfinite(res.fit_history))) and gap <= BF16_FIT_TOL,
+          f"bf16_fp32acc fit {res.fit_history} against fp32's {fit32}")
+    return out
+
+
+# the bf16_fp32acc main path's fit against fp32's, phases 4 and 6
+BF16_FIT_TOL = 1e-2
 
 
 def per_sweep_pipeline(plan, coo, scan_res, scan_launches, scan_sweep_ms) -> dict:
@@ -1580,6 +1725,7 @@ def phase6_nips(dev, card: str):
 
     log(f"phase 6: path A, NIPS size {NIPS_SHAPE}, {NIPS_NNZ} nnz, ranks {NIPS_RANKS}, "
         f"{N_ITER} sweeps")
+    WORST.clear()
     t0 = time.perf_counter()
     idx, vals = synthetic(dev, NIPS_SHAPE, NIPS_NNZ, SEED, "counts")
     coo = SparseCOO.from_parts(idx, vals, NIPS_SHAPE)
@@ -1657,11 +1803,11 @@ def phase6_nips(dev, card: str):
     tot = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "flops": 0,
                   "bound_ms": 0.0, "max_abs_err": 0.0} for name in names}
     tot["fused_kron_chain_scatter"].update(f32_core_bound_ms=0.0, design_3xtf32_bound_ms=0.0)
-    # the chain kernel's bf16_fp32acc route (the CUDA cores), a sweep's four modes
+    # the chain kernel's bf16_fp32acc route (2xTF32), a sweep's four modes
     # bounded as the fp32 route: the same operations at the TF32 rate, with
-    # the CUDA-core and 3xTF32 yardsticks beside it
+    # the CUDA-core and 2xTF32 yardsticks beside it
     tot_b = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "flops": 0,
-             "bound_ms": 0.0, "f32_core_bound_ms": 0.0, "design_3xtf32_bound_ms": 0.0,
+             "bound_ms": 0.0, "f32_core_bound_ms": 0.0, "design_2xtf32_bound_ms": 0.0,
              "max_abs_err": 0.0}
     unfused = {"launches": {}, "device_ms": {}, "gathers": 0}
     per_mode = []
@@ -1810,8 +1956,8 @@ def phase6_nips(dev, card: str):
         for key, val in (("ms", bf_ms), ("plain_ms", bf_plain), ("library_ms", bf_lib),
                          ("bytes", bf_bytes), ("flops", bf_flops), ("bound_ms", bf_bound),
                          ("f32_core_bound_ms", bound(bf_bytes, bf_flops)[0]),
-                         ("design_3xtf32_bound_ms",
-                          bound(bf_bytes, 3 * bf_flops, PEAK_TF32_FLOPS)[0])):
+                         ("design_2xtf32_bound_ms",
+                          bound(bf_bytes, 2 * bf_flops, PEAK_TF32_FLOPS)[0])):
             tot_b[key] += val
         tot_b["max_abs_err"] = max(tot_b["max_abs_err"], err_bf)
         m["fused_kron_chain_scatter_bf16"] = {"ms": bf_ms, "plain_ms": bf_plain,
@@ -1834,17 +1980,19 @@ def phase6_nips(dev, card: str):
     log(f"  fused_kron_chain_scatter: {tot['fused_kron_chain_scatter']['ms']:.3f} ms a sweep, "
         f"us a slot by mode {[round(x, 6) for x in per_slot]}, mode 3 against the others' mean "
         f"{skew:.3f}x")
-    # the bf16 route's launches and device time over one sweep's four calls
-    reset_launches()
-    prof_b = profile_run(lambda: [kron_kernel.fused_kron_chain_scatter(
-        [fs[t] for t in operand_modes(4, md)], eng.device_schedule(coo, md), NIPS_SHAPE[md],
-        precision="bf16_fp32acc") for md in range(4)])
-    b_launches = read_launches()["fused_kron_chain_scatter"]
-    check(b_launches == 4, f"the bf16 route's sweep launched the chain kernel {b_launches} times")
-    log(f"  fused_kron_chain_scatter bf16_fp32acc: {tot_b['ms']:.3f} ms a sweep (fp32 "
-        f"{tot['fused_kron_chain_scatter']['ms']:.3f}), device "
-        f"{prof_b['kernel_ms']['fused_kron_chain_scatter']:.3f}, plain {tot_b['plain_ms']:.1f}, "
-        f"library {tot_b['library_ms']:.3f}, bound {tot_b['bound_ms']:.4f}")
+    # the bf16_fp32acc main path: its launches, sweep time, busy share and
+    # the chain kernel's device time, beside the fp32 run's
+    bf16_run = bf16_sweeps(dev, spec, coo, plan, hist, profile,
+                           {"fused_kron_chain_scatter": 4 * N_ITER, "ttm": N_ITER})
+    b_device = bf16_run["profile"]["kernel_ms"]["fused_kron_chain_scatter"] / N_ITER
+    chain_worst = {p: worst_share("fused_kron_chain_scatter", p) for p in TOL}
+    route_b = kron_kernel.launch_route("fused_kron_chain_scatter", torch.float32, "bf16_fp32acc")
+    log(f"  fused_kron_chain_scatter bf16_fp32acc ({route_b}): {tot_b['ms']:.3f} ms a "
+        f"sweep (fp32 {tot['fused_kron_chain_scatter']['ms']:.3f}), device {b_device:.3f} (fp32 "
+        f"{profile['kernel_ms']['fused_kron_chain_scatter'] / N_ITER:.3f}), plain "
+        f"{tot_b['plain_ms']:.1f}, library {tot_b['library_ms']:.3f}, bound "
+        f"{tot_b['bound_ms']:.4f}; worst error as a share of the limit "
+        + ", ".join(f"[{p}] {chain_worst[p]:.3g}" for p in TOL) + "; the same bits twice")
 
     # the core update at the path's shapes: the TTM kernel on the transposed
     # views of Y_(3) (17, 4096) and U_3 (17, 16), against its plain version;
@@ -1872,6 +2020,7 @@ def phase6_nips(dev, card: str):
         "launches_per_sweep": {k: n / N_ITER for k, n in launches.items()},
         "operand_row_gathers_warm_run": warm_gathers,
         "per_sweep": tot, "per_sweep_bf16_route": tot_b, "per_mode": per_mode,
+        "chain_worst_share_of_limit": chain_worst, "bf16_fp32acc_sweeps": bf16_run,
         "mode3_per_slot_vs_others": skew,
         "unfused_unfoldings": unfused, "ttm_core_update": ttm_row,
         "core_max_abs_err_vs_plain": core_err, "profile_warm_run": profile,
@@ -1895,15 +2044,16 @@ def phase6_nips(dev, card: str):
         "source": "src/repro_torch/kernels/csrc/kron_chain_scatter.cu",
         "replaces": "src/repro/kernels/kron_kernel.py:74",
         "also_replaces": "src/repro/kernels/kron_kernel.py:207",
-        # not the main path's precision: one sweep's four unfoldings under
-        # bf16_fp32acc, profiled alone
-        "launches": b_launches, "path": "bf16_fp32acc, one sweep's four unfoldings",
-        "max_abs_err": tot_b["max_abs_err"], "ms": tot_b["ms"], "plain_ms": tot_b["plain_ms"],
-        "device_ms": prof_b["kernel_ms"]["fused_kron_chain_scatter"],
+        # the bf16_fp32acc main path's run (bf16_sweeps), on 2xTF32
+        "launches": bf16_run["launches"]["fused_kron_chain_scatter"],
+        "path": "bf16_fp32acc, a warm plan of 5 sweeps",
+        "max_abs_err": tot_b["max_abs_err"],
+        "worst_share_of_limit": chain_worst["bf16_fp32acc"], "ms": tot_b["ms"],
+        "plain_ms": tot_b["plain_ms"], "device_ms": b_device,
         "bound_ms": tot_b["bound_ms"],
         "bound_by": bound(tot_b["bytes"], tot_b["flops"], PEAK_TF32_FLOPS)[1],
         "f32_core_bound_ms": tot_b["f32_core_bound_ms"],
-        "design_3xtf32_bound_ms": tot_b["design_3xtf32_bound_ms"],
+        "design_2xtf32_bound_ms": tot_b["design_2xtf32_bound_ms"],
         "library_ms": tot_b["library_ms"], "library": "torch.einsum x 2 + index_add_"}
     for name, src, line in (("kron_contrib", "kron_contrib.cu", 74),
                             ("scatter_rows", "scatter_rows.cu", 207)):
@@ -4164,8 +4314,9 @@ def start_sass_dumps() -> None:
 
 def sass_mma_counts(name: str) -> dict:
     """Tensor-core instructions in the SASS of each kernel of the built
-    library of ``csrc/<name>.cu``: ``{"<kernel> <dtype>": {"DMMA": n, "HMMA":
-    n}}``, the dtype that of the kernel's first template argument,
+    library of ``csrc/<name>.cu``: ``{"<kernel> <dtype>": {"DMMA": n,
+    "HMMA.TF32": n, "HMMA.BF16": n, "HMMA": n}}`` (HMMA of any type in the
+    last), the dtype that of the kernel's first template argument,
     instantiations summed."""
     start_sass_dumps()
     path, proc = _SASS_DUMPS[name]
@@ -4176,33 +4327,55 @@ def sass_mma_counts(name: str) -> dict:
             m = re.search(r"\d([a-z][a-z_]*_kernel)I(d|f|13__nv_bfloat16)", line)
             key = f"{m.group(1)} {_MANGLED_DTYPE[m.group(2)]}" if m else None
             if key:
-                counts.setdefault(key, {"DMMA": 0, "HMMA": 0})
+                counts.setdefault(key, {"DMMA": 0, "HMMA.TF32": 0, "HMMA.BF16": 0, "HMMA": 0})
         elif key:
-            op = re.search(r"\s(DMMA|HMMA)[.\s]", line)
+            op = re.search(r"\s(DMMA|HMMA)(\.\S*)?", line)
             if op:
                 counts[key][op.group(1)] += 1
+                for kind in ("TF32", "BF16"):
+                    if op.group(1) == "HMMA" and f".{kind}" in (op.group(2) or ""):
+                        counts[key][f"HMMA.{kind}"] += 1
     return counts
 
 
+# the tensor-core instructions each route's SASS holds (the others none):
+# DMMA, HMMA of TF32 operands (m16n8k8), HMMA of bf16 operands (m16n8k16)
+_ROUTE_MMA = {"dmma": "DMMA", "3xtf32": "HMMA.TF32", "2xtf32": "HMMA.TF32",
+              "bf16_mma": "HMMA.BF16", "cuda_cores": None}
+# what a kernel holds besides its route's products: kernel 5's rounds G +=
+# U^T Y run 3xTF32 in f32 and bf16 whatever its walk's route (on the CUDA
+# cores in bf16), and on the CUDA cores in f64
+_EXTRA_MMA = {("fused_kron_scatter_ttm", "float32"): "HMMA.TF32",
+              ("fused_kron_scatter_ttm", "bfloat16"): "HMMA.TF32"}
+
+
 def check_routes_in_sass() -> dict:
-    """Each routed kernel's f32 and f64 instantiation holds DMMA
-    instructions exactly where ``kron_kernel.launch_route`` says ``"dmma"``
-    and HMMA (TF32) exactly where it says ``"3xtf32"``. Returns the counts
-    by wrapper and dtype."""
+    """Each routed kernel's f32, f64 and bf16 instantiations hold
+    tensor-core instructions of exactly the kind that
+    ``kron_kernel.launch_route`` names (``_ROUTE_MMA``): DMMA where it says
+    ``"dmma"``, TF32 HMMA where ``"3xtf32"`` or ``"2xtf32"``, bf16 HMMA
+    where ``"bf16_mma"``, none where ``"cuda_cores"``; besides those, only
+    kernel 5's TF32 contraction rounds (``_EXTRA_MMA``). The bf16
+    instantiation is the route of f32 operands under ``bf16_fp32acc``.
+    Returns the counts by wrapper and operand type."""
     from repro_torch.kernels import kron_kernel
 
     out = {}
     for lib, symbol, wrapper in ROUTED_SYMBOLS:
         counts = sass_mma_counts(lib)
-        for dtype in (torch.float32, torch.float64):
-            name = str(dtype).split(".")[1]
-            route = kron_kernel.launch_route(wrapper, dtype)
+        for name, dtype, precision in (("float32", torch.float32, "fp32"),
+                                       ("float64", torch.float64, "fp32"),
+                                       ("bfloat16", torch.float32, "bf16_fp32acc")):
+            route = kron_kernel.launch_route(wrapper, dtype, precision)
             got = counts.get(f"{symbol} {name}")
             check(got is not None, f"no {symbol} {name} in the SASS of lib{lib}")
             out[f"{wrapper} {name}"] = {"route": route, **got}
-            log(f"  SASS {symbol} {name}: {got['DMMA']} DMMA, {got['HMMA']} HMMA; route {route}")
-            check((got["DMMA"] > 0) == (route == "dmma") and (got["HMMA"] > 0) == (route == "3xtf32"),
-                  f"{symbol} {name}: the SASS ({got}) is not the route {route!r}")
+            log(f"  SASS {symbol} {name}: {got['DMMA']} DMMA, {got['HMMA.TF32']} TF32 HMMA, "
+                f"{got['HMMA.BF16']} bf16 HMMA, {got['HMMA']} HMMA; route {route}")
+            want = {_ROUTE_MMA[route], _EXTRA_MMA.get((wrapper, name))} - {None}
+            check(all((got[k] > 0) == (k in want) for k in ("DMMA", "HMMA.TF32", "HMMA.BF16"))
+                  and got["HMMA"] == got["HMMA.TF32"] + got["HMMA.BF16"],
+                  f"{symbol} {name}: the SASS ({got}) is not the route {route!r} (want {want})")
     return out
 
 

@@ -181,9 +181,10 @@ def _ring_bytes(ra: int, rb: int, precision: str, dtype: str = "float32",
     kernel 5 ``"fused_kron_scatter_ttm"``), as ``kron_scatter_launch`` and
     ``kron_scatter_ttm.cu::shape_of`` compute it (``staged_strides`` of the
     factor rows padded to 16 bytes): on the tensor-core routes of
-    ``kron_kernel.launch_route`` (f32's 3xTF32, kernel 1's f64 DMMA) strides
-    of whole 16-element blocks, on the CUDA-core routes (bf16, kernel 5's
-    f64) whole 4 x 2 lane tiles in 16-byte rows."""
+    ``kron_kernel.launch_route`` (f32's 3xTF32, kernel 1's bf16 m16n8k16
+    and f64 DMMA) strides of whole 16-element blocks, on the CUDA-core
+    routes (kernel 5's bf16 and f64) whole 4 x 2 lane tiles in 16-byte
+    rows."""
     elem = _elem_bytes(precision, dtype)
     per16 = 16 // elem
     lda, ldb = _round_up(ra, per16), (_round_up(rb, per16) if rb else 0)
@@ -201,12 +202,14 @@ def _chain_ring_bytes(rs: Sequence[int], precision: str, dtype: str = "float32")
     """One warp's staging ring of the order >= 4 chain kernel for operand
     ranks ``rs`` (``layout.operand_modes`` order), as
     ``kron_chain_scatter.cu::dims_of`` computes it: each factor's rows
-    padded to 16 bytes; on the fp32 route strides of whole 16-word blocks,
-    on the CUDA-core routes f_1 in whole 4-column lane tiles and every row a
+    padded to 16 bytes; on the tensor-core routes (fp32's 3xTF32,
+    bf16_fp32acc's 2xTF32) strides of whole 16-element blocks, on the f64
+    CUDA-core route f_1 in whole 4-column lane tiles and every row a
     multiple of 8 elements. Under ``bf16_fp32acc`` f_1 and f_2 are staged in
     bf16 and the later factors in f32."""
     f64 = str(dtype) == "float64" and precision == "fp32"
-    tc = precision == "fp32" and not f64
+    tc = launch_route("fused_kron_chain_scatter", torch.float64 if f64 else torch.float32,
+                      precision) != "cuda_cores"
     total = 0
     for f, r in enumerate(rs):
         elem = 8 if f64 else 2 if precision == "bf16_fp32acc" and f < 2 else 4

@@ -17,11 +17,12 @@
 // NIPS size) and writes Y_(n) once (up to 230 MB a mode), ~0.57 GB a NIPS
 // sweep, 0.17 ms at 3.35 TB/s; its 2K + R_1 + (N - 3) K_B operations a slot
 // (2.6e10 a mode) take 0.05 ms at the TF32 tensor-core rate, three times
-// that as 3xTF32 products. The factor matrices (<= 0.9 MB each) stay in L2.
+// that as 3xTF32 products (fp32), twice as 2xTF32 (bf16_fp32acc). The
+// factor matrices (<= 0.9 MB each) stay in L2.
 //
 // Design: kernel 1's warp walk (kron_walk.cuh's pieces: 32-slot chunks,
 // their factor rows copied with cp.async into a two-stage ring of the warp's
-// own shared memory, swizzled on the fp32 route), generalised to N - 1
+// own shared memory, swizzled on the tensor-core routes), generalised to N - 1
 // factors:
 //   * fp32, on the tensor cores: a row of Y is the product over its slots
 //     (v f_1)^T B with B = f_2 (x) ... (x) f_{N-1}, so the warp runs it 8
@@ -33,12 +34,19 @@
 //     chain's round(round(round(a b) v) c) by ~2^-21 relative, well inside
 //     chip_smoke.py's fp32 rule. A warp holds one m16 x (8 kNT) block of the
 //     row; K is tiled over blockIdx.y.
-//   * bf16_fp32acc, on the CUDA cores, the chain's roundings term by term:
-//     f_1 and f_2 arrive as bf16 and their product is rounded to bf16
-//     (kron_common.cuh's kron_term), scaled by v in f32; the later factors
-//     arrive as f32 (the reference's later links run at fp32) and multiply
-//     in f32; sums in f32. A lane owns a 4 x 2 register tile of the row.
-//   * float64, on the CUDA cores too: the same terms and sums in f64.
+//   * bf16_fp32acc, on the tensor cores in 2xTF32: the same framing, A =
+//     f_1 (staged in bf16, exact in TF32: no split), B = v (f_2 (x) ... (x)
+//     f_{N-1}) formed in f32 registers (f_2 staged in bf16, the later
+//     factors in f32, as the reference's later links run at fp32) and split
+//     into two TF32 parts: two m16n8k8 products a block against fp32's
+//     three. A term is v f_1 f_2 ... to ~2^-21; the chain rounds f_1 f_2 to
+//     bf16 before the scale (up to 2^-8 of the term), which the card gives
+//     up on purpose, held by chip_smoke.py to the bf16_fp32acc limit (2e-2
+//     x max|plain|). f_1 and f_2 are staged swizzled by kron_walk.cuh's
+//     swz16, the later factors by the fp32 route's swz.
+//   * float64, on the CUDA cores: the chain's roundings term by term,
+//     round(round(round(a b) v) c) ..., summed in f64; a lane owns a 4 x 2
+//     register tile of the row.
 //   * Long rows (NIPS's last mode: 17 rows of ~182 K slots). The slots are
 //     cut into ranges of equal length, not at row starts
 //     (sparse/layout.py::even_cuts, cached on the schedule), one warp a
@@ -63,7 +71,6 @@ using kwalk::kSlots;
 using kwalk::kStages;
 using kwalk::kTA;
 using kwalk::kTB;
-using kwalk::swz;
 using tc::mma_tf32;
 using tc::split;
 
@@ -118,12 +125,12 @@ __device__ __forceinline__ Meta<M, V> load_meta(const int* __restrict__ idx,
   return m;
 }
 
-// The element of factor f's staged row s at column j (swizzled on the fp32
-// route, as the copies placed it).
+// The element of factor f's staged row s at column j (swizzled on the
+// tensor-core routes, as the copies placed it).
 template <typename E, bool kTC>
 __device__ __forceinline__ E staged(const unsigned char* st, const Dims& d, int f, int s, int j) {
   const E* row = reinterpret_cast<const E*>(st + d.off[f]) + s * d.sl[f];
-  return row[kTC ? j ^ swz(s, d.sl[f]) : j];
+  return row[kTC ? j ^ kwalk::swz_of<E>(s, d.sl[f]) : j];
 }
 
 __device__ __forceinline__ float to_v(float x) { return x; }
@@ -134,12 +141,8 @@ __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
-// The CUDA-core routes' first link, as the chain rounds it: bf16 operands
-// give kron_term's bf16 product scaled by v in f32, f64 ones f64 products.
-__device__ __forceinline__ float first_term(__nv_bfloat16, float a, float b, float v) {
-  return kron::kron_term<true>(a, b, v);
-}
-__device__ __forceinline__ double first_term(double, double a, double b, double v) {
+// The f64 route's first link, as the chain rounds it: f64 products.
+__device__ __forceinline__ double first_term(double a, double b, double v) {
   return __dmul_rn(__dmul_rn(a, b), v);
 }
 
@@ -159,7 +162,9 @@ __device__ __forceinline__ void b_offsets(const Dims& d, int c, int (&o)[M]) {
 
 // Pass 1: one warp a range of slots [cuts[range], cuts[range + 1]), one
 // block of Y's columns a blockIdx.y. T: f_1 and f_2's staged type, U: the
-// later factors', V: values, sums and Y. kTC: the fp32 tensor-core route.
+// later factors', V: values, sums and Y. kTC: a tensor-core route, fp32 (T
+// = float, 3xTF32) or bf16_fp32acc (T = bf16, 2xTF32); else f64 on the
+// CUDA cores.
 template <typename T, typename U, typename V, bool kTC, int M>
 __global__ void __launch_bounds__(kWarps * 32, 2)
     chain_scatter_kernel(const Factors fp, const int* __restrict__ idx,
@@ -308,26 +313,44 @@ __global__ void __launch_bounds__(kWarps * 32, 2)
       // values (0 where masked)
       auto block_pass = [&](int kb8, float w0, float w1) {
         const int s0 = 8 * kb8 + t, s1 = s0 + 4;  // the slots of k = t and k = t + 4
+        constexpr bool kBf = sizeof(T) == 2;
+        // fp32: A = (w f_1)^T split in two; bf16: A = f_1^T (bf16, exact in
+        // TF32), and w goes into B
         uint32_t ah[4], al[4];
-        split(w0 * staged<float, true>(st, d, 0, s0, a0c + g), ah[0], al[0]);
-        split(w0 * staged<float, true>(st, d, 0, s0, a0c + g + 8), ah[1], al[1]);
-        split(w1 * staged<float, true>(st, d, 0, s1, a0c + g), ah[2], al[2]);
-        split(w1 * staged<float, true>(st, d, 0, s1, a0c + g + 8), ah[3], al[3]);
+        if constexpr (kBf) {
+          ah[0] = __float_as_uint(to_v(staged<T, true>(st, d, 0, s0, a0c + g)));
+          ah[1] = __float_as_uint(to_v(staged<T, true>(st, d, 0, s0, a0c + g + 8)));
+          ah[2] = __float_as_uint(to_v(staged<T, true>(st, d, 0, s1, a0c + g)));
+          ah[3] = __float_as_uint(to_v(staged<T, true>(st, d, 0, s1, a0c + g + 8)));
+        } else {
+          split(w0 * staged<float, true>(st, d, 0, s0, a0c + g), ah[0], al[0]);
+          split(w0 * staged<float, true>(st, d, 0, s0, a0c + g + 8), ah[1], al[1]);
+          split(w1 * staged<float, true>(st, d, 0, s1, a0c + g), ah[2], al[2]);
+          split(w1 * staged<float, true>(st, d, 0, s1, a0c + g + 8), ah[3], al[3]);
+        }
 #pragma unroll
         for (int q = 0; q < kNT; ++q) {
-          float b0 = staged<float, true>(st, d, 1, s0, bo[q][1]);
-          float b1 = staged<float, true>(st, d, 1, s1, bo[q][1]);
+          float b0 = to_v(staged<T, true>(st, d, 1, s0, bo[q][1]));
+          float b1 = to_v(staged<T, true>(st, d, 1, s1, bo[q][1]));
+          if constexpr (kBf) {
+            b0 = __fmul_rn(w0, b0);
+            b1 = __fmul_rn(w1, b1);
+          }
 #pragma unroll
           for (int f = 2; f < M; ++f) {
-            b0 = __fmul_rn(b0, staged<float, true>(st, d, f, s0, bo[q][f]));
-            b1 = __fmul_rn(b1, staged<float, true>(st, d, f, s1, bo[q][f]));
+            b0 = __fmul_rn(b0, staged<U, true>(st, d, f, s0, bo[q][f]));
+            b1 = __fmul_rn(b1, staged<U, true>(st, d, f, s1, bo[q][f]));
           }
           uint32_t bh[2], bl[2];
           split(b0, bh[0], bl[0]);
           split(b1, bh[1], bl[1]);
           float dd[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_tf32(dd, al, bh);
-          mma_tf32(dd, ah, bl);
+          if constexpr (kBf) {
+            mma_tf32(dd, ah, bl);
+          } else {
+            mma_tf32(dd, al, bh);
+            mma_tf32(dd, ah, bl);
+          }
           mma_tf32(dd, ah, bh);
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[q][e] = __fadd_rn(acc[q][e], dd[e]);
@@ -377,7 +400,7 @@ __global__ void __launch_bounds__(kWarps * 32, 2)
         for (int r = 0; r < kTA; ++r)
 #pragma unroll
           for (int c2 = 0; c2 < kTB; ++c2) {
-            V p = first_term(T(), av[r], bv[c2], vs);
+            V p = first_term(av[r], bv[c2], vs);
 #pragma unroll
             for (int f = 2; f < M; ++f)
               p = mul_rn(p, to_v(staged<U, false>(st, d, f, s, bo[c2][f])));
@@ -441,9 +464,10 @@ __global__ void __launch_bounds__(kCombineThreads)
 int elem_of(int kind, int f) { return kind == 2 ? 8 : (kind == 1 && f < 2) ? 2 : 4; }
 
 // The staged strides and offsets (see Dims); false when the sizes are ones
-// the kernel does not take. fp32: whole m16 / n8-tile blocks in rows of a
-// multiple of 16 words (the swizzle's); CUDA cores: f_1 in whole 4-column
-// lane tiles, every row a multiple of 16 bytes.
+// the kernel does not take. Tensor-core routes (kinds 0 and 1): whole m16 /
+// n8-tile blocks in rows of a multiple of 16 elements (the swizzles'); CUDA
+// cores (kind 2): f_1 in whole 4-column lane tiles, every row a multiple of
+// 16 bytes.
 bool dims_of(int kind, int m, const int* ranks, const int* lds, int bn, int bi, Dims* d) {
   if (m < 3 || m > kMaxOps || bn < 1 || bi < 1) return false;
   d->m = m, d->bn = bn, d->bi = bi;
@@ -453,7 +477,7 @@ bool dims_of(int kind, int m, const int* ranks, const int* lds, int bn, int bi, 
     const int elem = elem_of(kind, f), r = ranks[f], ld = lds[f];
     if (r < 1 || ld < r || ld % (16 / elem)) return false;
     int sl;
-    if (kind == 0)
+    if (kind != 2)
       sl = round_up(std::max(ld, round_up(r, 16)), 16);
     else
       sl = f == 0 ? round_up(std::max(ld, round_up(r, kTA)), 8) : round_up(ld, 8);
@@ -468,8 +492,8 @@ bool dims_of(int kind, int m, const int* ranks, const int* lds, int bn, int bi, 
   return true;
 }
 
-// Blocks of Y's columns, one a blockIdx.y: m16 x (8 kNT) on the fp32
-// route, 32 lane tiles of kTA x kTB on the CUDA-core routes.
+// Blocks of Y's columns, one a blockIdx.y: m16 x (8 kNT) on the tensor-core
+// routes, 32 lane tiles of kTA x kTB on the CUDA-core route.
 int column_blocks(const Dims& d, bool tc) {
   return tc ? ((d.r[0] + 15) / 16) * ((d.kb + 8 * kNT - 1) / (8 * kNT))
             : (((d.r[0] + kTA - 1) / kTA) * ((d.kb + kTB - 1) / kTB) + 31) / 32;
@@ -521,7 +545,8 @@ int launch(const Args& a, const Dims& d, int warps, dim3 grid, size_t smem, cuda
 // layout.operand_modes), 16-byte aligned, rows zero-padded to 16 bytes:
 // kind 0 all f32 (the tensor-core route), kind 1 factors 0 and 1 bf16 and
 // the rest f32, kind 2 all f64. idx (nnzp, m) int32 holds each slot's row
-// of every factor; vals (nnzp,) the slot values, f32 (f64 for kind = 2), 0
+// of every factor (kinds 0 and 1 on the tensor cores, 3xTF32 and 2xTF32,
+// kind 2 on the CUDA cores); vals (nnzp,) the slot values, f32 (f64 for kind = 2), 0
 // on padding; rel (nnzp,) and blkmap (nnzp / bn,) int32 the rows; cuts
 // (n_ranges + 1,) int64 the equal-length slot ranges, one a warp. part
 // (2 n_ranges, K) of Y's dtype and part_rows (2 n_ranges,) int32 are the
@@ -537,7 +562,7 @@ extern "C" int kron_chain_scatter_launch(const void* const* factors, const int* 
   if (kind < 0 || kind > 2 || n_ranges < 1) return (int)cudaErrorInvalidValue;
   Dims d;
   if (!dims_of(kind, m, ranks, lds, bn, bi, &d)) return (int)cudaErrorInvalidValue;
-  const bool tc = kind == 0;
+  const bool tc = kind != 2;
   int dev = 0, smem_max = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
@@ -561,7 +586,7 @@ extern "C" int kron_chain_scatter_launch(const void* const* factors, const int* 
   a.part_rows = static_cast<int*>(part_rows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = per_warp * warps;
-  if (kind == 1) return launch<__nv_bfloat16, float, float, false>(a, d, warps, grid, smem, st);
+  if (kind == 1) return launch<__nv_bfloat16, float, float, true>(a, d, warps, grid, smem, st);
   if (kind == 2) return launch<double, double, double, false>(a, d, warps, grid, smem, st);
   return launch<float, float, float, true>(a, d, warps, grid, smem, st);
 }

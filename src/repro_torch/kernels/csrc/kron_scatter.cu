@@ -18,10 +18,22 @@
 // 128 B a slot in f32, ~9.8 GB a mode.
 //
 // Design: the warp walk of kron_walk.cuh (one warp per row-aligned range,
-// 32-slot chunks gathered with cp.async into a two-stage swizzled ring, fp32
-// row products on mma.sync 3xTF32, bf16_fp32acc on the CUDA cores), whose
-// row end stores the finished row. Rows no slot reaches stay as the
-// wrapper's zero fill.
+// 32-slot chunks gathered with cp.async into a two-stage swizzled ring, the
+// row products on the tensor cores), whose row end stores the finished row.
+// Rows no slot reaches stay as the wrapper's zero fill. fp32: mma.sync
+// m16n8k8 3xTF32, 8 slots a block.
+//
+// bf16_fp32acc (T = bf16, V = float): the walk's bf16 tensor-core route,
+// mma.sync m16n8k16 bf16, 16 slots a block: A = a^T (the bf16 factor rows,
+// exact), B = v*b split into bf16 hi + lo, two products a block, f32 sums.
+// The factor rows are staged in bf16 (64 B a slot at ranks 16, half of
+// fp32's), so the gathers from L2 halve too; the operations, 2K + R_a a
+// slot, are those of fp32 at twice the TF32 rate on the bf16 tensor cores,
+// so the byte bound (1.1 ms a NELL-2 sweep) is the bound. Each term is
+// a*b*v to ~2^-16, where the plain version rounds a*b to bf16 first (up to
+// 2^-8 of the term): a deliberate departure, held by chip_smoke.py to the
+// bf16_fp32acc limit (2e-2 x max|plain|). Built with -DKRON_BF16_TF32 the
+// route is the alternative TF32 framing (kron_walk.cuh).
 //
 // float64 (T = V = double): the walk's f64 tensor-core route (DMMA,
 // mma.sync m16n8k8 .f64), with f64 factor rows, values, accumulators and
@@ -126,7 +138,7 @@ int occupancy(int warps, size_t smem, int* regs, int* per_sm) {
 bool config_of(int ra, int rb, int lda, int ldb, int kind, kwalk::Shape* sh, int* warps,
                size_t* smem) {
   const int elem = kind == 1 ? 2 : kind == 2 ? 8 : 4;
-  kwalk::staged_strides(ra, rb, lda, ldb, kind != 1, &sh->sla, &sh->slb);
+  kwalk::staged_strides(ra, rb, lda, ldb, true, &sh->sla, &sh->slb);
   int dev = 0, smem_max = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
@@ -141,7 +153,7 @@ bool config_of(int ra, int rb, int lda, int ldb, int kind, kwalk::Shape* sh, int
 
 // Y (n_rows, ra*rb), zero-filled by the caller, f32 (f64 for kind = 2).
 // fa (I_a, lda) and fb (I_b, ldb) are the factor matrices, f32 (kind = 0:
-// the tensor-core route), bf16 (kind = 1) or f64 (kind = 2), their rows
+// 3xTF32), bf16 (kind = 1: bf16 m16n8k16) or f64 (kind = 2: DMMA), their rows
 // zero-padded to 16 bytes (lda, ldb multiples of 4 in f32, 8 in bf16, 2 in
 // f64) and 16-byte aligned; fb is null with rb = 1 and ldb = 0 for a 2-way
 // tensor. idx (nnzp, idx_cols) int32 holds each slot's row of fa (column
@@ -164,15 +176,15 @@ extern "C" int kron_scatter_launch(const void* fa, const void* fb, const void* i
   int warps;
   size_t smem;
   if (!config_of(ra, rb, lda, ldb, kind, &sh, &warps, &smem)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n_parts + warps - 1) / warps, kwalk::column_blocks(ra, rb, kind != 1));
+  const dim3 grid((n_parts + warps - 1) / warps, kwalk::column_blocks(ra, rb, true));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* ip = static_cast<const int*>(idx);
   const int* relp = static_cast<const int*>(rel);
   const int* blk = static_cast<const int*>(blkmap);
   const long long* pp = static_cast<const long long*>(parts);
   if (kind == 1)
-    return launch<__nv_bfloat16, false, float>(fa, fb, ip, vals, relp, blk, pp, out, n_parts, sh,
-                                               warps, grid, smem, st);
+    return launch<__nv_bfloat16, true, float>(fa, fb, ip, vals, relp, blk, pp, out, n_parts, sh,
+                                              warps, grid, smem, st);
   if (kind == 2)
     return launch<double, true, double>(fa, fb, ip, vals, relp, blk, pp, out, n_parts, sh,
                                         warps, grid, smem, st);
@@ -198,7 +210,7 @@ extern "C" int kron_scatter_occupancy(int ra, int rb, int lda, int ldb, int kind
     return (int)cudaErrorInvalidValue;
   *threads = warps * 32;
   *smem = (long long)bytes;
-  if (kind == 1) return occupancy<__nv_bfloat16, false, float>(warps, bytes, regs, per_sm);
+  if (kind == 1) return occupancy<__nv_bfloat16, true, float>(warps, bytes, regs, per_sm);
   if (kind == 2) return occupancy<double, true, double>(warps, bytes, regs, per_sm);
   return occupancy<float, true, float>(warps, bytes, regs, per_sm);
 }

@@ -7,10 +7,12 @@
 // row to the caller's row_end(row, acc), which kernel 1 stores and kernel 5
 // contracts. No (nnz, R) operand is ever written to device memory.
 //
-// Three routes, by the template arguments (T, kTC): fp32 (float, true) and
-// f64 (double, true) on the tensor cores, bf16_fp32acc and the CUDA-core
-// f64 (bf16 or double, false) on the CUDA cores; kron_kernel.py::
-// launch_route names the one each kernel, dtype and precision takes.
+// Four routes, by the template arguments (T, kTC): fp32 (float, true) on
+// the tensor cores in 3xTF32, bf16_fp32acc (bf16, true) on the bf16 tensor
+// cores, f64 (double, true) on the f64 tensor cores, and the CUDA cores
+// (bf16 or double, false), kept for kernel 5, whose row end contracts lane
+// tiles; kron_kernel.py::launch_route names the one each kernel, dtype and
+// precision takes.
 //
 //   * A range starts at a row's first slot (sparse/layout.py::row_parts: a
 //     row never crosses two ranges), so each row is a segmented sum of its
@@ -65,18 +67,36 @@
 //     slots x 4 columns; XORing 4-column groups by slot % 4 puts each
 //     half-warp's 16 doubles on 16 different bank pairs, and keeps 16-byte
 //     pieces whole for cp.async.
-//   * bf16_fp32acc, on the CUDA cores: each product a*b is rounded to bf16,
-//     then scaled by the f32 value and summed in f32 (kron_common.cuh's
-//     kron_term, the plain version's rounding, which the tensor cores cannot
-//     reproduce). A lane owns a 4 x 2 register tile of the row: eight terms
-//     per slot from one 8-byte and one 4-byte shared load.
-//   * float64 on the CUDA cores (the same lane tiles; T = V = double, kTC
-//     false), kept for kernel 5's f64 instantiation, whose row end
-//     contracts lane tiles (the chain kernel's f64 route loads its rows with
-//     this route's load4): each term round(round(a*b)*v) in f64, summed in f64 in
-//     slot order, the plain version's arithmetic. The value type V
-//     (of vals and of the accumulators) is float on the fp32 and bf16
-//     routes.
+//   * bf16_fp32acc on the bf16 tensor cores (kernel 1's bf16 route): the
+//     same framing and row logic, 16 slots a block with mma.sync m16n8k16
+//     bf16 (tc::mma_bf16). The A fragment holds a's columns as staged (bf16,
+//     exact: the wrapper rounded the factors), loaded with ldmatrix.trans;
+//     the B fragment holds v*b, formed in f32 from b (also loaded with
+//     ldmatrix.trans) and split into a bf16 high part and a bf16 remainder,
+//     two products a block, which carry v*b to 2^-16. Each product is exact
+//     in the f32 accumulator, so a term is a*b*v to about 2^-16, where the
+//     plain version rounds a*b to bf16 before the scale (up to 2^-8 of the
+//     term): the card gives up that rounding on purpose, and its sum is the
+//     nearer to the exact one; chip_smoke.py holds it to the bf16_fp32acc
+//     limit, 2e-2 of max|plain|. Each 16-slot product starts from zero and
+//     is added to the row's f32 sum, as on the fp32 route; a block that
+//     holds a row's end is run once per row it touches, the other rows'
+//     values masked to 0 in B. Rows are staged in bf16 in 16-element strides
+//     (32 bytes at ranks 16, half the fp32 route's), swizzled by swz16 so
+//     that each 8-row phase of an ldmatrix reads 32 different banks. Built
+//     with -DKRON_BF16_TF32 the route takes the alternative TF32 framing
+//     instead: 8 slots a block on m16n8k8, A = a (exact in TF32), B = v*b
+//     split into two TF32 parts (2xTF32), scalar fragment loads.
+//   * The CUDA cores (T = bf16 or double, kTC false), kept for kernel 5's
+//     bf16 and f64 instantiations, whose row end contracts lane tiles (the
+//     chain kernel's f64 route loads its rows with this route's load4): a
+//     lane owns a 4 x 2 register tile of the row, eight terms per slot from
+//     one 8-byte and one 4-byte shared load (twice those in f64), each term
+//     rounded as the plain versions round it: in bf16 the product a*b
+//     rounded to bf16, then scaled by the f32 value and summed in f32
+//     (kron_common.cuh's kron_term); in f64 round(round(a*b)*v), summed in
+//     f64 in slot order. The value type V (of vals and of the accumulators)
+//     is float on the fp32 and bf16 routes.
 #pragma once
 
 #include <algorithm>
@@ -87,6 +107,7 @@
 
 namespace kwalk {
 
+using tc::mma_bf16;
 using tc::mma_f64;
 using tc::mma_tf32;
 using tc::split;
@@ -95,9 +116,9 @@ constexpr int kSlots = 32;  // slots per staged chunk, one per lane
 constexpr int kStages = 2;  // staged chunks per warp: one in flight while one is summed
 constexpr int kWarps = 8;   // warps per CTA, at most (the f64 tensor-core route: kDmmaWarps)
 constexpr int kDmmaWarps = 4;  // kernel 1's f64 route: CTAs of 4 warps, three an SM
-constexpr int kNT = 2;      // fp32 route: n8 tiles (b columns) a warp, with one m16 tile
-constexpr int kTA = 4;      // bf16 route: a columns per lane
-constexpr int kTB = 2;      // bf16 route: b columns per lane
+constexpr int kNT = 2;      // tensor-core routes: n8 tiles (b columns) a warp, with one m16 tile
+constexpr int kTA = 4;      // CUDA-core routes: a columns per lane
+constexpr int kTB = 2;      // CUDA-core routes: b columns per lane
 constexpr int kBlockCols = 256;  // columns of Y one block of blockIdx.y holds, either route
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -188,10 +209,20 @@ __device__ __forceinline__ int swz(int s, int sl) {
 // served as two half-warps (g < 4, g >= 4); in each, column g of slot t
 // lands on bank pair g ^ 4t (mod 16): 16 different pairs, no conflict.
 __device__ __forceinline__ int swz64(int s) { return (s & 3) << 2; }
+// The bf16 tensor-core route's (strides sl of whole 16-element blocks): an
+// ldmatrix phase reads one 16-byte piece (8 columns) of 8 consecutive
+// slots, and the XOR moves whole pieces, by slot, so that the 8 pieces fall
+// on the 8 different 16-byte bank groups of a 128-byte line: rows of 128
+// bytes or a multiple (sl % 64 == 0) XOR the piece by s % 8, rows of 64
+// bytes mod 128 by (s / 2) % 4, rows of 32 bytes mod 64 by (s / 4) % 2. Each
+// XOR stays inside the aligned block of 16, 32 or 64 columns that holds c.
+__device__ __forceinline__ int swz16(int s, int sl) {
+  return sl % 64 == 0 ? (s & 7) << 3 : sl % 32 == 0 ? ((s >> 1) & 3) << 3 : ((s >> 2) & 1) << 3;
+}
 // The swizzle of the tensor-core route of element type T.
 template <typename T>
 __device__ __forceinline__ int swz_of(int s, int sl) {
-  return sizeof(T) == 8 ? swz64(s) : swz(s, sl);
+  return sizeof(T) == 8 ? swz64(s) : sizeof(T) == 2 ? swz16(s, sl) : swz(s, sl);
 }
 
 // One chunk's slot data, lane l holding slot t0 + l (zeros past the range).
@@ -259,7 +290,7 @@ struct Tile {
   // tiles (b columns b0c .. b0c + 8 kNT - 1); acc[q][e] is column
   // (a0c + g + 8 (e >> 1), b0c + 8 q + 2 t + (e & 1)) of the row
   int a0c, b0c;
-  // bf16 route: the lane's kTA x kTB register tile at (i0, j0); acc[r][c]
+  // CUDA-core routes: the lane's kTA x kTB register tile at (i0, j0); acc[r][c]
   // is column (i0 + r, j0 + c); lanes past the row's tiles are not active
   int i0, j0;
   bool active;
@@ -294,6 +325,16 @@ struct Tile {
   }
 };
 
+// Whether the tensor-core route of element type T runs bf16 m16n8k16 (the
+// bf16 route, unless built with -DKRON_BF16_TF32 for the TF32 framing).
+template <typename T>
+constexpr bool kBf16Mma =
+#ifdef KRON_BF16_TF32
+    false;
+#else
+    sizeof(T) == 2;
+#endif
+
 // Zero a warp's ring once: the staged columns past each factor row stay 0.
 template <typename T>
 __device__ __forceinline__ void zero_ring(T* ring, int elems, int lane) {
@@ -306,9 +347,9 @@ __device__ __forceinline__ void zero_ring(T* ring, int elems, int lane) {
 // elements of the warp's own shared memory, zeroed once by zero_ring).
 // Calls row_end(row, acc) with the warp's (or lane's) part of each finished
 // row, once per row, from the whole warp, and chunk_end() after each chunk.
-// kTC: a tensor-core route, fp32 (T = V = float, 3xTF32) or f64 (T = V =
-// double, DMMA); otherwise a CUDA-core route: bf16 (T = bf16, V = float) or
-// f64 (T = V = double).
+// kTC: a tensor-core route, fp32 (T = V = float, 3xTF32), bf16 (T = bf16,
+// V = float, bf16 m16n8k16) or f64 (T = V = double, DMMA); otherwise a
+// CUDA-core route: bf16 (T = bf16, V = float) or f64 (T = V = double).
 template <typename T, bool kTC, typename V, typename RowEnd, typename ChunkEnd>
 __device__ __forceinline__ void walk(const T* __restrict__ fa, const T* __restrict__ fb,
                                      const int* __restrict__ idx,
@@ -379,55 +420,121 @@ __device__ __forceinline__ void walk(const T* __restrict__ fa, const T* __restri
     // the slot's row where its value is not 0, else -1 (it adds nothing)
     const int eff = m[0].v != V(0) ? m[0].row : -1;
     if constexpr (kTC) {
-      // Y_row += (w a)^T b over slots 8 kb .. 8 kb + 7, w the slots' values
-      // (0 where masked)
-      auto block_pass = [&](int kb, V w0, V w1) {
-        const int s0 = 8 * kb + t, s1 = s0 + 4;  // the slots of k = t and k = t + 4
-        const int x0 = swz_of<T>(s0, sla), x1 = swz_of<T>(s1, sla);
-        const T* r0 = sa + s0 * sla;
-        const T* r1 = sa + s1 * sla;
-        if constexpr (sizeof(T) == 8) {
-          // A = (w a)^T rounded once; the products accumulate into the row
-          const double a[4] = {__dmul_rn(w0, r0[(a0c + g) ^ x0]),
-                               __dmul_rn(w0, r0[(a0c + g + 8) ^ x0]),
-                               __dmul_rn(w1, r1[(a0c + g) ^ x1]),
-                               __dmul_rn(w1, r1[(a0c + g + 8) ^ x1])};
-#pragma unroll
-          for (int q = 0; q < kNT; ++q) {
-            const int col = b0c + 8 * q + g;
-            double b[2];
-            if (slb > 0) {
-              b[0] = sb[s0 * slb + (col ^ swz64(s0))];
-              b[1] = sb[s1 * slb + (col ^ swz64(s1))];
-            } else {  // 2-way: b is the implicit ones column
-              b[0] = b[1] = col == 0 ? 1.0 : 0.0;
-            }
-            mma_f64(acc[q], a, b);
+      // kK slots a block: 16 on bf16 m16n8k16, else 8 (m16n8k8). Lane (g, t)
+      // holds the block's slots lane_slot(0 .. kW - 1): its k of the B (and
+      // A) fragments, t and t + 4 on m16n8k8, 2t, 2t + 1, 2t + 8, 2t + 9 on
+      // m16n8k16.
+      constexpr int kK = kBf16Mma<T> ? 16 : 8, kW = kK / 4;
+      auto lane_slot = [&](int i) { return kK == 16 ? 2 * t + (i & 1) + 8 * (i >> 1) : t + 4 * i; };
+      // Y_row += (w a)^T b over slots kK kb .. kK kb + kK - 1, w the slots'
+      // values (0 where masked), w[i] that of the lane's slot lane_slot(i)
+      auto block_pass = [&](int kb, const V (&w)[kW]) {
+        if constexpr (kBf16Mma<T>) {
+          // A = a^T and the staged b, each by one ldmatrix.x4.trans: lane l
+          // points at row l % 8 of matrix l / 8, a 16-byte piece of a slot
+          const int j = lane >> 3, r = lane & 7;
+          const int s_a = kK * kb + r + 8 * (j >> 1), c_a = a0c + 8 * (j & 1);
+          uint32_t a[4], braw[4];
+          tc::ldsm_x4_trans(a, sa + s_a * sla + (c_a ^ swz16(s_a, sla)));
+          if (slb > 0) {  // braw[2 q + h]: n8 tile q, the lane's slots 2t + 8h, 2t + 8h + 1
+            const int s_b = kK * kb + r + 8 * (j & 1), c_b = b0c + 8 * (j >> 1);
+            tc::ldsm_x4_trans(braw, sb + s_b * slb + (c_b ^ swz16(s_b, slb)));
           }
-        } else {
-          // A = (w a)^T: rows are a's columns, k the slots
-          uint32_t ah[4], al[4];
-          split(w0 * r0[(a0c + g) ^ x0], ah[0], al[0]);
-          split(w0 * r0[(a0c + g + 8) ^ x0], ah[1], al[1]);
-          split(w1 * r1[(a0c + g) ^ x1], ah[2], al[2]);
-          split(w1 * r1[(a0c + g + 8) ^ x1], ah[3], al[3]);
 #pragma unroll
           for (int q = 0; q < kNT; ++q) {
-            const int col = b0c + 8 * q + g;
+            // B = v b at column b0c + 8 q + g, split into bf16 hi + lo
             uint32_t bh[2], bl[2];
-            if (slb > 0) {
-              split(sb[s0 * slb + (col ^ swz(s0, slb))], bh[0], bl[0]);
-              split(sb[s1 * slb + (col ^ swz(s1, slb))], bh[1], bl[1]);
-            } else {  // 2-way: b is the implicit ones column
-              bh[0] = bh[1] = col == 0 ? 0x3f800000u : 0u;  // 1.f
-              bl[0] = bl[1] = 0u;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float x0, x1;
+              if (slb > 0) {
+                x0 = tc::bf16_lo(braw[2 * q + h]), x1 = tc::bf16_hi(braw[2 * q + h]);
+              } else {  // 2-way: b is the implicit ones column
+                x0 = x1 = b0c + 8 * q + g == 0 ? 1.f : 0.f;
+              }
+              tc::split_bf16x2(__fmul_rn(w[2 * h], x0), __fmul_rn(w[2 * h + 1], x1), bh[h],
+                               bl[h]);
             }
             float d[4] = {0.f, 0.f, 0.f, 0.f};
-            mma_tf32(d, al, bh);
-            mma_tf32(d, ah, bl);
-            mma_tf32(d, ah, bh);
+            mma_bf16(d, a, bl);
+            mma_bf16(d, a, bh);
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[q][e] = __fadd_rn(acc[q][e], d[e]);
+          }
+        } else {
+          const int s0 = kK * kb + t, s1 = s0 + 4;  // the slots of k = t and k = t + 4
+          const int x0 = swz_of<T>(s0, sla), x1 = swz_of<T>(s1, sla);
+          const T* r0 = sa + s0 * sla;
+          const T* r1 = sa + s1 * sla;
+          if constexpr (sizeof(T) == 8) {
+            // A = (w a)^T rounded once; the products accumulate into the row
+            const double a[4] = {__dmul_rn(w[0], r0[(a0c + g) ^ x0]),
+                                 __dmul_rn(w[0], r0[(a0c + g + 8) ^ x0]),
+                                 __dmul_rn(w[1], r1[(a0c + g) ^ x1]),
+                                 __dmul_rn(w[1], r1[(a0c + g + 8) ^ x1])};
+#pragma unroll
+            for (int q = 0; q < kNT; ++q) {
+              const int col = b0c + 8 * q + g;
+              double b[2];
+              if (slb > 0) {
+                b[0] = sb[s0 * slb + (col ^ swz64(s0))];
+                b[1] = sb[s1 * slb + (col ^ swz64(s1))];
+              } else {  // 2-way: b is the implicit ones column
+                b[0] = b[1] = col == 0 ? 1.0 : 0.0;
+              }
+              mma_f64(acc[q], a, b);
+            }
+          } else if constexpr (sizeof(T) == 2) {
+            // -DKRON_BF16_TF32: A = a^T (bf16, exact in TF32), B = w b split
+            // into two TF32 parts
+            const uint32_t a[4] = {__float_as_uint(kron::to_f32(r0[(a0c + g) ^ x0])),
+                                   __float_as_uint(kron::to_f32(r0[(a0c + g + 8) ^ x0])),
+                                   __float_as_uint(kron::to_f32(r1[(a0c + g) ^ x1])),
+                                   __float_as_uint(kron::to_f32(r1[(a0c + g + 8) ^ x1]))};
+#pragma unroll
+            for (int q = 0; q < kNT; ++q) {
+              const int col = b0c + 8 * q + g;
+              uint32_t bh[2], bl[2];
+              if (slb > 0) {
+                split(__fmul_rn(w[0], kron::to_f32(sb[s0 * slb + (col ^ swz16(s0, slb))])),
+                      bh[0], bl[0]);
+                split(__fmul_rn(w[1], kron::to_f32(sb[s1 * slb + (col ^ swz16(s1, slb))])),
+                      bh[1], bl[1]);
+              } else {  // 2-way: b is the implicit ones column
+                split(col == 0 ? w[0] : 0.f, bh[0], bl[0]);
+                split(col == 0 ? w[1] : 0.f, bh[1], bl[1]);
+              }
+              float d[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_tf32(d, a, bl);
+              mma_tf32(d, a, bh);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[q][e] = __fadd_rn(acc[q][e], d[e]);
+            }
+          } else {
+            // A = (w a)^T: rows are a's columns, k the slots
+            uint32_t ah[4], al[4];
+            split(w[0] * r0[(a0c + g) ^ x0], ah[0], al[0]);
+            split(w[0] * r0[(a0c + g + 8) ^ x0], ah[1], al[1]);
+            split(w[1] * r1[(a0c + g) ^ x1], ah[2], al[2]);
+            split(w[1] * r1[(a0c + g + 8) ^ x1], ah[3], al[3]);
+#pragma unroll
+            for (int q = 0; q < kNT; ++q) {
+              const int col = b0c + 8 * q + g;
+              uint32_t bh[2], bl[2];
+              if (slb > 0) {
+                split(sb[s0 * slb + (col ^ swz(s0, slb))], bh[0], bl[0]);
+                split(sb[s1 * slb + (col ^ swz(s1, slb))], bh[1], bl[1]);
+              } else {  // 2-way: b is the implicit ones column
+                bh[0] = bh[1] = col == 0 ? 0x3f800000u : 0u;  // 1.f
+                bl[0] = bl[1] = 0u;
+              }
+              float d[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_tf32(d, al, bh);
+              mma_tf32(d, ah, bl);
+              mma_tf32(d, ah, bh);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[q][e] = __fadd_rn(acc[q][e], d[e]);
+            }
           }
         }
       };
@@ -435,21 +542,31 @@ __device__ __forceinline__ void walk(const T* __restrict__ fa, const T* __restri
         // the whole chunk sums into row cur (its zero-valued slots add 0):
         // the blocks are independent, and unrolled they overlap
 #pragma unroll
-        for (int kb = 0; kb < kSlots / 8; ++kb) {
-          if (8 * kb >= n) break;
-          block_pass(kb, __shfl_sync(kFull, m[0].v, 8 * kb + t),
-                     __shfl_sync(kFull, m[0].v, 8 * kb + t + 4));
+        for (int kb = 0; kb < kSlots / kK; ++kb) {
+          if (kK * kb >= n) break;
+          V w[kW];
+#pragma unroll
+          for (int i = 0; i < kW; ++i) w[i] = __shfl_sync(kFull, m[0].v, kK * kb + lane_slot(i));
+          block_pass(kb, w);
         }
       } else {
-        for (int kb = 0; 8 * kb < n; ++kb) {
-          const int s0 = 8 * kb + t, s1 = s0 + 4;
-          const int e0 = __shfl_sync(kFull, eff, s0), e1 = __shfl_sync(kFull, eff, s1);
-          const V v0 = __shfl_sync(kFull, m[0].v, s0), v1 = __shfl_sync(kFull, m[0].v, s1);
-          const unsigned block = 0xffu << (8 * kb);
+        for (int kb = 0; kK * kb < n; ++kb) {
+          int e[kW];
+          V vs[kW];
+#pragma unroll
+          for (int i = 0; i < kW; ++i) {
+            e[i] = __shfl_sync(kFull, eff, kK * kb + lane_slot(i));
+            vs[i] = __shfl_sync(kFull, m[0].v, kK * kb + lane_slot(i));
+          }
+          const unsigned block = ((1u << kK) - 1u) << (kK * kb);
           unsigned later = __ballot_sync(kFull, eff > cur) & block;
           while (true) {
-            if (cur >= 0)  // this block's slots of row cur (and the zero-valued ones)
-              block_pass(kb, e0 == cur || e0 < 0 ? v0 : V(0), e1 == cur || e1 < 0 ? v1 : V(0));
+            if (cur >= 0) {  // this block's slots of row cur (and the zero-valued ones)
+              V w[kW];
+#pragma unroll
+              for (int i = 0; i < kW; ++i) w[i] = e[i] == cur || e[i] < 0 ? vs[i] : V(0);
+              block_pass(kb, w);
+            }
             if (!later) break;
             end_row();  // the row ends in this block: the next row starts
             zero_acc();

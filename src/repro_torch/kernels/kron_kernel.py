@@ -29,8 +29,13 @@ in f32 whatever the dtype; its XLA engine keeps f64, and the port's card
 runs as that engine does); under ``bf16_fp32acc`` they take the bf16 route
 with f32 values and results, as the reference's kernels do. Where each
 kernel's products run, by dtype and precision (the f64 tensor cores for
-kernel 1 in f64, the CUDA cores for kernel 5 and the chain kernel in f64),
-is :func:`launch_route`'s answer.
+kernel 1 in f64, the bf16 tensor cores for kernel 1 under ``bf16_fp32acc``,
+the CUDA cores for kernel 5 in f64 and bf16), is :func:`launch_route`'s
+answer. The plain versions keep the reference's roundings; kernel 1 and the
+chain kernel under ``bf16_fp32acc`` give up one of them on the card (the
+bf16 rounding of each product a*b before the f32 scale), so their terms
+differ from the plain versions' by up to 2^-8 of a term (see
+:func:`launch_route`).
 """
 from __future__ import annotations
 
@@ -107,13 +112,17 @@ def _kind(dtype: torch.dtype) -> int:
 
 
 # the datapaths a kernel's products run on (launch_route): the tensor cores
-# with each f32 operand split into two TF32 parts, the f64 tensor cores
+# with each f32 operand split into two TF32 parts (three products), with one
+# operand exact in TF32 and the other split (two products), the bf16 tensor
+# cores with one operand split into two bf16 parts, the f64 tensor cores
 # (DMMA), and the CUDA cores
-ROUTES = ("3xtf32", "dmma", "cuda_cores")
+ROUTES = ("3xtf32", "2xtf32", "bf16_mma", "dmma", "cuda_cores")
 # the walk kernels (kron_walk.cuh and the chain kernel's walk), whose f32
 # products run on 3xTF32
 _WALK_KERNELS = ("fused_kron_scatter", "fused_kron_scatter_ttm", "fused_kron_chain_scatter")
 _ROUTED_KERNELS = _WALK_KERNELS + ("ttm", "kron_contrib", "scatter_rows")
+# the kernels whose bf16_fp32acc products run on the tensor cores
+_BF16_ROUTES = {"fused_kron_scatter": "bf16_mma", "fused_kron_chain_scatter": "2xtf32"}
 
 
 def launch_route(kernel: str, dtype: torch.dtype, precision: str = "fp32") -> str:
@@ -128,8 +137,14 @@ def launch_route(kernel: str, dtype: torch.dtype, precision: str = "fp32") -> st
       (``fused_kron_chain_scatter``);
     * float32 at ``fp32``: ``"3xtf32"`` for the three walk kernels,
       ``"cuda_cores"`` for kernel 2;
-    * ``bf16_fp32acc`` (either dtype): ``"cuda_cores"``, each product
-      rounded to bf16 as the plain versions round it;
+    * ``bf16_fp32acc`` (either dtype): ``"bf16_mma"`` for kernel 1
+      (``mma.sync`` m16n8k16 bf16: A the bf16 factor rows, B v b split into
+      bf16 hi + lo), ``"2xtf32"`` for the chain kernel (A f_1 exact in
+      TF32, B v (f_2 (x) ...) split into two TF32 parts); both give up the
+      plain versions' bf16 rounding of each product a*b (up to 2^-8 of a
+      term), and sum nearer the exact sum; ``"cuda_cores"`` for kernels 5
+      and 2, kernel 5 rounding each product to bf16 as the plain version
+      does;
     * kernels 3 and 4 (``kron_contrib``, ``scatter_rows``): ``"cuda_cores"``.
     """
     if kernel not in _ROUTED_KERNELS:
@@ -138,8 +153,10 @@ def launch_route(kernel: str, dtype: torch.dtype, precision: str = "fp32") -> st
         raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"launch_route: operands must be float32 or float64, got {dtype}")
-    if precision == "bf16_fp32acc" or kernel in ("kron_contrib", "scatter_rows"):
+    if kernel in ("kron_contrib", "scatter_rows"):
         return "cuda_cores"
+    if precision == "bf16_fp32acc":
+        return _BF16_ROUTES.get(kernel, "cuda_cores")
     if dtype == torch.float64:
         return "dmma" if kernel in ("fused_kron_scatter", "ttm") else "cuda_cores"
     return "3xtf32" if kernel in _WALK_KERNELS else "cuda_cores"
@@ -335,12 +352,15 @@ def fused_kron_scatter(fa, fb, sched, n_rows: int, *,
     ``sched`` is a :class:`~repro_torch.sparse.layout.DeviceSchedule` of the
     mode: slot t reads row ``sched.idx[t, 0]`` of fa, row ``sched.idx[t, 1]``
     of fb and the value ``sched.vals[t]``. Under ``bf16_fp32acc`` the
-    factor matrices are rounded to bf16 once. CPU tensors run the plain
-    version; CUDA tensors launch the kernel of ``csrc/kron_scatter.cu``,
-    which gathers the rows itself, or raise. f64 factors (``fp32``) give an
-    f64 Y, its products on the f64 tensor cores (DMMA, :func:`launch_route`)
-    with each term fma(round(v a), b, acc), where the plain version rounds
-    round(a b) v: about one f64 ulp of a term apart.
+    factor matrices are rounded to bf16 once; the card's products run on
+    the bf16 tensor cores (:func:`launch_route`), each term a b v to about
+    2^-16, where the plain version rounds a b to bf16 before the scale (up
+    to 2^-8 of the term apart). CPU tensors run the plain version; CUDA
+    tensors launch the kernel of ``csrc/kron_scatter.cu``, which gathers the
+    rows itself, or raise. f64 factors (``fp32``) give an f64 Y, its
+    products on the f64 tensor cores (DMMA, :func:`launch_route`) with each
+    term fma(round(v a), b, acc), where the plain version rounds round(a b)
+    v: about one f64 ulp of a term apart.
     """
     if fa.device.type == "cpu":
         return fused_kron_scatter_plain(fa, fb, sched, n_rows, precision=precision)
@@ -678,11 +698,12 @@ def fused_kron_chain_scatter(factors, sched, n_rows: int, *,
     :class:`~repro_torch.sparse.layout.DeviceSchedule` of the mode: slot t
     reads row ``sched.idx[t, f]`` of factor f and the value
     ``sched.vals[t]``, and the kernel splits the slots at
-    ``sched.chain_cuts``. ``precision`` rounds as the chain does: under
-    ``bf16_fp32acc`` f_1 and f_2 in bf16 and their product too, the later
-    factors in f32 (the reference's later links run at fp32); f64 factors
-    at ``fp32`` give an f64 Y, summed on the CUDA cores
-    (:func:`launch_route`). CPU tensors run the plain version; CUDA tensors
+    ``sched.chain_cuts``. ``precision`` casts as the chain does: under
+    ``bf16_fp32acc`` f_1 and f_2 in bf16, the later factors in f32 (the
+    reference's later links run at fp32); the plain version also rounds
+    f_1 f_2 to bf16, which the card's 2xTF32 products do not (up to 2^-8
+    of a term apart, :func:`launch_route`). f64 factors at ``fp32`` give an
+    f64 Y, summed on the CUDA cores. CPU tensors run the plain version; CUDA tensors
     launch the kernels of ``csrc/kron_chain_scatter.cu`` (the ranges, then
     the in-order sum of the rows they share) or raise. The
     kernel is compiled for 3 to ``MAX_CHAIN_OPERANDS`` factors (orders 4 to

@@ -149,13 +149,17 @@ def test_ring_model_follows_each_f64_route(ra, rb, dmma, cuda_cores):
     as the fp32 route's, kernel 5's f64 ring (CUDA cores) in 8-element rows
     of whole 4 x 2 lane tiles (csrc/kron_walk.cuh staged_strides): at ranks
     (13, 22) 2 x 32 x (16 + 32) x 8 bytes against 2 x 32 x (16 + 24) x 8; a
-    2-way tensor (rb = 0) stages a alone."""
+    2-way tensor (rb = 0) stages a alone. Under bf16_fp32acc kernel 1 (bf16
+    m16n8k16) stages the same 16-element blocks in bf16, a quarter of the
+    f64 ring, and kernel 5 (CUDA cores) a quarter of its f64 lane-tile
+    ring."""
     assert at._ring_bytes(ra, rb, "fp32", "float64") == dmma
     assert at._ring_bytes(ra, rb, "fp32", "float64", "fused_kron_scatter_ttm") == cuda_cores
-    # f32 and bf16 rings are the same for both kernels
-    for precision in ("fp32", "bf16_fp32acc"):
-        assert (at._ring_bytes(ra, rb, precision)
-                == at._ring_bytes(ra, rb, precision, kernel="fused_kron_scatter_ttm"))
+    assert at._ring_bytes(ra, rb, "bf16_fp32acc") == dmma // 4
+    assert at._ring_bytes(ra, rb, "bf16_fp32acc", kernel="fused_kron_scatter_ttm") == cuda_cores // 4
+    # f32 rings are the same for both kernels
+    assert (at._ring_bytes(ra, rb, "fp32")
+            == at._ring_bytes(ra, rb, "fp32", kernel="fused_kron_scatter_ttm"))
 
 
 def test_smem_model_keeps_kernel5s_f64_ring_on_the_fused_layout():

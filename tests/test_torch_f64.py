@@ -353,17 +353,21 @@ _ROUTES = {  # (kernel, dtype, precision) -> the datapath its CUDA source takes
     ("ttm", "float32", "fp32"): "cuda_cores",
     ("kron_contrib", "float32", "fp32"): "cuda_cores",
     ("scatter_rows", "float32", "fp32"): "cuda_cores",
-    **{(k, d, "bf16_fp32acc"): "cuda_cores"
-       for k in ("fused_kron_scatter", "fused_kron_scatter_ttm", "fused_kron_chain_scatter",
-                 "ttm", "kron_contrib", "scatter_rows") for d in ("float32", "float64")},
+    **{(k, d, "bf16_fp32acc"): route
+       for k, route in (("fused_kron_scatter", "bf16_mma"),
+                        ("fused_kron_chain_scatter", "2xtf32"),
+                        ("fused_kron_scatter_ttm", "cuda_cores"), ("ttm", "cuda_cores"),
+                        ("kron_contrib", "cuda_cores"), ("scatter_rows", "cuda_cores"))
+       for d in ("float32", "float64")},
 }
 
 
 @pytest.mark.parametrize("kernel,dtype,precision", sorted(_ROUTES))
 def test_launch_route_names_each_kernels_datapath(kernel, dtype, precision):
-    """Kernel 1 and kernel 2 in f64 at fp32 run on DMMA; kernel 5 and the
-    chain kernel in f64, every kernel under bf16_fp32acc and kernels 2-4 in
-    f32 on the CUDA cores; the walk kernels in f32 on 3xTF32."""
+    """Kernel 1 and kernel 2 in f64 at fp32 run on DMMA; under bf16_fp32acc
+    kernel 1 on bf16 m16n8k16 and the chain kernel on 2xTF32; kernel 5 and
+    the chain kernel in f64, kernels 2 and 5 under bf16_fp32acc and kernels
+    2-4 in f32 on the CUDA cores; the walk kernels in f32 on 3xTF32."""
     route = kron_kernel.launch_route(kernel, getattr(torch, dtype), precision)
     assert route == _ROUTES[(kernel, dtype, precision)] and route in kron_kernel.ROUTES
 
