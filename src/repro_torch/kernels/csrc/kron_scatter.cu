@@ -32,8 +32,7 @@
 // so the byte bound (1.1 ms a NELL-2 sweep) is the bound. Each term is
 // a*b*v to ~2^-16, where the plain version rounds a*b to bf16 first (up to
 // 2^-8 of the term): a deliberate departure, held by chip_smoke.py to the
-// bf16_fp32acc limit (2e-2 x max|plain|). Built with -DKRON_BF16_TF32 the
-// route is the alternative TF32 framing (kron_walk.cuh).
+// bf16_fp32acc limit (2e-2 x max|plain|).
 //
 // float64 (T = V = double): the walk's f64 tensor-core route (DMMA,
 // mma.sync m16n8k8 .f64), with f64 factor rows, values, accumulators and

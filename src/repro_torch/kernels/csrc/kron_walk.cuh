@@ -83,10 +83,9 @@
 //     holds a row's end is run once per row it touches, the other rows'
 //     values masked to 0 in B. Rows are staged in bf16 in 16-element strides
 //     (32 bytes at ranks 16, half the fp32 route's), swizzled by swz16 so
-//     that each 8-row phase of an ldmatrix reads 32 different banks. Built
-//     with -DKRON_BF16_TF32 the route takes the alternative TF32 framing
-//     instead: 8 slots a block on m16n8k8, A = a (exact in TF32), B = v*b
-//     split into two TF32 parts (2xTF32), scalar fragment loads.
+//     that each 8-row phase of an ldmatrix reads 32 different banks. (The
+//     TF32 framing, 8 slots a block on m16n8k8 with A = a exact in TF32 and
+//     B = v*b split into two TF32 parts, ran 1.2x slower on an H100.)
 //   * The CUDA cores (T = bf16 or double, kTC false), kept for kernel 5's
 //     bf16 and f64 instantiations, whose row end contracts lane tiles (the
 //     chain kernel's f64 route loads its rows with this route's load4): a
@@ -325,16 +324,6 @@ struct Tile {
   }
 };
 
-// Whether the tensor-core route of element type T runs bf16 m16n8k16 (the
-// bf16 route, unless built with -DKRON_BF16_TF32 for the TF32 framing).
-template <typename T>
-constexpr bool kBf16Mma =
-#ifdef KRON_BF16_TF32
-    false;
-#else
-    sizeof(T) == 2;
-#endif
-
 // Zero a warp's ring once: the staged columns past each factor row stay 0.
 template <typename T>
 __device__ __forceinline__ void zero_ring(T* ring, int elems, int lane) {
@@ -424,12 +413,12 @@ __device__ __forceinline__ void walk(const T* __restrict__ fa, const T* __restri
       // holds the block's slots lane_slot(0 .. kW - 1): its k of the B (and
       // A) fragments, t and t + 4 on m16n8k8, 2t, 2t + 1, 2t + 8, 2t + 9 on
       // m16n8k16.
-      constexpr int kK = kBf16Mma<T> ? 16 : 8, kW = kK / 4;
+      constexpr int kK = sizeof(T) == 2 ? 16 : 8, kW = kK / 4;
       auto lane_slot = [&](int i) { return kK == 16 ? 2 * t + (i & 1) + 8 * (i >> 1) : t + 4 * i; };
       // Y_row += (w a)^T b over slots kK kb .. kK kb + kK - 1, w the slots'
       // values (0 where masked), w[i] that of the lane's slot lane_slot(i)
       auto block_pass = [&](int kb, const V (&w)[kW]) {
-        if constexpr (kBf16Mma<T>) {
+        if constexpr (sizeof(T) == 2) {
           // A = a^T and the staged b, each by one ldmatrix.x4.trans: lane l
           // points at row l % 8 of matrix l / 8, a 16-byte piece of a slot
           const int j = lane >> 3, r = lane & 7;
@@ -483,32 +472,6 @@ __device__ __forceinline__ void walk(const T* __restrict__ fa, const T* __restri
                 b[0] = b[1] = col == 0 ? 1.0 : 0.0;
               }
               mma_f64(acc[q], a, b);
-            }
-          } else if constexpr (sizeof(T) == 2) {
-            // -DKRON_BF16_TF32: A = a^T (bf16, exact in TF32), B = w b split
-            // into two TF32 parts
-            const uint32_t a[4] = {__float_as_uint(kron::to_f32(r0[(a0c + g) ^ x0])),
-                                   __float_as_uint(kron::to_f32(r0[(a0c + g + 8) ^ x0])),
-                                   __float_as_uint(kron::to_f32(r1[(a0c + g) ^ x1])),
-                                   __float_as_uint(kron::to_f32(r1[(a0c + g + 8) ^ x1]))};
-#pragma unroll
-            for (int q = 0; q < kNT; ++q) {
-              const int col = b0c + 8 * q + g;
-              uint32_t bh[2], bl[2];
-              if (slb > 0) {
-                split(__fmul_rn(w[0], kron::to_f32(sb[s0 * slb + (col ^ swz16(s0, slb))])),
-                      bh[0], bl[0]);
-                split(__fmul_rn(w[1], kron::to_f32(sb[s1 * slb + (col ^ swz16(s1, slb))])),
-                      bh[1], bl[1]);
-              } else {  // 2-way: b is the implicit ones column
-                split(col == 0 ? w[0] : 0.f, bh[0], bl[0]);
-                split(col == 0 ? w[1] : 0.f, bh[1], bl[1]);
-              }
-              float d[4] = {0.f, 0.f, 0.f, 0.f};
-              mma_tf32(d, a, bl);
-              mma_tf32(d, a, bh);
-#pragma unroll
-              for (int e = 0; e < 4; ++e) acc[q][e] = __fadd_rn(acc[q][e], d[e]);
             }
           } else {
             // A = (w a)^T: rows are a's columns, k the slots

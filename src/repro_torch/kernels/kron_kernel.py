@@ -112,10 +112,9 @@ def _kind(dtype: torch.dtype) -> int:
 
 
 # the datapaths a kernel's products run on (launch_route): the tensor cores
-# with each f32 operand split into two TF32 parts (three products), with one
-# operand exact in TF32 and the other split (two products), the bf16 tensor
-# cores with one operand split into two bf16 parts, the f64 tensor cores
-# (DMMA), and the CUDA cores
+# in TF32 with both operands split in two (three products) or one operand
+# exact and the other split (two), the bf16 tensor cores with one operand
+# split into two bf16 parts, the f64 tensor cores (DMMA), and the CUDA cores
 ROUTES = ("3xtf32", "2xtf32", "bf16_mma", "dmma", "cuda_cores")
 # the walk kernels (kron_walk.cuh and the chain kernel's walk), whose f32
 # products run on 3xTF32
@@ -703,9 +702,9 @@ def fused_kron_chain_scatter(factors, sched, n_rows: int, *,
     reference's later links run at fp32); the plain version also rounds
     f_1 f_2 to bf16, which the card's 2xTF32 products do not (up to 2^-8
     of a term apart, :func:`launch_route`). f64 factors at ``fp32`` give an
-    f64 Y, summed on the CUDA cores. CPU tensors run the plain version; CUDA tensors
-    launch the kernels of ``csrc/kron_chain_scatter.cu`` (the ranges, then
-    the in-order sum of the rows they share) or raise. The
+    f64 Y, summed on the CUDA cores. CPU tensors run the plain version;
+    CUDA tensors launch the kernels of ``csrc/kron_chain_scatter.cu`` (the
+    ranges, then the in-order sum of the rows they share) or raise. The
     kernel is compiled for 3 to ``MAX_CHAIN_OPERANDS`` factors (orders 4 to
     6); :func:`repro_torch.kernels.ops.sparse_ttm_chain_device` sends higher
     orders to the chain of kernels 3 and 4.
