@@ -19,17 +19,18 @@ result line):
    (``csrc/kron_chain_scatter.cu``) at 4- to 6-way shapes, with rows
    spanning several of its ranges, in fp32, bf16_fp32acc and f64, against
    its plain version and against kernels 3 and 4 (``fused=False``), the
-   same bits twice; kernel 1's and the chain kernel's bf16_fp32acc calls
-   also no further from the f64 sum of their terms than the plain version
-   (``nearer_exact``), in phases 4 and 6 too;
+   same bits twice; the bf16_fp32acc calls of kernels 1 and 5 and the
+   chain kernel also no further from the f64 sum of their terms than the
+   plain version (``nearer_exact``), in phases 4, 5 and 6 too;
 3. the card against the CPU from the same factors (fit history, factor
    projectors and core): a NELL-2-like tensor (1000^3, 24,000 nonzeros,
    ranks 16, 5 sweeps) split and with ``fuse_core``, a 4-way tensor
    (200x200x200x20, 1,000,000 nonzeros, ranks 8, 5 sweeps; the chain
    kernel once a mode), and a small 4-way tensor with ``fuse_core`` (which
-   takes the split TTM); under ``bf16_fp32acc`` the NELL-2-like and the
-   small 4-way tensor, held to ``BF16_CARD_VS_CPU`` (the card's kernel 1 and
-   chain kernel keep each product of bf16 operands unrounded);
+   takes the split TTM); under ``bf16_fp32acc`` the NELL-2-like tensor
+   split and with ``fuse_core`` and the small 4-way tensor, held to
+   ``BF16_CARD_VS_CPU`` (the card's kernels 1 and 5 and chain kernel keep
+   each product of bf16 operands unrounded);
 4. the 3-way main path at the published size of FROSTT's NELL-2 tensor
    (12,092 x 9,184 x 28,818, 76,879,419 nonzeros; synthetic uniform
    coordinates, values uniform in [0.1, 10)), ranks (16, 16, 16), 5 sweeps:
@@ -49,7 +50,9 @@ result line):
    time in turns with the split path, no gather of (nnz, R) operand rows in
    its warm runs, peak memory beside the split path's, and the megakernel
    against its plain version and the split core update, its same bits from
-   two calls, its time and bound;
+   two calls, its time and bound, in fp32 and bf16_fp32acc (bf16 m16n8k16
+   walk, 2xTF32 rounds); a bf16_fp32acc ``fuse_core`` plan of 5 sweeps in
+   turns with the fp32 one, as phase 4's;
 6. path A, the 4-way path at the published size of FROSTT's NIPS tensor
    (2,482 x 2,862 x 14,036 x 17, 3,101,609 nonzeros; synthetic uniform
    coordinates, counts Poisson(3) + 1), ranks 16, 5 sweeps: launch counts
@@ -405,19 +408,19 @@ except ImportError:
 # and the dense bf16 and TF32 tensor-core rates; HBM and bf16 are read from
 # repro_torch.launch.roofline's "h100-sxm" preset. Kernel 6 on bf16 operands
 # runs on the tensor cores and its bound counts them at the bf16 rate;
-# kernel 1's fp32 products run on the tensor cores (3xTF32) and its bound
-# counts them at the TF32 rate, its bf16_fp32acc products (bf16 m16n8k16)
-# at the bf16 rate; the chain kernel's products run on TF32 under both
+# kernels 1's and 5's fp32 products run on the tensor cores (3xTF32) and
+# their bounds count them at the TF32 rate, their bf16_fp32acc products
+# (bf16 m16n8k16) at the bf16 rate; the chain kernel's products run on TF32 under both
 # precisions (3xTF32, 2xTF32); kernel 7's bound counts C B^T on bf16
 # operands at the bf16 rate and its other products (3xTF32) as three
 # products at the TF32 rate; every other kernel does its arithmetic in f32
 # on the CUDA cores.
 PEAK_BYTES_PER_S = ARCH_PRESETS["h100-sxm"].hbm_bw
 PEAK_F32_FLOPS = 67e12
-# f64: the card's peak (the DMMA tensor cores, where kernels 1 and 2 run
+# f64: the card's peak (the DMMA tensor cores, where kernels 1, 2 and 5 run
 # their f64 products), which every f64 bound counts; and the CUDA cores',
-# where kernels 3 and 4, kernel 5 and the chain kernel run theirs, for each
-# f64 row's "f64_core_bound_ms" beside its bound
+# where kernels 3 and 4 and the chain kernel run theirs, for each f64 row's
+# "f64_core_bound_ms" beside its bound
 PEAK_F64_FLOPS = 67e12
 PEAK_F64_CORE_FLOPS = 34e12
 PEAK_BF16_FLOPS = ARCH_PRESETS["h100-sxm"].peak_flops
@@ -448,8 +451,8 @@ SEED = 0
 #   output, makes that larger (2.2e-5 at 8.4 K terms).
 # bf16_fp32acc: the plain versions keep the reference's roundings: each
 #   product a*b of the bf16 operands rounded to bf16, then scaled by the f32
-#   value and summed in f32. Kernels 3 and 5 round as they do (the CUDA
-#   cores) and agree as closely as fp32 does. Kernel 1 (bf16 m16n8k16:
+#   value and summed in f32. Kernel 3 rounds as they do (the CUDA cores)
+#   and agrees as closely as fp32 does. Kernels 1 and 5 (bf16 m16n8k16:
 #   a * (v b split into bf16 hi + lo)) and the chain kernel (2xTF32: f_1 *
 #   (v f_2 ... split into two TF32 parts)) give that rounding up on
 #   purpose: their terms are a*b*v to ~2^-16 and ~2^-21, up to 2^-8 (one
@@ -458,17 +461,18 @@ SEED = 0
 #   and with cancellation by ~sqrt(n) 2^-8 of a term. 2e-2 is the bound the
 #   reference's own kernel tests set for bf16 operands, kept as the stated
 #   limit; phases 2, 4 and 6 report the worst error as a share of it, and
-#   hold these two kernels to the exact sum of their terms (nearer_exact).
+#   phases 2, 4, 5 and 6 hold these three kernels to the exact sum of their
+#   terms (nearer_exact).
 TOL = {"fp32": 1e-5, "bf16_fp32acc": 2e-2}
 # "fp64" (the f64 instantiations): on the CUDA cores the same rounded terms
-#   as the plain version, summed in another order, as fp32; kernel 1 on
-#   DMMA forms fma(round(v a), b, acc) where the plain version rounds
+#   as the plain version, summed in another order, as fp32; kernels 1 and 5
+#   on DMMA form fma(round(v a), b, acc) where the plain version rounds
 #   round(round(a b) v), one f64 ulp of each term apart, which over n
 #   terms is at most ~n 2^-52 |term| (<= 2^-52 max|plain| when the terms
 #   share a sign) and ~sqrt(n) 2^-52 |term| when they do not, as the fp32
-#   route's 3xTF32 terms meet the fp32 rule; kernel 2 on DMMA sums the same
-#   exact products in its own order. So max(1e-13, 4 sqrt(n) 2^-53) x
-#   max|plain| for n terms summed into one output.
+#   route's 3xTF32 terms meet the fp32 rule; kernel 2 and kernel 5's rounds
+#   on DMMA sum the products in their own order. So max(1e-13, 4 sqrt(n)
+#   2^-53) x max|plain| for n terms summed into one output.
 TOL_F64 = 1e-13
 # "bf16" (kernel 6 on bf16 operands): the kernel and its plain version each
 # round their f32 output to bf16, so they can land one bf16 ulp (2^-8
@@ -597,7 +601,7 @@ def main() -> int:
                              card, train_tmp))
     kernels.update(timed("26 serving across ranks", phase26_serve_ranks, dev, card))
     print(json.dumps({"kernels": [kernels[k] for k in list(wrappers()) + F64_ROWS
-                                  + ["fused_kron_scatter_bf16",
+                                  + ["fused_kron_scatter_bf16", "fused_kron_scatter_ttm_bf16",
                                      "fused_kron_chain_scatter_bf16", "flash_attention_bwd",
                                      "ssd_chunk_bwd", "flash_attention_cp",
                                      "flash_attention_cp_d80", "ssd_chunk_tp",
@@ -668,6 +672,12 @@ def bf16_exact_kron_scatter(fa, fb, sched, n_rows: int):
         fa.bfloat16().double(), None if fb is None else fb.bfloat16().double(), sched, n_rows)
 
 
+def bf16_exact_kron_scatter_ttm(fa, fb, u, sched, n_rows: int):
+    """Kernel 5's bf16_fp32acc result from unrounded terms in f64: U rounded
+    to bf16, times :func:`bf16_exact_kron_scatter`'s Y."""
+    return u.bfloat16().double().T @ bf16_exact_kron_scatter(fa, fb, sched, n_rows)
+
+
 def bf16_exact_chain_scatter(factors, sched, n_rows: int):
     """The chain kernel's bf16_fp32acc terms in f64: f_1 and f_2 rounded to
     bf16 (their product exact), the value and later factors f32, the terms
@@ -681,7 +691,7 @@ def bf16_exact_chain_scatter(factors, sched, n_rows: int):
 
 def nearer_exact(name: str, got, plain, exact) -> None:
     """Check a bf16_fp32acc kernel that keeps each product of its bf16
-    operands (kernel 1's and the chain kernel's routes) against ``exact``,
+    operands (the routes of kernels 1 and 5 and the chain kernel) against ``exact``,
     the f64 sum of those terms: no further from it than its plain version
     (which rounds each product to bf16) is, plus BF16_EXACT_SLACK x
     max|exact| for its f32 sums. A kernel that lost the split of v b (a
@@ -998,6 +1008,9 @@ def phase2_kernels(dev) -> None:
                 g = synced(kron_kernel.fused_kron_scatter_ttm(
                     fa, fb, fs[mode], sched, n_rows, precision=prec))
                 compare(f"fused_kron_scatter_ttm {tag}", prec, g, g_want, coo.nnz)
+                if prec == "bf16_fp32acc":
+                    nearer_exact(f"fused_kron_scatter_ttm {tag}", g, g_want, synced(
+                        bf16_exact_kron_scatter_ttm(fa, fb, fs[mode], sched, n_rows)))
                 again = synced(kron_kernel.fused_kron_scatter_ttm(
                     fa, fb, fs[mode], sched, n_rows, precision=prec))
                 check(torch.equal(g, again), f"fused_kron_scatter_ttm {tag} differs "
@@ -1165,12 +1178,16 @@ def phase3_mid(dev) -> None:
     card_vs_cpu("4-way 60x50x40x10, 20,000 nnz, ranks 4, fuse_core", small, (4, 4, 4, 4),
                 engine=lambda d: make_engine("auto", d, fuse_core=True),
                 expect={"fused_kron_chain_scatter": 4 * N_ITER, "ttm": N_ITER})
-    # bf16_fp32acc: the card's kernel 1 and chain kernel give up the plain
-    # versions' bf16 rounding of each product (see TOL), so the CPU is held
-    # within BF16_CARD_VS_CPU
+    # bf16_fp32acc: the card's kernels 1 and 5 and chain kernel give up the
+    # plain versions' bf16 rounding of each product (see TOL), so the CPU is
+    # held within BF16_CARD_VS_CPU
     bf16 = lambda d: make_engine("auto", d, precision="bf16_fp32acc")  # noqa: E731
     card_vs_cpu("NELL-2-like 1000^3, ranks 16, bf16_fp32acc", nell, (16, 16, 16), engine=bf16,
                 expect={"fused_kron_scatter": 3 * N_ITER, "ttm": N_ITER}, **BF16_CARD_VS_CPU)
+    card_vs_cpu("NELL-2-like 1000^3, ranks 16, bf16_fp32acc, fuse_core", nell, (16, 16, 16),
+                engine=lambda d: make_engine("auto", d, precision="bf16_fp32acc", fuse_core=True),
+                expect={"fused_kron_scatter": 3 * N_ITER, "fused_kron_scatter_ttm": N_ITER},
+                **BF16_CARD_VS_CPU)
     card_vs_cpu("4-way 60x50x40x10, ranks 4, bf16_fp32acc", small, (4, 4, 4, 4), engine=bf16,
                 expect={"fused_kron_chain_scatter": 4 * N_ITER, "ttm": N_ITER},
                 **BF16_CARD_VS_CPU)
@@ -1539,9 +1556,10 @@ def phase4_nell2(dev, card: str):
     return {r["name"]: r for r in rows}, coo, res, (peak_gb, resident_gb)
 
 
-def bf16_sweeps(dev, spec, coo, plan32, fit32, profile32: dict, expect: dict):
+def bf16_sweeps(dev, spec, coo, plan32, fit32, profile32: dict, expect: dict, engine=None):
     """The main path under ``precision="bf16_fp32acc"``: a plan of the same
-    spec at that precision, built and run once cold (its schedules), then
+    spec at that precision (on ``engine``, a bf16_fp32acc engine, where
+    given), built and run once cold (its schedules), then
     warm runs of ``N_ITER`` sweeps in turns with the fp32 plan ``plan32``
     (bf16, fp32, fp32, bf16), every count at 0 before the first bf16 turn
     and read after it (its launches, ``expect``); the ms a sweep of each
@@ -1553,7 +1571,8 @@ def bf16_sweeps(dev, spec, coo, plan32, fit32, profile32: dict, expect: dict):
     memory they saw before."""
     from repro_torch import tucker
 
-    plan = tucker.plan(dataclasses.replace(spec, precision="bf16_fp32acc"), device=dev)
+    plan = tucker.plan(dataclasses.replace(spec, precision="bf16_fp32acc"), device=dev,
+                       engine=engine)
     plan(coo)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     turns, launches, res = {"bf16_fp32acc": [], "fp32": []}, None, None
@@ -1733,9 +1752,12 @@ def phase5_fused_core(dev, card: str, coo, split_res, split_peak):
                        precision=p)
         plain = partial(kron_kernel.fused_kron_scatter_ttm_plain, fa, fb, u, sched, n_rows,
                         precision=p)
-        got = synced(kern())
-        err = compare(f"fused_kron_scatter_ttm NELL-2 mode {mode}", p, got, synced(plain()),
-                      NELL2_NNZ)
+        got, want = synced(kern()), synced(plain())
+        err = compare(f"fused_kron_scatter_ttm NELL-2 mode {mode}", p, got, want, NELL2_NNZ)
+        if p == "bf16_fp32acc":
+            nearer_exact(f"fused_kron_scatter_ttm NELL-2 mode {mode}", got, want, synced(
+                bf16_exact_kron_scatter_ttm(fa, fb, u, sched, n_rows)))
+        del want
         check(torch.equal(got, synced(kern())),
               f"fused_kron_scatter_ttm NELL-2 mode {mode} [{p}] differs between two calls")
         y = synced(kron_kernel.fused_kron_scatter(fa, fb, sched, n_rows, precision=p))
@@ -1749,10 +1771,10 @@ def phase5_fused_core(dev, card: str, coo, split_res, split_peak):
         nbytes = (nbytes_of(sched.idx, sched.vals, sched.rel_row, sched.blkmap, sched.parts,
                             *fac) + r * k * 4)
         flops = kron_scatter_flops(NELL2_NNZ, ra, k) + 2 * visited * r * k
-        # fp32 runs on the tensor cores (3xTF32), bf16_fp32acc's Kron terms
-        # on the CUDA cores
+        # fp32 runs on the tensor cores (3xTF32), bf16_fp32acc's walk on
+        # the bf16 tensor cores (m16n8k16)
         bound_ms, bound_by = bound(nbytes, flops,
-                                   PEAK_TF32_FLOPS if p == "fp32" else PEAK_F32_FLOPS)
+                                   PEAK_TF32_FLOPS if p == "fp32" else PEAK_BF16_FLOPS)
         # PR 12's design read the gathered (nnz, R) rows of a and b instead of
         # the coordinates, at the f32 CUDA-core rate
         gathered_bytes = (nnzp * (ra + rb) * fac[0].element_size()
@@ -1769,6 +1791,14 @@ def phase5_fused_core(dev, card: str, coo, split_res, split_peak):
                   "max_abs_err": err}
         log(f"    fused_kron_scatter_ttm [{p}]: {json.dumps(row[p])}")
         del y, split, got
+    log(f"  fused_kron_scatter_ttm: bf16_fp32acc "
+        f"({kron_kernel.launch_route('fused_kron_scatter_ttm', torch.float32, 'bf16_fp32acc')}) "
+        f"{row['bf16_fp32acc']['ms']:.3f} ms beside fp32 {row['fp32']['ms']:.3f} ms; bounds "
+        f"{row['bf16_fp32acc']['bound_ms']:.3f} / {row['fp32']['bound_ms']:.3f} ms")
+    bf16_run = bf16_sweeps(
+        dev, spec, coo, plan, hist, profile,
+        {"fused_kron_scatter": 3 * N_ITER, "fused_kron_scatter_ttm": N_ITER},
+        engine=make_engine("cuda", dev, precision="bf16_fp32acc", fuse_core=True))
     print(json.dumps({
         "phase": "5 path B fused core update", "card": card, "shape": NELL2_SHAPE,
         "nnz": NELL2_NNZ, "ranks": NELL2_RANKS, "n_iter": N_ITER,
@@ -1781,7 +1811,7 @@ def phase5_fused_core(dev, card: str, coo, split_res, split_peak):
         "resident_at_start_gb": resident_gb, "split_peak_memory_gb_phase4": split_peak_gb,
         "split_resident_at_start_gb_phase4": split_resident_gb,
         "warm_peak_above_resident_gb": warm_peak,
-        "fit_history": hist.tolist()}), flush=True)
+        "fit_history": hist.tolist(), "bf16_fp32acc_sweeps": bf16_run}), flush=True)
     return {"fused_kron_scatter_ttm": {
         "name": "fused_kron_scatter_ttm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/kron_scatter_ttm.cu",
@@ -1792,6 +1822,19 @@ def phase5_fused_core(dev, card: str, coo, split_res, split_peak):
         "bound_ms": row["fp32"]["bound_ms"], "bound_by": row["fp32"]["bound_by"],
         "pr12_design_bound_ms": row["fp32"]["pr12_design_bound_ms"],
         # no single PyTorch call builds Y from the nonzeros and contracts it
+        "library_ms": None},
+        "fused_kron_scatter_ttm_bf16": {
+        "name": "fused_kron_scatter_ttm_bf16", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/kron_scatter_ttm.cu",
+        "replaces": "src/repro/kernels/kron_kernel.py:428",
+        # the bf16_fp32acc fuse_core plan's run (bf16_sweeps): the walk on
+        # bf16 m16n8k16, the rounds on 2xTF32
+        "launches": bf16_run["launches"]["fused_kron_scatter_ttm"],
+        "path": "bf16_fp32acc, fuse_core=True, a warm plan of 5 sweeps",
+        "max_abs_err": row["bf16_fp32acc"]["max_abs_err"],
+        "ms": row["bf16_fp32acc"]["ms"], "plain_ms": row["bf16_fp32acc"]["plain_ms"],
+        "device_ms": bf16_run["profile"]["kernel_ms"]["fused_kron_scatter_ttm"] / N_ITER,
+        "bound_ms": row["bf16_fp32acc"]["bound_ms"], "bound_by": row["bf16_fp32acc"]["bound_by"],
         "library_ms": None}}
 
 
@@ -4430,8 +4473,8 @@ def sass_mma_counts(name: str) -> dict:
 _ROUTE_MMA = {"dmma": "DMMA", "3xtf32": "HMMA.TF32", "2xtf32": "HMMA.TF32",
               "bf16_mma": "HMMA.BF16", "cuda_cores": None}
 # what a kernel holds besides its route's products: kernel 5's rounds G +=
-# U^T Y run 3xTF32 in f32 and bf16 whatever its walk's route (on the CUDA
-# cores in bf16), and on the CUDA cores in f64
+# U^T Y run on TF32 HMMA in f32 (3xTF32) and bf16 (2xTF32, beside its
+# walk's bf16 HMMA), and on DMMA, its route's, in f64
 _EXTRA_MMA = {("fused_kron_scatter_ttm", "float32"): "HMMA.TF32",
               ("fused_kron_scatter_ttm", "bfloat16"): "HMMA.TF32"}
 
@@ -4442,7 +4485,7 @@ def check_routes_in_sass() -> dict:
     ``kron_kernel.launch_route`` names (``_ROUTE_MMA``): DMMA where it says
     ``"dmma"``, TF32 HMMA where ``"3xtf32"`` or ``"2xtf32"``, bf16 HMMA
     where ``"bf16_mma"``, none where ``"cuda_cores"``; besides those, only
-    kernel 5's TF32 contraction rounds (``_EXTRA_MMA``). The bf16
+    kernel 5's TF32 contraction rounds in f32 and bf16 (``_EXTRA_MMA``). The bf16
     instantiation is the route of f32 operands under ``bf16_fp32acc``.
     Returns the counts by wrapper and operand type."""
     from repro_torch.kernels import kron_kernel
@@ -4467,18 +4510,23 @@ def check_routes_in_sass() -> dict:
 
 
 def log_occupancy(dev) -> dict:
-    """Registers a thread and CTAs an SM of kernel 1 (at ranks 16 x 16) and
-    kernel 2, by operand type, as their launchers size them; logged."""
+    """Registers a thread and CTAs an SM of kernel 1 (at ranks 16 x 16),
+    kernel 2 and kernel 5 (at ranks 16 x 16 x 16, its first pass), by
+    operand type, as their launchers size them; logged."""
     from repro_torch.kernels import kron_kernel, ttm_kernel
 
     out = {}
     for label, dtype, precision in (("f32", torch.float32, "fp32"),
                                     ("bf16", torch.float32, "bf16_fp32acc"),
                                     ("f64", torch.float64, "fp32")):
+        kind = kron_kernel._kind(torch.bfloat16 if precision == "bf16_fp32acc" else dtype)
+        mega = kron_kernel.mega_grid(dev, 16, 16, 16, 16, 16, kind, 28818)
         for kernel, occ in (
                 ("fused_kron_scatter", kron_kernel.occupancy(dev, 16, 16, dtype, precision)),
                 ("ttm", ttm_kernel.occupancy(
-                    dev, torch.bfloat16 if precision == "bf16_fp32acc" else dtype))):
+                    dev, torch.bfloat16 if precision == "bf16_fp32acc" else dtype)),
+                ("fused_kron_scatter_ttm", {k: mega[k] for k in (
+                    "threads", "smem_bytes", "registers", "ctas_per_sm")})):
             route = kron_kernel.launch_route(kernel, dtype, precision)
             out[f"{kernel} {label}"] = {"route": route, **occ}
             log(f"  occupancy {kernel} {label} ({route}): {occ['threads']} threads, "

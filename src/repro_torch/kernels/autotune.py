@@ -148,8 +148,9 @@ def fingerprint(shape: Sequence[int], ranks: Sequence[int], nnz: int, *,
 # sweep (ranking).
 # ---------------------------------------------------------------------------
 
-# compile-time constants of csrc/kron_walk.cuh and csrc/kron_scatter_ttm.cu
-_K_SLOTS, _K_STAGES, _K_WARPS, _K_NT, _K_TA, _K_TB = 32, 2, 8, 2, 4, 2
+# compile-time constants of csrc/kron_walk.cuh and csrc/kron_scatter_ttm.cu,
+# and _K_TA, the f64 chain kernel's f_1 columns a lane (kron_chain_scatter.cu)
+_K_SLOTS, _K_STAGES, _K_WARPS, _K_NT, _K_TA = 32, 2, 8, 2, 4
 _K_BLOCK_COLS, _K_DEPTH = 256, 2
 # operand factors csrc/kron_chain_scatter.cu is compiled for (kMaxOps,
 # kron_kernel.MAX_CHAIN_OPERANDS): orders 4 to 6
@@ -175,26 +176,16 @@ def _elem_bytes(precision: str, dtype: str) -> int:
     return 8 if str(dtype) == "float64" else 4
 
 
-def _ring_bytes(ra: int, rb: int, precision: str, dtype: str = "float32",
-                kernel: str = "fused_kron_scatter") -> int:
-    """One warp's staging ring of the walk kernel ``kernel`` (kernel 1, or
-    kernel 5 ``"fused_kron_scatter_ttm"``), as ``kron_scatter_launch`` and
-    ``kron_scatter_ttm.cu::shape_of`` compute it (``staged_strides`` of the
-    factor rows padded to 16 bytes): on the tensor-core routes of
-    ``kron_kernel.launch_route`` (f32's 3xTF32, kernel 1's bf16 m16n8k16
-    and f64 DMMA) strides of whole 16-element blocks, on the CUDA-core
-    routes (kernel 5's bf16 and f64) whole 4 x 2 lane tiles in 16-byte
-    rows."""
+def _ring_bytes(ra: int, rb: int, precision: str, dtype: str = "float32") -> int:
+    """One warp's staging ring of the walk (kernels 1 and 5 stage alike), as
+    ``kron_scatter_launch`` and ``kron_scatter_ttm.cu::shape_of`` compute it
+    from ``kron_walk.cuh::staged_strides``: the factor rows padded to 16
+    bytes, in strides of whole 16-element blocks, on every route."""
     elem = _elem_bytes(precision, dtype)
     per16 = 16 // elem
     lda, ldb = _round_up(ra, per16), (_round_up(rb, per16) if rb else 0)
-    dt = torch.float64 if str(dtype) == "float64" else torch.float32
-    if launch_route(kernel, dt, precision) == "cuda_cores":
-        sla = _round_up(max(lda, _round_up(ra, _K_TA)), 8)
-        slb = _round_up(max(ldb, _round_up(rb, _K_TB)), 8) if ldb else 0
-    else:
-        sla = _round_up(max(lda, _round_up(ra, 16)), 16)
-        slb = _round_up(max(ldb, _round_up(rb, 8 * _K_NT)), 16) if ldb else 0
+    sla = _round_up(max(lda, _round_up(ra, 16)), 16)
+    slb = _round_up(max(ldb, _round_up(rb, 8 * _K_NT)), 16) if ldb else 0
     return _K_STAGES * _K_SLOTS * (sla + slb) * elem
 
 
@@ -236,14 +227,16 @@ def _sum_bytes(precision: str, dtype: str) -> int:
 def _mega_cta_bytes(nw: int, r: int, ring: int, ev: int = 4) -> int:
     """Kernel 5's first-pass CTA of ``nw`` warps with ``ev``-byte sums (the
     partial, the held rows and U: 8 in f64; ``Smem`` in
-    ``kron_scatter_ttm.cu``)."""
+    ``kron_scatter_ttm.cu``, whose held rows are padded by 8 floats or 2
+    doubles)."""
     rp = _round_up(r, 16)
     col_tiles = _K_BLOCK_COLS // 8
+    pad = 2 if ev == 8 else 8
     g_elems = (rp // 16) * (-(-col_tiles // nw)) * 128
     g = nw * ring
     y = g + nw * g_elems * ev
-    u = y + nw * _K_DEPTH * (_K_BLOCK_COLS + 8) * ev
-    ctl = u + nw * _K_DEPTH * (rp + 8) * ev
+    u = y + nw * _K_DEPTH * (_K_BLOCK_COLS + pad) * ev
+    ctl = u + nw * _K_DEPTH * (rp + pad) * ev
     return ctl + 2 * _K_WARPS * 4
 
 
@@ -263,8 +256,7 @@ def smem_bytes(cfg: BlockConfig, shape: Sequence[int], ranks: Sequence[int],
                                      precision, dtype) for m in range(n))
     ring = max(_ring_bytes(*_operand_ranks(ranks, m), precision, dtype) for m in range(n))
     if cfg.layout == "fused":
-        last = _ring_bytes(*_operand_ranks(ranks, n - 1), precision, dtype,
-                           "fused_kron_scatter_ttm")
+        last = _ring_bytes(*_operand_ranks(ranks, n - 1), precision, dtype)
         return max(ring, _mega_cta_bytes(1, ranks[n - 1], last, _sum_bytes(precision, dtype)))
     return ring
 

@@ -69,14 +69,14 @@ namespace {
 using kwalk::kFull;
 using kwalk::kSlots;
 using kwalk::kStages;
-using kwalk::kTA;
-using kwalk::kTB;
 using tc::mma_tf32;
 using tc::split;
 
 constexpr int kMaxOps = 5;  // operand factors a launch takes: orders 4 to 6
 constexpr int kWarps = 8;   // warps (ranges) a CTA, at most
 constexpr int kNT = 4;      // fp32 route: n8 tiles of B a warp, beside one m16 tile of A
+constexpr int kTA = 4;      // f64 route: f_1 columns per lane
+constexpr int kTB = 2;      // f64 route: B columns per lane
 constexpr int kCombineThreads = 256;
 
 int round_up(int x, int m) { return (x + m - 1) / m * m; }
@@ -140,6 +140,12 @@ __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, 
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+// the f64 route's load of a lane's kTA entries of a staged f_1 row (16-byte aligned)
+__device__ __forceinline__ void load4(const double* p, double* o) {
+  const double2 x = *reinterpret_cast<const double2*>(p);
+  const double2 y = *reinterpret_cast<const double2*>(p + 2);
+  o[0] = x.x, o[1] = x.y, o[2] = y.x, o[3] = y.y;
+}
 
 // The f64 route's first link, as the chain rounds it: f64 products.
 __device__ __forceinline__ double first_term(double a, double b, double v) {
@@ -393,7 +399,7 @@ __global__ void __launch_bounds__(kWarps * 32, 2)
           cur = row;
         }
         V av[kTA], bv[kTB];
-        kwalk::load4(reinterpret_cast<const T*>(st + d.off[0]) + s * d.sl[0] + i0, av);
+        load4(reinterpret_cast<const T*>(st + d.off[0]) + s * d.sl[0] + i0, av);
 #pragma unroll
         for (int c2 = 0; c2 < kTB; ++c2) bv[c2] = to_v(staged<T, false>(st, d, 1, s, bo[c2][1]));
 #pragma unroll

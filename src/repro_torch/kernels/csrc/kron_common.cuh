@@ -1,14 +1,13 @@
-// Pieces shared by the Kron-row kernels, for sm_90a (kron_contrib.cu, and
-// through kron_walk.cuh kron_scatter.cu and kron_scatter_ttm.cu): operand
-// loads and the per-term rounding of the precision axis.
+// Pieces of the Kron-row kernel kron_contrib.cu, for sm_90a: operand loads
+// and the per-term rounding of the precision axis.
 //
-// Precision. Under bf16_fp32acc a and b arrive as bf16; on the CUDA-core
-// routes (kron_contrib.cu, kernel 5's walk) each product a*b is rounded to
-// bf16 (the TPU kernels multiply in bf16), then scaled by the f32 value and
-// summed in f32. Products and sums use __fmul_rn and __fadd_rn so the
-// per-term rounding is that of the plain versions. (Kernel 1's and the
-// chain kernel's bf16 routes run on the tensor cores and give that
-// rounding up: kron_walk.cuh, kron_chain_scatter.cu.)
+// Precision. Under bf16_fp32acc a and b arrive as bf16; each product a*b is
+// rounded to bf16 (the TPU kernels multiply in bf16), then scaled by the
+// f32 value and summed in f32. Products and sums use __fmul_rn and
+// __fadd_rn so the per-term rounding is that of the plain versions. (The
+// walk kernels, kernels 1 and 5 and the chain kernel, run their bf16 routes
+// on the tensor cores and give that rounding up: kron_walk.cuh,
+// kron_chain_scatter.cu.)
 #pragma once
 
 #include <cuda_bf16.h>

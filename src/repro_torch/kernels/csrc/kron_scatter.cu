@@ -61,7 +61,7 @@ constexpr int kWarpsOf = std::is_same<T, double>::value ? kwalk::kDmmaWarps : kW
 // Three CTAs an SM, as many as the rings' shared memory allows: left to
 // itself ptxas spends registers on the walk until only two fit, and kernel
 // 1 loses time (chip_smoke.py prints the registers of each build).
-template <typename T, bool kTC, typename V>
+template <typename T, typename V>
 __global__ void __launch_bounds__(kWarpsOf<T> * 32, 3)
     kron_scatter_kernel(const T* __restrict__ fa, const T* __restrict__ fb,
                         const int* __restrict__ idx, const V* __restrict__ vals,
@@ -78,36 +78,26 @@ __global__ void __launch_bounds__(kWarpsOf<T> * 32, 3)
 
   const long long k_cols = (long long)sh.ra * sh.rb;
   const int ra = sh.ra, rb = sh.rb, g = lane / 4, t = lane % 4;
-  const kwalk::Tile<kTC, V> tile(ra, rb, blockIdx.y, lane);
-  auto store_row = [&](int row, const typename kwalk::Tile<kTC, V>::Acc& acc) {
+  const kwalk::Tile<V> tile(ra, rb, blockIdx.y);
+  auto store_row = [&](int row, const typename kwalk::Tile<V>::Acc& acc) {
     V* o = out + (long long)row * k_cols;
-    if constexpr (kTC) {
 #pragma unroll
-      for (int q = 0; q < kwalk::kNT; ++q)
+    for (int q = 0; q < kwalk::kNT; ++q)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = tile.a0c + g + 8 * (e >> 1), j = tile.b0c + 8 * q + 2 * t + (e & 1);
-          if (i < ra && j < rb) o[(long long)i * rb + j] = acc[q][e];
-        }
-    } else {
-      if (!tile.active) return;
-#pragma unroll
-      for (int r = 0; r < kwalk::kTA; ++r)
-#pragma unroll
-        for (int c = 0; c < kwalk::kTB; ++c)
-          if (tile.i0 + r < ra && tile.j0 + c < rb)
-            o[(long long)(tile.i0 + r) * rb + tile.j0 + c] = acc[r][c];
-    }
+      for (int e = 0; e < 4; ++e) {
+        const int i = tile.a0c + g + 8 * (e >> 1), j = tile.b0c + 8 * q + 2 * t + (e & 1);
+        if (i < ra && j < rb) o[(long long)i * rb + j] = acc[q][e];
+      }
   };
-  kwalk::walk<T, kTC>(fa, fb, idx, vals, rel, blkmap, sh, parts[part], parts[part + 1], ring,
+  kwalk::walk<T>(fa, fb, idx, vals, rel, blkmap, sh, parts[part], parts[part + 1], ring,
                       tile, lane, store_row, [] {});
 }
 
-template <typename T, bool kTC, typename V>
+template <typename T, typename V>
 int launch(const void* fa, const void* fb, const int* ip, const void* vp, const int* relp,
            const int* blk, const long long* pp, void* o, int n_parts, const kwalk::Shape& sh,
            int warps, dim3 grid, size_t smem, cudaStream_t st) {
-  auto kernel = kron_scatter_kernel<T, kTC, V>;
+  auto kernel = kron_scatter_kernel<T, V>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -119,9 +109,9 @@ int launch(const void* fa, const void* fb, const int* ip, const void* vp, const 
 
 // The registers a thread and the CTAs an SM of the kernel of one kind at a
 // CTA of `warps` warps and `smem` bytes of dynamic shared memory.
-template <typename T, bool kTC, typename V>
+template <typename T, typename V>
 int occupancy(int warps, size_t smem, int* regs, int* per_sm) {
-  auto kernel = kron_scatter_kernel<T, kTC, V>;
+  auto kernel = kron_scatter_kernel<T, V>;
   cudaFuncAttributes attr{};
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err == cudaSuccess)
@@ -137,7 +127,7 @@ int occupancy(int warps, size_t smem, int* regs, int* per_sm) {
 bool config_of(int ra, int rb, int lda, int ldb, int kind, kwalk::Shape* sh, int* warps,
                size_t* smem) {
   const int elem = kind == 1 ? 2 : kind == 2 ? 8 : 4;
-  kwalk::staged_strides(ra, rb, lda, ldb, true, &sh->sla, &sh->slb);
+  kwalk::staged_strides(ra, rb, lda, ldb, &sh->sla, &sh->slb);
   int dev = 0, smem_max = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
@@ -175,19 +165,19 @@ extern "C" int kron_scatter_launch(const void* fa, const void* fb, const void* i
   int warps;
   size_t smem;
   if (!config_of(ra, rb, lda, ldb, kind, &sh, &warps, &smem)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n_parts + warps - 1) / warps, kwalk::column_blocks(ra, rb, true));
+  const dim3 grid((n_parts + warps - 1) / warps, kwalk::column_blocks(ra, rb));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* ip = static_cast<const int*>(idx);
   const int* relp = static_cast<const int*>(rel);
   const int* blk = static_cast<const int*>(blkmap);
   const long long* pp = static_cast<const long long*>(parts);
   if (kind == 1)
-    return launch<__nv_bfloat16, true, float>(fa, fb, ip, vals, relp, blk, pp, out, n_parts, sh,
+    return launch<__nv_bfloat16, float>(fa, fb, ip, vals, relp, blk, pp, out, n_parts, sh,
                                               warps, grid, smem, st);
   if (kind == 2)
-    return launch<double, true, double>(fa, fb, ip, vals, relp, blk, pp, out, n_parts, sh,
+    return launch<double, double>(fa, fb, ip, vals, relp, blk, pp, out, n_parts, sh,
                                         warps, grid, smem, st);
-  return launch<float, true, float>(fa, fb, ip, vals, relp, blk, pp, out, n_parts, sh, warps,
+  return launch<float, float>(fa, fb, ip, vals, relp, blk, pp, out, n_parts, sh, warps,
                                     grid, smem, st);
 }
 
@@ -209,7 +199,7 @@ extern "C" int kron_scatter_occupancy(int ra, int rb, int lda, int ldb, int kind
     return (int)cudaErrorInvalidValue;
   *threads = warps * 32;
   *smem = (long long)bytes;
-  if (kind == 1) return occupancy<__nv_bfloat16, true, float>(warps, bytes, regs, per_sm);
-  if (kind == 2) return occupancy<double, true, double>(warps, bytes, regs, per_sm);
-  return occupancy<float, true, float>(warps, bytes, regs, per_sm);
+  if (kind == 1) return occupancy<__nv_bfloat16, float>(warps, bytes, regs, per_sm);
+  if (kind == 2) return occupancy<double, double>(warps, bytes, regs, per_sm);
+  return occupancy<float, float>(warps, bytes, regs, per_sm);
 }

@@ -7,12 +7,11 @@
 // row to the caller's row_end(row, acc), which kernel 1 stores and kernel 5
 // contracts. No (nnz, R) operand is ever written to device memory.
 //
-// Four routes, by the template arguments (T, kTC): fp32 (float, true) on
-// the tensor cores in 3xTF32, bf16_fp32acc (bf16, true) on the bf16 tensor
-// cores, f64 (double, true) on the f64 tensor cores, and the CUDA cores
-// (bf16 or double, false), kept for kernel 5, whose row end contracts lane
-// tiles; kron_kernel.py::launch_route names the one each kernel, dtype and
-// precision takes.
+// Three routes, all on the tensor cores, by the element type T: fp32
+// (float) in 3xTF32, bf16_fp32acc (bf16) on the bf16 tensor cores, f64
+// (double) on the f64 tensor cores; every route hands the row end the same
+// mma.sync accumulator fragments. kron_kernel.py::launch_route names the
+// route each kernel, dtype and precision takes.
 //
 //   * A range starts at a row's first slot (sparse/layout.py::row_parts: a
 //     row never crosses two ranges), so each row is a segmented sum of its
@@ -86,22 +85,13 @@
 //     that each 8-row phase of an ldmatrix reads 32 different banks. (The
 //     TF32 framing, 8 slots a block on m16n8k8 with A = a exact in TF32 and
 //     B = v*b split into two TF32 parts, ran 1.2x slower on an H100.)
-//   * The CUDA cores (T = bf16 or double, kTC false), kept for kernel 5's
-//     bf16 and f64 instantiations, whose row end contracts lane tiles (the
-//     chain kernel's f64 route loads its rows with this route's load4): a
-//     lane owns a 4 x 2 register tile of the row, eight terms per slot from
-//     one 8-byte and one 4-byte shared load (twice those in f64), each term
-//     rounded as the plain versions round it: in bf16 the product a*b
-//     rounded to bf16, then scaled by the f32 value and summed in f32
-//     (kron_common.cuh's kron_term); in f64 round(round(a*b)*v), summed in
-//     f64 in slot order. The value type V (of vals and of the accumulators)
-//     is float on the fp32 and bf16 routes.
+//   * The value type V (of vals and of the accumulators) is float on the
+//     fp32 and bf16 routes, double on the f64 route.
 #pragma once
 
 #include <algorithm>
 #include <cstdint>
 
-#include "kron_common.cuh"
 #include "tc_common.cuh"
 
 namespace kwalk {
@@ -115,32 +105,24 @@ constexpr int kSlots = 32;  // slots per staged chunk, one per lane
 constexpr int kStages = 2;  // staged chunks per warp: one in flight while one is summed
 constexpr int kWarps = 8;   // warps per CTA, at most (the f64 tensor-core route: kDmmaWarps)
 constexpr int kDmmaWarps = 4;  // kernel 1's f64 route: CTAs of 4 warps, three an SM
-constexpr int kNT = 2;      // tensor-core routes: n8 tiles (b columns) a warp, with one m16 tile
-constexpr int kTA = 4;      // CUDA-core routes: a columns per lane
-constexpr int kTB = 2;      // CUDA-core routes: b columns per lane
-constexpr int kBlockCols = 256;  // columns of Y one block of blockIdx.y holds, either route
+constexpr int kNT = 2;      // n8 tiles (b columns) a warp, with one m16 tile
+constexpr int kBlockCols = 256;  // columns of Y one block of blockIdx.y holds
 constexpr unsigned kFull = 0xffffffffu;
 
 inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-// Staged row strides (elements) of a and b: on the tensor-core routes whole
-// m16 / kNT n8 tile blocks, in rows of a multiple of 16 elements (the
-// swizzles'); on the CUDA-core routes whole 4 x 2 lane tiles, in 16-byte
-// rows. slb = 0 when ldb = 0 (a 2-way tensor).
-inline void staged_strides(int ra, int rb, int lda, int ldb, bool tc, int* sla, int* slb) {
-  *sla = tc ? round_up(std::max(lda, round_up(ra, 16)), 16)
-            : round_up(std::max(lda, round_up(ra, kTA)), 8);
-  *slb = ldb == 0 ? 0
-         : tc     ? round_up(std::max(ldb, round_up(rb, 8 * kNT)), 16)
-                  : round_up(std::max(ldb, round_up(rb, kTB)), 8);
+// Staged row strides (elements) of a and b: whole m16 / kNT n8 tile
+// blocks, in rows of a multiple of 16 elements (the swizzles'). slb = 0 when
+// ldb = 0 (a 2-way tensor).
+inline void staged_strides(int ra, int rb, int lda, int ldb, int* sla, int* slb) {
+  *sla = round_up(std::max(lda, round_up(ra, 16)), 16);
+  *slb = ldb == 0 ? 0 : round_up(std::max(ldb, round_up(rb, 8 * kNT)), 16);
 }
 
-// Blocks of Y's columns, one a blockIdx.y: m16 x (8 kNT) on the tensor-core
-// routes, 32 lane tiles of 4 x 2 on the CUDA-core routes; each holds at most
+// Blocks of Y's columns, one a blockIdx.y: m16 x (8 kNT), each at most
 // kBlockCols.
-inline int column_blocks(int ra, int rb, bool tc) {
-  return tc ? ((ra + 15) / 16) * ((rb + 8 * kNT - 1) / (8 * kNT))
-            : (((ra + kTA - 1) / kTA) * ((rb + kTB - 1) / kTB) + 31) / 32;
+inline int column_blocks(int ra, int rb) {
+  return ((ra + 15) / 16) * ((rb + 8 * kNT - 1) / (8 * kNT));
 }
 
 // Whether the operand sizes are ones the walk takes (per16: elements in 16
@@ -160,40 +142,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 __device__ __forceinline__ void cp_async_wait_ring() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1) : "memory");
 }
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
-  const uint2 x = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&x.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&x.y);
-  o[0] = __low2float(lo), o[1] = __high2float(lo), o[2] = __low2float(hi),
-  o[3] = __high2float(hi);
-}
-__device__ __forceinline__ void load2(const __nv_bfloat16* p, float* o) {
-  const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(p);
-  o[0] = __low2float(x), o[1] = __high2float(x);
-}
-// the f64 route's loads: 32 and 16 bytes of a staged row (16-byte aligned)
-__device__ __forceinline__ void load4(const double* p, double* o) {
-  const double2 x = *reinterpret_cast<const double2*>(p);
-  const double2 y = *reinterpret_cast<const double2*>(p + 2);
-  o[0] = x.x, o[1] = x.y, o[2] = y.x, o[3] = y.y;
-}
-__device__ __forceinline__ void load2(const double* p, double* o) {
-  const double2 x = *reinterpret_cast<const double2*>(p);
-  o[0] = x.x, o[1] = x.y;
-}
-
-// One term of the CUDA-core routes and its add, each rounded as the plain
-// versions round: bf16 (T) operands give kron_term's bf16 product in f32,
-// f64 operands an f64 product.
-__device__ __forceinline__ float cc_term(__nv_bfloat16, float a, float b, float v) {
-  return kron::kron_term<true>(a, b, v);
-}
-__device__ __forceinline__ double cc_term(double, double a, double b, double v) {
-  return __dmul_rn(__dmul_rn(a, b), v);
-}
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
 // The fp32 route's shared-memory swizzle: element c of staged slot s sits at
 // column c ^ swz(s), so that the 4 slots x 8 columns of a fragment load fall
@@ -278,49 +226,29 @@ struct Shape {
   int bn, bi;      // the schedule's nnz block and row block sizes
 };
 
-// The part of a Kron row that one warp (tensor-core routes) or one lane
-// (CUDA-core routes) sums, in column block `by`, and its register
-// accumulator `Acc` of the value type V.
-template <bool kTC, typename V = float>
+// The part of a Kron row that one warp sums, in column block `by`, and its
+// register accumulator `Acc` of the value type V: the warp's m16 tile (a
+// columns a0c .. a0c + 15) by kNT n8 tiles (b columns b0c .. b0c + 8 kNT -
+// 1); acc[q][e] is column (a0c + g + 8 (e >> 1), b0c + 8 q + 2 t + (e & 1))
+// of the row.
+template <typename V>
 struct Tile {
-  static constexpr int kRows = kTC ? kNT : kTA, kCols = kTC ? 4 : kTB;
-  using Acc = V[kRows][kCols];
-  // tensor-core routes: the warp's m16 tile (a columns a0c .. a0c + 15) by kNT n8
-  // tiles (b columns b0c .. b0c + 8 kNT - 1); acc[q][e] is column
-  // (a0c + g + 8 (e >> 1), b0c + 8 q + 2 t + (e & 1)) of the row
+  using Acc = V[kNT][4];
   int a0c, b0c;
-  // CUDA-core routes: the lane's kTA x kTB register tile at (i0, j0); acc[r][c]
-  // is column (i0 + r, j0 + c); lanes past the row's tiles are not active
-  int i0, j0;
-  bool active;
 
-  __device__ Tile(int ra, int rb, int by, int lane) {
+  __device__ Tile(int ra, int rb, int by) {
     const int n_bt = (rb + 8 * kNT - 1) / (8 * kNT);
     a0c = 16 * (by / n_bt), b0c = 8 * kNT * (by % n_bt);
-    const int tbn = (rb + kTB - 1) / kTB;
-    const int tile = by * 32 + lane;
-    active = tile < ((ra + kTA - 1) / kTA) * tbn;
-    i0 = active ? (tile / tbn) * kTA : 0;
-    j0 = active ? (tile % tbn) * kTB : 0;
   }
 
-  // The block's local column c (0 .. kBlockCols - 1) as a column (i, j) of
-  // the row: c = 16 (i - a0c) + (j - b0c) on the fp32 route, and on the
-  // bf16 route c = 8 l + 2 r + c' for lane l's acc[r][c']. False when the
-  // local column lies outside the row.
+  // The block's local column c (0 .. kBlockCols - 1), c = 16 (i - a0c) +
+  // (j - b0c), as a column (i, j) of the row. False when it lies outside
+  // the row.
   __device__ static bool column(int c, int ra, int rb, int by, int& i, int& j) {
-    if constexpr (kTC) {
-      const int n_bt = (rb + 8 * kNT - 1) / (8 * kNT);
-      i = 16 * (by / n_bt) + c / 16;
-      j = 8 * kNT * (by % n_bt) + c % 16;
-      return i < ra && j < rb;
-    } else {
-      const int tbn = (rb + kTB - 1) / kTB;
-      const int tile = by * 32 + c / 8;
-      i = (tile / tbn) * kTA + (c % 8) / 2;
-      j = (tile % tbn) * kTB + c % 2;
-      return tile < ((ra + kTA - 1) / kTA) * tbn && i < ra && j < rb;
-    }
+    const int n_bt = (rb + 8 * kNT - 1) / (8 * kNT);
+    i = 16 * (by / n_bt) + c / 16;
+    j = 8 * kNT * (by % n_bt) + c % 16;
+    return i < ra && j < rb;
   }
 };
 
@@ -334,32 +262,31 @@ __device__ __forceinline__ void zero_ring(T* ring, int elems, int lane) {
 // Walk slots [t_begin, t_end) of one row-aligned range with the whole warp
 // (every lane calls it), staging in `ring` (kStages * kSlots * (sla + slb)
 // elements of the warp's own shared memory, zeroed once by zero_ring).
-// Calls row_end(row, acc) with the warp's (or lane's) part of each finished
-// row, once per row, from the whole warp, and chunk_end() after each chunk.
-// kTC: a tensor-core route, fp32 (T = V = float, 3xTF32), bf16 (T = bf16,
-// V = float, bf16 m16n8k16) or f64 (T = V = double, DMMA); otherwise a
-// CUDA-core route: bf16 (T = bf16, V = float) or f64 (T = V = double).
-template <typename T, bool kTC, typename V, typename RowEnd, typename ChunkEnd>
+// Calls row_end(row, acc) with the warp's part of each finished row, once
+// per row, from the whole warp, and chunk_end() after each chunk. The route
+// by T: fp32 (T = V = float, 3xTF32), bf16 (T = bf16, V = float, bf16
+// m16n8k16) or f64 (T = V = double, DMMA).
+template <typename T, typename V, typename RowEnd, typename ChunkEnd>
 __device__ __forceinline__ void walk(const T* __restrict__ fa, const T* __restrict__ fb,
                                      const int* __restrict__ idx,
                                      const V* __restrict__ vals,
                                      const int* __restrict__ rel,
                                      const int* __restrict__ blkmap, const Shape& sh,
                                      long long t_begin, long long t_end, T* ring,
-                                     const Tile<kTC, V>& tile, int lane, RowEnd&& row_end,
+                                     const Tile<V>& tile, int lane, RowEnd&& row_end,
                                      ChunkEnd&& chunk_end) {
   constexpr int kPer16 = 16 / sizeof(T);
   const int sla = sh.sla, slb = sh.slb;
   const int stage_elems = kSlots * (sla + slb);
   const int g = lane / 4, t = lane % 4;
-  const int a0c = tile.a0c, b0c = tile.b0c, i0 = tile.i0, j0 = tile.j0;
+  const int a0c = tile.a0c, b0c = tile.b0c;
 
-  typename Tile<kTC, V>::Acc acc;
+  typename Tile<V>::Acc acc;
   auto zero_acc = [&]() {
 #pragma unroll
-    for (int r = 0; r < Tile<kTC, V>::kRows; ++r)
+    for (int q = 0; q < kNT; ++q)
 #pragma unroll
-      for (int c = 0; c < Tile<kTC, V>::kCols; ++c) acc[r][c] = V(0);
+      for (int e = 0; e < 4; ++e) acc[q][e] = V(0);
   };
   zero_acc();
   int cur = -1;
@@ -380,9 +307,9 @@ __device__ __forceinline__ void walk(const T* __restrict__ fa, const T* __restri
   auto stage = [&](int c, const Meta<V>& m) {
     if (c >= n_chunks) return;
     T* sa = ring + (c % kStages) * stage_elems;
-    gather_side<T, kTC>(fa, sh.lda, sla, sh.lda / kPer16, m.ia, chunk_n(c), sa, lane);
+    gather_side<T, true>(fa, sh.lda, sla, sh.lda / kPer16, m.ia, chunk_n(c), sa, lane);
     if (sh.ldb > 0)
-      gather_side<T, kTC>(fb, sh.ldb, slb, sh.ldb / kPer16, m.ib, chunk_n(c), sa + kSlots * sla,
+      gather_side<T, true>(fb, sh.ldb, slb, sh.ldb / kPer16, m.ib, chunk_n(c), sa + kSlots * sla,
                           lane);
   };
 
@@ -408,156 +335,133 @@ __device__ __forceinline__ void walk(const T* __restrict__ fa, const T* __restri
     const int n = chunk_n(c);
     // the slot's row where its value is not 0, else -1 (it adds nothing)
     const int eff = m[0].v != V(0) ? m[0].row : -1;
-    if constexpr (kTC) {
-      // kK slots a block: 16 on bf16 m16n8k16, else 8 (m16n8k8). Lane (g, t)
-      // holds the block's slots lane_slot(0 .. kW - 1): its k of the B (and
-      // A) fragments, t and t + 4 on m16n8k8, 2t, 2t + 1, 2t + 8, 2t + 9 on
-      // m16n8k16.
-      constexpr int kK = sizeof(T) == 2 ? 16 : 8, kW = kK / 4;
-      auto lane_slot = [&](int i) { return kK == 16 ? 2 * t + (i & 1) + 8 * (i >> 1) : t + 4 * i; };
-      // Y_row += (w a)^T b over slots kK kb .. kK kb + kK - 1, w the slots'
-      // values (0 where masked), w[i] that of the lane's slot lane_slot(i)
-      auto block_pass = [&](int kb, const V (&w)[kW]) {
-        if constexpr (sizeof(T) == 2) {
-          // A = a^T and the staged b, each by one ldmatrix.x4.trans: lane l
-          // points at row l % 8 of matrix l / 8, a 16-byte piece of a slot
-          const int j = lane >> 3, r = lane & 7;
-          const int s_a = kK * kb + r + 8 * (j >> 1), c_a = a0c + 8 * (j & 1);
-          uint32_t a[4], braw[4];
-          tc::ldsm_x4_trans(a, sa + s_a * sla + (c_a ^ swz16(s_a, sla)));
-          if (slb > 0) {  // braw[2 q + h]: n8 tile q, the lane's slots 2t + 8h, 2t + 8h + 1
-            const int s_b = kK * kb + r + 8 * (j & 1), c_b = b0c + 8 * (j >> 1);
-            tc::ldsm_x4_trans(braw, sb + s_b * slb + (c_b ^ swz16(s_b, slb)));
+    // kK slots a block: 16 on bf16 m16n8k16, else 8 (m16n8k8). Lane (g, t)
+    // holds the block's slots lane_slot(0 .. kW - 1): its k of the B (and
+    // A) fragments, t and t + 4 on m16n8k8, 2t, 2t + 1, 2t + 8, 2t + 9 on
+    // m16n8k16.
+    constexpr int kK = sizeof(T) == 2 ? 16 : 8, kW = kK / 4;
+    auto lane_slot = [&](int i) { return kK == 16 ? 2 * t + (i & 1) + 8 * (i >> 1) : t + 4 * i; };
+    // Y_row += (w a)^T b over slots kK kb .. kK kb + kK - 1, w the slots'
+    // values (0 where masked), w[i] that of the lane's slot lane_slot(i)
+    auto block_pass = [&](int kb, const V (&w)[kW]) {
+      if constexpr (sizeof(T) == 2) {
+        // A = a^T and the staged b, each by one ldmatrix.x4.trans: lane l
+        // points at row l % 8 of matrix l / 8, a 16-byte piece of a slot
+        const int j = lane >> 3, r = lane & 7;
+        const int s_a = kK * kb + r + 8 * (j >> 1), c_a = a0c + 8 * (j & 1);
+        uint32_t a[4], braw[4];
+        tc::ldsm_x4_trans(a, sa + s_a * sla + (c_a ^ swz16(s_a, sla)));
+        if (slb > 0) {  // braw[2 q + h]: n8 tile q, the lane's slots 2t + 8h, 2t + 8h + 1
+          const int s_b = kK * kb + r + 8 * (j & 1), c_b = b0c + 8 * (j >> 1);
+          tc::ldsm_x4_trans(braw, sb + s_b * slb + (c_b ^ swz16(s_b, slb)));
+        }
+#pragma unroll
+        for (int q = 0; q < kNT; ++q) {
+          // B = v b at column b0c + 8 q + g, split into bf16 hi + lo
+          uint32_t bh[2], bl[2];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float x0, x1;
+            if (slb > 0) {
+              x0 = tc::bf16_lo(braw[2 * q + h]), x1 = tc::bf16_hi(braw[2 * q + h]);
+            } else {  // 2-way: b is the implicit ones column
+              x0 = x1 = b0c + 8 * q + g == 0 ? 1.f : 0.f;
+            }
+            tc::split_bf16x2(__fmul_rn(w[2 * h], x0), __fmul_rn(w[2 * h + 1], x1), bh[h],
+                             bl[h]);
           }
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_bf16(d, a, bl);
+          mma_bf16(d, a, bh);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[q][e] = __fadd_rn(acc[q][e], d[e]);
+        }
+      } else {
+        const int s0 = kK * kb + t, s1 = s0 + 4;  // the slots of k = t and k = t + 4
+        const int x0 = swz_of<T>(s0, sla), x1 = swz_of<T>(s1, sla);
+        const T* r0 = sa + s0 * sla;
+        const T* r1 = sa + s1 * sla;
+        if constexpr (sizeof(T) == 8) {
+          // A = (w a)^T rounded once; the products accumulate into the row
+          const double a[4] = {__dmul_rn(w[0], r0[(a0c + g) ^ x0]),
+                               __dmul_rn(w[0], r0[(a0c + g + 8) ^ x0]),
+                               __dmul_rn(w[1], r1[(a0c + g) ^ x1]),
+                               __dmul_rn(w[1], r1[(a0c + g + 8) ^ x1])};
 #pragma unroll
           for (int q = 0; q < kNT; ++q) {
-            // B = v b at column b0c + 8 q + g, split into bf16 hi + lo
-            uint32_t bh[2], bl[2];
+            const int col = b0c + 8 * q + g;
+            double b[2];
+            if (slb > 0) {
+              b[0] = sb[s0 * slb + (col ^ swz64(s0))];
+              b[1] = sb[s1 * slb + (col ^ swz64(s1))];
+            } else {  // 2-way: b is the implicit ones column
+              b[0] = b[1] = col == 0 ? 1.0 : 0.0;
+            }
+            mma_f64(acc[q], a, b);
+          }
+        } else {
+          // A = (w a)^T: rows are a's columns, k the slots
+          uint32_t ah[4], al[4];
+          split(w[0] * r0[(a0c + g) ^ x0], ah[0], al[0]);
+          split(w[0] * r0[(a0c + g + 8) ^ x0], ah[1], al[1]);
+          split(w[1] * r1[(a0c + g) ^ x1], ah[2], al[2]);
+          split(w[1] * r1[(a0c + g + 8) ^ x1], ah[3], al[3]);
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              float x0, x1;
-              if (slb > 0) {
-                x0 = tc::bf16_lo(braw[2 * q + h]), x1 = tc::bf16_hi(braw[2 * q + h]);
-              } else {  // 2-way: b is the implicit ones column
-                x0 = x1 = b0c + 8 * q + g == 0 ? 1.f : 0.f;
-              }
-              tc::split_bf16x2(__fmul_rn(w[2 * h], x0), __fmul_rn(w[2 * h + 1], x1), bh[h],
-                               bl[h]);
+          for (int q = 0; q < kNT; ++q) {
+            const int col = b0c + 8 * q + g;
+            uint32_t bh[2], bl[2];
+            if (slb > 0) {
+              split(sb[s0 * slb + (col ^ swz(s0, slb))], bh[0], bl[0]);
+              split(sb[s1 * slb + (col ^ swz(s1, slb))], bh[1], bl[1]);
+            } else {  // 2-way: b is the implicit ones column
+              bh[0] = bh[1] = col == 0 ? 0x3f800000u : 0u;  // 1.f
+              bl[0] = bl[1] = 0u;
             }
             float d[4] = {0.f, 0.f, 0.f, 0.f};
-            mma_bf16(d, a, bl);
-            mma_bf16(d, a, bh);
+            mma_tf32(d, al, bh);
+            mma_tf32(d, ah, bl);
+            mma_tf32(d, ah, bh);
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[q][e] = __fadd_rn(acc[q][e], d[e]);
           }
-        } else {
-          const int s0 = kK * kb + t, s1 = s0 + 4;  // the slots of k = t and k = t + 4
-          const int x0 = swz_of<T>(s0, sla), x1 = swz_of<T>(s1, sla);
-          const T* r0 = sa + s0 * sla;
-          const T* r1 = sa + s1 * sla;
-          if constexpr (sizeof(T) == 8) {
-            // A = (w a)^T rounded once; the products accumulate into the row
-            const double a[4] = {__dmul_rn(w[0], r0[(a0c + g) ^ x0]),
-                                 __dmul_rn(w[0], r0[(a0c + g + 8) ^ x0]),
-                                 __dmul_rn(w[1], r1[(a0c + g) ^ x1]),
-                                 __dmul_rn(w[1], r1[(a0c + g + 8) ^ x1])};
-#pragma unroll
-            for (int q = 0; q < kNT; ++q) {
-              const int col = b0c + 8 * q + g;
-              double b[2];
-              if (slb > 0) {
-                b[0] = sb[s0 * slb + (col ^ swz64(s0))];
-                b[1] = sb[s1 * slb + (col ^ swz64(s1))];
-              } else {  // 2-way: b is the implicit ones column
-                b[0] = b[1] = col == 0 ? 1.0 : 0.0;
-              }
-              mma_f64(acc[q], a, b);
-            }
-          } else {
-            // A = (w a)^T: rows are a's columns, k the slots
-            uint32_t ah[4], al[4];
-            split(w[0] * r0[(a0c + g) ^ x0], ah[0], al[0]);
-            split(w[0] * r0[(a0c + g + 8) ^ x0], ah[1], al[1]);
-            split(w[1] * r1[(a0c + g) ^ x1], ah[2], al[2]);
-            split(w[1] * r1[(a0c + g + 8) ^ x1], ah[3], al[3]);
-#pragma unroll
-            for (int q = 0; q < kNT; ++q) {
-              const int col = b0c + 8 * q + g;
-              uint32_t bh[2], bl[2];
-              if (slb > 0) {
-                split(sb[s0 * slb + (col ^ swz(s0, slb))], bh[0], bl[0]);
-                split(sb[s1 * slb + (col ^ swz(s1, slb))], bh[1], bl[1]);
-              } else {  // 2-way: b is the implicit ones column
-                bh[0] = bh[1] = col == 0 ? 0x3f800000u : 0u;  // 1.f
-                bl[0] = bl[1] = 0u;
-              }
-              float d[4] = {0.f, 0.f, 0.f, 0.f};
-              mma_tf32(d, al, bh);
-              mma_tf32(d, ah, bl);
-              mma_tf32(d, ah, bh);
-#pragma unroll
-              for (int e = 0; e < 4; ++e) acc[q][e] = __fadd_rn(acc[q][e], d[e]);
-            }
-          }
-        }
-      };
-      if (cur >= 0 && __ballot_sync(kFull, eff > cur) == 0) {
-        // the whole chunk sums into row cur (its zero-valued slots add 0):
-        // the blocks are independent, and unrolled they overlap
-#pragma unroll
-        for (int kb = 0; kb < kSlots / kK; ++kb) {
-          if (kK * kb >= n) break;
-          V w[kW];
-#pragma unroll
-          for (int i = 0; i < kW; ++i) w[i] = __shfl_sync(kFull, m[0].v, kK * kb + lane_slot(i));
-          block_pass(kb, w);
-        }
-      } else {
-        for (int kb = 0; kK * kb < n; ++kb) {
-          int e[kW];
-          V vs[kW];
-#pragma unroll
-          for (int i = 0; i < kW; ++i) {
-            e[i] = __shfl_sync(kFull, eff, kK * kb + lane_slot(i));
-            vs[i] = __shfl_sync(kFull, m[0].v, kK * kb + lane_slot(i));
-          }
-          const unsigned block = ((1u << kK) - 1u) << (kK * kb);
-          unsigned later = __ballot_sync(kFull, eff > cur) & block;
-          while (true) {
-            if (cur >= 0) {  // this block's slots of row cur (and the zero-valued ones)
-              V w[kW];
-#pragma unroll
-              for (int i = 0; i < kW; ++i) w[i] = e[i] == cur || e[i] < 0 ? vs[i] : V(0);
-              block_pass(kb, w);
-            }
-            if (!later) break;
-            end_row();  // the row ends in this block: the next row starts
-            zero_acc();
-            cur = __shfl_sync(kFull, eff, __ffs(later) - 1);
-            later = __ballot_sync(kFull, eff > cur) & block;
-          }
         }
       }
+    };
+    if (cur >= 0 && __ballot_sync(kFull, eff > cur) == 0) {
+      // the whole chunk sums into row cur (its zero-valued slots add 0):
+      // the blocks are independent, and unrolled they overlap
+#pragma unroll
+      for (int kb = 0; kb < kSlots / kK; ++kb) {
+        if (kK * kb >= n) break;
+        V w[kW];
+#pragma unroll
+        for (int i = 0; i < kW; ++i) w[i] = __shfl_sync(kFull, m[0].v, kK * kb + lane_slot(i));
+        block_pass(kb, w);
+      }
     } else {
-      for (int s = 0; s < n; ++s) {
-        const int row = __shfl_sync(kFull, eff, s);
-        const V vs = __shfl_sync(kFull, m[0].v, s);
-        if (row > cur) {
-          end_row();
+      for (int kb = 0; kK * kb < n; ++kb) {
+        int e[kW];
+        V vs[kW];
+#pragma unroll
+        for (int i = 0; i < kW; ++i) {
+          e[i] = __shfl_sync(kFull, eff, kK * kb + lane_slot(i));
+          vs[i] = __shfl_sync(kFull, m[0].v, kK * kb + lane_slot(i));
+        }
+        const unsigned block = ((1u << kK) - 1u) << (kK * kb);
+        unsigned later = __ballot_sync(kFull, eff > cur) & block;
+        while (true) {
+          if (cur >= 0) {  // this block's slots of row cur (and the zero-valued ones)
+            V w[kW];
+#pragma unroll
+            for (int i = 0; i < kW; ++i) w[i] = e[i] == cur || e[i] < 0 ? vs[i] : V(0);
+            block_pass(kb, w);
+          }
+          if (!later) break;
+          end_row();  // the row ends in this block: the next row starts
           zero_acc();
-          cur = row;
+          cur = __shfl_sync(kFull, eff, __ffs(later) - 1);
+          later = __ballot_sync(kFull, eff > cur) & block;
         }
-        V av[kTA], bv[kTB];
-        load4(sa + s * sla + i0, av);
-        if (slb > 0) {
-          load2(sb + s * slb + j0, bv);
-        } else {  // 2-way: b is the implicit ones column (padded to two)
-          bv[0] = V(1), bv[1] = V(0);
-        }
-#pragma unroll
-        for (int r = 0; r < kTA; ++r)
-#pragma unroll
-          for (int q = 0; q < kTB; ++q) acc[r][q] = add_rn(acc[r][q], cc_term(T(), av[r], bv[q], vs));
       }
     }
     __syncwarp();  // every lane is done with this buffer before it is refilled

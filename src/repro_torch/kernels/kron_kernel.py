@@ -29,13 +29,12 @@ in f32 whatever the dtype; its XLA engine keeps f64, and the port's card
 runs as that engine does); under ``bf16_fp32acc`` they take the bf16 route
 with f32 values and results, as the reference's kernels do. Where each
 kernel's products run, by dtype and precision (the f64 tensor cores for
-kernel 1 in f64, the bf16 tensor cores for kernel 1 under ``bf16_fp32acc``,
-the CUDA cores for kernel 5 in f64 and bf16), is :func:`launch_route`'s
-answer. The plain versions keep the reference's roundings; kernel 1 and the
-chain kernel under ``bf16_fp32acc`` give up one of them on the card (the
-bf16 rounding of each product a*b before the f32 scale), so their terms
-differ from the plain versions' by up to 2^-8 of a term (see
-:func:`launch_route`).
+kernels 1 and 5 in f64, the bf16 tensor cores for both under
+``bf16_fp32acc``), is :func:`launch_route`'s answer. The plain versions keep
+the reference's roundings; kernels 1 and 5 and the chain kernel under
+``bf16_fp32acc`` give up one of them on the card (the bf16 rounding of each
+product a*b before the f32 scale), so their terms differ from the plain
+versions' by up to 2^-8 of a term (see :func:`launch_route`).
 """
 from __future__ import annotations
 
@@ -121,7 +120,10 @@ ROUTES = ("3xtf32", "2xtf32", "bf16_mma", "dmma", "cuda_cores")
 _WALK_KERNELS = ("fused_kron_scatter", "fused_kron_scatter_ttm", "fused_kron_chain_scatter")
 _ROUTED_KERNELS = _WALK_KERNELS + ("ttm", "kron_contrib", "scatter_rows")
 # the kernels whose bf16_fp32acc products run on the tensor cores
-_BF16_ROUTES = {"fused_kron_scatter": "bf16_mma", "fused_kron_chain_scatter": "2xtf32"}
+_BF16_ROUTES = {"fused_kron_scatter": "bf16_mma", "fused_kron_scatter_ttm": "bf16_mma",
+                "fused_kron_chain_scatter": "2xtf32"}
+# the kernels whose f64 products run on the f64 tensor cores
+_F64_DMMA = ("fused_kron_scatter", "fused_kron_scatter_ttm", "ttm")
 
 
 def launch_route(kernel: str, dtype: torch.dtype, precision: str = "fp32") -> str:
@@ -130,20 +132,20 @@ def launch_route(kernel: str, dtype: torch.dtype, precision: str = "fp32") -> st
     under ``precision``, as its source picks it by the operand code:
 
     * float64 at ``fp32``: ``"dmma"`` for kernel 1 (``fused_kron_scatter``,
-      the walk's f64 tensor-core route) and kernel 2 (``ttm``);
-      ``"cuda_cores"`` for kernel 5 (``fused_kron_scatter_ttm``, whose row
-      end contracts the walk's lane tiles) and the chain kernel
+      the walk's f64 tensor-core route), kernel 5 (``fused_kron_scatter_ttm``:
+      that walk, and its rounds U_j^T Y_j on DMMA too) and kernel 2
+      (``ttm``); ``"cuda_cores"`` for the chain kernel
       (``fused_kron_chain_scatter``);
     * float32 at ``fp32``: ``"3xtf32"`` for the three walk kernels,
       ``"cuda_cores"`` for kernel 2;
-    * ``bf16_fp32acc`` (either dtype): ``"bf16_mma"`` for kernel 1
-      (``mma.sync`` m16n8k16 bf16: A the bf16 factor rows, B v b split into
-      bf16 hi + lo), ``"2xtf32"`` for the chain kernel (A f_1 exact in
-      TF32, B v (f_2 (x) ...) split into two TF32 parts); both give up the
-      plain versions' bf16 rounding of each product a*b (up to 2^-8 of a
-      term), and sum nearer the exact sum; ``"cuda_cores"`` for kernels 5
-      and 2, kernel 5 rounding each product to bf16 as the plain version
-      does;
+    * ``bf16_fp32acc`` (either dtype): ``"bf16_mma"`` for kernels 1 and 5
+      (the walk on ``mma.sync`` m16n8k16 bf16: A the bf16 factor rows, B v b
+      split into bf16 hi + lo; kernel 5's rounds then take U, exact in
+      TF32, times Y split into two TF32 parts), ``"2xtf32"`` for the chain
+      kernel (A f_1 exact in TF32, B v (f_2 (x) ...) split into two TF32
+      parts); all three give up the plain versions' bf16 rounding of each
+      product a*b (up to 2^-8 of a term), and sum nearer the exact sum;
+      ``"cuda_cores"`` for kernel 2;
     * kernels 3 and 4 (``kron_contrib``, ``scatter_rows``): ``"cuda_cores"``.
     """
     if kernel not in _ROUTED_KERNELS:
@@ -157,7 +159,7 @@ def launch_route(kernel: str, dtype: torch.dtype, precision: str = "fp32") -> st
     if precision == "bf16_fp32acc":
         return _BF16_ROUTES.get(kernel, "cuda_cores")
     if dtype == torch.float64:
-        return "dmma" if kernel in ("fused_kron_scatter", "ttm") else "cuda_cores"
+        return "dmma" if kernel in _F64_DMMA else "cuda_cores"
     return "3xtf32" if kernel in _WALK_KERNELS else "cuda_cores"
 
 
@@ -529,7 +531,8 @@ def _mega_lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 10 + [i] * 11 + [p]
         fn.restype = ctypes.c_int
-        grid.argtypes = [i] * 7 + [ctypes.POINTER(i)] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+        grid.argtypes = ([i] * 7 + [ctypes.POINTER(i)] * 4
+                         + [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(i)])
         grid.restype = ctypes.c_int
     return fn, grid
 
@@ -541,16 +544,16 @@ def mega_grid(dev: torch.device, ra: int, rb: int, lda: int, ldb: int, r: int, k
     factor row lengths ``lda`` and ``ldb`` (0 for a 2-way tensor), R and
     the operand code ``kind`` (:func:`_kind`: 0 f32, 1 bf16, 2 f64):
     ``threads`` per CTA, the CTAs one SM holds (``ctas_per_sm``), ``n_ctas``
-    CTAs of ``per_cta`` ranges each, and ``smem_bytes`` per CTA. Raises when
-    no CTA fits an SM."""
+    CTAs of ``per_cta`` ranges each, ``smem_bytes`` per CTA and the first
+    pass's ``registers`` a thread. Raises when no CTA fits an SM."""
     _, fn = _mega_lib()
     ints = [ctypes.c_int(0) for _ in range(4)]
-    smem = ctypes.c_longlong(0)
+    smem, regs = ctypes.c_longlong(0), ctypes.c_int(0)
     with torch.cuda.device(dev):
         rc = fn(ra, rb, lda, ldb, r, kind, n_parts, *(ctypes.byref(x) for x in ints),
-                ctypes.byref(smem))
+                ctypes.byref(smem), ctypes.byref(regs))
     grid = dict(zip(("threads", "ctas_per_sm", "n_ctas", "per_cta"), (x.value for x in ints)),
-                smem_bytes=smem.value)
+                smem_bytes=smem.value, registers=regs.value)
     if rc != 0:
         raise RuntimeError(f"fused_kron_scatter_ttm: no launch for R = {r} at ranks "
                            f"({ra}, {rb}), {grid}: CUDA error {rc} (1: the staging, the held "
@@ -567,8 +570,11 @@ def fused_kron_scatter_ttm(fa, fb, u, sched, n_rows: int, *,
     factor rows are read through the schedule); ``u`` is the (n_rows, R)
     factor of the schedule's mode, of ``fa``'s dtype, rounded to bf16 with
     ``fa`` and ``fb`` under ``bf16_fp32acc``. G is f32, or f64 for f64
-    operands at ``fp32`` (:func:`result_dtype`), whose walk and contraction
-    run on the CUDA cores (:func:`launch_route`). The first pass runs as many
+    operands at ``fp32`` (:func:`result_dtype`). The walk and the
+    contraction run on the tensor cores in every precision: 3xTF32 in f32,
+    DMMA in f64, bf16 m16n8k16 and 2xTF32 under ``bf16_fp32acc``, whose
+    terms keep each product a*b unrounded (:func:`launch_route`). The first
+    pass runs as many
     CTAs as the card holds at once, each taking a run of the row split's
     ranges. CPU tensors run the plain version; CUDA tensors launch the
     kernels of ``csrc/kron_scatter_ttm.cu`` or raise.

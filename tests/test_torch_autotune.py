@@ -145,36 +145,90 @@ def test_shared_memory_model_is_the_launchers():
                                                    (33, 40, 49152, 40960),
                                                    (7, 0, 8192, 4096)])
 def test_ring_model_follows_each_f64_route(ra, rb, dmma, cuda_cores):
-    """Kernel 1's f64 ring (DMMA route) is staged in whole 16-double blocks
-    as the fp32 route's, kernel 5's f64 ring (CUDA cores) in 8-element rows
-    of whole 4 x 2 lane tiles (csrc/kron_walk.cuh staged_strides): at ranks
-    (13, 22) 2 x 32 x (16 + 32) x 8 bytes against 2 x 32 x (16 + 24) x 8; a
-    2-way tensor (rb = 0) stages a alone. Under bf16_fp32acc kernel 1 (bf16
-    m16n8k16) stages the same 16-element blocks in bf16, a quarter of the
-    f64 ring, and kernel 5 (CUDA cores) a quarter of its f64 lane-tile
-    ring."""
+    """Kernels 1 and 5 walk on the tensor cores in every precision and stage
+    alike (csrc/kron_walk.cuh staged_strides): whole 16-element blocks, at
+    ranks (13, 22) 2 x 32 x (16 + 32) x 8 bytes in f64 (DMMA); a 2-way
+    tensor (rb = 0) stages a alone; f32 the same blocks in 4 bytes, bf16 in
+    2 (a quarter of the f64 ring). The route left on the CUDA cores, the
+    chain kernel's f64 route, stages its first factor in whole 4-column lane
+    tiles and the next in 8-element rows: its two first factors' share of
+    the ring is 2 x 32 x (16 + 24) x 8 at (13, 22)."""
     assert at._ring_bytes(ra, rb, "fp32", "float64") == dmma
-    assert at._ring_bytes(ra, rb, "fp32", "float64", "fused_kron_scatter_ttm") == cuda_cores
+    assert at._ring_bytes(ra, rb, "fp32") == dmma // 2
     assert at._ring_bytes(ra, rb, "bf16_fp32acc") == dmma // 4
-    assert at._ring_bytes(ra, rb, "bf16_fp32acc", kernel="fused_kron_scatter_ttm") == cuda_cores // 4
-    # f32 rings are the same for both kernels
-    assert (at._ring_bytes(ra, rb, "fp32")
-            == at._ring_bytes(ra, rb, "fp32", kernel="fused_kron_scatter_ttm"))
+    assert at._ring_bytes(ra, rb, "bf16_fp32acc", "float64") == dmma // 4
+    assert at._chain_ring_bytes([ra, rb] if rb else [ra], "fp32", "float64") == cuda_cores
 
 
 def test_smem_model_keeps_kernel5s_f64_ring_on_the_fused_layout():
     """In f64 the split layout's prune counts kernel 1's DMMA rings; the
-    fused layout's counts kernel 5's CTA on its own, CUDA-core ring."""
+    fused layout's counts kernel 5's CTA of one warp on the last mode's
+    ring, the same DMMA ring, with its partial, held row and U in f64."""
     shape, ranks = (300, 200, 100), (13, 22, 10)
     split, fused = at.BlockConfig(), at.BlockConfig(layout="fused")
     dmma = [at._ring_bytes(*at._operand_ranks(ranks, m), "fp32", "float64") for m in range(3)]
     assert dmma == [24576, 16384, 24576]
     assert at.smem_bytes(split, shape, ranks, dtype="float64") == 24576
-    k5_ring = at._ring_bytes(22, 13, "fp32", "float64", "fused_kron_scatter_ttm")
-    assert k5_ring == 2 * 32 * (24 + 16) * 8
-    want = max(24576, at._mega_cta_bytes(1, 10, k5_ring, 8))
-    assert at.smem_bytes(fused, shape, ranks, dtype="float64") == want
-    assert want != max(24576, at._mega_cta_bytes(1, 10, dmma[2], 8))
+    k5_ring = at._ring_bytes(22, 13, "fp32", "float64")
+    assert k5_ring == 2 * 32 * (32 + 16) * 8 == dmma[2]
+    # ring, partial (one m16 tile x 32 n8 tiles), held rows (2 x 258), U (2 x 18), counters
+    want = k5_ring + 32 * 128 * 8 + 2 * 258 * 8 + 2 * 18 * 8 + 64
+    assert at._mega_cta_bytes(1, 10, k5_ring, 8) == want
+    assert at.smem_bytes(fused, shape, ranks, dtype="float64") == max(24576, want)
+
+
+def _shape_of(ra: int, rb: int, r: int, kind: int, smem_max: int = at.H100_SMEM_PER_BLOCK_OPTIN):
+    """csrc/kron_scatter_ttm.cu's shape_of, written out: the staged strides
+    (kron_walk.cuh staged_strides of the rows padded to 16 bytes), then as
+    many warps (at most 8) as fit ``smem_max`` with the ring, the partial,
+    the held rows and U (Smem); returns (warps, bytes), or None."""
+    elem, ev = {0: 4, 1: 2, 2: 8}[kind], 8 if kind == 2 else 4
+    per16 = 16 // elem
+    lda, ldb = -(-ra // per16) * per16, (-(-rb // per16) * per16 if rb else 0)
+    up = lambda x, m: -(-x // m) * m  # noqa: E731
+    sla = up(max(lda, up(ra, 16)), 16)
+    slb = up(max(ldb, up(rb, 16)), 16) if ldb else 0
+    ring = 2 * 32 * (sla + slb) * elem
+    rp, pad = up(r, 16), 2 if ev == 8 else 8
+    for nw in range(8, 0, -1):
+        total = (nw * ring + nw * (rp // 16) * -(-32 // nw) * 128 * ev
+                 + nw * 2 * (256 + pad) * ev + nw * 2 * (rp + pad) * ev + 64)
+        if total <= smem_max:
+            return nw, total
+    return None
+
+
+@pytest.mark.parametrize("precision,dtype,kind", [("fp32", "float64", 2),
+                                                  ("bf16_fp32acc", "float32", 1),
+                                                  ("bf16_fp32acc", "float64", 1),
+                                                  ("fp32", "float32", 0)])
+@pytest.mark.parametrize("ranks", [(16, 16, 16), (13, 17, 10), (17, 9, 11), (2, 1, 17),
+                                   (16, 16, 128), (7, 5)])
+def test_fused_layout_prune_is_kernel5s_shape(ranks, precision, dtype, kind):
+    """The fused layout's prune and kernel 5's CTA model agree with the
+    launcher's shape_of in f64 and bf16 (and f32), at ranks 16 and at 15g's
+    odd ranks: one warp's CTA is what smem_bytes counts for the last mode,
+    and the 8-warp CTA of the model is the launcher's where 8 warps fit."""
+    n = len(ranks)
+    ra, rb = at._operand_ranks(ranks, n - 1)
+    ring = at._ring_bytes(ra, rb, precision, dtype)
+    ev = at._sum_bytes(precision, dtype)
+    one = _shape_of(ra, rb, ranks[-1], kind, smem_max=1 << 30)
+    assert one[0] == 8 and at._mega_cta_bytes(8, ranks[-1], ring, ev) == one[1]
+    cut = _shape_of(ra, rb, ranks[-1], kind, smem_max=at._mega_cta_bytes(1, ranks[-1], ring, ev))
+    assert cut == (1, at._mega_cta_bytes(1, ranks[-1], ring, ev))
+    fused = at.BlockConfig(layout="fused")
+    shape = tuple(40 + 10 * m for m in range(n))
+    split_ring = max(at._ring_bytes(*at._operand_ranks(ranks, m), precision, dtype)
+                     for m in range(n))
+    if n == 3:
+        assert at.smem_bytes(fused, shape, ranks, precision, dtype) == max(
+            split_ring, at._mega_cta_bytes(1, ranks[-1], ring, ev))
+    fits = _shape_of(ra, rb, ranks[-1], kind) is not None
+    offered = any(c.layout == "fused"
+                  for c in at.candidate_configs(shape, ranks, 5000, precision=precision,
+                                                dtype=dtype))
+    assert offered == (fits and n == 3)
 
 
 # -- the table ------------------------------------------------------------------------

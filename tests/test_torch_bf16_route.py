@@ -1,10 +1,12 @@
 """The bf16_fp32acc tensor-core routes of repro_torch, modelled on the CPU:
 numpy models of the arithmetic of kernel 1's bf16 route
 (``csrc/kron_walk.cuh``, bf16 ``mma.sync`` m16n8k16, ``launch_route``
-``"bf16_mma"``) and of the chain kernel's (``csrc/kron_chain_scatter.cu``,
-``"2xtf32"``), each held against the reference's Pallas kernels in
-interpret mode under ``precision="bf16_fp32acc"``
-(``fused_kron_scatter_pallas``; ``kron_contrib_pallas`` chained into
+``"bf16_mma"``), of kernel 5's (``csrc/kron_scatter_ttm.cu``: that walk,
+then rounds U^T Y on 2xTF32) and of the chain kernel's
+(``csrc/kron_chain_scatter.cu``, ``"2xtf32"``), each held against the
+reference's Pallas kernels in interpret mode under
+``precision="bf16_fp32acc"`` (``fused_kron_scatter_pallas``;
+``fused_kron_scatter_ttm_pallas``; ``kron_contrib_pallas`` chained into
 ``scatter_rows_pallas``) and against the port's plain version.
 
 The card gives up one rounding of the reference on purpose: the bf16
@@ -18,7 +20,11 @@ order, each range's slots in blocks of 16 (kernel 1) or 8 (the chain) from
 the range's first slot, a block's products of one row summed (the
 remainder's, then the high part's added) and rounded to f32, then added to
 the row's f32 sum; on the chain the rows are cut at its equal-length
-ranges and their partial sums added in range order.
+ranges and their partial sums added in range order. Kernel 5 contracts
+kernel 1's rows in its rounds (``test_torch_f64.kernel5_rounds``): U (bf16,
+exact in TF32) times Y split into two TF32 parts, the remainder's products
+summed and rounded to f32, the high part's added, then added to the CTA's
+f32 partial; the partials summed in CTA order.
 
 Tolerances:
   * against the plain version and against the reference: 2e-2 x
@@ -35,12 +41,13 @@ import torch
 
 from repro.core.coo import SparseCOO as JCOO
 from repro.kernels import ops as jops
-from repro.kernels.kron_kernel import fused_kron_scatter_pallas
+from repro.kernels.kron_kernel import fused_kron_scatter_pallas, fused_kron_scatter_ttm_pallas
 from repro.sparse.layout import build_mode_layout as jbuild
 from repro_torch.core.coo import SparseCOO
 from repro_torch.kernels import kron_kernel
 from repro_torch.sparse.layout import (DeviceSchedule, build_mode_layout, operand_modes,
                                        slot_rows)
+from test_torch_f64 import kernel5_rounds, reduce_in_cta_order
 
 TOL = 2e-2  # x max|plain|
 SUM_SLACK = 2.0 ** -14  # x max|exact|: the models' f32 sums
@@ -102,6 +109,29 @@ def _bf16_mma_model(fa, fb, sched, n_rows: int) -> np.ndarray:
         for row, acc in _range_sums(lo, hi, rows, v != 0, int(p0), int(p1), 16):
             out[row] = acc
     return out
+
+
+def _kernel5_bf16_model(fa, fb, u, sched, n_rows: int, held: int) -> np.ndarray:
+    """Kernel 5's bf16 route: Y's rows by ``_bf16_mma_model``, then in each
+    round of ``kernel5_rounds`` (a card holding ``held`` CTAs at once) U in
+    bf16 (exact in TF32) times Y split into two TF32 parts: the
+    remainder's products summed and rounded to f32, the high part's added
+    and rounded to f32, then added to the CTA's f32 partial; the partials
+    summed in f32 in CTA order."""
+    y = _bf16_mma_model(fa, fb, sched, n_rows)
+    ub = _bf16(u.numpy()).astype(np.float64)
+    rb = 1 if fb is None else fb.shape[1]
+    partials = []
+    for rounds in kernel5_rounds(sched, fa.shape[1], rb, held):
+        acc = np.zeros((ub.shape[1], y.shape[1]), np.float32)
+        for rows in rounds:
+            hi, lo = _tf32_split(y[rows])
+            a = ub[rows]
+            d = (a.T @ lo.astype(np.float64)).astype(np.float32)
+            d = (d.astype(np.float64) + a.T @ hi.astype(np.float64)).astype(np.float32)
+            acc = acc + d  # f32 + f32, rounded to nearest
+        partials.append(acc)
+    return reduce_in_cta_order(partials)
 
 
 def _chain_2xtf32_model(factors, sched, n_rows: int) -> np.ndarray:
@@ -183,7 +213,9 @@ KERNEL1_CASES = [  # label, shape, ranks (of the modes), nnz, long row 0, bn, bi
 ]
 
 
-def _kernel1_case(idx, vals, shape, ranks, rng, bn, bi, modes=None):
+def _kernel1_case(idx, vals, shape, ranks, rng, bn, bi, modes=None, kernel5_held=None):
+    """Kernel 1's model, or with ``kernel5_held`` kernel 5's (on a card
+    holding that many CTAs at once), checked every mode."""
     fs = [rng.standard_normal((s, r)).astype(np.float32) for s, r in zip(shape, ranks)]
     jc, tc = JCOO.from_parts(idx, vals, shape), SparseCOO.from_parts(idx, vals, shape)
     tfs = [torch.from_numpy(f) for f in fs]
@@ -192,21 +224,29 @@ def _kernel1_case(idx, vals, shape, ranks, rng, bn, bi, modes=None):
         jlay = jbuild(jc, mode, bn=bn, bi=bi)
         jrows, jv = jops._gathered_block_rows(jc.indices, jc.values,
                                               [jnp.asarray(f) for f in fs], mode, jlay, n)
-        ref = fused_kron_scatter_pallas(*jrows, jv, jlay, shape[mode], interpret=True,
-                                        precision="bf16_fp32acc")
         sched = DeviceSchedule.from_layout(build_mode_layout(tc, mode, bn=bn, bi=bi), tc)
         m = operand_modes(n, mode)
         fa, fb = tfs[m[0]], (tfs[m[1]] if n == 3 else None)
-        plain = kron_kernel.fused_kron_scatter(fa, fb, sched, shape[mode],
-                                               precision="bf16_fp32acc").numpy()
-        model = _bf16_mma_model(fa, fb, sched, shape[mode])
         a = _bf16(fa.numpy()[sched.idx[:, 0].numpy()]).astype(np.float64)
         b = (np.ones((a.shape[0], 1)) if fb is None
              else _bf16(fb.numpy()[sched.idx[:, 1].numpy()]).astype(np.float64))
         terms = (a[:, :, None] * b[:, None, :]).reshape(a.shape[0], -1)
         exact = _exact(slot_rows(sched).numpy(), terms * sched.vals.numpy()[:, None],
                        shape[mode])
-        _check(model, plain, ref, exact)
+        if kernel5_held is None:
+            ref = fused_kron_scatter_pallas(*jrows, jv, jlay, shape[mode], interpret=True,
+                                            precision="bf16_fp32acc")
+            plain = kron_kernel.fused_kron_scatter(fa, fb, sched, shape[mode],
+                                                   precision="bf16_fp32acc").numpy()
+            _check(_bf16_mma_model(fa, fb, sched, shape[mode]), plain, ref, exact)
+            continue
+        u = tfs[mode]
+        ref = fused_kron_scatter_ttm_pallas(*jrows, jv, jnp.asarray(fs[mode]), jlay, shape[mode],
+                                            interpret=True, precision="bf16_fp32acc")
+        plain = kron_kernel.fused_kron_scatter_ttm(fa, fb, u, sched, shape[mode],
+                                                   precision="bf16_fp32acc").numpy()
+        model = _kernel5_bf16_model(fa, fb, u, sched, shape[mode], kernel5_held)
+        _check(model, plain, ref, _bf16(u.numpy()).astype(np.float64).T @ exact)
 
 
 @pytest.mark.parametrize("label,shape,ranks,nnz,row0,bn,bi", KERNEL1_CASES,
@@ -222,6 +262,27 @@ def test_kernel1_bf16_mma_model_on_a_cancelling_row():
     shape = (12, 40, 30)
     idx, vals = _cancelling(shape, 1500, rng)
     _kernel1_case(idx, vals, shape, (6, 16, 9), rng, 128, 128, modes=(0,))
+
+
+@pytest.mark.parametrize("held", [264, 2])
+@pytest.mark.parametrize("label,shape,ranks,nnz,row0,bn,bi", KERNEL1_CASES,
+                         ids=[c[0] for c in KERNEL1_CASES])
+def test_kernel5_bf16_model_within_the_bf16_limit(label, shape, ranks, nnz, row0, bn, bi, held):
+    """Kernel 5's bf16 route (kernel 1's bf16 rows, rounds on 2xTF32 with U
+    in bf16) within the bf16 limit of its plain version and of the
+    reference's megakernel, and no further than the plain version from the
+    f64 sum U^T Y of the bf16-operand terms: with two CTAs of an H100's 132
+    SMs at once, and with 2 CTAs (rounds of several warps' rows)."""
+    rng = np.random.default_rng(34)
+    idx, vals = _tensor(shape, nnz, rng, row0)
+    _kernel1_case(idx, vals, shape, ranks, rng, bn, bi, kernel5_held=held)
+
+
+def test_kernel5_bf16_model_on_a_cancelling_row():
+    rng = np.random.default_rng(35)
+    shape = (12, 40, 30)
+    idx, vals = _cancelling(shape, 1500, rng)
+    _kernel1_case(idx, vals, shape, (6, 16, 9), rng, 128, 128, kernel5_held=2)
 
 
 CHAIN_CASES = [  # label, shape, ranks, nnz, long row 0, slots a range
@@ -303,13 +364,17 @@ def test_the_routes_give_up_the_product_rounding():
 PHASE3_BF16 = {"fit": 2.0 ** -8, "proj": 2.0 ** -4, "core": 2.0 ** -6}
 
 
-def _unrounded_products(monkeypatch):
+def _unrounded_products(monkeypatch) -> dict:
     """Make the plain versions form the card's bf16_fp32acc terms: the
     products of the bf16 operands kept in f32 (exact) instead of rounded to
-    bf16, then scaled by the f32 value (within 2^-16 of the kernels' terms)."""
+    bf16, then scaled by the f32 value (within 2^-16 of the kernels' terms).
+    Kernel 5's plain version builds its Y through kernel 1's, so it takes
+    them too. Returns the calls of the patched kernel 1 by precision."""
     plain, rows = kron_kernel.fused_kron_scatter_plain, kron_kernel._kron_rows
+    calls = {"fp32": 0, "bf16_fp32acc": 0}
 
     def kernel1(fa, fb, sched, n_rows, *, precision="fp32"):
+        calls[precision] += 1
         if precision != "bf16_fp32acc":
             return plain(fa, fb, sched, n_rows, precision=precision)
         a = fa.index_select(0, sched.idx[:, 0]).bfloat16().float()
@@ -329,17 +394,20 @@ def _unrounded_products(monkeypatch):
 
     monkeypatch.setattr(kron_kernel, "fused_kron_scatter_plain", kernel1)
     monkeypatch.setattr(kron_kernel, "_kron_rows", link)
+    return calls
 
 
-@pytest.mark.parametrize("shape,density,ranks,seed,dist", [
-    ((1000, 1000, 1000), 2.4e-5, (16, 16, 16), 11, "uniform"),
-    ((60, 50, 40, 10), 2e4 / (60 * 50 * 40 * 10), (4, 4, 4, 4), 13, "counts")],
-    ids=["3-way", "4-way"])
+@pytest.mark.parametrize("shape,density,ranks,seed,dist,fuse_core", [
+    ((1000, 1000, 1000), 2.4e-5, (16, 16, 16), 11, "uniform", False),
+    ((60, 50, 40, 10), 2e4 / (60 * 50 * 40 * 10), (4, 4, 4, 4), 13, "counts", False),
+    ((1000, 1000, 1000), 2.4e-5, (16, 16, 16), 11, "uniform", True)],
+    ids=["3-way", "4-way", "3-way fuse_core"])
 def test_card_terms_keep_phase3_within_its_bf16_tolerances(monkeypatch, shape, density, ranks,
-                                                           seed, dist):
+                                                           seed, dist, fuse_core):
     """Phase 3's bf16_fp32acc cases of chip_smoke.py: 5 sweeps from the same
     factors with the plain versions' terms and with the card's (products
-    unrounded) stay within its BF16_CARD_VS_CPU limits, with room."""
+    unrounded; with ``fuse_core`` kernel 5's too) stay within its
+    BF16_CARD_VS_CPU limits, with room."""
     from repro_torch import tucker
     from repro_torch.core.engine import make_engine
     from repro_torch.core.ttm import ttm
@@ -353,15 +421,17 @@ def test_card_terms_keep_phase3_within_its_bf16_tolerances(monkeypatch, shape, d
 
     def run():
         tucker.clear_plan_cache()
-        eng = make_engine("auto", "cpu", precision="bf16_fp32acc")
+        eng = make_engine("auto", "cpu", precision="bf16_fp32acc", fuse_core=fuse_core)
         return tucker.plan(spec, device="cpu", engine=eng)(
             x, factors_init=[torch.from_numpy(f) for f in f0])
 
     cpu = run()
     with monkeypatch.context() as m:
-        _unrounded_products(m)
+        calls = _unrounded_products(m)
         card = run()
     tucker.clear_plan_cache()
+    if len(shape) == 3:  # kernel 1 a mode a sweep, and kernel 5's Y once a sweep
+        assert calls["bf16_fp32acc"] == 5 * (4 if fuse_core else 3)
     assert np.isfinite(card.fit_history).all()
     assert np.abs(card.fit_history - cpu.fit_history).max() <= PHASE3_BF16["fit"] / 4
     proj = max(float((a @ a.T - b @ b.T).abs().max()) for a, b in zip(card.factors, cpu.factors))

@@ -25,7 +25,11 @@ Tolerances:
     rounded once, its products with b summed in blocks of k slots, each
     block added to the row's f64 sum) against the f64 plain version at
     NELL-2's longest rows (~8.4 K terms): ``chip_smoke.py``'s fp64 rule,
-    max(1e-13, 4 sqrt(n) 2^-53) x max|plain|, the one the card is held to.
+    max(1e-13, 4 sqrt(n) 2^-53) x max|plain|, the one the card is held to;
+    and of kernel 5's f64 route (that walk's rows contracted with U in
+    rounds of one row a warp, each round added to its CTA's f64 partial,
+    the partials summed in CTA order) against the f64 plain version, by the
+    same rule with n the tensor's nonzeros.
 """
 import jax
 import jax.numpy as jnp
@@ -255,12 +259,13 @@ def test_autotune_prunes_f64_rings_that_do_not_fit():
 
 
 def test_autotune_offers_and_prunes_the_fused_f64_layout():
-    """Kernel 5's f64 CTA counts its partial, held rows and U at 8 bytes: at
-    core rank 16 it fits (an 8-warp CTA is the launcher's 196 KB), at core
-    rank 128 the partial of one warp alone is 256 KB, so the fused layout
-    is pruned in f64 but kept in f32, where it is 128 KB."""
+    """Kernel 5's f64 CTA counts its partial, held rows and U at 8 bytes
+    (rows padded by 2 doubles): at core rank 16 it fits (an 8-warp CTA is
+    the launcher's 195 KB), at core rank 128 the partial of one warp alone
+    is 256 KB, so the fused layout is pruned in f64 but kept in f32, where
+    it is 128 KB."""
     ring = at._ring_bytes(16, 16, "fp32", "float64")
-    assert at._mega_cta_bytes(8, 16, ring, 8) == 131072 + 32768 + 33792 + 3072 + 64
+    assert at._mega_cta_bytes(8, 16, ring, 8) == 131072 + 32768 + 33024 + 2304 + 64
     assert at._mega_cta_bytes(8, 16, ring, 8) <= at.H100_SMEM_PER_BLOCK_OPTIN
     shape = (300, 300, 300)
     fused = at.BlockConfig(layout="fused")
@@ -343,7 +348,7 @@ def test_f64_fuse_core_runs_on_the_cpu():
 _ROUTES = {  # (kernel, dtype, precision) -> the datapath its CUDA source takes
     ("fused_kron_scatter", "float64", "fp32"): "dmma",
     ("ttm", "float64", "fp32"): "dmma",
-    ("fused_kron_scatter_ttm", "float64", "fp32"): "cuda_cores",
+    ("fused_kron_scatter_ttm", "float64", "fp32"): "dmma",
     ("fused_kron_chain_scatter", "float64", "fp32"): "cuda_cores",
     ("kron_contrib", "float64", "fp32"): "cuda_cores",
     ("scatter_rows", "float64", "fp32"): "cuda_cores",
@@ -356,7 +361,7 @@ _ROUTES = {  # (kernel, dtype, precision) -> the datapath its CUDA source takes
     **{(k, d, "bf16_fp32acc"): route
        for k, route in (("fused_kron_scatter", "bf16_mma"),
                         ("fused_kron_chain_scatter", "2xtf32"),
-                        ("fused_kron_scatter_ttm", "cuda_cores"), ("ttm", "cuda_cores"),
+                        ("fused_kron_scatter_ttm", "bf16_mma"), ("ttm", "cuda_cores"),
                         ("kron_contrib", "cuda_cores"), ("scatter_rows", "cuda_cores"))
        for d in ("float32", "float64")},
 }
@@ -364,10 +369,10 @@ _ROUTES = {  # (kernel, dtype, precision) -> the datapath its CUDA source takes
 
 @pytest.mark.parametrize("kernel,dtype,precision", sorted(_ROUTES))
 def test_launch_route_names_each_kernels_datapath(kernel, dtype, precision):
-    """Kernel 1 and kernel 2 in f64 at fp32 run on DMMA; under bf16_fp32acc
-    kernel 1 on bf16 m16n8k16 and the chain kernel on 2xTF32; kernel 5 and
-    the chain kernel in f64, kernels 2 and 5 under bf16_fp32acc and kernels
-    2-4 in f32 on the CUDA cores; the walk kernels in f32 on 3xTF32."""
+    """Kernels 1, 2 and 5 in f64 at fp32 run on DMMA; under bf16_fp32acc
+    kernels 1 and 5 on bf16 m16n8k16 and the chain kernel on 2xTF32; the
+    chain kernel in f64, kernel 2 under bf16_fp32acc and kernels 2-4 in f32
+    on the CUDA cores; the walk kernels in f32 on 3xTF32."""
     route = kron_kernel.launch_route(kernel, getattr(torch, dtype), precision)
     assert route == _ROUTES[(kernel, dtype, precision)] and route in kron_kernel.ROUTES
 
@@ -388,8 +393,8 @@ def _dmma_model(sched, fa, fb, n_rows, k):
     idx, v = sched.idx.numpy(), sched.vals.numpy()
     rows = slot_rows(sched).numpy()
     va = v[:, None] * fa.numpy()[idx[:, 0]]
-    b = fb.numpy()[idx[:, 1]]
-    out = np.zeros((n_rows, fa.shape[1] * fb.shape[1]))
+    b = np.ones((idx.shape[0], 1)) if fb is None else fb.numpy()[idx[:, 1]]  # 2-way: ones
+    out = np.zeros((n_rows, va.shape[1] * b.shape[1]))
     live = np.flatnonzero(v != 0)  # padding adds nothing, as in the walk
     starts = np.flatnonzero(np.diff(rows[live], prepend=-1))
     for s, e in zip(starts, list(starts[1:]) + [live.size]):
@@ -431,6 +436,119 @@ def test_dmma_term_order_within_the_fp64_rule(signs, k):
     tol = max(1e-13, 4 * n_terms ** 0.5 * 2.0 ** -53) * np.abs(want).max()
     assert np.abs(got - want).max() <= tol
     assert not np.array_equal(got, want)  # the term order and rounding do differ
+
+
+# -- kernel 5's f64 route: the walk on DMMA, its rounds on DMMA too --------------
+
+
+def kernel5_rounds(sched, ra: int, rb: int, held: int, warps: int = 8) -> list:
+    """The rows of each of kernel 5's rounds, as ``csrc/kron_scatter_ttm.cu``
+    orders them on a card that holds ``held`` of its CTAs at once (CTAs an
+    SM x SMs; the first pass's grid of ``kron_scatter_ttm_grid``): CTA x takes
+    ``per_cta`` consecutive ranges of ``sched.parts``, its warp w the ranges
+    x per_cta + w, + warps, ...; a warp finishes the rows its slots of value
+    != 0 reach, in slot order; round j takes every warp's j-th finished row,
+    in warp order. Returns, for each CTA in order, its rounds' row lists."""
+    rows, v, parts = slot_rows(sched).numpy(), sched.vals.numpy(), sched.parts.numpy()
+    n_parts = parts.size - 1
+    ctas = min(max(1, held // (-(-ra // 16) * -(-rb // 16))), n_parts)
+    per_cta = -(-n_parts // ctas)
+
+    def finished(p):
+        r = rows[parts[p]:parts[p + 1]][v[parts[p]:parts[p + 1]] != 0]
+        return list(r[np.flatnonzero(np.diff(r, prepend=-1))])
+
+    out = []
+    for first in range(0, n_parts, per_cta):
+        last = min(first + per_cta, n_parts)
+        held = [[row for p in range(first + w, last, warps) for row in finished(p)]
+                for w in range(warps)]
+        out.append([[h[j] for h in held if j < len(h)] for j in range(max(map(len, held)))])
+    return out
+
+
+def reduce_in_cta_order(partials: list):
+    """``kron_scatter_ttm_reduce_kernel``'s sum of the CTA partials: warp w
+    sums CTAs w, w + 8, ... in order, then the eight warp sums in order."""
+    warp_sums = []
+    for w in range(min(8, len(partials))):
+        acc = partials[w]
+        for c in range(w + 8, len(partials), 8):
+            acc = acc + partials[c]
+        warp_sums.append(acc)
+    out = warp_sums[0]
+    for acc in warp_sums[1:]:
+        out = out + acc
+    return out
+
+
+def _kernel5_dmma_model(sched, fa, fb, u, n_rows: int, held: int):
+    """Kernel 5's f64 route in numpy: Y's rows as kernel 1's DMMA walk sums
+    them (``_dmma_model``, blocks of 8), each round's U[row]^T y_row summed
+    in warp order and added to its CTA's f64 partial, the partials summed
+    by ``reduce_in_cta_order``."""
+    y, un = _dmma_model(sched, fa, fb, n_rows, 8), u.numpy()
+    rb = 1 if fb is None else fb.shape[1]
+    partials = []
+    for rounds in kernel5_rounds(sched, fa.shape[1], rb, held):
+        acc = np.zeros((un.shape[1], y.shape[1]))
+        for held in rounds:
+            d = np.zeros_like(acc)
+            for row in held:
+                d = d + np.outer(un[row], y[row])
+            acc = acc + d
+        partials.append(acc)
+    return reduce_in_cta_order(partials)
+
+
+KERNEL5_CASES = [  # label, shape, ranks, nnz, modes, slots a range
+    ("NELL-2-like rows of ~3,200 slots", (300, 200, 40), (16, 16, 16), 108_000, (2,), 1024),
+    ("15g's ranks 13, 17, 10", (100, 80, 60), (13, 17, 10), 5000, (0, 1, 2), 64),
+    ("15g's ranks 17, 9, 11", (40, 30, 20), (17, 9, 11), 2500, (0, 1, 2), 64),
+    ("R = 17 and R = 1 (not multiples of 8)", (70, 60, 50), (2, 1, 17), 3000, (0, 1, 2), 64),
+    ("2-way, ranks 7, 5", (60, 50), (7, 5), 700, (0, 1), 32),
+]
+
+
+def kernel5_case(shape, ranks, nnz: int, seed: int, dtype=np.float64):
+    """15g's inputs: uniform coordinates, a fifth of them repeated, normal
+    values (uniform positive ones and non-negative factors for the NELL-2-like
+    case), orthonormal factors; as (coo, factors) on the CPU."""
+    rng = np.random.default_rng(seed)
+    idx = np.stack([rng.integers(0, s, nnz) for s in shape], 1)
+    idx = np.concatenate([idx, idx[:nnz // 5]]).astype(np.int32)
+    positive = nnz >= 100_000
+    vals = rng.uniform(0.1, 10.0, idx.shape[0]) if positive else rng.standard_normal(idx.shape[0])
+    fs = [np.linalg.qr(rng.standard_normal((s, r)))[0] for s, r in zip(shape, ranks)]
+    fs = [np.abs(f) if positive else f for f in fs]
+    return (SparseCOO.from_parts(idx, vals.astype(dtype), shape),
+            [torch.from_numpy(f.astype(dtype)) for f in fs])
+
+
+@pytest.mark.parametrize("held", [132, 2])
+@pytest.mark.parametrize("label,shape,ranks,nnz,modes,spp", KERNEL5_CASES,
+                         ids=[c[0] for c in KERNEL5_CASES])
+def test_kernel5_dmma_rounds_within_the_fp64_rule(label, shape, ranks, nnz, modes, spp, held):
+    """Kernel 5's f64 arithmetic (the DMMA walk's rows, rounds of one row a
+    warp in warp order into each CTA's f64 partial, the partials in CTA
+    order) stays within the fp64 rule of the f64 plain version, with an
+    H100's 132 CTAs at once (one an SM) and with 2 (every warp then takes
+    several ranges, and a round 8 rows)."""
+    coo, fs = kernel5_case(shape, ranks, nnz, 35)
+    n = len(shape)
+    for mode in modes:
+        sched = DeviceSchedule.from_layout(build_mode_layout(coo, mode), coo,
+                                           slots_per_part=spp)
+        m = operand_modes(n, mode)
+        fa, fb = fs[m[0]], (fs[m[1]] if n == 3 else None)
+        want = kron_kernel.fused_kron_scatter_ttm_plain(fa, fb, fs[mode], sched,
+                                                        shape[mode]).numpy()
+        got = _kernel5_dmma_model(sched, fa, fb, fs[mode], shape[mode], held)
+        tol = max(1e-13, 4 * coo.nnz ** 0.5 * 2.0 ** -53) * np.abs(want).max()
+        assert np.abs(got - want).max() <= tol
+        if held == 2 and spp < 1024:
+            assert max(len(r) for c in kernel5_rounds(sched, fa.shape[1], 1 if fb is None
+                                                      else fb.shape[1], 2) for r in c) == 8
 
 
 # -- kernel 2's f64 split: clusters of 8 CTAs, fixed-order combine ---------------
